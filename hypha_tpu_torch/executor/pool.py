@@ -1,0 +1,505 @@
+"""Continuous batching over a paged KV pool (counterpart of the paged mode
+of ``hypha_tpu/executor/pool.py``).
+
+One pool owns the device from a dedicated serve thread. K/V live in
+``num_blocks`` physical blocks of ``block_size`` positions shared by every
+decode lane, mapped through per-lane block tables (``ops/kvcache.py``
+paged layout). Each serve-loop iteration:
+
+* admits waiting groups FIFO when their prompt blocks fit above the
+  watermark ``reserve_blocks`` (an empty pool admits anything that fits);
+* runs one chunked-prefill forward of shape ``[slots, prefill_chunk]`` for
+  the lanes still prefilling (per-column argmax gives each lane's first
+  token from the column of its last prompt token);
+* runs one decode chunk of ``steps_per_call`` forwards for the decoding
+  lanes, argmax on the device, with ONE host sync per chunk;
+* releases lanes at EOS or budget. When a lane cannot grow, the youngest
+  other group is preempted to the head of the queue and later resumes by
+  recompute, with its emitted tokens folded into its prompt, so its greedy
+  stream equals an uncontended run.
+
+The host owns the row variables (``idx``, ``start``, ``table``) and writes
+them into the cache tensors in place before every dispatch; idle lanes
+park at ``idx = max_len``, so their writes land in the garbage block.
+
+Greedy only: sampled requests take ``PoolServer``'s one-shot fallback.
+Options of the JAX pool that this port does not have yet raise
+``NotImplementedError`` naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import logging
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..ops.kvcache import KVCache
+from .block_cache import PrefixBlockCache
+
+__all__ = ["DecodePool", "PoolBusy"]
+
+log = logging.getLogger("hypha.torch.executor.pool")
+
+# Pool options of the JAX package that wait for a later slice of the port.
+_NOT_PORTED = {
+    "prefix_cache": "prefix cache with copy_blocks",
+    "spec_ngram": "speculative decoding",
+    "spec_layers": "speculative decoding",
+    "draft_model": "speculative decoding",
+    "fleet_cache": "fleet cache and KV migration",
+    "kv_migration": "fleet cache and KV migration",
+}
+
+
+class PoolBusy(RuntimeError):
+    """Backpressure: the waiting line is full; retry after ``retry_after_s``."""
+
+    def __init__(self, retry_after_s: float) -> None:
+        super().__init__(f"pool queue is full; retry after {retry_after_s:.2f}s")
+        self.retry_after_s = retry_after_s
+
+
+@dataclass
+class _Group:
+    prompts: list
+    n_new: int
+    fut: Future
+    rows: dict = field(default_factory=dict)  # lane -> _PRow
+    order: int = -1  # admission sequence; preemption picks the youngest
+
+
+@dataclass
+class _PRow:
+    """One prompt's state. ``prompt`` and ``emitted`` survive preemption;
+    the lane, window and blocks are rebuilt at re-admission."""
+
+    group: _Group
+    lane: int
+    prompt: list
+    budget: int
+    emitted: list = field(default_factory=list)
+    done: bool = False
+    slot: int = -1
+    window: int = 0  # prefill target: len(prompt + emitted) at admission
+    pos: int = 0  # logical write index: prefill progress, then decode
+    blocks: list = field(default_factory=list)
+    win_tokens: Any = None  # np[window + prefill_chunk] resume prompt
+
+
+class DecodePool:
+    """Paged continuous-batching pool over a ``models.llama.Llama``.
+
+    ``submit`` is thread-safe and returns a Future resolving to one token
+    list per prompt. ``close()`` fails queued and in-flight requests."""
+
+    def __init__(
+        self,
+        model,
+        *,
+        slots: int = 8,
+        max_len: int = 512,
+        steps_per_call: int = 8,
+        eos_token_id: "int | None" = None,
+        block_size: int = 0,
+        num_blocks: int = 0,
+        prefill_chunk: int = 0,
+        reserve_blocks: int = -1,
+        max_queue: int = 0,
+        ragged: bool = False,
+        kv_quant: str = "",
+        **not_ported: Any,
+    ) -> None:
+        for name, value in not_ported.items():
+            if name not in _NOT_PORTED:
+                raise TypeError(f"unexpected pool option {name!r}")
+            if value:
+                raise NotImplementedError(
+                    f"{name} is not ported yet: ROADMAP.md, Queue 1, "
+                    f"'{_NOT_PORTED[name]}'"
+                )
+        if block_size <= 0:
+            raise NotImplementedError(
+                "fixed-slot mode (block_size=0) is not ported yet: "
+                "ROADMAP.md, Queue 1, 'fixed-slot pool mode'"
+            )
+        if not hasattr(model, "config") or not hasattr(model.config, "num_kv_heads"):
+            raise ValueError(f"{type(model).__name__} has no per-row decode path")
+        if kv_quant not in ("", "int8"):
+            raise ValueError(f"unknown kv_quant {kv_quant!r}")
+        if max_len % block_size != 0:
+            raise ValueError(f"max_len {max_len} must be a multiple of block_size {block_size}")
+        if prefill_chunk <= 0:
+            prefill_chunk = min(max_len, 4 * block_size)
+        if max_len % prefill_chunk != 0:
+            raise ValueError(
+                f"max_len {max_len} must be a multiple of prefill_chunk {prefill_chunk}"
+            )
+        if prefill_chunk % block_size != 0:
+            # A non-multiple would map the prompt tail to the garbage block.
+            raise ValueError(
+                f"prefill_chunk {prefill_chunk} must be a multiple of block_size {block_size}"
+            )
+        if num_blocks <= 0:
+            num_blocks = slots * max_len // block_size
+        self._model = model
+        self._device = model.device
+        self.slots, self.max_len = slots, max_len
+        self.steps_per_call = steps_per_call
+        self.eos_token_id = eos_token_id
+        self.block_size, self.num_blocks = block_size, num_blocks
+        self.prefill_chunk = prefill_chunk
+        self.ragged, self.kv_quant = bool(ragged), kv_quant
+        self.reserve_blocks = slots if reserve_blocks < 0 else reserve_blocks
+        self.max_queue = max(int(max_queue), 0)
+        with torch.inference_mode():
+            self._cache = KVCache.for_model(
+                model, slots, max_len, per_row=True, blocks=num_blocks,
+                block_size=block_size, kv_quant=kv_quant, ragged=self.ragged,
+            )
+        self._alloc = PrefixBlockCache(num_blocks, block_size)
+        self._lane_rows: dict = {}
+        self._free_lanes = list(range(slots))
+        self._h_idx = np.full((slots,), max_len, np.int32)
+        self._h_start = np.zeros((slots,), np.int32)
+        self._h_table = np.full((slots, max_len // block_size), num_blocks, np.int32)
+        self._queue: "queue.Queue[_Group | None]" = queue.Queue()
+        self._waiting: list = []
+        # Guards submit's closed-check + enqueue against _fail_all's drain.
+        self._submit_lock = threading.Lock()
+        self._closed = False
+        self._backlog = 0
+        self._admit_seq = 0
+        self.chunks = 0  # decode chunks dispatched
+        self.prefill_chunks = 0
+        self.preemptions = 0
+        self.requests = 0
+        # Host-clock totals of the dispatches, each ending in a host sync.
+        self.stats = {"prefill_s": 0.0, "prefill_tokens": 0,
+                      "decode_s": 0.0, "decode_tokens": 0}
+        self._thread = threading.Thread(target=self._serve_loop, name="decode-pool", daemon=True)
+        self._thread.start()
+
+    # ---------------------------------------------------------- load stats
+
+    def free_blocks(self) -> int:
+        return self._alloc.free_count()
+
+    def queue_depth(self) -> int:
+        with self._submit_lock:
+            return self._backlog
+
+    def live_rows(self) -> int:
+        return len(self._lane_rows)
+
+    # ------------------------------------------------------------ public
+
+    def _pwin(self, n: int) -> int:
+        """The smallest multiple of ``prefill_chunk`` holding ``n`` tokens."""
+        P = self.prefill_chunk
+        return max(-(-max(n, 1) // P) * P, P)
+
+    def _paged_reject(self, prompts: list, n_new: int) -> "str | None":
+        """Why the pool can never serve this request (None = fits). The
+        window bound keeps ``prefill_chunk`` of slack for a resume prompt."""
+        P = self.prefill_chunk
+        longest = max(len(p) for p in prompts)
+        limit = self._pwin(longest) + n_new + P
+        if limit > self.max_len:
+            return (
+                f"paged window {self._pwin(longest)} + {n_new} new tokens "
+                f"+ {P} resume slack exceed the pool window {self.max_len}"
+            )
+        need = len(prompts) * (-(-limit // self.block_size))
+        if need > self.num_blocks:
+            return f"request needs up to {need} KV blocks but the pool has {self.num_blocks}"
+        return None
+
+    def fits(self, prompts: list, n_new: int) -> bool:
+        if not prompts or any(not p for p in prompts) or len(prompts) > self.slots:
+            return False
+        return self._paged_reject(prompts, n_new) is None
+
+    def submit(self, prompts: list, n_new: int) -> Future:
+        """Queue ``prompts`` for greedy continuation, ``n_new`` tokens each."""
+        fut: Future = Future()
+        if not prompts or any(not p for p in prompts):
+            fut.set_exception(ValueError("prompts must be non-empty"))
+            return fut
+        if len(prompts) > self.slots:
+            fut.set_exception(ValueError(f"{len(prompts)} prompts exceed {self.slots} slots"))
+            return fut
+        reason = self._paged_reject(prompts, n_new)
+        if reason is not None:
+            fut.set_exception(ValueError(reason))
+            return fut
+        with self._submit_lock:
+            if self._closed:
+                fut.set_exception(RuntimeError("pool is closed"))
+                return fut
+            if self.max_queue and self._backlog >= self.max_queue:
+                fut.set_exception(PoolBusy(0.05 * (self._backlog - self.max_queue + 1)))
+                return fut
+            self.requests += 1
+            self._backlog += 1
+            self._queue.put(_Group([list(p) for p in prompts], int(n_new), fut))
+        return fut
+
+    def close(self, wait: bool = True) -> None:
+        """Stop serving; the serve thread fails every queued and in-flight
+        request as it exits."""
+        self._closed = True
+        self._queue.put(None)
+        if wait:
+            self._thread.join(timeout=30)
+
+    def _fail_all(self, exc: Exception) -> None:
+        with self._submit_lock:
+            while True:
+                try:
+                    item = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                if item is not None:
+                    self._waiting.append(item)
+            self._backlog = 0
+        for g in self._waiting:
+            if not g.fut.done():
+                g.fut.set_exception(exc)
+        self._waiting.clear()
+        for r in self._lane_rows.values():
+            if not r.group.fut.done():
+                r.group.fut.set_exception(exc)
+        self._lane_rows.clear()
+
+    # --------------------------------------------------------- serve loop
+
+    def _serve_loop(self) -> None:
+        try:
+            # Inference mode and the current CUDA device are thread-local:
+            # set them here, in the thread that runs the forwards.
+            with torch.inference_mode():
+                if self._device.type == "cuda":
+                    torch.cuda.set_device(self._device)
+                while self._serve_once():
+                    pass
+        except Exception:
+            log.exception("decode pool crashed")
+            self._closed = True
+            self._fail_all(RuntimeError("decode pool crashed"))
+
+    def _serve_once(self) -> bool:
+        """One serve-loop iteration; False once the pool stops. Waiting
+        groups count as live work, so a preempted group is re-admitted
+        without waiting for the next submit."""
+        live = bool(self._lane_rows) or bool(self._waiting)
+        stop = False
+        try:
+            item = self._queue.get(block=not live)
+            while True:
+                if item is None:
+                    stop = True
+                    break
+                self._waiting.append(item)
+                item = self._queue.get_nowait()
+        except queue.Empty:
+            pass
+        if stop:
+            self._fail_all(RuntimeError("pool is closed"))
+            return False
+        self._step_paged()
+        return True
+
+    def _step_paged(self) -> None:
+        """Admit what fits, advance chunked prefills, then one decode chunk
+        for the decoding lanes: prefill and decode interleave."""
+        self._admit_paged()
+        pre = [r for r in self._lane_rows.values() if r.pos < r.window]
+        if pre:
+            self._run_prefill_chunk(pre)
+            self._finish_paged()
+        dec = [r for r in self._lane_rows.values() if r.pos >= r.window and not r.done]
+        if dec:
+            self._run_decode_chunk(dec)
+            self._finish_paged()
+
+    def _admit_paged(self) -> None:
+        """FIFO block-granular admission above the watermark reserve."""
+        bs = self.block_size
+        while self._waiting:
+            group = self._waiting[0]
+            if not group.rows:
+                for lane, p in enumerate(group.prompts):
+                    group.rows[lane] = _PRow(group, lane, list(p), group.n_new)
+            live = [r for r in group.rows.values() if not r.done]
+            if len(live) > len(self._free_lanes):
+                break
+            need = sum(-(-(len(r.prompt) + len(r.emitted)) // bs) for r in live)
+            free = self._alloc.free_count()
+            if free < need:
+                break
+            if self._lane_rows and free - need < self.reserve_blocks:
+                break
+            self._waiting.pop(0)
+            with self._submit_lock:
+                self._backlog -= 1
+            self._admit_seq += 1
+            group.order = self._admit_seq
+            for r in live:
+                full = r.prompt + r.emitted  # recompute-resume prompt
+                r.slot = self._free_lanes.pop()
+                r.blocks = [self._alloc.alloc() for _ in range(-(-len(full) // bs))]
+                if any(b is None for b in r.blocks):
+                    raise RuntimeError("paged admission accounting broke")
+                r.window = len(full)
+                r.pos = 0
+                r.win_tokens = np.zeros((len(full) + self.prefill_chunk,), np.int32)
+                r.win_tokens[: len(full)] = full
+                self._lane_rows[r.slot] = r
+                self._h_start[r.slot] = 0
+                self._h_table[r.slot, :] = self.num_blocks
+                self._h_table[r.slot, : len(r.blocks)] = r.blocks
+
+    def _push_rowvars(self) -> None:
+        """Write the host row variables into the cache tensors in place."""
+        c = self._cache
+        c.idx.copy_(torch.from_numpy(self._h_idx))
+        c.start.copy_(torch.from_numpy(self._h_start))
+        c.table.copy_(torch.from_numpy(self._h_table))
+
+    def _run_prefill_chunk(self, pre: list) -> None:
+        """One [slots, prefill_chunk] forward over every prefilling lane."""
+        P = self.prefill_chunk
+        toks = np.zeros((self.slots, P), np.int64)
+        self._h_idx[:] = self.max_len  # park every lane in the garbage block
+        for r in pre:
+            toks[r.slot] = r.win_tokens[r.pos : r.pos + P]
+            self._h_idx[r.slot] = r.pos
+        t0 = time.perf_counter()
+        self._push_rowvars()
+        logits = self._model(torch.from_numpy(toks).to(self._device), self._cache)
+        nxt_host = logits.argmax(dim=-1).cpu().numpy()  # [slots, P] per-column greedy
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        self.prefill_chunks += 1
+        for r in pre:
+            base = r.pos
+            r.pos = min(r.pos + P, r.window)
+            self.stats["prefill_tokens"] += r.pos - base
+            if r.pos >= r.window:
+                # The column of the last prompt token holds the first
+                # generated token, exactly the monolithic prefill's.
+                r.emitted.append(int(nxt_host[r.slot, r.window - 1 - base]))
+
+    def _grow(self, r: _PRow) -> bool:
+        """Allocate the blocks the next decode chunk writes for ``r``,
+        preempting the youngest other group when the pool is dry."""
+        remaining = max(r.budget - len(r.emitted), 0)
+        need = -(-(r.pos + min(self.steps_per_call, remaining)) // self.block_size)
+        while len(r.blocks) < need:
+            b = self._alloc.alloc()
+            if b is None:
+                victim = self._pick_victim(exclude=r.group)
+                if victim is None:
+                    return False
+                self._preempt(victim)
+                continue
+            self._h_table[r.slot, len(r.blocks)] = b
+            r.blocks.append(b)
+        return True
+
+    def _pick_victim(self, exclude: _Group) -> "_Group | None":
+        """The most recently admitted live group other than ``exclude``."""
+        victims = {id(r.group): r.group for r in self._lane_rows.values() if r.group is not exclude}
+        if not victims:
+            return None
+        return max(victims.values(), key=lambda g: g.order)
+
+    def _release_lane(self, r: _PRow) -> None:
+        for b in reversed(r.blocks):
+            self._alloc.release(b)
+        self._h_table[r.slot, :] = self.num_blocks
+        self._h_idx[r.slot] = self.max_len
+        self._lane_rows.pop(r.slot, None)
+        self._free_lanes.append(r.slot)
+        r.slot, r.blocks, r.pos, r.window, r.win_tokens = -1, [], 0, 0, None
+
+    def _preempt(self, group: _Group) -> None:
+        """Free the group's lanes and blocks and park it at the head of the
+        queue; it resumes by recompute with its emitted tokens."""
+        for r in list(group.rows.values()):
+            if r.slot >= 0 and not r.done:
+                self._release_lane(r)
+        self._waiting.insert(0, group)
+        with self._submit_lock:
+            self._backlog += 1
+        self.preemptions += 1
+
+    def _run_decode_chunk(self, dec: list) -> None:
+        K = self.steps_per_call
+        for r in list(dec):
+            if r.slot < 0 or r.done:  # preempted by an earlier _grow
+                continue
+            if not self._grow(r):
+                # fits() bounds every group's need, so a sole live group
+                # always grows; fail loudly rather than wedge the loop.
+                self._fail_group(r.group, RuntimeError("paged pool exhausted"))
+        live = [r for r in dec if r.slot >= 0 and not r.done]
+        if not live:
+            return
+        tok = np.zeros((self.slots,), np.int64)
+        self._h_idx[:] = self.max_len
+        for r in live:
+            tok[r.slot] = r.emitted[-1]
+            self._h_idx[r.slot] = r.pos
+        t0 = time.perf_counter()
+        self._push_rowvars()
+        cur = torch.from_numpy(tok).to(self._device)
+        steps = []
+        for _ in range(K):
+            cur = self._model(cur[:, None], self._cache)[:, -1].argmax(dim=-1)
+            steps.append(cur)
+        toks_host = torch.stack(steps).cpu().numpy()  # [K, slots]: the one sync
+        self.stats["decode_s"] += time.perf_counter() - t0
+        self.chunks += 1
+        for r in live:
+            for t in toks_host[:, r.slot]:
+                if len(r.emitted) >= r.budget:
+                    break
+                r.emitted.append(int(t))
+                self.stats["decode_tokens"] += 1
+            r.pos += K
+
+    def _fail_group(self, group: _Group, exc: Exception) -> None:
+        for r in list(group.rows.values()):
+            if r.slot >= 0:
+                self._release_lane(r)
+        if not group.fut.done():
+            group.fut.set_exception(exc)
+
+    def _row_finished(self, row: _PRow) -> bool:
+        """Budget/EOS check; pads an EOS row to its budget (as generate)."""
+        full = len(row.emitted) >= row.budget
+        eos = self.eos_token_id
+        saw_eos = eos is not None and eos in row.emitted
+        if not (full or saw_eos):
+            return False
+        if saw_eos:
+            cut = row.emitted.index(eos) + 1
+            row.emitted = row.emitted[:cut] + [eos] * (row.budget - cut)
+        row.done = True
+        return True
+
+    def _finish_paged(self) -> None:
+        for r in list(self._lane_rows.values()):
+            if r.pos < r.window or not self._row_finished(r):
+                continue
+            self._release_lane(r)
+            group = r.group
+            if all(pr.done for pr in group.rows.values()) and not group.fut.done():
+                group.fut.set_result([group.rows[i].emitted for i in range(len(group.prompts))])
