@@ -19,7 +19,24 @@ Phases, each printing one JSON line:
 5. serve_int8 — the same pool with int8 KV blocks;
 6. reference — the 7B decode forward (through the kernel) against the
    training forward (plain attention), and a tiny f32 Llama whose pool
-   tokens must equal one-shot ``generate``.
+   tokens must equal one-shot ``generate``;
+7. flash_kernels — the flash-attention forward, dQ and dK/dV kernels
+   against their plain versions (bf16; MHA 32/32 and GQA 32/8; causal and
+   not; S 2048, a ragged 1000, Sq != Sk; head_dim 128 and 64; sliding
+   windows, Mistral-7B's 4096 at S 4608 among them), dK/dV
+   bit-identical on a second launch, then each kernel's time at the
+   training shape beside its plain version, SDPA and the card's bound;
+8. train — the serving model freed, ``run_training`` at Llama-2-7B widths
+   cut to 8 layers (S 2048, batch 2, remat) behind an in-process scheduler
+   and parameter server (``average_deltas`` + ``nesterov_outer_step``):
+   2 rounds of 4 inner steps through the three flash kernels, checking
+   launch counts, zero plain-attention calls, finite and falling losses
+   and exact merges; step time, tokens/s, peak memory and the kernels'
+   device time per step from the profiler;
+9. train_reference — a tiny Llama (head_dim 64), and the same with a
+   sliding window below its sequence (Mistral's local attention), each
+   trained 4 steps through the kernels and through the plain flash version
+   from the same weights, with no call of the dense attention.
 
 Then the kernels line, the ``nvidia-smi`` name and power limit line, and
 the result line. Any failure exits non-zero before the result line; with
@@ -29,12 +46,18 @@ no CUDA device it exits 2 at once.
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import os
+import queue
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from contextlib import contextmanager
+from pathlib import Path
 
 import torch
 
@@ -45,6 +68,19 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense; f32 outside 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # unit-variance inputs; bf16 output rounding
 KERNEL_SOURCE = "hypha_tpu_torch/ops/csrc/ragged_paged_attention.cu"
 REPLACES = "hypha_tpu/ops/paged_attention.py:213"
+FLASH_SOURCE = "hypha_tpu_torch/ops/csrc/flash_attention.cu"
+FLASH_REPLACES = {
+    "flash_attention_forward": "hypha_tpu/ops/flash_attention.py:115",
+    "flash_attention_dq": "hypha_tpu/ops/flash_attention.py:177",
+    "flash_attention_dkv": "hypha_tpu/ops/flash_attention.py:222",
+}
+# bf16 outputs round to 8 mantissa bits, and the kernels round P and dS to
+# bf16 at other points of the online softmax than the plain versions: o
+# within 2e-2 (unit-variance inputs), L (f32) within 1e-3, gradients within
+# 2e-2 of the case's largest |gradient|.
+FLASH_TOL = {"o": 2e-2, "lse": 1e-3, "grad_rel": 2e-2}
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ROUNDS, TRAIN_STEPS = 8, 2048, 2, 2, 4
+TRAIN_PERIOD = 1024  # the data counts modulo this; the model's vocabulary stays 32000
 
 
 def emit(obj: dict) -> None:
@@ -361,6 +397,476 @@ def reference_phase(model) -> dict:
     return res
 
 
+# ------------------------------------------------------ flash kernel phase
+
+
+def flash_case(gen, *, B, Sq, Sk, H, Hkv, D, **_):
+    def t(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    return t(B, Sq, H, D), t(B, Sk, Hkv, D), t(B, Sk, Hkv, D), t(B, Sq, H, D)
+
+
+def rel_err(got, ref) -> float:
+    return (got.float() - ref.float()).abs().max().item() / max(ref.float().abs().max().item(), 1e-30)
+
+
+def flash_kernel_phase() -> dict:
+    """Each flash kernel against its plain version, then timed at the
+    training shape (B 2, S 2048, 32 heads, head_dim 128, causal)."""
+    from hypha_tpu_torch.ops.flash_attention import (
+        flash_dkv_cuda,
+        flash_dkv_reference,
+        flash_dq_cuda,
+        flash_dq_reference,
+        flash_forward_cuda,
+        flash_forward_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    train_shape = dict(B=2, Sq=2048, Sk=2048, H=32, Hkv=32, D=128, causal=True)
+    cases = [
+        train_shape,
+        dict(B=1, Sq=2048, Sk=2048, H=32, Hkv=8, D=128, causal=True),
+        dict(B=1, Sq=2048, Sk=2048, H=32, Hkv=32, D=128, causal=False),
+        dict(B=1, Sq=1000, Sk=1000, H=32, Hkv=8, D=128, causal=True),
+        dict(B=1, Sq=1000, Sk=1000, H=32, Hkv=32, D=64, causal=False),
+        dict(B=1, Sq=1000, Sk=2048, H=32, Hkv=8, D=64, causal=False),
+        dict(B=1, Sq=2048, Sk=1000, H=32, Hkv=32, D=128, causal=False),
+        dict(B=1, Sq=2048, Sk=2048, H=32, Hkv=8, D=64, causal=True),
+        # Sliding windows: Mistral-7B's (4096, GQA 32/8) past its length,
+        # and a short one over ragged tiles, causal and not.
+        dict(B=1, Sq=4608, Sk=4608, H=32, Hkv=8, D=128, causal=True, window=4096),
+        dict(B=1, Sq=1000, Sk=1000, H=32, Hkv=8, D=64, causal=True, window=100),
+        dict(B=1, Sq=1000, Sk=1000, H=32, Hkv=32, D=128, causal=False, window=100),
+    ]
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    results = []
+    for c in cases:
+        q, k, v, do = flash_case(gen, **c)
+        causal, window = c["causal"], c.get("window")
+        o, lse = flash_forward_cuda(q, k, v, causal, None, window)
+        dq = flash_dq_cuda(q, k, v, o, lse, do, causal, None, window)
+        dk, dv = flash_dkv_cuda(q, k, v, o, lse, do, causal, None, window)
+        torch.cuda.synchronize()
+        dk2, dv2 = flash_dkv_cuda(q, k, v, o, lse, do, causal, None, window)
+        torch.cuda.synchronize()
+        deterministic = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
+        o_ref, lse_ref = flash_forward_reference(q, k, v, causal, None, window)
+        r = dict(c, o_err=(o.float() - o_ref.float()).abs().max().item(),
+                 lse_err=(lse - lse_ref).abs().max().item())
+        del o_ref, lse_ref
+        dq_ref = flash_dq_reference(q, k, v, o, lse, do, causal, None, window)
+        r.update(dq_rel=rel_err(dq, dq_ref), dq_err=(dq.float() - dq_ref.float()).abs().max().item())
+        del dq_ref
+        dk_ref, dv_ref = flash_dkv_reference(q, k, v, o, lse, do, causal, None, window)
+        r.update(dk_rel=rel_err(dk, dk_ref), dv_rel=rel_err(dv, dv_ref),
+                 dkv_err=max((dk.float() - dk_ref.float()).abs().max().item(),
+                             (dv.float() - dv_ref.float()).abs().max().item()))
+        del dk_ref, dv_ref
+        torch.cuda.empty_cache()
+        ok = (r["o_err"] <= FLASH_TOL["o"] and r["lse_err"] <= FLASH_TOL["lse"]
+              and max(r["dq_rel"], r["dk_rel"], r["dv_rel"]) <= FLASH_TOL["grad_rel"]
+              and deterministic and bool(torch.isfinite(lse).all()))
+        r.update(dkv_bit_identical=deterministic, ok=ok)
+        results.append(r)
+        errs["fwd"] = max(errs["fwd"], r["o_err"])
+        errs["dq"] = max(errs["dq"], r["dq_err"])
+        errs["dkv"] = max(errs["dkv"], r["dkv_err"])
+        if not ok:
+            emit({"phase": "flash_kernels", "failed_case": r, "tol": FLASH_TOL})
+            raise SystemExit("a flash kernel disagrees with its plain version")
+
+    # Timing at the training shape.
+    c = train_shape
+    B, S, H, Hkv, D = c["B"], c["Sq"], c["H"], c["Hkv"], c["D"]
+    q, k, v, do = flash_case(gen, **c)
+    o, lse = flash_forward_cuda(q, k, v, True)
+    timing = {
+        "fwd": dict(ms=time_ms(lambda: flash_forward_cuda(q, k, v, True), reps=3, iters=5),
+                    plain_ms=time_ms(lambda: flash_forward_reference(q, k, v, True), reps=3, iters=3)),
+        "dq": dict(ms=time_ms(lambda: flash_dq_cuda(q, k, v, o, lse, do, True), reps=3, iters=5),
+                   plain_ms=time_ms(lambda: flash_dq_reference(q, k, v, o, lse, do, True),
+                                    reps=3, iters=3)),
+        "dkv": dict(ms=time_ms(lambda: flash_dkv_cuda(q, k, v, o, lse, do, True), reps=3, iters=5),
+                    plain_ms=time_ms(lambda: flash_dkv_reference(q, k, v, o, lse, do, True),
+                                     reps=3, iters=3)),
+    }
+    # Yardstick only, never called by the port: SDPA forward, and its
+    # backward as (forward + backward) - forward.
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh, doh = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    sdpa_fwd = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True))
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (qh, kh, vh))
+
+    def fwd_bwd():
+        out = sdpa(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(out, (qg, kg, vg), doh)
+
+    sdpa_bwd = time_ms(fwd_bwd) - sdpa_fwd
+    timing["fwd"]["library_ms"] = sdpa_fwd
+    timing["dq"]["library_ms"] = timing["dkv"]["library_ms"] = sdpa_bwd
+    # The least time for the same work: every visible (query, key) pair
+    # costs 4 D flops forward (QK^T, PV), 6 D in dQ (QK^T, dO V^T, dS K) and
+    # 8 D in dK/dV (QK^T, dO V^T, P^T dO, dS^T Q); each input is read once
+    # and each output written once.
+    pairs = B * H * S * (S + 1) // 2
+    x = B * S * H * D * 2  # one bf16 [B, S, H, D] tensor
+    xkv = B * S * Hkv * D * 2
+    lbytes = B * H * S * 4
+    work = {"fwd": (4 * D * pairs, 2 * x + 2 * xkv + lbytes),
+            "dq": (6 * D * pairs, 4 * x + 2 * xkv + lbytes),
+            "dkv": (8 * D * pairs, 3 * x + 4 * xkv + lbytes)}
+    for key, (ops, nbytes) in work.items():
+        t_ops = ops / PEAK_OPS[torch.bfloat16] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        tm = timing[key]
+        tm.update(ops=ops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+                  bound_by="operations" if t_ops >= t_bytes else "bytes",
+                  achieved_TFLOPs=ops / tm["ms"] / 1e9, max_abs_err=errs[key])
+    emit({"phase": "flash_kernels", "cases": results, "tol": FLASH_TOL, "timing": timing,
+          "shape": "B=2 S=2048 Hq=Hkv=32 D=128 causal bf16",
+          "library": "scaled_dot_product_attention; dq and dkv carry its whole backward"})
+    return timing
+
+
+# -------------------------------------------------------------- train phase
+
+
+class TrainSession:
+    """An in-process scheduler and parameter server behind the bridge
+    client's four methods. The scheduler asks for ``steps`` inner steps a
+    round for ``rounds`` rounds; the server folds each round's delta with
+    the port's ``average_deltas`` + ``nesterov_outer_step`` (lr 0.7, μ 0.9,
+    momentum on the card), checks after every merge that the trainer's
+    parameters equal θ_t + update, records step times, and profiles one
+    steady inner step."""
+
+    def __init__(self, work_dir, slices, *, rounds, steps, outer):
+        self.dir = work_dir
+        self.slices = slices
+        self.rounds, self.steps, self.outer = rounds, steps, outer
+        self.done = self.batches = self.fetches = 0
+        self.scheduled = False
+        self.events: "queue.Queue[dict]" = queue.Queue()
+        self.model = None  # captured when run_training builds it
+        self.momentum = None
+        self.before = self.update = None
+        self.merge_rel_err: list = []
+        self.marks: list = []  # (round, time) at every STATUS
+        self.update_s: list = []
+        self.outer_s: list = []
+        self.prof = None
+        self.prof_t0 = 0.0
+        self.profile = None
+
+    def fetch(self, ref):
+        path = self.slices[self.fetches % len(self.slices)]
+        self.fetches += 1
+        return [path.name]
+
+    def _profile_hook(self, now):
+        from torch.profiler import ProfilerActivity, profile
+
+        if self.done == 1 and self.batches == 1 and self.prof is None:
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.prof_t0 = time.perf_counter()
+        elif self.prof is not None and self.profile is None:
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - self.prof_t0
+            self.prof.__exit__(None, None, None)
+            rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                    for e in self.prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+            rows.sort(key=lambda r: -r[1])
+            self.profile = dict(
+                wall_ms=wall * 1e3, device_busy_ms=sum(r[1] for r in rows),
+                kernels={name: sum(ms for k, ms, _ in rows if name in k)
+                         for name in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")},
+                launches={name: sum(c for k, _, c in rows if name in k)
+                          for name in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")},
+                top=[{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:8]],
+            )
+
+    def send_status(self, progress):
+        from hypha_tpu_torch.messages import ProgressKind, ProgressResponse, ProgressResponseKind
+
+        now = time.perf_counter()
+        if progress.kind == ProgressKind.STATUS:
+            self.marks.append((self.done, now))
+            self._profile_hook(now)
+            if self.done >= self.rounds:
+                return ProgressResponse(kind=ProgressResponseKind.DONE)
+            self.batches += 1
+            if not self.scheduled and self.batches >= self.steps:
+                self.scheduled = True
+                return ProgressResponse(kind=ProgressResponseKind.SCHEDULE_UPDATE, counter=0)
+            return ProgressResponse(kind=ProgressResponseKind.CONTINUE)
+        if progress.kind == ProgressKind.UPDATE:
+            self.t_update = now
+        if progress.kind == ProgressKind.UPDATE_RECEIVED:
+            self.check_merge()
+            self.update_s.append(now - self.t_update)
+            self.done += 1
+            self.batches, self.scheduled = 0, False
+            kind = ProgressResponseKind.DONE if self.done >= self.rounds else ProgressResponseKind.CONTINUE
+            return ProgressResponse(kind=kind)
+        return ProgressResponse(kind=ProgressResponseKind.OK)
+
+    def send_resource(self, send, path, resource="updates", meta=None):
+        from hypha_tpu_torch.executor.diloco import (
+            average_deltas,
+            nesterov_init,
+            nesterov_outer_step,
+        )
+        from hypha_tpu_torch.executor.serialization import load_file, save_file
+
+        t0 = time.perf_counter()
+        # θ_t on the host, to check the merge against.
+        self.before = {k: v.detach().to("cpu", copy=True) for k, v in self.model.state_dict().items()}
+        delta = load_file(self.dir / path)
+        if self.momentum is None:
+            self.momentum = nesterov_init({k: v.cuda() for k, v in delta.items()})
+        update = {}
+        for name, d in delta.items():  # one tensor at a time, on the card
+            mean = average_deltas([{name: d.cuda()}], [meta["num_samples"]])
+            m, u = nesterov_outer_step({name: self.momentum[name]}, mean,
+                                       self.outer.lr, self.outer.momentum)
+            self.momentum[name] = m[name]
+            update[name] = u[name].cpu()
+        del delta
+        out = self.dir / f"update-{meta['round']}.safetensors"
+        save_file(update, out)
+        self.update = update
+        self.outer_s.append(time.perf_counter() - t0)
+        self.events.put({"path": out.name, "meta": {"round": meta["round"]}})
+
+    @contextmanager
+    def receive(self, ref):
+        def gen():
+            while True:
+                try:
+                    yield self.events.get(timeout=600)
+                except queue.Empty:
+                    return
+
+        yield gen()
+
+    def check_merge(self):
+        from hypha_tpu_torch.models.convert import flat_to_state
+
+        update = flat_to_state(self.update)
+        worst = 0.0
+        with torch.no_grad():
+            for name, p in self.model.state_dict().items():
+                want = self.before[name].to(p.device).float() + update[name].to(p.device).float()
+                err = (p.float() - want).abs().max().item()
+                worst = max(worst, err / max(want.abs().max().item(), 1e-30))
+        self.merge_rel_err.append(worst)
+        self.before = self.update = None
+
+    def step_ms(self) -> list:
+        """Intervals between consecutive STATUS calls inside a round: one
+        inner step each (forward, backward, update, loss read)."""
+        out = []
+        for (r0, t0), (r1, t1) in zip(self.marks, self.marks[1:]):
+            if r0 == r1:
+                out.append((t1 - t0) * 1e3)
+        return out
+
+
+def write_slices(work_dir, *, n_slices, per_slice, seq, period, seed) -> list:
+    """Counting sequences (token t+1 follows t, modulo ``period``) from
+    random offsets, as SafeTensors slices. With a period below the
+    sequence length each sequence repeats, so the next token is learnable
+    from the current one and from the copy one period back."""
+    from hypha_tpu_torch.executor.serialization import save_file
+
+    g = torch.Generator().manual_seed(seed)
+    paths = []
+    for i in range(n_slices):
+        start = torch.randint(0, period, (per_slice, 1), generator=g)
+        ids = ((start + torch.arange(seq)) % period).to(torch.int32)
+        path = work_dir / f"slice-{i}.safetensors"
+        save_file({"input_ids": ids}, path)
+        paths.append(path)
+    return paths
+
+
+def train_phase() -> dict:
+    """run_training at Llama-2-7B widths, cut to 8 layers."""
+    import hypha_tpu_torch.executor.training as training
+    from hypha_tpu_torch.messages import (
+        Adam,
+        Executor,
+        Fetch,
+        JobSpec,
+        Nesterov,
+        Receive,
+        Reference,
+        Send,
+        TrainExecutorConfig,
+    )
+    from hypha_tpu_torch.ops.attention import dot_product_attention
+    from hypha_tpu_torch.ops.flash_attention import flash_attention
+
+    work_dir = Path(tempfile.mkdtemp(prefix="chip-smoke-train-"))
+    try:
+        steps_total = TRAIN_ROUNDS * TRAIN_STEPS
+        slices = write_slices(work_dir, n_slices=2, per_slice=steps_total * TRAIN_BATCH // 2,
+                              seq=TRAIN_SEQ, period=TRAIN_PERIOD, seed=5)
+        session = TrainSession(work_dir, slices, rounds=TRAIN_ROUNDS, steps=TRAIN_STEPS,
+                               outer=Nesterov())
+        spec = JobSpec(job_id="chip-smoke-train", executor=Executor(
+            kind="train", name="diloco-transformer", train=TrainExecutorConfig(
+                model={"model_type": "causal-lm", "family": "llama", "preset": "llama2-7b",
+                       "seed": 0, "config": {"num_layers": TRAIN_LAYERS, "remat": True}},
+                data=Fetch(Reference.from_uri("file:///slices")),
+                updates=Send(Reference.from_peers(["ps"], "updates")),
+                results=Receive(Reference.from_peers(["ps"], "results")),
+                optimizer=Adam(lr=3e-4), batch_size=TRAIN_BATCH,
+            )))
+        build = training.build_model
+
+        def capture(model_spec, device=None, attn_impl=None):
+            model, cfg = build(model_spec, device=device, attn_impl=attn_impl)
+            session.model = model
+            return model, cfg
+
+        training.build_model = capture
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.fwd_launches = flash_attention.dq_launches = 0
+        flash_attention.dkv_launches = flash_attention.plain_calls = 0
+        dot_product_attention.calls = 0
+        t0 = time.perf_counter()
+        try:
+            result = training.run_training(session, work_dir, spec)
+        finally:
+            training.build_model = build
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"fwd": flash_attention.fwd_launches, "dq": flash_attention.dq_launches,
+                    "dkv": flash_attention.dkv_launches}
+        plain = {"flash_plain_calls": flash_attention.plain_calls,
+                 "dot_product_attention_calls": dot_product_attention.calls}
+        model = session.model
+        n_params = sum(p.numel() for p in model.parameters())
+        cfg = model.config
+        session.model = None
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+
+    losses = result.losses
+    first = losses[:TRAIN_STEPS]
+    last = losses[-TRAIN_STEPS:]
+    steps = session.step_ms()
+    step_ms = statistics.median(steps)
+    prof = session.profile or {}
+    res = dict(
+        model="llama2-7b", cut=f"num_layers 32 -> {TRAIN_LAYERS} (full widths: hidden "
+        f"{cfg.hidden_size}, heads {cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.head_dim}, "
+        f"intermediate {cfg.intermediate_size}, vocab {cfg.vocab_size})",
+        params=n_params, seq=TRAIN_SEQ, batch=TRAIN_BATCH, rounds=result.rounds,
+        inner_steps=result.batches, remat=cfg.remat, param_dtype="float32",
+        compute_dtype=cfg.dtype, losses=losses, first_round_mean=sum(first) / len(first),
+        last_round_mean=sum(last) / len(last), step_ms=step_ms, step_ms_all=steps,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, wall_s=wall,
+        update_phase_s=session.update_s, outer_step_s=session.outer_s,
+        kernel_launches=launches, **plain, merge_rel_err=session.merge_rel_err,
+        profiled_step=prof,
+        device_idle_share=(1 - prof["device_busy_ms"] / step_ms) if prof else None,
+    )
+    want = {"fwd": 2 * TRAIN_LAYERS * steps_total, "dq": TRAIN_LAYERS * steps_total,
+            "dkv": TRAIN_LAYERS * steps_total}
+    problems = []
+    if not all(torch.isfinite(torch.tensor(losses))) or len(losses) != steps_total:
+        problems.append(f"losses {losses}")
+    if not res["last_round_mean"] < res["first_round_mean"]:
+        problems.append("the last round's mean loss is not below the first's")
+    if launches != want:
+        problems.append(f"kernel launches {launches}, wanted {want}")
+    if any(plain.values()):
+        problems.append(f"plain attention ran on the path: {plain}")
+    if len(session.merge_rel_err) != TRAIN_ROUNDS or max(session.merge_rel_err) > 2.0**-23:
+        problems.append(f"merge errors {session.merge_rel_err}")
+    if problems:
+        emit({"phase": "train", **res, "problems": problems})
+        raise SystemExit("training phase failed: " + "; ".join(problems))
+    return res
+
+
+class _PlainFlash(torch.autograd.Function):
+    """The plain flash versions under autograd: the kernels' reference."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        from hypha_tpu_torch.ops.flash_attention import flash_forward_reference
+
+        o, lse = flash_forward_reference(q, k, v, causal, None, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, None, window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from hypha_tpu_torch.ops.flash_attention import flash_backward_reference
+
+        grads = flash_backward_reference(*ctx.saved_tensors, do.contiguous(), *ctx.args)
+        return (*grads, None, None)
+
+
+def plain_flash(q, k, v, *, causal=True, window=None):
+    return _PlainFlash.apply(q, k, v, causal, window)
+
+
+def train_reference_phase() -> dict:
+    """A tiny Llama (hidden 256, 4 heads of 64, 2 kv heads), and the same
+    with a sliding window of 48 below its sequence of 128 (Mistral's local
+    attention), each trained 4 steps through the kernels and through the
+    plain flash version, from the same weights and batches."""
+    from hypha_tpu_torch.executor.train import build_optimizer, make_train_step
+    from hypha_tpu_torch.messages import Adam
+    from hypha_tpu_torch.models.registry import build_model
+    from hypha_tpu_torch.ops.attention import dot_product_attention
+    from hypha_tpu_torch.ops.flash_attention import flash_attention
+
+    g = torch.Generator().manual_seed(9)
+    batches = []
+    for _ in range(4):
+        start = torch.randint(0, 256, (4, 1), generator=g)
+        batches.append({"input_ids": ((start + torch.arange(128)) % 256).cuda()})
+    res = {}
+    for variant, extra in (("full", {}), ("window48", {"sliding_window": 48})):
+        losses = {}
+        fwd, dense = flash_attention.fwd_launches, dot_product_attention.calls
+        for label, impl in (("kernels", flash_attention), ("plain", plain_flash)):
+            model, _ = build_model({"family": "llama", "preset": "tiny",
+                                    "config": {"hidden_size": 256, **extra}},
+                                   device="cuda", attn_impl=impl)
+            model.init_weights(11)
+            step = make_train_step(model, build_optimizer(list(model.parameters()), Adam(lr=1e-3)))
+            losses[label] = [float(step(b)[0]) for b in batches]
+        err = max(abs(a - b) for a, b in zip(losses["kernels"], losses["plain"]))
+        res[variant] = dict(losses=losses, max_abs_loss_diff=err,
+                            kernel_fwd_launches=flash_attention.fwd_launches - fwd,
+                            dot_product_attention_calls=dot_product_attention.calls - dense)
+    # bf16 attention rounds differently in the two versions, and four Adam
+    # updates carry the difference forward: losses (about 5.5) within 2e-2.
+    res["tol"] = 2e-2
+    if not all(r["max_abs_loss_diff"] <= 2e-2 and r["kernel_fwd_launches"] == 4 * 2
+               and r["dot_product_attention_calls"] == 0
+               for r in (res["full"], res["window48"])):
+        emit({"phase": "train_reference", **res})
+        raise SystemExit("training through the kernels disagrees with the plain version")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -382,6 +888,7 @@ def main() -> int:
                       for k, v in built.items()}})
 
     kern = kernel_phase()
+    flash = flash_kernel_phase()
 
     t0 = time.perf_counter()
     model = load_model({"family": "llama", "preset": "llama2-7b", "seed": 0})
@@ -394,14 +901,30 @@ def main() -> int:
     emit({"phase": "serve_int8", **serve8})
     emit({"phase": "profile", **profile_phase(model)})
     emit({"phase": "reference", **reference_phase(model)})
+    del model  # free the serving model before training
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    emit({"kernels": [{
+    train = train_phase()
+    emit({"phase": "train", **train})
+    emit({"phase": "train_reference", **train_reference_phase()})
+
+    kernels = [{
         "name": "ragged_paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": serve["kernel_launches"],
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],
-    }]})
+    }]
+    for (name, replaces), key in zip(FLASH_REPLACES.items(), ("fwd", "dq", "dkv")):
+        t = flash[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE, "replaces": replaces,
+            "launches": train["kernel_launches"][key], "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
+    emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

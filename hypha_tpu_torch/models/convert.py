@@ -19,7 +19,7 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["llama_params_from_flat", "llama_params_to_flat"]
+__all__ = ["llama_params_from_flat", "llama_params_to_flat", "flat_to_state", "state_to_flat"]
 
 
 def _torch_name(flat_name: str) -> tuple:
@@ -62,10 +62,13 @@ def llama_params_from_flat(flat: dict, model):
         tname, transpose = _torch_name(name)
         if tname not in state:
             raise KeyError(f"{name!r} has no counterpart {tname!r} in {type(model).__name__}")
-        a = np.asarray(arr)
-        if a.dtype.name == "bfloat16":  # ml_dtypes; numpy-to-torch needs f32
-            a = a.astype(np.float32)
-        t = torch.from_numpy(np.array(a))  # a writable, contiguous copy
+        if isinstance(arr, torch.Tensor):
+            t = arr
+        else:
+            a = np.asarray(arr)
+            if a.dtype.name == "bfloat16":  # ml_dtypes; numpy-to-torch needs f32
+                a = a.astype(np.float32)
+            t = torch.from_numpy(np.array(a))  # a writable, contiguous copy
         if transpose:
             t = t.T
         dst = state[tname]
@@ -83,11 +86,26 @@ def llama_params_from_flat(flat: dict, model):
 def llama_params_to_flat(model) -> dict:
     """The inverse: ``{flat JAX name: numpy array}`` in the reference's
     orientation (bf16 parameters come out as f32, exactly)."""
-    linear = _linear_weights(model)
     out = {}
-    for tname, p in model.state_dict().items():
+    for name, p in state_to_flat(model, model.state_dict()).items():
         a = p.detach().float().cpu() if p.dtype == torch.bfloat16 else p.detach().cpu()
-        if tname in linear:
-            a = a.T
-        out[_flat_name(tname, tname in linear)] = np.ascontiguousarray(a.numpy())
+        out[name] = np.ascontiguousarray(a.numpy())
+    return out
+
+
+def state_to_flat(model, state) -> dict:
+    """``{state_dict name: tensor}`` (any subset of ``model``'s, e.g. a
+    pseudo-gradient) -> ``{flat JAX name: tensor}`` in the reference's
+    orientation. Kernels come out as transposed views, not copies."""
+    linear = _linear_weights(model)
+    return {_flat_name(t, t in linear): (v.T if t in linear else v) for t, v in state.items()}
+
+
+def flat_to_state(flat) -> dict:
+    """``{flat JAX name: tensor}`` -> ``{state_dict name: tensor}``, kernels
+    transposed back (as views)."""
+    out = {}
+    for name, t in flat.items():
+        tname, transpose = _torch_name(name)
+        out[tname] = t.T if transpose else t
     return out

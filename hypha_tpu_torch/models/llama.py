@@ -13,8 +13,12 @@ serving, projections compute in ``config.dtype`` (inputs and weights cast
 at use, like flax ``Dense(dtype=...)``), norms and RoPE in f32, and the
 head einsum in f32.
 
-``forward(input_ids)`` is the training forward (plain causal attention).
-``forward(input_ids, cache)`` is the decode forward: the explicit
+``forward(input_ids)`` is the training forward: causal attention, with
+the sliding window when one is set, through the model's ``attn_impl``
+(the plain ``dot_product_attention`` when None; the trainer installs
+``flash_attention`` on CUDA, whose kernels take the window), each block under
+``torch.utils.checkpoint`` when ``config.remat`` is set and gradients are
+on. ``forward(input_ids, cache)`` is the decode forward: the explicit
 :class:`~hypha_tpu_torch.ops.kvcache.KVCache` selects scalar, per-row,
 paged or paged+ragged mode and is updated in place.
 """
@@ -22,10 +26,12 @@ paged or paged+ragged mode and is updated in place.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..hw import default_device
 from ..ops.attention import dot_product_attention
@@ -50,7 +56,7 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     dtype: str = "bfloat16"
     attn_bias: bool = False  # Qwen2: biases on q/k/v projections
-    remat: bool = False  # gradient checkpointing (training slice)
+    remat: bool = False  # gradient checkpointing of each block (training)
     sliding_window: "int | None" = None  # Mistral: local attention window
     tie_word_embeddings: bool = False  # Qwen2-small/Gemma: head = embeddings
     head_dim_override: "int | None" = None  # Gemma: head_dim != hidden/heads
@@ -141,9 +147,10 @@ class _RMSNorm(nn.Module):
 
 
 class _Attention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device) -> None:
+    def __init__(self, cfg: LlamaConfig, device, attn_impl: "Callable | None" = None) -> None:
         super().__init__()
         self.cfg = cfg
+        self.attn_impl = attn_impl
         dt = getattr(torch, cfg.dtype)
         hd, E = cfg.head_dim, cfg.hidden_size
         self.q_proj = _Linear(E, cfg.num_heads * hd, cfg.attn_bias, dt, device)
@@ -168,10 +175,8 @@ class _Attention(nn.Module):
         window = cfg.sliding_window
         if cache is None:
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-            if window is not None and S > window:
-                attn = dot_product_attention(q, k, v, causal=True, window=window)
-            else:
-                attn = dot_product_attention(q, k, v, causal=True)
+            impl = self.attn_impl or dot_product_attention
+            attn = impl(q, k, v, causal=True, window=window)
         elif cache.per_row:
             # Rows are left-padded into their window: RoPE runs on logical
             # positions, and attention masks keys below the row's start.
@@ -223,10 +228,10 @@ class _MLP(nn.Module):
 
 
 class _Block(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device) -> None:
+    def __init__(self, cfg: LlamaConfig, device, attn_impl=None) -> None:
         super().__init__()
         self.input_layernorm = _RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.rms_offset, device)
-        self.self_attn = _Attention(cfg, device)
+        self.self_attn = _Attention(cfg, device, attn_impl)
         self.post_attention_layernorm = _RMSNorm(
             cfg.hidden_size, cfg.rms_eps, cfg.rms_offset, device
         )
@@ -240,19 +245,26 @@ class _Block(nn.Module):
 class Llama(nn.Module):
     """Llama-family causal LM. Parameters are allocated on ``device`` (CUDA
     unless the caller asks for another) and left uninitialized: call
-    :meth:`init_weights` or load weights through ``models/convert.py``."""
+    :meth:`init_weights` or load weights through ``models/convert.py``.
+    ``attn_impl(q, k, v, causal=True, window=None)`` replaces the plain
+    attention of the training forward (the JAX model's hook of the same
+    name; the port's also takes the sliding window, so that Mistral trains
+    through the flash kernels)."""
 
-    def __init__(self, config: LlamaConfig = LlamaConfig(), *, device=None) -> None:
+    def __init__(self, config: LlamaConfig = LlamaConfig(), *, device=None,
+                 attn_impl: "Callable | None" = None) -> None:
         super().__init__()
         if config.lora_rank > 0:
             raise NotImplementedError(
-                "LoRA adapters come with the training slice (ROADMAP.md, Queue 1)"
+                "LoRA adapters are not ported (ROADMAP.md, Queue 1: LoRA)"
             )
         dev = default_device(device)
         self.config = config
         V, E = config.vocab_size, config.hidden_size
         self.embed_tokens = nn.Parameter(torch.empty(V, E, device=dev))
-        self.layers = nn.ModuleList(_Block(config, dev) for _ in range(config.num_layers))
+        self.layers = nn.ModuleList(
+            _Block(config, dev, attn_impl) for _ in range(config.num_layers)
+        )
         self.norm = _RMSNorm(E, config.rms_eps, config.rms_offset, dev)
         if not config.tie_word_embeddings:
             self.lm_head = nn.Parameter(torch.empty(V, E, device=dev))
@@ -311,8 +323,12 @@ class Llama(nn.Module):
         length = max(cfg.max_seq_len, cache.decode_len if cache is not None else 0)
         cos, sin = self._rope_table(length, x.device)
         offset = None if cache is None else cache.idx
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(x, cos, sin, cache, i, offset)
+            if remat:  # the block's forward runs again in the backward
+                x = checkpoint(layer, x, cos, sin, None, i, None, use_reentrant=False)
+            else:
+                x = layer(x, cos, sin, cache, i, offset)
         if cache is not None:
             cache.advance(input_ids.shape[1])
         x = self.norm(x)

@@ -33,9 +33,10 @@ _FAMILY_DEFAULTS: dict = {
 }
 
 
-def build_model(spec: dict[str, Any], device=None) -> tuple:
+def build_model(spec: dict[str, Any], device=None, attn_impl=None) -> tuple:
     """Build ``(module, config)`` from a model spec. Parameters are
-    allocated on ``device`` (CUDA by default) but not initialized."""
+    allocated on ``device`` (CUDA by default) but not initialized;
+    ``attn_impl`` replaces the training forward's plain attention."""
     family = spec.get("family")
     if family is None:
         raise ValueError("the model spec must name its 'family'")
@@ -66,4 +67,4 @@ def build_model(spec: dict[str, Any], device=None) -> tuple:
     overrides = {**base, **(spec.get("config") or {})}
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    return Llama(cfg, device=device), cfg
+    return Llama(cfg, device=device, attn_impl=attn_impl), cfg

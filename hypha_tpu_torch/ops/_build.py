@@ -28,7 +28,7 @@ __all__ = ["build", "load_library", "BUILD_DIR", "SOURCES"]
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("ragged_paged_attention.cu",)
+SOURCES = ("ragged_paged_attention.cu", "flash_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -89,13 +89,28 @@ def build(sources=SOURCES) -> dict:
     return out
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.ragged_paged_attention
-    fn.argtypes = [vp] * 9 + [i] * 12 + [vp]
-    fn.restype = i
-    lib.ragged_paged_attention_error.argtypes = [i]
-    lib.ragged_paged_attention_error.restype = ctypes.c_char_p
+def _bind(lib: ctypes.CDLL, source: str) -> ctypes.CDLL:
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    if source == "ragged_paged_attention.cu":
+        entry = {"ragged_paged_attention": [vp] * 9 + [i] * 12 + [vp]}
+        error = lib.ragged_paged_attention_error
+    elif source == "flash_attention.cu":
+        tail = [strides, f, i, i, i, vp]  # strides, scale, causal, window, dtype, stream
+        entry = {
+            "flash_attention_forward": [vp] * 5 + [i] * 6 + tail,
+            "flash_attention_backward_dq": [vp] * 7 + [i] * 6 + tail,
+            "flash_attention_backward_dkv": [vp] * 8 + [i] * 6 + tail,
+        }
+        error = lib.flash_attention_error
+    else:
+        raise KeyError(f"no C interface is declared for {source}")
+    for name, argtypes in entry.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = i
+    error.argtypes = [i]
+    error.restype = ctypes.c_char_p
     return lib
 
 
@@ -105,5 +120,5 @@ def load_library(source: str = "ragged_paged_attention.cu") -> ctypes.CDLL:
         lib = _libs.get(source)
         if lib is None:
             path = build((source,))[source]["path"]
-            lib = _libs[source] = _bind(ctypes.CDLL(str(path)))
+            lib = _libs[source] = _bind(ctypes.CDLL(str(path)), source)
         return lib

@@ -26,7 +26,9 @@ def dot_product_attention(
     logits in the input dtype, then softmax in f32; ``q_offset`` shifts the
     causal diagonal (per row when a [B] vector); ``window`` keeps keys in
     (i - window, i]; ``k_start`` masks keys below a per-row floor. Fully
-    masked rows give exact zeros."""
+    masked rows give exact zeros. Calls are counted in
+    ``dot_product_attention.calls``."""
+    dot_product_attention.calls += 1
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     if H != Hkv:
@@ -56,3 +58,6 @@ def dot_product_attention(
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-20)
     weights = weights.to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+dot_product_attention.calls = 0

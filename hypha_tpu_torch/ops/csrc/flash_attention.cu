@@ -1,0 +1,740 @@
+// Flash attention, forward and backward, for Hopper (sm_90a).
+//
+// Replaces the three Pallas TPU kernels of hypha_tpu/ops/flash_attention.py:
+//   * flash_fwd_kernel  <- _fwd_kernel (:115-174, pallas_call at :311)
+//   * flash_dq_kernel   <- _dq_kernel  (:177-219, pallas_call at :367)
+//   * flash_dkv_kernel  <- _dkv_kernel (:222-272, pallas_call at :398)
+// Semantics are those of the plain PyTorch versions flash_forward_reference
+// and flash_backward_reference in hypha_tpu_torch/ops/flash_attention.py:
+//   S = Q K^T * scale (causal: key j visible to query i iff j <= i),
+//   O = softmax(S) V, L = rowwise logsumexp(S) (-inf on a fully masked row,
+//   whose O is 0), and with P = exp(S - L), Delta = rowsum(dO * O):
+//   dV = P^T dO, dS = P * (dO V^T - Delta), dQ = dS K * scale,
+//   dK = dS^T Q * scale. GQA: query head h reads kv head h / (H / Hkv).
+//   A sliding window w > 0 (Mistral) also masks keys j <= i - w, so query i
+//   sees keys in (i - w, i]; w = 0 means no window.
+//
+// Layout: q/k/v/o/dO are read in place as [B, S, heads, D] through their
+// batch, sequence and head strides (the last dim contiguous); the TPU
+// wrapper's [B*H, S, D] transposes are a TPU layout rule and are gone.
+// Outputs: o, dq [B, Sq, H, D], dk/dv [B, Sk, Hkv, D] contiguous; L f32
+// [B, H, Sq] (one value per row, not the TPU's 128-lane replication).
+//
+// Precision follows the TPU kernels: bf16 operands widen to f32 exactly,
+// products and sums are f32; P is rounded to the value dtype before P V
+// (fwd) and before P^T dO (dV); dS is rounded to the input dtype before
+// dS K and dS^T Q. With f32 inputs the roundings are identities.
+//
+// Bound on this card: operations. At the training shape (B 2, S 2048,
+// 32 heads, D 128, causal) the forward does 2*B*H*S^2*D = 68.7 GFLOP on
+// 50 MB of inputs and outputs (1,400 flops per byte, far above the H100's
+// ~295 bf16 flops per byte), the backward 3.5x that. This first version is
+// right and simple, not fast: f32 FMAs on CUDA cores (67 TFLOP/s peak, not
+// the 989 TFLOP/s of bf16 tensor cores), no wgmma, no TMA, no warp
+// specialisation. Its design: 64 x 64 tiles staged in shared memory as f32
+// with rows padded to D + 1 floats (conflict-free column reads); 256
+// threads as a 16 x 16 grid, each owning a 4 x 4 block of the score tile
+// (rows ty + 16 i, cols tx + 16 j) and 4 x D/16 outputs; row reductions
+// are shuffles across the 16 lanes that share a row.
+//   * forward: one CTA per (query tile, batch * head); it loops over key
+//     tiles only from the window's first tile up to the causal frontier, so
+//     tiles wholly above the diagonal or wholly behind the window are never
+//     loaded; the online softmax state lives in registers.
+//   * dQ: one CTA per (query tile, batch * head), looping over the same key
+//     tiles; Delta is recomputed from the resident dO and O rows.
+//   * dK/dV: one CTA per (key tile, batch * kv head), looping over every
+//     (group member, query tile) at or below the diagonal and inside the
+//     window of the tile's last key. The GQA sum
+//     stays inside the CTA: no atomics, so the result is bit-identical from
+//     run to run.
+// Blocks run in no order and share nothing; every ragged edge (S not a
+// multiple of 64) is masked in the kernel, so any S works.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 64;  // query rows and key rows per tile
+constexpr int kThreads = 256;
+constexpr int kLP = kTile + 1;  // padded row length of a 64 x 64 tile
+
+struct Layout {
+  long long q[3], k[3], v[3], o[3], d[3];  // (batch, seq, head) strides, in elements
+};
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Round an f32 value to T and back (the TPU kernels' astype casts).
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f<T>(from_f<T>(x));
+}
+
+template <typename T>
+struct Vec;
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* o) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 f = __bfloat1622float2(h[i]);
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  }
+};
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* o) {
+    const float* f = reinterpret_cast<const float*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[i] = f[i];
+  }
+};
+
+// Stage rows [r0, r0 + kTile) of one head into dst[kTile][D + 1] as f32,
+// with 16-byte loads; rows at or past `seq` are zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* base, long long row_stride,
+                                          int r0, int seq) {
+  constexpr int VN = Vec<T>::N;
+  constexpr int VPR = D / VN;
+  constexpr int LD = D + 1;
+  for (int e = threadIdx.x; e < kTile * VPR; e += kThreads) {
+    const int r = e / VPR;
+    const int c = (e % VPR) * VN;
+    float f[VN];
+    if (r0 + r < seq) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(
+          base + static_cast<long long>(r0 + r) * row_stride + c));
+      Vec<T>::unpack(u, f);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VN; ++i) f[i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < VN; ++i) dst[r * LD + c + i] = f[i];
+  }
+}
+
+// Whether query qi sees key kj: the causal frontier and the sliding window
+// (window 0: none). The caller checks kj < Sk.
+__device__ __forceinline__ bool visible(int qi, int kj, int causal, int window) {
+  return (!causal || kj <= qi) && (window <= 0 || kj > qi - window);
+}
+
+// The first key tile that a query tile starting at q0 can see.
+__device__ __forceinline__ int first_key_tile(int q0, int window) {
+  return window > 0 ? (max(0, q0 - window + 1) / kTile) * kTile : 0;
+}
+
+__device__ __forceinline__ float row_max16(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float row_sum16(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// L and Delta = rowsum(dO * O) for the 64 query rows of a tile: four
+// threads per row, dO from shared memory (already staged), O from device
+// memory. Rows past Sq get L = -inf, so their P is 0.
+template <typename T, int D>
+__device__ __forceinline__ void row_stats(float* Lrow, float* Drow, const float* dos,
+                                          const T* ob, long long o_row, const float* lse_row,
+                                          int q0, int Sq) {
+  constexpr int LD = D + 1;
+  constexpr int PER = D / 4;
+  const int r = threadIdx.x >> 2;
+  const int part = threadIdx.x & 3;
+  float acc = 0.f;
+  if (q0 + r < Sq) {
+    const T* orow = ob + static_cast<long long>(q0 + r) * o_row + part * PER;
+    const float* drow = dos + r * LD + part * PER;
+#pragma unroll 8
+    for (int e = 0; e < PER; ++e) acc = fmaf(drow[e], to_f<T>(orow[e]), acc);
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  if (part == 0) {
+    Drow[r] = acc;
+    Lrow[r] = q0 + r < Sq ? lse_row[q0 + r] : -INFINITY;
+  }
+}
+
+// ------------------------------------------------------------------ forward
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ o, float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
+                 Layout lay, float scale, int causal, int window) {
+  constexpr int LD = D + 1;
+  constexpr int NC = D / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;             // [kTile][LD]
+  float* ks = qs + kTile * LD;  // [kTile][LD]
+  float* vs = ks + kTile * LD;  // [kTile][LD]
+  float* ps = vs + kTile * LD;  // [kTile][kLP]
+
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int hk = h / (H / Hkv);
+  const int q0 = blockIdx.x * kTile;
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
+
+  const T* qb = q + b * lay.q[0] + h * lay.q[2];
+  const T* kb = k + b * lay.k[0] + hk * lay.k[2];
+  const T* vb = v + b * lay.v[0] + hk * lay.v[2];
+  load_tile<T, D>(qs, qb, lay.q[1], q0, Sq);
+
+  float m[4], l[4], acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
+
+  const int k_end = causal ? min(Sk, q0 + kTile) : Sk;
+  for (int k0 = first_key_tile(q0, window); k0 < k_end; k0 += kTile) {
+    __syncthreads();  // the previous tile's readers are done with ks, vs, ps
+    load_tile<T, D>(ks, kb, lay.k[1], k0, Sk);
+    load_tile<T, D>(vs, vb, lay.v[1], k0, Sk);
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * LD + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * LD + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + ty + 16 * i;
+      float rmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = k0 + tx + 16 * j;
+        const bool keep = kj < Sk && visible(qi, kj, causal, window);
+        s[i][j] = keep ? s[i][j] * scale : -INFINITY;
+        rmax = fmaxf(rmax, s[i][j]);
+      }
+      rmax = row_max16(rmax);
+      const float m_new = fmaxf(m[i], rmax);
+      // A fully masked row keeps m = -inf: clamp so exp never sees -inf - -inf.
+      const float safe = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = m[i] == -INFINITY ? 0.f : expf(m[i] - safe);
+      float rsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - safe);
+        rsum += p;
+        ps[(ty + 16 * i) * kLP + tx + 16 * j] = round_to<T>(p);
+      }
+      rsum = row_sum16(rsum);
+      l[i] = l[i] * alpha + rsum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < kTile; ++kk) {
+      float pv[4], vv[NC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * kLP + kk];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) vv[c] = vs[kk * LD + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    if (qi >= Sq) continue;
+    const float den = fmaxf(l[i], 1e-20f);
+    T* orow = o + ((static_cast<long long>(b) * Sq + qi) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) orow[tx + 16 * c] = from_f<T>(acc[i][c] / den);
+    if (tx == 0)
+      lse[(static_cast<long long>(b) * H + h) * Sq + qi] =
+          m[i] == -INFINITY ? -INFINITY : m[i] + logf(den);
+  }
+}
+
+// ----------------------------------------------------------------------- dQ
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const T* __restrict__ o, const T* __restrict__ dout,
+                const float* __restrict__ lse, T* __restrict__ dq, int H, int Hkv, int Sq,
+                int Sk, Layout lay, float scale, int causal, int window) {
+  constexpr int LD = D + 1;
+  constexpr int NC = D / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;               // [kTile][LD]
+  float* dos = qs + kTile * LD;   // [kTile][LD]
+  float* ks = dos + kTile * LD;   // [kTile][LD]
+  float* vs = ks + kTile * LD;    // [kTile][LD]
+  float* dss = vs + kTile * LD;   // [kTile][kLP]
+  float* Lrow = dss + kTile * kLP;
+  float* Drow = Lrow + kTile;
+
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int hk = h / (H / Hkv);
+  const int q0 = blockIdx.x * kTile;
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
+
+  const T* kb = k + b * lay.k[0] + hk * lay.k[2];
+  const T* vb = v + b * lay.v[0] + hk * lay.v[2];
+  load_tile<T, D>(qs, q + b * lay.q[0] + h * lay.q[2], lay.q[1], q0, Sq);
+  load_tile<T, D>(dos, dout + b * lay.d[0] + h * lay.d[2], lay.d[1], q0, Sq);
+  __syncthreads();
+  row_stats<T, D>(Lrow, Drow, dos, o + b * lay.o[0] + h * lay.o[2], lay.o[1],
+                  lse + (static_cast<long long>(b) * H + h) * Sq, q0, Sq);
+
+  float acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+
+  const int k_end = causal ? min(Sk, q0 + kTile) : Sk;
+  for (int k0 = first_key_tile(q0, window); k0 < k_end; k0 += kTile) {
+    __syncthreads();
+    load_tile<T, D>(ks, kb, lay.k[1], k0, Sk);
+    load_tile<T, D>(vs, vb, lay.v[1], k0, Sk);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; ++d) {
+      float qv[4], dv[4], kv[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qv[i] = qs[(ty + 16 * i) * LD + d];
+        dv[i] = dos[(ty + 16 * i) * LD + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kv[j] = ks[(tx + 16 * j) * LD + d];
+        vv[j] = vs[(tx + 16 * j) * LD + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          dp[i][j] = fmaf(dv[i], vv[j], dp[i][j]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      const int qi = q0 + r;
+      const float L = Lrow[r];
+      const float delta = Drow[r];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = k0 + tx + 16 * j;
+        const bool keep = kj < Sk && visible(qi, kj, causal, window) && L != -INFINITY;
+        const float p = keep ? expf(s[i][j] * scale - L) : 0.f;
+        dss[r * kLP + tx + 16 * j] = round_to<T>(p * (dp[i][j] - delta));
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < kTile; ++kk) {
+      float sv[4], kv[NC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sv[i] = dss[(ty + 16 * i) * kLP + kk];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) kv[c] = ks[kk * LD + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(sv[i], kv[c], acc[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    if (qi >= Sq) continue;
+    T* row = dq + ((static_cast<long long>(b) * Sq + qi) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) row[tx + 16 * c] = from_f<T>(acc[i][c] * scale);
+  }
+}
+
+// -------------------------------------------------------------------- dK/dV
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const T* __restrict__ o, const T* __restrict__ dout,
+                 const float* __restrict__ lse, T* __restrict__ dk, T* __restrict__ dv, int H,
+                 int Hkv, int Sq, int Sk, Layout lay, float scale, int causal, int window) {
+  constexpr int LD = D + 1;
+  constexpr int NC = D / 16;
+  extern __shared__ float smem[];
+  float* ks = smem;               // [kTile][LD], resident
+  float* vs = ks + kTile * LD;    // [kTile][LD], resident
+  float* qs = vs + kTile * LD;    // [kTile][LD]
+  float* dos = qs + kTile * LD;   // [kTile][LD]
+  float* pts = dos + kTile * LD;  // [kTile keys][kLP queries]: P^T
+  float* dst = pts + kTile * kLP; // [kTile keys][kLP queries]: dS^T
+  float* Lrow = dst + kTile * kLP;
+  float* Drow = Lrow + kTile;
+
+  const int b = blockIdx.y / Hkv;
+  const int hk = blockIdx.y % Hkv;
+  const int reps = H / Hkv;
+  const int k0 = blockIdx.x * kTile;
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
+
+  load_tile<T, D>(ks, k + b * lay.k[0] + hk * lay.k[2], lay.k[1], k0, Sk);
+  load_tile<T, D>(vs, v + b * lay.v[0] + hk * lay.v[2], lay.v[1], k0, Sk);
+
+  float gk[4][NC], gv[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) gk[i][c] = gv[i][c] = 0.f;
+
+  // Query tiles wholly above the diagonal, or wholly past the window of
+  // the tile's last key (k0 + kTile - 1), see none of these keys.
+  const int q_begin = causal ? (k0 / kTile) * kTile : 0;
+  const int q_end =
+      window > 0 ? static_cast<int>(min(static_cast<long long>(Sq), k0 + kTile - 1LL + window)) : Sq;
+  for (int g = 0; g < reps; ++g) {
+    const int h = hk * reps + g;
+    const T* qb = q + b * lay.q[0] + h * lay.q[2];
+    const T* db = dout + b * lay.d[0] + h * lay.d[2];
+    const T* ob = o + b * lay.o[0] + h * lay.o[2];
+    const float* lrow = lse + (static_cast<long long>(b) * H + h) * Sq;
+    for (int q0 = q_begin; q0 < q_end; q0 += kTile) {
+      __syncthreads();
+      load_tile<T, D>(qs, qb, lay.q[1], q0, Sq);
+      load_tile<T, D>(dos, db, lay.d[1], q0, Sq);
+      __syncthreads();
+      row_stats<T, D>(Lrow, Drow, dos, ob, lay.o[1], lrow, q0, Sq);
+      __syncthreads();
+
+      // Transposed tiles: rows are keys (ty + 16 i), cols are queries (tx + 16 j).
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < D; ++d) {
+        float kv[4], vv[4], qv[4], dv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          kv[i] = ks[(ty + 16 * i) * LD + d];
+          vv[i] = vs[(ty + 16 * i) * LD + d];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          qv[j] = qs[(tx + 16 * j) * LD + d];
+          dv[j] = dos[(tx + 16 * j) * LD + d];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
+            dp[i][j] = fmaf(vv[i], dv[j], dp[i][j]);
+          }
+      }
+
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i;
+        const int kj = k0 + r;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j;
+          const int qi = q0 + c;
+          const float L = Lrow[c];
+          const bool keep =
+              kj < Sk && qi < Sq && visible(qi, kj, causal, window) && L != -INFINITY;
+          const float p = keep ? expf(s[i][j] * scale - L) : 0.f;
+          pts[r * kLP + c] = round_to<T>(p);
+          dst[r * kLP + c] = round_to<T>(p * (dp[i][j] - Drow[c]));
+        }
+      }
+      __syncthreads();
+
+#pragma unroll 2
+      for (int qq = 0; qq < kTile; ++qq) {
+        float pv[4], sv[4], dov[NC], qv[NC];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pv[i] = pts[(ty + 16 * i) * kLP + qq];
+          sv[i] = dst[(ty + 16 * i) * kLP + qq];
+        }
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          dov[c] = dos[qq * LD + tx + 16 * c];
+          qv[c] = qs[qq * LD + tx + 16 * c];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            gv[i][c] = fmaf(pv[i], dov[c], gv[i][c]);
+            gk[i][c] = fmaf(sv[i], qv[c], gk[i][c]);
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kj = k0 + ty + 16 * i;
+    if (kj >= Sk) continue;
+    const long long off = ((static_cast<long long>(b) * Sk + kj) * Hkv + hk) * D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      dk[off + tx + 16 * c] = from_f<T>(gk[i][c] * scale);
+      dv[off + tx + 16 * c] = from_f<T>(gv[i][c]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launch
+
+struct Args {
+  const void *q, *k, *v, *o, *dout;
+  void *out, *lse, *dq, *dk, *dv;
+  int B, H, Hkv, Sq, Sk;
+  Layout lay;
+  float scale;
+  int causal;
+  int window;
+};
+
+template <typename Kern>
+cudaError_t prepare(Kern kern, size_t smem) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <typename T, int D>
+cudaError_t launch_fwd(const Args& a, cudaStream_t st) {
+  const size_t smem = (3 * kTile * (D + 1) + kTile * kLP) * sizeof(float);
+  auto kern = flash_fwd_kernel<T, D>;
+  cudaError_t err = prepare(kern, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Sq + kTile - 1) / kTile, a.B * a.H);
+  kern<<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<T*>(a.out), static_cast<float*>(a.lse), a.H, a.Hkv, a.Sq, a.Sk, a.lay,
+      a.scale, a.causal, a.window);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const Args& a, cudaStream_t st) {
+  const size_t smem = (4 * kTile * (D + 1) + kTile * kLP + 2 * kTile) * sizeof(float);
+  auto kern = flash_dq_kernel<T, D>;
+  cudaError_t err = prepare(kern, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Sq + kTile - 1) / kTile, a.B * a.H);
+  kern<<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<T*>(a.dq), a.H, a.Hkv, a.Sq, a.Sk, a.lay,
+      a.scale, a.causal, a.window);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const Args& a, cudaStream_t st) {
+  const size_t smem = (4 * kTile * (D + 1) + 2 * kTile * kLP + 2 * kTile) * sizeof(float);
+  auto kern = flash_dkv_kernel<T, D>;
+  cudaError_t err = prepare(kern, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Sk + kTile - 1) / kTile, a.B * a.Hkv);
+  kern<<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H,
+      a.Hkv, a.Sq, a.Sk, a.lay, a.scale, a.causal, a.window);
+  return cudaGetLastError();
+}
+
+// which: 0 forward, 1 dQ, 2 dK/dV; dtype: 0 bfloat16, 1 float32.
+template <typename T, int D>
+cudaError_t dispatch_which(int which, const Args& a, cudaStream_t st) {
+  if (which == 0) return launch_fwd<T, D>(a, st);
+  if (which == 1) return launch_dq<T, D>(a, st);
+  if (which == 2) return launch_dkv<T, D>(a, st);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dispatch(int which, int dtype, int D, const Args& a, cudaStream_t st) {
+  if (a.B <= 0 || a.H <= 0 || a.Hkv <= 0 || a.H % a.Hkv != 0 || a.Sq <= 0 || a.Sk <= 0 ||
+      a.window < 0)
+    return cudaErrorInvalidValue;
+  if (dtype == 0 && D == 64) return dispatch_which<__nv_bfloat16, 64>(which, a, st);
+  if (dtype == 0 && D == 128) return dispatch_which<__nv_bfloat16, 128>(which, a, st);
+  if (dtype == 1 && D == 64) return dispatch_which<float, 64>(which, a, st);
+  if (dtype == 1 && D == 128) return dispatch_which<float, 128>(which, a, st);
+  return cudaErrorInvalidValue;
+}
+
+Layout read_layout(const long long* s) {
+  Layout lay;
+  for (int i = 0; i < 3; ++i) {
+    lay.q[i] = s[i];
+    lay.k[i] = s[3 + i];
+    lay.v[i] = s[6 + i];
+    lay.o[i] = s[9 + i];
+    lay.d[i] = s[12 + i];
+  }
+  return lay;
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes). Each returns the cudaError_t of
+// its launch, 0 on success. `strides` points to 15 host int64s: the
+// (batch, seq, head) element strides of q, k, v, o and dO, in that order
+// (the forward ignores the last six). `window` is the sliding window, 0 for
+// none.
+extern "C" int flash_attention_forward(const void* q, const void* k, const void* v, void* o,
+                                       void* lse, int B, int H, int Hkv, int Sq, int Sk, int D,
+                                       const long long* strides, float scale, int causal,
+                                       int window, int dtype, void* stream) {
+  Args a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.out = o;
+  a.lse = lse;
+  a.B = B;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.lay = read_layout(strides);
+  a.scale = scale;
+  a.causal = causal;
+  a.window = window;
+  return static_cast<int>(dispatch(0, dtype, D, a, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int flash_attention_backward_dq(const void* q, const void* k, const void* v,
+                                           const void* o, const void* dout, const void* lse,
+                                           void* dq, int B, int H, int Hkv, int Sq, int Sk,
+                                           int D, const long long* strides, float scale,
+                                           int causal, int window, int dtype, void* stream) {
+  Args a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.dout = dout;
+  a.lse = const_cast<void*>(lse);
+  a.dq = dq;
+  a.B = B;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.lay = read_layout(strides);
+  a.scale = scale;
+  a.causal = causal;
+  a.window = window;
+  return static_cast<int>(dispatch(1, dtype, D, a, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int flash_attention_backward_dkv(const void* q, const void* k, const void* v,
+                                            const void* o, const void* dout, const void* lse,
+                                            void* dk, void* dv, int B, int H, int Hkv, int Sq,
+                                            int Sk, int D, const long long* strides,
+                                            float scale, int causal, int window, int dtype,
+                                            void* stream) {
+  Args a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.dout = dout;
+  a.lse = const_cast<void*>(lse);
+  a.dk = dk;
+  a.dv = dv;
+  a.B = B;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.lay = read_layout(strides);
+  a.scale = scale;
+  a.causal = causal;
+  a.window = window;
+  return static_cast<int>(dispatch(2, dtype, D, a, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" const char* flash_attention_error(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

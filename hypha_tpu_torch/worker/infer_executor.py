@@ -11,6 +11,7 @@ from pathlib import Path
 import torch
 
 from ..executor.generate import generate
+from ..executor.serialization import load_file
 from ..hw import default_device
 from ..models.convert import llama_params_from_flat
 from ..models.registry import build_model
@@ -38,9 +39,7 @@ def load_model(model_spec: dict, device=None):
                 "HF checkpoint directories are not ported yet; pass a flat "
                 "SafeTensors file (ROADMAP.md, Queue 1)"
             )
-        from safetensors.numpy import load_file  # only needed for weights=
-
-        llama_params_from_flat(load_file(str(path)), model)
+        llama_params_from_flat(load_file(path), model)
     else:
         model.init_weights(int(model_spec.get("seed", 0)))
     if serve_dtype == "bfloat16":

@@ -125,3 +125,99 @@ def test_dispatcher_launches_kernel_on_cuda(cuda):
     torch.cuda.synchronize()
     assert ragged_paged_attention.launches == before + 1
     assert paged_attention.plain_calls == plain
+
+
+# ------------------------------------------------------- flash attention
+
+
+def _flash_case(seed, B, Sq, Sk, H, Hkv, D, dtype, device):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype).to(device)
+
+    return t(B, Sq, H, D), t(B, Sk, Hkv, D), t(B, Sk, Hkv, D), t(B, Sq, H, D)
+
+
+# f32: another summation order; bf16: P and dS round to 8 mantissa bits
+# inside the kernels at other points of the online softmax than in the
+# plain version. Gradients are held against the case's largest |gradient|.
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "B,Sq,Sk,H,Hkv,D,causal",
+    [
+        (2, 256, 256, 4, 4, 64, True),
+        (1, 200, 200, 8, 2, 128, True),  # GQA, ragged tiles
+        (1, 130, 70, 4, 2, 64, False),  # Sq != Sk
+        (1, 70, 130, 4, 4, 128, True),  # causal with Sk > Sq
+    ],
+)
+def test_flash_kernels_match_plain(cuda, dtype, B, Sq, Sk, H, Hkv, D, causal):
+    _check_flash_kernels(cuda, dtype, B, Sq, Sk, H, Hkv, D, causal, None)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "B,S,H,Hkv,D,causal,window",
+    [
+        (1, 300, 8, 2, 128, True, 100),  # tiles wholly behind the window skipped
+        (1, 200, 4, 4, 64, False, 70),  # not causal: keys from i - 69 to the end
+        (1, 130, 4, 2, 64, True, 3),  # each query sees itself and two keys before
+    ],
+)
+def test_flash_kernels_window_matches_plain(cuda, dtype, B, S, H, Hkv, D, causal, window):
+    _check_flash_kernels(cuda, dtype, B, S, S, H, Hkv, D, causal, window)
+
+
+def _check_flash_kernels(cuda, dtype, B, Sq, Sk, H, Hkv, D, causal, window):
+    from hypha_tpu_torch.ops.flash_attention import (
+        flash_backward_reference,
+        flash_dkv_cuda,
+        flash_dq_cuda,
+        flash_forward_cuda,
+        flash_forward_reference,
+    )
+
+    q, k, v, do = _flash_case(5, B, Sq, Sk, H, Hkv, D, dtype, cuda)
+    o, lse = flash_forward_cuda(q, k, v, causal, None, window)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_forward_reference(q, k, v, causal, None, window)
+    tol = FLASH_TOL[dtype]
+    assert (o.float() - o_ref.float()).abs().max().item() <= tol
+    live = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse), live)
+    assert (lse[live] - lse_ref[live]).abs().max().item() <= tol
+    args = (q, k, v, o, lse, do, causal, None, window)
+
+    def backward():
+        dq = flash_dq_cuda(*args)
+        dk, dv = flash_dkv_cuda(*args)
+        torch.cuda.synchronize()
+        return dq, dk, dv
+
+    grads = backward()
+    refs = flash_backward_reference(*args)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= tol * r.float().abs().max().item(), (name, err)
+    again = backward()
+    assert torch.equal(again[1], grads[1]) and torch.equal(again[2], grads[2])
+
+
+def test_flash_attention_autograd_counts_launches(cuda):
+    from hypha_tpu_torch.ops.flash_attention import flash_attention
+
+    q, k, v, do = _flash_case(9, 1, 128, 128, 4, 2, 64, torch.bfloat16, cuda)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = (flash_attention.fwd_launches, flash_attention.dq_launches,
+              flash_attention.dkv_launches, flash_attention.plain_calls)
+    out = flash_attention(q, k, v, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    after = (flash_attention.fwd_launches, flash_attention.dq_launches,
+             flash_attention.dkv_launches, flash_attention.plain_calls)
+    assert after == (before[0] + 1, before[1] + 1, before[2] + 1, before[3])
+    assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))

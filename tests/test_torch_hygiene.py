@@ -1,6 +1,7 @@
-"""Port hygiene: hypha_tpu_torch and chip_smoke.py import no JAX and
-nothing of the JAX package; entry points never drop quietly to the CPU;
-the kernel dispatcher never falls back to the plain version."""
+"""Port hygiene: hypha_tpu_torch and chip_smoke.py import no JAX, nothing
+of the JAX package, and no package the card's machine lacks (safetensors,
+httpx); entry points never drop quietly to the CPU; the kernel
+dispatchers never fall back to the plain versions."""
 
 from __future__ import annotations
 
@@ -11,10 +12,16 @@ import pytest
 import torch
 
 from hypha_tpu_torch.hw import default_device
+from hypha_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_dkv_cuda,
+    flash_dq_cuda,
+    flash_forward_cuda,
+)
 from hypha_tpu_torch.ops.paged_attention import PagedKV, paged_attention, ragged_paged_attention
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "hypha_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "hypha_tpu", "safetensors", "httpx"}
 
 
 def _port_files():
@@ -64,3 +71,15 @@ def test_forced_kernel_on_cpu_tensors_raises():
     with pytest.raises(ValueError, match="CUDA"):
         ragged_paged_attention(q, kv, blocks=1, block_size=4, q_offset=off)
     assert paged_attention.plain_calls == before, "no quiet fallback to the plain version"
+
+
+def test_flash_kernels_refuse_cpu_tensors():
+    q = torch.zeros(1, 4, 2, 64)
+    before = flash_attention.plain_calls
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_forward_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_dq_cuda(q, q, q, q, torch.zeros(1, 2, 4), q)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_dkv_cuda(q, q, q, q, torch.zeros(1, 2, 4), q)
+    assert flash_attention.plain_calls == before, "no quiet fallback to the plain version"
