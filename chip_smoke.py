@@ -5,17 +5,21 @@
 Phases, each printing one JSON line:
 
 1. device  — the card's name, capability and power limit;
-2. build   — compile every kernel from ``hypha_tpu_torch/ops/csrc``;
-3. kernels — each kernel against its plain PyTorch version on the card
-   (bf16 and int8 pools, MHA and GQA, decode and prefill-chunk shapes,
-   poisoned garbage and unallocated blocks, an idle lane that must be
-   exactly zero, a window with a k_start floor), then its time at the
-   Llama-2-7B decode shape beside the plain version, one PyTorch library
-   call computing the same function, and the card's bound;
+2. build   — compile every kernel from ``hypha_tpu_torch/ops/csrc``, with
+   each kernel's registers and spills from ``-Xptxas -v``;
+3. kernels — both routes of the ragged kernel (simt: CUDA cores; mma:
+   tensor cores) against its plain PyTorch version on the card (bf16 and
+   int8 pools, MHA and GQA, Sq 1, 16 and 64, poisoned garbage and
+   unallocated blocks, an idle lane that must be exactly zero, a window
+   with a k_start floor), then both routes timed on the same inputs at
+   the Llama-2-7B serving shape (decode and prefill chunks of 16 and 64)
+   beside the plain version, one PyTorch library call computing the same
+   function, and the card's bound;
 4. serve   — full-width Llama-2-7B (seeded random weights, bf16) behind
    ``PoolServer`` -> paged, ragged ``DecodePool``: concurrent greedy
-   requests through asyncio; every kernel must have launched on this path
-   and the plain attention path never;
+   requests through asyncio; both kernel routes must have launched on
+   this path (prefill chunks: mma, decode: simt) and the plain attention
+   path never;
 5. serve_int8 — the same pool with int8 KV blocks;
 6. reference — the 7B decode forward (through the kernel) against the
    training forward (plain attention), and a tiny f32 Llama whose pool
@@ -23,8 +27,8 @@ Phases, each printing one JSON line:
 7. flash_kernels — the flash-attention forward, dQ and dK/dV kernels
    against their plain versions (bf16; MHA 32/32 and GQA 32/8; causal and
    not; S 2048, a ragged 1000, Sq != Sk; head_dim 128 and 64; sliding
-   windows, Mistral-7B's 4096 at S 4608 among them), dK/dV
-   bit-identical on a second launch, then each kernel's time at the
+   windows, Mistral-7B's 4096 at S 4608 among them), the forward and
+   dK/dV bit-identical on a second launch, then each kernel's time at the
    training shape beside its plain version, SDPA and the card's bound;
 8. train — the serving model freed, ``run_training`` at Llama-2-7B widths
    cut to 8 layers (S 2048, batch 2, remat) behind an in-process scheduler
@@ -50,6 +54,7 @@ import gc
 import json
 import os
 import queue
+import re
 import shutil
 import statistics
 import subprocess
@@ -79,6 +84,8 @@ FLASH_REPLACES = {
 # within 2e-2 (unit-variance inputs), L (f32) within 1e-3, gradients within
 # 2e-2 of the case's largest |gradient|.
 FLASH_TOL = {"o": 2e-2, "lse": 1e-3, "grad_rel": 2e-2}
+# Kernel names as the profiler shows them (bf16 forward: flash_fwd_mma_kernel).
+FLASH_NAMES = ("flash_fwd_mma_kernel", "flash_dq_kernel", "flash_dkv_kernel")
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ROUNDS, TRAIN_STEPS = 8, 2048, 2, 2, 4
 TRAIN_PERIOD = 1024  # the data counts modulo this; the model's vocabulary stays 32000
 
@@ -93,6 +100,20 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas(log: str) -> list:
+    """Each kernel's registers, spills and shared memory from ``-Xptxas -v``."""
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:  # the mangled name, cut to the kernel and its template arguments
+            k = re.search(r"\d+([a-z_]+_kernel)I(\w+?)EEEv", m.group(1))
+            name = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
+            out.append({"kernel": name})
+        elif name and ("spill" in ln or "registers" in ln):
+            out[-1]["spill" if "spill" in ln else "usage"] = ln.split(":", 1)[-1].strip()
+    return out
 
 
 def time_ms(fn, *, reps: int = 5, iters: int = 20, warmup: int = 3) -> float:
@@ -154,16 +175,17 @@ def paged_case(gen, *, B, sq, hq, hkv, D, bs, max_blocks, blocks, occupancy, qua
 
 
 def kernel_phase() -> dict:
-    from hypha_tpu_torch.ops.paged_attention import ragged_block_attention, ragged_paged_attention
+    from hypha_tpu_torch.ops.paged_attention import _launch, _ragged_route, ragged_block_attention
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bs, max_blocks, blocks = 16, 64, 512  # the 7B pool: max_len 1024, 512 blocks
     cases = []
     for hq, hkv in ((32, 32), (32, 8)):
-        for sq in (1, 64):
+        for sq in (1, 16, 64):
             for quant in (False, True):
                 cases.append(dict(hq=hq, hkv=hkv, sq=sq, quant=quant, window=None, k_start=None))
     cases.append(dict(hq=32, hkv=8, sq=64, quant=False, window=100, k_start=[0, 37, 5, 0]))
+    cases.append(dict(hq=32, hkv=8, sq=64, quant=True, window=100, k_start=[0, 37, 5, 0]))
     results, max_err = [], 0.0
     for c in cases:
         occupancy = [9, 40, 0, 64]  # partial, partial, idle lane 2, full
@@ -174,38 +196,48 @@ def kernel_phase() -> dict:
         )
         kst = None if c["k_start"] is None else torch.tensor(c["k_start"], dtype=torch.int32, device="cuda")
         kw = dict(blocks=blocks, block_size=bs, q_offset=qoff, k_start=kst, window=c["window"])
-        got = ragged_paged_attention(q, kv, **kw)
-        torch.cuda.synchronize()
         ref = ragged_block_attention(q, kv, **kw)
+        got = {route: _launch(q, kv, route, **kw) for route in ("simt", "mma")}
         torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
-        idle_zero = bool(torch.all(got[2] == 0))
         # Re-poison everything no lane may read: the output bits must stay.
         kv.k[unreachable] = kv.k[unreachable] * -3 + 1
         kv.v[unreachable] = kv.v[unreachable] * 2 - 5
-        again = ragged_paged_attention(q, kv, **kw)
-        torch.cuda.synchronize()
-        bit_invariant = bool(torch.equal(got, again))
-        ok = err <= TOL[torch.bfloat16] and idle_zero and bit_invariant
-        results.append(dict(c, max_abs_err=err, tol=TOL[torch.bfloat16], idle_zero=idle_zero,
-                            poison_bit_invariant=bit_invariant, ok=ok))
-        max_err = max(max_err, err)
+        r = dict(c, main_route=_ragged_route(c["sq"], q.dtype), tol=TOL[torch.bfloat16])
+        ok = True
+        for route, out in got.items():
+            err = (out.float() - ref.float()).abs().max().item()
+            again = _launch(q, kv, route, **kw)
+            torch.cuda.synchronize()
+            r[route] = dict(max_abs_err=err, idle_zero=bool(torch.all(out[2] == 0)),
+                            poison_bit_invariant=bool(torch.equal(out, again)))
+            ok = ok and err <= TOL[torch.bfloat16] and r[route]["idle_zero"] \
+                and r[route]["poison_bit_invariant"]
+            max_err = max(max_err, err)
+        r["ok"] = ok
+        results.append(r)
         if not ok:
-            emit({"phase": "kernels", "failed_case": results[-1]})
+            emit({"phase": "kernels", "failed_case": r})
             raise SystemExit("kernel disagrees with its plain version")
 
-    # Time at the 7B decode shape: 8 lanes, 1 query, 512 occupied positions.
+    # Time at the 7B serving shape: 8 lanes, 512 occupied positions each,
+    # queries at the end (decode: 1, prefill chunks: 16 and 64); both
+    # routes on the same inputs, the main path's route first.
     timing = {}
     for label, quant, sq, hkv in (("decode_bf16", False, 1, 32), ("decode_int8", True, 1, 32),
                                   ("decode_gqa8_bf16", False, 1, 8),
-                                  ("prefill64_bf16", False, 64, 32)):
+                                  ("prefill16_bf16", False, 16, 32),
+                                  ("prefill64_bf16", False, 64, 32),
+                                  ("prefill64_int8", True, 64, 32)):
         B, hq, D = 8, 32, 128
         q, kv, qoff, _ = paged_case(
             gen, B=B, sq=sq, hq=hq, hkv=hkv, D=D, bs=bs, max_blocks=max_blocks,
             blocks=blocks, occupancy=[32] * B, quant=quant,
         )
         kw = dict(blocks=blocks, block_size=bs, q_offset=qoff)
-        ms = time_ms(lambda: ragged_paged_attention(q, kv, **kw))
+        main = _ragged_route(sq, q.dtype)
+        other = "simt" if main == "mma" else "mma"
+        route_ms = {main: time_ms(lambda: _launch(q, kv, main, **kw))}
+        route_ms[other] = time_ms(lambda: _launch(q, kv, other, **kw))
         plain_ms = time_ms(lambda: ragged_block_attention(q, kv, **kw), reps=3, iters=5)
         # Yardstick only: SDPA over the same keys gathered dense per lane.
         rows = (kv.table[:, :32].long()[:, :, None] * bs
@@ -223,16 +255,23 @@ def kernel_phase() -> dict:
         if quant:
             kv_bytes += 2 * B * keys * hkv * 4
         io_bytes = kv_bytes + 2 * q.numel() * q.element_size() + kv.table.numel() * 4 + 2 * B * 4
-        ops = 4 * B * hq * sq * keys * D
+        # Visible (query, key) pairs: query i of sq sits at position
+        # keys - sq + i and sees keys up to it (causal).
+        pairs = B * hq * sum(keys - sq + 1 + i for i in range(sq))
+        ops = 4 * D * pairs
         t_bytes = io_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS[torch.bfloat16] * 1e3
-        timing[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        timing[label] = dict(route=main, ms=route_ms[main], mma_ms=route_ms["mma"],
+                             simt_ms=route_ms["simt"], plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=max(t_bytes, t_ops),
                              bound_by="bytes" if t_bytes >= t_ops else "operations",
-                             bytes=io_bytes, ops=ops, achieved_GBps=io_bytes / ms / 1e6)
+                             bytes=io_bytes, ops=ops,
+                             achieved_GBps=io_bytes / route_ms[main] / 1e6,
+                             achieved_TFLOPs=ops / route_ms[main] / 1e9)
     emit({"phase": "kernels", "cases": results, "timing": timing,
-          "shape": "B=8 Hq=32 Hkv=32 (gqa8: 8) D=128 bs=16, 512 occupied positions per lane"})
-    return {"max_abs_err": max_err, **timing["decode_bf16"]}
+          "shape": "B=8 Hq=32 Hkv=32 (gqa8: 8) D=128 bs=16, 512 occupied positions per lane",
+          "routes": "simt (CUDA cores, f32) and mma (mma.sync bf16), both on every case"})
+    return {"max_abs_err": max_err, "timing": timing}
 
 
 def causal_tail(sq: int, keys: int) -> torch.Tensor:
@@ -272,31 +311,37 @@ def serve_phase(model, *, kv_quant: str, lengths: list, n_new: list) -> dict:
                             block_size=16, ragged=True, kv_quant=kv_quant)
         try:
             ragged_paged_attention.launches = 0
+            ragged_paged_attention.mma_launches = ragged_paged_attention.simt_launches = 0
             paged_attention.plain_calls = 0
             t0 = time.perf_counter()
             out = await drive(server, prompts, n_new)
             wall = time.perf_counter() - t0
             launches = ragged_paged_attention.launches
+            by_route = {"mma": ragged_paged_attention.mma_launches,
+                        "simt": ragged_paged_attention.simt_launches}
             plain = paged_attention.plain_calls
             stats = dict(server.pool.stats)
             again = await drive(server, prompts[:2], n_new[:2])
-            return server, out, wall, launches, plain, stats, again
+            return server, out, wall, launches, by_route, plain, stats, again
         finally:
             server.close()
 
-    server, out, wall, launches, plain, stats, again = asyncio.run(run())
+    server, out, wall, launches, by_route, plain, stats, again = asyncio.run(run())
     for toks, n in zip(out, n_new):
         if len(toks) != 1 or len(toks[0]) != n:
             raise SystemExit(f"request answered with {len(toks[0])} tokens, wanted {n}")
     if again != out[:2]:
         raise SystemExit("a repeated request returned different tokens")
-    if launches <= 0 or plain != 0:
-        raise SystemExit(f"kernel launches {launches}, plain attention calls {plain}")
+    # Prefill chunks take the mma route and decode steps the simt route:
+    # both kernels must have run on this path.
+    if launches <= 0 or min(by_route.values()) <= 0 or plain != 0:
+        raise SystemExit(f"kernel launches {launches} {by_route}, plain attention calls {plain}")
     if server.fallbacks:
         raise SystemExit("a request left the pool for the one-shot fallback")
     res = dict(
         kv_quant=kv_quant or "bf16", requests=len(prompts), prompt_lengths=lengths,
-        n_new=n_new, wall_s=wall, kernel_launches=launches, plain_attention_calls=plain,
+        n_new=n_new, wall_s=wall, kernel_launches=launches,
+        kernel_launches_by_route=by_route, plain_attention_calls=plain,
         decode_chunks=server.pool.chunks, prefill_chunks=server.pool.prefill_chunks,
         preemptions=server.pool.preemptions,
         prefill_tok_s=stats["prefill_tokens"] / stats["prefill_s"],
@@ -347,7 +392,7 @@ def profile_phase(model) -> dict:
                 if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
         rows.sort(key=lambda r: -r[1])
         busy = sum(r[1] for r in rows)
-        attn = sum(ms for k, ms, _ in rows if "ragged_kernel" in k)
+        attn = sum(ms for k, ms, _ in rows if "ragged_kernel" in k or "ragged_mma_kernel" in k)
         out[label] = dict(wall_ms=wall_ms, device_busy_ms=busy, idle_share=1 - busy / wall_ms,
                           attention_kernel_ms=attn, kernels_per_forward=sum(r[2] for r in rows),
                           top=[{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:6]])
@@ -450,8 +495,11 @@ def flash_kernel_phase() -> dict:
         dk, dv = flash_dkv_cuda(q, k, v, o, lse, do, causal, None, window)
         torch.cuda.synchronize()
         dk2, dv2 = flash_dkv_cuda(q, k, v, o, lse, do, causal, None, window)
+        o2, lse2 = flash_forward_cuda(q, k, v, causal, None, window)
         torch.cuda.synchronize()
         deterministic = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
+        fwd_identical = bool(torch.equal(o, o2) and torch.equal(lse, lse2))
+        del o2, lse2
         o_ref, lse_ref = flash_forward_reference(q, k, v, causal, None, window)
         r = dict(c, o_err=(o.float() - o_ref.float()).abs().max().item(),
                  lse_err=(lse - lse_ref).abs().max().item())
@@ -467,8 +515,8 @@ def flash_kernel_phase() -> dict:
         torch.cuda.empty_cache()
         ok = (r["o_err"] <= FLASH_TOL["o"] and r["lse_err"] <= FLASH_TOL["lse"]
               and max(r["dq_rel"], r["dk_rel"], r["dv_rel"]) <= FLASH_TOL["grad_rel"]
-              and deterministic and bool(torch.isfinite(lse).all()))
-        r.update(dkv_bit_identical=deterministic, ok=ok)
+              and deterministic and fwd_identical and bool(torch.isfinite(lse).all()))
+        r.update(dkv_bit_identical=deterministic, fwd_bit_identical=fwd_identical, ok=ok)
         results.append(r)
         errs["fwd"] = max(errs["fwd"], r["o_err"])
         errs["dq"] = max(errs["dq"], r["dq_err"])
@@ -582,10 +630,8 @@ class TrainSession:
             rows.sort(key=lambda r: -r[1])
             self.profile = dict(
                 wall_ms=wall * 1e3, device_busy_ms=sum(r[1] for r in rows),
-                kernels={name: sum(ms for k, ms, _ in rows if name in k)
-                         for name in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")},
-                launches={name: sum(c for k, _, c in rows if name in k)
-                          for name in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")},
+                kernels={name: sum(ms for k, ms, _ in rows if name in k) for name in FLASH_NAMES},
+                launches={name: sum(c for k, _, c in rows if name in k) for name in FLASH_NAMES},
                 top=[{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:8]],
             )
 
@@ -883,8 +929,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": {k: {"seconds": v["seconds"], "cached": v["cached"],
-                          "ptxas": [ln.strip() for ln in v["log"].splitlines() if "registers" in ln]}
+          "sources": {k: {"seconds": v["seconds"], "cached": v["cached"], "ptxas": ptxas(v["log"])}
                       for k, v in built.items()}})
 
     kern = kernel_phase()
@@ -909,12 +954,19 @@ def main() -> int:
     emit({"phase": "train", **train})
     emit({"phase": "train_reference", **train_reference_phase()})
 
+    dec, pre = kern["timing"]["decode_bf16"], kern["timing"]["prefill64_bf16"]
     kernels = [{
         "name": "ragged_paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": serve["kernel_launches"],
-        "max_abs_err": kern["max_abs_err"], "ms": kern["ms"], "plain_ms": kern["plain_ms"],
-        "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
-        "library_ms": kern["library_ms"],
+        "max_abs_err": kern["max_abs_err"], "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+        "library_ms": dec["library_ms"],
+        # The decode shape above (simt route), the prefill-chunk shape here
+        # (mma route), and the serve run's launches split by route.
+        "launches_by_route": serve["kernel_launches_by_route"],
+        "prefill64_ms": pre["ms"], "prefill64_simt_ms": pre["simt_ms"],
+        "prefill64_plain_ms": pre["plain_ms"], "prefill64_bound_ms": pre["bound_ms"],
+        "prefill64_bound_by": pre["bound_by"], "prefill64_library_ms": pre["library_ms"],
     }]
     for (name, replaces), key in zip(FLASH_REPLACES.items(), ("fwd", "dq", "dkv")):
         t = flash[key]

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch
 headers: a build takes seconds, not minutes). Libraries go to
-``ops/_build/`` (git-ignored), named by a hash of the source and the
-flags, so a changed source rebuilds and an unchanged one loads at once.
+``ops/_build/`` (git-ignored), named by a hash of the source, the shared
+``csrc/*.cuh`` headers and the flags, so a changed source rebuilds and an
+unchanged one loads at once.
 All sources compile in parallel, one ``nvcc`` each. A failed build raises
 with nvcc's log; nothing falls back to the plain PyTorch versions.
 
@@ -53,6 +54,8 @@ def _nvcc() -> str:
 
 def _target(source: str, nvcc: str) -> Path:
     h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the sources include the shared headers
+        h.update(header.read_bytes())
     h.update(" ".join((nvcc, *NVCC_FLAGS)).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
@@ -93,7 +96,7 @@ def _bind(lib: ctypes.CDLL, source: str) -> ctypes.CDLL:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_longlong)
     if source == "ragged_paged_attention.cu":
-        entry = {"ragged_paged_attention": [vp] * 9 + [i] * 12 + [vp]}
+        entry = {"ragged_paged_attention": [vp] * 9 + [i] * 13 + [vp]}
         error = lib.ragged_paged_attention_error
     elif source == "flash_attention.cu":
         tail = [strides, f, i, i, i, vp]  # strides, scale, causal, window, dtype, stream

@@ -1,7 +1,8 @@
 // Flash attention, forward and backward, for Hopper (sm_90a).
 //
 // Replaces the three Pallas TPU kernels of hypha_tpu/ops/flash_attention.py:
-//   * flash_fwd_kernel  <- _fwd_kernel (:115-174, pallas_call at :311)
+//   * flash_fwd_mma_kernel (bf16), flash_fwd_kernel (f32)
+//                       <- _fwd_kernel (:115-174, pallas_call at :311)
 //   * flash_dq_kernel   <- _dq_kernel  (:177-219, pallas_call at :367)
 //   * flash_dkv_kernel  <- _dkv_kernel (:222-272, pallas_call at :398)
 // Semantics are those of the plain PyTorch versions flash_forward_reference
@@ -22,21 +23,38 @@
 //
 // Precision follows the TPU kernels: bf16 operands widen to f32 exactly,
 // products and sums are f32; P is rounded to the value dtype before P V
-// (fwd) and before P^T dO (dV); dS is rounded to the input dtype before
-// dS K and dS^T Q. With f32 inputs the roundings are identities.
+// (fwd, the Pallas kernel's p.astype at :160) and before P^T dO (dV); dS
+// is rounded to the input dtype before dS K and dS^T Q. With f32 inputs
+// the roundings are identities. Where the bf16 forward departs: its
+// exponentials are exp2 of log2-domain scores (scale * log2 e folded in,
+// not exp of S - m), and P is rounded against the running row maximum of
+// the online softmax, as in the Pallas kernel, not the final one.
 //
 // Bound on this card: operations. At the training shape (B 2, S 2048,
 // 32 heads, D 128, causal) the forward does 2*B*H*S^2*D = 68.7 GFLOP on
 // 50 MB of inputs and outputs (1,400 flops per byte, far above the H100's
-// ~295 bf16 flops per byte), the backward 3.5x that. This first version is
-// right and simple, not fast: f32 FMAs on CUDA cores (67 TFLOP/s peak, not
-// the 989 TFLOP/s of bf16 tensor cores), no wgmma, no TMA, no warp
-// specialisation. Its design: 64 x 64 tiles staged in shared memory as f32
-// with rows padded to D + 1 floats (conflict-free column reads); 256
-// threads as a 16 x 16 grid, each owning a 4 x 4 block of the score tile
-// (rows ty + 16 i, cols tx + 16 j) and 4 x D/16 outputs; row reductions
-// are shuffles across the 16 lanes that share a row.
-//   * forward: one CTA per (query tile, batch * head); it loops over key
+// ~295 bf16 flops per byte), the backward 3.5x that.
+//
+// Which routes use tensor cores:
+//   * forward, bf16: flash_fwd_mma_kernel, mma.sync.m16n8k16 bf16 -> f32
+//     (attention_mma.cuh). A CTA owns 128 query rows, 8 warps of 16; Q is
+//     staged once by cp.async and held as ldmatrix A fragments; K/V tiles
+//     of 64 keys pass through a 2-stage cp.async ring in XOR-swizzled
+//     shared memory (ldmatrix / ldmatrix.trans without bank conflicts);
+//     the online softmax lives in registers and P is reused in registers
+//     as the A fragment of P V. 96 KB of shared memory at D 128. Grid
+//     (B * H, query tiles), the last (longest causal) tiles launched first.
+//     Not yet: wgmma, TMA, warp specialisation (the route to SDPA's rate).
+//   * forward f32, dQ and dK/dV (both dtypes): f32 FMAs on CUDA cores
+//     (67 TFLOP/s peak, not the 989 TFLOP/s of bf16 tensor cores). The f32
+//     forward stays there because the card tests hold f32 to 1e-4, which
+//     bf16 products cannot meet; dQ and dK/dV move to tensor cores next.
+//     Their design: 64 x 64 tiles staged in shared memory as f32 with rows
+//     padded to D + 1 floats (conflict-free column reads); 256 threads as a
+//     16 x 16 grid, each owning a 4 x 4 block of the score tile (rows
+//     ty + 16 i, cols tx + 16 j) and 4 x D/16 outputs; row reductions are
+//     shuffles across the 16 lanes that share a row.
+//   * forward: one CTA per query tile and batch * head; it loops over key
 //     tiles only from the window's first tile up to the causal frontier, so
 //     tiles wholly above the diagonal or wholly behind the window are never
 //     loaded; the online softmax state lives in registers.
@@ -46,14 +64,18 @@
 //     (group member, query tile) at or below the diagonal and inside the
 //     window of the tile's last key. The GQA sum
 //     stays inside the CTA: no atomics, so the result is bit-identical from
-//     run to run.
+//     run to run (as is every kernel here).
 // Blocks run in no order and share nothing; every ragged edge (S not a
-// multiple of 64) is masked in the kernel, so any S works.
+// multiple of the tile) is masked in the kernel, so any S works.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -305,6 +327,126 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (tx == 0)
       lse[(static_cast<long long>(b) * H + h) * Sq + qi] =
           m[i] == -INFINITY ? -INFINITY : m[i] + logf(den);
+  }
+}
+
+// ------------------------------------------ forward, bf16, on tensor cores
+
+constexpr int kMmaQ = 128;  // query rows per CTA: 8 warps x 16 rows
+constexpr int kMmaK = 64;   // keys per K/V tile
+constexpr int kMmaThreads = (kMmaQ / 16) * 32;
+
+// Q is staged once by cp.async and held as A fragments; K/V tiles of 64
+// keys pass through a 2-stage cp.async ring (tile j + 1 loads while tile j
+// computes); S = Q K^T and O += P V run on mma.sync with f32 sums; the
+// online softmax stays in registers (log2 domain, scale * log2 e folded
+// in) and P goes to bf16 in registers as the A fragment of P V. Only
+// tiles that cross the warp's diagonal, the window's edge or Sk are
+// masked per element. No atomics: o and L are the same bits every run.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse, int H, int Hkv, int Sq, int Sk, Layout lay,
+                     float scale, int causal, int window) {
+  using namespace attn_mma;
+  extern __shared__ __align__(128) unsigned char smem_mma[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_mma);  // [kMmaQ][D]
+  __nv_bfloat16* ks = qs + kMmaQ * D;                               // [2][kMmaK][D]
+  __nv_bfloat16* vs = ks + 2 * kMmaK * D;                           // [2][kMmaK][D]
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int hk = h / (H / Hkv);
+  // Blocks launch in index order: under causal masking the last query
+  // tiles see the most keys, so they go first and the short tiles near
+  // the start fill the tail of the grid.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kMmaQ;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wq = q0 + warp * 16;  // the warp's first query row
+
+  const __nv_bfloat16* kb = k + b * lay.k[0] + hk * lay.k[2];
+  const __nv_bfloat16* vb = v + b * lay.v[0] + hk * lay.v[2];
+  const int kt0 = first_key_tile(q0, window);
+  const int k_end = causal ? min(Sk, q0 + kMmaQ) : Sk;
+  const int n_tiles = k_end > kt0 ? (k_end - kt0 + kMmaK - 1) / kMmaK : 0;
+
+  stage_rows<D, kMmaQ, kMmaThreads>(qs, q + b * lay.q[0] + h * lay.q[2], lay.q[1], q0, Sq);
+  if (n_tiles > 0) {
+    stage_rows<D, kMmaK, kMmaThreads>(ks, kb, lay.k[1], kt0, Sk);
+    stage_rows<D, kMmaK, kMmaThreads>(vs, vb, lay.v[1], kt0, Sk);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+  load_a_rows<D>(qf, qs, warp * 16, lane);
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  const float sl2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = kt0 + it * kMmaK;
+    if (it + 1 < n_tiles) {
+      const int st = (it + 1) & 1;
+      stage_rows<D, kMmaK, kMmaThreads>(ks + st * kMmaK * D, kb, lay.k[1], k0 + kMmaK, Sk);
+      stage_rows<D, kMmaK, kMmaThreads>(vs + st * kMmaK * D, vb, lay.v[1], k0 + kMmaK, Sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // Rows past Sq are never stored; a tile wholly above the warp's
+    // diagonal or wholly behind its window changes nothing.
+    const bool skip = wq >= Sq || (causal && k0 > wq + 15) ||
+                      (window > 0 && k0 + kMmaK - 1 <= wq - window);
+    if (!skip) {
+      float s[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      qk_tile<D>(s, qf, ks + (it & 1) * kMmaK * D, lane);
+      const bool edge = k0 + kMmaK > Sk || (causal && k0 + kMmaK - 1 > wq) ||
+                        (window > 0 && k0 <= wq + 15 - window);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * sl2;
+          if (edge) {
+            const int kj = k0 + n * 8 + 2 * t + (e & 1);
+            const int qi = wq + g + (e >> 1) * 8;
+            if (kj >= Sk || !visible(qi, kj, causal, window)) x = -INFINITY;
+          }
+          s[n][e] = x;
+        }
+      }
+      softmax_step<D>(s, m, l, acc);
+      pv_tile<D>(acc, s, vs + (it & 1) * kMmaK * D, lane);
+    }
+    __syncthreads();  // the next copies overwrite the stage just read
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = wq + g + r * 8;
+    const float den = fmaxf(quad_sum(l[r]), 1e-20f);
+    if (qi >= Sq) continue;
+    __nv_bfloat16* orow = o + ((static_cast<long long>(b) * Sq + qi) * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
+          pack_bf16(acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
+    if (t == 0)
+      lse[(static_cast<long long>(b) * H + h) * Sq + qi] =
+          m[r] == -INFINITY ? -INFINITY : m[r] * 0.6931471805599453f + logf(den);
   }
 }
 
@@ -592,6 +734,20 @@ cudaError_t launch_fwd(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_fwd_mma(const Args& a, cudaStream_t st) {
+  const size_t smem = static_cast<size_t>(kMmaQ + 4 * kMmaK) * D * sizeof(__nv_bfloat16);
+  auto kern = flash_fwd_mma_kernel<D>;
+  cudaError_t err = prepare(kern, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.B * a.H, (a.Sq + kMmaQ - 1) / kMmaQ);
+  kern<<<grid, kMmaThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.out),
+      static_cast<float*>(a.lse), a.H, a.Hkv, a.Sq, a.Sk, a.lay, a.scale, a.causal, a.window);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a, cudaStream_t st) {
   const size_t smem = (4 * kTile * (D + 1) + kTile * kLP + 2 * kTile) * sizeof(float);
@@ -625,7 +781,14 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t st) {
 // which: 0 forward, 1 dQ, 2 dK/dV; dtype: 0 bfloat16, 1 float32.
 template <typename T, int D>
 cudaError_t dispatch_which(int which, const Args& a, cudaStream_t st) {
-  if (which == 0) return launch_fwd<T, D>(a, st);
+  if (which == 0) {
+    // bf16 on the tensor cores; f32 stays on the CUDA-core kernel, whose
+    // f32 sums the card tests hold to 1e-4.
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      return launch_fwd_mma<D>(a, st);
+    else
+      return launch_fwd<T, D>(a, st);
+  }
   if (which == 1) return launch_dq<T, D>(a, st);
   if (which == 2) return launch_dkv<T, D>(a, st);
   return cudaErrorInvalidValue;

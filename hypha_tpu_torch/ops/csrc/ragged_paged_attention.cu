@@ -16,20 +16,54 @@
 // Layout: the pool is read in place, [(blocks + 1) * block_size, Hkv, D]:
 // one head's row is D contiguous elements. q and out are [B, Sq, Hq, D].
 //
-// Bound: decode (Sq = 1) is bound by bytes: it reads every occupied K/V
-// row once per query head, doing 4 flops per element read. This design
-// is the simple, correct first version: one CTA per (lane, query head,
-// tile of 8 query rows); its 4 warps take the lane's blocks round robin,
-// stage each block's keys in shared memory as f32 with coalesced 16-byte
-// loads, and each keeps an f32 online softmax per query row (every lane
-// owns D/32 dims; the q.k dot is a warp all-reduce). The warps' partial
-// (m, l, acc) merge through shared memory at the end. Not yet here: wgmma,
-// TMA, sharing a K/V block across a GQA group, split-K across CTAs.
+// Two routes, one entry point; the caller picks by shape
+// (`_ragged_route` in paged_attention.py), and both are held against the
+// plain version on the card:
+//   * "simt", ragged_kernel: f32 math on CUDA cores. It serves decode
+//     (Sq = 1), which is bound by bytes: it reads every occupied K/V row
+//     once per query head and does 4 flops per element read, so tensor
+//     cores have nothing to win there. It also serves every f32 call: the
+//     card tests hold f32 to 1e-4, and the reference pool run must give
+//     the same tokens as generate, which bf16 products cannot promise.
+//     One CTA per (lane, query head, tile of 8 query rows); its 4 warps
+//     take the lane's blocks round robin, stage each block's keys in
+//     shared memory as f32 with coalesced 16-byte loads, and each keeps an
+//     f32 online softmax per query row (every lane owns D/32 dims; the q.k
+//     dot is a warp all-reduce). The warps' partial (m, l, acc) merge
+//     through shared memory at the end.
+//   * "mma", ragged_mma_kernel: bf16 q (bf16 or int8 pools) with a
+//     prefill chunk of queries. At Sq = 64 the work is 64 query rows
+//     against each K/V row, ~250 flops per byte read, near the card's
+//     ~295 bf16 flops per byte: the simt route, at 8 rows per CTA, re-read
+//     every K/V block 8 times and did its dot products as shuffle
+//     all-reduces. Here one CTA owns (lane, query head, 64 query rows),
+//     4 warps of 16; Q is held as ldmatrix A fragments; K/V tiles of 64
+//     logical keys are gathered row by row through the lane's table
+//     (any block size) into a 2-stage ring of XOR-swizzled bf16 tiles,
+//     by cp.async for bf16 pools and through registers (payload * scale)
+//     for int8 pools; S = Q K^T and O += P V run on mma.sync.m16n8k16
+//     bf16 -> f32 (attention_mma.cuh) with the online softmax in
+//     registers. Rows whose entry is a sentinel or at or past the
+//     occupancy are never read: they are zero-filled and masked.
+// Not yet here: wgmma, TMA, sharing a K/V tile across a GQA group, split-K
+// across CTAs for long lanes.
+//
+// Where the roundings depart from the Pallas kernel: the mma route rounds
+// int8-dequantized K and V to bf16 (payload * scale in f32, then bf16)
+// where the Pallas kernel keeps them f32 (:250-251); it rounds P to bf16
+// before P V, as the Pallas kernel's p.astype(v.dtype) (:271) does for
+// bf16 pools (for int8 pools the Pallas kernel multiplies f32 P by f32 V);
+// and its exponentials are exp2 of log2-domain scores. The simt route
+// keeps f32 throughout, as the plain version's streaming branch does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -254,6 +288,197 @@ ragged_kernel(const T* __restrict__ q, const KV* __restrict__ kpool,
   }
 }
 
+// ------------------------------------------- prefill chunks, tensor cores
+
+constexpr int kMmaRows = 64;  // query rows per CTA: 4 warps x 16
+constexpr int kMmaKeys = 64;  // logical keys per K/V tile
+constexpr int kMmaThreads = (kMmaRows / 16) * 32;
+
+// Gather the lane's logical keys [k0, k0 + kMmaKeys) for kv head hkv into
+// swizzled bf16 tiles. Key ki lives at pool row table[ki / bs] * bs +
+// ki % bs; it is read only if ki < k_hi and its entry lies below the
+// occupancy and is not the sentinel. Other rows are zero-filled and marked
+// 0 in `valid`. bf16 pools copy by cp.async (the caller commits); int8
+// pools load through registers and store payload * scale rounded to bf16.
+template <typename KV, int D>
+__device__ __forceinline__ void stage_keys(__nv_bfloat16* kdst, __nv_bfloat16* vdst, int* valid,
+                                           const KV* kpool, const KV* vpool,
+                                           const float* kscale, const float* vscale,
+                                           const int* tab, int count, int blocks, int bs,
+                                           int Hkv, int hkv, int k0, int k_hi) {
+  using namespace attn_mma;
+  constexpr int BYTES = sizeof(KV);
+  constexpr int CPR = D * BYTES / 16;  // 16-byte source chunks per row
+  constexpr int EPC = 16 / BYTES;      // elements per source chunk
+#pragma unroll
+  for (int i = 0; i < kMmaKeys * CPR / kMmaThreads; ++i) {
+    const int e = threadIdx.x + i * kMmaThreads;
+    const int r = e / CPR;
+    const int c = e % CPR;
+    const int ki = k0 + r;
+    const int j = ki / bs;
+    bool ok = ki < k_hi && j < count;
+    const int entry = ok ? tab[j] : blocks;
+    ok = ok && entry != blocks;
+    const size_t prow = static_cast<size_t>(min(max(entry, 0), blocks)) * bs + (ki - j * bs);
+    const size_t off = (prow * Hkv + hkv) * D + static_cast<size_t>(c) * EPC;
+    if (c == 0) valid[r] = ok;
+    if constexpr (std::is_same<KV, __nv_bfloat16>::value) {
+      cp_async_16(smem_u32(kdst + swz<D>(r, c)), ok ? kpool + off : kpool, ok ? 16 : 0);
+      cp_async_16(smem_u32(vdst + swz<D>(r, c)), ok ? vpool + off : vpool, ok ? 16 : 0);
+    } else {
+      uint4 kw[2] = {}, vw[2] = {};
+      if (ok) {
+        const int4 kr = __ldg(reinterpret_cast<const int4*>(kpool + off));
+        const int4 vr = __ldg(reinterpret_cast<const int4*>(vpool + off));
+        const float ksc = kscale[prow * Hkv + hkv];
+        const float vsc = vscale[prow * Hkv + hkv];
+        const int8_t* kc = reinterpret_cast<const int8_t*>(&kr);
+        const int8_t* vc = reinterpret_cast<const int8_t*>(&vr);
+        uint32_t* kp = reinterpret_cast<uint32_t*>(kw);
+        uint32_t* vp = reinterpret_cast<uint32_t*>(vw);
+#pragma unroll
+        for (int x = 0; x < 8; ++x) {
+          kp[x] = pack_bf16(static_cast<float>(kc[2 * x]) * ksc,
+                            static_cast<float>(kc[2 * x + 1]) * ksc);
+          vp[x] = pack_bf16(static_cast<float>(vc[2 * x]) * vsc,
+                            static_cast<float>(vc[2 * x + 1]) * vsc);
+        }
+      }
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        *reinterpret_cast<uint4*>(kdst + swz<D>(r, 2 * c + x)) = kw[x];
+        *reinterpret_cast<uint4*>(vdst + swz<D>(r, 2 * c + x)) = vw[x];
+      }
+    }
+  }
+}
+
+template <typename KV, int D>
+__global__ void __launch_bounds__(kMmaThreads)
+ragged_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ kpool,
+                  const KV* __restrict__ vpool, const float* __restrict__ kscale,
+                  const float* __restrict__ vscale, const int* __restrict__ table,
+                  const int* __restrict__ q_offset, const int* __restrict__ k_start,
+                  __nv_bfloat16* __restrict__ out, int Sq, int Hq, int Hkv, int blocks, int bs,
+                  int max_blocks, int window, int has_window, float scale) {
+  using namespace attn_mma;
+  extern __shared__ __align__(128) unsigned char smem_mma[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_mma);  // [kMmaRows][D]
+  __nv_bfloat16* ks = qs + kMmaRows * D;                            // [2][kMmaKeys][D]
+  __nv_bfloat16* vs = ks + 2 * kMmaKeys * D;                        // [2][kMmaKeys][D]
+  int* valid = reinterpret_cast<int*>(vs + 2 * kMmaKeys * D);       // [2][kMmaKeys]
+  __shared__ int s_count;
+
+  const int b = blockIdx.x / Hq;
+  const int hq = blockIdx.x % Hq;
+  const int hkv = hq / (Hq / Hkv);
+  const int row0 = blockIdx.y * kMmaRows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int* tab = table + static_cast<size_t>(b) * max_blocks;
+
+  // Occupancy: the number of non-sentinel entries, as the reference counts it.
+  if (threadIdx.x == 0) s_count = 0;
+  __syncthreads();
+  int c = 0;
+  for (int j = threadIdx.x; j < max_blocks; j += kMmaThreads) c += (tab[j] != blocks);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
+  if (lane == 0) atomicAdd(&s_count, c);
+  __syncthreads();
+  const int count = s_count;
+
+  const int qoff = q_offset[b];
+  const int kst = k_start[b];
+  const int q_first = qoff + row0;
+  const int q_last = qoff + min(row0 + kMmaRows, Sq) - 1;
+  // Keys from the window's and k_start's first tile up to the causal
+  // frontier of the tile's last row, and never past the occupied blocks.
+  int k_lo = max(kst, 0);
+  if (has_window) k_lo = max(k_lo, q_first - window + 1);
+  const long long k_hi_ll = min(static_cast<long long>(count) * bs, q_last + 1LL);
+  const int k_hi = static_cast<int>(max(k_hi_ll, 0LL));
+  const int t_lo = (k_lo / kMmaKeys) * kMmaKeys;
+  const int n_tiles = k_hi > t_lo ? (k_hi - t_lo + kMmaKeys - 1) / kMmaKeys : 0;
+
+  stage_rows<D, kMmaRows, kMmaThreads>(qs, q + (static_cast<size_t>(b) * Sq * Hq + hq) * D,
+                                       static_cast<long long>(Hq) * D, row0, Sq);
+  if (n_tiles > 0)
+    stage_keys<KV, D>(ks, vs, valid, kpool, vpool, kscale, vscale, tab, count, blocks, bs, Hkv,
+                      hkv, t_lo, k_hi);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+  load_a_rows<D>(qf, qs, warp * 16, lane);
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  const int wr = row0 + warp * 16;  // the warp's first query row
+  const int wq = qoff + wr;         // and its position
+  const float sl2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = t_lo + it * kMmaKeys;
+    const int st = it & 1;
+    if (it + 1 < n_tiles) {
+      const int nx = (it + 1) & 1;
+      stage_keys<KV, D>(ks + nx * kMmaKeys * D, vs + nx * kMmaKeys * D, valid + nx * kMmaKeys,
+                        kpool, vpool, kscale, vscale, tab, count, blocks, bs, Hkv, hkv,
+                        k0 + kMmaKeys, k_hi);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // Rows past Sq are never stored; a tile wholly above the warp's
+    // causal frontier or wholly behind its window changes nothing.
+    const bool skip = wr >= Sq || k0 > wq + 15 ||
+                      (has_window && k0 + kMmaKeys - 1 <= wq - window);
+    if (!skip) {
+      float s[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      qk_tile<D>(s, qf, ks + st * kMmaKeys * D, lane);
+      const int* vld = valid + st * kMmaKeys;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = n * 8 + 2 * t + (e & 1);
+          const int ki = k0 + col;
+          const int qi = wq + g + (e >> 1) * 8;
+          const bool keep =
+              vld[col] && qi >= ki && ki >= kst && (!has_window || ki > qi - window);
+          s[n][e] = keep ? s[n][e] * sl2 : -INFINITY;
+        }
+      }
+      softmax_step<D>(s, m, l, acc);
+      pv_tile<D>(acc, s, vs + st * kMmaKeys * D, lane);
+    }
+    __syncthreads();  // the next copies overwrite the stage just read
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wr + g + r * 8;
+    const float den = fmaxf(quad_sum(l[r]), 1e-20f);
+    if (row >= Sq) continue;
+    __nv_bfloat16* orow = out + ((static_cast<size_t>(b) * Sq + row) * Hq + hq) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
+          pack_bf16(acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
+  }
+}
+
 struct Args {
   const void *q, *k, *v;
   const float *ks, *vs;
@@ -281,10 +506,35 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename KV, int D>
+cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(kMmaRows + 4 * kMmaKeys) * D * sizeof(__nv_bfloat16) +
+                      2 * kMmaKeys * sizeof(int);
+  auto kern = ragged_mma_kernel<KV, D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.B * a.Hq, (a.Sq + kMmaRows - 1) / kMmaRows);
+  kern<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), a.ks, a.vs, a.table, a.q_offset, a.k_start,
+      static_cast<__nv_bfloat16*>(a.out), a.Sq, a.Hq, a.Hkv, a.blocks, a.bs, a.max_blocks,
+      a.window, a.has_window, 1.0f / sqrtf(static_cast<float>(D)));
+  return cudaGetLastError();
+}
+
+// route 0: the simt kernel; route 1: the mma kernel (bf16 q only).
 template <typename T, typename KV>
-cudaError_t launch_d(const Args& a, int D, cudaStream_t stream) {
-  if (D == 64) return launch<T, KV, 64>(a, stream);
-  if (D == 128) return launch<T, KV, 128>(a, stream);
+cudaError_t launch_d(const Args& a, int D, int route, cudaStream_t stream) {
+  if (route == 0) {
+    if (D == 64) return launch<T, KV, 64>(a, stream);
+    if (D == 128) return launch<T, KV, 128>(a, stream);
+  } else if (route == 1) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      if (D == 64) return launch_mma<KV, 64>(a, stream);
+      if (D == 128) return launch_mma<KV, 128>(a, stream);
+    }
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -292,12 +542,13 @@ cudaError_t launch_d(const Args& a, int D, cudaStream_t stream) {
 
 // Plain C entry point (loaded with ctypes). Returns the cudaError_t of the
 // launch: 0 on success. q_dtype: 0 = bfloat16, 1 = float32; kv_int8 != 0
-// reads int8 pools with per-(row, kv-head) f32 scales.
+// reads int8 pools with per-(row, kv-head) f32 scales; route: 0 = simt,
+// 1 = mma (bf16 q only; anything else is cudaErrorInvalidValue).
 extern "C" int ragged_paged_attention(
     const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
     const void* table, const void* q_offset, const void* k_start, void* out, int B, int Sq,
     int Hq, int Hkv, int D, int blocks, int block_size, int max_blocks, int window,
-    int has_window, int q_dtype, int kv_int8, void* stream) {
+    int has_window, int q_dtype, int kv_int8, int route, void* stream) {
   if (B <= 0 || Sq <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || block_size <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q,
@@ -322,10 +573,11 @@ extern "C" int ragged_paged_attention(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (q_dtype == 0) {
-    err = kv_int8 ? launch_d<__nv_bfloat16, int8_t>(a, D, st)
-                  : launch_d<__nv_bfloat16, __nv_bfloat16>(a, D, st);
+    err = kv_int8 ? launch_d<__nv_bfloat16, int8_t>(a, D, route, st)
+                  : launch_d<__nv_bfloat16, __nv_bfloat16>(a, D, route, st);
   } else if (q_dtype == 1) {
-    err = kv_int8 ? launch_d<float, int8_t>(a, D, st) : launch_d<float, float>(a, D, st);
+    err = kv_int8 ? launch_d<float, int8_t>(a, D, route, st)
+                  : launch_d<float, float>(a, D, route, st);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -28,7 +28,8 @@ Two implementations:
   ``_dq_kernel`` and ``_dkv_kernel`` (hypha_tpu/ops/flash_attention.py:115,
   :177, :222). They read q/k/v in place through their strides, mask the
   ragged edge and the window themselves (any S), and save nothing of size
-  S×S.
+  S×S. The bf16 forward runs on the tensor cores (``mma.sync``); f32 and
+  the two backward kernels run on CUDA cores.
 
 :func:`flash_attention` is differentiable through a
 ``torch.autograd.Function`` (the JAX package's ``custom_vjp``): its forward
@@ -203,8 +204,10 @@ def _window(window) -> int:
 
 def flash_forward_cuda(q, k, v, causal: bool = True, scale: "float | None" = None,
                        window: "int | None" = None):
-    """Launch the forward kernel: ``(o, L)`` as :func:`flash_forward_reference`.
-    Adds one to ``flash_attention.fwd_launches``."""
+    """Launch the forward kernel: ``(o, L)`` as :func:`flash_forward_reference`
+    (bf16: ``flash_fwd_mma_kernel`` on the tensor cores; f32:
+    ``flash_fwd_kernel`` on CUDA cores). Adds one to
+    ``flash_attention.fwd_launches``."""
     from ._build import load_library
 
     _check_inputs(q, k, v)

@@ -15,7 +15,9 @@ the tensors live:
   ``_ragged_kernel`` (hypha_tpu/ops/paged_attention.py:213-277). It reads
   the pool in place in its ``[(blocks+1)*bs, Hkv, D]`` layout and walks
   each lane's table, skipping sentinel entries, entries past the lane's
-  occupancy and blocks past its causal frontier.
+  occupancy and blocks past its causal frontier. It has two routes, picked
+  by :func:`_ragged_route`: bf16 prefill chunks on the tensor cores
+  (``mma.sync``), decode and every f32 call on CUDA cores.
 
 :func:`paged_attention` launches the kernel exactly when ``q`` is a CUDA
 tensor. There is no fallback: a card that is not sm_90, or a kernel that
@@ -153,11 +155,43 @@ def ragged_block_attention(
 # ------------------------------------------------------------ Hopper kernel
 
 _Q_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_ROUTES = {"simt": 0, "mma": 1}
+# Query rows from which bf16 calls take the tensor-core route. Measured on
+# an H100 80GB HBM3 at 700 W, 8 lanes x 512 cached positions, 32 heads of
+# 128, both routes on the same inputs (chip_smoke.py, phase kernels):
+# Sq 64, mma 0.062 ms against simt 1.288; Sq 16, 0.069 against 0.441. At
+# Sq 1 (decode) mma was faster too (0.038 against 0.078 ms; int8 pools
+# 0.070 against 0.082; GQA 32/8 0.066 against 0.068), but decode stays on
+# the simt kernel for now: its f32 softmax matches the plain version to
+# 1e-4 where bf16 P gives 2e-3, and the decode step is host-bound (the
+# kernel is ~2 ms of a ~46 ms step), so moving it is its own change.
+MMA_MIN_ROWS = 16
+
+
+def _ragged_route(sq: int, q_dtype: torch.dtype) -> str:
+    """The kernel for a call: ``"mma"`` (bf16 tensor cores) for bf16 q with
+    a prefill chunk of at least :data:`MMA_MIN_ROWS` query rows, ``"simt"``
+    (f32 on CUDA cores) for decode and for every f32 call, whose card
+    tolerance (1e-4) bf16 products cannot meet. Both are hand-written
+    kernels held against the plain version on the card: a choice by
+    shape, not a fallback."""
+    return "mma" if q_dtype == torch.bfloat16 and sq >= MMA_MIN_ROWS else "simt"
 
 
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"ragged_paged_attention: {msg}")
+
+
+def _require_card(q: torch.Tensor) -> None:
+    from ..hw import require_sm90
+
+    _check(q.is_cuda, "q must be a CUDA tensor")
+    require_sm90(q.device)
+
+
+def _stream(q: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def ragged_paged_attention(
@@ -171,16 +205,25 @@ def ragged_paged_attention(
     window: "int | None" = None,
 ) -> torch.Tensor:
     """Launch the sm_90a kernel on CUDA tensors (same contract as
-    :func:`ragged_block_attention`). Adds one to
-    ``ragged_paged_attention.launches`` per launch."""
-    from ..hw import require_sm90
+    :func:`ragged_block_attention`), on the route :func:`_ragged_route`
+    picks. Adds one to ``ragged_paged_attention.launches`` and to the
+    route's count (``.mma_launches`` or ``.simt_launches``) per launch."""
+    return _launch(q, kv, _ragged_route(q.shape[1], q.dtype), blocks=blocks,
+                   block_size=block_size, q_offset=q_offset, k_start=k_start, window=window)
+
+
+def _launch(q, kv: PagedKV, route: str, *, blocks, block_size, q_offset, k_start=None,
+            window=None):
+    """Launch one route of the kernel (``chip_smoke.py`` times both routes
+    on the same inputs through this)."""
     from ._build import load_library
 
-    _check(q.is_cuda, "q must be a CUDA tensor")
-    require_sm90(q.device)
+    _require_card(q)
     B, Sq, Hq, D = q.shape
     rows, Hkv, Dk = kv.k.shape
     _check(q.dtype in _Q_DTYPES, f"q dtype {q.dtype} (bfloat16 | float32)")
+    _check(route in _ROUTES, f"route {route!r} (simt | mma)")
+    _check(route == "simt" or q.dtype == torch.bfloat16, "the mma route takes bfloat16 q only")
     _check(D in (64, 128) and Dk == D, f"head_dim {D} / pool {Dk} (64 | 128)")
     _check(Hq % Hkv == 0, f"{Hq} query heads not a multiple of {Hkv} kv heads")
     _check(rows == (blocks + 1) * block_size, f"pool rows {rows} != (blocks+1)*block_size")
@@ -219,17 +262,22 @@ def ragged_paged_attention(
         ptr(out.data_ptr()),
         B, Sq, Hq, Hkv, D, blocks, block_size, kv.table.shape[1],
         0 if window is None else int(window), int(window is not None),
-        _Q_DTYPES[q.dtype], int(quant),
-        ptr(torch.cuda.current_stream(q.device).cuda_stream),
+        _Q_DTYPES[q.dtype], int(quant), _ROUTES[route], _stream(q),
     )
     if err != 0:
         msg = lib.ragged_paged_attention_error(err).decode()
-        raise RuntimeError(f"ragged_paged_attention launch failed: {msg} ({err})")
+        raise RuntimeError(f"ragged_paged_attention launch failed ({route}): {msg} ({err})")
     ragged_paged_attention.launches += 1
+    if route == "mma":
+        ragged_paged_attention.mma_launches += 1
+    else:
+        ragged_paged_attention.simt_launches += 1
     return out
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.mma_launches = 0
+ragged_paged_attention.simt_launches = 0
 
 
 def paged_attention(

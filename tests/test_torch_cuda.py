@@ -1,4 +1,4 @@
-"""The port's Hopper kernel against its plain PyTorch version, on the card.
+"""The port's Hopper kernels against their plain PyTorch versions, on the card.
 
 These tests need an sm_90 GPU and skip elsewhere. They import neither JAX
 nor the JAX package, so they run where JAX is not installed:
@@ -100,18 +100,49 @@ def test_kernel_matches_plain(cuda, quant, dtype, hq, hkv, D, bs, sq):
         assert torch.all(got[2] == 0), "idle lane must be exactly zero"
 
 
-def test_kernel_ignores_unreachable_blocks(cuda):
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("sq", [4, 64])  # the simt route, then the mma route
+def test_kernel_ignores_unreachable_blocks(cuda, sq, quant):
     """Re-poisoning every block no lane may read leaves the output bits."""
-    kw = dict(B=3, sq=4, hq=8, hkv=2, D=128, bs=16, max_blocks=5,
-              dtype=torch.bfloat16, quant=False, device=cuda)
+    kw = dict(B=3, sq=sq, hq=8, hkv=2, D=128, bs=16, max_blocks=5,
+              dtype=torch.bfloat16, quant=quant, device=cuda)
     q, kv, qoff, blocks, used = _case(11, poison=1e4, **kw)
     a = ragged_paged_attention(q, kv, blocks=blocks, block_size=16, q_offset=qoff)
     for blk in np.flatnonzero(~used):
-        kv.k[blk * 16 : (blk + 1) * 16] = -3e4
-        kv.v[blk * 16 : (blk + 1) * 16] = 7e3
+        kv.k[blk * 16 : (blk + 1) * 16] = -3e4 if not quant else -7
+        kv.v[blk * 16 : (blk + 1) * 16] = 7e3 if not quant else 9
     b = ragged_paged_attention(q, kv, blocks=blocks, block_size=16, q_offset=qoff)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+# The mma route: bf16 q, Sq >= 16. Sq 37 and 69 leave partial 16-row
+# fragments, 69 a second 64-row query tile; the lanes hold up to 192 keys,
+# so the key loop crosses several 64-key tiles and, at block size 48,
+# tiles that straddle blocks.
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("hq,hkv,D", [(8, 8, 64), (32, 8, 128)])
+@pytest.mark.parametrize("bs,max_blocks", [(4, 48), (16, 12), (48, 4)])
+@pytest.mark.parametrize("sq", [16, 37, 64, 69])
+def test_mma_route_matches_plain(cuda, sq, bs, max_blocks, hq, hkv, D, quant):
+    from hypha_tpu_torch.ops.paged_attention import _ragged_route
+
+    assert _ragged_route(sq, torch.bfloat16) == "mma"
+    q, kv, qoff, blocks, _ = _case(
+        sq * 7 + bs, B=4, sq=sq, hq=hq, hkv=hkv, D=D, bs=bs, max_blocks=max_blocks,
+        dtype=torch.bfloat16, quant=quant, device=cuda, idle=(2,),
+    )
+    kstart = torch.tensor([0, 5, 0, 70], dtype=torch.int32, device=cuda)
+    for window, ks in ((None, None), (None, kstart), (40, None), (3 * bs, kstart)):
+        kw = dict(blocks=blocks, block_size=bs, q_offset=qoff, k_start=ks, window=window)
+        before = ragged_paged_attention.mma_launches
+        got = ragged_paged_attention(q, kv, **kw)
+        torch.cuda.synchronize()
+        assert ragged_paged_attention.mma_launches == before + 1
+        ref = ragged_block_attention(q, kv, **kw)
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= TOL[torch.bfloat16], f"max abs err {err} (window {window})"
+        assert torch.all(got[2] == 0), "idle lane must be exactly zero"
 
 
 def test_dispatcher_launches_kernel_on_cuda(cuda):
@@ -205,6 +236,22 @@ def _check_flash_kernels(cuda, dtype, B, Sq, Sk, H, Hkv, D, causal, window):
         assert err <= tol * r.float().abs().max().item(), (name, err)
     again = backward()
     assert torch.equal(again[1], grads[1]) and torch.equal(again[2], grads[2])
+
+
+@pytest.mark.parametrize(
+    "B,S,H,Hkv,D,causal,window",
+    [(2, 300, 4, 2, 128, True, None), (1, 200, 4, 4, 64, False, None), (1, 300, 8, 2, 128, True, 100)],
+)
+def test_flash_forward_bit_identical(cuda, B, S, H, Hkv, D, causal, window):
+    """The bf16 forward (tensor cores, no atomics) gives the same o and L
+    bits on a second launch."""
+    from hypha_tpu_torch.ops.flash_attention import flash_forward_cuda
+
+    q, k, v, _ = _flash_case(13, B, S, S, H, Hkv, D, torch.bfloat16, cuda)
+    o1, l1 = flash_forward_cuda(q, k, v, causal, None, window)
+    o2, l2 = flash_forward_cuda(q, k, v, causal, None, window)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
 
 
 def test_flash_attention_autograd_counts_launches(cuda):

@@ -142,6 +142,66 @@ def test_dispatcher_runs_plain_on_cpu_and_counts_it():
     np.testing.assert_allclose(got.numpy(), _jax(s), atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize(
+    "sq,dtype,route",
+    [(1, torch.bfloat16, "simt"), (15, torch.bfloat16, "simt"), (16, torch.bfloat16, "mma"),
+     (64, torch.bfloat16, "mma"), (1, torch.float32, "simt"), (64, torch.float32, "simt")],
+)
+def test_ragged_route_by_shape(sq, dtype, route):
+    """Decode and every f32 call take the CUDA-core kernel; bf16 prefill
+    chunks from MMA_MIN_ROWS rows up take the tensor-core kernel."""
+    from hypha_tpu_torch.ops.paged_attention import MMA_MIN_ROWS, _ragged_route
+
+    assert MMA_MIN_ROWS == 16
+    assert _ragged_route(sq, dtype) == route
+
+
+class _RecordingLibrary:
+    """Stands in for the loaded kernel library: records each call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def ragged_paged_attention(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize(
+    "sq,dtype,quant,route",
+    [(1, torch.bfloat16, False, 0), (16, torch.bfloat16, False, 1), (4, torch.bfloat16, True, 0),
+     (64, torch.bfloat16, True, 1), (64, torch.float32, False, 0)],
+)
+def test_wrapper_hands_the_route_to_the_kernel(monkeypatch, sq, dtype, quant, route):
+    """The wrapper passes _ragged_route's choice to the C entry point (the
+    argument before the stream) and counts the launch under that route."""
+    import importlib
+
+    from hypha_tpu_torch.ops import _build
+    from hypha_tpu_torch.ops.paged_attention import ragged_paged_attention
+
+    pa = importlib.import_module("hypha_tpu_torch.ops.paged_attention")
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(pa, "_require_card", lambda q: None)
+    monkeypatch.setattr(pa, "_stream", lambda q: "stream")
+    monkeypatch.setattr(_build, "load_library", lambda *a: lib)
+    s = _state(4, hq=4, hkv=2, D=64, bs=4, sq=sq, quant=quant)
+    kv = TKV(*(_opt(s[n], torch.from_numpy) for n in ("k", "v", "ks", "vs", "table")))
+    if not quant:
+        kv = kv._replace(k=kv.k.to(dtype), v=kv.v.to(dtype))
+    before = (ragged_paged_attention.launches, ragged_paged_attention.simt_launches,
+              ragged_paged_attention.mma_launches)
+    ragged_paged_attention(torch.from_numpy(s["q"]).to(dtype), kv, blocks=s["blocks"],
+                           block_size=4, q_offset=torch.from_numpy(s["qoff"]))
+    (args,) = lib.calls
+    assert args[-1] == "stream"
+    assert args[-2] == route
+    assert args[-4:-2] == (0 if dtype == torch.bfloat16 else 1, int(quant))
+    after = (ragged_paged_attention.launches, ragged_paged_attention.simt_launches,
+             ragged_paged_attention.mma_launches)
+    assert after == (before[0] + 1, before[1] + (route == 0), before[2] + (route == 1))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
