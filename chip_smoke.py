@@ -27,7 +27,7 @@ Phases, each printing one JSON line:
 7. flash_kernels — the flash-attention forward, dQ and dK/dV kernels
    against their plain versions (bf16; MHA 32/32 and GQA 32/8; causal and
    not; S 2048, a ragged 1000, Sq != Sk; head_dim 128 and 64; sliding
-   windows, Mistral-7B's 4096 at S 4608 among them), the forward and
+   windows, Mistral-7B's 4096 at S 4608 among them), the forward, dQ and
    dK/dV bit-identical on a second launch, then each kernel's time at the
    training shape beside its plain version, SDPA and the card's bound;
 8. train — the serving model freed, ``run_training`` at Llama-2-7B widths
@@ -36,7 +36,8 @@ Phases, each printing one JSON line:
    2 rounds of 4 inner steps through the three flash kernels, checking
    launch counts, zero plain-attention calls, finite and falling losses
    and exact merges; step time, tokens/s, peak memory and the kernels'
-   device time per step from the profiler;
+   device time per step from the profiler, where one step must show each
+   bf16 tensor-core flash kernel with its launches (16 / 8 / 8);
 9. train_reference — a tiny Llama (head_dim 64), and the same with a
    sliding window below its sequence (Mistral's local attention), each
    trained 4 steps through the kernels and through the plain flash version
@@ -84,9 +85,13 @@ FLASH_REPLACES = {
 # within 2e-2 (unit-variance inputs), L (f32) within 1e-3, gradients within
 # 2e-2 of the case's largest |gradient|.
 FLASH_TOL = {"o": 2e-2, "lse": 1e-3, "grad_rel": 2e-2}
-# Kernel names as the profiler shows them (bf16 forward: flash_fwd_mma_kernel).
-FLASH_NAMES = ("flash_fwd_mma_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+# The bf16 flash kernels (tensor cores) as the profiler names them; its rows
+# are matched by substring, so a kernel renamed in the source would read 0
+# ms here (tests/test_torch_flash_kernels_contract.py holds the two together).
+FLASH_NAMES = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel")
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ROUNDS, TRAIN_STEPS = 8, 2048, 2, 2, 4
+# Launches of each in one inner step: the forward twice per layer (remat).
+STEP_LAUNCHES = dict(zip(FLASH_NAMES, (2 * TRAIN_LAYERS, TRAIN_LAYERS, TRAIN_LAYERS)))
 TRAIN_PERIOD = 1024  # the data counts modulo this; the model's vocabulary stays 32000
 
 
@@ -495,11 +500,13 @@ def flash_kernel_phase() -> dict:
         dk, dv = flash_dkv_cuda(q, k, v, o, lse, do, causal, None, window)
         torch.cuda.synchronize()
         dk2, dv2 = flash_dkv_cuda(q, k, v, o, lse, do, causal, None, window)
+        dq2 = flash_dq_cuda(q, k, v, o, lse, do, causal, None, window)
         o2, lse2 = flash_forward_cuda(q, k, v, causal, None, window)
         torch.cuda.synchronize()
         deterministic = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
+        dq_identical = bool(torch.equal(dq, dq2))
         fwd_identical = bool(torch.equal(o, o2) and torch.equal(lse, lse2))
-        del o2, lse2
+        del o2, lse2, dq2, dk2, dv2
         o_ref, lse_ref = flash_forward_reference(q, k, v, causal, None, window)
         r = dict(c, o_err=(o.float() - o_ref.float()).abs().max().item(),
                  lse_err=(lse - lse_ref).abs().max().item())
@@ -515,8 +522,10 @@ def flash_kernel_phase() -> dict:
         torch.cuda.empty_cache()
         ok = (r["o_err"] <= FLASH_TOL["o"] and r["lse_err"] <= FLASH_TOL["lse"]
               and max(r["dq_rel"], r["dk_rel"], r["dv_rel"]) <= FLASH_TOL["grad_rel"]
-              and deterministic and fwd_identical and bool(torch.isfinite(lse).all()))
-        r.update(dkv_bit_identical=deterministic, fwd_bit_identical=fwd_identical, ok=ok)
+              and deterministic and dq_identical and fwd_identical
+              and bool(torch.isfinite(lse).all()))
+        r.update(dkv_bit_identical=deterministic, dq_bit_identical=dq_identical,
+                 fwd_bit_identical=fwd_identical, ok=ok)
         results.append(r)
         errs["fwd"] = max(errs["fwd"], r["o_err"])
         errs["dq"] = max(errs["dq"], r["dq_err"])
@@ -541,17 +550,16 @@ def flash_kernel_phase() -> dict:
                                      reps=3, iters=3)),
     }
     # Yardstick only, never called by the port: SDPA forward, and its
-    # backward as (forward + backward) - forward.
+    # backward (one call giving dQ, dK and dV) on a retained graph. Timed
+    # as (forward + backward) - forward it read 0.48-0.82 ms from machine
+    # to machine.
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qh, kh, vh, doh = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
     sdpa_fwd = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True))
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (qh, kh, vh))
-
-    def fwd_bwd():
-        out = sdpa(qg, kg, vg, is_causal=True)
-        torch.autograd.grad(out, (qg, kg, vg), doh)
-
-    sdpa_bwd = time_ms(fwd_bwd) - sdpa_fwd
+    out = sdpa(qg, kg, vg, is_causal=True)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), doh, retain_graph=True))
+    del out
     timing["fwd"]["library_ms"] = sdpa_fwd
     timing["dq"]["library_ms"] = timing["dkv"]["library_ms"] = sdpa_bwd
     # The least time for the same work: every visible (query, key) pair
@@ -841,6 +849,9 @@ def train_phase() -> dict:
         problems.append(f"plain attention ran on the path: {plain}")
     if len(session.merge_rel_err) != TRAIN_ROUNDS or max(session.merge_rel_err) > 2.0**-23:
         problems.append(f"merge errors {session.merge_rel_err}")
+    if prof.get("launches") != STEP_LAUNCHES or not all(prof["kernels"][n] for n in FLASH_NAMES):
+        problems.append(f"profiled step: flash launches {prof.get('launches')} (wanted "
+                        f"{STEP_LAUNCHES}), device ms {prof.get('kernels')}")
     if problems:
         emit({"phase": "train", **res, "problems": problems})
         raise SystemExit("training phase failed: " + "; ".join(problems))

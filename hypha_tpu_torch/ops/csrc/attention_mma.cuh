@@ -114,22 +114,45 @@ __device__ __forceinline__ void load_a_rows(uint32_t (&a)[D / 16][4], const __nv
     ldmatrix_x4(a[kd], smem_u32(tile + swz<D>(row, kd * 2 + (mi >> 1))));
 }
 
-// s[n] (8 keys each, 64 keys) += Q K^T for the warp's 16 rows; K is a
-// [64][D] tile (rows are keys).
+// s[n] (8 keys each, 64 keys) += a K^T over the 16-wide slice kd of D, for
+// the 16 rows whose A fragment is a; K is a [64][D] tile (rows are keys).
 template <int D>
-__device__ __forceinline__ void qk_tile(float (&s)[8][4], const uint32_t (&qf)[D / 16][4],
-                                        const __nv_bfloat16* ks, int lane) {
+__device__ __forceinline__ void qk_slice(float (&s)[8][4], const uint32_t (&a)[4],
+                                         const __nv_bfloat16* ks, int kd, int lane) {
   const int mi = lane >> 3;
   const int r = lane & 7;
 #pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd) {
+  for (int kn = 0; kn < 4; ++kn) {
+    uint32_t b[4];  // keys kn*16 + 0..7 then + 8..15, each at d chunks 2kd, 2kd + 1
+    ldmatrix_x4(b, smem_u32(ks + swz<D>(kn * 16 + r + (mi >> 1) * 8, kd * 2 + (mi & 1))));
+    mma_bf16(s[2 * kn], a, b[0], b[1]);
+    mma_bf16(s[2 * kn + 1], a, b[2], b[3]);
+  }
+}
+
+// s[n] (8 keys each, 64 keys) += Q K^T for the warp's 16 rows, whose A
+// fragments qf are held in registers; K is a [64][D] tile (rows are keys).
+template <int D>
+__device__ __forceinline__ void qk_tile(float (&s)[8][4], const uint32_t (&qf)[D / 16][4],
+                                        const __nv_bfloat16* ks, int lane) {
 #pragma unroll
-    for (int kn = 0; kn < 4; ++kn) {
-      uint32_t b[4];  // keys kn*16 + 0..7 then + 8..15, each at d chunks 2kd, 2kd + 1
-      ldmatrix_x4(b, smem_u32(ks + swz<D>(kn * 16 + r + (mi >> 1) * 8, kd * 2 + (mi & 1))));
-      mma_bf16(s[2 * kn], qf[kd], b[0], b[1]);
-      mma_bf16(s[2 * kn + 1], qf[kd], b[2], b[3]);
-    }
+  for (int kd = 0; kd < D / 16; ++kd) qk_slice<D>(s, qf[kd], ks, kd, lane);
+}
+
+// As qk_tile, with the warp's rows r0 .. r0 + 15 of the swizzled tile a
+// read from shared memory one slice of D at a time: 4 registers of A are
+// live instead of D / 4, for kernels whose accumulators leave no room to
+// hold the rows across their loop.
+template <int D>
+__device__ __forceinline__ void rows_tile(float (&s)[8][4], const __nv_bfloat16* a, int r0,
+                                          const __nv_bfloat16* ks, int lane) {
+  const int mi = lane >> 3;
+  const int row = r0 + (lane & 7) + (mi & 1) * 8;
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    uint32_t af[4];
+    ldmatrix_x4(af, smem_u32(a + swz<D>(row, kd * 2 + (mi >> 1))));
+    qk_slice<D>(s, af, ks, kd, lane);
   }
 }
 

@@ -28,8 +28,11 @@ Two implementations:
   ``_dq_kernel`` and ``_dkv_kernel`` (hypha_tpu/ops/flash_attention.py:115,
   :177, :222). They read q/k/v in place through their strides, mask the
   ragged edge and the window themselves (any S), and save nothing of size
-  S×S. The bf16 forward runs on the tensor cores (``mma.sync``); f32 and
-  the two backward kernels run on CUDA cores.
+  S×S. The route follows the dtype: bf16 forward, dQ and dK/dV run on the
+  tensor cores (``flash_fwd_mma_kernel``, ``flash_dq_mma_kernel``,
+  ``flash_dkv_mma_kernel``: ``mma.sync``, ``cp.async``-fed tiles); f32
+  runs on CUDA cores (``flash_fwd_kernel``, ``flash_dq_kernel``,
+  ``flash_dkv_kernel``), whose f32 sums meet the card tests' 1e-4.
 
 :func:`flash_attention` is differentiable through a
 ``torch.autograd.Function`` (the JAX package's ``custom_vjp``): its forward
@@ -249,8 +252,9 @@ def _dims(q, k):
 
 def flash_dq_cuda(q, k, v, o, lse, do, causal: bool = True,
                   scale: "float | None" = None, window: "int | None" = None) -> torch.Tensor:
-    """Launch the dQ kernel (as :func:`flash_dq_reference`). Adds one to
-    ``flash_attention.dq_launches``."""
+    """Launch the dQ kernel (as :func:`flash_dq_reference`; bf16:
+    ``flash_dq_mma_kernel`` on the tensor cores, f32: ``flash_dq_kernel`` on
+    CUDA cores). Adds one to ``flash_attention.dq_launches``."""
     from ._build import load_library
 
     args = _backward_args(q, k, v, o, lse, do)
@@ -269,8 +273,9 @@ def flash_dq_cuda(q, k, v, o, lse, do, causal: bool = True,
 
 def flash_dkv_cuda(q, k, v, o, lse, do, causal: bool = True,
                    scale: "float | None" = None, window: "int | None" = None) -> tuple:
-    """Launch the dK/dV kernel (as :func:`flash_dkv_reference`). Adds one to
-    ``flash_attention.dkv_launches``."""
+    """Launch the dK/dV kernel (as :func:`flash_dkv_reference`; bf16:
+    ``flash_dkv_mma_kernel`` on the tensor cores, f32: ``flash_dkv_kernel``
+    on CUDA cores). Adds one to ``flash_attention.dkv_launches``."""
     from ._build import load_library
 
     args = _backward_args(q, k, v, o, lse, do)

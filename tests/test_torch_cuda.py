@@ -221,6 +221,7 @@ def _check_flash_kernels(cuda, dtype, B, Sq, Sk, H, Hkv, D, causal, window):
     live = torch.isfinite(lse_ref)
     assert torch.equal(torch.isfinite(lse), live)
     assert (lse[live] - lse_ref[live]).abs().max().item() <= tol
+    assert torch.all(o[~live.transpose(1, 2)] == 0), "a row that sees no key has o = 0"
     args = (q, k, v, o, lse, do, causal, None, window)
 
     def backward():
@@ -232,10 +233,34 @@ def _check_flash_kernels(cuda, dtype, B, Sq, Sk, H, Hkv, D, causal, window):
     grads = backward()
     refs = flash_backward_reference(*args)
     for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert torch.isfinite(g.float()).all(), name
         err = (g.float() - r.float()).abs().max().item()
         assert err <= tol * r.float().abs().max().item(), (name, err)
-    again = backward()
-    assert torch.equal(again[1], grads[1]) and torch.equal(again[2], grads[2])
+    again = backward()  # no atomics: dQ, dK and dV give the same bits again
+    for name, g, a in zip(("dq", "dk", "dv"), grads, again):
+        assert torch.equal(a, g), name
+
+
+# The bf16 backward on the tensor cores (flash_dq_mma_kernel: 128-row
+# query tiles; flash_dkv_mma_kernel: 64-key CTAs over 64-row query tiles)
+# at its edges: Sq not a multiple of 16, 64 or 128; causal with Sk > Sq;
+# GQA 32/8 under a window; rows that see no key (L = -inf: their P must be
+# 0, never NaN), at head_dim 64 and 128.
+@pytest.mark.parametrize(
+    "B,Sq,Sk,H,Hkv,D,causal,window",
+    [
+        (1, 1000, 1000, 8, 2, 128, True, None),
+        (2, 77, 77, 4, 4, 64, True, None),
+        (1, 77, 200, 4, 2, 128, True, None),  # causal, Sk > Sq
+        (1, 200, 77, 4, 4, 64, False, None),  # Sk < Sq
+        (1, 1000, 1000, 32, 8, 128, True, 256),  # GQA 32/8 under a window
+        (1, 300, 300, 32, 8, 64, False, 100),
+        (1, 200, 77, 4, 2, 64, True, 50),  # queries from 126 on see no key
+        (1, 77, 77, 4, 2, 128, False, 5),
+    ],
+)
+def test_flash_backward_mma_edges(cuda, B, Sq, Sk, H, Hkv, D, causal, window):
+    _check_flash_kernels(cuda, torch.bfloat16, B, Sq, Sk, H, Hkv, D, causal, window)
 
 
 @pytest.mark.parametrize(
