@@ -7,30 +7,39 @@ Phases, each printing one JSON line:
 1. device  — the card's name, capability and power limit;
 2. build   — compile every kernel from ``hypha_tpu_torch/ops/csrc``, with
    each kernel's registers and spills from ``-Xptxas -v``;
-3. kernels — both routes of the ragged kernel (simt: CUDA cores; mma:
-   tensor cores) against its plain PyTorch version on the card (bf16 and
-   int8 pools, MHA and GQA, Sq 1, 16 and 64, poisoned garbage and
-   unallocated blocks, an idle lane that must be exactly zero, a window
-   with a k_start floor), then both routes timed on the same inputs at
-   the Llama-2-7B serving shape (decode and prefill chunks of 16 and 64)
-   beside the plain version, one PyTorch library call computing the same
-   function, and the card's bound;
+3. kernels — the routes of the ragged kernel (decode: split-KV,
+   GQA-packed, CUDA cores; simt: CUDA cores; mma: tensor cores) against
+   its plain PyTorch version on the card (bf16 and int8 pools, MHA, GQA
+   32/8 and 28/4, Sq 1 on all three routes, Sq 16 and 64 on simt and mma,
+   poisoned garbage and unallocated blocks, an idle lane that must be
+   exactly zero, windows with a k_start floor, each route's output
+   bit-identical on a second launch), then the routes timed on the same
+   inputs at the Llama-2-7B serving shape beside the plain version, one
+   PyTorch library call computing the same function, and the card's
+   bound: decode L2-cold (CUDA graphs rotating over enough independent
+   pools that a cycle reads >= 200 MB), and warm on one pool; prefill
+   chunks of 16 and 64 as before;
 4. serve   — full-width Llama-2-7B (seeded random weights, bf16) behind
    ``PoolServer`` -> paged, ragged ``DecodePool``: concurrent greedy
-   requests through asyncio; both kernel routes must have launched on
-   this path (prefill chunks: mma, decode: simt) and the plain attention
-   path never;
+   requests through asyncio; prefill chunks must have launched the mma
+   route and decode steps the decode route, each once per layer per
+   forward, and the plain attention path never;
 5. serve_int8 — the same pool with int8 KV blocks;
-6. reference — the 7B decode forward (through the kernel) against the
+6. profile — one decode step and one prefill chunk at the serving shape
+   under the profiler: host and device time, the ragged kernels
+   (``RAGGED_NAMES``) by name, the decode kernel (and its merge, when the
+   shape splits) and the prefill chunk's mma kernel once per layer per
+   forward;
+7. reference — the 7B decode forward (through the kernel) against the
    training forward (plain attention), and a tiny f32 Llama whose pool
    tokens must equal one-shot ``generate``;
-7. flash_kernels — the flash-attention forward, dQ and dK/dV kernels
+8. flash_kernels — the flash-attention forward, dQ and dK/dV kernels
    against their plain versions (bf16; MHA 32/32 and GQA 32/8; causal and
    not; S 2048, a ragged 1000, Sq != Sk; head_dim 128 and 64; sliding
    windows, Mistral-7B's 4096 at S 4608 among them), the forward, dQ and
    dK/dV bit-identical on a second launch, then each kernel's time at the
    training shape beside its plain version, SDPA and the card's bound;
-8. train — the serving model freed, ``run_training`` at Llama-2-7B widths
+9. train — the serving model freed, ``run_training`` at Llama-2-7B widths
    cut to 8 layers (S 2048, batch 2, remat) behind an in-process scheduler
    and parameter server (``average_deltas`` + ``nesterov_outer_step``):
    2 rounds of 4 inner steps through the three flash kernels, checking
@@ -38,7 +47,7 @@ Phases, each printing one JSON line:
    and exact merges; step time, tokens/s, peak memory and the kernels'
    device time per step from the profiler, where one step must show each
    bf16 tensor-core flash kernel with its launches (16 / 8 / 8);
-9. train_reference — a tiny Llama (head_dim 64), and the same with a
+10. train_reference — a tiny Llama (head_dim 64), and the same with a
    sliding window below its sequence (Mistral's local attention), each
    trained 4 steps through the kernels and through the plain flash version
    from the same weights, with no call of the dense attention.
@@ -89,6 +98,12 @@ FLASH_TOL = {"o": 2e-2, "lse": 1e-3, "grad_rel": 2e-2}
 # are matched by substring, so a kernel renamed in the source would read 0
 # ms here (tests/test_torch_flash_kernels_contract.py holds the two together).
 FLASH_NAMES = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel")
+# The ragged kernels, matched the same way (tests/test_torch_ragged_kernels_contract.py).
+RAGGED_NAMES = ("ragged_kernel", "ragged_mma_kernel", "ragged_decode_kernel",
+                "ragged_decode_merge_kernel")
+COLD_BYTES = 200e6  # bytes one L2-cold rotation reads: four times the H100's 50 MB L2
+ROUTES = ("decode", "mma", "simt")  # the ragged kernel's routes, as the wrapper counts them
+SPLIT_SWEEP = (1, 2, 3, 4, 6, 8)  # decode key splits timed beside _decode_splits' choice
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ROUNDS, TRAIN_STEPS = 8, 2048, 2, 2, 4
 # Launches of each in one inner step: the forward twice per layer (remat).
 STEP_LAUNCHES = dict(zip(FLASH_NAMES, (2 * TRAIN_LAYERS, TRAIN_LAYERS, TRAIN_LAYERS)))
@@ -179,8 +194,83 @@ def paged_case(gen, *, B, sq, hq, hkv, D, bs, max_blocks, blocks, occupancy, qua
     return q, kv, qoff.to(dev), unreachable
 
 
+def graph_turns(contenders: dict, n: int, *, cycles: int, reps: int = 6) -> dict:
+    """Median device ms per call of each contender. ``contenders[name](i)``
+    launches one call on pool i; each contender's ``cycles`` passes over
+    pools 0..n-1 are captured once into a CUDA graph (so the host's
+    launch time stays out of the reading), and the graphs are replayed in
+    turns, the order reversed every other round."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # build, set attributes, allocate: outside the capture
+        for fn in contenders.values():
+            for i in range(n):
+                fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graphs = {}
+    for name, fn in contenders.items():
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(cycles):
+                for i in range(n):
+                    fn(i)
+        graphs[name] = g
+    for g in graphs.values():
+        g.replay()
+    torch.cuda.synchronize()
+    times = {name: [] for name in graphs}
+    for r in range(reps):
+        for name in (list(graphs) if r % 2 == 0 else list(graphs)[::-1]):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            graphs[name].replay()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / (cycles * n))
+    del graphs
+    torch.cuda.synchronize()
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def device_us(fn, n: int, calls: int) -> dict:
+    """Mean device microseconds per call of each kernel ``fn`` launches,
+    rotating over pools 0..n-1: the profiler's kernel durations, without
+    the gaps between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for k in range(calls):
+            fn(k % n)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            name = next((r for r in RAGGED_NAMES if r in e.key), e.key[:60])
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / calls
+    return out
+
+
+def dense_kv(q, kv, bs, n_blocks):
+    """SDPA's operands for the yardstick: each lane's first ``n_blocks``
+    blocks gathered dense and dequantised, heads first."""
+    B = q.shape[0]
+    rows = (kv.table[:, :n_blocks].long()[:, :, None] * bs
+            + torch.arange(bs, device="cuda")).reshape(B, n_blocks * bs)
+    dense_k = kv.k[rows].float() * (1 if kv.k_scale is None else kv.k_scale[rows][..., None])
+    dense_v = kv.v[rows].float() * (1 if kv.v_scale is None else kv.v_scale[rows][..., None])
+    return (dense_k.to(q.dtype).transpose(1, 2).contiguous(),
+            dense_v.to(q.dtype).transpose(1, 2).contiguous())
+
+
 def kernel_phase() -> dict:
-    from hypha_tpu_torch.ops.paged_attention import _launch, _ragged_route, ragged_block_attention
+    from hypha_tpu_torch.ops.paged_attention import (
+        _decode_splits,
+        _launch,
+        _ragged_route,
+        ragged_block_attention,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bs, max_blocks, blocks = 16, 64, 512  # the 7B pool: max_len 1024, 512 blocks
@@ -189,8 +279,10 @@ def kernel_phase() -> dict:
         for sq in (1, 16, 64):
             for quant in (False, True):
                 cases.append(dict(hq=hq, hkv=hkv, sq=sq, quant=quant, window=None, k_start=None))
-    cases.append(dict(hq=32, hkv=8, sq=64, quant=False, window=100, k_start=[0, 37, 5, 0]))
-    cases.append(dict(hq=32, hkv=8, sq=64, quant=True, window=100, k_start=[0, 37, 5, 0]))
+    for hq, hkv, sq, quant in ((32, 8, 64, False), (32, 8, 64, True), (32, 8, 1, False),
+                               (32, 8, 1, True), (32, 32, 1, False), (32, 32, 1, True)):
+        cases.append(dict(hq=hq, hkv=hkv, sq=sq, quant=quant, window=100, k_start=[0, 37, 5, 0]))
+    cases.append(dict(hq=28, hkv=4, sq=1, quant=False, window=None, k_start=None))  # Qwen2-7B
     results, max_err = [], 0.0
     for c in cases:
         occupancy = [9, 40, 0, 64]  # partial, partial, idle lane 2, full
@@ -201,22 +293,35 @@ def kernel_phase() -> dict:
         )
         kst = None if c["k_start"] is None else torch.tensor(c["k_start"], dtype=torch.int32, device="cuda")
         kw = dict(blocks=blocks, block_size=bs, q_offset=qoff, k_start=kst, window=c["window"])
+        # Sq 1 runs every route; the decode route with its own split count
+        # (the merge kernel) and with one split (no merge).
+        routes = {"simt": ("simt", None), "mma": ("mma", None)}
+        if c["sq"] == 1:
+            routes = {"decode": ("decode", None), "decode_1split": ("decode", 1), **routes}
+
+        def run(route, n):
+            return _launch(q, kv, route, splits=n, **kw)
+
         ref = ragged_block_attention(q, kv, **kw)
-        got = {route: _launch(q, kv, route, **kw) for route in ("simt", "mma")}
+        got = {name: run(*rs) for name, rs in routes.items()}
+        second = {name: run(*rs) for name, rs in routes.items()}
         torch.cuda.synchronize()
         # Re-poison everything no lane may read: the output bits must stay.
         kv.k[unreachable] = kv.k[unreachable] * -3 + 1
         kv.v[unreachable] = kv.v[unreachable] * 2 - 5
         r = dict(c, main_route=_ragged_route(c["sq"], q.dtype), tol=TOL[torch.bfloat16])
+        if c["sq"] == 1:
+            r["decode_splits"] = _decode_splits(4, c["hkv"], max_blocks, bs)
         ok = True
-        for route, out in got.items():
+        for name, out in got.items():
             err = (out.float() - ref.float()).abs().max().item()
-            again = _launch(q, kv, route, **kw)
+            again = run(*routes[name])
             torch.cuda.synchronize()
-            r[route] = dict(max_abs_err=err, idle_zero=bool(torch.all(out[2] == 0)),
-                            poison_bit_invariant=bool(torch.equal(out, again)))
-            ok = ok and err <= TOL[torch.bfloat16] and r[route]["idle_zero"] \
-                and r[route]["poison_bit_invariant"]
+            r[name] = dict(max_abs_err=err, idle_zero=bool(torch.all(out[2] == 0)),
+                           rerun_bit_identical=bool(torch.equal(out, second[name])),
+                           poison_bit_invariant=bool(torch.equal(out, again)))
+            ok = ok and err <= TOL[torch.bfloat16] and all(v for k, v in r[name].items()
+                                                            if k != "max_abs_err")
             max_err = max(max_err, err)
         r["ok"] = ok
         results.append(r)
@@ -225,8 +330,12 @@ def kernel_phase() -> dict:
             raise SystemExit("kernel disagrees with its plain version")
 
     # Time at the 7B serving shape: 8 lanes, 512 occupied positions each,
-    # queries at the end (decode: 1, prefill chunks: 16 and 64); both
-    # routes on the same inputs, the main path's route first.
+    # queries at the end (decode: 1, prefill chunks: 16 and 64). Decode
+    # reads 8.4-67 MB a call, within reach of the 50 MB L2, while the serve
+    # path finds each layer's pool cold (31 other layers' weights stream
+    # between two visits): so every route and SDPA are timed L2-cold,
+    # rotating over independent pools (each with its own table) that
+    # together hold >= COLD_BYTES, and warm on one pool for comparison.
     timing = {}
     for label, quant, sq, hkv in (("decode_bf16", False, 1, 32), ("decode_int8", True, 1, 32),
                                   ("decode_gqa8_bf16", False, 1, 8),
@@ -234,31 +343,56 @@ def kernel_phase() -> dict:
                                   ("prefill64_bf16", False, 64, 32),
                                   ("prefill64_int8", True, 64, 32)):
         B, hq, D = 8, 32, 128
-        q, kv, qoff, _ = paged_case(
-            gen, B=B, sq=sq, hq=hq, hkv=hkv, D=D, bs=bs, max_blocks=max_blocks,
-            blocks=blocks, occupancy=[32] * B, quant=quant,
-        )
-        kw = dict(blocks=blocks, block_size=bs, q_offset=qoff)
-        main = _ragged_route(sq, q.dtype)
-        other = "simt" if main == "mma" else "mma"
-        route_ms = {main: time_ms(lambda: _launch(q, kv, main, **kw))}
-        route_ms[other] = time_ms(lambda: _launch(q, kv, other, **kw))
-        plain_ms = time_ms(lambda: ragged_block_attention(q, kv, **kw), reps=3, iters=5)
-        # Yardstick only: SDPA over the same keys gathered dense per lane.
-        rows = (kv.table[:, :32].long()[:, :, None] * bs
-                + torch.arange(bs, device="cuda")).reshape(B, 32 * bs)
-        dense_k = (kv.k[rows].float() * (1 if kv.k_scale is None else kv.k_scale[rows][..., None]))
-        dense_v = (kv.v[rows].float() * (1 if kv.v_scale is None else kv.v_scale[rows][..., None]))
-        qh = q.transpose(1, 2).contiguous()
-        kh = dense_k.to(q.dtype).transpose(1, 2).contiguous()
-        vh = dense_v.to(q.dtype).transpose(1, 2).contiguous()
         keys = 32 * bs
+        kv_bytes = 2 * B * keys * hkv * D * (1 if quant else 2) + (2 * B * keys * hkv * 4 if quant else 0)
+        n_pools = max(2, -(-int(COLD_BYTES) // kv_bytes)) if sq == 1 else 1
+        pools = [paged_case(gen, B=B, sq=sq, hq=hq, hkv=hkv, D=D, bs=bs, max_blocks=max_blocks,
+                            blocks=blocks, occupancy=[32] * B, quant=quant)
+                 for _ in range(n_pools)]
+        q, kv, qoff, _ = pools[0]
+        # An explicit k_start, as the model passes: with None the wrapper
+        # would fill a zero tensor, one more kernel inside each timed call.
+        kw = dict(blocks=blocks, block_size=bs,
+                  k_start=torch.zeros((B,), dtype=torch.int32, device="cuda"))
         mask = None if sq == 1 else causal_tail(sq, keys)
-        library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask, enable_gqa=hq != hkv))
-        kv_bytes = 2 * B * keys * hkv * D * kv.k.element_size()
-        if quant:
-            kv_bytes += 2 * B * keys * hkv * 4
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        main = _ragged_route(sq, q.dtype)
+        plain_ms = time_ms(lambda: ragged_block_attention(q, kv, q_offset=qoff, **kw), reps=3, iters=5)
+        row = dict(route=main, plain_ms=plain_ms)
+        if sq == 1:
+            dense = [dense_kv(p[0], p[1], bs, 32) for p in pools]
+            qh = [p[0].transpose(1, 2).contiguous() for p in pools]
+
+            def route(name, n=None):
+                return lambda i: _launch(pools[i][0], pools[i][1], name, q_offset=pools[i][2],
+                                         splits=n, **kw)
+
+            splits = _decode_splits(B, hkv, max_blocks, bs)
+            contenders = {"decode": route("decode"), "simt": route("simt"), "mma": route("mma"),
+                          "sdpa": lambda i: sdpa(qh[i], *dense[i], enable_gqa=hq != hkv)}
+            for n in SPLIT_SWEEP:
+                if n != splits:
+                    contenders[f"decode_{n}split"] = route("decode", n)
+            cold = graph_turns(contenders, n_pools, cycles=max(1, 24 // n_pools))
+            warm = graph_turns({k: contenders[k] for k in ("decode", "simt", "mma", "sdpa")}, 1,
+                               cycles=20)
+            route_ms = {k: cold[k] for k in ("decode", "simt", "mma")}
+            library_ms = cold["sdpa"]
+            row["device_us"] = {k: device_us(contenders[k], n_pools, 24) for k in ("decode", "sdpa")}
+            row.update(decode_ms=cold["decode"], decode_splits=splits,
+                       decode_ms_by_splits={n: cold["decode" if n == splits else f"decode_{n}split"]
+                                            for n in sorted({*SPLIT_SWEEP, splits})},
+                       warm_ms={"decode": warm["decode"], "simt": warm["simt"], "mma": warm["mma"],
+                                "sdpa": warm["sdpa"]},
+                       pools=n_pools, cycle_bytes=n_pools * kv_bytes)
+            del dense, qh
+        else:
+            other = "simt" if main == "mma" else "mma"
+            route_ms = {main: time_ms(lambda: _launch(q, kv, main, q_offset=qoff, **kw))}
+            route_ms[other] = time_ms(lambda: _launch(q, kv, other, q_offset=qoff, **kw))
+            qh = q.transpose(1, 2).contiguous()
+            kh, vh = dense_kv(q, kv, bs, 32)
+            library_ms = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask, enable_gqa=hq != hkv))
         io_bytes = kv_bytes + 2 * q.numel() * q.element_size() + kv.table.numel() * 4 + 2 * B * 4
         # Visible (query, key) pairs: query i of sq sits at position
         # keys - sq + i and sees keys up to it (causal).
@@ -266,16 +400,20 @@ def kernel_phase() -> dict:
         ops = 4 * D * pairs
         t_bytes = io_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS[torch.bfloat16] * 1e3
-        timing[label] = dict(route=main, ms=route_ms[main], mma_ms=route_ms["mma"],
-                             simt_ms=route_ms["simt"], plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=max(t_bytes, t_ops),
-                             bound_by="bytes" if t_bytes >= t_ops else "operations",
-                             bytes=io_bytes, ops=ops,
-                             achieved_GBps=io_bytes / route_ms[main] / 1e6,
-                             achieved_TFLOPs=ops / route_ms[main] / 1e9)
+        bound = max(t_bytes, t_ops)
+        row.update(ms=route_ms[main], mma_ms=route_ms["mma"], simt_ms=route_ms["simt"],
+                   library_ms=library_ms, bound_ms=bound,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   share_of_bound=bound / route_ms[main], bytes=io_bytes, ops=ops,
+                   achieved_GBps=io_bytes / route_ms[main] / 1e6,
+                   achieved_TFLOPs=ops / route_ms[main] / 1e9)
+        timing[label] = row
+        del pools, q, kv
+        torch.cuda.empty_cache()
     emit({"phase": "kernels", "cases": results, "timing": timing,
           "shape": "B=8 Hq=32 Hkv=32 (gqa8: 8) D=128 bs=16, 512 occupied positions per lane",
-          "routes": "simt (CUDA cores, f32) and mma (mma.sync bf16), both on every case"})
+          "routes": "Sq 1: decode (split-KV, GQA-packed, f32 CUDA cores), simt, mma; "
+                    "Sq 16/64: simt and mma; decode timed L2-cold, prefill warm"})
     return {"max_abs_err": max_err, "timing": timing}
 
 
@@ -316,14 +454,14 @@ def serve_phase(model, *, kv_quant: str, lengths: list, n_new: list) -> dict:
                             block_size=16, ragged=True, kv_quant=kv_quant)
         try:
             ragged_paged_attention.launches = 0
-            ragged_paged_attention.mma_launches = ragged_paged_attention.simt_launches = 0
+            for name in ROUTES:
+                setattr(ragged_paged_attention, f"{name}_launches", 0)
             paged_attention.plain_calls = 0
             t0 = time.perf_counter()
             out = await drive(server, prompts, n_new)
             wall = time.perf_counter() - t0
             launches = ragged_paged_attention.launches
-            by_route = {"mma": ragged_paged_attention.mma_launches,
-                        "simt": ragged_paged_attention.simt_launches}
+            by_route = {name: getattr(ragged_paged_attention, f"{name}_launches") for name in ROUTES}
             plain = paged_attention.plain_calls
             stats = dict(server.pool.stats)
             again = await drive(server, prompts[:2], n_new[:2])
@@ -337,10 +475,14 @@ def serve_phase(model, *, kv_quant: str, lengths: list, n_new: list) -> dict:
             raise SystemExit(f"request answered with {len(toks[0])} tokens, wanted {n}")
     if again != out[:2]:
         raise SystemExit("a repeated request returned different tokens")
-    # Prefill chunks take the mma route and decode steps the simt route:
-    # both kernels must have run on this path.
-    if launches <= 0 or min(by_route.values()) <= 0 or plain != 0:
-        raise SystemExit(f"kernel launches {launches} {by_route}, plain attention calls {plain}")
+    # Prefill chunks take the mma route and decode steps the decode route,
+    # each once per layer per forward; simt serves neither (bf16 q, chunks
+    # of 1 or of the pool's prefill width).
+    layers = model.config.num_layers
+    if (launches <= 0 or by_route["mma"] <= 0 or by_route["decode"] <= 0 or plain != 0
+            or by_route["mma"] % layers or by_route["decode"] % layers):
+        raise SystemExit(f"kernel launches {launches} {by_route} (layers {layers}), "
+                         f"plain attention calls {plain}")
     if server.fallbacks:
         raise SystemExit("a request left the pool for the one-shot fallback")
     res = dict(
@@ -364,9 +506,16 @@ def profile_phase(model) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from hypha_tpu_torch.ops.kvcache import KVCache
+    from hypha_tpu_torch.ops.paged_attention import _decode_splits
 
     B, per_lane, n = 8, 32, 10
-    out = {}
+    layers = model.config.num_layers
+    splits = _decode_splits(B, model.config.num_kv_heads, 1024 // 16, 16)
+    # Launches of each ragged kernel per forward, by shape.
+    want = {"decode_step": {"ragged_decode_kernel": layers,
+                            "ragged_decode_merge_kernel": layers if splits > 1 else 0},
+            "prefill_chunk": {"ragged_mma_kernel": layers}}
+    out, problems = {"decode_splits": splits}, []
     for label, S in (("decode_step", 1), ("prefill_chunk", 64)):
         with torch.inference_mode():
             cache = KVCache.for_model(model, B, 1024, per_row=True, blocks=512, block_size=16,
@@ -397,10 +546,21 @@ def profile_phase(model) -> dict:
                 if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
         rows.sort(key=lambda r: -r[1])
         busy = sum(r[1] for r in rows)
-        attn = sum(ms for k, ms, _ in rows if "ragged_kernel" in k or "ragged_mma_kernel" in k)
+        by_name = {name: {"ms": sum(ms for k, ms, _ in rows if name in k),
+                          "launches": sum(c for k, _, c in rows if name in k)}
+                   for name in RAGGED_NAMES}
+        attn = sum(v["ms"] for v in by_name.values())
         out[label] = dict(wall_ms=wall_ms, device_busy_ms=busy, idle_share=1 - busy / wall_ms,
-                          attention_kernel_ms=attn, kernels_per_forward=sum(r[2] for r in rows),
+                          attention_kernel_ms=attn, ragged_kernels=by_name,
+                          kernels_per_forward=sum(r[2] for r in rows),
                           top=[{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:6]])
+        for name, launches in want[label].items():
+            got = by_name[name]
+            if got["launches"] != launches or (launches and got["ms"] <= 0):
+                problems.append(f"{label}: {name} {got}, wanted {launches} launches a forward")
+    if problems:
+        emit({"phase": "profile", **out, "problems": problems})
+        raise SystemExit("profile: " + "; ".join(problems))
     return out
 
 
@@ -972,8 +1132,11 @@ def main() -> int:
         "max_abs_err": kern["max_abs_err"], "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"],
-        # The decode shape above (simt route), the prefill-chunk shape here
-        # (mma route), and the serve run's launches split by route.
+        # The decode shape above (decode route, L2-cold) with the simt and
+        # mma routes on the same inputs, the prefill-chunk shape here (mma
+        # route), and the serve run's launches split by route.
+        "decode_simt_ms": dec["simt_ms"], "decode_mma_ms": dec["mma_ms"],
+        "decode_splits": dec["decode_splits"],
         "launches_by_route": serve["kernel_launches_by_route"],
         "prefill64_ms": pre["ms"], "prefill64_simt_ms": pre["simt_ms"],
         "prefill64_plain_ms": pre["plain_ms"], "prefill64_bound_ms": pre["bound_ms"],

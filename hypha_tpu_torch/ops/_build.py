@@ -96,7 +96,8 @@ def _bind(lib: ctypes.CDLL, source: str) -> ctypes.CDLL:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_longlong)
     if source == "ragged_paged_attention.cu":
-        entry = {"ragged_paged_attention": [vp] * 9 + [i] * 13 + [vp]}
+        # ..., route, splits, workspace, stream
+        entry = {"ragged_paged_attention": [vp] * 9 + [i] * 14 + [vp, vp]}
         error = lib.ragged_paged_attention_error
     elif source == "flash_attention.cu":
         tail = [strides, f, i, i, i, vp]  # strides, scale, causal, window, dtype, stream

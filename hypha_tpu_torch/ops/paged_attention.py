@@ -15,9 +15,10 @@ the tensors live:
   ``_ragged_kernel`` (hypha_tpu/ops/paged_attention.py:213-277). It reads
   the pool in place in its ``[(blocks+1)*bs, Hkv, D]`` layout and walks
   each lane's table, skipping sentinel entries, entries past the lane's
-  occupancy and blocks past its causal frontier. It has two routes, picked
-  by :func:`_ragged_route`: bf16 prefill chunks on the tensor cores
-  (``mma.sync``), decode and every f32 call on CUDA cores.
+  occupancy and blocks past its causal frontier. It has three routes,
+  picked by :func:`_ragged_route`: bf16 decode on a split-KV, GQA-packed
+  kernel (f32 on CUDA cores), bf16 prefill chunks on the tensor cores
+  (``mma.sync``), and every f32 call and short bf16 chunk on CUDA cores.
 
 :func:`paged_attention` launches the kernel exactly when ``q`` is a CUDA
 tensor. There is no fallback: a card that is not sm_90, or a kernel that
@@ -155,27 +156,104 @@ def ragged_block_attention(
 # ------------------------------------------------------------ Hopper kernel
 
 _Q_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_ROUTES = {"simt": 0, "mma": 1}
+_ROUTES = {"simt": 0, "mma": 1, "decode": 2}
 # Query rows from which bf16 calls take the tensor-core route. Measured on
 # an H100 80GB HBM3 at 700 W, 8 lanes x 512 cached positions, 32 heads of
 # 128, both routes on the same inputs (chip_smoke.py, phase kernels):
-# Sq 64, mma 0.062 ms against simt 1.288; Sq 16, 0.069 against 0.441. At
-# Sq 1 (decode) mma was faster too (0.038 against 0.078 ms; int8 pools
-# 0.070 against 0.082; GQA 32/8 0.066 against 0.068), but decode stays on
-# the simt kernel for now: its f32 softmax matches the plain version to
-# 1e-4 where bf16 P gives 2e-3, and the decode step is host-bound (the
-# kernel is ~2 ms of a ~46 ms step), so moving it is its own change.
+# Sq 64, mma 0.062 ms against simt 1.288; Sq 16, 0.069 against 0.441.
+# Decode (Sq 1) has its own kernel rather than the mma route: at one query
+# row per head the work is ~1 flop per byte read, so tensor cores have
+# nothing to win (the mma route measured no faster on bf16 MHA pools and
+# 1.5-2x slower on int8 and GQA pools, PERF.md), and f32 P matches the
+# plain version to 1e-4 where bf16 P gives 2e-3. It reads each K/V row
+# once per kv head (the GQA group in one CTA), the lane's keys split
+# across CTAs.
 MMA_MIN_ROWS = 16
+DECODE_TILE = 32  # logical keys per tile of the decode kernel's splits (kDecKeys)
+H100_SMS = 132  # the split rule aims at about two decode CTAs on each
 
 
 def _ragged_route(sq: int, q_dtype: torch.dtype) -> str:
-    """The kernel for a call: ``"mma"`` (bf16 tensor cores) for bf16 q with
-    a prefill chunk of at least :data:`MMA_MIN_ROWS` query rows, ``"simt"``
-    (f32 on CUDA cores) for decode and for every f32 call, whose card
-    tolerance (1e-4) bf16 products cannot meet. Both are hand-written
+    """The kernel for a call: ``"decode"`` (split-KV, GQA-packed, f32 on
+    CUDA cores) for bf16 q with one query row, whatever the pool's dtype;
+    ``"mma"`` (bf16 tensor cores) for bf16 q with a prefill chunk of at
+    least :data:`MMA_MIN_ROWS` rows; ``"simt"`` (f32 on CUDA cores) for
+    every f32 call, whose card tolerance (1e-4) bf16 products cannot meet,
+    and for bf16 chunks of 2 to 15 rows. All three are hand-written
     kernels held against the plain version on the card: a choice by
     shape, not a fallback."""
-    return "mma" if q_dtype == torch.bfloat16 and sq >= MMA_MIN_ROWS else "simt"
+    if q_dtype != torch.bfloat16:
+        return "simt"
+    if sq == 1:
+        return "decode"
+    return "mma" if sq >= MMA_MIN_ROWS else "simt"
+
+
+def _decode_splits(batch: int, kv_heads: int, max_blocks: int, block_size: int) -> int:
+    """Key splits per (lane, kv head) of the decode kernel, from the shapes
+    alone, never from the table's contents: the launch is then the same at
+    every decode step. As many as keep the grid at about two CTAs per SM
+    or below (a split that spills CTAs into a second wave costs more than
+    it balances), and never fewer than two tiles of the lane's longest
+    window per split."""
+    tiles = -(-max_blocks * block_size // DECODE_TILE)
+    want = 2 * H100_SMS // max(batch * kv_heads, 1)
+    return max(1, min(want, tiles // 2))
+
+
+def _split_decode_plain(q, kv: PagedKV, *, blocks, block_size, q_offset, k_start=None,
+                        window=None, splits, tile=DECODE_TILE):
+    """Plain PyTorch mirror of the decode kernel's split and merge, for the
+    tests (nothing on the main path calls it): each lane's visible keys
+    (k_start, window and causal frontier applied, never past its occupied
+    blocks) cut into ``tile``-key tiles, the tiles into ``splits`` runs,
+    one softmax partial (m, l, acc) per run, merged in split order. Runs
+    with no visible key give m = -inf, l = 0; a lane with none gives
+    zeros. f32 arithmetic, the output in q's dtype. q is [B, 1, Hq, D]."""
+    B, Sq, Hq, D = q.shape
+    _check(Sq == 1, "the decode split takes one query row")
+    Hkv = kv.k.shape[1]
+    count = (kv.table != blocks).sum(dim=1)
+    out = torch.zeros((B, Hq, D), dtype=torch.float32, device=q.device)
+    for b in range(B):
+        qi = int(q_offset[b])
+        k_lo = max(0 if k_start is None else int(k_start[b]), 0)
+        if window is not None:
+            k_lo = max(k_lo, qi - window + 1)
+        k_hi = min(int(count[b]) * block_size, qi + 1)
+        n_tiles = max(0, -(-(k_hi - k_lo) // tile))
+        qf = q[b, 0].float()
+        parts = []
+        for s in range(splits):
+            t0, t1 = n_tiles * s // splits, n_tiles * (s + 1) // splits
+            lo = k_lo + t0 * tile
+            ki = torch.arange(lo, max(lo, min(k_lo + t1 * tile, k_hi)), device=q.device)
+            entry = kv.table[b, ki // block_size]
+            ki, entry = ki[entry != blocks], entry[entry != blocks]
+            if ki.numel() == 0:
+                parts.append(None)
+                continue
+            rows = entry.clamp(0, blocks).long() * block_size + ki % block_size
+            k = _dequant(kv.k[rows], None if kv.k_scale is None else kv.k_scale[rows], torch.float32)
+            v = _dequant(kv.v[rows], None if kv.v_scale is None else kv.v_scale[rows], torch.float32)
+            k = repeat(k, "n h d -> n (h g) d", g=Hq // Hkv)
+            v = repeat(v, "n h d -> n (h g) d", g=Hq // Hkv)
+            sc = torch.einsum("hd,nhd->hn", qf, k) * D**-0.5
+            m = sc.amax(-1)
+            p = torch.exp(sc - m[:, None])
+            parts.append((m, p.sum(-1), torch.einsum("hn,nhd->hd", p, v)))
+        live = [x for x in parts if x is not None]
+        if not live:
+            continue
+        mx = torch.stack([m for m, _, _ in live]).amax(0)
+        lsum = torch.zeros_like(mx)
+        acc = torch.zeros((Hq, D), dtype=torch.float32, device=q.device)
+        for m, l, a in live:  # in split order
+            f = torch.exp(m - mx)
+            lsum = lsum + l * f
+            acc = acc + a * f[:, None]
+        out[b] = acc / torch.clamp(lsum, min=1e-20)[:, None]
+    return out[:, None].to(q.dtype)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -207,23 +285,26 @@ def ragged_paged_attention(
     """Launch the sm_90a kernel on CUDA tensors (same contract as
     :func:`ragged_block_attention`), on the route :func:`_ragged_route`
     picks. Adds one to ``ragged_paged_attention.launches`` and to the
-    route's count (``.mma_launches`` or ``.simt_launches``) per launch."""
+    route's count (``.decode_launches``, ``.mma_launches`` or
+    ``.simt_launches``) per launch."""
     return _launch(q, kv, _ragged_route(q.shape[1], q.dtype), blocks=blocks,
                    block_size=block_size, q_offset=q_offset, k_start=k_start, window=window)
 
 
 def _launch(q, kv: PagedKV, route: str, *, blocks, block_size, q_offset, k_start=None,
-            window=None):
-    """Launch one route of the kernel (``chip_smoke.py`` times both routes
-    on the same inputs through this)."""
+            window=None, splits=None):
+    """Launch one route of the kernel (``chip_smoke.py`` times the routes
+    on the same inputs through this). ``splits`` overrides the decode
+    route's :func:`_decode_splits` (``chip_smoke.py`` times several)."""
     from ._build import load_library
 
     _require_card(q)
     B, Sq, Hq, D = q.shape
     rows, Hkv, Dk = kv.k.shape
     _check(q.dtype in _Q_DTYPES, f"q dtype {q.dtype} (bfloat16 | float32)")
-    _check(route in _ROUTES, f"route {route!r} (simt | mma)")
-    _check(route == "simt" or q.dtype == torch.bfloat16, "the mma route takes bfloat16 q only")
+    _check(route in _ROUTES, f"route {route!r} (simt | mma | decode)")
+    _check(route == "simt" or q.dtype == torch.bfloat16, f"the {route} route takes bfloat16 q only")
+    _check(route != "decode" or Sq == 1, "the decode route takes one query row")
     _check(D in (64, 128) and Dk == D, f"head_dim {D} / pool {Dk} (64 | 128)")
     _check(Hq % Hkv == 0, f"{Hq} query heads not a multiple of {Hkv} kv heads")
     _check(rows == (blocks + 1) * block_size, f"pool rows {rows} != (blocks+1)*block_size")
@@ -252,6 +333,13 @@ def _launch(q, kv: PagedKV, route: str, *, blocks, block_size, q_offset, k_start
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    n_splits, ws = 1, None
+    if route == "decode":
+        n_splits = (_decode_splits(B, Hkv, kv.table.shape[1], block_size) if splits is None
+                    else int(splits))
+        _check(n_splits >= 1, f"splits {n_splits} (>= 1)")
+        if n_splits > 1:  # per split: m and l, then the D-wide partial, in f32
+            ws = torch.empty(B * Hq * n_splits * (D + 2), dtype=torch.float32, device=q.device)
     lib = load_library()
     ptr = ctypes.c_void_p
     err = lib.ragged_paged_attention(
@@ -262,20 +350,20 @@ def _launch(q, kv: PagedKV, route: str, *, blocks, block_size, q_offset, k_start
         ptr(out.data_ptr()),
         B, Sq, Hq, Hkv, D, blocks, block_size, kv.table.shape[1],
         0 if window is None else int(window), int(window is not None),
-        _Q_DTYPES[q.dtype], int(quant), _ROUTES[route], _stream(q),
+        _Q_DTYPES[q.dtype], int(quant), _ROUTES[route], n_splits,
+        ptr(0 if ws is None else ws.data_ptr()), _stream(q),
     )
     if err != 0:
         msg = lib.ragged_paged_attention_error(err).decode()
         raise RuntimeError(f"ragged_paged_attention launch failed ({route}): {msg} ({err})")
     ragged_paged_attention.launches += 1
-    if route == "mma":
-        ragged_paged_attention.mma_launches += 1
-    else:
-        ragged_paged_attention.simt_launches += 1
+    counter = f"{route}_launches"
+    setattr(ragged_paged_attention, counter, getattr(ragged_paged_attention, counter) + 1)
     return out
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.decode_launches = 0
 ragged_paged_attention.mma_launches = 0
 ragged_paged_attention.simt_launches = 0
 

@@ -101,7 +101,7 @@ def test_kernel_matches_plain(cuda, quant, dtype, hq, hkv, D, bs, sq):
 
 
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("sq", [4, 64])  # the simt route, then the mma route
+@pytest.mark.parametrize("sq", [1, 4, 64])  # the decode, simt and mma routes
 def test_kernel_ignores_unreachable_blocks(cuda, sq, quant):
     """Re-poisoning every block no lane may read leaves the output bits."""
     kw = dict(B=3, sq=sq, hq=8, hkv=2, D=128, bs=16, max_blocks=5,
@@ -150,12 +150,84 @@ def test_dispatcher_launches_kernel_on_cuda(cuda):
         3, B=2, sq=1, hq=4, hkv=4, D=64, bs=8, max_blocks=3,
         dtype=torch.bfloat16, quant=False, device=cuda,
     )
-    before = ragged_paged_attention.launches
+    before = (ragged_paged_attention.launches, ragged_paged_attention.decode_launches)
     plain = paged_attention.plain_calls
     paged_attention(q, kv, blocks=blocks, block_size=8, q_offset=qoff)
     torch.cuda.synchronize()
-    assert ragged_paged_attention.launches == before + 1
+    assert (ragged_paged_attention.launches, ragged_paged_attention.decode_launches) == (
+        before[0] + 1, before[1] + 1)
     assert paged_attention.plain_calls == plain
+
+
+# The decode route: bf16 q, Sq 1 (ragged_decode_kernel, and its merge
+# kernel past one key split). G 1, 4 and 7 query heads per kv head; block
+# sizes 4, 16 and 48 with lanes of up to 192 keys (6 tiles of 32, whose
+# bounds cut the 48-key blocks); the wrapper's own split count, one split,
+# 3, and 16 (more splits than tiles: some see no key); windows and k_start
+# floors (lane 3's floor of 70 may hide every key).
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("bs,max_blocks", [(4, 48), (16, 12), (48, 4)])
+@pytest.mark.parametrize("hq,hkv", [(8, 8), (32, 8), (28, 4)])
+def test_decode_route_matches_plain(cuda, hq, hkv, bs, max_blocks, D, quant):
+    from hypha_tpu_torch.ops.paged_attention import _launch, _ragged_route
+
+    assert _ragged_route(1, torch.bfloat16) == "decode"
+    q, kv, qoff, blocks, used = _case(
+        bs * 13 + hq + D, B=4, sq=1, hq=hq, hkv=hkv, D=D, bs=bs, max_blocks=max_blocks,
+        dtype=torch.bfloat16, quant=quant, device=cuda, idle=(2,),
+    )
+    kstart = torch.tensor([0, 5, 0, 70], dtype=torch.int32, device=cuda)
+    masks = ((None, None), (None, kstart), (40, None), (3 * bs, kstart))
+    outs, worst = [], 0.0
+    for window, ks in masks:
+        kw = dict(blocks=blocks, block_size=bs, q_offset=qoff, k_start=ks, window=window)
+        ref = ragged_block_attention(q, kv, **kw)
+        before = ragged_paged_attention.decode_launches
+        got = ragged_paged_attention(q, kv, **kw)
+        again = ragged_paged_attention(q, kv, **kw)
+        torch.cuda.synchronize()
+        assert ragged_paged_attention.decode_launches == before + 2
+        assert torch.equal(got, again), "a second launch must give the same bits"
+        outs.append(got)
+        for splits in (None, 1, 3, 16):
+            out = got if splits is None else _launch(q, kv, "decode", splits=splits, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            worst = max(worst, err)
+            assert err <= TOL[torch.bfloat16], f"max abs err {err} (window {window}, splits {splits})"
+            assert torch.all(out[2] == 0), "idle lane must be exactly zero"
+    # Re-poison every block no lane may read: the output bits must stay.
+    for blk in np.flatnonzero(~used):
+        kv.k[blk * bs : (blk + 1) * bs] = -3e4 if not quant else -7
+        kv.v[blk * bs : (blk + 1) * bs] = 7e3 if not quant else 9
+    for (window, ks), got in zip(masks, outs):
+        again = ragged_paged_attention(q, kv, blocks=blocks, block_size=bs, q_offset=qoff,
+                                       k_start=ks, window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f"poisoned blocks changed the output (window {window})"
+    print(f"decode route max abs err {worst:.3e}")
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("hq,hkv,D", [(8, 8, 64), (32, 8, 128)])
+def test_simt_route_at_decode_shape(cuda, hq, hkv, D, quant):
+    """The CUDA-core kernel still takes bf16 decode when asked for it
+    (chip_smoke.py times it beside the decode route)."""
+    from hypha_tpu_torch.ops.paged_attention import _launch
+
+    q, kv, qoff, blocks, _ = _case(
+        29, B=4, sq=1, hq=hq, hkv=hkv, D=D, bs=16, max_blocks=12,
+        dtype=torch.bfloat16, quant=quant, device=cuda, idle=(2,),
+    )
+    kw = dict(blocks=blocks, block_size=16, q_offset=qoff)
+    before = ragged_paged_attention.simt_launches
+    got = _launch(q, kv, "simt", **kw)
+    torch.cuda.synchronize()
+    assert ragged_paged_attention.simt_launches == before + 1
+    err = (got.float() - ragged_block_attention(q, kv, **kw).float()).abs().max().item()
+    assert err <= TOL[torch.bfloat16], f"max abs err {err}"
+    assert torch.all(got[2] == 0)
 
 
 # ------------------------------------------------------- flash attention

@@ -144,12 +144,14 @@ def test_dispatcher_runs_plain_on_cpu_and_counts_it():
 
 @pytest.mark.parametrize(
     "sq,dtype,route",
-    [(1, torch.bfloat16, "simt"), (15, torch.bfloat16, "simt"), (16, torch.bfloat16, "mma"),
-     (64, torch.bfloat16, "mma"), (1, torch.float32, "simt"), (64, torch.float32, "simt")],
+    [(1, torch.bfloat16, "decode"), (2, torch.bfloat16, "simt"), (15, torch.bfloat16, "simt"),
+     (16, torch.bfloat16, "mma"), (64, torch.bfloat16, "mma"), (1, torch.float32, "simt"),
+     (64, torch.float32, "simt")],
 )
 def test_ragged_route_by_shape(sq, dtype, route):
-    """Decode and every f32 call take the CUDA-core kernel; bf16 prefill
-    chunks from MMA_MIN_ROWS rows up take the tensor-core kernel."""
+    """bf16 decode takes the decode kernel, bf16 prefill chunks from
+    MMA_MIN_ROWS rows up the tensor-core kernel, every f32 call and short
+    bf16 chunk the CUDA-core kernel."""
     from hypha_tpu_torch.ops.paged_attention import MMA_MIN_ROWS, _ragged_route
 
     assert MMA_MIN_ROWS == 16
@@ -168,38 +170,150 @@ class _RecordingLibrary:
 
 
 @pytest.mark.parametrize(
-    "sq,dtype,quant,route",
-    [(1, torch.bfloat16, False, 0), (16, torch.bfloat16, False, 1), (4, torch.bfloat16, True, 0),
-     (64, torch.bfloat16, True, 1), (64, torch.float32, False, 0)],
+    "sq,dtype,quant,max_blocks,route",
+    [(1, torch.bfloat16, False, 4, 2), (1, torch.bfloat16, False, 48, 2),
+     (1, torch.bfloat16, True, 4, 2), (1, torch.bfloat16, True, 48, 2),
+     (1, torch.float32, False, 4, 0), (1, torch.float32, True, 48, 0),
+     (16, torch.bfloat16, False, 4, 1), (4, torch.bfloat16, True, 4, 0),
+     (64, torch.bfloat16, True, 4, 1), (64, torch.float32, False, 4, 0)],
 )
-def test_wrapper_hands_the_route_to_the_kernel(monkeypatch, sq, dtype, quant, route):
+def test_wrapper_hands_the_route_to_the_kernel(monkeypatch, sq, dtype, quant, max_blocks, route):
     """The wrapper passes _ragged_route's choice to the C entry point (the
-    argument before the stream) and counts the launch under that route."""
+    arguments before the stream: route, key splits, workspace) and counts
+    the launch under that route. The decode route gets _decode_splits'
+    count and, past one split, an f32 workspace of B * Hq * splits * (D + 2);
+    the other routes one split and no workspace."""
     import importlib
 
     from hypha_tpu_torch.ops import _build
-    from hypha_tpu_torch.ops.paged_attention import ragged_paged_attention
+    from hypha_tpu_torch.ops.paged_attention import _decode_splits, ragged_paged_attention
 
     pa = importlib.import_module("hypha_tpu_torch.ops.paged_attention")
     lib = _RecordingLibrary()
     monkeypatch.setattr(pa, "_require_card", lambda q: None)
     monkeypatch.setattr(pa, "_stream", lambda q: "stream")
     monkeypatch.setattr(_build, "load_library", lambda *a: lib)
-    s = _state(4, hq=4, hkv=2, D=64, bs=4, sq=sq, quant=quant)
+    allocs = []
+    empty = torch.empty
+
+    def recording_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        allocs.append(t)
+        return t
+
+    monkeypatch.setattr(pa.torch, "empty", recording_empty)
+    s = _state(4, hq=4, hkv=2, D=64, bs=4, sq=sq, quant=quant, max_blocks=max_blocks)
     kv = TKV(*(_opt(s[n], torch.from_numpy) for n in ("k", "v", "ks", "vs", "table")))
     if not quant:
         kv = kv._replace(k=kv.k.to(dtype), v=kv.v.to(dtype))
-    before = (ragged_paged_attention.launches, ragged_paged_attention.simt_launches,
-              ragged_paged_attention.mma_launches)
+    names = ("launches", "simt_launches", "mma_launches", "decode_launches")
+    before = [getattr(ragged_paged_attention, n) for n in names]
     ragged_paged_attention(torch.from_numpy(s["q"]).to(dtype), kv, blocks=s["blocks"],
                            block_size=4, q_offset=torch.from_numpy(s["qoff"]))
     (args,) = lib.calls
     assert args[-1] == "stream"
-    assert args[-2] == route
-    assert args[-4:-2] == (0 if dtype == torch.bfloat16 else 1, int(quant))
-    after = (ragged_paged_attention.launches, ragged_paged_attention.simt_launches,
-             ragged_paged_attention.mma_launches)
-    assert after == (before[0] + 1, before[1] + (route == 0), before[2] + (route == 1))
+    assert args[-4] == route
+    assert args[-6:-4] == (0 if dtype == torch.bfloat16 else 1, int(quant))
+    splits, ws = args[-3], args[-2].value
+    if route == 2:
+        assert splits == _decode_splits(3, 2, max_blocks, 4)
+        assert (splits > 1) == (max_blocks == 48)
+    else:
+        assert splits == 1
+    if splits > 1:
+        (buf,) = allocs
+        assert ws == buf.data_ptr() and buf.dtype == torch.float32
+        assert buf.numel() == 3 * 4 * splits * (64 + 2)
+    else:
+        assert ws is None and not allocs
+    after = [getattr(ragged_paged_attention, n) for n in names]
+    assert after == [before[0] + 1, before[1] + (route == 0), before[2] + (route == 1),
+                     before[3] + (route == 2)]
+
+
+def test_decode_splits_depend_only_on_the_shapes():
+    """The split count is a function of (B, Hkv, max_blocks, block_size)
+    alone, so a decode launch is the same at every step; at the
+    Llama-2-7B and GQA 32/8 serving shapes (8 lanes, 64 entries of 16) it
+    gives about two CTAs per SM of the H100 or more, and never fewer than
+    two 32-key tiles of the longest window per split."""
+    import inspect
+
+    from hypha_tpu_torch.ops.paged_attention import DECODE_TILE, H100_SMS, _decode_splits
+
+    assert list(inspect.signature(_decode_splits).parameters) == [
+        "batch", "kv_heads", "max_blocks", "block_size"]
+    for B, hkv in ((8, 32), (8, 8), (4, 8), (1, 32)):
+        n = _decode_splits(B, hkv, 64, 16)
+        assert n == _decode_splits(B, hkv, 64, 16) >= 1
+        assert B * hkv * n >= 2 * H100_SMS * 0.9
+        assert n * 2 * DECODE_TILE <= 64 * 16
+    assert _decode_splits(1, 8, 1, 16) == 1  # one tile: nothing to split
+    assert _decode_splits(64, 32, 64, 16) == 1  # the card is full without splits
+    assert all(_decode_splits(B, 8, 64, 16) >= _decode_splits(B + 1, 8, 64, 16)
+               for B in range(1, 64))
+
+
+# The decode route's split and merge (_split_decode_plain, the plain mirror
+# of ragged_decode_kernel + ragged_decode_merge_kernel) against the JAX
+# package's Pallas kernel in interpret mode and its XLA version, at f32.
+# Each case runs several split counts and tile widths against one JAX
+# output: 5-key tiles cut blocks of 4, 16 and 48 keys mid-block, and
+# 8 or 16 splits leave some with no visible key.
+SPLITS = (1, 2, 3, 8, 16)
+TILES = (32, 5)
+
+
+def _check_split_decode(s, **mask):
+    from hypha_tpu_torch.ops.paged_attention import _split_decode_plain
+
+    want = _jax(s, kernel=True, **mask)
+    np.testing.assert_allclose(_jax(s, **mask), want, atol=ATOL, rtol=0)
+    kv = TKV(*(_opt(s[n], torch.from_numpy) for n in ("k", "v", "ks", "vs", "table")))
+    kst = mask.get("k_start")
+    for splits in SPLITS:
+        for tile in TILES:
+            got = _split_decode_plain(
+                torch.from_numpy(s["q"]), kv, blocks=s["blocks"], block_size=s["bs"],
+                q_offset=torch.from_numpy(s["qoff"]), k_start=_opt(kst, torch.from_numpy),
+                window=mask.get("window"), splits=splits, tile=tile,
+            ).numpy()
+            np.testing.assert_allclose(got, want, atol=ATOL, rtol=0, err_msg=f"{splits} x {tile}")
+            assert np.all(got[1] == 0), "idle lane must be exactly zero"
+
+
+@pytest.mark.parametrize("bs,max_blocks", [(4, 12), (16, 4), (48, 2)])
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (8, 2), (7, 1)])  # G 1, 4, 7
+def test_split_decode_matches_pallas_kernel_interpret(hq, hkv, bs, max_blocks):
+    s = _state(31 * hq + bs, hq=hq, hkv=hkv, bs=bs, max_blocks=max_blocks, sq=1)
+    _check_split_decode(s)
+
+
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (7, 1)])
+def test_split_decode_window_and_k_start(hq, hkv):
+    s = _state(17 + hq, hq=hq, hkv=hkv, bs=4, sq=1, max_blocks=12)
+    _check_split_decode(s, k_start=np.array([3, 0, 9], np.int32), window=13)
+
+
+@pytest.mark.parametrize("bs", [4, 16])
+def test_split_decode_int8_with_zero_scale_rows(bs):
+    s = _state(23 + bs, hq=8, hkv=2, bs=bs, sq=1, max_blocks=48 // bs, quant=True, zero_rows=True)
+    assert (s["ks"] == 0).any() and (s["vs"] == 0).any()
+    _check_split_decode(s)
+
+
+def test_split_decode_splits_with_no_visible_key():
+    """A window of 3 keys leaves one 5-key tile per lane: every split but
+    one sees nothing (m = -inf, l = 0) and the merge must skip them."""
+    from hypha_tpu_torch.ops.paged_attention import _split_decode_plain
+
+    s = _state(41, hq=4, hkv=2, bs=4, sq=1, max_blocks=12)
+    kv = TKV(*(_opt(s[n], torch.from_numpy) for n in ("k", "v", "ks", "vs", "table")))
+    want = _jax(s, kernel=True, window=3)
+    got = _split_decode_plain(torch.from_numpy(s["q"]), kv, blocks=s["blocks"], block_size=4,
+                              q_offset=torch.from_numpy(s["qoff"]), window=3, splits=16, tile=5)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+    assert np.all(got.numpy()[1] == 0)
 
 
 @pytest.fixture
