@@ -51,8 +51,10 @@ log = logging.getLogger("hypha.torch.executor.pool")
 _NOT_PORTED = {
     "prefix_cache": "prefix cache with copy_blocks",
     "spec_ngram": "speculative decoding",
+    "spec_draft": "speculative decoding",
     "spec_layers": "speculative decoding",
     "draft_model": "speculative decoding",
+    "draft_params": "speculative decoding",
     "fleet_cache": "fleet cache and KV migration",
     "kv_migration": "fleet cache and KV migration",
 }
@@ -117,9 +119,11 @@ class DecodePool:
         **not_ported: Any,
     ) -> None:
         for name, value in not_ported.items():
+            if name == "digest_k":
+                continue  # the fleet cache's digest size: inert while it is off
             if name not in _NOT_PORTED:
                 raise TypeError(f"unexpected pool option {name!r}")
-            if value:
+            if (value is not None) if name.startswith("draft_") else value:
                 raise NotImplementedError(
                     f"{name} is not ported yet: ROADMAP.md, Queue 1, "
                     f"'{_NOT_PORTED[name]}'"

@@ -1,7 +1,8 @@
 """Model registry (counterpart of ``hypha_tpu/models/registry.py``) for the
 Llama lineage: Llama, Mistral, Qwen2, Qwen3 and Gemma are all ``Llama``
 under config toggles. The spec names its ``family`` explicitly; other
-families are not ported yet (ROADMAP.md, Queue 1).
+families, and the reference's choice of one from ``model_type`` when the
+spec names none, are not ported yet (ROADMAP.md, Queue 1).
 
 A model spec: ``{"family": ..., "preset": "tiny" | "llama2-7b",
 "hf_config": {...config.json...}, "config": {...overrides...}}``.
@@ -39,7 +40,11 @@ def build_model(spec: dict[str, Any], device=None, attn_impl=None) -> tuple:
     ``attn_impl`` replaces the training forward's plain attention."""
     family = spec.get("family")
     if family is None:
-        raise ValueError("the model spec must name its 'family'")
+        # The reference picks a family from model_type (causal LM -> GPT-2).
+        raise NotImplementedError(
+            "a model spec without 'family' builds GPT-2 in the JAX package, which is "
+            "not ported yet (ROADMAP.md, Queue 1: model families)"
+        )
     if family not in FAMILIES:
         raise NotImplementedError(
             f"model family {family!r} is not ported to PyTorch yet "

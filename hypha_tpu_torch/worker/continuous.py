@@ -56,7 +56,12 @@ class PoolServer:
 
     async def submit(
         self, prompts: list, n_new: int, temperature: float, top_k: "int | None", seed: int,
+        traceparent: "str | None" = None,
     ) -> list:
+        if traceparent is not None:
+            raise NotImplementedError(
+                "trace spans (traceparent) are not ported yet: ROADMAP.md, Queue 1, 'telemetry'"
+            )
         if self._closed:
             raise RuntimeError("server is closed")
         self.requests += 1

@@ -85,8 +85,10 @@ def test_registry_builds_the_llama_lineage():
                          device="cpu")
     assert cfg.rms_offset and cfg.tie_word_embeddings and cfg.head_dim == 32
     assert LlamaConfig.llama2_7b().hidden_size == 4096
-    with pytest.raises(ValueError):
+    with pytest.raises(NotImplementedError, match="model families"):
         build_model({"preset": "tiny"}, device="cpu")
+    with pytest.raises(NotImplementedError, match="model families"):
+        build_model({}, device="cpu")
     with pytest.raises(NotImplementedError):
         build_model({"family": "gpt2"}, device="cpu")
     with pytest.raises(NotImplementedError):

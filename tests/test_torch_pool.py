@@ -119,11 +119,41 @@ def test_pool_rejects_what_it_cannot_serve(pair):
 
 @pytest.mark.parametrize("option", [dict(block_size=0), dict(prefix_cache=True),
                                     dict(spec_ngram=3), dict(spec_layers=1),
-                                    dict(fleet_cache=True), dict(kv_migration=True)])
+                                    dict(spec_draft=4), dict(draft_params={"w": 0}),
+                                    dict(fleet_cache=True), dict(kv_migration=True),
+                                    dict(traceparent="00-" + "1" * 32 + "-" + "2" * 16 + "-01")])
 def test_unported_options_raise(pair, option):
     _, _, tm = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    label = {"spec_draft": "speculative decoding", "draft_params": "speculative decoding",
+             "traceparent": "telemetry"}.get(next(iter(option)), "ROADMAP.md")
+    if "traceparent" in option:
+        async def run():
+            server = PoolServer(tm, None, **POOL)
+            try:
+                return await server.submit([PROMPTS[0]], 4, 0.0, None, 0, **option)
+            finally:
+                server.close()
+
+        with pytest.raises(NotImplementedError, match=label):
+            asyncio.run(run())
+        return
+    with pytest.raises(NotImplementedError, match=label):
         DecodePool(tm, **{**POOL, **option})
+
+
+def test_inert_reference_options_are_accepted(pair):
+    """The JAX PoolServer always passes digest_k, and callers pass
+    draft_params=None and traceparent=None: each is inert here."""
+    _, _, tm = pair
+
+    async def run():
+        server = PoolServer(tm, None, digest_k=32, draft_params=None, spec_draft=0, **POOL)
+        try:
+            return await server.submit([PROMPTS[0]], 4, 0.0, None, 0, traceparent=None)
+        finally:
+            server.close()
+
+    assert asyncio.run(run()) == [generate(tm, [PROMPTS[0]], 4)[0].tolist()]
 
 
 def test_pool_server_async_path(pair):
