@@ -47,7 +47,19 @@ Phases, each printing one JSON line:
    and exact merges; step time, tokens/s, peak memory and the kernels'
    device time per step from the profiler, where one step must show each
    bf16 tensor-core flash kernel with its launches (16 / 8 / 8);
-10. train_reference — a tiny Llama (head_dim 64), and the same with a
+10. train_cli — the same training as a process of its own: ``python -m
+   hypha_tpu_torch.executor.training`` (no ``--device``: it runs on the
+   card) behind the port's Job Bridge (``worker/bridge.py``) on a unix
+   socket, with two stand-ins for the scheduler (``LocalNode``) and for
+   the parameter server and the network (``LocalConnector``: the port's
+   ``RoundAccum`` and ``outer_step`` on the card, three tensors held
+   against the same on the CPU bit for bit); gates on the trainer's exit,
+   rounds, heartbeats, falling losses, the Δθ files' names, shapes and
+   dtype, its flash-kernel launches (from its log) and the cleaned-up
+   updates; step ms, tokens/s, the round boundary, the outer step, the
+   bridge's time per ``/status/send``, the trainer's start-up and device
+   memory beside the ``train`` phase's;
+11. train_reference — a tiny Llama (head_dim 64), and the same with a
    sliding window below its sequence (Mistral's local attention), each
    trained 4 steps through the kernels and through the plain flash version
    from the same weights, with no call of the dense attention.
@@ -70,6 +82,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from contextlib import contextmanager
 from pathlib import Path
@@ -749,28 +762,83 @@ def flash_kernel_phase() -> dict:
 # -------------------------------------------------------------- train phase
 
 
-class TrainSession:
+class Scheduler:
+    """The scheduler's side of the progress protocol for one worker: it
+    asks for ``steps`` inner steps a round for ``rounds`` rounds, and
+    records the time of every STATUS heartbeat and of every round boundary
+    (UPDATE -> UPDATE_RECEIVED) on its own clock."""
+
+    def __init__(self, *, rounds, steps):
+        self.rounds, self.steps = rounds, steps
+        self.done = self.batches = 0
+        self.scheduled = False
+        self.marks: list = []  # (round, time) at every STATUS
+        self.update_s: list = []
+        self.metrics: list = []  # the METRICS of every round
+        self.t_update = 0.0
+
+    def on_status(self, now):
+        """Called at every STATUS, before it is answered."""
+
+    def on_round_end(self):
+        """Called at every UPDATE_RECEIVED, before it is answered."""
+
+    def answer(self, progress):
+        from hypha_tpu_torch.messages import ProgressKind, ProgressResponse, ProgressResponseKind
+
+        now = time.perf_counter()
+        if progress.kind == ProgressKind.STATUS:
+            self.marks.append((self.done, now))
+            self.on_status(now)
+            if self.done >= self.rounds:
+                return ProgressResponse(kind=ProgressResponseKind.DONE)
+            self.batches += 1
+            if not self.scheduled and self.batches >= self.steps:
+                self.scheduled = True
+                return ProgressResponse(kind=ProgressResponseKind.SCHEDULE_UPDATE, counter=0)
+            return ProgressResponse(kind=ProgressResponseKind.CONTINUE)
+        if progress.kind == ProgressKind.UPDATE:
+            self.t_update = now
+        if progress.kind == ProgressKind.METRICS:
+            self.metrics.append((progress.round, dict(progress.metrics)))
+        if progress.kind == ProgressKind.UPDATE_RECEIVED:
+            self.on_round_end()
+            self.update_s.append(now - self.t_update)
+            self.done += 1
+            self.batches, self.scheduled = 0, False
+            kind = ProgressResponseKind.DONE if self.done >= self.rounds else ProgressResponseKind.CONTINUE
+            return ProgressResponse(kind=kind)
+        return ProgressResponse(kind=ProgressResponseKind.OK)
+
+    def step_ms(self) -> list:
+        """Intervals between consecutive STATUS calls inside a round: one
+        inner step each (forward, backward, update, loss read)."""
+        out = []
+        for (r0, t0), (r1, t1) in zip(self.marks, self.marks[1:]):
+            if r0 == r1:
+                out.append((t1 - t0) * 1e3)
+        return out
+
+
+class TrainSession(Scheduler):
     """An in-process scheduler and parameter server behind the bridge
-    client's four methods. The scheduler asks for ``steps`` inner steps a
-    round for ``rounds`` rounds; the server folds each round's delta with
+    client's four methods. The server folds each round's delta with
     the port's ``average_deltas`` + ``nesterov_outer_step`` (lr 0.7, μ 0.9,
     momentum on the card), checks after every merge that the trainer's
     parameters equal θ_t + update, records step times, and profiles one
     steady inner step."""
 
     def __init__(self, work_dir, slices, *, rounds, steps, outer):
+        super().__init__(rounds=rounds, steps=steps)
         self.dir = work_dir
         self.slices = slices
-        self.rounds, self.steps, self.outer = rounds, steps, outer
-        self.done = self.batches = self.fetches = 0
-        self.scheduled = False
+        self.outer = outer
+        self.fetches = 0
         self.events: "queue.Queue[dict]" = queue.Queue()
         self.model = None  # captured when run_training builds it
         self.momentum = None
         self.before = self.update = None
         self.merge_rel_err: list = []
-        self.marks: list = []  # (round, time) at every STATUS
-        self.update_s: list = []
         self.outer_s: list = []
         self.prof = None
         self.prof_t0 = 0.0
@@ -781,7 +849,7 @@ class TrainSession:
         self.fetches += 1
         return [path.name]
 
-    def _profile_hook(self, now):
+    def on_status(self, now):
         from torch.profiler import ProfilerActivity, profile
 
         if self.done == 1 and self.batches == 1 and self.prof is None:
@@ -803,30 +871,11 @@ class TrainSession:
                 top=[{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:8]],
             )
 
-    def send_status(self, progress):
-        from hypha_tpu_torch.messages import ProgressKind, ProgressResponse, ProgressResponseKind
+    def on_round_end(self):
+        self.check_merge()
 
-        now = time.perf_counter()
-        if progress.kind == ProgressKind.STATUS:
-            self.marks.append((self.done, now))
-            self._profile_hook(now)
-            if self.done >= self.rounds:
-                return ProgressResponse(kind=ProgressResponseKind.DONE)
-            self.batches += 1
-            if not self.scheduled and self.batches >= self.steps:
-                self.scheduled = True
-                return ProgressResponse(kind=ProgressResponseKind.SCHEDULE_UPDATE, counter=0)
-            return ProgressResponse(kind=ProgressResponseKind.CONTINUE)
-        if progress.kind == ProgressKind.UPDATE:
-            self.t_update = now
-        if progress.kind == ProgressKind.UPDATE_RECEIVED:
-            self.check_merge()
-            self.update_s.append(now - self.t_update)
-            self.done += 1
-            self.batches, self.scheduled = 0, False
-            kind = ProgressResponseKind.DONE if self.done >= self.rounds else ProgressResponseKind.CONTINUE
-            return ProgressResponse(kind=kind)
-        return ProgressResponse(kind=ProgressResponseKind.OK)
+    def send_status(self, progress):
+        return self.answer(progress)
 
     def send_resource(self, send, path, resource="updates", meta=None):
         from hypha_tpu_torch.executor.diloco import (
@@ -880,15 +929,6 @@ class TrainSession:
         self.merge_rel_err.append(worst)
         self.before = self.update = None
 
-    def step_ms(self) -> list:
-        """Intervals between consecutive STATUS calls inside a round: one
-        inner step each (forward, backward, update, loss read)."""
-        out = []
-        for (r0, t0), (r1, t1) in zip(self.marks, self.marks[1:]):
-            if r0 == r1:
-                out.append((t1 - t0) * 1e3)
-        return out
-
 
 def write_slices(work_dir, *, n_slices, per_slice, seq, period, seed) -> list:
     """Counting sequences (token t+1 follows t, modulo ``period``) from
@@ -908,20 +948,39 @@ def write_slices(work_dir, *, n_slices, per_slice, seq, period, seed) -> list:
     return paths
 
 
-def train_phase() -> dict:
-    """run_training at Llama-2-7B widths, cut to 8 layers."""
-    import hypha_tpu_torch.executor.training as training
+def train_spec(job_id: str, model: dict, *, batch: int, lr: float):
+    """A DiLoCo train job: slices from ``file:///slices`` (the stand-ins
+    serve them in turn), deltas to and updates from peer ``ps``."""
     from hypha_tpu_torch.messages import (
         Adam,
         Executor,
         Fetch,
         JobSpec,
-        Nesterov,
         Receive,
         Reference,
         Send,
         TrainExecutorConfig,
     )
+
+    return JobSpec(job_id=job_id, executor=Executor(
+        kind="train", name="diloco-transformer", train=TrainExecutorConfig(
+            model=model,
+            data=Fetch(Reference.from_uri("file:///slices")),
+            updates=Send(Reference.from_peers(["ps"], "updates")),
+            results=Receive(Reference.from_peers(["ps"], "results")),
+            optimizer=Adam(lr=lr), batch_size=batch,
+        )))
+
+
+# Llama-2-7B widths cut to TRAIN_LAYERS layers, seeded random weights.
+TRAIN_MODEL = {"model_type": "causal-lm", "family": "llama", "preset": "llama2-7b",
+               "seed": 0, "config": {"num_layers": TRAIN_LAYERS, "remat": True}}
+
+
+def train_phase() -> dict:
+    """run_training at Llama-2-7B widths, cut to 8 layers."""
+    import hypha_tpu_torch.executor.training as training
+    from hypha_tpu_torch.messages import Nesterov
     from hypha_tpu_torch.ops.attention import dot_product_attention
     from hypha_tpu_torch.ops.flash_attention import flash_attention
 
@@ -932,15 +991,7 @@ def train_phase() -> dict:
                               seq=TRAIN_SEQ, period=TRAIN_PERIOD, seed=5)
         session = TrainSession(work_dir, slices, rounds=TRAIN_ROUNDS, steps=TRAIN_STEPS,
                                outer=Nesterov())
-        spec = JobSpec(job_id="chip-smoke-train", executor=Executor(
-            kind="train", name="diloco-transformer", train=TrainExecutorConfig(
-                model={"model_type": "causal-lm", "family": "llama", "preset": "llama2-7b",
-                       "seed": 0, "config": {"num_layers": TRAIN_LAYERS, "remat": True}},
-                data=Fetch(Reference.from_uri("file:///slices")),
-                updates=Send(Reference.from_peers(["ps"], "updates")),
-                results=Receive(Reference.from_peers(["ps"], "results")),
-                optimizer=Adam(lr=3e-4), batch_size=TRAIN_BATCH,
-            )))
+        spec = train_spec("chip-smoke-train", TRAIN_MODEL, batch=TRAIN_BATCH, lr=3e-4)
         build = training.build_model
 
         def capture(model_spec, device=None, attn_impl=None):
@@ -1015,6 +1066,290 @@ def train_phase() -> dict:
     if problems:
         emit({"phase": "train", **res, "problems": problems})
         raise SystemExit("training phase failed: " + "; ".join(problems))
+    return res
+
+
+# ----------------------------------------------------------- train_cli phase
+
+CLI_LIMIT_S = 600  # the trainer process must exit within this
+# Tensors whose fold and outer step on the card are held against the CPU's.
+CHECK_NAMES = ("params/embed_tokens", "params/layers_0/self_attn/q_proj/kernel",
+               "params/norm/weight")
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype == torch.float32 and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+class LocalNode(Scheduler):
+    """The scheduler behind the Job Bridge's ``/status/send``: the one node
+    method the bridge calls, answering as ``TrainSession`` does."""
+
+    async def request(self, peer, protocol, msg, timeout=30.0):
+        return self.answer(msg)
+
+
+class LocalConnector:
+    """The parameter server behind the Job Bridge, with the data slices.
+
+    ``fetch`` serves the slices in turn (and any other URI) through the
+    port's ``fetch_uri``; ``send`` folds the pushed Δθ into a
+    ``RoundAccum`` on ``device``, runs ``outer_step`` there, holds three
+    tensors of the sum, the update and the momentum against the same on
+    the CPU, bit for bit, and queues the update in the trainer's
+    ``incoming/``; ``receive`` yields the queued updates."""
+
+    def __init__(self, work_dir, server_dir, slices, *, outer, device):
+        self.work_dir, self.server_dir = Path(work_dir), Path(server_dir)
+        self.slices = list(slices)
+        self.outer, self.device = outer, device
+        self.fetches = 0
+        self.momentum = self.server_dir / "momentum.safetensors"
+        self.landed: asyncio.Queue = asyncio.Queue()
+        self.delta_specs: list = []  # {name: (dtype, shape)} of each Δθ file
+        self.fold_s: list = []
+        self.outer_s: list = []
+        self.serve_s: list = []
+        self.stats: list = []
+        self.cpu_mismatch: list = []
+
+    async def fetch(self, fetch, dest):
+        from hypha_tpu_torch.worker.connectors import fetch_uri
+
+        uri = fetch.ref.uri
+        if uri == "file:///slices":
+            uri = self.slices[self.fetches % len(self.slices)].as_uri()
+            self.fetches += 1
+        return [await asyncio.to_thread(fetch_uri, uri, dest)]
+
+    async def send(self, send, path, resource, meta=None):
+        await self.landed.put(await asyncio.to_thread(self.serve_round, Path(path), dict(meta or {})))
+
+    async def receive(self, receive, dest):
+        while True:
+            yield await self.landed.get()
+
+    def serve_round(self, path: Path, meta: dict):
+        from hypha_tpu_torch.executor.serialization import load_file, read_header, save_file
+        from hypha_tpu_torch.stream.accum import RoundAccum
+        from hypha_tpu_torch.worker.connectors import ReceivedFile
+        from hypha_tpu_torch.worker.ps_executor import outer_step
+
+        t_start = time.perf_counter()
+        r, samples = int(meta["round"]), float(meta["num_samples"])
+        lr, mu = self.outer.lr, self.outer.momentum
+        self.delta_specs.append({k: (v["dtype"], tuple(v["shape"]))
+                                 for k, v in read_header(path)[0].items()})
+        check = self.server_dir / "cpu-check"
+        check.mkdir(parents=True, exist_ok=True)
+        if self.momentum.is_file():  # this round's momentum, for the CPU's step
+            save_file(load_file(self.momentum, CHECK_NAMES), check / "momentum.safetensors")
+        _sync(self.device)
+        t0 = time.perf_counter()
+        accum = RoundAccum(device=self.device)
+        accum.fold(path, samples)
+        _sync(self.device)
+        t1 = time.perf_counter()
+        stats: dict = {}
+        out = outer_step({"worker": (path, samples)}, self.momentum, lr, mu, self.server_dir, r,
+                         accum=accum, stats=stats, device=self.device)
+        _sync(self.device)
+        self.fold_s.append(t1 - t0)
+        self.outer_s.append(time.perf_counter() - t1)
+        self.stats.append(stats)
+        card_sum = {k: accum.partial()[k].cpu() for k in CHECK_NAMES}
+        del accum
+        if torch.device(self.device).type == "cuda":
+            torch.cuda.empty_cache()  # the trainer process shares the card
+        cpu = RoundAccum(device="cpu")
+        cpu.fold_tree(load_file(path, CHECK_NAMES), samples)
+        cpu_out = outer_step({"worker": (path, samples)}, check / "momentum.safetensors", lr, mu,
+                             check, r, accum=cpu, device="cpu")
+        pairs = [("sum", card_sum, cpu.partial()),
+                 ("update", load_file(out, CHECK_NAMES), load_file(cpu_out)),
+                 ("momentum", load_file(self.momentum, CHECK_NAMES),
+                  load_file(check / "momentum.safetensors"))]
+        self.cpu_mismatch.append([f"{what} {k}" for what, card, host in pairs for k in CHECK_NAMES
+                                  if not _bits_equal(card[k], host[k])])
+        dest = self.work_dir / "incoming" / out.name
+        dest.parent.mkdir(parents=True, exist_ok=True)
+        os.replace(out, dest)
+        self.serve_s.append(time.perf_counter() - t_start)
+        return ReceivedFile(dest, dest.stat().st_size, "ps", "results",
+                            {"resource": "results", "name": dest.name, "round": r})
+
+
+@contextmanager
+def serve_bridge(node, connector, work_dir, job_id):
+    """The port's Job Bridge on an asyncio loop in a thread of its own,
+    timing each ``/status/send`` it serves (``bridge.status_ms``)."""
+    from hypha_tpu_torch.worker.bridge import Bridge
+
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="bridge", daemon=True)
+    thread.start()
+    bridge = Bridge(node, Path(work_dir), job_id, "sched", connector)
+    bridge.status_ms = []
+    serve_status = bridge._status
+
+    async def timed_status(body, writer):
+        t0 = time.perf_counter()
+        await serve_status(body, writer)
+        bridge.status_ms.append((time.perf_counter() - t0) * 1e3)
+
+    bridge._status = timed_status
+    try:
+        asyncio.run_coroutine_threadsafe(bridge.start(), loop).result(30)
+        yield bridge
+    finally:
+        try:
+            asyncio.run_coroutine_threadsafe(bridge.stop(), loop).result(120)
+        finally:
+            loop.call_soon_threadsafe(loop.stop)
+            thread.join(30)
+            loop.close()
+
+
+def _compute_apps() -> list:
+    """``(pid, MiB)`` of each process on the card as ``nvidia-smi`` lists
+    them (a sandbox's pid namespace may hide the real pids)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=30,
+    )
+    apps = []
+    for line in out.stdout.splitlines():
+        pid, _, mib = line.partition(",")
+        if mib.strip().isdigit():
+            apps.append((pid.strip(), int(mib)))
+    return apps
+
+
+def run_train_cli(spec, slices, root: Path, *, device, rounds, steps, child_args=(),
+                  limit_s=CLI_LIMIT_S) -> dict:
+    """Start ``python -m hypha_tpu_torch.executor.training`` as a process
+    of its own behind the port's Job Bridge, with ``LocalNode`` and
+    ``LocalConnector`` standing in for the scheduler, the parameter server
+    and the network, and collect what they saw."""
+    from hypha_tpu_torch.messages import Nesterov, to_json_dict
+    from hypha_tpu_torch.models.convert import state_to_flat
+    from hypha_tpu_torch.models.registry import build_model
+
+    work, server = root / "work", root / "ps"
+    server.mkdir(parents=True, exist_ok=True)
+    shapes, _ = build_model(spec.executor.train.model, device="meta")
+    expect = {k: ("F32", tuple(v.shape)) for k, v in state_to_flat(shapes, shapes.state_dict()).items()}
+    node = LocalNode(rounds=rounds, steps=steps)
+    conn = LocalConnector(work, server, slices, outer=Nesterov(), device=device)
+    job = root / "job.json"
+    job.write_text(json.dumps(to_json_dict(spec)))
+    log_path = root / "trainer.log"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [repo, os.environ.get("PYTHONPATH")]))}
+    mem: list = []  # every nvidia-smi sample while the trainer runs
+    with serve_bridge(node, conn, work, spec.job_id) as bridge, open(log_path, "wb") as log:
+        t0 = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, "-m", "hypha_tpu_torch.executor.training", "--socket",
+             str(bridge.socket_path), "--work-dir", str(work), "--job", f"@{job}", *child_args],
+            stdout=log, stderr=subprocess.STDOUT, cwd=work, env=env,
+        )
+        try:
+            while True:
+                try:
+                    child.wait(timeout=2)
+                    break
+                except subprocess.TimeoutExpired:
+                    if time.perf_counter() - t0 > limit_s:
+                        break
+                if torch.device(device).type == "cuda":
+                    mem.append(_compute_apps())
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+                rc = None  # cut at the limit
+            else:
+                rc = child.returncode
+        wall = time.perf_counter() - t0
+        status_ms = list(bridge.status_ms)
+    incoming = work / "incoming"
+    return dict(rc=rc, wall_s=wall, node=node, conn=conn, status_ms=status_ms, expect=expect,
+                log=log_path.read_text(errors="replace"), child_pid=str(child.pid), mem_samples=mem,
+                first_beat_s=(node.marks[0][1] - t0) if node.marks else None,
+                leftover=sorted(p.name for p in incoming.iterdir()) if incoming.is_dir() else [])
+
+
+def train_cli_phase(train: dict) -> dict:
+    """The trainer as a process of its own behind the port's Job Bridge, at
+    the ``train`` phase's configuration, on the card."""
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-cli-"))
+    try:
+        steps_total = TRAIN_ROUNDS * TRAIN_STEPS
+        slices = write_slices(root, n_slices=2, per_slice=steps_total * TRAIN_BATCH // 2,
+                              seq=TRAIN_SEQ, period=TRAIN_PERIOD, seed=5)
+        spec = train_spec("chip-smoke-train-cli", TRAIN_MODEL, batch=TRAIN_BATCH, lr=3e-4)
+        run = run_train_cli(spec, slices, root, device="cuda", rounds=TRAIN_ROUNDS,
+                            steps=TRAIN_STEPS)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    node, conn, log, mems = run["node"], run["conn"], run["log"], run["mem_samples"]
+    steps = node.step_ms()
+    step_ms = statistics.median(steps) if steps else None
+    losses = [m.get("loss") for _, m in node.metrics]
+    found = re.search(r"attention launches: (\{.*\})", log)
+    launches = json.loads(found.group(1)) if found else None
+    peak = re.search(r"peak device memory: ([\d.]+) GiB", log)
+    res = dict(
+        model="llama2-7b", layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+        trainer_exit=run["rc"], trainer_wall_s=run["wall_s"], rounds=node.done,
+        heartbeats=len(node.marks), losses=losses, step_ms=step_ms, step_ms_all=steps,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3) if step_ms else None,
+        round_boundary_s=node.update_s, fold_s=conn.fold_s, outer_step_s=conn.outer_s,
+        server_round_s=conn.serve_s, outer_stats=conn.stats,
+        status_serve_ms_median=statistics.median(run["status_ms"]) if run["status_ms"] else None,
+        status_requests=len(run["status_ms"]),
+        start_to_first_heartbeat_s=run["first_beat_s"], attention_launches=launches,
+        trainer_peak_gib=float(peak.group(1)) if peak else None,
+        trainer_pid=run["child_pid"],
+        device_mib_max={"largest_process": max((m for smp in mems for _, m in smp), default=None),
+                        "all_processes": max((sum(m for _, m in smp) for smp in mems), default=None),
+                        "pids_listed": sorted({p for smp in mems for p, _ in smp}),
+                        "samples": len(mems)},
+        cpu_check=list(CHECK_NAMES), cpu_mismatch=conn.cpu_mismatch, leftover_updates=run["leftover"],
+        train_phase={k: train[k] for k in ("step_ms", "tokens_per_s", "update_phase_s",
+                                           "outer_step_s", "peak_mem_gib")},
+    )
+    want = {"fwd": 2 * TRAIN_LAYERS * steps_total, "dq": TRAIN_LAYERS * steps_total,
+            "dkv": TRAIN_LAYERS * steps_total, "flash_plain": 0, "dense": 0}
+    problems = []
+    if run["rc"] != 0:
+        problems.append(f"trainer exit code {run['rc']} (None: cut at {CLI_LIMIT_S} s)")
+    if node.done != TRAIN_ROUNDS or len(node.marks) != steps_total:
+        problems.append(f"{node.done} rounds and {len(node.marks)} heartbeats, wanted "
+                        f"{TRAIN_ROUNDS} and {steps_total}")
+    if (len(losses) != TRAIN_ROUNDS or None in losses
+            or not torch.isfinite(torch.tensor(losses, dtype=torch.float64)).all()
+            or not losses[1] < losses[0]):
+        problems.append(f"round losses {losses}: not finite, or round 1 not below round 0")
+    bad = [i for i, got in enumerate(conn.delta_specs) if got != run["expect"]]
+    if len(conn.delta_specs) != TRAIN_ROUNDS or bad:
+        problems.append(f"Δθ files {bad} of {len(conn.delta_specs)} differ from the config's "
+                        "flat f32 names and shapes")
+    if "attention path: flash kernels" not in log or launches != want:
+        problems.append(f"attention launches {launches}, wanted {want} through the flash kernels")
+    if len(conn.cpu_mismatch) != TRAIN_ROUNDS or any(conn.cpu_mismatch):
+        problems.append(f"the card's fold and outer step differ from the CPU's: {conn.cpu_mismatch}")
+    if run["leftover"]:
+        problems.append(f"update files left in incoming/: {run['leftover']}")
+    if problems:
+        emit({"phase": "train_cli", **res, "problems": problems, "trainer_log_tail": log[-4000:]})
+        raise SystemExit("train_cli phase failed: " + "; ".join(problems))
     return res
 
 
@@ -1123,6 +1458,7 @@ def main() -> int:
 
     train = train_phase()
     emit({"phase": "train", **train})
+    emit({"phase": "train_cli", **train_cli_phase(train)})
     emit({"phase": "train_reference", **train_reference_phase()})
 
     dec, pre = kern["timing"]["decode_bf16"], kern["timing"]["prefill64_bf16"]

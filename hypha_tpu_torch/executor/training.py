@@ -20,14 +20,23 @@ the CPU, as the JAX package picks the Pallas kernel on the accelerator.
 ``session`` has the bridge client's four methods: ``fetch(ref) -> [paths
 relative to work_dir]``, ``send_resource(send, path, resource=, meta=)``,
 ``send_status(progress) -> ProgressResponse`` and ``receive(ref)``, a
-context manager yielding ``{"path", "meta"}`` events. The HTTP bridge
-client, the CLI and every option of ``TrainExecutorConfig`` beyond this
-path are not ported; each raises NotImplementedError naming its ROADMAP.md
-item rather than being ignored.
+context manager yielding ``{"path", "meta"}`` events. ``main`` is the
+executor process a worker node spawns (the reference's CLI,
+``hypha_tpu/executor/training.py:1824-1855``): it talks to the node's Job
+Bridge through :class:`~hypha_tpu_torch.executor.bridge_client.Session`::
+
+    python -m hypha_tpu_torch.executor.training --socket SOCK \
+        --work-dir DIR --job '{...}' | @job.json [--max-batches N] [--device cpu]
+
+Every option of ``TrainExecutorConfig`` beyond this path is not ported;
+each raises NotImplementedError naming its ROADMAP.md item rather than
+being ignored.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import logging
 import math
 import time
@@ -36,6 +45,7 @@ from typing import Any, Callable, Iterator
 
 import torch
 
+from .. import messages
 from ..hw import default_device
 from ..messages import (
     JobSpec,
@@ -50,13 +60,14 @@ from ..messages import (
 )
 from ..models.convert import flat_to_state, llama_params_from_flat, state_to_flat
 from ..models.registry import build_model
+from ..ops.attention import dot_product_attention
 from ..ops.flash_attention import flash_attention
 from .dataset import stream_batches
 from .diloco import extract_delta, merge_update
 from .serialization import load_file, save_file
 from .train import build_optimizer, make_train_step
 
-__all__ = ["TrainResult", "adopt_schedule", "run_training"]
+__all__ = ["TrainResult", "adopt_schedule", "build_parser", "main", "run_training"]
 
 log = logging.getLogger("hypha.torch.executor.training")
 
@@ -337,3 +348,52 @@ def run_training(
     log.info("training done: %d rounds, %d batches, %.1fs, last loss %.4f",
              result.rounds, result.batches, time.monotonic() - t0, result.last_loss)
     return result
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="hypha-training-executor",
+        description="hypha-tpu DiLoCo training executor (PyTorch)",
+    )
+    parser.add_argument("--socket", required=True, help="bridge unix socket path")
+    parser.add_argument("--work-dir", required=True)
+    parser.add_argument("--job", required=True, help="job spec JSON (inline or @file)")
+    parser.add_argument("--max-batches", type=int, default=None)
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: cuda; without a CUDA device the "
+                             "executor refuses to start unless this says cpu)")
+    return parser
+
+
+def main(argv: "list[str] | None" = None) -> int:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(name)s %(message)s")
+    device = default_device(args.device)  # before anything else: no quiet host run
+
+    raw = args.job
+    if raw.startswith("@"):
+        raw = Path(raw[1:]).read_text()
+    spec = messages.from_json_dict(json.loads(raw))
+    if not isinstance(spec, JobSpec):
+        raise SystemExit(f"--job does not decode to a JobSpec: {type(spec)}")
+
+    from .bridge_client import Session
+
+    try:
+        with Session(args.socket) as session:
+            run_training(session, args.work_dir, spec, max_batches=args.max_batches,
+                         device=device)
+    finally:
+        # What the attention path launched in this process, for the node's log.
+        log.info("attention launches: %s", json.dumps({
+            "fwd": flash_attention.fwd_launches, "dq": flash_attention.dq_launches,
+            "dkv": flash_attention.dkv_launches, "flash_plain": flash_attention.plain_calls,
+            "dense": dot_product_attention.calls,
+        }))
+        if device.type == "cuda":
+            log.info("peak device memory: %.3f GiB", torch.cuda.max_memory_allocated(device) / 2**30)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -7,7 +7,8 @@ dataclass, ``{"_e": enum name, "v": value}`` for an enum, ``{"_d": ...}``
 escaping a user dict with those keys, optional ``None`` fields omitted)
 are the JAX package's, so a job spec or a progress message reads the same
 in both packages. The CBOR wire codec and the network messages are not
-ported (ROADMAP.md, Queue 1).
+ported (ROADMAP.md, Queue 1); the Job Bridge needs only the progress
+protocol's name, which it hands to its node with each ``Progress``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,11 @@ __all__ = [
     "ModelType", "Nesterov", "Progress", "ProgressKind", "ProgressResponse",
     "ProgressResponseKind", "Receive", "Reference", "Send", "ShardMap",
     "TrainExecutorConfig", "TransferStrategy", "from_json_dict", "to_json_dict",
+    "PROTOCOL_PROGRESS",
 ]
+
+# The scheduler's progress protocol (STATUS, UPDATE, ... -> ProgressResponse).
+PROTOCOL_PROGRESS = "/hypha-progress/0.0.1"
 
 _REGISTRY: dict[str, type] = {}
 _ENUMS: dict[str, type] = {}

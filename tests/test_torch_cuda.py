@@ -365,3 +365,120 @@ def test_flash_attention_autograd_counts_launches(cuda):
              flash_attention.dkv_launches, flash_attention.plain_calls)
     assert after == (before[0] + 1, before[1] + 1, before[2] + 1, before[3])
     assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+
+
+# ------------------------------------------------- the parameter server's step
+
+
+def _delta_files(tmp_path, seed):
+    """Three delta files (one bf16), every tensor at its own scale."""
+    from hypha_tpu_torch.executor.serialization import save_file
+
+    g = torch.Generator().manual_seed(seed)
+    shapes = {"params/embed_tokens": (512, 64), "params/norm/weight": (64,),
+              "params/layers_0/mlp/down_proj/kernel": (3, 257, 5)}
+    files = []
+    for i in range(3):
+        tree = {k: torch.randn(s, generator=g) * 10.0 ** float(torch.empty(()).uniform_(-5, 1, generator=g))
+                for k, s in shapes.items()}
+        if i == 1:
+            tree = {k: v.bfloat16() for k, v in tree.items()}
+        files.append(save_file(tree, tmp_path / f"delta-{seed}-{i}.safetensors"))
+    return files
+
+
+def test_fold_and_outer_step_on_cuda_equal_the_cpu(cuda, tmp_path):
+    """RoundAccum (fold, un-fold, mean) and outer_step over two rounds with a
+    momentum file: the card gives the CPU's bits."""
+    from hypha_tpu_torch.executor.serialization import load_file
+    from hypha_tpu_torch.stream.accum import RoundAccum
+    from hypha_tpu_torch.worker.ps_executor import outer_step
+
+    def bits(t):
+        return t.detach().cpu().view(torch.int32)
+
+    samples = [300.0, 101.0, 7.0]
+    for r in range(2):
+        files = _delta_files(tmp_path, r)
+        accs = {d: RoundAccum(device=d) for d in ("cpu", cuda)}
+        for acc in accs.values():
+            for f, s in zip(files, samples):
+                acc.fold(f, s)
+            acc.fold(files[1], samples[1], sign=-1.0)
+            acc.fold(files[1], 55.0)
+        assert accs[cuda].partial()["params/norm/weight"].is_cuda
+        host, card = accs["cpu"].mean(), accs[cuda].mean()
+        assert all(torch.equal(bits(host[k]), bits(card[k])) for k in host)
+        received = {f"w{i}": (f, s) for i, (f, s) in enumerate(zip(files, samples))}
+        stats = {}
+        for d in ("cpu", cuda):
+            wd = tmp_path / ("host" if d == "cpu" else "card")
+            wd.mkdir(exist_ok=True)
+            stats[d] = {}
+            outer_step(received, wd / "momentum.safetensors", 0.7, 0.9, wd, r, accum=accs[d],
+                       stats=stats[d], device=d)
+        for name in (f"update-{r}.safetensors", "momentum.safetensors"):
+            a, b = load_file(tmp_path / "host" / name), load_file(tmp_path / "card" / name)
+            assert set(a) == set(b) and all(torch.equal(bits(a[k]), bits(b[k])) for k in a), name
+        assert stats["cpu"] == pytest.approx(stats[cuda], rel=1e-12)
+
+
+def test_session_bridge_round_trip(cuda, tmp_path):
+    """The port's Session against the port's Bridge on this machine: fetch,
+    status, send and the SSE receive of what the stand-in server sent back."""
+    import asyncio
+    import threading
+
+    from hypha_tpu_torch import messages as m
+    from hypha_tpu_torch.executor.bridge_client import Session
+    from hypha_tpu_torch.worker.bridge import Bridge
+    from hypha_tpu_torch.worker.connectors import ReceivedFile, fetch_uri
+
+    class Node:
+        async def request(self, peer, protocol, msg, timeout=30.0):
+            return m.ProgressResponse(kind=m.ProgressResponseKind.SCHEDULE_UPDATE, counter=msg.batch_size)
+
+    class Connector:
+        def __init__(self):
+            self.landed = asyncio.Queue()
+
+        async def fetch(self, fetch, dest):
+            return [await asyncio.to_thread(fetch_uri, fetch.ref.uri, dest)]
+
+        async def send(self, send, path, resource, meta=None):
+            dest = work / "incoming" / "echo.bin"
+            dest.parent.mkdir(exist_ok=True)
+            dest.write_bytes(path.read_bytes()[::-1])
+            await self.landed.put(ReceivedFile(dest, dest.stat().st_size, "ps", "results", meta))
+
+        async def receive(self, receive, dest):
+            while True:
+                yield await self.landed.get()
+
+    work = tmp_path / "work"
+    src = tmp_path / "weights.bin"
+    src.write_bytes(bytes(range(256)) * 8)
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+    bridge = Bridge(Node(), work, "j", "sched", Connector())
+    sock = asyncio.run_coroutine_threadsafe(bridge.start(), loop).result(10)
+    try:
+        ref = m.Reference.from_peers(["ps"], "updates")
+        with Session(str(sock)) as s:
+            assert s.fetch(m.Fetch(m.Reference.from_uri(src.as_uri()))) == ["artifacts/weights.bin"]
+            for n in (1, 2, 3):  # heartbeats on one keep-alive connection
+                assert s.send_status(m.Progress(kind=m.ProgressKind.STATUS, batch_size=n)).counter == n
+            (work / "d.bin").write_bytes(b"abc")
+            s.send_resource(m.Send(ref), "d.bin", meta={"round": 4})
+            with s.receive(m.Receive(ref)) as events:
+                event = next(events)
+        assert event == {"path": "incoming/echo.bin", "size": 3, "from_peer": "ps",
+                         "resource": "results", "meta": {"round": 4}}
+        assert (work / event["path"]).read_bytes() == b"cba"
+    finally:
+        asyncio.run_coroutine_threadsafe(bridge.stop(), loop).result(30)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(10)
+        loop.close()
+    assert not sock.exists()
