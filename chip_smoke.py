@@ -1086,6 +1086,28 @@ def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.dtype == b.dtype == torch.float32 and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+@contextmanager
+def _file_io_timed(io: dict):
+    """Time ``outer_step``'s SafeTensors reads and writes into ``io``."""
+    import hypha_tpu_torch.worker.ps_executor as ps
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                io[key] += time.perf_counter() - t0
+        return call
+
+    load, save = ps.load_file, ps.save_file
+    ps.load_file, ps.save_file = timed(load, "read_s"), timed(save, "write_s")
+    try:
+        yield io
+    finally:
+        ps.load_file, ps.save_file = load, save
+
+
 class LocalNode(Scheduler):
     """The scheduler behind the Job Bridge's ``/status/send``: the one node
     method the bridge calls, answering as ``TrainSession`` does."""
@@ -1114,6 +1136,7 @@ class LocalConnector:
         self.delta_specs: list = []  # {name: (dtype, shape)} of each Δθ file
         self.fold_s: list = []
         self.outer_s: list = []
+        self.outer_io: list = []  # outer_step's momentum read and file writes, s
         self.serve_s: list = []
         self.stats: list = []
         self.cpu_mismatch: list = []
@@ -1156,11 +1179,13 @@ class LocalConnector:
         _sync(self.device)
         t1 = time.perf_counter()
         stats: dict = {}
-        out = outer_step({"worker": (path, samples)}, self.momentum, lr, mu, self.server_dir, r,
-                         accum=accum, stats=stats, device=self.device)
+        with _file_io_timed(io := {"read_s": 0.0, "write_s": 0.0}):
+            out = outer_step({"worker": (path, samples)}, self.momentum, lr, mu, self.server_dir,
+                             r, accum=accum, stats=stats, device=self.device)
         _sync(self.device)
         self.fold_s.append(t1 - t0)
         self.outer_s.append(time.perf_counter() - t1)
+        self.outer_io.append(io)
         self.stats.append(stats)
         card_sum = {k: accum.partial()[k].cpu() for k in CHECK_NAMES}
         del accum
@@ -1311,6 +1336,7 @@ def train_cli_phase(train: dict) -> dict:
         heartbeats=len(node.marks), losses=losses, step_ms=step_ms, step_ms_all=steps,
         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3) if step_ms else None,
         round_boundary_s=node.update_s, fold_s=conn.fold_s, outer_step_s=conn.outer_s,
+        outer_step_file_io_s=conn.outer_io,
         server_round_s=conn.serve_s, outer_stats=conn.stats,
         status_serve_ms_median=statistics.median(run["status_ms"]) if run["status_ms"] else None,
         status_requests=len(run["status_ms"]),

@@ -62,6 +62,7 @@ from ..models.convert import flat_to_state, llama_params_from_flat, state_to_fla
 from ..models.registry import build_model
 from ..ops.attention import dot_product_attention
 from ..ops.flash_attention import flash_attention
+from .bridge_client import Session
 from .dataset import stream_batches
 from .diloco import extract_delta, merge_update
 from .serialization import load_file, save_file
@@ -376,8 +377,6 @@ def main(argv: "list[str] | None" = None) -> int:
     spec = messages.from_json_dict(json.loads(raw))
     if not isinstance(spec, JobSpec):
         raise SystemExit(f"--job does not decode to a JobSpec: {type(spec)}")
-
-    from .bridge_client import Session
 
     try:
         with Session(args.socket) as session:

@@ -25,6 +25,7 @@ import logging
 import re
 import shutil
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -130,7 +131,7 @@ def _mixed_job(tmp_path: Path, module: str, job: jmsg.JobSpec):
             args=["-X", "importtime", "-m", module, "--socket", "{SOCKET_PATH}",
                   "--work-dir", "{WORK_DIR}", "--job", "{JOB_JSON}"]
             + (["--device", "cpu"] if module.startswith("hypha_tpu_torch") else []),
-            work_root=tmp_path / "work")
+            work_root=work_root)
         train = await executor.execute("mixed", job, "sched")
         status = await asyncio.wait_for(train.wait(), 240)
         ps_status = await asyncio.wait_for(ps_exec.wait(), 60)
@@ -139,8 +140,13 @@ def _mixed_job(tmp_path: Path, module: str, job: jmsg.JobSpec):
         return status, ps_status
 
     (tmp_path / "ps").mkdir(parents=True)
-    (tmp_path / "work").mkdir()
-    status, ps_status = asyncio.run(asyncio.wait_for(main(), 300))
+    # The job's bridge socket lives in its work dir, and a unix socket's
+    # path must stay under 108 bytes: a short root, not pytest's tmp_path.
+    work_root = Path(tempfile.mkdtemp(prefix="hm"))
+    try:
+        status, ps_status = asyncio.run(asyncio.wait_for(main(), 300))
+    finally:
+        shutil.rmtree(work_root, ignore_errors=True)
     return status, ps_status, sched_state
 
 
