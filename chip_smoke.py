@@ -1242,7 +1242,7 @@ def serve_bridge(node, connector, work_dir, job_id):
 
 def _compute_apps() -> list:
     """``(pid, MiB)`` of each process on the card as ``nvidia-smi`` lists
-    them (a sandbox's pid namespace may hide the real pids)."""
+    them (a container's pid namespace may hide the real pids)."""
     out = subprocess.run(
         ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=30,
