@@ -41,7 +41,8 @@ Phases, each printing one JSON line:
    training shape beside its plain version, SDPA and the card's bound;
 9. train — the serving model freed, ``run_training`` at Llama-2-7B widths
    cut to 8 layers (S 2048, batch 2, remat) behind an in-process scheduler
-   and parameter server (``average_deltas`` + ``nesterov_outer_step``):
+   and parameter server (the port's ``RoundAccum`` and ``outer_step`` on
+   the card, ``ps_round``):
    2 rounds of 4 inner steps through the three flash kernels, checking
    launch counts, zero plain-attention calls, finite and falling losses
    and exact merges; step time, tokens/s, peak memory and the kernels'
@@ -52,13 +53,13 @@ Phases, each printing one JSON line:
    card) behind the port's Job Bridge (``worker/bridge.py``) on a unix
    socket, with two stand-ins for the scheduler (``LocalNode``) and for
    the parameter server and the network (``LocalConnector``: the port's
-   ``RoundAccum`` and ``outer_step`` on the card, three tensors held
-   against the same on the CPU bit for bit); gates on the trainer's exit,
-   rounds, heartbeats, falling losses, the Δθ files' names, shapes and
-   dtype, its flash-kernel launches (from its log) and the cleaned-up
-   updates; step ms, tokens/s, the round boundary, the outer step, the
-   bridge's time per ``/status/send``, the trainer's start-up and device
-   memory beside the ``train`` phase's;
+   ``ps_round``, three tensors held against the same on the CPU bit for
+   bit); gates on the trainer's exit, rounds, heartbeats, falling losses,
+   the Δθ files' names, shapes and dtype, its flash-kernel launches (from
+   its log) and the cleaned-up updates; step ms, tokens/s, the round
+   boundary, the fold and the outer step (its file I/O, copies and norms
+   timed apart), the bridge's time per ``/status/send``, the trainer's
+   start-up and peak device memory (its log) beside the ``train`` phase's;
 11. train_reference — a tiny Llama (head_dim 64), and the same with a
    sliding window below its sequence (Mistral's local attention), each
    trained 4 steps through the kernels and through the plain flash version
@@ -822,11 +823,10 @@ class Scheduler:
 
 class TrainSession(Scheduler):
     """An in-process scheduler and parameter server behind the bridge
-    client's four methods. The server folds each round's delta with
-    the port's ``average_deltas`` + ``nesterov_outer_step`` (lr 0.7, μ 0.9,
-    momentum on the card), checks after every merge that the trainer's
-    parameters equal θ_t + update, records step times, and profiles one
-    steady inner step."""
+    client's four methods. The server runs each round through
+    ``ps_round`` on the card (lr 0.7, μ 0.9), checks after every merge that
+    the trainer's parameters equal θ_t + update, records step times, and
+    profiles one steady inner step."""
 
     def __init__(self, work_dir, slices, *, rounds, steps, outer):
         super().__init__(rounds=rounds, steps=steps)
@@ -836,10 +836,9 @@ class TrainSession(Scheduler):
         self.fetches = 0
         self.events: "queue.Queue[dict]" = queue.Queue()
         self.model = None  # captured when run_training builds it
-        self.momentum = None
         self.before = self.update = None
         self.merge_rel_err: list = []
-        self.outer_s: list = []
+        self.times: list = []  # ps_round's seconds, a dict a round
         self.prof = None
         self.prof_t0 = 0.0
         self.profile = None
@@ -878,31 +877,14 @@ class TrainSession(Scheduler):
         return self.answer(progress)
 
     def send_resource(self, send, path, resource="updates", meta=None):
-        from hypha_tpu_torch.executor.diloco import (
-            average_deltas,
-            nesterov_init,
-            nesterov_outer_step,
-        )
-        from hypha_tpu_torch.executor.serialization import load_file, save_file
+        from hypha_tpu_torch.executor.serialization import load_file
 
-        t0 = time.perf_counter()
         # θ_t on the host, to check the merge against.
         self.before = {k: v.detach().to("cpu", copy=True) for k, v in self.model.state_dict().items()}
-        delta = load_file(self.dir / path)
-        if self.momentum is None:
-            self.momentum = nesterov_init({k: v.cuda() for k, v in delta.items()})
-        update = {}
-        for name, d in delta.items():  # one tensor at a time, on the card
-            mean = average_deltas([{name: d.cuda()}], [meta["num_samples"]])
-            m, u = nesterov_outer_step({name: self.momentum[name]}, mean,
-                                       self.outer.lr, self.outer.momentum)
-            self.momentum[name] = m[name]
-            update[name] = u[name].cpu()
-        del delta
-        out = self.dir / f"update-{meta['round']}.safetensors"
-        save_file(update, out)
-        self.update = update
-        self.outer_s.append(time.perf_counter() - t0)
+        out, _, _, times = ps_round(self.dir / path, float(meta["num_samples"]), int(meta["round"]),
+                                    self.dir / "momentum.safetensors", self.dir, self.outer, "cuda")
+        self.times.append(times)
+        self.update = load_file(out)
         self.events.put({"path": out.name, "meta": {"round": meta["round"]}})
 
     @contextmanager
@@ -1042,7 +1024,7 @@ def train_phase() -> dict:
         last_round_mean=sum(last) / len(last), step_ms=step_ms, step_ms_all=steps,
         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, wall_s=wall,
-        update_phase_s=session.update_s, outer_step_s=session.outer_s,
+        update_phase_s=session.update_s, server_s=session.times,
         kernel_launches=launches, **plain, merge_rel_err=session.merge_rel_err,
         profiled_step=prof,
         device_idle_share=(1 - prof["device_busy_ms"] / step_ms) if prof else None,
@@ -1087,25 +1069,63 @@ def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 @contextmanager
-def _file_io_timed(io: dict):
-    """Time ``outer_step``'s SafeTensors reads and writes into ``io``."""
+def _outer_step_timed(parts: dict, device):
+    """Time the parts of ``outer_step`` into ``parts``: its SafeTensors
+    reads and writes, its copies to the device and to the host, and its
+    f64 norms. Each part is timed between two synchronisations of
+    ``device``, so the arithmetic queued before it counts to none of them;
+    ``outer_step``'s time less the parts is that arithmetic and the host's
+    loop."""
     import hypha_tpu_torch.worker.ps_executor as ps
 
     def timed(fn, key):
         def call(*args, **kwargs):
+            _sync(device)
             t0 = time.perf_counter()
             try:
                 return fn(*args, **kwargs)
             finally:
-                io[key] += time.perf_counter() - t0
+                _sync(device)
+                k = key(*args) if callable(key) else key
+                parts[k] = parts.get(k, 0.0) + time.perf_counter() - t0
         return call
 
-    load, save = ps.load_file, ps.save_file
-    ps.load_file, ps.save_file = timed(load, "read_s"), timed(save, "write_s")
+    saved = ps.load_file, ps.save_file, ps._copy, ps._sq_sum
+    ps.load_file, ps.save_file = timed(ps.load_file, "read_s"), timed(ps.save_file, "write_s")
+    ps._copy = timed(ps._copy, lambda t, dev: "to_host_s" if torch.device(dev).type == "cpu"
+                     else "to_device_s")
+    ps._sq_sum = timed(ps._sq_sum, "norms_s")
     try:
-        yield io
+        yield parts
     finally:
-        ps.load_file, ps.save_file = load, save
+        ps.load_file, ps.save_file, ps._copy, ps._sq_sum = saved
+
+
+def ps_round(path: Path, samples: float, round_num: int, momentum: Path, work_dir: Path, outer,
+             device):
+    """The parameter server's round over one worker's Δθ, through the
+    port's own modules on ``device``: fold the file into a ``RoundAccum``,
+    then ``outer_step`` (the update written into ``work_dir``, the momentum
+    file swapped). Returns the update's path, the fold, the step's stats,
+    and the seconds of the fold, of the step and of the step's parts
+    (``_outer_step_timed``)."""
+    from hypha_tpu_torch.stream.accum import RoundAccum
+    from hypha_tpu_torch.worker.ps_executor import outer_step
+
+    _sync(device)
+    t0 = time.perf_counter()
+    accum = RoundAccum(device=device)
+    accum.fold(path, samples)
+    _sync(device)
+    t1 = time.perf_counter()
+    stats: dict = {}
+    times = {"fold_s": t1 - t0}
+    with _outer_step_timed(times, device):
+        out = outer_step({"worker": (path, samples)}, momentum, outer.lr, outer.momentum, work_dir,
+                         round_num, accum=accum, stats=stats, device=device)
+    _sync(device)
+    times["outer_step_s"] = time.perf_counter() - t1
+    return out, accum, stats, times
 
 
 class LocalNode(Scheduler):
@@ -1120,11 +1140,10 @@ class LocalConnector:
     """The parameter server behind the Job Bridge, with the data slices.
 
     ``fetch`` serves the slices in turn (and any other URI) through the
-    port's ``fetch_uri``; ``send`` folds the pushed Δθ into a
-    ``RoundAccum`` on ``device``, runs ``outer_step`` there, holds three
-    tensors of the sum, the update and the momentum against the same on
-    the CPU, bit for bit, and queues the update in the trainer's
-    ``incoming/``; ``receive`` yields the queued updates."""
+    port's ``fetch_uri``; ``send`` runs ``ps_round`` over the pushed Δθ on
+    ``device``, holds three tensors of the sum, the update and the momentum
+    against the same on the CPU, bit for bit, and queues the update in the
+    trainer's ``incoming/``; ``receive`` yields the queued updates."""
 
     def __init__(self, work_dir, server_dir, slices, *, outer, device):
         self.work_dir, self.server_dir = Path(work_dir), Path(server_dir)
@@ -1134,9 +1153,7 @@ class LocalConnector:
         self.momentum = self.server_dir / "momentum.safetensors"
         self.landed: asyncio.Queue = asyncio.Queue()
         self.delta_specs: list = []  # {name: (dtype, shape)} of each Δθ file
-        self.fold_s: list = []
-        self.outer_s: list = []
-        self.outer_io: list = []  # outer_step's momentum read and file writes, s
+        self.times: list = []  # ps_round's seconds, a dict a round
         self.serve_s: list = []
         self.stats: list = []
         self.cpu_mismatch: list = []
@@ -1165,27 +1182,15 @@ class LocalConnector:
 
         t_start = time.perf_counter()
         r, samples = int(meta["round"]), float(meta["num_samples"])
-        lr, mu = self.outer.lr, self.outer.momentum
         self.delta_specs.append({k: (v["dtype"], tuple(v["shape"]))
                                  for k, v in read_header(path)[0].items()})
         check = self.server_dir / "cpu-check"
         check.mkdir(parents=True, exist_ok=True)
         if self.momentum.is_file():  # this round's momentum, for the CPU's step
             save_file(load_file(self.momentum, CHECK_NAMES), check / "momentum.safetensors")
-        _sync(self.device)
-        t0 = time.perf_counter()
-        accum = RoundAccum(device=self.device)
-        accum.fold(path, samples)
-        _sync(self.device)
-        t1 = time.perf_counter()
-        stats: dict = {}
-        with _file_io_timed(io := {"read_s": 0.0, "write_s": 0.0}):
-            out = outer_step({"worker": (path, samples)}, self.momentum, lr, mu, self.server_dir,
-                             r, accum=accum, stats=stats, device=self.device)
-        _sync(self.device)
-        self.fold_s.append(t1 - t0)
-        self.outer_s.append(time.perf_counter() - t1)
-        self.outer_io.append(io)
+        out, accum, stats, times = ps_round(path, samples, r, self.momentum, self.server_dir,
+                                            self.outer, self.device)
+        self.times.append(times)
         self.stats.append(stats)
         card_sum = {k: accum.partial()[k].cpu() for k in CHECK_NAMES}
         del accum
@@ -1193,8 +1198,8 @@ class LocalConnector:
             torch.cuda.empty_cache()  # the trainer process shares the card
         cpu = RoundAccum(device="cpu")
         cpu.fold_tree(load_file(path, CHECK_NAMES), samples)
-        cpu_out = outer_step({"worker": (path, samples)}, check / "momentum.safetensors", lr, mu,
-                             check, r, accum=cpu, device="cpu")
+        cpu_out = outer_step({"worker": (path, samples)}, check / "momentum.safetensors",
+                             self.outer.lr, self.outer.momentum, check, r, accum=cpu, device="cpu")
         pairs = [("sum", card_sum, cpu.partial()),
                  ("update", load_file(out, CHECK_NAMES), load_file(cpu_out)),
                  ("momentum", load_file(self.momentum, CHECK_NAMES),
@@ -1224,8 +1229,10 @@ def serve_bridge(node, connector, work_dir, job_id):
 
     async def timed_status(body, writer):
         t0 = time.perf_counter()
-        await serve_status(body, writer)
-        bridge.status_ms.append((time.perf_counter() - t0) * 1e3)
+        try:
+            await serve_status(body, writer)
+        finally:  # also when stop() cancels the handler after its answer went out
+            bridge.status_ms.append((time.perf_counter() - t0) * 1e3)
 
     bridge._status = timed_status
     try:
@@ -1238,21 +1245,6 @@ def serve_bridge(node, connector, work_dir, job_id):
             loop.call_soon_threadsafe(loop.stop)
             thread.join(30)
             loop.close()
-
-
-def _compute_apps() -> list:
-    """``(pid, MiB)`` of each process on the card as ``nvidia-smi`` lists
-    them (a container's pid namespace may hide the real pids)."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=30,
-    )
-    apps = []
-    for line in out.stdout.splitlines():
-        pid, _, mib = line.partition(",")
-        if mib.strip().isdigit():
-            apps.append((pid.strip(), int(mib)))
-    return apps
 
 
 def run_train_cli(spec, slices, root: Path, *, device, rounds, steps, child_args=(),
@@ -1276,7 +1268,6 @@ def run_train_cli(spec, slices, root: Path, *, device, rounds, steps, child_args
     log_path = root / "trainer.log"
     repo = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [repo, os.environ.get("PYTHONPATH")]))}
-    mem: list = []  # every nvidia-smi sample while the trainer runs
     with serve_bridge(node, conn, work, spec.job_id) as bridge, open(log_path, "wb") as log:
         t0 = time.perf_counter()
         child = subprocess.Popen(
@@ -1285,27 +1276,17 @@ def run_train_cli(spec, slices, root: Path, *, device, rounds, steps, child_args
             stdout=log, stderr=subprocess.STDOUT, cwd=work, env=env,
         )
         try:
-            while True:
-                try:
-                    child.wait(timeout=2)
-                    break
-                except subprocess.TimeoutExpired:
-                    if time.perf_counter() - t0 > limit_s:
-                        break
-                if torch.device(device).type == "cuda":
-                    mem.append(_compute_apps())
+            rc = child.wait(timeout=limit_s)
+        except subprocess.TimeoutExpired:
+            rc = None  # cut at the limit
         finally:
             if child.poll() is None:
                 child.kill()
                 child.wait()
-                rc = None  # cut at the limit
-            else:
-                rc = child.returncode
         wall = time.perf_counter() - t0
-        status_ms = list(bridge.status_ms)
     incoming = work / "incoming"
-    return dict(rc=rc, wall_s=wall, node=node, conn=conn, status_ms=status_ms, expect=expect,
-                log=log_path.read_text(errors="replace"), child_pid=str(child.pid), mem_samples=mem,
+    return dict(rc=rc, wall_s=wall, node=node, conn=conn, status_ms=bridge.status_ms, expect=expect,
+                log=log_path.read_text(errors="replace"),
                 first_beat_s=(node.marks[0][1] - t0) if node.marks else None,
                 leftover=sorted(p.name for p in incoming.iterdir()) if incoming.is_dir() else [])
 
@@ -1323,7 +1304,7 @@ def train_cli_phase(train: dict) -> dict:
                             steps=TRAIN_STEPS)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    node, conn, log, mems = run["node"], run["conn"], run["log"], run["mem_samples"]
+    node, conn, log = run["node"], run["conn"], run["log"]
     steps = node.step_ms()
     step_ms = statistics.median(steps) if steps else None
     losses = [m.get("loss") for _, m in node.metrics]
@@ -1335,21 +1316,15 @@ def train_cli_phase(train: dict) -> dict:
         trainer_exit=run["rc"], trainer_wall_s=run["wall_s"], rounds=node.done,
         heartbeats=len(node.marks), losses=losses, step_ms=step_ms, step_ms_all=steps,
         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3) if step_ms else None,
-        round_boundary_s=node.update_s, fold_s=conn.fold_s, outer_step_s=conn.outer_s,
-        outer_step_file_io_s=conn.outer_io,
+        round_boundary_s=node.update_s, server_s=conn.times,
         server_round_s=conn.serve_s, outer_stats=conn.stats,
         status_serve_ms_median=statistics.median(run["status_ms"]) if run["status_ms"] else None,
         status_requests=len(run["status_ms"]),
         start_to_first_heartbeat_s=run["first_beat_s"], attention_launches=launches,
         trainer_peak_gib=float(peak.group(1)) if peak else None,
-        trainer_pid=run["child_pid"],
-        device_mib_max={"largest_process": max((m for smp in mems for _, m in smp), default=None),
-                        "all_processes": max((sum(m for _, m in smp) for smp in mems), default=None),
-                        "pids_listed": sorted({p for smp in mems for p, _ in smp}),
-                        "samples": len(mems)},
         cpu_check=list(CHECK_NAMES), cpu_mismatch=conn.cpu_mismatch, leftover_updates=run["leftover"],
         train_phase={k: train[k] for k in ("step_ms", "tokens_per_s", "update_phase_s",
-                                           "outer_step_s", "peak_mem_gib")},
+                                           "server_s", "peak_mem_gib")},
     )
     want = {"fwd": 2 * TRAIN_LAYERS * steps_total, "dq": TRAIN_LAYERS * steps_total,
             "dkv": TRAIN_LAYERS * steps_total, "flash_plain": 0, "dense": 0}

@@ -83,7 +83,6 @@ class Bridge:
         scheduler_peer: str,
         connector=None,
         status_retry_s: float = 0.0,
-        progress_probe=None,
     ) -> None:
         if connector is None:
             raise NotImplementedError(
@@ -99,8 +98,6 @@ class Bridge:
         self.work_dir = Path(work_dir)
         self.job_id = job_id
         self.scheduler_peer = scheduler_peer
-        # Snoops every Progress on its way to the scheduler.
-        self.progress_probe = progress_probe
         self.connector = connector
         self.socket_path = self.work_dir / "bridge.sock"
         self._server: "asyncio.base_events.Server | None" = None
@@ -317,8 +314,6 @@ class Bridge:
             await self._respond(writer, 400, {"error": "body.progress must be Progress"})
             return
         progress.job_id = progress.job_id or self.job_id
-        if self.progress_probe is not None:
-            self.progress_probe(progress)
         response = await self.node.request(
             self.scheduler_peer, PROTOCOL_PROGRESS, progress, timeout=30
         )

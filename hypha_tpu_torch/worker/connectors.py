@@ -81,12 +81,7 @@ def fetch_uri(uri: str, dest_dir: Path) -> Path:
 
 
 class Connector:
-    """Routes Reference variants to transports. ``node`` and
-    ``scheduler_peer`` are kept for the routes that will need them."""
-
-    def __init__(self, node=None, scheduler_peer: str = "") -> None:
-        self.node = node
-        self.scheduler_peer = scheduler_peer
+    """Routes Reference variants to transports."""
 
     async def fetch(self, fetch: Fetch, dest_dir: Path) -> list:
         ref = fetch.ref

@@ -39,6 +39,17 @@ from ..stream.accum import RoundAccum
 __all__ = ["outer_step"]
 
 
+def _copy(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` in f32 on ``device``: a momentum tensor on its way to the
+    device, or a result on its way back to the host."""
+    return t.to(device, torch.float32)
+
+
+def _sq_sum(t: torch.Tensor) -> float:
+    """Σ t², accumulated in f64 as the reference's norms are."""
+    return float(torch.sum(torch.square(t.double())))
+
+
 def outer_step(
     received: dict,
     momentum_file: Path,
@@ -78,14 +89,14 @@ def outer_step(
             # A short tensor from a faulty worker must fail here.
             raise ValueError(f"delta {key!r}: size {g.numel()} != momentum {m.numel()}")
         else:
-            m = m.to(g.device, torch.float32).reshape(g.shape)
+            m = _copy(m, g.device).reshape(g.shape)
         new_m = torch.mul(m, mu).add_(g)
         upd = torch.mul(new_m, mu).add_(g).mul_(lr)
         if stats is not None:
-            g_sq += float(torch.sum(torch.square(g.double())))
-            u_sq += float(torch.sum(torch.square(upd.double())))
-        momentum[key] = new_m.cpu()
-        update[key] = upd.cpu()
+            g_sq += _sq_sum(g)
+            u_sq += _sq_sum(upd)
+        momentum[key] = _copy(new_m, "cpu")
+        update[key] = _copy(upd, "cpu")
         del g, m, new_m, upd
     if stats is not None:
         stats["delta_norm"] = math.sqrt(g_sq)
