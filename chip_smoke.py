@@ -48,7 +48,8 @@ Phases, each printing one JSON line:
    and exact merges; step time, tokens/s, peak memory and the kernels'
    device time per step from the profiler, where one step must show each
    bf16 tensor-core flash kernel with its launches (16 / 8 / 8);
-10. train_cli — the same training as a process of its own: ``python -m
+10. train_cli — the same training cut to 2 layers (``CLI_LAYERS``) as a
+   process of its own: ``python -m
    hypha_tpu_torch.executor.training`` (no ``--device``: it runs on the
    card) behind the port's Job Bridge (``worker/bridge.py``) on a unix
    socket, with two stand-ins for the scheduler (``LocalNode``) and for
@@ -60,7 +61,21 @@ Phases, each printing one JSON line:
    boundary, the fold and the outer step (its file I/O, copies and norms
    timed apart), the bridge's time per ``/status/send``, the trainer's
    start-up and peak device memory (its log) beside the ``train`` phase's;
-11. train_reference — a tiny Llama (head_dim 64), and the same with a
+11. train_node — the ``train`` phase's job at its full 8 layers, run by
+   the port's own fabric (``run_node_job``) on ``TcpTransport`` at
+   127.0.0.1: a ``Gateway``, a ``DataNode`` serving the slices, a
+   ``WorkerNode`` ``w0`` whose process executor runs the trainer CLI on
+   the card, a ``WorkerNode`` ``psw`` whose ``ParameterServerExecutor``
+   folds and steps on the card, and ``StandInScheduler`` (the scheduler is
+   not ported) auctioning both, dispatching both jobs, assigning slices
+   and answering progress; gates on both jobs completing, rounds,
+   heartbeats, the server's ``UPDATED``, falling losses, 128 / 64 / 64
+   flash launches and no plain call (the trainer's log), each received
+   Δθ's flat f32 names and shapes, and no file left behind; step ms,
+   tokens/s, the round boundary, each Δθ push and broadcast with its
+   bytes, the fold and ``outer_step`` seconds, auction to dispatch, start
+   to first heartbeat and the trainer's peak memory;
+12. train_reference — a tiny Llama (head_dim 64), and the same with a
    sliding window below its sequence (Mistral's local attention), each
    trained 4 steps through the kernels and through the plain flash version
    from the same weights, with no call of the dense attention.
@@ -930,9 +945,10 @@ def write_slices(work_dir, *, n_slices, per_slice, seq, period, seed) -> list:
     return paths
 
 
-def train_spec(job_id: str, model: dict, *, batch: int, lr: float):
-    """A DiLoCo train job: slices from ``file:///slices`` (the stand-ins
-    serve them in turn), deltas to and updates from peer ``ps``."""
+def train_spec(job_id: str, model: dict, *, batch: int, lr: float, data=None, ps: str = "ps"):
+    """A DiLoCo train job: slices from ``data`` (default ``file:///slices``,
+    which the stand-ins serve in turn), deltas to and updates from peer
+    ``ps``."""
     from hypha_tpu_torch.messages import (
         Adam,
         Executor,
@@ -947,9 +963,9 @@ def train_spec(job_id: str, model: dict, *, batch: int, lr: float):
     return JobSpec(job_id=job_id, executor=Executor(
         kind="train", name="diloco-transformer", train=TrainExecutorConfig(
             model=model,
-            data=Fetch(Reference.from_uri("file:///slices")),
-            updates=Send(Reference.from_peers(["ps"], "updates")),
-            results=Receive(Reference.from_peers(["ps"], "results")),
+            data=data or Fetch(Reference.from_uri("file:///slices")),
+            updates=Send(Reference.from_peers([ps], "updates")),
+            results=Receive(Reference.from_peers([ps], "results")),
             optimizer=Adam(lr=lr), batch_size=batch,
         )))
 
@@ -1054,6 +1070,8 @@ def train_phase() -> dict:
 # ----------------------------------------------------------- train_cli phase
 
 CLI_LIMIT_S = 600  # the trainer process must exit within this
+CLI_LAYERS = 2  # train_cli's depth: train_node runs the full 8 layers through the fabric
+CLI_MODEL = {**TRAIN_MODEL, "config": {**TRAIN_MODEL["config"], "num_layers": CLI_LAYERS}}
 # Tensors whose fold and outer step on the card are held against the CPU's.
 CHECK_NAMES = ("params/embed_tokens", "params/layers_0/self_attn/q_proj/kernel",
                "params/norm/weight")
@@ -1247,6 +1265,15 @@ def serve_bridge(node, connector, work_dir, job_id):
             loop.close()
 
 
+def flat_f32_spec(model: dict) -> dict:
+    """``{flat name: ("F32", shape)}`` of a model config's Δθ file."""
+    from hypha_tpu_torch.models.convert import state_to_flat
+    from hypha_tpu_torch.models.registry import build_model
+
+    shapes, _ = build_model(model, device="meta")
+    return {k: ("F32", tuple(v.shape)) for k, v in state_to_flat(shapes, shapes.state_dict()).items()}
+
+
 def run_train_cli(spec, slices, root: Path, *, device, rounds, steps, child_args=(),
                   limit_s=CLI_LIMIT_S) -> dict:
     """Start ``python -m hypha_tpu_torch.executor.training`` as a process
@@ -1254,13 +1281,10 @@ def run_train_cli(spec, slices, root: Path, *, device, rounds, steps, child_args
     ``LocalConnector`` standing in for the scheduler, the parameter server
     and the network, and collect what they saw."""
     from hypha_tpu_torch.messages import Nesterov, to_json_dict
-    from hypha_tpu_torch.models.convert import state_to_flat
-    from hypha_tpu_torch.models.registry import build_model
 
     work, server = root / "work", root / "ps"
     server.mkdir(parents=True, exist_ok=True)
-    shapes, _ = build_model(spec.executor.train.model, device="meta")
-    expect = {k: ("F32", tuple(v.shape)) for k, v in state_to_flat(shapes, shapes.state_dict()).items()}
+    expect = flat_f32_spec(spec.executor.train.model)
     node = LocalNode(rounds=rounds, steps=steps)
     conn = LocalConnector(work, server, slices, outer=Nesterov(), device=device)
     job = root / "job.json"
@@ -1293,13 +1317,15 @@ def run_train_cli(spec, slices, root: Path, *, device, rounds, steps, child_args
 
 def train_cli_phase(train: dict) -> dict:
     """The trainer as a process of its own behind the port's Job Bridge, at
-    the ``train`` phase's configuration, on the card."""
+    the ``train`` phase's widths cut to ``CLI_LAYERS`` layers, on the card;
+    its parameter-server stand-in holds the card's fold, update and
+    momentum bit for bit against the CPU's."""
     root = Path(tempfile.mkdtemp(prefix="chip-smoke-cli-"))
     try:
         steps_total = TRAIN_ROUNDS * TRAIN_STEPS
         slices = write_slices(root, n_slices=2, per_slice=steps_total * TRAIN_BATCH // 2,
                               seq=TRAIN_SEQ, period=TRAIN_PERIOD, seed=5)
-        spec = train_spec("chip-smoke-train-cli", TRAIN_MODEL, batch=TRAIN_BATCH, lr=3e-4)
+        spec = train_spec("chip-smoke-train-cli", CLI_MODEL, batch=TRAIN_BATCH, lr=3e-4)
         run = run_train_cli(spec, slices, root, device="cuda", rounds=TRAIN_ROUNDS,
                             steps=TRAIN_STEPS)
     finally:
@@ -1312,7 +1338,7 @@ def train_cli_phase(train: dict) -> dict:
     launches = json.loads(found.group(1)) if found else None
     peak = re.search(r"peak device memory: ([\d.]+) GiB", log)
     res = dict(
-        model="llama2-7b", layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+        model="llama2-7b", layers=CLI_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
         trainer_exit=run["rc"], trainer_wall_s=run["wall_s"], rounds=node.done,
         heartbeats=len(node.marks), losses=losses, step_ms=step_ms, step_ms_all=steps,
         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3) if step_ms else None,
@@ -1326,8 +1352,8 @@ def train_cli_phase(train: dict) -> dict:
         train_phase={k: train[k] for k in ("step_ms", "tokens_per_s", "update_phase_s",
                                            "server_s", "peak_mem_gib")},
     )
-    want = {"fwd": 2 * TRAIN_LAYERS * steps_total, "dq": TRAIN_LAYERS * steps_total,
-            "dkv": TRAIN_LAYERS * steps_total, "flash_plain": 0, "dense": 0}
+    want = {"fwd": 2 * CLI_LAYERS * steps_total, "dq": CLI_LAYERS * steps_total,
+            "dkv": CLI_LAYERS * steps_total, "flash_plain": 0, "dense": 0}
     problems = []
     if run["rc"] != 0:
         problems.append(f"trainer exit code {run['rc']} (None: cut at {CLI_LIMIT_S} s)")
@@ -1351,6 +1377,431 @@ def train_cli_phase(train: dict) -> dict:
     if problems:
         emit({"phase": "train_cli", **res, "problems": problems, "trainer_log_tail": log[-4000:]})
         raise SystemExit("train_cli phase failed: " + "; ".join(problems))
+    return res
+
+
+# ---------------------------------------------------------- train_node phase
+
+NODE_DATASET = "counting"
+
+
+class StandInScheduler:
+    """The scheduler's side of the protocols on a port ``Node``, for train
+    workers and one parameter server (the scheduler itself is not ported):
+    the auction (a ``RequestWorker`` on ``TOPIC_WORKER``, the first fitting
+    ``WorkerOffer`` taken and accepted with ``RenewLease``), lease renewals
+    at 2/3 of the granted time until ``release``, ``DispatchJob``, slice
+    assignment (``DataRequest`` -> the data node's slices in turn), the
+    workers' ``JobStatus``, and the progress protocol: each train worker's
+    as a ``Scheduler`` of its own answers it (``workers[peer]``), the
+    parameter server's ``UPDATED`` closing its job after the last round."""
+
+    def __init__(self, node, *, rounds, steps):
+        self.rounds, self.steps = rounds, steps
+        self.node = node
+        self.workers: dict = {}  # train worker peer -> its Scheduler
+        self.offers: dict = {}  # request id -> queue of WorkerOffer
+        self.statuses: dict = {}  # job id -> states in arrival order
+        self.updated: list = []  # rounds of the parameter server's UPDATED
+        self.renew_failures: list = []
+        self.data = None  # (provider peer, dataset, number of slices)
+        self.assigned = 0
+        self._changed = asyncio.Event()
+        self._renewers: list = []
+        self._regs: list = []
+
+    def start(self):
+        from hypha_tpu_torch.messages import (
+            PROTOCOL_API,
+            PROTOCOL_PROGRESS,
+            DataRequest,
+            JobStatus,
+            Progress,
+            WorkerOffer,
+        )
+
+        on = self.node.on
+        self._regs = [on(PROTOCOL_API, WorkerOffer).respond_with(self._on_offer),
+                      on(PROTOCOL_API, JobStatus).respond_with(self._on_status),
+                      on(PROTOCOL_API, DataRequest).respond_with(self._on_data),
+                      on(PROTOCOL_PROGRESS, Progress).respond_with(self._on_progress)]
+
+    async def find_dataset(self, dataset):
+        """The data node providing ``dataset`` and its slice count, from the
+        gateway's registry."""
+        from hypha_tpu_torch import messages
+
+        providers = await self.node.find_providers(dataset)
+        record = messages.decode(await self.node.get_record(dataset))
+        self.data = (providers[0], dataset, record.num_slices)
+        return self.data
+
+    async def _on_offer(self, peer, offer):
+        from hypha_tpu_torch.messages import Ack
+
+        offers = self.offers.get(offer.request_id)
+        if offers is None or peer != offer.peer_id:
+            return Ack(ok=False, message="no such request")
+        offers.put_nowait(offer)
+        return Ack()
+
+    async def _on_status(self, peer, status):
+        from hypha_tpu_torch.messages import Ack
+
+        self.statuses.setdefault(status.job_id, []).append(status.state)
+        self._changed.set()
+        return Ack()
+
+    async def _on_data(self, peer, request):
+        from hypha_tpu_torch.messages import DataResponse
+
+        provider, dataset, n = self.data
+        if request.dataset != dataset:
+            raise ValueError(f"unknown dataset {request.dataset!r}")
+        index = self.assigned % n
+        self.assigned += 1
+        return DataResponse(data_provider=provider, index=index)
+
+    async def _on_progress(self, peer, progress):
+        from hypha_tpu_torch.messages import ProgressKind, ProgressResponse, ProgressResponseKind
+
+        if progress.kind == ProgressKind.UPDATED:
+            self.updated.append(progress.round)
+            last = progress.round >= self.rounds - 1
+            return ProgressResponse(kind=ProgressResponseKind.DONE if last else ProgressResponseKind.OK)
+        return self.workers[peer].answer(progress)
+
+    async def auction(self, spec, *, bid=1.0, avoid=(), timeout=30.0):
+        """Publish ``spec`` and accept the first offer from a peer not in
+        ``avoid``: its first renewal, inside the offer's lease, is the
+        acceptance. Returns the offer."""
+        from hypha_tpu_torch.messages import PROTOCOL_API, TOPIC_WORKER, RenewLease, RequestWorker
+
+        request = RequestWorker(spec=spec, bid=bid, reply_to=self.node.peer_id)
+        offers = self.offers[request.id] = asyncio.Queue()
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + timeout
+        try:
+            while True:
+                # Re-advertise until someone answers: a worker joins the
+                # gossip mesh when it registers with the gateway.
+                await self.node.publish(TOPIC_WORKER, request)
+                try:
+                    offer = await asyncio.wait_for(offers.get(), 1.0)
+                except asyncio.TimeoutError:
+                    if loop.time() > deadline:
+                        raise RuntimeError(f"no offer for {spec} in {timeout} s") from None
+                    continue
+                if offer.peer_id in avoid:
+                    continue
+                granted = await self.node.request(offer.peer_id, PROTOCOL_API,
+                                                  RenewLease(lease_id=offer.lease_id), timeout=5.0)
+                self._renewers.append(asyncio.create_task(
+                    self._renew(offer.peer_id, offer.lease_id, granted.timeout)))
+                return offer
+        finally:
+            del self.offers[request.id]
+
+    async def _renew(self, peer, lease_id, timeout):
+        from hypha_tpu_torch.messages import PROTOCOL_API, RenewLease
+
+        while True:
+            await asyncio.sleep(timeout * 2 / 3)
+            try:
+                resp = await self.node.request(peer, PROTOCOL_API, RenewLease(lease_id=lease_id),
+                                               timeout=5.0)
+                timeout = resp.timeout
+            except Exception as e:  # noted; the phase fails on it
+                self.renew_failures.append(f"{peer}: {e}")
+
+    async def dispatch(self, offer, spec):
+        from hypha_tpu_torch.messages import PROTOCOL_API, DispatchJob
+
+        if spec.executor.kind == "train":
+            self.workers[offer.peer_id] = Scheduler(rounds=self.rounds, steps=self.steps)
+        resp = await self.node.request(offer.peer_id, PROTOCOL_API,
+                                       DispatchJob(lease_id=offer.lease_id, spec=spec), timeout=30.0)
+        if not resp.accepted:
+            raise RuntimeError(f"{offer.peer_id} rejected {spec.job_id}: {resp.message}")
+
+    async def wait_jobs(self, job_ids, limit_s):
+        """Wait until every job reported a final state; False at ``limit_s``."""
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + limit_s
+        final = {"completed", "failed", "cancelled"}
+        while not all(final & set(self.statuses.get(j, [])) for j in job_ids):
+            self._changed.clear()
+            try:
+                await asyncio.wait_for(self._changed.wait(), max(deadline - loop.time(), 0.0))
+            except asyncio.TimeoutError:
+                return False
+        return True
+
+    async def release(self):
+        for task in self._renewers:
+            task.cancel()
+        await asyncio.gather(*self._renewers, return_exceptions=True)
+        for reg in self._regs:
+            reg.close()
+
+
+@contextmanager
+def node_probes(device):
+    """Measure the fabric's training rounds from inside the port's modules:
+    each Δθ the parameter server saves (its header's names, dtypes and
+    shapes, its bytes and the seconds from the push's header to the saved
+    file), each fold and outer step (between two synchronisations of
+    ``device``), each broadcast, each Δθ push a worker's connector makes,
+    and the worker's log lines (the trainer process's output)."""
+    import logging
+
+    from hypha_tpu_torch.executor.serialization import read_header
+    from hypha_tpu_torch.stream.accum import RoundAccum
+    from hypha_tpu_torch.worker import ps_executor
+    from hypha_tpu_torch.worker.connectors import Connector
+
+    rec = {"deltas": [], "fold_s": [], "outer_step_s": [], "broadcast": [], "push": [], "log": []}
+    PS = ps_executor.ParameterServerExecutor
+    saved = (PS._save_delta, ps_executor.outer_step, RoundAccum.fold, PS._broadcast, Connector.send)
+    save_delta, outer, fold, broadcast, send = saved
+
+    async def timed_save(push, work_dir, round_num):
+        t0 = time.perf_counter()
+        path, samples = await save_delta(push, work_dir, round_num)
+        rec["deltas"].append({"round": round_num, "from": push.peer, "s": time.perf_counter() - t0,
+                              "bytes": path.stat().st_size,
+                              "tensors": {k: (v["dtype"], tuple(v["shape"]))
+                                          for k, v in read_header(path)[0].items()}})
+        return path, samples
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            _sync(device)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _sync(device)
+                rec[key].append(time.perf_counter() - t0)
+        return call
+
+    async def timed_broadcast(self, cfg, update_path, round_num):
+        size, t0 = update_path.stat().st_size, time.perf_counter()
+        await broadcast(self, cfg, update_path, round_num)
+        rec["broadcast"].append({"round": round_num, "s": time.perf_counter() - t0, "bytes": size})
+
+    async def timed_send(self, send_, path, resource, meta=None):
+        size, t0 = Path(path).stat().st_size, time.perf_counter()
+        await send(self, send_, path, resource, meta)
+        rec["push"].append({"round": (meta or {}).get("round"), "s": time.perf_counter() - t0,
+                            "bytes": size})
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            rec["log"].append(record.getMessage())
+
+    logger = logging.getLogger("hypha.torch.worker.process")
+    handler, level = Lines(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    PS._save_delta = staticmethod(timed_save)
+    ps_executor.outer_step = timed(outer, "outer_step_s")
+    RoundAccum.fold = timed(fold, "fold_s")
+    PS._broadcast, Connector.send = timed_broadcast, timed_send
+    try:
+        yield rec
+    finally:
+        PS._save_delta = staticmethod(save_delta)
+        ps_executor.outer_step, RoundAccum.fold, PS._broadcast, Connector.send = saved[1:]
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch, seq, period,
+                       lr=3e-4, limit_s=CLI_LIMIT_S, workers=1, train_runtime="process") -> dict:
+    """The whole fabric of the port on ``TcpTransport`` at 127.0.0.1 with
+    ephemeral ports: a ``Gateway``, a ``DataNode`` serving counting-sequence
+    slices as dataset ``counting``, ``workers`` ``WorkerNode``s ``w0``,
+    ``w1``, ... (gpu 1 each; by default the trainer CLI as a process of its
+    own), a ``WorkerNode`` ``psw`` (gpu 0, so never a train worker) hosting
+    the parameter server, everything on ``device``, and
+    ``StandInScheduler`` on a ``Node``: an auction for each, the
+    dispatches, ``rounds`` rounds of ``steps`` inner steps. Returns what the
+    stand-in and ``node_probes`` saw. ``root`` must be short: a trainer's
+    bridge socket lives three levels below it."""
+    from hypha_tpu_torch.data_node import DataNode
+    from hypha_tpu_torch.gateway import Gateway
+    from hypha_tpu_torch.messages import (
+        AggregateExecutorConfig,
+        Executor,
+        ExecutorDescriptor,
+        Fetch,
+        JobSpec,
+        Nesterov,
+        Receive,
+        Reference,
+        Send,
+        WorkerSpec,
+    )
+    from hypha_tpu_torch.network import Node, TcpTransport
+    from hypha_tpu_torch.resources import Resources
+    from hypha_tpu_torch.worker.runtime import WorkerNode
+
+    data_dir = root / "data"
+    data_dir.mkdir(parents=True)
+    write_slices(data_dir, n_slices=2, per_slice=rounds * steps * batch // 2, seq=seq,
+                 period=period, seed=5)
+    listen = ["127.0.0.1:0"]
+    gw = Gateway(TcpTransport(), peer_id="gw")
+    await gw.start(listen)
+    boot = [gw.node.listen_addrs[0]]
+    data = DataNode(TcpTransport(), {NODE_DATASET: data_dir}, peer_id="data", bootstrap=boot)
+    trainers = [WorkerNode(TcpTransport(), resources=Resources(gpu=1, cpu=8, memory=65536),
+                           device=device, peer_id=f"w{i}", train_runtime=train_runtime,
+                           bootstrap=boot, work_root=root / f"w{i}") for i in range(workers)]
+    psw = WorkerNode(TcpTransport(), resources=Resources(cpu=8, memory=65536), device=device,
+                     peer_id="psw", bootstrap=boot, work_root=root / "ps")
+    node = Node(TcpTransport(), peer_id="sched", bootstrap=boot)
+    sched = StandInScheduler(node, rounds=rounds, steps=steps)
+    started: list = []
+    with node_probes(device) as rec:
+        try:
+            for part in (data, *trainers, psw, node):
+                await part.start(listen)
+                started.append(part)
+            await node.wait_for_bootstrap()
+            sched.start()
+            await sched.find_dataset(NODE_DATASET)
+            t_auction = time.perf_counter()
+            train_offers: list = []
+            for _ in range(workers):
+                train_offers.append(await sched.auction(WorkerSpec(
+                    resources=Resources(gpu=1, cpu=1, memory=1024),
+                    executor=[ExecutorDescriptor("train", "diloco-transformer")]),
+                    avoid={o.peer_id for o in train_offers}))
+            ps_offer = await sched.auction(WorkerSpec(
+                resources=Resources(cpu=1, memory=1024),
+                executor=[ExecutorDescriptor("aggregate", "parameter-server")]),
+                avoid={o.peer_id for o in train_offers})
+            peers = [o.peer_id for o in train_offers]
+            agg = JobSpec(job_id="node-agg", executor=Executor(
+                kind="aggregate", name="parameter-server", aggregate=AggregateExecutorConfig(
+                    updates=Receive(Reference.from_peers(peers, "updates")),
+                    results=Send(Reference.from_peers(peers, "results")),
+                    optimizer=Nesterov(lr=0.7, momentum=0.9), num_workers=workers)))
+            await sched.dispatch(ps_offer, agg)
+            jobs = {"aggregate": agg.job_id}
+            for i, offer in enumerate(train_offers):
+                spec = train_spec(f"node-train-{i}", model, batch=batch, lr=lr, ps=ps_offer.peer_id,
+                                  data=Fetch(Reference.from_scheduler(node.peer_id, NODE_DATASET)))
+                await sched.dispatch(offer, spec)
+                jobs[offer.peer_id] = spec.job_id
+            t_dispatch = time.perf_counter()
+            finished = await sched.wait_jobs(list(jobs.values()), limit_s)
+        finally:
+            await sched.release()
+            for part in reversed(started):
+                await part.stop()
+            await gw.stop()
+    # The parameter server clears its work dir in a thread as its job ends.
+    leftover: list = []
+    for _ in range(300):
+        leftover = sorted(str(p.relative_to(root)) for p in root.rglob("*")
+                          if p.is_file() and not p.is_relative_to(data_dir))
+        if not leftover:
+            break
+        await asyncio.sleep(0.1)
+    beats = [w.marks[0][1] for w in sched.workers.values() if w.marks]
+    return dict(sched=sched, rec=rec, finished=finished, workers=peers, ps=ps_offer.peer_id,
+                jobs={who: sched.statuses.get(job, []) for who, job in jobs.items()},
+                auction_to_dispatch_s=t_dispatch - t_auction,
+                first_beat_s=(min(beats) - t_dispatch) if beats else None,
+                leftover=leftover)
+
+
+def node_problems(run: dict, *, rounds: int, steps: int, expect: dict) -> list:
+    """The gates the port's fabric must pass, on the CPU as on the card:
+    every job completed (each trainer exited 0 in time), each worker's
+    rounds and heartbeats, the parameter server's UPDATED for each round,
+    each worker's finite round losses with the last below the first, each
+    Δθ the server received in the config's flat f32 names and shapes, no
+    failed lease renewal and no file left behind."""
+    sched, rec = run["sched"], run["rec"]
+    problems = []
+    if not run["finished"] or any(s != ["running", "completed"] for s in run["jobs"].values()):
+        problems.append(f"job states {run['jobs']} (a trainer must exit 0 in time)")
+    for peer, w in sched.workers.items():
+        losses = [m.get("loss") for _, m in w.metrics]
+        if w.done != rounds or len(w.marks) != rounds * steps:
+            problems.append(f"{peer}: {w.done} rounds and {len(w.marks)} heartbeats, wanted "
+                            f"{rounds} and {rounds * steps}")
+        if (len(losses) != rounds or None in losses
+                or not torch.isfinite(torch.tensor(losses, dtype=torch.float64)).all()
+                or not losses[-1] < losses[0]):
+            problems.append(f"{peer}: round losses {losses}: not finite, or the last not below "
+                            "the first")
+    if sched.updated != list(range(rounds)):
+        problems.append(f"the parameter server's UPDATED rounds {sched.updated}")
+    bad = [i for i, d in enumerate(rec["deltas"]) if d["tensors"] != expect]
+    if len(rec["deltas"]) != rounds * len(sched.workers) or bad:
+        problems.append(f"Δθ files {bad} of {len(rec['deltas'])} differ from the config's flat "
+                        "f32 names and shapes")
+    if sched.renew_failures:
+        problems.append(f"lease renewals failed: {sched.renew_failures}")
+    if run["leftover"]:
+        problems.append(f"files left behind: {run['leftover']}")
+    return problems
+
+
+def train_node_phase(train: dict) -> dict:
+    """The ``train`` phase's job run by the port's own nodes: auction,
+    dispatch, slice pulls from the data node, Δθ and the update over push
+    streams, the parameter server's fold and Nesterov step on the card."""
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-node-"))
+    try:
+        run = asyncio.run(run_node_job(root, TRAIN_MODEL, device="cuda", rounds=TRAIN_ROUNDS,
+                                       steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                       period=TRAIN_PERIOD))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec, (w,) = run["rec"], run["sched"].workers.values()
+    log = "\n".join(rec["log"])
+    steps_total = TRAIN_ROUNDS * TRAIN_STEPS
+    steps = w.step_ms()
+    step_ms = statistics.median(steps) if steps else None
+    found = re.search(r"attention launches: (\{.*\})", log)
+    launches = json.loads(found.group(1)) if found else None
+    peak = re.search(r"peak device memory: ([\d.]+) GiB", log)
+
+    def rates(xs):
+        return [x["bytes"] / x["s"] / 1e6 for x in xs]
+
+    res = dict(
+        model="llama2-7b", layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+        workers={"train": run["workers"], "parameter_server": run["ps"]},
+        jobs=run["jobs"], rounds=w.done, heartbeats=len(w.marks), updated=run["sched"].updated,
+        losses=[m.get("loss") for _, m in w.metrics], step_ms=step_ms, step_ms_all=steps,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3) if step_ms else None,
+        round_boundary_s=w.update_s,
+        delta_push=rec["push"], delta_push_mb_per_s=rates(rec["push"]),
+        delta_received=[{k: d[k] for k in ("round", "from", "s", "bytes")} for d in rec["deltas"]],
+        broadcast=rec["broadcast"], broadcast_mb_per_s=rates(rec["broadcast"]),
+        fold_s=rec["fold_s"], outer_step_s=rec["outer_step_s"],
+        auction_to_dispatch_s=run["auction_to_dispatch_s"],
+        start_to_first_heartbeat_s=run["first_beat_s"], attention_launches=launches,
+        trainer_peak_gib=float(peak.group(1)) if peak else None,
+        slices_assigned=run["sched"].assigned, leftover_files=run["leftover"],
+        train_phase={k: train[k] for k in ("step_ms", "tokens_per_s", "update_phase_s", "peak_mem_gib")},
+    )
+    want = {"fwd": 2 * TRAIN_LAYERS * steps_total, "dq": TRAIN_LAYERS * steps_total,
+            "dkv": TRAIN_LAYERS * steps_total, "flash_plain": 0, "dense": 0}
+    problems = node_problems(run, rounds=TRAIN_ROUNDS, steps=TRAIN_STEPS,
+                             expect=flat_f32_spec(TRAIN_MODEL))
+    if "attention path: flash kernels" not in log or launches != want:
+        problems.append(f"attention launches {launches}, wanted {want} through the flash kernels")
+    if problems:
+        emit({"phase": "train_node", **res, "problems": problems, "worker_log_tail": log[-4000:]})
+        raise SystemExit("train_node phase failed: " + "; ".join(problems))
     return res
 
 
@@ -1460,6 +1911,7 @@ def main() -> int:
     train = train_phase()
     emit({"phase": "train", **train})
     emit({"phase": "train_cli", **train_cli_phase(train)})
+    emit({"phase": "train_node", **train_node_phase(train)})
     emit({"phase": "train_reference", **train_reference_phase()})
 
     dec, pre = kern["timing"]["decode_bf16"], kern["timing"]["prefill64_bf16"]

@@ -1,8 +1,10 @@
 """Asyncio task lifecycle helpers (a copy of the subset of
-``hypha_tpu/aio.py`` that the Job Bridge uses: ``spawn``, ``reap`` and
-``wait_quiet``). The reference's task-failure counter belongs to its
-telemetry, which is not ported (ROADMAP.md, Queue 1: telemetry); a failed
-background task is logged here and nothing more.
+``hypha_tpu/aio.py`` that the fabric, the worker runtime and the Job
+Bridge use: ``spawn``, ``reap``, ``wait_quiet`` and ``retry``). The
+reference's task-failure and retry counters and its flight-recorder
+breadcrumbs belong to its telemetry, which is not ported (ROADMAP.md,
+Queue 1: telemetry); a failed background task or a retried attempt is
+logged here and nothing more.
 
 ``asyncio.gather(..., return_exceptions=True)`` is the primitive that makes
 the cancellation semantics right: child outcomes become return values, but
@@ -13,9 +15,10 @@ from __future__ import annotations
 
 import asyncio
 import logging
-from typing import Any, Awaitable, Coroutine, MutableSet
+import random
+from typing import Any, Awaitable, Callable, Coroutine, MutableSet, TypeVar
 
-__all__ = ["spawn", "reap", "wait_quiet"]
+__all__ = ["spawn", "reap", "wait_quiet", "retry"]
 
 log = logging.getLogger("hypha.torch.aio")
 
@@ -94,3 +97,56 @@ async def wait_quiet(
         await asyncio.wait_for(gathered, timeout)
     except asyncio.TimeoutError:
         pass
+
+
+_T = TypeVar("_T")
+
+
+async def retry(
+    fn: Callable[[], Awaitable[_T]],
+    *,
+    attempts: int = 0,
+    base_delay: float = 0.25,
+    max_delay: float = 10.0,
+    attempt_timeout: "float | None" = None,
+    deadline: "float | None" = None,
+    retry_on: "tuple[type[BaseException], ...]" = (Exception,),
+    what: str = "",
+    logger: "logging.Logger | None" = None,
+) -> _T:
+    """Call ``fn()`` until it succeeds, with jittered exponential backoff.
+
+      * ``attempts``        — total tries; 0 = unbounded (the deadline is
+        then the only stop);
+      * ``attempt_timeout`` — wall-clock bound per try (``wait_for``
+        semantics: the in-flight attempt is cancelled);
+      * ``deadline``        — overall seconds budget from the first try;
+        when it cannot fit another attempt, the last error re-raises;
+      * ``retry_on``        — exception classes worth re-trying.
+        ``CancelledError`` always propagates immediately.
+    """
+    loop = asyncio.get_running_loop()
+    stop_at = None if deadline is None else loop.time() + deadline
+    label = what or getattr(fn, "__qualname__", "operation")
+    lg = logger or log
+    # A per-attempt timeout is retryable regardless of ``retry_on``.
+    catchable = tuple(retry_on) + (asyncio.TimeoutError,)
+    attempt = 0
+    while True:
+        attempt += 1
+        try:
+            if attempt_timeout is None:
+                return await fn()
+            return await asyncio.wait_for(fn(), attempt_timeout)
+        except asyncio.CancelledError:
+            raise
+        except catchable as e:
+            out_of_attempts = attempts > 0 and attempt >= attempts
+            delay = min(max_delay, base_delay * (2 ** (attempt - 1)))
+            delay *= 0.5 + random.random()  # jitter: 0.5x..1.5x
+            out_of_time = stop_at is not None and loop.time() + delay >= stop_at
+            if out_of_attempts or out_of_time:
+                lg.warning("retry %r: giving up after %d attempt(s): %s", label, attempt, e)
+                raise
+            lg.info("retry %r: attempt %d failed (%s); next in %.2fs", label, attempt, e, delay)
+            await asyncio.sleep(delay)

@@ -94,7 +94,10 @@ class Session:
         except BaseException:
             conn.close()
             raise
-        if resp.will_close:
+        if resp.will_close or resp.status >= 500:
+            # The bridge closes the connection after a 500 without saying
+            # so; its FIN can trail the answer, so the idle check above
+            # would miss it and the next request would meet a reset.
             conn.close()
         if resp.status >= 400:
             raise BridgeHTTPError("POST", path, resp.status, data)

@@ -1,0 +1,118 @@
+"""Generic lease ledger (a copy of ``hypha_tpu/leases.py``).
+
+Behavioral parity with the reference's ``hypha-leases`` crate
+(reference: crates/leases/src/lib.rs:20-130):
+
+  * ``Lease`` pairs an id, an arbitrary leasable payload and a **wall-clock**
+    expiry — wall-clock on purpose so that leases survive process suspend and
+    are comparable across peers (reference note crates/leases/src/lib.rs:23-27);
+  * ``Ledger`` supports insert/get/remove/renew/list/list_expired;
+  * ``renew`` resets expiry to *now + duration* (not old-expiry + duration),
+    matching crates/leases/src/lib.rs:103-114.
+
+The ledger is synchronous and lock-guarded; it is safe from asyncio tasks
+(single-threaded) and from threads (the runtime's prune loop).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+import uuid
+from dataclasses import dataclass, field
+from typing import Callable, Generic, TypeVar
+
+__all__ = ["Lease", "Ledger", "LeaseNotFound"]
+
+T = TypeVar("T")
+
+
+class LeaseNotFound(KeyError):
+    pass
+
+
+@dataclass(slots=True)
+class Lease(Generic[T]):
+    leasable: T
+    timeout: float  # absolute wall-clock seconds (time.time())
+    id: str = field(default_factory=lambda: str(uuid.uuid4()))
+
+    def is_expired(self, now: float | None = None) -> bool:
+        return (time.time() if now is None else now) >= self.timeout
+
+    def remaining(self, now: float | None = None) -> float:
+        return max(0.0, self.timeout - (time.time() if now is None else now))
+
+
+class Ledger(Generic[T]):
+    """Thread-safe store of live leases keyed by lease id."""
+
+    def __init__(self, clock: Callable[[], float] = time.time) -> None:
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._leases: dict[str, Lease[T]] = {}
+
+    def insert(self, leasable: T, duration: float, lease_id: str | None = None) -> Lease[T]:
+        lease = Lease(leasable=leasable, timeout=self._clock() + duration)
+        if lease_id is not None:
+            lease.id = lease_id
+        with self._lock:
+            self._leases[lease.id] = lease
+        return lease
+
+    def get(self, lease_id: str) -> Lease[T]:
+        with self._lock:
+            try:
+                return self._leases[lease_id]
+            except KeyError:
+                raise LeaseNotFound(lease_id) from None
+
+    def try_get(self, lease_id: str) -> Lease[T] | None:
+        with self._lock:
+            return self._leases.get(lease_id)
+
+    def remove(self, lease_id: str) -> Lease[T]:
+        with self._lock:
+            try:
+                return self._leases.pop(lease_id)
+            except KeyError:
+                raise LeaseNotFound(lease_id) from None
+
+    def renew(self, lease_id: str, duration: float) -> Lease[T]:
+        """Reset expiry to now + duration (crates/leases/src/lib.rs:103-114)."""
+        with self._lock:
+            try:
+                lease = self._leases[lease_id]
+            except KeyError:
+                raise LeaseNotFound(lease_id) from None
+            lease.timeout = self._clock() + duration
+            return lease
+
+    def list(self) -> list[Lease[T]]:
+        with self._lock:
+            return list(self._leases.values())
+
+    def list_expired(self) -> list[Lease[T]]:
+        now = self._clock()
+        with self._lock:
+            return [l for l in self._leases.values() if l.is_expired(now)]
+
+    def remove_expired(self) -> list[Lease[T]]:
+        """Atomically pop every expired lease (used by the worker prune loop)."""
+        now = self._clock()
+        with self._lock:
+            expired = [l for l in self._leases.values() if l.is_expired(now)]
+            for l in expired:
+                del self._leases[l.id]
+            return expired
+
+    def find(self, pred: Callable[[Lease[T]], bool]) -> Lease[T] | None:
+        with self._lock:
+            for l in self._leases.values():
+                if pred(l):
+                    return l
+        return None
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._leases)

@@ -1,14 +1,16 @@
-"""The job-spec and progress messages the trainer needs (a copy of the
-subset of ``hypha_tpu/messages.py`` that ``run_training`` reads).
+"""Wire vocabulary: the messages the trainer, the worker runtime and the
+parameter server speak (a copy of the subset of ``hypha_tpu/messages.py``
+that the port sends or reads).
 
-Field names, defaults, enum values and the tagged JSON form
-(``to_json_dict`` / ``from_json_dict``: ``{"_t": class name, ...}`` for a
-dataclass, ``{"_e": enum name, "v": value}`` for an enum, ``{"_d": ...}``
-escaping a user dict with those keys, optional ``None`` fields omitted)
-are the JAX package's, so a job spec or a progress message reads the same
-in both packages. The CBOR wire codec and the network messages are not
-ported (ROADMAP.md, Queue 1); the Job Bridge needs only the progress
-protocol's name, which it hands to its node with each ``Progress``.
+Field names, defaults, enum values, registered names and the tagged plain
+form (``{"_t": class name, ...}`` for a dataclass, ``{"_e": enum name,
+"v": value}`` for an enum, ``{"_d": ...}`` escaping a user dict with those
+keys, optional ``None`` fields omitted) are the JAX package's, and
+``encode`` / ``decode`` put that form through the port's CBOR codec, so a
+message is the same bytes in both packages (``tests/test_torch_codec.py``).
+A message of a subsystem that is not ported (serving, the fleet block
+plane, streaming fragments, elastic membership) has no class here and
+does not decode.
 """
 
 from __future__ import annotations
@@ -16,18 +18,37 @@ from __future__ import annotations
 import dataclasses
 import enum
 from dataclasses import dataclass, field
+import uuid
 from typing import Any, ClassVar
 
+from . import codec
+from .resources import Resources
+
 __all__ = [
-    "Adam", "Executor", "Fetch", "JobSpec", "Loss", "LRScheduler", "LRSchedulerKind",
-    "ModelType", "Nesterov", "Progress", "ProgressKind", "ProgressResponse",
-    "ProgressResponseKind", "Receive", "Reference", "Send", "ShardMap",
-    "TrainExecutorConfig", "TransferStrategy", "from_json_dict", "to_json_dict",
-    "PROTOCOL_PROGRESS",
+    "Ack", "Adam", "AdoptAck", "AggregateExecutorConfig", "CancelJob", "DataRecord",
+    "DataRequest", "DataResponse", "DataSlice", "DispatchJob", "DispatchJobResponse",
+    "Executor", "ExecutorDescriptor", "Fetch", "HealthRequest", "HealthResponse", "JobSpec",
+    "JobStatus", "Loss", "LRScheduler", "LRSchedulerKind", "ModelType", "Nesterov",
+    "PriceRange", "Progress", "ProgressKind", "ProgressResponse", "ProgressResponseKind",
+    "Receive", "Reference", "RenewLease", "RenewLeaseResponse", "RequestWorker",
+    "SchedulerHello", "Send", "ShardMap", "TrainExecutorConfig", "TransferStrategy",
+    "WorkerOffer", "WorkerSpec", "decode", "encode", "from_json_dict", "to_json_dict",
+    "PROTOCOL_API", "PROTOCOL_HEALTH", "PROTOCOL_PROGRESS", "TOPIC_WORKER",
+    "TRAIN_EXECUTOR_NAME", "AGGREGATE_EXECUTOR_NAME", "INFER_EXECUTOR_NAME",
 ]
 
+PROTOCOL_API = "/hypha-api/0.0.1"
+PROTOCOL_HEALTH = "/hypha-health/0.0.1"
 # The scheduler's progress protocol (STATUS, UPDATE, ... -> ProgressResponse).
 PROTOCOL_PROGRESS = "/hypha-progress/0.0.1"
+# The gossip topic of the auction's RequestWorker ads.
+TOPIC_WORKER = "hypha/worker"
+
+# Executor implementation names: what a scheduler asks for at auction and
+# what a worker advertises.
+TRAIN_EXECUTOR_NAME = "diloco-transformer"
+AGGREGATE_EXECUTOR_NAME = "parameter-server"
+INFER_EXECUTOR_NAME = "generate"
 
 _REGISTRY: dict[str, type] = {}
 _ENUMS: dict[str, type] = {}
@@ -69,6 +90,8 @@ def _from_plain(obj: Any) -> Any:
         if "_d" in obj:
             return {k: _from_plain(v) for k, v in obj["_d"].items()}
         if "_t" in obj:
+            if obj["_t"] == "Resources":
+                return Resources.from_wire({k: v for k, v in obj.items() if k != "_t"})
             cls = _REGISTRY.get(obj["_t"])
             if cls is None:
                 raise ValueError(f"unknown or unported wire tag {obj['_t']!r}")
@@ -83,6 +106,16 @@ def _from_plain(obj: Any) -> Any:
     if isinstance(obj, list):
         return [_from_plain(v) for v in obj]
     return obj
+
+
+def encode(msg: Any) -> bytes:
+    """The message's CBOR wire bytes."""
+    return codec.dumps(_to_plain(msg))
+
+
+def decode(data: bytes) -> Any:
+    """The inverse of :func:`encode`."""
+    return _from_plain(codec.loads(data))
 
 
 def to_json_dict(msg: Any) -> Any:
@@ -228,9 +261,21 @@ class Reference:
         return cls(uri=uri)
 
     @classmethod
+    def hugging_face(cls, repo: str, filenames: list, revision: str = "main",
+                     token: "str | None" = None) -> "Reference":
+        if not repo or not filenames:
+            raise ValueError("HuggingFace reference needs repo and filenames")
+        return cls(repo=repo, revision=revision, filenames=list(filenames), token=token)
+
+    @classmethod
     def from_peers(cls, peers: list, resource: str,
                    strategy: TransferStrategy = TransferStrategy.ALL) -> "Reference":
         return cls(peers=list(peers), strategy=strategy, resource=resource)
+
+    @classmethod
+    def from_scheduler(cls, peer: str, dataset: str,
+                       prefetch: "int | None" = None) -> "Reference":
+        return cls(scheduler_peer=peer, dataset=dataset, prefetch=prefetch)
 
 
 def _newtype_ref(name: str, allowed: frozenset):
@@ -274,6 +319,24 @@ class ShardMap:
 
 @_register
 @dataclass(slots=True)
+class ExecutorDescriptor:
+    """An executor class and implementation a worker supports."""
+
+    executor_class: str  # "train" | "aggregate"
+    name: str
+
+
+@_register
+@dataclass(slots=True)
+class WorkerSpec:
+    """What a scheduler wants of a worker."""
+
+    resources: Resources
+    executor: list  # list[ExecutorDescriptor]
+
+
+@_register
+@dataclass(slots=True)
 class TrainExecutorConfig:
     """The train job; every field of the JAX package's config, so that a
     spec round-trips. ``run_training`` raises NotImplementedError on the
@@ -309,20 +372,59 @@ class TrainExecutorConfig:
 
 @_register
 @dataclass(slots=True)
+class AggregateExecutorConfig:
+    """The parameter server's job; every field of the JAX package's config,
+    so that a spec round-trips. The port's ``ParameterServerExecutor``
+    raises NotImplementedError on the options it does not run."""
+
+    updates: Any  # Receive
+    results: Any  # Send
+    optimizer: Nesterov
+    num_workers: int = 0  # how many pseudo-gradients form one round
+    checkpoint_dir: str | None = None
+    quorum_fraction: float = 0.0
+    round_deadline_s: float = 0.0
+    delta_codec: str = "none"
+    sync_mode: str = "blocking"
+    fragments: int = 0
+    ps_checkpoint_every_rounds: int = 1
+    shard_index: int = 0
+    num_ps_shards: int = 1
+    adaptive_steps: bool | None = None
+    adaptive_codec: bool | None = None
+    broadcast_tree: ShardMap | None = None
+    codec_bw_hi_mbps: float | None = None
+    codec_bw_lo_mbps: float | None = None
+    adopt_grace_s: float | None = None
+    report_metrics_s: float | None = None
+    metrics_peer: str | None = None
+    serve_peers: list | None = None
+
+
+@_register
+@dataclass(slots=True)
 class Executor:
-    """The executor of a job; the port runs ``kind="train"`` only."""
+    """Tagged union Train|Aggregate|Infer. The port runs train and
+    aggregate jobs; an infer job raises."""
 
     kind: str
     name: str
     train: TrainExecutorConfig | None = None
+    aggregate: AggregateExecutorConfig | None = None
+    infer: Any = None
 
     def __post_init__(self) -> None:
-        if self.kind != "train":
+        if self.kind not in ("train", "aggregate", "infer"):
+            raise ValueError(f"unknown executor kind {self.kind!r}")
+        if self.kind == "infer":
             raise NotImplementedError(
-                f"executor kind {self.kind!r} is not ported (the port runs train jobs)"
+                "infer jobs over the network are not ported to PyTorch yet "
+                "(ROADMAP.md, Queue 1: the network infer executor)"
             )
-        if self.train is None:
+        if self.kind == "train" and self.train is None:
             raise ValueError("train executor needs train config")
+        if self.kind == "aggregate" and self.aggregate is None:
+            raise ValueError("aggregate executor needs aggregate config")
 
 
 @_register
@@ -330,6 +432,167 @@ class Executor:
 class JobSpec:
     job_id: str
     executor: Executor
+
+
+@_register
+@dataclass(slots=True)
+class DataRecord:
+    """The registry record a data node announces under a dataset's name."""
+
+    num_slices: int
+
+
+@_register
+@dataclass(slots=True)
+class DataSlice:
+    """The pull-stream resource header of one slice."""
+
+    dataset: str
+    index: int
+
+
+@_register
+@dataclass(slots=True)
+class PriceRange:
+    bid: float
+    max: float
+
+
+@_register
+@dataclass(slots=True)
+class WorkerOffer:
+    """Worker -> scheduler auction counter-offer; ``expires_in`` is relative
+    seconds (the backing temporary lease's remaining validity)."""
+
+    request_id: str
+    lease_id: str
+    peer_id: str
+    resources: Resources
+    price: float
+    expires_in: float
+    executors: list = field(default_factory=list)  # list[ExecutorDescriptor]
+
+
+@_register
+@dataclass(slots=True)
+class RenewLease:
+    """Scheduler -> worker lease renewal; the first renewal accepts an offer."""
+
+    lease_id: str
+
+
+@_register
+@dataclass(slots=True)
+class RenewLeaseResponse:
+    lease_id: str
+    timeout: float  # seconds of validity granted
+
+
+@_register
+@dataclass(slots=True)
+class JobStatus:
+    """Worker -> scheduler job lifecycle event."""
+
+    job_id: str
+    state: str  # "dispatched" | "running" | "completed" | "failed" | "cancelled"
+    message: str = ""
+
+
+@_register
+@dataclass(slots=True)
+class DispatchJob:
+    lease_id: str
+    spec: JobSpec
+
+
+@_register
+@dataclass(slots=True)
+class DispatchJobResponse:
+    accepted: bool
+    message: str = ""
+
+
+@_register
+@dataclass(slots=True)
+class CancelJob:
+    """Scheduler -> worker: roll back a dispatched job."""
+
+    lease_id: str
+    job_id: str
+
+
+@_register
+@dataclass(slots=True)
+class DataRequest:
+    """Worker -> scheduler: assign me the next slice."""
+
+    dataset: str
+    peer_id: str = ""
+    prefetch: int | None = None
+
+
+@_register
+@dataclass(slots=True)
+class DataResponse:
+    data_provider: str
+    index: int
+    epoch: int | None = None
+
+
+@_register
+@dataclass(slots=True)
+class Ack:
+    ok: bool = True
+    message: str = ""
+
+
+@_register
+@dataclass(slots=True)
+class HealthRequest:
+    pass
+
+
+@_register
+@dataclass(slots=True)
+class HealthResponse:
+    healthy: bool
+
+
+@_register
+@dataclass(slots=True)
+class SchedulerHello:
+    """Restarted scheduler -> worker: generation ``generation`` adopted your
+    execution of ``job_id`` at round ``round``."""
+
+    generation: int = 0
+    job_id: str = ""
+    round: int = 0
+
+
+@_register
+@dataclass(slots=True)
+class AdoptAck:
+    """Worker -> restarted scheduler: the execution's actual state
+    (``running`` | ``gone`` | ``stale``)."""
+
+    job_id: str = ""
+    round: int = 0
+    epoch: int = 0
+    state: str = "running"
+    generation: int = 0
+    ok: bool = True
+
+
+@_register
+@dataclass(slots=True)
+class RequestWorker:
+    """Priced task ad, gossiped on ``TOPIC_WORKER``."""
+
+    id: str = field(default_factory=lambda: str(uuid.uuid4()))
+    spec: WorkerSpec | None = None
+    timeout: float = 0.2  # offer window seconds
+    bid: float = 0.0
+    reply_to: str = ""  # scheduler peer id to send WorkerOffer to
 
 
 @_enum

@@ -18,13 +18,15 @@ Path safety: no absolute paths, no ``..`` traversal. The same routes,
 status codes and bodies as the reference, so either package's client
 talks to either package's bridge.
 
-``node`` is any object with ``async request(peer, protocol, msg,
-timeout)`` and ``connector`` any object with ``fetch``/``send``/
-``receive`` as :class:`~hypha_tpu_torch.worker.connectors.Connector` has
-them. The fabric node and its peer connector are not ported, so a bridge
-without a ``connector`` raises (ROADMAP.md, Queue 1: the network layer),
-and so does the reference's retry of status sends across a scheduler
-outage (``status_retry_s > 0``).
+``node`` is the fabric's Node, or any object with ``async request(peer,
+protocol, msg, timeout)``; ``connector`` defaults to a
+:class:`~hypha_tpu_torch.worker.connectors.Connector` on that node, and
+may be any object with its ``fetch``/``send``/``receive``.
+``progress_probe``, when given, sees every Progress the executor sends
+(the worker runtime keeps an execution's live round with it). The
+reference's retry of status sends across a scheduler outage
+(``status_retry_s > 0``) is not ported (ROADMAP.md, Queue 1:
+codecs/streaming/sharded PS/FT/rejoin).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from pathlib import Path
 
 from .. import aio, messages
 from ..messages import PROTOCOL_PROGRESS, Fetch, Progress, Receive, Send
+from .connectors import Connector
 
 __all__ = ["Bridge", "BridgeError", "MAX_BODY", "safe_rel"]
 
@@ -83,12 +86,8 @@ class Bridge:
         scheduler_peer: str,
         connector=None,
         status_retry_s: float = 0.0,
+        progress_probe=None,
     ) -> None:
-        if connector is None:
-            raise NotImplementedError(
-                "a bridge without a connector would build one on the fabric's Node, "
-                "which is not ported to PyTorch yet (ROADMAP.md, Queue 1: the network layer)"
-            )
         if status_retry_s and status_retry_s > 0:
             raise NotImplementedError(
                 "retrying status sends across a scheduler outage (status_retry_s) is not "
@@ -98,7 +97,8 @@ class Bridge:
         self.work_dir = Path(work_dir)
         self.job_id = job_id
         self.scheduler_peer = scheduler_peer
-        self.connector = connector
+        self.connector = connector or Connector(node, scheduler_peer)
+        self.progress_probe = progress_probe
         self.socket_path = self.work_dir / "bridge.sock"
         self._server: "asyncio.base_events.Server | None" = None
         self._send_tasks: set = set()
@@ -314,6 +314,8 @@ class Bridge:
             await self._respond(writer, 400, {"error": "body.progress must be Progress"})
             return
         progress.job_id = progress.job_id or self.job_id
+        if self.progress_probe is not None:
+            self.progress_probe(progress)
         response = await self.node.request(
             self.scheduler_peer, PROTOCOL_PROGRESS, progress, timeout=30
         )

@@ -37,7 +37,7 @@ from hypha_tpu_torch.executor.bridge_client import Session as TSession
 from hypha_tpu_torch.worker.bridge import Bridge as TBridge
 from hypha_tpu_torch.worker.bridge import BridgeError, safe_rel
 from hypha_tpu_torch.worker.connectors import Connector as TConnector
-from hypha_tpu_torch.worker.connectors import ReceivedFile, _safe_name, fetch_uri
+from hypha_tpu_torch.worker.connectors import ReceivedFile, _safe_name, fetch_uri, shard_route
 
 PKG = {"jax": (jmsg, JSession, JBridge), "port": (tmsg, TSession, TBridge)}
 
@@ -289,8 +289,12 @@ def test_bridges_answer_raw_requests_alike(tmp_path):
 
 
 def test_port_bridge_refuses_what_it_does_not_port(tmp_path):
-    with pytest.raises(NotImplementedError, match="the network layer"):
-        TBridge(_FakeNode(tmsg), tmp_path, "j", "sched")
+    # Without a connector the bridge builds the port's on its node, as the
+    # reference does; only the status retry across an outage is refused.
+    node = _FakeNode(tmsg)
+    default = TBridge(node, tmp_path, "j", "sched").connector
+    assert isinstance(default, TConnector)
+    assert (default.node, default.scheduler_peer) == (node, "sched")
     with pytest.raises(NotImplementedError, match="codecs/streaming"):
         TBridge(_FakeNode(tmsg), tmp_path, "j", "sched", _FakeConnector(), status_retry_s=5.0)
     assert safe_rel(tmp_path, "artifacts/m.bin") == tmp_path / "artifacts/m.bin"
@@ -302,7 +306,7 @@ def test_port_bridge_refuses_what_it_does_not_port(tmp_path):
 def test_port_connector_routes(tmp_path):
     src = tmp_path / "slice.safetensors"
     src.write_bytes(b"s" * 64)
-    conn = TConnector()
+    conn = TConnector()  # no fabric Node: the uri fetch only
 
     async def main():
         got = await conn.fetch(tmsg.Fetch(tmsg.Reference.from_uri(src.as_uri())), tmp_path / "a")
@@ -310,13 +314,21 @@ def test_port_connector_routes(tmp_path):
         hf = tmsg.Fetch(tmsg.Reference(repo="org/model", filenames=["w.safetensors"]))
         with pytest.raises(NotImplementedError, match="HF checkpoints"):
             await conn.fetch(hf, tmp_path)
-        with pytest.raises(NotImplementedError, match="the network layer"):
+        with pytest.raises(ValueError, match="fabric's Node"):
             await conn.fetch(tmsg.Fetch(tmsg.Reference(scheduler_peer="s", dataset="d")), tmp_path)
         peers = tmsg.Reference.from_peers(["ps"], "updates")
-        with pytest.raises(NotImplementedError, match="the network layer"):
+        with pytest.raises(ValueError, match="fabric's Node"):
             await conn.send(tmsg.Send(peers), src, "updates")
-        with pytest.raises(NotImplementedError, match="the network layer"):
+        with pytest.raises(ValueError, match="fabric's Node"):
             conn.receive(tmsg.Receive(peers), tmp_path)
+        # The unported pieces name their ROADMAP.md labels.
+        with pytest.raises(NotImplementedError, match="input_pipeline"):
+            TConnector(None, "s", slice_cache=object())
+        with pytest.raises(NotImplementedError, match="input_pipeline"):
+            await TConnector(object(), "s").fetch(
+                tmsg.Fetch(tmsg.Reference.from_scheduler("s", "d", prefetch=2)), tmp_path)
+        with pytest.raises(NotImplementedError, match="codecs/streaming"):
+            shard_route(tmsg.ShardMap(shards=["a"]), 0)
 
     run(main())
     with pytest.raises(ValueError, match="scheme"):

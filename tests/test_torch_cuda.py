@@ -482,3 +482,105 @@ def test_session_bridge_round_trip(cuda, tmp_path):
         thread.join(10)
         loop.close()
     assert not sock.exists()
+
+
+# ------------------------------------------------- the worker runtime on the card
+
+
+def test_worker_nodes_run_a_job_on_the_card(cuda):
+    """The port's fabric (``chip_smoke.run_node_job``): two worker nodes each
+    running the in-process trainer on the card through the flash kernels,
+    and the parameter server folding and stepping on the card, auctioned
+    and dispatched by the smoke's scheduler stand-in over TCP."""
+    import asyncio
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import chip_smoke
+    from hypha_tpu_torch.ops.attention import dot_product_attention
+    from hypha_tpu_torch.ops.flash_attention import flash_attention
+
+    # head_dim 64: the kernels take 64 or 128.
+    model = {"model_type": "causal-lm", "family": "llama", "preset": "tiny",
+             "config": {"hidden_size": 256}, "seed": 0}
+    rounds, steps, workers, layers = 2, 3, 2, 2
+    counts = (flash_attention.fwd_launches, flash_attention.dq_launches,
+              flash_attention.dkv_launches, flash_attention.plain_calls, dot_product_attention.calls)
+    root = Path(tempfile.mkdtemp(prefix="tc"))  # bridge sockets: paths under 108 bytes
+    try:
+        run = asyncio.run(asyncio.wait_for(chip_smoke.run_node_job(
+            root, model, device="cuda", rounds=rounds, steps=steps, batch=2, seq=128, period=64,
+            lr=3e-3, limit_s=240, workers=workers, train_runtime="in-process"), 300))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    assert chip_smoke.node_problems(run, rounds=rounds, steps=steps,
+                                    expect=chip_smoke.flat_f32_spec(model)) == []
+    assert len(run["rec"]["fold_s"]) == rounds * workers
+    launches = workers * rounds * steps * layers
+    now = (flash_attention.fwd_launches, flash_attention.dq_launches,
+           flash_attention.dkv_launches, flash_attention.plain_calls, dot_product_attention.calls)
+    assert [b - a for a, b in zip(counts, now)] == [launches, launches, launches, 0, 0]
+
+
+def test_parameter_server_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """The port's ParameterServerExecutor fed the same pushes (three
+    workers, one re-sending; one delta bf16) on the CPU and on the card:
+    the broadcast updates of two rounds are equal bit for bit."""
+    import asyncio
+
+    from hypha_tpu_torch import messages as m
+    from hypha_tpu_torch.executor.serialization import load_file
+    from hypha_tpu_torch.network import MemoryTransport, Node
+    from hypha_tpu_torch.worker.ps_executor import ParameterServerExecutor
+
+    workers, samples = ("w0", "w1", "w2"), (300.0, 101.0, 7.0)
+    files = {r: _delta_files(tmp_path, r) for r in range(2)}
+
+    async def serve(device, name):
+        hub = MemoryTransport()
+        nodes = {p: Node(hub.shared(), peer_id=p) for p in ("ps", "sched", *workers)}
+        for n in nodes.values():
+            await n.start()
+        for x in nodes.values():
+            for y in nodes.values():
+                if x is not y:
+                    x.add_peer_addr(y.peer_id, y.listen_addrs[0])
+
+        async def on_progress(peer, p):
+            return m.ProgressResponse(kind=m.ProgressResponseKind.DONE if p.round
+                                      else m.ProgressResponseKind.OK)
+
+        nodes["sched"].on(m.PROTOCOL_PROGRESS, m.Progress).respond_with(on_progress)
+        spec = m.JobSpec(job_id="agg", executor=m.Executor(
+            kind="aggregate", name="parameter-server", aggregate=m.AggregateExecutorConfig(
+                updates=m.Receive(m.Reference.from_peers(list(workers), "updates")),
+                results=m.Send(m.Reference.from_peers(["w0"], "results")),
+                optimizer=m.Nesterov(lr=0.7, momentum=0.9))))
+        out = tmp_path / name
+        execution = await ParameterServerExecutor(nodes["ps"], out, device=device).execute(
+            "agg", spec, "sched")
+        results = nodes["w0"].consume_pushes(lambda push: push.resource["resource"] == "results")
+        got = []
+        for r in range(2):
+            sends = list(zip(workers, files[r], samples))
+            if r == 0:  # w1 first sends w2's file, then its own: the first is un-folded
+                sends.insert(0, ("w1", files[0][2], 55.0))
+            for w, path, n in sends:
+                await nodes[w].push("ps", {"resource": "updates", "name": path.name, "round": r,
+                                           "num_samples": n}, path)
+            push = await results.next(timeout=60)
+            await push.save_to(out / f"got-{r}.safetensors")
+            got.append(load_file(out / f"got-{r}.safetensors"))
+        status = await asyncio.wait_for(execution.wait(), 60)
+        for n in nodes.values():
+            await n.stop()
+        assert status.state == "completed", status
+        return got
+
+    host, card = asyncio.run(serve("cpu", "host")), asyncio.run(serve(cuda, "card"))
+    for r, (a, b) in enumerate(zip(host, card)):
+        assert set(a) == set(b) and a
+        for k in a:
+            assert a[k].dtype == b[k].dtype == torch.float32, (r, k)
+            assert torch.equal(a[k].view(torch.int32), b[k].view(torch.int32)), (r, k)

@@ -1,6 +1,6 @@
 """Port hygiene: hypha_tpu_torch and chip_smoke.py import no JAX, nothing
 of the JAX package, and no package the card's machine lacks (safetensors,
-httpx); entry points never drop quietly to the CPU; the kernel
+httpx, cryptography); entry points never drop quietly to the CPU; the kernel
 dispatchers never fall back to the plain versions."""
 
 from __future__ import annotations
@@ -21,12 +21,18 @@ from hypha_tpu_torch.ops.flash_attention import (
 from hypha_tpu_torch.ops.paged_attention import PagedKV, paged_attention, ragged_paged_attention
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "hypha_tpu", "safetensors", "httpx"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "hypha_tpu", "safetensors", "httpx",
+             "cryptography"}
 
 
 def _port_files():
     files = sorted((ROOT / "hypha_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    rel = {str(p.relative_to(ROOT)) for p in files}
+    for must in ("hypha_tpu_torch/network/node.py", "hypha_tpu_torch/network/fabric.py",
+                 "hypha_tpu_torch/worker/arbiter.py", "hypha_tpu_torch/worker/runtime.py",
+                 "hypha_tpu_torch/data_node.py", "hypha_tpu_torch/codec.py"):
+        assert must in rel, must
     return files
 
 
