@@ -1664,6 +1664,8 @@ async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch,
     node = Node(TcpTransport(), peer_id="sched", bootstrap=boot)
     sched = StandInScheduler(node, rounds=rounds, steps=steps)
     started: list = []
+    stalls: list = []
+    watch = asyncio.create_task(watch_loop(stalls))
     with node_probes(device) as rec:
         try:
             for part in (data, *trainers, psw, node):
@@ -1699,6 +1701,7 @@ async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch,
             t_dispatch = time.perf_counter()
             finished = await sched.wait_jobs(list(jobs.values()), limit_s)
         finally:
+            watch.cancel()
             await sched.release()
             for part in reversed(started):
                 await part.stop()
@@ -1716,7 +1719,19 @@ async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch,
                 jobs={who: sched.statuses.get(job, []) for who, job in jobs.items()},
                 auction_to_dispatch_s=t_dispatch - t_auction,
                 first_beat_s=(min(beats) - t_dispatch) if beats else None,
-                leftover=leftover)
+                loop_stall_max_s=max(stalls, default=0.0),
+                loop_stalls_over_1s=sum(s > 1.0 for s in stalls), leftover=leftover)
+
+
+async def watch_loop(stalls: list, tick: float = 0.05) -> None:
+    """Append how late each ``tick`` s sleep of this event loop woke: the
+    nodes share the loop, and a stall past a third of the 10 s lease lets
+    a lease expire before the stand-in's renewal lands."""
+    loop = asyncio.get_running_loop()
+    while True:
+        t0 = loop.time()
+        await asyncio.sleep(tick)
+        stalls.append(loop.time() - t0 - tick)
 
 
 def node_problems(run: dict, *, rounds: int, steps: int, expect: dict) -> list:
@@ -1776,6 +1791,9 @@ def train_node_phase(train: dict) -> dict:
     def rates(xs):
         return [x["bytes"] / x["s"] / 1e6 for x in xs]
 
+    def trainer_s(what):
+        return [float(x) for x in re.findall(rf"round \d+: {what} in ([\d.]+) s", log)]
+
     res = dict(
         model="llama2-7b", layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
         workers={"train": run["workers"], "parameter_server": run["ps"]},
@@ -1787,7 +1805,10 @@ def train_node_phase(train: dict) -> dict:
         delta_received=[{k: d[k] for k in ("round", "from", "s", "bytes")} for d in rec["deltas"]],
         broadcast=rec["broadcast"], broadcast_mb_per_s=rates(rec["broadcast"]),
         fold_s=rec["fold_s"], outer_step_s=rec["outer_step_s"],
+        trainer_delta_write_s=trainer_s("delta written"),
+        trainer_update_merge_s=trainer_s("update merged"),
         auction_to_dispatch_s=run["auction_to_dispatch_s"],
+        loop_stall_max_s=run["loop_stall_max_s"], loop_stalls_over_1s=run["loop_stalls_over_1s"],
         start_to_first_heartbeat_s=run["first_beat_s"], attention_launches=launches,
         trainer_peak_gib=float(peak.group(1)) if peak else None,
         slices_assigned=run["sched"].assigned, leftover_files=run["leftover"],

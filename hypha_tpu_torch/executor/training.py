@@ -261,8 +261,10 @@ def run_training(
         nonlocal round_num, round_samples
         send_status(Progress(kind=ProgressKind.UPDATE, job_id=spec.job_id))
         delta_path = work_dir / f"delta-{round_num}.safetensors"
+        t_write = time.perf_counter()
         with torch.no_grad():
             save_file(state_to_flat(model, extract_delta(params, anchor)), delta_path)
+        log.info("round %d: delta written in %.3f s", round_num, time.perf_counter() - t_write)
         push_delta(delta_path)
         mean_loss = sum(round_losses) / len(round_losses) if round_losses else math.nan
         send_status(Progress(kind=ProgressKind.METRICS, job_id=spec.job_id, round=round_num,
@@ -287,6 +289,7 @@ def run_training(
                     continue
                 break
         update_file = work_dir / event["path"]
+        t_merge = time.perf_counter()
         update = flat_to_state(load_file(update_file))
         with torch.no_grad():
             for name, p in params.items():
@@ -299,6 +302,9 @@ def run_training(
                     u = u.reshape(p.shape)
                 p.copy_(merge_update({name: p}, {name: u})[name])
                 anchor[name].copy_(p)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        log.info("round %d: update merged in %.3f s", round_num, time.perf_counter() - t_merge)
         delta_path.unlink(missing_ok=True)
         update_file.unlink(missing_ok=True)
         resp = send_status(Progress(kind=ProgressKind.UPDATE_RECEIVED, job_id=spec.job_id))

@@ -30,7 +30,6 @@ from __future__ import annotations
 import asyncio
 import hashlib
 import logging
-import os
 import shutil
 import urllib.parse
 import urllib.request
@@ -64,34 +63,19 @@ def _safe_name(name: str) -> str:
 # Outbound tensor pushes retry with jittered backoff (aio.retry) for up to
 # this many seconds: a parameter-server restart or a transient partition
 # costs a few re-attempts, not a lost delta and a wedged round.
-PUSH_RETRY_DEADLINE_ENV = "HYPHA_PUSH_RETRY_DEADLINE"
-PUSH_RETRY_DEADLINE_DEFAULT = 120.0
+PUSH_RETRY_DEADLINE_S = 120.0
 
 
-def _push_deadline() -> float:
-    try:
-        return float(os.environ.get(PUSH_RETRY_DEADLINE_ENV, "") or PUSH_RETRY_DEADLINE_DEFAULT)
-    except ValueError:
-        return PUSH_RETRY_DEADLINE_DEFAULT
-
-
-def push_timeout(path: Path, base: float = 60.0) -> float:
-    """Per-attempt wall-clock bound for a parameter-sized push: ``base``
-    plus the payload at a floor rate of 10 MB/s, so a push black-holed by
-    a silent partition fails in time to retry while a slow multi-GB
-    transfer is never cut mid-flight. ``$HYPHA_PUSH_ATTEMPT_TIMEOUT``
-    overrides outright."""
-    env = os.environ.get("HYPHA_PUSH_ATTEMPT_TIMEOUT")
-    if env:
-        try:
-            return float(env)
-        except ValueError:
-            pass
+def push_timeout(path: Path) -> float:
+    """Per-attempt wall-clock bound for a parameter-sized push: 60 s plus
+    the payload at a floor rate of 10 MB/s, so a push black-holed by a
+    silent partition fails in time to retry while a slow multi-GB transfer
+    is never cut mid-flight."""
     try:
         size = path.stat().st_size
     except OSError:
         size = 0
-    return base + size / (10 * 1024 * 1024)
+    return 60.0 + size / (10 * 1024 * 1024)
 
 
 def shard_route(shard_map, part: int, reduce_via: "str | None" = None):
@@ -228,8 +212,8 @@ class Connector:
         mean); the reserved keys win.
 
         Failed pushes retry with jittered backoff up to
-        ``$HYPHA_PUSH_RETRY_DEADLINE`` seconds (default 120), so a worker
-        re-pushes across a receiver's outage instead of failing the round.
+        ``PUSH_RETRY_DEADLINE_S`` seconds, so a worker re-pushes across a
+        receiver's outage instead of failing the round.
         """
         node = self._fabric("a push to peers")
         path = Path(path)
@@ -237,7 +221,7 @@ class Connector:
         peers = ref.peers or []
         strategy = ref.strategy or TransferStrategy.ALL
         header = {**(meta or {}), "resource": resource, "name": path.name}
-        deadline = _push_deadline()
+        deadline = PUSH_RETRY_DEADLINE_S
         # Per-attempt bound: only an attempt's timeout can interrupt a push
         # black-holed by a silent partition; the deadline is read between.
         attempt_timeout = push_timeout(path)

@@ -2,11 +2,13 @@
 (counterpart of ``hypha_tpu/worker/process_executor.py``).
 
 Per job: a work dir ``hypha-{uuid}`` under ``work_root`` holding the Job
-Bridge's unix socket; the configured command is spawned with
-``{SOCKET_PATH}`` / ``{WORK_DIR}`` / ``{JOB_JSON}`` substituted in its
-arguments (and exported as environment variables); its output is piped
-through the worker's log; cancelling sends SIGTERM and escalates to
-SIGKILL after a 5 s grace; the work dir is removed afterwards.
+Bridge's unix socket; ``python -m hypha_tpu_torch.executor.training
+--socket {SOCKET_PATH} --work-dir {WORK_DIR} --job {JOB_JSON}`` is spawned
+with the three values substituted (and exported as environment
+variables), plus ``--device cpu`` when the executor was built for the CPU;
+its output is piped through the worker's log; cancelling sends SIGTERM and
+escalates to SIGKILL after a 5 s grace; the work dir is removed
+afterwards.
 
 A unix socket path must stay under 108 bytes, so ``work_root`` must be
 short: the socket is ``{work_root}/hypha-{12 hex}/bridge.sock``. The
@@ -27,8 +29,9 @@ import logging
 import os
 import shutil
 import signal
+import sys
 import uuid
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from pathlib import Path
 
 from .. import aio, messages
@@ -49,13 +52,17 @@ _PORT_ROOT = str(Path(__file__).resolve().parents[2])
 
 @dataclass(slots=True)
 class ProcessExecutor(JobExecutor):
-    """Spawns ``cmd args...`` per job."""
+    """Spawns the port's trainer CLI per job, on ``device``."""
 
     node: object
-    cmd: str
-    args: list = field(default_factory=list)
-    work_root: Path = field(default_factory=lambda: Path("/tmp"))
-    keep_work_dir: bool = False
+    work_root: Path
+    device: object  # torch.device
+
+    @property
+    def args(self) -> list:
+        return ["-m", "hypha_tpu_torch.executor.training",
+                "--socket", "{SOCKET_PATH}", "--work-dir", "{WORK_DIR}", "--job", "{JOB_JSON}",
+                ] + (["--device", "cpu"] if self.device.type == "cpu" else [])
 
     async def execute(self, job_id: str, spec: JobSpec, scheduler_peer: str) -> Execution:
         work_dir = Path(self.work_root) / f"hypha-{uuid.uuid4().hex[:12]}"
@@ -82,13 +89,13 @@ class ProcessExecutor(JobExecutor):
             "WORK_DIR": str(work_dir),
             "JOB_JSON": json.dumps(messages.to_json_dict(spec)),
         }
-        argv = [self.cmd] + [_substitute(a, subst) for a in self.args]
+        argv = [sys.executable] + [_substitute(a, subst) for a in self.args]
         proc = await asyncio.create_subprocess_exec(
             *argv, stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.STDOUT,
             env={**os.environ, "PYTHONPATH": _pythonpath(), **subst}, cwd=str(work_dir),
         )
         log.info("job %s: spawned pid %s: %s", job_id, proc.pid, argv[:3])
-        execution = _ProcessExecution(job_id, proc, bridge, work_dir, self.keep_work_dir)
+        execution = _ProcessExecution(job_id, proc, bridge, work_dir)
         probe_target.append(execution)
         execution.start_supervision()
         return execution
@@ -108,12 +115,11 @@ def _substitute(arg: str, subst: dict) -> str:
 
 class _ProcessExecution(Execution):
     def __init__(self, job_id: str, proc: asyncio.subprocess.Process, bridge: Bridge,
-                 work_dir: Path, keep_work_dir: bool) -> None:
+                 work_dir: Path) -> None:
         super().__init__(job_id)
         self.proc = proc
         self.bridge = bridge
         self.work_dir = work_dir
-        self.keep_work_dir = keep_work_dir
         self._cancelled = False
         self._tasks: list = []
 
@@ -133,8 +139,7 @@ class _ProcessExecution(Execution):
     async def _supervise(self) -> None:
         rc = await self.proc.wait()
         await self.bridge.stop()
-        if not self.keep_work_dir:
-            await asyncio.to_thread(shutil.rmtree, self.work_dir, ignore_errors=True)
+        await asyncio.to_thread(shutil.rmtree, self.work_dir, ignore_errors=True)
         if self._cancelled:
             self.finish("cancelled")
         elif rc == 0:

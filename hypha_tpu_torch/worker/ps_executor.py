@@ -181,12 +181,20 @@ def _unported(cfg) -> None:
             )
 
 
+def _unlink(paths: list) -> None:
+    """Remove parameter-sized files, off the event loop: unlinking a file
+    whose pages are still being written back waits for that writeback, and
+    a stalled loop misses its lease renewals."""
+    for path in paths:
+        path.unlink(missing_ok=True)
+
+
 class ParameterServerExecutor(JobExecutor):
     """The blocking, single-shard parameter server on ``device`` (CUDA
     unless the caller asks for the CPU; without CUDA and without that
     request the constructor raises)."""
 
-    def __init__(self, node, work_root: "Path | str" = "/tmp", device=None) -> None:
+    def __init__(self, node, work_root: "Path | str", device=None) -> None:
         self.node = node
         self.work_root = Path(work_root)
         self.device = default_device(device)
@@ -248,9 +256,8 @@ class ParameterServerExecutor(JobExecutor):
                 response = await self._notify_updated(
                     scheduler_peer, job_id, round_num, execution)
                 await self._broadcast(cfg, update_path, round_num)
-                for path, _ in received.values():
-                    path.unlink(missing_ok=True)
-                update_path.unlink(missing_ok=True)
+                await asyncio.to_thread(
+                    _unlink, [path for path, _ in received.values()] + [update_path])
                 round_num += 1
                 if response.kind == ProgressResponseKind.DONE:
                     execution.finish("completed")
@@ -296,7 +303,7 @@ class ParameterServerExecutor(JobExecutor):
                 log.warning("ps %s: duplicate delta from %s; replacing", job_id, peer)
                 old = received.pop(peer)
                 await self._fold(accum, old, sign=-1.0)
-                old[0].unlink(missing_ok=True)
+                await asyncio.to_thread(_unlink, [old[0]])
             entry = await self._save_delta(push, work_dir, round_num)
             received[peer] = entry
             await self._fold(accum, entry)

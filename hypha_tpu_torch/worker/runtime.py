@@ -30,7 +30,8 @@ constructor raises. A torch worker sells its cards on the ``gpu`` axis of
                       bootstrap=["gw-host:7000"], work_root="/tmp/hw")
     await node.start(["0.0.0.0:0"])
 
-Keep ``work_root`` short: each job's bridge socket is
+``work_root`` defaults to the system's temporary directory. Keep it
+short: each job's bridge socket is
 ``{work_root}/hypha-{12 hex}/bridge.sock`` and a unix socket path must
 stay under 108 bytes.
 """
@@ -38,7 +39,7 @@ stay under 108 bytes.
 from __future__ import annotations
 
 import logging
-import sys
+import tempfile
 from pathlib import Path
 
 from ..health import serve_health
@@ -67,37 +68,26 @@ class WorkerNode:
         device=None,
         peer_id: "str | None" = None,
         offer: "OfferConfig | None" = None,
-        executors: "dict | None" = None,
         train_runtime: str = "in-process",  # "in-process" | "process"
-        train_cmd: "str | None" = None,
-        train_args: "list | None" = None,
-        work_root: "Path | str" = "/tmp",
-        max_batches: "int | None" = None,
-        node: "Node | None" = None,
+        work_root: "Path | str | None" = None,
         **node_kwargs,
     ) -> None:
         self.device = default_device(device)
-        self.node = node or Node(transport, peer_id=peer_id, **node_kwargs)
+        self.node = Node(transport, peer_id=peer_id, **node_kwargs)
         self.resource_manager = StaticResourceManager(resources)
         self.lease_manager = LeaseManager(self.resource_manager)
-        work_root = Path(work_root)
-        if executors is None:
-            executors = {}
-            if train_runtime == "process":
-                args = train_args or [
-                    "-m", "hypha_tpu_torch.executor.training",
-                    "--socket", "{SOCKET_PATH}", "--work-dir", "{WORK_DIR}", "--job", "{JOB_JSON}",
-                ] + (["--device", "cpu"] if self.device.type == "cpu" else [])
-                executors[("train", TRAIN_EXECUTOR_NAME)] = ProcessExecutor(
-                    node=self.node, cmd=train_cmd or sys.executable, args=args,
-                    work_root=work_root)
-            elif train_runtime == "in-process":
-                executors[("train", TRAIN_EXECUTOR_NAME)] = InProcessTrainExecutor(
-                    self.node, work_root, max_batches=max_batches, device=self.device)
-            else:
-                raise ValueError(f"unknown train_runtime {train_runtime!r}")
-            executors[("aggregate", AGGREGATE_EXECUTOR_NAME)] = ParameterServerExecutor(
-                self.node, work_root, device=self.device)
+        work_root = Path(work_root or tempfile.gettempdir())
+        if train_runtime == "process":
+            train = ProcessExecutor(self.node, work_root, self.device)
+        elif train_runtime == "in-process":
+            train = InProcessTrainExecutor(self.node, work_root, self.device)
+        else:
+            raise ValueError(f"unknown train_runtime {train_runtime!r}")
+        executors = {
+            ("train", TRAIN_EXECUTOR_NAME): train,
+            ("aggregate", AGGREGATE_EXECUTOR_NAME): ParameterServerExecutor(
+                self.node, work_root, self.device),
+        }
         self.job_manager = JobManager(self.node, executors)
         self.arbiter = Arbiter(
             node=self.node,

@@ -38,15 +38,11 @@ log = logging.getLogger("hypha.torch.worker.train")
 
 class InProcessTrainExecutor(JobExecutor):
     """``device``: CUDA unless the caller asks for the CPU; without CUDA and
-    without that request the constructor raises. ``max_batches`` is a
-    safety valve for tests."""
+    without that request the constructor raises."""
 
-    def __init__(self, node, work_root: "Path | str" = "/tmp", keep_work_dir: bool = False,
-                 max_batches: "int | None" = None, device=None) -> None:
+    def __init__(self, node, work_root: "Path | str", device=None) -> None:
         self.node = node
         self.work_root = Path(work_root)
-        self.keep_work_dir = keep_work_dir
-        self.max_batches = max_batches
         self.device = default_device(device)
 
     async def execute(self, job_id: str, spec: JobSpec, scheduler_peer: str) -> Execution:
@@ -106,8 +102,8 @@ class InProcessTrainExecutor(JobExecutor):
 
         def blocking() -> None:
             with Session(str(socket_path)) as session:
-                run_training(session, work_dir, spec, max_batches=self.max_batches,
-                             should_stop=stop_flag.is_set, device=self.device)
+                run_training(session, work_dir, spec, should_stop=stop_flag.is_set,
+                             device=self.device)
 
         try:
             # The training loop is synchronous (device work and bridge
@@ -125,5 +121,4 @@ class InProcessTrainExecutor(JobExecutor):
                 execution.finish("failed", str(e))
         finally:
             await bridge.stop()
-            if not self.keep_work_dir:
-                await asyncio.to_thread(shutil.rmtree, work_dir, ignore_errors=True)
+            await asyncio.to_thread(shutil.rmtree, work_dir, ignore_errors=True)

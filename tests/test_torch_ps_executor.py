@@ -173,10 +173,10 @@ def test_a_tree_reduce_partial_fails_the_job(tmp_path):
     assert status.state == "failed" and "codecs/streaming/sharded PS/FT/rejoin" in status.message
 
 
-def test_executors_need_cuda_or_an_explicit_cpu(monkeypatch):
+def test_executors_need_cuda_or_an_explicit_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for make in (lambda **kw: TPS(None, "/tmp", **kw),
-                 lambda **kw: InProcessTrainExecutor(None, "/tmp", **kw)):
+    for make in (lambda **kw: TPS(None, tmp_path, **kw),
+                 lambda **kw: InProcessTrainExecutor(None, tmp_path, **kw)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
         assert make(device="cpu").device == torch.device("cpu")

@@ -19,6 +19,7 @@
 from __future__ import annotations
 
 import asyncio
+import re
 import shutil
 import tempfile
 from pathlib import Path
@@ -157,6 +158,9 @@ def test_port_fabric_runs_the_smoke_job_on_the_cpu(workers, runtime):
     assert set(run["jobs"]) == {*peers, "aggregate"}
     if runtime == "process":  # the trainer's output reaches the worker's log
         assert "attention path: plain (host)" in log and "attention launches: " in log
+        for what in ("delta written", "update merged"):
+            assert [int(r) for r in re.findall(rf"round (\d+): {what} in [\d.]+ s", log)] \
+                == list(range(ROUNDS)), what
     assert run["sched"].assigned >= 2 * workers  # two slices of three batches of two each
     rec = run["rec"]
     assert sorted(p["round"] for p in rec["push"]) == sorted(list(range(ROUNDS)) * workers)
