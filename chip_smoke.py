@@ -62,19 +62,25 @@ Phases, each printing one JSON line:
    timed apart), the bridge's time per ``/status/send``, the trainer's
    start-up and peak device memory (its log) beside the ``train`` phase's;
 11. train_node — the ``train`` phase's job at its full 8 layers, run by
-   the port's own fabric (``run_node_job``) on ``TcpTransport`` at
-   127.0.0.1: a ``Gateway``, a ``DataNode`` serving the slices, a
-   ``WorkerNode`` ``w0`` whose process executor runs the trainer CLI on
-   the card, a ``WorkerNode`` ``psw`` whose ``ParameterServerExecutor``
-   folds and steps on the card, and ``StandInScheduler`` (the scheduler is
-   not ported) auctioning both, dispatching both jobs, assigning slices
-   and answering progress; gates on both jobs completing, rounds,
-   heartbeats, the server's ``UPDATED``, falling losses, 128 / 64 / 64
-   flash launches and no plain call (the trainer's log), each received
-   Δθ's flat f32 names and shapes, and no file left behind; step ms,
-   tokens/s, the round boundary, each Δθ push and broadcast with its
-   bytes, the fold and ``outer_step`` seconds, auction to dispatch, start
-   to first heartbeat and the trainer's peak memory;
+   the port alone (``run_node_job``) on ``TcpTransport`` at 127.0.0.1: a
+   ``Gateway``, a ``DataNode`` serving the slices, a ``WorkerNode`` ``w0``
+   whose process executor runs the trainer CLI on the card, a
+   ``WorkerNode`` ``psw`` whose ``ParameterServerExecutor`` folds and
+   steps on the card, and the port's scheduler, ``Orchestrator.run`` on a
+   ``DiLoCoJob`` with the JAX CLI's defaults (the allocator's 2 s auction,
+   the batch scheduler's countdown, the slice scheduler) but for the
+   no-progress watchdog, held at the reference's whole-run 600 s
+   (``NODE_STATUS_TIMEOUT_S`` says why); gates on both jobs running then
+   completed, ``JobResult.rounds``, 8 samples (4 batches of 2) a round,
+   the dispatched batch 2, the jobs' placement, the server's ``UPDATED``,
+   falling round losses, 128 / 64 / 64 flash launches and no plain call
+   (the trainer's log), each received Δθ's flat f32 names and shapes, no
+   failed renewal and no file left behind; from stamps inside the
+   scheduler: step ms, tokens/s, the round boundary, the largest gap
+   between progress messages beside the adaptive watchdog's deadline,
+   the batch scheduler's ms per message; each Δθ push and broadcast with
+   its bytes, the fold and ``outer_step`` seconds, auction to dispatch,
+   dispatch to first heartbeat and the trainer's peak memory;
 12. train_reference — a tiny Llama (head_dim 64), and the same with a
    sliding window below its sequence (Mistral's local attention), each
    trained 4 steps through the kernels and through the plain flash version
@@ -945,10 +951,9 @@ def write_slices(work_dir, *, n_slices, per_slice, seq, period, seed) -> list:
     return paths
 
 
-def train_spec(job_id: str, model: dict, *, batch: int, lr: float, data=None, ps: str = "ps"):
-    """A DiLoCo train job: slices from ``data`` (default ``file:///slices``,
-    which the stand-ins serve in turn), deltas to and updates from peer
-    ``ps``."""
+def train_spec(job_id: str, model: dict, *, batch: int, lr: float):
+    """A DiLoCo train job: slices from ``file:///slices`` (which the
+    stand-ins serve in turn), deltas to and updates from peer ``ps``."""
     from hypha_tpu_torch.messages import (
         Adam,
         Executor,
@@ -963,9 +968,9 @@ def train_spec(job_id: str, model: dict, *, batch: int, lr: float, data=None, ps
     return JobSpec(job_id=job_id, executor=Executor(
         kind="train", name="diloco-transformer", train=TrainExecutorConfig(
             model=model,
-            data=data or Fetch(Reference.from_uri("file:///slices")),
-            updates=Send(Reference.from_peers([ps], "updates")),
-            results=Receive(Reference.from_peers([ps], "results")),
+            data=Fetch(Reference.from_uri("file:///slices")),
+            updates=Send(Reference.from_peers(["ps"], "updates")),
+            results=Receive(Reference.from_peers(["ps"], "results")),
             optimizer=Adam(lr=lr), batch_size=batch,
         )))
 
@@ -1383,166 +1388,16 @@ def train_cli_phase(train: dict) -> dict:
 # ---------------------------------------------------------- train_node phase
 
 NODE_DATASET = "counting"
-
-
-class StandInScheduler:
-    """The scheduler's side of the protocols on a port ``Node``, for train
-    workers and one parameter server (the scheduler itself is not ported):
-    the auction (a ``RequestWorker`` on ``TOPIC_WORKER``, the first fitting
-    ``WorkerOffer`` taken and accepted with ``RenewLease``), lease renewals
-    at 2/3 of the granted time until ``release``, ``DispatchJob``, slice
-    assignment (``DataRequest`` -> the data node's slices in turn), the
-    workers' ``JobStatus``, and the progress protocol: each train worker's
-    as a ``Scheduler`` of its own answers it (``workers[peer]``), the
-    parameter server's ``UPDATED`` closing its job after the last round."""
-
-    def __init__(self, node, *, rounds, steps):
-        self.rounds, self.steps = rounds, steps
-        self.node = node
-        self.workers: dict = {}  # train worker peer -> its Scheduler
-        self.offers: dict = {}  # request id -> queue of WorkerOffer
-        self.statuses: dict = {}  # job id -> states in arrival order
-        self.updated: list = []  # rounds of the parameter server's UPDATED
-        self.renew_failures: list = []
-        self.data = None  # (provider peer, dataset, number of slices)
-        self.assigned = 0
-        self._changed = asyncio.Event()
-        self._renewers: list = []
-        self._regs: list = []
-
-    def start(self):
-        from hypha_tpu_torch.messages import (
-            PROTOCOL_API,
-            PROTOCOL_PROGRESS,
-            DataRequest,
-            JobStatus,
-            Progress,
-            WorkerOffer,
-        )
-
-        on = self.node.on
-        self._regs = [on(PROTOCOL_API, WorkerOffer).respond_with(self._on_offer),
-                      on(PROTOCOL_API, JobStatus).respond_with(self._on_status),
-                      on(PROTOCOL_API, DataRequest).respond_with(self._on_data),
-                      on(PROTOCOL_PROGRESS, Progress).respond_with(self._on_progress)]
-
-    async def find_dataset(self, dataset):
-        """The data node providing ``dataset`` and its slice count, from the
-        gateway's registry."""
-        from hypha_tpu_torch import messages
-
-        providers = await self.node.find_providers(dataset)
-        record = messages.decode(await self.node.get_record(dataset))
-        self.data = (providers[0], dataset, record.num_slices)
-        return self.data
-
-    async def _on_offer(self, peer, offer):
-        from hypha_tpu_torch.messages import Ack
-
-        offers = self.offers.get(offer.request_id)
-        if offers is None or peer != offer.peer_id:
-            return Ack(ok=False, message="no such request")
-        offers.put_nowait(offer)
-        return Ack()
-
-    async def _on_status(self, peer, status):
-        from hypha_tpu_torch.messages import Ack
-
-        self.statuses.setdefault(status.job_id, []).append(status.state)
-        self._changed.set()
-        return Ack()
-
-    async def _on_data(self, peer, request):
-        from hypha_tpu_torch.messages import DataResponse
-
-        provider, dataset, n = self.data
-        if request.dataset != dataset:
-            raise ValueError(f"unknown dataset {request.dataset!r}")
-        index = self.assigned % n
-        self.assigned += 1
-        return DataResponse(data_provider=provider, index=index)
-
-    async def _on_progress(self, peer, progress):
-        from hypha_tpu_torch.messages import ProgressKind, ProgressResponse, ProgressResponseKind
-
-        if progress.kind == ProgressKind.UPDATED:
-            self.updated.append(progress.round)
-            last = progress.round >= self.rounds - 1
-            return ProgressResponse(kind=ProgressResponseKind.DONE if last else ProgressResponseKind.OK)
-        return self.workers[peer].answer(progress)
-
-    async def auction(self, spec, *, bid=1.0, avoid=(), timeout=30.0):
-        """Publish ``spec`` and accept the first offer from a peer not in
-        ``avoid``: its first renewal, inside the offer's lease, is the
-        acceptance. Returns the offer."""
-        from hypha_tpu_torch.messages import PROTOCOL_API, TOPIC_WORKER, RenewLease, RequestWorker
-
-        request = RequestWorker(spec=spec, bid=bid, reply_to=self.node.peer_id)
-        offers = self.offers[request.id] = asyncio.Queue()
-        loop = asyncio.get_running_loop()
-        deadline = loop.time() + timeout
-        try:
-            while True:
-                # Re-advertise until someone answers: a worker joins the
-                # gossip mesh when it registers with the gateway.
-                await self.node.publish(TOPIC_WORKER, request)
-                try:
-                    offer = await asyncio.wait_for(offers.get(), 1.0)
-                except asyncio.TimeoutError:
-                    if loop.time() > deadline:
-                        raise RuntimeError(f"no offer for {spec} in {timeout} s") from None
-                    continue
-                if offer.peer_id in avoid:
-                    continue
-                granted = await self.node.request(offer.peer_id, PROTOCOL_API,
-                                                  RenewLease(lease_id=offer.lease_id), timeout=5.0)
-                self._renewers.append(asyncio.create_task(
-                    self._renew(offer.peer_id, offer.lease_id, granted.timeout)))
-                return offer
-        finally:
-            del self.offers[request.id]
-
-    async def _renew(self, peer, lease_id, timeout):
-        from hypha_tpu_torch.messages import PROTOCOL_API, RenewLease
-
-        while True:
-            await asyncio.sleep(timeout * 2 / 3)
-            try:
-                resp = await self.node.request(peer, PROTOCOL_API, RenewLease(lease_id=lease_id),
-                                               timeout=5.0)
-                timeout = resp.timeout
-            except Exception as e:  # noted; the phase fails on it
-                self.renew_failures.append(f"{peer}: {e}")
-
-    async def dispatch(self, offer, spec):
-        from hypha_tpu_torch.messages import PROTOCOL_API, DispatchJob
-
-        if spec.executor.kind == "train":
-            self.workers[offer.peer_id] = Scheduler(rounds=self.rounds, steps=self.steps)
-        resp = await self.node.request(offer.peer_id, PROTOCOL_API,
-                                       DispatchJob(lease_id=offer.lease_id, spec=spec), timeout=30.0)
-        if not resp.accepted:
-            raise RuntimeError(f"{offer.peer_id} rejected {spec.job_id}: {resp.message}")
-
-    async def wait_jobs(self, job_ids, limit_s):
-        """Wait until every job reported a final state; False at ``limit_s``."""
-        loop = asyncio.get_running_loop()
-        deadline = loop.time() + limit_s
-        final = {"completed", "failed", "cancelled"}
-        while not all(final & set(self.statuses.get(j, [])) for j in job_ids):
-            self._changed.clear()
-            try:
-                await asyncio.wait_for(self._changed.wait(), max(deadline - loop.time(), 0.0))
-            except asyncio.TimeoutError:
-                return False
-        return True
-
-    async def release(self):
-        for task in self._renewers:
-            task.cancel()
-        await asyncio.gather(*self._renewers, return_exceptions=True)
-        for reg in self._regs:
-            reg.close()
+# The phase's watchdog: the reference's whole-run constant (600 s,
+# orchestrator.DEFAULT_STATUS_TIMEOUT) instead of the adaptive per-round
+# deadline. On an H100 80GB HBM3 at 700 W a healthy round 1 of this job
+# went 65.38 s without a progress message (the parameter server's fold and
+# Nesterov step on 7.52 GB, between the worker's METRICS and UPDATED)
+# while the adaptive deadline's floor is 60 s: it survived only because
+# the trainer's 25 s start-up, still in the mean batch time, lifted that
+# round's deadline to 69.21 s. The phase records the adaptive deadline
+# beside every gap (``progress_timing``).
+NODE_STATUS_TIMEOUT_S = 600.0
 
 
 @contextmanager
@@ -1552,18 +1407,43 @@ def node_probes(device):
     shapes, its bytes and the seconds from the push's header to the saved
     file), each fold and outer step (between two synchronisations of
     ``device``), each broadcast, each Δθ push a worker's connector makes,
-    and the worker's log lines (the trainer process's output)."""
+    the worker's log lines (the trainer process's output), and the
+    scheduler's side: each auction (``GreedyWorkerAllocator.request``),
+    each dispatch (``Task.dispatch``), each job status the scheduler hears
+    (``StatusRouter``; after the router closes, a recorder takes its place
+    so the statuses that follow the job's completion are heard too), each
+    slice assigned (``DataScheduler.assign``), each failed lease renewal
+    (``WorkerHandle._renew``), each deadline the watchdog computes
+    (``Orchestrator._effective_timeout``: the one in force and the
+    adaptive one), and each progress message with
+    its time, the round it belongs to, the batch scheduler's handling time
+    and its answer (``BatchScheduler.on_progress``)."""
     import logging
 
     from hypha_tpu_torch.executor.serialization import read_header
+    from hypha_tpu_torch.messages import PROTOCOL_API, Ack, JobStatus, ProgressKind
+    from hypha_tpu_torch.scheduler.allocator import GreedyWorkerAllocator
+    from hypha_tpu_torch.scheduler.batch_scheduler import BatchScheduler
+    from hypha_tpu_torch.scheduler.data_scheduler import DataScheduler
+    from hypha_tpu_torch.scheduler.orchestrator import Orchestrator
+    from hypha_tpu_torch.scheduler.task import StatusRouter, Task
+    from hypha_tpu_torch.scheduler.worker_handle import WorkerHandle
     from hypha_tpu_torch.stream.accum import RoundAccum
     from hypha_tpu_torch.worker import ps_executor
     from hypha_tpu_torch.worker.connectors import Connector
 
-    rec = {"deltas": [], "fold_s": [], "outer_step_s": [], "broadcast": [], "push": [], "log": []}
+    rec = {"deltas": [], "fold_s": [], "outer_step_s": [], "broadcast": [], "push": [], "log": [],
+           "auctions": [], "dispatch": [], "statuses": [], "slices": [], "renew_failures": [],
+           "timeouts": [], "progress": []}
     PS = ps_executor.ParameterServerExecutor
     saved = (PS._save_delta, ps_executor.outer_step, RoundAccum.fold, PS._broadcast, Connector.send)
     save_delta, outer, fold, broadcast, send = saved
+    sched_saved = (GreedyWorkerAllocator.request, Task.dispatch.__func__, StatusRouter._on_status,
+                   StatusRouter.close, DataScheduler.assign, WorkerHandle._renew,
+                   Orchestrator._effective_timeout, BatchScheduler.on_progress)
+    request, dispatch, on_status, router_close, assign, renew, effective, on_progress = sched_saved
+    late: list = []  # the recorders that replace closed routers
+    worker_round: dict = {}  # peer -> UPDATE_RECEIVED answered so far
 
     async def timed_save(push, work_dir, round_num):
         t0 = time.perf_counter()
@@ -1596,6 +1476,75 @@ def node_probes(device):
         rec["push"].append({"round": (meta or {}).get("round"), "s": time.perf_counter() - t0,
                             "bytes": size})
 
+    async def timed_request(self, spec, price, timeout, num_workers):
+        t0 = time.perf_counter()
+        offers = await request(self, spec, price, timeout, num_workers)
+        rec["auctions"].append({"t0": t0, "t1": time.perf_counter(),
+                                "executor": spec.executor[0].executor_class,
+                                "offers": [o.peer_id for o in offers]})
+        return offers
+
+    async def timed_dispatch(cls, node, router, spec, workers):
+        task = await dispatch(cls, node, router, spec, workers)
+        train = spec.executor.train
+        rec["dispatch"].append({"t": time.perf_counter(), "job_id": spec.job_id,
+                                "kind": spec.executor.kind, "peer": workers[0].peer_id,
+                                "batch_size": train.batch_size if train else None})
+        return task
+
+    async def heard(peer, status):
+        rec["statuses"].append({"t": time.perf_counter(), "peer": peer, "job_id": status.job_id,
+                                "state": status.state})
+
+    async def status_seen(self, peer, status):
+        await heard(peer, status)
+        return await on_status(self, peer, status)
+
+    async def late_status(peer, status):
+        await heard(peer, status)
+        return Ack(ok=True)
+
+    def close_and_keep_listening(self):
+        router_close(self)
+        late.append(self._registration._node.on(PROTOCOL_API, JobStatus).respond_with(late_status))
+
+    def counted_assign(self, peer, prefetch=None):
+        index = assign(self, peer, prefetch)
+        rec["slices"].append((peer, index))
+        return index
+
+    async def noted_renew(self):
+        try:
+            return await renew(self)
+        except Exception as e:  # noted; node_problems fails on it
+            rec["renew_failures"].append(f"{self.peer_id}: {e}")
+            raise
+
+    def noted_timeout(self, ctx):
+        value = effective(self, ctx)
+        # The adaptive deadline too, when the caller set an explicit one.
+        explicit, ctx.status_timeout = ctx.status_timeout, None
+        try:
+            adaptive = effective(self, ctx)
+        finally:
+            ctx.status_timeout = explicit
+        rec["timeouts"].append((time.perf_counter(), value, adaptive))
+        return value
+
+    def stamped(self, peer, progress):
+        t0 = time.perf_counter()
+        resp = on_progress(self, peer, progress)
+        ms = (time.perf_counter() - t0) * 1e3
+        kind = progress.kind
+        own = kind in (ProgressKind.UPDATED, ProgressKind.METRICS)
+        rec["progress"].append({"t": t0, "peer": peer, "kind": kind.value,
+                                "round": progress.round if own else worker_round.get(peer, 0),
+                                "batch_size": progress.batch_size, "ms": ms,
+                                "answer": resp.kind.value, "counter": resp.counter})
+        if kind == ProgressKind.UPDATE_RECEIVED:
+            worker_round[peer] = worker_round.get(peer, 0) + 1
+        return resp
+
     class Lines(logging.Handler):
         def emit(self, record):
             rec["log"].append(record.getMessage())
@@ -1608,49 +1557,76 @@ def node_probes(device):
     ps_executor.outer_step = timed(outer, "outer_step_s")
     RoundAccum.fold = timed(fold, "fold_s")
     PS._broadcast, Connector.send = timed_broadcast, timed_send
+    GreedyWorkerAllocator.request, Task.dispatch = timed_request, classmethod(timed_dispatch)
+    StatusRouter._on_status, StatusRouter.close = status_seen, close_and_keep_listening
+    DataScheduler.assign, WorkerHandle._renew = counted_assign, noted_renew
+    Orchestrator._effective_timeout, BatchScheduler.on_progress = noted_timeout, stamped
     try:
         yield rec
     finally:
         PS._save_delta = staticmethod(save_delta)
         ps_executor.outer_step, RoundAccum.fold, PS._broadcast, Connector.send = saved[1:]
+        GreedyWorkerAllocator.request, Task.dispatch = request, classmethod(dispatch)
+        StatusRouter._on_status, StatusRouter.close = on_status, router_close
+        DataScheduler.assign, WorkerHandle._renew = assign, renew
+        Orchestrator._effective_timeout, BatchScheduler.on_progress = effective, on_progress
+        for reg in late:
+            reg.close()
         logger.removeHandler(handler)
         logger.setLevel(level)
 
 
+def node_job(model: dict, *, rounds, steps, batch, lr, workers):
+    """The DiLoCo job ``run_node_job`` hands the port's scheduler. Each
+    worker asks for ``1 / batch`` of a GPU, and each ``WorkerNode`` offers
+    its whole GPU, so the reference's sizing rule (``batch_size_for``:
+    floor(offered / required), clamped to ``max_batch_size``) dispatches
+    batch ``batch``; a round is ``steps`` batches of every worker."""
+    from hypha_tpu_torch.messages import Adam, Nesterov, PriceRange
+    from hypha_tpu_torch.resources import Resources
+    from hypha_tpu_torch.scheduler.job_config import DiLoCoJob, DiLoCoRounds, JobResources
+
+    return DiLoCoJob(
+        model=model, dataset=NODE_DATASET,
+        rounds=DiLoCoRounds(update_rounds=rounds, avg_samples_between_updates=steps * batch * workers,
+                            max_batch_size=batch),
+        inner_optimizer=Adam(lr=lr), outer_optimizer=Nesterov(lr=0.7, momentum=0.9),
+        resources=JobResources(
+            num_workers=workers, worker=Resources(gpu=1.0 / batch, cpu=1.0, memory=1024),
+            parameter_server=Resources(cpu=1.0, memory=1024),
+            worker_price=PriceRange(bid=1.0, max=10.0),
+            parameter_server_price=PriceRange(bid=1.0, max=10.0)))
+
+
 async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch, seq, period,
-                       lr=3e-4, limit_s=CLI_LIMIT_S, workers=1, train_runtime="process") -> dict:
-    """The whole fabric of the port on ``TcpTransport`` at 127.0.0.1 with
-    ephemeral ports: a ``Gateway``, a ``DataNode`` serving counting-sequence
-    slices as dataset ``counting``, ``workers`` ``WorkerNode``s ``w0``,
-    ``w1``, ... (gpu 1 each; by default the trainer CLI as a process of its
-    own), a ``WorkerNode`` ``psw`` (gpu 0, so never a train worker) hosting
-    the parameter server, everything on ``device``, and
-    ``StandInScheduler`` on a ``Node``: an auction for each, the
-    dispatches, ``rounds`` rounds of ``steps`` inner steps. Returns what the
-    stand-in and ``node_probes`` saw. ``root`` must be short: a trainer's
-    bridge socket lives three levels below it."""
+                       lr=3e-4, limit_s=CLI_LIMIT_S, workers=1, train_runtime="process",
+                       status_timeout=None) -> dict:
+    """The whole port on ``TcpTransport`` at 127.0.0.1 with ephemeral
+    ports: a ``Gateway``, a ``DataNode`` serving counting-sequence slices as
+    dataset ``counting``, ``workers`` ``WorkerNode``s ``w0``, ``w1``, ...
+    (gpu 1 each, offered whole; by default the trainer CLI as a process of
+    its own), a ``WorkerNode`` ``psw`` (gpu 0, so never a train worker)
+    hosting the parameter server, everything on ``device``, and the port's
+    scheduler: ``Orchestrator(node).run(job)`` on a ``Node`` ``sched`` with
+    the JAX CLI's defaults (a 2 s auction; the adaptive watchdog unless
+    ``status_timeout`` is given), running ``node_job``. A scheduler failure (``JobFailed``, ``AllocationError``)
+    propagates. After ``run`` returns it waits up to ``limit_s`` for every
+    job's final status. Returns the ``JobResult`` and what ``node_probes``
+    saw. ``root`` must be short: a trainer's bridge socket lives three
+    levels below it."""
     from hypha_tpu_torch.data_node import DataNode
     from hypha_tpu_torch.gateway import Gateway
-    from hypha_tpu_torch.messages import (
-        AggregateExecutorConfig,
-        Executor,
-        ExecutorDescriptor,
-        Fetch,
-        JobSpec,
-        Nesterov,
-        Receive,
-        Reference,
-        Send,
-        WorkerSpec,
-    )
     from hypha_tpu_torch.network import Node, TcpTransport
     from hypha_tpu_torch.resources import Resources
+    from hypha_tpu_torch.scheduler.orchestrator import Orchestrator
+    from hypha_tpu_torch.worker.arbiter import OfferConfig
     from hypha_tpu_torch.worker.runtime import WorkerNode
 
     data_dir = root / "data"
     data_dir.mkdir(parents=True)
     write_slices(data_dir, n_slices=2, per_slice=rounds * steps * batch // 2, seq=seq,
                  period=period, seed=5)
+    job = node_job(model, rounds=rounds, steps=steps, batch=batch, lr=lr, workers=workers)
     listen = ["127.0.0.1:0"]
     gw = Gateway(TcpTransport(), peer_id="gw")
     await gw.start(listen)
@@ -1658,11 +1634,11 @@ async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch,
     data = DataNode(TcpTransport(), {NODE_DATASET: data_dir}, peer_id="data", bootstrap=boot)
     trainers = [WorkerNode(TcpTransport(), resources=Resources(gpu=1, cpu=8, memory=65536),
                            device=device, peer_id=f"w{i}", train_runtime=train_runtime,
-                           bootstrap=boot, work_root=root / f"w{i}") for i in range(workers)]
+                           offer=OfferConfig(strategy="whole"), bootstrap=boot,
+                           work_root=root / f"w{i}") for i in range(workers)]
     psw = WorkerNode(TcpTransport(), resources=Resources(cpu=8, memory=65536), device=device,
                      peer_id="psw", bootstrap=boot, work_root=root / "ps")
     node = Node(TcpTransport(), peer_id="sched", bootstrap=boot)
-    sched = StandInScheduler(node, rounds=rounds, steps=steps)
     started: list = []
     stalls: list = []
     watch = asyncio.create_task(watch_loop(stalls))
@@ -1672,37 +1648,21 @@ async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch,
                 await part.start(listen)
                 started.append(part)
             await node.wait_for_bootstrap()
-            sched.start()
-            await sched.find_dataset(NODE_DATASET)
-            t_auction = time.perf_counter()
-            train_offers: list = []
-            for _ in range(workers):
-                train_offers.append(await sched.auction(WorkerSpec(
-                    resources=Resources(gpu=1, cpu=1, memory=1024),
-                    executor=[ExecutorDescriptor("train", "diloco-transformer")]),
-                    avoid={o.peer_id for o in train_offers}))
-            ps_offer = await sched.auction(WorkerSpec(
-                resources=Resources(cpu=1, memory=1024),
-                executor=[ExecutorDescriptor("aggregate", "parameter-server")]),
-                avoid={o.peer_id for o in train_offers})
-            peers = [o.peer_id for o in train_offers]
-            agg = JobSpec(job_id="node-agg", executor=Executor(
-                kind="aggregate", name="parameter-server", aggregate=AggregateExecutorConfig(
-                    updates=Receive(Reference.from_peers(peers, "updates")),
-                    results=Send(Reference.from_peers(peers, "results")),
-                    optimizer=Nesterov(lr=0.7, momentum=0.9), num_workers=workers)))
-            await sched.dispatch(ps_offer, agg)
-            jobs = {"aggregate": agg.job_id}
-            for i, offer in enumerate(train_offers):
-                spec = train_spec(f"node-train-{i}", model, batch=batch, lr=lr, ps=ps_offer.peer_id,
-                                  data=Fetch(Reference.from_scheduler(node.peer_id, NODE_DATASET)))
-                await sched.dispatch(offer, spec)
-                jobs[offer.peer_id] = spec.job_id
-            t_dispatch = time.perf_counter()
-            finished = await sched.wait_jobs(list(jobs.values()), limit_s)
+            result = await Orchestrator(node).run(job, status_timeout=status_timeout)
+            # The jobs end after the scheduler's last answer: wait for each
+            # job's final status (the recorder that replaced the router).
+            final = {"completed", "failed", "cancelled"}
+            loop = asyncio.get_running_loop()
+            deadline = loop.time() + limit_s
+            job_ids = {d["job_id"] for d in rec["dispatch"]}
+            while True:
+                ended = {s["job_id"] for s in rec["statuses"] if s["state"] in final}
+                finished = job_ids <= ended
+                if finished or loop.time() > deadline:
+                    break
+                await asyncio.sleep(0.1)
         finally:
             watch.cancel()
-            await sched.release()
             for part in reversed(started):
                 await part.stop()
             await gw.stop()
@@ -1714,11 +1674,16 @@ async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch,
         if not leftover:
             break
         await asyncio.sleep(0.1)
-    beats = [w.marks[0][1] for w in sched.workers.values() if w.marks]
-    return dict(sched=sched, rec=rec, finished=finished, workers=peers, ps=ps_offer.peer_id,
-                jobs={who: sched.statuses.get(job, []) for who, job in jobs.items()},
-                auction_to_dispatch_s=t_dispatch - t_auction,
-                first_beat_s=(min(beats) - t_dispatch) if beats else None,
+    train = [d for d in rec["dispatch"] if d["kind"] == "train"]
+    agg = [d for d in rec["dispatch"] if d["kind"] == "aggregate"]
+    jobs = {d["peer"] if d["kind"] == "train" else "aggregate":
+            [s["state"] for s in rec["statuses"] if s["job_id"] == d["job_id"]]
+            for d in rec["dispatch"]}
+    beats = [p["t"] for p in rec["progress"] if p["kind"] == "status"]
+    return dict(job=job, result=result, rec=rec, finished=finished,
+                workers=[d["peer"] for d in train], ps=agg[0]["peer"] if agg else None, jobs=jobs,
+                auction_to_dispatch_s=max(d["t"] for d in rec["dispatch"]) - rec["auctions"][0]["t0"],
+                first_beat_s=(min(beats) - max(d["t"] for d in train)) if beats else None,
                 loop_stall_max_s=max(stalls, default=0.0),
                 loop_stalls_over_1s=sum(s > 1.0 for s in stalls), leftover=leftover)
 
@@ -1726,7 +1691,7 @@ async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch,
 async def watch_loop(stalls: list, tick: float = 0.05) -> None:
     """Append how late each ``tick`` s sleep of this event loop woke: the
     nodes share the loop, and a stall past a third of the 10 s lease lets
-    a lease expire before the stand-in's renewal lands."""
+    a lease expire before the scheduler's renewal lands."""
     loop = asyncio.get_running_loop()
     while True:
         t0 = loop.time()
@@ -1734,59 +1699,126 @@ async def watch_loop(stalls: list, tick: float = 0.05) -> None:
         stalls.append(loop.time() - t0 - tick)
 
 
-def node_problems(run: dict, *, rounds: int, steps: int, expect: dict) -> list:
-    """The gates the port's fabric must pass, on the CPU as on the card:
-    every job completed (each trainer exited 0 in time), each worker's
-    rounds and heartbeats, the parameter server's UPDATED for each round,
-    each worker's finite round losses with the last below the first, each
-    Δθ the server received in the config's flat f32 names and shapes, no
-    failed lease renewal and no file left behind."""
-    sched, rec = run["sched"], run["rec"]
+def progress_timing(run: dict) -> dict:
+    """The scheduler's view of the job, from ``node_probes``' stamps: step
+    ms (the median interval between a worker's consecutive ``STATUS`` in
+    one round), each worker's round boundary s (``UPDATE`` to
+    ``UPDATE_RECEIVED``), every gap over 5 s between two progress messages
+    and the largest (the watchdog resets on each) beside the least deadline
+    the watchdog held and the least adaptive one it computed inside it, and
+    the batch scheduler's handling ms per message."""
+    prog = run["rec"]["progress"]
+    steps, boundary = [], []
+    for peer in run["workers"]:
+        mine = [p for p in prog if p["peer"] == peer]
+        beats = [p for p in mine if p["kind"] == "status"]
+        steps += [(b["t"] - a["t"]) * 1e3 for a, b in zip(beats, beats[1:])
+                  if a["round"] == b["round"]]
+        t_update = {p["round"]: p["t"] for p in mine if p["kind"] == "update"}
+        boundary += [{"peer": peer, "round": p["round"], "s": p["t"] - t_update[p["round"]]}
+                     for p in mine if p["kind"] == "update-received" and p["round"] in t_update]
+    pairs = list(zip(prog, prog[1:]))
+    gap = max(pairs, key=lambda ab: ab[1]["t"] - ab[0]["t"], default=None)
+    timeouts = run["rec"]["timeouts"]
+    inside = [(v, a) for t, v, a in timeouts if gap and gap[0]["t"] <= t <= gap[1]["t"]]
+    ms = [p["ms"] for p in prog]
+    return dict(
+        step_ms=statistics.median(steps) if steps else None, step_ms_all=steps,
+        round_boundary_s=boundary,
+        progress_gap_max_s=(gap[1]["t"] - gap[0]["t"]) if gap else None,
+        progress_gap_between=[(p["peer"], p["kind"], p["round"]) for p in gap] if gap else None,
+        progress_gaps_over_5s=[(a["kind"], b["kind"], b["round"], b["t"] - a["t"])
+                               for a, b in pairs if b["t"] - a["t"] > 5.0],
+        watchdog_timeout_in_gap_s=min((v for v, _ in inside), default=None),
+        adaptive_deadline_in_gap_s=min((a for _, a in inside), default=None),
+        watchdog_timeouts_s=sorted({v for _, v, _ in timeouts}),
+        adaptive_deadlines_s=sorted({a for _, _, a in timeouts}),
+        handling_ms_median=statistics.median(ms) if ms else None,
+        handling_ms_max=max(ms, default=None), progress_messages=len(ms),
+    )
+
+
+def node_problems(run: dict, *, rounds: int, expect: dict) -> list:
+    """The gates the port must pass under its own scheduler, on the CPU as
+    on the card: every job ``running`` then ``completed`` (each trainer
+    exited 0 in time), ``JobResult.rounds``, each round's ``STATUS``
+    heartbeats times their batch sizes summing to the job's
+    ``avg_samples_between_updates`` (with several workers, within the
+    projection's reach), the dispatched train specs' batch
+    size, the train jobs on the ``w`` nodes and the aggregate job on
+    ``psw``, the parameter server's UPDATED for each round, each worker's
+    finite round losses (``JobResult.metrics``) with the last below the
+    first, each Δθ the server received in the config's flat f32 names and
+    shapes, no failed lease renewal and no file left behind."""
+    rec, job, result = run["rec"], run["job"], run["result"]
     problems = []
     if not run["finished"] or any(s != ["running", "completed"] for s in run["jobs"].values()):
         problems.append(f"job states {run['jobs']} (a trainer must exit 0 in time)")
-    for peer, w in sched.workers.items():
-        losses = [m.get("loss") for _, m in w.metrics]
-        if w.done != rounds or len(w.marks) != rounds * steps:
-            problems.append(f"{peer}: {w.done} rounds and {len(w.marks)} heartbeats, wanted "
-                            f"{rounds} and {rounds * steps}")
+    if result.rounds != rounds:
+        problems.append(f"JobResult.rounds {result.rounds}, wanted {rounds}")
+    # One worker's countdown lands on the target exactly. With several,
+    # the reference's batch scheduler plans each worker's share from its
+    # projection (a worker already counting down is projected again from
+    # scratch), so a round can end a few batches off it: within the
+    # projection's cap of batches of every worker.
+    from hypha_tpu_torch.scheduler.batch_scheduler import UPDATES_CAP
+
+    target = job.rounds.avg_samples_between_updates
+    slack = 0 if job.resources.num_workers == 1 else \
+        UPDATES_CAP * job.rounds.max_batch_size * job.resources.num_workers
+    samples = [sum(p["batch_size"] for p in rec["progress"]
+                   if p["kind"] == "status" and p["round"] == r) for r in range(rounds)]
+    if any(abs(n - target) > slack for n in samples):
+        problems.append(f"samples a round {samples}, wanted {target} each (within {slack})")
+    batches = [d["batch_size"] for d in rec["dispatch"] if d["kind"] == "train"]
+    if batches != [job.rounds.max_batch_size] * job.resources.num_workers:
+        problems.append(f"dispatched batch sizes {batches}, wanted {job.rounds.max_batch_size}")
+    want = [f"w{i}" for i in range(job.resources.num_workers)]
+    if sorted(run["workers"]) != want or run["ps"] != "psw":
+        problems.append(f"train jobs on {run['workers']} and the aggregate job on {run['ps']}, "
+                        f"wanted {want} and psw")
+    updated = [p["round"] for p in rec["progress"] if p["kind"] == "updated"]
+    if updated != list(range(rounds)):
+        problems.append(f"the parameter server's UPDATED rounds {updated}")
+    for peer in run["workers"]:
+        losses = [m.get("loss") for w, _, m in result.metrics if w == peer]
         if (len(losses) != rounds or None in losses
                 or not torch.isfinite(torch.tensor(losses, dtype=torch.float64)).all()
                 or not losses[-1] < losses[0]):
             problems.append(f"{peer}: round losses {losses}: not finite, or the last not below "
                             "the first")
-    if sched.updated != list(range(rounds)):
-        problems.append(f"the parameter server's UPDATED rounds {sched.updated}")
     bad = [i for i, d in enumerate(rec["deltas"]) if d["tensors"] != expect]
-    if len(rec["deltas"]) != rounds * len(sched.workers) or bad:
+    if len(rec["deltas"]) != rounds * len(run["workers"]) or bad:
         problems.append(f"Δθ files {bad} of {len(rec['deltas'])} differ from the config's flat "
                         "f32 names and shapes")
-    if sched.renew_failures:
-        problems.append(f"lease renewals failed: {sched.renew_failures}")
+    if rec["renew_failures"]:
+        problems.append(f"lease renewals failed: {rec['renew_failures']}")
     if run["leftover"]:
         problems.append(f"files left behind: {run['leftover']}")
     return problems
 
 
 def train_node_phase(train: dict) -> dict:
-    """The ``train`` phase's job run by the port's own nodes: auction,
-    dispatch, slice pulls from the data node, Δθ and the update over push
-    streams, the parameter server's fold and Nesterov step on the card."""
+    """The ``train`` phase's job run by the port's own nodes under the
+    port's scheduler: auction, dispatch, slice assignment and pulls from
+    the data node, the batch scheduler's countdown, Δθ and the update over
+    push streams, the parameter server's fold and Nesterov step on the
+    card."""
     root = Path(tempfile.mkdtemp(prefix="chip-smoke-node-"))
     try:
         run = asyncio.run(run_node_job(root, TRAIN_MODEL, device="cuda", rounds=TRAIN_ROUNDS,
                                        steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                                       period=TRAIN_PERIOD))
+                                       period=TRAIN_PERIOD, status_timeout=NODE_STATUS_TIMEOUT_S))
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    rec, (w,) = run["rec"], run["sched"].workers.values()
+    rec, result = run["rec"], run["result"]
     log = "\n".join(rec["log"])
-    steps_total = TRAIN_ROUNDS * TRAIN_STEPS
-    steps = w.step_ms()
-    step_ms = statistics.median(steps) if steps else None
+    timing = progress_timing(run)
+    step_ms = timing["step_ms"]
     found = re.search(r"attention launches: (\{.*\})", log)
     launches = json.loads(found.group(1)) if found else None
     peak = re.search(r"peak device memory: ([\d.]+) GiB", log)
+    heartbeats = [p for p in rec["progress"] if p["kind"] == "status"]
 
     def rates(xs):
         return [x["bytes"] / x["s"] / 1e6 for x in xs]
@@ -1796,28 +1828,41 @@ def train_node_phase(train: dict) -> dict:
 
     res = dict(
         model="llama2-7b", layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+        scheduler="hypha_tpu_torch.scheduler.orchestrator.Orchestrator",
+        status_timeout_s=NODE_STATUS_TIMEOUT_S,
+        adaptive_margin_s=(timing["adaptive_deadline_in_gap_s"] - timing["progress_gap_max_s"]
+                           if timing["adaptive_deadline_in_gap_s"] is not None else None),
         workers={"train": run["workers"], "parameter_server": run["ps"]},
-        jobs=run["jobs"], rounds=w.done, heartbeats=len(w.marks), updated=run["sched"].updated,
-        losses=[m.get("loss") for _, m in w.metrics], step_ms=step_ms, step_ms_all=steps,
+        dispatched_batch=[d["batch_size"] for d in rec["dispatch"] if d["kind"] == "train"],
+        jobs=run["jobs"], result_rounds=result.rounds, heartbeats=len(heartbeats),
+        batches_a_round=[sum(p["round"] == r for p in heartbeats) for r in range(TRAIN_ROUNDS)],
+        schedule_updates=[(p["peer"], p["round"], p["counter"]) for p in rec["progress"]
+                          if p["answer"] == "schedule-update"],
+        updated=[p["round"] for p in rec["progress"] if p["kind"] == "updated"],
+        losses=[(w, r, m.get("loss")) for w, r, m in result.metrics],
         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3) if step_ms else None,
-        round_boundary_s=w.update_s,
+        **timing,
         delta_push=rec["push"], delta_push_mb_per_s=rates(rec["push"]),
         delta_received=[{k: d[k] for k in ("round", "from", "s", "bytes")} for d in rec["deltas"]],
         broadcast=rec["broadcast"], broadcast_mb_per_s=rates(rec["broadcast"]),
         fold_s=rec["fold_s"], outer_step_s=rec["outer_step_s"],
         trainer_delta_write_s=trainer_s("delta written"),
         trainer_update_merge_s=trainer_s("update merged"),
+        auctions=[{"executor": a["executor"], "s": a["t1"] - a["t0"], "offers": a["offers"]}
+                  for a in rec["auctions"]],
         auction_to_dispatch_s=run["auction_to_dispatch_s"],
         loop_stall_max_s=run["loop_stall_max_s"], loop_stalls_over_1s=run["loop_stalls_over_1s"],
-        start_to_first_heartbeat_s=run["first_beat_s"], attention_launches=launches,
+        dispatch_to_first_heartbeat_s=run["first_beat_s"], attention_launches=launches,
         trainer_peak_gib=float(peak.group(1)) if peak else None,
-        slices_assigned=run["sched"].assigned, leftover_files=run["leftover"],
+        slices_assigned=len(rec["slices"]), leftover_files=run["leftover"],
         train_phase={k: train[k] for k in ("step_ms", "tokens_per_s", "update_phase_s", "peak_mem_gib")},
     )
+    steps_total = sum(res["batches_a_round"])
     want = {"fwd": 2 * TRAIN_LAYERS * steps_total, "dq": TRAIN_LAYERS * steps_total,
             "dkv": TRAIN_LAYERS * steps_total, "flash_plain": 0, "dense": 0}
-    problems = node_problems(run, rounds=TRAIN_ROUNDS, steps=TRAIN_STEPS,
-                             expect=flat_f32_spec(TRAIN_MODEL))
+    problems = node_problems(run, rounds=TRAIN_ROUNDS, expect=flat_f32_spec(TRAIN_MODEL))
+    if res["batches_a_round"] != [TRAIN_STEPS] * TRAIN_ROUNDS:
+        problems.append(f"batches a round {res['batches_a_round']}, wanted {TRAIN_STEPS} each")
     if "attention path: flash kernels" not in log or launches != want:
         problems.append(f"attention launches {launches}, wanted {want} through the flash kernels")
     if problems:

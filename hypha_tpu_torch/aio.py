@@ -1,6 +1,7 @@
 """Asyncio task lifecycle helpers (a copy of the subset of
-``hypha_tpu/aio.py`` that the fabric, the worker runtime and the Job
-Bridge use: ``spawn``, ``reap``, ``wait_quiet`` and ``retry``). The
+``hypha_tpu/aio.py`` that the fabric, the worker runtime, the Job Bridge
+and the scheduler use: ``spawn``, ``reap``, ``wait_quiet``,
+``gather_bounded`` and ``retry``). The
 reference's task-failure and retry counters and its flight-recorder
 breadcrumbs belong to its telemetry, which is not ported (ROADMAP.md,
 Queue 1: telemetry); a failed background task or a retried attempt is
@@ -18,7 +19,7 @@ import logging
 import random
 from typing import Any, Awaitable, Callable, Coroutine, MutableSet, TypeVar
 
-__all__ = ["spawn", "reap", "wait_quiet", "retry"]
+__all__ = ["spawn", "reap", "wait_quiet", "gather_bounded", "retry"]
 
 log = logging.getLogger("hypha.torch.aio")
 
@@ -100,6 +101,33 @@ async def wait_quiet(
 
 
 _T = TypeVar("_T")
+
+
+async def gather_bounded(
+    fns: "list[Callable[[], Awaitable[_T]]]", *, limit: int = 8
+) -> "list[_T]":
+    """Run awaitable FACTORIES concurrently, at most ``limit`` in flight,
+    returning results in input order.
+
+    The scheduler's fan-out primitive (lease acceptance, dispatch): a
+    serial ``for peer: await`` walk makes every control-plane sweep O(N)
+    round trips, while an unbounded gather floods the fabric. Nothing is
+    created until a slot frees. The first failure propagates after every
+    sibling is cancelled and awaited (no orphaned in-flight requests).
+    """
+    if not fns:
+        return []
+    sem = asyncio.Semaphore(max(int(limit), 1))
+
+    async def run(fn: "Callable[[], Awaitable[_T]]") -> "_T":
+        async with sem:
+            return await fn()
+
+    tasks = [asyncio.create_task(run(fn)) for fn in fns]
+    try:
+        return await asyncio.gather(*tasks)
+    finally:
+        await reap(*(t for t in tasks if not t.done()))
 
 
 async def retry(

@@ -31,7 +31,10 @@ def _port_files():
     rel = {str(p.relative_to(ROOT)) for p in files}
     for must in ("hypha_tpu_torch/network/node.py", "hypha_tpu_torch/network/fabric.py",
                  "hypha_tpu_torch/worker/arbiter.py", "hypha_tpu_torch/worker/runtime.py",
-                 "hypha_tpu_torch/data_node.py", "hypha_tpu_torch/codec.py"):
+                 "hypha_tpu_torch/data_node.py", "hypha_tpu_torch/codec.py",
+                 "hypha_tpu_torch/scheduler/orchestrator.py",
+                 "hypha_tpu_torch/scheduler/batch_scheduler.py",
+                 "hypha_tpu_torch/scheduler/metrics_bridge.py"):
         assert must in rel, must
     return files
 

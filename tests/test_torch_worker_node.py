@@ -8,12 +8,17 @@
    parameter server. Both rounds close, both workers report finite losses
    for rounds 0 and 1, and the two workers' Δθ files carry the same names,
    shapes and dtype.
-2. A port-only fabric (the port's gateway, data node and worker nodes on
-   the port's ``TcpTransport``) under ``chip_smoke.py``'s scheduler
-   stand-in, with the trainer CLI as a process of its own: the smoke's
-   ``train_node`` phase on the CPU, held to the same gates
-   (``chip_smoke.node_problems``).
-3. A ``WorkerNode`` built with no CUDA and no ``device`` raises.
+2. The same job the other way round: the port's scheduler
+   (``Orchestrator`` on a port ``Node``), the port's gateway and data node
+   on the port's ``TcpTransport`` run it on a JAX ``WorkerNode`` and a port
+   ``WorkerNode``, with a port ``WorkerNode`` hosting the parameter server.
+   The job is the JAX ``DiLoCoJob`` decoded by the port's codec. Both
+   rounds close with finite losses from both workers.
+3. The port alone (gateway, data node, worker nodes and scheduler on the
+   port's ``TcpTransport``), with the trainer CLI as a process of its own
+   and with two in-process trainers: the smoke's ``train_node`` phase on
+   the CPU, held to the same gates (``chip_smoke.node_problems``).
+4. A ``WorkerNode`` built with no CUDA and no ``device`` raises.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from _torch_parity import tiny_pair
 from hypha_tpu.data_node import DataNode as JDataNode
 from hypha_tpu.executor.serialization import flatten_tree
 from hypha_tpu.gateway import Gateway as JGateway
+from hypha_tpu import messages as jmsg
 from hypha_tpu.messages import Adam, Fetch, Nesterov, PriceRange, Reference, to_json_dict
 from hypha_tpu.network import Node as JNode
 from hypha_tpu.network import TcpTransport as JTcp
@@ -43,7 +49,12 @@ from hypha_tpu.scheduler.metrics_bridge import CallbackConnector
 from hypha_tpu.scheduler.orchestrator import Orchestrator
 from hypha_tpu.worker.arbiter import OfferConfig as JOfferConfig
 from hypha_tpu.worker.runtime import WorkerNode as JWorkerNode
-from hypha_tpu_torch.network import TcpTransport
+from hypha_tpu_torch import messages as tmsg
+from hypha_tpu_torch.data_node import DataNode
+from hypha_tpu_torch.gateway import Gateway
+from hypha_tpu_torch.network import Node, TcpTransport
+from hypha_tpu_torch.scheduler.metrics_bridge import CallbackConnector as TCallbackConnector
+from hypha_tpu_torch.scheduler.orchestrator import Orchestrator as TOrchestrator
 from hypha_tpu_torch.resources import Resources
 from hypha_tpu_torch.worker.arbiter import OfferConfig
 from hypha_tpu_torch.worker.runtime import WorkerNode
@@ -137,10 +148,70 @@ def test_jax_scheduler_runs_a_job_on_jax_and_torch_workers(tmp_path):
     assert len(rec["fold_s"]) == 2 * ROUNDS and len(rec["outer_step_s"]) == ROUNDS
 
 
+def test_port_scheduler_runs_a_job_on_jax_and_torch_workers(tmp_path):
+    _, variables, _ = tiny_pair("llama", seed=7)
+    weights = tmp_path / "theta0.safetensors"
+    save_file(flatten_tree(variables), str(weights))
+    data_dir = _dataset(tmp_path)
+    # The JAX job, as the port decodes it off the wire.
+    job = tmsg.decode(jmsg.encode(_mixed_job(weights)))
+    assert type(job).__module__ == "hypha_tpu_torch.scheduler.job_config"
+    root = Path(tempfile.mkdtemp(prefix="wp"))  # bridge sockets: paths under 108 bytes
+    tracked: list = []
+
+    async def main():
+        gw = Gateway(TcpTransport(), peer_id="gw")
+        await gw.start(LISTEN)
+        boot = [gw.node.listen_addrs[0]]
+        parts = [DataNode(TcpTransport(), {"counting": data_dir}, peer_id="data", bootstrap=boot),
+                 JWorkerNode(JTcp(), resources=JResources(gpu=2, cpu=8, memory=1000),
+                             peer_id="wjax", offer=JOfferConfig(strategy="whole"),
+                             bootstrap=boot, work_root=root / "j"),
+                 WorkerNode(TcpTransport(), resources=Resources(gpu=2, cpu=8, memory=1000),
+                            device="cpu", peer_id="wtorch", offer=OfferConfig(strategy="whole"),
+                            bootstrap=boot, work_root=root / "t"),
+                 WorkerNode(TcpTransport(), resources=Resources(cpu=2, memory=200), device="cpu",
+                            peer_id="psw", bootstrap=boot, work_root=root / "p")]
+        sched = Node(TcpTransport(), peer_id="sched", bootstrap=boot)
+        started = []
+        try:
+            for part in (*parts, sched):
+                await part.start(LISTEN)
+                started.append(part)
+            await sched.wait_for_bootstrap()
+            orch = TOrchestrator(sched, metrics_connector=TCallbackConnector(
+                lambda w, r, n, v: tracked.append((w, r, n, v))))
+            return await orch.run(job, auction_timeout=1.5)
+        finally:
+            for part in reversed(started):
+                await part.stop()
+            await gw.stop()
+
+    try:
+        with chip_smoke.node_probes("cpu") as rec:
+            result = asyncio.run(asyncio.wait_for(main(), 150))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    assert result.rounds == ROUNDS and result.attempt == 0
+    losses = {(w, r): v for w, r, n, v in tracked if n == "loss"}
+    assert set(losses) == {(w, r) for w in ("wjax", "wtorch") for r in range(ROUNDS)}, losses
+    assert all(np.isfinite(v) for v in losses.values()), losses
+    assert {(w, r) for w, r, m in result.metrics} == set(losses)
+    # Both workers sized by the reference's rule (gpu 2 offered whole, 1
+    # asked: floor 2, clamped to max_batch_size 2), the server on psw.
+    assert sorted((d["kind"], d["peer"], d["batch_size"]) for d in rec["dispatch"]) == [
+        ("aggregate", "psw", None), ("train", "wjax", 2), ("train", "wtorch", 2)]
+    assert [p["round"] for p in rec["progress"] if p["kind"] == "updated"] == [0, 1]
+    got = {(d["from"], d["round"]) for d in rec["deltas"]}
+    assert got == {(w, r) for w in ("wjax", "wtorch") for r in range(ROUNDS)}, sorted(got)
+    assert not rec["renew_failures"]
+
+
 @pytest.mark.parametrize("workers,runtime", [(1, "process"), (2, "in-process")])
 def test_port_fabric_runs_the_smoke_job_on_the_cpu(workers, runtime):
     """``chip_smoke.py``'s ``train_node`` phase, rehearsed on the CPU (one
-    trainer process), and the card test's two in-process trainers."""
+    trainer process), and the card test's two in-process trainers, under
+    the port's scheduler."""
     model = {"model_type": "causal-lm", "family": "llama", "preset": "tiny",
              "config": {"dtype": "float32"}, "seed": 0}
     root = Path(tempfile.mkdtemp(prefix="tn"))
@@ -151,7 +222,7 @@ def test_port_fabric_runs_the_smoke_job_on_the_cpu(workers, runtime):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log = "\n".join(run["rec"]["log"])
-    assert chip_smoke.node_problems(run, rounds=ROUNDS, steps=3,
+    assert chip_smoke.node_problems(run, rounds=ROUNDS,
                                     expect=chip_smoke.flat_f32_spec(model)) == [], log[-3000:]
     peers = [f"w{i}" for i in range(workers)]
     assert (sorted(run["workers"]), run["ps"]) == (peers, "psw")
@@ -161,12 +232,19 @@ def test_port_fabric_runs_the_smoke_job_on_the_cpu(workers, runtime):
         for what in ("delta written", "update merged"):
             assert [int(r) for r in re.findall(rf"round (\d+): {what} in [\d.]+ s", log)] \
                 == list(range(ROUNDS)), what
-    assert run["sched"].assigned >= 2 * workers  # two slices of three batches of two each
     rec = run["rec"]
+    assert len(rec["slices"]) >= 2 * workers  # two slices of three batches of two each
     assert sorted(p["round"] for p in rec["push"]) == sorted(list(range(ROUNDS)) * workers)
     assert [b["round"] for b in rec["broadcast"]] == [0, 1]
     assert all(b["bytes"] == rec["deltas"][0]["bytes"] for b in rec["broadcast"])
     assert run["auction_to_dispatch_s"] > 0 and run["first_beat_s"] > 0
+    timing = chip_smoke.progress_timing(run)
+    assert timing["step_ms"] > 0 and timing["handling_ms_max"] > 0
+    assert len(timing["round_boundary_s"]) == ROUNDS * workers
+    assert timing["progress_messages"] == len(rec["progress"])
+    if workers == 1:  # one worker's countdown: exactly ``steps`` batches a round
+        beats = [p["round"] for p in rec["progress"] if p["kind"] == "status"]
+        assert beats == [r for r in range(ROUNDS) for _ in range(3)]
 
 
 def test_worker_node_needs_cuda_or_an_explicit_cpu(monkeypatch):
