@@ -33,13 +33,25 @@ Phases, each printing one JSON line:
 7. reference — the 7B decode forward (through the kernel) against the
    training forward (plain attention), and a tiny f32 Llama whose pool
    tokens must equal one-shot ``generate``;
-8. flash_kernels — the flash-attention forward, dQ and dK/dV kernels
+8. serve_node — ``serve``'s requests over the network: a gateway, a worker
+   and a scheduler, each ``python -m hypha_tpu_torch <role> run`` from a
+   TOML its ``init`` wrote (``run_serve_node``); the scheduler's serve job
+   (``SERVE_JOB``, the pool of ``serve``) auctions the worker, which loads
+   the 7B model and serves it through the ragged kernel; this process is
+   the client (``generate_remote``). Gates (``serve_node_problems``): the
+   answers equal ``serve``'s token for token and the repeats equal, the
+   worker's launch line shows mma and decode launches in multiples of 32
+   layers and no plain call, no fallback, no kernel built anew, and each
+   process exits 0 within 30 s of SIGTERM, leaving no work dir; it
+   reports bring-up, dispatch to the first answer, each request's latency
+   and the wall time beside ``serve``'s, and the worker's peak memory;
+9. flash_kernels — the flash-attention forward, dQ and dK/dV kernels
    against their plain versions (bf16; MHA 32/32 and GQA 32/8; causal and
    not; S 2048, a ragged 1000, Sq != Sk; head_dim 128 and 64; sliding
    windows, Mistral-7B's 4096 at S 4608 among them), the forward, dQ and
    dK/dV bit-identical on a second launch, then each kernel's time at the
    training shape beside its plain version, SDPA and the card's bound;
-9. train — the serving model freed, ``run_training`` at Llama-2-7B widths
+10. train — the serving model freed, ``run_training`` at Llama-2-7B widths
    cut to 8 layers (S 2048, batch 2, remat) behind an in-process scheduler
    and parameter server (the port's ``RoundAccum`` and ``outer_step`` on
    the card, ``ps_round``):
@@ -48,7 +60,7 @@ Phases, each printing one JSON line:
    and exact merges; step time, tokens/s, peak memory and the kernels'
    device time per step from the profiler, where one step must show each
    bf16 tensor-core flash kernel with its launches (16 / 8 / 8);
-10. train_cli — the same training cut to 2 layers (``CLI_LAYERS``) as a
+11. train_cli — the same training cut to 2 layers (``CLI_LAYERS``) as a
    process of its own: ``python -m
    hypha_tpu_torch.executor.training`` (no ``--device``: it runs on the
    card) behind the port's Job Bridge (``worker/bridge.py``) on a unix
@@ -61,7 +73,7 @@ Phases, each printing one JSON line:
    boundary, the fold and the outer step (its file I/O, copies and norms
    timed apart), the bridge's time per ``/status/send``, the trainer's
    start-up and peak device memory (its log) beside the ``train`` phase's;
-11. train_node — the ``train`` phase's job at its full 8 layers, run by
+12. train_node — the ``train`` phase's job at its full 8 layers, run by
    the port alone (``run_node_job``) on ``TcpTransport`` at 127.0.0.1: a
    ``Gateway``, a ``DataNode`` serving the slices, a ``WorkerNode`` ``w0``
    whose process executor runs the trainer CLI on the card, a
@@ -81,7 +93,7 @@ Phases, each printing one JSON line:
    the batch scheduler's ms per message; each Δθ push and broadcast with
    its bytes, the fold and ``outer_step`` seconds, auction to dispatch,
    dispatch to first heartbeat and the trainer's peak memory;
-12. train_reference — a tiny Llama (head_dim 64), and the same with a
+13. train_reference — a tiny Llama (head_dim 64), and the same with a
    sliding window below its sequence (Mistral's local attention), each
    trained 4 steps through the kernels and through the plain flash version
    from the same weights, with no call of the dense attention.
@@ -100,6 +112,8 @@ import os
 import queue
 import re
 import shutil
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -107,6 +121,7 @@ import tempfile
 import threading
 import time
 from contextlib import contextmanager
+from datetime import datetime
 from pathlib import Path
 
 import torch
@@ -304,10 +319,12 @@ def kernel_phase() -> dict:
         _decode_splits,
         _launch,
         _ragged_route,
+        _sm_count,
         ragged_block_attention,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = _sm_count(torch.cuda.current_device())
     bs, max_blocks, blocks = 16, 64, 512  # the 7B pool: max_len 1024, 512 blocks
     cases = []
     for hq, hkv in ((32, 32), (32, 8)):
@@ -346,7 +363,7 @@ def kernel_phase() -> dict:
         kv.v[unreachable] = kv.v[unreachable] * 2 - 5
         r = dict(c, main_route=_ragged_route(c["sq"], q.dtype), tol=TOL[torch.bfloat16])
         if c["sq"] == 1:
-            r["decode_splits"] = _decode_splits(4, c["hkv"], max_blocks, bs)
+            r["decode_splits"] = _decode_splits(4, c["hkv"], max_blocks, bs, sms)
         ok = True
         for name, out in got.items():
             err = (out.float() - ref.float()).abs().max().item()
@@ -402,7 +419,7 @@ def kernel_phase() -> dict:
                 return lambda i: _launch(pools[i][0], pools[i][1], name, q_offset=pools[i][2],
                                          splits=n, **kw)
 
-            splits = _decode_splits(B, hkv, max_blocks, bs)
+            splits = _decode_splits(B, hkv, max_blocks, bs, sms)
             contenders = {"decode": route("decode"), "simt": route("simt"), "mma": route("mma"),
                           "sdpa": lambda i: sdpa(qh[i], *dense[i], enable_gqa=hq != hkv)}
             for n in SPLIT_SWEEP:
@@ -531,7 +548,232 @@ def serve_phase(model, *, kv_quant: str, lengths: list, n_new: list) -> dict:
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         repeat_identical=True, **stats,
     )
+    # For serve_node (main keeps them out of the phase's line).
+    res.update(prompts=prompts, answers=out, layers=layers)
     return res
+
+
+# ---------------------------------------------------------- serve_node phase
+
+# The ``serve`` phase's pool as a scheduler's serve job: 8 slots, blocks of
+# 16 (512 of them, derived), the ragged kernel, 64 new tokens at most; the
+# executor derives max_len 1024 and a decode chunk of 8.
+SERVE_NAME = "llama7b"
+SERVE_JOB = {"job.kind": "serve", "job.serve_name": SERVE_NAME, "job.model_family": "llama",
+             "job.model_preset": "llama2-7b", "job.model_type": "causal-lm",
+             "job.model_seed": 0, "job.serve_max_batch": 8, "job.serve_block_size": 16,
+             "job.serve_blocks": 0, "job.serve_ragged": True, "job.serve_max_new_tokens": 64}
+NODE_WAIT_S = 300.0  # every wait of the phase: bring-up, each request
+STOP_WAIT_S = 30.0  # each process must exit within this after SIGTERM
+SERVE_ROLES = ("gateway", "worker", "scheduler")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _log_time(line: str) -> float:
+    """The wall-clock time of a log line (the CLI's ``%(asctime)s``)."""
+    return datetime.strptime(line[:23], "%Y-%m-%d %H:%M:%S,%f").timestamp()
+
+
+async def _wait_for_text(path: Path, text: str, proc, deadline: float) -> None:
+    loop = asyncio.get_running_loop()
+    while text not in path.read_text(errors="replace"):
+        if proc.returncode is not None:
+            raise SystemExit(f"{path.name}: exited {proc.returncode} before {text!r}:\n"
+                             f"{path.read_text(errors='replace')[-4000:]}")
+        if loop.time() > deadline:
+            raise SystemExit(f"{path.name}: no {text!r} within {NODE_WAIT_S} s")
+        await asyncio.sleep(0.1)
+
+
+async def run_serve_node(root: Path, job: dict, prompts: list, n_new: list, *,
+                         device: "str | None" = None, repeat: int = 2) -> dict:
+    """The quickstart as processes: write ``gateway``, ``worker`` and
+    ``scheduler`` TOMLs with the port's ``init``, start each with
+    ``python -m hypha_tpu_torch <role> run -c ... --set ...`` (the gateway
+    on a free port of 127.0.0.1; worker ``w0`` offering its whole GPU from
+    a ``work_root`` under ``root``, with ``--device`` when given; the
+    scheduler running ``job``), then act as the client: a port ``Node``
+    bootstrapped at the gateway sends each prompt with its ``n_new`` as a
+    request of its own, all at once, through ``generate_remote``, then the
+    first ``repeat`` again. Finally SIGTERM to the scheduler, the worker and
+    the gateway in turn. Every wait has a deadline. Returns the answers,
+    the timings, the exit codes and what the worker logged."""
+    from hypha_tpu_torch.network import Node, TcpTransport
+    from hypha_tpu_torch.worker.infer_executor import generate_remote, serve_key
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH", "")) if p)}
+    cli = [sys.executable, "-m", "hypha_tpu_torch"]
+    name = job["job.serve_name"]
+    for role in SERVE_ROLES:
+        subprocess.run([*cli, role, "init", "-o", str(root / f"{role}.toml")], check=True,
+                       env=env, cwd=repo, capture_output=True, timeout=60)
+    gateway = f"127.0.0.1:{_free_port()}"
+    work = root / "work"
+    work.mkdir()
+    sets = {
+        "gateway": {"network.listen": [gateway]},
+        "worker": {"resources.gpu": 1, "resources.cpu": 8, "resources.memory": 65536,
+                   "offer.strategy": "whole", "work_root": str(work),
+                   "network.gateways": [gateway]},
+        "scheduler": {**job, "network.gateways": [gateway]},
+    }
+    flags = {"worker": ["--name", "w0"] + (["--device", device] if device else [])}
+    loop = asyncio.get_running_loop()
+    procs, logs, files = {}, {}, []
+    exits, stop_s = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for role in SERVE_ROLES:
+            args = [*cli, role, "run", "-c", str(root / f"{role}.toml"), *flags.get(role, [])]
+            for key, value in sets[role].items():
+                args += ["--set", f"{key}={json.dumps(value)}"]
+            logs[role] = root / f"{role}.log"
+            files.append(open(logs[role], "wb"))
+            procs[role] = await asyncio.create_subprocess_exec(
+                *args, stdout=files[-1], stderr=subprocess.STDOUT, env=env, cwd=repo)
+            if role == "gateway":
+                await _wait_for_text(logs[role], "gateway gateway on", procs[role],
+                                     loop.time() + NODE_WAIT_S)
+        client = Node(TcpTransport(), peer_id="client", bootstrap=[gateway])
+        await client.start(["127.0.0.1:0"])
+        try:
+            await client.wait_for_bootstrap()
+            deadline = loop.time() + NODE_WAIT_S
+            while not await client.find_providers(serve_key(name)):
+                for role, p in procs.items():
+                    if p.returncode is not None:
+                        raise SystemExit(f"{role} exited {p.returncode} during bring-up:\n"
+                                         f"{logs[role].read_text(errors='replace')[-4000:]}")
+                if loop.time() > deadline:
+                    raise SystemExit(f"serve:{name} did not resolve within {NODE_WAIT_S} s")
+                await asyncio.sleep(0.1)
+            bring_up_s = time.perf_counter() - t0
+
+            async def one(prompt, n):
+                t = time.perf_counter()
+                toks = await generate_remote(client, name, [prompt], n, timeout=NODE_WAIT_S)
+                return toks, time.perf_counter() - t, time.time()
+
+            t1 = time.perf_counter()
+            got = await asyncio.wait_for(
+                asyncio.gather(*(one(p, n) for p, n in zip(prompts, n_new))), NODE_WAIT_S)
+            wall_s = time.perf_counter() - t1
+            again = await asyncio.wait_for(asyncio.gather(*(
+                generate_remote(client, name, [p], n, timeout=NODE_WAIT_S)
+                for p, n in zip(prompts[:repeat], n_new[:repeat]))), NODE_WAIT_S)
+        finally:
+            await client.stop()
+    finally:
+        for role in reversed(SERVE_ROLES):
+            p = procs.get(role)
+            if p is None:
+                continue
+            t = time.perf_counter()
+            if p.returncode is None:
+                p.send_signal(signal.SIGTERM)
+            try:
+                exits[role] = await asyncio.wait_for(p.wait(), STOP_WAIT_S)
+            except asyncio.TimeoutError:
+                p.kill()
+                await p.wait()
+                exits[role] = "killed"
+            stop_s[role] = time.perf_counter() - t
+        for f in files:
+            f.close()
+    text = {role: logs[role].read_text(errors="replace") for role in logs}
+    launches = [json.loads(line.split("serve launches: ", 1)[1])
+                for line in text["worker"].splitlines() if "serve launches: " in line]
+    peak = [float(line.split("peak device memory: ", 1)[1].split()[0])
+            for line in text["worker"].splitlines() if "peak device memory: " in line]
+    # "job J model loaded in S s[, peak device memory P GiB]"
+    loaded = [re.findall(r"[\d.]+(?= s\b| GiB)", line.split("model loaded in ", 1)[1])
+              for line in text["worker"].splitlines() if "model loaded in " in line]
+    dispatched = [_log_time(line) for line in text["scheduler"].splitlines()
+                  if f"serving {name} deployed on" in line]
+    latencies = sorted(lat for _, lat, _ in got)
+    return dict(
+        answers=[toks for toks, _, _ in got], again=again, bring_up_s=bring_up_s,
+        dispatch_to_first_answer_s=(min(at for _, _, at in got) - dispatched[0]
+                                    if dispatched else None),
+        latency_s=[lat for _, lat, _ in got], latency_median_s=statistics.median(latencies),
+        latency_max_s=latencies[-1], wall_s=wall_s, exits=exits, stop_s=stop_s,
+        launches=launches[0] if len(launches) == 1 else launches,
+        peak_mem_gib=peak[0] if peak else None,
+        load_s=float(loaded[0][0]) if loaded else None,
+        load_peak_mem_gib=float(loaded[0][1]) if loaded and len(loaded[0]) > 1 else None,
+        kernel_builds=[line.split("kernel library ", 1)[1] for line in
+                       text["worker"].splitlines() if "kernel library " in line],
+        leftover=sorted(str(p.relative_to(work)) for p in work.rglob("*")),
+        logs={role: str(path) for role, path in logs.items()},
+    )
+
+
+def serve_node_problems(run: dict, *, want: list, n_new: list, layers: int, device: str) -> list:
+    """The gates of the serve_node phase: every request answered with its
+    ``n_new`` tokens, equal to ``want`` (the in-process pool's answers) and
+    the repeats equal; the worker's launches line with mma and decode
+    launches, each a multiple of ``layers``, and no plain call on the card
+    (on the CPU only plain calls); no one-shot fallback; on the card, no
+    kernel built anew; every process out with 0 within ``STOP_WAIT_S`` and
+    nothing left in the work root."""
+    problems = []
+    for i, (toks, n) in enumerate(zip(run["answers"], n_new)):
+        if len(toks) != 1 or len(toks[0]) != n:
+            problems.append(f"request {i} answered {[len(t) for t in toks]} tokens, wanted {n}")
+    if run["answers"] != want:
+        problems.append("the network's answers differ from the in-process pool's")
+    if run["again"] != run["answers"][:len(run["again"])]:
+        problems.append("a repeated request returned different tokens")
+    lc = run["launches"]
+    if not isinstance(lc, dict):
+        problems.append(f"want one serve launches line from the worker, got {lc}")
+    elif device == "cuda":
+        if (lc["mma"] <= 0 or lc["decode"] <= 0 or lc["mma"] % layers or lc["decode"] % layers
+                or lc["plain"] != 0):
+            problems.append(f"launches {lc} (layers {layers})")
+    elif lc["plain"] <= 0 or lc["mma"] or lc["decode"] or lc["simt"]:
+        problems.append(f"launches {lc} on the CPU")
+    if isinstance(lc, dict) and lc["fallbacks"]:
+        problems.append(f"{lc['fallbacks']} requests left the pool for the one-shot fallback")
+    if device == "cuda" and (not run["kernel_builds"]
+                             or any(b.split(": ", 1)[1] != "cached" for b in run["kernel_builds"])):
+        problems.append(f"the worker built kernels anew: {run['kernel_builds']}")
+    for role in SERVE_ROLES:
+        if run["exits"].get(role) != 0 or run["stop_s"].get(role, STOP_WAIT_S) >= STOP_WAIT_S:
+            problems.append(f"{role} exited {run['exits'].get(role)} after "
+                            f"{run['stop_s'].get(role)} s of SIGTERM")
+    if run["leftover"]:
+        problems.append(f"left in the work root: {run['leftover']}")
+    return problems
+
+
+def serve_node_phase(serve: dict) -> dict:
+    """``serve``'s requests through a gateway, a worker and a scheduler,
+    each a process of its own started from TOML by the port's CLI."""
+    root = Path(tempfile.mkdtemp(prefix="hsn"))
+    try:
+        run = asyncio.run(run_serve_node(root, SERVE_JOB, serve["prompts"], serve["n_new"]))
+        problems = serve_node_problems(run, want=serve["answers"], n_new=serve["n_new"],
+                                       layers=serve["layers"], device="cuda")
+        if problems:
+            logs = {r: Path(p).read_text(errors="replace")[-3000:] for r, p in run["logs"].items()}
+            raise SystemExit(f"serve_node: {problems}\n{json.dumps(logs, indent=1)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    keep = ("bring_up_s", "dispatch_to_first_answer_s", "latency_s", "latency_median_s",
+            "latency_max_s", "wall_s", "stop_s", "exits", "launches", "peak_mem_gib",
+            "load_s", "load_peak_mem_gib", "kernel_builds")
+    return dict(requests=len(serve["prompts"]), serve_wall_s=serve["wall_s"],
+                network_share=1.0 - serve["wall_s"] / run["wall_s"],
+                answers_equal_serve=True, repeat_identical=True,
+                **{k: run[k] for k in keep})
 
 
 def profile_phase(model) -> dict:
@@ -541,11 +783,12 @@ def profile_phase(model) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from hypha_tpu_torch.ops.kvcache import KVCache
-    from hypha_tpu_torch.ops.paged_attention import _decode_splits
+    from hypha_tpu_torch.ops.paged_attention import _decode_splits, _sm_count
 
     B, per_lane, n = 8, 32, 10
     layers = model.config.num_layers
-    splits = _decode_splits(B, model.config.num_kv_heads, 1024 // 16, 16)
+    splits = _decode_splits(B, model.config.num_kv_heads, 1024 // 16, 16,
+                            _sm_count(torch.cuda.current_device()))
     # Launches of each ragged kernel per forward, by shape.
     want = {"decode_step": {"ragged_decode_kernel": layers,
                             "ragged_decode_merge_kernel": layers if splits > 1 else 0},
@@ -1965,14 +2208,18 @@ def main() -> int:
     load_s = time.perf_counter() - t0
     serve = serve_phase(model, kv_quant="", lengths=[17, 64, 130, 222, 333, 450, 599, 700],
                         n_new=[32, 40, 48, 56, 64, 36, 44, 60])
-    emit({"phase": "serve", "model": "llama2-7b", "load_s": load_s, **serve})
+    hidden = ("prompts", "answers", "layers")
+    emit({"phase": "serve", "model": "llama2-7b", "load_s": load_s,
+          **{k: v for k, v in serve.items() if k not in hidden}})
     serve8 = serve_phase(model, kv_quant="int8", lengths=[25, 180, 410, 650], n_new=[32, 48, 40, 64])
-    emit({"phase": "serve_int8", **serve8})
+    emit({"phase": "serve_int8", **{k: v for k, v in serve8.items() if k not in hidden}})
     emit({"phase": "profile", **profile_phase(model)})
     emit({"phase": "reference", **reference_phase(model)})
-    del model  # free the serving model before training
+    del model  # free the serving model: the worker of serve_node and training take the card
     gc.collect()
     torch.cuda.empty_cache()
+    serve_node = serve_node_phase(serve)
+    emit({"phase": "serve_node", **serve_node})
 
     train = train_phase()
     emit({"phase": "train", **train})
@@ -1993,6 +2240,8 @@ def main() -> int:
         "decode_simt_ms": dec["simt_ms"], "decode_mma_ms": dec["mma_ms"],
         "decode_splits": dec["decode_splits"],
         "launches_by_route": serve["kernel_launches_by_route"],
+        # The same requests through the network, counted by the worker.
+        "serve_node_launches": serve_node["launches"],
         "prefill64_ms": pre["ms"], "prefill64_simt_ms": pre["simt_ms"],
         "prefill64_plain_ms": pre["plain_ms"], "prefill64_bound_ms": pre["bound_ms"],
         "prefill64_bound_by": pre["bound_by"], "prefill64_library_ms": pre["library_ms"],

@@ -8,9 +8,9 @@ form (``{"_t": class name, ...}`` for a dataclass, ``{"_e": enum name,
 keys, optional ``None`` fields omitted) are the JAX package's, and
 ``encode`` / ``decode`` put that form through the port's CBOR codec, so a
 message is the same bytes in both packages (``tests/test_torch_codec.py``).
-A message of a subsystem that is not ported (serving, the fleet block
-plane, streaming fragments, elastic membership) has no class here and
-does not decode.
+A message of a subsystem that is not ported (the serving router's load
+heartbeats, the fleet block plane, live weight follow, streaming
+fragments, elastic membership) has no class here and does not decode.
 """
 
 from __future__ import annotations
@@ -27,13 +27,14 @@ from .resources import Resources
 __all__ = [
     "Ack", "Adam", "AdoptAck", "AggregateExecutorConfig", "CancelJob", "DataRecord",
     "DataRequest", "DataResponse", "DataSlice", "DispatchJob", "DispatchJobResponse",
-    "Executor", "ExecutorDescriptor", "Fetch", "HealthRequest", "HealthResponse", "JobSpec",
+    "Executor", "ExecutorDescriptor", "Fetch", "GenerateRequest", "GenerateResponse",
+    "HealthRequest", "HealthResponse", "InferExecutorConfig", "JobSpec",
     "JobStatus", "Loss", "LRScheduler", "LRSchedulerKind", "ModelType", "Nesterov",
     "PriceRange", "Progress", "ProgressKind", "ProgressResponse", "ProgressResponseKind",
     "Receive", "Reference", "RenewLease", "RenewLeaseResponse", "RequestWorker",
     "SchedulerHello", "Send", "ShardMap", "TrainExecutorConfig", "TransferStrategy",
     "WorkerOffer", "WorkerSpec", "decode", "encode", "from_json_dict", "to_json_dict",
-    "PROTOCOL_API", "PROTOCOL_HEALTH", "PROTOCOL_PROGRESS", "TOPIC_WORKER",
+    "PROTOCOL_API", "PROTOCOL_GENERATE", "PROTOCOL_HEALTH", "PROTOCOL_PROGRESS", "TOPIC_WORKER",
     "TRAIN_EXECUTOR_NAME", "AGGREGATE_EXECUTOR_NAME", "INFER_EXECUTOR_NAME",
 ]
 
@@ -41,6 +42,8 @@ PROTOCOL_API = "/hypha-api/0.0.1"
 PROTOCOL_HEALTH = "/hypha-health/0.0.1"
 # The scheduler's progress protocol (STATUS, UPDATE, ... -> ProgressResponse).
 PROTOCOL_PROGRESS = "/hypha-progress/0.0.1"
+# The serving RPC (GenerateRequest -> GenerateResponse).
+PROTOCOL_GENERATE = "/hypha-generate/0.0.1"
 # The gossip topic of the auction's RequestWorker ads.
 TOPIC_WORKER = "hypha/worker"
 
@@ -403,28 +406,92 @@ class AggregateExecutorConfig:
 
 @_register
 @dataclass(slots=True)
+class InferExecutorConfig:
+    """Serving job: load a model, answer GenerateRequest RPCs. Fields,
+    order and defaults are the JAX package's (documented there); the
+    additive ones default to None and are omitted from the wire when
+    unset. ``serve_follow_rounds`` carries the JAX ``WeightFollow``, which
+    the port does not decode (**live weight swap**)."""
+
+    model: dict
+    serve_name: str
+    max_new_tokens: int = 256
+    max_batch: int = 8
+    temperature: float = 0.0
+    top_k: int | None = None
+    batch_window_ms: float = 4.0
+    scheduling: str = "auto"
+    pool_slots: int = 0
+    pool_max_len: int = 0
+    pool_chunk: int = 8
+    pool_block_size: int = 0
+    pool_blocks: int = 0
+    pool_prefill_chunk: int = 0
+    pool_prefix_cache: bool = False
+    pool_spec_ngram: int = 0
+    pool_spec_draft: int = 0
+    pool_ragged: bool = False
+    pool_kv_quant: str = ""
+    pool_spec_layers: int = 0
+    queue_limit: int = 0
+    eos_token_id: int | None = None
+    load_report_s: float = 1.0
+    report_metrics_s: float | None = None
+    metrics_peer: str | None = None
+    serve_follow_rounds: Any = None
+    pool_fleet_cache: bool | None = None
+    pool_kv_migration: bool | None = None
+    fleet_digest_k: int | None = None
+
+
+@_register
+@dataclass(slots=True)
+class GenerateRequest:
+    """One serving RPC: token-id prompts in, continuations out."""
+
+    serve_name: str
+    prompts: list  # list[list[int]]
+    max_new_tokens: int = 64
+    temperature: float | None = None  # None = server default
+    top_k: int | None = None
+    seed: int = 0
+    traceparent: str | None = None
+    pull_peer: str | None = None
+    pull_serve: str | None = None
+
+
+@_register
+@dataclass(slots=True)
+class GenerateResponse:
+    """``ok=False`` is backpressure: retry after ``retry_after_ms``."""
+
+    tokens: list  # list[list[int]], one continuation per prompt
+    ok: bool = True
+    retry_after_ms: float = 0.0
+    weight_round: int | None = None
+    weight_generation: int | None = None
+
+
+@_register
+@dataclass(slots=True)
 class Executor:
-    """Tagged union Train|Aggregate|Infer. The port runs train and
-    aggregate jobs; an infer job raises."""
+    """Tagged union Train|Aggregate|Infer."""
 
     kind: str
     name: str
     train: TrainExecutorConfig | None = None
     aggregate: AggregateExecutorConfig | None = None
-    infer: Any = None
+    infer: InferExecutorConfig | None = None
 
     def __post_init__(self) -> None:
         if self.kind not in ("train", "aggregate", "infer"):
             raise ValueError(f"unknown executor kind {self.kind!r}")
-        if self.kind == "infer":
-            raise NotImplementedError(
-                "infer jobs over the network are not ported to PyTorch yet "
-                "(ROADMAP.md, Queue 1: the network infer executor)"
-            )
         if self.kind == "train" and self.train is None:
             raise ValueError("train executor needs train config")
         if self.kind == "aggregate" and self.aggregate is None:
             raise ValueError("aggregate executor needs aggregate config")
+        if self.kind == "infer" and self.infer is None:
+            raise ValueError("infer executor needs infer config")
 
 
 @_register

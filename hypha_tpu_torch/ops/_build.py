@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
@@ -34,6 +35,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+
+log = logging.getLogger("hypha.torch.ops.build")
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -119,10 +122,14 @@ def _bind(lib: ctypes.CDLL, source: str) -> ctypes.CDLL:
 
 
 def load_library(source: str = "ragged_paged_attention.cu") -> ctypes.CDLL:
-    """The loaded, bound library of ``source``, building it on first use."""
+    """The loaded, bound library of ``source``, building it on first use.
+    Logs whether the library was built or found ``cached`` (a process that
+    reuses its parent's build says so)."""
     with _lock:
         lib = _libs.get(source)
         if lib is None:
-            path = build((source,))[source]["path"]
-            lib = _libs[source] = _bind(ctypes.CDLL(str(path)), source)
+            built = build((source,))[source]
+            log.info("kernel library %s: %s", source,
+                     "cached" if built["cached"] else f"built in {built['seconds']:.1f} s")
+            lib = _libs[source] = _bind(ctypes.CDLL(str(built["path"])), source)
         return lib

@@ -28,6 +28,7 @@ fails to build or launch, raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -170,7 +171,6 @@ _ROUTES = {"simt": 0, "mma": 1, "decode": 2}
 # across CTAs.
 MMA_MIN_ROWS = 16
 DECODE_TILE = 32  # logical keys per tile of the decode kernel's splits (kDecKeys)
-H100_SMS = 132  # the split rule aims at about two decode CTAs on each
 
 
 def _ragged_route(sq: int, q_dtype: torch.dtype) -> str:
@@ -189,15 +189,24 @@ def _ragged_route(sq: int, q_dtype: torch.dtype) -> str:
     return "mma" if sq >= MMA_MIN_ROWS else "simt"
 
 
-def _decode_splits(batch: int, kv_heads: int, max_blocks: int, block_size: int) -> int:
+@functools.cache
+def _sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (132 on the SXM
+    H100, 114 on the PCIe part), read once: the count is fixed within a
+    process, so a captured CUDA graph's decode launches stay valid."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _decode_splits(batch: int, kv_heads: int, max_blocks: int, block_size: int,
+                   sms: int) -> int:
     """Key splits per (lane, kv head) of the decode kernel, from the shapes
-    alone, never from the table's contents: the launch is then the same at
-    every decode step. As many as keep the grid at about two CTAs per SM
-    or below (a split that spills CTAs into a second wave costs more than
-    it balances), and never fewer than two tiles of the lane's longest
-    window per split."""
+    and the card's ``sms`` alone, never from the table's contents: the
+    launch is then the same at every decode step. As many as keep the grid
+    at about two CTAs per SM or below (a split that spills CTAs into a
+    second wave costs more than it balances), and never fewer than two
+    tiles of the lane's longest window per split."""
     tiles = -(-max_blocks * block_size // DECODE_TILE)
-    want = 2 * H100_SMS // max(batch * kv_heads, 1)
+    want = 2 * sms // max(batch * kv_heads, 1)
     return max(1, min(want, tiles // 2))
 
 
@@ -335,7 +344,8 @@ def _launch(q, kv: PagedKV, route: str, *, blocks, block_size, q_offset, k_start
         return out
     n_splits, ws = 1, None
     if route == "decode":
-        n_splits = (_decode_splits(B, Hkv, kv.table.shape[1], block_size) if splits is None
+        n_splits = (_decode_splits(B, Hkv, kv.table.shape[1], block_size,
+                                   _sm_count(q.device.index)) if splits is None
                     else int(splits))
         _check(n_splits >= 1, f"splits {n_splits} (>= 1)")
         if n_splits > 1:  # per split: m and l, then the D-wide partial, in f32

@@ -1,0 +1,188 @@
+"""Cross-request batching for the serving path (a copy of
+``hypha_tpu/worker/batcher.py``: the infer executor's ``scheduling =
+"window"`` mode).
+
+Concurrent ``GenerateRequest``s used to run independent B=1 decodes that
+competed for the device; decode throughput grows with batch, so a serving
+worker must coalesce. The reference has no inference path at all (its
+Executor union is Train|Aggregate, crates/messages/src/lib.rs:627-631) —
+this is the batching window every production server implements.
+
+Mechanics: GREEDY requests with the same ``n_new``/``top_k`` land in one
+bucket (sampled requests never merge — per-row draws from a shared rng key
+would make outputs depend on batch position, breaking seeded
+reproducibility; they still serialize on the chip lock). A bucket flushes when its prompt count reaches ``max_batch`` or its
+window timer (a few ms) fires, whichever is first, and runs as ONE
+prefill+decode whose rows are split back per request. One decode holds the
+device at a time; buckets forming while a decode runs keep accumulating,
+which is exactly the backpressure that builds full batches under load.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from dataclasses import dataclass, field
+from typing import Callable
+
+from .. import aio
+
+__all__ = ["RequestBatcher"]
+
+log = logging.getLogger("hypha.torch.worker.batcher")
+
+
+@dataclass(slots=True)
+class _Bucket:
+    key: tuple
+    items: list = field(default_factory=list)  # (prompts, future)
+    count: int = 0
+    flushed: bool = False
+
+
+class RequestBatcher:
+    """Coalesces concurrent generate calls into shared decodes.
+
+    ``run`` is the blocking generation function
+    ``(prompts, n_new, temperature, top_k, seed) -> list[list[int]]``,
+    executed in a worker thread with at most one call in flight.
+    """
+
+    def __init__(
+        self,
+        run: Callable[..., list],
+        *,
+        max_batch: int,
+        window_s: float = 0.004,
+    ) -> None:
+        self._run = run
+        self._max_batch = max(1, int(max_batch))
+        self._window_s = window_s
+        self._buckets: dict[tuple, _Bucket] = {}
+        self._chip = asyncio.Lock()  # one decode in flight
+        self._tasks: set[asyncio.Task] = set()
+        self._closed = False
+        # stats, read by tests and the serving bench
+        self.decodes = 0  # generation calls actually issued
+        self.requests = 0  # requests submitted
+        self.batched_prompts = 0  # prompts that shared a decode with others
+
+    def _spawn(self, coro) -> None:
+        aio.spawn(coro, tasks=self._tasks, what="batch decode", logger=log)
+
+    async def submit(
+        self,
+        prompts: list,
+        n_new: int,
+        temperature: float,
+        top_k: int | None,
+        seed: int,
+        traceparent: str | None = None,
+    ) -> list:
+        """Queue ``prompts`` and await their continuations.
+
+        ``traceparent`` is accepted for API parity with the pool server
+        and deliberately unused: a coalesced window decode serves SEVERAL
+        requests' prompts in one dispatch, so no single request's trace
+        could own its span."""
+        if self._closed:
+            raise RuntimeError("batcher is closed")
+        self.requests += 1
+        # Only GREEDY requests coalesce. Sampled rows draw from one rng key
+        # across the batch, so a request's tokens would depend on its row
+        # position and on whoever shared its window — same request + same
+        # seed would stop reproducing. A unique key gives sampled requests
+        # their own decode (still serialized on the chip lock).
+        sampled = temperature != 0.0
+        fut = asyncio.get_running_loop().create_future()
+        if sampled:
+            # Nothing can ever join a sampled bucket (see above), so skip
+            # registration and the window timer entirely — a window wait
+            # would be pure added latency.
+            bucket = _Bucket((int(n_new), float(temperature), top_k, int(seed)))
+            bucket.items.append((prompts, fut))
+            bucket.count = len(prompts)
+            self._flush(bucket)
+            return await fut
+        key = (int(n_new), 0.0, top_k, 0)
+        bucket = self._buckets.get(key)
+        if (
+            bucket is not None
+            and bucket.count + len(prompts) > self._max_batch
+        ):
+            self._flush(bucket)  # full with us aboard: run it, start fresh
+            bucket = None
+        if bucket is None:
+            bucket = _Bucket(key)
+            self._buckets[key] = bucket
+            self._spawn(self._window(bucket))
+        bucket.items.append((prompts, fut))
+        bucket.count += len(prompts)
+        if bucket.count >= self._max_batch:
+            self._flush(bucket)
+        return await fut
+
+    async def _window(self, bucket: _Bucket) -> None:
+        await asyncio.sleep(self._window_s)
+        self._flush(bucket)
+
+    def _flush(self, bucket: _Bucket) -> None:
+        if bucket.flushed:
+            return
+        bucket.flushed = True
+        if self._buckets.get(bucket.key) is bucket:
+            del self._buckets[bucket.key]
+        if bucket.items:
+            self._spawn(self._execute(bucket))
+
+    async def _execute(self, bucket: _Bucket) -> None:
+        try:
+            await self._execute_inner(bucket)
+        except asyncio.CancelledError:
+            # close() cancelled us mid-decode: the waiting clients must see
+            # an error, not a hang until their RPC timeout.
+            self._fail(bucket, RuntimeError("batcher is closed"))
+            raise
+
+    async def _execute_inner(self, bucket: _Bucket) -> None:
+        merged = [p for prompts, _ in bucket.items for p in prompts]
+        n_new, temperature, top_k, seed = bucket.key[:4]
+        async with self._chip:
+            if self._closed:
+                self._fail(bucket, RuntimeError("batcher is closed"))
+                return
+            self.decodes += 1
+            if len(bucket.items) > 1:
+                self.batched_prompts += len(merged)
+                log.debug(
+                    "coalesced %d requests (%d prompts) into one decode",
+                    len(bucket.items), len(merged),
+                )
+            try:
+                tokens = await asyncio.to_thread(
+                    self._run, merged, n_new, temperature, top_k, seed
+                )
+            except Exception as e:  # surface to every waiter
+                self._fail(bucket, e)
+                return
+        row = 0
+        for prompts, fut in bucket.items:
+            if not fut.done():
+                fut.set_result(tokens[row:row + len(prompts)])
+            row += len(prompts)
+
+    @staticmethod
+    def _fail(bucket: _Bucket, exc: Exception) -> None:
+        for _, fut in bucket.items:
+            if not fut.done():
+                fut.set_exception(exc)
+
+    def close(self) -> None:
+        """Fail queued work and reject new submissions (job cancelled)."""
+        self._closed = True
+        for bucket in list(self._buckets.values()):
+            bucket.flushed = True
+            self._fail(bucket, RuntimeError("batcher is closed"))
+        self._buckets.clear()
+        for task in self._tasks:
+            task.cancel()

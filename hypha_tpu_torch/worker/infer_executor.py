@@ -1,24 +1,60 @@
-"""Model loading for serving (counterpart of ``_load_model`` and
-``_generate_grouped`` in ``hypha_tpu/worker/infer_executor.py``). The
-network ``InProcessInferExecutor`` needs ports of ``messages``, ``network``
-and ``node`` and comes with a later slice (ROADMAP.md, Queue 1)."""
+"""In-process inference executor: load a model, serve GenerateRequest RPCs
+(counterpart of ``hypha_tpu/worker/infer_executor.py``).
+
+The scheduler dispatches an ``Executor(kind="infer")`` job, the worker
+loads the model on its device, announces ``serve:<name>`` in the registry,
+and answers ``/hypha-generate/0.0.1`` RPCs until the job is cancelled or
+its lease expires. Greedy requests go through the paged, ragged
+``DecodePool`` (``scheduling`` "continuous"), the window batcher
+(``"window"``), or, with a negative window, independent one-shot decodes.
+
+When a job ends the executor logs one line, ``serve launches: {...}``:
+the ragged kernel's launches by route over the job's life, the plain
+attention calls, the pool's one-shot fallbacks and its requests, and on
+CUDA the peak device memory while serving (the load's peak and seconds
+are logged when the model is ready). ``chip_smoke.py`` reads them from the
+worker's output.
+
+Clients: :func:`generate_remote` — find providers of ``serve:<name>``
+through the gateway registry, RPC the first reachable one.
+
+Options of the JAX executor outside this slice raise
+``NotImplementedError`` naming their ROADMAP.md label when the job is
+dispatched (``_refuse_unported``); pool options the port lacks raise in
+``DecodePool`` and fail the job.
+"""
 
 from __future__ import annotations
 
+import asyncio
+import json
 import logging
+import time
 from pathlib import Path
 
 import torch
 
 from ..executor.generate import generate
+from ..executor.pool import PoolBusy
 from ..executor.serialization import load_file
 from ..hw import default_device
+from ..messages import PROTOCOL_GENERATE, GenerateRequest, GenerateResponse, JobSpec
 from ..models.convert import llama_params_from_flat
 from ..models.registry import build_model
+from ..network.node import Node, RequestError
+from ..ops.paged_attention import paged_attention, ragged_paged_attention
+from .batcher import RequestBatcher
+from .job_manager import Execution, JobExecutor
 
-__all__ = ["load_model", "generate_grouped"]
+__all__ = [
+    "InProcessInferExecutor", "generate_remote", "serve_key", "load_model", "generate_grouped",
+]
 
 log = logging.getLogger("hypha.torch.worker.infer_executor")
+
+
+def serve_key(name: str) -> str:
+    return f"serve:{name}"
 
 
 def load_model(model_spec: dict, device=None):
@@ -50,8 +86,9 @@ def load_model(model_spec: dict, device=None):
 
 
 def generate_grouped(model, prompts, n_new, temperature, top_k, seed) -> list:
-    """Blocking one-shot generation for ``PoolServer``'s fallback: prompts
-    of equal length batch together; order is preserved."""
+    """Blocking one-shot generation (the pool's fallback and the
+    negative-window mode): prompts of equal length batch together; order
+    is preserved."""
     by_len: dict = {}
     for i, p in enumerate(prompts):
         by_len.setdefault(len(p), []).append(i)
@@ -65,3 +102,273 @@ def generate_grouped(model, prompts, n_new, temperature, top_k, seed) -> list:
         for row, i in enumerate(idxs):
             out[i] = toks[row].tolist()
     return out
+
+
+def _refuse(option: str, label: str) -> None:
+    raise NotImplementedError(
+        f"{option} is not ported to PyTorch yet (ROADMAP.md, Queue 1: {label})"
+    )
+
+
+def _refuse_unported(cfg) -> None:
+    """The JAX executor's subsystems this one does not run."""
+    if cfg.serve_follow_rounds is not None:
+        _refuse("serve_follow_rounds", "live weight swap")
+    if cfg.pool_fleet_cache or cfg.pool_kv_migration:
+        _refuse("pool_fleet_cache / pool_kv_migration", "fleet cache and KV migration")
+    if cfg.report_metrics_s:
+        _refuse("report_metrics_s", "telemetry")
+    if cfg.load_report_s > 0:
+        _refuse("load_report_s > 0 (ServeLoad heartbeats)", "serving router")
+
+
+def _attention_counts() -> dict:
+    r = ragged_paged_attention
+    return {"mma": r.mma_launches, "decode": r.decode_launches, "simt": r.simt_launches,
+            "plain": paged_attention.plain_calls}
+
+
+class InProcessInferExecutor(JobExecutor):
+    """Serves infer jobs on ``device``. ``batchers`` holds the live
+    request server of each job (tests read it)."""
+
+    def __init__(self, node: Node, device: torch.device) -> None:
+        self.node = node
+        if device.type == "cuda" and device.index is None:
+            # The serving threads set their device explicitly: name it.
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self.batchers: dict = {}
+
+    def _on_device(self, fn, *args):
+        """Run ``fn`` in a worker thread on the executor's device: the
+        current CUDA device is thread-local."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        return fn(*args)
+
+    async def execute(self, job_id: str, spec: JobSpec, scheduler_peer: str) -> Execution:
+        cfg = spec.executor.infer
+        if cfg is None:
+            raise ValueError(f"job {job_id} is not an infer job")
+        if cfg.scheduling not in ("auto", "continuous", "window"):
+            raise ValueError(
+                f"scheduling must be auto|continuous|window, got {cfg.scheduling!r}"
+            )
+        _refuse_unported(cfg)
+
+        # Return the Execution at once: a 7B load takes seconds to minutes,
+        # and the dispatch RPC (and lease-expiry cancellation) must not
+        # wait for it. The model loads in a thread; the handler registers
+        # once it is ready.
+        execution = Execution(job_id)
+        loaded: dict = {}
+        cancelled = asyncio.Event()
+        counts0 = _attention_counts()
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.device)
+
+        async def handle(peer: str, req: GenerateRequest) -> GenerateResponse:
+            if len(req.prompts) > cfg.max_batch:
+                raise ValueError(f"{len(req.prompts)} prompts exceed max_batch {cfg.max_batch}")
+            if not req.prompts or any(not p for p in req.prompts):
+                raise ValueError("prompts must be non-empty token id lists")
+            if req.traceparent is not None:
+                _refuse("traceparent (serve trace spans)", "telemetry")
+            if req.pull_peer is not None:
+                _refuse("pull_peer (fleet prefix pulls)", "fleet cache and KV migration")
+            n_new = min(int(req.max_new_tokens), cfg.max_new_tokens)
+            temperature = cfg.temperature if req.temperature is None else req.temperature
+            top_k = cfg.top_k if req.top_k is None else req.top_k
+            batcher = loaded.get("batcher")
+            if batcher is None:  # batch_window_ms < 0: independent decodes
+                tokens = await asyncio.to_thread(
+                    self._on_device, generate_grouped, loaded["model"],
+                    req.prompts, n_new, temperature, top_k, req.seed,
+                )
+                return GenerateResponse(tokens=tokens)
+            try:
+                tokens = await batcher.submit(req.prompts, n_new, temperature, top_k, req.seed)
+            except PoolBusy as busy:
+                # Backpressure is a response, not an error: the client
+                # retries after the hint.
+                return GenerateResponse(tokens=[], ok=False,
+                                        retry_after_ms=busy.retry_after_s * 1e3)
+            return GenerateResponse(tokens=tokens)
+
+        async def bring_up() -> None:
+            t0 = time.perf_counter()
+            try:
+                model = await asyncio.to_thread(
+                    self._on_device, load_model, dict(cfg.model), self.device)
+            except asyncio.CancelledError:
+                raise
+            except Exception as e:
+                log.exception("infer job %s model load failed", job_id)
+                execution.finish("failed", str(e))
+                return
+            if cancelled.is_set():
+                return
+            if self.device.type == "cuda":
+                # The load's peak (an f32 build cast to the serving dtype)
+                # is logged apart from the serving peak the job ends with.
+                log.info("job %s model loaded in %.3f s, peak device memory %.3f GiB",
+                         job_id, time.perf_counter() - t0,
+                         torch.cuda.max_memory_allocated(self.device) / 2**30)
+                torch.cuda.reset_peak_memory_stats(self.device)
+            else:
+                log.info("job %s model loaded in %.3f s", job_id, time.perf_counter() - t0)
+            try:
+                serve(model)
+            except asyncio.CancelledError:
+                raise
+            except Exception as e:
+                # A bad pool geometry or an unported pool option must report
+                # "failed" like a bad model spec, not leave the job wedged
+                # with no handler and no terminal status.
+                log.exception("infer job %s bring-up failed", job_id)
+                execution.finish("failed", str(e))
+                return
+            try:
+                await self.node.provide(serve_key(cfg.serve_name))
+            except RequestError as e:
+                log.warning("serve announce for %s failed: %s", cfg.serve_name, e)
+            log.info("job %s serving %s", job_id, cfg.serve_name)
+
+        def serve(model) -> None:
+            loaded["model"] = model
+
+            def fallback(prompts, n_new, temperature, top_k, seed):
+                return self._on_device(generate_grouped, model, prompts, n_new, temperature,
+                                       top_k, seed)
+
+            # "auto": the JAX executor asks its ``supports_pool`` whether
+            # the family has a per-row decode path. The port has no such
+            # test because every model its registry builds is of the
+            # Llama lineage, which has one: auto is continuous unless a
+            # negative window opts into independent decodes.
+            mode = cfg.scheduling
+            if mode == "auto":
+                mode = "window" if cfg.batch_window_ms < 0 else "continuous"
+            if mode == "continuous":
+                from .continuous import PoolServer
+
+                limit = getattr(model.config, "max_seq_len", None) or 1024
+                loaded["batcher"] = self.batchers[job_id] = PoolServer(
+                    model, fallback,
+                    slots=cfg.pool_slots or cfg.max_batch,
+                    max_len=cfg.pool_max_len or min(int(limit), 1024),
+                    steps_per_call=cfg.pool_chunk,
+                    eos_token_id=cfg.eos_token_id,
+                    block_size=cfg.pool_block_size,
+                    num_blocks=cfg.pool_blocks,
+                    prefill_chunk=cfg.pool_prefill_chunk,
+                    max_queue=cfg.queue_limit,
+                    prefix_cache=cfg.pool_prefix_cache,
+                    spec_ngram=cfg.pool_spec_ngram,
+                    spec_draft=cfg.pool_spec_draft,
+                    ragged=cfg.pool_ragged,
+                    kv_quant=cfg.pool_kv_quant,
+                    spec_layers=cfg.pool_spec_layers,
+                )
+            elif cfg.batch_window_ms >= 0:
+                loaded["batcher"] = self.batchers[job_id] = RequestBatcher(
+                    fallback, max_batch=cfg.max_batch, window_s=cfg.batch_window_ms / 1e3,
+                )
+            loaded["reg"] = (
+                self.node.on(PROTOCOL_GENERATE, GenerateRequest)
+                .match(lambda m: m.serve_name == cfg.serve_name)
+                .concurrency(64 if "batcher" in loaded else 4)
+                .respond_with(handle)
+            )
+
+        loader = asyncio.create_task(bring_up())
+
+        # A serving job runs until cancelled (or its lease expires).
+        async def cancel() -> None:
+            cancelled.set()
+            if loaded.get("reg") is not None:
+                loaded["reg"].close()
+            batcher = self.batchers.pop(job_id, None)
+            if batcher is not None:
+                batcher.close()
+                pool = getattr(batcher, "pool", None)
+                if pool is not None:
+                    # Wait for the serve thread to exit, so the pool's KV
+                    # blocks and its hold on the weights go with the job.
+                    await asyncio.to_thread(pool.close)
+            self._log_launches(job_id, counts0, batcher)
+            loaded.clear()
+            # Withdraw discovery: stop re-announcing and delete the
+            # registry entry, so clients do not find a dead server.
+            await self.node.unprovide(serve_key(cfg.serve_name))
+            if not loader.done():
+                loader.cancel()
+            execution.finish("cancelled")
+
+        execution.cancel = cancel  # type: ignore[method-assign]
+        return execution
+
+    def _log_launches(self, job_id: str, counts0: dict, batcher) -> None:
+        counts = {k: v - counts0[k] for k, v in _attention_counts().items()}
+        counts["fallbacks"] = getattr(batcher, "fallbacks", 0)
+        counts["requests"] = getattr(batcher, "requests", 0)
+        log.info("job %s serve launches: %s", job_id, json.dumps(counts))
+        if self.device.type == "cuda":
+            log.info("job %s peak device memory: %.3f GiB", job_id,
+                     torch.cuda.max_memory_allocated(self.device) / 2**30)
+
+
+async def generate_remote(
+    node: Node,
+    serve_name: str,
+    prompts: list,
+    max_new_tokens: int = 64,
+    *,
+    temperature: "float | None" = None,
+    top_k: "int | None" = None,
+    seed: int = 0,
+    timeout: float = 120.0,
+) -> list:
+    """Client side: discover a server of ``serve_name`` via the registry and
+    RPC it. Returns one token-id list per prompt. Discovery polls briefly —
+    a freshly dispatched serve job announces only once its model is loaded.
+    A backpressure rejection (``ok=False``) is retried after the server's
+    ``retry_after_ms`` hint until ``timeout`` is exhausted."""
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + min(timeout, 30.0)
+    while True:
+        providers = await node.find_providers(serve_key(serve_name))
+        if providers:
+            break
+        if loop.time() >= deadline:
+            raise RequestError(f"no provider serving {serve_name!r}")
+        await asyncio.sleep(0.2)
+    req = GenerateRequest(
+        serve_name=serve_name,
+        prompts=[list(map(int, p)) for p in prompts],
+        max_new_tokens=max_new_tokens,
+        temperature=temperature,
+        top_k=top_k,
+        seed=seed,
+    )
+    busy_deadline = loop.time() + timeout
+    last: "Exception | None" = None
+    while True:
+        busy_hint = 0.0
+        for peer in providers:
+            try:
+                resp = await node.request(peer, PROTOCOL_GENERATE, req, timeout=timeout)
+            except RequestError as e:
+                last = e
+                continue
+            if getattr(resp, "ok", True):
+                return resp.tokens
+            busy_hint = max(busy_hint, resp.retry_after_ms / 1e3)
+        if busy_hint <= 0.0:
+            raise RequestError(f"all providers of {serve_name!r} failed: {last}")
+        if loop.time() + busy_hint >= busy_deadline:
+            raise RequestError(
+                f"{serve_name!r} is overloaded (retry-after exhausted the {timeout}s budget)"
+            )
+        await asyncio.sleep(busy_hint)

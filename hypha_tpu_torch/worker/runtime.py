@@ -18,10 +18,12 @@ Default executor table:
                                         (``train_runtime="process"``)
     ("aggregate", "parameter-server") → the parameter server, folding and
                                         stepping on the node's device
+    ("infer", "generate")             → the serving executor: the model
+                                        and its decode pool on the node's
+                                        device, answering
+                                        ``/hypha-generate/0.0.1``
 
-Unlike the reference the table has no ``("infer", "generate")`` entry, so
-a scheduler never dispatches an infer job here (ROADMAP.md, Queue 1: the
-network infer executor). Everything runs on ``device``: CUDA unless the
+Everything runs on ``device``: CUDA unless the
 caller asks for the CPU; without CUDA and without that request the
 constructor raises. A torch worker sells its cards on the ``gpu`` axis of
 ``resources``::
@@ -44,10 +46,11 @@ from pathlib import Path
 
 from ..health import serve_health
 from ..hw import default_device
-from ..messages import AGGREGATE_EXECUTOR_NAME, TRAIN_EXECUTOR_NAME
+from ..messages import AGGREGATE_EXECUTOR_NAME, INFER_EXECUTOR_NAME, TRAIN_EXECUTOR_NAME
 from ..network.node import Node
 from ..resources import Resources
 from .arbiter import Arbiter, OfferConfig
+from .infer_executor import InProcessInferExecutor
 from .job_manager import JobManager
 from .lease_manager import LeaseManager
 from .process_executor import ProcessExecutor
@@ -55,7 +58,7 @@ from .ps_executor import ParameterServerExecutor
 from .resources_mgr import StaticResourceManager
 from .train_executor import InProcessTrainExecutor
 
-__all__ = ["WorkerNode", "TRAIN_EXECUTOR_NAME", "AGGREGATE_EXECUTOR_NAME"]
+__all__ = ["WorkerNode", "TRAIN_EXECUTOR_NAME", "AGGREGATE_EXECUTOR_NAME", "INFER_EXECUTOR_NAME"]
 
 log = logging.getLogger("hypha.torch.worker")
 
@@ -87,6 +90,7 @@ class WorkerNode:
             ("train", TRAIN_EXECUTOR_NAME): train,
             ("aggregate", AGGREGATE_EXECUTOR_NAME): ParameterServerExecutor(
                 self.node, work_root, self.device),
+            ("infer", INFER_EXECUTOR_NAME): InProcessInferExecutor(self.node, self.device),
         }
         self.job_manager = JobManager(self.node, executors)
         self.arbiter = Arbiter(

@@ -64,6 +64,15 @@ def _aggregate(p, v):
             optimizer=m.Nesterov(lr=v.f[2], momentum=v.f[3]), num_workers=v.i[3])))
 
 
+def _infer(p, v, **additive):
+    m = p.m
+    return m.InferExecutorConfig(
+        model={"model_type": m.ModelType.CAUSAL_LM, "family": "llama", "preset": "llama2-7b",
+               "seed": v.i[0]},
+        serve_name=v.s[5], max_new_tokens=v.i[1], max_batch=8, pool_block_size=16,
+        pool_ragged=True, eos_token_id=v.i[2], load_report_s=0.0, **additive)
+
+
 def _resources(p, v):
     return p.R(gpu=v.f[0], cpu=v.f[1], memory=v.f[2], storage=v.f[3])
 
@@ -85,6 +94,22 @@ MESSAGES = {
     "RenewLeaseResponse": lambda p, v: p.m.RenewLeaseResponse(lease_id=v.s[1], timeout=v.f[0]),
     "DispatchJob/train": lambda p, v: p.m.DispatchJob(lease_id=v.s[1], spec=_train(p, v)),
     "DispatchJob/aggregate": lambda p, v: p.m.DispatchJob(lease_id=v.s[1], spec=_aggregate(p, v)),
+    "DispatchJob/infer": lambda p, v: p.m.DispatchJob(lease_id=v.s[1], spec=p.m.JobSpec(
+        job_id=v.s[2], executor=p.m.Executor(kind="infer", name=p.m.INFER_EXECUTOR_NAME,
+                                             infer=_infer(p, v)))),
+    "InferExecutorConfig/additive": lambda p, v: _infer(
+        p, v, report_metrics_s=v.f[0], metrics_peer=v.s[0], pool_fleet_cache=True,
+        pool_kv_migration=False, fleet_digest_k=v.i[3], top_k=v.i[4], scheduling="window"),
+    "GenerateRequest": lambda p, v: p.m.GenerateRequest(
+        serve_name=v.s[5], prompts=[v.i[:3], v.i[3:]], max_new_tokens=v.i[4]),
+    "GenerateRequest/additive": lambda p, v: p.m.GenerateRequest(
+        serve_name=v.s[5], prompts=[v.i], max_new_tokens=v.i[4], temperature=v.f[0],
+        top_k=v.i[5], seed=v.i[1], traceparent=v.s[3], pull_peer=v.s[0], pull_serve=v.s[5]),
+    "GenerateResponse": lambda p, v: p.m.GenerateResponse(tokens=[v.i[:3], v.i[3:]]),
+    "GenerateResponse/busy": lambda p, v: p.m.GenerateResponse(
+        tokens=[], ok=False, retry_after_ms=v.f[1]),
+    "GenerateResponse/additive": lambda p, v: p.m.GenerateResponse(
+        tokens=[v.i], weight_round=v.i[0], weight_generation=v.i[1]),
     "DispatchJobResponse": lambda p, v: p.m.DispatchJobResponse(accepted=False, message=v.s[2]),
     "CancelJob": lambda p, v: p.m.CancelJob(lease_id=v.s[1], job_id=v.s[2]),
     "JobStatus": lambda p, v: p.m.JobStatus(job_id=v.s[2], state="failed", message=v.s[4]),
@@ -129,7 +154,8 @@ def test_every_port_message_class_is_registered_as_in_the_jax_package():
     for name in sent:
         fields = lambda cls: [f.name for f in cls.__dataclass_fields__.values()]  # noqa: E731
         assert fields(tmsg._REGISTRY[name]) == fields(jmsg._REGISTRY[name]), name
-    for const in ("PROTOCOL_API", "PROTOCOL_HEALTH", "PROTOCOL_PROGRESS", "TOPIC_WORKER",
+    for const in ("PROTOCOL_API", "PROTOCOL_HEALTH", "PROTOCOL_PROGRESS", "PROTOCOL_GENERATE",
+                  "TOPIC_WORKER",
                   "TRAIN_EXECUTOR_NAME", "AGGREGATE_EXECUTOR_NAME", "INFER_EXECUTOR_NAME"):
         assert getattr(tmsg, const) == getattr(jmsg, const), const
 
@@ -227,8 +253,15 @@ def test_oversized_frames_are_refused_alike():
 
 
 def test_unported_wire_tags_do_not_decode():
+    """The serving router's heartbeat and a live-weight follow do not
+    decode; an infer executor needs its config, as in the JAX package."""
     serve = jmsg.encode(jmsg.ServeLoad(job_id="j", queue_depth=3))
     with pytest.raises(ValueError, match="ServeLoad"):
         tmsg.decode(serve)
-    with pytest.raises(NotImplementedError, match="the network infer executor"):
-        tmsg.Executor(kind="infer", name="generate", infer={})
+    follow = jmsg.encode(jmsg.InferExecutorConfig(
+        model={}, serve_name="s", serve_follow_rounds=jmsg.WeightFollow()))
+    with pytest.raises(ValueError, match="WeightFollow"):
+        tmsg.decode(follow)
+    for m in (jmsg, tmsg):
+        with pytest.raises(ValueError, match="infer config"):
+            m.Executor(kind="infer", name="generate")

@@ -585,3 +585,206 @@ def test_parameter_server_on_the_card_equals_the_cpu(cuda, tmp_path):
         for k in a:
             assert a[k].dtype == b[k].dtype == torch.float32, (r, k)
             assert torch.equal(a[k].view(torch.int32), b[k].view(torch.int32)), (r, k)
+
+
+# ------------------------------------------------------ the node CLI on the card
+
+
+class _LogLines:
+    """Collect the messages of every log record while open."""
+
+    def __init__(self) -> None:
+        import logging
+
+        self.lines: list = []
+        self._handler = logging.Handler()
+        self._handler.emit = lambda record: self.lines.append(record.getMessage())
+        self._root = logging.getLogger()
+
+    def __enter__(self):
+        import logging
+
+        self._level = self._root.level
+        self._root.setLevel(logging.INFO)
+        self._root.addHandler(self._handler)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._root.removeHandler(self._handler)
+        self._root.setLevel(self._level)
+
+    def json_after(self, marker: str) -> list:
+        import json
+
+        return [json.loads(line.split(marker, 1)[1]) for line in self.lines if marker in line]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _conf(cls, **over):
+    from hypha_tpu_torch import config as tcfg
+
+    return tcfg.builder(cls).with_overrides(over).build().validate().value
+
+
+# A tiny Llama the kernels take (head_dim 64): 4 heads of 64, 2 layers; a
+# 512-position window, so the serving pool (max_len 512, prefill chunk 64)
+# has room for a prompt, its new tokens and the resume slack.
+TINY_CONFIG = {"hidden_size": 256, "max_seq_len": 512}
+CLI_TINY = {"job.model_family": "llama", "job.model_preset": "tiny",
+            "job.model_type": "causal-lm", "job.model_config": TINY_CONFIG}
+
+
+async def _cli_train(root, device) -> object:
+    """The CLI runners (gateway, data node, a worker whose trainer is a
+    process of its own, a worker hosting the parameter server, and the
+    scheduler's train kind) in one event loop: a 2-round DiLoCo job."""
+    import asyncio
+
+    from hypha_tpu_torch import cli
+    from hypha_tpu_torch.executor.serialization import save_file
+    from hypha_tpu_torch.node_config import (
+        DataNodeConfig, GatewayConfig, SchedulerConfig, WorkerConfig,
+    )
+
+    data = root / "data"
+    data.mkdir()
+    g = torch.Generator().manual_seed(3)
+    for i in range(4):
+        ids = ((torch.randint(0, 64, (8, 1), generator=g) + torch.arange(128)) % 64)
+        save_file({"input_ids": ids.to(torch.int32)}, data / f"slice_{i}.safetensors")
+    gw = f"127.0.0.1:{_free_port()}"
+    net = {"network.gateways": [gw]}
+    confs = [
+        (cli._run_gateway, _conf(GatewayConfig, **{"network.listen": [gw]}), {}),
+        (cli._run_data, _conf(DataNodeConfig, datasets={"counting": str(data)}, **net), {}),
+        (cli._run_worker, _conf(WorkerConfig, name="w0", work_root=str(root / "w0"), **net,
+                                **{"resources.gpu": 1, "resources.cpu": 8,
+                                   "resources.memory": 65536, "offer.strategy": "whole",
+                                   "executor.runtime": "process"}), {"device": device}),
+        (cli._run_worker, _conf(WorkerConfig, name="psw", work_root=str(root / "ps"), **net,
+                                **{"resources.cpu": 8, "resources.memory": 65536}),
+         {"device": device}),
+    ]
+    sched = _conf(SchedulerConfig, **net, **CLI_TINY, **{
+        "job.dataset": "counting", "job.update_rounds": 2,
+        "job.avg_samples_between_updates": 8, "job.max_batch_size": 2, "job.num_workers": 1,
+        "job.worker_gpu": 0.5, "job.inner_lr": 3e-3, "job.worker_memory": 10,
+        "job.ps_memory": 10})
+    stops = [asyncio.Event() for _ in confs]
+    tasks = []
+    try:
+        for (run, conf, kw), stop in zip(confs, stops):
+            tasks.append(asyncio.create_task(run(conf, stop=stop, **kw)))
+            await asyncio.sleep(0.5)
+        await asyncio.sleep(3.0)  # the workers join the gossip mesh before the auction
+        return await asyncio.wait_for(cli._run_scheduler(sched), 600)
+    finally:
+        for stop, task in zip(reversed(stops), reversed(tasks)):
+            stop.set()
+            await asyncio.wait_for(task, 60)
+
+
+async def _cli_serve(root, device, prompts, n_new) -> list:
+    """The CLI runners' serve kind: a gateway, a worker and the scheduler's
+    serving supervisor; the answers of ``generate_remote`` over loopback."""
+    import asyncio
+
+    from hypha_tpu_torch import cli
+    from hypha_tpu_torch.network import Node, TcpTransport
+    from hypha_tpu_torch.node_config import GatewayConfig, SchedulerConfig, WorkerConfig
+    from hypha_tpu_torch.worker.infer_executor import generate_remote
+
+    gw = f"127.0.0.1:{_free_port()}"
+    net = {"network.gateways": [gw]}
+    confs = [
+        (cli._run_gateway, _conf(GatewayConfig, **{"network.listen": [gw]}), {}),
+        (cli._run_worker, _conf(WorkerConfig, name="w0", work_root=str(root), **net,
+                                **{"resources.gpu": 1, "offer.strategy": "whole"}),
+         {"device": device}),
+        (cli._run_scheduler, _conf(SchedulerConfig, **net, **CLI_TINY, **{
+            "job.kind": "serve", "job.serve_name": "tiny", "job.model_seed": 4,
+            "job.serve_max_batch": 4, "job.serve_block_size": 16, "job.serve_ragged": True,
+            "job.serve_max_new_tokens": 32}), {}),
+    ]
+    stops = [asyncio.Event() for _ in confs]
+    tasks = []
+    client = Node(TcpTransport(), peer_id="client", bootstrap=[gw])
+    try:
+        for (run, conf, kw), stop in zip(confs, stops):
+            tasks.append(asyncio.create_task(run(conf, stop=stop, **kw)))
+            await asyncio.sleep(0.3)
+        await client.start(["127.0.0.1:0"])
+        await client.wait_for_bootstrap()
+        return list(await asyncio.wait_for(asyncio.gather(*(
+            generate_remote(client, "tiny", [p], n) for p, n in zip(prompts, n_new))), 300))
+    finally:
+        await client.stop()
+        for stop, task in zip(reversed(stops), reversed(tasks)):
+            stop.set()
+            await asyncio.wait_for(task, 60)
+
+
+def test_cli_runners_train_through_the_flash_kernels(cuda):
+    """The scheduler's train kind through the CLI runners on the card: the
+    trainer process logs its attention launches, all through the flash
+    kernels."""
+    import asyncio
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    root = Path(tempfile.mkdtemp(prefix="tc"))  # bridge sockets: paths under 108 bytes
+    try:
+        with _LogLines() as logs:
+            result = asyncio.run(_cli_train(root, "cuda"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    assert result.rounds == 2
+    losses = [m["loss"] for _peer, _round, m in result.metrics if "loss" in m]
+    assert losses and all(np.isfinite(losses))
+    (launches,) = logs.json_after("attention launches: ")
+    assert launches["fwd"] > 0 and launches["dq"] > 0 and launches["dkv"] > 0, launches
+    assert launches["fwd"] % 2 == 0 and launches["flash_plain"] == 0 and launches["dense"] == 0
+
+
+def test_cli_serve_job_answers_through_the_ragged_kernel(cuda):
+    """The scheduler's serve kind through the CLI runners on the card: the
+    answers over loopback equal the in-process pool's on the same model,
+    and the worker's launch line counts the mma and decode routes of the
+    ragged kernel, in multiples of the 2 layers, and no plain call."""
+    import asyncio
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from hypha_tpu_torch.executor.pool import DecodePool
+    from hypha_tpu_torch.worker.infer_executor import load_model
+
+    prompts = [[3, 1, 4, 1, 5], [2, 7, 1, 8] * 6, [9] * 40, [(i * 7 + 3) % 200 + 1 for i in range(90)]]
+    n_new = [12, 30, 20, 25]
+    root = Path(tempfile.mkdtemp(prefix="ts"))  # unix socket paths under 108 bytes
+    try:
+        with _LogLines() as logs:
+            got = asyncio.run(_cli_serve(root, "cuda", prompts, n_new))
+        left = list(root.iterdir())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    model = load_model({"family": "llama", "preset": "tiny", "config": TINY_CONFIG, "seed": 4},
+                       device="cuda")
+    pool = DecodePool(model, slots=4, max_len=512, steps_per_call=8, block_size=16, ragged=True)
+    try:
+        want = [pool.submit([p], n).result(timeout=300) for p, n in zip(prompts, n_new)]
+    finally:
+        pool.close()
+    assert got == want
+    assert not left
+    (lc,) = logs.json_after("serve launches: ")
+    assert lc["mma"] > 0 and lc["decode"] > 0 and lc["mma"] % 2 == 0 and lc["decode"] % 2 == 0, lc
+    assert lc["plain"] == 0 and lc["fallbacks"] == 0 and lc["requests"] == len(prompts)

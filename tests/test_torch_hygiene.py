@@ -34,7 +34,11 @@ def _port_files():
                  "hypha_tpu_torch/data_node.py", "hypha_tpu_torch/codec.py",
                  "hypha_tpu_torch/scheduler/orchestrator.py",
                  "hypha_tpu_torch/scheduler/batch_scheduler.py",
-                 "hypha_tpu_torch/scheduler/metrics_bridge.py"):
+                 "hypha_tpu_torch/scheduler/metrics_bridge.py",
+                 "hypha_tpu_torch/cli.py", "hypha_tpu_torch/__main__.py",
+                 "hypha_tpu_torch/config.py", "hypha_tpu_torch/node_config.py",
+                 "hypha_tpu_torch/worker/batcher.py", "hypha_tpu_torch/worker/infer_executor.py",
+                 "hypha_tpu_torch/scheduler/serving.py"):
         assert must in rel, must
     return files
 

@@ -192,6 +192,7 @@ def test_wrapper_hands_the_route_to_the_kernel(monkeypatch, sq, dtype, quant, ma
     lib = _RecordingLibrary()
     monkeypatch.setattr(pa, "_require_card", lambda q: None)
     monkeypatch.setattr(pa, "_stream", lambda q: "stream")
+    monkeypatch.setattr(pa, "_sm_count", lambda index: 132)
     monkeypatch.setattr(_build, "load_library", lambda *a: lib)
     allocs = []
     empty = torch.empty
@@ -216,7 +217,7 @@ def test_wrapper_hands_the_route_to_the_kernel(monkeypatch, sq, dtype, quant, ma
     assert args[-6:-4] == (0 if dtype == torch.bfloat16 else 1, int(quant))
     splits, ws = args[-3], args[-2].value
     if route == 2:
-        assert splits == _decode_splits(3, 2, max_blocks, 4)
+        assert splits == _decode_splits(3, 2, max_blocks, 4, 132)
         assert (splits > 1) == (max_blocks == 48)
     else:
         assert splits == 1
@@ -231,27 +232,37 @@ def test_wrapper_hands_the_route_to_the_kernel(monkeypatch, sq, dtype, quant, ma
                      before[3] + (route == 2)]
 
 
-def test_decode_splits_depend_only_on_the_shapes():
+@pytest.mark.parametrize("sms", [114, 132])
+def test_decode_splits_depend_only_on_the_shapes(sms):
     """The split count is a function of (B, Hkv, max_blocks, block_size)
-    alone, so a decode launch is the same at every step; at the
+    and the card's SM count alone (114 on the PCIe H100, 132 on the SXM
+    part), so a decode launch is the same at every step; at the
     Llama-2-7B and GQA 32/8 serving shapes (8 lanes, 64 entries of 16) it
-    gives about two CTAs per SM of the H100 or more, and never fewer than
-    two 32-key tiles of the longest window per split."""
+    gives the most splits that keep the grid within two CTAs per SM (at
+    least 0.9 of two per SM on the SXM part), and never fewer than two
+    32-key tiles of the longest window per split. At 132 SMs the counts are the
+    ones the rule gave when it assumed the SXM part."""
     import inspect
 
-    from hypha_tpu_torch.ops.paged_attention import DECODE_TILE, H100_SMS, _decode_splits
+    from hypha_tpu_torch.ops.paged_attention import DECODE_TILE, _decode_splits
 
     assert list(inspect.signature(_decode_splits).parameters) == [
-        "batch", "kv_heads", "max_blocks", "block_size"]
+        "batch", "kv_heads", "max_blocks", "block_size", "sms"]
     for B, hkv in ((8, 32), (8, 8), (4, 8), (1, 32)):
-        n = _decode_splits(B, hkv, 64, 16)
-        assert n == _decode_splits(B, hkv, 64, 16) >= 1
-        assert B * hkv * n >= 2 * H100_SMS * 0.9
+        n = _decode_splits(B, hkv, 64, 16, sms)
+        assert n == _decode_splits(B, hkv, 64, 16, sms) >= 1
+        assert B * hkv * n <= 2 * sms or n == 1  # never past two CTAs per SM
+        assert B * hkv * (n + 1) > 2 * sms  # the most splits that stay within
+        if sms == 132:
+            assert B * hkv * n >= 2 * sms * 0.9
         assert n * 2 * DECODE_TILE <= 64 * 16
-    assert _decode_splits(1, 8, 1, 16) == 1  # one tile: nothing to split
-    assert _decode_splits(64, 32, 64, 16) == 1  # the card is full without splits
-    assert all(_decode_splits(B, 8, 64, 16) >= _decode_splits(B + 1, 8, 64, 16)
+    assert _decode_splits(1, 8, 1, 16, sms) == 1  # one tile: nothing to split
+    assert _decode_splits(64, 32, 64, 16, sms) == 1  # the card is full without splits
+    assert all(_decode_splits(B, 8, 64, 16, sms) >= _decode_splits(B + 1, 8, 64, 16, sms)
                for B in range(1, 64))
+    # The serving shapes' counts: 7B (8 lanes x 32 kv heads) and GQA 32/8.
+    assert [_decode_splits(8, h, 64, 16, sms) for h in (32, 8)] == {
+        114: [1, 3], 132: [1, 4]}[sms]
 
 
 # The decode route's split and merge (_split_decode_plain, the plain mirror

@@ -110,6 +110,7 @@ def test_failed_launch_raises_and_counts_nothing(monkeypatch, route, sq):
     lib = _FailingLibrary()
     monkeypatch.setattr(pa, "_require_card", lambda q: None)
     monkeypatch.setattr(pa, "_stream", lambda q: "stream")
+    monkeypatch.setattr(pa, "_sm_count", lambda index: 132)
     monkeypatch.setattr(_build, "load_library", lambda *a: lib)
     B, Hq, Hkv, D, bs, max_blocks, blocks = 2, 4, 2, 64, 16, 8, 16
     rows = (blocks + 1) * bs

@@ -257,6 +257,7 @@ def test_worker_node_needs_cuda_or_an_explicit_cpu(monkeypatch):
                       train_runtime="process")
     assert node.device == torch.device("cpu")
     assert sorted(node.job_manager.supported()) == [("aggregate", "parameter-server"),
+                                                   ("infer", "generate"),
                                                    ("train", "diloco-transformer")]
     train = node.job_manager.executors[("train", "diloco-transformer")]
     assert train.args[:2] == ["-m", "hypha_tpu_torch.executor.training"]
