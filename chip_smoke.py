@@ -93,7 +93,24 @@ Phases, each printing one JSON line:
    the batch scheduler's ms per message; each Δθ push and broadcast with
    its bytes, the fold and ``outer_step`` seconds, auction to dispatch,
    dispatch to first heartbeat and the trainer's peak memory;
-13. train_reference — a tiny Llama (head_dim 64), and the same with a
+13. train_stream — ``train_node``'s job and fabric at the same full width
+   with the compressed streaming outer sync: ``delta_codec`` int8,
+   ``sync_mode`` stream, 4 fragments, 4 rounds of 8 batches of 2 (every
+   fragment syncs once), the trainer quantizing each due fragment's Δθ on
+   the card in its flight thread while the inner steps go on, the server
+   folding the int8 frames and re-encoding its update on the card; gates
+   (``stream_problems``) on both jobs completed, ``UPDATED`` every round,
+   finite falling round losses, the due fragments exactly the tree's
+   ``partition_names`` each once, every push an HQD1 int8 frame whose tag
+   matches its header, the flash launches of every batch trained (flights
+   included) and no plain call, no failed renewal, no file left behind,
+   and the card's ``quantize`` byte-equal to the CPU's on round 0's f32
+   update fragment (payload and scales); it reports per round the bytes
+   pushed and broadcast with their seconds, the fold, ``outer_step`` and
+   encode seconds, the flight and how long ``finish`` waited, step ms with
+   and without a flight out, the largest progress gap beside the adaptive
+   deadline, the trainer's and the server's peaks, and tokens/s;
+14. train_reference — a tiny Llama (head_dim 64), and the same with a
    sliding window below its sequence (Mistral's local attention), each
    trained 4 steps through the kernels and through the plain flash version
    from the same weights, with no call of the dense attention.
@@ -108,6 +125,7 @@ from __future__ import annotations
 import asyncio
 import gc
 import json
+import math
 import os
 import queue
 import re
@@ -1646,10 +1664,12 @@ NODE_STATUS_TIMEOUT_S = 600.0
 @contextmanager
 def node_probes(device):
     """Measure the fabric's training rounds from inside the port's modules:
-    each Δθ the parameter server saves (its header's names, dtypes and
-    shapes, its bytes and the seconds from the push's header to the saved
-    file), each fold and outer step (between two synchronisations of
-    ``device``), each broadcast, each Δθ push a worker's connector makes,
+    each Δθ the parameter server saves (its push header, its SafeTensors
+    names, dtypes and shapes or its HQD1 frame's codec, tag and shapes,
+    its bytes and the seconds from the push's header to the saved file),
+    each fold, outer step and broadcast encode (between two
+    synchronisations of ``device``), each broadcast (with its fragment
+    tag), each Δθ push a worker's connector makes,
     the worker's log lines (the trainer process's output), and the
     scheduler's side: each auction (``GreedyWorkerAllocator.request``),
     each dispatch (``Task.dispatch``), each job status the scheduler hears
@@ -1663,6 +1683,7 @@ def node_probes(device):
     and its answer (``BatchScheduler.on_progress``)."""
     import logging
 
+    from hypha_tpu_torch.compress import frame_header
     from hypha_tpu_torch.executor.serialization import read_header
     from hypha_tpu_torch.messages import PROTOCOL_API, Ack, JobStatus, ProgressKind
     from hypha_tpu_torch.scheduler.allocator import GreedyWorkerAllocator
@@ -1675,12 +1696,14 @@ def node_probes(device):
     from hypha_tpu_torch.worker import ps_executor
     from hypha_tpu_torch.worker.connectors import Connector
 
-    rec = {"deltas": [], "fold_s": [], "outer_step_s": [], "broadcast": [], "push": [], "log": [],
+    rec = {"deltas": [], "fold_s": [], "outer_step_s": [], "encode_s": [], "broadcast": [],
+           "push": [], "log": [],
            "auctions": [], "dispatch": [], "statuses": [], "slices": [], "renew_failures": [],
            "timeouts": [], "progress": []}
     PS = ps_executor.ParameterServerExecutor
-    saved = (PS._save_delta, ps_executor.outer_step, RoundAccum.fold, PS._broadcast, Connector.send)
-    save_delta, outer, fold, broadcast, send = saved
+    saved = (PS._save_delta, ps_executor.outer_step, RoundAccum.fold, PS._broadcast, Connector.send,
+             PS._encode_broadcast)
+    save_delta, outer, fold, broadcast, send, encode = saved
     sched_saved = (GreedyWorkerAllocator.request, Task.dispatch.__func__, StatusRouter._on_status,
                    StatusRouter.close, DataScheduler.assign, WorkerHandle._renew,
                    Orchestrator._effective_timeout, BatchScheduler.on_progress)
@@ -1688,13 +1711,20 @@ def node_probes(device):
     late: list = []  # the recorders that replace closed routers
     worker_round: dict = {}  # peer -> UPDATE_RECEIVED answered so far
 
-    async def timed_save(push, work_dir, round_num):
+    async def timed_save(push, work_dir, round_num, **kw):
         t0 = time.perf_counter()
-        path, samples = await save_delta(push, work_dir, round_num)
-        rec["deltas"].append({"round": round_num, "from": push.peer, "s": time.perf_counter() - t0,
-                              "bytes": path.stat().st_size,
-                              "tensors": {k: (v["dtype"], tuple(v["shape"]))
-                                          for k, v in read_header(path)[0].items()}})
+        path, samples = await save_delta(push, work_dir, round_num, **kw)
+        frame = frame_header(path)
+        rec["deltas"].append({
+            "round": round_num, "from": push.peer, "s": time.perf_counter() - t0,
+            "bytes": path.stat().st_size, "header": dict(push.resource),
+            # SafeTensors: {name: (dtype, shape)}; an HQD1 frame: its codec,
+            # tag and {name: shape}.
+            "tensors": None if frame else {k: (v["dtype"], tuple(v["shape"]))
+                                           for k, v in read_header(path)[0].items()},
+            "frame": frame and {"codec": frame["codec"], "tag": frame.get("tag"),
+                                "tensors": {t["name"]: tuple(t["shape"])
+                                            for t in frame["tensors"]}}})
         return path, samples
 
     def timed(fn, key):
@@ -1708,10 +1738,11 @@ def node_probes(device):
                 rec[key].append(time.perf_counter() - t0)
         return call
 
-    async def timed_broadcast(self, cfg, update_path, round_num):
+    async def timed_broadcast(self, cfg, update_path, round_num, extra_header=None):
         size, t0 = update_path.stat().st_size, time.perf_counter()
-        await broadcast(self, cfg, update_path, round_num)
-        rec["broadcast"].append({"round": round_num, "s": time.perf_counter() - t0, "bytes": size})
+        await broadcast(self, cfg, update_path, round_num, extra_header)
+        rec["broadcast"].append({"round": round_num, "s": time.perf_counter() - t0, "bytes": size,
+                                 "header": extra_header})
 
     async def timed_send(self, send_, path, resource, meta=None):
         size, t0 = Path(path).stat().st_size, time.perf_counter()
@@ -1799,6 +1830,7 @@ def node_probes(device):
     PS._save_delta = staticmethod(timed_save)
     ps_executor.outer_step = timed(outer, "outer_step_s")
     RoundAccum.fold = timed(fold, "fold_s")
+    PS._encode_broadcast = timed(encode, "encode_s")
     PS._broadcast, Connector.send = timed_broadcast, timed_send
     GreedyWorkerAllocator.request, Task.dispatch = timed_request, classmethod(timed_dispatch)
     StatusRouter._on_status, StatusRouter.close = status_seen, close_and_keep_listening
@@ -1808,7 +1840,8 @@ def node_probes(device):
         yield rec
     finally:
         PS._save_delta = staticmethod(save_delta)
-        ps_executor.outer_step, RoundAccum.fold, PS._broadcast, Connector.send = saved[1:]
+        ps_executor.outer_step, RoundAccum.fold, PS._broadcast, Connector.send, \
+            PS._encode_broadcast = saved[1:]
         GreedyWorkerAllocator.request, Task.dispatch = request, classmethod(dispatch)
         StatusRouter._on_status, StatusRouter.close = on_status, router_close
         DataScheduler.assign, WorkerHandle._renew = assign, renew
@@ -1819,12 +1852,14 @@ def node_probes(device):
         logger.setLevel(level)
 
 
-def node_job(model: dict, *, rounds, steps, batch, lr, workers):
+def node_job(model: dict, *, rounds, steps, batch, lr, workers, **options):
     """The DiLoCo job ``run_node_job`` hands the port's scheduler. Each
     worker asks for ``1 / batch`` of a GPU, and each ``WorkerNode`` offers
     its whole GPU, so the reference's sizing rule (``batch_size_for``:
     floor(offered / required), clamped to ``max_batch_size``) dispatches
-    batch ``batch``; a round is ``steps`` batches of every worker."""
+    batch ``batch``; a round is ``steps`` batches of every worker.
+    ``options`` are further ``DiLoCoJob`` fields (the wire codec, the sync
+    mode)."""
     from hypha_tpu_torch.messages import Adam, Nesterov, PriceRange
     from hypha_tpu_torch.resources import Resources
     from hypha_tpu_torch.scheduler.job_config import DiLoCoJob, DiLoCoRounds, JobResources
@@ -1838,12 +1873,12 @@ def node_job(model: dict, *, rounds, steps, batch, lr, workers):
             num_workers=workers, worker=Resources(gpu=1.0 / batch, cpu=1.0, memory=1024),
             parameter_server=Resources(cpu=1.0, memory=1024),
             worker_price=PriceRange(bid=1.0, max=10.0),
-            parameter_server_price=PriceRange(bid=1.0, max=10.0)))
+            parameter_server_price=PriceRange(bid=1.0, max=10.0)), **options)
 
 
 async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch, seq, period,
                        lr=3e-4, limit_s=CLI_LIMIT_S, workers=1, train_runtime="process",
-                       status_timeout=None) -> dict:
+                       status_timeout=None, job_options=None) -> dict:
     """The whole port on ``TcpTransport`` at 127.0.0.1 with ephemeral
     ports: a ``Gateway``, a ``DataNode`` serving counting-sequence slices as
     dataset ``counting``, ``workers`` ``WorkerNode``s ``w0``, ``w1``, ...
@@ -1869,7 +1904,8 @@ async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch,
     data_dir.mkdir(parents=True)
     write_slices(data_dir, n_slices=2, per_slice=rounds * steps * batch // 2, seq=seq,
                  period=period, seed=5)
-    job = node_job(model, rounds=rounds, steps=steps, batch=batch, lr=lr, workers=workers)
+    job = node_job(model, rounds=rounds, steps=steps, batch=batch, lr=lr, workers=workers,
+                   **(job_options or {}))
     listen = ["127.0.0.1:0"]
     gw = Gateway(TcpTransport(), peer_id="gw")
     await gw.start(listen)
@@ -2114,6 +2150,203 @@ def train_node_phase(train: dict) -> dict:
     return res
 
 
+STREAM_OPTIONS = {"delta_codec": "int8", "sync_mode": "stream", "num_fragments": 4}
+STREAM_ROUNDS, STREAM_STEPS = 4, 8  # every fragment syncs once; ~2.5 s of steps a round
+
+
+def trainer_log(log: str) -> dict:
+    """What the trainer process logged (through the worker's log): its
+    launches, peak, batches, each flight's encode, landing and merge, and
+    its step seconds with and without a flight out."""
+    found = re.search(r"attention launches: (\{.*\})", log)
+    peak = re.search(r"peak device memory: ([\d.]+) GiB", log)
+    done = re.search(r"training done: (\d+) rounds, (\d+) batches", log)
+    steps = re.search(r"step seconds: (\{.*\})", log)
+    flights: dict = {}
+    for r, f, s, n in re.findall(r"round (\d+) fragment (\d+): delta encoded in ([\d.]+) s "
+                                 r"\((\d+) bytes\)", log):
+        flights.setdefault(int(r), {}).update(fragment=int(f), encode_s=float(s), bytes=int(n))
+    for r, _f, s in re.findall(r"round (\d+) fragment (\d+): broadcast landed ([\d.]+) s", log):
+        flights.setdefault(int(r), {})["flight_s"] = float(s)
+    for r, _f, m, w, n in re.findall(r"round (\d+) fragment (\d+): update merged in ([\d.]+) s; "
+                                     r"waited ([\d.]+) s for the flight; (\d+) steps in flight", log):
+        flights.setdefault(int(r), {}).update(merge_s=float(m), finish_wait_s=float(w),
+                                              steps_in_flight=int(n))
+    return dict(launches=json.loads(found.group(1)) if found else None,
+                peak_gib=float(peak.group(1)) if peak else None,
+                batches=int(done.group(2)) if done else None,
+                step_s=json.loads(steps.group(1)) if steps else None, flights=flights)
+
+
+def stream_problems(run: dict, *, rounds: int, fragments: int, expect: dict, codec: str) -> list:
+    """The gates of a stream job under the port's scheduler, on the CPU as
+    on the card: both jobs ``running`` then ``completed``, the rounds,
+    ``UPDATED`` each round, finite falling round losses, one frame a round
+    from each worker, each an HQD1 ``codec`` frame tagged (round, due
+    fragment, ``fragments``) as its push header is and holding exactly the
+    due fragment of ``partition_names`` over the config's flat names with
+    their shapes, each fragment synced (with ``rounds == fragments``, once),
+    a tagged broadcast a round, no failed renewal and no file left
+    behind."""
+    from hypha_tpu_torch.stream import partition_names
+
+    rec, result = run["rec"], run["result"]
+    problems = []
+    if not run["finished"] or any(s != ["running", "completed"] for s in run["jobs"].values()):
+        problems.append(f"job states {run['jobs']} (a trainer must exit 0 in time)")
+    if result.rounds != rounds:
+        problems.append(f"JobResult.rounds {result.rounds}, wanted {rounds}")
+    updated = [p["round"] for p in rec["progress"] if p["kind"] == "updated"]
+    if updated != list(range(rounds)):
+        problems.append(f"the parameter server's UPDATED rounds {updated}")
+    for peer in run["workers"]:
+        losses = [m.get("loss") for w, _, m in result.metrics if w == peer]
+        if (len(losses) != rounds or None in losses
+                or not torch.isfinite(torch.tensor(losses, dtype=torch.float64)).all()
+                or not losses[-1] < losses[0]):
+            problems.append(f"{peer}: round losses {losses}: not finite, or the last not below "
+                            "the first")
+    parts = partition_names({n: math.prod(s) for n, (_, s) in expect.items()}, fragments)
+    synced: list = []
+    if len(rec["deltas"]) != rounds * len(run["workers"]):
+        problems.append(f"{len(rec['deltas'])} deltas received, wanted {rounds} a worker")
+    for d in rec["deltas"]:
+        r, frame = d["round"], d["frame"]
+        tag = {"round": r, "fragment_id": r % fragments, "fragments": fragments}
+        head = {k: d["header"].get(k) for k in tag}
+        if frame is None or frame["codec"] != codec or frame["tag"] != tag or head != tag:
+            problems.append(f"round {r} from {d['from']}: frame {frame and frame['codec']} "
+                            f"tagged {frame and frame['tag']}, header {head}; wanted a {codec} "
+                            f"frame tagged {tag}")
+            continue
+        want = {n: expect[n][1] for n in parts[r % fragments]}
+        if frame["tensors"] != want:
+            problems.append(f"round {r}: the frame holds {sorted(frame['tensors'])}, not "
+                            f"fragment {r % fragments} of the partition")
+        synced.append(r % fragments)
+    if sorted(set(synced)) != list(range(min(rounds, fragments))):
+        problems.append(f"fragments synced {sorted(set(synced))}")
+    heads = [b["header"] for b in sorted(rec["broadcast"], key=lambda b: b["round"])]
+    if heads != [{"round": r, "fragment_id": r % fragments, "fragments": fragments}
+                 for r in range(rounds)]:
+        problems.append(f"broadcast headers {heads}")
+    if rec["renew_failures"]:
+        problems.append(f"lease renewals failed: {rec['renew_failures']}")
+    if run["leftover"]:
+        problems.append(f"files left behind: {run['leftover']}")
+    return problems
+
+
+def quantize_check(update: dict) -> dict:
+    """The card's ``quantize`` against the CPU's on the same f32 tensors:
+    payload and scales byte-equal, per int8 codec."""
+    from hypha_tpu_torch.compress import quantize
+
+    t0 = time.perf_counter()
+    bad, n = [], 0
+    for name, t in update.items():
+        cpu = quantize(t, "int8")
+        card = quantize(t.to("cuda"), "int8")
+        if not (torch.equal(card[0].cpu(), cpu[0]) and torch.equal(card[1].cpu(), cpu[1])):
+            bad.append(name)
+        n += t.numel()
+    return {"tensors": len(update), "elements": n, "mismatched": bad,
+            "seconds": time.perf_counter() - t0}
+
+
+def train_stream_phase() -> dict:
+    """``train_node``'s job with ``STREAM_OPTIONS``: the trainer ships one
+    int8 fragment a round from its flight thread while it keeps stepping,
+    the server folds and re-encodes on the card."""
+    from hypha_tpu_torch.executor.serialization import load_file
+    from hypha_tpu_torch.worker.ps_executor import ParameterServerExecutor as PS
+
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-stream-"))
+    captured: dict = {}
+    encode = PS._encode_broadcast
+
+    def capture(self, update_path, codec, ef, work_dir, round_num, tag=None):
+        if round_num == 0:  # round 0's f32 update: fragment 0, for the quantize check
+            captured.update(load_file(update_path))
+        return encode(self, update_path, codec, ef, work_dir, round_num, tag)
+
+    PS._encode_broadcast = capture
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        run = asyncio.run(run_node_job(
+            root, TRAIN_MODEL, device="cuda", rounds=STREAM_ROUNDS, steps=STREAM_STEPS,
+            batch=TRAIN_BATCH, seq=TRAIN_SEQ, period=TRAIN_PERIOD,
+            status_timeout=NODE_STATUS_TIMEOUT_S, job_options=STREAM_OPTIONS))
+    finally:
+        PS._encode_broadcast = encode
+        shutil.rmtree(root, ignore_errors=True)
+    server_peak = torch.cuda.max_memory_allocated() / 2**30
+    rec, result = run["rec"], run["result"]
+    log = "\n".join(rec["log"])
+    trainer = trainer_log(log)
+    timing = progress_timing(run)
+    qcheck = quantize_check(captured)
+    del captured
+    step_s = trainer["step_s"] or {"flight": [], "no_flight": []}
+    med = {k: statistics.median(v) * 1e3 if v else None for k, v in step_s.items()}
+    everything = step_s["flight"] + step_s["no_flight"]
+    step_ms = statistics.median(everything) * 1e3 if everything else None
+
+    def at(xs, r):
+        return [x for x in xs if x["round"] == r]
+
+    per_round = []
+    for r in range(STREAM_ROUNDS):
+        push, bcast = at(rec["push"], r), at(rec["broadcast"], r)
+        per_round.append({
+            "round": r, "fragment": r % STREAM_OPTIONS["num_fragments"],
+            "push_bytes": sum(x["bytes"] for x in push), "push_s": sum(x["s"] for x in push),
+            "push_mb_per_s": [x["bytes"] / x["s"] / 1e6 for x in push],
+            "broadcast_bytes": sum(x["bytes"] for x in bcast),
+            "broadcast_s": sum(x["s"] for x in bcast),
+            "broadcast_mb_per_s": [x["bytes"] / x["s"] / 1e6 for x in bcast],
+            "fold_s": rec["fold_s"][r] if r < len(rec["fold_s"]) else None,
+            "outer_step_s": rec["outer_step_s"][r] if r < len(rec["outer_step_s"]) else None,
+            "encode_s": rec["encode_s"][r] if r < len(rec["encode_s"]) else None,
+            **trainer["flights"].get(r, {}),
+        })
+    res = dict(
+        model="llama2-7b", layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+        options=STREAM_OPTIONS, rounds=STREAM_ROUNDS, steps_a_round=STREAM_STEPS,
+        jobs=run["jobs"], result_rounds=result.rounds,
+        updated=[p["round"] for p in rec["progress"] if p["kind"] == "updated"],
+        losses=[(w, r, m.get("loss")) for w, r, m in result.metrics],
+        batches=trainer["batches"], per_round=per_round,
+        step_ms=step_ms, step_ms_flight=med["flight"], step_ms_no_flight=med["no_flight"],
+        steps_flight=len(step_s["flight"]), steps_no_flight=len(step_s["no_flight"]),
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3) if step_ms else None,
+        round_boundary_s=timing["round_boundary_s"],
+        progress_gap_max_s=timing["progress_gap_max_s"],
+        progress_gap_between=timing["progress_gap_between"],
+        adaptive_deadline_in_gap_s=timing["adaptive_deadline_in_gap_s"],
+        handling_ms_median=timing["handling_ms_median"],
+        trainer_peak_gib=trainer["peak_gib"], server_peak_gib=server_peak,
+        attention_launches=trainer["launches"], quantize_check=qcheck,
+        loop_stall_max_s=run["loop_stall_max_s"], leftover_files=run["leftover"],
+    )
+    problems = stream_problems(run, rounds=STREAM_ROUNDS,
+                               fragments=STREAM_OPTIONS["num_fragments"],
+                               expect=flat_f32_spec(TRAIN_MODEL), codec="int8")
+    n = trainer["batches"] or 0
+    want = {"fwd": 2 * TRAIN_LAYERS * n, "dq": TRAIN_LAYERS * n, "dkv": TRAIN_LAYERS * n,
+            "flash_plain": 0, "dense": 0}
+    if not n or "attention path: flash kernels" not in log or trainer["launches"] != want:
+        problems.append(f"attention launches {trainer['launches']}, wanted {want} through the "
+                        f"flash kernels for {n} batches")
+    if qcheck["mismatched"] or not qcheck["tensors"]:
+        problems.append(f"the card's quantize differs from the CPU's on {qcheck['mismatched']} "
+                        f"of {qcheck['tensors']} tensors")
+    if problems:
+        emit({"phase": "train_stream", **res, "problems": problems, "worker_log_tail": log[-4000:]})
+        raise SystemExit("train_stream phase failed: " + "; ".join(problems))
+    return res
+
+
 class _PlainFlash(torch.autograd.Function):
     """The plain flash versions under autograd: the kernels' reference."""
 
@@ -2225,6 +2458,7 @@ def main() -> int:
     emit({"phase": "train", **train})
     emit({"phase": "train_cli", **train_cli_phase(train)})
     emit({"phase": "train_node", **train_node_phase(train)})
+    emit({"phase": "train_stream", **train_stream_phase()})
     emit({"phase": "train_reference", **train_reference_phase()})
 
     dec, pre = kern["timing"]["decode_bf16"], kern["timing"]["prefill64_bf16"]

@@ -13,7 +13,8 @@ bridge has not closed it while it sat idle (as ``httpx``'s pool does),
 so a request is never sent into a dead connection and never sent twice.
 Each ``receive`` opens a connection of its own and holds it for the
 stream's life; leaving the context closes it, which ends the bridge's
-side of the stream.
+side of the stream. A lock serializes the short requests, so a streaming
+sync's flight thread can push while the training loop sends heartbeats.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import http.client
 import json
 import select
 import socket
+import threading
 from contextlib import contextmanager
 from typing import Any, Iterator
 
@@ -68,6 +70,7 @@ class Session:
         self._path = str(socket_path)
         self._timeout = timeout
         self._conn = _UnixConnection(self._path, timeout)
+        self._lock = threading.Lock()
 
     def close(self) -> None:
         self._conn.close()
@@ -81,6 +84,10 @@ class Session:
     # ------------------------------------------------------------------
 
     def _post(self, path: str, payload: dict) -> Any:
+        with self._lock:
+            return self._post_locked(path, payload)
+
+    def _post_locked(self, path: str, payload: dict) -> Any:
         conn = self._conn
         if conn.sock is not None and select.select([conn.sock], [], [], 0)[0]:
             # Readable while idle: the bridge closed this keep-alive

@@ -9,8 +9,8 @@ keys, optional ``None`` fields omitted) are the JAX package's, and
 ``encode`` / ``decode`` put that form through the port's CBOR codec, so a
 message is the same bytes in both packages (``tests/test_torch_codec.py``).
 A message of a subsystem that is not ported (the serving router's load
-heartbeats, the fleet block plane, live weight follow, streaming
-fragments, elastic membership) has no class here and does not decode.
+heartbeats, the fleet block plane, live weight follow, elastic
+membership) has no class here and does not decode.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from .resources import Resources
 __all__ = [
     "Ack", "Adam", "AdoptAck", "AggregateExecutorConfig", "CancelJob", "DataRecord",
     "DataRequest", "DataResponse", "DataSlice", "DispatchJob", "DispatchJobResponse",
-    "Executor", "ExecutorDescriptor", "Fetch", "GenerateRequest", "GenerateResponse",
+    "Executor", "ExecutorDescriptor", "Fetch", "FragmentTag", "GenerateRequest", "GenerateResponse",
     "HealthRequest", "HealthResponse", "InferExecutorConfig", "JobSpec",
     "JobStatus", "Loss", "LRScheduler", "LRSchedulerKind", "ModelType", "Nesterov",
     "PriceRange", "Progress", "ProgressKind", "ProgressResponse", "ProgressResponseKind",
@@ -35,7 +35,7 @@ __all__ = [
     "SchedulerHello", "Send", "ShardMap", "TrainExecutorConfig", "TransferStrategy",
     "WorkerOffer", "WorkerSpec", "decode", "encode", "from_json_dict", "to_json_dict",
     "PROTOCOL_API", "PROTOCOL_GENERATE", "PROTOCOL_HEALTH", "PROTOCOL_PROGRESS", "TOPIC_WORKER",
-    "TRAIN_EXECUTOR_NAME", "AGGREGATE_EXECUTOR_NAME", "INFER_EXECUTOR_NAME",
+    "CODEC_KEY", "TRAIN_EXECUTOR_NAME", "AGGREGATE_EXECUTOR_NAME", "INFER_EXECUTOR_NAME",
 ]
 
 PROTOCOL_API = "/hypha-api/0.0.1"
@@ -318,6 +318,43 @@ class ShardMap:
     groups: list = field(default_factory=list)
     tree_depth: int | None = None
     serve_leaves: list | None = None
+
+
+@_register
+@dataclass(slots=True)
+class FragmentTag:
+    """The (round, fragment) identity of one streamed transfer: it rides
+    the push header of every fragment delta and per-fragment broadcast, and
+    is mirrored into HQD1 frame headers (``compress.write_delta(tag=)``).
+    ``round`` always travels next to ``fragment_id``, so a stale fragment
+    cannot fold into the wrong round's mean."""
+
+    round: int = 0
+    fragment_id: int = 0
+    fragments: int = 1  # the fragment count (a cross-check)
+
+    def header(self) -> dict:
+        """The plain keys merged into a push header."""
+        return {"round": self.round, "fragment_id": self.fragment_id,
+                "fragments": self.fragments}
+
+    @classmethod
+    def from_header(cls, header: Any) -> "FragmentTag | None":
+        """Parse a push header; None when untagged or malformed."""
+        if not isinstance(header, dict) or "fragment_id" not in header:
+            return None
+        try:
+            return cls(round=int(header.get("round", 0)),
+                       fragment_id=int(header["fragment_id"]),
+                       fragments=max(int(header.get("fragments", 1)), 1))
+        except (TypeError, ValueError):
+            return None
+
+
+# The broadcast-header key of the per-link codec hint an adaptive parameter
+# server stamps (ft.adaptive); the port's trainer refuses a broadcast that
+# carries one (ROADMAP.md, Queue 1: sharded PS/FT/rejoin).
+CODEC_KEY = "codec"
 
 
 @_register

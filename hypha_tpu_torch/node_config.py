@@ -610,7 +610,7 @@ class JobSection:
             if self.serve_block_size == 0:
                 _refuse("job.serve_block_size = 0", "fixed-slot pool mode")
         else:
-            # DiLoCoJob accepts each option outside the port's blocking,
+            # DiLoCoJob accepts each option outside the port's
             # single-PS, non-elastic path only at its off value and names
             # its label otherwise: build it now, so a bad file fails here.
             self.to_job()

@@ -1,6 +1,6 @@
 """Scheduler: DiLoCo orchestration — allocation, data/batch scheduling,
-tracking (a copy of ``hypha_tpu/scheduler/`` for the blocking,
-single-parameter-server, non-elastic path).
+tracking (a copy of ``hypha_tpu/scheduler/`` for the
+single-parameter-server, non-elastic path, every codec and sync mode).
 
 Mirrors the reference's ``hypha-scheduler`` crate (SURVEY.md §2.4). The
 entry point is ``orchestrator.Orchestrator(node).run(job)`` with a

@@ -1,5 +1,5 @@
 """The DiLoCo control-plane state machine (a copy of
-``hypha_tpu/scheduler/batch_scheduler.py`` for the blocking,
+``hypha_tpu/scheduler/batch_scheduler.py`` for the
 single-parameter-server, non-elastic path).
 
 Reference: crates/scheduler/src/scheduling/batch_scheduler.rs:42-163.
@@ -19,7 +19,7 @@ complete when every worker is DONE.
 
 Not ported, each raising ``NotImplementedError`` with its ROADMAP.md label
 when set: ``shards_due`` (the sharded parameter service) and ``adaptive``
-(straggler-adaptive inner steps), **Codecs/streaming/sharded PS/FT/rejoin**;
+(straggler-adaptive inner steps), **sharded PS/FT/rejoin**;
 ``generation`` and ``adopt_round`` (a restarted scheduler's stamped
 responses), **scheduler recovery**. The reference's control-loop timing
 reservoir, FT counters and per-round trace spans (**telemetry**) are off
@@ -53,7 +53,7 @@ _CONTINUE = ProgressResponse(kind=ProgressResponseKind.CONTINUE)
 _OK = ProgressResponse(kind=ProgressResponseKind.OK)
 _DONE = ProgressResponse(kind=ProgressResponseKind.DONE)
 
-_STREAMING = "Codecs/streaming/sharded PS/FT/rejoin"
+_STREAMING = "sharded PS/FT/rejoin"
 _RECOVERY = "scheduler recovery"
 
 

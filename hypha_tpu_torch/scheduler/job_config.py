@@ -11,41 +11,35 @@ max batch 600).
 
 Every field keeps the JAX package's name, order and default, and the three
 classes are registered with the port's codec, so ``messages.encode(job)``
-gives the JAX package's bytes. The port schedules the blocking,
-single-parameter-server, non-elastic path: each option outside it is
-accepted only at its off value (``_NOT_PORTED``), and any other value
-raises ``NotImplementedError`` naming its ROADMAP.md label. Malformed values
-raise the reference's ``ValueError`` first.
+gives the JAX package's bytes. The port schedules the single-parameter-
+server, non-elastic path, with every wire codec (``delta_codec``,
+``delta_dtype``) and every sync mode (``sync_mode``, ``num_fragments``):
+each option outside it is accepted only at its off value (``_NOT_PORTED``),
+and any other value raises ``NotImplementedError`` naming its ROADMAP.md
+label. Malformed values raise the reference's ``ValueError`` first.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from ..compress import CODECS
 from ..messages import Adam, Loss, LRScheduler, Nesterov, PriceRange, _register
 from ..resources import Resources
+from ..stream import SYNC_MODES
 
-__all__ = ["DiLoCoRounds", "JobResources", "DiLoCoJob"]
+__all__ = ["DiLoCoRounds", "JobResources", "DiLoCoJob", "CODECS", "SYNC_MODES"]
 
-# The reference's wire codecs (hypha_tpu/compress) and sync modes
-# (hypha_tpu/stream/sync.py): values the job validates, not modes the
-# port runs.
-CODECS = ("none", "bf16", "int8", "int4")
-SYNC_MODES = ("blocking", "overlap", "stream")
-
-_STREAMING = "Codecs/streaming/sharded PS/FT/rejoin"
+_STREAMING = "sharded PS/FT/rejoin"
 
 # (field, the values the port runs, ROADMAP.md label of the rest).
 _NOT_PORTED = (
     ("ft", (None,), _STREAMING),
     ("checkpoint_dir", (None,), "checkpoint resume"),
-    ("sync_mode", ("blocking",), _STREAMING),
     ("num_ps_shards", (1,), _STREAMING),
     ("reduce_group_size", (0,), _STREAMING),
     ("reduce_tree_depth", (0, 1), _STREAMING),
     ("broadcast_tree", (False,), _STREAMING),
-    ("delta_codec", ("none",), _STREAMING),
-    ("delta_dtype", ("float32",), _STREAMING),
     ("adaptive_steps", (False,), _STREAMING),
     ("adaptive_codec", (False,), _STREAMING),
     ("scheduler_recovery", (False,), "scheduler recovery"),

@@ -1,7 +1,7 @@
 """The scheduler orchestrator: allocate → wire → dispatch → supervise (a copy
-of ``hypha_tpu/scheduler/orchestrator.py`` for the blocking,
+of ``hypha_tpu/scheduler/orchestrator.py`` for the
 single-parameter-server, non-elastic path — the one the JAX CLI runs with
-default settings).
+default settings — with every wire codec and sync mode).
 
 Reference call stack being reproduced (SURVEY.md §3.1,
 crates/scheduler/src/bin/hypha-scheduler.rs:54-432):
@@ -30,7 +30,7 @@ Not ported (the job refuses their options, ``job_config.py``): the
 adoption and resume path of a restarted scheduler (**scheduler
 recovery**), and the parameter server's restart, φ-accrual suspicion,
 elastic membership, depart and rejoin, sharded and tree-reduced parameter
-services and adaptive steps (**Codecs/streaming/sharded PS/FT/rejoin**).
+services and adaptive steps (**sharded PS/FT/rejoin**).
 """
 
 from __future__ import annotations

@@ -17,9 +17,10 @@ CUDA division by a host scalar multiplies by its reciprocal instead).
 
 ``prefolded`` folds accept a partial sum that is already sample-weighted:
 the payload adds verbatim (scaled only by ``sign`` for un-folds) while the
-shipped ``samples`` still advance the weight total. The reference's HQD1
-frames (quantized deltas) are not read here (ROADMAP.md, Queue 1:
-codecs/streaming/sharded PS/FT/rejoin).
+shipped ``samples`` still advance the weight total. A delta file may be
+in any per-job wire format (``compress.read_delta``): an HQD1 frame
+dequantizes on the accumulator's device, a SafeTensors file (f32 or bf16)
+is read on the host and moves there one tensor at a time.
 """
 
 from __future__ import annotations
@@ -30,13 +31,10 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from ..executor.serialization import load_file
+from ..compress.frame import read_delta
 from ..hw import default_device
 
 __all__ = ["RoundAccum"]
-
-_HQD1 = b"HQD1"  # the reference's quantized-frame magic (hypha_tpu/compress/frame.py)
-
 
 class RoundAccum:
     """Streaming sample-weighted fold of one round's delta files.
@@ -54,13 +52,7 @@ class RoundAccum:
 
     def fold(self, path: "Path | str", samples: float, sign: float = 1.0,
              prefolded: bool = False) -> None:
-        with open(path, "rb") as f:
-            if f.read(4) == _HQD1:
-                raise NotImplementedError(
-                    f"{path} is an HQD1 (quantized) delta frame; the port reads SafeTensors "
-                    "deltas only (ROADMAP.md, Queue 1: codecs/streaming/sharded PS/FT/rejoin)"
-                )
-        self.fold_tree(load_file(path), samples, sign, prefolded)
+        self.fold_tree(read_delta(path, self.device), samples, sign, prefolded)
 
     def fold_tree(self, tree: dict, samples: float, sign: float = 1.0,
                   prefolded: bool = False) -> None:

@@ -17,7 +17,7 @@
 
 Not ported: the on-disk slice cache of pipelined jobs (a ``prefetch``
 window; ROADMAP.md, Queue 1: input_pipeline), ``shard_route`` (sharded
-parameter service; codecs/streaming/sharded PS/FT/rejoin), HuggingFace
+parameter service; sharded PS/FT/rejoin), HuggingFace
 Hub downloads (HF checkpoints) and the data-plane byte counters
 (telemetry). Each raises ``NotImplementedError`` naming its label.
 
@@ -83,7 +83,7 @@ def shard_route(shard_map, part: int, reduce_via: "str | None" = None):
     sharded parameter service), which the port does not run."""
     raise NotImplementedError(
         "routing delta parts to parameter-server shards is not ported to PyTorch yet "
-        "(ROADMAP.md, Queue 1: codecs/streaming/sharded PS/FT/rejoin)"
+        "(ROADMAP.md, Queue 1: sharded PS/FT/rejoin)"
     )
 
 

@@ -18,7 +18,7 @@ from the job's work dir.
 
 Not ported: the slice cache and the tree-reduce group reducer the
 reference starts beside the process (ROADMAP.md, Queue 1: input_pipeline;
-codecs/streaming/sharded PS/FT/rejoin).
+sharded PS/FT/rejoin).
 """
 
 from __future__ import annotations

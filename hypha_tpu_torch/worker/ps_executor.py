@@ -1,5 +1,6 @@
 """The parameter server: the DiLoCo outer optimizer (counterpart of the
-blocking, single-shard path of ``hypha_tpu/worker/ps_executor.py``).
+single-shard, non-elastic, non-durable path of
+``hypha_tpu/worker/ps_executor.py``).
 
 :class:`ParameterServerExecutor` is the in-runtime executor a worker node
 runs for an ``aggregate`` job. Each round it takes one pseudo-gradient
@@ -14,11 +15,22 @@ update is pushed to the results peers with bounded fan-out. The fold and
 the step are blocking device work and run in worker threads, so the
 node's heartbeats and lease renewals go on during a large round.
 
+The broadcast goes out in the job's wire codec (``delta_codec``;
+``_encode_broadcast``, the reference's ``:2442-2467``): the f32 update
+re-encoded as bf16 SafeTensors or an int8/int4 HQD1 frame of Q(update +
+e) on the device, the server keeping its own error-feedback residual e.
+``sync_mode`` overlap and stream run :meth:`_stream_rounds` (the
+reference's ``:1604-2200``): each delta folds, as it lands, into the
+accumulator of the round its ``FragmentTag`` names (a round not open yet
+included); a round's update covers its due fragment only, with a
+momentum file and a broadcast residual per fragment; and the fan-out runs
+in the background, chained per fragment so that a worker never gets a
+fragment's rounds out of order.
+
 What raises ``NotImplementedError`` at dispatch, with its ROADMAP.md
 label: a ``checkpoint_dir`` (checkpoint resume); elastic quorums
-(``quorum_fraction > 0``), ``sync_mode`` other than blocking, several
-parameter-server shards, a ``delta_codec``, the adaptive options, the
-broadcast tree and the adoption grace (codecs/streaming/sharded
+(``quorum_fraction > 0``), several parameter-server shards, the adaptive
+options, the broadcast tree and the adoption grace (sharded
 PS/FT/rejoin); ``report_metrics_s`` (telemetry); ``serve_peers`` (live
 weight swap). A tree-reduce partial arriving at a round fails the job
 under the same label as the tree.
@@ -57,11 +69,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import aio
+from .. import aio, compress
 from ..executor.serialization import load_file, save_file
 from ..hw import default_device
 from ..messages import (
     PROTOCOL_PROGRESS,
+    FragmentTag,
     JobSpec,
     Progress,
     ProgressKind,
@@ -70,7 +83,7 @@ from ..messages import (
     TransferStrategy,
 )
 from ..network.node import RequestError
-from ..stream.accum import RoundAccum
+from ..stream import RoundAccum, effective_fragments, fragment_due
 from .connectors import push_timeout
 from .job_manager import Execution, JobExecutor
 
@@ -86,7 +99,7 @@ _BROADCAST_CONCURRENCY = 8
 # messages.PREFOLD_KEY).
 _PREFOLD_KEY = "prefold"
 
-_FT = "codecs/streaming/sharded PS/FT/rejoin"
+_FT = "sharded PS/FT/rejoin"
 
 
 def _copy(t: torch.Tensor, device) -> torch.Tensor:
@@ -163,9 +176,7 @@ def _unported(cfg) -> None:
     checks = [
         (bool(cfg.checkpoint_dir), "checkpoint_dir", "checkpoint resume"),
         (cfg.quorum_fraction > 0, "quorum_fraction", _FT),
-        ((cfg.sync_mode or "blocking") != "blocking", "sync_mode", _FT),
         (int(cfg.num_ps_shards or 1) > 1, "num_ps_shards", _FT),
-        ((cfg.delta_codec or "none") != "none", "delta_codec", _FT),
         (bool(cfg.adaptive_steps), "adaptive_steps", _FT),
         (bool(cfg.adaptive_codec), "adaptive_codec", _FT),
         (cfg.broadcast_tree is not None, "broadcast_tree", _FT),
@@ -190,7 +201,7 @@ def _unlink(paths: list) -> None:
 
 
 class ParameterServerExecutor(JobExecutor):
-    """The blocking, single-shard parameter server on ``device`` (CUDA
+    """The single-shard parameter server on ``device`` (CUDA
     unless the caller asks for the CPU; without CUDA and without that
     request the constructor raises)."""
 
@@ -237,8 +248,18 @@ class ParameterServerExecutor(JobExecutor):
             return isinstance(r, dict) and (tag is None or r.get("resource") == tag)
 
         consumer = self.node.consume_pushes(wants)
+        # The broadcast's wire codec mirrors the upload's; a quantized one
+        # feeds its error back into the next update.
+        codec = compress.effective_codec(cfg.delta_codec or "none")
+        sync_mode = cfg.sync_mode or "blocking"
         round_num = 0
         try:
+            if sync_mode != "blocking":
+                await self._stream_rounds(
+                    execution, job_id, cfg, scheduler_peer, work_dir, consumer, allowed,
+                    num_workers, lr, mu, codec, effective_fragments(sync_mode, cfg.fragments))
+                return
+            bcast_ef = compress.ErrorFeedback() if codec in compress.QUANT_CODECS else None
             while True:
                 execution.round = round_num  # the live round, for AdoptAck
                 accum = RoundAccum(device=self.device)
@@ -248,6 +269,8 @@ class ParameterServerExecutor(JobExecutor):
                     outer_step, received, momentum_file, lr, mu, work_dir, round_num,
                     accum=accum, device=self.device)
                 del accum
+                wire_path = await asyncio.to_thread(
+                    self._encode_broadcast, update_path, codec, bcast_ef, work_dir, round_num)
                 # Notify BEFORE broadcasting: a worker can merge the update
                 # and send UPDATE_RECEIVED the moment the broadcast lands,
                 # and the scheduler must have advanced the round by then, or
@@ -255,9 +278,9 @@ class ParameterServerExecutor(JobExecutor):
                 # a phantom extra round.
                 response = await self._notify_updated(
                     scheduler_peer, job_id, round_num, execution)
-                await self._broadcast(cfg, update_path, round_num)
+                await self._broadcast(cfg, wire_path, round_num)
                 await asyncio.to_thread(
-                    _unlink, [path for path, _ in received.values()] + [update_path])
+                    _unlink, [path for path, _ in received.values()] + [update_path, wire_path])
                 round_num += 1
                 if response.kind == ProgressResponseKind.DONE:
                     execution.finish("completed")
@@ -312,10 +335,10 @@ class ParameterServerExecutor(JobExecutor):
         return received
 
     @staticmethod
-    async def _save_delta(push, work_dir: Path, round_num: int) -> tuple:
+    async def _save_delta(push, work_dir: Path, round_num: int, suffix: str = "") -> tuple:
         """Save one pseudo-gradient push; returns (path, sample weight)."""
         name = hashlib.sha256(push.peer.encode()).hexdigest()[:24]
-        dest = work_dir / f"delta-{round_num}-{name}.safetensors"
+        dest = work_dir / f"delta-{round_num}-{name}{suffix}.safetensors"
         await push.save_to(dest)
         samples = 1.0
         if isinstance(push.resource, dict):
@@ -327,15 +350,183 @@ class ParameterServerExecutor(JobExecutor):
                 samples = 1.0
         return dest, samples
 
-    async def _broadcast(self, cfg, update_path: Path, round_num: int) -> None:
-        """Push the f32 update to every results peer in parallel, at most
-        ``_BROADCAST_CONCURRENCY`` streams at once. A peer's failure is
+    def _encode_broadcast(self, update_path: Path, codec: str, ef, work_dir: Path,
+                          round_num: int, tag: "dict | None" = None) -> Path:
+        """Re-encode the f32 update for the wire per the job's codec, on the
+        device (counterpart of the reference's ``_encode_broadcast``): "none"
+        broadcasts the update file itself; bf16 casts it; int8/int4 write an
+        HQD1 frame of Q(update + residual), stamped with ``tag``."""
+        if codec == "none":
+            return update_path
+        wire = work_dir / f"update-{round_num}.wire.safetensors"
+        # In name order: the reference re-reads its f32 update through the
+        # safetensors library, which orders tensors by name within a dtype,
+        # so the frames are byte-identical.
+        update = {k: v.to(self.device) for k, v in sorted(load_file(update_path).items())}
+        compress.write_delta(wire, update, codec, ef=ef, tag=tag)
+        return wire
+
+    @staticmethod
+    def _frame_tag_matches(path: Path, tag: FragmentTag) -> bool:
+        """An HQD1 frame's own tag agrees with its push header's (an
+        untagged file passes: the header is then its only identity)."""
+        baked = compress.frame_tag(path)
+        if baked is None:
+            return True
+        try:
+            return (int(baked.get("round", tag.round)) == tag.round
+                    and int(baked.get("fragment_id", tag.fragment_id)) == tag.fragment_id)
+        except (TypeError, ValueError):
+            return False
+
+    async def _stream_rounds(self, execution, job_id: str, cfg, scheduler_peer: str,
+                             work_dir: Path, consumer, allowed: set, num_workers: int,
+                             lr: float, mu: float, codec: str, fragments: int) -> None:
+        """The pipelined round loop of ``sync_mode`` overlap and stream
+        (counterpart of the reference's ``_stream_rounds``, single shard,
+        not elastic, not durable). Round ``r`` closes fragment ``r mod F``
+        when every worker's delta for it is in; its update is encoded with
+        that fragment's broadcast residual, the scheduler hears ``UPDATED``,
+        and the fan-out starts in the background while the next round
+        collects. Fan-outs of one fragment are chained (round r+F waits
+        for round r); at most F + 1 are out at once."""
+        accums: dict = {}   # round -> RoundAccum, the open rounds only
+        pending: dict = {}  # round -> {peer: entry} of rounds not open yet
+        bcast_efs: dict = {}
+        bcast_tasks: set = set()
+        last_bcast: dict = {}  # fragment -> its newest fan-out
+        round_num = 0
+        try:
+            while True:
+                execution.round = round_num
+                received = await self._collect_round_stream(
+                    consumer, job_id, allowed, num_workers, work_dir, round_num, fragments,
+                    accums, pending)
+                frag = fragment_due(round_num, fragments)
+                tag = FragmentTag(round=round_num, fragment_id=frag, fragments=fragments)
+                accum = accums.pop(round_num, None)
+                # One momentum file per fragment: the fragments' tensors are
+                # disjoint, so each round reads and writes only its own.
+                update_path = await asyncio.to_thread(
+                    outer_step, received, work_dir / f"momentum-f{frag}.safetensors", lr, mu,
+                    work_dir, round_num, accum=accum, device=self.device)
+                del accum
+                if frag not in bcast_efs:
+                    bcast_efs[frag] = (compress.ErrorFeedback()
+                                       if codec in compress.QUANT_CODECS else None)
+                wire_path = await asyncio.to_thread(
+                    self._encode_broadcast, update_path, codec, bcast_efs[frag], work_dir,
+                    round_num, tag.header())
+                # Notify before the fan-out (the blocking loop's race note).
+                response = await self._notify_updated(
+                    scheduler_peer, job_id, round_num, execution)
+                last_bcast[frag] = aio.spawn(
+                    self._broadcast_and_cleanup(cfg, update_path, wire_path, received, tag,
+                                                after=last_bcast.get(frag)),
+                    tasks=bcast_tasks, what=f"stream broadcast r{round_num}", logger=log)
+                round_num += 1
+                live = [t for t in bcast_tasks if not t.done()]
+                if len(live) >= fragments + 1:
+                    await asyncio.wait(live, return_when=asyncio.FIRST_COMPLETED)
+                if response.kind == ProgressResponseKind.DONE:
+                    # The last update must still reach the workers: their
+                    # DONE comes with the UPDATE_RECEIVED it triggers.
+                    await aio.wait_quiet(*bcast_tasks, timeout=60.0)
+                    execution.finish("completed")
+                    return
+        finally:
+            await aio.reap(*bcast_tasks)
+
+    async def _collect_round_stream(self, consumer, job_id: str, allowed: set, num_workers: int,
+                                    work_dir: Path, round_num: int, fragments: int,
+                                    accums: dict, pending: dict) -> dict:
+        """Gather round ``round_num``'s fragment deltas, peer -> (path,
+        samples). Every delta folds, as it lands, into the accumulator of
+        the round its header names: this one or a later one. A delta for a
+        closed round, one whose tag names another fragment or count, and an
+        HQD1 frame whose own tag contradicts its header are dropped; a
+        re-send replaces (un-folds) the sender's earlier delta."""
+        received = pending.pop(round_num, {})
+        while len(received) < num_workers:
+            push = await consumer.next()
+            peer = push.peer
+            meta = push.resource if isinstance(push.resource, dict) else {}
+            if allowed and peer not in allowed:
+                log.warning("ps %s: push from disallowed peer %s", job_id, peer)
+                await push.read_all()
+                continue
+            if meta.get(_PREFOLD_KEY):
+                await push.read_all()
+                raise NotImplementedError(
+                    f"a tree-reduce partial from {peer} reached the parameter server; the "
+                    f"tree reduce is not ported to PyTorch yet (ROADMAP.md, Queue 1: {_FT})"
+                )
+            try:
+                delta_round = int(meta.get("round", round_num))
+            except (TypeError, ValueError):
+                delta_round = round_num
+            if delta_round < round_num:
+                log.warning("ps %s: stale delta for round %d from %s dropped (now %d)",
+                            job_id, delta_round, peer, round_num)
+                await push.read_all()
+                continue
+            due = fragment_due(delta_round, fragments)
+            tag = FragmentTag.from_header(meta)
+            if tag is not None and (tag.fragments != fragments or tag.fragment_id != due):
+                log.warning("ps %s: fragment tag mismatch from %s (round %d fragment %d/%d, "
+                            "expected %d/%d); dropped", job_id, peer, delta_round,
+                            tag.fragment_id, tag.fragments, due, fragments)
+                await push.read_all()
+                continue
+            entry = await self._save_delta(push, work_dir, delta_round,
+                                           suffix=f"-{uuid.uuid4().hex[:8]}")
+            if tag is not None and not await asyncio.to_thread(
+                    self._frame_tag_matches, entry[0], tag):
+                # The push header and the frame disagree: trust neither.
+                log.warning("ps %s: frame tag mismatch from %s (header %s); dropped",
+                            job_id, peer, tag)
+                await asyncio.to_thread(_unlink, [entry[0]])
+                continue
+            accum = accums.setdefault(delta_round, RoundAccum(device=self.device))
+            bucket = received if delta_round == round_num else pending.setdefault(delta_round, {})
+            old = bucket.pop(peer, None)
+            if old is not None:
+                log.warning("ps %s: duplicate delta from %s; replacing", job_id, peer)
+                await self._fold(accum, old, sign=-1.0)
+                await asyncio.to_thread(_unlink, [old[0]])
+            bucket[peer] = entry
+            await self._fold(accum, entry)
+            log.info("ps %s: round %d fragment %d delta %d/%d (from %s%s)", job_id, round_num,
+                     fragment_due(round_num, fragments), len(received), num_workers, peer,
+                     "" if delta_round == round_num else f", parked r{delta_round}")
+        return received
+
+    async def _broadcast_and_cleanup(self, cfg, update_path: Path, wire_path: Path,
+                                     received: dict, tag: FragmentTag,
+                                     after: "asyncio.Task | None" = None) -> None:
+        """One round's background fan-out, then its files go. ``after`` is
+        the same fragment's previous fan-out: without the chain a slow link
+        could deliver round r+F's update before round r's, and the worker
+        would drop the older one as stale."""
+        if after is not None:
+            await aio.wait_quiet(after)
+        try:
+            await self._broadcast(cfg, wire_path, tag.round, extra_header=tag.header())
+        finally:
+            await asyncio.to_thread(
+                _unlink, [path for path, _ in received.values()] + [update_path, wire_path])
+
+    async def _broadcast(self, cfg, update_path: Path, round_num: int,
+                         extra_header: "dict | None" = None) -> None:
+        """Push the update's wire file to every results peer in parallel, at
+        most ``_BROADCAST_CONCURRENCY`` streams at once. A peer's failure is
         tolerated (it catches up next round); ``TransferStrategy.ANY``
-        stops at the first push that lands."""
+        stops at the first push that lands. ``extra_header`` (a stream
+        round's ``FragmentTag``) joins the push header."""
         peers = cfg.results.ref.peers or []
         strategy = cfg.results.ref.strategy or TransferStrategy.ALL
         header = {"resource": cfg.results.ref.resource or "results",
-                  "name": update_path.name, "round": round_num}
+                  "name": update_path.name, "round": round_num, **(extra_header or {})}
         if not peers:
             return
         sem = asyncio.Semaphore(_BROADCAST_CONCURRENCY)

@@ -11,7 +11,7 @@ train runtime, as in the reference.
 
 Not ported: the tree-reduce group reducer and the metrics reporter the
 reference starts beside the loop (ROADMAP.md, Queue 1:
-codecs/streaming/sharded PS/FT/rejoin; telemetry), and the slice cache
+sharded PS/FT/rejoin; telemetry), and the slice cache
 (input_pipeline); a job asking for them raises inside ``run_training``.
 """
 

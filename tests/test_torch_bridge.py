@@ -295,7 +295,7 @@ def test_port_bridge_refuses_what_it_does_not_port(tmp_path):
     default = TBridge(node, tmp_path, "j", "sched").connector
     assert isinstance(default, TConnector)
     assert (default.node, default.scheduler_peer) == (node, "sched")
-    with pytest.raises(NotImplementedError, match="codecs/streaming"):
+    with pytest.raises(NotImplementedError, match="sharded PS/FT/rejoin"):
         TBridge(_FakeNode(tmsg), tmp_path, "j", "sched", _FakeConnector(), status_retry_s=5.0)
     assert safe_rel(tmp_path, "artifacts/m.bin") == tmp_path / "artifacts/m.bin"
     for bad in ("/etc/passwd", "../../secrets"):
@@ -327,7 +327,7 @@ def test_port_connector_routes(tmp_path):
         with pytest.raises(NotImplementedError, match="input_pipeline"):
             await TConnector(object(), "s").fetch(
                 tmsg.Fetch(tmsg.Reference.from_scheduler("s", "d", prefetch=2)), tmp_path)
-        with pytest.raises(NotImplementedError, match="codecs/streaming"):
+        with pytest.raises(NotImplementedError, match="sharded PS/FT/rejoin"):
             shard_route(tmsg.ShardMap(shards=["a"]), 0)
 
     run(main())

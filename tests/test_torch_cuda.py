@@ -587,6 +587,118 @@ def test_parameter_server_on_the_card_equals_the_cpu(cuda, tmp_path):
             assert torch.equal(a[k].view(torch.int32), b[k].view(torch.int32)), (r, k)
 
 
+@pytest.mark.parametrize("codec,chunk", [("int8", 4096), ("int8", 7), ("int4", 4096), ("int4", 6)])
+def test_quantize_on_the_card_equals_the_cpu(cuda, codec, chunk):
+    """compress.quantize / dequantize on the card: the CPU's bytes over odd
+    lengths, a zero chunk, NaN and Inf chunks and .5 ties."""
+    from hypha_tpu_torch.compress import dequantize, quantize
+
+    rng = np.random.default_rng(chunk)
+    qmax = {"int8": 127, "int4": 7}[codec]
+    cases = [np.float32([0.3]), (rng.standard_normal(5 * chunk + 3) * 1e-3).astype(np.float32),
+             np.arange(-2 * qmax, 2 * qmax + 1, dtype=np.float32) / 2]
+    a = (rng.standard_normal(4 * chunk + 1) * 3).astype(np.float32)
+    a[:chunk], a[chunk + 1], a[2 * chunk] = 0.0, np.nan, -np.inf
+    cases.append(a)
+    for x in cases:
+        t = torch.from_numpy(x)
+        hp, hs = quantize(t, codec, chunk)
+        cp, cs = quantize(t.to(cuda), codec, chunk)
+        assert cp.is_cuda and torch.equal(cp.cpu(), hp) and torch.equal(cs.cpu(), hs)
+        hd = dequantize(hp, hs, x.size, codec, chunk)
+        cd = dequantize(cp, cs, x.size, codec, chunk)
+        assert torch.equal(cd.cpu().view(torch.int32), hd.view(torch.int32))
+
+
+def test_parameter_server_folds_int8_stream_frames_on_the_card(cuda, tmp_path):
+    """The port's stream loop (int8, two fragments, two workers, four
+    rounds) on the card and on the CPU: the broadcast HQD1 frames are the
+    same bytes, and the server's round sums were folded on the card."""
+    import asyncio
+
+    from hypha_tpu_torch import compress
+    from hypha_tpu_torch import messages as m
+    from hypha_tpu_torch.network import MemoryTransport, Node
+    from hypha_tpu_torch.stream import RoundAccum, partition_names
+    from hypha_tpu_torch.worker.ps_executor import ParameterServerExecutor
+
+    workers, samples, F, rounds = ("w0", "w1"), (300.0, 7.0), 2, 4
+    shapes = {"params/embed_tokens": (512, 64), "params/layers_0/mlp/down_proj/kernel": (96, 64),
+              "params/norm/weight": (64,), "params/layers_0/self_attn/q_proj/kernel": (64, 64)}
+    parts = partition_names({n: int(np.prod(s)) for n, s in shapes.items()}, F)
+    rng = np.random.default_rng(2)
+    efs = {(w, f): compress.ErrorFeedback() for w in workers for f in range(F)}
+    frames = {}
+    for r in range(rounds):
+        for w in workers:
+            tag = m.FragmentTag(round=r, fragment_id=r % F, fragments=F).header()
+            tree = {n: torch.from_numpy(rng.standard_normal(shapes[n]).astype(np.float32) * 1e-2)
+                    for n in parts[r % F]}
+            path = tmp_path / f"delta-{w}-{r}"
+            compress.write_delta(path, tree, "int8", ef=efs[(w, r % F)], tag=tag)
+            frames[(w, r)] = (path, tag)
+    devices: list = []
+    fold = RoundAccum.fold
+
+    def noted_fold(self, *args, **kw):
+        devices.append(self.device.type)
+        return fold(self, *args, **kw)
+
+    async def serve(device, name):
+        hub = MemoryTransport()
+        nodes = {p: Node(hub.shared(), peer_id=p) for p in ("ps", "sched", *workers)}
+        for n in nodes.values():
+            await n.start()
+        for x in nodes.values():
+            for y in nodes.values():
+                if x is not y:
+                    x.add_peer_addr(y.peer_id, y.listen_addrs[0])
+
+        async def on_progress(peer, p):
+            return m.ProgressResponse(kind=m.ProgressResponseKind.DONE if p.round >= rounds - 1
+                                      else m.ProgressResponseKind.OK)
+
+        nodes["sched"].on(m.PROTOCOL_PROGRESS, m.Progress).respond_with(on_progress)
+        spec = m.JobSpec(job_id="agg", executor=m.Executor(
+            kind="aggregate", name="parameter-server", aggregate=m.AggregateExecutorConfig(
+                updates=m.Receive(m.Reference.from_peers(list(workers), "updates")),
+                results=m.Send(m.Reference.from_peers(["w0"], "results")),
+                optimizer=m.Nesterov(lr=0.7, momentum=0.9), num_workers=len(workers),
+                delta_codec="int8", sync_mode="stream", fragments=F)))
+        out = tmp_path / name
+        execution = await ParameterServerExecutor(nodes["ps"], out, device=device).execute(
+            "agg", spec, "sched")
+        results = nodes["w0"].consume_pushes(lambda push: push.resource["resource"] == "results")
+        for r in range(rounds):
+            for w, n in zip(workers, samples):
+                path, tag = frames[(w, r)]
+                await nodes[w].push("ps", {"resource": "updates", "name": path.name,
+                                           "num_samples": n, **tag}, path)
+        got = {}
+        for _ in range(rounds):
+            push = await results.next(timeout=60)
+            dest = out / f"got-{push.resource['round']}"
+            await push.save_to(dest)
+            got[push.resource["round"]] = dest.read_bytes()
+        status = await asyncio.wait_for(execution.wait(), 60)
+        for n in nodes.values():
+            await n.stop()
+        assert status.state == "completed", status
+        return got
+
+    RoundAccum.fold = noted_fold
+    try:
+        host = asyncio.run(serve("cpu", "host"))
+        devices.clear()
+        card = asyncio.run(serve(cuda, "card"))
+    finally:
+        RoundAccum.fold = fold
+    assert devices == ["cuda"] * (rounds * len(workers))
+    assert sorted(host) == sorted(card) == list(range(rounds))
+    for r in range(rounds):
+        assert card[r][:4] == b"HQD1" and card[r] == host[r], r
+
+
 # ------------------------------------------------------ the node CLI on the card
 
 

@@ -240,9 +240,7 @@ UNPORTED = {
     "executor cmd": ("worker", {"executor.runtime": "process", "executor.cmd": "python"},
                      "process executor command"),
     "executor args": ("worker", {"executor.args": ["--x"]}, "process executor command"),
-    "sync mode": ("scheduler", {"job.sync_mode": "overlap"}, "Codecs/streaming"),
-    "delta codec": ("scheduler", {"job.delta_codec": "int8"}, "Codecs/streaming"),
-    "quorum": ("scheduler", {"job.quorum_fraction": 0.5}, "Codecs/streaming"),
+    "quorum": ("scheduler", {"job.quorum_fraction": 0.5}, "sharded PS/FT/rejoin"),
     "checkpoint": ("scheduler", {"job.checkpoint_dir": "/tmp/ck"}, "checkpoint resume"),
     "input pipeline": ("scheduler", {"job.input_pipeline": True}, "input_pipeline"),
     "sharding": ("scheduler", {"job.sharding": {"tp": 2}}, "intra-replica sharding"),
@@ -262,6 +260,25 @@ def test_unported_option_raises_with_its_label(case, tmp_path):
     tbuilt = tcfg.builder(getattr(tnc, SCHEMA[role])).with_overrides(over).build()
     with pytest.raises(NotImplementedError, match=label):
         tbuilt.validate()
+
+
+@pytest.mark.parametrize("over", [
+    {"job.sync_mode": "overlap"},
+    {"job.delta_codec": "int8"},
+    {"job.sync_mode": "stream", "job.num_fragments": 4, "job.delta_codec": "int4"},
+], ids=["sync mode", "delta codec", "stream"])
+def test_stream_and_codec_keys_reach_the_job(over):
+    """The TOML's ``job.delta_codec``, ``job.sync_mode`` and
+    ``job.num_fragments`` build the same DiLoCoJob bytes in both packages."""
+    over = {**over, "job.dataset": "counting", "job.worker_tpu": 0.0}
+    jbuilt = jcfg.builder(jnc.SchedulerConfig).with_overrides(over).build()
+    tbuilt = tcfg.builder(tnc.SchedulerConfig).with_overrides(over).build()
+    jbuilt.validate()
+    tbuilt.validate()
+    jjob, tjob = jbuilt.value.job.to_job(), tbuilt.value.job.to_job()
+    for key in ("delta_codec", "sync_mode", "num_fragments"):
+        assert getattr(tjob, key) == getattr(jjob, key) == over.get(
+            f"job.{key}", {"delta_codec": "none", "sync_mode": "blocking", "num_fragments": 0}[key])
 
 
 def test_defaults_are_accepted_and_the_cli_exits_2_on_an_unported_option(capsys):

@@ -88,10 +88,12 @@ def test_round_accum_rejects_what_jax_rejects(tmp_path):
             acc.fold_tree(bad_shape, 1.0)
     with pytest.raises(ValueError, match="no deltas"):
         RoundAccum(device="cpu").mean()
+    # A malformed HQD1 frame (an empty CBOR header): both refuse it.
     frame = tmp_path / "frame.bin"
     frame.write_bytes(b"HQD1" + b"\0" * 16)
-    with pytest.raises(NotImplementedError, match="codecs/streaming"):
-        RoundAccum(device="cpu").fold(frame, 1.0)
+    for acc in (JAccum(), RoundAccum(device="cpu")):
+        with pytest.raises(ValueError):
+            acc.fold(frame, 1.0)
 
 
 @pytest.mark.parametrize("c_path", [False, True], ids=["numpy", "native"])

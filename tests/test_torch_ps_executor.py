@@ -24,6 +24,7 @@ import pytest
 import torch
 from safetensors.numpy import load_file, save_file
 
+from hypha_tpu import compress as jcompress
 from hypha_tpu import messages as jmsg
 from hypha_tpu import native
 from hypha_tpu.network import Node as JNode
@@ -42,18 +43,22 @@ ROUNDS, WORKERS = 2, ("w0", "w1")
 SAMPLES = {"w0": 6.0, "w1": 10.0}
 
 
-def _deltas(root: Path) -> dict:
+def _deltas(root: Path, codec: str = "none") -> dict:
     """(worker, round) -> Δθ file; w1's round-1 delta in bf16, and an extra
-    first delta of w0 in round 0 that its re-send replaces."""
+    first delta of w0 in round 0 that its re-send replaces. With an int8 or
+    int4 ``codec`` the others are the JAX trainer's HQD1 frames."""
     rng = np.random.default_rng(4)
     files = {}
     for key in [(w, r) for r in range(ROUNDS) for w in WORKERS] + [("w0", "stale")]:
         tree = {k: (rng.standard_normal(s) * 10 ** rng.uniform(-4, 0)).astype(np.float32)
                 for k, s in SHAPES.items()}
-        if key == ("w1", 1):
-            tree = {k: v.astype(ml_dtypes.bfloat16) for k, v in tree.items()}
         path = root / f"delta-{key[0]}-{key[1]}.safetensors"
-        save_file(tree, str(path))
+        if key == ("w1", 1):
+            save_file({k: v.astype(ml_dtypes.bfloat16) for k, v in tree.items()}, str(path))
+        elif codec in ("int8", "int4"):
+            jcompress.write_delta(path, tree, codec)
+        else:
+            save_file(tree, str(path))
         files[key] = path
     return files
 
@@ -66,7 +71,7 @@ def _aggregate(m, **over):
             optimizer=m.Nesterov(lr=0.7, momentum=0.9), num_workers=len(WORKERS), **over)))
 
 
-async def _serve(pkg: str, root: Path, files: dict, resend: bool) -> tuple:
+async def _serve(pkg: str, root: Path, files: dict, resend: bool, codec: str = "none") -> tuple:
     """One package's parameter server fed by two workers; returns the
     broadcasts each worker saved and the scheduler's UPDATED rounds."""
     m, Node, Tcp, PS = PKG[pkg]
@@ -86,7 +91,7 @@ async def _serve(pkg: str, root: Path, files: dict, resend: bool) -> tuple:
 
     nodes["sched"].on(m.PROTOCOL_PROGRESS, m.Progress).respond_with(on_progress)
     ps = PS(nodes["ps"], root / "ps", **({"device": "cpu"} if pkg == "port" else {}))
-    execution = await ps.execute("agg", _aggregate(m), "sched")
+    execution = await ps.execute("agg", _aggregate(m, delta_codec=codec), "sched")
     consumers = {w: nodes[w].consume_pushes(lambda push: push.resource.get("resource") == "results")
                  for w in WORKERS}
     got: dict = {}
@@ -102,32 +107,39 @@ async def _serve(pkg: str, root: Path, files: dict, resend: bool) -> tuple:
             assert push.peer == "ps" and push.resource["round"] == r
             dest = root / f"{pkg}-{w}-{r}.safetensors"
             await push.save_to(dest)
-            got[(w, r)] = load_file(str(dest))
+            got[(w, r)] = (jcompress.read_delta(dest), dest.read_bytes())
     status = await asyncio.wait_for(execution.wait(), 30)
     for n in nodes.values():
         await n.stop()
     return got, updated, status
 
 
-@pytest.mark.parametrize("resend", [False, True], ids=["plain", "resend"])
-def test_broadcast_updates_are_bit_equal(tmp_path, monkeypatch, resend):
+@pytest.mark.parametrize("resend,codec", [
+    (False, "none"), (True, "none"), (False, "int8"), (True, "int4"), (False, "bf16"),
+], ids=["plain", "resend", "int8", "resend-int4", "bf16"])
+def test_broadcast_updates_are_bit_equal(tmp_path, monkeypatch, resend, codec):
     monkeypatch.setattr(native, "_load", lambda: None)
-    files = _deltas(tmp_path)
+    files = _deltas(tmp_path, codec)
     out = {}
     for pkg in PKG:
         (tmp_path / pkg).mkdir()
-        out[pkg] = asyncio.run(asyncio.wait_for(_serve(pkg, tmp_path / pkg, files, resend), 60))
+        out[pkg] = asyncio.run(asyncio.wait_for(
+            _serve(pkg, tmp_path / pkg, files, resend, codec), 60))
     (jax_got, jax_updated, jax_status), (port_got, port_updated, port_status) = out["jax"], out["port"]
     assert jax_status.state == port_status.state == "completed"
     assert port_updated == jax_updated == [("ps", "updated", r, "agg") for r in range(ROUNDS)]
     assert set(port_got) == set(jax_got) == {(w, r) for w in WORKERS for r in range(ROUNDS)}
-    for key, want in jax_got.items():
-        got = port_got[key]
+    wire_dtype = ml_dtypes.bfloat16 if codec == "bf16" else np.float32
+    for key, (want, want_bytes) in jax_got.items():
+        got, got_bytes = port_got[key]
         assert set(got) == set(want) == set(SHAPES)
         for name in SHAPES:
-            assert got[name].dtype == want[name].dtype == np.float32, (key, name)
+            assert got[name].dtype == want[name].dtype == wire_dtype, (key, name)
             np.testing.assert_array_equal(got[name], want[name], err_msg=f"{key} {name}")
+        if codec in ("int8", "int4"):  # the same HQD1 frame, residual included
+            assert got_bytes == want_bytes, key
     # Both workers got the same update, and it moved between the rounds.
+    port_got = {k: v[0] for k, v in port_got.items()}
     assert all(np.array_equal(port_got[("w0", r)][n], port_got[("w1", r)][n])
                for r in range(ROUNDS) for n in SHAPES)
     assert not np.array_equal(port_got[("w0", 0)]["params/norm/weight"],
@@ -136,14 +148,12 @@ def test_broadcast_updates_are_bit_equal(tmp_path, monkeypatch, resend):
 
 @pytest.mark.parametrize("option,value,label", [
     ("checkpoint_dir", "/ckpt", "checkpoint resume"),
-    ("quorum_fraction", 0.5, "codecs/streaming/sharded PS/FT/rejoin"),
-    ("sync_mode", "stream", "codecs/streaming/sharded PS/FT/rejoin"),
-    ("num_ps_shards", 2, "codecs/streaming/sharded PS/FT/rejoin"),
-    ("delta_codec", "int8", "codecs/streaming/sharded PS/FT/rejoin"),
-    ("adaptive_steps", True, "codecs/streaming/sharded PS/FT/rejoin"),
-    ("adaptive_codec", True, "codecs/streaming/sharded PS/FT/rejoin"),
-    ("broadcast_tree", tmsg.ShardMap(shards=["ps"]), "codecs/streaming/sharded PS/FT/rejoin"),
-    ("adopt_grace_s", 5.0, "codecs/streaming/sharded PS/FT/rejoin"),
+    ("quorum_fraction", 0.5, "sharded PS/FT/rejoin"),
+    ("num_ps_shards", 2, "sharded PS/FT/rejoin"),
+    ("adaptive_steps", True, "sharded PS/FT/rejoin"),
+    ("adaptive_codec", True, "sharded PS/FT/rejoin"),
+    ("broadcast_tree", tmsg.ShardMap(shards=["ps"]), "sharded PS/FT/rejoin"),
+    ("adopt_grace_s", 5.0, "sharded PS/FT/rejoin"),
     ("report_metrics_s", 1.0, "telemetry"),
     ("serve_peers", ["server"], "live weight swap"),
 ])
@@ -170,7 +180,7 @@ def test_a_tree_reduce_partial_fails_the_job(tmp_path):
         return status
 
     status = asyncio.run(main())
-    assert status.state == "failed" and "codecs/streaming/sharded PS/FT/rejoin" in status.message
+    assert status.state == "failed" and "sharded PS/FT/rejoin" in status.message
 
 
 def test_executors_need_cuda_or_an_explicit_cpu(monkeypatch, tmp_path):

@@ -412,8 +412,8 @@ def test_batch_scheduler_caps_are_the_reference_constants():
 
 
 @pytest.mark.parametrize("option,label", [
-    ("shards_due", "Codecs/streaming/sharded PS/FT/rejoin"),
-    ("adaptive", "Codecs/streaming/sharded PS/FT/rejoin"),
+    ("shards_due", "sharded PS/FT/rejoin"),
+    ("adaptive", "sharded PS/FT/rejoin"),
     ("generation", "scheduler recovery"),
 ])
 def test_batch_scheduler_unported_options_raise(option, label):
@@ -601,19 +601,41 @@ def test_dispatched_specs_are_the_same_bytes(workers):
     assert spec.executor.train.batch_size == 2 and spec.job_id == f"{BASE_ID}-w0"
 
 
+# The wire codecs and sync modes the port runs: the job takes them, and the
+# dispatched train and aggregate specs carry them as the JAX wire does.
+STREAM_OPTIONS = {
+    "sync_mode": {"sync_mode": "overlap"},
+    "delta_codec": {"delta_codec": "int8"},
+    "delta_dtype": {"delta_dtype": "bfloat16"},
+    "stream": {"sync_mode": "stream", "num_fragments": 2, "delta_codec": "int4"},
+}
+
+
+@pytest.mark.parametrize("option", sorted(STREAM_OPTIONS))
+def test_stream_and_codec_options_dispatch_as_the_jax_wire(option):
+    over = STREAM_OPTIONS[option]
+    jobs = _jobs(jax=over, port=over)
+    assert tmsg.encode(jobs["port"]) == jmsg.encode(jobs["jax"])
+    j, _ = _dispatched("jax", jobs["jax"], ["w0", "w1"], "psw")
+    t, _ = _dispatched("port", jobs["port"], ["w0", "w1"], "psw")
+    assert t == j
+    agg, train = tmsg.decode(t[0]).spec.executor.aggregate, tmsg.decode(t[1]).spec.executor.train
+    assert train.sync_mode == agg.sync_mode == over.get("sync_mode", "blocking")
+    assert train.fragments == agg.fragments == over.get("num_fragments", 0)
+    assert train.delta_codec == agg.delta_codec == over.get("delta_codec", "none")
+    assert train.delta_dtype == over.get("delta_dtype", "float32")
+
+
 # Each option outside the port's path, set to a value the reference accepts.
 UNPORTED = {
-    "ft": ({"quorum_fraction": 0.75}, "Codecs/streaming/sharded PS/FT/rejoin"),
+    "ft": ({"quorum_fraction": 0.75}, "sharded PS/FT/rejoin"),
     "checkpoint_dir": ("/ckpt", "checkpoint resume"),
-    "sync_mode": ("overlap", "Codecs/streaming/sharded PS/FT/rejoin"),
-    "num_ps_shards": (2, "Codecs/streaming/sharded PS/FT/rejoin"),
-    "reduce_group_size": (2, "Codecs/streaming/sharded PS/FT/rejoin"),
-    "reduce_tree_depth": (2, "Codecs/streaming/sharded PS/FT/rejoin"),
-    "broadcast_tree": (True, "Codecs/streaming/sharded PS/FT/rejoin"),
-    "delta_codec": ("int8", "Codecs/streaming/sharded PS/FT/rejoin"),
-    "delta_dtype": ("bfloat16", "Codecs/streaming/sharded PS/FT/rejoin"),
-    "adaptive_steps": (True, "Codecs/streaming/sharded PS/FT/rejoin"),
-    "adaptive_codec": (True, "Codecs/streaming/sharded PS/FT/rejoin"),
+    "num_ps_shards": (2, "sharded PS/FT/rejoin"),
+    "reduce_group_size": (2, "sharded PS/FT/rejoin"),
+    "reduce_tree_depth": (2, "sharded PS/FT/rejoin"),
+    "broadcast_tree": (True, "sharded PS/FT/rejoin"),
+    "adaptive_steps": (True, "sharded PS/FT/rejoin"),
+    "adaptive_codec": (True, "sharded PS/FT/rejoin"),
     "scheduler_recovery": (True, "scheduler recovery"),
     "metrics_plane": (True, "telemetry"),
     "slo_rules": (["round_wall_s <= 30"], "telemetry"),

@@ -154,10 +154,10 @@ def test_run_training_matches_jax(tmp_path, weights):
     {"lora": {"rank": 4}},
     {"checkpoint": {"dir": "ckpt"}},
     {"rejoin": True},
-    {"sync_mode": "stream"},
+    {"reduce_via": "reducer"},
     {"ps_shards": "shards"},
-    {"delta_codec": "int8"},
-    {"delta_dtype": "bfloat16"},
+    {"reduce_members": ["w1"]},
+    {"relay_results": True},
     {"input_pipeline": True},
     {"preprocessor": {"kind": "tokenizer"}},
     {"report_metrics_s": 1.0},

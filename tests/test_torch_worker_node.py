@@ -19,6 +19,10 @@
    and with two in-process trainers: the smoke's ``train_node`` phase on
    the CPU, held to the same gates (``chip_smoke.node_problems``).
 4. A ``WorkerNode`` built with no CUDA and no ``device`` raises.
+5. A JAX ``WorkerNode`` and a port ``WorkerNode`` share an int8, stream
+   (F = 2) job: once under the port's scheduler with the port's parameter
+   server, once under the JAX scheduler with the JAX parameter server.
+   Every round closes with finite losses from both workers.
 """
 
 from __future__ import annotations
@@ -75,19 +79,20 @@ def _dataset(root: Path) -> Path:
     return d
 
 
-def _mixed_job(weights: Path) -> DiLoCoJob:
+def _mixed_job(weights: Path, rounds: int = ROUNDS, **over) -> DiLoCoJob:
     model = {"model_type": "causal-lm", "family": "llama", "preset": "tiny",
              "config": {"dtype": "float32"},
              "source": to_json_dict(Fetch(Reference.from_uri(weights.as_uri())))}
     return DiLoCoJob(
         model=model, dataset="counting",
-        rounds=DiLoCoRounds(update_rounds=ROUNDS, avg_samples_between_updates=8, max_batch_size=2),
+        rounds=DiLoCoRounds(update_rounds=rounds, avg_samples_between_updates=8, max_batch_size=2),
         inner_optimizer=Adam(lr=3e-3), outer_optimizer=Nesterov(lr=0.7, momentum=0.9),
         resources=JobResources(
             num_workers=2, worker=JResources(gpu=1.0, cpu=1.0, memory=10),
             parameter_server=JResources(cpu=1.0, memory=10),
             worker_price=PriceRange(bid=1.0, max=10.0),
             parameter_server_price=PriceRange(bid=1.0, max=10.0)),
+        **over,
     )
 
 
@@ -247,6 +252,42 @@ def test_port_fabric_runs_the_smoke_job_on_the_cpu(workers, runtime):
         assert beats == [r for r in range(ROUNDS) for _ in range(3)]
 
 
+def test_port_fabric_runs_the_stream_job_on_the_cpu():
+    """``chip_smoke.py``'s ``train_stream`` phase rehearsed on the CPU: the
+    smoke's job options (int8, stream, 4 fragments, 4 rounds) on a tiny
+    Llama, one trainer process, held to ``stream_problems``; the trainer's
+    log gives every flight and its step seconds."""
+    model = {"model_type": "causal-lm", "family": "llama", "preset": "tiny",
+             "config": {"dtype": "float32"}, "seed": 0}
+    opts = chip_smoke.STREAM_OPTIONS
+    rounds = opts["num_fragments"]
+    root = Path(tempfile.mkdtemp(prefix="ts"))
+    try:
+        run = asyncio.run(asyncio.wait_for(chip_smoke.run_node_job(
+            root, model, device="cpu", rounds=rounds, steps=3, batch=2, seq=SEQ, period=64,
+            lr=3e-3, limit_s=90, job_options=opts), 150))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log = "\n".join(run["rec"]["log"])
+    assert chip_smoke.stream_problems(
+        run, rounds=rounds, fragments=opts["num_fragments"],
+        expect=chip_smoke.flat_f32_spec(model), codec=opts["delta_codec"]) == [], log[-3000:]
+    trainer = chip_smoke.trainer_log(log)
+    assert sorted(trainer["flights"]) == list(range(rounds))
+    for r, flight in trainer["flights"].items():
+        assert flight["fragment"] == r % rounds and flight["bytes"] > 0
+        assert flight["flight_s"] > 0 and flight["finish_wait_s"] >= 0
+        assert flight["steps_in_flight"] >= 0
+    assert len(trainer["step_s"]["flight"]) + len(trainer["step_s"]["no_flight"]) == \
+        trainer["batches"] >= rounds * 3
+    # The host's plain attention, once per layer (tiny: 2) per batch.
+    assert trainer["launches"] == {"fwd": 0, "dq": 0, "dkv": 0, "flash_plain": 0,
+                                   "dense": 2 * trainer["batches"]}
+    rec = run["rec"]
+    assert len(rec["encode_s"]) == len(rec["outer_step_s"]) == rounds
+    assert [d["frame"]["codec"] for d in rec["deltas"]] == ["int8"] * rounds
+
+
 def test_worker_node_needs_cuda_or_an_explicit_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -262,3 +303,81 @@ def test_worker_node_needs_cuda_or_an_explicit_cpu(monkeypatch):
     train = node.job_manager.executors[("train", "diloco-transformer")]
     assert train.args[:2] == ["-m", "hypha_tpu_torch.executor.training"]
     assert train.args[-2:] == ["--device", "cpu"]
+
+
+@pytest.mark.parametrize("scheduler", ["port", "jax"])
+def test_mixed_workers_run_an_int8_stream_job(tmp_path, scheduler):
+    """int8 + stream (F = 2) over 3 rounds on a JAX and a torch worker:
+    under the port's scheduler and parameter server, and under the JAX
+    scheduler and parameter server (``native._load`` stays as it is: the
+    JAX server's own path)."""
+    rounds = 3
+    _, variables, _ = tiny_pair("llama", seed=7)
+    weights = tmp_path / "theta0.safetensors"
+    save_file(flatten_tree(variables), str(weights))
+    data_dir = _dataset(tmp_path)
+    jjob = _mixed_job(weights, rounds, delta_codec="int8", sync_mode="stream", num_fragments=2)
+    root = Path(tempfile.mkdtemp(prefix="ws"))  # bridge sockets: paths under 108 bytes
+    tracked: list = []
+    port = scheduler == "port"
+
+    async def main():
+        Tcp, GW, DN, Sched = (TcpTransport, Gateway, DataNode, Node) if port else \
+            (JTcp, JGateway, JDataNode, JNode)
+        gw = GW(Tcp(), peer_id="gw")
+        await gw.start(LISTEN)
+        boot = [gw.node.listen_addrs[0]]
+        ps = (WorkerNode(TcpTransport(), resources=Resources(cpu=2, memory=200), device="cpu",
+                         peer_id="psw", bootstrap=boot, work_root=root / "p") if port else
+              JWorkerNode(JTcp(), resources=JResources(cpu=2, memory=200), peer_id="psw",
+                          bootstrap=boot, work_root=root / "p"))
+        parts = [DN(Tcp(), {"counting": data_dir}, peer_id="data", bootstrap=boot),
+                 JWorkerNode(JTcp(), resources=JResources(gpu=2, cpu=8, memory=1000),
+                             peer_id="wjax", offer=JOfferConfig(strategy="whole"),
+                             bootstrap=boot, work_root=root / "j"),
+                 WorkerNode(TcpTransport(), resources=Resources(gpu=2, cpu=8, memory=1000),
+                            device="cpu", peer_id="wtorch", offer=OfferConfig(strategy="whole"),
+                            bootstrap=boot, work_root=root / "t"),
+                 ps]
+        sched = Sched(Tcp(), peer_id="sched", bootstrap=boot)
+        started = []
+        try:
+            for part in (*parts, sched):
+                await part.start(LISTEN)
+                started.append(part)
+            await sched.wait_for_bootstrap()
+            if port:
+                orch = TOrchestrator(sched, metrics_connector=TCallbackConnector(
+                    lambda w, r, n, v: tracked.append((w, r, n, v))))
+                return await orch.run(tmsg.decode(jmsg.encode(jjob)), auction_timeout=1.5)
+            orch = Orchestrator(sched, metrics_connector=CallbackConnector(
+                lambda w, r, n, v: tracked.append((w, r, n, v))))
+            return await orch.run(jjob, auction_timeout=1.5)
+        finally:
+            for part in reversed(started):
+                await part.stop()
+            await gw.stop()
+
+    try:
+        with chip_smoke.node_probes("cpu") as rec:
+            result = asyncio.run(asyncio.wait_for(main(), 200))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    assert result.rounds == rounds
+    losses = {(w, r): v for w, r, n, v in tracked if n == "loss"}
+    assert set(losses) == {(w, r) for w in ("wjax", "wtorch") for r in range(rounds)}, losses
+    assert all(np.isfinite(v) for v in losses.values()), losses
+    if port:
+        # The port's server took one HQD1 frame per worker and round, tagged
+        # with the round's due fragment, and broadcast a frame per round.
+        frames = {(d["from"], d["round"]): d["frame"] for d in rec["deltas"]}
+        assert set(frames) == {(w, r) for w in ("wjax", "wtorch") for r in range(rounds)}
+        for (w, r), frame in frames.items():
+            assert frame["codec"] == "int8", (w, r)
+            assert frame["tag"] == {"round": r, "fragment_id": r % 2, "fragments": 2}, (w, r)
+        assert frames[("wjax", 0)]["tensors"] == frames[("wtorch", 0)]["tensors"]
+        assert frames[("wjax", 1)]["tensors"] == frames[("wtorch", 1)]["tensors"]
+        assert set(frames[("wjax", 0)]["tensors"]).isdisjoint(frames[("wjax", 1)]["tensors"])
+        assert sorted(b["round"] for b in rec["broadcast"]) == list(range(rounds))
+        assert [p["round"] for p in rec["progress"] if p["kind"] == "updated"] == [0, 1, 2]
+        assert not rec["renew_failures"]
