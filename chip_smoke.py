@@ -12,8 +12,10 @@ Phases, each printing one JSON line:
    its plain PyTorch version on the card (bf16 and int8 pools, MHA, GQA
    32/8 and 28/4, Sq 1 on all three routes, Sq 16 and 64 on simt and mma,
    poisoned garbage and unallocated blocks, an idle lane that must be
-   exactly zero, windows with a k_start floor, each route's output
-   bit-identical on a second launch), then the routes timed on the same
+   exactly zero, windows with a k_start floor, a prefix cache's chunks at
+   q_offset 320 and 351 over 20 blocks two lanes' tables share
+   (``shared_prefix_case``), each route's output bit-identical on a second
+   launch), then the routes timed on the same
    inputs at the Llama-2-7B serving shape beside the plain version, one
    PyTorch library call computing the same function, and the card's
    bound: decode L2-cold (CUDA graphs rotating over enough independent
@@ -25,6 +27,11 @@ Phases, each printing one JSON line:
    route and decode steps the decode route, each once per layer per
    forward, and the plain attention path never;
 5. serve_int8 — the same pool with int8 KV blocks;
+5b. serve_prefix — ``prefix_requests`` (4 families of 4 prompts sharing a
+   320-token prefix, one an aligned repeat that copies a shared block)
+   through the same pool with the prefix cache on and off, bf16 and int8:
+   the answers equal, hits and copy-on-writes above 0, fewer prefill
+   forwards with the cache, the kernel only (``serve_prefix_phase``);
 6. profile — one decode step and one prefill chunk at the serving shape
    under the profiler: host and device time, the ragged kernels
    (``RAGGED_NAMES``) by name, the decode kernel (and its merge, when the
@@ -45,6 +52,19 @@ Phases, each printing one JSON line:
    process exits 0 within 30 s of SIGTERM, leaving no work dir; it
    reports bring-up, dispatch to the first answer, each request's latency
    and the wall time beside ``serve``'s, and the worker's peak memory;
+8b. serve_router — ``serve_prefix``'s requests through the scheduler's
+   router (``ROUTER_JOB``: two workers, prefix cache, prefix affinity,
+   queue limit 4): a gateway, workers ``w0`` and ``w1`` and a scheduler,
+   each a process (``ServeNet``, ``run_serve_router``); all 16 at once,
+   the first 4 again, then ``w1`` SIGKILLed and the last 4 again. Gates
+   (``serve_router_problems``): every answer ``serve_prefix``'s, both
+   workers served through the kernel only with no kernel built anew,
+   prefix-cache hits, the router's counts logged, ``w1``'s slot failed (by
+   φ ejection or its lease, whichever first) and ``w0`` answered after
+   the kill, exits 0 and no leftovers; it reports bring-up, dispatch to
+   the first answer, latencies, wall, retry-after answers, the card's
+   memory during bring-up, each worker's peaks and the kill-to-failure
+   time;
 9. flash_kernels — the flash-attention forward, dQ and dK/dV kernels
    against their plain versions (bf16; MHA 32/32 and GQA 32/8; causal and
    not; S 2048, a ragged 1000, Sq != Sk; head_dim 128 and 64; sliding
@@ -262,6 +282,50 @@ def paged_case(gen, *, B, sq, hq, hkv, D, bs, max_blocks, blocks, occupancy, qua
     return q, kv, qoff.to(dev), unreachable
 
 
+SHARED_BLOCKS = 20  # the prefix-cache case: 320 positions of blocks two lanes map
+SHARED_QOFF = (320, 351, None, 200)  # lane 2 idle
+
+
+def shared_prefix_case(gen, *, quant, hq=32, hkv=32, D=128, bs=16, max_blocks=64, blocks=512,
+                       sq=64, poison=1e4):
+    """A prefix-cache state on the card: lanes 0 and 1 map the same
+    ``SHARED_BLOCKS`` physical blocks first (a cached prefix), then blocks
+    of their own; lane 0's chunk starts at position 320, past the hit, and
+    lane 1's at 351, inside its last shared block (a capped hit); lane 2
+    is idle and lane 3 holds blocks of its own. Every block no lane holds
+    is poisoned."""
+    from hypha_tpu_torch.ops.kvcache import _quantize_rows
+    from hypha_tpu_torch.ops.paged_attention import PagedKV
+
+    dev = torch.device("cuda")
+    rows = (blocks + 1) * bs
+    k = torch.randn((rows, hkv, D), generator=gen, device=dev)
+    v = torch.randn((rows, hkv, D), generator=gen, device=dev)
+    perm = torch.randperm(blocks, generator=gen, device=dev).tolist()
+    shared = [perm.pop() for _ in range(SHARED_BLOCKS)]
+    table = torch.full((4, max_blocks), blocks, dtype=torch.int32)
+    held = torch.zeros((blocks + 1,), dtype=torch.bool)
+    qoff = torch.full((4,), max_blocks * bs, dtype=torch.int32)
+    for lane, off in enumerate(SHARED_QOFF):
+        if off is None:
+            continue
+        n = -(-(off + sq) // bs)
+        head = shared if lane < 2 else []
+        ids = head + [perm.pop() for _ in range(n - len(head))]
+        table[lane, :n] = torch.tensor(ids, dtype=torch.int32)
+        held[ids] = True
+        qoff[lane] = off
+    unreachable = (~held).repeat_interleave(bs).to(dev)
+    k[unreachable] = poison
+    v[unreachable] = poison
+    if quant:
+        (k, ks), (v, vs) = _quantize_rows(k), _quantize_rows(v)
+    else:
+        k, v, ks, vs = k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
+    q = torch.randn((4, sq, hq, D), generator=gen, device=dev).to(torch.bfloat16)
+    return q, PagedKV(k, v, ks, vs, table.to(dev)), qoff.to(dev), unreachable
+
+
 def graph_turns(contenders: dict, n: int, *, cycles: int, reps: int = 6) -> dict:
     """Median device ms per call of each contender. ``contenders[name](i)``
     launches one call on pool i; each contender's ``cycles`` passes over
@@ -353,14 +417,22 @@ def kernel_phase() -> dict:
                                (32, 8, 1, True), (32, 32, 1, False), (32, 32, 1, True)):
         cases.append(dict(hq=hq, hkv=hkv, sq=sq, quant=quant, window=100, k_start=[0, 37, 5, 0]))
     cases.append(dict(hq=28, hkv=4, sq=1, quant=False, window=None, k_start=None))  # Qwen2-7B
+    # The prefix cache's inputs: a chunk past a cached prefix whose blocks
+    # another lane's table maps too (``shared_prefix_case``).
+    for quant in (False, True):
+        cases.append(dict(hq=32, hkv=32, sq=64, quant=quant, window=None, k_start=None,
+                          shared_blocks=SHARED_BLOCKS, q_offset=list(SHARED_QOFF)))
     results, max_err = [], 0.0
     for c in cases:
         occupancy = [9, 40, 0, 64]  # partial, partial, idle lane 2, full
-        q, kv, qoff, unreachable = paged_case(
-            gen, B=4, sq=c["sq"], hq=c["hq"], hkv=c["hkv"], D=128, bs=bs,
-            max_blocks=max_blocks, blocks=blocks, occupancy=occupancy,
-            quant=c["quant"], idle=(2,),
-        )
+        if "shared_blocks" in c:
+            q, kv, qoff, unreachable = shared_prefix_case(gen, quant=c["quant"])
+        else:
+            q, kv, qoff, unreachable = paged_case(
+                gen, B=4, sq=c["sq"], hq=c["hq"], hkv=c["hkv"], D=128, bs=bs,
+                max_blocks=max_blocks, blocks=blocks, occupancy=occupancy,
+                quant=c["quant"], idle=(2,),
+            )
         kst = None if c["k_start"] is None else torch.tensor(c["k_start"], dtype=torch.int32, device="cuda")
         kw = dict(blocks=blocks, block_size=bs, q_offset=qoff, k_start=kst, window=c["window"])
         # Sq 1 runs every route; the decode route with its own split count
@@ -608,139 +680,237 @@ async def _wait_for_text(path: Path, text: str, proc, deadline: float) -> None:
         await asyncio.sleep(0.1)
 
 
-async def run_serve_node(root: Path, job: dict, prompts: list, n_new: list, *,
-                         device: "str | None" = None, repeat: int = 2) -> dict:
-    """The quickstart as processes: write ``gateway``, ``worker`` and
-    ``scheduler`` TOMLs with the port's ``init``, start each with
-    ``python -m hypha_tpu_torch <role> run -c ... --set ...`` (the gateway
-    on a free port of 127.0.0.1; worker ``w0`` offering its whole GPU from
-    a ``work_root`` under ``root``, with ``--device`` when given; the
-    scheduler running ``job``), then act as the client: a port ``Node``
-    bootstrapped at the gateway sends each prompt with its ``n_new`` as a
-    request of its own, all at once, through ``generate_remote``, then the
-    first ``repeat`` again. Finally SIGTERM to the scheduler, the worker and
-    the gateway in turn. Every wait has a deadline. Returns the answers,
-    the timings, the exit codes and what the worker logged."""
-    from hypha_tpu_torch.network import Node, TcpTransport
-    from hypha_tpu_torch.worker.infer_executor import generate_remote, serve_key
+def _toml_value(value) -> str:
+    """A ``--set`` value as TOML reads it (tables inline)."""
+    if isinstance(value, dict):
+        return "{" + ", ".join(f"{k} = {_toml_value(v)}" for k, v in value.items()) + "}"
+    return json.dumps(value)
 
-    repo = os.path.dirname(os.path.abspath(__file__))
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-        p for p in (repo, os.environ.get("PYTHONPATH", "")) if p)}
-    cli = [sys.executable, "-m", "hypha_tpu_torch"]
-    name = job["job.serve_name"]
-    for role in SERVE_ROLES:
-        subprocess.run([*cli, role, "init", "-o", str(root / f"{role}.toml")], check=True,
-                       env=env, cwd=repo, capture_output=True, timeout=60)
-    gateway = f"127.0.0.1:{_free_port()}"
-    work = root / "work"
-    work.mkdir()
-    sets = {
-        "gateway": {"network.listen": [gateway]},
-        "worker": {"resources.gpu": 1, "resources.cpu": 8, "resources.memory": 65536,
-                   "offer.strategy": "whole", "work_root": str(work),
-                   "network.gateways": [gateway]},
-        "scheduler": {**job, "network.gateways": [gateway]},
-    }
-    flags = {"worker": ["--name", "w0"] + (["--device", device] if device else [])}
-    loop = asyncio.get_running_loop()
-    procs, logs, files = {}, {}, []
-    exits, stop_s = {}, {}
-    t0 = time.perf_counter()
-    try:
-        for role in SERVE_ROLES:
-            args = [*cli, role, "run", "-c", str(root / f"{role}.toml"), *flags.get(role, [])]
-            for key, value in sets[role].items():
-                args += ["--set", f"{key}={json.dumps(value)}"]
-            logs[role] = root / f"{role}.log"
-            files.append(open(logs[role], "wb"))
-            procs[role] = await asyncio.create_subprocess_exec(
-                *args, stdout=files[-1], stderr=subprocess.STDOUT, env=env, cwd=repo)
+
+class ServeNet:
+    """The quickstart as processes: ``gateway``, one or more workers and a
+    ``scheduler``, each ``python -m hypha_tpu_torch <role> run -c ...
+    --set ...`` from a TOML the port's ``init`` wrote (the gateway on a free
+    port of 127.0.0.1; each worker offering its whole GPU from a work root
+    of its own under ``root/work``, with ``--device`` when given; the
+    scheduler running ``job``), each logging to ``root/<role>.log``, and a
+    client ``Node`` bootstrapped at the gateway."""
+
+    def __init__(self, root: Path, job: dict, workers: dict, device: "str | None") -> None:
+        self.root, self.job, self.device = root, job, device
+        self.workers = workers  # role -> worker name
+        self.roles = ("gateway", *workers, "scheduler")
+        self.repo = os.path.dirname(os.path.abspath(__file__))
+        self.env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            p for p in (self.repo, os.environ.get("PYTHONPATH", "")) if p)}
+        self.cli = [sys.executable, "-m", "hypha_tpu_torch"]
+        self.work = root / "work"
+        self.procs, self.logs, self.files = {}, {}, []
+        self.exits, self.stop_s = {}, {}
+        self.client = None
+
+    def init(self) -> None:
+        """Write each role's TOML with ``init`` (not timed as bring-up)."""
+        for role in ("gateway", "worker", "scheduler"):
+            subprocess.run([*self.cli, role, "init", "-o", str(self.root / f"{role}.toml")],
+                           check=True, env=self.env, cwd=self.repo, capture_output=True,
+                           timeout=60)
+
+    async def start(self) -> None:
+        """Start every process and the client (after :meth:`init`)."""
+        gateway = f"127.0.0.1:{_free_port()}"
+        self.work.mkdir()
+        loop = asyncio.get_running_loop()
+        for role in self.roles:
+            kind = role if role in ("gateway", "scheduler") else "worker"
+            sets = {"gateway": {"network.listen": [gateway]},
+                    "scheduler": {**self.job, "network.gateways": [gateway]}}.get(kind)
+            flags = []
+            if kind == "worker":
+                sets = {"resources.gpu": 1, "resources.cpu": 8, "resources.memory": 65536,
+                        "offer.strategy": "whole", "work_root": str(self.work / role),
+                        "network.gateways": [gateway]}
+                flags = ["--name", self.workers[role]] + (
+                    ["--device", self.device] if self.device else [])
+            args = [*self.cli, kind, "run", "-c", str(self.root / f"{kind}.toml"), *flags]
+            for key, value in sets.items():
+                args += ["--set", f"{key}={_toml_value(value)}"]
+            self.logs[role] = self.root / f"{role}.log"
+            self.files.append(open(self.logs[role], "wb"))
+            self.procs[role] = await asyncio.create_subprocess_exec(
+                *args, stdout=self.files[-1], stderr=subprocess.STDOUT, env=self.env,
+                cwd=self.repo)
             if role == "gateway":
-                await _wait_for_text(logs[role], "gateway gateway on", procs[role],
+                await _wait_for_text(self.logs[role], "gateway gateway on", self.procs[role],
                                      loop.time() + NODE_WAIT_S)
-        client = Node(TcpTransport(), peer_id="client", bootstrap=[gateway])
-        await client.start(["127.0.0.1:0"])
-        try:
-            await client.wait_for_bootstrap()
-            deadline = loop.time() + NODE_WAIT_S
-            while not await client.find_providers(serve_key(name)):
-                for role, p in procs.items():
-                    if p.returncode is not None:
-                        raise SystemExit(f"{role} exited {p.returncode} during bring-up:\n"
-                                         f"{logs[role].read_text(errors='replace')[-4000:]}")
-                if loop.time() > deadline:
-                    raise SystemExit(f"serve:{name} did not resolve within {NODE_WAIT_S} s")
-                await asyncio.sleep(0.1)
-            bring_up_s = time.perf_counter() - t0
+        from hypha_tpu_torch.network import Node, TcpTransport
 
-            async def one(prompt, n):
-                t = time.perf_counter()
-                toks = await generate_remote(client, name, [prompt], n, timeout=NODE_WAIT_S)
-                return toks, time.perf_counter() - t, time.time()
+        self.client = Node(TcpTransport(), peer_id="client", bootstrap=[gateway])
+        await self.client.start(["127.0.0.1:0"])
+        await self.client.wait_for_bootstrap()
 
-            t1 = time.perf_counter()
-            got = await asyncio.wait_for(
-                asyncio.gather(*(one(p, n) for p, n in zip(prompts, n_new))), NODE_WAIT_S)
-            wall_s = time.perf_counter() - t1
-            again = await asyncio.wait_for(asyncio.gather(*(
-                generate_remote(client, name, [p], n, timeout=NODE_WAIT_S)
-                for p, n in zip(prompts[:repeat], n_new[:repeat]))), NODE_WAIT_S)
-        finally:
-            await client.stop()
-    finally:
-        for role in reversed(SERVE_ROLES):
-            p = procs.get(role)
-            if p is None:
+    def check_alive(self, during: str) -> None:
+        for role, p in self.procs.items():
+            if p.returncode is not None and role not in self.exits:
+                raise SystemExit(f"{role} exited {p.returncode} during {during}:\n"
+                                 f"{self.text(role)[-4000:]}")
+
+    async def wait_for_provider(self, name: str) -> None:
+        from hypha_tpu_torch.worker.infer_executor import serve_key
+
+        deadline = asyncio.get_running_loop().time() + NODE_WAIT_S
+        while not await self.client.find_providers(serve_key(name)):
+            self.check_alive("bring-up")
+            if asyncio.get_running_loop().time() > deadline:
+                raise SystemExit(f"serve:{name} did not resolve within {NODE_WAIT_S} s")
+            await asyncio.sleep(0.1)
+
+    async def kill(self, role: str) -> None:
+        """SIGKILL, as a crash would end the process."""
+        p = self.procs[role]
+        p.send_signal(signal.SIGKILL)
+        self.exits[role] = await p.wait()
+        self.stop_s[role] = 0.0
+
+    async def stop(self) -> None:
+        """The client, then SIGTERM to the scheduler, the workers and the
+        gateway in turn, each given ``STOP_WAIT_S``."""
+        if self.client is not None:
+            await self.client.stop()
+        for role in reversed(self.roles):
+            p = self.procs.get(role)
+            if p is None or role in self.exits:
                 continue
             t = time.perf_counter()
             if p.returncode is None:
                 p.send_signal(signal.SIGTERM)
             try:
-                exits[role] = await asyncio.wait_for(p.wait(), STOP_WAIT_S)
+                self.exits[role] = await asyncio.wait_for(p.wait(), STOP_WAIT_S)
             except asyncio.TimeoutError:
                 p.kill()
                 await p.wait()
-                exits[role] = "killed"
-            stop_s[role] = time.perf_counter() - t
-        for f in files:
+                self.exits[role] = "killed"
+            self.stop_s[role] = time.perf_counter() - t
+        for f in self.files:
             f.close()
-    text = {role: logs[role].read_text(errors="replace") for role in logs}
-    launches = [json.loads(line.split("serve launches: ", 1)[1])
-                for line in text["worker"].splitlines() if "serve launches: " in line]
-    peak = [float(line.split("peak device memory: ", 1)[1].split()[0])
-            for line in text["worker"].splitlines() if "peak device memory: " in line]
-    # "job J model loaded in S s[, peak device memory P GiB]"
-    loaded = [re.findall(r"[\d.]+(?= s\b| GiB)", line.split("model loaded in ", 1)[1])
-              for line in text["worker"].splitlines() if "model loaded in " in line]
-    dispatched = [_log_time(line) for line in text["scheduler"].splitlines()
-                  if f"serving {name} deployed on" in line]
+
+    def text(self, role: str) -> str:
+        return self.logs[role].read_text(errors="replace")
+
+    def worker_report(self, role: str) -> dict:
+        """What a worker logged: its last launch and cache counts, its
+        serving peak, the load's seconds and peak, its kernel builds."""
+        lines = self.text(role).splitlines()
+
+        def last_json(tag):
+            found = [json.loads(line.split(tag, 1)[1]) for line in lines if tag in line]
+            return found[-1] if found else None
+
+        peak = [float(line.split("peak device memory: ", 1)[1].split()[0])
+                for line in lines if "peak device memory: " in line]
+        # "job J model loaded in S s[, peak device memory P GiB]"
+        loaded = [re.findall(r"[\d.]+(?= s\b| GiB)", line.split("model loaded in ", 1)[1])
+                  for line in lines if "model loaded in " in line]
+        return dict(
+            launches=last_json("serve launches: "), cache=last_json("serve cache: "),
+            peak_mem_gib=peak[-1] if peak else None,
+            load_s=float(loaded[0][0]) if loaded else None,
+            load_peak_mem_gib=float(loaded[0][1]) if loaded and len(loaded[0]) > 1 else None,
+            kernel_builds=[line.split("kernel library ", 1)[1] for line in lines
+                           if "kernel library " in line],
+        )
+
+    def leftover(self, skip=()) -> list:
+        return sorted(str(p.relative_to(self.work)) for p in self.work.rglob("*")
+                      if p.relative_to(self.work).parts[0] not in skip
+                      and p != self.work / p.relative_to(self.work).parts[0])
+
+
+async def _timed_ask(client, name: str, prompt: list, n: int) -> tuple:
+    from hypha_tpu_torch.worker.infer_executor import generate_remote
+
+    t = time.perf_counter()
+    toks = await generate_remote(client, name, [prompt], n, timeout=NODE_WAIT_S)
+    return toks, time.perf_counter() - t, time.time()
+
+
+async def run_serve_node(root: Path, job: dict, prompts: list, n_new: list, *,
+                         device: "str | None" = None, repeat: int = 2) -> dict:
+    """``ServeNet`` with one worker, ``w0``: the client sends each prompt
+    with its ``n_new`` as a request of its own, all at once, through
+    ``generate_remote``, then the first ``repeat`` again; then every
+    process stops. Every wait has a deadline. Returns the answers, the
+    timings, the exit codes and what the worker logged."""
+    from hypha_tpu_torch.worker.infer_executor import generate_remote
+
+    name = job["job.serve_name"]
+    net = ServeNet(root, job, {"worker": "w0"}, device)
+    net.init()
+    t0 = time.perf_counter()
+    try:
+        await net.start()
+        await net.wait_for_provider(name)
+        bring_up_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        got = await asyncio.wait_for(asyncio.gather(*(
+            _timed_ask(net.client, name, p, n) for p, n in zip(prompts, n_new))), NODE_WAIT_S)
+        wall_s = time.perf_counter() - t1
+        again = await asyncio.wait_for(asyncio.gather(*(
+            generate_remote(net.client, name, [p], n, timeout=NODE_WAIT_S)
+            for p, n in zip(prompts[:repeat], n_new[:repeat]))), NODE_WAIT_S)
+    finally:
+        await net.stop()
+    dispatched = [_log_time(line) for line in net.text("scheduler").splitlines()
+                  if f"serving {name} slot 0 deployed on" in line]
     latencies = sorted(lat for _, lat, _ in got)
+    report = net.worker_report("worker")
     return dict(
         answers=[toks for toks, _, _ in got], again=again, bring_up_s=bring_up_s,
         dispatch_to_first_answer_s=(min(at for _, _, at in got) - dispatched[0]
                                     if dispatched else None),
         latency_s=[lat for _, lat, _ in got], latency_median_s=statistics.median(latencies),
-        latency_max_s=latencies[-1], wall_s=wall_s, exits=exits, stop_s=stop_s,
-        launches=launches[0] if len(launches) == 1 else launches,
-        peak_mem_gib=peak[0] if peak else None,
-        load_s=float(loaded[0][0]) if loaded else None,
-        load_peak_mem_gib=float(loaded[0][1]) if loaded and len(loaded[0]) > 1 else None,
-        kernel_builds=[line.split("kernel library ", 1)[1] for line in
-                       text["worker"].splitlines() if "kernel library " in line],
-        leftover=sorted(str(p.relative_to(work)) for p in work.rglob("*")),
-        logs={role: str(path) for role, path in logs.items()},
+        latency_max_s=latencies[-1], wall_s=wall_s, exits=net.exits, stop_s=net.stop_s,
+        **{k: report[k] for k in ("launches", "peak_mem_gib", "load_s", "load_peak_mem_gib",
+                                  "kernel_builds")},
+        leftover=net.leftover(), logs={role: str(path) for role, path in net.logs.items()},
     )
+
+
+def launch_problems(who: str, lc, kernel_builds: list, *, layers: int, device: str) -> list:
+    """A worker's launch gates: its launches line with mma and decode
+    launches, each a multiple of ``layers``, and no plain call on the card
+    (on the CPU only plain calls); no one-shot fallback; on the card, no
+    kernel built anew."""
+    problems = []
+    if not isinstance(lc, dict):
+        problems.append(f"want a serve launches line from {who}, got {lc}")
+    elif device == "cuda":
+        if (lc["mma"] <= 0 or lc["decode"] <= 0 or lc["mma"] % layers or lc["decode"] % layers
+                or lc["plain"] != 0):
+            problems.append(f"{who}: launches {lc} (layers {layers})")
+    elif lc["plain"] <= 0 or lc["mma"] or lc["decode"] or lc["simt"]:
+        problems.append(f"{who}: launches {lc} on the CPU")
+    if isinstance(lc, dict) and lc["fallbacks"]:
+        problems.append(f"{who}: {lc['fallbacks']} requests left the pool for the fallback")
+    if device == "cuda" and (not kernel_builds
+                             or any(b.split(": ", 1)[1] != "cached" for b in kernel_builds)):
+        problems.append(f"{who} built kernels anew: {kernel_builds}")
+    return problems
+
+
+def exit_problems(run: dict, roles) -> list:
+    """Each of ``roles`` out with 0 within ``STOP_WAIT_S`` of SIGTERM."""
+    return [f"{role} exited {run['exits'].get(role)} after {run['stop_s'].get(role)} s of SIGTERM"
+            for role in roles
+            if run["exits"].get(role) != 0 or run["stop_s"].get(role, STOP_WAIT_S) >= STOP_WAIT_S]
 
 
 def serve_node_problems(run: dict, *, want: list, n_new: list, layers: int, device: str) -> list:
     """The gates of the serve_node phase: every request answered with its
     ``n_new`` tokens, equal to ``want`` (the in-process pool's answers) and
-    the repeats equal; the worker's launches line with mma and decode
-    launches, each a multiple of ``layers``, and no plain call on the card
-    (on the CPU only plain calls); no one-shot fallback; on the card, no
-    kernel built anew; every process out with 0 within ``STOP_WAIT_S`` and
-    nothing left in the work root."""
+    the repeats equal; the worker's launch gates (``launch_problems``);
+    every process out with 0 within ``STOP_WAIT_S`` and nothing left in the
+    work root."""
     problems = []
     for i, (toks, n) in enumerate(zip(run["answers"], n_new)):
         if len(toks) != 1 or len(toks[0]) != n:
@@ -749,24 +919,9 @@ def serve_node_problems(run: dict, *, want: list, n_new: list, layers: int, devi
         problems.append("the network's answers differ from the in-process pool's")
     if run["again"] != run["answers"][:len(run["again"])]:
         problems.append("a repeated request returned different tokens")
-    lc = run["launches"]
-    if not isinstance(lc, dict):
-        problems.append(f"want one serve launches line from the worker, got {lc}")
-    elif device == "cuda":
-        if (lc["mma"] <= 0 or lc["decode"] <= 0 or lc["mma"] % layers or lc["decode"] % layers
-                or lc["plain"] != 0):
-            problems.append(f"launches {lc} (layers {layers})")
-    elif lc["plain"] <= 0 or lc["mma"] or lc["decode"] or lc["simt"]:
-        problems.append(f"launches {lc} on the CPU")
-    if isinstance(lc, dict) and lc["fallbacks"]:
-        problems.append(f"{lc['fallbacks']} requests left the pool for the one-shot fallback")
-    if device == "cuda" and (not run["kernel_builds"]
-                             or any(b.split(": ", 1)[1] != "cached" for b in run["kernel_builds"])):
-        problems.append(f"the worker built kernels anew: {run['kernel_builds']}")
-    for role in SERVE_ROLES:
-        if run["exits"].get(role) != 0 or run["stop_s"].get(role, STOP_WAIT_S) >= STOP_WAIT_S:
-            problems.append(f"{role} exited {run['exits'].get(role)} after "
-                            f"{run['stop_s'].get(role)} s of SIGTERM")
+    problems += launch_problems("the worker", run["launches"], run["kernel_builds"],
+                                layers=layers, device=device)
+    problems += exit_problems(run, SERVE_ROLES)
     if run["leftover"]:
         problems.append(f"left in the work root: {run['leftover']}")
     return problems
@@ -791,6 +946,318 @@ def serve_node_phase(serve: dict) -> dict:
     return dict(requests=len(serve["prompts"]), serve_wall_s=serve["wall_s"],
                 network_share=1.0 - serve["wall_s"] / run["wall_s"],
                 answers_equal_serve=True, repeat_identical=True,
+                **{k: run[k] for k in keep})
+
+
+# ------------------------------------------------ serve_prefix phase
+
+PREFIX_LEN = 320  # the shared prompt prefix of a family of requests
+PREFIX_SEED = 11
+
+
+def prefix_requests(seed: int = PREFIX_SEED) -> tuple:
+    """16 greedy requests: 4 families of 4 prompts, each family sharing a
+    ``PREFIX_LEN``-token prefix drawn from the seed, with distinct tails of
+    17-150 tokens and 32-64 new tokens. Family 0's first prompt (320 + 32
+    tokens, a multiple of 16) comes again as the ninth request, while the
+    first is still decoding: its fully cached prompt recomputes its last
+    token inside a block the first still maps (copy-on-write)."""
+    prefixes = make_prompts(seed, [PREFIX_LEN] * 4)
+    tails = make_prompts(seed + 1, [32, 17, 64, 150, 45, 99, 23, 80, 130, 57, 111, 38, 71, 140,
+                                    29, 150])
+    fam = [[prefixes[f] + tails[4 * f + m] for m in range(4)] for f in range(4)]
+    order = [(0, 0), (1, 0), (2, 0), (3, 0), (0, 1), (1, 1), (2, 1), (3, 1),
+             (0, 0), (1, 2), (2, 2), (3, 2), (0, 2), (1, 3), (2, 3), (3, 3)]
+    prompts = [fam[f][m] for f, m in order]
+    n_new = [64, 32, 40, 48, 56, 36, 44, 52, 64, 60, 32, 40, 48, 56, 36, 44]
+    return prompts, n_new
+
+
+def _pool_run(model, prompts, n_new, **pool) -> dict:
+    """The requests through ``PoolServer`` over a paged, ragged pool of
+    ``serve``'s shape, all at once; the launch counts set to 0 just before
+    and read just after."""
+    from hypha_tpu_torch.ops.paged_attention import paged_attention, ragged_paged_attention
+    from hypha_tpu_torch.worker.continuous import PoolServer
+    from hypha_tpu_torch.worker.infer_executor import generate_grouped
+
+    def fallback(prompts, n, temperature, top_k, seed):
+        return generate_grouped(model, prompts, n, temperature, top_k, seed)
+
+    async def run():
+        server = PoolServer(model, fallback, slots=8, max_len=1024, steps_per_call=8,
+                            block_size=16, ragged=True, **pool)
+        try:
+            for name in ROUTES:
+                setattr(ragged_paged_attention, f"{name}_launches", 0)
+            ragged_paged_attention.launches = 0
+            paged_attention.plain_calls = 0
+            t0 = time.perf_counter()
+            out = await drive(server, prompts, n_new)
+            wall = time.perf_counter() - t0
+            by_route = {name: getattr(ragged_paged_attention, f"{name}_launches")
+                        for name in ROUTES}
+            return server, out, wall, by_route, paged_attention.plain_calls
+        finally:
+            server.close()
+
+    server, out, wall, by_route, plain = asyncio.run(run())
+    pool_ = server.pool
+    return dict(answers=[o[0] for o in out], wall_s=wall, launches_by_route=by_route,
+                plain_attention_calls=plain, fallbacks=server.fallbacks,
+                prefill_forwards=pool_.prefill_chunks, decode_chunks=pool_.chunks,
+                preemptions=pool_.preemptions, hit_blocks=pool_.hit_blocks,
+                miss_blocks=pool_.miss_blocks, cow_copies=pool_.cow_copies)
+
+
+def divergence(model, prompt: list, got: list, want: list) -> dict:
+    """Where two greedy streams of one prompt first differ, and the gap
+    between the top two logits of the full (training) forward there."""
+    i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+    with torch.inference_mode():
+        ids = torch.tensor([prompt + want[:i]], device=model.device)
+        top = model(ids)[0, -1].float().topk(2)
+    return dict(position=i, got=got[i], want=want[i],
+                top2=top.indices.tolist(), top2_gap=float(top.values[0] - top.values[1]))
+
+
+def serve_prefix_phase(model) -> dict:
+    """``prefix_requests`` through ``serve``'s pool with the prefix cache on
+    and off, in bf16 and with int8 KV blocks. Gates: answers equal with
+    the cache on and off, hit blocks and copy-on-writes above 0, fewer
+    prefill forwards with the cache, launches in multiples of the layers
+    on the mma and decode routes, no plain attention call, no fallback."""
+    prompts, n_new = prefix_requests()
+    layers = model.config.num_layers
+    runs = {}
+    for quant in ("", "int8"):
+        for cache in (True, False):
+            runs[(quant, cache)] = _pool_run(model, prompts, n_new, kv_quant=quant,
+                                             prefix_cache=cache)
+    for quant in ("", "int8"):
+        on, off = runs[(quant, True)], runs[(quant, False)]
+        label = quant or "bf16"
+        if on["answers"] != off["answers"]:
+            bad = [i for i, (a, b) in enumerate(zip(on["answers"], off["answers"])) if a != b]
+            where = divergence(model, prompts[bad[0]], on["answers"][bad[0]],
+                               off["answers"][bad[0]])
+            emit({"phase": "serve_prefix", "failed": label, "requests": bad, "first": where})
+            raise SystemExit(f"serve_prefix {label}: the cache changed the tokens of {bad}")
+        for i, (toks, n) in enumerate(zip(on["answers"], n_new)):
+            if len(toks) != n:
+                raise SystemExit(f"serve_prefix {label}: request {i} got {len(toks)} tokens")
+        if on["hit_blocks"] <= 0 or on["cow_copies"] <= 0:
+            raise SystemExit(f"serve_prefix {label}: hits {on['hit_blocks']}, "
+                             f"copy-on-writes {on['cow_copies']}")
+        if on["prefill_forwards"] >= off["prefill_forwards"]:
+            raise SystemExit(f"serve_prefix {label}: {on['prefill_forwards']} prefill forwards "
+                             f"with the cache, {off['prefill_forwards']} without")
+        for run in (on, off):
+            lc = run["launches_by_route"]
+            if (lc["mma"] <= 0 or lc["decode"] <= 0 or lc["mma"] % layers
+                    or lc["decode"] % layers or run["plain_attention_calls"] or run["fallbacks"]):
+                raise SystemExit(f"serve_prefix {label}: launches {lc}, plain "
+                                 f"{run['plain_attention_calls']}, fallbacks {run['fallbacks']}")
+    keep = ("wall_s", "prefill_forwards", "decode_chunks", "preemptions", "hit_blocks",
+            "miss_blocks", "cow_copies", "launches_by_route")
+    res = {f"{quant or 'bf16'}_{'cache' if cache else 'nocache'}": {k: r[k] for k in keep}
+           for (quant, cache), r in runs.items()}
+    res.update(requests=len(prompts), prefix_len=PREFIX_LEN, n_new=n_new,
+               prompt_lengths=[len(p) for p in prompts], answers_equal_uncached=True,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    # For serve_router (main keeps them out of the phase's line).
+    res.update(prompts=prompts, answers=runs[("", True)]["answers"], layers=layers)
+    return res
+
+
+# ------------------------------------------------ serve_router phase
+
+# ``SERVE_JOB`` spread over two workers behind the scheduler's router.
+ROUTER_JOB = {**SERVE_JOB, "job.serve_workers": 2, "job.serve_prefix_cache": True,
+              "job.serve_prefix_affinity": True, "job.serve_queue_limit": 4}
+ROUTER_WORKERS = {"w0": "w0", "w1": "w1"}
+ROUTER_ROLES = ("gateway", "w0", "w1", "scheduler")
+LOAD_REPORT_S = 1.0  # the supervisor's heartbeat period (its default)
+
+
+async def _device_mem_sampler(peak: list, stop: asyncio.Event) -> None:
+    """The card's used memory, all processes together, every 0.5 s."""
+    while not stop.is_set():
+        proc = await asyncio.create_subprocess_exec(
+            "nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits",
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL)
+        out, _ = await proc.communicate()
+        try:
+            peak[0] = max(peak[0], float(out.decode().split()[0]))
+        except (ValueError, IndexError):
+            pass
+        try:
+            await asyncio.wait_for(stop.wait(), 0.5)
+        except asyncio.TimeoutError:
+            pass
+
+
+async def run_serve_router(root: Path, job: dict, prompts: list, n_new: list, *,
+                           device: "str | None" = None, repeat: int = 4) -> dict:
+    """``ServeNet`` with two workers, ``w0`` and ``w1``, behind the
+    scheduler's router (``job`` routes). Once both backends serve, the
+    client sends every prompt at once through ``generate_remote``, then the
+    first ``repeat`` again; then it SIGKILLs ``w1``, sends the last
+    ``repeat`` prompts again, which ``w0`` must answer, and waits for the
+    scheduler to fail ``w1``'s slot (by φ ejection or by a failed lease
+    renewal); then every process left stops. Every wait has a deadline."""
+    from hypha_tpu_torch.messages import PROTOCOL_GENERATE
+
+    name = job["job.serve_name"]
+    net = ServeNet(root, job, ROUTER_WORKERS, device)
+    net.init()
+    loop = asyncio.get_running_loop()
+    mem_peak, sampling = [0.0], asyncio.Event()
+    sampler = (asyncio.create_task(_device_mem_sampler(mem_peak, sampling))
+               if device is None else None)
+    busy = [0, 0.0]  # retry-after answers, and the seconds they asked to wait
+    t0, started_at = time.perf_counter(), time.time()
+    try:
+        await net.start()
+        ask = net.client.request
+
+        async def counted(peer, proto, msg, **kw):
+            resp = await ask(peer, proto, msg, **kw)
+            if proto == PROTOCOL_GENERATE and not getattr(resp, "ok", True):
+                # A retry-after answer: generate_remote sleeps the hint and
+                # asks again.
+                busy[0] += 1
+                busy[1] += resp.retry_after_ms / 1e3
+            return resp
+
+        net.client.request = counted
+        await net.wait_for_provider(name)
+        deadline = loop.time() + NODE_WAIT_S
+        for role in ROUTER_WORKERS:
+            await _wait_for_text(net.logs[role], f"serving {name}@", net.procs[role], deadline)
+        # The router routes to a backend once its first heartbeat lands,
+        # one heartbeat period after the backend serves.
+        await asyncio.sleep(2 * LOAD_REPORT_S)
+        bring_up_s = time.perf_counter() - t0
+        sampling.set()
+        t1 = time.perf_counter()
+        got = await asyncio.wait_for(asyncio.gather(*(
+            _timed_ask(net.client, name, p, n) for p, n in zip(prompts, n_new))), NODE_WAIT_S)
+        wall_s = time.perf_counter() - t1
+        again = await asyncio.wait_for(asyncio.gather(*(
+            _timed_ask(net.client, name, p, n)
+            for p, n in zip(prompts[:repeat], n_new[:repeat]))), NODE_WAIT_S)
+        before = {role: net.worker_report(role) for role in ROUTER_WORKERS}
+        killed_at = time.time()
+        await net.kill("w1")
+        after = await asyncio.wait_for(asyncio.gather(*(
+            _timed_ask(net.client, name, p, n)
+            for p, n in zip(prompts[-repeat:], n_new[-repeat:]))), NODE_WAIT_S)
+        await _wait_for_text(net.logs["scheduler"], "serving worker w1 failed",
+                             net.procs["scheduler"], loop.time() + NODE_WAIT_S)
+    finally:
+        sampling.set()
+        if sampler is not None:
+            await sampler
+        await net.stop()
+    sched = net.text("scheduler").splitlines()
+    dispatched = [_log_time(line) for line in sched if f"serving {name} slot " in line
+                  and " deployed on " in line]
+    failed = [line for line in sched if "serving worker w1 failed" in line]
+    ejected = [line for line in sched if "ejecting serving worker w1" in line]
+    router = [json.loads(line.split(f"serving {name} router: ", 1)[1]) for line in sched
+              if f"serving {name} router: " in line]
+    reports = {"w0": net.worker_report("w0"), "w1": before["w1"]}
+    # The bring-up's timeline, from the start of the phase: each slot
+    # dispatched (scheduler) and each backend serving (its worker).
+    timeline = {f"slot_{line.split(' slot ', 1)[1].split()[0]}_deployed_s":
+                _log_time(line) - started_at for line in sched
+                if f"serving {name} slot " in line and " deployed on " in line}
+    for role in ROUTER_WORKERS:
+        serving = [_log_time(line) - started_at for line in net.text(role).splitlines()
+                   if f" serving {name}@" in line]
+        timeline[f"{role}_serving_s"] = serving[0] if serving else None
+    timeline["empty_auctions"] = sum(f"no offers for serving {name}" in line for line in sched)
+    latencies = sorted(lat for _, lat, _ in got)
+    return dict(
+        answers=[t for t, _, _ in got], again=[t for t, _, _ in again],
+        after_kill=[t for t, _, _ in after], bring_up_s=bring_up_s,
+        dispatch_to_first_answer_s=(min(at for _, _, at in got) - min(dispatched)
+                                    if dispatched else None),
+        latency_s=[lat for _, lat, _ in got], latency_median_s=statistics.median(latencies),
+        latency_max_s=latencies[-1], wall_s=wall_s,
+        after_kill_latency_s=[lat for _, lat, _ in after], busy_answers=busy[0],
+        busy_wait_s=busy[1],
+        router=router[-1] if router else None,
+        slot_failed_s=(_log_time(failed[0]) - killed_at) if failed else None,
+        slot_failed_by=("phi-accrual ejection" if ejected else "lease") if failed else None,
+        slot_failed_line=failed[0][24:] if failed else None,
+        w0_requests_after_kill=(reports["w0"]["launches"]["requests"]
+                                - before["w0"]["launches"]["requests"]
+                                if reports["w0"]["launches"] and before["w0"]["launches"]
+                                else None),
+        workers=reports, timeline=timeline, bring_up_device_mem_mib=mem_peak[0] if sampler else None,
+        exits=net.exits, stop_s=net.stop_s, leftover=net.leftover(skip=("w1",)),
+        logs={role: str(path) for role, path in net.logs.items()},
+    )
+
+
+def serve_router_problems(run: dict, *, want: list, n_new: list, layers: int,
+                          device: str, repeat: int = 4) -> list:
+    """The gates of the serve_router phase: every answer (the burst, the
+    repeats, the answers after the kill) equal to ``want``; each worker's
+    launch gates (``launch_problems``) with requests above 0; prefix-cache
+    hits across the backends; the scheduler's router counts logged;
+    ``w1``'s slot failed after the kill and ``w0`` answered what came
+    after; the scheduler, ``w0`` and the gateway out with 0 within
+    ``STOP_WAIT_S``; nothing left in the work root but ``w1``'s."""
+    problems = []
+    wants = (("the burst", run["answers"], want), ("the repeats", run["again"], want[:repeat]),
+             ("after the kill", run["after_kill"], want[-repeat:]))
+    for what, got, ref in wants:
+        if [t[0] if len(t) == 1 else t for t in got] != ref:
+            problems.append(f"{what}: answers differ from the in-process pool's")
+    for role, report in run["workers"].items():
+        problems += launch_problems(role, report["launches"], report["kernel_builds"],
+                                    layers=layers, device=device)
+        if not report["launches"] or report["launches"]["requests"] <= 0:
+            problems.append(f"{role} served no request")
+    hits = sum((r["cache"] or {}).get("hit_blocks", 0) for r in run["workers"].values())
+    if hits <= 0:
+        problems.append("no prefix-cache hit on either backend")
+    if not run["router"] or not {"routed", "rejected"} <= set(run["router"]):
+        problems.append(f"the scheduler logged no router counts: {run['router']}")
+    if run["slot_failed_by"] is None:
+        problems.append("w1's slot never failed after the kill")
+    if not run["w0_requests_after_kill"] or run["w0_requests_after_kill"] < repeat:
+        problems.append(f"w0 took {run['w0_requests_after_kill']} requests after the kill")
+    problems += exit_problems(run, ("scheduler", "w0", "gateway"))
+    if run["leftover"]:
+        problems.append(f"left in the work root: {run['leftover']}")
+    return problems
+
+
+def serve_router_phase(prefix: dict) -> dict:
+    """``serve_prefix``'s requests through the scheduler's router over two
+    workers, each a process of its own started from TOML by the port's
+    CLI, then ``w1`` killed."""
+    root = Path(tempfile.mkdtemp(prefix="hsr"))
+    try:
+        run = asyncio.run(run_serve_router(root, ROUTER_JOB, prefix["prompts"],
+                                           prefix["n_new"]))
+        problems = serve_router_problems(run, want=prefix["answers"], n_new=prefix["n_new"],
+                                         layers=prefix["layers"], device="cuda")
+        if problems:
+            logs = {r: Path(p).read_text(errors="replace")[-3000:] for r, p in run["logs"].items()}
+            raise SystemExit(f"serve_router: {problems}\n{json.dumps(logs, indent=1)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    keep = ("bring_up_s", "dispatch_to_first_answer_s", "latency_s", "latency_median_s",
+            "latency_max_s", "wall_s", "after_kill_latency_s", "busy_answers", "busy_wait_s",
+            "router",
+            "slot_failed_s", "slot_failed_by", "slot_failed_line", "w0_requests_after_kill",
+            "workers", "timeline", "bring_up_device_mem_mib", "stop_s", "exits")
+    return dict(requests=len(prefix["prompts"]), answers_equal_serve_prefix=True,
                 **{k: run[k] for k in keep})
 
 
@@ -2446,6 +2913,8 @@ def main() -> int:
           **{k: v for k, v in serve.items() if k not in hidden}})
     serve8 = serve_phase(model, kv_quant="int8", lengths=[25, 180, 410, 650], n_new=[32, 48, 40, 64])
     emit({"phase": "serve_int8", **{k: v for k, v in serve8.items() if k not in hidden}})
+    prefix = serve_prefix_phase(model)
+    emit({"phase": "serve_prefix", **{k: v for k, v in prefix.items() if k not in hidden}})
     emit({"phase": "profile", **profile_phase(model)})
     emit({"phase": "reference", **reference_phase(model)})
     del model  # free the serving model: the worker of serve_node and training take the card
@@ -2453,6 +2922,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_node = serve_node_phase(serve)
     emit({"phase": "serve_node", **serve_node})
+    serve_router = serve_router_phase(prefix)
+    emit({"phase": "serve_router", **serve_router})
 
     train = train_phase()
     emit({"phase": "train", **train})
@@ -2474,8 +2945,11 @@ def main() -> int:
         "decode_simt_ms": dec["simt_ms"], "decode_mma_ms": dec["mma_ms"],
         "decode_splits": dec["decode_splits"],
         "launches_by_route": serve["kernel_launches_by_route"],
-        # The same requests through the network, counted by the worker.
+        # The same requests through the network, counted by the worker,
+        # and serve_prefix's through the router, counted by each backend.
         "serve_node_launches": serve_node["launches"],
+        "serve_router_launches": {role: w["launches"]
+                                  for role, w in serve_router["workers"].items()},
         "prefill64_ms": pre["ms"], "prefill64_simt_ms": pre["simt_ms"],
         "prefill64_plain_ms": pre["plain_ms"], "prefill64_bound_ms": pre["bound_ms"],
         "prefill64_bound_by": pre["bound_by"], "prefill64_library_ms": pre["library_ms"],

@@ -18,11 +18,27 @@ paged layout). Each serve-loop iteration:
   recompute, with its emitted tokens folded into its prompt, so its greedy
   stream equals an uncontended run.
 
+**Automatic prefix caching** (``prefix_cache=True``): lanes are laid out
+from position 0, so a full block's K/V is a pure function of the token
+prefix. Admission chain-hashes the (resume) prompt's full blocks
+(``block_cache.chain_hashes``), maps the longest cached prefix into the
+lane's table with a reference each, and starts prefill past the hit,
+capped one token short of the prompt's end: the last prompt token always
+recomputes, since its logits give the first generated token. A write into
+a block that another lane shares first copies it into a fresh block
+(``ops.kvcache.copy_blocks``) and rewrites the table. Lanes register
+their full blocks when a chunk fills them and when they are preempted;
+blocks with no reference park in an LRU that allocation evicts from, so a
+preempted group resumes as a cache hit. Off, admission and every dispatch
+are the uncached pool's.
+
 The host owns the row variables (``idx``, ``start``, ``table``) and writes
 them into the cache tensors in place before every dispatch; idle lanes
 park at ``idx = max_len``, so their writes land in the garbage block.
 
 Greedy only: sampled requests take ``PoolServer``'s one-shot fallback.
+Where the JAX pool bumps its serving metrics the port keeps plain
+counters: ``hit_blocks``, ``miss_blocks``, ``cow_copies``.
 Options of the JAX pool that this port does not have yet raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
@@ -40,8 +56,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..ops.kvcache import KVCache
-from .block_cache import PrefixBlockCache
+from ..ops.kvcache import KVCache, copy_blocks
+from .block_cache import PrefixBlockCache, chain_hashes
 
 __all__ = ["DecodePool", "PoolBusy"]
 
@@ -49,7 +65,6 @@ log = logging.getLogger("hypha.torch.executor.pool")
 
 # Pool options of the JAX package that wait for a later slice of the port.
 _NOT_PORTED = {
-    "prefix_cache": "prefix cache with copy_blocks",
     "spec_ngram": "speculative decoding",
     "spec_draft": "speculative decoding",
     "spec_layers": "speculative decoding",
@@ -93,6 +108,10 @@ class _PRow:
     pos: int = 0  # logical write index: prefill progress, then decode
     blocks: list = field(default_factory=list)
     win_tokens: Any = None  # np[window + prefill_chunk] resume prompt
+    # Prefix cache: how many leading blocks are registered, and the chain
+    # hash after them (block_cache.chain_hashes' recurrence).
+    hashed: int = 0
+    chain_h: int = 0
 
 
 class DecodePool:
@@ -114,6 +133,7 @@ class DecodePool:
         prefill_chunk: int = 0,
         reserve_blocks: int = -1,
         max_queue: int = 0,
+        prefix_cache: bool = False,
         ragged: bool = False,
         kv_quant: str = "",
         **not_ported: Any,
@@ -160,6 +180,7 @@ class DecodePool:
         self.block_size, self.num_blocks = block_size, num_blocks
         self.prefill_chunk = prefill_chunk
         self.ragged, self.kv_quant = bool(ragged), kv_quant
+        self.prefix_cache = bool(prefix_cache)
         self.reserve_blocks = slots if reserve_blocks < 0 else reserve_blocks
         self.max_queue = max(int(max_queue), 0)
         with torch.inference_mode():
@@ -167,7 +188,7 @@ class DecodePool:
                 model, slots, max_len, per_row=True, blocks=num_blocks,
                 block_size=block_size, kv_quant=kv_quant, ragged=self.ragged,
             )
-        self._alloc = PrefixBlockCache(num_blocks, block_size)
+        self._alloc = PrefixBlockCache(num_blocks, block_size, caching=self.prefix_cache)
         self._lane_rows: dict = {}
         self._free_lanes = list(range(slots))
         self._h_idx = np.full((slots,), max_len, np.int32)
@@ -184,6 +205,11 @@ class DecodePool:
         self.prefill_chunks = 0
         self.preemptions = 0
         self.requests = 0
+        # Prefix cache: blocks mapped from the cache at admission, hashed
+        # blocks that missed, and copy-on-write block copies.
+        self.hit_blocks = 0
+        self.miss_blocks = 0
+        self.cow_copies = 0
         # Host-clock totals of the dispatches, each ending in a host sync.
         self.stats = {"prefill_s": 0.0, "prefill_tokens": 0,
                       "decode_s": 0.0, "decode_tokens": 0}
@@ -201,6 +227,14 @@ class DecodePool:
 
     def live_rows(self) -> int:
         return len(self._lane_rows)
+
+    def cached_count(self) -> int:
+        """Blocks registered in the prefix cache."""
+        return self._alloc.cached_count()
+
+    def shared_count(self) -> int:
+        """Blocks mapped by more than one lane."""
+        return self._alloc.shared_count()
 
     # ------------------------------------------------------------ public
 
@@ -334,7 +368,10 @@ class DecodePool:
             self._finish_paged()
 
     def _admit_paged(self) -> None:
-        """FIFO block-granular admission above the watermark reserve."""
+        """FIFO block-granular admission above the watermark reserve. With
+        the prefix cache on, each lane maps the longest cached prefix of
+        its (resume) prompt and prefill starts at the first uncached
+        position, capped one token short of the end."""
         bs = self.block_size
         while self._waiting:
             group = self._waiting[0]
@@ -344,7 +381,17 @@ class DecodePool:
             live = [r for r in group.rows.values() if not r.done]
             if len(live) > len(self._free_lanes):
                 break
-            need = sum(-(-(len(r.prompt) + len(r.emitted)) // bs) for r in live)
+            # Fresh blocks per lane net of cached hits; hits parked in the
+            # LRU leave the allocatable pool when mapped, so they count.
+            need = 0
+            plans = []
+            for r in live:
+                full = r.prompt + r.emitted  # recompute-resume prompt
+                hashes = chain_hashes(full, bs) if self.prefix_cache else []
+                hits, in_lru = self._alloc.peek(hashes)
+                lane_blocks = -(-len(full) // bs)
+                need += lane_blocks - hits + in_lru
+                plans.append((r, full, hashes, lane_blocks))
             free = self._alloc.free_count()
             if free < need:
                 break
@@ -355,14 +402,19 @@ class DecodePool:
                 self._backlog -= 1
             self._admit_seq += 1
             group.order = self._admit_seq
-            for r in live:
-                full = r.prompt + r.emitted  # recompute-resume prompt
+            for r, full, hashes, lane_blocks in plans:
                 r.slot = self._free_lanes.pop()
-                r.blocks = [self._alloc.alloc() for _ in range(-(-len(full) // bs))]
-                if any(b is None for b in r.blocks):
+                hit = self._alloc.lookup(hashes)
+                fresh = [self._alloc.alloc() for _ in range(lane_blocks - len(hit))]
+                if any(b is None for b in fresh):
                     raise RuntimeError("paged admission accounting broke")
+                r.blocks = hit + fresh
                 r.window = len(full)
-                r.pos = 0
+                r.pos = min(len(hit) * bs, len(full) - 1)
+                r.hashed = len(hit)
+                r.chain_h = hashes[len(hit) - 1] if hit else 0
+                self.hit_blocks += len(hit)
+                self.miss_blocks += len(hashes) - len(hit)
                 r.win_tokens = np.zeros((len(full) + self.prefill_chunk,), np.int32)
                 r.win_tokens[: len(full)] = full
                 self._lane_rows[r.slot] = r
@@ -380,6 +432,15 @@ class DecodePool:
     def _run_prefill_chunk(self, pre: list) -> None:
         """One [slots, prefill_chunk] forward over every prefilling lane."""
         P = self.prefill_chunk
+        # Copy-on-write first: a copy target can preempt a group in ``pre``.
+        for r in list(pre):
+            if r.slot < 0 or r.done:
+                continue
+            if not self._cow_for_write(r, r.pos, P):
+                self._fail_group(r.group, RuntimeError("paged pool exhausted"))
+        pre = [r for r in pre if r.slot >= 0 and not r.done]
+        if not pre:
+            return
         toks = np.zeros((self.slots, P), np.int64)
         self._h_idx[:] = self.max_len  # park every lane in the garbage block
         for r in pre:
@@ -399,6 +460,7 @@ class DecodePool:
                 # The column of the last prompt token holds the first
                 # generated token, exactly the monolithic prefill's.
                 r.emitted.append(int(nxt_host[r.slot, r.window - 1 - base]))
+            self._register_lane(r)
 
     def _grow(self, r: _PRow) -> bool:
         """Allocate the blocks the next decode chunk writes for ``r``,
@@ -424,7 +486,68 @@ class DecodePool:
             return None
         return max(victims.values(), key=lambda g: g.order)
 
-    def _release_lane(self, r: _PRow) -> None:
+    def _register_lane(self, r: _PRow) -> None:
+        """Register ``r``'s newly full blocks in the prefix cache. A block
+        is final once every position holds a token the request carries
+        (``r.pos`` is the written extent; positions past ``prompt +
+        emitted`` hold tokens past the budget, which nothing hashes)."""
+        if not self.prefix_cache:
+            return
+        bs = self.block_size
+        full_len = len(r.prompt) + len(r.emitted)
+        nfull = min(min(r.pos, full_len) // bs, len(r.blocks))
+        if nfull <= r.hashed:
+            return
+        full = r.prompt + r.emitted
+        h = r.chain_h
+        for j in range(r.hashed, nfull):
+            h = hash((h, tuple(full[j * bs : (j + 1) * bs])))
+            self._alloc.register(r.blocks[j], h)
+        r.chain_h = h
+        r.hashed = nfull
+
+    def _cow_for_write(self, r: _PRow, pos: int, span: int) -> bool:
+        """Make the blocks that a write of ``[pos, pos + span)`` touches
+        private: copy any block another lane shares into a fresh one, and
+        un-register a cached block this lane alone holds before it is
+        overwritten. False when no copy target can be had."""
+        if not self.prefix_cache:
+            return True
+        bs = self.block_size
+        hi = min(pos + span, len(r.blocks) * bs)
+        for bi in range(pos // bs, -(-hi // bs)):
+            b = r.blocks[bi]
+            if self._alloc.is_shared(b):
+                nb = self._alloc.alloc()
+                while nb is None:
+                    victim = self._pick_victim(exclude=r.group)
+                    if victim is None:
+                        return False
+                    self._preempt(victim)
+                    nb = self._alloc.alloc()
+                copy_blocks(self._cache, [b], [nb], bs)
+                self._alloc.release(b)
+                r.blocks[bi] = nb
+                self._h_table[r.slot, bi] = nb
+                self.cow_copies += 1
+            elif self._alloc.is_registered(b):
+                # The lane's own cached block. Recomputing the final prompt
+                # token of a capped hit rewrites the same K/V (the chain
+                # hash covers that token), so the block stays registered;
+                # any other overwrite would diverge from its hash.
+                full_len = len(r.prompt) + len(r.emitted)
+                identical = pos == full_len - 1 and bi == pos // bs and bi < r.hashed
+                if not identical:
+                    self._alloc.forget(b)
+        return True
+
+    def _release_lane(self, r: _PRow, *, register: bool) -> None:
+        """Return the lane and its blocks; ``register`` (preemption) hashes
+        its full blocks first, so the resume finds them cached. Blocks go
+        back tail first: the LRU evicts oldest first, and a chain is
+        useless without its head."""
+        if register:
+            self._register_lane(r)
         for b in reversed(r.blocks):
             self._alloc.release(b)
         self._h_table[r.slot, :] = self.num_blocks
@@ -432,13 +555,15 @@ class DecodePool:
         self._lane_rows.pop(r.slot, None)
         self._free_lanes.append(r.slot)
         r.slot, r.blocks, r.pos, r.window, r.win_tokens = -1, [], 0, 0, None
+        r.hashed = r.chain_h = 0
 
     def _preempt(self, group: _Group) -> None:
         """Free the group's lanes and blocks and park it at the head of the
-        queue; it resumes by recompute with its emitted tokens."""
+        queue; it resumes by recompute with its emitted tokens (from the
+        cached prefix, with the prefix cache on)."""
         for r in list(group.rows.values()):
             if r.slot >= 0 and not r.done:
-                self._release_lane(r)
+                self._release_lane(r, register=True)
         self._waiting.insert(0, group)
         with self._submit_lock:
             self._backlog += 1
@@ -454,6 +579,12 @@ class DecodePool:
                 # always grows; fail loudly rather than wedge the loop.
                 self._fail_group(r.group, RuntimeError("paged pool exhausted"))
         live = [r for r in dec if r.slot >= 0 and not r.done]
+        for r in list(live):
+            # Decode writes land past the hit by construction, but a shared
+            # block in the write range must never be written.
+            if not self._cow_for_write(r, r.pos, K):
+                self._fail_group(r.group, RuntimeError("paged pool exhausted"))
+        live = [r for r in live if r.slot >= 0 and not r.done]
         if not live:
             return
         tok = np.zeros((self.slots,), np.int64)
@@ -478,11 +609,12 @@ class DecodePool:
                 r.emitted.append(int(t))
                 self.stats["decode_tokens"] += 1
             r.pos += K
+            self._register_lane(r)
 
     def _fail_group(self, group: _Group, exc: Exception) -> None:
         for r in list(group.rows.values()):
             if r.slot >= 0:
-                self._release_lane(r)
+                self._release_lane(r, register=False)
         if not group.fut.done():
             group.fut.set_exception(exc)
 
@@ -503,7 +635,9 @@ class DecodePool:
         for r in list(self._lane_rows.values()):
             if r.pos < r.window or not self._row_finished(r):
                 continue
-            self._release_lane(r)
+            # Its blocks were registered as chunks filled them, before
+            # _row_finished's EOS padding rewrote ``emitted``.
+            self._release_lane(r, register=False)
             group = r.group
             if all(pr.done for pr in group.rows.values()) and not group.fut.done():
                 group.fut.set_result([group.rows[i].emitted for i in range(len(group.prompts))])

@@ -271,8 +271,8 @@ class _WorkerStream:
             box["completion"] = self._await_broadcast(flight)
             log.info("round %d fragment %d: broadcast landed %.3f s after the snapshot",
                      flight["round"], flight["frag"], time.perf_counter() - flight["t0"])
-        except BaseException as e:  # re-raised by finish() on the loop's thread
-            box["error"] = e
+        except BaseException as e:  # hypha-lint: disable=swallowed-cancel
+            box["error"] = e  # thread-bridge: re-raised at finish()
 
     def _send(self, flight: dict, tag: FragmentTag) -> None:
         self.session.send_resource(

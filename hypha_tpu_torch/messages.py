@@ -8,9 +8,8 @@ form (``{"_t": class name, ...}`` for a dataclass, ``{"_e": enum name,
 keys, optional ``None`` fields omitted) are the JAX package's, and
 ``encode`` / ``decode`` put that form through the port's CBOR codec, so a
 message is the same bytes in both packages (``tests/test_torch_codec.py``).
-A message of a subsystem that is not ported (the serving router's load
-heartbeats, the fleet block plane, live weight follow, elastic
-membership) has no class here and does not decode.
+A message of a subsystem that is not ported (the fleet block plane, live
+weight follow, elastic membership) has no class here and does not decode.
 """
 
 from __future__ import annotations
@@ -32,9 +31,11 @@ __all__ = [
     "JobStatus", "Loss", "LRScheduler", "LRSchedulerKind", "ModelType", "Nesterov",
     "PriceRange", "Progress", "ProgressKind", "ProgressResponse", "ProgressResponseKind",
     "Receive", "Reference", "RenewLease", "RenewLeaseResponse", "RequestWorker",
-    "SchedulerHello", "Send", "ShardMap", "TrainExecutorConfig", "TransferStrategy",
+    "SchedulerHello", "Send", "ServeLoad", "ServeLoadAck", "ShardMap", "TrainExecutorConfig",
+    "TransferStrategy",
     "WorkerOffer", "WorkerSpec", "decode", "encode", "from_json_dict", "to_json_dict",
-    "PROTOCOL_API", "PROTOCOL_GENERATE", "PROTOCOL_HEALTH", "PROTOCOL_PROGRESS", "TOPIC_WORKER",
+    "PROTOCOL_API", "PROTOCOL_GENERATE", "PROTOCOL_HEALTH", "PROTOCOL_PROGRESS",
+    "PROTOCOL_SERVE", "TOPIC_WORKER",
     "CODEC_KEY", "TRAIN_EXECUTOR_NAME", "AGGREGATE_EXECUTOR_NAME", "INFER_EXECUTOR_NAME",
 ]
 
@@ -44,6 +45,8 @@ PROTOCOL_HEALTH = "/hypha-health/0.0.1"
 PROTOCOL_PROGRESS = "/hypha-progress/0.0.1"
 # The serving RPC (GenerateRequest -> GenerateResponse).
 PROTOCOL_GENERATE = "/hypha-generate/0.0.1"
+# The request router's load heartbeats (ServeLoad -> ServeLoadAck).
+PROTOCOL_SERVE = "/hypha-serve/0.0.1"
 # The gossip topic of the auction's RequestWorker ads.
 TOPIC_WORKER = "hypha/worker"
 
@@ -507,6 +510,38 @@ class GenerateResponse:
     retry_after_ms: float = 0.0
     weight_round: int | None = None
     weight_generation: int | None = None
+
+
+@_register
+@dataclass(slots=True)
+class ServeLoad:
+    """Serving worker -> request router heartbeat (``PROTOCOL_SERVE``): the
+    pool's admission headroom on the router's liveness signal. The first
+    one tells the router the backend is ready. The ``None`` fields belong
+    to subsystems the port does not run (live weight swap, the fleet
+    cache): a port backend leaves them unset, so they stay off the wire."""
+
+    job_id: str = ""
+    serve_name: str = ""
+    queue_depth: int = 0
+    free_blocks: int = 0
+    live_requests: int = 0
+    requests: int = 0  # served since job start
+    rejections: int = 0  # backpressure rejections since job start
+    weight_round: int | None = None
+    weight_generation: int | None = None
+    cache_digest: list | None = None
+
+
+@_register
+@dataclass(slots=True)
+class ServeLoadAck:
+    """The router's answer to a heartbeat; ``migrate_*`` (the KV migration
+    target) stays ``None`` in the port."""
+
+    ok: bool = True
+    migrate_peer: str | None = None
+    migrate_serve: str | None = None
 
 
 @_register

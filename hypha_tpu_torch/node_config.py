@@ -592,14 +592,9 @@ class JobSection:
         for name, value, label in (
             ("metrics_plane", self.metrics_plane, "telemetry"),
             ("slo_rules", self.slo_rules, "telemetry"),
-            ("serve_workers > 1", self.serve_workers > 1, "serving router"),
-            ("serve_queue_limit", self.serve_queue_limit, "serving router"),
-            ("serve_prefix_affinity", self.serve_prefix_affinity, "serving router"),
-            # Before the prefix cache, which the reference requires for both.
             ("serve_fleet_cache", self.serve_fleet_cache, "fleet cache and KV migration"),
             ("serve_kv_migration", self.serve_kv_migration, "fleet cache and KV migration"),
             ("serve_digest_k", self.serve_digest_k != 32, "fleet cache and KV migration"),
-            ("serve_prefix_cache", self.serve_prefix_cache, "prefix cache with copy_blocks"),
             ("serve_spec_ngram", self.serve_spec_ngram, "speculative decoding"),
             ("serve_spec_draft", self.serve_spec_draft, "speculative decoding"),
             ("serve_spec_layers", self.serve_spec_layers, "speculative decoding"),

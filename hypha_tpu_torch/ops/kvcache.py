@@ -31,11 +31,16 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["KVCache", "KV_QMAX"]
+__all__ = ["KVCache", "KV_QMAX", "copy_blocks"]
 
 # int8 KV rows: payload in [-127, 127], scale = maxabs / 127; zero or
 # non-finite rows store an all-zero payload with a zero scale.
 KV_QMAX = 127.0
+
+
+# The pool tensors a block copy moves: the K/V payloads and, in int8 mode,
+# their per-row scales, which are laid out row-parallel to the payloads.
+_POOL_LEAVES = ("k", "v", "k_scale", "v_scale")
 
 
 def _quantize_rows(x: torch.Tensor) -> tuple:
@@ -196,3 +201,26 @@ class KVCache:
         ck[:, o : o + S] = k
         cv[:, o : o + S] = v
         return ck, cv
+
+
+def copy_blocks(cache: KVCache, src, dst, block_size: int) -> KVCache:
+    """Copy whole physical blocks ``src -> dst`` in every layer's paged
+    pool tensors, scales included (copy-on-write: a lane about to write
+    into a block that other lanes share gets a private copy first). The
+    row variables are the pool host's and stay as they are. In place, on
+    the cache's device; returns ``cache``.
+
+    Counterpart of ``hypha_tpu/ops/kvcache.py`` ``copy_blocks``, which XLA
+    compiles from ``.at[rows].set``: an indexed copy, not a kernel."""
+    if cache.blocks <= 0:
+        raise ValueError("copy_blocks needs a paged KV cache")
+    dev = cache.k[0].device
+    offs = torch.arange(block_size, device=dev)
+    rows = {}
+    for name, ids in (("src", src), ("dst", dst)):
+        ids = torch.as_tensor(ids, dtype=torch.int64, device=dev).reshape(-1)
+        rows[name] = (ids[:, None] * block_size + offs[None, :]).reshape(-1)
+    for name in _POOL_LEAVES:
+        for leaf in getattr(cache, name) or ():
+            leaf[rows["dst"]] = leaf[rows["src"]]
+    return cache

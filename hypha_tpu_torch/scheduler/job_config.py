@@ -16,7 +16,10 @@ server, non-elastic path, with every wire codec (``delta_codec``,
 ``delta_dtype``) and every sync mode (``sync_mode``, ``num_fragments``):
 each option outside it is accepted only at its off value (``_NOT_PORTED``),
 and any other value raises ``NotImplementedError`` naming its ROADMAP.md
-label. Malformed values raise the reference's ``ValueError`` first.
+label. Malformed values raise the reference's ``ValueError`` first, with
+its texts: every cross-field check of the reference runs before the
+``_NOT_PORTED`` loop. A non-empty ``slo_rules`` raises under telemetry,
+whose rule parser is not ported.
 """
 
 from __future__ import annotations
@@ -26,23 +29,27 @@ from dataclasses import dataclass, field
 from ..compress import CODECS
 from ..messages import Adam, Loss, LRScheduler, Nesterov, PriceRange, _register
 from ..resources import Resources
-from ..stream import SYNC_MODES
+from ..stream import SYNC_MODES, effective_fragments
 
 __all__ = ["DiLoCoRounds", "JobResources", "DiLoCoJob", "CODECS", "SYNC_MODES"]
 
 _STREAMING = "sharded PS/FT/rejoin"
 
-# (field, the values the port runs, ROADMAP.md label of the rest).
+# (field, the values the port runs, ROADMAP.md label of the rest). An
+# option that the reference accepts only beside another (scheduler_recovery
+# needs ft and checkpoint_dir; reduce_tree_depth and broadcast_tree need
+# reduce_group_size) comes before it, so the refusal names the option the
+# job asked for.
 _NOT_PORTED = (
+    ("scheduler_recovery", (False,), "scheduler recovery"),
     ("ft", (None,), _STREAMING),
     ("checkpoint_dir", (None,), "checkpoint resume"),
     ("num_ps_shards", (1,), _STREAMING),
-    ("reduce_group_size", (0,), _STREAMING),
     ("reduce_tree_depth", (0, 1), _STREAMING),
     ("broadcast_tree", (False,), _STREAMING),
+    ("reduce_group_size", (0,), _STREAMING),
     ("adaptive_steps", (False,), _STREAMING),
     ("adaptive_codec", (False,), _STREAMING),
-    ("scheduler_recovery", (False,), "scheduler recovery"),
     ("metrics_plane", (False,), "telemetry"),
     ("slo_rules", ([],), "telemetry"),
     ("input_pipeline", (False,), "input_pipeline"),
@@ -143,10 +150,63 @@ class DiLoCoJob:
             raise ValueError("reduce_group_size must be >= 0 (0 = disabled)")
         if self.reduce_tree_depth < 0:
             raise ValueError("reduce_tree_depth must be >= 0 (0/1 = single level)")
+        if self.reduce_tree_depth >= 2 and self.reduce_group_size < 2:
+            raise ValueError(
+                "reduce_tree_depth >= 2 needs reduce_group_size >= 2 "
+                "(the tree is built from the reduce groups)"
+            )
+        if self.broadcast_tree and self.reduce_group_size < 2:
+            raise ValueError(
+                "broadcast_tree needs reduce_group_size >= 2 (the relays "
+                "ARE the reduce tree's reducers)"
+            )
+        if self.broadcast_tree and self.adaptive_codec:
+            raise ValueError(
+                "broadcast_tree is not supported with adaptive_codec "
+                "(per-peer broadcast wires cannot be relayed verbatim)"
+            )
+        if self.num_ps_shards > 1 and self.sync_mode == "overlap":
+            raise ValueError(
+                "num_ps_shards > 1 requires sync_mode blocking or stream "
+                "(use stream to combine compute overlap with sharding)"
+            )
+        if self.num_ps_shards > 1 and self.sync_mode == "stream":
+            frags = effective_fragments(self.sync_mode, self.num_fragments)
+            if self.num_ps_shards > frags:
+                raise ValueError(
+                    f"num_ps_shards={self.num_ps_shards} exceeds the "
+                    f"{frags} stream fragments; every shard must own at "
+                    "least one fragment"
+                )
         if self.ps_checkpoint_every_rounds < 1:
             raise ValueError("ps_checkpoint_every_rounds must be >= 1")
+        if self.adaptive_codec and self.sync_mode != "blocking":
+            raise ValueError(
+                "adaptive_codec requires sync_mode blocking "
+                "(adaptive_steps works with every sync mode)"
+            )
+        if self.adaptive_codec and self.num_ps_shards > 1:
+            raise ValueError(
+                "adaptive_codec is not supported with a sharded parameter "
+                "service yet"
+            )
+        if self.adaptive_codec and self.checkpoint_dir:
+            raise ValueError(
+                "adaptive_codec is not supported with checkpoint_dir "
+                "(durable PS) yet"
+            )
         if self.codec_bw_lo_mbps > self.codec_bw_hi_mbps:
             raise ValueError("codec_bw_lo_mbps must be <= codec_bw_hi_mbps")
+        if self.scheduler_recovery and not self.checkpoint_dir:
+            raise ValueError(
+                "scheduler_recovery needs a checkpoint_dir (the scheduler "
+                "journal lives there)"
+            )
+        if self.scheduler_recovery and not getattr(self.ft, "enabled", False):
+            raise ValueError(
+                "scheduler_recovery needs elastic membership (job.ft) — "
+                "re-adoption rides the same lease/quorum machinery"
+            )
         if self.metrics_interval_s <= 0:
             raise ValueError("metrics_interval_s must be positive")
         if self.prefetch_slices < 0:

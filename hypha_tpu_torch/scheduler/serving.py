@@ -1,50 +1,84 @@
-"""Scheduler-side serving plane: one deployment, kept alive (counterpart
-of ``hypha_tpu/scheduler/serving.py`` for ``num_workers=1`` without
-routing).
+"""Scheduler-side serving plane: N routed deployments, kept alive
+(counterpart of ``hypha_tpu/scheduler/serving.py``).
 
 The serving analog of the orchestrator's training supervision: auction a
 worker with the infer executor (``GreedyWorkerAllocator``), dispatch
 ``Executor(kind="infer")`` (``Task``, ``StatusRouter``), hold the lease
 through its renewal loop (``WorkerHandle``), and on a failure — a failed
-or cancelled job status, a lost lease — tear the deployment down,
-re-auction and re-dispatch (``redeployments`` counts them). The backend
-announces ``serve:<name>`` itself and clients reach it directly
-(``worker/infer_executor.py`` ``generate_remote``). ``stop`` ends the run;
-the teardown cancels the job on the worker and releases the lease.
+or cancelled job status, a lost lease, an ejection — tear the deployment
+down, re-auction and re-dispatch (``redeployments`` counts them). Each of
+the ``num_workers`` slots is deployed, failed and re-auctioned on its own.
 
-The dispatched config is the JAX supervisor's single-deployment wire:
-``load_report_s = 0`` and no additive field set. Everything that turns the
-JAX supervisor into a request router — ``num_workers > 1``, ``route``,
-``queue_limit``, ``prefix_affinity``, its φ-accrual ejector and the
-``ServeLoad`` heartbeats — raises naming **serving router**; the fleet
-cache and KV migration, the metrics plane and live weight swap raise
-naming theirs.
+``num_workers > 1`` (or ``route=True``) makes the supervisor a **request
+router**, as in the reference:
+
+* each deployment serves under a backend name ``<name>@<slot>``; the
+  supervisor announces ``serve:<name>`` once a backend exists and answers
+  ``/hypha-generate`` by forwarding to the least-loaded backend (queue
+  depth + in-flight requests, free KV blocks as the tiebreak), trying the
+  next one on a ``RequestError``;
+* backends heartbeat ``ServeLoad`` every ``LOAD_REPORT_S``; only a
+  backend that has sent one is routable, and fresh loads are preferred.
+  The heartbeats feed a φ-accrual detector (``ft/detector.py``): a
+  backend whose φ passes ``PHI_THRESHOLD`` after ``EJECT_GRACE_S`` of
+  silence is ejected, its lease handle failed with ``WorkerFailure(peer,
+  "phi-accrual ejection")``, and its slot re-auctioned. Lease renewals do
+  not feed φ;
+* ``queue_limit``: when every backend is at the line, the answer is
+  ``ok=False`` with ``retry_after_ms = 50 x (min depth - limit + 1)``;
+* ``prefix_affinity``: the backend that owns a prompt's first
+  ``AFFINITY_TOKENS`` ids (rendezvous hash over the backend names) goes to
+  the front, unless it is more than ``AFFINITY_SKEW`` requests deeper than
+  the best one. The owner is ``max(..., key=hash((key, name)))``, as in the
+  reference: Python salts string hashes per process, so the owner is
+  stable within one router process only.
+
+The reference's timing and affinity knobs are constants here, at the
+reference's defaults, which its CLI always uses. ``num_workers=1``
+without ``route`` dispatches the single-deployment wire
+(``load_report_s = 0``, the public name); the backend announces itself and
+clients reach it directly. The fleet cache and KV migration, the metrics
+plane and live weight swap raise naming their labels. Where the reference
+bumps its serving metrics, this class keeps plain counters (``routed``,
+``rejected``, ``affinity_routed``, ``redeployments``, ``ejections``) and
+logs them when it stops.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
+import json
 import logging
+import time
 import uuid
 from dataclasses import dataclass
 
 from .. import aio
+from ..ft.detector import PhiAccrualDetector
 from ..messages import (
     INFER_EXECUTOR_NAME,
     PROTOCOL_API,
+    PROTOCOL_GENERATE,
+    PROTOCOL_SERVE,
     CancelJob,
     Executor,
     ExecutorDescriptor,
+    GenerateRequest,
+    GenerateResponse,
     InferExecutorConfig,
     JobSpec,
     PriceRange,
+    ServeLoad,
+    ServeLoadAck,
     WorkerSpec,
 )
-from ..network.node import Node
+from ..network.node import Node, RequestError
 from ..resources import Resources
+from ..worker.infer_executor import serve_key
 from .allocator import GreedyWorkerAllocator
 from .task import StatusRouter, Task
-from .worker_handle import WorkerHandle
+from .worker_handle import WorkerFailure, WorkerHandle
 
 __all__ = ["ServingSupervisor"]
 
@@ -52,6 +86,16 @@ log = logging.getLogger("hypha.torch.scheduler.serving")
 
 AUCTION_TIMEOUT_S = 2.0  # how long one auction collects offers
 RETRY_PAUSE_S = 1.0  # between a failed or empty auction and the next
+LOAD_REPORT_S = 1.0  # a routed backend's heartbeat period
+PHI_THRESHOLD = 8.0  # the ejector's suspicion level
+EJECT_CHECK_S = 0.25  # between two ejection passes
+# φ alone fires on sub-second stalls at a fast heartbeat cadence; an
+# absolute silence is required too. The 5 s floor rides out a first pool
+# submit that holds the worker's event loop.
+EJECT_GRACE_S = max(10.0 * LOAD_REPORT_S, 5.0)
+AFFINITY_TOKENS = 64  # the prompt ids whose owner affinity looks up
+AFFINITY_SKEW = 4  # how much deeper than the best the owner may be
+REQUEST_TIMEOUT_S = 120.0  # one forwarded request
 
 
 def _refuse(option: str, label: str) -> None:
@@ -63,14 +107,20 @@ def _refuse(option: str, label: str) -> None:
 
 @dataclass
 class _Deployment:
+    slot: int
     handle: WorkerHandle
     task: Task
     job_id: str
+    backend_name: str
     status_wait: "asyncio.Task | None" = None
+    load: "ServeLoad | None" = None
+    load_at: float = 0.0
+    inflight: int = 0
 
 
 class ServingSupervisor:
-    """Keeps one serving deployment alive across worker failures."""
+    """Keeps ``num_workers`` serving deployments alive across worker
+    failures, routing requests across them when there is more than one."""
 
     def __init__(
         self,
@@ -102,14 +152,6 @@ class ServingSupervisor:
         metrics=None,
         serve_follow_rounds=None,
     ) -> None:
-        if int(num_workers) > 1:
-            _refuse("num_workers > 1", "serving router")
-        if route:
-            _refuse("route=True", "serving router")
-        if queue_limit:
-            _refuse("queue_limit", "serving router")
-        if prefix_affinity:
-            _refuse("prefix_affinity", "serving router")
         if fleet_cache or kv_migration:
             _refuse("fleet_cache / kv_migration", "fleet cache and KV migration")
         if report_metrics_s or metrics is not None:
@@ -118,6 +160,10 @@ class ServingSupervisor:
             _refuse("serve_follow_rounds", "live weight swap")
         self.node = node
         self.serve_name = serve_name
+        self.num_workers = max(int(num_workers), 1)
+        # Routing is on exactly when there is something to balance;
+        # num_workers=1 without route=True keeps the single-deployment wire.
+        self.route = (self.num_workers > 1) if route is None else bool(route)
         self._config = InferExecutorConfig(
             model=model,
             serve_name=serve_name,
@@ -132,68 +178,262 @@ class ServingSupervisor:
             pool_ragged=pool_ragged,
             pool_kv_quant=pool_kv_quant,
             pool_spec_layers=pool_spec_layers,
+            queue_limit=queue_limit,
             eos_token_id=eos_token_id,
-            # No router listens for ServeLoad heartbeats.
-            load_report_s=0.0,
+            load_report_s=LOAD_REPORT_S if self.route else 0.0,
         )
+        self.prefix_affinity = bool(prefix_affinity)
+        self.queue_limit = max(int(queue_limit), 0)
         self._resources = resources or Resources(gpu=1.0, memory=100.0)
         self._price = price or PriceRange(bid=1.0, max=10.0)
         self._allocator = GreedyWorkerAllocator(node)
         self._router = StatusRouter(node)
-        self._deployment: "_Deployment | None" = None
+        self._detector = PhiAccrualDetector(threshold=PHI_THRESHOLD)
+        self._deployments: "list[_Deployment | None]" = [None] * self.num_workers
+        self._regs: list = []
+        self._announced = False
         self._stop = asyncio.Event()
-        self.redeployments = 0  # failures recovered (observability/tests)
+        self.redeployments = 0  # failures recovered
+        self.ejections = 0  # φ-accrual ejections (a subset of the above)
+        self.routed = 0  # requests a backend answered through the router
+        self.rejected = 0  # queue_limit rejections with retry-after
+        self.affinity_routed = 0  # requests sent to their prefix owner
+
+    # ------------------------------------------------------------------ run
 
     async def run(self) -> None:
         """Supervise until :meth:`stop`; returns after teardown."""
+        eject_task: "asyncio.Task | None" = None
+        if self.route:
+            self._regs.append(
+                self.node.on(PROTOCOL_SERVE, ServeLoad)
+                # Backends report under `<name>@<slot>`; dispatch is
+                # first-handler-wins, so without this match a second
+                # supervisor on the same node would take these heartbeats.
+                .match(lambda m: m.serve_name.split("@", 1)[0] == self.serve_name)
+                .respond_with(self._on_load)
+            )
+            self._regs.append(
+                self.node.on(PROTOCOL_GENERATE, GenerateRequest)
+                .match(lambda m: m.serve_name == self.serve_name)
+                .concurrency(64)
+                .respond_with(self._route_request)
+            )
+            eject_task = aio.spawn(self._eject_loop(), what="serving ejector", logger=log)
         try:
             while not self._stop.is_set():
-                if self._deployment is None:
-                    try:
-                        self._deployment = await self._deploy()
-                    except asyncio.CancelledError:
-                        raise
-                    except Exception as e:
-                        # A worker dying mid-acceptance (or any transient
-                        # dispatch error) must not kill the supervisor
-                        # whose whole job is elastic recovery.
-                        log.warning("deploy of %s failed (%s); retrying", self.serve_name, e)
-                if self._deployment is None:
+                await self._fill_slots()
+                if not any(d is not None for d in self._deployments):
                     await self._pause()
                     continue
-                dep = self._deployment
-                if dep.status_wait is None or dep.status_wait.done():
-                    dep.status_wait = aio.spawn(
-                        dep.task.next_status(), what="serving status waiter", logger=log
-                    )
+                if self.route and not self._announced:
+                    # Announce once a backend exists, so clients never
+                    # find a router with nothing behind it; retried each
+                    # pass until it lands.
+                    try:
+                        await self.node.provide(serve_key(self.serve_name))
+                        self._announced = True
+                    except RequestError as e:
+                        log.warning("router announce for %s failed: %s", self.serve_name, e)
                 stop_wait = aio.spawn(self._stop.wait(), what="serving stop waiter")
+                waiters: dict = {}
+                for dep in self._deployments:
+                    if dep is None:
+                        continue
+                    if dep.status_wait is None or dep.status_wait.done():
+                        dep.status_wait = aio.spawn(
+                            dep.task.next_status(), what="serving status waiter", logger=log
+                        )
+                    waiters[dep.status_wait] = dep
+                    waiters[dep.handle.failed] = dep
+                # An empty slot (or an unannounced router) retries on the
+                # pause cadence even while the healthy slots stay quiet.
+                needs_tick = any(d is None for d in self._deployments) or (
+                    self.route and not self._announced
+                )
                 done, _ = await asyncio.wait(
-                    {stop_wait, dep.status_wait, dep.handle.failed},
+                    {stop_wait, *waiters},
                     return_when=asyncio.FIRST_COMPLETED,
+                    timeout=RETRY_PAUSE_S if needs_tick else None,
                 )
                 stop_wait.cancel()
                 if self._stop.is_set():
                     return
-                if self._failed(dep, done):
-                    self.redeployments += 1
-                    await self._teardown(dep)
-                    self._deployment = None
+                for waiter in done:
+                    if waiter is stop_wait:
+                        continue
+                    dep = waiters.get(waiter)
+                    if dep is None or self._deployments[dep.slot] is not dep:
+                        continue
+                    if self._handle_event(dep, waiter):
+                        self.redeployments += 1
+                        await self._teardown(dep)
+                        self._deployments[dep.slot] = None
         finally:
-            await self._teardown(self._deployment)
-            self._deployment = None
+            await aio.reap(eject_task)
+            for dep in self._deployments:
+                if dep is not None:
+                    await self._teardown(dep)
+            self._deployments = [None] * self.num_workers
+            for reg in self._regs:
+                reg.close()
+            self._regs.clear()
+            if self._announced:
+                try:
+                    await self.node.unprovide(serve_key(self.serve_name))
+                except Exception:
+                    pass
+                self._announced = False
             self._router.close()
+            log.info("serving %s router: %s", self.serve_name, json.dumps(self.counters()))
 
     async def stop(self) -> None:
         self._stop.set()
 
-    def _failed(self, dep: _Deployment, done: set) -> bool:
+    def counters(self) -> dict:
+        """The plain counters the reference keeps as serving metrics."""
+        return {"routed": self.routed, "rejected": self.rejected,
+                "affinity_routed": self.affinity_routed,
+                "redeployments": self.redeployments, "ejections": self.ejections}
+
+    # ------------------------------------------------------------- routing
+
+    def _live_backends(self) -> list:
+        return [d for d in self._deployments if d is not None]
+
+    def _score(self, dep: _Deployment) -> tuple:
+        """Lower is better: queued + in-flight work, then the most free
+        blocks. Only called on backends whose ``load`` is set."""
+        return (dep.load.queue_depth + dep.inflight, -dep.load.free_blocks)
+
+    def _apply_affinity(self, backends: list, req: GenerateRequest) -> list:
+        """Move the backend that owns this prompt's prefix to the front of
+        the least-loaded order, unless it is more than ``AFFINITY_SKEW``
+        requests deeper than the best one (the fleet cache's directory
+        owner, which the reference tries first, is not ported)."""
+        if len(backends) < 2 or not req.prompts or not self.prefix_affinity:
+            return backends
+        key = tuple(req.prompts[0][:AFFINITY_TOKENS])
+        owner = max(backends, key=lambda d: hash((key, d.backend_name)))
+        best = backends[0]  # already sorted by _score
+        depth = lambda d: d.load.queue_depth + d.inflight  # noqa: E731
+        if depth(owner) - depth(best) > AFFINITY_SKEW:
+            return backends
+        if owner is not best:
+            backends = [owner] + [d for d in backends if d is not owner]
+        self.affinity_routed += 1
+        return backends
+
+    async def _route_request(self, peer: str, req: GenerateRequest) -> GenerateResponse:
+        # Only a backend that has heartbeated is routable: a fresh job is
+        # still loading its model and has no handler yet.
+        reported = [d for d in self._live_backends() if d.load is not None]
+        # Prefer fresh loads: a backend whose reporter died keeps a frozen
+        # score; fall back to stale-but-live ones rather than fail.
+        now = time.monotonic()
+        fresh = [d for d in reported if now - d.load_at <= EJECT_GRACE_S]
+        backends = sorted(fresh or reported, key=self._score)
+        if not backends:
+            return GenerateResponse(tokens=[], ok=False, retry_after_ms=250.0)
+        backends = self._apply_affinity(backends, req)
+        if self.queue_limit:
+            depths = [d.load.queue_depth + d.inflight for d in backends]
+            if min(depths) >= self.queue_limit:
+                # Every backend is at the line: the hint grows with how
+                # deep the best one is.
+                self.rejected += 1
+                return GenerateResponse(
+                    tokens=[], ok=False,
+                    retry_after_ms=50.0 * (min(depths) - self.queue_limit + 1),
+                )
+        busy_hint = 0.0
+        last: "Exception | None" = None
+        for dep in backends:
+            fwd = dataclasses.replace(req, serve_name=dep.backend_name)
+            dep.inflight += 1
+            try:
+                resp = await self.node.request(
+                    dep.handle.peer_id, PROTOCOL_GENERATE, fwd, timeout=REQUEST_TIMEOUT_S
+                )
+            except RequestError as e:
+                last = e
+                continue
+            finally:
+                dep.inflight -= 1
+            if getattr(resp, "ok", True):
+                self.routed += 1
+                return resp
+            busy_hint = max(busy_hint, resp.retry_after_ms)
+        if busy_hint > 0.0:
+            return GenerateResponse(tokens=[], ok=False, retry_after_ms=busy_hint)
+        raise RequestError(
+            f"all {len(backends)} backends of {self.serve_name!r} failed: {last}"
+        )
+
+    async def _on_load(self, peer: str, load: ServeLoad) -> ServeLoadAck:
+        for dep in self._live_backends():
+            if dep.job_id == load.job_id and dep.handle.peer_id == peer:
+                dep.load = load
+                dep.load_at = time.monotonic()
+                self._detector.heartbeat(peer)
+                return ServeLoadAck(ok=True)
+        return ServeLoadAck(ok=False)  # a job already torn down
+
+    async def _eject_loop(self) -> None:
+        """Fail the lease handle of a backend whose heartbeats stopped; the
+        supervision loop then treats it as a worker death."""
+        while True:
+            await asyncio.sleep(EJECT_CHECK_S)
+            self._eject_pass()
+
+    def _eject_pass(self) -> None:
+        now = time.monotonic()
+        for dep in self._live_backends():
+            peer = dep.handle.peer_id
+            if dep.load is None:
+                # Still loading its model: no heartbeats to judge by; a
+                # death there fails the lease renewal instead.
+                continue
+            if now - dep.load_at < EJECT_GRACE_S:
+                continue
+            if not self._detector.suspected(peer):
+                continue
+            self.ejections += 1
+            self._detector.remove(peer)
+            log.warning("ejecting serving worker %s (phi over threshold %.1f)",
+                        peer, self._detector.threshold)
+            if not dep.handle.failed.done():
+                dep.handle.failed.set_result(WorkerFailure(peer, "phi-accrual ejection"))
+
+    # ------------------------------------------------------------------ impl
+
+    async def _fill_slots(self) -> None:
+        """Deploy into every empty slot."""
+        for slot in range(self.num_workers):
+            if self._deployments[slot] is not None or self._stop.is_set():
+                continue
+            try:
+                dep = await self._deploy(slot)
+            except asyncio.CancelledError:
+                raise
+            except Exception as e:
+                # A worker dying mid-acceptance (or any transient dispatch
+                # error) must not kill the supervisor whose whole job is
+                # elastic recovery.
+                log.warning("deploy of %s slot %d failed (%s); retrying",
+                            self.serve_name, slot, e)
+                dep = None
+            if dep is not None:
+                self._deployments[slot] = dep
+
+    def _handle_event(self, dep: _Deployment, waiter) -> bool:
         """True when the deployment must be torn down and replaced."""
-        if dep.handle.failed in done:
+        if waiter is dep.handle.failed:
             log.warning("serving worker %s failed (%s); redeploying",
                         dep.handle.peer_id, dep.handle.failed.result())
             return True
-        if dep.status_wait in done and not dep.status_wait.cancelled():
-            peer, status = dep.status_wait.result()
+        if waiter is dep.status_wait and not waiter.cancelled():
+            peer, status = waiter.result()
             if status.state == "running":
                 return False  # informational; keep watching
             log.warning("serving job %s reported %s on %s; redeploying",
@@ -201,21 +441,33 @@ class ServingSupervisor:
             return True
         return False
 
-    async def _deploy(self) -> "_Deployment | None":
+    def _backend_name(self, slot: int) -> str:
+        # Routed backends serve under an internal name, so clients only
+        # ever discover the router's serve:<name>.
+        return f"{self.serve_name}@{slot}" if self.route else self.serve_name
+
+    async def _deploy(self, slot: int) -> "_Deployment | None":
         spec = WorkerSpec(
             resources=self._resources,
             executor=[ExecutorDescriptor(executor_class="infer", name=INFER_EXECUTOR_NAME)],
         )
+        # Distinct peers first: ask for enough offers that an unused worker
+        # can outbid stacking a second replica on a taken one (same-peer
+        # still wins when nothing else offers).
+        taken = {d.handle.peer_id for d in self._live_backends()}
         offers = await self._allocator.request(
-            spec, self._price, timeout=AUCTION_TIMEOUT_S, num_workers=1
+            spec, self._price, timeout=AUCTION_TIMEOUT_S, num_workers=len(taken) + 1
         )
+        offers.sort(key=lambda o: o.peer_id in taken)
         if not offers:
-            log.info("no offers for serving %s; retrying", self.serve_name)
+            log.info("no offers for serving %s slot %d; retrying", self.serve_name, slot)
             return None
         handle = await WorkerHandle.create(self.node, offers[0])
+        backend = self._backend_name(slot)
+        config = dataclasses.replace(self._config, serve_name=backend)
         job = JobSpec(
-            job_id=f"serve-{self.serve_name}-0-{uuid.uuid4().hex[:8]}",
-            executor=Executor(kind="infer", name=INFER_EXECUTOR_NAME, infer=self._config),
+            job_id=f"serve-{self.serve_name}-{slot}-{uuid.uuid4().hex[:8]}",
+            executor=Executor(kind="infer", name=INFER_EXECUTOR_NAME, infer=config),
         )
         dispatched = False
         try:
@@ -230,9 +482,10 @@ class ServingSupervisor:
             # capacity leaks to a zombie lease on every retry.
             if not dispatched:
                 await handle.release()
-        log.info("serving %s deployed on %s (job %s)", self.serve_name, handle.peer_id,
-                 job.job_id)
-        return _Deployment(handle=handle, task=task, job_id=job.job_id)
+        log.info("serving %s slot %d deployed on %s (job %s)",
+                 self.serve_name, slot, handle.peer_id, job.job_id)
+        return _Deployment(slot=slot, handle=handle, task=task, job_id=job.job_id,
+                           backend_name=backend)
 
     async def _pause(self) -> None:
         try:
@@ -245,6 +498,7 @@ class ServingSupervisor:
             return
         if dep.status_wait is not None:
             dep.status_wait.cancel()
+        self._detector.remove(dep.handle.peer_id)
         dep.task.close()
         try:  # stop serving now; lease expiry backstops a dead worker
             await self.node.request(

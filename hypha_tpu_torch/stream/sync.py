@@ -54,13 +54,20 @@ def effective_fragments(sync_mode: str, fragments: int = 0) -> int:
 
 def placement_parts(sync_mode: str, fragments: int = 0, num_shards: int = 1) -> int:
     """How many parts the tree splits into on a single parameter server:
-    the sync mode's fragments. More shards raise (not ported)."""
+    the sync mode's fragments. Malformed arguments raise the reference's
+    ``ValueError`` first; more shards then raise (not ported)."""
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    if num_shards == 1 or sync_mode == "stream":
+        parts = effective_fragments(sync_mode, fragments)
+    elif sync_mode not in SYNC_MODES:
+        raise ValueError(f"sync_mode must be {'|'.join(SYNC_MODES)}, got {sync_mode!r}")
     if num_shards != 1:
         raise NotImplementedError(
             f"num_shards={num_shards}: the sharded parameter service is not ported to "
             "PyTorch yet (ROADMAP.md, Queue 1: sharded PS/FT/rejoin)"
         )
-    return effective_fragments(sync_mode, fragments)
+    return parts
 
 
 def merge_corrected(live: Mapping, snapshot: Mapping, update: Mapping) -> tuple:

@@ -45,13 +45,18 @@ class PoolServer:
         return self.pool.chunks
 
     def load(self) -> dict:
-        """Admission headroom, as the JAX server reports it on heartbeats."""
+        """Admission headroom, as the JAX server reports it on ``ServeLoad``
+        heartbeats. The weight stamps stay ``None`` (live weight swap is
+        not ported) and no ``cache_digest`` is sent (nor is the fleet
+        cache), so those fields stay off the wire."""
         return {
             "queue_depth": self.pool.queue_depth(),
             "free_blocks": self.pool.free_blocks(),
             "live_requests": self.pool.live_rows(),
             "requests": self.requests,
             "rejections": self.rejections,
+            "weight_round": None,
+            "weight_generation": None,
         }
 
     async def submit(

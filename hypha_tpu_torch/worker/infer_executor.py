@@ -8,12 +8,22 @@ its lease expires. Greedy requests go through the paged, ragged
 ``DecodePool`` (``scheduling`` "continuous"), the window batcher
 (``"window"``), or, with a negative window, independent one-shot decodes.
 
-When a job ends the executor logs one line, ``serve launches: {...}``:
-the ragged kernel's launches by route over the job's life, the plain
-attention calls, the pool's one-shot fallbacks and its requests, and on
-CUDA the peak device memory while serving (the load's peak and seconds
-are logged when the model is ready). ``chip_smoke.py`` reads them from the
-worker's output.
+Behind a request router (``load_report_s > 0``) the backend heartbeats
+``ServeLoad`` (queue depth, free KV blocks) to the scheduler peer that
+dispatched it, once its handler is registered: the first heartbeat tells
+the router it is ready. It serves under the router's backend name
+(``<name>@<slot>``) and announces that name, not the public one.
+
+Each time the backend goes idle, and when the job ends, the executor
+logs ``serve launches: {...}``: the ragged kernel's launches by route
+since the job started, the plain attention calls, the pool's one-shot
+fallbacks and its requests; then ``serve cache: {...}``: the pool's
+prefill and decode chunks, preemptions, prefix-cache hit and missed
+blocks, copy-on-writes, the blocks cached and shared at that moment, and
+backpressure rejections; and on CUDA the peak device memory while
+serving (the load's peak and seconds are logged when the model is
+ready). The last of each line holds the job's totals. ``chip_smoke.py``
+reads them from the worker's output.
 
 Clients: :func:`generate_remote` — find providers of ``serve:<name>``
 through the gateway registry, RPC the first reachable one.
@@ -34,11 +44,14 @@ from pathlib import Path
 
 import torch
 
+from .. import aio
 from ..executor.generate import generate
 from ..executor.pool import PoolBusy
 from ..executor.serialization import load_file
 from ..hw import default_device
-from ..messages import PROTOCOL_GENERATE, GenerateRequest, GenerateResponse, JobSpec
+from ..messages import (
+    PROTOCOL_GENERATE, PROTOCOL_SERVE, GenerateRequest, GenerateResponse, JobSpec, ServeLoad,
+)
 from ..models.convert import llama_params_from_flat
 from ..models.registry import build_model
 from ..network.node import Node, RequestError
@@ -118,8 +131,6 @@ def _refuse_unported(cfg) -> None:
         _refuse("pool_fleet_cache / pool_kv_migration", "fleet cache and KV migration")
     if cfg.report_metrics_s:
         _refuse("report_metrics_s", "telemetry")
-    if cfg.load_report_s > 0:
-        _refuse("load_report_s > 0 (ServeLoad heartbeats)", "serving router")
 
 
 def _attention_counts() -> dict:
@@ -168,7 +179,21 @@ class InProcessInferExecutor(JobExecutor):
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
 
+        busy = {"requests": 0}
+
         async def handle(peer: str, req: GenerateRequest) -> GenerateResponse:
+            busy["requests"] += 1
+            try:
+                return await answer(req)
+            finally:
+                busy["requests"] -= 1
+                if not busy["requests"]:
+                    # The counts so far each time the backend goes idle,
+                    # before the answer leaves: a worker that is killed
+                    # later still leaves them in its log.
+                    self._log_launches(job_id, counts0, loaded.get("batcher"))
+
+        async def answer(req: GenerateRequest) -> GenerateResponse:
             if len(req.prompts) > cfg.max_batch:
                 raise ValueError(f"{len(req.prompts)} prompts exceed max_batch {cfg.max_batch}")
             if not req.prompts or any(not p for p in req.prompts):
@@ -281,6 +306,13 @@ class InProcessInferExecutor(JobExecutor):
                 .concurrency(64 if "batcher" in loaded else 4)
                 .respond_with(handle)
             )
+            if cfg.load_report_s > 0 and scheduler_peer:
+                # Every scheduling mode heartbeats: the router takes the
+                # first ServeLoad as "ready", and the handler is in place.
+                loaded["reporter"] = aio.spawn(
+                    self._report_load(job_id, cfg, loaded.get("batcher"), scheduler_peer),
+                    what="serve load reporter", logger=log,
+                )
 
         loader = asyncio.create_task(bring_up())
 
@@ -289,6 +321,7 @@ class InProcessInferExecutor(JobExecutor):
             cancelled.set()
             if loaded.get("reg") is not None:
                 loaded["reg"].close()
+            await aio.reap(loaded.get("reporter"))
             batcher = self.batchers.pop(job_id, None)
             if batcher is not None:
                 batcher.close()
@@ -309,11 +342,54 @@ class InProcessInferExecutor(JobExecutor):
         execution.cancel = cancel  # type: ignore[method-assign]
         return execution
 
+    async def _report_load(self, job_id: str, cfg, batcher, scheduler_peer: str) -> None:
+        """Heartbeat the pool's admission headroom to the router: queue
+        depth and free blocks ride the liveness signal its φ-accrual
+        ejector reads. Best-effort: a refused or lost heartbeat is logged
+        and serving goes on."""
+        while True:
+            await asyncio.sleep(cfg.load_report_s)
+            if batcher is not None and hasattr(batcher, "load"):
+                stats = batcher.load()
+            else:
+                # Window batching and independent decodes have no pool
+                # headroom to report; the heartbeat still says "alive".
+                stats = {"queue_depth": 0, "free_blocks": 0, "live_requests": 0,
+                         "requests": getattr(batcher, "requests", 0), "rejections": 0}
+            try:
+                await self.node.request(
+                    scheduler_peer, PROTOCOL_SERVE,
+                    ServeLoad(
+                        job_id=job_id, serve_name=cfg.serve_name,
+                        queue_depth=int(stats["queue_depth"]),
+                        free_blocks=int(stats["free_blocks"]),
+                        live_requests=int(stats["live_requests"]),
+                        requests=int(stats["requests"]),
+                        rejections=int(stats["rejections"]),
+                        # None (live weight swap and the fleet cache are
+                        # not ported): left off the wire.
+                        weight_round=stats.get("weight_round"),
+                        weight_generation=stats.get("weight_generation"),
+                        cache_digest=stats.get("cache_digest"),
+                    ),
+                    timeout=max(cfg.load_report_s, 2.0),
+                )
+            except (RequestError, asyncio.TimeoutError, OSError) as e:
+                log.debug("serve load report for %s failed: %s", job_id, e)
+
     def _log_launches(self, job_id: str, counts0: dict, batcher) -> None:
         counts = {k: v - counts0[k] for k, v in _attention_counts().items()}
         counts["fallbacks"] = getattr(batcher, "fallbacks", 0)
         counts["requests"] = getattr(batcher, "requests", 0)
         log.info("job %s serve launches: %s", job_id, json.dumps(counts))
+        pool = getattr(batcher, "pool", None)
+        if pool is not None:
+            cache = {k: getattr(pool, k) for k in (
+                "prefill_chunks", "chunks", "preemptions", "hit_blocks", "miss_blocks",
+                "cow_copies")}
+            cache.update(cached_blocks=pool.cached_count(), shared_blocks=pool.shared_count(),
+                         rejections=batcher.rejections)
+            log.info("job %s serve cache: %s", job_id, json.dumps(cache))
         if self.device.type == "cuda":
             log.info("job %s peak device memory: %.3f GiB", job_id,
                      torch.cuda.max_memory_allocated(self.device) / 2**30)

@@ -82,7 +82,7 @@ class ProcessExecutor(JobExecutor):
                             status_retry_s=grace, progress_probe=probe)
             socket_path = await bridge.start()
         except BaseException:
-            shutil.rmtree(work_dir, ignore_errors=True)
+            await asyncio.to_thread(shutil.rmtree, work_dir, ignore_errors=True)
             raise
         subst = {
             "SOCKET_PATH": str(socket_path),

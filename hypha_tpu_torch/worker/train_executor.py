@@ -61,7 +61,7 @@ class InProcessTrainExecutor(JobExecutor):
                             status_retry_s=grace, progress_probe=probe)
             socket_path = await bridge.start()
         except BaseException:
-            shutil.rmtree(work_dir, ignore_errors=True)
+            await asyncio.to_thread(shutil.rmtree, work_dir, ignore_errors=True)
             raise
         stop_flag = threading.Event()
         runner = asyncio.create_task(

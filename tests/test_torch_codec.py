@@ -132,6 +132,18 @@ MESSAGES = {
                                                   round=v.i[1]),
     "ProgressResponse": lambda p, v: p.m.ProgressResponse(
         kind=p.m.ProgressResponseKind.SCHEDULE_UPDATE, counter=v.i[2]),
+    # The router's heartbeat as a port backend sends it (weight_* and
+    # cache_digest None, so off the wire), one with every field set, and
+    # the acks.
+    "ServeLoad": lambda p, v: p.m.ServeLoad(
+        job_id=v.s[2], serve_name=f"{v.s[5]}@1", queue_depth=v.i[0] % 9, free_blocks=v.i[1],
+        live_requests=v.i[2] % 8, requests=v.i[3], rejections=v.i[4] % 5),
+    "ServeLoad/additive": lambda p, v: p.m.ServeLoad(
+        job_id=v.s[2], serve_name=v.s[5], queue_depth=v.i[0], weight_round=v.i[1],
+        weight_generation=v.i[2], cache_digest=[[v.i[3], 2], [v.i[4], 1]]),
+    "ServeLoadAck": lambda p, v: p.m.ServeLoadAck(ok=bool(v.i[0] % 2)),
+    "ServeLoadAck/additive": lambda p, v: p.m.ServeLoadAck(migrate_peer=v.s[0],
+                                                           migrate_serve=v.s[5]),
 }
 
 
@@ -155,7 +167,7 @@ def test_every_port_message_class_is_registered_as_in_the_jax_package():
         fields = lambda cls: [f.name for f in cls.__dataclass_fields__.values()]  # noqa: E731
         assert fields(tmsg._REGISTRY[name]) == fields(jmsg._REGISTRY[name]), name
     for const in ("PROTOCOL_API", "PROTOCOL_HEALTH", "PROTOCOL_PROGRESS", "PROTOCOL_GENERATE",
-                  "TOPIC_WORKER",
+                  "PROTOCOL_SERVE", "TOPIC_WORKER",
                   "TRAIN_EXECUTOR_NAME", "AGGREGATE_EXECUTOR_NAME", "INFER_EXECUTOR_NAME"):
         assert getattr(tmsg, const) == getattr(jmsg, const), const
 
@@ -253,11 +265,16 @@ def test_oversized_frames_are_refused_alike():
 
 
 def test_unported_wire_tags_do_not_decode():
-    """The serving router's heartbeat and a live-weight follow do not
-    decode; an infer executor needs its config, as in the JAX package."""
+    """A live-weight follow and the fleet block plane do not decode; the
+    router's heartbeat does, with its unset fields off the wire; an infer
+    executor needs its config, as in the JAX package."""
     serve = jmsg.encode(jmsg.ServeLoad(job_id="j", queue_depth=3))
-    with pytest.raises(ValueError, match="ServeLoad"):
-        tmsg.decode(serve)
+    assert tmsg.decode(serve) == tmsg.ServeLoad(job_id="j", queue_depth=3)
+    assert b"weight_round" not in serve and b"cache_digest" not in serve
+    assert tmsg.encode(tmsg.ServeLoadAck()) == jmsg.encode(jmsg.ServeLoadAck())
+    assert b"migrate" not in tmsg.encode(tmsg.ServeLoadAck())
+    with pytest.raises(ValueError, match="BlockPull"):
+        tmsg.decode(jmsg.encode(jmsg.BlockPull(serve_name="s", chain_hashes=[1])))
     follow = jmsg.encode(jmsg.InferExecutorConfig(
         model={}, serve_name="s", serve_follow_rounds=jmsg.WeightFollow()))
     with pytest.raises(ValueError, match="WeightFollow"):

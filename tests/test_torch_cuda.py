@@ -8,6 +8,8 @@ nor the JAX package, so they run where JAX is not installed:
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -207,6 +209,104 @@ def test_decode_route_matches_plain(cuda, hq, hkv, bs, max_blocks, D, quant):
         torch.cuda.synchronize()
         assert torch.equal(got, again), f"poisoned blocks changed the output (window {window})"
     print(f"decode route max abs err {worst:.3e}")
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("sq,qoff", [(64, (320, 351)), (16, (330, 335)), (1, (351, 320))])
+def test_routes_over_shared_prefix_blocks(cuda, sq, qoff, quant):
+    """The prefix cache's inputs: two lanes map the same 20 physical blocks
+    first, and each chunk starts past or inside that cached prefix, at an
+    offset that is no multiple of the chunk. Every route equals the plain
+    version, and a lane's output does not depend on the other lane."""
+    from hypha_tpu_torch.ops.kvcache import _quantize_rows
+    from hypha_tpu_torch.ops.paged_attention import _launch
+
+    rng = np.random.default_rng(sq)
+    bs, max_blocks, hq, hkv, D = 16, 32, 32, 8, 128
+    blocks = 2 * max_blocks + 4
+    rows = (blocks + 1) * bs
+    k = torch.from_numpy(rng.standard_normal((rows, hkv, D)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((rows, hkv, D)).astype(np.float32))
+    ids = list(rng.permutation(blocks))
+    shared = [ids.pop() for _ in range(20)]
+    table = np.full((2, max_blocks), blocks, np.int32)
+    for lane, off in enumerate(qoff):
+        n = -(-(off + sq) // bs)
+        table[lane, :n] = shared + [ids.pop() for _ in range(n - 20)]
+    if quant:
+        (k, ks), (v, vs) = _quantize_rows(k), _quantize_rows(v)
+    else:
+        k, v, ks, vs = k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
+    kv = PagedKV(*(None if t is None else t.to(cuda) for t in (k, v, ks, vs)),
+                 torch.from_numpy(table).to(cuda))
+    q = torch.from_numpy(rng.standard_normal((2, sq, hq, D)).astype(np.float32))
+    q = q.to(torch.bfloat16).to(cuda)
+    kw = dict(blocks=blocks, block_size=bs, q_offset=torch.tensor(qoff, dtype=torch.int32,
+                                                                  device=cuda))
+    ref = ragged_block_attention(q, kv, **kw)
+    for route in ("mma", "simt") + (("decode",) if sq == 1 else ()):
+        out = _launch(q, kv, route, **kw)
+        assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16], route
+        if route == "decode":
+            continue  # its split count depends on the number of lanes
+        alone = _launch(q[:1], PagedKV(kv.k, kv.v, kv.k_scale, kv.v_scale, kv.table[:1]), route,
+                        blocks=blocks, block_size=bs, q_offset=kw["q_offset"][:1])
+        assert torch.equal(alone[0], out[0]), route
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_copy_blocks_on_the_card_equals_the_cpu(cuda, quant):
+    from hypha_tpu_torch.ops.kvcache import KVCache, copy_blocks
+
+    caches = {}
+    for dev in ("cpu", cuda):
+        torch.manual_seed(0)
+        c = KVCache(num_layers=2, batch=2, decode_len=64, num_kv_heads=2, head_dim=64,
+                    dtype=torch.bfloat16, device=dev, per_row=True, blocks=9, block_size=16,
+                    kv_quant="int8" if quant else "")
+        for name in ("k", "v", "k_scale", "v_scale"):
+            for leaf in getattr(c, name) or ():
+                leaf.copy_((torch.randn(leaf.shape) * 50).to(leaf.dtype))
+        copy_blocks(c, [1, 4, 7], torch.tensor([8, 0, 2]), 16)
+        caches[dev if dev == "cpu" else "cuda"] = c
+    for name in ("k", "v", "k_scale", "v_scale"):
+        for a, b in zip(getattr(caches["cpu"], name) or (), getattr(caches["cuda"], name) or ()):
+            assert b.is_cuda and torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("kv_quant", ["", "int8"])
+def test_prefix_cached_pool_on_the_card_answers_as_uncached(cuda, kv_quant):
+    """A tiny model's pool on the card with the prefix cache on gives the
+    uncached pool's tokens for requests that share a prefix cached by an
+    earlier one, in a pool small enough to preempt, and calls no plain
+    attention."""
+    from hypha_tpu_torch.executor.pool import DecodePool
+    from hypha_tpu_torch.worker.infer_executor import load_model
+
+    model = load_model({"family": "llama", "preset": "tiny", "config": TINY_CONFIG, "seed": 4},
+                       device="cuda")
+    shared = [(i * 7 + 3) % 250 + 1 for i in range(48)]
+    prompts = [shared + [5, 6], shared + [1] * 31, shared + [9] * 16, shared + [1] * 31,
+               shared[:40] + [2, 2, 2]]
+    n_new = [60, 20, 30, 20, 25]
+    out = {}
+    for cache in (True, False):
+        pool = DecodePool(model, slots=4, max_len=512, steps_per_call=8, block_size=16,
+                          num_blocks=24, reserve_blocks=0, ragged=True, kv_quant=kv_quant,
+                          prefix_cache=cache)
+        plain0 = paged_attention.plain_calls
+        try:
+            first = pool.submit([prompts[0]], n_new[0])
+            while pool.prefill_chunks < 1:
+                time.sleep(0.001)
+            futs = [first] + [pool.submit([p], n) for p, n in zip(prompts[1:], n_new[1:])]
+            out[cache] = ([f.result(timeout=300) for f in futs], pool.hit_blocks,
+                          pool.cow_copies, pool.preemptions)
+        finally:
+            pool.close()
+        assert paged_attention.plain_calls == plain0
+    assert out[True][0] == out[False][0]
+    assert out[True][1] > 0 and out[False][1] == 0
 
 
 @pytest.mark.parametrize("quant", [False, True])
@@ -897,6 +997,8 @@ def test_cli_serve_job_answers_through_the_ragged_kernel(cuda):
         pool.close()
     assert got == want
     assert not left
-    (lc,) = logs.json_after("serve launches: ")
+    # The worker logs its counts each time it goes idle and when the job
+    # ends; the last line holds the job's totals.
+    lc = logs.json_after("serve launches: ")[-1]
     assert lc["mma"] > 0 and lc["decode"] > 0 and lc["mma"] % 2 == 0 and lc["decode"] % 2 == 0, lc
     assert lc["plain"] == 0 and lc["fallbacks"] == 0 and lc["requests"] == len(prompts)

@@ -21,6 +21,11 @@
 5. The infer executor's and the supervisor's unported options raise with
    their labels; backpressure becomes ``ok=False``; the window and
    independent-decode modes answer as the pool does.
+6. The router: a mixed fleet (one JAX and one torch backend, prefix cache
+   on) behind the JAX router and behind the port's answers as the JAX
+   pool; a backend heartbeats ``ServeLoad``; the router's options build;
+   ``chip_smoke.run_serve_router`` (the smoke's ``serve_router`` phase: two
+   workers as processes, ``w1`` killed) on the CPU, held to its gates.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -47,6 +53,11 @@ from hypha_tpu.network import Node as JNode
 from hypha_tpu.network import TcpTransport as JTcp
 from hypha_tpu.resources import Resources as JResources
 from hypha_tpu.scheduler.serving import ServingSupervisor as JSupervisor
+from hypha_tpu.worker import Arbiter as JArbiter
+from hypha_tpu.worker import JobManager as JJobManager
+from hypha_tpu.worker import LeaseManager as JLeaseManager
+from hypha_tpu.worker import OfferConfig as JOfferConfig
+from hypha_tpu.worker import StaticResourceManager as JStaticResources
 from hypha_tpu.worker.infer_executor import InProcessInferExecutor as JInfer
 from hypha_tpu.worker.infer_executor import generate_remote as j_generate_remote
 from hypha_tpu_torch import cli
@@ -54,7 +65,8 @@ from hypha_tpu_torch import config as tcfg
 from hypha_tpu_torch.executor.pool import DecodePool
 from hypha_tpu_torch.gateway import Gateway
 from hypha_tpu_torch.messages import (
-    INFER_EXECUTOR_NAME, Executor, GenerateRequest, InferExecutorConfig, JobSpec,
+    INFER_EXECUTOR_NAME, PROTOCOL_SERVE, Executor, GenerateRequest, InferExecutorConfig, JobSpec,
+    ServeLoad, ServeLoadAck,
 )
 from hypha_tpu_torch.network import Node, TcpTransport
 from hypha_tpu_torch.node_config import DataNodeConfig, GatewayConfig, SchedulerConfig, WorkerConfig
@@ -387,7 +399,6 @@ def _infer_spec(**cfg) -> JobSpec:
     (dict(pool_fleet_cache=True), "fleet cache and KV migration"),
     (dict(pool_kv_migration=True), "fleet cache and KV migration"),
     (dict(report_metrics_s=1.0), "telemetry"),
-    (dict(load_report_s=1.0), "serving router"),
 ])
 def test_infer_executor_refuses_unported_options(option, label):
     async def main():
@@ -399,9 +410,75 @@ def test_infer_executor_refuses_unported_options(option, label):
     asyncio.run(main())
 
 
+def test_infer_executor_heartbeats_serve_load():
+    """``load_report_s > 0`` (refused until the router was ported): once its
+    handler is registered, the backend heartbeats ``ServeLoad`` under its
+    backend name to the peer that dispatched it; cancelling stops them."""
+    beats = []
+
+    async def main():
+        gw = Gateway(TcpTransport(), peer_id="gw")
+        await gw.start(LISTEN)
+        boot = [gw.node.listen_addrs[0]]
+        sched = Node(TcpTransport(), peer_id="sched", bootstrap=boot)
+        await sched.start(LISTEN)
+        node = Node(TcpTransport(), peer_id="w", bootstrap=boot)
+        await node.start(LISTEN)
+        await sched.wait_for_bootstrap()
+        await node.wait_for_bootstrap()
+
+        async def on_load(peer, load):
+            beats.append((peer, load, time.monotonic()))
+            return ServeLoadAck(ok=True)
+
+        sched.on(PROTOCOL_SERVE, ServeLoad).respond_with(on_load)
+        ex = InProcessInferExecutor(node, torch.device("cpu"))
+        try:
+            execution = await ex.execute(
+                "j", _infer_spec(serve_name="t@1", load_report_s=0.2, pool_prefix_cache=True),
+                "sched")
+            for _ in range(600):
+                if len(beats) >= 3:
+                    break
+                await asyncio.sleep(0.05)
+            batcher = ex.batchers["j"]
+            await execution.cancel()
+            n = len(beats)
+            await asyncio.sleep(0.5)
+            return batcher, n
+        finally:
+            await node.stop()
+            await sched.stop()
+            await gw.stop()
+
+    batcher, n = asyncio.run(main())
+    assert n >= 3 and len(beats) == n  # no heartbeat after the cancel
+    peer, load, _ = beats[0]
+    assert peer == "w" and load.job_id == "j" and load.serve_name == "t@1"
+    assert load.free_blocks == batcher.pool.num_blocks and load.queue_depth == 0
+    assert load.weight_round is None and load.cache_digest is None
+    assert batcher.pool.prefix_cache
+
+
+@pytest.mark.parametrize("option", [dict(num_workers=2), dict(route=True), dict(queue_limit=4),
+                                    dict(prefix_affinity=True)])
+def test_serving_supervisor_takes_the_router_options(option):
+    """The router's options (refused until it was ported) build a router:
+    backend names ``<name>@<slot>`` and heartbeats once routing is on."""
+    async def main():
+        return ServingSupervisor(Node(TcpTransport(), peer_id="s"), {}, "t", **option)
+
+    sup = asyncio.run(main())
+    routed = "num_workers" in option or "route" in option
+    assert sup.route is routed
+    assert sup._backend_name(1) == ("t@1" if routed else "t")
+    assert sup._config.load_report_s == (1.0 if routed else 0.0)
+    assert sup.queue_limit == option.get("queue_limit", 0)
+    assert sup._config.queue_limit == option.get("queue_limit", 0)
+    assert sup.prefix_affinity is option.get("prefix_affinity", False)
+
+
 @pytest.mark.parametrize("option,label", [
-    (dict(num_workers=2), "serving router"), (dict(route=True), "serving router"),
-    (dict(queue_limit=4), "serving router"), (dict(prefix_affinity=True), "serving router"),
     (dict(fleet_cache=True), "fleet cache and KV migration"),
     (dict(kv_migration=True), "fleet cache and KV migration"),
     (dict(report_metrics_s=1.0), "telemetry"), (dict(metrics=object()), "telemetry"),
@@ -413,6 +490,135 @@ def test_serving_supervisor_refuses_unported_options(option, label):
             ServingSupervisor(Node(TcpTransport(), peer_id="s"), {}, "t", **option)
 
     asyncio.run(main())
+
+
+async def _jax_infer_worker(boot: list, name: str):
+    """A JAX serving worker assembled as the JAX package's router tests do
+    (its ``WorkerNode`` has no infer executor), selling gpu."""
+    node = JNode(JTcp(), peer_id=name, bootstrap=boot)
+    await node.start(LISTEN)
+    await node.wait_for_bootstrap()
+    lm = JLeaseManager(JStaticResources(JResources(gpu=2, cpu=8, memory=1000)))
+    ex = JInfer(node)
+    jm = JJobManager(node, {("infer", INFER_EXECUTOR_NAME): ex})
+    arb = JArbiter(node, lm, jm, offer=JOfferConfig(price=1.0, floor=0.0))
+    await arb.start()
+    return node, arb, ex
+
+
+FLEET_PROMPTS = [p + t for p in ([5, 9, 2, 7] * 5, [8, 1, 3] * 6) for t in ([4], [6, 2, 2], [7] * 9)]
+FLEET_NEW = [8, 12, 6, 10, 9, 7]
+
+
+def test_mixed_fleet_behind_either_router(weights, root):
+    """One JAX and one torch backend (prefix cache on, f32 weights from one
+    flat SafeTensors file) behind the JAX router with ``num_workers=2``,
+    and behind the port's router at the same time: each router places one
+    backend on each worker, both backends serve, and every answer equals
+    the JAX pool's."""
+    spec, _ = weights
+    jm, params = JInfer._load_model(None, dict(spec))
+    pool = JPool(jm, params, **POOL)
+    try:
+        want = [pool.submit([p], n).result(timeout=300)
+                for p, n in zip(FLEET_PROMPTS * 2, FLEET_NEW * 2)]
+    finally:
+        pool.close()
+    serve = dict(SERVE, num_workers=2, pool_prefix_cache=True, queue_limit=3,
+                 prefix_affinity=True)
+
+    async def main():
+        gw = Gateway(TcpTransport(), peer_id="gw")
+        await gw.start(LISTEN)
+        boot = [gw.node.listen_addrs[0]]
+        jnode, jarb, jex = await _jax_infer_worker(boot, "wjax")
+        worker = WorkerNode(TcpTransport(), resources=Resources(gpu=2, cpu=8, memory=1000),
+                            device="cpu", peer_id="wtorch", bootstrap=boot, work_root=root)
+        jsched = JNode(JTcp(), peer_id="jsched", bootstrap=boot)
+        tsched = Node(TcpTransport(), peer_id="tsched", bootstrap=boot)
+        started, runners, sups = [], [], []
+        try:
+            for part in (worker, jsched, tsched):
+                await part.start(LISTEN)
+                started.append(part)
+            await jsched.wait_for_bootstrap()
+            await tsched.wait_for_bootstrap()
+            sups = [JSupervisor(jsched, spec, "jmix", resources=JResources(gpu=1.0, memory=100.0),
+                                **serve),
+                    ServingSupervisor(tsched, spec, "tmix", **serve)]
+            runners = [asyncio.create_task(sup.run()) for sup in sups]
+            client = await _client(boot)
+            got = {}
+            try:
+                for sup, name in zip(sups, ("jmix", "tmix")):
+                    for _ in range(1200):  # both backends of this router heartbeated
+                        deps = [d for d in sup._deployments if d is not None]
+                        if len(deps) == 2 and all(d.load is not None for d in deps):
+                            break
+                        await asyncio.sleep(0.05)
+                    got[name] = list(await asyncio.gather(*(
+                        generate_remote(client, name, [p], n, timeout=120)
+                        for p, n in zip(FLEET_PROMPTS * 2, FLEET_NEW * 2))))
+                placed = {name: sorted(d.handle.peer_id for d in sup._deployments)
+                          for sup, name in zip(sups, ("jmix", "tmix"))}
+                served = {"wjax": sorted(b.pool.requests for b in jex.batchers.values()),
+                          "wtorch": sorted(
+                              b.pool.requests for b in worker.job_manager.executors[
+                                  ("infer", INFER_EXECUTOR_NAME)].batchers.values())}
+                counters = sups[1].counters()
+            finally:
+                await client.stop()
+                for sup in sups:
+                    await sup.stop()
+                for r in runners:
+                    await asyncio.wait_for(r, 30)
+            return got, placed, served, counters
+        finally:
+            for part in reversed(started):
+                await part.stop()
+            await jarb.stop()
+            await jnode.stop()
+            await gw.stop()
+
+    got, placed, served, counters = asyncio.run(main())
+    assert got["jmix"] == want and got["tmix"] == want
+    assert placed == {"jmix": ["wjax", "wtorch"], "tmix": ["wjax", "wtorch"]}
+    assert all(len(v) == 2 and min(v) > 0 for v in served.values()), served
+    assert counters["routed"] == len(want) and counters["affinity_routed"] > 0
+
+
+ROUTER_PROMPTS = [fam + tail for fam in ([(i * 7 + 3) % 200 + 1 for i in range(32)],
+                                         [(i * 5 + 11) % 200 + 1 for i in range(32)])
+                  for tail in ([4, 4], [9] * 16, [3, 1, 4, 1, 5], [8] * 11)]
+ROUTER_NEW = [12, 10, 8, 14, 9, 12, 10, 8]
+
+
+def test_serve_router_as_processes(tmp_path, root):
+    """``chip_smoke.run_serve_router`` on the CPU: a gateway, two workers
+    (``--device cpu``) and a scheduler whose serve job routes (two workers,
+    prefix cache and affinity, queue limit 4), held to the smoke's gates;
+    ``w1`` is killed and its slot fails."""
+    job = {"job.kind": "serve", "job.serve_name": "tiny", "job.model_family": "llama",
+           "job.model_preset": "tiny", "job.model_type": "causal-lm", "job.model_seed": 2,
+           "job.model_config": {"max_seq_len": 512}, "job.serve_max_batch": 4,
+           "job.serve_block_size": 16, "job.serve_ragged": True,
+           "job.serve_max_new_tokens": 32, "job.serve_workers": 2,
+           "job.serve_prefix_cache": True, "job.serve_prefix_affinity": True,
+           "job.serve_queue_limit": 4}
+    model = {"family": "llama", "preset": "tiny", "seed": 2, "config": {"max_seq_len": 512}}
+    want = [a[0] for a in _pool_answers(model, ROUTER_PROMPTS, ROUTER_NEW,
+                                        dict(slots=4, max_len=512, block_size=16, ragged=True,
+                                             prefix_cache=True))]
+    run = asyncio.run(chip_smoke.run_serve_router(root, job, ROUTER_PROMPTS, ROUTER_NEW,
+                                                  device="cpu"))
+    problems = chip_smoke.serve_router_problems(run, want=want, n_new=ROUTER_NEW, layers=2,
+                                                device="cpu")
+    assert not problems, (problems, {r: Path(p).read_text()[-3000:]
+                                     for r, p in run["logs"].items()})
+    assert run["slot_failed_by"] in ("lease", "phi-accrual ejection")
+    assert 0 < run["slot_failed_s"] < 60 and run["bring_up_s"] > 0
+    assert run["router"]["routed"] >= len(ROUTER_PROMPTS) + 8
+    assert run["exits"]["w1"] == -9 and run["bring_up_device_mem_mib"] is None
 
 
 @pytest.mark.parametrize("mode", [dict(scheduling="window"), dict(batch_window_ms=-1.0),

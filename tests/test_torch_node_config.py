@@ -219,12 +219,6 @@ UNPORTED = {
     "slo rules": ("scheduler", {**SERVE, "job.slo_rules": ["round_wall_s <= 30"]}, "telemetry"),
     "multihost": ("worker", {"multihost.coordinator_address": "10.0.0.1:1234",
                              "multihost.num_processes": 2}, "Parallel and long context"),
-    "serve workers": ("scheduler", {**SERVE, "job.serve_workers": 2}, "serving router"),
-    "queue limit": ("scheduler", {**SERVE, "job.serve_queue_limit": 4}, "serving router"),
-    "prefix affinity": ("scheduler", {**SERVE, "job.serve_prefix_affinity": True},
-                        "serving router"),
-    "prefix cache": ("scheduler", {**SERVE, "job.serve_prefix_cache": True},
-                     "prefix cache with copy_blocks"),
     "fleet cache": ("scheduler", {**SERVE, "job.serve_prefix_cache": True,
                                   "job.serve_fleet_cache": True}, "fleet cache and KV migration"),
     "kv migration": ("scheduler", {**SERVE, "job.serve_prefix_cache": True,
@@ -260,6 +254,52 @@ def test_unported_option_raises_with_its_label(case, tmp_path):
     tbuilt = tcfg.builder(getattr(tnc, SCHEMA[role])).with_overrides(over).build()
     with pytest.raises(NotImplementedError, match=label):
         tbuilt.validate()
+
+
+# The router and prefix-cache keys, refused until they were ported.
+ROUTED = {
+    "serve workers": {"job.serve_workers": 2},
+    "queue limit": {"job.serve_queue_limit": 4},
+    "prefix affinity": {"job.serve_prefix_affinity": True},
+    "prefix cache": {"job.serve_prefix_cache": True},
+    "routed deployment": {"job.serve_workers": 2, "job.serve_queue_limit": 4,
+                          "job.serve_prefix_affinity": True, "job.serve_prefix_cache": True},
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTED))
+def test_router_and_prefix_cache_keys_reach_the_supervisor(case):
+    """Each key validates and reaches the serving supervisor as the JAX
+    CLI hands it over: the same slots, routing, queue limit and affinity,
+    and the same dispatched executor config bytes."""
+    from hypha_tpu import messages as jmsg
+    from hypha_tpu.network import MemoryTransport as JMemory
+    from hypha_tpu.network import Node as JNode
+    from hypha_tpu.scheduler.serving import ServingSupervisor as JSupervisor
+    from hypha_tpu_torch import messages as tmsg
+    from hypha_tpu_torch.network import MemoryTransport, Node
+    from hypha_tpu_torch.scheduler.serving import ServingSupervisor
+
+    over = {**SERVE, **ROUTED[case], "job.worker_tpu": 0.0}
+    sups = {}
+    for name, cfg, nc, sup_cls, node in (
+            ("jax", jcfg, jnc, JSupervisor, JNode(JMemory().shared(), peer_id="s")),
+            ("port", tcfg, tnc, ServingSupervisor, Node(MemoryTransport().shared(),
+                                                        peer_id="s"))):
+        job = cfg.builder(nc.SchedulerConfig).with_overrides(over).build().validate().value.job
+        sups[name] = sup_cls(
+            node, job.to_model_spec(), job.serve_name, max_new_tokens=job.serve_max_new_tokens,
+            max_batch=job.serve_max_batch, num_workers=job.serve_workers,
+            queue_limit=job.serve_queue_limit, pool_block_size=job.serve_block_size,
+            pool_prefix_cache=job.serve_prefix_cache, prefix_affinity=job.serve_prefix_affinity)
+    for key in ("num_workers", "route", "queue_limit", "prefix_affinity"):
+        assert getattr(sups["port"], key) == getattr(sups["jax"], key), key
+    assert tmsg.encode(sups["port"]._config) == jmsg.encode(sups["jax"]._config)
+    want, port = ROUTED[case], sups["port"]
+    assert port.num_workers == want.get("job.serve_workers", 1)
+    assert port.queue_limit == want.get("job.serve_queue_limit", 0)
+    assert port.prefix_affinity == want.get("job.serve_prefix_affinity", False)
+    assert port._config.pool_prefix_cache == want.get("job.serve_prefix_cache", False)
 
 
 @pytest.mark.parametrize("over", [

@@ -117,7 +117,7 @@ def test_pool_rejects_what_it_cannot_serve(pair):
         pool.close()
 
 
-@pytest.mark.parametrize("option", [dict(block_size=0), dict(prefix_cache=True),
+@pytest.mark.parametrize("option", [dict(block_size=0),
                                     dict(spec_ngram=3), dict(spec_layers=1),
                                     dict(spec_draft=4), dict(draft_params={"w": 0}),
                                     dict(fleet_cache=True), dict(kv_migration=True),
@@ -139,6 +139,26 @@ def test_unported_options_raise(pair, option):
         return
     with pytest.raises(NotImplementedError, match=label):
         DecodePool(tm, **{**POOL, **option})
+
+
+def test_prefix_cache_option_runs(pair):
+    """``prefix_cache=True`` (refused until the prefix cache was ported)
+    serves through ``PoolServer``: a repeat maps the cached blocks and
+    answers as one-shot ``generate``."""
+    _, _, tm = pair
+
+    async def run():
+        server = PoolServer(tm, None, prefix_cache=True, **dict(POOL, num_blocks=16))
+        try:
+            first = await server.submit([PROMPTS[3]], 6, 0.0, None, 0)
+            again = await server.submit([PROMPTS[3]], 6, 0.0, None, 0)
+            return server.pool, first, again
+        finally:
+            server.close()
+
+    pool, first, again = asyncio.run(run())
+    assert first == again == [generate(tm, [PROMPTS[3]], 6)[0].tolist()]
+    assert pool.prefix_cache and pool.hit_blocks == 2 and pool.miss_blocks == 2
 
 
 def test_inert_reference_options_are_accepted(pair):

@@ -626,17 +626,20 @@ def test_stream_and_codec_options_dispatch_as_the_jax_wire(option):
     assert train.delta_dtype == over.get("delta_dtype", "float32")
 
 
-# Each option outside the port's path, set to a value the reference accepts.
+# Each option outside the port's path, set to a value the reference
+# accepts, with the other fields the reference needs beside it.
+_FT_ON = SimpleNamespace(enabled=True)
 UNPORTED = {
     "ft": ({"quorum_fraction": 0.75}, "sharded PS/FT/rejoin"),
     "checkpoint_dir": ("/ckpt", "checkpoint resume"),
     "num_ps_shards": (2, "sharded PS/FT/rejoin"),
     "reduce_group_size": (2, "sharded PS/FT/rejoin"),
-    "reduce_tree_depth": (2, "sharded PS/FT/rejoin"),
-    "broadcast_tree": (True, "sharded PS/FT/rejoin"),
+    "reduce_tree_depth": (2, "sharded PS/FT/rejoin", {"reduce_group_size": 2}),
+    "broadcast_tree": (True, "sharded PS/FT/rejoin", {"reduce_group_size": 2}),
     "adaptive_steps": (True, "sharded PS/FT/rejoin"),
     "adaptive_codec": (True, "sharded PS/FT/rejoin"),
-    "scheduler_recovery": (True, "scheduler recovery"),
+    "scheduler_recovery": (True, "scheduler recovery",
+                           {"checkpoint_dir": "/ckpt", "ft": _FT_ON}),
     "metrics_plane": (True, "telemetry"),
     "slo_rules": (["round_wall_s <= 30"], "telemetry"),
     "input_pipeline": (True, "input_pipeline"),
@@ -648,9 +651,12 @@ UNPORTED = {
 
 @pytest.mark.parametrize("option", sorted(UNPORTED))
 def test_unported_job_option_raises_with_its_label(option):
-    value, label = UNPORTED[option]
+    value, label, *extra = UNPORTED[option]
+    kw = {option: value, **(extra[0] if extra else {})}
+    if option != "slo_rules":  # the reference parses rules with its telemetry
+        jjob.DiLoCoJob(model={}, dataset="d", **kw)
     with pytest.raises(NotImplementedError, match=f"{option}=.*ROADMAP.md, Queue 1: {label}"):
-        tjob.DiLoCoJob(model={}, dataset="d", **{option: value})
+        tjob.DiLoCoJob(model={}, dataset="d", **kw)
 
 
 def test_every_unported_option_has_a_case_and_its_off_value_runs():
@@ -668,6 +674,47 @@ def test_malformed_job_raises_value_error_in_both(bad):
     for pkg in PKG:
         with pytest.raises(ValueError):
             PKG[pkg].job.DiLoCoJob(model={}, dataset="d", **bad)
+
+
+# Jobs the reference refuses for a cross-field reason: the port raises the
+# same ValueError, not "not ported".
+CROSS_FIELD = {
+    "tree without groups": {"reduce_tree_depth": 2},
+    "broadcast tree alone": {"broadcast_tree": True},
+    "broadcast tree, adaptive codec": {"broadcast_tree": True, "reduce_group_size": 2,
+                                       "adaptive_codec": True},
+    "recovery alone": {"scheduler_recovery": True},
+    "recovery without ft": {"scheduler_recovery": True, "checkpoint_dir": "/ckpt"},
+    "adaptive codec, stream": {"adaptive_codec": True, "sync_mode": "stream"},
+    "adaptive codec, shards": {"adaptive_codec": True, "num_ps_shards": 2},
+    "adaptive codec, checkpoint": {"adaptive_codec": True, "checkpoint_dir": "/ckpt"},
+    "shards, overlap": {"num_ps_shards": 2, "sync_mode": "overlap"},
+    "shards over fragments": {"num_ps_shards": 8, "sync_mode": "stream", "num_fragments": 4},
+}
+
+
+@pytest.mark.parametrize("case", sorted(CROSS_FIELD))
+def test_cross_field_job_raises_the_reference_error(case):
+    raised = {}
+    for pkg in PKG:
+        with pytest.raises(Exception) as info:
+            PKG[pkg].job.DiLoCoJob(model={}, dataset="d", **CROSS_FIELD[case])
+        raised[pkg] = (type(info.value), str(info.value))
+    assert raised["port"] == raised["jax"]
+    assert raised["jax"][0] is ValueError
+
+
+@pytest.mark.parametrize("args", [("blocking", 0, 0), ("eager", 0, 2), ("stream", -1, 2),
+                                  ("stream", 0, -3)])
+def test_placement_parts_raises_the_reference_error(args):
+    from hypha_tpu_torch.stream import placement_parts as t_parts
+
+    raised = {}
+    for name, fn in (("jax", placement_parts), ("port", t_parts)):
+        with pytest.raises(Exception) as info:
+            fn(*args)
+        raised[name] = (type(info.value), str(info.value))
+    assert raised["port"] == raised["jax"] and raised["jax"][0] is ValueError
 
 
 # -- the rest of the scheduler's surface ---------------------------------------
