@@ -65,6 +65,29 @@ Phases, each printing one JSON line:
    the first answer, latencies, wall, retry-after answers, the card's
    memory during bring-up, each worker's peaks and the kill-to-failure
    time;
+8c. serve_fleet — the fleet prefix cache and KV migration (``FLEET_JOB``: two
+   workers, prefix cache, fleet cache, migration, digest 32, prefill
+   chunks of 32, 40 blocks a pool), gateway, ``w0``, ``w1`` and scheduler
+   each a process (``run_serve_fleet``): straight to backend 0, a
+   blocker, then 4 hogs whose growth dries the pool, a long request and a
+   short one (``MIGRATE_REQUESTS``): the short one is preempted and ships
+   to the other backend (the router's hint), the long one's chain passes
+   the 32 MiB frame and it is requeued; through the router, a family of
+   prompts sharing a 32-token prefix, the holder busy, so one lands on the
+   other backend and pulls the chain over ``/hypha-blocks``; then
+   ``serve_prefix``'s 16, one of them stamped to pull a 20-block chain
+   past the frame (``fleet_traffic``). The in-process pools answer the
+   same requests first, the dry-pool ones with the migration path in
+   process (``fleet_reference``).
+   Gates (``serve_fleet_problems``): every answer the in-process pool's
+   (``serve_prefix``'s for its 16), a pull landed (hits on the puller,
+   blocks shipped by the holder at 8,388,608 bytes each) with fewer
+   prefill forwards than the cold request, each on the mma route, a
+   migration acked, both workers through the kernel only, clean exits;
+   it reports each pull's and migration's seconds and MB/s, the
+   ``LinkTable`` estimate, transfer against recompute choices, requeues,
+   the frame-cap failures with their seconds, the router's directory
+   entries, the card's memory, bring-up and the phase's seconds;
 9. flash_kernels — the flash-attention forward, dQ and dK/dV kernels
    against their plain versions (bf16; MHA 32/32 and GQA 32/8; causal and
    not; S 2048, a ragged 1000, Sq != Sk; head_dim 128 and 64; sliding
@@ -80,20 +103,7 @@ Phases, each printing one JSON line:
    and exact merges; step time, tokens/s, peak memory and the kernels'
    device time per step from the profiler, where one step must show each
    bf16 tensor-core flash kernel with its launches (16 / 8 / 8);
-11. train_cli — the same training cut to 2 layers (``CLI_LAYERS``) as a
-   process of its own: ``python -m
-   hypha_tpu_torch.executor.training`` (no ``--device``: it runs on the
-   card) behind the port's Job Bridge (``worker/bridge.py``) on a unix
-   socket, with two stand-ins for the scheduler (``LocalNode``) and for
-   the parameter server and the network (``LocalConnector``: the port's
-   ``ps_round``, three tensors held against the same on the CPU bit for
-   bit); gates on the trainer's exit, rounds, heartbeats, falling losses,
-   the Δθ files' names, shapes and dtype, its flash-kernel launches (from
-   its log) and the cleaned-up updates; step ms, tokens/s, the round
-   boundary, the fold and the outer step (its file I/O, copies and norms
-   timed apart), the bridge's time per ``/status/send``, the trainer's
-   start-up and peak device memory (its log) beside the ``train`` phase's;
-12. train_node — the ``train`` phase's job at its full 8 layers, run by
+11. train_node — the ``train`` phase's job at its full 8 layers, run by
    the port alone (``run_node_job``) on ``TcpTransport`` at 127.0.0.1: a
    ``Gateway``, a ``DataNode`` serving the slices, a ``WorkerNode`` ``w0``
    whose process executor runs the trainer CLI on the card, a
@@ -113,7 +123,7 @@ Phases, each printing one JSON line:
    the batch scheduler's ms per message; each Δθ push and broadcast with
    its bytes, the fold and ``outer_step`` seconds, auction to dispatch,
    dispatch to first heartbeat and the trainer's peak memory;
-13. train_stream — ``train_node``'s job and fabric at the same full width
+12. train_stream — ``train_node``'s job and fabric at the same full width
    with the compressed streaming outer sync: ``delta_codec`` int8,
    ``sync_mode`` stream, 4 fragments, 4 rounds of 8 batches of 2 (every
    fragment syncs once), the trainer quantizing each due fragment's Δθ on
@@ -130,7 +140,7 @@ Phases, each printing one JSON line:
    encode seconds, the flight and how long ``finish`` waited, step ms with
    and without a flight out, the largest progress gap beside the adaptive
    deadline, the trainer's and the server's peaks, and tokens/s;
-14. train_reference — a tiny Llama (head_dim 64), and the same with a
+13. train_reference — a tiny Llama (head_dim 64), and the same with a
    sliding window below its sequence (Mistral's local attention), each
    trained 4 steps through the kernels and through the plain flash version
    from the same weights, with no call of the dense attention.
@@ -156,7 +166,6 @@ import statistics
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 from contextlib import contextmanager
 from datetime import datetime
@@ -1261,6 +1270,380 @@ def serve_router_phase(prefix: dict) -> dict:
                 **{k: run[k] for k in keep})
 
 
+# ------------------------------------------------ serve_fleet phase
+
+# ``SERVE_JOB`` over two workers with the fleet prefix cache and KV migration on.
+# Prefill chunks of 32, so a prompt past a pulled 2-block prefix prefills in
+# fewer forwards than cold; 40 blocks a pool: serve_prefix's longest request
+# needs 36 (the pool's window bound at chunk 32).
+FLEET_BLOCKS = 40
+FLEET_CHUNK = 32
+FLEET_JOB = {**SERVE_JOB, "job.serve_workers": 2, "job.serve_prefix_cache": True,
+             "job.serve_fleet_cache": True, "job.serve_kv_migration": True,
+             "job.serve_digest_k": 32, "job.serve_prefill_chunk": FLEET_CHUNK,
+             "job.serve_blocks": FLEET_BLOCKS}
+FLEET_SEED = 21
+# The dry-pool requests (prompt tokens, new tokens), sent straight to one
+# backend in this order: a blocker that holds the pool (34 of its 40 blocks)
+# while the others queue, so they are admitted together when it ends and the
+# schedule is the pool's own, the same in process; 4 hogs whose growth dries
+# the pool; V, whose 9 full blocks at preemption pass the frame cap; S,
+# whose 3 fit. A CPU dry run of this pool (the tiny model, the same
+# geometry, stepped by hand) preempts S first, then V, and no hog.
+MIGRATE_REQUESTS = [(544, 64)] + [(80, 48)] * 4 + [(128, 32), (24, 39)]
+ORDER_GAP_S = 0.005  # between two of them, so they arrive in this order
+
+
+def fleet_traffic(seed: int = FLEET_SEED, vocab: int = 32_000) -> dict:
+    """The phase's own requests. ``family``: a warm-up and 6 more prompts
+    sharing a 32-token (2-block) prefix, each prompt plus budget under 64
+    tokens, so every chain of theirs fits one frame. ``migrate``:
+    ``MIGRATE_REQUESTS``' prompts drawn from the seed."""
+    fam = make_prompts(seed, [32], vocab)[0]
+    tails = make_prompts(seed + 1, [8, 9, 10, 11, 12, 13, 14], vocab)
+    prompts = make_prompts(seed + 2, [p for p, _ in MIGRATE_REQUESTS], vocab)
+    return {"family": [(fam + t, min(63 - 32 - len(t), 20)) for t in tails],
+            "migrate": [(p, n) for p, (_, n) in zip(prompts, MIGRATE_REQUESTS)]}
+
+
+def migration_reference(model, requests: list) -> dict:
+    """``requests`` queued at once in a pool of ``FLEET_JOB``'s geometry,
+    stepped by hand, with the worker's migration path in process: each
+    ticket the pool cuts is framed as the worker frames its
+    ``MigrateRequest``; past ``MAX_FRAME`` it goes back to the pool
+    (requeue), else a second pool lands its blocks and decodes the rest.
+    Returns the answers and each ticket's blocks, emitted tokens and fate."""
+    from concurrent.futures import Future
+
+    from hypha_tpu_torch import codec, messages
+    from hypha_tpu_torch.executor.pool import DecodePool, _Group
+    from hypha_tpu_torch.network.fabric import MAX_FRAME
+    from hypha_tpu_torch.ops.kvcache import leaves_to_wire
+
+    opts = dict(slots=8, max_len=1024, steps_per_call=8, block_size=16,
+                num_blocks=FLEET_BLOCKS, prefill_chunk=FLEET_CHUNK, ragged=True,
+                prefix_cache=True, fleet_cache=True, kv_migration=True)
+    src, dst = DecodePool(model, **opts), DecodePool(model, **opts)
+    tickets, events, groups = [], [], []
+    src.set_migrate_hooks(lambda est, toks: ("dst", "dst"), tickets.append)
+    for p, n in requests:
+        g = _Group([list(p)], int(n), Future())
+        with src._submit_lock:
+            src._backlog += 1
+        src._waiting.append(g)
+        groups.append(g)
+    try:
+        with torch.inference_mode():
+            while not all(g.fut.done() for g in groups):
+                src._step_paged()
+                while tickets:
+                    t = tickets.pop(0)
+                    req = messages.MigrateRequest(
+                        serve_name="dst", prompt=t["prompt"], emitted=t["emitted"],
+                        budget=t["budget"], chain_hashes=t["hashes"],
+                        block_size=t["block_size"], leaves=leaves_to_wire(t["leaves"]))
+                    frame = len(codec.dumps(messages.encode(req)))
+                    events.append(dict(request=groups.index(t["group"]), blocks=len(t["hashes"]),
+                                       emitted=len(t["emitted"]), frame_bytes=frame,
+                                       shipped=frame <= MAX_FRAME))
+                    if frame > MAX_FRAME:
+                        src.requeue_migrated(t["group"])
+                        while not src._queue.empty():  # as the serve loop takes it
+                            src._waiting.append(src._queue.get_nowait())
+                        continue
+                    dst.inject_chain(t["hashes"], t["leaves"], None, None).result(timeout=300)
+                    cont = dst.submit([t["prompt"] + t["emitted"]], t["budget"]).result(timeout=300)
+                    src.complete_migrated(t["group"], cont[0])
+        return {"answers": [g.fut.result(timeout=1)[0] for g in groups], "events": events}
+    finally:
+        src.close()
+        dst.close()
+
+
+def fleet_reference(model, traffic: dict) -> dict:
+    """The in-process answers to ``traffic``: the family at once through
+    one pool of ``FLEET_JOB``'s geometry, the dry-pool requests through
+    ``migration_reference``."""
+    fam = traffic["family"]
+    ref = migration_reference(model, traffic["migrate"])
+    return {"family": _pool_run(model, [p for p, _ in fam], [n for _, n in fam],
+                                prefix_cache=True, num_blocks=FLEET_BLOCKS,
+                                prefill_chunk=FLEET_CHUNK)["answers"],
+            "migrate": ref["answers"], "migrate_events": ref["events"]}
+
+
+_PULL_OK = re.compile(r"fleet pull from (\S+): (\d+) blocks, (\d+) bytes in ([\d.]+) s; "
+                      r"(\d+) injected; link estimate ([\d.e+]+) bit/s")
+_PULL_FAIL = re.compile(r"fleet pull from (\S+) failed after ([\d.]+) s \((\d+) blocks asked\): (.*)")
+_MIGRATE_OK = re.compile(r"migration to (\S+): (\d+) blocks, (\d+) bytes, acked in ([\d.]+) s")
+_MIGRATE_FAIL = re.compile(r"migration to (\S+) failed after ([\d.]+) s \((\d+) blocks, (\d+) "
+                           r"bytes\): (.*)")
+
+
+def fleet_log(text: str) -> dict:
+    """A worker's block plane from its log: each pull and migration with its
+    blocks, bytes and seconds, each failure with its error; a failure is
+    at the frame cap when the sender's frame was too large (a migration)
+    or the holder closed the stream unanswered (a pull: its reply frame)."""
+    pulls = [dict(peer=m[1], blocks=int(m[2]), bytes=int(m[3]), rpc_s=float(m[4]),
+                  injected=int(m[5]), link_bps=float(m[6]),
+                  mb_per_s=int(m[3]) / 1e6 / max(float(m[4]), 1e-9))
+             for m in _PULL_OK.finditer(text)]
+    pull_failed = [dict(peer=m[1], s=float(m[2]), blocks_asked=int(m[3]), error=m[4],
+                        frame_cap="EOF" in m[4] or "frame" in m[4])
+                   for m in _PULL_FAIL.finditer(text)]
+    migrations = [dict(peer=m[1], blocks=int(m[2]), bytes=int(m[3]), rpc_s=float(m[4]))
+                  for m in _MIGRATE_OK.finditer(text)]
+    migrate_failed = [dict(peer=m[1], s=float(m[2]), blocks=int(m[3]), bytes=int(m[4]),
+                           error=m[5], frame_cap="frame too large" in m[5])
+                      for m in _MIGRATE_FAIL.finditer(text)]
+    return dict(pulls=pulls, pull_failed=pull_failed, migrations=migrations,
+                migrate_failed=migrate_failed)
+
+
+async def _ask_backend(client, peer: str, name: str, prompt: list, n: int) -> tuple:
+    """One request straight to a backend (its ``<name>@<slot>``), past the
+    router."""
+    from hypha_tpu_torch.messages import PROTOCOL_GENERATE, GenerateRequest
+
+    t = time.perf_counter()
+    resp = await client.request(peer, PROTOCOL_GENERATE, GenerateRequest(
+        serve_name=name, prompts=[prompt], max_new_tokens=n), timeout=NODE_WAIT_S)
+    if not resp.ok:
+        raise SystemExit(f"{name} answered ok=False: {resp}")
+    return resp.tokens[0], time.perf_counter() - t
+
+
+def _delta(after: dict, before: dict, key: str, field: str) -> int:
+    return (after[key] or {}).get(field, 0) - (before[key] or {}).get(field, 0)
+
+
+async def run_serve_fleet(root: Path, job: dict, traffic: dict, prefix_prompts: list,
+                          prefix_new: list, *, device: "str | None" = None) -> dict:
+    """``ServeNet`` with two workers behind the router, ``job`` with the
+    fleet prefix cache and KV migration on. Once both backends serve and have
+    heartbeated: (1) the dry-pool requests straight to backend 0, in order,
+    ``ORDER_GAP_S`` apart; (2) through the router, the family's warm-up,
+    then (after two heartbeats carry the digests) its 6 other prompts at
+    once, so the router sends what the holder cannot take to the other
+    backend with the holder to pull from; (3) ``prefix_prompts``: the first
+    4 (one of each family) one by one straight to the backend that pulled
+    in (2), the 8th (the last family's second) straight to the other one
+    stamped with the first as ``pull_peer`` (its 20-block chain passes the
+    frame; that backend has not measured the link, so it tries), then,
+    after two heartbeats, the other 11 through the router. Then every
+    process stops. Returns the answers, the workers' reports at each step,
+    their block-plane logs (``fleet_log``), the router's counts, timings,
+    the card's memory, exits and leftovers."""
+    from hypha_tpu_torch.messages import PROTOCOL_GENERATE, GenerateRequest
+    from hypha_tpu_torch.worker.infer_executor import serve_key
+
+    name = job["job.serve_name"]
+    net = ServeNet(root, job, ROUTER_WORKERS, device)
+    net.init()
+    loop = asyncio.get_running_loop()
+    mem_peak, sampling = [0.0], asyncio.Event()
+    sampler = (asyncio.create_task(_device_mem_sampler(mem_peak, sampling))
+               if device is None else None)
+    t0 = time.perf_counter()
+    snaps = {}
+
+    def snap(label):
+        snaps[label] = {role: net.worker_report(role) for role in ROUTER_WORKERS}
+
+    try:
+        await net.start()
+        await net.wait_for_provider(name)
+        deadline = loop.time() + NODE_WAIT_S
+        for role in ROUTER_WORKERS:
+            await _wait_for_text(net.logs[role], f"serving {name}@", net.procs[role], deadline)
+        await asyncio.sleep(2 * LOAD_REPORT_S)
+        bring_up_s = time.perf_counter() - t0
+        slot_of = {role: int(re.search(rf"serving {re.escape(name)}@(\d)", net.text(role))[1])
+                   for role in ROUTER_WORKERS}
+        peer = {slot: (await net.client.find_providers(serve_key(f"{name}@{slot}")))[0]
+                for slot in (0, 1)}
+        t1 = time.perf_counter()
+        asks = []
+        for p, n in traffic["migrate"]:
+            asks.append(asyncio.create_task(_ask_backend(net.client, peer[0], f"{name}@0", p, n)))
+            await asyncio.sleep(ORDER_GAP_S)
+        migrate = [t for t, _ in await asyncio.wait_for(asyncio.gather(*asks), NODE_WAIT_S)]
+        migrate_s = time.perf_counter() - t1
+        snap("before_warm")
+        t2 = time.perf_counter()
+        warm = await asyncio.wait_for(_timed_ask(net.client, name, *traffic["family"][0]),
+                                      NODE_WAIT_S)
+        snap("after_warm")
+        await asyncio.sleep(2 * LOAD_REPORT_S + 0.5)  # the holder's digest reaches the router
+        burst = await asyncio.wait_for(asyncio.gather(*(
+            _timed_ask(net.client, name, p, n) for p, n in traffic["family"][1:])), NODE_WAIT_S)
+        snap("after_burst")
+        pull_s = time.perf_counter() - t2
+        # The family's puller holds serve_prefix's heads; the holder, which
+        # has pulled nothing, is stamped to pull the last family's chain.
+        held = {r: _delta(snaps["after_warm"][r], snaps["before_warm"][r], "launches",
+                          "requests") for r in ROUTER_WORKERS}
+        holder_slot = slot_of[max(held, key=held.get)]
+        src, dst = 1 - holder_slot, holder_slot
+        t3 = time.perf_counter()
+        prefix = {}
+        for i in range(4):
+            prefix[i], _ = await asyncio.wait_for(_ask_backend(
+                net.client, peer[src], f"{name}@{src}", prefix_prompts[i], prefix_new[i]),
+                NODE_WAIT_S)
+        stamped = await asyncio.wait_for(net.client.request(
+            peer[dst], PROTOCOL_GENERATE, GenerateRequest(
+                serve_name=f"{name}@{dst}", prompts=[prefix_prompts[7]],
+                max_new_tokens=prefix_new[7], pull_peer=peer[src],
+                pull_serve=f"{name}@{src}"), timeout=NODE_WAIT_S), NODE_WAIT_S)
+        prefix[7] = stamped.tokens[0]
+        await asyncio.sleep(2 * LOAD_REPORT_S + 0.5)
+        rest = [i for i in range(4, len(prefix_prompts)) if i != 7]
+        routed = await asyncio.wait_for(asyncio.gather(*(
+            _timed_ask(net.client, name, prefix_prompts[i], prefix_new[i]) for i in rest)),
+            NODE_WAIT_S)
+        prefix.update({i: t[0] for i, (t, _, _) in zip(rest, routed)})
+        prefix_s = time.perf_counter() - t3
+    finally:
+        sampling.set()
+        if sampler is not None:
+            await sampler
+        await net.stop()
+    sched = net.text("scheduler").splitlines()
+    router = [json.loads(line.split(f"serving {name} router: ", 1)[1]) for line in sched
+              if f"serving {name} router: " in line]
+    return dict(
+        migrate=migrate, family=[t[0] for t, _, _ in [warm, *burst]],
+        prefix=[prefix[i] for i in range(len(prefix_prompts))], bring_up_s=bring_up_s,
+        migrate_traffic_s=migrate_s, pull_traffic_s=pull_s, prefix_traffic_s=prefix_s,
+        warm_latency_s=warm[1], burst_latency_s=[lat for _, lat, _ in burst],
+        slot_of=slot_of, stamped_pull=dict(puller_slot=dst, holder_slot=src), snaps=snaps,
+        workers={role: net.worker_report(role) for role in ROUTER_WORKERS},
+        blocks={role: fleet_log(net.text(role)) for role in ROUTER_WORKERS},
+        router=router[-1] if router else None, device_mem_mib=mem_peak[0] if sampler else None,
+        exits=net.exits, stop_s=net.stop_s, leftover=net.leftover(),
+        logs={role: str(path) for role, path in net.logs.items()},
+    )
+
+
+def fleet_summary(run: dict, block_bytes: int) -> dict:
+    """What the phase reports from ``run_serve_fleet``'s result: the pull
+    (who held, who pulled, the prefill forwards of the cold and the pulled
+    request, the pulled request's launches by route), the block plane's
+    counts and each worker's pulls and migrations with their failures."""
+    s = run["snaps"]
+    holder = next((r for r in ROUTER_WORKERS if _delta(
+        s["after_warm"][r], s["before_warm"][r], "launches", "requests") > 0), None)
+    puller = next((r for r in ROUTER_WORKERS if _delta(
+        s["after_burst"][r], s["after_warm"][r], "cache", "remote_prefix_hits") > 0), None)
+    out = dict(holder=holder, puller=puller, block_bytes=block_bytes)
+    if holder is not None:
+        out["cold_prefill_forwards"] = _delta(s["after_warm"][holder], s["before_warm"][holder],
+                                              "cache", "prefill_chunks")
+    if puller is not None:
+        a, b = s["after_burst"][puller], s["after_warm"][puller]
+        out.update(
+            pulled_requests=_delta(a, b, "launches", "requests"),
+            pulled_prefill_forwards=_delta(a, b, "cache", "prefill_chunks"),
+            pulled_launches={k: _delta(a, b, "launches", k) for k in ("mma", "simt", "decode")})
+    counts = {}
+    for role, w in run["workers"].items():
+        cache = w["cache"] or {}
+        counts[role] = {k: cache.get(k) for k in (
+            "remote_prefix_hits", "remote_prefix_misses", "blocks_shipped",
+            "block_bytes_shipped", "migrations", "migrated_out", "requeued", "transfer_chosen",
+            "recompute_chosen", "preemptions", "hit_blocks")}
+    out["counts"] = counts
+    blocks = run["blocks"]
+    out["pulls"] = {r: b["pulls"] for r, b in blocks.items()}
+    out["migrations"] = {r: b["migrations"] for r, b in blocks.items()}
+    fails = [f for b in blocks.values() for f in b["pull_failed"]]
+    mfails = [f for b in blocks.values() for f in b["migrate_failed"]]
+    out["frame_cap"] = dict(
+        pull_failures=sum(f["frame_cap"] for f in fails),
+        pull_failure_s=sum(f["s"] for f in fails if f["frame_cap"]),
+        pull_blocks_asked=[f["blocks_asked"] for f in fails if f["frame_cap"]],
+        migrate_failures=sum(f["frame_cap"] for f in mfails),
+        migrate_failure_s=sum(f["s"] for f in mfails if f["frame_cap"]),
+        migrate_blocks=[f["blocks"] for f in mfails if f["frame_cap"]],
+        other_failures=[f["error"] for f in fails + mfails if not f["frame_cap"]])
+    return out
+
+
+def serve_fleet_problems(run: dict, summary: dict, *, want: dict, want_prefix: list,
+                         layers: int, device: str) -> list:
+    """The gates of the serve_fleet phase: every answer (the dry-pool
+    requests, the family, serve_prefix's 16) equal to the in-process
+    reference's (``fleet_reference``; ``serve_prefix``'s for its 16);
+    a pull landed (hits on the puller; blocks shipped by the holder, each
+    ``block_bytes``) and its request ran fewer prefill forwards than the
+    cold one, each on the mma route; a migration acked; each worker's
+    launch gates (``launch_problems``); exits 0 and no leftovers."""
+    problems = []
+    for what, got, ref in (("the dry-pool requests", run["migrate"], want["migrate"]),
+                           ("the family", run["family"], want["family"]),
+                           ("serve_prefix's requests", run["prefix"], want_prefix)):
+        bad = [j for j, (a, b) in enumerate(zip(got, ref)) if a != b]
+        if bad or len(got) != len(ref):
+            problems.append(f"{what}: answers {bad} differ from the in-process pool's")
+    puller, holder = summary.get("puller"), summary.get("holder")
+    if puller is None or holder is None:
+        problems.append(f"no fleet pull landed (holder {holder}, puller {puller})")
+    else:
+        shipped = summary["counts"][holder]
+        if not shipped["blocks_shipped"] or (shipped["block_bytes_shipped"]
+                                             != shipped["blocks_shipped"] * summary["block_bytes"]):
+            problems.append(f"{holder} shipped {shipped}")
+        per_request = summary["pulled_prefill_forwards"] / max(summary["pulled_requests"], 1)
+        if not per_request < summary["cold_prefill_forwards"]:
+            problems.append(f"the pulled request ran {per_request} prefill forwards, the cold one "
+                            f"{summary['cold_prefill_forwards']}")
+        lc = summary["pulled_launches"]
+        if device == "cuda" and (lc["simt"] or lc["mma"] != layers
+                                 * summary["pulled_prefill_forwards"]):
+            problems.append(f"the chunks after the pulled prefix launched {lc}")
+    if not any(c["migrations"] for c in summary["counts"].values()) or not any(
+            summary["migrations"].values()):
+        problems.append("no migration acked")
+    for role, report in run["workers"].items():
+        problems += launch_problems(role, report["launches"], report["kernel_builds"],
+                                    layers=layers, device=device)
+    problems += exit_problems(run, ROUTER_ROLES)
+    if run["leftover"]:
+        problems.append(f"left in the work root: {run['leftover']}")
+    return problems
+
+
+def serve_fleet_phase(fleet_ref: dict, prefix: dict) -> dict:
+    """The fleet prefix cache and KV migration at Llama-2-7B widths: two workers
+    behind the router, each a process of its own started from TOML by the
+    port's CLI (``run_serve_fleet``), held to ``serve_fleet_problems``."""
+    root = Path(tempfile.mkdtemp(prefix="hsf"))
+    t0 = time.perf_counter()
+    try:
+        run = asyncio.run(run_serve_fleet(root, FLEET_JOB, fleet_ref["traffic"],
+                                          prefix["prompts"], prefix["n_new"]))
+        summary = fleet_summary(run, 32 * 2 * 16 * 32 * 128 * 2)
+        problems = serve_fleet_problems(run, summary, want=fleet_ref, want_prefix=prefix["answers"],
+                                        layers=prefix["layers"], device="cuda")
+        if problems:
+            logs = {r: Path(p).read_text(errors="replace")[-3000:] for r, p in run["logs"].items()}
+            emit({"phase": "serve_fleet", "summary": summary, "problems": problems})
+            raise SystemExit(f"serve_fleet: {problems}\n{json.dumps(logs, indent=1)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    keep = ("bring_up_s", "migrate_traffic_s", "pull_traffic_s", "prefix_traffic_s",
+            "warm_latency_s", "burst_latency_s", "slot_of", "router", "device_mem_mib",
+            "stop_s", "exits")
+    return dict(answers_equal=True, in_process_migrations=fleet_ref["migrate_events"],
+                stamped_pull=run["stamped_pull"], **summary,
+                directory_entries=(run["router"] or {}).get("directory_entries"),
+                launches={r: w["launches"] for r, w in run["workers"].items()},
+                peak_mem_gib={r: w["peak_mem_gib"] for r, w in run["workers"].items()},
+                seconds=time.perf_counter() - t0, **{k: run[k] for k in keep})
+
+
 def profile_phase(model) -> dict:
     """A steady decode step and a prefill chunk at the serving shape (8
     lanes, 512 cached positions each): host wall time per forward, and the
@@ -1800,23 +2183,14 @@ def train_phase() -> dict:
     return res
 
 
-# ----------------------------------------------------------- train_cli phase
+# ------------------------------------------- the parameter server's round
 
-CLI_LIMIT_S = 600  # the trainer process must exit within this
-CLI_LAYERS = 2  # train_cli's depth: train_node runs the full 8 layers through the fabric
-CLI_MODEL = {**TRAIN_MODEL, "config": {**TRAIN_MODEL["config"], "num_layers": CLI_LAYERS}}
-# Tensors whose fold and outer step on the card are held against the CPU's.
-CHECK_NAMES = ("params/embed_tokens", "params/layers_0/self_attn/q_proj/kernel",
-               "params/norm/weight")
+CLI_LIMIT_S = 600  # a trainer process must exit within this
 
 
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
-
-
-def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return a.dtype == b.dtype == torch.float32 and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @contextmanager
@@ -1879,125 +2253,6 @@ def ps_round(path: Path, samples: float, round_num: int, momentum: Path, work_di
     return out, accum, stats, times
 
 
-class LocalNode(Scheduler):
-    """The scheduler behind the Job Bridge's ``/status/send``: the one node
-    method the bridge calls, answering as ``TrainSession`` does."""
-
-    async def request(self, peer, protocol, msg, timeout=30.0):
-        return self.answer(msg)
-
-
-class LocalConnector:
-    """The parameter server behind the Job Bridge, with the data slices.
-
-    ``fetch`` serves the slices in turn (and any other URI) through the
-    port's ``fetch_uri``; ``send`` runs ``ps_round`` over the pushed Δθ on
-    ``device``, holds three tensors of the sum, the update and the momentum
-    against the same on the CPU, bit for bit, and queues the update in the
-    trainer's ``incoming/``; ``receive`` yields the queued updates."""
-
-    def __init__(self, work_dir, server_dir, slices, *, outer, device):
-        self.work_dir, self.server_dir = Path(work_dir), Path(server_dir)
-        self.slices = list(slices)
-        self.outer, self.device = outer, device
-        self.fetches = 0
-        self.momentum = self.server_dir / "momentum.safetensors"
-        self.landed: asyncio.Queue = asyncio.Queue()
-        self.delta_specs: list = []  # {name: (dtype, shape)} of each Δθ file
-        self.times: list = []  # ps_round's seconds, a dict a round
-        self.serve_s: list = []
-        self.stats: list = []
-        self.cpu_mismatch: list = []
-
-    async def fetch(self, fetch, dest):
-        from hypha_tpu_torch.worker.connectors import fetch_uri
-
-        uri = fetch.ref.uri
-        if uri == "file:///slices":
-            uri = self.slices[self.fetches % len(self.slices)].as_uri()
-            self.fetches += 1
-        return [await asyncio.to_thread(fetch_uri, uri, dest)]
-
-    async def send(self, send, path, resource, meta=None):
-        await self.landed.put(await asyncio.to_thread(self.serve_round, Path(path), dict(meta or {})))
-
-    async def receive(self, receive, dest):
-        while True:
-            yield await self.landed.get()
-
-    def serve_round(self, path: Path, meta: dict):
-        from hypha_tpu_torch.executor.serialization import load_file, read_header, save_file
-        from hypha_tpu_torch.stream.accum import RoundAccum
-        from hypha_tpu_torch.worker.connectors import ReceivedFile
-        from hypha_tpu_torch.worker.ps_executor import outer_step
-
-        t_start = time.perf_counter()
-        r, samples = int(meta["round"]), float(meta["num_samples"])
-        self.delta_specs.append({k: (v["dtype"], tuple(v["shape"]))
-                                 for k, v in read_header(path)[0].items()})
-        check = self.server_dir / "cpu-check"
-        check.mkdir(parents=True, exist_ok=True)
-        if self.momentum.is_file():  # this round's momentum, for the CPU's step
-            save_file(load_file(self.momentum, CHECK_NAMES), check / "momentum.safetensors")
-        out, accum, stats, times = ps_round(path, samples, r, self.momentum, self.server_dir,
-                                            self.outer, self.device)
-        self.times.append(times)
-        self.stats.append(stats)
-        card_sum = {k: accum.partial()[k].cpu() for k in CHECK_NAMES}
-        del accum
-        if torch.device(self.device).type == "cuda":
-            torch.cuda.empty_cache()  # the trainer process shares the card
-        cpu = RoundAccum(device="cpu")
-        cpu.fold_tree(load_file(path, CHECK_NAMES), samples)
-        cpu_out = outer_step({"worker": (path, samples)}, check / "momentum.safetensors",
-                             self.outer.lr, self.outer.momentum, check, r, accum=cpu, device="cpu")
-        pairs = [("sum", card_sum, cpu.partial()),
-                 ("update", load_file(out, CHECK_NAMES), load_file(cpu_out)),
-                 ("momentum", load_file(self.momentum, CHECK_NAMES),
-                  load_file(check / "momentum.safetensors"))]
-        self.cpu_mismatch.append([f"{what} {k}" for what, card, host in pairs for k in CHECK_NAMES
-                                  if not _bits_equal(card[k], host[k])])
-        dest = self.work_dir / "incoming" / out.name
-        dest.parent.mkdir(parents=True, exist_ok=True)
-        os.replace(out, dest)
-        self.serve_s.append(time.perf_counter() - t_start)
-        return ReceivedFile(dest, dest.stat().st_size, "ps", "results",
-                            {"resource": "results", "name": dest.name, "round": r})
-
-
-@contextmanager
-def serve_bridge(node, connector, work_dir, job_id):
-    """The port's Job Bridge on an asyncio loop in a thread of its own,
-    timing each ``/status/send`` it serves (``bridge.status_ms``)."""
-    from hypha_tpu_torch.worker.bridge import Bridge
-
-    loop = asyncio.new_event_loop()
-    thread = threading.Thread(target=loop.run_forever, name="bridge", daemon=True)
-    thread.start()
-    bridge = Bridge(node, Path(work_dir), job_id, "sched", connector)
-    bridge.status_ms = []
-    serve_status = bridge._status
-
-    async def timed_status(body, writer):
-        t0 = time.perf_counter()
-        try:
-            await serve_status(body, writer)
-        finally:  # also when stop() cancels the handler after its answer went out
-            bridge.status_ms.append((time.perf_counter() - t0) * 1e3)
-
-    bridge._status = timed_status
-    try:
-        asyncio.run_coroutine_threadsafe(bridge.start(), loop).result(30)
-        yield bridge
-    finally:
-        try:
-            asyncio.run_coroutine_threadsafe(bridge.stop(), loop).result(120)
-        finally:
-            loop.call_soon_threadsafe(loop.stop)
-            thread.join(30)
-            loop.close()
-
-
 def flat_f32_spec(model: dict) -> dict:
     """``{flat name: ("F32", shape)}`` of a model config's Δθ file."""
     from hypha_tpu_torch.models.convert import state_to_flat
@@ -2005,112 +2260,6 @@ def flat_f32_spec(model: dict) -> dict:
 
     shapes, _ = build_model(model, device="meta")
     return {k: ("F32", tuple(v.shape)) for k, v in state_to_flat(shapes, shapes.state_dict()).items()}
-
-
-def run_train_cli(spec, slices, root: Path, *, device, rounds, steps, child_args=(),
-                  limit_s=CLI_LIMIT_S) -> dict:
-    """Start ``python -m hypha_tpu_torch.executor.training`` as a process
-    of its own behind the port's Job Bridge, with ``LocalNode`` and
-    ``LocalConnector`` standing in for the scheduler, the parameter server
-    and the network, and collect what they saw."""
-    from hypha_tpu_torch.messages import Nesterov, to_json_dict
-
-    work, server = root / "work", root / "ps"
-    server.mkdir(parents=True, exist_ok=True)
-    expect = flat_f32_spec(spec.executor.train.model)
-    node = LocalNode(rounds=rounds, steps=steps)
-    conn = LocalConnector(work, server, slices, outer=Nesterov(), device=device)
-    job = root / "job.json"
-    job.write_text(json.dumps(to_json_dict(spec)))
-    log_path = root / "trainer.log"
-    repo = os.path.dirname(os.path.abspath(__file__))
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [repo, os.environ.get("PYTHONPATH")]))}
-    with serve_bridge(node, conn, work, spec.job_id) as bridge, open(log_path, "wb") as log:
-        t0 = time.perf_counter()
-        child = subprocess.Popen(
-            [sys.executable, "-m", "hypha_tpu_torch.executor.training", "--socket",
-             str(bridge.socket_path), "--work-dir", str(work), "--job", f"@{job}", *child_args],
-            stdout=log, stderr=subprocess.STDOUT, cwd=work, env=env,
-        )
-        try:
-            rc = child.wait(timeout=limit_s)
-        except subprocess.TimeoutExpired:
-            rc = None  # cut at the limit
-        finally:
-            if child.poll() is None:
-                child.kill()
-                child.wait()
-        wall = time.perf_counter() - t0
-    incoming = work / "incoming"
-    return dict(rc=rc, wall_s=wall, node=node, conn=conn, status_ms=bridge.status_ms, expect=expect,
-                log=log_path.read_text(errors="replace"),
-                first_beat_s=(node.marks[0][1] - t0) if node.marks else None,
-                leftover=sorted(p.name for p in incoming.iterdir()) if incoming.is_dir() else [])
-
-
-def train_cli_phase(train: dict) -> dict:
-    """The trainer as a process of its own behind the port's Job Bridge, at
-    the ``train`` phase's widths cut to ``CLI_LAYERS`` layers, on the card;
-    its parameter-server stand-in holds the card's fold, update and
-    momentum bit for bit against the CPU's."""
-    root = Path(tempfile.mkdtemp(prefix="chip-smoke-cli-"))
-    try:
-        steps_total = TRAIN_ROUNDS * TRAIN_STEPS
-        slices = write_slices(root, n_slices=2, per_slice=steps_total * TRAIN_BATCH // 2,
-                              seq=TRAIN_SEQ, period=TRAIN_PERIOD, seed=5)
-        spec = train_spec("chip-smoke-train-cli", CLI_MODEL, batch=TRAIN_BATCH, lr=3e-4)
-        run = run_train_cli(spec, slices, root, device="cuda", rounds=TRAIN_ROUNDS,
-                            steps=TRAIN_STEPS)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    node, conn, log = run["node"], run["conn"], run["log"]
-    steps = node.step_ms()
-    step_ms = statistics.median(steps) if steps else None
-    losses = [m.get("loss") for _, m in node.metrics]
-    found = re.search(r"attention launches: (\{.*\})", log)
-    launches = json.loads(found.group(1)) if found else None
-    peak = re.search(r"peak device memory: ([\d.]+) GiB", log)
-    res = dict(
-        model="llama2-7b", layers=CLI_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
-        trainer_exit=run["rc"], trainer_wall_s=run["wall_s"], rounds=node.done,
-        heartbeats=len(node.marks), losses=losses, step_ms=step_ms, step_ms_all=steps,
-        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3) if step_ms else None,
-        round_boundary_s=node.update_s, server_s=conn.times,
-        server_round_s=conn.serve_s, outer_stats=conn.stats,
-        status_serve_ms_median=statistics.median(run["status_ms"]) if run["status_ms"] else None,
-        status_requests=len(run["status_ms"]),
-        start_to_first_heartbeat_s=run["first_beat_s"], attention_launches=launches,
-        trainer_peak_gib=float(peak.group(1)) if peak else None,
-        cpu_check=list(CHECK_NAMES), cpu_mismatch=conn.cpu_mismatch, leftover_updates=run["leftover"],
-        train_phase={k: train[k] for k in ("step_ms", "tokens_per_s", "update_phase_s",
-                                           "server_s", "peak_mem_gib")},
-    )
-    want = {"fwd": 2 * CLI_LAYERS * steps_total, "dq": CLI_LAYERS * steps_total,
-            "dkv": CLI_LAYERS * steps_total, "flash_plain": 0, "dense": 0}
-    problems = []
-    if run["rc"] != 0:
-        problems.append(f"trainer exit code {run['rc']} (None: cut at {CLI_LIMIT_S} s)")
-    if node.done != TRAIN_ROUNDS or len(node.marks) != steps_total:
-        problems.append(f"{node.done} rounds and {len(node.marks)} heartbeats, wanted "
-                        f"{TRAIN_ROUNDS} and {steps_total}")
-    if (len(losses) != TRAIN_ROUNDS or None in losses
-            or not torch.isfinite(torch.tensor(losses, dtype=torch.float64)).all()
-            or not losses[1] < losses[0]):
-        problems.append(f"round losses {losses}: not finite, or round 1 not below round 0")
-    bad = [i for i, got in enumerate(conn.delta_specs) if got != run["expect"]]
-    if len(conn.delta_specs) != TRAIN_ROUNDS or bad:
-        problems.append(f"Δθ files {bad} of {len(conn.delta_specs)} differ from the config's "
-                        "flat f32 names and shapes")
-    if "attention path: flash kernels" not in log or launches != want:
-        problems.append(f"attention launches {launches}, wanted {want} through the flash kernels")
-    if len(conn.cpu_mismatch) != TRAIN_ROUNDS or any(conn.cpu_mismatch):
-        problems.append(f"the card's fold and outer step differ from the CPU's: {conn.cpu_mismatch}")
-    if run["leftover"]:
-        problems.append(f"update files left in incoming/: {run['leftover']}")
-    if problems:
-        emit({"phase": "train_cli", **res, "problems": problems, "trainer_log_tail": log[-4000:]})
-        raise SystemExit("train_cli phase failed: " + "; ".join(problems))
-    return res
 
 
 # ---------------------------------------------------------- train_node phase
@@ -2915,6 +3064,8 @@ def main() -> int:
     emit({"phase": "serve_int8", **{k: v for k, v in serve8.items() if k not in hidden}})
     prefix = serve_prefix_phase(model)
     emit({"phase": "serve_prefix", **{k: v for k, v in prefix.items() if k not in hidden}})
+    traffic = fleet_traffic()
+    fleet_ref = {**fleet_reference(model, traffic), "traffic": traffic}
     emit({"phase": "profile", **profile_phase(model)})
     emit({"phase": "reference", **reference_phase(model)})
     del model  # free the serving model: the worker of serve_node and training take the card
@@ -2924,10 +3075,11 @@ def main() -> int:
     emit({"phase": "serve_node", **serve_node})
     serve_router = serve_router_phase(prefix)
     emit({"phase": "serve_router", **serve_router})
+    serve_fleet = serve_fleet_phase(fleet_ref, prefix)
+    emit({"phase": "serve_fleet", **serve_fleet})
 
     train = train_phase()
     emit({"phase": "train", **train})
-    emit({"phase": "train_cli", **train_cli_phase(train)})
     emit({"phase": "train_node", **train_node_phase(train)})
     emit({"phase": "train_stream", **train_stream_phase()})
     emit({"phase": "train_reference", **train_reference_phase()})
@@ -2950,6 +3102,7 @@ def main() -> int:
         "serve_node_launches": serve_node["launches"],
         "serve_router_launches": {role: w["launches"]
                                   for role, w in serve_router["workers"].items()},
+        "serve_fleet_launches": serve_fleet["launches"],
         "prefill64_ms": pre["ms"], "prefill64_simt_ms": pre["simt_ms"],
         "prefill64_plain_ms": pre["plain_ms"], "prefill64_bound_ms": pre["bound_ms"],
         "prefill64_bound_by": pre["bound_by"], "prefill64_library_ms": pre["library_ms"],

@@ -257,6 +257,7 @@ async def _serve_job(node, conf: SchedulerConfig, stop: "asyncio.Event | None") 
         pool_spec_layers=job.serve_spec_layers,
         fleet_cache=job.serve_fleet_cache,
         kv_migration=job.serve_kv_migration,
+        fleet_digest_k=job.serve_digest_k,
         prefix_affinity=job.serve_prefix_affinity,
         eos_token_id=None if job.serve_eos_token_id < 0 else job.serve_eos_token_id,
     )

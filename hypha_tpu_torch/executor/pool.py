@@ -36,9 +36,27 @@ The host owns the row variables (``idx``, ``start``, ``table``) and writes
 them into the cache tensors in place before every dispatch; idle lanes
 park at ``idx = max_len``, so their writes land in the garbage block.
 
+**Fleet prefix cache and KV migration** (``fleet_cache`` / ``kv_migration``, both
+on top of the prefix cache): the serve loop refreshes ``fleet_digest``, the
+top-``digest_k`` cached chains by hits, which the worker sends the router
+on its heartbeats. ``serve_chain`` extracts a cached chain's blocks for a
+puller and ``inject_chain`` lands shipped blocks as cached, unreferenced
+entries, so the next admission of that prefix is an ordinary hit; both run
+as ops on the serve thread at the next iteration (``run_op``), which owns
+the allocator and the cache. With migration on, a preempted single-prompt
+group whose transfer the worker's policy prefers to recompute leaves the
+pool as a ticket (its full blocks, prompt, emitted tokens and remaining
+budget); the worker's sender resolves it from the target's continuation
+(``complete_migrated``) or hands it back for recompute-resume
+(``requeue_migrated``).
+
 Greedy only: sampled requests take ``PoolServer``'s one-shot fallback.
 Where the JAX pool bumps its serving metrics the port keeps plain
-counters: ``hit_blocks``, ``miss_blocks``, ``cow_copies``.
+counters: ``hit_blocks``, ``miss_blocks``, ``cow_copies``, ``migrated_out``,
+``requeued``, and in ``stats`` the fleet counts under the reference's names
+(``remote_prefix_hits``, ``remote_prefix_misses``, ``blocks_shipped``,
+``block_bytes_shipped``, ``migrations``, ``transfer_chosen``,
+``recompute_chosen``; ``count`` adds to them from any thread).
 Options of the JAX pool that this port does not have yet raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
@@ -56,10 +74,10 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..ops.kvcache import KVCache, copy_blocks
+from ..ops.kvcache import KVCache, copy_blocks, extract_blocks, insert_blocks, pool_leaves
 from .block_cache import PrefixBlockCache, chain_hashes
 
-__all__ = ["DecodePool", "PoolBusy"]
+__all__ = ["DecodePool", "PoolBusy", "StaleBlockGeneration"]
 
 log = logging.getLogger("hypha.torch.executor.pool")
 
@@ -70,9 +88,17 @@ _NOT_PORTED = {
     "spec_layers": "speculative decoding",
     "draft_model": "speculative decoding",
     "draft_params": "speculative decoding",
-    "fleet_cache": "fleet cache and KV migration",
-    "kv_migration": "fleet cache and KV migration",
 }
+# The fleet counts the JAX pool's worker keeps in its serving metrics.
+FLEET_STATS = ("remote_prefix_hits", "remote_prefix_misses", "blocks_shipped",
+               "block_bytes_shipped", "migrations", "transfer_chosen", "recompute_chosen")
+# Serve-loop wake sentinel: unblocks an idle queue.get so a queued op runs.
+_WAKE: Any = object()
+
+
+class StaleBlockGeneration(RuntimeError):
+    """Shipped blocks were computed under other weights than this pool
+    serves: admission refuses the stamp rather than serve old-weight KV."""
 
 
 class PoolBusy(RuntimeError):
@@ -136,11 +162,12 @@ class DecodePool:
         prefix_cache: bool = False,
         ragged: bool = False,
         kv_quant: str = "",
+        fleet_cache: bool = False,
+        kv_migration: bool = False,
+        digest_k: int = 32,
         **not_ported: Any,
     ) -> None:
         for name, value in not_ported.items():
-            if name == "digest_k":
-                continue  # the fleet cache's digest size: inert while it is off
             if name not in _NOT_PORTED:
                 raise TypeError(f"unexpected pool option {name!r}")
             if (value is not None) if name.startswith("draft_") else value:
@@ -157,6 +184,10 @@ class DecodePool:
             raise ValueError(f"{type(model).__name__} has no per-row decode path")
         if kv_quant not in ("", "int8"):
             raise ValueError(f"unknown kv_quant {kv_quant!r}")
+        if (fleet_cache or kv_migration) and not prefix_cache:
+            # Both trade in content-addressed blocks: without the chain-hash
+            # registry there is nothing to ship or land on.
+            raise ValueError("fleet_cache / kv_migration require paged mode with prefix_cache=True")
         if max_len % block_size != 0:
             raise ValueError(f"max_len {max_len} must be a multiple of block_size {block_size}")
         if prefill_chunk <= 0:
@@ -194,6 +225,20 @@ class DecodePool:
         self._h_idx = np.full((slots,), max_len, np.int32)
         self._h_start = np.zeros((slots,), np.int32)
         self._h_table = np.full((slots, max_len // block_size), num_blocks, np.int32)
+        # The digest is rebuilt by the serve thread each iteration and read
+        # whole by the heartbeat; serve_chain / inject_chain run as ops on
+        # the serve thread, which alone touches the allocator and cache.
+        self.fleet_cache, self.kv_migration = bool(fleet_cache), bool(kv_migration)
+        self.digest_k = max(int(digest_k), 1)
+        self.fleet_digest: list = []
+        self._ops: list = []  # (fn, Future) to run on the serve thread
+        self._ops_lock = threading.Lock()
+        self._migrate_policy = None  # (est_bytes, tokens) -> target | None
+        self._migrate_send = None  # (ticket) -> None, hands off to the sender
+        self._prefill_rate = 0.0  # tokens/s EWMA of the prefill chunks
+        self._block_bytes = 0  # bytes one shipped block carries (lazy)
+        self.migrated_out = 0
+        self.requeued = 0  # migrations handed back for recompute-resume
         self._queue: "queue.Queue[_Group | None]" = queue.Queue()
         self._waiting: list = []
         # Guards submit's closed-check + enqueue against _fail_all's drain.
@@ -212,7 +257,8 @@ class DecodePool:
         self.cow_copies = 0
         # Host-clock totals of the dispatches, each ending in a host sync.
         self.stats = {"prefill_s": 0.0, "prefill_tokens": 0,
-                      "decode_s": 0.0, "decode_tokens": 0}
+                      "decode_s": 0.0, "decode_tokens": 0, **dict.fromkeys(FLEET_STATS, 0)}
+        self._stats_lock = threading.Lock()
         self._thread = threading.Thread(target=self._serve_loop, name="decode-pool", daemon=True)
         self._thread.start()
 
@@ -235,6 +281,118 @@ class DecodePool:
     def shared_count(self) -> int:
         """Blocks mapped by more than one lane."""
         return self._alloc.shared_count()
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to ``stats[name]`` (thread-safe)."""
+        with self._stats_lock:
+            self.stats[name] += n
+
+    # ------------------------------------- fleet cache / migration plumbing
+
+    def run_op(self, fn) -> Future:
+        """Run ``fn()`` on the serve thread before its next step
+        (thread-safe): every touch of the allocator or the cache from
+        another thread goes through here."""
+        fut: Future = Future()
+        with self._ops_lock:
+            if self._closed:
+                fut.set_exception(RuntimeError("pool is closed"))
+                return fut
+            self._ops.append((fn, fut))
+        self._queue.put(_WAKE)
+        return fut
+
+    def _drain_ops(self) -> None:
+        while True:
+            with self._ops_lock:
+                if not self._ops:
+                    return
+                fn, fut = self._ops.pop(0)
+            if not fut.set_running_or_notify_cancel():
+                continue
+            try:
+                fut.set_result(fn())
+            except Exception as exc:  # noqa: BLE001 — delivered to the caller
+                fut.set_exception(exc)
+
+    def serve_chain(self, hashes: list) -> Future:
+        """Resolve the longest cached prefix of ``hashes`` and extract its
+        blocks (every leaf, int8 scales included). Resolves to
+        ``{"hashes", "leaves"}``, or None when nothing is cached."""
+        return self.run_op(lambda: self._op_serve_chain(list(hashes)))
+
+    def inject_chain(self, hashes: list, leaves: dict, weight_round, weight_generation) -> Future:
+        """Land shipped blocks (one run of ``block_size`` rows per hash) as
+        registered, unreferenced cache entries. Resolves to the number of
+        blocks landed; raises :class:`StaleBlockGeneration` when the stamp
+        is not this pool's."""
+        return self.run_op(lambda: self._op_inject_chain(
+            list(hashes), leaves, weight_round, weight_generation))
+
+    def set_migrate_hooks(self, policy, send) -> None:
+        """The worker's preemption hooks: ``policy(est_bytes, resume_tokens)
+        -> target | None`` picks transfer or recompute, ``send(ticket)``
+        hands the ticket to the sender. Both run on the serve thread and
+        must not block."""
+        self._migrate_policy = policy
+        self._migrate_send = send
+
+    def _block_nbytes(self) -> int:
+        """Bytes one shipped block carries, over every pool leaf."""
+        if not self._block_bytes:
+            self._block_bytes = sum(
+                self.block_size * leaf[0].numel() * leaf.element_size()
+                for leaf in pool_leaves(self._cache).values())
+        return self._block_bytes
+
+    def prefill_cost_s(self, tokens: int) -> "float | None":
+        """Seconds to prefill ``tokens`` here at the measured prefill rate;
+        None before the first prefill chunk was timed."""
+        rate = self._prefill_rate
+        return tokens / rate if rate > 0 else None
+
+    def _op_serve_chain(self, hashes: list) -> "dict | None":
+        if not self.prefix_cache:
+            raise RuntimeError("chain serving requires the prefix cache")
+        ids = self._alloc.resolve_chain(hashes)
+        if not ids:
+            return None
+        return {"hashes": list(hashes[: len(ids)]),
+                "leaves": extract_blocks(self._cache, ids, self.block_size)}
+
+    def _op_inject_chain(self, hashes: list, leaves: dict, wr, wg) -> int:
+        if not self.prefix_cache:
+            raise RuntimeError("chain injection requires the prefix cache")
+        if (wr, wg) != self.weight_state():
+            raise StaleBlockGeneration(
+                f"shipped blocks stamped {(wr, wg)}, pool serves {self.weight_state()}")
+        bs, n = self.block_size, len(hashes)
+        taken: list = []  # (block, hash)
+        rows: list = []  # which of the shipped row runs
+        for i, h in enumerate(hashes):
+            if self._alloc.block_for(h) is not None:
+                continue  # already cached
+            if self._lane_rows and self._alloc.free_count() <= max(self.reserve_blocks, 0):
+                break  # warming the cache must not starve live lanes
+            b = self._alloc.alloc()
+            if b is None:
+                break
+            taken.append((b, h))
+            rows.append(i)
+        if not taken:
+            return 0
+        sub = {key: a.reshape(n, bs, *a.shape[1:])[rows].reshape(len(rows) * bs, *a.shape[1:])
+               for key, a in leaves.items()}
+        insert_blocks(self._cache, [b for b, _ in taken], sub, bs)
+        for b, h in taken:
+            self._alloc.register(b, h)
+            self._alloc.release(b)  # unreferenced and registered: parks in the LRU
+        return len(taken)
+
+    def weight_state(self) -> tuple:
+        """The serving (round, generation): ``(None, None)`` until live
+        weight swap is ported, as the JAX pool's before its first swap."""
+        return None, None
 
     # ------------------------------------------------------------ public
 
@@ -304,9 +462,14 @@ class DecodePool:
                     item = self._queue.get_nowait()
                 except queue.Empty:
                     break
-                if item is not None:
+                if item is not None and item is not _WAKE:
                     self._waiting.append(item)
             self._backlog = 0
+        with self._ops_lock:
+            ops, self._ops = self._ops, []
+        for _fn, fut in ops:
+            if not fut.done():
+                fut.set_exception(exc)
         for g in self._waiting:
             if not g.fut.done():
                 g.fut.set_exception(exc)
@@ -344,13 +507,15 @@ class DecodePool:
                 if item is None:
                     stop = True
                     break
-                self._waiting.append(item)
+                if item is not _WAKE:
+                    self._waiting.append(item)
                 item = self._queue.get_nowait()
         except queue.Empty:
             pass
         if stop:
             self._fail_all(RuntimeError("pool is closed"))
             return False
+        self._drain_ops()
         self._step_paged()
         return True
 
@@ -366,6 +531,8 @@ class DecodePool:
         if dec:
             self._run_decode_chunk(dec)
             self._finish_paged()
+        if self.fleet_cache:
+            self.fleet_digest = self._alloc.hot_chains(self.digest_k)
 
     def _admit_paged(self) -> None:
         """FIFO block-granular admission above the watermark reserve. With
@@ -450,7 +617,13 @@ class DecodePool:
         self._push_rowvars()
         logits = self._model(torch.from_numpy(toks).to(self._device), self._cache)
         nxt_host = logits.argmax(dim=-1).cpu().numpy()  # [slots, P] per-column greedy
-        self.stats["prefill_s"] += time.perf_counter() - t0
+        dt = time.perf_counter() - t0  # ends in the host sync: device time included
+        self.stats["prefill_s"] += dt
+        if dt > 0:
+            # The recompute side of the transfer-vs-recompute policy.
+            rate = P * len(pre) / dt
+            self._prefill_rate = rate if self._prefill_rate == 0 else (
+                0.7 * self._prefill_rate + 0.3 * rate)
         self.prefill_chunks += 1
         for r in pre:
             base = r.pos
@@ -560,7 +733,10 @@ class DecodePool:
     def _preempt(self, group: _Group) -> None:
         """Free the group's lanes and blocks and park it at the head of the
         queue; it resumes by recompute with its emitted tokens (from the
-        cached prefix, with the prefix cache on)."""
+        cached prefix, with the prefix cache on). With KV migration on, a
+        single-prompt group the policy ships leaves the pool instead."""
+        if self._try_migrate(group):
+            return
         for r in list(group.rows.values()):
             if r.slot >= 0 and not r.done:
                 self._release_lane(r, register=True)
@@ -568,6 +744,67 @@ class DecodePool:
         with self._submit_lock:
             self._backlog += 1
         self.preemptions += 1
+
+    def _try_migrate(self, group: _Group) -> bool:
+        """Ship a preemption victim instead of requeueing it. Single-prompt
+        groups with at least one full block only. True: the group left
+        this pool's books and the sender owns its future."""
+        if not (self.kv_migration and self._migrate_policy is not None
+                and self._migrate_send is not None and len(group.prompts) == 1):
+            return False
+        r = group.rows.get(0)
+        if r is None or r.slot < 0 or r.done:
+            return False
+        bs = self.block_size
+        full = r.prompt + r.emitted
+        nfull = min(min(r.pos, len(full)) // bs, len(r.blocks))
+        if nfull <= 0:
+            return False  # nothing computed worth shipping
+        try:
+            target = self._migrate_policy(nfull * self._block_nbytes(), len(full))
+        except Exception:  # noqa: BLE001 — the policy is the worker's hook
+            log.exception("migrate policy failed; recompute-resume")
+            return False
+        if target is None:
+            return False  # recompute wins, or no target named yet
+        wr, wg = self.weight_state()
+        ticket = {
+            "group": group, "prompt": list(r.prompt), "emitted": list(r.emitted),
+            "budget": max(r.budget - len(r.emitted), 0),
+            "hashes": chain_hashes(full, bs)[:nfull], "block_size": bs,
+            "leaves": extract_blocks(self._cache, r.blocks[:nfull], bs),
+            "weight_round": wr, "weight_generation": wg, "target": target,
+        }
+        self._release_lane(r, register=True)
+        self.preemptions += 1
+        self.migrated_out += 1
+        try:
+            self._migrate_send(ticket)
+        except Exception:  # noqa: BLE001 — the sender is the worker's hook
+            log.exception("migrate send failed; recompute-resume")
+            self.requeue_migrated(group)
+        return True
+
+    def requeue_migrated(self, group: _Group) -> None:
+        """Any thread: a migration failed (refused, busy, link down); the
+        group goes back to the serve loop for recompute-resume."""
+        with self._submit_lock:
+            if self._closed:
+                if not group.fut.done():
+                    group.fut.set_exception(RuntimeError("pool is closed"))
+                return
+            self._backlog += 1
+            self.requeued += 1
+            self._queue.put(group)
+
+    def complete_migrated(self, group: _Group, tokens: list) -> None:
+        """Any thread: the target decoded the rest of the budget; the
+        group's answer is the tokens emitted here and the continuation."""
+        r = group.rows[0]
+        r.emitted = list(r.emitted) + [int(t) for t in tokens]
+        r.done = True
+        if not group.fut.done():
+            group.fut.set_result([r.emitted])
 
     def _run_decode_chunk(self, dec: list) -> None:
         K = self.steps_per_call

@@ -8,8 +8,8 @@ form (``{"_t": class name, ...}`` for a dataclass, ``{"_e": enum name,
 keys, optional ``None`` fields omitted) are the JAX package's, and
 ``encode`` / ``decode`` put that form through the port's CBOR codec, so a
 message is the same bytes in both packages (``tests/test_torch_codec.py``).
-A message of a subsystem that is not ported (the fleet block plane, live
-weight follow, elastic membership) has no class here and does not decode.
+A message of a subsystem that is not ported (live weight follow, elastic
+membership) has no class here and does not decode.
 """
 
 from __future__ import annotations
@@ -29,13 +29,14 @@ __all__ = [
     "Executor", "ExecutorDescriptor", "Fetch", "FragmentTag", "GenerateRequest", "GenerateResponse",
     "HealthRequest", "HealthResponse", "InferExecutorConfig", "JobSpec",
     "JobStatus", "Loss", "LRScheduler", "LRSchedulerKind", "ModelType", "Nesterov",
+    "BlockChain", "BlockPull", "MigrateAck", "MigrateRequest",
     "PriceRange", "Progress", "ProgressKind", "ProgressResponse", "ProgressResponseKind",
     "Receive", "Reference", "RenewLease", "RenewLeaseResponse", "RequestWorker",
     "SchedulerHello", "Send", "ServeLoad", "ServeLoadAck", "ShardMap", "TrainExecutorConfig",
     "TransferStrategy",
     "WorkerOffer", "WorkerSpec", "decode", "encode", "from_json_dict", "to_json_dict",
     "PROTOCOL_API", "PROTOCOL_GENERATE", "PROTOCOL_HEALTH", "PROTOCOL_PROGRESS",
-    "PROTOCOL_SERVE", "TOPIC_WORKER",
+    "PROTOCOL_BLOCKS", "PROTOCOL_SERVE", "TOPIC_WORKER",
     "CODEC_KEY", "TRAIN_EXECUTOR_NAME", "AGGREGATE_EXECUTOR_NAME", "INFER_EXECUTOR_NAME",
 ]
 
@@ -47,6 +48,9 @@ PROTOCOL_PROGRESS = "/hypha-progress/0.0.1"
 PROTOCOL_GENERATE = "/hypha-generate/0.0.1"
 # The request router's load heartbeats (ServeLoad -> ServeLoadAck).
 PROTOCOL_SERVE = "/hypha-serve/0.0.1"
+# The fleet KV-block plane: prefix-chain pulls (BlockPull -> BlockChain) and
+# preempted-request migration (MigrateRequest -> MigrateAck).
+PROTOCOL_BLOCKS = "/hypha-blocks/0.0.1"
 # The gossip topic of the auction's RequestWorker ads.
 TOPIC_WORKER = "hypha/worker"
 
@@ -517,9 +521,10 @@ class GenerateResponse:
 class ServeLoad:
     """Serving worker -> request router heartbeat (``PROTOCOL_SERVE``): the
     pool's admission headroom on the router's liveness signal. The first
-    one tells the router the backend is ready. The ``None`` fields belong
-    to subsystems the port does not run (live weight swap, the fleet
-    cache): a port backend leaves them unset, so they stay off the wire."""
+    one tells the router the backend is ready. ``cache_digest`` is the
+    fleet cache's top-K ``[chain_hash, hits]`` list (``None`` with it off);
+    the weight stamps belong to live weight swap, which the port does not
+    run, so a port backend leaves them unset and off the wire."""
 
     job_id: str = ""
     serve_name: str = ""
@@ -536,12 +541,76 @@ class ServeLoad:
 @_register
 @dataclass(slots=True)
 class ServeLoadAck:
-    """The router's answer to a heartbeat; ``migrate_*`` (the KV migration
-    target) stays ``None`` in the port."""
+    """The router's answer to a heartbeat; with KV migration on it names
+    the least-loaded other backend in ``migrate_*``, the target a worker
+    ships a preempted request to (``None`` otherwise, off the wire)."""
 
     ok: bool = True
     migrate_peer: str | None = None
     migrate_serve: str | None = None
+
+
+@_register
+@dataclass(slots=True)
+class BlockPull:
+    """Fleet prefix cache: puller -> holder (``PROTOCOL_BLOCKS``).
+    ``chain_hashes`` is the prompt's root-first chain; the holder serves
+    its longest cached prefix. The stamp is the puller's serving weights:
+    a holder on other weights refuses."""
+
+    serve_name: str = ""
+    chain_hashes: list | None = None  # list[int], root first
+    weight_round: int | None = None
+    weight_generation: int | None = None
+
+
+@_register
+@dataclass(slots=True)
+class BlockChain:
+    """Fleet prefix cache: holder -> puller. ``leaves`` maps each pool
+    leaf's tree path to ``[raw bytes, dtype, shape]`` (``ops.kvcache.
+    leaves_to_wire``), ``block_size`` rows per hash of ``hashes``."""
+
+    ok: bool = True
+    chain_hash: int | None = None  # deepest served hash (= hashes[-1])
+    hashes: list | None = None  # list[int], root first
+    block_size: int | None = None
+    leaves: dict | None = None
+    weight_round: int | None = None
+    weight_generation: int | None = None
+    error: str | None = None  # ok=False: "stale-generation" | "not-cached" | ...
+
+
+@_register
+@dataclass(slots=True)
+class MigrateRequest:
+    """KV migration: preempting worker -> the router-named target. The
+    full blocks (``BlockChain``'s ``leaves`` encoding), their chain
+    hashes, the prompt, the tokens emitted so far and the remaining
+    budget; the target injects the blocks and admits ``prompt + emitted``
+    as a prefix hit."""
+
+    serve_name: str = ""
+    prompt: list | None = None
+    emitted: list | None = None
+    budget: int | None = None
+    chain_hashes: list | None = None
+    block_size: int | None = None
+    leaves: dict | None = None
+    weight_round: int | None = None
+    weight_generation: int | None = None
+
+
+@_register
+@dataclass(slots=True)
+class MigrateAck:
+    """KV migration: target -> source. ``tokens`` is the continuation;
+    ``ok=False`` sends the source down its recompute-resume path."""
+
+    ok: bool = True
+    tokens: list | None = None
+    error: str | None = None
+    retry_after_ms: float | None = None
 
 
 @_register

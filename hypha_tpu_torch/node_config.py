@@ -592,9 +592,6 @@ class JobSection:
         for name, value, label in (
             ("metrics_plane", self.metrics_plane, "telemetry"),
             ("slo_rules", self.slo_rules, "telemetry"),
-            ("serve_fleet_cache", self.serve_fleet_cache, "fleet cache and KV migration"),
-            ("serve_kv_migration", self.serve_kv_migration, "fleet cache and KV migration"),
-            ("serve_digest_k", self.serve_digest_k != 32, "fleet cache and KV migration"),
             ("serve_spec_ngram", self.serve_spec_ngram, "speculative decoding"),
             ("serve_spec_draft", self.serve_spec_draft, "speculative decoding"),
             ("serve_spec_layers", self.serve_spec_layers, "speculative decoding"),

@@ -25,13 +25,23 @@ Three modes, as in the reference:
 The pool tensors are updated in place (the JAX package returns new
 arrays); the pool host overwrites ``idx``/``start``/``table`` in place
 before every dispatch.
+
+The fleet prefix cache and KV migration ship whole blocks between pools
+(``extract_blocks`` / ``insert_blocks``), keyed by the JAX cache's tree
+paths (``"['layers_{i}']['self_attn']['k']"``, ``'v'``, ``'k_scale'``,
+``'v_scale'``) and in its order, so a JAX pool and a port pool land each
+other's blocks; ``leaves_to_wire`` / ``leaves_from_wire`` carry them as
+``[raw bytes, dtype name, shape]`` with the JAX package's dtype names.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["KVCache", "KV_QMAX", "copy_blocks"]
+__all__ = [
+    "KVCache", "KV_QMAX", "copy_blocks", "extract_blocks", "insert_blocks", "pool_leaves",
+    "leaves_to_wire", "leaves_from_wire", "leaves_nbytes",
+]
 
 # int8 KV rows: payload in [-127, 127], scale = maxabs / 127; zero or
 # non-finite rows store an all-zero payload with a zero scale.
@@ -41,6 +51,10 @@ KV_QMAX = 127.0
 # The pool tensors a block copy moves: the K/V payloads and, in int8 mode,
 # their per-row scales, which are laid out row-parallel to the payloads.
 _POOL_LEAVES = ("k", "v", "k_scale", "v_scale")
+# Wire dtype names (numpy's, as the JAX package writes them) and back.
+_WIRE_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+                torch.float16: "float16", torch.int8: "int8"}
+_FROM_WIRE = {name: dtype for dtype, name in _WIRE_DTYPES.items()}
 
 
 def _quantize_rows(x: torch.Tensor) -> tuple:
@@ -224,3 +238,70 @@ def copy_blocks(cache: KVCache, src, dst, block_size: int) -> KVCache:
         for leaf in getattr(cache, name) or ():
             leaf[rows["dst"]] = leaf[rows["src"]]
     return cache
+
+
+def _block_rows(ids, block_size: int, device) -> torch.Tensor:
+    ids = torch.as_tensor(list(ids), dtype=torch.int64, device=device).reshape(-1)
+    return (ids[:, None] * block_size + torch.arange(block_size, device=device)[None, :]).reshape(-1)
+
+
+def pool_leaves(cache: KVCache) -> dict:
+    """``{tree path: pool tensor}`` of every paged pool leaf, in the
+    order the JAX package walks its cache tree (sorted paths)."""
+    found = {}
+    for name in _POOL_LEAVES:
+        for layer, leaf in enumerate(getattr(cache, name) or ()):
+            found[f"['layers_{layer}']['self_attn']['{name}']"] = leaf
+    return dict(sorted(found.items()))
+
+
+def extract_blocks(cache: KVCache, ids, block_size: int) -> dict:
+    """Gather whole physical blocks ``ids`` (root first) out of every pool
+    leaf as host tensors: ``{tree path: rows}``, ``len(ids) * block_size``
+    rows each in chain order, int8 payloads with their scale rows.
+    Counterpart of the JAX ``extract_blocks`` (an indexed copy)."""
+    rows = _block_rows(ids, block_size, cache.k[0].device)
+    return {key: leaf[rows].cpu() for key, leaf in pool_leaves(cache).items()}
+
+
+def insert_blocks(cache: KVCache, ids, leaves: dict, block_size: int) -> KVCache:
+    """Scatter shipped rows (``extract_blocks``' layout) into the pool
+    leaves at physical blocks ``ids``, cast to each leaf's dtype. A leaf
+    that is missing on either side is skipped, as in the JAX package. In
+    place; returns ``cache``."""
+    rows = _block_rows(ids, block_size, cache.k[0].device)
+    for key, leaf in pool_leaves(cache).items():
+        data = leaves.get(key)
+        if data is not None:
+            leaf[rows] = torch.as_tensor(data).to(device=leaf.device, dtype=leaf.dtype)
+    return cache
+
+
+def leaves_to_wire(leaves: dict) -> dict:
+    """``{tree path: [raw bytes, dtype name, shape]}`` for ``BlockChain`` /
+    ``MigrateRequest``: the rows' bytes verbatim."""
+    out = {}
+    for key, t in leaves.items():
+        t = t.detach().cpu().contiguous()
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        out[key] = [raw, _WIRE_DTYPES[t.dtype], list(t.shape)]
+    return out
+
+
+def leaves_from_wire(wire: dict) -> dict:
+    """The inverse of :func:`leaves_to_wire`, as host tensors. bf16 bytes
+    decode through torch (numpy has no bf16)."""
+    out = {}
+    for key, (raw, dtype, shape) in wire.items():
+        dt = _FROM_WIRE[dtype]
+        if not raw:
+            out[key] = torch.empty(shape, dtype=dt)
+            continue
+        out[key] = torch.frombuffer(bytearray(raw), dtype=torch.uint8).view(dt).reshape(shape)
+    return out
+
+
+def leaves_nbytes(leaves: dict) -> int:
+    """Payload bytes of a leaf dict (the transfer-vs-recompute policy's
+    byte count)."""
+    return int(sum(t.numel() * t.element_size() for t in leaves.values()))

@@ -31,17 +31,25 @@ router**, as in the reference:
   the front, unless it is more than ``AFFINITY_SKEW`` requests deeper than
   the best one. The owner is ``max(..., key=hash((key, name)))``, as in the
   reference: Python salts string hashes per process, so the owner is
-  stable within one router process only.
+  stable within one router process only;
+* ``fleet_cache``: backends send a digest of their hottest cached chains
+  on each heartbeat; the router folds them into a directory (backend ->
+  ``{chain hash: hits}``), routes a prompt to the backend that holds its
+  deepest chain (the same skew guard; the rendezvous owner when nobody
+  holds it), and when load sends it elsewhere stamps ``pull_peer`` /
+  ``pull_serve`` so the landing backend pulls the blocks from the holder;
+* ``kv_migration``: each heartbeat ack names the least-loaded other fresh
+  backend, where the backend ships a request it preempts.
 
 The reference's timing and affinity knobs are constants here, at the
 reference's defaults, which its CLI always uses. ``num_workers=1``
 without ``route`` dispatches the single-deployment wire
 (``load_report_s = 0``, the public name); the backend announces itself and
-clients reach it directly. The fleet cache and KV migration, the metrics
-plane and live weight swap raise naming their labels. Where the reference
-bumps its serving metrics, this class keeps plain counters (``routed``,
-``rejected``, ``affinity_routed``, ``redeployments``, ``ejections``) and
-logs them when it stops.
+clients reach it directly. The metrics plane and live weight swap raise
+naming their labels. Where the reference bumps its serving metrics, this
+class keeps plain counters (``routed``, ``rejected``, ``affinity_routed``,
+``redeployments``, ``ejections``, and the directory's ``directory_entries``)
+and logs them when it stops.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ import uuid
 from dataclasses import dataclass
 
 from .. import aio
+from ..executor.block_cache import chain_hashes
 from ..ft.detector import PhiAccrualDetector
 from ..messages import (
     INFER_EXECUTOR_NAME,
@@ -146,14 +155,13 @@ class ServingSupervisor:
         pool_spec_layers: int = 0,
         fleet_cache: bool = False,
         kv_migration: bool = False,
+        fleet_digest_k: int = 32,
         prefix_affinity: bool = False,
         eos_token_id: "int | None" = None,
         report_metrics_s: "float | None" = None,
         metrics=None,
         serve_follow_rounds=None,
     ) -> None:
-        if fleet_cache or kv_migration:
-            _refuse("fleet_cache / kv_migration", "fleet cache and KV migration")
         if report_metrics_s or metrics is not None:
             _refuse("report_metrics_s / metrics", "telemetry")
         if serve_follow_rounds is not None:
@@ -178,11 +186,20 @@ class ServingSupervisor:
             pool_ragged=pool_ragged,
             pool_kv_quant=pool_kv_quant,
             pool_spec_layers=pool_spec_layers,
+            # None when off, so the dispatched config stays byte-identical.
+            pool_fleet_cache=True if fleet_cache else None,
+            pool_kv_migration=True if kv_migration else None,
+            fleet_digest_k=int(fleet_digest_k) if fleet_cache else None,
             queue_limit=queue_limit,
             eos_token_id=eos_token_id,
             load_report_s=LOAD_REPORT_S if self.route else 0.0,
         )
         self.prefix_affinity = bool(prefix_affinity)
+        # The fleet cache's directory: backend name -> {chain hash: hits},
+        # replaced whole by each heartbeat's digest.
+        self.fleet_cache = bool(fleet_cache)
+        self.kv_migration = bool(kv_migration)
+        self._digests: dict = {}
         self.queue_limit = max(int(queue_limit), 0)
         self._resources = resources or Resources(gpu=1.0, memory=100.0)
         self._price = price or PriceRange(bid=1.0, max=10.0)
@@ -270,6 +287,8 @@ class ServingSupervisor:
                         await self._teardown(dep)
                         self._deployments[dep.slot] = None
         finally:
+            # Counted before the teardowns empty the directory.
+            log.info("serving %s router: %s", self.serve_name, json.dumps(self.counters()))
             await aio.reap(eject_task)
             for dep in self._deployments:
                 if dep is not None:
@@ -285,7 +304,6 @@ class ServingSupervisor:
                     pass
                 self._announced = False
             self._router.close()
-            log.info("serving %s router: %s", self.serve_name, json.dumps(self.counters()))
 
     async def stop(self) -> None:
         self._stop.set()
@@ -294,7 +312,8 @@ class ServingSupervisor:
         """The plain counters the reference keeps as serving metrics."""
         return {"routed": self.routed, "rejected": self.rejected,
                 "affinity_routed": self.affinity_routed,
-                "redeployments": self.redeployments, "ejections": self.ejections}
+                "redeployments": self.redeployments, "ejections": self.ejections,
+                "directory_entries": sum(len(d) for d in self._digests.values())}
 
     # ------------------------------------------------------------- routing
 
@@ -306,15 +325,67 @@ class ServingSupervisor:
         blocks. Only called on backends whose ``load`` is set."""
         return (dep.load.queue_depth + dep.inflight, -dep.load.free_blocks)
 
+    def _req_hashes(self, req: GenerateRequest) -> list:
+        """The chain hashes of the request's first prompt, the directory's
+        keys; empty with the fleet cache off or no digest yet."""
+        bs = self._config.pool_block_size or 0
+        if not self.fleet_cache or bs <= 0 or not self._digests or not req.prompts:
+            return []
+        return chain_hashes(list(req.prompts[0]), bs)
+
+    def _chain_depth(self, backend_name: str, hashes: list) -> int:
+        """How many leading blocks of ``hashes`` the backend advertises (a
+        chain hash implies its whole prefix)."""
+        dig = self._digests.get(backend_name)
+        if not dig:
+            return 0
+        for i in range(len(hashes), 0, -1):
+            if hashes[i - 1] in dig:
+                return i
+        return 0
+
+    def _directory_owner(self, backends: list, hashes: list):
+        """The backend holding the deepest chain of the prompt per the
+        digests, ties to the least loaded; None when nobody holds one."""
+        best, best_depth = None, 0
+        for d in backends:
+            depth = self._chain_depth(d.backend_name, hashes)
+            if depth > best_depth or (
+                depth == best_depth and depth > 0 and self._score(d) < self._score(best)
+            ):
+                best, best_depth = d, depth
+        return best
+
+    def _pull_source(self, dep: _Deployment, hashes: list):
+        """``(peer id, backend name)`` of a backend other than ``dep`` that
+        holds a strictly deeper chain of the prompt, or None."""
+        if not hashes:
+            return None
+        best, best_depth = None, self._chain_depth(dep.backend_name, hashes)
+        for d in self._live_backends():
+            if d is dep or d.load is None:
+                continue
+            depth = self._chain_depth(d.backend_name, hashes)
+            if depth > best_depth:
+                best, best_depth = d, depth
+        if best is None:
+            return None
+        return best.handle.peer_id, best.backend_name
+
     def _apply_affinity(self, backends: list, req: GenerateRequest) -> list:
         """Move the backend that owns this prompt's prefix to the front of
         the least-loaded order, unless it is more than ``AFFINITY_SKEW``
-        requests deeper than the best one (the fleet cache's directory
-        owner, which the reference tries first, is not ported)."""
-        if len(backends) < 2 or not req.prompts or not self.prefix_affinity:
+        requests deeper than the best one. The owner is the directory's
+        holder of the prompt's deepest chain, else (with
+        ``prefix_affinity``) the rendezvous owner."""
+        if len(backends) < 2 or not req.prompts:
             return backends
-        key = tuple(req.prompts[0][:AFFINITY_TOKENS])
-        owner = max(backends, key=lambda d: hash((key, d.backend_name)))
+        owner = self._directory_owner(backends, self._req_hashes(req))
+        if owner is None:
+            if not self.prefix_affinity:
+                return backends
+            key = tuple(req.prompts[0][:AFFINITY_TOKENS])
+            owner = max(backends, key=lambda d: hash((key, d.backend_name)))
         best = backends[0]  # already sorted by _score
         depth = lambda d: d.load.queue_depth + d.inflight  # noqa: E731
         if depth(owner) - depth(best) > AFFINITY_SKEW:
@@ -348,8 +419,14 @@ class ServingSupervisor:
                 )
         busy_hint = 0.0
         last: "Exception | None" = None
+        req_hashes = self._req_hashes(req)
         for dep in backends:
-            fwd = dataclasses.replace(req, serve_name=dep.backend_name)
+            # Not the deepest holder: name the holder to pull from (None,
+            # off the wire, with no holder or the fleet cache off).
+            pull = self._pull_source(dep, req_hashes)
+            fwd = dataclasses.replace(
+                req, serve_name=dep.backend_name,
+                pull_peer=pull[0] if pull else None, pull_serve=pull[1] if pull else None)
             dep.inflight += 1
             try:
                 resp = await self.node.request(
@@ -376,8 +453,27 @@ class ServingSupervisor:
                 dep.load = load
                 dep.load_at = time.monotonic()
                 self._detector.heartbeat(peer)
-                return ServeLoadAck(ok=True)
+                if load.cache_digest is not None:
+                    # Replaced whole: a chain evicted there leaves the
+                    # directory at the next heartbeat.
+                    self._digests[dep.backend_name] = {
+                        int(h): int(c) for h, c in load.cache_digest}
+                return self._ack(dep)
         return ServeLoadAck(ok=False)  # a job already torn down
+
+    def _ack(self, dep: _Deployment) -> ServeLoadAck:
+        """The heartbeat's answer; with KV migration on it names the
+        least-loaded other fresh backend as the migration target."""
+        if not self.kv_migration:
+            return ServeLoadAck(ok=True)
+        now = time.monotonic()
+        others = [d for d in self._live_backends()
+                  if d is not dep and d.load is not None and now - d.load_at <= EJECT_GRACE_S]
+        if not others:
+            return ServeLoadAck(ok=True)
+        target = min(others, key=self._score)
+        return ServeLoadAck(ok=True, migrate_peer=target.handle.peer_id,
+                            migrate_serve=target.backend_name)
 
     async def _eject_loop(self) -> None:
         """Fail the lease handle of a backend whose heartbeats stopped; the
@@ -499,6 +595,8 @@ class ServingSupervisor:
         if dep.status_wait is not None:
             dep.status_wait.cancel()
         self._detector.remove(dep.handle.peer_id)
+        # Its cached chains went with it: no longer a pull source.
+        self._digests.pop(dep.backend_name, None)
         dep.task.close()
         try:  # stop serving now; lease expiry backstops a dead worker
             await self.node.request(

@@ -2,7 +2,8 @@
 ``hypha_tpu/worker/continuous.py``): greedy requests that fit go into the
 :class:`~hypha_tpu_torch.executor.pool.DecodePool`; sampled and oversized
 requests take the bounded one-shot fallback. The weight-swap passthroughs
-of the JAX ``PoolServer`` wait for the live-weight slice."""
+of the JAX ``PoolServer`` wait for the live-weight slice; until then the
+pool's ``weight_state`` is ``(None, None)``."""
 
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ class PoolServer:
         **pool_options: Any,
     ) -> None:
         self.pool = DecodePool(model, slots=slots, max_len=max_len, **pool_options)
+        self.fleet_cache = self.pool.fleet_cache
         self._run_fallback = run_fallback
         self._fallback_sem = asyncio.Semaphore(max(int(fallback_concurrency), 1))
         self._closed = False
@@ -47,17 +49,22 @@ class PoolServer:
     def load(self) -> dict:
         """Admission headroom, as the JAX server reports it on ``ServeLoad``
         heartbeats. The weight stamps stay ``None`` (live weight swap is
-        not ported) and no ``cache_digest`` is sent (nor is the fleet
-        cache), so those fields stay off the wire."""
-        return {
+        not ported), so they stay off the wire. With the fleet cache on,
+        ``cache_digest`` is the pool's top-K hot chains (``None`` while it
+        is empty); off, the key is absent and the heartbeat unchanged."""
+        weight_round, weight_generation = self.pool.weight_state()
+        out = {
             "queue_depth": self.pool.queue_depth(),
             "free_blocks": self.pool.free_blocks(),
             "live_requests": self.pool.live_rows(),
             "requests": self.requests,
             "rejections": self.rejections,
-            "weight_round": None,
-            "weight_generation": None,
+            "weight_round": weight_round,
+            "weight_generation": weight_generation,
         }
+        if self.fleet_cache:
+            out["cache_digest"] = self.pool.fleet_digest or None
+        return out
 
     async def submit(
         self, prompts: list, n_new: int, temperature: float, top_k: "int | None", seed: int,

@@ -14,16 +14,34 @@ dispatched it, once its handler is registered: the first heartbeat tells
 the router it is ready. It serves under the router's backend name
 (``<name>@<slot>``) and announces that name, not the public one.
 
+**Fleet prefix cache and KV migration** (``pool_fleet_cache`` /
+``pool_kv_migration``), as in the reference, on ``/hypha-blocks``: the
+heartbeat carries the pool's digest of hot chains; a request the router
+stamps with ``pull_peer`` first pulls its prompt's chain from that holder
+(``BlockPull`` -> ``BlockChain``) into the local prefix cache, unless the
+job's ``LinkTable`` says the link is slower than local prefill; any
+failure is a miss and admission re-prefills. The backend answers pulls
+for chains it holds (``handle_pull``) and, with migration on, takes
+preempted requests from other backends (``MigrateRequest``: inject the
+blocks, decode the rest, answer ``MigrateAck``); its own preempted
+single-prompt groups ship to the router-named target from the last
+heartbeat ack when the link beats recompute (``migrate_policy``), and come
+back for recompute-resume on any failure. One block plane frame carries a
+whole chain, so a chain past the fabric's ``MAX_FRAME`` fails to send and
+ends as such a miss or requeue, as in the reference. Each pull and
+migration, and each failure with its seconds, is logged.
+
 Each time the backend goes idle, and when the job ends, the executor
 logs ``serve launches: {...}``: the ragged kernel's launches by route
 since the job started, the plain attention calls, the pool's one-shot
 fallbacks and its requests; then ``serve cache: {...}``: the pool's
 prefill and decode chunks, preemptions, prefix-cache hit and missed
-blocks, copy-on-writes, the blocks cached and shared at that moment, and
-backpressure rejections; and on CUDA the peak device memory while
-serving (the load's peak and seconds are logged when the model is
-ready). The last of each line holds the job's totals. ``chip_smoke.py``
-reads them from the worker's output.
+blocks, copy-on-writes, the blocks cached and shared at that moment,
+backpressure rejections, and with the fleet cache or migration on the
+fleet counts (``FLEET_STATS``), migrations out and requeues; and on CUDA
+the peak device memory while serving (the load's peak and seconds are
+logged when the model is ready). The last of each line holds the job's
+totals. ``chip_smoke.py`` reads them from the worker's output.
 
 Clients: :func:`generate_remote` — find providers of ``serve:<name>``
 through the gateway registry, RPC the first reachable one.
@@ -45,16 +63,20 @@ from pathlib import Path
 import torch
 
 from .. import aio
+from ..executor.block_cache import chain_hashes
 from ..executor.generate import generate
-from ..executor.pool import PoolBusy
+from ..executor.pool import FLEET_STATS, PoolBusy, StaleBlockGeneration
 from ..executor.serialization import load_file
+from ..ft.adaptive import LinkTable
 from ..hw import default_device
 from ..messages import (
-    PROTOCOL_GENERATE, PROTOCOL_SERVE, GenerateRequest, GenerateResponse, JobSpec, ServeLoad,
+    PROTOCOL_BLOCKS, PROTOCOL_GENERATE, PROTOCOL_SERVE, BlockChain, BlockPull, GenerateRequest,
+    GenerateResponse, JobSpec, MigrateAck, MigrateRequest, ServeLoad,
 )
 from ..models.convert import llama_params_from_flat
 from ..models.registry import build_model
 from ..network.node import Node, RequestError
+from ..ops.kvcache import leaves_from_wire, leaves_nbytes, leaves_to_wire
 from ..ops.paged_attention import paged_attention, ragged_paged_attention
 from .batcher import RequestBatcher
 from .job_manager import Execution, JobExecutor
@@ -127,8 +149,6 @@ def _refuse_unported(cfg) -> None:
     """The JAX executor's subsystems this one does not run."""
     if cfg.serve_follow_rounds is not None:
         _refuse("serve_follow_rounds", "live weight swap")
-    if cfg.pool_fleet_cache or cfg.pool_kv_migration:
-        _refuse("pool_fleet_cache / pool_kv_migration", "fleet cache and KV migration")
     if cfg.report_metrics_s:
         _refuse("report_metrics_s", "telemetry")
 
@@ -181,17 +201,21 @@ class InProcessInferExecutor(JobExecutor):
 
         busy = {"requests": 0}
 
-        async def handle(peer: str, req: GenerateRequest) -> GenerateResponse:
+        async def logged(work):
+            """Await ``work`` (a request or a migrated one), logging the
+            counts so far each time the backend goes idle, before the
+            answer leaves: a worker that is killed later still leaves them
+            in its log."""
             busy["requests"] += 1
             try:
-                return await answer(req)
+                return await work
             finally:
                 busy["requests"] -= 1
                 if not busy["requests"]:
-                    # The counts so far each time the backend goes idle,
-                    # before the answer leaves: a worker that is killed
-                    # later still leaves them in its log.
                     self._log_launches(job_id, counts0, loaded.get("batcher"))
+
+        async def handle(peer: str, req: GenerateRequest) -> GenerateResponse:
+            return await logged(answer(req))
 
         async def answer(req: GenerateRequest) -> GenerateResponse:
             if len(req.prompts) > cfg.max_batch:
@@ -200,8 +224,6 @@ class InProcessInferExecutor(JobExecutor):
                 raise ValueError("prompts must be non-empty token id lists")
             if req.traceparent is not None:
                 _refuse("traceparent (serve trace spans)", "telemetry")
-            if req.pull_peer is not None:
-                _refuse("pull_peer (fleet prefix pulls)", "fleet cache and KV migration")
             n_new = min(int(req.max_new_tokens), cfg.max_new_tokens)
             temperature = cfg.temperature if req.temperature is None else req.temperature
             top_k = cfg.top_k if req.top_k is None else req.top_k
@@ -212,6 +234,13 @@ class InProcessInferExecutor(JobExecutor):
                     req.prompts, n_new, temperature, top_k, req.seed,
                 )
                 return GenerateResponse(tokens=tokens)
+            pool = getattr(batcher, "pool", None)
+            if (req.pull_peer and loaded.get("link") is not None and pool.fleet_cache
+                    and len(req.prompts) == 1 and temperature == 0.0):
+                # The router says this prompt's longest cached prefix lives
+                # elsewhere: pull the chain before admission, so the local
+                # prefix hit skips its prefill. A failure is a miss.
+                await self._fleet_pull(req, pool, loaded["link"])
             try:
                 tokens = await batcher.submit(req.prompts, n_new, temperature, top_k, req.seed)
             except PoolBusy as busy:
@@ -295,11 +324,17 @@ class InProcessInferExecutor(JobExecutor):
                     ragged=cfg.pool_ragged,
                     kv_quant=cfg.pool_kv_quant,
                     spec_layers=cfg.pool_spec_layers,
+                    fleet_cache=bool(cfg.pool_fleet_cache),
+                    kv_migration=bool(cfg.pool_kv_migration),
+                    digest_k=cfg.fleet_digest_k or 32,
                 )
             elif cfg.batch_window_ms >= 0:
                 loaded["batcher"] = self.batchers[job_id] = RequestBatcher(
                     fallback, max_batch=cfg.max_batch, window_s=cfg.batch_window_ms / 1e3,
                 )
+            pool = getattr(loaded.get("batcher"), "pool", None)
+            if pool is not None and (pool.fleet_cache or pool.kv_migration):
+                self._serve_blocks(cfg, pool, loaded, logged)
             loaded["reg"] = (
                 self.node.on(PROTOCOL_GENERATE, GenerateRequest)
                 .match(lambda m: m.serve_name == cfg.serve_name)
@@ -310,7 +345,8 @@ class InProcessInferExecutor(JobExecutor):
                 # Every scheduling mode heartbeats: the router takes the
                 # first ServeLoad as "ready", and the handler is in place.
                 loaded["reporter"] = aio.spawn(
-                    self._report_load(job_id, cfg, loaded.get("batcher"), scheduler_peer),
+                    self._report_load(job_id, cfg, loaded.get("batcher"), scheduler_peer,
+                                      loaded.get("hints")),
                     what="serve load reporter", logger=log,
                 )
 
@@ -319,8 +355,9 @@ class InProcessInferExecutor(JobExecutor):
         # A serving job runs until cancelled (or its lease expires).
         async def cancel() -> None:
             cancelled.set()
-            if loaded.get("reg") is not None:
-                loaded["reg"].close()
+            for reg in ("reg", "blocks", "migrate"):
+                if loaded.get(reg) is not None:
+                    loaded[reg].close()
             await aio.reap(loaded.get("reporter"))
             batcher = self.batchers.pop(job_id, None)
             if batcher is not None:
@@ -342,11 +379,200 @@ class InProcessInferExecutor(JobExecutor):
         execution.cancel = cancel  # type: ignore[method-assign]
         return execution
 
-    async def _report_load(self, job_id: str, cfg, batcher, scheduler_peer: str) -> None:
+    def _serve_blocks(self, cfg, pool, loaded: dict, logged) -> None:
+        """The job's block plane: one ``LinkTable`` (fleet pulls feed it;
+        the pull pre-check and the migration policy read it), the
+        ``BlockPull`` handler, and with migration on the ``MigrateRequest``
+        handler (its work counted as a request's by ``logged``) and the
+        pool's migration hooks."""
+        loaded["link"] = link = LinkTable()
+
+        async def handle_pull(peer: str, m: BlockPull) -> BlockChain:
+            wr, wg = pool.weight_state()
+            if (m.weight_round, m.weight_generation) != (wr, wg):
+                # KV computed under other weights must not be reused.
+                return BlockChain(ok=False, error="stale-generation",
+                                  weight_round=wr, weight_generation=wg)
+            try:
+                res = await asyncio.wrap_future(pool.serve_chain(m.chain_hashes or []))
+            except Exception as e:  # noqa: BLE001 — RPC boundary
+                return BlockChain(ok=False, error=str(e), weight_round=wr, weight_generation=wg)
+            if not res:
+                return BlockChain(ok=False, error="not-cached",
+                                  weight_round=wr, weight_generation=wg)
+            # Counted here, before the reply is framed, as the reference
+            # counts it: a reply past MAX_FRAME still counts as shipped.
+            pool.count("blocks_shipped", len(res["hashes"]))
+            pool.count("block_bytes_shipped", leaves_nbytes(res["leaves"]))
+            return BlockChain(
+                ok=True, chain_hash=res["hashes"][-1], hashes=res["hashes"],
+                block_size=pool.block_size, leaves=leaves_to_wire(res["leaves"]),
+                weight_round=wr, weight_generation=wg,
+            )
+
+        loaded["blocks"] = (
+            self.node.on(PROTOCOL_BLOCKS, BlockPull)
+            .match(lambda m: m.serve_name == cfg.serve_name)
+            .concurrency(8)
+            .respond_with(handle_pull)
+        )
+        if not pool.kv_migration:
+            return
+        loaded["hints"] = hints = {}
+        loop = asyncio.get_running_loop()
+
+        async def handle_migrate(peer: str, m: MigrateRequest) -> MigrateAck:
+            return await logged(take_migrated(m))
+
+        async def take_migrated(m: MigrateRequest) -> MigrateAck:
+            if m.block_size != pool.block_size:
+                return MigrateAck(ok=False, error="geometry-mismatch")
+            try:
+                await asyncio.wrap_future(pool.inject_chain(
+                    m.chain_hashes or [], leaves_from_wire(m.leaves or {}),
+                    m.weight_round, m.weight_generation))
+            except StaleBlockGeneration:
+                return MigrateAck(ok=False, error="stale-generation")
+            except Exception as e:  # noqa: BLE001 — RPC boundary
+                return MigrateAck(ok=False, error=str(e))
+            resume = list(m.prompt or []) + list(m.emitted or [])
+            try:
+                toks = await asyncio.wrap_future(pool.submit([resume], int(m.budget or 0)))
+            except PoolBusy as busy:
+                return MigrateAck(ok=False, error="busy",
+                                  retry_after_ms=busy.retry_after_s * 1e3)
+            except Exception as e:  # noqa: BLE001 — RPC boundary
+                return MigrateAck(ok=False, error=str(e))
+            return MigrateAck(ok=True, tokens=toks[0])
+
+        loaded["migrate"] = (
+            self.node.on(PROTOCOL_BLOCKS, MigrateRequest)
+            .match(lambda m: m.serve_name == cfg.serve_name)
+            .concurrency(4)
+            .respond_with(handle_migrate)
+        )
+
+        def migrate_policy(est_bytes: int, resume_tokens: int):
+            # On the serve thread: ship when the measured link moves the
+            # bytes faster than local prefill recomputes the tokens; an
+            # unmeasured link ships.
+            target = hints.get("peer")
+            if not target:
+                return None
+            bw = link.bandwidth_bps(target)
+            cost = pool.prefill_cost_s(resume_tokens)
+            if bw is not None and cost is not None and est_bytes * 8.0 / bw >= cost:
+                pool.count("recompute_chosen")
+                return None
+            pool.count("transfer_chosen")
+            return (target, hints.get("serve"))
+
+        def migrate_send(ticket: dict) -> None:
+            # Serve thread -> event loop: the sender owns the group now.
+            loop.call_soon_threadsafe(lambda: aio.spawn(
+                self._migrate_out(ticket, pool), what="kv migration", logger=log))
+
+        pool.set_migrate_hooks(migrate_policy, migrate_send)
+
+    async def _fleet_pull(self, req: GenerateRequest, pool, link) -> None:
+        """Pull the prompt's chain from the router-named holder into the
+        local prefix cache before admission. Every failure (the policy
+        picks recompute, the holder evicted the chain, a stale stamp, a
+        link error or an oversized frame) counts as a miss and admission
+        re-prefills."""
+        prompt = list(req.prompts[0])
+        hashes = chain_hashes(prompt, pool.block_size)
+        if not hashes:
+            return
+        # Transfer against recompute on the measured link; an unmeasured
+        # link pulls (the RPC seeds the estimate).
+        bw = link.bandwidth_bps(req.pull_peer)
+        cost = pool.prefill_cost_s(len(prompt))
+        est = len(hashes) * pool._block_nbytes()
+        if bw is not None and cost is not None and est * 8.0 / bw >= cost:
+            pool.count("recompute_chosen")
+            pool.count("remote_prefix_misses")
+            return
+        pool.count("transfer_chosen")
+        wr, wg = pool.weight_state()
+        t0 = time.perf_counter()
+        try:
+            resp = await self.node.request(
+                req.pull_peer, PROTOCOL_BLOCKS,
+                BlockPull(serve_name=req.pull_serve or "", chain_hashes=hashes,
+                          weight_round=wr, weight_generation=wg),
+                timeout=10.0,
+            )
+        except (RequestError, asyncio.TimeoutError, OSError) as e:
+            log.info("fleet pull from %s failed after %.3f s (%d blocks asked): %s",
+                     req.pull_peer, time.perf_counter() - t0, len(hashes), e)
+            pool.count("remote_prefix_misses")
+            return
+        rpc_s = time.perf_counter() - t0
+        if not getattr(resp, "ok", False) or not resp.hashes or resp.block_size != pool.block_size:
+            log.info("fleet pull from %s refused: %s", req.pull_peer, getattr(resp, "error", None))
+            pool.count("remote_prefix_misses")
+            return
+        leaves = leaves_from_wire(resp.leaves or {})
+        nbytes = leaves_nbytes(leaves)
+        bw = link.observe(req.pull_peer, nbytes, max(rpc_s, 1e-6))
+        try:
+            injected = await asyncio.wrap_future(pool.inject_chain(
+                resp.hashes, leaves, resp.weight_round, resp.weight_generation))
+        except Exception as e:  # noqa: BLE001 — a pull is best-effort
+            log.info("fleet inject from %s failed: %s", req.pull_peer, e)
+            pool.count("remote_prefix_misses")
+            return
+        log.info("fleet pull from %s: %d blocks, %d bytes in %.6f s; %d injected; "
+                 "link estimate %.1f bit/s", req.pull_peer, len(resp.hashes), nbytes, rpc_s,
+                 injected, bw)
+        if injected > 0:
+            pool.count("remote_prefix_hits", injected)
+        else:
+            pool.count("remote_prefix_misses")
+
+    async def _migrate_out(self, ticket: dict, pool) -> None:
+        """Ship one preempted request to the router-named target and
+        resolve its future with the target's continuation, or hand it back
+        to the pool for recompute-resume. This backend stays the client's
+        endpoint."""
+        group = ticket["group"]
+        peer, serve = ticket["target"]
+        nbytes = leaves_nbytes(ticket["leaves"])
+        t0 = time.perf_counter()
+        try:
+            msg = MigrateRequest(
+                serve_name=serve or "", prompt=ticket["prompt"], emitted=ticket["emitted"],
+                budget=ticket["budget"], chain_hashes=ticket["hashes"],
+                block_size=ticket["block_size"], leaves=leaves_to_wire(ticket["leaves"]),
+                weight_round=ticket["weight_round"],
+                weight_generation=ticket["weight_generation"],
+            )
+            ack = await self.node.request(peer, PROTOCOL_BLOCKS, msg, timeout=120.0)
+        except (RequestError, asyncio.TimeoutError, OSError) as e:
+            log.info("migration to %s failed after %.3f s (%d blocks, %d bytes): %s",
+                     peer, time.perf_counter() - t0, len(ticket["hashes"]), nbytes, e)
+            pool.requeue_migrated(group)
+            return
+        if not getattr(ack, "ok", False) or ack.tokens is None:
+            log.info("migration refused by %s: %s", peer, getattr(ack, "error", None))
+            pool.requeue_migrated(group)
+            return
+        log.info("migration to %s: %d blocks, %d bytes, acked in %.6f s with %d tokens",
+                 peer, len(ticket["hashes"]), nbytes, time.perf_counter() - t0, len(ack.tokens))
+        pool.count("migrations")
+        pool.count("blocks_shipped", len(ticket["hashes"]))
+        pool.count("block_bytes_shipped", nbytes)
+        pool.complete_migrated(group, ack.tokens)
+
+    async def _report_load(self, job_id: str, cfg, batcher, scheduler_peer: str,
+                           hints: "dict | None" = None) -> None:
         """Heartbeat the pool's admission headroom to the router: queue
         depth and free blocks ride the liveness signal its φ-accrual
-        ejector reads. Best-effort: a refused or lost heartbeat is logged
-        and serving goes on."""
+        ejector reads, with the fleet cache's digest when it is on.
+        Best-effort: a refused or lost heartbeat is logged and serving goes
+        on. With migration on, each ack's ``migrate_*`` names the target
+        the migration policy reads."""
         while True:
             await asyncio.sleep(cfg.load_report_s)
             if batcher is not None and hasattr(batcher, "load"):
@@ -357,7 +583,7 @@ class InProcessInferExecutor(JobExecutor):
                 stats = {"queue_depth": 0, "free_blocks": 0, "live_requests": 0,
                          "requests": getattr(batcher, "requests", 0), "rejections": 0}
             try:
-                await self.node.request(
+                ack = await self.node.request(
                     scheduler_peer, PROTOCOL_SERVE,
                     ServeLoad(
                         job_id=job_id, serve_name=cfg.serve_name,
@@ -366,14 +592,17 @@ class InProcessInferExecutor(JobExecutor):
                         live_requests=int(stats["live_requests"]),
                         requests=int(stats["requests"]),
                         rejections=int(stats["rejections"]),
-                        # None (live weight swap and the fleet cache are
-                        # not ported): left off the wire.
+                        # None (live weight swap is not ported; the fleet
+                        # cache off or empty): left off the wire.
                         weight_round=stats.get("weight_round"),
                         weight_generation=stats.get("weight_generation"),
                         cache_digest=stats.get("cache_digest"),
                     ),
                     timeout=max(cfg.load_report_s, 2.0),
                 )
+                if hints is not None and getattr(ack, "migrate_peer", None):
+                    hints["peer"] = ack.migrate_peer
+                    hints["serve"] = ack.migrate_serve
             except (RequestError, asyncio.TimeoutError, OSError) as e:
                 log.debug("serve load report for %s failed: %s", job_id, e)
 
@@ -389,6 +618,9 @@ class InProcessInferExecutor(JobExecutor):
                 "cow_copies")}
             cache.update(cached_blocks=pool.cached_count(), shared_blocks=pool.shared_count(),
                          rejections=batcher.rejections)
+            if pool.fleet_cache or pool.kv_migration:
+                cache.update({k: pool.stats[k] for k in FLEET_STATS},
+                             migrated_out=pool.migrated_out, requeued=pool.requeued)
             log.info("job %s serve cache: %s", job_id, json.dumps(cache))
         if self.device.type == "cuda":
             log.info("job %s peak device memory: %.3f GiB", job_id,

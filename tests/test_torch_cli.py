@@ -13,19 +13,26 @@ step's lr·(1+μ) = 1.33), and the port's process imports no JAX (its
 
 Then the CLI in-process (``main([... "--device", "cpu"])``, the job
 inline) and as a process reading ``--job @file``, behind the port's own
-Job Bridge with ``chip_smoke.py``'s scheduler and parameter-server
-stand-ins on the CPU; and without CUDA and with no ``--device`` the CLI
-refuses to start."""
+Job Bridge with stand-ins for the scheduler (``LocalNode``, on
+``chip_smoke.Scheduler``) and for the parameter server (``LocalConnector``,
+on ``chip_smoke.ps_round``, holding three tensors of the fold, the update
+and the momentum against the CPU's bit for bit) on the CPU; and without
+CUDA and with no ``--device`` the CLI refuses to start."""
 
 from __future__ import annotations
 
 import asyncio
 import json
 import logging
+import os
 import re
 import shutil
+import subprocess
 import sys
 import tempfile
+import threading
+import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -196,11 +203,182 @@ def test_mixed_job_torch_trainer_on_a_jax_worker(tmp_path, inputs, monkeypatch, 
             assert np.abs(got[k] - want).max() <= 0.07 * LR, (r, k)
 
 
+# Tensors whose fold and outer step are held against the CPU's, bit for bit.
+CHECK_NAMES = ("params/embed_tokens", "params/layers_0/self_attn/q_proj/kernel",
+               "params/norm/weight")
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype == torch.float32 and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+class LocalNode(chip_smoke.Scheduler):
+    """The scheduler behind the Job Bridge's ``/status/send``: the one node
+    method the bridge calls, answering as ``TrainSession`` does."""
+
+    async def request(self, peer, protocol, msg, timeout=30.0):
+        return self.answer(msg)
+
+
+class LocalConnector:
+    """The parameter server behind the Job Bridge, with the data slices.
+
+    ``fetch`` serves the slices in turn (and any other URI) through the
+    port's ``fetch_uri``; ``send`` runs ``ps_round`` over the pushed Δθ on
+    ``device``, holds three tensors of the sum, the update and the momentum
+    against the same on the CPU, bit for bit, and queues the update in the
+    trainer's ``incoming/``; ``receive`` yields the queued updates."""
+
+    def __init__(self, work_dir, server_dir, slices, *, outer, device):
+        self.work_dir, self.server_dir = Path(work_dir), Path(server_dir)
+        self.slices = list(slices)
+        self.outer, self.device = outer, device
+        self.fetches = 0
+        self.momentum = self.server_dir / "momentum.safetensors"
+        self.landed: asyncio.Queue = asyncio.Queue()
+        self.delta_specs: list = []  # {name: (dtype, shape)} of each Δθ file
+        self.times: list = []  # ps_round's seconds, a dict a round
+        self.serve_s: list = []
+        self.stats: list = []
+        self.cpu_mismatch: list = []
+
+    async def fetch(self, fetch, dest):
+        from hypha_tpu_torch.worker.connectors import fetch_uri
+
+        uri = fetch.ref.uri
+        if uri == "file:///slices":
+            uri = self.slices[self.fetches % len(self.slices)].as_uri()
+            self.fetches += 1
+        return [await asyncio.to_thread(fetch_uri, uri, dest)]
+
+    async def send(self, send, path, resource, meta=None):
+        await self.landed.put(await asyncio.to_thread(self.serve_round, Path(path), dict(meta or {})))
+
+    async def receive(self, receive, dest):
+        while True:
+            yield await self.landed.get()
+
+    def serve_round(self, path: Path, meta: dict):
+        from hypha_tpu_torch.executor.serialization import load_file, read_header, save_file
+        from hypha_tpu_torch.stream.accum import RoundAccum
+        from hypha_tpu_torch.worker.connectors import ReceivedFile
+        from hypha_tpu_torch.worker.ps_executor import outer_step
+
+        t_start = time.perf_counter()
+        r, samples = int(meta["round"]), float(meta["num_samples"])
+        self.delta_specs.append({k: (v["dtype"], tuple(v["shape"]))
+                                 for k, v in read_header(path)[0].items()})
+        check = self.server_dir / "cpu-check"
+        check.mkdir(parents=True, exist_ok=True)
+        if self.momentum.is_file():  # this round's momentum, for the CPU's step
+            save_file(load_file(self.momentum, CHECK_NAMES), check / "momentum.safetensors")
+        out, accum, stats, times = chip_smoke.ps_round(path, samples, r, self.momentum, self.server_dir,
+                                            self.outer, self.device)
+        self.times.append(times)
+        self.stats.append(stats)
+        card_sum = {k: accum.partial()[k].cpu() for k in CHECK_NAMES}
+        del accum
+        if torch.device(self.device).type == "cuda":
+            torch.cuda.empty_cache()  # the trainer process shares the card
+        cpu = RoundAccum(device="cpu")
+        cpu.fold_tree(load_file(path, CHECK_NAMES), samples)
+        cpu_out = outer_step({"worker": (path, samples)}, check / "momentum.safetensors",
+                             self.outer.lr, self.outer.momentum, check, r, accum=cpu, device="cpu")
+        pairs = [("sum", card_sum, cpu.partial()),
+                 ("update", load_file(out, CHECK_NAMES), load_file(cpu_out)),
+                 ("momentum", load_file(self.momentum, CHECK_NAMES),
+                  load_file(check / "momentum.safetensors"))]
+        self.cpu_mismatch.append([f"{what} {k}" for what, card, host in pairs for k in CHECK_NAMES
+                                  if not _bits_equal(card[k], host[k])])
+        dest = self.work_dir / "incoming" / out.name
+        dest.parent.mkdir(parents=True, exist_ok=True)
+        os.replace(out, dest)
+        self.serve_s.append(time.perf_counter() - t_start)
+        return ReceivedFile(dest, dest.stat().st_size, "ps", "results",
+                            {"resource": "results", "name": dest.name, "round": r})
+
+
+@contextmanager
+def serve_bridge(node, connector, work_dir, job_id):
+    """The port's Job Bridge on an asyncio loop in a thread of its own,
+    timing each ``/status/send`` it serves (``bridge.status_ms``)."""
+    from hypha_tpu_torch.worker.bridge import Bridge
+
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="bridge", daemon=True)
+    thread.start()
+    bridge = Bridge(node, Path(work_dir), job_id, "sched", connector)
+    bridge.status_ms = []
+    serve_status = bridge._status
+
+    async def timed_status(body, writer):
+        t0 = time.perf_counter()
+        try:
+            await serve_status(body, writer)
+        finally:  # also when stop() cancels the handler after its answer went out
+            bridge.status_ms.append((time.perf_counter() - t0) * 1e3)
+
+    bridge._status = timed_status
+    try:
+        asyncio.run_coroutine_threadsafe(bridge.start(), loop).result(30)
+        yield bridge
+    finally:
+        try:
+            asyncio.run_coroutine_threadsafe(bridge.stop(), loop).result(120)
+        finally:
+            loop.call_soon_threadsafe(loop.stop)
+            thread.join(30)
+            loop.close()
+
+
+
+
+def run_train_cli(spec, slices, root: Path, *, device, rounds, steps, child_args=(),
+                  limit_s=chip_smoke.CLI_LIMIT_S) -> dict:
+    """Start ``python -m hypha_tpu_torch.executor.training`` as a process
+    of its own behind the port's Job Bridge, with ``LocalNode`` and
+    ``LocalConnector`` standing in for the scheduler, the parameter server
+    and the network, and collect what they saw."""
+    from hypha_tpu_torch.messages import Nesterov, to_json_dict
+
+    work, server = root / "work", root / "ps"
+    server.mkdir(parents=True, exist_ok=True)
+    expect = chip_smoke.flat_f32_spec(spec.executor.train.model)
+    node = LocalNode(rounds=rounds, steps=steps)
+    conn = LocalConnector(work, server, slices, outer=Nesterov(), device=device)
+    job = root / "job.json"
+    job.write_text(json.dumps(to_json_dict(spec)))
+    log_path = root / "trainer.log"
+    repo = str(ROOT)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [repo, os.environ.get("PYTHONPATH")]))}
+    with serve_bridge(node, conn, work, spec.job_id) as bridge, open(log_path, "wb") as log:
+        t0 = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, "-m", "hypha_tpu_torch.executor.training", "--socket",
+             str(bridge.socket_path), "--work-dir", str(work), "--job", f"@{job}", *child_args],
+            stdout=log, stderr=subprocess.STDOUT, cwd=work, env=env,
+        )
+        try:
+            rc = child.wait(timeout=limit_s)
+        except subprocess.TimeoutExpired:
+            rc = None  # cut at the limit
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        wall = time.perf_counter() - t0
+    incoming = work / "incoming"
+    return dict(rc=rc, wall_s=wall, node=node, conn=conn, status_ms=bridge.status_ms, expect=expect,
+                log=log_path.read_text(errors="replace"),
+                first_beat_s=(node.marks[0][1] - t0) if node.marks else None,
+                leftover=sorted(p.name for p in incoming.iterdir()) if incoming.is_dir() else [])
+
+
 def _stand_ins(tmp_path, data: Path):
     work, server = tmp_path / "work", tmp_path / "ps"
     server.mkdir(parents=True)
-    node = chip_smoke.LocalNode(rounds=ROUNDS, steps=PER_ROUND)
-    conn = chip_smoke.LocalConnector(work, server, [data], outer=tmsg.Nesterov(), device="cpu")
+    node = LocalNode(rounds=ROUNDS, steps=PER_ROUND)
+    conn = LocalConnector(work, server, [data], outer=tmsg.Nesterov(), device="cpu")
     return work, node, conn
 
 
@@ -221,7 +399,7 @@ def test_main_in_process_on_the_cpu(tmp_path, inputs):
     work, node, conn = _stand_ins(tmp_path, data)
     spec = tmsg.from_json_dict(jmsg.to_json_dict(_job(weights, data)))
     spec.executor.train.data = tmsg.Fetch(tmsg.Reference.from_uri("file:///slices"))
-    with chip_smoke.serve_bridge(node, conn, work, spec.job_id) as bridge:
+    with serve_bridge(node, conn, work, spec.job_id) as bridge:
         rc = training.main(["--socket", str(bridge.socket_path), "--work-dir", str(work),
                             "--job", json.dumps(tmsg.to_json_dict(spec)), "--device", "cpu"])
     # Counted once the bridge has stopped: the last answer reaches the
@@ -233,13 +411,13 @@ def test_main_in_process_on_the_cpu(tmp_path, inputs):
 
 
 def test_cli_process_reads_the_job_from_a_file(tmp_path, inputs):
-    """``chip_smoke.run_train_cli`` on the CPU: ``--job @job.json``."""
+    """``run_train_cli`` on the CPU: ``--job @job.json``."""
     weights, data = inputs
     model = {"model_type": "causal-lm", "family": "llama", "preset": "tiny",
              "config": {"dtype": "float32"},
              "source": tmsg.to_json_dict(tmsg.Fetch(tmsg.Reference.from_uri(weights.as_uri())))}
     spec = chip_smoke.train_spec("cli-file", model, batch=2, lr=LR)
-    run = chip_smoke.run_train_cli(spec, [data], tmp_path, device="cpu", rounds=ROUNDS,
+    run = run_train_cli(spec, [data], tmp_path, device="cpu", rounds=ROUNDS,
                                    steps=PER_ROUND, child_args=["--device", "cpu"], limit_s=120)
     assert run["rc"] == 0, run["log"][-3000:]
     _check_rounds(run["node"], run["conn"])

@@ -144,7 +144,32 @@ MESSAGES = {
     "ServeLoadAck": lambda p, v: p.m.ServeLoadAck(ok=bool(v.i[0] % 2)),
     "ServeLoadAck/additive": lambda p, v: p.m.ServeLoadAck(migrate_peer=v.s[0],
                                                            migrate_serve=v.s[5]),
+    # The fleet block plane (/hypha-blocks): 64-bit chain hashes of either
+    # sign, leaves keyed by the JAX cache's tree paths with raw bytes.
+    "BlockPull": lambda p, v: p.m.BlockPull(
+        serve_name=f"{v.s[5]}@0", chain_hashes=[v.i[0] << 40, -(v.i[1] << 43), v.i[2]],
+        weight_round=v.i[3], weight_generation=v.i[4]),
+    "BlockChain": lambda p, v: p.m.BlockChain(
+        ok=True, chain_hash=v.i[2], hashes=[v.i[0] << 40, v.i[2]], block_size=16,
+        leaves=_block_leaves(v), weight_round=v.i[3]),
+    "BlockChain/refused": lambda p, v: p.m.BlockChain(ok=False, error="stale-generation",
+                                                      weight_round=v.i[3],
+                                                      weight_generation=v.i[4]),
+    "MigrateRequest": lambda p, v: p.m.MigrateRequest(
+        serve_name=f"{v.s[5]}@1", prompt=[v.i[0] % 32000, 1, 2], emitted=[v.i[1] % 32000],
+        budget=v.i[5] % 64, chain_hashes=[-(v.i[2] << 30)], block_size=16,
+        leaves=_block_leaves(v)),
+    "MigrateAck": lambda p, v: p.m.MigrateAck(ok=True, tokens=[v.i[3] % 32000, v.i[4] % 32000]),
+    "MigrateAck/busy": lambda p, v: p.m.MigrateAck(ok=False, error="busy",
+                                                   retry_after_ms=v.f[2] * 1e3),
 }
+
+
+def _block_leaves(v) -> dict:
+    rng = np.random.default_rng(v.i[0])
+    return {f"['layers_{i}']['self_attn']['{k}']": [
+        rng.integers(0, 256, 64, dtype=np.uint8).tobytes(), dtype, [2, 2, 8]]
+        for i in (0, 1, 10) for k, dtype in (("k", "bfloat16"), ("v", "int8"))}
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -265,16 +290,18 @@ def test_oversized_frames_are_refused_alike():
 
 
 def test_unported_wire_tags_do_not_decode():
-    """A live-weight follow and the fleet block plane do not decode; the
-    router's heartbeat does, with its unset fields off the wire; an infer
-    executor needs its config, as in the JAX package."""
+    """A live-weight follow does not decode; the router's heartbeat does,
+    with its unset fields off the wire, and so does the fleet block plane
+    (ported since; its messages are held byte for byte in
+    ``tests/test_torch_fleet_cache.py``); an infer executor needs its
+    config, as in the JAX package."""
     serve = jmsg.encode(jmsg.ServeLoad(job_id="j", queue_depth=3))
     assert tmsg.decode(serve) == tmsg.ServeLoad(job_id="j", queue_depth=3)
     assert b"weight_round" not in serve and b"cache_digest" not in serve
     assert tmsg.encode(tmsg.ServeLoadAck()) == jmsg.encode(jmsg.ServeLoadAck())
     assert b"migrate" not in tmsg.encode(tmsg.ServeLoadAck())
-    with pytest.raises(ValueError, match="BlockPull"):
-        tmsg.decode(jmsg.encode(jmsg.BlockPull(serve_name="s", chain_hashes=[1])))
+    pull = jmsg.BlockPull(serve_name="s", chain_hashes=[1])
+    assert tmsg.encode(tmsg.decode(jmsg.encode(pull))) == jmsg.encode(pull)
     follow = jmsg.encode(jmsg.InferExecutorConfig(
         model={}, serve_name="s", serve_follow_rounds=jmsg.WeightFollow()))
     with pytest.raises(ValueError, match="WeightFollow"):

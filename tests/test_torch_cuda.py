@@ -309,6 +309,67 @@ def test_prefix_cached_pool_on_the_card_answers_as_uncached(cuda, kv_quant):
     assert out[True][1] > 0 and out[False][1] == 0
 
 
+@pytest.mark.parametrize("kv_quant", ["", "int8"])
+def test_blocks_move_between_card_pools_bit_for_bit(cuda, kv_quant):
+    """The fleet cache on the card: a chain extracted from one pool goes
+    through the wire helpers and lands in another pool bit for bit (int8
+    payloads with their scale rows); a prefill chunk that starts after the
+    landed prefix, read from the receiving pool's own tensors, equals the
+    plain version on the mma route; and the receiving pool answers the
+    warm prompt as the sending one, in one prefill chunk, with no plain
+    attention call."""
+    from hypha_tpu_torch.executor.block_cache import chain_hashes
+    from hypha_tpu_torch.executor.pool import DecodePool
+    from hypha_tpu_torch.ops.kvcache import leaves_from_wire, leaves_to_wire
+    from hypha_tpu_torch.ops.paged_attention import _launch
+    from hypha_tpu_torch.worker.infer_executor import load_model
+
+    model = load_model({"family": "llama", "preset": "tiny", "config": TINY_CONFIG, "seed": 5},
+                       device="cuda")
+    opts = dict(slots=4, max_len=512, steps_per_call=8, block_size=16, num_blocks=64,
+                prefill_chunk=16, ragged=True, kv_quant=kv_quant, prefix_cache=True,
+                fleet_cache=True)
+    prompt = [(i * 7 + 3) % 250 + 1 for i in range(48)]
+    hashes = chain_hashes(prompt, 16)
+    a, b = DecodePool(model, **opts), DecodePool(model, **opts)
+    try:
+        a.submit([prompt], 8).result(timeout=300)
+        served = a.serve_chain(hashes).result(timeout=60)
+        assert served["hashes"] == hashes
+        landed = leaves_from_wire(leaves_to_wire(served["leaves"]))
+        assert b.inject_chain(hashes, landed, None, None).result(timeout=60) == 3
+        back = b.serve_chain(hashes).result(timeout=60)["leaves"]
+        assert list(back) == list(served["leaves"])
+        for key, t in served["leaves"].items():
+            assert back[key].dtype == t.dtype and torch.equal(
+                back[key].view(torch.uint8), t.view(torch.uint8)), key
+        # One 16-row chunk at q_offset 48 over the landed blocks, layer 0.
+        cfg, ids = model.config, [b._alloc.block_for(h) for h in hashes]
+        spare = next(i for i in range(b.num_blocks) if i not in ids)
+        table = torch.full((1, 512 // 16), b.num_blocks, dtype=torch.int32)
+        table[0, :4] = torch.tensor(ids + [spare])
+        c = b._cache
+        kv = PagedKV(c.k[0], c.v[0], None if c.k_scale is None else c.k_scale[0],
+                     None if c.v_scale is None else c.v_scale[0], table.to(cuda))
+        q = torch.randn(1, 16, cfg.num_heads, cfg.head_dim,
+                        generator=torch.Generator().manual_seed(1)).to(torch.bfloat16).to(cuda)
+        kw = dict(blocks=b.num_blocks, block_size=16,
+                  q_offset=torch.tensor([48], dtype=torch.int32, device=cuda))
+        out, ref = _launch(q, kv, "mma", **kw), ragged_block_attention(q, kv, **kw)
+        assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16]
+        warm = prompt + [9] * 5
+        before, plain0 = b.prefill_chunks, paged_attention.plain_calls
+        mma0 = ragged_paged_attention.mma_launches
+        got_b = b.submit([warm], 8).result(timeout=300)
+        assert b.prefill_chunks - before == 1
+        assert ragged_paged_attention.mma_launches - mma0 == cfg.num_layers
+        assert got_b == a.submit([warm], 8).result(timeout=300)
+        assert paged_attention.plain_calls == plain0
+    finally:
+        a.close()
+        b.close()
+
+
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("hq,hkv,D", [(8, 8, 64), (32, 8, 128)])
 def test_simt_route_at_decode_shape(cuda, hq, hkv, D, quant):

@@ -68,9 +68,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_refusals_name_the_current_roadmap_label():
-    """Codecs and streaming, the serving router and the prefix cache are
-    ported: no module refuses an option under a label that named them."""
-    retired = ("codecs/streaming", "serving router", "prefix cache with copy_blocks")
+    """Codecs and streaming, the serving router, the prefix cache and the
+    fleet cache with KV migration are ported: no module refuses an option
+    under a label that named them."""
+    retired = ("codecs/streaming", "serving router", "prefix cache with copy_blocks",
+               "fleet cache and kv migration")
     stale = [f"{p.relative_to(ROOT)}:{i}" for p in _port_files()
              for i, line in enumerate(p.read_text().splitlines(), 1)
              if any(label in line.lower() for label in retired)]

@@ -396,8 +396,6 @@ def _infer_spec(**cfg) -> JobSpec:
 
 @pytest.mark.parametrize("option,label", [
     (dict(serve_follow_rounds={"round": 1}), "live weight swap"),
-    (dict(pool_fleet_cache=True), "fleet cache and KV migration"),
-    (dict(pool_kv_migration=True), "fleet cache and KV migration"),
     (dict(report_metrics_s=1.0), "telemetry"),
 ])
 def test_infer_executor_refuses_unported_options(option, label):
@@ -479,8 +477,6 @@ def test_serving_supervisor_takes_the_router_options(option):
 
 
 @pytest.mark.parametrize("option,label", [
-    (dict(fleet_cache=True), "fleet cache and KV migration"),
-    (dict(kv_migration=True), "fleet cache and KV migration"),
     (dict(report_metrics_s=1.0), "telemetry"), (dict(metrics=object()), "telemetry"),
     (dict(serve_follow_rounds=object()), "live weight swap"),
 ])
@@ -587,6 +583,105 @@ def test_mixed_fleet_behind_either_router(weights, root):
     assert counters["routed"] == len(want) and counters["affinity_routed"] > 0
 
 
+FAMILIES = {"a": [(i * 5 + 2) % 50 + 1 for i in range(24)],
+            "b": [(i * 3 + 7) % 50 + 1 for i in range(24)]}
+
+
+@pytest.mark.parametrize("router", ["jax", "port"])
+def test_mixed_fleet_pulls_across_packages(weights, root, router):
+    """One JAX and one torch backend with the fleet cache and migration on,
+    behind the JAX router or the port's: a family's first prompt warms its
+    chain on one backend (the other held busy in the router's books), the
+    heartbeats put it in the router's directory, and with the holder held
+    busy the family's next prompt goes to the other backend stamped with
+    the holder as ``pull_peer``; it pulls the chain across the packages
+    and admits it as a prefix hit. Family ``a`` pulls one way, ``b`` the
+    other; every answer equals the JAX pool's."""
+    from hypha_tpu.executor.block_cache import chain_hashes as j_chain_hashes
+    from hypha_tpu.telemetry import SERVE_METRICS
+
+    spec, _ = weights
+    prompts = {f: [fam + [9, 4], fam + [6, 6, 1]] for f, fam in FAMILIES.items()}
+    jm, params = JInfer._load_model(None, dict(spec))
+    pool = JPool(jm, params, **POOL)
+    try:
+        want = {f: [pool.submit([p], 10).result(timeout=300) for p in ps]
+                for f, ps in prompts.items()}
+    finally:
+        pool.close()
+    serve = dict(SERVE, num_workers=2, pool_prefix_cache=True, fleet_cache=True,
+                 kv_migration=True)
+
+    async def main():
+        SERVE_METRICS.reset()
+        gw = Gateway(TcpTransport(), peer_id="gw")
+        await gw.start(LISTEN)
+        boot = [gw.node.listen_addrs[0]]
+        jnode, jarb, jex = await _jax_infer_worker(boot, "wjax")
+        worker = WorkerNode(TcpTransport(), resources=Resources(gpu=2, cpu=8, memory=1000),
+                            device="cpu", peer_id="wtorch", bootstrap=boot, work_root=root)
+        sched = (JNode(JTcp(), peer_id="sched", bootstrap=boot) if router == "jax"
+                 else Node(TcpTransport(), peer_id="sched", bootstrap=boot))
+        started, runner = [], None
+        try:
+            for part in (worker, sched):
+                await part.start(LISTEN)
+                started.append(part)
+            await sched.wait_for_bootstrap()
+            sup = (JSupervisor(sched, spec, "fleet", resources=JResources(gpu=1.0, memory=100.0),
+                               **serve) if router == "jax"
+                   else ServingSupervisor(sched, spec, "fleet", **serve))
+            runner = asyncio.create_task(sup.run())
+            client = await _client(boot)
+            got, pulled_by = {}, {}
+            try:
+                for _ in range(1200):
+                    deps = [d for d in sup._deployments if d is not None]
+                    if len(deps) == 2 and all(d.load is not None for d in deps):
+                        break
+                    await asyncio.sleep(0.05)
+                by_peer = {d.handle.peer_id: d for d in sup._deployments}
+                holder = {"a": by_peer["wjax"], "b": by_peer["wtorch"]}
+                for fam, ps in prompts.items():
+                    other = next(d for d in by_peer.values() if d is not holder[fam])
+                    other.inflight += 10  # the warm-up goes to the holder
+                    first = await generate_remote(client, "fleet", [ps[0]], 10, timeout=120)
+                    other.inflight -= 10
+                    hashes = j_chain_hashes(ps[1], 8)
+                    for _ in range(600):  # the holder's digest reached the router
+                        if hashes[-1] in sup._digests.get(holder[fam].backend_name, {}):
+                            break
+                        await asyncio.sleep(0.05)
+                    holder[fam].inflight += 10  # the next one lands on the other
+                    second = await generate_remote(client, "fleet", [ps[1]], 10, timeout=120)
+                    holder[fam].inflight -= 10
+                    got[fam] = [first, second]
+                    pulled_by[fam] = other.handle.peer_id
+                tex = worker.job_manager.executors[("infer", INFER_EXECUTOR_NAME)]
+                tstats = [b.pool.stats for b in tex.batchers.values()]
+                jstats = SERVE_METRICS.snapshot()
+            finally:
+                await client.stop()
+                await sup.stop()
+                await asyncio.wait_for(runner, 30)
+            return got, pulled_by, tstats, jstats
+        finally:
+            for part in reversed(started):
+                await part.stop()
+            await jarb.stop()
+            await jnode.stop()
+            await gw.stop()
+
+    got, pulled_by, tstats, jstats = asyncio.run(main())
+    assert got == want
+    assert pulled_by == {"a": "wtorch", "b": "wjax"}
+    # The torch backend pulled a's 3 blocks from the JAX one, the JAX
+    # backend b's 3 blocks from the torch one.
+    assert len(tstats) == 1 and tstats[0]["remote_prefix_hits"] == 3
+    assert tstats[0]["blocks_shipped"] == 3 and tstats[0]["remote_prefix_misses"] == 0
+    assert jstats["remote_prefix_hits"] == 3 and jstats["blocks_shipped"] == 3
+
+
 ROUTER_PROMPTS = [fam + tail for fam in ([(i * 7 + 3) % 200 + 1 for i in range(32)],
                                          [(i * 5 + 11) % 200 + 1 for i in range(32)])
                   for tail in ([4, 4], [9] * 16, [3, 1, 4, 1, 5], [8] * 11)]
@@ -619,6 +714,48 @@ def test_serve_router_as_processes(tmp_path, root):
     assert 0 < run["slot_failed_s"] < 60 and run["bring_up_s"] > 0
     assert run["router"]["routed"] >= len(ROUTER_PROMPTS) + 8
     assert run["exits"]["w1"] == -9 and run["bring_up_device_mem_mib"] is None
+
+
+def test_serve_fleet_as_processes(root, monkeypatch):
+    """``chip_smoke.run_serve_fleet`` on the CPU: a gateway, two workers
+    (``--device cpu``) and a scheduler whose serve job routes with the
+    fleet cache and KV migration on, at the smoke's pool geometry (8 slots,
+    blocks of 16, chunks of 32, 40 blocks) over a tiny bf16 Llama; held to
+    the smoke's gates (``serve_fleet_problems``): every answer the
+    in-process reference's (the dry-pool requests through
+    ``migration_reference``, whose tickets match the worker's), a pull
+    landed with fewer prefill forwards than cold, a migration acked, no
+    fallback, clean exits. Tiny blocks all fit a frame, so nothing fails at
+    the cap here. Each process gets one CPU thread: four processes of the
+    default thread count oversubscribe the cores and run ~9x slower."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    config = {"max_seq_len": 1024}
+    job = {**chip_smoke.FLEET_JOB, "job.serve_name": "tiny", "job.model_preset": "tiny",
+           "job.model_seed": 3, "job.model_config": config}
+    spec = {"family": "llama", "preset": "tiny", "seed": 3, "config": config}
+    traffic = chip_smoke.fleet_traffic(vocab=256)
+    prefix_prompts, prefix_new = chip_smoke.prefix_requests()
+    prefix_prompts = [[t % 256 for t in p] for p in prefix_prompts]
+    model = load_model(spec, device="cpu")
+    want = chip_smoke.fleet_reference(model, traffic)
+    # serve_prefix's pool (512 blocks, chunks of 64), as the smoke's reference.
+    want_prefix = chip_smoke._pool_run(model, prefix_prompts, prefix_new,
+                                       prefix_cache=True)["answers"]
+    run = asyncio.run(chip_smoke.run_serve_fleet(root, job, traffic, prefix_prompts, prefix_new,
+                                                 device="cpu"))
+    summary = chip_smoke.fleet_summary(run, 2 * 2 * 16 * 2 * 16 * 2)
+    problems = chip_smoke.serve_fleet_problems(run, summary, want=want, want_prefix=want_prefix,
+                                               layers=2, device="cpu")
+    assert not problems, (problems, summary, {r: Path(p).read_text()[-3000:]
+                                              for r, p in run["logs"].items()})
+    # The worker cut the in-process pool's tickets: the short request (3
+    # blocks) first, then the long one (9), both shipped at these sizes.
+    assert [(e["request"], e["blocks"]) for e in want["migrate_events"]] == [(6, 3), (5, 9)]
+    shipped = [m["blocks"] for b in summary["migrations"].values() for m in b]
+    assert shipped == [3, 9]
+    assert summary["pulls"][summary["puller"]][0]["blocks"] == 2
+    assert summary["frame_cap"]["pull_failures"] == summary["frame_cap"]["migrate_failures"] == 0
+    assert run["router"]["directory_entries"] > 0 and run["bring_up_s"] > 0
 
 
 @pytest.mark.parametrize("mode", [dict(scheduling="window"), dict(batch_window_ms=-1.0),

@@ -219,13 +219,6 @@ UNPORTED = {
     "slo rules": ("scheduler", {**SERVE, "job.slo_rules": ["round_wall_s <= 30"]}, "telemetry"),
     "multihost": ("worker", {"multihost.coordinator_address": "10.0.0.1:1234",
                              "multihost.num_processes": 2}, "Parallel and long context"),
-    "fleet cache": ("scheduler", {**SERVE, "job.serve_prefix_cache": True,
-                                  "job.serve_fleet_cache": True}, "fleet cache and KV migration"),
-    "kv migration": ("scheduler", {**SERVE, "job.serve_prefix_cache": True,
-                                   "job.serve_kv_migration": True},
-                     "fleet cache and KV migration"),
-    "digest k": ("scheduler", {**SERVE, "job.serve_digest_k": 16},
-                 "fleet cache and KV migration"),
     "spec ngram": ("scheduler", {**SERVE, "job.serve_spec_ngram": 3}, "speculative decoding"),
     "spec draft": ("scheduler", {**SERVE, "job.serve_spec_draft": 2}, "speculative decoding"),
     "spec layers": ("scheduler", {**SERVE, "job.serve_spec_layers": 1}, "speculative decoding"),
@@ -256,7 +249,8 @@ def test_unported_option_raises_with_its_label(case, tmp_path):
         tbuilt.validate()
 
 
-# The router and prefix-cache keys, refused until they were ported.
+# The router, prefix-cache and fleet-cache keys, refused until they were
+# ported.
 ROUTED = {
     "serve workers": {"job.serve_workers": 2},
     "queue limit": {"job.serve_queue_limit": 4},
@@ -264,6 +258,12 @@ ROUTED = {
     "prefix cache": {"job.serve_prefix_cache": True},
     "routed deployment": {"job.serve_workers": 2, "job.serve_queue_limit": 4,
                           "job.serve_prefix_affinity": True, "job.serve_prefix_cache": True},
+    "fleet cache": {"job.serve_workers": 2, "job.serve_prefix_cache": True,
+                    "job.serve_fleet_cache": True},
+    "kv migration": {"job.serve_workers": 2, "job.serve_prefix_cache": True,
+                     "job.serve_kv_migration": True},
+    "digest k": {"job.serve_workers": 2, "job.serve_prefix_cache": True,
+                 "job.serve_fleet_cache": True, "job.serve_digest_k": 16},
 }
 
 
@@ -291,7 +291,9 @@ def test_router_and_prefix_cache_keys_reach_the_supervisor(case):
             node, job.to_model_spec(), job.serve_name, max_new_tokens=job.serve_max_new_tokens,
             max_batch=job.serve_max_batch, num_workers=job.serve_workers,
             queue_limit=job.serve_queue_limit, pool_block_size=job.serve_block_size,
-            pool_prefix_cache=job.serve_prefix_cache, prefix_affinity=job.serve_prefix_affinity)
+            pool_prefix_cache=job.serve_prefix_cache, prefix_affinity=job.serve_prefix_affinity,
+            fleet_cache=job.serve_fleet_cache, kv_migration=job.serve_kv_migration,
+            fleet_digest_k=job.serve_digest_k)
     for key in ("num_workers", "route", "queue_limit", "prefix_affinity"):
         assert getattr(sups["port"], key) == getattr(sups["jax"], key), key
     assert tmsg.encode(sups["port"]._config) == jmsg.encode(sups["jax"]._config)
@@ -300,6 +302,10 @@ def test_router_and_prefix_cache_keys_reach_the_supervisor(case):
     assert port.queue_limit == want.get("job.serve_queue_limit", 0)
     assert port.prefix_affinity == want.get("job.serve_prefix_affinity", False)
     assert port._config.pool_prefix_cache == want.get("job.serve_prefix_cache", False)
+    fleet = want.get("job.serve_fleet_cache", False)
+    assert port.fleet_cache is fleet and port.kv_migration is want.get(
+        "job.serve_kv_migration", False)
+    assert port._config.fleet_digest_k == (want.get("job.serve_digest_k", 32) if fleet else None)
 
 
 @pytest.mark.parametrize("over", [

@@ -120,7 +120,6 @@ def test_pool_rejects_what_it_cannot_serve(pair):
 @pytest.mark.parametrize("option", [dict(block_size=0),
                                     dict(spec_ngram=3), dict(spec_layers=1),
                                     dict(spec_draft=4), dict(draft_params={"w": 0}),
-                                    dict(fleet_cache=True), dict(kv_migration=True),
                                     dict(traceparent="00-" + "1" * 32 + "-" + "2" * 16 + "-01")])
 def test_unported_options_raise(pair, option):
     _, _, tm = pair

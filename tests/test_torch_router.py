@@ -326,8 +326,6 @@ def test_dispatched_config_bytes_equal_the_reference(options, monkeypatch):
 
 
 @pytest.mark.parametrize("option,label", [
-    (dict(fleet_cache=True), "fleet cache and KV migration"),
-    (dict(kv_migration=True), "fleet cache and KV migration"),
     (dict(report_metrics_s=1.0), "telemetry"), (dict(metrics=object()), "telemetry"),
     (dict(serve_follow_rounds=object()), "live weight swap"),
 ])
