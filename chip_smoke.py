@@ -140,6 +140,26 @@ Phases, each printing one JSON line:
    encode seconds, the flight and how long ``finish`` waited, step ms with
    and without a flight out, the largest progress gap beside the adaptive
    deadline, the trainer's and the server's peaks, and tokens/s;
+12b. train_secure — ``train_stream``'s job for 2 rounds on a secured
+   network of CLI processes (``run_secure_job``): the port's certutil (as
+   processes) writes a root, an org and a certificate per node, and a CRL
+   revoking worker ``wx``'s; gateway, data node, ``psw``, ``w0``, ``wx``
+   and the scheduler each run ``python -m hypha_tpu_torch <role> run``
+   with a ``[tls]`` section (certificate, trust root, the org's CRL) and
+   ``network.mux`` on, ``w0``'s trainer spawned through ``executor.cmd`` /
+   ``executor.args``; a plain-TCP node dials the gateway. Gates
+   (``secure_problems`` and the flash launches of every batch trained, no
+   plain call): the scheduler's rounds, ``UPDATED`` each round, both jobs
+   completed, falling losses, each node's logged peer id equal to
+   ``certutil node``'s, ``wx`` never up nor dispatched and refused by the
+   gateway for revocation, the plain dial refused, a tagged push and
+   broadcast a round, every gossip frame verified, clean exits, no file
+   left. It reports each push's and broadcast's bytes, seconds and MB/s
+   under TLS beside ``train_stream``'s plain-TCP ones, step ms with and
+   without a flight out, auction to dispatch, each node's connections,
+   refused handshakes, mux streams and gossip counts with the median
+   pure-Python verify ms, the largest progress gap against the watchdog,
+   the trainer's peak, ``ssl.OPENSSL_VERSION`` and the phase's seconds;
 13. train_reference — a tiny Llama (head_dim 64), and the same with a
    sliding window below its sequence (Mistral's local attention), each
    trained 4 steps through the kernels and through the plain flash version
@@ -153,6 +173,7 @@ no CUDA device it exits 2 at once.
 from __future__ import annotations
 
 import asyncio
+import collections
 import gc
 import json
 import math
@@ -162,6 +183,7 @@ import re
 import shutil
 import signal
 import socket
+import ssl
 import statistics
 import subprocess
 import sys
@@ -2963,6 +2985,365 @@ def train_stream_phase() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# train_secure: the stream job on a secured network of CLI processes
+# ---------------------------------------------------------------------------
+
+SECURE_ORG = "org-a"
+# Start order; wx holds a certificate the org's CRL revokes.
+SECURE_NODES = ("gateway", "data", "psw", "w0", "wx", "scheduler")
+SECURE_KIND = {"gateway": "gateway", "data": "data", "psw": "worker", "w0": "worker",
+               "wx": "worker", "scheduler": "scheduler"}
+SECURE_ROUNDS, SECURE_STEPS = 2, 8
+SECURE_WAIT_S = 900.0  # the job's deadline: bring-up, the rounds and the trainer's exit
+_PEER_ID_LINE = {"gateway": r"gateway (\S+) on", "data": r"data node (\S+) on",
+                 "worker": r"worker (\S+) on", "scheduler": r"scheduler (\S+) on"}
+_PUSH = re.compile(r"push to (\S+): (\d+) bytes in ([\d.]+) s; header (\{.*\})")
+_FABRIC = re.compile(r"fabric counts: (\{.*\})")
+
+
+def certutil_pki(pki: Path, names, revoked) -> dict:
+    """The port's certutil, each command a process of its own: the root,
+    the org, a node certificate per name, then the org's CRL revoking
+    ``revoked``. Returns each name's peer id as ``certutil node`` printed
+    it."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+
+    def certutil(*args) -> str:
+        return subprocess.run(
+            [sys.executable, "-m", "hypha_tpu_torch.certutil", *args, "--out", str(pki)],
+            check=True, capture_output=True, text=True, cwd=repo, timeout=120).stdout
+
+    certutil("root")
+    certutil("org", "--name", SECURE_ORG)
+    ids = {name: re.search(r"peer id: (\S+)", certutil("node", "--org", SECURE_ORG,
+                                                       "--name", name)).group(1)
+           for name in names}
+    certutil("revoke", "--org", SECURE_ORG,
+             *[a for name in revoked for a in ("--cert", str(pki / f"{name}.crt"))])
+    return ids
+
+
+def secure_job(model: dict, *, rounds: int, steps: int, batch: int, lr: float,
+               options: dict) -> dict:
+    """The scheduler's ``job.*`` keys for ``node_job``'s DiLoCo job."""
+    return {"job.model_family": model["family"], "job.model_preset": model["preset"],
+            "job.model_config": model["config"], "job.model_seed": model["seed"],
+            "job.model_type": model["model_type"], "job.dataset": NODE_DATASET,
+            "job.update_rounds": rounds, "job.avg_samples_between_updates": steps * batch,
+            "job.max_batch_size": batch, "job.num_workers": 1, "job.worker_gpu": 1.0 / batch,
+            "job.worker_memory": 1024, "job.ps_memory": 1024, "job.inner_lr": lr,
+            **{f"job.{k}": v for k, v in options.items()}}
+
+
+async def _plain_dial(addr: str) -> str:
+    """A plain-TCP port node dialing ``addr``: the error it meets."""
+    from hypha_tpu_torch.network import FrameError, Node, TcpTransport
+
+    node = Node(TcpTransport(), peer_id="plain")
+    await node.start(["127.0.0.1:0"])
+    try:
+        await asyncio.wait_for(node.dial(addr), 30)
+        return ""
+    except (ConnectionError, OSError, FrameError, asyncio.TimeoutError) as e:
+        return f"{type(e).__name__}: {e}"
+    finally:
+        await node.stop()
+
+
+async def run_secure_job(root: Path, model: dict, *, device: "str | None", rounds: int,
+                         steps: int, batch: int, seq: int, period: int, lr: float,
+                         options: dict) -> dict:
+    """``node_job``'s job on a network of CLI processes, every node secured:
+    the port's certutil writes a PKI under ``root/pki`` (``certutil_pki``:
+    one certificate per node of ``SECURE_NODES``, wx's revoked), then each
+    node runs ``python -m hypha_tpu_torch <kind> run`` from the TOML its
+    ``init`` wrote, with a ``[tls]`` section naming its certificate, the
+    trust root and the org's CRL, and ``network.mux`` on; ``w0`` runs its
+    trainer with ``runtime = "process"`` and ``executor.cmd`` /
+    ``executor.args`` naming the port's trainer CLI. Once the gateway, the
+    data node, ``psw`` and ``w0`` are up, a plain-TCP node dials the
+    gateway; then the scheduler runs the job and exits. When ``w0``'s and
+    ``psw``'s jobs have ended, the rest get SIGTERM. ``root`` must be
+    short: a trainer's bridge socket lives three levels below it. Returns
+    the certutil ids, each role's log, exit code and stop seconds, the
+    plain dial's error, bring-up and job seconds."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH", "")) if p)}
+    cli = [sys.executable, "-m", "hypha_tpu_torch"]
+    pki = root / "pki"
+    t_pki = time.perf_counter()
+    ids = certutil_pki(pki, SECURE_NODES, ["wx"])
+    pki_s = time.perf_counter() - t_pki
+    data_dir = root / "data"
+    data_dir.mkdir()
+    write_slices(data_dir, n_slices=2, per_slice=rounds * steps * batch // 2, seq=seq,
+                 period=period, seed=5)
+    for kind in ("gateway", "data", "worker", "scheduler"):
+        subprocess.run([*cli, kind, "init", "-o", str(root / f"{kind}.toml")], check=True,
+                       env=env, cwd=repo, capture_output=True, timeout=60)
+    gateway = f"127.0.0.1:{_free_port()}"
+    worker = {"resources.gpu": 1, "resources.cpu": 8, "resources.memory": 65536,
+              "offer.strategy": "whole"}
+    sets = {
+        "gateway": {"network.listen": [gateway]},
+        "data": {"datasets": {NODE_DATASET: str(data_dir)}},
+        "psw": {"resources.gpu": 0, "resources.cpu": 8, "resources.memory": 65536},
+        "w0": {**worker, "executor.runtime": "process", "executor.cmd": sys.executable,
+               "executor.args": ["-m", "hypha_tpu_torch.executor.training",
+                                 "--socket", "{SOCKET_PATH}", "--work-dir", "{WORK_DIR}",
+                                 "--job", "{JOB_JSON}", "--device", "{DEVICE}"]},
+        "wx": worker,
+        "scheduler": secure_job(model, rounds=rounds, steps=steps, batch=batch, lr=lr,
+                                options=options),
+    }
+    procs, logs, files, exits, stop_s = {}, {}, [], {}, {}
+    loop = asyncio.get_running_loop()
+
+    async def start(name: str) -> None:
+        kind = SECURE_KIND[name]
+        over = {"tls.cert": str(pki / f"{name}.crt"), "tls.key": str(pki / f"{name}.key"),
+                "tls.trust": str(pki / "trust.crt"), "tls.crls": str(pki / f"{SECURE_ORG}.crl"),
+                "network.mux": True, **sets[name]}
+        if name != "gateway":
+            over["network.gateways"] = [gateway]
+        if kind == "worker":
+            over["work_root"] = str(root / name)
+        args = [*cli, kind, "run", "-c", str(root / f"{kind}.toml")]
+        if kind == "worker" and device:
+            args += ["--device", device]
+        for key, value in over.items():
+            args += ["--set", f"{key}={_toml_value(value)}"]
+        logs[name] = root / f"{name}.log"
+        files.append(open(logs[name], "wb"))
+        procs[name] = await asyncio.create_subprocess_exec(
+            *args, stdout=files[-1], stderr=subprocess.STDOUT, env=env, cwd=repo)
+
+    def text(name: str) -> str:
+        return logs[name].read_text(errors="replace")
+
+    t0 = time.perf_counter()
+    plain_error = None
+    try:
+        await start("gateway")
+        await _wait_for_text(logs["gateway"], f"gateway {ids['gateway']} on", procs["gateway"],
+                             loop.time() + NODE_WAIT_S)
+        for name in ("data", "psw", "w0", "wx"):
+            await start(name)
+        for name, line in (("data", "data node"), ("psw", "worker"), ("w0", "worker")):
+            await _wait_for_text(logs[name], f"{line} {ids[name]} on", procs[name],
+                                 loop.time() + NODE_WAIT_S)
+        bring_up_s = time.perf_counter() - t0
+        plain_error = await _plain_dial(gateway)
+        t_job = time.perf_counter()
+        await start("scheduler")
+        deadline = loop.time() + SECURE_WAIT_S
+        exits["scheduler"] = await asyncio.wait_for(procs["scheduler"].wait(), SECURE_WAIT_S)
+        stop_s["scheduler"] = 0.0
+        scheduler_s = time.perf_counter() - t_job
+        # The jobs end after the scheduler's last answer: each worker logs
+        # its job's final state.
+        for name in ("w0", "psw"):
+            while not re.search(r"job \S+ (completed|failed|cancelled)", text(name)):
+                if procs[name].returncode is not None or loop.time() > deadline:
+                    break
+                await asyncio.sleep(0.1)
+        job_s = time.perf_counter() - t_job
+    finally:
+        for name in reversed(SECURE_NODES):
+            p = procs.get(name)
+            if p is None or name in exits:
+                continue
+            t = time.perf_counter()
+            if p.returncode is None:
+                p.send_signal(signal.SIGTERM)
+            try:
+                exits[name] = await asyncio.wait_for(p.wait(), STOP_WAIT_S)
+            except asyncio.TimeoutError:
+                p.kill()
+                await p.wait()
+                exits[name] = "killed"
+            stop_s[name] = time.perf_counter() - t
+        for f in files:
+            f.close()
+    leftover = sorted(str(p.relative_to(root)) for name in ("w0", "psw", "wx")
+                      for p in (root / name).rglob("*") if p.is_file())
+    return dict(ids=ids, logs={n: text(n) for n in logs}, exits=exits, stop_s=stop_s,
+                plain_error=plain_error, pki_s=pki_s, bring_up_s=bring_up_s,
+                scheduler_s=scheduler_s, job_s=job_s, leftover=leftover)
+
+
+def secure_report(run: dict) -> dict:
+    """What the secured network's logs say: each node's peer id as it
+    printed it, the scheduler's rounds, losses, auction and dispatch
+    (seconds between, from the log's clock), the largest progress gap and
+    the watchdog, the parameter server's UPDATED rounds and broadcasts,
+    ``w0``'s pushes and trainer lines (``trainer_log``), each worker's job
+    states, the gateway's refused handshakes and every node's fabric
+    counts."""
+    logs = run["logs"]
+    sched = logs["scheduler"]
+    logged = {}
+    for name, log in logs.items():
+        found = re.search(_PEER_ID_LINE[SECURE_KIND[name]], log)
+        logged[name] = found.group(1) if found else None
+
+    def stamp(pattern: str, log: str):
+        lines = [line for line in log.splitlines() if re.search(pattern, line)]
+        return _log_time(lines[0]) if lines else None
+
+    def pushes(log: str) -> list:
+        return [{"to": to, "bytes": int(n), "s": float(s), "header": json.loads(h),
+                 "mb_per_s": int(n) / float(s) / 1e6 if float(s) else None}
+                for to, n, s, h in _PUSH.findall(log)]
+
+    done = re.search(r"job (\S+) completed: (\d+) rounds", sched)
+    dispatched = re.search(r"dispatched: parameter server on \[(.*)\], train on \[(.*)\]", sched)
+    gap = re.search(r"largest progress gap ([\d.]+) s; the watchdog's least deadline "
+                    r"([\d.]+|inf) s", sched)
+    t_auction, t_dispatch = stamp("auctioning", sched), stamp("dispatched: ", sched)
+    return dict(
+        logged_ids=logged,
+        rounds=int(done.group(2)) if done else None,
+        losses=[(peer, int(r), float(v)) for peer, r, v in
+                re.findall(r"metrics (\S+) round=(\d+) loss=(\S+)", sched)],
+        dispatched_ps=re.findall(r"'([^']+)'", dispatched.group(1)) if dispatched else None,
+        dispatched_train=re.findall(r"'([^']+)'", dispatched.group(2)) if dispatched else None,
+        auction_to_dispatch_s=(t_dispatch - t_auction) if t_auction and t_dispatch else None,
+        progress_gap_max_s=float(gap.group(1)) if gap else None,
+        watchdog_min_s=float(gap.group(2)) if gap else None,
+        updated=[int(r) for r in re.findall(r"ps \S+: round (\d+) UPDATED", logs["psw"])],
+        broadcasts=pushes(logs["psw"]), pushes=pushes(logs["w0"]),
+        trainer=trainer_log(logs["w0"]),
+        job_states={name: re.findall(r"job \S+ (completed|failed|cancelled)", logs[name])
+                    for name in ("w0", "psw", "wx")},
+        refused=re.findall(r"TLS handshake from .* refused: (.*)", logs["gateway"]),
+        fabric={name: json.loads(m[-1]) if (m := _FABRIC.findall(log)) else None
+                for name, log in logs.items()},
+    )
+
+
+def secure_problems(run: dict, rep: dict, *, rounds: int, fragments: int) -> list:
+    """The gates of the secured job, on the CPU as on the card: the
+    scheduler's rounds and exit, ``UPDATED`` each round, both jobs
+    completed, finite falling round losses, each node's peer id as its log
+    states it equal to ``certutil node``'s, wx never up nor dispatched and
+    refused by the gateway for revocation, the plain-TCP dial refused, one
+    tagged push and one broadcast a round, every gossip frame verified
+    (none dropped) and the scheduler's signed, every process out with 0
+    within ``STOP_WAIT_S``, no file left in a work root."""
+    ids = run["ids"]
+    problems = []
+    if rep["rounds"] != rounds or run["exits"].get("scheduler") != 0:
+        problems.append(f"the scheduler completed {rep['rounds']} rounds and exited "
+                        f"{run['exits'].get('scheduler')}; wanted {rounds} and 0")
+    if rep["updated"] != list(range(rounds)):
+        problems.append(f"the parameter server's UPDATED rounds {rep['updated']}")
+    if rep["job_states"]["w0"] != ["completed"] or rep["job_states"]["psw"] != ["completed"]:
+        problems.append(f"job states {rep['job_states']}")
+    losses = [v for peer, _, v in rep["losses"] if peer == ids["w0"]]
+    if len(losses) != rounds or not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        problems.append(f"w0's round losses {losses}: not finite, or the last not below the first")
+    wrong = {n: (rep["logged_ids"][n], ids[n]) for n in SECURE_NODES
+             if n != "wx" and rep["logged_ids"][n] != ids[n]}
+    if wrong:
+        problems.append(f"logged peer ids differ from certutil's: {wrong}")
+    if rep["dispatched_train"] != [ids["w0"]] or rep["dispatched_ps"] != [ids["psw"]]:
+        problems.append(f"dispatched train on {rep['dispatched_train']}, the parameter server "
+                        f"on {rep['dispatched_ps']}")
+    if rep["logged_ids"]["wx"] is not None or rep["job_states"]["wx"] \
+            or ids["wx"] in run["logs"]["scheduler"]:
+        problems.append("the revoked worker wx came up or was dispatched")
+    if not any("certificate revoked" in reason for reason in rep["refused"]):
+        problems.append(f"the gateway refused no handshake for revocation: {rep['refused']}")
+    if not run["plain_error"]:
+        problems.append("a plain-TCP dial to the gateway succeeded")
+    for what, xs in (("push", rep["pushes"]), ("broadcast", rep["broadcasts"])):
+        tags = [{k: x["header"].get(k) for k in ("round", "fragment_id", "fragments")}
+                for x in xs]
+        want = [{"round": r, "fragment_id": r % fragments, "fragments": fragments}
+                for r in range(rounds)]
+        if sorted(tags, key=lambda t: t["round"] or 0) != want:
+            problems.append(f"{what} headers {tags}, wanted {want}")
+    fabric = rep["fabric"]
+    if any(fabric.get(n) is None for n in SECURE_NODES):
+        problems.append(f"fabric counts missing: {sorted(n for n in SECURE_NODES if not fabric.get(n))}")
+    else:
+        if fabric["scheduler"]["gossip"]["signed"] < 1:
+            problems.append(f"the scheduler signed no gossip: {fabric['scheduler']}")
+        if any(fabric[n]["gossip"]["dropped"] for n in SECURE_NODES) or \
+                not all(fabric[n]["gossip"]["verified"] for n in ("gateway", "w0", "psw")):
+            problems.append("gossip frames dropped, or a node verified none: "
+                            f"{ {n: fabric[n]['gossip'] for n in SECURE_NODES} }")
+    problems += exit_problems(run, SECURE_NODES)
+    if run["leftover"]:
+        problems.append(f"files left in the work roots: {run['leftover']}")
+    return problems
+
+
+def train_secure_phase(stream: dict) -> dict:
+    """``train_stream``'s job (2 rounds) on a secured network of CLI
+    processes (``run_secure_job``), held to ``secure_problems`` and to the
+    flash launches of every batch trained; the TLS pushes and broadcasts
+    beside ``stream``'s plain-TCP figures of the same run."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # the card's memory to the worker processes
+    root = Path(tempfile.mkdtemp(prefix="hss"))
+    try:
+        run = asyncio.run(run_secure_job(
+            root, TRAIN_MODEL, device=None, rounds=SECURE_ROUNDS, steps=SECURE_STEPS,
+            batch=TRAIN_BATCH, seq=TRAIN_SEQ, period=TRAIN_PERIOD, lr=3e-4,
+            options=STREAM_OPTIONS))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rep = secure_report(run)
+    trainer = rep["trainer"]
+    problems = secure_problems(run, rep, rounds=SECURE_ROUNDS,
+                               fragments=STREAM_OPTIONS["num_fragments"])
+    n = trainer["batches"] or 0
+    want = {"fwd": 2 * TRAIN_LAYERS * n, "dq": TRAIN_LAYERS * n, "dkv": TRAIN_LAYERS * n,
+            "flash_plain": 0, "dense": 0}
+    if not n or "attention path: flash kernels" not in run["logs"]["w0"] \
+            or trainer["launches"] != want:
+        problems.append(f"attention launches {trainer['launches']}, wanted {want} through the "
+                        f"flash kernels for {n} batches")
+    step_s = trainer["step_s"] or {"flight": [], "no_flight": []}
+    med = {k: statistics.median(v) * 1e3 if v else None for k, v in step_s.items()}
+    res = dict(
+        model="llama2-7b", layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+        options=STREAM_OPTIONS, rounds=SECURE_ROUNDS, steps_a_round=SECURE_STEPS,
+        openssl=ssl.OPENSSL_VERSION, peer_ids=run["ids"], exits=run["exits"],
+        stop_s=run["stop_s"], plain_dial_error=run["plain_error"],
+        refused=dict(collections.Counter(rep["refused"])),
+        losses=rep["losses"], updated=rep["updated"], batches=n,
+        pushes=[{k: x[k] for k in ("bytes", "s", "mb_per_s")} | {"round": x["header"]["round"]}
+                for x in rep["pushes"]],
+        broadcasts=[{k: x[k] for k in ("bytes", "s", "mb_per_s")}
+                    | {"round": x["header"]["round"]} for x in rep["broadcasts"]],
+        plain_tcp=[{k: r[k] for k in ("round", "push_bytes", "push_s", "push_mb_per_s",
+                                      "broadcast_bytes", "broadcast_s", "broadcast_mb_per_s")}
+                   for r in stream["per_round"]],
+        flights=trainer["flights"], step_ms_flight=med["flight"],
+        step_ms_no_flight=med["no_flight"], steps_flight=len(step_s["flight"]),
+        steps_no_flight=len(step_s["no_flight"]), stream_step_ms_flight=stream["step_ms_flight"],
+        stream_step_ms_no_flight=stream["step_ms_no_flight"],
+        auction_to_dispatch_s=rep["auction_to_dispatch_s"],
+        progress_gap_max_s=rep["progress_gap_max_s"], watchdog_min_s=rep["watchdog_min_s"],
+        fabric=rep["fabric"], trainer_peak_gib=trainer["peak_gib"],
+        attention_launches=trainer["launches"], pki_s=run["pki_s"],
+        bring_up_s=run["bring_up_s"], scheduler_s=run["scheduler_s"], job_s=run["job_s"],
+        seconds=time.perf_counter() - t0,
+    )
+    if problems:
+        emit({"phase": "train_secure", **res, "problems": problems,
+              "logs": {name: log[-3000:] for name, log in run["logs"].items()}})
+        raise SystemExit("train_secure phase failed: " + "; ".join(problems))
+    return res
+
+
 class _PlainFlash(torch.autograd.Function):
     """The plain flash versions under autograd: the kernels' reference."""
 
@@ -3081,7 +3462,9 @@ def main() -> int:
     train = train_phase()
     emit({"phase": "train", **train})
     emit({"phase": "train_node", **train_node_phase(train)})
-    emit({"phase": "train_stream", **train_stream_phase()})
+    stream = train_stream_phase()
+    emit({"phase": "train_stream", **stream})
+    emit({"phase": "train_secure", **train_secure_phase(stream)})
     emit({"phase": "train_reference", **train_reference_phase()})
 
     dec, pre = kern["timing"]["decode_bf16"], kern["timing"]["prefill64_bf16"]

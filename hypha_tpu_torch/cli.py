@@ -12,10 +12,16 @@ Reference: every binary exposes the same three subcommands
                 role runtime → serve until SIGINT/SIGTERM → ordered
                 shutdown (§3.3 bootstrap skeleton).
 
-Nodes speak plain TCP: the TLS section, stream multiplexing and the
-telemetry exporter are refused when set (``node_config.py``). ``worker
-run`` runs on CUDA unless given ``--device cpu``; without CUDA and without
-the flag it exits with ``default_device``'s error before it starts.
+A node is mTLS-secured when its ``[tls]`` section names cert, key and
+trust (its peer id is then its certificate's key hash, and it signs its
+gossip), and multiplexes its streams over one connection a peer when
+``network.mux`` is set; the telemetry exporter is refused when set
+(``node_config.py``). Each runner logs its fabric's counts when it stops
+(``fabric counts: {...}``: connections dialed and accepted, mux streams,
+gossip frames signed, verified and dropped, the median verify ms).
+``worker run`` runs on CUDA unless given ``--device cpu``; without CUDA
+and without the flag it exits with ``default_device``'s error before it
+starts.
 ``scheduler run`` runs a DiLoCo job through the port's ``Orchestrator``
 (``job.kind = "train"``) or keeps one serving deployment alive through
 ``ServingSupervisor`` until SIGINT/SIGTERM (``job.kind = "serve"``).
@@ -25,12 +31,15 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import logging
 import signal
+import statistics
 import sys
 import tomllib
 from pathlib import Path
 
+from . import aio
 from . import config as cfg
 from .node_config import DataNodeConfig, GatewayConfig, SchedulerConfig, WorkerConfig
 
@@ -91,25 +100,54 @@ def _node_kwargs(conf, *, registry_server: bool = False) -> dict:
 
 
 def _make_node(conf, *, registry_server: bool = False, peer_id: "str | None" = None):
-    """A plain-TCP node (the config refuses TLS and mux)."""
-    from .network.fabric import TcpTransport
-    from .network.node import Node
+    """Transport from the TLS section: mTLS when configured, plain TCP
+    otherwise (dev mode); muxed when ``network.mux`` is set."""
+    kwargs = _node_kwargs(conf, registry_server=registry_server)
+    if conf.tls.enabled():
+        from .network.secure import secure_node
 
-    node = Node(TcpTransport(), peer_id=peer_id or conf.name,
-                **_node_kwargs(conf, registry_server=registry_server))
+        node = secure_node(conf.tls.cert, conf.tls.key, conf.tls.trust,
+                           conf.tls.crls or None, **kwargs)
+    else:
+        from .network.fabric import TcpTransport
+        from .network.node import Node
+
+        node = Node(TcpTransport(), peer_id=peer_id or conf.name, **kwargs)
+    if conf.network.mux:
+        from .network.mux import MuxTransport
+
+        node.transport = MuxTransport(node.transport)
     node.external_addrs = list(conf.network.external)
     return node
 
 
-async def _serve_until_signal(stop: "asyncio.Event | None" = None) -> None:
-    """Wait for SIGINT/SIGTERM; a caller that runs several roles in one
-    process (the tests) passes ``stop`` instead and keeps its signals."""
+def _log_fabric_counts(node) -> None:
+    """Log what the node's fabric did (read by operators and the smoke)."""
+    counts, transport = {}, node.transport
+    while transport is not None:  # a MuxTransport wraps its base
+        counts.update(getattr(transport, "counts", {}))
+        transport = getattr(transport, "base", None)
+    verify = list(node.gossip_verify_s)
+    log.info("fabric counts: %s", json.dumps({
+        **counts, "gossip": node.gossip_counts,
+        "verify_ms_median": statistics.median(verify) * 1e3 if verify else None}))
+
+
+def _signal_event(stop: "asyncio.Event | None") -> asyncio.Event:
+    """``stop``, or an event SIGINT/SIGTERM sets; a caller that runs
+    several roles in one process (the tests) passes ``stop`` and keeps its
+    signals."""
     if stop is None:
         stop = asyncio.Event()
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGINT, signal.SIGTERM):
             loop.add_signal_handler(sig, stop.set)
-    await stop.wait()
+    return stop
+
+
+async def _serve_until_signal(stop: "asyncio.Event | None" = None) -> None:
+    """Wait for SIGINT/SIGTERM (or ``stop``)."""
+    await _signal_event(stop).wait()
     log.info("shutting down")
 
 
@@ -160,6 +198,7 @@ async def _run_gateway(conf: GatewayConfig, *, stop: "asyncio.Event | None" = No
         print(f"gateway {gw.peer_id} on {gw.node.listen_addrs}", flush=True)
         await _serve_until_signal(stop)
     finally:
+        _log_fabric_counts(gw.node)
         await gw.stop()
 
 
@@ -173,34 +212,45 @@ async def _run_data(conf: DataNodeConfig, *, stop: "asyncio.Event | None" = None
         print(f"data node {dn.peer_id} on {dn.node.listen_addrs}", flush=True)
         await _serve_until_signal(stop)
     finally:
+        _log_fabric_counts(dn.node)
         await dn.stop()
 
 
 async def _run_worker(conf: WorkerConfig, *, device=None,
                       stop: "asyncio.Event | None" = None) -> None:
-    from .network.fabric import TcpTransport
     from .worker.arbiter import OfferConfig
     from .worker.runtime import WorkerNode
 
     worker = WorkerNode(
-        TcpTransport(),
+        None,
         resources=conf.resources.to_resources(),
         device=device,
-        peer_id=conf.name,
         offer=OfferConfig(
             price=conf.offer.price, floor=conf.offer.floor, strategy=conf.offer.strategy
         ),
         train_runtime=conf.executor.runtime,
+        train_cmd=conf.executor.cmd or None,
+        train_args=list(conf.executor.args) or None,
         work_root=conf.work_root,
-        **_node_kwargs(conf),
+        node=_make_node(conf),
     )
-    worker.node.external_addrs = list(conf.network.external)
-    await worker.start(list(conf.network.listen))
+    stop = _signal_event(stop)
+    starting = asyncio.create_task(worker.start(list(conf.network.listen)))
+    stopping = asyncio.create_task(stop.wait())
     try:
+        # A signal may come while the worker waits for its gateways (one
+        # that refuses this node's certificate never answers): stop then.
+        await asyncio.wait({starting, stopping}, return_when=asyncio.FIRST_COMPLETED)
+        if not starting.done():
+            log.info("stopped before the bootstrap completed")
+            return
+        starting.result()
         print(f"worker {worker.peer_id} on {worker.node.listen_addrs} ({worker.device})",
               flush=True)
         await _serve_until_signal(stop)
     finally:
+        await aio.reap(starting, stopping)
+        _log_fabric_counts(worker.node)
         await worker.stop()
 
 
@@ -226,6 +276,7 @@ async def _run_scheduler(conf: SchedulerConfig, *, stop: "asyncio.Event | None" 
         print(f"job {result.job_id} completed: {result.rounds} rounds", flush=True)
         return result
     finally:
+        _log_fabric_counts(node)
         await node.stop()
 
 

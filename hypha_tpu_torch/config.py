@@ -12,8 +12,7 @@ a ``ConfigWithMetadata`` wrapper that remembers **which layer set every
 key** so errors point at the exact file/env/flag source (miette-style
 ``find_metadata``, lib.rs:418-436), a ``validate()`` hook (lib.rs:438-451)
 and a doc-comment-preserving TOML emitter for ``init`` (``to_toml``,
-lib.rs:544). ``TLSConfig`` keeps the reference's credential keys; the port
-refuses them when set (``node_config.py``: mTLS is not ported).
+lib.rs:544). ``TLSConfig`` keeps the reference's credential keys.
 
 Config schemas are plain dataclasses; field docs come from
 ``field(metadata={"doc": ...})`` and nested sections from nested
@@ -65,8 +64,9 @@ class Provenance:
 class TLSConfig:
     """Credential file locations (lib.rs:464-540 TLSConfig).
 
-    The reference derives the peer id from the certificate key
-    (rfc/2025-05-30_mtls.md); the port accepts the section only empty.
+    PeerID is derived from the certificate key (rfc/2025-05-30_mtls.md);
+    the CLI builds an mTLS node (``network.secure.secure_node``) from a
+    section with cert, key and trust set.
     """
 
     cert: str = field(default="", metadata={"doc": "node certificate chain (PEM)"})

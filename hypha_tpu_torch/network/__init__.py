@@ -1,12 +1,12 @@
-"""The fabric: typed CBOR RPC, gossip, gateway registry and raw push/pull
-byte streams over pluggable transports (a copy of ``hypha_tpu/network/``:
-``fabric.py``, ``node.py`` and ``utils.py``).
+"""The fabric: typed CBOR RPC, signed gossip, gateway registry and raw
+push/pull byte streams over pluggable transports (a copy of
+``hypha_tpu/network/``: ``fabric.py``, ``node.py``, ``mux.py``,
+``secure.py`` and ``utils.py``).
 
 A torch node speaks the JAX package's wire byte for byte — frames, RPC
-envelopes, registry ops, push and pull headers — so either package's
-nodes share one network (``tests/test_torch_network.py``). Not ported:
-``secure.py``'s mTLS node, whose ``secure_node`` raises, with
-``certs.py``, and ``mux.py`` (ROADMAP.md, Queue 1: mTLS; network/mux.py).
+envelopes, registry ops, push and pull headers, signed gossip frames, mux
+frames — so either package's nodes share one network, under mTLS too
+(``tests/test_torch_network.py``, ``tests/test_torch_certs.py``).
 """
 
 from .fabric import (
@@ -18,6 +18,7 @@ from .fabric import (
     read_frame,
     write_frame,
 )
+from .mux import MuxTransport
 from .node import HandlerRegistration, Node, RequestError
 
 __all__ = [
@@ -27,6 +28,7 @@ __all__ = [
     "Transport",
     "MemoryTransport",
     "TcpTransport",
+    "MuxTransport",
     "Stream",
     "FrameError",
     "read_frame",

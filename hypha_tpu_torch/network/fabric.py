@@ -13,16 +13,17 @@ Two transports:
   * :class:`MemoryTransport` — in-process fabric for tests, the role
     ``libp2p-swarm-test`` plays in the reference (SURVEY.md §4): real
     concurrent streams, no sockets.
-  * :class:`TcpTransport` — asyncio TCP, optionally wrapped in TLS by a
-    caller-built ``ssl.SSLContext`` (the reference builds its mTLS
-    contexts in ``certs.py``, which is not ported: ROADMAP.md, Queue 1:
-    mTLS); one TCP connection per logical stream (parallel streams beat multiplexing on throughput,
+  * :class:`TcpTransport` — asyncio TCP, optionally wrapped in mTLS
+    (``ssl.SSLContext`` built by :mod:`hypha_tpu_torch.certs`); one TCP
+    connection per logical stream (parallel streams beat multiplexing on throughput,
     reference rfc/2025-03-25-libp2p_network_stack.md:17-29).
 """
 
 from __future__ import annotations
 
 import asyncio
+import logging
+import ssl
 import struct
 from typing import Any, AsyncIterator, Awaitable, Callable
 
@@ -39,6 +40,8 @@ __all__ = [
     "read_frame",
     "write_frame",
 ]
+
+log = logging.getLogger("hypha.torch.network.fabric")
 
 # Bound on a single control frame (headers, RPC bodies). Tensor payloads are
 # raw bytes and unaffected. Reference caps stream headers at 1 MiB
@@ -303,11 +306,18 @@ class _TcpStream(Stream):
 
 
 class TcpTransport(Transport):
-    """addr format: ``host:port``. Optional TLS: stdlib ``ssl.SSLContext``s."""
+    """addr format: ``host:port``. TLS contexts from hypha_tpu_torch.certs.
+
+    The server side accepts plain TCP and then runs the TLS handshake on
+    the connection itself, so a refused peer (an untrusted or revoked
+    certificate, a plain-TCP client) is logged with OpenSSL's reason and
+    counted. ``counts`` holds the connections dialed and accepted (under
+    TLS, each one a completed handshake) and the handshakes refused."""
 
     def __init__(self, server_ssl=None, client_ssl=None) -> None:
         self._server_ssl = server_ssl
         self._client_ssl = client_ssl
+        self.counts = {"dialed": 0, "accepted": 0, "refused": 0}
         self._servers: list[asyncio.base_events.Server] = []
         self._conn_tasks: set[asyncio.Task] = set()
 
@@ -323,6 +333,17 @@ class TcpTransport(Transport):
             if task is not None:
                 self._conn_tasks.add(task)
                 task.add_done_callback(self._conn_tasks.discard)
+            if self._server_ssl is not None:
+                try:
+                    await writer.start_tls(self._server_ssl)
+                except (ssl.SSLError, OSError, asyncio.TimeoutError) as e:
+                    self.counts["refused"] += 1
+                    log.warning("TLS handshake from %s refused: %s",
+                                writer.get_extra_info("peername"),
+                                getattr(e, "verify_message", None) or e)
+                    writer.close()
+                    return
+            self.counts["accepted"] += 1
             stream = _TcpStream(reader, writer)
             try:
                 await on_stream(stream)
@@ -333,8 +354,7 @@ class TcpTransport(Transport):
                     pass
 
         server = await asyncio.start_server(
-            handle, host, int(port), ssl=self._server_ssl,
-            limit=STREAM_BUFFER_LIMIT,
+            handle, host, int(port), limit=STREAM_BUFFER_LIMIT,
         )
         self._servers.append(server)
         bound = server.sockets[0].getsockname()
@@ -352,6 +372,7 @@ class TcpTransport(Transport):
             host, int(port), ssl=self._client_ssl,
             server_hostname=server_hostname, limit=STREAM_BUFFER_LIMIT,
         )
+        self.counts["dialed"] += 1
         return _TcpStream(reader, writer)
 
     async def close(self) -> None:

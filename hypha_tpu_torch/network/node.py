@@ -22,22 +22,22 @@ Wire handshake (every stream): dialer sends one frame
 the responder can dial back (the identify role). Under mTLS the responder
 verifies ``from`` equals the certificate-derived peer id.
 
-What the copy leaves out: the per-protocol control-byte counters
-(``SCALE_METRICS``; ROADMAP.md, Queue 1: telemetry), and gossip signing,
-whose Ed25519 keys and verification need ``cryptography`` and the
-reference's ``certs.py`` (ROADMAP.md, Queue 1: mTLS). A node given a
-``gossip_key`` raises; a signed frame, which this node cannot verify, is
-dropped as a frame with a bad signature would be.
+Gossip signing runs on the port's pure-Python Ed25519 (``ed25519.py``);
+``Node.gossip_counts`` holds the frames this node signed, verified and
+dropped for a bad or missing signature, and ``gossip_verify_s`` the
+seconds of the latest verifications. What the copy leaves out: the per-protocol
+control-byte counters (``SCALE_METRICS``; ROADMAP.md, Queue 1: telemetry).
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import logging
 import socket
 import time
 import uuid
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Any, AsyncIterator, Awaitable, Callable
 
@@ -57,6 +57,11 @@ __all__ = [
 ]
 
 log = logging.getLogger("hypha.torch.network")
+
+# Signed gossip frames carry a timestamp covered by the signature; frames
+# outside this window (stale or future-dated) are dropped, bounding replay
+# of captured frames to the window even after the seen-cache evicts them.
+GOSSIP_MAX_SKEW_S = 120.0
 
 PROTOCOL_GOSSIP = "/hypha-gossip/0.0.1"
 PROTOCOL_REGISTRY = "/hypha-registry/0.0.1"
@@ -139,6 +144,25 @@ def _gossip_sign_bytes(
     from .. import codec
 
     return codec.dumps(["hypha-gossip-sig", topic, msg_id, origin, ts_ns, body])
+
+
+def _gossip_verify(
+    topic: str, msg_id: str, origin: str, ts_ns: int, body: bytes, key: bytes, sig: bytes
+) -> bool:
+    """Self-certifying verification: the embedded SPKI public key must hash
+    to the claimed origin peer id (same derivation as cert identities), and
+    the Ed25519 signature must cover the canonical frame bytes. No key
+    distribution needed — the id IS the key hash."""
+    from ..certs import peer_id_from_spki_der
+    from ..ed25519 import load_public_key_spki
+
+    try:
+        if peer_id_from_spki_der(key) != origin:
+            return False
+        return load_public_key_spki(key).verify(
+            sig, _gossip_sign_bytes(topic, msg_id, origin, ts_ns, body))
+    except (ValueError, TypeError):
+        return False
 
 
 def _addr_host(addr: str) -> str:
@@ -657,14 +681,15 @@ class Node:
         # checks its CIDR exclusion list on each outbound connection
         # (crates/network/src/dial.rs:28-41,164).
         self._exclude_nets = _parse_cidrs(exclude_cidrs or [])
-        # The reference signs gossip with the node-certificate key when it
-        # has one; this node floods unsigned (see the module docstring).
-        if gossip_key is not None:
-            raise NotImplementedError(
-                "signed gossip (gossip_key) needs the node-certificate keys of mTLS, "
-                "which are not ported to PyTorch yet (ROADMAP.md, Queue 1: mTLS)"
-            )
-        self._gossip_key = None
+        # ed25519.Ed25519PrivateKey (the node-cert key) for gossip message
+        # signing — the reference signs gossipsub messages with the swarm
+        # keypair (crates/scheduler/src/network.rs:132-136). When a key is
+        # present the mesh is permissioned and unsigned/invalid frames are
+        # DROPPED; keyless (dev-mode) nodes accept unsigned frames but
+        # still reject frames whose signature fails to verify.
+        self._gossip_key = gossip_key
+        self.gossip_counts = {"signed": 0, "verified": 0, "dropped": 0}
+        self.gossip_verify_s: deque = deque(maxlen=4096)  # the latest verifications
         # inbound/outbound byte counters (telemetry bandwidth role,
         # reference crates/telemetry/src/bandwidth.rs)
         self.bytes_in = 0
@@ -1286,15 +1311,29 @@ class Node:
             lst.remove(sub)
 
     async def publish(self, topic: str, msg: Any) -> None:
-        """Flood ``msg`` to the mesh, unsigned: the reference's signed
-        frames (an Ed25519 signature by the origin's certificate key) need
-        mTLS, which is not ported. Gossip is advertisement, not
-        authorization — offers, leases and dispatch run over RPC."""
+        """Flood ``msg`` to the mesh. When the node has a ``gossip_key``
+        (every mTLS node does), the frame carries an Ed25519 signature by
+        the origin's cert key and receivers verify key-hash == origin, so
+        the ``origin`` delivered to subscribers is authenticated end-to-end
+        across relays (reference: signed gossipsub,
+        crates/scheduler/src/network.rs:132-136), and a signed timestamp
+        bounds replay of captured frames to GOSSIP_MAX_SKEW_S. Within that
+        window a mesh member can still re-flood a captured frame, so treat
+        gossip as advertisement, not authorization — security-relevant
+        follow-ups (offers, leases, dispatch) run over cert-verified RPC.
+        Keyless dev-mode nodes flood unsigned and accept unsigned."""
         msg_id = uuid.uuid4().hex
         body = messages.encode(msg)
         key = sig = None
         ts_ns = time.time_ns()
-        self._mark_seen(_gossip_seen_key(msg_id, None))
+        if self._gossip_key is not None:
+            key = self._gossip_key.public_key().spki_der()
+            canonical = _gossip_sign_bytes(topic, msg_id, self.peer_id, ts_ns, body)
+            sig = self._gossip_key.sign(canonical)
+            self.gossip_counts["signed"] += 1
+            self._mark_seen(_gossip_seen_key(msg_id, sig, canonical))
+        else:
+            self._mark_seen(_gossip_seen_key(msg_id, None))
         self._deliver_local(topic, self.peer_id, body)
         await self._gossip_fanout(
             topic, msg_id, self.peer_id, body, exclude=set(),
@@ -1389,12 +1428,30 @@ class Node:
             if not self._mark_seen(_gossip_seen_key(msg_id, sig, canonical)):
                 return
             if key is not None and sig is not None:
-                # Verifying needs the reference's certs.py (Ed25519 keys,
-                # ROADMAP.md, Queue 1: mTLS): an unverifiable frame is
-                # dropped as a badly signed one is.
+                if abs(time.time_ns() - ts_ns) > GOSSIP_MAX_SKEW_S * 1e9:
+                    self.gossip_counts["dropped"] += 1
+                    log.warning(
+                        "dropping gossip on %s: frame from %s outside the "
+                        "freshness window (replay or clock skew)", topic, origin,
+                    )
+                    return
+                t0 = time.perf_counter()
+                ok = _gossip_verify(topic, msg_id, origin, ts_ns, body, key, sig)
+                self.gossip_verify_s.append(time.perf_counter() - t0)
+                if not ok:
+                    self.gossip_counts["dropped"] += 1
+                    log.warning(
+                        "dropping gossip on %s: bad signature for origin %s "
+                        "(relayed by %s)", topic, origin, peer,
+                    )
+                    return
+                self.gossip_counts["verified"] += 1
+            elif self._gossip_key is not None:
+                # This node runs a signed mesh; unsigned frames are dropped
+                # (reference: gossipsub ValidationMode::Strict).
+                self.gossip_counts["dropped"] += 1
                 log.warning(
-                    "dropping signed gossip on %s from origin %s (relayed by %s): "
-                    "signature verification is not ported", topic, origin, peer,
+                    "dropping unsigned gossip on %s from %s", topic, peer
                 )
                 return
             self._deliver_local(topic, origin, body)
@@ -1671,6 +1728,7 @@ class Node:
     async def push(self, peer_id: str, resource: Any, source) -> int:
         """Open a push stream: header frame, then raw bytes from ``source``
         (bytes | file path | async byte iterator). Returns bytes sent."""
+        t0 = time.perf_counter()
         stream = await self._stream_to(peer_id, PROTOCOL_PUSH)
         try:
             await stream.write_frame(messages.encode(resource))
@@ -1680,6 +1738,10 @@ class Node:
                 # Lump-sum accounting keeps the sendfile fast path.
                 n = await self._write_source(stream, source)
                 self.bytes_out += n
+                if not isinstance(source, (bytes, bytearray, memoryview)):
+                    # A file: a Δθ or an update, the round's bulk transfer.
+                    log.info("push to %s: %d bytes in %.3f s; header %s", peer_id, n,
+                             time.perf_counter() - t0, json.dumps(resource, default=str))
             else:
                 # Streamed (iterator) sources credit the outbound counter
                 # chunk by chunk: a slow / throttled transfer must read as

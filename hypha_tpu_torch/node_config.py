@@ -8,17 +8,23 @@ sections every binary carries. ``init`` emits these as documented TOML
 (config crate ``to_toml``); ``run`` layers TOML ← HYPHA_* env ← CLI.
 
 The sections, keys, defaults and checks are the JAX package's, so a TOML
-the JAX CLI reads, the port reads. Two things differ:
+the JAX CLI reads, the port reads. Three things differ:
 
 * the accelerator axis: a torch worker sells ``gpu``. The job asks for
   ``job.worker_gpu`` (default 1.0); ``job.worker_tpu`` and
   ``resources.tpu`` stay as keys so a JAX file parses, and any value
   above 0 is a ``ConfigError``;
-* every option outside the port's plain-TCP, single-deployment slice is
-  accepted at its default and raises ``NotImplementedError`` naming its
-  ROADMAP.md label otherwise (``_refuse``), after the reference's own
-  checks. The train job's options are refused by ``DiLoCoJob`` itself,
-  which ``JobSection.validate`` builds.
+* the process executor's command: by default ``executor.cmd`` and
+  ``executor.args`` name the port's trainer CLI (``TRAINER_CMD``,
+  ``TRAINER_ARGS``, with a ``{DEVICE}`` placeholder for the worker's
+  device), where the reference's are empty, so ``runtime = "process"``
+  works as ``init`` writes it; an empty ``cmd`` under it is the
+  reference's ``ConfigError``;
+* every option outside the port's single-deployment slice is accepted at
+  its default and raises ``NotImplementedError`` naming its ROADMAP.md
+  label otherwise (``_refuse``), after the reference's own checks. The
+  train job's options are refused by ``DiLoCoJob`` itself, which
+  ``JobSection.validate`` builds.
 """
 
 from __future__ import annotations
@@ -46,6 +52,13 @@ __all__ = [
 ]
 
 _GPU_ONLY = "the port sells gpu: set it to 0 and use {gpu_key} instead"
+
+# The port's trainer CLI, as runtime=process spawns it by default. The
+# process executor substitutes {SOCKET_PATH}, {WORK_DIR}, {JOB_JSON} and
+# {DEVICE} (the worker's torch device).
+TRAINER_CMD = "python3"
+TRAINER_ARGS = ["-m", "hypha_tpu_torch.executor.training", "--socket", "{SOCKET_PATH}",
+                "--work-dir", "{WORK_DIR}", "--job", "{JOB_JSON}", "--device", "{DEVICE}"]
 
 
 def _refuse(option: str, label: str) -> None:
@@ -164,23 +177,21 @@ class ExecutorSection:
     runtime: str = field(
         default="in-process",
         metadata={
-            "doc": "in-process (the trainer in the worker) | process (the "
-            "trainer CLI as a process of its own)"
+            "doc": "in-process (the trainer in the worker) | process (spawn cmd; "
+            "by default the port's trainer CLI)"
         },
     )
-    cmd: str = field(default="", metadata={"doc": "command for runtime=process"})
+    cmd: str = field(default=TRAINER_CMD, metadata={"doc": "command for runtime=process"})
     args: list[str] = field(
-        default_factory=list,
-        metadata={"doc": "args; {SOCKET_PATH} {WORK_DIR} {JOB_JSON} substituted"},
+        default_factory=lambda: list(TRAINER_ARGS),
+        metadata={"doc": "args; {SOCKET_PATH} {WORK_DIR} {JOB_JSON} {DEVICE} substituted"},
     )
 
     def validate(self) -> None:
         if self.runtime not in ("in-process", "process"):
             raise ConfigError(f"executor.runtime: unknown {self.runtime!r}")
-        # runtime=process always spawns the port's trainer CLI
-        # (worker/process_executor.py), so it needs no command.
-        if self.cmd or self.args:
-            _refuse("executor.cmd / executor.args", "process executor command")
+        if self.runtime == "process" and not self.cmd:
+            raise ConfigError("executor.runtime=process needs executor.cmd")
 
 
 @dataclass
@@ -193,16 +204,18 @@ class GatewayConfig:
     def validate(self) -> None:
         self.tls.validate_files()
         self.telemetry.validate()
-        _refuse_transport(self)
+        _check_node_sections(self)
 
 
-def _refuse_transport(conf) -> None:
-    """The sections every node carries, past the reference's checks."""
+def _check_node_sections(conf) -> None:
+    """The sections every node carries, past the reference's checks: a
+    ``[tls]`` section sets cert, key and trust together (the reference
+    starts a plain-TCP node from a partial one), and the telemetry
+    exporter is not ported."""
     tls = conf.tls
-    if tls.cert or tls.key or tls.trust or tls.crls:
-        _refuse("tls.*", "mTLS")
-    if conf.network.mux:
-        _refuse("network.mux", "network/mux.py")
+    if (tls.cert or tls.key or tls.trust or tls.crls) and not tls.enabled():
+        raise ConfigError("tls: cert, key and trust go together; a partial [tls] "
+                          "section would start an unsecured node")
     if conf.telemetry.endpoint:
         _refuse("telemetry.endpoint", "telemetry")
 
@@ -223,7 +236,7 @@ class DataNodeConfig:
             raise ConfigError("data node needs at least one [datasets] entry")
         self.tls.validate_files()
         self.telemetry.validate()
-        _refuse_transport(self)
+        _check_node_sections(self)
 
 
 @dataclass
@@ -277,7 +290,7 @@ class WorkerConfig:
         self.resources.validate()
         if self.multihost.coordinator_address:
             _refuse("multihost.coordinator_address", "Parallel and long context")
-        _refuse_transport(self)
+        _check_node_sections(self)
 
 
 @dataclass
@@ -822,4 +835,4 @@ class SchedulerConfig:
         self.job.validate()
         self.tls.validate_files()
         self.telemetry.validate()
-        _refuse_transport(self)
+        _check_node_sections(self)

@@ -120,6 +120,10 @@ class _RunContext:
         self.complete: asyncio.Event | None = None
         self.activity: list[float] = []
         self.status_timeout: float | None = None
+        # The longest silence between two progress messages, and the
+        # least deadline the watchdog held: logged when the job completes.
+        self.progress_gap_max_s = 0.0
+        self.watchdog_min_s = float("inf")
 
 
 class Orchestrator:
@@ -343,7 +347,9 @@ class Orchestrator:
 
         async def on_progress(peer: str, progress: Progress):
             # Every progress message, from any peer, resets the watchdog.
-            ctx.activity[0] = asyncio.get_running_loop().time()
+            now = asyncio.get_running_loop().time()
+            ctx.progress_gap_max_s = max(ctx.progress_gap_max_s, now - ctx.activity[0])
+            ctx.activity[0] = now
             return batch_scheduler.on_progress(peer, progress)
 
         progress_reg = self.node.on(PROTOCOL_PROGRESS, Progress).respond_with(on_progress)
@@ -357,6 +363,7 @@ class Orchestrator:
         allocation_attempts: int = 3,
         status_timeout: float | None = None,
     ) -> JobResult:
+        log.info("auctioning %d train workers", job.resources.num_workers)
         worker_offers = await self._allocate_train(
             job, auction_timeout=auction_timeout, attempts=allocation_attempts
         )
@@ -436,8 +443,12 @@ class Orchestrator:
                 ],
                 limit=8,
             )
+            log.info("job %s dispatched: parameter server on %s, train on %s", ctx.base_id,
+                     [h.peer_id for h in ctx.ps_handles], list(ctx.handles))
 
             await self._supervise(ctx, tasks)
+            log.info("job %s: largest progress gap %.3f s; the watchdog's least deadline "
+                     "%.3f s", ctx.base_id, ctx.progress_gap_max_s, ctx.watchdog_min_s)
             return JobResult(ctx.base_id, ctx.tracker.round, collected)
         finally:
             if progress_reg is not None:
@@ -512,6 +523,7 @@ class Orchestrator:
         try:
             while True:
                 timeout_s = self._effective_timeout(ctx)
+                ctx.watchdog_min_s = min(ctx.watchdog_min_s, timeout_s)
                 last = ctx.activity[0] if ctx.activity else loop.time()
                 remaining = (last + timeout_s) - loop.time()
                 if remaining <= 0:

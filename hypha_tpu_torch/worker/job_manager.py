@@ -118,6 +118,8 @@ class JobManager:
             raise
         finally:
             self._active.pop(job_id, None)
+        log.info("job %s %s%s", job_id, status.state,
+                 f" ({status.message})" if status.message else "")
         await self._report(scheduler_peer, status)
 
     async def _report(self, scheduler_peer: str, status: JobStatus) -> None:

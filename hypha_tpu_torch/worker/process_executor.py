@@ -2,13 +2,15 @@
 (counterpart of ``hypha_tpu/worker/process_executor.py``).
 
 Per job: a work dir ``hypha-{uuid}`` under ``work_root`` holding the Job
-Bridge's unix socket; ``python -m hypha_tpu_torch.executor.training
---socket {SOCKET_PATH} --work-dir {WORK_DIR} --job {JOB_JSON}`` is spawned
-with the three values substituted (and exported as environment
-variables), plus ``--device cpu`` when the executor was built for the CPU;
-its output is piped through the worker's log; cancelling sends SIGTERM and
-escalates to SIGKILL after a 5 s grace; the work dir is removed
-afterwards.
+Bridge's unix socket; ``cmd args...`` is spawned with ``{SOCKET_PATH}``,
+``{WORK_DIR}`` and ``{JOB_JSON}`` substituted in the args (and exported as
+environment variables), and, beyond the reference, ``{DEVICE}``: the
+worker's torch device. By default the command is this interpreter running
+the port's trainer CLI, ``-m hypha_tpu_torch.executor.training --socket
+{SOCKET_PATH} --work-dir {WORK_DIR} --job {JOB_JSON} --device {DEVICE}``
+(``node_config.TRAINER_ARGS``). Its output is piped through the worker's
+log; cancelling sends SIGTERM and escalates to SIGKILL after a 5 s grace;
+the work dir is removed afterwards.
 
 A unix socket path must stay under 108 bytes, so ``work_root`` must be
 short: the socket is ``{work_root}/hypha-{12 hex}/bridge.sock``. The
@@ -31,11 +33,12 @@ import shutil
 import signal
 import sys
 import uuid
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 from .. import aio, messages
 from ..messages import JobSpec
+from ..node_config import TRAINER_ARGS
 from .bridge import Bridge
 from .connectors import Connector
 from .job_manager import Execution, JobExecutor
@@ -52,17 +55,14 @@ _PORT_ROOT = str(Path(__file__).resolve().parents[2])
 
 @dataclass(slots=True)
 class ProcessExecutor(JobExecutor):
-    """Spawns the port's trainer CLI per job, on ``device``."""
+    """Spawns ``cmd args...`` per job (config runtime=process,
+    crates/worker/src/config.rs:135-141); ``device`` fills ``{DEVICE}``."""
 
     node: object
     work_root: Path
     device: object  # torch.device
-
-    @property
-    def args(self) -> list:
-        return ["-m", "hypha_tpu_torch.executor.training",
-                "--socket", "{SOCKET_PATH}", "--work-dir", "{WORK_DIR}", "--job", "{JOB_JSON}",
-                ] + (["--device", "cpu"] if self.device.type == "cpu" else [])
+    cmd: str = sys.executable
+    args: list = field(default_factory=lambda: list(TRAINER_ARGS))
 
     async def execute(self, job_id: str, spec: JobSpec, scheduler_peer: str) -> Execution:
         work_dir = Path(self.work_root) / f"hypha-{uuid.uuid4().hex[:12]}"
@@ -88,8 +88,9 @@ class ProcessExecutor(JobExecutor):
             "SOCKET_PATH": str(socket_path),
             "WORK_DIR": str(work_dir),
             "JOB_JSON": json.dumps(messages.to_json_dict(spec)),
+            "DEVICE": str(self.device),
         }
-        argv = [sys.executable] + [_substitute(a, subst) for a in self.args]
+        argv = [self.cmd] + [_substitute(a, subst) for a in self.args]
         proc = await asyncio.create_subprocess_exec(
             *argv, stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.STDOUT,
             env={**os.environ, "PYTHONPATH": _pythonpath(), **subst}, cwd=str(work_dir),

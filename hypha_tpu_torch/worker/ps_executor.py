@@ -571,6 +571,7 @@ class ParameterServerExecutor(JobExecutor):
         resp = await self.node.request(scheduler_peer, PROTOCOL_PROGRESS, progress, timeout=30)
         if not isinstance(resp, ProgressResponse):
             raise RequestError(f"unexpected progress response {resp!r}")
+        log.info("ps %s: round %d UPDATED (answered %s)", job_id, round_num, resp.kind.value)
         if execution is not None:
             new_gen = getattr(resp, "generation", None)
             if new_gen is not None:

@@ -13,9 +13,10 @@ Composes the worker stack:
 Default executor table:
 
     ("train", "diloco-transformer")   → the in-process torch trainer
-                                        (default) or the trainer CLI as a
-                                        process of its own
-                                        (``train_runtime="process"``)
+                                        (default) or ``train_cmd
+                                        train_args...`` as a process of its
+                                        own (``train_runtime="process"``;
+                                        by default the port's trainer CLI)
     ("aggregate", "parameter-server") → the parameter server, folding and
                                         stepping on the node's device
     ("infer", "generate")             → the serving executor: the model
@@ -32,7 +33,9 @@ constructor raises. A torch worker sells its cards on the ``gpu`` axis of
                       bootstrap=["gw-host:7000"], work_root="/tmp/hw")
     await node.start(["0.0.0.0:0"])
 
-``work_root`` defaults to the system's temporary directory. Keep it
+``node`` injects a ready ``Node`` (the CLI passes an mTLS-secured one
+from ``network.secure.secure_node``) in place of one built on
+``transport``. ``work_root`` defaults to the system's temporary directory. Keep it
 short: each job's bridge socket is
 ``{work_root}/hypha-{12 hex}/bridge.sock`` and a unix socket path must
 stay under 108 bytes.
@@ -72,16 +75,21 @@ class WorkerNode:
         peer_id: "str | None" = None,
         offer: "OfferConfig | None" = None,
         train_runtime: str = "in-process",  # "in-process" | "process"
+        train_cmd: "str | None" = None,
+        train_args: "list[str] | None" = None,
         work_root: "Path | str | None" = None,
+        node: "Node | None" = None,
         **node_kwargs,
     ) -> None:
         self.device = default_device(device)
-        self.node = Node(transport, peer_id=peer_id, **node_kwargs)
+        self.node = node or Node(transport, peer_id=peer_id, **node_kwargs)
         self.resource_manager = StaticResourceManager(resources)
         self.lease_manager = LeaseManager(self.resource_manager)
         work_root = Path(work_root or tempfile.gettempdir())
         if train_runtime == "process":
             train = ProcessExecutor(self.node, work_root, self.device)
+            train.cmd = train_cmd or train.cmd
+            train.args = list(train_args or train.args)
         elif train_runtime == "in-process":
             train = InProcessTrainExecutor(self.node, work_root, self.device)
         else:

@@ -1063,3 +1063,60 @@ def test_cli_serve_job_answers_through_the_ragged_kernel(cuda):
     lc = logs.json_after("serve launches: ")[-1]
     assert lc["mma"] > 0 and lc["decode"] > 0 and lc["mma"] % 2 == 0 and lc["decode"] % 2 == 0, lc
     assert lc["plain"] == 0 and lc["fallbacks"] == 0 and lc["requests"] == len(prompts)
+
+
+def test_mtls_and_signed_gossip_on_the_card_machine(cuda, tmp_path):
+    """The card machine's OpenSSL takes the port's Ed25519 certificates in
+    TLS 1.3: a PKI from the port's certutil, an mTLS RPC each way between
+    two port nodes (peer ids from the certificates), a signed gossip frame
+    each way verified by the port's Ed25519, and a revoked node refused."""
+    import asyncio
+    import ssl
+
+    from hypha_tpu_torch import certs, certutil
+    from hypha_tpu_torch.messages import PROTOCOL_HEALTH, HealthRequest, HealthResponse
+    from hypha_tpu_torch.network import FrameError
+    from hypha_tpu_torch.network.secure import secure_node
+
+    for args in (["root"], ["org", "--name", "o"], ["node", "--org", "o", "--name", "a"],
+                 ["node", "--org", "o", "--name", "b"], ["node", "--org", "o", "--name", "x"],
+                 ["revoke", "--org", "o", "--cert", str(tmp_path / "x.crt")]):
+        assert certutil.main([args[0], "--out", str(tmp_path), *args[1:]]) == 0
+    crl = tmp_path / "o.crl"
+
+    def node(name):
+        return secure_node(tmp_path / f"{name}.crt", tmp_path / f"{name}.key",
+                           tmp_path / "trust.crt", crl)
+
+    async def main():
+        a, b, x = node("a"), node("b"), node("x")
+        for n in (a, b, x):
+            await n.start(["127.0.0.1:0"])
+        try:
+            for n in (a, b):
+                n.on(PROTOCOL_HEALTH, HealthRequest).respond_with(
+                    lambda peer, msg: _healthy(peer))
+            assert await a.dial(b.listen_addrs[0]) == b.peer_id
+            assert b.peer_id == certs.peer_id_from_cert_pem((tmp_path / "b.crt").read_bytes())
+            assert (await a.request(b.peer_id, PROTOCOL_HEALTH, HealthRequest())).healthy
+            assert (await b.request(a.peer_id, PROTOCOL_HEALTH, HealthRequest())).healthy
+            a.add_gossip_peer(b.peer_id)
+            b.add_gossip_peer(a.peer_id)
+            for pub, sub_node in ((a, b), (b, a)):
+                sub = await sub_node.subscribe("ads")
+                await pub.publish("ads", {"from": pub.peer_id})
+                origin, msg = await asyncio.wait_for(sub.__anext__(), 10)
+                assert origin == pub.peer_id and msg == {"from": pub.peer_id}
+                await sub.close()
+            assert a.gossip_counts["verified"] == b.gossip_counts["verified"] == 1
+            with pytest.raises((ssl.SSLError, ConnectionError, OSError, FrameError)):
+                await x.dial(a.listen_addrs[0])
+        finally:
+            for n in (a, b, x):
+                await n.stop()
+        return ssl.OPENSSL_VERSION
+
+    async def _healthy(peer):
+        return HealthResponse(healthy=True)
+
+    print(asyncio.run(asyncio.wait_for(main(), 60)))

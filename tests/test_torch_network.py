@@ -197,10 +197,47 @@ def test_fabric_interoperates(tmp_path, case):
     asyncio.run(asyncio.wait_for(_scenario(tmp_path, *CASES[case]), 60))
 
 
-def test_port_node_refuses_mtls():
+def test_port_node_refuses_mtls(tmp_path):
+    """What a port mTLS node refuses: a plain-TCP dial (the handshake is
+    counted and logged as refused, the dialer sees the connection drop),
+    and an unsigned gossip frame (a keyed node runs a signed mesh)."""
+    from hypha_tpu_torch import certutil
+    from hypha_tpu_torch.network import FrameError
     from hypha_tpu_torch.network.secure import secure_node
 
-    with pytest.raises(NotImplementedError, match="Queue 1: mTLS"):
-        TNode(TMemory(), gossip_key=object())
-    with pytest.raises(NotImplementedError, match="Queue 1: mTLS"):
-        secure_node("node.pem", "node.key", "trust.pem")
+    for args in (["root"], ["org", "--name", "o"], ["node", "--org", "o", "--name", "a"]):
+        assert certutil.main([args[0], "--out", str(tmp_path), *args[1:]]) == 0
+
+    async def main():
+        node = secure_node(tmp_path / "a.crt", tmp_path / "a.key", tmp_path / "trust.crt")
+        plain = TNode(TTcp(), peer_id="plain")
+        await node.start(["127.0.0.1:0"])
+        await plain.start(["127.0.0.1:0"])
+        try:
+            with pytest.raises((ConnectionError, OSError, FrameError)):
+                await plain.dial(node.listen_addrs[0])
+            for _ in range(100):  # the refusal lands on the node's side
+                if node.transport.counts["refused"]:
+                    break
+                await asyncio.sleep(0.02)
+            assert node.transport.counts == {"dialed": 0, "accepted": 0, "refused": 1}
+            # Unsigned gossip into the keyed node, over a memory link.
+            hub = TMemory()
+            keyed = TNode(hub.shared(), peer_id=node.peer_id, gossip_key=node._gossip_key)
+            loose = TNode(hub.shared(), peer_id="loose")
+            for n in (keyed, loose):
+                await n.start()
+            loose.add_peer_addr(keyed.peer_id, keyed.listen_addrs[0])
+            loose.add_gossip_peer(keyed.peer_id)
+            sub = await keyed.subscribe("ads")
+            await loose.publish("ads", {"kind": "ad"})
+            with pytest.raises(asyncio.TimeoutError):
+                await asyncio.wait_for(sub.__anext__(), 0.5)
+            assert keyed.gossip_counts == {"signed": 0, "verified": 0, "dropped": 1}
+            for n in (keyed, loose):
+                await n.stop()
+        finally:
+            await node.stop()
+            await plain.stop()
+
+    asyncio.run(asyncio.wait_for(main(), 30))

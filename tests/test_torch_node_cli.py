@@ -16,8 +16,11 @@
    worker, and the JAX ``generate_remote`` gets the same tokens as (2).
 4. The quickstart as OS processes (``chip_smoke.run_serve_node``, the
    smoke's ``serve_node`` phase on the CPU with ``worker run --device
-   cpu``), held to the smoke's gates; ``worker run`` without ``--device``
-   exits with the CUDA error; ``worker probe`` reports a running worker.
+   cpu``), held to the smoke's gates; a secured stream job as processes
+   (``chip_smoke.run_secure_job``, the smoke's ``train_secure`` phase:
+   mTLS, mux, ``executor.cmd``, a revoked worker); ``worker run`` without
+   ``--device`` exits with the CUDA error; ``worker probe`` reports a
+   running worker.
 5. The infer executor's and the supervisor's unported options raise with
    their labels; backpressure becomes ``ok=False``; the window and
    independent-decode modes answer as the pool does.
@@ -361,6 +364,39 @@ def test_quickstart_as_processes(tmp_path, root):
     assert run["launches"]["requests"] == len(PROMPTS) + 2
     assert run["bring_up_s"] > 0 and run["dispatch_to_first_answer_s"] > 0
     assert run["load_s"] > 0 and run["load_peak_mem_gib"] is None  # no device peak on the CPU
+
+
+def test_secured_stream_job_as_processes(root, monkeypatch):
+    """``chip_smoke.run_secure_job`` on the CPU (the smoke's ``train_secure``
+    phase): gateway, data node, ``psw``, ``w0`` and the scheduler as
+    processes under mTLS with the port's certutil PKI, mux on, ``w0``'s
+    trainer spawned through ``executor.cmd`` / ``executor.args``, and a
+    worker ``wx`` whose certificate the CRL revokes; a tiny Llama's int8
+    stream job over 2 rounds, held to ``secure_problems``."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # six processes on a few cores
+    model = {"model_type": "causal-lm", "family": "llama", "preset": "tiny",
+             "config": {"dtype": "float32"}, "seed": 0}
+    options = {**chip_smoke.STREAM_OPTIONS, "num_fragments": 2}
+    run = asyncio.run(asyncio.wait_for(chip_smoke.run_secure_job(
+        root, model, device="cpu", rounds=2, steps=3, batch=2, seq=64, period=64, lr=3e-3,
+        options=options), 400))
+    rep = chip_smoke.secure_report(run)
+    problems = chip_smoke.secure_problems(run, rep, rounds=2, fragments=2)
+    assert not problems, (problems, {n: log[-2500:] for n, log in run["logs"].items()})
+    trainer = rep["trainer"]
+    assert "attention path: plain (host)" in run["logs"]["w0"]
+    assert trainer["launches"] == {"fwd": 0, "dq": 0, "dkv": 0, "flash_plain": 0,
+                                   "dense": 2 * trainer["batches"]}
+    assert sorted(trainer["flights"]) == [0, 1]
+    assert len(rep["pushes"]) == len(rep["broadcasts"]) == 2
+    assert all(p["bytes"] > 0 and p["s"] > 0 for p in rep["pushes"] + rep["broadcasts"])
+    assert rep["auction_to_dispatch_s"] > 0
+    assert 0 < rep["progress_gap_max_s"] < rep["watchdog_min_s"]
+    # One muxed connection a peer: many more logical streams than handshakes.
+    w0 = rep["fabric"]["w0"]
+    assert w0["streams_dialed"] > w0["dialed"] >= 1
+    assert rep["fabric"]["gateway"]["refused"] >= 2  # wx (revoked) and the plain dial
+    assert run["plain_error"]
 
 
 def test_worker_probe_reports_a_running_worker(tmp_path):

@@ -4,21 +4,29 @@
 1. ``init`` writes the same TOML for every role in both packages, but for
    the accelerator keys (the port sells ``gpu``: ``job.worker_gpu`` beside
    a ``job.worker_tpu`` that must stay 0, ``resources.tpu`` documented as
-   such) and the executor runtime's doc line.
+   such), the executor runtime's doc line and the executor's command (the
+   port's names its trainer CLI, the reference's is empty).
 2. The same TOML file, ``HYPHA_*`` environment and ``--set`` overrides
    build equal sections with equal provenance in both packages.
 3. Bad input raises the same ``ConfigError`` text with the same provenance.
 4. Each option outside the port's slice, which the JAX package accepts,
    raises ``NotImplementedError`` naming its ROADMAP.md label; the CLI
    exits 2 on it.
+5. The node-plane options (``[tls]``, ``network.mux``, ``executor.cmd`` /
+   ``executor.args``) validate, reach the node ``cli._make_node`` builds
+   as the JAX CLI's reach its node, and the process executor spawns the
+   named command with the reference's substitutions.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
+from pathlib import Path
 
 import pytest
+import torch
 
 from hypha_tpu import cli as jcli
 from hypha_tpu import config as jcfg
@@ -31,9 +39,10 @@ from hypha_tpu_torch.resources import Resources
 ROLES = ("gateway", "data", "worker", "scheduler")
 SCHEMA = {"gateway": "GatewayConfig", "data": "DataNodeConfig", "worker": "WorkerConfig",
           "scheduler": "SchedulerConfig"}
-# Keys whose lines (and doc comments) differ: the accelerator axis, and
-# the runtime doc, which names the JAX trainer in the JAX package.
-ACCELERATOR = ("worker_tpu", "worker_gpu", "tpu", "gpu", "runtime")
+# Keys whose lines (and doc comments) differ: the accelerator axis, the
+# runtime doc, which names the JAX trainer in the JAX package, and the
+# executor's command, which names the port's trainer CLI in the port.
+ACCELERATOR = ("worker_tpu", "worker_gpu", "tpu", "gpu", "runtime", "cmd", "args")
 
 
 @pytest.fixture(autouse=True)
@@ -73,6 +82,9 @@ def test_init_writes_the_jax_packages_file_but_the_accelerator_keys(role, tmp_pa
         assert job.worker_resources() == Resources(gpu=1.0, cpu=1.0, memory=100.0)
     if role == "worker":
         assert "tpu = 0.0" in ttext and "gpu = 0.0" in ttext
+        assert 'cmd = ""' in jtext and 'cmd = "python3"' in ttext
+        executor = tcfg.builder(tnc.WorkerConfig).with_toml(paths["port"]).build().value.executor
+        assert (executor.cmd, executor.args) == (tnc.TRAINER_CMD, tnc.TRAINER_ARGS)
 
 
 def _layers(role: str, tmp_path, monkeypatch) -> dict:
@@ -86,7 +98,9 @@ def _layers(role: str, tmp_path, monkeypatch) -> dict:
         "data": (f'[datasets]\ncounting = "{data}"\n[network]\ngateways = ["127.0.0.1:7000"]\n',
                  {"HYPHA_NAME": "d1"}, {"telemetry.sample_ratio": 0.5}),
         "worker": ('work_root = "/tmp/w"\n[resources]\ngpu = 1.0\ncpu = 8\n'
-                   '[offer]\nstrategy = "whole"\nprice = 2.5\n',
+                   '[offer]\nstrategy = "whole"\nprice = 2.5\n'
+                   '[executor]\nruntime = "process"\ncmd = "/usr/bin/python3"\n'
+                   'args = ["-m", "trainer", "--socket", "{SOCKET_PATH}"]\n',
                    {"HYPHA_OFFER__FLOOR": "0.5", "HYPHA_RESOURCES__MEMORY": "65536"},
                    {"multihost.process_id": 0, "name": "w0"}),
         "scheduler": ('[job]\nkind = "serve"\nserve_name = "llama7b"\nmodel_family = "llama"\n'
@@ -168,6 +182,8 @@ BAD = {
     "prefetch": ("scheduler", None, {}, {"job.prefetch_slices": 2}),
     "lr schedule": ("scheduler", None, {}, {"job.lr_schedule": "sawtooth"}),
     "attempts": ("scheduler", None, {}, {"job.max_attempts": 0}),
+    "process without cmd": ("worker", None, {}, {"executor.runtime": "process",
+                                                 "executor.cmd": ""}),
     "missing file": ("gateway", "MISSING", {}, {}),
     "bad toml": ("gateway", "name = \n", {}, {}),
 }
@@ -209,9 +225,6 @@ def test_tpu_axis_is_refused_with_the_gpu_key(key):
 SERVE = {"job.kind": "serve", "job.serve_name": "s", "job.serve_block_size": 16}
 # (role, overrides, ROADMAP.md label); "<file>" stands for an existing file.
 UNPORTED = {
-    "tls": ("gateway", {"tls.cert": "<file>"}, "mTLS"),
-    "tls crls": ("worker", {"tls.crls": "<file>"}, "mTLS"),
-    "mux": ("worker", {"network.mux": True}, "network/mux.py"),
     "telemetry endpoint": ("data", {"datasets": {"d": "/tmp"},
                                     "telemetry.endpoint": "http://127.0.0.1:4318"}, "telemetry"),
     "metrics plane": ("scheduler", {"job.metrics_plane": True}, "telemetry"),
@@ -224,9 +237,6 @@ UNPORTED = {
     "spec layers": ("scheduler", {**SERVE, "job.serve_spec_layers": 1}, "speculative decoding"),
     "fixed-slot pool": ("scheduler", {**SERVE, "job.serve_block_size": 0},
                         "fixed-slot pool mode"),
-    "executor cmd": ("worker", {"executor.runtime": "process", "executor.cmd": "python"},
-                     "process executor command"),
-    "executor args": ("worker", {"executor.args": ["--x"]}, "process executor command"),
     "quorum": ("scheduler", {"job.quorum_fraction": 0.5}, "sharded PS/FT/rejoin"),
     "checkpoint": ("scheduler", {"job.checkpoint_dir": "/tmp/ck"}, "checkpoint resume"),
     "input pipeline": ("scheduler", {"job.input_pipeline": True}, "input_pipeline"),
@@ -247,6 +257,147 @@ def test_unported_option_raises_with_its_label(case, tmp_path):
     tbuilt = tcfg.builder(getattr(tnc, SCHEMA[role])).with_overrides(over).build()
     with pytest.raises(NotImplementedError, match=label):
         tbuilt.validate()
+
+
+@pytest.fixture(scope="module")
+def pki(tmp_path_factory):
+    """root -> org-a -> n1, with a CRL, from the port's certutil."""
+    from hypha_tpu_torch import certutil
+
+    out = tmp_path_factory.mktemp("pki")
+    for args in (["root"], ["org", "--name", "org-a"], ["node", "--org", "org-a", "--name", "n1"],
+                 ["node", "--org", "org-a", "--name", "gone"],
+                 ["revoke", "--org", "org-a", "--cert", str(out / "gone.crt")]):
+        assert certutil.main([args[0], "--out", str(out), *args[1:]]) == 0
+    return out
+
+
+def _tls(pki, crls: bool) -> dict:
+    tls = {"tls.cert": str(pki / "n1.crt"), "tls.key": str(pki / "n1.key"),
+           "tls.trust": str(pki / "trust.crt")}
+    return {**tls, "tls.crls": str(pki / "org-a.crl")} if crls else tls
+
+
+# The spawned command writes what it was given: its arguments and the
+# environment the executor exports.
+_ECHO = ("import json, os, sys; json.dump({'argv': sys.argv[1:], 'env': {k: os.environ.get(k) "
+         "for k in ('SOCKET_PATH', 'WORK_DIR', 'JOB_JSON', 'DEVICE')}}, open(%r, 'w'))")
+_PLACEHOLDERS = ["{SOCKET_PATH}", "{WORK_DIR}", "{JOB_JSON}"]
+
+# (role, overrides, whether the executor's command is checked); "<pki>"
+# marks the TLS keys filled from the ``pki`` fixture.
+PORTED = {
+    "tls": ("gateway", {"<pki>": False}, False),
+    "tls crls": ("worker", {"<pki>": True}, False),
+    "mux": ("worker", {"network.mux": True}, False),
+    "executor cmd": ("worker", {"executor.runtime": "process", "executor.cmd": "<python>",
+                                "executor.args": ["-c", "<echo>", *_PLACEHOLDERS]}, True),
+    "executor args": ("worker", {"executor.runtime": "process",
+                                 "executor.args": ["-c", "<echo>", *_PLACEHOLDERS]}, True),
+}
+
+
+def _spawn(executor_cls, msgs, node, work_root, **kw) -> dict:
+    """Run one job through a process executor; the execution's status."""
+    import asyncio
+
+    spec = msgs.JobSpec(job_id="j", executor=msgs.Executor(
+        kind="aggregate", name="parameter-server", aggregate=msgs.AggregateExecutorConfig(
+            updates=msgs.Receive(msgs.Reference.from_peers(["w"], "updates")),
+            results=msgs.Send(msgs.Reference.from_peers(["w"], "results")),
+            optimizer=msgs.Nesterov(lr=0.7, momentum=0.9), num_workers=1)))
+
+    async def main():
+        await node.start()
+        try:
+            execution = await executor_cls(node=node, work_root=work_root, **kw).execute(
+                "j", spec, "sched")
+            return await asyncio.wait_for(execution.wait(), 60)
+        finally:
+            await node.stop()
+
+    return asyncio.run(main())
+
+
+@pytest.mark.parametrize("case", sorted(PORTED))
+def test_ported_node_option_is_wired_like_the_jax_packages(case, pki, tmp_path):
+    """Each node-plane option validates in both packages and reaches the
+    node as the JAX CLI's does: an mTLS node whose peer id is its
+    certificate's key hash (CRL checks on with ``tls.crls``), a
+    ``MuxTransport`` over TCP; and the process executor spawns the named
+    command with {SOCKET_PATH}, {WORK_DIR} and {JOB_JSON} substituted and
+    exported, as the JAX one does."""
+    import shutil
+    import ssl
+    import sys
+    import tempfile
+
+    from hypha_tpu import certs as jcerts
+    from hypha_tpu import messages as jmsg
+    from hypha_tpu.network import MemoryTransport as JMemory
+    from hypha_tpu.network import Node as JNode
+    from hypha_tpu.worker.process_executor import ProcessExecutor as JProcess
+    from hypha_tpu_torch import messages as tmsg
+    from hypha_tpu_torch.network import MemoryTransport, MuxTransport, Node, TcpTransport
+    from hypha_tpu_torch.worker.process_executor import ProcessExecutor
+
+    role, raw, spawns = PORTED[case]
+    out = tmp_path / "echo.json"
+    over = {}
+    for key, value in raw.items():
+        if key == "<pki>":
+            over.update(_tls(pki, value))
+        elif key == "executor.args":
+            over[key] = [_ECHO % str(out) if a == "<echo>" else a for a in value]
+        else:
+            over[key] = sys.executable if value == "<python>" else value
+    # The reference's executor.cmd has no default; the port's names python3.
+    jover = {**over, "executor.cmd": over.get("executor.cmd", tnc.TRAINER_CMD)} if spawns else over
+    confs = {name: cfg.builder(getattr(nc, SCHEMA[role])).with_overrides(o).build()
+             .validate().value
+             for name, cfg, nc, o in (("jax", jcfg, jnc, jover), ("port", tcfg, tnc, over))}
+    nodes = {"jax": jcli._make_node(confs["jax"], registry_server=role == "gateway"),
+             "port": tcli._make_node(confs["port"], registry_server=role == "gateway")}
+    assert nodes["port"].peer_id == nodes["jax"].peer_id
+    if "tls.cert" in over:
+        assert nodes["port"].peer_id == jcerts.peer_id_from_cert_pem((pki / "n1.crt").read_bytes())
+        ctx = nodes["port"].transport._server_ssl
+        assert ctx.verify_mode == ssl.CERT_REQUIRED
+        assert bool(ctx.verify_flags & ssl.VERIFY_CRL_CHECK_LEAF) == ("tls.crls" in over)
+        assert nodes["port"]._gossip_key.public_key().spki_der() == \
+            nodes["jax"]._gossip_key.public_key().public_bytes(
+                jcerts.serialization.Encoding.DER,
+                jcerts.serialization.PublicFormat.SubjectPublicKeyInfo)
+    want = MuxTransport if over.get("network.mux") else TcpTransport
+    assert type(nodes["port"].transport) is want
+    assert type(nodes["jax"].transport).__name__ == want.__name__
+    if isinstance(nodes["port"].transport, MuxTransport):
+        assert type(nodes["port"].transport.base) is TcpTransport
+    if not spawns:
+        return
+    executor = confs["port"].executor
+    assert executor.cmd == over.get("executor.cmd", tnc.TRAINER_CMD)
+    got = {}
+    root = Path(tempfile.mkdtemp(prefix="hx"))  # a short root: the bridge socket lives in it
+    try:
+        for name, cls, msgs, node, kw in (
+                ("jax", JProcess, jmsg, JNode(JMemory(), peer_id="w"), {}),
+                ("port", ProcessExecutor, tmsg, Node(MemoryTransport(), peer_id="w"),
+                 {"device": torch.device("cpu")})):
+            status = _spawn(cls, msgs, node, root / name, cmd=executor.cmd,
+                            args=list(executor.args), **kw)
+            assert status.state == "completed", (name, status)
+            got[name] = json.loads(out.read_text())
+            out.unlink()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name, echo in got.items():
+        socket_path, work_dir, job_json = echo["argv"]
+        assert echo["env"]["SOCKET_PATH"] == socket_path and socket_path.endswith("bridge.sock")
+        assert echo["env"]["WORK_DIR"] == work_dir == str(Path(socket_path).parent)
+        assert echo["env"]["JOB_JSON"] == job_json
+    assert got["port"]["argv"][2] == got["jax"]["argv"][2]
+    assert got["port"]["env"]["DEVICE"] == "cpu"
 
 
 # The router, prefix-cache and fleet-cache keys, refused until they were
@@ -330,8 +481,9 @@ def test_stream_and_codec_keys_reach_the_job(over):
 def test_defaults_are_accepted_and_the_cli_exits_2_on_an_unported_option(capsys):
     for role in ("gateway", "worker", "scheduler"):
         tcfg.builder(getattr(tnc, SCHEMA[role])).build().validate()
-    code = tcli.main(["worker", "run", "--device", "cpu", "--set", "network.mux=true"])
+    code = tcli.main(["worker", "run", "--device", "cpu", "--set",
+                      'telemetry.endpoint="http://127.0.0.1:4318"'])
     assert code == 2
-    assert "network/mux.py" in capsys.readouterr().err
+    assert "Queue 1: telemetry" in capsys.readouterr().err
     assert tcli.main(["gateway", "run", "--set", "offer.price=1"]) == 2
     assert "unknown config key" in capsys.readouterr().err

@@ -30,6 +30,7 @@ from __future__ import annotations
 import asyncio
 import re
 import shutil
+import sys
 import tempfile
 from pathlib import Path
 
@@ -301,8 +302,9 @@ def test_worker_node_needs_cuda_or_an_explicit_cpu(monkeypatch):
                                                    ("infer", "generate"),
                                                    ("train", "diloco-transformer")]
     train = node.job_manager.executors[("train", "diloco-transformer")]
+    assert train.cmd == sys.executable
     assert train.args[:2] == ["-m", "hypha_tpu_torch.executor.training"]
-    assert train.args[-2:] == ["--device", "cpu"]
+    assert train.args[-2:] == ["--device", "{DEVICE}"] and str(train.device) == "cpu"
 
 
 @pytest.mark.parametrize("scheduler", ["port", "jax"])
