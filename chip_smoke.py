@@ -103,7 +103,9 @@ Phases, each printing one JSON line:
    and exact merges; step time, tokens/s, peak memory and the kernels'
    device time per step from the profiler, where one step must show each
    bf16 tensor-core flash kernel with its launches (16 / 8 / 8);
-11. train_node — the ``train`` phase's job at its full 8 layers, run by
+11. train_node — the ``train`` phase's job cut to 4 layers
+   (``NODE_LAYERS``: its gates are the network's and the scheduler's; the
+   8-layer step is ``train``'s), run by
    the port alone (``run_node_job``) on ``TcpTransport`` at 127.0.0.1: a
    ``Gateway``, a ``DataNode`` serving the slices, a ``WorkerNode`` ``w0``
    whose process executor runs the trainer CLI on the card, a
@@ -115,7 +117,7 @@ Phases, each printing one JSON line:
    (``NODE_STATUS_TIMEOUT_S`` says why); gates on both jobs running then
    completed, ``JobResult.rounds``, 8 samples (4 batches of 2) a round,
    the dispatched batch 2, the jobs' placement, the server's ``UPDATED``,
-   falling round losses, 128 / 64 / 64 flash launches and no plain call
+   falling round losses, 64 / 32 / 32 flash launches and no plain call
    (the trainer's log), each received Δθ's flat f32 names and shapes, no
    failed renewal and no file left behind; from stamps inside the
    scheduler: step ms, tokens/s, the round boundary, the largest gap
@@ -123,7 +125,7 @@ Phases, each printing one JSON line:
    the batch scheduler's ms per message; each Δθ push and broadcast with
    its bytes, the fold and ``outer_step`` seconds, auction to dispatch,
    dispatch to first heartbeat and the trainer's peak memory;
-12. train_stream — ``train_node``'s job and fabric at the same full width
+12. train_stream — ``train_node``'s job and fabric (4 layers)
    with the compressed streaming outer sync: ``delta_codec`` int8,
    ``sync_mode`` stream, 4 fragments, 4 rounds of 8 batches of 2 (every
    fragment syncs once), the trainer quantizing each due fragment's Δθ on
@@ -160,6 +162,31 @@ Phases, each printing one JSON line:
    refused handshakes, mux streams and gossip counts with the median
    pure-Python verify ms, the largest progress gap against the watchdog,
    the trainer's peak, ``ssl.OPENSSL_VERSION`` and the phase's seconds;
+12c. train_ft — fault-tolerant blocking DiLoCo (``run_ft_job``): 7B widths
+   cut to 2 layers (``FT_LAYERS`` says why), int8 deltas, 5 rounds of 4
+   steps, two trainer processes on the card under the port's scheduler
+   with ``FTConfig`` (quorum 0.5, one parameter-server restart),
+   ``checkpoint_dir`` (trainer checkpoints and the durable server, every 2
+   rounds) and a ``ChaosController`` (``FT_CHAOS``): ``w1`` killed after
+   its round-0 delta, round 1 closed on ``w0`` alone, a spare ``w2``
+   auctioned and caught up through the server's Σ; the parameter server
+   killed at round 3's first journaled delta and restarted under its peer
+   id on a new port, replaying round 2 from its journal. Gates
+   (``ft_problems``): every round ``UPDATED`` once and ``attempt`` 0,
+   round 1 collected ``w0``'s delta alone with ``w1``'s absence logged,
+   ``w2``'s θ after the catch-up equal to θ₀ + Σ of the broadcast updates
+   bit for bit (its logged checksum against ``ThetaTrack``'s), the server
+   at generation 2 with round 2's replayed wire byte-equal to the stored
+   one, each worker's round-3 delta journaled once and one re-send a dedup
+   hit, the trainers' checkpoint versions the schedule implies, the flash
+   launches of every batch and no plain call, no leftover file outside the
+   checkpoint root, clean stops, and enough free disk for the checkpoints
+   (``ft_bytes_needed``). It reports each round's boundary, the round-1
+   close wait, kill to departure, departure to ``w2``'s first heartbeat,
+   the catch-up's bytes and seconds, kill to generation 2's first
+   broadcast, the replay, each checkpoint's seconds and bytes, the
+   journal's records and bytes, each trainer's and the card's peak
+   memory and the free disk before and after;
 13. train_reference — a tiny Llama (head_dim 64), and the same with a
    sliding window below its sequence (Mistral's local attention), each
    trained 4 steps through the kernels and through the plain flash version
@@ -2376,11 +2403,12 @@ def node_probes(device):
                 rec[key].append(time.perf_counter() - t0)
         return call
 
-    async def timed_broadcast(self, cfg, update_path, round_num, extra_header=None):
+    async def timed_broadcast(self, cfg, update_path, round_num, elastic=None, extra_header=None):
         size, t0 = update_path.stat().st_size, time.perf_counter()
-        await broadcast(self, cfg, update_path, round_num, extra_header)
+        await broadcast(self, cfg, update_path, round_num, elastic, extra_header)
         rec["broadcast"].append({"round": round_num, "s": time.perf_counter() - t0, "bytes": size,
-                                 "header": extra_header})
+                                 "header": extra_header, "t0": t0,
+                                 "to": list(elastic.membership.active) if elastic else None})
 
     async def timed_send(self, send_, path, resource, meta=None):
         size, t0 = Path(path).stat().st_size, time.perf_counter()
@@ -2715,15 +2743,22 @@ def node_problems(run: dict, *, rounds: int, expect: dict) -> list:
     return problems
 
 
+# train_node runs the train job at NODE_LAYERS: its gates are the network's
+# and the scheduler's, and ``train`` measures the 8-layer step.
+NODE_LAYERS = 4
+NODE_MODEL = {**TRAIN_MODEL, "config": {**TRAIN_MODEL["config"], "num_layers": NODE_LAYERS}}
+
+
 def train_node_phase(train: dict) -> dict:
-    """The ``train`` phase's job run by the port's own nodes under the
-    port's scheduler: auction, dispatch, slice assignment and pulls from
-    the data node, the batch scheduler's countdown, Δθ and the update over
-    push streams, the parameter server's fold and Nesterov step on the
-    card."""
+    """The ``train`` phase's job, cut to ``NODE_LAYERS`` layers, run by the
+    port's own nodes under the port's scheduler: auction, dispatch, slice
+    assignment and pulls from the data node, the batch scheduler's
+    countdown, Δθ and the update over push streams, the parameter server's
+    fold and Nesterov step on the card."""
+    t0 = time.perf_counter()
     root = Path(tempfile.mkdtemp(prefix="chip-smoke-node-"))
     try:
-        run = asyncio.run(run_node_job(root, TRAIN_MODEL, device="cuda", rounds=TRAIN_ROUNDS,
+        run = asyncio.run(run_node_job(root, NODE_MODEL, device="cuda", rounds=TRAIN_ROUNDS,
                                        steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                                        period=TRAIN_PERIOD, status_timeout=NODE_STATUS_TIMEOUT_S))
     finally:
@@ -2744,7 +2779,7 @@ def train_node_phase(train: dict) -> dict:
         return [float(x) for x in re.findall(rf"round \d+: {what} in ([\d.]+) s", log)]
 
     res = dict(
-        model="llama2-7b", layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+        model="llama2-7b", layers=NODE_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
         scheduler="hypha_tpu_torch.scheduler.orchestrator.Orchestrator",
         status_timeout_s=NODE_STATUS_TIMEOUT_S,
         adaptive_margin_s=(timing["adaptive_deadline_in_gap_s"] - timing["progress_gap_max_s"]
@@ -2773,11 +2808,12 @@ def train_node_phase(train: dict) -> dict:
         trainer_peak_gib=float(peak.group(1)) if peak else None,
         slices_assigned=len(rec["slices"]), leftover_files=run["leftover"],
         train_phase={k: train[k] for k in ("step_ms", "tokens_per_s", "update_phase_s", "peak_mem_gib")},
+        seconds=time.perf_counter() - t0,
     )
     steps_total = sum(res["batches_a_round"])
-    want = {"fwd": 2 * TRAIN_LAYERS * steps_total, "dq": TRAIN_LAYERS * steps_total,
-            "dkv": TRAIN_LAYERS * steps_total, "flash_plain": 0, "dense": 0}
-    problems = node_problems(run, rounds=TRAIN_ROUNDS, expect=flat_f32_spec(TRAIN_MODEL))
+    want = {"fwd": 2 * NODE_LAYERS * steps_total, "dq": NODE_LAYERS * steps_total,
+            "dkv": NODE_LAYERS * steps_total, "flash_plain": 0, "dense": 0}
+    problems = node_problems(run, rounds=TRAIN_ROUNDS, expect=flat_f32_spec(NODE_MODEL))
     if res["batches_a_round"] != [TRAIN_STEPS] * TRAIN_ROUNDS:
         problems.append(f"batches a round {res['batches_a_round']}, wanted {TRAIN_STEPS} each")
     if "attention path: flash kernels" not in log or launches != want:
@@ -2789,7 +2825,10 @@ def train_node_phase(train: dict) -> dict:
 
 
 STREAM_OPTIONS = {"delta_codec": "int8", "sync_mode": "stream", "num_fragments": 4}
-STREAM_ROUNDS, STREAM_STEPS = 4, 8  # every fragment syncs once; ~2.5 s of steps a round
+STREAM_ROUNDS, STREAM_STEPS = 4, 8  # every fragment syncs once
+# train_stream and train_secure (which compares its TLS transfers with
+# train_stream's in the same run) run NODE_MODEL's 4 layers for the
+# smoke's time limit; the 8-layer step is train's.
 
 
 def trainer_log(log: str) -> dict:
@@ -2912,7 +2951,7 @@ def train_stream_phase() -> dict:
     torch.cuda.reset_peak_memory_stats()
     try:
         run = asyncio.run(run_node_job(
-            root, TRAIN_MODEL, device="cuda", rounds=STREAM_ROUNDS, steps=STREAM_STEPS,
+            root, NODE_MODEL, device="cuda", rounds=STREAM_ROUNDS, steps=STREAM_STEPS,
             batch=TRAIN_BATCH, seq=TRAIN_SEQ, period=TRAIN_PERIOD,
             status_timeout=NODE_STATUS_TIMEOUT_S, job_options=STREAM_OPTIONS))
     finally:
@@ -2949,7 +2988,7 @@ def train_stream_phase() -> dict:
             **trainer["flights"].get(r, {}),
         })
     res = dict(
-        model="llama2-7b", layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+        model="llama2-7b", layers=NODE_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
         options=STREAM_OPTIONS, rounds=STREAM_ROUNDS, steps_a_round=STREAM_STEPS,
         jobs=run["jobs"], result_rounds=result.rounds,
         updated=[p["round"] for p in rec["progress"] if p["kind"] == "updated"],
@@ -2969,9 +3008,9 @@ def train_stream_phase() -> dict:
     )
     problems = stream_problems(run, rounds=STREAM_ROUNDS,
                                fragments=STREAM_OPTIONS["num_fragments"],
-                               expect=flat_f32_spec(TRAIN_MODEL), codec="int8")
+                               expect=flat_f32_spec(NODE_MODEL), codec="int8")
     n = trainer["batches"] or 0
-    want = {"fwd": 2 * TRAIN_LAYERS * n, "dq": TRAIN_LAYERS * n, "dkv": TRAIN_LAYERS * n,
+    want = {"fwd": 2 * NODE_LAYERS * n, "dq": NODE_LAYERS * n, "dkv": NODE_LAYERS * n,
             "flash_plain": 0, "dense": 0}
     if not n or "attention path: flash kernels" not in log or trainer["launches"] != want:
         problems.append(f"attention launches {trainer['launches']}, wanted {want} through the "
@@ -3294,7 +3333,7 @@ def train_secure_phase(stream: dict) -> dict:
     root = Path(tempfile.mkdtemp(prefix="hss"))
     try:
         run = asyncio.run(run_secure_job(
-            root, TRAIN_MODEL, device=None, rounds=SECURE_ROUNDS, steps=SECURE_STEPS,
+            root, NODE_MODEL, device=None, rounds=SECURE_ROUNDS, steps=SECURE_STEPS,
             batch=TRAIN_BATCH, seq=TRAIN_SEQ, period=TRAIN_PERIOD, lr=3e-4,
             options=STREAM_OPTIONS))
     finally:
@@ -3304,7 +3343,7 @@ def train_secure_phase(stream: dict) -> dict:
     problems = secure_problems(run, rep, rounds=SECURE_ROUNDS,
                                fragments=STREAM_OPTIONS["num_fragments"])
     n = trainer["batches"] or 0
-    want = {"fwd": 2 * TRAIN_LAYERS * n, "dq": TRAIN_LAYERS * n, "dkv": TRAIN_LAYERS * n,
+    want = {"fwd": 2 * NODE_LAYERS * n, "dq": NODE_LAYERS * n, "dkv": NODE_LAYERS * n,
             "flash_plain": 0, "dense": 0}
     if not n or "attention path: flash kernels" not in run["logs"]["w0"] \
             or trainer["launches"] != want:
@@ -3313,7 +3352,7 @@ def train_secure_phase(stream: dict) -> dict:
     step_s = trainer["step_s"] or {"flight": [], "no_flight": []}
     med = {k: statistics.median(v) * 1e3 if v else None for k, v in step_s.items()}
     res = dict(
-        model="llama2-7b", layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+        model="llama2-7b", layers=NODE_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
         options=STREAM_OPTIONS, rounds=SECURE_ROUNDS, steps_a_round=SECURE_STEPS,
         openssl=ssl.OPENSSL_VERSION, peer_ids=run["ids"], exits=run["exits"],
         stop_s=run["stop_s"], plain_dial_error=run["plain_error"],
@@ -3341,6 +3380,638 @@ def train_secure_phase(stream: dict) -> dict:
         emit({"phase": "train_secure", **res, "problems": problems,
               "logs": {name: log[-3000:] for name, log in run["logs"].items()}})
         raise SystemExit("train_secure phase failed: " + "; ".join(problems))
+    return res
+
+
+# ------------------------------------------------------------- train_ft phase
+
+# Fault-tolerant blocking DiLoCo at Llama-2-7B widths, FT_LAYERS layers: two
+# trainers on one card at 8 layers (41-44 GiB each) do not fit in 80 GiB,
+# and at 4 layers (1.07 B parameters) the phase's checkpoints peak near
+# 90 GB (``ft_bytes_needed``) where the H100's machine has 80.2 GB free.
+FT_LAYERS = 2
+FT_MODEL = {"model_type": "causal-lm", "family": "llama", "preset": "llama2-7b",
+            "seed": 0, "config": {"num_layers": FT_LAYERS, "remat": True}}
+FT_ROUNDS, FT_STEPS = 5, 4
+FT_CHAOS = "kill-worker:1,kill-ps:3"
+FT_EVERY = 2  # checkpoint_every and ps_checkpoint_every_rounds
+# The elastic round deadline: about 3x the healthy collection of round 0
+# (the parameter server's open to its close, the trainers' start-up
+# inside: 23.19 s on an H100 80GB HBM3 at 700 W; PERF.md §4). No round
+# reaches it here: round 1 closes when w1 departs, and the round a
+# rejoiner's catch-up blocks the server's collect in (25 s) stays inside.
+FT_DEADLINE_S = 70.0
+FT_WAIT_S = 900.0  # the phase's scheduler deadline
+
+
+def ft_job(model: dict, *, rounds, steps, batch, lr, deadline_s, checkpoint_dir):
+    """``node_job`` for two workers with int8 deltas, elastic rounds
+    (quorum 0.5), one parameter-server restart, trainer checkpoints and
+    the durable server under ``checkpoint_dir``, both every ``FT_EVERY``
+    rounds. The rejoin attempts outlast the wait for the spare worker."""
+    from hypha_tpu_torch.ft import FTConfig
+
+    return node_job(model, rounds=rounds, steps=steps, batch=batch, lr=lr, workers=2,
+                    delta_codec="int8",
+                    ft=FTConfig(quorum_fraction=0.5, round_deadline_s=deadline_s,
+                                rejoin_attempts=60, rejoin_backoff_s=1.0,
+                                ps_restart_attempts=1, ps_restart_backoff_s=1.0),
+                    checkpoint_dir=str(checkpoint_dir), checkpoint_every=FT_EVERY,
+                    ps_checkpoint_every_rounds=FT_EVERY)
+
+
+class ThetaTrack:
+    """θ₀ of the job's seed (built on ``device``, as the trainers build it)
+    and Σ of the decoded updates the server broadcast, accumulated on the
+    device one f32 add a round as the server's ``CatchupBuffer`` adds on
+    the host (a replayed round once). ``catchups`` holds, for each
+    catch-up the server serves, whether its Σ equals this one bit for bit
+    and the checksum (``theta_checksum``, the trainers' digest) of θ₀ + Σ:
+    the rejoiner's θ after its merge."""
+
+    def __init__(self, model: dict, device) -> None:
+        from hypha_tpu_torch.executor.training import theta_checksum
+        from hypha_tpu_torch.models.convert import state_to_flat
+        from hypha_tpu_torch.models.registry import build_model
+
+        built, _ = build_model(model, device=device)
+        built.init_weights(int(model.get("seed", 0)))
+        self.theta0 = {k: v.detach().float().contiguous()
+                       for k, v in state_to_flat(built, built.state_dict()).items()}
+        del built
+        self.checksum = theta_checksum
+        self.sum: dict = {}  # on the device: one f32 add a round, as the host's
+        self.rounds: list = []
+        self.catchups: list = []
+
+    def accumulate(self, round_num: int, update: dict) -> None:
+        if round_num in self.rounds:
+            return  # a recovered server's replay of a broadcast round
+        self.rounds.append(round_num)
+        for name, u in update.items():
+            t = u.detach().to(self.theta0[name].device, torch.float32)
+            if name in self.sum:
+                self.sum[name].add_(t)
+            else:
+                self.sum[name] = t.clone()
+
+    def catchup(self, rounds: int, cum: dict) -> None:
+        """One served catch-up: ``cum`` is the server's Σ over ``rounds``."""
+        equal = set(cum) == set(self.sum) and all(
+            cum[k].tobytes() == self.sum[k].cpu().numpy().tobytes() for k in cum)
+        theta = {k: p + self.sum[k].reshape(p.shape) if k in self.sum else p
+                 for k, p in self.theta0.items()}
+        self.catchups.append({"rounds": rounds, "sum_equal": equal,
+                              "broadcast_rounds": list(self.rounds),
+                              "checksum": self.checksum(theta)})
+
+
+@contextmanager
+def ft_probes(rec: dict, theta: "ThetaTrack | None", on_fold, on_dedup):
+    """The durable server and the elastic scheduler from inside: each
+    journal record and its bytes (both generations), each fold journaled
+    (generation, round, peer) with ``on_fold(round, peer)`` called on the
+    loop, each dedup hit (``on_dedup()``), each round wire the server
+    stores with its sha-256, each elastic collect (round, open, close,
+    peers), each departure and rejoin the scheduler makes; and, with a
+    ``theta``, each broadcast update accumulated into it and each catch-up
+    Σ checked against it."""
+    import hashlib
+
+    from hypha_tpu_torch.ft.durable import DurablePS, RoundJournal
+    from hypha_tpu_torch.ft.rejoin import CatchupBuffer
+    from hypha_tpu_torch.scheduler.orchestrator import Orchestrator
+    from hypha_tpu_torch.worker.ps_executor import ParameterServerExecutor as PS
+
+    saved = (RoundJournal.append, DurablePS.note_fold, DurablePS.already_folded,
+             DurablePS.store_wire, PS._collect_round_elastic, PS._encode_broadcast,
+             CatchupBuffer.write, Orchestrator._depart, Orchestrator._rejoin_worker)
+    append, note_fold, folded, store_wire, collect, encode, write, depart, rejoin = saved
+    loop = asyncio.get_running_loop()
+
+    def counted_append(self, record, *, sync=False):
+        before = self.bytes_written
+        append(self, record, sync=sync)
+        rec["journal"].append((record.get("t"), self.bytes_written - before))
+
+    def noted_fold(self, fold, *, sync=False):
+        note_fold(self, fold, sync=sync)
+        rec["folds"].append({"generation": self.generation, "round": fold.round,
+                             "peer": fold.peer})
+        loop.call_soon_threadsafe(on_fold, fold.round, fold.peer)
+
+    def noted_dedup(self, round_num, fragment, peer, sha):
+        hit = folded(self, round_num, fragment, peer, sha)
+        if hit:
+            rec["dedup_hits"].append({"generation": self.generation, "round": round_num,
+                                      "peer": peer})
+            on_dedup()
+        return hit
+
+    def hashed_store(self, round_num, wire_src):
+        h = hashlib.sha256(Path(wire_src).read_bytes()).hexdigest()
+        rec["wires"].append({"generation": self.generation, "round": round_num, "sha256": h})
+        return store_wire(self, round_num, wire_src)
+
+    async def timed_collect(self, consumer, job_id, st, cfg, work_dir, round_num, accum, dur=None):
+        t0 = time.perf_counter()
+        received = await collect(self, consumer, job_id, st, cfg, work_dir, round_num, accum, dur)
+        rec["collects"].append({"round": round_num, "t0": t0, "t1": time.perf_counter(),
+                                "peers": sorted(received),
+                                "generation": dur.generation if dur else None,
+                                "active": list(st.membership.active)})
+        return received
+
+    def merged_encode(self, update_path, codec, ef, work_dir, round_num, tag=None):
+        wire, sent = encode(self, update_path, codec, ef, work_dir, round_num, tag)
+        if theta is not None:
+            from hypha_tpu_torch.compress import read_delta
+
+            theta.accumulate(round_num,
+                             sent if sent is not None else read_delta(wire, device="cpu"))
+        return wire, sent
+
+    def checked_write(self, path):
+        if theta is not None:
+            theta.catchup(self.rounds, self._cum)
+        return write(self, path)
+
+    async def noted_depart(self, ctx, peer, reason, add):
+        if ctx.membership is not None and peer in ctx.membership.active:
+            rec["departures"].append({"peer": peer, "t": time.perf_counter(), "reason": reason})
+        return await depart(self, ctx, peer, reason, add)
+
+    async def noted_rejoin(self, ctx, departed_peer, departed_at):
+        joined = await rejoin(self, ctx, departed_peer, departed_at)
+        if joined is not None:
+            rec["rejoins"].append({"peer": joined[0].peer_id, "for": departed_peer,
+                                   "t": time.perf_counter()})
+        return joined
+
+    for key in ("journal", "folds", "dedup_hits", "wires", "collects", "departures", "rejoins"):
+        rec.setdefault(key, [])
+    RoundJournal.append, DurablePS.note_fold = counted_append, noted_fold
+    DurablePS.already_folded, DurablePS.store_wire = noted_dedup, hashed_store
+    PS._collect_round_elastic, PS._encode_broadcast = timed_collect, merged_encode
+    CatchupBuffer.write = checked_write
+    Orchestrator._depart, Orchestrator._rejoin_worker = noted_depart, noted_rejoin
+    try:
+        yield rec
+    finally:
+        (RoundJournal.append, DurablePS.note_fold, DurablePS.already_folded, DurablePS.store_wire,
+         PS._collect_round_elastic, PS._encode_broadcast, CatchupBuffer.write,
+         Orchestrator._depart, Orchestrator._rejoin_worker) = saved
+
+
+def _gated_push(node, gates: dict) -> None:
+    """Hold this node's delta pushes of round ``r`` until ``gates[r]()``
+    (a coroutine function; None lets the push go) returns."""
+    push = node.push
+
+    async def gated(peer_id, resource, source):
+        r = resource if isinstance(resource, dict) else {}
+        gate = gates.get(r.get("round"))
+        if gate is not None and str(r.get("resource", "")).startswith("updates"):
+            await gate(node.peer_id)
+        return await push(peer_id, resource, source)
+
+    node.push = gated
+
+
+async def run_ft_job(root: Path, model: dict, *, device, rounds, steps, batch, seq, period,
+                     lr=3e-4, deadline_s=FT_DEADLINE_S, limit_s=CLI_LIMIT_S,
+                     train_runtime="process", auction_timeout=2.0, status_timeout=None,
+                     track_theta=True, sample_card=False) -> dict:
+    """``ft_job`` on the port's nodes at 127.0.0.1 (``run_node_job``'s
+    fabric): gateway, data node, train workers ``w0`` and ``w1``, ``psw``
+    hosting the parameter server, the port's ``Orchestrator``, and a
+    ``ChaosController`` on ``FT_CHAOS``:
+
+      * ``kill-worker:1`` — ``w1`` is killed once the server journaled
+        its round-0 delta, so round 0 has both deltas and round 1 runs
+        without it; once the kill finished (its trainer process gone) and
+        round 1 closed, a spare ``w2`` starts and offers, so the
+        scheduler's rejoin auction takes it and the server serves it the
+        catch-up Σ;
+      * ``kill-ps:3`` — ``psw`` is killed when round 3's first delta is
+        journaled. A new ``psw`` node (same peer id, a new port) starts a
+        second later; the scheduler's restart re-dispatches the aggregate
+        job to it, which recovers from ``<root>/ckpt/ps``.
+
+    Two holds make the schedule deterministic (``_gated_push``): round-2
+    deltas wait until the rejoin is done, so the catch-up comes at round
+    2 (Σ of rounds 0 and 1); the second worker's round-3 delta waits until
+    the first worker's re-send to the restarted server was deduplicated,
+    so exactly one was journaled before the kill and one re-send is a
+    dedup hit. Neither changes what a worker computes.
+
+    Returns what ``node_probes`` and ``ft_probes`` saw, the logs of the
+    trainers, the server and the scheduler, the chaos times, the disk use
+    of ``root`` before and after, the checkpoint tree and the files left
+    outside it, and (with ``sample_card``) the card's peak memory."""
+    import logging
+
+    from hypha_tpu_torch import aio
+    from hypha_tpu_torch.data_node import DataNode
+    from hypha_tpu_torch.ft import ChaosController, parse_chaos_specs
+    from hypha_tpu_torch.gateway import Gateway
+    from hypha_tpu_torch.network import Node, TcpTransport
+    from hypha_tpu_torch.resources import Resources
+    from hypha_tpu_torch.scheduler.orchestrator import Orchestrator
+    from hypha_tpu_torch.worker.arbiter import OfferConfig
+    from hypha_tpu_torch.worker.runtime import WorkerNode
+
+    disk_before = shutil.disk_usage(root)
+    data_dir, ckpt = root / "data", root / "ckpt"
+    data_dir.mkdir(parents=True)
+    write_slices(data_dir, n_slices=4, per_slice=rounds * steps * batch, seq=seq, period=period,
+                 seed=5)
+    job = ft_job(model, rounds=rounds, steps=steps, batch=batch, lr=lr, deadline_s=deadline_s,
+                 checkpoint_dir=ckpt)
+    theta = ThetaTrack(model, device) if track_theta else None
+    listen = ["127.0.0.1:0"]
+
+    def worker(name: str) -> "WorkerNode":
+        return WorkerNode(TcpTransport(), resources=Resources(gpu=1, cpu=8, memory=65536),
+                          device=device, peer_id=name, train_runtime=train_runtime,
+                          offer=OfferConfig(strategy="whole"), bootstrap=boot,
+                          work_root=root / name)
+
+    def server(work: str) -> "WorkerNode":
+        return WorkerNode(TcpTransport(), resources=Resources(cpu=8, memory=65536), device=device,
+                          peer_id="psw", bootstrap=boot, work_root=root / work)
+
+    gw = Gateway(TcpTransport(), peer_id="gw")
+    await gw.start(listen)
+    boot = [gw.node.listen_addrs[0]]
+    data = DataNode(TcpTransport(), {NODE_DATASET: data_dir}, peer_id="data", bootstrap=boot)
+    w0, w1, psw = worker("w0"), worker("w1"), server("ps")
+    node = Node(TcpTransport(), peer_id="sched", bootstrap=boot)
+    actions = parse_chaos_specs(FT_CHAOS, "w1")
+    for a in actions:
+        a.target = "psw" if a.kind == "kill-ps" else "w1"
+    chaos = ChaosController(actions, {"w0": w0, "w1": w1, "psw": psw}, clock=time.perf_counter)
+    ps_fired, joined, deduped = asyncio.Event(), asyncio.Event(), asyncio.Event()
+    first_r3: list = []
+
+    async def after_join(_peer: str) -> None:
+        await joined.wait()
+
+    async def second_after_dedup(peer: str) -> None:
+        if first_r3 and first_r3[0] != peer:
+            await deduped.wait()
+        elif not first_r3:
+            first_r3.append(peer)
+
+    gates = {2: after_join, 3: second_after_dedup}
+
+    def on_fold(round_num: int, peer: str) -> None:
+        # The kills' round triggers: w1's once its round-0 delta is
+        # journaled (round 1 is then what it misses), the server's at round
+        # 3's first journaled delta.
+        if (round_num, peer) == (0, "w1"):
+            chaos.on_round_metrics(0)  # kill-worker:1: round 1 is running
+        elif round_num == 3 and not ps_fired.is_set():
+            chaos.on_round_metrics(2)  # kill-ps:3: round 3 is running
+            ps_fired.set()
+
+    logs: dict = {"ps": [], "sched": []}
+
+    class Lines(logging.Handler):
+        def __init__(self, key):
+            super().__init__()
+            self.key = key
+
+        def emit(self, record):
+            logs[self.key].append(f"{time.perf_counter():.3f} {record.getMessage()}")
+
+    handlers = [(logging.getLogger(n), Lines(k)) for n, k in (
+        ("hypha.torch.worker.ps", "ps"), ("hypha.torch.ft.durable", "ps"),
+        ("hypha.torch.scheduler.orchestrator", "sched"))]
+    levels = [lg.level for lg, _ in handlers]
+    for lg, h in handlers:
+        lg.addHandler(h)
+        lg.setLevel(logging.INFO)
+    started: list = []
+    stop_errors: list = []
+    extra: dict = {}
+    stalls: list = []
+    peak = [0.0]
+    sampling = asyncio.Event()
+    tasks = [asyncio.create_task(watch_loop(stalls))]
+    if sample_card:
+        tasks.append(asyncio.create_task(_device_mem_sampler(peak, sampling)))
+
+    async def restarter(rec) -> None:
+        """The spare worker after w1's kill and round 1's close; a new psw
+        after the server's kill."""
+        while chaos.fired_at("w1") is None:
+            await asyncio.sleep(0.05)
+        await chaos.drain()
+        extra["w1_dead_t"] = time.perf_counter()
+        while 1 not in [p["round"] for p in rec["progress"] if p["kind"] == "updated"]:
+            await asyncio.sleep(0.05)
+        w2 = worker("w2")
+        _gated_push(w2.node, gates)
+        await w2.start(listen)
+        started.append(w2)
+        extra["w2_up_t"] = time.perf_counter()
+        while not rec["rejoins"]:
+            await asyncio.sleep(0.05)
+        joined.set()
+        await ps_fired.wait()
+        await chaos.drain()
+        # The gateway drops a closed peer's registrations by peer id: a
+        # node started under the same id before it noticed would lose its
+        # own (the reference's chaos harness waits 0.3 s here).
+        await asyncio.sleep(1.0)
+        psw2 = server("ps2")
+        await psw2.start(listen)
+        started.append(psw2)
+        extra["psw2_up_t"] = time.perf_counter()
+
+    with node_probes(device) as rec, ft_probes(rec, theta, on_fold, deduped.set):
+        restart = None
+        try:
+            for part in (data, w0, w1, psw, node):
+                await part.start(listen)
+                started.append(part)
+            for w in (w0, w1):
+                _gated_push(w.node, gates)
+            await node.wait_for_bootstrap()
+            restart = asyncio.create_task(restarter(rec))
+            t_job = time.perf_counter()
+            result = await Orchestrator(node).run(
+                job, auction_timeout=auction_timeout, status_timeout=status_timeout)
+            extra["job_s"] = time.perf_counter() - t_job
+            final = {"completed", "failed", "cancelled"}
+            loop = asyncio.get_running_loop()
+            deadline = loop.time() + limit_s
+            while True:
+                live = {d["job_id"] for d in rec["dispatch"] if d["peer"] != "w1"}
+                ended = {s["job_id"] for s in rec["statuses"] if s["state"] in final}
+                finished = live <= ended
+                if finished or loop.time() > deadline:
+                    break
+                await asyncio.sleep(0.1)
+        finally:
+            if restart is not None:
+                await aio.reap(restart)
+            sampling.set()
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+            for part in reversed(started):
+                try:
+                    await part.stop()
+                except Exception as e:  # noted; ft_problems fails on it
+                    stop_errors.append(f"{getattr(part, 'peer_id', part)}: {e!r}")
+            await gw.stop()
+            for (lg, h), level in zip(handlers, levels):
+                lg.removeHandler(h)
+                lg.setLevel(level)
+    leftover: list = []
+    for _ in range(300):
+        leftover = sorted(str(p.relative_to(root)) for p in root.rglob("*")
+                          if p.is_file() and not p.is_relative_to(data_dir)
+                          and not p.is_relative_to(ckpt))
+        if not leftover:
+            break
+        await asyncio.sleep(0.1)
+    tree = sorted((str(p.relative_to(ckpt)), p.stat().st_size) for p in ckpt.rglob("*")
+                  if p.is_file())
+    jobs = {}
+    for d in rec["dispatch"]:
+        key = d["peer"] if d["kind"] == "train" else "aggregate"
+        jobs[key] = [s["state"] for s in rec["statuses"] if s["job_id"] == d["job_id"]]
+    return dict(job=job, result=result, rec=rec, finished=finished, logs=logs, theta=theta,
+                chaos={a.kind: a.fired_at for a in chaos.fired}, jobs=jobs, extra=extra,
+                stop_errors=stop_errors, leftover=leftover, checkpoints=tree, ckpt=ckpt,
+                disk_before=disk_before, disk_after=shutil.disk_usage(root),
+                card_peak_mib=peak[0] if sample_card else None,
+                loop_stall_max_s=max(stalls, default=0.0))
+
+
+_LINE_JOB = re.compile(r"^\[([^\]]+)\] (.*)$")
+_CHECKSUM = re.compile(r"round (\d+): anchor checksum (\w+)")
+_CKPT_SAVE = re.compile(r"round (\d+): checkpoint (\S+) saved in ([\d.]+) s \((\d+) bytes\)")
+_PS_CKPT = re.compile(r"durable ps checkpoint: next_round \d+ -> (\d+) \(\d+ tensors, (\d+) bytes "
+                      r"in ([\d.]+) s")
+_CATCHUP = re.compile(r"served catch-up \((\d+) rounds, next (\d+)\) to rejoiner (\S+): (\d+) "
+                      r"bytes in ([\d.]+) s")
+_REPLAY = re.compile(r"recovered durable state \(generation (\d+)\): resuming round (\d+) \((\d+) "
+                     r"committed rounds replayed in ([\d.]+) s\)")
+
+
+def trainer_logs(run: dict) -> dict:
+    """Each train job's log lines (the worker's copy of its trainer's
+    output), keyed by the peer it was dispatched to."""
+    peer_of = {d["job_id"]: d["peer"] for d in run["rec"]["dispatch"] if d["kind"] == "train"}
+    out: dict = {peer: [] for peer in peer_of.values()}
+    for line in run["rec"]["log"]:
+        m = _LINE_JOB.match(line)
+        if m and m.group(1) in peer_of:
+            out[peer_of[m.group(1)]].append(m.group(2))
+    return out
+
+
+def ft_report(run: dict) -> dict:
+    """What ``run_ft_job`` measured, from its stamps and the logs."""
+    rec, logs = run["rec"], trainer_logs(run)
+    ps_log, sched_log = "\n".join(run["logs"]["ps"]), "\n".join(run["logs"]["sched"])
+    per: dict = {}
+    for peer, lines in logs.items():
+        text = "\n".join(lines)
+        found = re.search(r"attention launches: (\{.*\})", text)
+        peak = re.search(r"peak device memory: ([\d.]+) GiB", text)
+        per[peer] = {
+            "checksums": [(int(r), c) for r, c in _CHECKSUM.findall(text)],
+            "rejoin": re.search(r"rejoin: caught up to round (\d+) .*?: (\d+) bytes, waited "
+                                r"([\d.]+) s, merged in ([\d.]+) s", text),
+            "checkpoints": [{"round": int(r), "version": v, "s": float(s), "bytes": int(b)}
+                            for r, v, s, b in _CKPT_SAVE.findall(text)],
+            "launches": json.loads(found.group(1)) if found else None,
+            "peak_gib": float(peak.group(1)) if peak else None,
+            "batches": sum(p["kind"] == "status" and p["peer"] == peer for p in rec["progress"]),
+        }
+    for peer, p in per.items():
+        m = p.pop("rejoin")
+        p["rejoin"] = m and {"round": int(m.group(1)), "bytes": int(m.group(2)),
+                             "wait_s": float(m.group(3)), "merge_s": float(m.group(4))}
+    fired = run["chaos"]
+    deps = {d["peer"]: d["t"] for d in rec["departures"]}
+    first_beat = {}
+    for p in rec["progress"]:
+        if p["kind"] == "status":
+            first_beat.setdefault(p["peer"], p["t"])
+    gen2 = [b for b in rec["broadcast"] if (b["header"] or {}).get("ps_generation") == 2]
+    r1 = [c for c in rec["collects"] if c["round"] == 1]
+    replay = _REPLAY.search(ps_log)
+    catchups = _CATCHUP.findall(ps_log)
+    return dict(
+        trainers=per,
+        collects=[{"round": c["round"], "s": c["t1"] - c["t0"], "peers": c["peers"],
+                   "generation": c["generation"], "active": c["active"]}
+                  for c in rec["collects"]],
+        round1_close_wait_s=(r1[0]["t1"] - r1[0]["t0"]) if r1 else None,
+        kill_to_departure_s=(deps["w1"] - fired["kill"]) if "w1" in deps and "kill" in fired
+        else None,
+        departure_to_w2_beat_s=(first_beat["w2"] - deps["w1"]) if "w2" in first_beat
+        and "w1" in deps else None,
+        catchup=[{"rounds": int(a), "round": int(b), "peer": c, "bytes": int(d), "s": float(e)}
+                 for a, b, c, d, e in catchups],
+        ps_kill_to_gen2_broadcast_s=(min(b["t0"] for b in gen2) - fired["kill-ps"])
+        if gen2 and "kill-ps" in fired else None,
+        replay=replay and {"generation": int(replay.group(1)), "resumes": int(replay.group(2)),
+                           "replayed": int(replay.group(3)), "s": float(replay.group(4))},
+        ps_checkpoints=[{"next_round": int(a), "bytes": int(b), "s": float(c)}
+                        for a, b, c in _PS_CKPT.findall(ps_log)],
+        journal_records=len(rec["journal"]), journal_bytes=sum(n for _, n in rec["journal"]),
+        dedup_hits=rec["dedup_hits"], wires=rec["wires"], folds=rec["folds"],
+        updated=sorted(p["round"] for p in rec["progress"] if p["kind"] == "updated"),
+        degraded=re.findall(r"round (\d+) DEGRADED — aggregating (\d+) of (\d+)(.*)", ps_log),
+        quorum_drops=re.findall(r"round (\d+) quorum drop: (.*)", ps_log),
+        generations=sorted({int(g) for g in re.findall(r"durable state at \S+, generation (\d+)",
+                                                       ps_log)}),
+        departures=[(d["peer"], d["reason"]) for d in rec["departures"]],
+        rejoins=[(r["peer"], r["for"]) for r in rec["rejoins"]],
+        ps_restarts=re.findall(r"parameter server shard \d+ restarted on (\S+)", sched_log),
+        theta=run["theta"] and {"catchups": run["theta"].catchups},
+        disk_free_gb=(run["disk_before"].free / 1e9, run["disk_after"].free / 1e9),
+        checkpoint_bytes=sum(n for _, n in run["checkpoints"]),
+    )
+
+
+def ft_problems(run: dict, rep: dict, *, rounds: int, steps: int, layers: int,
+                device: str) -> list:
+    """The gates of the fault-tolerant job, on the CPU as on the card."""
+    from hypha_tpu_torch.executor.checkpoint import latest_manifest
+
+    result, problems = run["result"], []
+    if not run["finished"] or result.rounds != rounds or result.attempt != 0:
+        problems.append(f"job: finished {run['finished']}, rounds {result.rounds} of {rounds}, "
+                        f"attempt {result.attempt} (wanted 0)")
+    if rep["updated"] != list(range(rounds)):
+        problems.append(f"UPDATED rounds {rep['updated']}, wanted each of {rounds} once")
+    for key in ("w0", "w2", "aggregate"):
+        states = run["jobs"].get(key) or []
+        if not states or states[-1] != "completed":
+            problems.append(f"{key}: job states {states}, wanted completed last")
+    r0 = [c for c in rep["collects"] if c["round"] == 0]
+    r1 = [c for c in rep["collects"] if c["round"] == 1]
+    if len(r0) != 1 or r0[0]["peers"] != ["w0", "w1"]:
+        problems.append(f"round 0 collected {r0}, wanted w0's and w1's deltas")
+    if len(r1) != 1 or r1[0]["peers"] != ["w0"]:
+        problems.append(f"round 1 collected {r1}, wanted w0's delta alone")
+    absent = [d for d in rep["degraded"] if d[0] == "1" and "w1" in d[3]] or \
+        [q for q in rep["quorum_drops"] if q[0] == "1" and "w1" in q[1]]
+    if not absent:
+        problems.append(f"w1's absence in round 1 not logged: degraded {rep['degraded']}, "
+                        f"quorum drops {rep['quorum_drops']}")
+    if rep["rejoins"] != [("w2", "w1")] or not rep["catchup"] or rep["catchup"][0]["peer"] != "w2":
+        problems.append(f"rejoins {rep['rejoins']}, catch-ups {rep['catchup']}: wanted w2 for w1")
+    w0, w2 = rep["trainers"].get("w0", {}), rep["trainers"].get("w2", {})
+    if sorted(dict(w0.get("checksums") or [])) != list(range(1, rounds + 1)):
+        problems.append(f"w0's anchor checksums {w0.get('checksums')}: wanted rounds 1-{rounds}")
+    theta = rep["theta"]
+    if theta is not None:
+        rejoin = w2.get("rejoin")
+        w2_sums = dict(w2.get("checksums") or [])
+        cat = theta["catchups"][0] if theta["catchups"] else None
+        if rejoin is None or cat is None or not cat["sum_equal"] \
+                or cat["rounds"] != rejoin["round"] \
+                or cat["broadcast_rounds"] != list(range(rejoin["round"])) \
+                or w2_sums.get(rejoin["round"]) != cat["checksum"]:
+            problems.append(f"w2's θ after the catch-up {w2_sums} (rejoin {rejoin}) is not θ₀ + "
+                            f"Σ of the broadcast updates {cat}")
+    if rep["generations"] != [1, 2] or rep["ps_restarts"] != ["psw"]:
+        problems.append(f"server generations {rep['generations']}, restarts {rep['ps_restarts']}")
+    r2 = [w for w in rep["wires"] if w["round"] == 2]
+    if len(r2) != 2 or [w["generation"] for w in r2] != [1, 2] or r2[0]["sha256"] != r2[1]["sha256"]:
+        problems.append(f"round 2's wire before and after the replay: {r2}")
+    if not rep["replay"] or rep["replay"]["replayed"] != 1 or rep["replay"]["resumes"] != 3:
+        problems.append(f"recovery {rep['replay']}, wanted round 2 replayed and round 3 resumed")
+    r3 = collections.Counter(f["peer"] for f in rep["folds"] if f["round"] == 3)
+    if sorted(r3.items()) != [("w0", 1), ("w2", 1)] or not any(
+            h["round"] == 3 and h["generation"] == 2 for h in rep["dedup_hits"]):
+        problems.append(f"round 3 journaled folds {dict(r3)}, dedup hits {rep['dedup_hits']}: "
+                        "wanted each worker once and a re-send deduplicated")
+    for peer, start in (("w0", 0), ("w2", rep["catchup"][0]["round"] if rep["catchup"] else 1)):
+        want = [f"v{r:08d}" for r in range(start + 1, rounds + 1) if r % FT_EVERY == 0][-2:]
+        got = sorted(p.name.split("-")[0] for p in (run["ckpt"] / peer).glob("v*"))
+        manifest = latest_manifest(run["ckpt"] / peer)
+        if got != want or manifest is None or f"v{manifest['round']:08d}" != want[-1]:
+            problems.append(f"{peer}: checkpoint versions {got}, latest {manifest}; wanted {want}")
+    want_launch = {"fwd": 2 * layers, "dq": layers, "dkv": layers}
+    for peer in ("w0", "w2"):
+        t = rep["trainers"].get(peer, {})
+        n = t.get("batches") or 0
+        want = {k: v * n for k, v in want_launch.items()} | {"flash_plain": 0, "dense": 0}
+        if device != "cuda":
+            want = {"fwd": 0, "dq": 0, "dkv": 0, "flash_plain": 0, "dense": layers * n}
+        if not n or t.get("launches") != want:
+            problems.append(f"{peer}: attention launches {t.get('launches')}, wanted {want} for "
+                            f"{n} batches")
+    if run["leftover"] or run["stop_errors"]:
+        problems.append(f"files left {run['leftover']}, stop errors {run['stop_errors']}")
+    return problems
+
+
+def ft_bytes_needed(model: dict) -> int:
+    """The disk ``train_ft`` holds at its peak: each trainer's two
+    checkpoint versions and one being staged (params, m, v in f32: 12
+    bytes a parameter), the server's state file (momentum, Σ, residual),
+    its momentum copy, and some int8 deltas and wires."""
+    from hypha_tpu_torch.models.registry import build_model
+
+    shapes, _ = build_model(model, device="meta")
+    n = sum(p.numel() for p in shapes.parameters())
+    return 12 * n * (2 * 2 + 1) + 12 * n + 4 * n + 8 * n
+
+
+def train_ft_phase() -> dict:
+    """Fault-tolerant blocking DiLoCo on the card (``run_ft_job``): a
+    killed worker replaced through the catch-up, a killed parameter server
+    restarted under its peer id from its journal, trainer checkpoints; held
+    to ``ft_problems``."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="hft"))
+    try:
+        need = ft_bytes_needed(FT_MODEL)
+        free = shutil.disk_usage(root).free
+        if free < need:
+            raise SystemExit(f"train_ft phase failed: {root} has {free / 1e9:.1f} GB free, the "
+                             f"phase needs about {need / 1e9:.1f} GB for its checkpoints")
+        run = asyncio.run(run_ft_job(
+            root, FT_MODEL, device="cuda", rounds=FT_ROUNDS, steps=FT_STEPS, batch=TRAIN_BATCH,
+            seq=TRAIN_SEQ, period=TRAIN_PERIOD, status_timeout=NODE_STATUS_TIMEOUT_S,
+            sample_card=True))
+        rep = ft_report(run)
+        problems = ft_problems(run, rep, rounds=FT_ROUNDS, steps=FT_STEPS, layers=FT_LAYERS,
+                               device="cuda")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    timing = progress_timing(run | {"workers": ["w0", "w2"]})
+    res = dict(
+        model="llama2-7b", layers=FT_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+        rounds=FT_ROUNDS, steps=FT_STEPS, chaos=FT_CHAOS, deadline_s=FT_DEADLINE_S,
+        attempt=run["result"].attempt, membership=run["result"].ft, jobs=run["jobs"],
+        round_boundary_s=timing["round_boundary_s"], step_ms=timing["step_ms"],
+        progress_gap_max_s=timing["progress_gap_max_s"],
+        disk_needed_gb=need / 1e9, card_peak_gib=(run["card_peak_mib"] or 0) / 1024,
+        job_s=run["extra"].get("job_s"), seconds=time.perf_counter() - t0,
+        **{k: v for k, v in rep.items() if k not in ("folds", "wires", "trainers")},
+        trainers={peer: {k: t[k] for k in ("rejoin", "checkpoints", "launches", "peak_gib",
+                                           "batches")} for peer, t in rep["trainers"].items()},
+        wires=rep["wires"], folds_round3=[f for f in rep["folds"] if f["round"] == 3],
+    )
+    if problems:
+        emit({"phase": "train_ft", **res, "problems": problems,
+              "logs": {k: v[-60:] for k, v in run["logs"].items()},
+              "trainer_logs": {k: v[-40:] for k, v in trainer_logs(run).items()}})
+        raise SystemExit("train_ft phase failed: " + "; ".join(problems))
     return res
 
 
@@ -3465,6 +4136,8 @@ def main() -> int:
     stream = train_stream_phase()
     emit({"phase": "train_stream", **stream})
     emit({"phase": "train_secure", **train_secure_phase(stream)})
+    ft = train_ft_phase()
+    emit({"phase": "train_ft", **ft})
     emit({"phase": "train_reference", **train_reference_phase()})
 
     dec, pre = kern["timing"]["decode_bf16"], kern["timing"]["prefill64_bf16"]
@@ -3497,6 +4170,9 @@ def main() -> int:
             "launches": train["kernel_launches"][key], "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            # The fault-tolerant job's trainers, each counted by its process.
+            "train_ft_launches": {peer: (t_["launches"] or {}).get(key)
+                                  for peer, t_ in ft["trainers"].items()},
         })
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -274,6 +274,8 @@ async def _run_scheduler(conf: SchedulerConfig, *, stop: "asyncio.Event | None" 
         orch = Orchestrator(node, metrics_connector=connector)
         result = await orch.run(conf.job.to_job(), max_attempts=conf.job.max_attempts)
         print(f"job {result.job_id} completed: {result.rounds} rounds", flush=True)
+        if result.ft is not None:
+            print(f"job {result.job_id} membership: {json.dumps(result.ft)}", flush=True)
         return result
     finally:
         _log_fabric_counts(node)

@@ -57,3 +57,21 @@ class ErrorFeedback:
         """Install a whole new residual tree: what ``absorb`` computes, for a
         writer that builds it one tensor at a time (``frame.write_frame``)."""
         self._residual = residual
+
+    def reset(self) -> None:
+        self._residual = {}
+
+    def state(self) -> dict:
+        """The residual tree, for the durable parameter server's checkpoint
+        (a restart that dropped it would lose one round's quantization
+        error from the broadcast stream)."""
+        return dict(self._residual)
+
+    def restore(self, residual: dict) -> None:
+        """Install a checkpointed residual tree (f32)."""
+        self._residual = {name: torch.as_tensor(value).to(torch.float32)
+                          for name, value in residual.items()}
+
+    @property
+    def tensors(self) -> int:
+        return len(self._residual)

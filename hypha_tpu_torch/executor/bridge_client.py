@@ -144,6 +144,7 @@ class Session:
     def receive(self, receive: Receive) -> Iterator[Iterator[dict]]:
         """SSE stream of ``{path,size,from_peer,resource,meta}`` pointers."""
         conn = _UnixConnection(self._path, None)  # a stream waits as long as it must
+        resp = None
         try:
             body, headers = _json_body({"receive": messages.to_json_dict(receive)})
             conn.request("POST", "/resources/receive", body=body, headers=headers)
@@ -161,4 +162,9 @@ class Session:
 
             yield events()
         finally:
+            # The response holds the socket open on its own (a streamed
+            # response leaves the connection): close both, so the bridge
+            # sees the stream end at once and stops routing pushes to it.
+            if resp is not None:
+                resp.close()
             conn.close()

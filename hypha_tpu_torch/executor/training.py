@@ -37,6 +37,18 @@ encoded and shipped by a flight thread while the inner steps go on, and
 the landed update is merged with the delayed-update correction between
 two steps.
 
+Fault tolerance of blocking jobs (the reference's ``:804-826``,
+``:1123-1205``, ``:1327-1350``, ``:1411-1431``): a ``checkpoint`` dict
+(``{"dir", "every_rounds"}``) restores params and optimizer state from the
+directory's latest checkpoint and saves one every ``every_rounds``
+completed rounds (``executor/checkpoint.py``; the manifest counts rounds
+across resumes); ``rejoin`` waits for the parameter server's catch-up Σ
+(``ft/rejoin.py``) and enters the loop at its round; a broadcast whose
+``ps_generation`` moved on (or a resync) makes the trainer re-send its
+un-acknowledged delta. Each merged round logs a checksum of the new anchor
+θ (per-tensor sums of the bit patterns), and a rejoin logs the one it
+caught up to, so two trainers' θ can be compared from their logs.
+
 Every other option of ``TrainExecutorConfig`` is not ported; each raises
 NotImplementedError naming its ROADMAP.md item rather than being ignored.
 """
@@ -44,6 +56,7 @@ NotImplementedError naming its ROADMAP.md item rather than being ignored.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import logging
 import math
@@ -56,6 +69,8 @@ from typing import Any, Callable, Iterator
 import torch
 
 from .. import compress, messages
+from ..ft.durable import GENERATION_KEY, RESYNC_KEY, restart_signal
+from ..ft.rejoin import CATCHUP_KEY, await_catchup
 from ..hw import default_device
 from ..messages import (
     CODEC_KEY,
@@ -76,20 +91,17 @@ from ..ops.attention import dot_product_attention
 from ..ops.flash_attention import flash_attention
 from ..stream import effective_fragments, fragment_due, merge_corrected, partition_names
 from .bridge_client import Session
+from .checkpoint import (load_train_checkpoint, restore_train_state, save_train_checkpoint,
+                         train_state)
 from .dataset import stream_batches
-from .diloco import extract_delta, merge_update
+from .diloco import apply_updates, extract_delta, merge_update
 from .serialization import load_file
 from .train import build_optimizer, make_train_step
 
-__all__ = ["TrainResult", "adopt_schedule", "build_parser", "main", "run_training"]
+__all__ = ["TrainResult", "adopt_schedule", "build_parser", "main", "run_training",
+           "theta_checksum", "GENERATION_KEY", "RESYNC_KEY", "CATCHUP_KEY"]
 
 log = logging.getLogger("hypha.torch.executor.training")
-
-# Results-stream header keys of the fault-tolerant parameter server
-# (hypha_tpu/ft/durable.py, hypha_tpu/ft/rejoin.py).
-GENERATION_KEY = "ps_generation"
-RESYNC_KEY = "ps_resync"
-CATCHUP_KEY = "catchup"
 
 # How long the loop waits on an in-flight sync before each batch (seconds;
 # the reference's variable). 0 (the default) never waits: pure overlap.
@@ -122,16 +134,6 @@ def adopt_schedule(resp: ProgressResponse, countdown: "int | None") -> "int | No
     return resp.counter if countdown is None else countdown
 
 
-def _restart_signal(meta: dict, last_gen: Any) -> tuple:
-    """``(generation to remember, re-send the delta?)`` from one results
-    event: a parameter-server generation bump or a resync announcement."""
-    gen = meta.get(GENERATION_KEY)
-    resync = bool(meta.get(RESYNC_KEY))
-    if gen is None:
-        return last_gen, resync
-    return gen, resync or (last_gen is not None and gen != last_gen)
-
-
 def _stale_response(resp: Any, last_gen: "int | None") -> tuple:
     """``(generation to remember, stale?)``: a response stamped with an
     older scheduler generation than one adopted is dropped."""
@@ -146,12 +148,13 @@ def _stale_response(resp: Any, last_gen: "int | None") -> tuple:
 def _unsupported(cfg: TrainExecutorConfig) -> None:
     """Raise on every option this path does not run."""
     sharding = cfg.sharding or {}
+    streaming = (cfg.sync_mode or "blocking") != "blocking"
     mesh = math.prod(int(sharding.get(a, 1)) for a in ("dp", "fsdp", "tp", "sp", "ep"))
     checks = [
         (mesh > 1, "sharding", "intra-replica sharding"),
         (bool(cfg.lora), "lora", "LoRA"),
-        (bool(cfg.checkpoint and cfg.checkpoint.get("dir")), "checkpoint", "checkpoint resume"),
-        (bool(cfg.rejoin), "rejoin", _FT),
+        (streaming and bool(cfg.checkpoint and cfg.checkpoint.get("dir")), "checkpoint", _FT),
+        (streaming and bool(cfg.rejoin), "rejoin", _FT),
         (bool(cfg.ps_shards and cfg.ps_shards.shards), "ps_shards", _FT),
         (bool(cfg.reduce_via), "reduce_via", _FT),
         (bool(cfg.reduce_members), "reduce_members", _FT),
@@ -162,8 +165,10 @@ def _unsupported(cfg: TrainExecutorConfig) -> None:
     ]
     for bad, option, item in checks:
         if bad:
+            mode = f" with sync_mode={cfg.sync_mode!r}" if option in ("checkpoint", "rejoin") \
+                else ""
             raise NotImplementedError(
-                f"{option}={getattr(cfg, option)!r} is not ported to the PyTorch trainer "
+                f"{option}={getattr(cfg, option)!r}{mode} is not ported to the PyTorch trainer "
                 f"(ROADMAP.md, Queue 1: {item})"
             )
     if torch.distributed.is_available() and torch.distributed.is_initialized() \
@@ -187,6 +192,22 @@ def _fit(u: torch.Tensor, p: torch.Tensor, name: str) -> torch.Tensor:
             raise ValueError(f"update {name!r}: shape {tuple(u.shape)} != {tuple(p.shape)}")
         u = u.reshape(p.shape)
     return u
+
+
+@torch.no_grad()
+def theta_checksum(params: dict) -> str:
+    """A digest of ``params``' exact bits (the trainer passes its flat wire
+    names): each tensor's bit patterns summed as int64 on its device (one
+    host read for all), hashed in name order. Equal θ give equal digests
+    on any device and in either orientation; a flipped bit changes its
+    tensor's sum."""
+    sums = []
+    for name in sorted(params):
+        t = params[name].detach()
+        bits = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+        sums.append(t.contiguous().view(bits).to(torch.int64).sum())
+    values = torch.stack(sums).tolist()
+    return hashlib.sha256(repr(list(zip(sorted(params), values))).encode()).hexdigest()[:16]
 
 
 def _refuse_codec_hint(meta: dict) -> None:
@@ -292,7 +313,7 @@ class _WorkerStream:
         with self.session.receive(self.cfg.results) as events:
             for event in events:
                 meta = event.get("meta") or {}
-                self._ps_gen, resend = _restart_signal(meta, self._ps_gen)
+                self._ps_gen, resend = restart_signal(meta, self._ps_gen)
                 if resend and flight["path"].is_file():
                     log.warning("stream sync: parameter server restarted; re-sending round %d "
                                 "fragment %d", flight["round"], flight["frag"])
@@ -462,6 +483,23 @@ def run_training(
     optimizer = build_optimizer(list(model.parameters()), cfg.optimizer, cfg.scheduler)
     step = make_train_step(model, optimizer, cfg.loss or Loss.CROSS_ENTROPY)
     params = model.state_dict()  # aliases of the parameters, updated in place
+
+    # Resume: a re-dispatched executor picks up the last completed round's
+    # params and optimizer state instead of θ₀.
+    ckpt_dir: "Path | None" = None
+    ckpt_every = 1
+    round_offset = 0  # completed rounds restored from a checkpoint
+    if cfg.checkpoint and cfg.checkpoint.get("dir"):
+        ckpt_every = int(cfg.checkpoint.get("every_rounds", 1))
+        if ckpt_every > 0:  # <= 0 disables checkpointing
+            ckpt_dir = Path(cfg.checkpoint["dir"])
+            restored = load_train_checkpoint(ckpt_dir, *train_state(model, optimizer))
+            if restored is not None:
+                r_params, r_opt, r_step, r_round, _extra = restored
+                restore_train_state(model, optimizer, r_params, r_opt)
+                round_offset = r_round
+                log.info("resumed from %s: step %d, %d completed rounds", ckpt_dir, r_step,
+                         r_round)
     anchor = {k: v.detach().clone() for k, v in params.items()}
 
     # The outer round's wire codec: delta_codec, or the legacy
@@ -480,6 +518,36 @@ def run_training(
     result = TrainResult()
     countdown: "int | None" = None
     round_num = 0
+    if cfg.rejoin:
+        # Dispatched mid-job: θ₀ above is every worker's start, and the
+        # parameter server owes one catch-up push, Σ of its updates so far
+        # and the next round. Round broadcasts racing in first are dropped:
+        # their content is inside Σ.
+        log.info("rejoin: waiting for the parameter server's catch-up")
+        t_wait = time.perf_counter()
+        with session.receive(cfg.results) as events:
+            catchup = await_catchup(
+                events, on_skip=lambda e: (work_dir / e["path"]).unlink(missing_ok=True))
+        meta = catchup.get("meta") or {}
+        catchup_file = work_dir / catchup["path"]
+        size = catchup_file.stat().st_size
+        t_merge = time.perf_counter()
+        update = flat_to_state(compress.read_delta(catchup_file, dev))
+        with torch.no_grad():
+            for name, p in params.items():
+                if name in update:
+                    u = _fit(update.pop(name), p, name)
+                    p.copy_(apply_updates({name: p}, [{name: u}])[name])
+                anchor[name].copy_(p)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        catchup_file.unlink(missing_ok=True)
+        round_num = int(meta.get("round", 0))
+        log.info("rejoin: caught up to round %d (membership epoch %s): %d bytes, waited %.3f s, "
+                 "merged in %.3f s", round_num, meta.get("epoch", "?"), size,
+                 t_merge - t_wait, time.perf_counter() - t_merge)
+        log.info("round %d: anchor checksum %s", round_num,
+                 theta_checksum(state_to_flat(model, params)))
     round_samples = 0
     round_losses: list[float] = []
     gens: dict = {"ps": None, "sched": None}
@@ -524,7 +592,7 @@ def run_training(
                 if event is None:
                     raise RuntimeError("results stream ended before the round's update broadcast")
                 meta = event.get("meta") or {}
-                gens["ps"], resend = _restart_signal(meta, gens["ps"])
+                gens["ps"], resend = restart_signal(meta, gens["ps"])
                 if resend and delta_path.is_file():
                     log.warning("parameter server restarted; re-sending round %d delta", round_num)
                     push_delta(delta_path)
@@ -549,7 +617,10 @@ def run_training(
                 anchor[name].copy_(p)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        log.info("round %d: update merged in %.3f s", round_num, time.perf_counter() - t_merge)
+        log.info("round %d: update merged in %.3f s (membership epoch %s)", round_num,
+                 time.perf_counter() - t_merge, meta.get("epoch", "-"))
+        log.info("round %d: anchor checksum %s", round_num + 1,
+                 theta_checksum(state_to_flat(model, params)))
         delta_path.unlink(missing_ok=True)
         update_file.unlink(missing_ok=True)
         resp = send_status(Progress(kind=ProgressKind.UPDATE_RECEIVED, job_id=spec.job_id))
@@ -557,6 +628,14 @@ def run_training(
         result.rounds = round_num
         round_samples = 0
         round_losses.clear()
+        if ckpt_dir is not None and round_num % ckpt_every == 0:
+            # The manifest counts completed rounds across resumes.
+            t_save = time.perf_counter()
+            saved = save_train_checkpoint(ckpt_dir, *train_state(model, optimizer),
+                                          optimizer.count, round_offset + round_num)
+            log.info("round %d: checkpoint %s saved in %.3f s (%d bytes)", round_num - 1,
+                     saved.name, time.perf_counter() - t_save,
+                     sum(f.stat().st_size for f in saved.iterdir()))
         return resp.kind == ProgressResponseKind.CONTINUE
 
     def begin_stream_sync() -> None:

@@ -33,6 +33,7 @@ from dataclasses import dataclass, field
 from typing import Any
 
 from .config import ConfigError, TLSConfig
+from .ft.membership import FTConfig
 from .messages import Adam, LRScheduler, LRSchedulerKind, ModelType, Nesterov, PriceRange
 from .resources import Resources
 from .scheduler.job_config import CODECS, SYNC_MODES, DiLoCoJob, DiLoCoRounds, JobResources
@@ -616,7 +617,7 @@ class JobSection:
                 _refuse("job.serve_block_size = 0", "fixed-slot pool mode")
         else:
             # DiLoCoJob accepts each option outside the port's
-            # single-PS, non-elastic path only at its off value and names
+            # single-PS path only at its off value and names
             # its label otherwise: build it now, so a bad file fails here.
             self.to_job()
 
@@ -806,10 +807,8 @@ class JobSection:
             metrics_interval_s=self.metrics_interval_s,
             metrics_dir=self.metrics_dir or None,
             slo_rules=list(self.slo_rules),
-            # The port has no FTConfig (ft/membership.py): DiLoCoJob refuses
-            # any ft naming its label, so the settings travel as a dict.
             ft=(
-                dict(
+                FTConfig(
                     quorum_fraction=self.quorum_fraction,
                     round_deadline_s=self.round_deadline_s,
                     phi_threshold=self.phi_threshold,

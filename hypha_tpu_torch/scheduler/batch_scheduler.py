@@ -1,6 +1,7 @@
 """The DiLoCo control-plane state machine (a copy of
-``hypha_tpu/scheduler/batch_scheduler.py`` for the
-single-parameter-server, non-elastic path).
+``hypha_tpu/scheduler/batch_scheduler.py`` for one parameter server; a
+worker departing or joining mid-round is the tracker's ``remove_worker`` /
+``add_worker``, as in the reference).
 
 Reference: crates/scheduler/src/scheduling/batch_scheduler.rs:42-163.
 Per-worker lifecycle (mermaid at :45-52):

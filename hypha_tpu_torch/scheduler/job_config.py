@@ -12,9 +12,12 @@ max batch 600).
 Every field keeps the JAX package's name, order and default, and the three
 classes are registered with the port's codec, so ``messages.encode(job)``
 gives the JAX package's bytes. The port schedules the single-parameter-
-server, non-elastic path, with every wire codec (``delta_codec``,
-``delta_dtype``) and every sync mode (``sync_mode``, ``num_fragments``):
-each option outside it is accepted only at its off value (``_NOT_PORTED``),
+server path with every wire codec (``delta_codec``, ``delta_dtype``) and
+every sync mode (``sync_mode``, ``num_fragments``), and, on blocking jobs,
+fault tolerance (``ft``, an ``FTConfig``) and checkpoints
+(``checkpoint_dir``, ``checkpoint_every``, ``ps_checkpoint_every_rounds``).
+Each option outside it is accepted only at its off value (``_NOT_PORTED``;
+``ft`` and ``checkpoint_dir`` only with ``sync_mode`` overlap or stream),
 and any other value raises ``NotImplementedError`` naming its ROADMAP.md
 label. Malformed values raise the reference's ``ValueError`` first, with
 its texts: every cross-field check of the reference runs before the
@@ -27,6 +30,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 from ..compress import CODECS
+from ..ft.membership import FTConfig
 from ..messages import Adam, Loss, LRScheduler, Nesterov, PriceRange, _register
 from ..resources import Resources
 from ..stream import SYNC_MODES, effective_fragments
@@ -35,7 +39,8 @@ __all__ = ["DiLoCoRounds", "JobResources", "DiLoCoJob", "CODECS", "SYNC_MODES"]
 
 _STREAMING = "sharded PS/FT/rejoin"
 
-# (field, the values the port runs, ROADMAP.md label of the rest). An
+# (field, the values the port runs, ROADMAP.md label of the rest); the
+# fields of _BLOCKING_ONLY run at any value on blocking jobs. An
 # option that the reference accepts only beside another (scheduler_recovery
 # needs ft and checkpoint_dir; reduce_tree_depth and broadcast_tree need
 # reduce_group_size) comes before it, so the refusal names the option the
@@ -43,7 +48,7 @@ _STREAMING = "sharded PS/FT/rejoin"
 _NOT_PORTED = (
     ("scheduler_recovery", (False,), "scheduler recovery"),
     ("ft", (None,), _STREAMING),
-    ("checkpoint_dir", (None,), "checkpoint resume"),
+    ("checkpoint_dir", (None,), _STREAMING),
     ("num_ps_shards", (1,), _STREAMING),
     ("reduce_tree_depth", (0, 1), _STREAMING),
     ("broadcast_tree", (False,), _STREAMING),
@@ -57,6 +62,7 @@ _NOT_PORTED = (
     ("sharding", (None,), "intra-replica sharding"),
     ("serve_peers", ([],), "live weight swap"),
 )
+_BLOCKING_ONLY = ("ft", "checkpoint_dir")
 
 
 @_register
@@ -109,7 +115,7 @@ class DiLoCoJob:
     checkpoint_dir: str | None = None
     checkpoint_every: int = 1
     ps_checkpoint_every_rounds: int = 1
-    ft: object | None = None
+    ft: FTConfig | None = None
     sync_mode: str = "blocking"
     num_fragments: int = 0
     num_ps_shards: int = 1
@@ -224,8 +230,11 @@ class DiLoCoJob:
             raise ValueError("num_workers must be positive")
         for name, runs, label in _NOT_PORTED:
             value = getattr(self, name)
+            if name in _BLOCKING_ONLY and self.sync_mode == "blocking":
+                continue
             if value not in runs:
+                mode = f" with sync_mode={self.sync_mode!r}" if name in _BLOCKING_ONLY else ""
                 raise NotImplementedError(
-                    f"DiLoCoJob {name}={value!r} is not ported to PyTorch yet "
+                    f"DiLoCoJob {name}={value!r}{mode} is not ported to PyTorch yet "
                     f"(ROADMAP.md, Queue 1: {label})"
                 )

@@ -1,7 +1,8 @@
 """The scheduler orchestrator: allocate → wire → dispatch → supervise (a copy
 of ``hypha_tpu/scheduler/orchestrator.py`` for the
-single-parameter-server, non-elastic path — the one the JAX CLI runs with
-default settings — with every wire codec and sync mode).
+single-parameter-server path, with every wire codec and sync mode, and
+with elastic membership, rejoin and the parameter server's restart on
+blocking jobs).
 
 Reference call stack being reproduced (SURVEY.md §3.1,
 crates/scheduler/src/bin/hypha-scheduler.rs:54-432):
@@ -19,18 +20,32 @@ crates/scheduler/src/bin/hypha-scheduler.rs:54-432):
   7. supervise: job completes when the batch scheduler reports every
      worker DONE.
 
-Any failure — a failed or cancelled job status, a lease renewal failure,
-no progress message within the watchdog's deadline — fails the attempt
-with ``JobFailed``; ``max_attempts > 1`` re-runs the whole job. The
+Without ``job.ft``, any failure — a failed or cancelled job status, a
+lease renewal failure, no progress message within the watchdog's deadline
+— fails the attempt with ``JobFailed``; ``max_attempts > 1`` re-runs the
+whole job (with a ``checkpoint_dir``, the trainers resume from their
+checkpoints and the parameter server from its momentum copy). The
 no-progress watchdog is per-round: without ``status_timeout`` the deadline
 derives from the synchronization simulation's projected round time once
 every worker has timing statistics.
 
+With ``job.ft`` (blocking jobs, one parameter server; the reference's
+``:1542-2086``) a train worker's failure degrades the round set instead:
+``_depart`` drops it from the ``MembershipView`` (the parameter server
+hears each new epoch over ``/hypha-ft/0.0.1``), and ``_rejoin_worker``
+auctions a replacement, joins it, has the server queue its catch-up and
+dispatches it with ``rejoin=True``. φ-accrual suspicion (``ft/detector.py``,
+fed by every progress message and lease renewal) marks silent workers, so
+the server stops waiting for them past quorum. With a ``checkpoint_dir``
+and ``ps_restart_attempts`` left, a failed parameter server is re-auctioned
+under the SAME peer id and its aggregate job re-dispatched unchanged; the
+durable journal under ``<checkpoint_dir>/ps`` resumes the round.
+
 Not ported (the job refuses their options, ``job_config.py``): the
 adoption and resume path of a restarted scheduler (**scheduler
-recovery**), and the parameter server's restart, φ-accrual suspicion,
-elastic membership, depart and rejoin, sharded and tree-reduced parameter
-services and adaptive steps (**sharded PS/FT/rejoin**).
+recovery**); fault tolerance with overlap or stream sync, sharded and
+tree-reduced parameter services and adaptive steps (**sharded
+PS/FT/rejoin**).
 """
 
 from __future__ import annotations
@@ -41,6 +56,8 @@ import uuid
 from typing import Any
 
 from .. import aio, messages
+from ..ft.detector import PhiAccrualDetector
+from ..ft.membership import PROTOCOL_FT, MembershipUpdate, MembershipView, quorum_size
 from ..messages import (
     AGGREGATE_EXECUTOR_NAME,
     PROTOCOL_PROGRESS,
@@ -58,15 +75,15 @@ from ..messages import (
     TrainExecutorConfig,
     WorkerSpec,
 )
-from ..network.node import Node
+from ..network.node import Node, RequestError
 from .allocator import GreedyWorkerAllocator
 from .batch_scheduler import BatchScheduler
 from .data_scheduler import DataScheduler
 from .job_config import DiLoCoJob
 from .metrics_bridge import MetricsBridge, MetricsConnector
 from .simulation import project
-from .task import StatusRouter, Task
-from .trackers import ProgressTracker
+from .task import DispatchError, StatusRouter, Task
+from .trackers import ProgressTracker, WorkerState
 from .worker_handle import WorkerHandle
 
 __all__ = ["Orchestrator", "JobResult", "JobFailed", "AllocationError"]
@@ -91,11 +108,14 @@ class JobFailed(RuntimeError):
 
 
 class JobResult:
-    def __init__(self, job_id: str, rounds: int, metrics: list, attempt: int = 0) -> None:
+    def __init__(self, job_id: str, rounds: int, metrics: list, attempt: int = 0,
+                 ft: "dict | None" = None) -> None:
         self.job_id = job_id
         self.rounds = rounds
         self.metrics = metrics  # [(peer, round, {name: value})]
         self.attempt = attempt  # 0 = first attempt succeeded (no restart)
+        # With job.ft: {"epoch", "active", "suspected", "departed", "rejoins"}.
+        self.ft = ft
 
 
 class _RunContext:
@@ -103,13 +123,15 @@ class _RunContext:
 
     def __init__(self) -> None:
         self.job: DiLoCoJob | None = None
+        self.ft = None  # the job's FTConfig when elastic
         self.base_id = ""
         self.updates_tag = ""
         self.results_tag = ""
         self.handles: dict[str, WorkerHandle] = {}
         # The one parameter server: its handle, job id, peer and updates
-        # tag (lists, as the reference keeps one per shard).
-        self.ps_handles: list[WorkerHandle] = []
+        # tag (lists, as the reference keeps one per shard). The handle is
+        # None while the server restarts.
+        self.ps_handles: list = []
         self.ps_job_ids: list[str] = []
         self.ps_peers: list[str] = []
         self.shard_tags: list[str] = []
@@ -120,6 +142,13 @@ class _RunContext:
         self.complete: asyncio.Event | None = None
         self.activity: list[float] = []
         self.status_timeout: float | None = None
+        self.auction_timeout = 2.0
+        self.detector: PhiAccrualDetector | None = None
+        self.membership: MembershipView | None = None
+        self.rejoin_count = 0
+        self.notify_tasks: set = set()
+        self.ps_restarts = 0
+        self.ps_restarting: set = set()
         # The longest silence between two progress messages, and the
         # least deadline the watchdog held: logged when the job completes.
         self.progress_gap_max_s = 0.0
@@ -216,8 +245,11 @@ class Orchestrator:
         retry_backoff: float = 11.0,
     ) -> JobResult:
         """Run the job; with ``max_attempts > 1``, a failed attempt is
-        re-run from scratch against whatever workers the auction finds.
-        ``retry_backoff`` defaults past the 10 s lease TTL so the failed
+        re-run from scratch against whatever workers the auction finds, and
+        a job with a ``checkpoint_dir`` warm-starts it from the last
+        completed round. With ``job.ft``, single train-worker failures
+        never reach this level: they degrade the round and trigger a
+        rejoin. ``retry_backoff`` defaults past the 10 s lease TTL so the failed
         attempt's leases lapse and the surviving workers' capacity frees
         before re-auctioning. ``status_timeout=None`` uses the per-round
         adaptive watchdog (simulation-projected round time).
@@ -248,7 +280,8 @@ class Orchestrator:
 
     # ------------------------------------------------------------- job specs
 
-    def _train_spec(self, ctx: _RunContext, suffix: str, handle: WorkerHandle) -> JobSpec:
+    def _train_spec(self, ctx: _RunContext, suffix: str, handle: WorkerHandle,
+                    rejoin: bool = False) -> JobSpec:
         job = ctx.job
         assert job is not None and ctx.ps_peers, "plan the streams first"
         return JobSpec(
@@ -272,6 +305,10 @@ class Orchestrator:
                     delta_codec=job.delta_codec,
                     sync_mode=job.sync_mode,
                     fragments=job.num_fragments,
+                    rejoin=rejoin,
+                    checkpoint=({"dir": f"{job.checkpoint_dir}/{handle.peer_id}",
+                                 "every_rounds": job.checkpoint_every}
+                                if job.checkpoint_dir else None),
                 ),
             ),
         )
@@ -305,7 +342,10 @@ class Orchestrator:
                         results=Send(Reference.from_peers(worker_peers, ctx.results_tag)),
                         optimizer=job.outer_optimizer,
                         num_workers=len(worker_peers),
+                        checkpoint_dir=f"{job.checkpoint_dir}/ps" if job.checkpoint_dir else None,
                         ps_checkpoint_every_rounds=job.ps_checkpoint_every_rounds,
+                        quorum_fraction=ctx.ft.quorum_fraction if ctx.ft else 0.0,
+                        round_deadline_s=ctx.ft.round_deadline_s if ctx.ft else 0.0,
                         delta_codec=job.delta_codec,
                         sync_mode=job.sync_mode,
                         fragments=job.num_fragments,
@@ -350,6 +390,9 @@ class Orchestrator:
             now = asyncio.get_running_loop().time()
             ctx.progress_gap_max_s = max(ctx.progress_gap_max_s, now - ctx.activity[0])
             ctx.activity[0] = now
+            if ctx.detector is not None:
+                # Every progress message is a liveness signal.
+                ctx.detector.heartbeat(peer)
             return batch_scheduler.on_progress(peer, progress)
 
         progress_reg = self.node.on(PROTOCOL_PROGRESS, Progress).respond_with(on_progress)
@@ -363,13 +406,16 @@ class Orchestrator:
         allocation_attempts: int = 3,
         status_timeout: float | None = None,
     ) -> JobResult:
+        ft = job.ft if (job.ft is not None and job.ft.enabled) else None
         log.info("auctioning %d train workers", job.resources.num_workers)
         worker_offers = await self._allocate_train(
             job, auction_timeout=auction_timeout, attempts=allocation_attempts
         )
         ctx = _RunContext()
         ctx.job = job
+        ctx.ft = ft
         ctx.status_timeout = status_timeout
+        ctx.auction_timeout = auction_timeout
         progress_reg = None
         tasks: list[Task] = []
         try:
@@ -422,6 +468,12 @@ class Orchestrator:
             for peer, handle in ctx.handles.items():
                 ctx.tracker.add_worker(peer, handle.batch_size)
 
+            if ft is not None:
+                ctx.detector = PhiAccrualDetector(threshold=ft.phi_threshold)
+                ctx.membership = MembershipView(list(ctx.handles))
+                for handle in ctx.handles.values():
+                    handle.on_renew = ctx.detector.heartbeat
+
             collected, progress_reg = self._start_control(ctx)
 
             ctx.router = StatusRouter(self.node)
@@ -449,8 +501,18 @@ class Orchestrator:
             await self._supervise(ctx, tasks)
             log.info("job %s: largest progress gap %.3f s; the watchdog's least deadline "
                      "%.3f s", ctx.base_id, ctx.progress_gap_max_s, ctx.watchdog_min_s)
-            return JobResult(ctx.base_id, ctx.tracker.round, collected)
+            ft_summary = None
+            if ctx.membership is not None:
+                snap = ctx.membership.snapshot()
+                ft_summary = {"epoch": snap.epoch, "active": snap.active,
+                              "suspected": snap.suspected, "departed": snap.departed,
+                              "rejoins": ctx.rejoin_count, "ps_restarts": ctx.ps_restarts}
+            return JobResult(ctx.base_id, ctx.tracker.round, collected, ft=ft_summary)
         finally:
+            for task in ctx.notify_tasks:
+                task.cancel()
+            if ctx.notify_tasks:
+                await asyncio.gather(*list(ctx.notify_tasks), return_exceptions=True)
             if progress_reg is not None:
                 progress_reg.close()
             if ctx.data_scheduler is not None:
@@ -460,7 +522,8 @@ class Orchestrator:
             for handle in ctx.handles.values():
                 await handle.release()
             for ps_handle in ctx.ps_handles:
-                await ps_handle.release()
+                if ps_handle is not None:
+                    await ps_handle.release()
             await self.metrics_bridge.close()
 
     # ------------------------------------------------------------ supervision
@@ -500,12 +563,15 @@ class Orchestrator:
                 return peer, status.job_id, "cancelled"
 
     async def _supervise(self, ctx: _RunContext, tasks: list[Task]) -> None:
-        """Wait for completion; any failure aborts the attempt.
+        """Wait for completion; tolerate a train worker's loss when elastic.
 
-        Failure signals: per-task failed/cancelled job statuses and
-        per-handle lease-renewal failures (hypha-scheduler.rs:372-412
-        select loop). The no-PROGRESS watchdog resets on every progress
-        message, so a long but steadily-reporting job is never killed."""
+        Failure signals: per-task failed/cancelled job statuses, per-handle
+        lease-renewal failures and (elastic only) φ-accrual suspicion,
+        polled every tick. Without ``job.ft`` any failure aborts the
+        attempt (hypha-scheduler.rs:372-412 select loop). A parameter
+        server failure restarts it when the job allows (else aborts). The
+        no-PROGRESS watchdog resets on every progress message, so a long
+        but steadily-reporting job is never killed."""
         assert ctx.complete is not None
         waiters: dict[asyncio.Task, tuple[str, Any]] = {}
 
@@ -518,7 +584,8 @@ class Orchestrator:
         for handle in ctx.handles.values():
             add("worker", handle, _await_failure(handle))
         for ps_handle in ctx.ps_handles:
-            add("ps-worker", ps_handle, _await_failure(ps_handle))
+            if ps_handle is not None:
+                add("ps-worker", ps_handle, _await_failure(ps_handle))
         loop = asyncio.get_running_loop()
         try:
             while True:
@@ -533,6 +600,8 @@ class Orchestrator:
                     timeout=min(remaining, 1.0),
                     return_when=asyncio.FIRST_COMPLETED,
                 )
+                if ctx.membership is not None:
+                    self._poll_suspicion(ctx)
                 if not done:
                     continue  # re-check the watchdog, keep waiting
                 # Completion wins ties: when a worker's lease-renewal failure
@@ -544,26 +613,293 @@ class Orchestrator:
                 for t in done:
                     kind, payload = waiters.pop(t)
                     if t.cancelled():
+                        # A released handle's failure future (its peer
+                        # already departed through another signal).
                         continue
                     if kind == "status":
                         peer, job_id, reason = t.result()
                         if job_id in ctx.ps_job_ids:
+                            self._request_ps_restart(
+                                ctx, ctx.ps_job_ids.index(job_id),
+                                f"{job_id} failed on {peer}: {reason}", add)
+                        elif ctx.ft is None:
+                            raise JobFailed(f"{job_id} failed on {peer}: {reason}")
+                        else:
+                            await self._depart(ctx, peer, f"{job_id}: {reason}", add)
+                    elif kind == "ps-worker":
+                        if payload not in ctx.ps_handles:
+                            continue  # a released handle's stale signal
+                        self._request_ps_restart(
+                            ctx, ctx.ps_handles.index(payload), str(t.result()), add)
+                    elif kind == "worker":
+                        failure = t.result()
+                        if ctx.ft is None:
+                            raise JobFailed(str(failure))
+                        await self._depart(ctx, getattr(failure, "peer_id", ""), str(failure),
+                                           add)
+                    elif kind == "ps-restart":
+                        ctx.ps_restarting.discard(payload)
+                        revived = t.result()
+                        if revived is None:
                             raise JobFailed(
-                                f"parameter server shard {ctx.ps_job_ids.index(job_id)} "
-                                f"failed: {job_id} failed on {peer}: {reason}"
-                            )
-                        raise JobFailed(f"{job_id} failed on {peer}: {reason}")
-                    if kind == "ps-worker":
-                        raise JobFailed(
-                            f"parameter server shard {ctx.ps_handles.index(payload)} "
-                            f"failed: {t.result()}"
-                        )
-                    if kind == "worker":
-                        raise JobFailed(str(t.result()))
+                                f"parameter server shard {payload} restart failed (after "
+                                f"{ctx.ps_restarts} attempt(s))")
+                        handle, task = revived
+                        add("status", task, self._watch_status(task))
+                        add("ps-worker", handle, _await_failure(handle))
+                    elif kind == "rejoin":
+                        joined = t.result()
+                        if joined is not None:
+                            handle, task = joined
+                            add("status", task, self._watch_status(task))
+                            add("worker", handle, _await_failure(handle))
+                        else:
+                            log.warning("rejoin gave up; continuing degraded at %d active "
+                                        "workers", len(ctx.membership.active)
+                                        if ctx.membership else -1)
         finally:
             for t in waiters:
                 t.cancel()
             await asyncio.gather(*waiters, return_exceptions=True)
+
+    # ----------------------------------------------------- PS crash recovery
+
+    def _request_ps_restart(self, ctx: _RunContext, shard: int, reason: str, add) -> None:
+        """A parameter server failure signal: queue a restart, or fail the
+        attempt. Eligible only when the job is elastic, has
+        ``ps_restart_attempts`` left and a ``checkpoint_dir`` (without the
+        journal a re-dispatched server would restart the round counter
+        under workers mid-round). A second signal of one outage folds into
+        the restart in flight."""
+        if shard in ctx.ps_restarting:
+            log.info("ps shard %d failure signal during restart (%s); ignored", shard, reason)
+            return
+        eligible = (
+            ctx.ft is not None
+            and ctx.ft.ps_restart_attempts > 0
+            and ctx.ps_restarts < ctx.ft.ps_restart_attempts
+            and ctx.job is not None
+            and bool(ctx.job.checkpoint_dir)
+            and len(ctx.ps_specs) > shard
+        )
+        if not eligible:
+            raise JobFailed(f"parameter server shard {shard} failed: {reason}")
+        ctx.ps_restarts += 1
+        ctx.ps_restarting.add(shard)
+        log.warning("parameter server shard %d failed (%s); restart attempt %d/%d", shard,
+                    reason, ctx.ps_restarts, ctx.ft.ps_restart_attempts)
+        add("ps-restart", shard, self._restart_ps(ctx, shard))
+
+    async def _restart_ps(self, ctx: _RunContext, shard: int) -> "tuple | None":
+        """Re-auction the SAME peer and re-dispatch the aggregate job
+        unchanged: every worker's streams name that peer, so recovery is a
+        process restarting on its host, not a migration. The job finds its
+        journal under its own checkpoint dir and resumes the round."""
+        assert ctx.ft is not None and ctx.job is not None
+        failed = ctx.ps_handles[shard]
+        old_peer = failed.peer_id if failed is not None else ctx.ps_peers[shard]
+        if failed is not None:
+            await failed.release()
+            ctx.ps_handles[shard] = None
+        res = ctx.job.resources
+        ps_spec = WorkerSpec(
+            resources=res.parameter_server,
+            executor=[ExecutorDescriptor(executor_class="aggregate", name=AGGREGATE_EXECUTOR_NAME)],
+        )
+        # The restarted node needs a beat to bind and re-register.
+        deadline = loop_time() + max(ctx.ft.ps_restart_backoff_s, 0.1) * 20
+        attempt = 0
+        while loop_time() < deadline:
+            if attempt:
+                await asyncio.sleep(ctx.ft.ps_restart_backoff_s)
+            attempt += 1
+            try:
+                offers = await self.allocator.request(
+                    ps_spec, res.parameter_server_price, ctx.auction_timeout, 8)
+            except Exception as e:
+                log.warning("ps restart auction failed: %s", e)
+                continue
+            same = [o for o in offers if o.peer_id == old_peer]
+            if not same:
+                log.info("ps restart: no offer from %s yet (%d others)", old_peer, len(offers))
+                continue
+            handle: "WorkerHandle | None" = None
+            try:
+                handle = await WorkerHandle.create(self.node, same[0])
+                task = await Task.dispatch(self.node, ctx.router, ctx.ps_specs[shard], [handle])
+            except asyncio.CancelledError:
+                if handle is not None:
+                    await handle.release()
+                raise
+            except (RequestError, DispatchError) as e:
+                log.warning("ps shard %d restart dispatch failed: %s", shard, e)
+                if handle is not None:
+                    await handle.release()
+                continue
+            ctx.ps_handles[shard] = handle
+            if ctx.membership is not None:
+                # Bring the recovered server's checkpointed view up to date.
+                self._notify_membership_soon(ctx)
+            log.warning("parameter server shard %d restarted on %s", shard, old_peer)
+            return handle, task
+        return None
+
+    # ------------------------------------------------------- elastic details
+
+    def _poll_suspicion(self, ctx: _RunContext) -> None:
+        """φ threshold crossings -> suspected; heartbeats again ->
+        reinstated. Advisory (the server stops waiting past quorum but still
+        takes their deltas); only peers that should be heartbeating are
+        judged: one that shipped its delta (UPDATING) or finished (DONE) is
+        silent by protocol."""
+        assert ctx.membership is not None and ctx.detector is not None
+        assert ctx.tracker is not None
+        changed = False
+        for peer in list(ctx.membership.active):
+            if peer in ctx.tracker.peers and ctx.tracker.state(peer) in (
+                    WorkerState.UPDATING, WorkerState.DONE):
+                continue
+            if ctx.detector.suspected(peer):
+                if ctx.membership.suspect(peer):
+                    log.warning("worker %s suspected (phi=%.1f >= %.1f)", peer,
+                                ctx.detector.phi(peer), ctx.detector.threshold)
+                    changed = True
+            elif ctx.membership.reinstate(peer):
+                log.info("worker %s re-healed (phi=%.1f)", peer, ctx.detector.phi(peer))
+                changed = True
+        if changed:
+            self._notify_membership_soon(ctx)
+
+    def _notify_membership_soon(self, ctx: _RunContext, joined: "list | None" = None) -> None:
+        """Fire-and-forget membership push (a lost update is repaired by
+        the next one)."""
+        aio.spawn(self._notify_membership(ctx, joined), tasks=ctx.notify_tasks,
+                  what="membership notify", logger=log)
+
+    async def _notify_membership(self, ctx: _RunContext, joined: "list | None" = None) -> bool:
+        """Push the current snapshot to the parameter server; False when
+        the push failed. A ``joined`` notification is load-bearing: it is
+        the only message that queues the rejoiner's catch-up."""
+        assert ctx.membership is not None and ctx.ps_handles
+        ok = True
+        snapshot = ctx.membership.snapshot()
+        for k, handle in enumerate(ctx.ps_handles):
+            if handle is None:
+                # Restarting: a plain snapshot is repaired after the
+                # re-dispatch, a join is not.
+                if joined:
+                    ok = False
+                continue
+            update = MembershipUpdate(job_id=ctx.ps_job_ids[k], membership=snapshot,
+                                      joined=list(joined or []))
+            try:
+                await self.node.request(handle.peer_id, PROTOCOL_FT, update, timeout=10)
+            except RequestError as e:
+                log.warning("membership update to PS shard %d failed: %s", k, e)
+                ok = False
+        return ok
+
+    async def _depart(self, ctx: _RunContext, peer: str, reason: str, add) -> None:
+        """A train worker is gone: degrade the round set, maybe rejoin."""
+        assert ctx.membership is not None and ctx.tracker is not None
+        assert ctx.ft is not None and ctx.job is not None
+        if peer not in ctx.membership.active:
+            return  # a second signal (lease failure + failed status)
+        log.warning("worker %s departed (%s); degrading round set", peer, reason)
+        ctx.membership.depart(peer)
+        if ctx.detector is not None:
+            ctx.detector.remove(peer)
+        handle = ctx.handles.pop(peer, None)
+        if handle is not None:
+            await handle.release()
+        if peer in ctx.tracker.peers:
+            ctx.tracker.remove_worker(peer)
+        if ctx.data_scheduler is not None:
+            ctx.data_scheduler.remove_worker(peer)
+        # Below the quorum of the replicas the job bought, the round
+        # average has lost its meaning: last-resort restart.
+        floor = quorum_size(ctx.ft.quorum_fraction, ctx.job.resources.num_workers)
+        if len(ctx.membership.active) < floor:
+            raise JobFailed(f"quorum lost: {len(ctx.membership.active)} active < {floor} "
+                            f"(of {ctx.job.resources.num_workers} bought)")
+        self._notify_membership_soon(ctx)
+        if ctx.tracker.rounds_left > 1 and ctx.ft.rejoin_attempts > 0:
+            add("rejoin", peer, self._rejoin_worker(ctx, peer, loop_time()))
+        else:
+            log.info("not rejoining for %s (%d rounds left)", peer, ctx.tracker.rounds_left)
+
+    async def _rejoin_worker(self, ctx: _RunContext, departed_peer: str,
+                             departed_at: float) -> "tuple | None":
+        """Auction a replacement and enter it at the next epoch: it builds
+        θ₀ and catches up from the server's Σ (``ft/rejoin.py``). Returns
+        (handle, task), or None after ``rejoin_attempts`` tries."""
+        assert ctx.ft is not None and ctx.job is not None
+        assert ctx.membership is not None and ctx.tracker is not None
+        spec_ws = self._train_worker_spec(ctx.job)
+        for attempt in range(ctx.ft.rejoin_attempts):
+            if attempt:
+                await asyncio.sleep(ctx.ft.rejoin_backoff_s)
+            try:
+                offers = await self.allocator.request(
+                    spec_ws, ctx.job.resources.worker_price, ctx.auction_timeout,
+                    len(ctx.membership.active) + 1)
+            except Exception as e:
+                log.warning("rejoin auction failed: %s", e)
+                continue
+            candidates = [o for o in offers if o.peer_id not in ctx.membership.active]
+            if not candidates:
+                log.info("rejoin %d/%d: no fresh offers (got %d)", attempt + 1,
+                         ctx.ft.rejoin_attempts, len(offers))
+                continue
+            offer = candidates[0]
+            peer = offer.peer_id
+            handle: "WorkerHandle | None" = None
+            added = False
+            try:
+                handle = await WorkerHandle.create(self.node, offer)
+                handle.batch_size = self.batch_size_for(
+                    offer.resources, ctx.job.resources.worker, ctx.job.rounds.max_batch_size)
+                if ctx.detector is not None:
+                    handle.on_renew = ctx.detector.heartbeat
+                # Tracker and membership BEFORE dispatch: the worker's first
+                # STATUS must find it tracked, and the server must have
+                # queued its catch-up before the executor waits for it.
+                ctx.tracker.add_worker(peer, handle.batch_size)
+                ctx.membership.join(peer)
+                added = True
+                if not await self._notify_membership(ctx, joined=[peer]):
+                    raise RequestError("join notification to PS failed")
+                spec = self._train_spec(ctx, f"r{ctx.rejoin_count}", handle, rejoin=True)
+                task = await Task.dispatch(self.node, ctx.router, spec, [handle])
+            except asyncio.CancelledError:
+                await self._rollback_rejoin(ctx, peer, handle, added)
+                raise
+            except (RequestError, DispatchError) as e:
+                log.warning("rejoin: attempt with %s failed: %s", peer, e)
+                await self._rollback_rejoin(ctx, peer, handle, added)
+                continue
+            ctx.handles[peer] = handle
+            ctx.rejoin_count += 1
+            log.info("worker %s rejoined for %s at epoch %d (%.0f ms after departure)", peer,
+                     departed_peer, ctx.membership.epoch, (loop_time() - departed_at) * 1000.0)
+            return handle, task
+        return None
+
+    async def _rollback_rejoin(self, ctx: _RunContext, peer: str,
+                               handle: "WorkerHandle | None", added: bool) -> None:
+        """Undo a half-done rejoin attempt (failed or cancelled)."""
+        if added:
+            assert ctx.tracker is not None and ctx.membership is not None
+            if peer in ctx.tracker.peers:
+                ctx.tracker.remove_worker(peer)
+            ctx.membership.depart(peer)
+            self._notify_membership_soon(ctx)
+        if handle is not None:
+            await handle.release()
+
+
+def loop_time() -> float:
+    return asyncio.get_running_loop().time()
 
 
 async def _await_failure(handle: WorkerHandle):

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+from typing import Callable
 
 from .. import aio
 from ..messages import PROTOCOL_API, RenewLease, RenewLeaseResponse, WorkerOffer
@@ -43,6 +44,9 @@ class WorkerHandle:
         self.failed: asyncio.Future[WorkerFailure] = (
             asyncio.get_running_loop().create_future()
         )
+        # Liveness hook: called with the peer id after every successful
+        # renewal (the orchestrator's φ-accrual detector feeds on it).
+        self.on_renew: "Callable[[str], None] | None" = None
         self._renewal: asyncio.Task | None = None
         self._released = False
 
@@ -95,6 +99,8 @@ class WorkerHandle:
                         "renewal of %s failed (%s); one retry", self.peer_id, e
                     )
                     timeout = await self._renew()
+                if self.on_renew is not None:
+                    self.on_renew(self.peer_id)
             except RequestError as e:
                 # Resolved with (not raised as) the failure so an un-awaited
                 # handle doesn't log "exception never retrieved".

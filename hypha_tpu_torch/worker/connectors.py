@@ -66,16 +66,16 @@ def _safe_name(name: str) -> str:
 PUSH_RETRY_DEADLINE_S = 120.0
 
 
-def push_timeout(path: Path) -> float:
-    """Per-attempt wall-clock bound for a parameter-sized push: 60 s plus
-    the payload at a floor rate of 10 MB/s, so a push black-holed by a
-    silent partition fails in time to retry while a slow multi-GB transfer
-    is never cut mid-flight."""
+def push_timeout(path: Path, base: float = 60.0) -> float:
+    """Per-attempt wall-clock bound for a parameter-sized push: ``base``
+    seconds plus the payload at a floor rate of 10 MB/s, so a push
+    black-holed by a silent partition fails in time to retry while a slow
+    multi-GB transfer is never cut mid-flight."""
     try:
         size = path.stat().st_size
     except OSError:
         size = 0
-    return 60.0 + size / (10 * 1024 * 1024)
+    return base + size / (10 * 1024 * 1024)
 
 
 def shard_route(shard_map, part: int, reduce_via: "str | None" = None):

@@ -1,6 +1,5 @@
 """The parameter server: the DiLoCo outer optimizer (counterpart of the
-single-shard, non-elastic, non-durable path of
-``hypha_tpu/worker/ps_executor.py``).
+single-shard path of ``hypha_tpu/worker/ps_executor.py``).
 
 :class:`ParameterServerExecutor` is the in-runtime executor a worker node
 runs for an ``aggregate`` job. Each round it takes one pseudo-gradient
@@ -27,13 +26,35 @@ momentum file and a broadcast residual per fragment; and the fan-out runs
 in the background, chained per fragment so that a worker never gets a
 fragment's rounds out of order.
 
+Fault tolerance of blocking jobs (the reference's ``:210-260``,
+``:346-389``, ``:754-940``, ``:1171-1600``, ``:2331-2380``):
+
+  * ``quorum_fraction > 0`` makes the rounds elastic
+    (:class:`_ElasticState`): the scheduler's ``MembershipUpdate``
+    messages arrive over ``/hypha-ft/0.0.1``; a round closes when every live active
+    worker reported, or after ``round_deadline_s`` at quorum; a delta of
+    a closed round is dropped as stale, one of a later round is parked for
+    it; a joined peer gets the catch-up Σ of every broadcast update
+    (``ft/rejoin.py``), and broadcasts go to the active set with the
+    membership epoch in their header;
+  * ``checkpoint_dir`` makes the server durable (``ft/durable.py``): every
+    accepted delta is journaled (saved under the checkpoint root with its
+    sha-256), every round's wire kept and committed, the outer state
+    checkpointed every ``ps_checkpoint_every_rounds``; a server restarted
+    under the same job id replays the committed rounds after the snapshot
+    (bit for bit), re-sends its newest broadcast and an empty resync, both
+    stamped with its new generation, and resumes the interrupted round
+    with its journaled folds, deduplicating the workers' re-sends. A
+    checkpoint root of another job id starts fresh, taking only the
+    momentum copy the previous attempt left (``_checkpoint_momentum``).
+
 What raises ``NotImplementedError`` at dispatch, with its ROADMAP.md
-label: a ``checkpoint_dir`` (checkpoint resume); elastic quorums
-(``quorum_fraction > 0``), several parameter-server shards, the adaptive
-options, the broadcast tree and the adoption grace (sharded
-PS/FT/rejoin); ``report_metrics_s`` (telemetry); ``serve_peers`` (live
-weight swap). A tree-reduce partial arriving at a round fails the job
-under the same label as the tree.
+label: elastic quorums or a ``checkpoint_dir`` with ``sync_mode`` overlap
+or stream, several parameter-server shards, the adaptive options, the
+broadcast tree and the adoption grace (sharded PS/FT/rejoin);
+``report_metrics_s`` (telemetry); ``serve_peers`` (live weight swap). A
+tree-reduce partial arriving at a round fails the job under the same
+label as the tree.
 
 The outer step (counterpart of ``ParameterServerExecutor._outer_step``,
 ``hypha_tpu/worker/ps_executor.py:2382-2440``, with
@@ -63,6 +84,7 @@ import logging
 import math
 import os
 import shutil
+import time
 import uuid
 from pathlib import Path
 
@@ -71,9 +93,13 @@ import torch
 
 from .. import aio, compress
 from ..executor.serialization import load_file, save_file
+from ..ft.durable import GENERATION_KEY, RESYNC_KEY, DurablePS, FoldRecord
+from ..ft.membership import PROTOCOL_FT, MembershipUpdate, RoundMembership, quorum_size
+from ..ft.rejoin import CATCHUP_KEY, CatchupBuffer
 from ..hw import default_device
 from ..messages import (
     PROTOCOL_PROGRESS,
+    Ack,
     FragmentTag,
     JobSpec,
     Progress,
@@ -91,9 +117,18 @@ __all__ = ["ParameterServerExecutor", "outer_step"]
 
 log = logging.getLogger("hypha.torch.worker.ps")
 
+# Elastic collect poll tick: the longest a membership change or a pending
+# rejoin waits before the collect loop notices it.
+_ELASTIC_TICK_S = 0.5
+
 # Broadcast fan-out width: enough concurrent streams to fill the uplink
 # without opening one per peer on a wide job.
 _BROADCAST_CONCURRENCY = 8
+
+# Elastic drain slack: a delta still streaming when the round deadline
+# passes gets this much more wall-clock before the collector abandons it
+# (pushes are queued at their header, so the deadline must bound the bytes).
+_DRAIN_SLACK_S = 0.25
 
 # The push-header key of a tree-reduce partial (the reference's
 # messages.PREFOLD_KEY).
@@ -173,9 +208,10 @@ def outer_step(
 
 def _unported(cfg) -> None:
     """Raise on every aggregate option this path does not run."""
+    streaming = (cfg.sync_mode or "blocking") != "blocking"
     checks = [
-        (bool(cfg.checkpoint_dir), "checkpoint_dir", "checkpoint resume"),
-        (cfg.quorum_fraction > 0, "quorum_fraction", _FT),
+        (streaming and bool(cfg.checkpoint_dir), "checkpoint_dir", _FT),
+        (streaming and cfg.quorum_fraction > 0, "quorum_fraction", _FT),
         (int(cfg.num_ps_shards or 1) > 1, "num_ps_shards", _FT),
         (bool(cfg.adaptive_steps), "adaptive_steps", _FT),
         (bool(cfg.adaptive_codec), "adaptive_codec", _FT),
@@ -186,10 +222,52 @@ def _unported(cfg) -> None:
     ]
     for bad, option, item in checks:
         if bad:
+            mode = f" with sync_mode={cfg.sync_mode!r}" if option in (
+                "checkpoint_dir", "quorum_fraction") else ""
             raise NotImplementedError(
-                f"{option}={getattr(cfg, option)!r} is not ported to the PyTorch parameter "
-                f"server (ROADMAP.md, Queue 1: {item})"
+                f"{option}={getattr(cfg, option)!r}{mode} is not ported to the PyTorch "
+                f"parameter server (ROADMAP.md, Queue 1: {item})"
             )
+
+
+def _file_sha(path: Path) -> str:
+    """sha-256 of a saved wire file (blocking): the identity the journal
+    deduplicates re-sends on."""
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while True:
+            chunk = f.read(1 << 20)
+            if not chunk:
+                break
+            h.update(chunk)
+    return h.hexdigest()
+
+
+class _ElasticState:
+    """The server's last adopted membership snapshot plus the rejoin
+    catch-up machinery (the reference's ``:210-257``)."""
+
+    def __init__(self, cfg, scheduler_peer: str) -> None:
+        self.quorum_fraction = cfg.quorum_fraction
+        self.round_deadline_s = cfg.round_deadline_s
+        self.scheduler_peer = scheduler_peer
+        # Epoch 0 until the scheduler's first MembershipUpdate.
+        self.membership = RoundMembership(epoch=0, active=sorted(cfg.updates.ref.peers or []))
+        self.catchup = CatchupBuffer()
+        self.pending_joins: dict = {}  # peer -> catch-up attempts left
+        self.early: dict = {}  # round -> {peer: (path, samples)} parked for it
+        self.dur: "DurablePS | None" = None
+
+    def quorum(self) -> int:
+        return quorum_size(self.quorum_fraction, len(self.membership.active))
+
+    def adopt(self, update: MembershipUpdate) -> None:
+        """Epoch-gated (an older snapshot can land after a newer one);
+        ``joined`` merges regardless: a catch-up owed is owed."""
+        if update.membership.epoch >= self.membership.epoch:
+            self.membership = update.membership
+        for peer in update.joined:
+            self.pending_joins.setdefault(peer, 3)
 
 
 def _unlink(paths: list) -> None:
@@ -234,10 +312,52 @@ class ParameterServerExecutor(JobExecutor):
             execution.finish("failed", "aggregate config names no workers")
             await asyncio.to_thread(shutil.rmtree, work_dir, ignore_errors=True)
             return
+        elastic = _ElasticState(cfg, scheduler_peer) if cfg.quorum_fraction > 0 else None
         lr, mu = cfg.optimizer.lr, cfg.optimizer.momentum
         # Momentum lives as a SafeTensors file between rounds, as in the
         # reference: the device holds only the round's sum.
         momentum_file = work_dir / "momentum.safetensors"
+        ckpt_dir = Path(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+        membership_reg = None
+        if elastic is not None:
+            # Registered before anything awaits: the scheduler sends a
+            # restarted server its membership right after the dispatch.
+            async def on_membership(peer: str, msg: MembershipUpdate) -> Ack:
+                if peer != scheduler_peer:
+                    return Ack(ok=False, message="membership updates come from the scheduler")
+                log.info("ps %s: membership epoch %d (active=%d suspected=%d joined=%s)", job_id,
+                         msg.membership.epoch, len(msg.membership.active),
+                         len(msg.membership.suspected), msg.joined)
+                elastic.adopt(msg)
+                return Ack(ok=True)
+
+            membership_reg = (self.node.on(PROTOCOL_FT, MembershipUpdate)
+                              .match(lambda m: m.job_id == job_id)
+                              .respond_with(on_membership))
+        dur: "DurablePS | None" = None
+        try:
+            if ckpt_dir is not None:
+                every = max(int(cfg.ps_checkpoint_every_rounds or 1), 1)
+                dur = await asyncio.to_thread(DurablePS.open, ckpt_dir, job_id, every)
+                log.info("ps %s: durable state at %s, generation %d", job_id, ckpt_dir,
+                         dur.generation)
+                if dur.resume is None:
+                    # A full job restart runs under a new job id: momentum
+                    # is the only outer state that carries over.
+                    saved = ckpt_dir / "momentum.safetensors"
+                    if saved.is_file():
+                        await asyncio.to_thread(shutil.copyfile, saved, momentum_file)
+                        log.info("ps %s: momentum restored from %s", job_id, saved)
+        except Exception as e:
+            # A corrupt durable root or a full disk fails the job visibly.
+            log.exception("parameter server job %s failed opening durable state", job_id)
+            execution.finish("failed", str(e))
+            if membership_reg is not None:
+                membership_reg.close()
+            if dur is not None:
+                await asyncio.to_thread(dur.close)
+            await asyncio.to_thread(shutil.rmtree, work_dir, ignore_errors=True)
+            return
         tag = cfg.updates.ref.resource
 
         def wants(push) -> bool:
@@ -248,11 +368,12 @@ class ParameterServerExecutor(JobExecutor):
             return isinstance(r, dict) and (tag is None or r.get("resource") == tag)
 
         consumer = self.node.consume_pushes(wants)
+        if elastic is not None:
+            elastic.dur = dur
         # The broadcast's wire codec mirrors the upload's; a quantized one
         # feeds its error back into the next update.
         codec = compress.effective_codec(cfg.delta_codec or "none")
         sync_mode = cfg.sync_mode or "blocking"
-        round_num = 0
         try:
             if sync_mode != "blocking":
                 await self._stream_rounds(
@@ -260,17 +381,62 @@ class ParameterServerExecutor(JobExecutor):
                     num_workers, lr, mu, codec, effective_fragments(sync_mode, cfg.fragments))
                 return
             bcast_ef = compress.ErrorFeedback() if codec in compress.QUANT_CODECS else None
+            round_num = 0
+            preload: dict = {}
+            recovered: dict = {}
+            if dur is not None and dur.resume is not None:
+                round_num, rec_efs, preload, recovered, done = await self._recover(
+                    dur, job_id, cfg, scheduler_peer, work_dir, momentum_file, elastic, lr, mu,
+                    codec, execution)
+                if bcast_ef is not None and 0 in rec_efs:
+                    bcast_ef = rec_efs[0]
+                if done:
+                    execution.finish("completed")
+                    return
             while True:
                 execution.round = round_num  # the live round, for AdoptAck
-                accum = RoundAccum(device=self.device)
-                received = await self._collect_round(
-                    consumer, job_id, allowed, num_workers, work_dir, round_num, accum)
+                # A recovered round resumes its replayed accumulator.
+                accum = recovered.pop(round_num, None)
+                preloaded_folded = accum is not None
+                if accum is None:
+                    accum = RoundAccum(device=self.device)
+                if dur is not None:
+                    await asyncio.to_thread(dur.note_open, round_num)
+                if elastic is not None:
+                    received = await self._collect_round_elastic(
+                        consumer, job_id, elastic, cfg, work_dir, round_num, accum, dur)
+                else:
+                    received = await self._collect_round(
+                        consumer, job_id, allowed, num_workers, work_dir, round_num, accum,
+                        dur=dur, preloaded=preload.pop(round_num, None),
+                        preloaded_folded=preloaded_folded)
+                if dur is not None:
+                    await asyncio.to_thread(dur.note_close, round_num, list(received))
                 update_path = await asyncio.to_thread(
                     outer_step, received, momentum_file, lr, mu, work_dir, round_num,
                     accum=accum, device=self.device)
                 del accum
-                wire_path = await asyncio.to_thread(
+                wire_path, sent = await asyncio.to_thread(
                     self._encode_broadcast, update_path, codec, bcast_ef, work_dir, round_num)
+                if elastic is not None:
+                    # Σ of the updates as the workers decode them, folded
+                    # before the durable commit (the checkpoint holds it).
+                    if sent is None:
+                        await asyncio.to_thread(elastic.catchup.accumulate, wire_path)
+                    else:
+                        await asyncio.to_thread(elastic.catchup.accumulate_tree, sent)
+                del sent
+                if dur is not None:
+                    wire_name = await asyncio.to_thread(dur.store_wire, round_num, wire_path)
+                    await asyncio.to_thread(
+                        dur.commit_round, round_num, 0, wire_name,
+                        epoch=elastic.membership.epoch if elastic is not None else 0,
+                        momentum_file=momentum_file,
+                        catchup=elastic.catchup if elastic is not None else None,
+                        efs={0: bcast_ef},
+                        active=list(elastic.membership.active) if elastic is not None else [])
+                if ckpt_dir is not None:
+                    await asyncio.to_thread(self._checkpoint_momentum, momentum_file, ckpt_dir)
                 # Notify BEFORE broadcasting: a worker can merge the update
                 # and send UPDATE_RECEIVED the moment the broadcast lands,
                 # and the scheduler must have advanced the round by then, or
@@ -278,11 +444,27 @@ class ParameterServerExecutor(JobExecutor):
                 # a phantom extra round.
                 response = await self._notify_updated(
                     scheduler_peer, job_id, round_num, execution)
-                await self._broadcast(cfg, wire_path, round_num)
-                await asyncio.to_thread(
-                    _unlink, [path for path, _ in received.values()] + [update_path, wire_path])
+                if dur is not None:
+                    await asyncio.to_thread(
+                        dur.note_notified, round_num,
+                        response.kind == ProgressResponseKind.DONE)
+                await self._broadcast(
+                    cfg, wire_path, round_num, elastic,
+                    extra_header={GENERATION_KEY: dur.generation} if dur is not None else None)
+                # Durable runs keep the delta files: the journal names them
+                # until a checkpoint covers their round.
+                done_files = [update_path] + ([wire_path] if wire_path != update_path else [])
+                if dur is None:
+                    done_files += [path for path, _ in received.values()]
+                await asyncio.to_thread(_unlink, done_files)
                 round_num += 1
+                if elastic is not None:
+                    await self._serve_joins(elastic, cfg, round_num, work_dir)
                 if response.kind == ProgressResponseKind.DONE:
+                    if dur is not None:
+                        log.info("ps %s: journal %d records, %d bytes; %d dedup hits", job_id,
+                                 dur.journal.records_written, dur.journal.bytes_written,
+                                 dur.dedup_hits)
                     execution.finish("completed")
                     return
         except asyncio.CancelledError:
@@ -291,8 +473,163 @@ class ParameterServerExecutor(JobExecutor):
             log.exception("parameter server job %s failed", job_id)
             execution.finish("failed", str(e))
         finally:
+            if membership_reg is not None:
+                membership_reg.close()
             consumer.close()
+            if dur is not None:
+                await asyncio.to_thread(dur.close)
             await asyncio.to_thread(shutil.rmtree, work_dir, ignore_errors=True)
+
+    # ------------------------------------------------------ crash recovery
+
+    async def _recover(self, dur: DurablePS, job_id: str, cfg, scheduler_peer: str,
+                       work_dir: Path, momentum_file: Path, elastic, lr: float, mu: float,
+                       codec: str, execution) -> tuple:
+        """Resume the job from its durable state after a restart (the
+        reference's ``_recover``, blocking rounds). Returns ``(round,
+        {fragment: broadcast residual}, preload, accums, done)``: momentum,
+        Σ, the residual, round and epoch come from the checkpoint; each
+        round committed after it re-runs its outer step from the journaled
+        folds; the scheduler is re-notified of the last committed round if
+        the journal lacks its answer; an empty resync and the newest
+        committed broadcast go out stamped with the new generation (every
+        worker re-sends its un-acknowledged delta; the journal deduplicates
+        the copies that landed); the interrupted round's folds come back
+        for the collect loop."""
+        resume = dur.resume
+        assert resume is not None
+        t0 = time.perf_counter()
+        await asyncio.to_thread(dur.restore_momentum, momentum_file)
+        bcast_efs: dict = {}
+        if codec in compress.QUANT_CODECS:
+            for frag, residual in (await asyncio.to_thread(dur.restore_efs)).items():
+                ef = compress.ErrorFeedback()
+                ef.restore(residual)
+                bcast_efs[frag] = ef
+        if elastic is not None:
+            await asyncio.to_thread(dur.restore_catchup, elastic.catchup)
+            if resume.epoch >= elastic.membership.epoch and resume.active:
+                # The checkpointed view holds until the scheduler's next
+                # (epoch-gated) membership push supersedes it.
+                elastic.membership = RoundMembership(epoch=resume.epoch,
+                                                     active=sorted(resume.active))
+        round_num = resume.next_round
+        for rec in resume.committed:
+            rnd = int(rec["round"])
+            accum = RoundAccum(device=self.device)
+            for fold, sign in dur.replay_ops(rnd):
+                await asyncio.to_thread(accum.fold, dur.deltas_dir / fold.file, fold.samples,
+                                        sign)
+            update_path = await asyncio.to_thread(
+                outer_step, {}, momentum_file, lr, mu, work_dir, rnd, accum=accum,
+                device=self.device)
+            del accum
+            if codec in compress.QUANT_CODECS and 0 not in bcast_efs:
+                bcast_efs[0] = compress.ErrorFeedback()
+            wire_path, sent = await asyncio.to_thread(
+                self._encode_broadcast, update_path, codec, bcast_efs.get(0), work_dir, rnd)
+            if rnd == dur.newest_commit(0):
+                await asyncio.to_thread(dur.store_wire, rnd, wire_path)
+            if elastic is not None:
+                if sent is None:
+                    await asyncio.to_thread(elastic.catchup.accumulate, wire_path)
+                else:
+                    await asyncio.to_thread(elastic.catchup.accumulate_tree, sent)
+            del sent
+            await asyncio.to_thread(
+                _unlink, [update_path] + ([wire_path] if wire_path != update_path else []))
+            round_num = rnd + 1
+        replay_s = time.perf_counter() - t0
+        log.warning("ps %s: recovered durable state (generation %d): resuming round %d (%d "
+                    "committed rounds replayed in %.3f s)", job_id, dur.generation, round_num,
+                    len(resume.committed), replay_s)
+        done = False
+        last_round = round_num - 1
+        if last_round >= 0:
+            notified = resume.notified.get(last_round)
+            if notified is None:
+                response = await self._notify_updated(scheduler_peer, job_id, last_round,
+                                                      execution)
+                done = response.kind == ProgressResponseKind.DONE
+                await asyncio.to_thread(dur.note_notified, last_round, done)
+            else:
+                done = bool(notified)
+        resync = work_dir / "resync.bin"
+        await asyncio.to_thread(resync.write_bytes, b"")
+        await self._broadcast(cfg, resync, round_num, elastic,
+                              extra_header={GENERATION_KEY: dur.generation, RESYNC_KEY: True})
+        for rnd, _frag, path in dur.last_wires():
+            await self._broadcast(cfg, path, rnd, elastic,
+                                  extra_header={GENERATION_KEY: dur.generation})
+        preload: dict = {}
+        accums: dict = {}
+        for rnd in dur.pending_rounds(round_num):
+            bucket = preload.setdefault(rnd, {})
+            for fold in dur.folds_for(rnd):
+                bucket[fold.peer] = (dur.deltas_dir / fold.file, fold.samples)
+            if elastic is None:
+                # The in-flight accumulator, rebuilt by the exact fold and
+                # un-fold sequence: bit-equal to the crashed process's.
+                accum = accums.setdefault(rnd, RoundAccum(device=self.device))
+                for fold, sign in dur.replay_ops(rnd):
+                    await asyncio.to_thread(accum.fold, dur.deltas_dir / fold.file,
+                                            fold.samples, sign)
+        if elastic is not None:
+            # The elastic collector folds parked entries when their round
+            # opens (last-wins per peer).
+            for rnd, bucket in preload.items():
+                elastic.early.setdefault(rnd, {}).update(bucket)
+                log.info("ps %s: round %d resumes with journaled deltas from %s", job_id, rnd,
+                         sorted(bucket))
+            preload = {}
+        return round_num, bcast_efs, preload, accums, done
+
+    @staticmethod
+    async def _ingest(dur: "DurablePS | None", round_num: int, peer: str, entry: tuple,
+                      sha: "str | None" = None) -> bool:
+        """Journal one accepted delta; False = an exact re-send, already
+        journaled: the file goes and nothing folds."""
+        if dur is None:
+            return True
+        path, samples = entry
+        if sha is None:
+            sha = await asyncio.to_thread(_file_sha, path)
+        if dur.already_folded(round_num, 0, peer, sha):
+            await asyncio.to_thread(_unlink, [path])
+            return False
+        await asyncio.to_thread(dur.note_fold, FoldRecord(
+            round=round_num, fragment=0, peer=peer, samples=samples, sha=sha, file=path.name))
+        return True
+
+    @staticmethod
+    async def _classify_push(push, job_id: str, members, round_num: int) -> "int | None":
+        """The round a delta claims, or None when it was dropped (a
+        non-member sender, or a round already aggregated: stale)."""
+        peer = push.peer
+        if members is not None and peer not in members:
+            log.warning("ps %s: push from non-member peer %s dropped", job_id, peer)
+            await push.read_all()
+            return None
+        delta_round = round_num
+        if isinstance(push.resource, dict) and "round" in push.resource:
+            try:
+                delta_round = int(push.resource["round"])
+            except (TypeError, ValueError):
+                delta_round = round_num
+        if delta_round < round_num:
+            log.warning("ps %s: stale delta for round %d from %s dropped (now %d)", job_id,
+                        delta_round, peer, round_num)
+            await push.read_all()
+            return None
+        return delta_round
+
+    @staticmethod
+    def _refuse_prefold(push) -> None:
+        if isinstance(push.resource, dict) and push.resource.get(_PREFOLD_KEY):
+            raise NotImplementedError(
+                f"a tree-reduce partial from {push.peer} reached the parameter server; the "
+                f"tree reduce is not ported to PyTorch yet (ROADMAP.md, Queue 1: {_FT})"
+            )
 
     @staticmethod
     async def _fold(accum: RoundAccum, entry: tuple, sign: float = 1.0) -> None:
@@ -301,11 +638,20 @@ class ParameterServerExecutor(JobExecutor):
 
     async def _collect_round(
         self, consumer, job_id: str, allowed: set, num_workers: int, work_dir: Path,
-        round_num: int, accum: RoundAccum,
+        round_num: int, accum: RoundAccum, dur: "DurablePS | None" = None,
+        preloaded: "dict | None" = None, preloaded_folded: bool = False,
     ) -> dict:
         """Gather one pseudo-gradient per worker: peer -> (path, samples),
-        each folded into ``accum`` as it lands."""
-        received: dict = {}
+        each folded into ``accum`` as it lands. ``preloaded`` seeds the
+        round with a recovered server's journaled folds (already in
+        ``accum`` when ``preloaded_folded``). A durable round journals each
+        delta (saved under the checkpoint root, uniquely named), drops an
+        exact re-send, and drops a delta of a round already committed."""
+        received: dict = dict(preloaded or {})
+        if not preloaded_folded:
+            for entry in received.values():
+                await self._fold(accum, entry)
+        dest_dir = dur.deltas_dir if dur is not None else work_dir
         while len(received) < num_workers:
             push = await consumer.next()
             peer = push.peer
@@ -313,13 +659,13 @@ class ParameterServerExecutor(JobExecutor):
                 log.warning("ps %s: push from disallowed peer %s", job_id, peer)
                 await push.read_all()
                 continue
+            if dur is not None and await self._classify_push(push, job_id, None,
+                                                             round_num) is None:
+                continue
             if isinstance(push.resource, dict) and push.resource.get(_PREFOLD_KEY):
                 await push.read_all()
-                raise NotImplementedError(
-                    f"a tree-reduce partial from {peer} reached the parameter server; the "
-                    f"tree reduce is not ported to PyTorch yet (ROADMAP.md, Queue 1: {_FT})"
-                )
-            if peer in received:
+                self._refuse_prefold(push)
+            if dur is None and peer in received:
                 # A re-send replaces the previous delta instead of
                 # mis-counting the round. It lands on the same path, so the
                 # old one is un-folded (from its bytes) before the save.
@@ -327,19 +673,154 @@ class ParameterServerExecutor(JobExecutor):
                 old = received.pop(peer)
                 await self._fold(accum, old, sign=-1.0)
                 await asyncio.to_thread(_unlink, [old[0]])
-            entry = await self._save_delta(push, work_dir, round_num)
+            hasher = hashlib.sha256() if dur is not None else None
+            entry = await self._save_delta(
+                push, dest_dir, round_num,
+                suffix=f"-{uuid.uuid4().hex[:8]}" if dur is not None else "", hasher=hasher)
+            if not await self._ingest(dur, round_num, peer, entry,
+                                      hasher.hexdigest() if hasher is not None else None):
+                log.info("ps %s: duplicate re-send from %s (journaled); dropped", job_id, peer)
+                continue
+            if peer in received:
+                # Durable: un-fold the superseded entry after the save; its
+                # file stays for a replay until a checkpoint covers it.
+                log.warning("ps %s: duplicate delta from %s; replacing", job_id, peer)
+                await self._fold(accum, received.pop(peer), sign=-1.0)
             received[peer] = entry
             await self._fold(accum, entry)
             log.info("ps %s: round %d delta %d/%d (from %s)",
                      job_id, round_num, len(received), num_workers, peer)
         return received
 
+    async def _collect_round_elastic(self, consumer, job_id: str, st: _ElasticState, cfg,
+                                     work_dir: Path, round_num: int, accum: RoundAccum,
+                                     dur: "DurablePS | None" = None) -> dict:
+        """Quorum + deadline gather: peer -> (path, samples). The round
+        closes, with at least a quorum, once every live active worker
+        reported or ``round_deadline_s`` passed since it opened. A stale
+        delta is dropped, a later round's is parked for it, a joined peer's
+        catch-up is served from the wait; a delta still draining when the
+        quorate round's deadline passes is abandoned."""
+        received: dict = dict(st.early.pop(round_num, {}))
+        for entry in received.values():
+            # Parked arrivals were never folded: their round had not opened.
+            await self._fold(accum, entry)
+        dest_dir = dur.deltas_dir if dur is not None else work_dir
+        loop = asyncio.get_running_loop()
+        t_open = loop.time()
+
+        def deadline_at() -> "float | None":
+            return t_open + st.round_deadline_s if st.round_deadline_s > 0 else None
+
+        deadline_logged = False
+        while True:
+            # A rejoiner announced mid-round contributes to THIS round.
+            await self._serve_joins(st, cfg, round_num, work_dir)
+            deadline = deadline_at()
+            covered = set(received)
+            expected = st.membership.expected() | covered
+            quorate = len(covered) >= st.quorum()
+            if received and quorate and covered >= expected:
+                break
+            now = loop.time()
+            if deadline is not None and now >= deadline:
+                if quorate:
+                    break
+                if not deadline_logged:
+                    deadline_logged = True
+                    log.warning("ps %s: round %d deadline passed with %d/%d deltas; waiting for "
+                                "quorum", job_id, round_num, len(received), st.quorum())
+            timeout = _ELASTIC_TICK_S
+            if deadline is not None and now < deadline:
+                timeout = min(timeout, max(deadline - now, 0.05))
+            try:
+                push = await consumer.next(timeout=timeout)
+            except asyncio.TimeoutError:
+                continue
+            peer = push.peer
+            delta_round = await self._classify_push(push, job_id, st.membership.active, round_num)
+            if delta_round is None:
+                continue
+            if isinstance(push.resource, dict) and push.resource.get(_PREFOLD_KEY):
+                await push.read_all()
+                self._refuse_prefold(push)
+            hasher = hashlib.sha256() if dur is not None else None
+            # The drain bound applies only once the round is quorate: a
+            # quorum-required delta drains however slow its link.
+            drain_deadline = deadline_at() if len(received) >= st.quorum() else None
+            entry = await self._save_delta_bounded(
+                push, dest_dir, delta_round, suffix=f"-{uuid.uuid4().hex[:8]}", hasher=hasher,
+                deadline=drain_deadline, job_id=job_id)
+            if entry is None:
+                continue
+            if not await self._ingest(dur, delta_round, peer, entry,
+                                      hasher.hexdigest() if hasher is not None else None):
+                log.info("ps %s: duplicate re-send from %s (journaled); dropped", job_id, peer)
+                continue
+            if delta_round > round_num:
+                # Early: a fast worker already merged this round's broadcast
+                # and shipped the next delta; credit it forward.
+                bucket = st.early.setdefault(delta_round, {})
+                old = bucket.pop(peer, None)
+                if old is not None and dur is None:
+                    await asyncio.to_thread(_unlink, [old[0]])
+                bucket[peer] = entry
+                log.info("ps %s: round %d delta from %s parked (now %d)", job_id, delta_round,
+                         peer, round_num)
+                continue
+            old = received.pop(peer, None)
+            if old is not None:
+                # Retired only after its replacement fully landed; a durable
+                # file stays for a replay until a checkpoint covers it.
+                log.warning("ps %s: duplicate delta from %s; replacing", job_id, peer)
+                await self._fold(accum, old, sign=-1.0)
+                if dur is None:
+                    await asyncio.to_thread(_unlink, [old[0]])
+            received[peer] = entry
+            await self._fold(accum, entry)
+            log.info("ps %s: round %d delta %d (quorum %d, active %d) from %s", job_id, round_num,
+                     len(received), st.quorum(), len(st.membership.active), peer)
+        covered = set(received)
+        full = max(cfg.num_workers, len(st.membership.active))
+        if len(covered) < full:
+            log.warning("ps %s: round %d DEGRADED — aggregating %d of %d (departed %s)", job_id,
+                        round_num, len(received), full, sorted(st.membership.departed))
+        # Quorum drops: live active workers whose delta missed the close.
+        dropped = st.membership.expected() - covered
+        if dropped:
+            log.warning("ps %s: round %d quorum drop: %s", job_id, round_num, sorted(dropped))
+        return received
+
+    async def _save_delta_bounded(self, push, dest_dir: Path, delta_round: int, *, suffix: str,
+                                  hasher, deadline: "float | None",
+                                  job_id: str = "") -> "tuple | None":
+        """:meth:`_save_delta` with the drain bounded by the round deadline
+        (plus ``_DRAIN_SLACK_S``); None when abandoned (the sender's retry
+        re-ships it, and the stale guard disposes of the copy)."""
+        save = self._save_delta(push, dest_dir, delta_round, suffix=suffix, hasher=hasher)
+        if deadline is None:
+            return await save
+        budget = max(deadline - asyncio.get_running_loop().time(), 0.0) + _DRAIN_SLACK_S
+        try:
+            return await asyncio.wait_for(save, timeout=budget)
+        except asyncio.TimeoutError:
+            log.warning("ps %s: delta drain from %s for round %d abandoned after %.1fs "
+                        "(deadline passed mid-transfer)", job_id, push.peer, delta_round, budget)
+            push.finish()
+            name = hashlib.sha256(push.peer.encode()).hexdigest()[:24]
+            await asyncio.to_thread(
+                _unlink, [dest_dir / f"delta-{delta_round}-{name}{suffix}.safetensors"])
+            return None
+
     @staticmethod
-    async def _save_delta(push, work_dir: Path, round_num: int, suffix: str = "") -> tuple:
-        """Save one pseudo-gradient push; returns (path, sample weight)."""
+    async def _save_delta(push, work_dir: Path, round_num: int, suffix: str = "",
+                          hasher=None) -> tuple:
+        """Save one pseudo-gradient push; returns (path, sample weight).
+        ``hasher`` takes the payload's bytes as they stream to disk (the
+        durable journal's sha, without a second read)."""
         name = hashlib.sha256(push.peer.encode()).hexdigest()[:24]
         dest = work_dir / f"delta-{round_num}-{name}{suffix}.safetensors"
-        await push.save_to(dest)
+        await push.save_to(dest, hasher=hasher)
         samples = 1.0
         if isinstance(push.resource, dict):
             try:
@@ -350,21 +831,72 @@ class ParameterServerExecutor(JobExecutor):
                 samples = 1.0
         return dest, samples
 
+    async def _serve_joins(self, st: _ElasticState, cfg, round_num: int, work_dir: Path) -> None:
+        """Push the cumulative-update catch-up to newly joined peers: Σ,
+        the next round and the membership epoch (and the generation of a
+        durable server)."""
+        pending = [p for p, n in st.pending_joins.items() if n > 0]
+        if not pending:
+            return
+        path = await asyncio.to_thread(st.catchup.write, work_dir / "catchup.safetensors")
+        for peer in pending:
+            header = {
+                "resource": cfg.results.ref.resource or "results",
+                "name": f"catchup-{round_num}.safetensors",
+                "round": round_num,
+                "epoch": st.membership.epoch,
+                CATCHUP_KEY: True,
+            }
+            if st.dur is not None:
+                header[GENERATION_KEY] = st.dur.generation
+            t0 = time.perf_counter()
+            try:
+                # A couple of backed-off tries a tick: a rejoiner's node may
+                # still be binding its listener when the join lands.
+                await aio.retry(
+                    lambda p=peer: self.node.push(p, header, path),
+                    attempts=2, base_delay=0.2, attempt_timeout=push_timeout(path, base=30.0),
+                    retry_on=(RequestError, OSError), what=f"catch-up to {peer}", logger=log,
+                )
+            except (RequestError, OSError, asyncio.TimeoutError) as e:
+                st.pending_joins[peer] -= 1
+                if st.pending_joins[peer] <= 0:
+                    log.error("ps: catch-up to %s failed for good: %s", peer, e)
+                    del st.pending_joins[peer]
+                continue
+            del st.pending_joins[peer]
+            log.info("ps: served catch-up (%d rounds, next %d) to rejoiner %s: %d bytes in %.3f s",
+                     st.catchup.rounds, round_num, peer, path.stat().st_size,
+                     time.perf_counter() - t0)
+
     def _encode_broadcast(self, update_path: Path, codec: str, ef, work_dir: Path,
-                          round_num: int, tag: "dict | None" = None) -> Path:
+                          round_num: int, tag: "dict | None" = None) -> tuple:
         """Re-encode the f32 update for the wire per the job's codec, on the
         device (counterpart of the reference's ``_encode_broadcast``): "none"
         broadcasts the update file itself; bf16 casts it; int8/int4 write an
-        HQD1 frame of Q(update + residual), stamped with ``tag``."""
+        HQD1 frame of Q(update + residual), stamped with ``tag``. Returns
+        the wire path and the update as the workers will decode it (None
+        for "none"), which the rejoin Σ accumulates."""
         if codec == "none":
-            return update_path
+            return update_path, None
         wire = work_dir / f"update-{round_num}.wire.safetensors"
         # In name order: the reference re-reads its f32 update through the
         # safetensors library, which orders tensors by name within a dtype,
         # so the frames are byte-identical.
         update = {k: v.to(self.device) for k, v in sorted(load_file(update_path).items())}
-        compress.write_delta(wire, update, codec, ef=ef, tag=tag)
-        return wire
+        sent = compress.write_delta(wire, update, codec, ef=ef, tag=tag)
+        return wire, sent
+
+    @staticmethod
+    def _checkpoint_momentum(momentum_file: Path, ckpt_dir: Path) -> None:
+        """Copy the momentum file into the checkpoint dir (beside, then
+        renamed): the outer state a full job restart warm-starts from."""
+        if not momentum_file.is_file():
+            return
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
+        tmp = ckpt_dir / ".momentum.tmp"
+        shutil.copyfile(momentum_file, tmp)
+        os.replace(tmp, ckpt_dir / "momentum.safetensors")
 
     @staticmethod
     def _frame_tag_matches(path: Path, tag: FragmentTag) -> bool:
@@ -384,7 +916,8 @@ class ParameterServerExecutor(JobExecutor):
                              lr: float, mu: float, codec: str, fragments: int) -> None:
         """The pipelined round loop of ``sync_mode`` overlap and stream
         (counterpart of the reference's ``_stream_rounds``, single shard,
-        not elastic, not durable). Round ``r`` closes fragment ``r mod F``
+        not elastic, not durable: ``_unported`` refuses those with a
+        streaming sync mode). Round ``r`` closes fragment ``r mod F``
         when every worker's delta for it is in; its update is encoded with
         that fragment's broadcast residual, the scheduler hears ``UPDATED``,
         and the fan-out starts in the background while the next round
@@ -414,9 +947,10 @@ class ParameterServerExecutor(JobExecutor):
                 if frag not in bcast_efs:
                     bcast_efs[frag] = (compress.ErrorFeedback()
                                        if codec in compress.QUANT_CODECS else None)
-                wire_path = await asyncio.to_thread(
+                wire_path, _sent = await asyncio.to_thread(
                     self._encode_broadcast, update_path, codec, bcast_efs[frag], work_dir,
                     round_num, tag.header())
+                del _sent
                 # Notify before the fan-out (the blocking loop's race note).
                 response = await self._notify_updated(
                     scheduler_peer, job_id, round_num, execution)
@@ -511,22 +1045,27 @@ class ParameterServerExecutor(JobExecutor):
         if after is not None:
             await aio.wait_quiet(after)
         try:
-            await self._broadcast(cfg, wire_path, tag.round, extra_header=tag.header())
+            await self._broadcast(cfg, wire_path, tag.round, None, extra_header=tag.header())
         finally:
             await asyncio.to_thread(
                 _unlink, [path for path, _ in received.values()] + [update_path, wire_path])
 
-    async def _broadcast(self, cfg, update_path: Path, round_num: int,
+    async def _broadcast(self, cfg, update_path: Path, round_num: int, elastic=None,
                          extra_header: "dict | None" = None) -> None:
         """Push the update's wire file to every results peer in parallel, at
         most ``_BROADCAST_CONCURRENCY`` streams at once. A peer's failure is
         tolerated (it catches up next round); ``TransferStrategy.ANY``
-        stops at the first push that lands. ``extra_header`` (a stream
-        round's ``FragmentTag``) joins the push header."""
+        stops at the first push that lands. An elastic round goes to the
+        membership's active set, with its epoch in the header.
+        ``extra_header`` (a stream round's ``FragmentTag``, a durable
+        server's generation) joins the push header."""
         peers = cfg.results.ref.peers or []
         strategy = cfg.results.ref.strategy or TransferStrategy.ALL
         header = {"resource": cfg.results.ref.resource or "results",
                   "name": update_path.name, "round": round_num, **(extra_header or {})}
+        if elastic is not None:
+            peers = list(elastic.membership.active)
+            header["epoch"] = elastic.membership.epoch
         if not peers:
             return
         sem = asyncio.Semaphore(_BROADCAST_CONCURRENCY)

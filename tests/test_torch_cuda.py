@@ -1120,3 +1120,120 @@ def test_mtls_and_signed_gossip_on_the_card_machine(cuda, tmp_path):
         return HealthResponse(healthy=True)
 
     print(asyncio.run(asyncio.wait_for(main(), 60)))
+
+
+def test_checkpoint_from_the_card_resumes_bit_equal(cuda, tmp_path):
+    """A tiny Llama trained on the card through the flash kernels: 3 steps,
+    a checkpoint of params and optimizer state from the card's tensors, 3
+    more steps; a fresh model restored from that checkpoint and given the
+    same 3 batches ends bit-equal to the uninterrupted one."""
+    from hypha_tpu_torch import messages as m
+    from hypha_tpu_torch.executor import checkpoint as ckpt
+    from hypha_tpu_torch.executor.train import build_optimizer, make_train_step
+    from hypha_tpu_torch.models.registry import build_model
+    from hypha_tpu_torch.ops.flash_attention import flash_attention
+
+    spec = {"family": "llama", "preset": "tiny", "config": TINY_CONFIG}
+    g = torch.Generator().manual_seed(9)
+    batches = [{"input_ids": torch.randint(0, 256, (2, 64), generator=g).to(cuda)}
+               for _ in range(6)]
+
+    def trainer(seed):
+        model, _ = build_model(spec, device=cuda, attn_impl=flash_attention)
+        model.init_weights(seed)
+        opt = build_optimizer(list(model.parameters()), m.Adam(lr=3e-3, weight_decay=0.01))
+        return model, opt, make_train_step(model, opt)
+
+    model, opt, step = trainer(0)
+    for b in batches[:3]:
+        step(b)
+    ckpt.save_train_checkpoint(tmp_path, *ckpt.train_state(model, opt), opt.count, 1)
+    for b in batches[3:]:
+        step(b)
+    fresh, fresh_opt, fresh_step = trainer(1)
+    params, opt_state, step_n, rnd, _ = ckpt.load_train_checkpoint(
+        tmp_path, *ckpt.train_state(fresh, fresh_opt))
+    ckpt.restore_train_state(fresh, fresh_opt, params, opt_state)
+    assert (step_n, rnd, fresh_opt.count) == (3, 1, 3)
+    for b in batches[3:]:
+        fresh_step(b)
+    for (name, a), b in zip(model.state_dict().items(), fresh.state_dict().values()):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+    assert all(torch.equal(a, b) for a, b in zip(opt.mu + opt.nu, fresh_opt.mu + fresh_opt.nu))
+
+
+def test_outer_step_replayed_from_the_journal_gives_the_stored_wire(cuda, tmp_path, monkeypatch):
+    """The port's durable parameter server on the card (int8 broadcasts,
+    a checkpoint every 2 rounds) killed in round 1 and restarted on its
+    journal: it re-runs round 0's outer step and encode from the journaled
+    folds, and the wire it stores equals the one the first run stored, byte
+    for byte; the job then completes."""
+    import asyncio
+    import hashlib
+
+    from hypha_tpu_torch import messages as m
+    from hypha_tpu_torch.ft import durable
+    from hypha_tpu_torch.network import MemoryTransport, Node
+    from hypha_tpu_torch.worker.ps_executor import ParameterServerExecutor
+
+    stored = []
+    real = durable.DurablePS.store_wire
+
+    def hashed(self, round_num, wire_src):
+        stored.append((self.generation, round_num,
+                       hashlib.sha256(wire_src.read_bytes()).hexdigest()))
+        return real(self, round_num, wire_src)
+
+    monkeypatch.setattr(durable.DurablePS, "store_wire", hashed)
+    workers, samples = ("w0", "w1", "w2"), (300.0, 101.0, 7.0)
+    files = {r: _delta_files(tmp_path, r) for r in range(2)}
+
+    async def main():
+        hub = MemoryTransport()
+        nodes = {p: Node(hub.shared(), peer_id=p) for p in ("ps", "sched", *workers)}
+        for n in nodes.values():
+            await n.start()
+        for x in nodes.values():
+            for y in nodes.values():
+                if x is not y:
+                    x.add_peer_addr(y.peer_id, y.listen_addrs[0])
+
+        async def on_progress(peer, p):
+            return m.ProgressResponse(kind=m.ProgressResponseKind.DONE if p.round
+                                      else m.ProgressResponseKind.OK)
+
+        nodes["sched"].on(m.PROTOCOL_PROGRESS, m.Progress).respond_with(on_progress)
+        spec = m.JobSpec(job_id="agg", executor=m.Executor(
+            kind="aggregate", name="parameter-server", aggregate=m.AggregateExecutorConfig(
+                updates=m.Receive(m.Reference.from_peers(list(workers), "updates")),
+                results=m.Send(m.Reference.from_peers(["w0"], "results")),
+                optimizer=m.Nesterov(lr=0.7, momentum=0.9), delta_codec="int8",
+                checkpoint_dir=str(tmp_path / "ckpt"), ps_checkpoint_every_rounds=2)))
+        results = nodes["w0"].consume_pushes(lambda push: push.resource["resource"] == "results")
+        execution = await ParameterServerExecutor(nodes["ps"], tmp_path / "a", device=cuda).execute(
+            "agg", spec, "sched")
+        for r in range(2):
+            for w, path, n in zip(workers, files[r], samples):
+                await nodes[w].push("ps", {"resource": "updates", "name": path.name, "round": r,
+                                           "num_samples": n}, path)
+                if r == 1 and w == "w0":  # kill the server with one round-1 delta journaled
+                    await asyncio.sleep(0.5)
+                    await execution.cancel()
+                    execution = await ParameterServerExecutor(
+                        nodes["ps"], tmp_path / "b", device=cuda).execute("agg", spec, "sched")
+            while True:  # the round's update (skipping the resync and the re-broadcast)
+                push = await results.next(timeout=60)
+                await push.read_all()
+                meta = push.resource
+                if not meta.get("ps_resync") and meta["round"] == r and \
+                        meta.get("ps_generation") == (1 if r == 0 else 2):
+                    break
+        status = await asyncio.wait_for(execution.wait(), 60)
+        for n in nodes.values():
+            await n.stop()
+        return status
+
+    status = asyncio.run(main())
+    assert status.state == "completed", status
+    round0 = [(g, h) for g, r, h in stored if r == 0]
+    assert [g for g, _ in round0] == [1, 2] and round0[0][1] == round0[1][1], stored

@@ -45,7 +45,10 @@ def _port_files():
                  "hypha_tpu_torch/ft/detector.py", "hypha_tpu_torch/executor/block_cache.py",
                  "hypha_tpu_torch/ed25519.py", "hypha_tpu_torch/der.py",
                  "hypha_tpu_torch/certs.py", "hypha_tpu_torch/certutil.py",
-                 "hypha_tpu_torch/network/secure.py", "hypha_tpu_torch/network/mux.py"):
+                 "hypha_tpu_torch/network/secure.py", "hypha_tpu_torch/network/mux.py",
+                 "hypha_tpu_torch/ft/membership.py", "hypha_tpu_torch/ft/rejoin.py",
+                 "hypha_tpu_torch/ft/durable.py", "hypha_tpu_torch/ft/chaos.py",
+                 "hypha_tpu_torch/executor/checkpoint.py"):
         assert must in rel, must
     return files
 
@@ -72,12 +75,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 def test_refusals_name_the_current_roadmap_label():
     """Codecs and streaming, the serving router, the prefix cache, the
-    fleet cache with KV migration, mTLS, mux and the process executor's
-    command are ported: no module refuses an option under a label that
-    named them."""
+    fleet cache with KV migration, mTLS, mux, the process executor's
+    command and checkpoint resume are ported: no module refuses an option
+    under a label that named them."""
     retired = ("codecs/streaming", "serving router", "prefix cache with copy_blocks",
                "fleet cache and kv migration", "queue 1: mtls", "queue 1: network/mux.py",
-               "queue 1: process executor command")
+               "queue 1: process executor command", "queue 1: checkpoint resume")
     stale = [f"{p.relative_to(ROOT)}:{i}" for p in _port_files()
              for i, line in enumerate(p.read_text().splitlines(), 1)
              if any(label in line.lower() for label in retired)]

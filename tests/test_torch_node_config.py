@@ -237,8 +237,11 @@ UNPORTED = {
     "spec layers": ("scheduler", {**SERVE, "job.serve_spec_layers": 1}, "speculative decoding"),
     "fixed-slot pool": ("scheduler", {**SERVE, "job.serve_block_size": 0},
                         "fixed-slot pool mode"),
-    "quorum": ("scheduler", {"job.quorum_fraction": 0.5}, "sharded PS/FT/rejoin"),
-    "checkpoint": ("scheduler", {"job.checkpoint_dir": "/tmp/ck"}, "checkpoint resume"),
+    # Both run on blocking jobs; with stream sync they raise.
+    "quorum": ("scheduler", {"job.quorum_fraction": 0.5, "job.sync_mode": "stream"},
+               "sharded PS/FT/rejoin"),
+    "checkpoint": ("scheduler", {"job.checkpoint_dir": "/tmp/ck", "job.sync_mode": "stream"},
+                   "sharded PS/FT/rejoin"),
     "input pipeline": ("scheduler", {"job.input_pipeline": True}, "input_pipeline"),
     "sharding": ("scheduler", {"job.sharding": {"tp": 2}}, "intra-replica sharding"),
 }

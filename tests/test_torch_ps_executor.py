@@ -146,8 +146,11 @@ def test_broadcast_updates_are_bit_equal(tmp_path, monkeypatch, resend, codec):
                               port_got[("w0", 1)]["params/norm/weight"])
 
 
+# checkpoint_dir and quorum_fraction run on blocking jobs; with a streaming
+# sync mode they still raise (the case names are kept).
 @pytest.mark.parametrize("option,value,label", [
-    ("checkpoint_dir", "/ckpt", "checkpoint resume"),
+    pytest.param("checkpoint_dir", "/ckpt", "sharded PS/FT/rejoin",
+                 id="checkpoint_dir-/ckpt-checkpoint resume"),
     ("quorum_fraction", 0.5, "sharded PS/FT/rejoin"),
     ("num_ps_shards", 2, "sharded PS/FT/rejoin"),
     ("adaptive_steps", True, "sharded PS/FT/rejoin"),
@@ -159,8 +162,11 @@ def test_broadcast_updates_are_bit_equal(tmp_path, monkeypatch, resend, codec):
 ])
 def test_unported_options_raise_with_their_labels(tmp_path, option, value, label):
     ps = TPS(None, tmp_path, device="cpu")
+    over = {option: value}
+    if option in ("checkpoint_dir", "quorum_fraction"):
+        over["sync_mode"] = "stream"
     with pytest.raises(NotImplementedError, match=f"{option}.*ROADMAP.md, Queue 1: {label}"):
-        asyncio.run(ps.execute("agg", _aggregate(tmsg, **{option: value}), "sched"))
+        asyncio.run(ps.execute("agg", _aggregate(tmsg, **over), "sched"))
     assert not list(tmp_path.iterdir())  # refused before anything was made
 
 

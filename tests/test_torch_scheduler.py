@@ -630,8 +630,9 @@ def test_stream_and_codec_options_dispatch_as_the_jax_wire(option):
 # accepts, with the other fields the reference needs beside it.
 _FT_ON = SimpleNamespace(enabled=True)
 UNPORTED = {
-    "ft": ({"quorum_fraction": 0.75}, "sharded PS/FT/rejoin"),
-    "checkpoint_dir": ("/ckpt", "checkpoint resume"),
+    # ft and checkpoint_dir run on blocking jobs, not with stream.
+    "ft": (_FT_ON, "sharded PS/FT/rejoin", {"sync_mode": "stream"}),
+    "checkpoint_dir": ("/ckpt", "sharded PS/FT/rejoin", {"sync_mode": "stream"}),
     "num_ps_shards": (2, "sharded PS/FT/rejoin"),
     "reduce_group_size": (2, "sharded PS/FT/rejoin"),
     "reduce_tree_depth": (2, "sharded PS/FT/rejoin", {"reduce_group_size": 2}),

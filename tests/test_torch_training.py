@@ -152,8 +152,8 @@ def test_run_training_matches_jax(tmp_path, weights):
 @pytest.mark.parametrize("option", [
     {"sharding": {"dp": 2}},
     {"lora": {"rank": 4}},
-    {"checkpoint": {"dir": "ckpt"}},
-    {"rejoin": True},
+    {"checkpoint": {"dir": "ckpt"}, "sync_mode": "stream"},  # blocking runs both
+    {"rejoin": True, "sync_mode": "overlap"},
     {"reduce_via": "reducer"},
     {"ps_shards": "shards"},
     {"reduce_members": ["w1"]},
