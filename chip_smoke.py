@@ -187,6 +187,33 @@ Phases, each printing one JSON line:
    broadcast, the replay, each checkpoint's seconds and bytes, the
    journal's records and bytes, each trainer's and the card's peak
    memory and the free disk before and after;
+12d. train_shard — the sharded parameter service and the tree reduce
+   (``train_shard_phase``): ``run_node_job`` with two parameter-server
+   hosts ``psw0`` and ``psw1`` (the distinct-peer auction puts one shard
+   on each). Job S: 1 layer (``SHARD_S_MODEL``), three trainer processes,
+   ``SHARD_S_OPTIONS`` (stream, 4 fragments, int8, 2 shards, one reduce
+   group of 3 with ``w0`` its reducer), ``STREAM_ROUNDS`` x
+   ``STREAM_STEPS``; Job B: 2 layers, two trainers, blocking over 2
+   shards, 2 rounds of 4. Each job first checks the card's free memory
+   against ``shard_bytes_needed`` and fails with the numbers. Gates
+   (``shard_stream_problems``, ``shard_blocking_problems``): each stream
+   round's update from the shard owning its fragment, which took ``w0``'s
+   delta directly, nothing directly from ``w1`` or ``w2``, and ``w0``'s
+   cumulative partials, the last covering ``[w1, w2]``, the other shard
+   nothing that round; every broadcast stamped with its shard; each
+   trainer merging each round once; every partial the reducer encoded
+   bit-equal to the harness's own ``RoundAccum`` fold on the CPU of the
+   same files in the same order (``reducer_probes``); the card's
+   ``quantize`` byte-equal to the CPU's; in Job B each trainer pushing one
+   part to each shard a round, the parts ``shard_names``' disjoint cover,
+   each round advanced only after both shards' ``UPDATED``, both parts
+   landed and merged every round; the usual flash launches of every
+   batch, no plain call, clean exits, no leftover file. It reports per
+   shard and round the pushes, bytes, fold, ``outer_step`` and encode
+   seconds; the reducer's flushes (fold, encode and forward seconds,
+   bytes, covers) and re-flushes a round; step ms with three trainers,
+   the round boundary, flights, each trainer's peak, the servers' and
+   reducer's peak and the card's, and the phase's seconds;
 13. train_reference — a tiny Llama (head_dim 64), and the same with a
    sliding window below its sequence (Mistral's local attention), each
    trained 4 steps through the kernels and through the plain flash version
@@ -216,7 +243,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from datetime import datetime
 from pathlib import Path
 
@@ -2362,7 +2389,7 @@ def node_probes(device):
     from hypha_tpu_torch.worker.connectors import Connector
 
     rec = {"deltas": [], "fold_s": [], "outer_step_s": [], "encode_s": [], "broadcast": [],
-           "push": [], "log": [],
+           "push": [], "log": [], "fold_files": [], "outer_steps": [], "encodes": [],
            "auctions": [], "dispatch": [], "statuses": [], "slices": [], "renew_failures": [],
            "timeouts": [], "progress": []}
     PS = ps_executor.ParameterServerExecutor
@@ -2382,6 +2409,7 @@ def node_probes(device):
         frame = frame_header(path)
         rec["deltas"].append({
             "round": round_num, "from": push.peer, "s": time.perf_counter() - t0,
+            "path": str(path),
             "bytes": path.stat().st_size, "header": dict(push.resource),
             # SafeTensors: {name: (dtype, shape)}; an HQD1 frame: its codec,
             # tag and {name: shape}.
@@ -2392,7 +2420,11 @@ def node_probes(device):
                                             for t in frame["tensors"]}}})
         return path, samples
 
-    def timed(fn, key):
+    def timed(fn, key, ident=None):
+        """``fn`` timed between two synchronisations of ``device``; with
+        ``ident``, also ``rec[ident[0]]`` gets ``ident[1](args)`` and the
+        seconds (which file a fold read, which server's work dir an outer
+        step or an encode ran in)."""
         def call(*args, **kwargs):
             _sync(device)
             t0 = time.perf_counter()
@@ -2401,6 +2433,8 @@ def node_probes(device):
             finally:
                 _sync(device)
                 rec[key].append(time.perf_counter() - t0)
+                if ident is not None:
+                    rec[ident[0]].append({**ident[1](args), "s": rec[key][-1]})
         return call
 
     async def timed_broadcast(self, cfg, update_path, round_num, elastic=None, extra_header=None):
@@ -2414,7 +2448,9 @@ def node_probes(device):
         size, t0 = Path(path).stat().st_size, time.perf_counter()
         await send(self, send_, path, resource, meta)
         rec["push"].append({"round": (meta or {}).get("round"), "s": time.perf_counter() - t0,
-                            "bytes": size})
+                            "bytes": size, "from": getattr(self.node, "peer_id", None),
+                            "peers": list(send_.ref.peers or []), "resource": resource,
+                            "meta": dict(meta or {})})
 
     async def timed_request(self, spec, price, timeout, num_workers):
         t0 = time.perf_counter()
@@ -2480,7 +2516,8 @@ def node_probes(device):
         rec["progress"].append({"t": t0, "peer": peer, "kind": kind.value,
                                 "round": progress.round if own else worker_round.get(peer, 0),
                                 "batch_size": progress.batch_size, "ms": ms,
-                                "answer": resp.kind.value, "counter": resp.counter})
+                                "answer": resp.kind.value, "counter": resp.counter,
+                                "shard": progress.shard, "sched_round": self.tracker.round})
         if kind == ProgressKind.UPDATE_RECEIVED:
             worker_round[peer] = worker_round.get(peer, 0) + 1
         return resp
@@ -2494,9 +2531,13 @@ def node_probes(device):
     logger.addHandler(handler)
     logger.setLevel(logging.INFO)
     PS._save_delta = staticmethod(timed_save)
-    ps_executor.outer_step = timed(outer, "outer_step_s")
-    RoundAccum.fold = timed(fold, "fold_s")
-    PS._encode_broadcast = timed(encode, "encode_s")
+    ps_executor.outer_step = timed(outer, "outer_step_s", (
+        "outer_steps", lambda a: {"work_dir": str(a[4]), "round": a[5]}))
+    RoundAccum.fold = timed(fold, "fold_s", (
+        "fold_files", lambda a: {"path": str(a[1]), "sign": a[3] if len(a) > 3 else 1.0,
+                            "prefolded": bool(a[4]) if len(a) > 4 else False}))
+    PS._encode_broadcast = timed(encode, "encode_s", (
+        "encodes", lambda a: {"work_dir": str(a[4]), "round": a[5]}))
     PS._broadcast, Connector.send = timed_broadcast, timed_send
     GreedyWorkerAllocator.request, Task.dispatch = timed_request, classmethod(timed_dispatch)
     StatusRouter._on_status, StatusRouter.close = status_seen, close_and_keep_listening
@@ -2544,20 +2585,24 @@ def node_job(model: dict, *, rounds, steps, batch, lr, workers, **options):
 
 async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch, seq, period,
                        lr=3e-4, limit_s=CLI_LIMIT_S, workers=1, train_runtime="process",
-                       status_timeout=None, job_options=None) -> dict:
+                       status_timeout=None, job_options=None, ps_hosts=1,
+                       check_reducer=False, sample_card=False) -> dict:
     """The whole port on ``TcpTransport`` at 127.0.0.1 with ephemeral
     ports: a ``Gateway``, a ``DataNode`` serving counting-sequence slices as
     dataset ``counting``, ``workers`` ``WorkerNode``s ``w0``, ``w1``, ...
     (gpu 1 each, offered whole; by default the trainer CLI as a process of
-    its own), a ``WorkerNode`` ``psw`` (gpu 0, so never a train worker)
-    hosting the parameter server, everything on ``device``, and the port's
+    its own), ``ps_hosts`` ``WorkerNode``s (gpu 0, so never train workers:
+    ``psw``, or ``psw0``, ``psw1``, ... when there are several, so that
+    the scheduler's distinct-peer auction puts one shard on each) hosting
+    the parameter server, everything on ``device``, and the port's
     scheduler: ``Orchestrator(node).run(job)`` on a ``Node`` ``sched`` with
     the JAX CLI's defaults (a 2 s auction; the adaptive watchdog unless
     ``status_timeout`` is given), running ``node_job``. A scheduler failure (``JobFailed``, ``AllocationError``)
     propagates. After ``run`` returns it waits up to ``limit_s`` for every
     job's final status. Returns the ``JobResult`` and what ``node_probes``
-    saw. ``root`` must be short: a trainer's bridge socket lives three
-    levels below it."""
+    saw (and ``reducer_probes``, with ``check_reducer``; the card's peak
+    memory, all processes, with ``sample_card``). ``root`` must be short:
+    a trainer's bridge socket lives three levels below it."""
     from hypha_tpu_torch.data_node import DataNode
     from hypha_tpu_torch.gateway import Gateway
     from hypha_tpu_torch.network import Node, TcpTransport
@@ -2581,15 +2626,19 @@ async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch,
                            device=device, peer_id=f"w{i}", train_runtime=train_runtime,
                            offer=OfferConfig(strategy="whole"), bootstrap=boot,
                            work_root=root / f"w{i}") for i in range(workers)]
-    psw = WorkerNode(TcpTransport(), resources=Resources(cpu=8, memory=65536), device=device,
-                     peer_id="psw", bootstrap=boot, work_root=root / "ps")
+    ps_names = ["psw"] if ps_hosts == 1 else [f"psw{k}" for k in range(ps_hosts)]
+    pss = [WorkerNode(TcpTransport(), resources=Resources(cpu=8, memory=65536), device=device,
+                      peer_id=name, bootstrap=boot, work_root=root / name) for name in ps_names]
     node = Node(TcpTransport(), peer_id="sched", bootstrap=boot)
     started: list = []
     stalls: list = []
+    peak, stop_sampler = [0.0], asyncio.Event()
+    sampler = asyncio.create_task(_device_mem_sampler(peak, stop_sampler)) if sample_card else None
     watch = asyncio.create_task(watch_loop(stalls))
-    with node_probes(device) as rec:
+    with node_probes(device) as rec, (reducer_probes(rec) if check_reducer
+                                      else nullcontext()):
         try:
-            for part in (data, *trainers, psw, node):
+            for part in (data, *trainers, *pss, node):
                 await part.start(listen)
                 started.append(part)
             await node.wait_for_bootstrap()
@@ -2608,6 +2657,9 @@ async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch,
                 await asyncio.sleep(0.1)
         finally:
             watch.cancel()
+            stop_sampler.set()
+            if sampler is not None:
+                await sampler
             for part in reversed(started):
                 await part.stop()
             await gw.stop()
@@ -2621,12 +2673,15 @@ async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch,
         await asyncio.sleep(0.1)
     train = [d for d in rec["dispatch"] if d["kind"] == "train"]
     agg = [d for d in rec["dispatch"] if d["kind"] == "aggregate"]
-    jobs = {d["peer"] if d["kind"] == "train" else "aggregate":
+    jobs = {d["peer"] if d["kind"] == "train" else
+            ("aggregate" if len(agg) == 1 else f"aggregate@{d['peer']}"):
             [s["state"] for s in rec["statuses"] if s["job_id"] == d["job_id"]]
             for d in rec["dispatch"]}
     beats = [p["t"] for p in rec["progress"] if p["kind"] == "status"]
     return dict(job=job, result=result, rec=rec, finished=finished,
-                workers=[d["peer"] for d in train], ps=agg[0]["peer"] if agg else None, jobs=jobs,
+                workers=[d["peer"] for d in train], ps=agg[0]["peer"] if agg else None,
+                ps_peers=[d["peer"] for d in agg], card_peak_mib=peak[0] if sample_card else None,
+                jobs=jobs,
                 auction_to_dispatch_s=max(d["t"] for d in rec["dispatch"]) - rec["auctions"][0]["t0"],
                 first_beat_s=(min(beats) - max(d["t"] for d in train)) if beats else None,
                 loop_stall_max_s=max(stalls, default=0.0),
@@ -4015,6 +4070,394 @@ def train_ft_phase() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# train_shard: two parameter-server shards and a group reducer
+# ---------------------------------------------------------------------------
+
+# Job S: stream sync over 2 shards with one reduce group of the 3 workers
+# (w0 its reducer; G = 2 would leave a shard's ingress unchanged, since the
+# reducer also pushes its own delta directly). One layer: three trainers,
+# the stream residuals, two shards and the reducer share the card.
+SHARD_S_LAYERS, SHARD_S_WORKERS = 1, 3
+SHARD_S_MODEL = {**TRAIN_MODEL, "config": {**TRAIN_MODEL["config"], "num_layers": SHARD_S_LAYERS}}
+SHARD_S_OPTIONS = {"sync_mode": "stream", "num_fragments": 4, "delta_codec": "int8",
+                   "num_ps_shards": 2, "reduce_group_size": 3}
+# Job B: blocking sync over 2 shards, no group, 2 layers as train_ft.
+SHARD_B_LAYERS, SHARD_B_WORKERS = 2, 2
+SHARD_B_MODEL = {**TRAIN_MODEL, "config": {**TRAIN_MODEL["config"], "num_layers": SHARD_B_LAYERS}}
+SHARD_B_OPTIONS = {"num_ps_shards": 2, "delta_codec": "int8"}
+SHARD_B_ROUNDS, SHARD_B_STEPS = 2, 4
+
+
+@contextmanager
+def reducer_probes(rec: dict):
+    """The group reducers of the run (``rec["reducers"]``), and for each
+    partial a reducer encodes, its f32 sum on its device held bit for bit
+    against the harness's own ``RoundAccum`` on the CPU, which folds the
+    same files with the same weights and signs in the same order
+    (``rec["partial_checks"]``)."""
+    from hypha_tpu_torch.stream.accum import RoundAccum
+    from hypha_tpu_torch.stream.reduce import GroupReducer
+
+    rec["reducers"], rec["partial_checks"] = [], []
+    start, fold, encode = GroupReducer.start, GroupReducer._fold, GroupReducer._encode
+
+    def noted_start(self):
+        rec["reducers"].append(self)
+        return start(self)
+
+    async def mirrored_fold(self, bucket, path, samples, sign, prefolded):
+        await fold(self, bucket, path, samples, sign, prefolded)
+        if not hasattr(bucket, "harness"):
+            bucket.harness = RoundAccum(device="cpu")
+        await asyncio.to_thread(bucket.harness.fold, path, samples, sign, prefolded)
+
+    def checked_encode(self, wire, part, bucket, tag_header):
+        card, cpu = bucket.accum.partial(), bucket.harness.partial()
+        equal = set(card) == set(cpu) and all(torch.equal(card[k].cpu(), cpu[k]) for k in cpu)
+        rec["partial_checks"].append({
+            "part": part, "flush": bucket.flushed, "equal": equal,
+            "samples": [bucket.accum.total_samples, bucket.harness.total_samples],
+            "elements": sum(v.numel() for v in cpu.values())})
+        return encode(self, wire, part, bucket, tag_header)
+
+    GroupReducer.start, GroupReducer._fold, GroupReducer._encode = \
+        noted_start, mirrored_fold, checked_encode
+    try:
+        yield rec
+    finally:
+        GroupReducer.start, GroupReducer._fold, GroupReducer._encode = start, fold, encode
+
+
+def shard_report(run: dict) -> dict:
+    """Per shard and round: the pushes each server saved (direct deltas by
+    sender, partials with their covers), bytes, fold s (un-folds included),
+    ``outer_step`` s and encode s; the reducer's flushes; each trainer's
+    launches, peak, flights and blocking merges; the broadcasts."""
+    rec = run["rec"]
+    by_path = {d["path"]: d for d in rec["deltas"]}
+    shard_of_dir = {str(Path(d["path"]).parent): int(d["header"].get("shard", 0))
+                    for d in rec["deltas"]}
+    cells: dict = {}
+
+    def cell(k: int, r: int) -> dict:
+        return cells.setdefault((k, r), {"shard": k, "round": r, "pushes": 0, "bytes": 0,
+                                         "direct": [], "partials": [], "fold_s": 0.0,
+                                         "outer_step_s": None, "encode_s": None})
+
+    for d in rec["deltas"]:
+        c, h = cell(int(d["header"].get("shard", 0)), d["round"]), d["header"]
+        c["pushes"] += 1
+        c["bytes"] += d["bytes"]
+        if h.get("prefold"):
+            c["partials"].append({"from": d["from"], "covers": h.get("covers"),
+                                  "bytes": d["bytes"], "samples": h.get("num_samples")})
+        else:
+            c["direct"].append(d["from"])
+    for f in rec["fold_files"]:
+        d = by_path.get(f["path"])
+        if d is not None:
+            cell(int(d["header"].get("shard", 0)), d["round"])["fold_s"] += f["s"]
+    for key, what in (("outer_step_s", "outer_steps"), ("encode_s", "encodes")):
+        for o in rec[what]:
+            if o["work_dir"] in shard_of_dir:
+                cell(shard_of_dir[o["work_dir"]], o["round"])[key] = o["s"]
+    trainers: dict = {}
+    for peer, lines in trainer_logs(run).items():
+        text = "\n".join(lines)
+        t = trainer_log(text)
+        merges = [int(r) for r in re.findall(r"round (\d+) fragment \d+: update merged", text)]
+        landed = [(int(r), int(p), int(k)) for r, p, k in
+                  re.findall(r"round (\d+): part (\d+) update landed \(shard (\d+)\)", text)]
+        blocking = [(int(r), float(s), int(n)) for r, s, n in
+                    re.findall(r"round (\d+): update merged in ([\d.]+) s \((\d+) parts\)", text)]
+        trainers[peer] = {"launches": t["launches"], "peak_gib": t["peak_gib"],
+                          "batches": t["batches"], "flights": t["flights"],
+                          "stream_merges": merges, "parts_landed": landed,
+                          "blocking_merges": blocking}
+    reducers = [{"peer": r.node.peer_id, "members": sorted(r.members), "folds": r.folds,
+                 "unfolds": r.unfolds, "partials": r.partials, "flushes": r.flushes}
+                for r in rec.get("reducers", [])]
+    return {"per_shard_round": [cells[k] for k in sorted(cells)], "reducers": reducers,
+            "partial_checks": rec.get("partial_checks", []), "trainers": trainers,
+            "broadcasts": [{"round": b["round"], "header": b["header"], "bytes": b["bytes"],
+                            "s": b["s"]} for b in rec["broadcast"]]}
+
+
+def _shard_common_problems(run: dict, *, rounds: int, workers: int) -> list:
+    rec, result = run["rec"], run["result"]
+    problems = []
+    if not run["finished"] or any(s != ["running", "completed"] for s in run["jobs"].values()):
+        problems.append(f"job states {run['jobs']} (a trainer must exit 0 in time)")
+    if result.rounds != rounds:
+        problems.append(f"JobResult.rounds {result.rounds}, wanted {rounds}")
+    if sorted(run["workers"]) != [f"w{i}" for i in range(workers)] \
+            or sorted(run["ps_peers"]) != ["psw0", "psw1"]:
+        problems.append(f"train jobs on {run['workers']}, shards on {run['ps_peers']}: wanted "
+                        "one shard on each of psw0 and psw1")
+    for peer in run["workers"]:
+        losses = [m.get("loss") for w, _, m in result.metrics if w == peer]
+        if (len(losses) != rounds or None in losses
+                or not torch.isfinite(torch.tensor(losses, dtype=torch.float64)).all()
+                or not losses[-1] < losses[0]):
+            problems.append(f"{peer}: round losses {losses}: not finite, or the last not below "
+                            "the first")
+    if rec["renew_failures"]:
+        problems.append(f"lease renewals failed: {rec['renew_failures']}")
+    if run["leftover"]:
+        problems.append(f"files left behind: {run['leftover']}")
+    return problems
+
+
+def shard_stream_problems(run: dict, rep: dict, *, rounds: int, fragments: int) -> list:
+    """Job S's gates: each round's update from the shard owning its
+    fragment, which took ``w0``'s delta directly, nothing directly from
+    ``w1`` or ``w2``, and ``w0``'s partials, the last covering ``[w1,
+    w2]``; the other shard nothing that round; every frame an int8 frame
+    tagged as its header; every broadcast stamped with its shard; each
+    trainer merging each round once; every partial the reducer encoded
+    bit-equal to the harness's CPU fold."""
+    from hypha_tpu_torch.stream import shard_of
+
+    rec = run["rec"]
+    problems = _shard_common_problems(run, rounds=rounds, workers=SHARD_S_WORKERS)
+    owner = {r: shard_of(r % fragments, 2) for r in range(rounds)}
+    updated = [(p["round"], p["shard"]) for p in rec["progress"] if p["kind"] == "updated"]
+    if updated != [(r, owner[r]) for r in range(rounds)]:
+        problems.append(f"UPDATED (round, shard) {updated}, wanted each round once from its owner")
+    cells = {(c["shard"], c["round"]): c for c in rep["per_shard_round"]}
+    for r in range(rounds):
+        c = cells.get((owner[r], r))
+        if c is None or c["direct"] != ["w0"] or not c["partials"] \
+                or any(p["from"] != "w0" for p in c["partials"]) \
+                or c["partials"][-1]["covers"] != ["w1", "w2"] \
+                or c["pushes"] != 1 + len(c["partials"]):
+            problems.append(f"round {r} at shard {owner[r]}: {c}; wanted w0's delta directly "
+                            "and w0's partials, the last covering [w1, w2]")
+        if (1 - owner[r], r) in cells:
+            problems.append(f"round {r}: shard {1 - owner[r]} took {cells[(1 - owner[r], r)]}")
+    for d in rec["deltas"]:
+        tag = {"round": d["round"], "fragment_id": d["round"] % fragments,
+               "fragments": fragments}
+        head = {k: d["header"].get(k) for k in tag}
+        frame = d["frame"]
+        if frame is None or frame["codec"] != "int8" or frame["tag"] != tag or head != tag:
+            problems.append(f"round {d['round']} from {d['from']}: frame {frame and frame['tag']}, "
+                            f"header {head}; wanted an int8 frame tagged {tag}")
+    heads = sorted((b["header"] for b in rep["broadcasts"]), key=lambda h: h["round"])
+    if heads != [{"round": r, "fragment_id": r % fragments, "fragments": fragments,
+                  "shard": owner[r]} for r in range(rounds)]:
+        problems.append(f"broadcast headers {heads}")
+    for peer, t in rep["trainers"].items():
+        if t["stream_merges"] != list(range(rounds)):
+            problems.append(f"{peer} merged rounds {t['stream_merges']}, wanted each once")
+    red = rep["reducers"]
+    if len(red) != 1 or red[0]["peer"] != "w0" or red[0]["members"] != ["w1", "w2"]:
+        problems.append(f"reducers {[(x['peer'], x['members']) for x in red]}, wanted w0 "
+                        "folding w1 and w2")
+    # w1 and w2 reached w0: every one of their pushes went [w0, shard] and
+    # the reducer folded each (no shard saved one of theirs, above).
+    member_pushes = [p for p in rec["push"] if p["from"] in ("w1", "w2")]
+    if len(member_pushes) != 2 * rounds or any(p["peers"][0] != "w0" for p in member_pushes):
+        problems.append(f"w1/w2 pushes routed {[(p['from'], p['peers']) for p in member_pushes]}")
+    if red and red[0]["folds"] - red[0]["unfolds"] < 2 * rounds:
+        problems.append(f"the reducer folded {red[0]['folds']} (un-folded {red[0]['unfolds']}), "
+                        f"wanted w1's and w2's {2 * rounds}")
+    checks = rep["partial_checks"]
+    partials = sum(len(c["partials"]) for c in rep["per_shard_round"])
+    if not checks or not all(c["equal"] and c["samples"][0] == c["samples"][1] for c in checks) \
+            or len(checks) != partials:
+        problems.append(f"reducer partials against the harness's CPU fold: {checks} "
+                        f"({partials} partials at the shards)")
+    return problems
+
+
+def shard_blocking_problems(run: dict, rep: dict, *, rounds: int, expect: dict) -> list:
+    """Job B's gates: each trainer pushes two parts a round, one to each
+    shard under ``updates….s0`` / ``.s1`` with ``SHARD_KEY``; the parts
+    disjoint and covering every name (``shard_names``); the scheduler
+    advancing round r only after UPDATED from both shards; each trainer
+    landing both parts and merging them every round."""
+    from hypha_tpu_torch.stream import shard_names
+
+    rec = run["rec"]
+    problems = _shard_common_problems(run, rounds=rounds, workers=SHARD_B_WORKERS)
+    sizes = {n: math.prod(s) for n, (_, s) in expect.items()}
+    want = {k: set(shard_names(sizes, 2, 2, k)) for k in (0, 1)}
+    if want[0] & want[1] or want[0] | want[1] != set(sizes):
+        problems.append("shard_names' parts overlap or miss a tensor")
+    for peer in run["workers"]:
+        for r in range(rounds):
+            mine = [p for p in rec["push"] if p["from"] == peer and p["round"] == r]
+            got = sorted((p["resource"].rsplit(".", 1)[-1], p["meta"].get("shard")) for p in mine)
+            if got != [("s0", 0), ("s1", 1)]:
+                problems.append(f"{peer} round {r} pushed {got}, wanted one part to each shard")
+    for d in rec["deltas"]:
+        k = int(d["header"].get("shard", -1))
+        names = set((d["frame"] or {}).get("tensors") or {})
+        if k not in want or names != want[k]:
+            problems.append(f"round {d['round']} from {d['from']} at shard {k}: "
+                            f"{len(names)} tensors, not part {k}")
+    cells = {(c["shard"], c["round"]): c for c in rep["per_shard_round"]}
+    for r in range(rounds):
+        for k in (0, 1):
+            c = cells.get((k, r))
+            if c is None or sorted(c["direct"]) != sorted(run["workers"]) or c["partials"]:
+                problems.append(f"round {r} at shard {k}: {c}")
+    prog = rec["progress"]
+    for r in range(rounds):
+        adv = next((i for i, p in enumerate(prog) if (p["sched_round"] or 0) > r), None)
+        seen = {p["shard"] for p in prog[:(adv + 1) if adv is not None else len(prog)]
+                if p["kind"] == "updated" and p["round"] == r}
+        if adv is None or prog[adv]["kind"] != "updated" or seen != {0, 1}:
+            problems.append(f"round {r} advanced at {adv and prog[adv]} after UPDATED from "
+                            f"shards {sorted(seen)}, wanted both")
+    for peer, t in rep["trainers"].items():
+        landed = sorted((r, p) for r, p, _ in t["parts_landed"])
+        merged = [(r, n) for r, _, n in t["blocking_merges"]]
+        if landed != [(r, p) for r in range(rounds) for p in (0, 1)] \
+                or merged != [(r, 2) for r in range(rounds)]:
+            problems.append(f"{peer} landed {landed} and merged {merged}, wanted both parts "
+                            "every round")
+    heads = sorted((b["header"] or {}).get("shard", -1) for b in rep["broadcasts"])
+    if heads != sorted([0, 1] * rounds):
+        problems.append(f"broadcast shards {heads}")
+    return problems
+
+
+def shard_launch_problems(rep: dict, layers: int) -> list:
+    """Each trainer's flash launches: every batch through the kernels."""
+    problems = []
+    for peer, t in rep["trainers"].items():
+        n = t["batches"] or 0
+        want = {"fwd": 2 * layers * n, "dq": layers * n, "dkv": layers * n,
+                "flash_plain": 0, "dense": 0}
+        if not n or t["launches"] != want:
+            problems.append(f"{peer} attention launches {t['launches']}, wanted {want} for {n} "
+                            "batches")
+    return problems
+
+
+def shard_bytes_needed(model: dict, trainers: int) -> int:
+    """The card's memory a job needs, roughly: each trainer's parameters,
+    gradients, Adam moments, anchor and a fragment snapshot in f32 (24
+    bytes a parameter) and 3 GiB of activations; the shards' sums and
+    residuals and the reducer's buckets and residuals (16 bytes)."""
+    from hypha_tpu_torch.models.registry import build_model
+
+    shapes, _ = build_model(model, device="meta")
+    n = sum(p.numel() for p in shapes.parameters())
+    return trainers * (24 * n + 3 * 2**30) + 16 * n
+
+
+def _shard_job_summary(run: dict, rep: dict, seconds: float, server_peak: float) -> dict:
+    timing = progress_timing(run)
+    step_ms = timing["step_ms"]
+    return dict(
+        jobs=run["jobs"], result_rounds=run["result"].rounds, seconds=seconds,
+        updated=[(p["round"], p["shard"]) for p in run["rec"]["progress"]
+                 if p["kind"] == "updated"],
+        losses=[(w, r, m.get("loss")) for w, r, m in run["result"].metrics],
+        step_ms=step_ms, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3) if step_ms else None,
+        round_boundary_s=timing["round_boundary_s"],
+        progress_gap_max_s=timing["progress_gap_max_s"],
+        trainer_peak_gib={p: t["peak_gib"] for p, t in rep["trainers"].items()},
+        server_and_reducer_peak_gib=server_peak,
+        card_peak_gib=(run["card_peak_mib"] or 0) / 1024,
+        attention_launches={p: t["launches"] for p, t in rep["trainers"].items()},
+        per_shard_round=rep["per_shard_round"], broadcasts=rep["broadcasts"],
+        loop_stall_max_s=run["loop_stall_max_s"], leftover_files=run["leftover"])
+
+
+def train_shard_phase() -> dict:
+    """The sharded parameter service and the tree reduce on the card.
+    Job S: ``SHARD_S_OPTIONS`` (stream, int8, 2 shards, one group of 3)
+    on three trainer processes, ``STREAM_ROUNDS`` x ``STREAM_STEPS``; Job
+    B: ``SHARD_B_OPTIONS`` (blocking, int8, 2 shards) on two, held to
+    ``shard_stream_problems`` and ``shard_blocking_problems``."""
+    from hypha_tpu_torch.executor.serialization import load_file
+    from hypha_tpu_torch.worker.ps_executor import ParameterServerExecutor as PS
+
+    t0 = time.perf_counter()
+    out: dict = {}
+    problems: list = []
+    captured: dict = {}
+    encode = PS._encode_broadcast
+
+    def capture(self, update_path, codec, ef, work_dir, round_num, tag=None):
+        if round_num == 0 and not captured:  # a shard's f32 update, for the quantize check
+            captured.update(load_file(update_path))
+        return encode(self, update_path, codec, ef, work_dir, round_num, tag)
+
+    for job, model, workers, rounds, steps, options in (
+            ("S", SHARD_S_MODEL, SHARD_S_WORKERS, STREAM_ROUNDS, STREAM_STEPS, SHARD_S_OPTIONS),
+            ("B", SHARD_B_MODEL, SHARD_B_WORKERS, SHARD_B_ROUNDS, SHARD_B_STEPS,
+             SHARD_B_OPTIONS)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info()[0]
+        need = shard_bytes_needed(model, workers)
+        if free < need:
+            raise SystemExit(f"train_shard phase failed: job {job} needs about "
+                             f"{need / 2**30:.1f} GiB of the card for {workers} trainers, two "
+                             f"shards and the reducer; {free / 2**30:.1f} GiB are free")
+        root = Path(tempfile.mkdtemp(prefix=f"hsh{job}"))
+        torch.cuda.reset_peak_memory_stats()
+        PS._encode_broadcast = capture
+        t_job = time.perf_counter()
+        try:
+            run = asyncio.run(run_node_job(
+                root, model, device="cuda", rounds=rounds, steps=steps, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, period=TRAIN_PERIOD, workers=workers, ps_hosts=2,
+                status_timeout=NODE_STATUS_TIMEOUT_S, job_options=options,
+                check_reducer=job == "S", sample_card=True))
+        finally:
+            PS._encode_broadcast = encode
+            shutil.rmtree(root, ignore_errors=True)
+        seconds = time.perf_counter() - t_job
+        rep = shard_report(run)
+        layers = model["config"]["num_layers"]
+        if job == "S":
+            found = shard_stream_problems(run, rep, rounds=rounds,
+                                          fragments=options["num_fragments"])
+        else:
+            found = shard_blocking_problems(run, rep, rounds=rounds, expect=flat_f32_spec(model))
+        found += shard_launch_problems(rep, layers)
+        summary = _shard_job_summary(run, rep, seconds,
+                                     torch.cuda.max_memory_allocated() / 2**30)
+        summary.update(model="llama2-7b", layers=layers, workers=workers, rounds=rounds,
+                       steps_a_round=steps, options=options, need_gib=need / 2**30,
+                       free_gib=free / 2**30)
+        if job == "S":
+            red = rep["reducers"][0] if rep["reducers"] else {}
+            flushes = red.get("flushes", [])
+            per_round = collections.Counter(f["round"] for f in flushes)
+            summary.update(
+                reducer={k: red.get(k) for k in ("peer", "members", "folds", "unfolds",
+                                                 "partials")},
+                reducer_flushes=[{k: f[k] for k in ("round", "part", "flush", "covers", "bytes",
+                                                    "fold_s", "encode_s", "push_s")}
+                                 for f in flushes],
+                reflushes={r: per_round[r] - 1 for r in range(rounds)},
+                partial_checks=rep["partial_checks"],
+                flights={p: t["flights"] for p, t in rep["trainers"].items()},
+                quantize_check=quantize_check(captured))
+            captured.clear()
+            if summary["quantize_check"]["mismatched"] or not summary["quantize_check"]["tensors"]:
+                found.append(f"the card's quantize differs from the CPU's: "
+                             f"{summary['quantize_check']}")
+        out[f"job_{job}"] = summary
+        if found:
+            problems += [f"job {job}: {p}" for p in found]
+            emit({"phase": "train_shard", "job": job, **summary, "problems": found,
+                  "trainer_logs": {k: v[-40:] for k, v in trainer_logs(run).items()}})
+            break
+    res = {**out, "seconds": time.perf_counter() - t0}
+    if problems:
+        raise SystemExit("train_shard phase failed: " + "; ".join(problems))
+    return res
+
+
 class _PlainFlash(torch.autograd.Function):
     """The plain flash versions under autograd: the kernels' reference."""
 
@@ -4138,6 +4581,8 @@ def main() -> int:
     emit({"phase": "train_secure", **train_secure_phase(stream)})
     ft = train_ft_phase()
     emit({"phase": "train_ft", **ft})
+    shard = train_shard_phase()
+    emit({"phase": "train_shard", **shard})
     emit({"phase": "train_reference", **train_reference_phase()})
 
     dec, pre = kern["timing"]["decode_bf16"], kern["timing"]["prefill64_bf16"]
@@ -4173,6 +4618,11 @@ def main() -> int:
             # The fault-tolerant job's trainers, each counted by its process.
             "train_ft_launches": {peer: (t_["launches"] or {}).get(key)
                                   for peer, t_ in ft["trainers"].items()},
+            # The sharded jobs' trainers, each counted by its process.
+            "train_shard_launches": {
+                job: {peer: (launches or {}).get(key)
+                      for peer, launches in shard[job]["attention_launches"].items()}
+                for job in ("job_S", "job_B")},
         })
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -37,6 +37,19 @@ encoded and shipped by a flight thread while the inner steps go on, and
 the landed update is merged with the delayed-update correction between
 two steps.
 
+The sharded parameter service and the tree reduce (the reference's
+``:266-270``, ``:399-403``, ``:439``, ``:1081-1088``, ``:1445-1590``): with
+a ``ps_shards`` placement every part's delta goes to its owning shard under
+that shard's updates tag (``worker.connectors.shard_route``), behind the
+group's reducer (``reduce_via``) with ANY failover, stamped with the
+shard's index when there are several. Blocking rounds split Δθ into the
+placement's parts (``partition_names`` over the wire's names and sizes,
+one error-feedback residual each), push every part, wait until every
+part's update has landed and merge them together; stream rounds route each
+fragment to its owner. Parameter-server generations are tracked per shard
+(``SHARD_KEY`` of the broadcast), so a restart re-sends only that shard's
+parts.
+
 Fault tolerance of blocking jobs (the reference's ``:804-826``,
 ``:1123-1205``, ``:1327-1350``, ``:1411-1431``): a ``checkpoint`` dict
 (``{"dir", "every_rounds"}``) restores params and optimizer state from the
@@ -74,6 +87,7 @@ from ..ft.rejoin import CATCHUP_KEY, await_catchup
 from ..hw import default_device
 from ..messages import (
     CODEC_KEY,
+    SHARD_KEY,
     FragmentTag,
     JobSpec,
     Loss,
@@ -90,6 +104,8 @@ from ..models.registry import build_model
 from ..ops.attention import dot_product_attention
 from ..ops.flash_attention import flash_attention
 from ..stream import effective_fragments, fragment_due, merge_corrected, partition_names
+from ..stream.partition import shard_of
+from ..worker.connectors import shard_route
 from .bridge_client import Session
 from .checkpoint import (load_train_checkpoint, restore_train_state, save_train_checkpoint,
                          train_state)
@@ -149,15 +165,15 @@ def _unsupported(cfg: TrainExecutorConfig) -> None:
     """Raise on every option this path does not run."""
     sharding = cfg.sharding or {}
     streaming = (cfg.sync_mode or "blocking") != "blocking"
+    # A placement (several shards or a reduce group) is not durable yet.
+    placed = bool(cfg.ps_shards and cfg.ps_shards.shards)
     mesh = math.prod(int(sharding.get(a, 1)) for a in ("dp", "fsdp", "tp", "sp", "ep"))
     checks = [
         (mesh > 1, "sharding", "intra-replica sharding"),
         (bool(cfg.lora), "lora", "LoRA"),
-        (streaming and bool(cfg.checkpoint and cfg.checkpoint.get("dir")), "checkpoint", _FT),
-        (streaming and bool(cfg.rejoin), "rejoin", _FT),
-        (bool(cfg.ps_shards and cfg.ps_shards.shards), "ps_shards", _FT),
-        (bool(cfg.reduce_via), "reduce_via", _FT),
-        (bool(cfg.reduce_members), "reduce_members", _FT),
+        ((streaming or placed) and bool(cfg.checkpoint and cfg.checkpoint.get("dir")),
+         "checkpoint", _FT),
+        ((streaming or placed) and bool(cfg.rejoin), "rejoin", _FT),
         (bool(cfg.relay_results), "relay_results", _FT),
         (bool(cfg.input_pipeline), "input_pipeline", "input_pipeline"),
         (bool(cfg.preprocessor), "preprocessor", "preprocessor"),
@@ -165,12 +181,16 @@ def _unsupported(cfg: TrainExecutorConfig) -> None:
     ]
     for bad, option, item in checks:
         if bad:
-            mode = f" with sync_mode={cfg.sync_mode!r}" if option in ("checkpoint", "rejoin") \
-                else ""
+            mode = ""
+            if option in ("checkpoint", "rejoin"):
+                mode = " with ps_shards" if placed else f" with sync_mode={cfg.sync_mode!r}"
             raise NotImplementedError(
                 f"{option}={getattr(cfg, option)!r}{mode} is not ported to the PyTorch trainer "
                 f"(ROADMAP.md, Queue 1: {item})"
             )
+    if placed and cfg.sync_mode == "overlap":
+        # Overlap's one whole-tree flight has no per-part schedule to route by.
+        raise ValueError("ps_shards requires sync_mode blocking or stream")
     if torch.distributed.is_available() and torch.distributed.is_initialized() \
             and torch.distributed.get_world_size() > 1:
         raise NotImplementedError(
@@ -249,7 +269,11 @@ class _WorkerStream:
                     for _ in range(self.F)]
         self.flight: "dict | None" = None
         self.poll_wait_s = float(os.environ.get(_STREAM_POLL_WAIT_ENV, "0") or 0.0)
-        self._ps_gen: Any = None  # flight-thread confined
+        # The last parameter-server generation seen per shard (flight-thread
+        # confined); the unsharded server is shard 0.
+        self._gens: dict = {}
+        # The placement each fragment's push is routed by (None: one server).
+        self.shard_map = cfg.ps_shards if cfg.ps_shards and cfg.ps_shards.shards else None
 
     @property
     def in_flight(self) -> bool:
@@ -265,8 +289,9 @@ class _WorkerStream:
             snap = {t: self.params[t].detach().clone() for t in names}
             delta = extract_delta(snap, {t: self.anchor[t] for t in names})
         wire = state_to_flat(self.model, delta)
+        owner = shard_of(frag, len(self.shard_map.shards)) if self.shard_map is not None else 0
         flight = {
-            "round": round_num, "frag": frag, "names": names, "snap": snap,
+            "round": round_num, "frag": frag, "owner": owner, "names": names, "snap": snap,
             "path": self.work_dir / f"delta-{round_num}-f{frag}.safetensors",
             "box": {"absorbed": []}, "t0": time.perf_counter(), "steps": 0,
             "samples": float(num_samples),
@@ -296,10 +321,18 @@ class _WorkerStream:
             box["error"] = e  # thread-bridge: re-raised at finish()
 
     def _send(self, flight: dict, tag: FragmentTag) -> None:
-        self.session.send_resource(
-            self.cfg.updates, flight["path"].name,
-            resource=self.cfg.updates.ref.resource or "updates",
-            meta={"num_samples": flight["samples"], **tag.header()})
+        """Ship the flight's file: to the one server, or to the fragment's
+        owning shard (behind the group's reducer, with ANY failover)."""
+        meta = {"num_samples": flight["samples"], **tag.header()}
+        if self.shard_map is None:
+            self.session.send_resource(
+                self.cfg.updates, flight["path"].name,
+                resource=self.cfg.updates.ref.resource or "updates", meta=meta)
+            return
+        send, owner, res_tag = shard_route(self.shard_map, flight["frag"], self.cfg.reduce_via)
+        if len(self.shard_map.shards) > 1:
+            meta[SHARD_KEY] = owner
+        self.session.send_resource(send, flight["path"].name, resource=res_tag, meta=meta)
 
     def _drop(self, event: dict) -> None:
         (self.work_dir / event["path"]).unlink(missing_ok=True)
@@ -309,12 +342,16 @@ class _WorkerStream:
         fragments' later updates are kept for ``finish`` to absorb; older
         rounds are applied state and dropped; a later round of this fragment
         completes the flight (this round's broadcast was lost). A parameter
-        server restart re-sends the delta."""
+        server restart re-sends the delta (only the owning shard's)."""
         with self.session.receive(self.cfg.results) as events:
             for event in events:
                 meta = event.get("meta") or {}
-                self._ps_gen, resend = restart_signal(meta, self._ps_gen)
-                if resend and flight["path"].is_file():
+                try:
+                    shard_id = int(meta.get(SHARD_KEY, 0))
+                except (TypeError, ValueError):
+                    shard_id = 0
+                self._gens[shard_id], resend = restart_signal(meta, self._gens.get(shard_id))
+                if resend and shard_id == flight["owner"] and flight["path"].is_file():
                     log.warning("stream sync: parameter server restarted; re-sending round %d "
                                 "fragment %d", flight["round"], flight["frag"])
                     self._send(flight, FragmentTag(flight["round"], flight["frag"], self.F))
@@ -638,6 +675,125 @@ def run_training(
                      sum(f.stat().st_size for f in saved.iterdir()))
         return resp.kind == ProgressResponseKind.CONTINUE
 
+    shard_map = cfg.ps_shards if cfg.ps_shards and cfg.ps_shards.shards else None
+    # Blocking rounds against a placement: the parts' wire names (a pure
+    # function of the wire's names and sizes, as every shard and reducer
+    # derives them), one residual per part, the last generation per shard.
+    shard_ctx: dict = {"parts": None, "efs": None, "gens": {}}
+
+    def push_part(p: int, path: Path, samples: float) -> None:
+        tag = FragmentTag(round=round_num, fragment_id=p, fragments=len(shard_ctx["parts"]))
+        send, owner, res_tag = shard_route(shard_map, p, cfg.reduce_via)
+        meta = {"num_samples": samples, "round": round_num, **tag.header()}
+        if len(shard_map.shards) > 1:
+            meta[SHARD_KEY] = owner
+        session.send_resource(send, path.name, resource=res_tag, meta=meta)
+
+    def do_update_sharded() -> bool:
+        """Blocking sync against a placement: split Δθ into its parts, push
+        each to its owning shard (through the group's reducer when the job
+        reduces in a tree), wait for every part's update, merge them all,
+        re-anchor. True = next round."""
+        nonlocal round_num, round_samples
+        send_status(Progress(kind=ProgressKind.UPDATE, job_id=spec.job_id))
+        t_write = time.perf_counter()
+        with torch.no_grad():
+            wire_flat = state_to_flat(model, extract_delta(params, anchor))
+        P = int(shard_map.fragments) or len(shard_map.shards)
+        if shard_ctx["parts"] is None:
+            shard_ctx["parts"] = partition_names({n: v.numel() for n, v in wire_flat.items()}, P)
+            shard_ctx["efs"] = [compress.ErrorFeedback() if wire_codec in compress.QUANT_CODECS
+                                else None for _ in range(P)]
+        parts = shard_ctx["parts"]
+        samples = float(round_samples)
+        paths: dict = {}
+        for p, names in enumerate(parts):
+            tag = FragmentTag(round=round_num, fragment_id=p, fragments=P)
+            path = work_dir / f"delta-{round_num}-p{p}.safetensors"
+            with torch.no_grad():
+                compress.write_delta(path, {n: wire_flat[n] for n in names}, wire_codec,
+                                     ef=shard_ctx["efs"][p], tag=tag.header())
+            paths[p] = path
+        del wire_flat
+        log.info("round %d: delta written in %.3f s (%d parts: %s bytes)", round_num,
+                 time.perf_counter() - t_write, P, [paths[p].stat().st_size for p in paths])
+        for p, path in paths.items():
+            push_part(p, path, samples)
+        mean_loss = sum(round_losses) / len(round_losses) if round_losses else math.nan
+        send_status(Progress(kind=ProgressKind.METRICS, job_id=spec.job_id, round=round_num,
+                             metrics={"loss": mean_loss, "samples": samples}))
+        gens = shard_ctx["gens"]
+        got: dict = {}
+        with session.receive(cfg.results) as events:
+            while len(got) < P:
+                event = next(events, None)
+                if event is None:
+                    raise RuntimeError("results stream ended before every part's update "
+                                       "broadcast")
+                meta = event.get("meta") or {}
+                try:
+                    sid = int(meta.get(SHARD_KEY, 0))
+                except (TypeError, ValueError):
+                    sid = 0
+                gens[sid], resend = restart_signal(meta, gens.get(sid))
+                if resend:
+                    # That shard restarted: re-send its parts not yet answered.
+                    for p, path in paths.items():
+                        if p in got or not path.is_file() \
+                                or shard_of(p, len(shard_map.shards)) != sid:
+                            continue
+                        log.warning("ps shard %d restart detected; re-sending round %d part %d",
+                                    sid, round_num, p)
+                        push_part(p, path, samples)
+                try:
+                    eround = int(meta.get("round", round_num))
+                except (TypeError, ValueError):
+                    eround = round_num
+                if meta.get(RESYNC_KEY) or meta.get(CATCHUP_KEY) or eround < round_num:
+                    (work_dir / event["path"]).unlink(missing_ok=True)
+                    continue
+                _refuse_codec_hint(meta)
+                etag = FragmentTag.from_header(meta)
+                p = int(etag.fragment_id) if etag is not None else sid
+                if p in got or p not in paths:
+                    (work_dir / event["path"]).unlink(missing_ok=True)
+                    continue
+                got[p] = work_dir / event["path"]
+                log.info("round %d: part %d update landed (shard %d)", round_num, p, sid)
+        # Every part lands before any merges: disjoint tensors, one pass,
+        # then one re-anchor (blocking: no drift correction).
+        t_merge = time.perf_counter()
+        merged = 0
+        with torch.no_grad():
+            for p in sorted(got):
+                update = compress.read_delta(got[p], dev)
+                if set(update) != set(parts[p]):
+                    raise ValueError(f"part {p} placement mismatch: the update carries "
+                                     f"{len(update)} tensors, the worker expects {len(parts[p])}")
+                for name, u in flat_to_state(update).items():
+                    prm = params[name]
+                    prm.copy_(merge_update({name: prm}, {name: _fit(u, prm, name)})[name])
+                    anchor[name].copy_(prm)
+                    merged += 1
+                del update
+                got[p].unlink(missing_ok=True)
+        if merged != len(params):
+            raise KeyError(f"the parts' updates carry {merged} of {len(params)} tensors")
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        log.info("round %d: update merged in %.3f s (%d parts)", round_num,
+                 time.perf_counter() - t_merge, P)
+        log.info("round %d: anchor checksum %s", round_num + 1,
+                 theta_checksum(state_to_flat(model, params)))
+        for path in paths.values():
+            path.unlink(missing_ok=True)
+        resp = send_status(Progress(kind=ProgressKind.UPDATE_RECEIVED, job_id=spec.job_id))
+        round_num += 1
+        result.rounds = round_num
+        round_samples = 0
+        round_losses.clear()
+        return resp.kind == ProgressResponseKind.CONTINUE
+
     def begin_stream_sync() -> None:
         """Ship the due fragment's Δθ in the background and keep stepping.
         The round's samples and losses reset here: the steps taken while
@@ -702,7 +858,7 @@ def run_training(
                     countdown = None
                     if stream_state is not None:
                         begin_stream_sync()
-                    elif not do_update():
+                    elif not (do_update_sharded() if shard_map is not None else do_update()):
                         break
                 else:
                     countdown -= 1

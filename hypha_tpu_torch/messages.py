@@ -36,8 +36,8 @@ __all__ = [
     "TransferStrategy",
     "WorkerOffer", "WorkerSpec", "decode", "encode", "from_json_dict", "to_json_dict",
     "PROTOCOL_API", "PROTOCOL_GENERATE", "PROTOCOL_HEALTH", "PROTOCOL_PROGRESS",
-    "PROTOCOL_BLOCKS", "PROTOCOL_SERVE", "TOPIC_WORKER",
-    "CODEC_KEY", "TRAIN_EXECUTOR_NAME", "AGGREGATE_EXECUTOR_NAME", "INFER_EXECUTOR_NAME",
+    "PROTOCOL_BLOCKS", "PROTOCOL_SERVE", "PROTOCOL_SHARD", "TOPIC_WORKER",
+    "CODEC_KEY", "COVERS_KEY", "PREFOLD_KEY", "SHARD_KEY", "TRAIN_EXECUTOR_NAME", "AGGREGATE_EXECUTOR_NAME", "INFER_EXECUTOR_NAME",
 ]
 
 PROTOCOL_API = "/hypha-api/0.0.1"
@@ -51,6 +51,9 @@ PROTOCOL_SERVE = "/hypha-serve/0.0.1"
 # The fleet KV-block plane: prefix-chain pulls (BlockPull -> BlockChain) and
 # preempted-request migration (MigrateRequest -> MigrateAck).
 PROTOCOL_BLOCKS = "/hypha-blocks/0.0.1"
+# The sharded parameter service: delta pushes routed to the owning shard,
+# per-shard broadcasts, and the ShardMap placement inside job specs.
+PROTOCOL_SHARD = "/hypha-shard/0.0.1"
 # The gossip topic of the auction's RequestWorker ads.
 TOPIC_WORKER = "hypha/worker"
 
@@ -315,16 +318,29 @@ Receive = _newtype_ref("Receive", frozenset({"peers"}))
 @_register
 @dataclass(slots=True)
 class ShardMap:
-    """Sharded parameter service placement (carried so that a spec naming
-    one decodes; the port's trainer refuses it)."""
+    """The sharded parameter service's placement, riding inside dispatched
+    train specs: shard ``k`` is the peer ``shards[k]`` under the updates
+    tag ``tags[k]``; placement part ``f`` belongs to shard
+    ``stream.shard_of(f, len(shards))``. ``groups`` is the tree-reduce plan
+    (``stream.tree.build_reduce_groups``: ``[reducer, *members]`` each),
+    ``tree_depth`` the depth it was built with (None at depth 1).
+    ``serve_leaves`` belongs to live weight swap, which the port refuses."""
 
-    round: int = 0
+    round: int = 0  # the round the placement takes effect
     shards: list = field(default_factory=list)
     tags: list = field(default_factory=list)
-    fragments: int = 1
+    fragments: int = 1  # the placed part count
     groups: list = field(default_factory=list)
     tree_depth: int | None = None
     serve_leaves: list | None = None
+
+    def __post_init__(self) -> None:
+        if self.tags and len(self.tags) != len(self.shards):
+            raise ValueError(f"ShardMap has {len(self.shards)} shards but {len(self.tags)} tags")
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.shards)
 
 
 @_register
@@ -362,6 +378,14 @@ class FragmentTag:
 # server stamps (ft.adaptive); the port's trainer refuses a broadcast that
 # carries one (ROADMAP.md, Queue 1: sharded PS/FT/rejoin).
 CODEC_KEY = "codec"
+
+# Push-header keys of the sharded service and the tree reduce: the sending
+# or target shard's index (stamped by sharded jobs only, always beside
+# ``round``); a reducer's partial, already Σ samples·Δθ over its group,
+# which a shard folds verbatim; and the worker peers that partial covers.
+SHARD_KEY = "shard"
+PREFOLD_KEY = "prefold"
+COVERS_KEY = "covers"
 
 
 @_register

@@ -1,7 +1,7 @@
 """The DiLoCo control-plane state machine (a copy of
-``hypha_tpu/scheduler/batch_scheduler.py`` for one parameter server; a
-worker departing or joining mid-round is the tracker's ``remove_worker`` /
-``add_worker``, as in the reference).
+``hypha_tpu/scheduler/batch_scheduler.py``; a worker departing or joining
+mid-round is the tracker's ``remove_worker`` / ``add_worker``, as in the
+reference).
 
 Reference: crates/scheduler/src/scheduling/batch_scheduler.rs:42-163.
 Per-worker lifecycle (mermaid at :45-52):
@@ -10,7 +10,11 @@ Per-worker lifecycle (mermaid at :45-52):
     UPDATE_SCHEDULED --(worker sent delta: Update)--> UPDATING
     UPDATING --(worker merged broadcast: UpdateReceived)--> TRAINING | DONE
 
-The parameter server's ``Updated`` advances the round. On every worker
+The parameter server's ``Updated`` advances the round; with a sharded
+service (``shards_due``: round -> the shards that close it,
+``stream.sync.shards_due_at``) the round advances once every due shard
+reported, and a shard's ``Updated`` is answered ``Done`` after its last
+owned round. On every worker
 ``Status`` the scheduler records timing, decrements the round's sample
 counter, and runs the synchronization simulation with hard caps
 time_cap=10_000 ms / updates_cap=3 (:87-89); when the projection reaches the
@@ -19,8 +23,8 @@ many more batches to run before shipping its pseudo-gradient. The job is
 complete when every worker is DONE.
 
 Not ported, each raising ``NotImplementedError`` with its ROADMAP.md label
-when set: ``shards_due`` (the sharded parameter service) and ``adaptive``
-(straggler-adaptive inner steps), **sharded PS/FT/rejoin**;
+when set: ``adaptive`` (straggler-adaptive inner steps), **sharded
+PS/FT/rejoin**;
 ``generation`` and ``adopt_round`` (a restarted scheduler's stamped
 responses), **scheduler recovery**. The reference's control-loop timing
 reservoir, FT counters and per-round trace spans (**telemetry**) are off
@@ -76,8 +80,6 @@ class BatchScheduler:
         adaptive=None,
         generation: int | None = None,
     ) -> None:
-        if shards_due is not None:
-            raise _not_ported("shards_due (a sharded parameter service)", _STREAMING)
         if adaptive is not None:
             raise _not_ported("adaptive (straggler-adaptive inner steps)", _STREAMING)
         if generation is not None:
@@ -88,9 +90,13 @@ class BatchScheduler:
         self.time_cap_ms = time_cap_ms
         self.updates_cap = updates_cap
         self.completed = False
-        # round -> shards that have reported UPDATED for it. The single
-        # parameter server is shard 0, due every round.
+        # Which shards must report UPDATED before round r advances; None
+        # is the single parameter server (shard 0, every round).
+        self.shards_due = shards_due
+        # round -> shards that have reported UPDATED for it.
         self._updated: dict[int, set[int]] = {}
+        # shard -> the last round it owns (memo for _shard_done).
+        self._last_owned: dict[int, int] = {}
         # Round schedule plan: the first successful projection of a round
         # fixes the sync point for EVERY worker it simulated —
         # (round, membership_version, peer -> planned batch count). Later
@@ -149,11 +155,24 @@ class BatchScheduler:
         )
 
     # ------------------------------------------------------------------
+    def _due(self, round_num: int) -> set:
+        if self.shards_due is None:
+            return {0}
+        return set(self.shards_due(round_num))
+
     def _shard_done(self, shard: int, after_round: int) -> bool:
         """No owned round left for ``shard`` after ``after_round``: its
-        aggregation loop should terminate. The single parameter server
-        (shard 0) owns every round; any other shard index owns none."""
-        last = self.tracker.update_epochs - 1 if shard == 0 else -1
+        aggregation loop should terminate. A stream shard's last owned
+        round can come before the job's last round, and the scheduler
+        owns ``update_epochs``, so it decides. The shard's last owned
+        round is computed once."""
+        last = self._last_owned.get(shard)
+        if last is None:
+            last = -1
+            for r in range(self.tracker.update_epochs):
+                if shard in self._due(r):
+                    last = r
+            self._last_owned[shard] = last
         return after_round >= last
 
     def _on_updated(self, progress: Progress) -> ProgressResponse:
@@ -164,16 +183,16 @@ class BatchScheduler:
             # advance again and eat a round.
             return _DONE if self._shard_done(shard, rnd) else _OK
         self._updated.setdefault(rnd, set()).add(shard)
-        # Advance while the frontier round has its shard reported.
+        # Advance while the frontier round has every due shard reported.
         while (
             self.tracker.round < self.tracker.update_epochs
-            and self._updated.get(self.tracker.round, set()) >= {0}
+            and self._updated.get(self.tracker.round, set()) >= self._due(self.tracker.round)
         ):
             self._updated.pop(self.tracker.round, None)
             self.tracker.advance_round()
-        # DONE terminates the parameter server's aggregation loop; the
-        # workers' own DONE comes with their UpdateReceived once the global
-        # round reaches update_epochs.
+        # DONE terminates this shard's aggregation loop; the workers' own
+        # DONE comes with their UpdateReceived once the global round
+        # reaches update_epochs.
         return _DONE if self._shard_done(shard, rnd) else _OK
 
     # ------------------------------------------------------------------

@@ -1,14 +1,15 @@
 """The scheduler orchestrator: allocate → wire → dispatch → supervise (a copy
-of ``hypha_tpu/scheduler/orchestrator.py`` for the
-single-parameter-server path, with every wire codec and sync mode, and
-with elastic membership, rejoin and the parameter server's restart on
-blocking jobs).
+of ``hypha_tpu/scheduler/orchestrator.py``, with every wire codec and sync
+mode, the sharded parameter service and the tree reduce, and with elastic
+membership, rejoin and the parameter server's restart on blocking jobs
+with one parameter server).
 
 Reference call stack being reproduced (SURVEY.md §3.1,
 crates/scheduler/src/bin/hypha-scheduler.rs:54-432):
 
-  1. auction ``num_workers`` train workers + 1 parameter server
-     (GreedyWorkerAllocator over gossip);
+  1. auction ``num_workers`` train workers + ``num_ps_shards`` parameter
+     server executions, distinct peers first (GreedyWorkerAllocator over
+     gossip);
   2. accept offers by first lease renewal (WorkerHandle) and keep the
      renewal loops alive — a renewal failure is the worker-failure signal;
   3. per-worker batch size = floor(offered.gpu / required.gpu) clamped to
@@ -16,9 +17,14 @@ crates/scheduler/src/bin/hypha-scheduler.rs:54-432):
   4. resolve the dataset's data provider from the discovery records;
   5. spawn DataScheduler (slice assignment), ProgressTracker +
      BatchScheduler (the DiLoCo control plane) and the MetricsBridge;
-  6. dispatch the aggregate job to the PS and a train job per worker;
+  6. dispatch an aggregate job to each shard (``<id>-ps<k>`` under the
+     updates tag ``updates:<id>.s<k>`` when there are several) and a train
+     job per worker, carrying the ``ShardMap`` placement and, with
+     ``reduce_group_size >= 2``, each worker's tree role (``reduce_via``,
+     ``reduce_members``; ``stream.tree.build_reduce_groups``);
   7. supervise: job completes when the batch scheduler reports every
-     worker DONE.
+     worker DONE; a sharded round advances on ``UPDATED`` from every due
+     shard. A failed shard fails the attempt (no per-shard restart).
 
 Without ``job.ft``, any failure — a failed or cancelled job status, a
 lease renewal failure, no progress message within the watchdog's deadline
@@ -43,8 +49,8 @@ durable journal under ``<checkpoint_dir>/ps`` resumes the round.
 
 Not ported (the job refuses their options, ``job_config.py``): the
 adoption and resume path of a restarted scheduler (**scheduler
-recovery**); fault tolerance with overlap or stream sync, sharded and
-tree-reduced parameter services and adaptive steps (**sharded
+recovery**); fault tolerance with overlap or stream sync or with shards or
+a reduce group, the broadcast tree and adaptive steps (**sharded
 PS/FT/rejoin**).
 """
 
@@ -63,6 +69,7 @@ from ..messages import (
     PROTOCOL_PROGRESS,
     TRAIN_EXECUTOR_NAME,
     AggregateExecutorConfig,
+    ShardMap,
     DataRecord,
     Executor,
     ExecutorDescriptor,
@@ -76,6 +83,7 @@ from ..messages import (
     WorkerSpec,
 )
 from ..network.node import Node, RequestError
+from ..stream import build_reduce_groups, placement_parts, shards_due_at
 from .allocator import GreedyWorkerAllocator
 from .batch_scheduler import BatchScheduler
 from .data_scheduler import DataScheduler
@@ -128,14 +136,17 @@ class _RunContext:
         self.updates_tag = ""
         self.results_tag = ""
         self.handles: dict[str, WorkerHandle] = {}
-        # The one parameter server: its handle, job id, peer and updates
-        # tag (lists, as the reference keeps one per shard). The handle is
-        # None while the server restarts.
+        # One entry per parameter-server shard: its handle (None while it
+        # restarts), job id, peer, updates tag and aggregate spec.
         self.ps_handles: list = []
         self.ps_job_ids: list[str] = []
         self.ps_peers: list[str] = []
         self.shard_tags: list[str] = []
         self.ps_specs: list[JobSpec] = []
+        # The placement workers route by (None: one server, no groups) and
+        # the tree-reduce plan, [reducer, *members] each.
+        self.shard_map: "ShardMap | None" = None
+        self.reduce_groups: list = []
         self.router: StatusRouter | None = None
         self.tracker: ProgressTracker | None = None
         self.data_scheduler: DataScheduler | None = None
@@ -194,11 +205,14 @@ class Orchestrator:
         raise AllocationError(f"could not allocate {res.num_workers} train workers")
 
     async def _allocate_ps(
-        self, job: DiLoCoJob, taken: set, *, auction_timeout: float, attempts: int
+        self, job: DiLoCoJob, taken: set, *, auction_timeout: float, attempts: int,
+        count: int = 1,
     ) -> list:
-        """Auction the parameter server's execution: a peer distinct from
-        the train workers first; a peer already sold as a train worker
-        hosts it when its capacity covers both leases."""
+        """Auction ``count`` parameter-server (shard) executions. Distinct
+        peers first, distinct from the train workers and then from each
+        other, so each shard's traffic leaves its own NIC; a peer already
+        sold as a train worker hosts one when its capacity covers both
+        leases, and peers are reused round-robin when the mesh is small."""
         res = job.resources
         ps_spec = WorkerSpec(
             resources=res.parameter_server,
@@ -208,13 +222,25 @@ class Orchestrator:
         )
         for _attempt in range(attempts):
             offers = await self.allocator.request(
-                ps_spec, res.parameter_server_price, auction_timeout, 1 + len(taken)
+                ps_spec, res.parameter_server_price, auction_timeout, count + len(taken)
             )
             if not offers:
                 continue
             distinct = [o for o in offers if o.peer_id not in taken]
-            return [(distinct or offers)[0]]
-        raise AllocationError("could not allocate 1 parameter server shard(s)")
+            ranked = distinct + [o for o in offers if o.peer_id in taken]
+            picked: list = []
+            seen: set = set()
+            for offer in ranked:  # one offer per distinct peer first
+                if offer.peer_id not in seen:
+                    picked.append(offer)
+                    seen.add(offer.peer_id)
+                if len(picked) == count:
+                    return picked
+            while picked and len(picked) < count:
+                picked.append(ranked[len(picked) % len(ranked)])
+            if len(picked) == count:
+                return picked
+        raise AllocationError(f"could not allocate {count} parameter server shard(s)")
 
     @staticmethod
     def batch_size_for(offered, required, max_batch: int | None) -> int:
@@ -283,7 +309,23 @@ class Orchestrator:
     def _train_spec(self, ctx: _RunContext, suffix: str, handle: WorkerHandle,
                     rejoin: bool = False) -> JobSpec:
         job = ctx.job
-        assert job is not None and ctx.ps_peers, "plan the streams first"
+        # Placement peers, not live handles: a worker dispatched while a
+        # shard restarts still wires every shard's results stream.
+        if ctx.shard_map is not None and ctx.shard_map.shards:
+            ps_peers = list(ctx.shard_map.shards)
+        else:
+            ps_peers = list(ctx.ps_peers)
+        assert job is not None and ps_peers, "plan the streams first"
+        # This worker's tree role: a group's first member folds the others
+        # (reduce_members); the rest push through it (reduce_via). A
+        # mid-tree reducer gets both.
+        reduce_via = None
+        reduce_members: list = []
+        for group in ctx.reduce_groups:
+            if handle.peer_id == group[0]:
+                reduce_members = list(group[1:])
+            elif handle.peer_id in group:
+                reduce_via = group[0]
         return JobSpec(
             job_id=f"{ctx.base_id}-{suffix}",
             executor=Executor(
@@ -292,8 +334,11 @@ class Orchestrator:
                 train=TrainExecutorConfig(
                     model=job.model,
                     data=Fetch(Reference.from_scheduler(self.node.peer_id, job.dataset)),
-                    updates=Send(Reference.from_peers([ctx.ps_peers[0]], ctx.updates_tag)),
-                    results=Receive(Reference.from_peers(list(ctx.ps_peers), ctx.results_tag)),
+                    updates=Send(Reference.from_peers([ps_peers[0]], ctx.updates_tag)),
+                    results=Receive(Reference.from_peers(ps_peers, ctx.results_tag)),
+                    ps_shards=ctx.shard_map,
+                    reduce_via=reduce_via,
+                    reduce_members=reduce_members,
                     optimizer=job.inner_optimizer,
                     batch_size=handle.batch_size,
                     preprocessor=job.preprocessor,
@@ -319,39 +364,71 @@ class Orchestrator:
         job: DiLoCoJob,
         worker_peers: list[str],
         ps_peers: list[str],
+        num_shards: int = 1,
+        parts: "int | None" = None,
     ) -> None:
         """Derive the attempt's stream identities from its peer lists:
         job-unique tags (push routing keys on them, so several jobs, or a
         parameter server colocated with a train job, can share worker
-        nodes), the parameter server's job id and its aggregate spec."""
-        if len(ps_peers) != 1:
-            raise ValueError(f"one parameter server, got {ps_peers}")
+        nodes), per-shard job ids and updates tags, the tree-reduce groups,
+        the ``ShardMap`` placement and the per-shard aggregate specs. A pure
+        function of (base id, peers, job)."""
+        if len(ps_peers) != num_shards:
+            raise ValueError(f"{num_shards} parameter server shard(s), got {ps_peers}")
+        if parts is None:
+            parts = placement_parts(job.sync_mode, job.num_fragments, num_shards)
         ctx.ps_peers = list(ps_peers)
         ctx.updates_tag = f"updates:{ctx.base_id}"
         ctx.results_tag = f"results:{ctx.base_id}"
-        ctx.shard_tags = [ctx.updates_tag]
-        ctx.ps_job_ids = [f"{ctx.base_id}-ps"]
+        if num_shards == 1:
+            ctx.shard_tags = [ctx.updates_tag]
+            ctx.ps_job_ids = [f"{ctx.base_id}-ps"]
+        else:
+            ctx.shard_tags = [f"{ctx.updates_tag}.s{k}" for k in range(num_shards)]
+            ctx.ps_job_ids = [f"{ctx.base_id}-ps{k}" for k in range(num_shards)]
+        # Sorted peer ids in chunks of G, reduce_tree_depth levels deep;
+        # depth 1 is the single-level plan (singleton groups dropped).
+        group_size = int(job.reduce_group_size or 0)
+        depth = int(job.reduce_tree_depth or 0) or 1
+        ctx.reduce_groups = (build_reduce_groups(worker_peers, group_size, depth)
+                             if group_size >= 2 else [])
+        # The placement: built for any sharded or tree-reduced job; a plain
+        # single-server job ships None, the unsharded wire.
+        ctx.shard_map = None
+        if num_shards > 1 or ctx.reduce_groups:
+            # A pure function of the job spec, effective from dispatch:
+            # workers route by shard tag, never by a later round.
+            ctx.shard_map = ShardMap(
+                round=0, shards=list(ps_peers), tags=list(ctx.shard_tags), fragments=parts,
+                groups=[list(g) for g in ctx.reduce_groups],
+                tree_depth=depth if depth >= 2 else None,
+            )
         ctx.ps_specs = [
             JobSpec(
-                job_id=ctx.ps_job_ids[0],
+                job_id=ctx.ps_job_ids[k],
                 executor=Executor(
                     kind="aggregate",
                     name=AGGREGATE_EXECUTOR_NAME,
                     aggregate=AggregateExecutorConfig(
-                        updates=Receive(Reference.from_peers(worker_peers, ctx.shard_tags[0])),
+                        updates=Receive(Reference.from_peers(worker_peers, ctx.shard_tags[k])),
                         results=Send(Reference.from_peers(worker_peers, ctx.results_tag)),
                         optimizer=job.outer_optimizer,
                         num_workers=len(worker_peers),
-                        checkpoint_dir=f"{job.checkpoint_dir}/ps" if job.checkpoint_dir else None,
+                        checkpoint_dir=((f"{job.checkpoint_dir}/ps" if num_shards == 1
+                                         else f"{job.checkpoint_dir}/ps{k}")
+                                        if job.checkpoint_dir else None),
                         ps_checkpoint_every_rounds=job.ps_checkpoint_every_rounds,
                         quorum_fraction=ctx.ft.quorum_fraction if ctx.ft else 0.0,
                         round_deadline_s=ctx.ft.round_deadline_s if ctx.ft else 0.0,
                         delta_codec=job.delta_codec,
                         sync_mode=job.sync_mode,
                         fragments=job.num_fragments,
+                        shard_index=k,
+                        num_ps_shards=num_shards,
                     ),
                 ),
             )
+            for k in range(num_shards)
         ]
 
     async def _start_data(self, ctx: _RunContext, job: DiLoCoJob) -> None:
@@ -370,9 +447,10 @@ class Orchestrator:
         )
         ctx.data_scheduler.start()
 
-    def _start_control(self, ctx: _RunContext):
+    def _start_control(self, ctx: _RunContext, num_shards: int = 1, parts: int = 1):
         """Stand up the DiLoCo control plane: BatchScheduler + the
-        /hypha-progress handler. Returns (collected_metrics, registration)."""
+        /hypha-progress handler; a sharded round advances on UPDATED from
+        every due shard. Returns (collected_metrics, registration)."""
         ctx.complete = asyncio.Event()
         collected: list = []
         ctx.activity = [asyncio.get_running_loop().time()]  # watchdog feed
@@ -381,8 +459,11 @@ class Orchestrator:
             collected.append((peer, round_num, metrics))
             self.metrics_bridge.on_metrics(peer, round_num, metrics)
 
+        sync_mode = ctx.job.sync_mode if ctx.job is not None else "blocking"
         batch_scheduler = BatchScheduler(
-            ctx.tracker, on_metrics=on_metrics, on_complete=ctx.complete.set
+            ctx.tracker, on_metrics=on_metrics, on_complete=ctx.complete.set,
+            shards_due=((lambda r: shards_due_at(sync_mode, r, parts, num_shards))
+                        if num_shards > 1 else None),
         )
 
         async def on_progress(peer: str, progress: Progress):
@@ -444,9 +525,11 @@ class Orchestrator:
                 for handle in created:
                     if handle is not None:
                         ctx.handles[handle.peer_id] = handle
+            num_shards = max(int(job.num_ps_shards or 1), 1)
             ps_offers = await self._allocate_ps(
                 job, set(ctx.handles),
                 auction_timeout=auction_timeout, attempts=allocation_attempts,
+                count=num_shards,
             )
             for offer in ps_offers:
                 ctx.ps_handles.append(await WorkerHandle.create(self.node, offer))
@@ -474,12 +557,14 @@ class Orchestrator:
                 for handle in ctx.handles.values():
                     handle.on_renew = ctx.detector.heartbeat
 
-            collected, progress_reg = self._start_control(ctx)
+            parts = placement_parts(job.sync_mode, job.num_fragments, num_shards)
+            collected, progress_reg = self._start_control(ctx, num_shards, parts)
 
             ctx.router = StatusRouter(self.node)
             ctx.base_id = str(uuid.uuid4())
             self._plan_streams(
-                ctx, job, list(ctx.handles), [h.peer_id for h in ctx.ps_handles]
+                ctx, job, list(ctx.handles), [h.peer_id for h in ctx.ps_handles],
+                num_shards, parts,
             )
             for spec, ps_handle in zip(ctx.ps_specs, ctx.ps_handles):
                 tasks.append(await Task.dispatch(self.node, ctx.router, spec, [ps_handle]))

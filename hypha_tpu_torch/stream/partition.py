@@ -6,15 +6,15 @@ The parameter server and every worker agree on which tensors form fragment
 the flat tensor names and element counts (the wire's names, the same in
 both packages). Greedy longest-processing-time packing: tensors sorted by
 (size descending, name ascending) go one by one to the lightest fragment
-(ties to the lower index). The sharded service's placement (``shard_of``,
-``shard_names``) is not ported (ROADMAP.md, Queue 1: sharded PS/FT/rejoin).
+(ties to the lower index). The sharded service places fragment ``f`` on
+shard ``f mod N`` (``shard_of``, reference ``:68-102``).
 """
 
 from __future__ import annotations
 
 from typing import Mapping
 
-__all__ = ["partition_names", "fragment_of"]
+__all__ = ["partition_names", "fragment_of", "shard_of", "shard_names"]
 
 
 def partition_names(sizes: Mapping[str, int], fragments: int) -> list:
@@ -42,3 +42,23 @@ def fragment_of(sizes: Mapping[str, int], fragments: int) -> dict:
     """Inverse view: flat tensor name -> fragment index."""
     return {name: idx for idx, names in enumerate(partition_names(sizes, fragments))
             for name in names}
+
+
+def shard_of(fragment_id: int, num_shards: int) -> int:
+    """Owning parameter-server shard of a fragment: fragments round-robin
+    over shards, so consecutive stream rounds leave different shards."""
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    if fragment_id < 0:
+        raise ValueError(f"fragment_id must be >= 0, got {fragment_id}")
+    return fragment_id % num_shards
+
+
+def shard_names(sizes: Mapping[str, int], fragments: int, num_shards: int,
+                shard_id: int) -> tuple:
+    """All tensor names shard ``shard_id`` owns (its fragments' union), sorted."""
+    if not 0 <= shard_id < num_shards:
+        raise ValueError(f"shard_id {shard_id} out of range for {num_shards} shards")
+    parts = partition_names(sizes, fragments)
+    return tuple(sorted(name for f, names in enumerate(parts)
+                        if shard_of(f, num_shards) == shard_id for name in names))

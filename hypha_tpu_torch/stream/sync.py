@@ -10,9 +10,9 @@ correction re-anchors at the send-time snapshot:
     anchor ← θ_s + u          (and out of the anchor)
 
 so the next Δθ = θ − anchor starts at exactly ``d``. With zero flight time
-both equal blocking's merge, bit for bit. The sharded service's round
-ownership (``shard_owns_round``, ``shards_due_at``, ``next_owned_round``)
-is not ported (ROADMAP.md, Queue 1: sharded PS/FT/rejoin).
+both equal blocking's merge, bit for bit. With N parameter-server shards a
+stream round is closed by the due fragment's owner alone, and a blocking
+round by every shard, each with its own part (``shards_due_at``).
 """
 
 from __future__ import annotations
@@ -20,9 +20,11 @@ from __future__ import annotations
 from typing import Mapping
 
 from ..executor.diloco import merge_update
+from .partition import shard_of
 
 __all__ = ["SYNC_MODES", "DEFAULT_FRAGMENTS", "fragment_due", "effective_fragments",
-           "placement_parts", "merge_corrected"]
+           "placement_parts", "shard_owns_round", "shards_due_at", "next_owned_round",
+           "merge_corrected"]
 
 # blocking: ship Δθ, wait, merge; overlap: the whole tree synced in the
 # background while inner steps go on; stream: F staggered fragments, one
@@ -53,21 +55,51 @@ def effective_fragments(sync_mode: str, fragments: int = 0) -> int:
 
 
 def placement_parts(sync_mode: str, fragments: int = 0, num_shards: int = 1) -> int:
-    """How many parts the tree splits into on a single parameter server:
-    the sync mode's fragments. Malformed arguments raise the reference's
-    ``ValueError`` first; more shards then raise (not ported)."""
+    """How many placement parts the tree splits into: stream mode's F
+    fragments (fragment ``f`` owned by shard ``f mod N``); in blocking and
+    overlap one part per shard, all due every round (the whole tree on one
+    server)."""
     if num_shards < 1:
         raise ValueError(f"num_shards must be >= 1, got {num_shards}")
     if num_shards == 1 or sync_mode == "stream":
-        parts = effective_fragments(sync_mode, fragments)
-    elif sync_mode not in SYNC_MODES:
+        return effective_fragments(sync_mode, fragments)
+    if sync_mode not in SYNC_MODES:
         raise ValueError(f"sync_mode must be {'|'.join(SYNC_MODES)}, got {sync_mode!r}")
-    if num_shards != 1:
-        raise NotImplementedError(
-            f"num_shards={num_shards}: the sharded parameter service is not ported to "
-            "PyTorch yet (ROADMAP.md, Queue 1: sharded PS/FT/rejoin)"
-        )
-    return parts
+    return num_shards
+
+
+def shard_owns_round(sync_mode: str, round_num: int, fragments: int, num_shards: int,
+                     shard_id: int) -> bool:
+    """Does shard ``shard_id`` aggregate anything at round ``round_num``?
+    Every shard owns a part of every blocking or overlap round; in stream
+    mode only the due fragment's owner does."""
+    if num_shards <= 1 or sync_mode != "stream":
+        return True
+    return shard_of(fragment_due(round_num, fragments), num_shards) == shard_id
+
+
+def shards_due_at(sync_mode: str, round_num: int, fragments: int,
+                  num_shards: int) -> tuple:
+    """The shards that close round ``round_num``: the scheduler advances
+    the round on ``UPDATED`` from every one of them."""
+    if num_shards <= 1:
+        return (0,)
+    if sync_mode == "stream":
+        return (shard_of(fragment_due(round_num, fragments), num_shards),)
+    return tuple(range(num_shards))
+
+
+def next_owned_round(sync_mode: str, from_round: int, fragments: int, num_shards: int,
+                     shard_id: int) -> int:
+    """The first round >= ``from_round`` that ``shard_id`` aggregates
+    (the stream schedule cycles every ``fragments`` rounds)."""
+    for r in range(from_round, from_round + max(fragments, 1)):
+        if shard_owns_round(sync_mode, r, fragments, num_shards, shard_id):
+            return r
+    raise ValueError(
+        f"shard {shard_id} owns no round in a cycle of {fragments} fragments "
+        f"over {num_shards} shards"
+    )
 
 
 def merge_corrected(live: Mapping, snapshot: Mapping, update: Mapping) -> tuple:

@@ -15,11 +15,14 @@
     allowed peers under the reference's resource tag, and leaves every
     other push to the node's other consumers.
 
+``shard_route`` gives the Send of one placement part's delta under a
+sharded parameter service: the owning shard under its updates tag, behind
+the group's reducer with ANY failover when the job reduces in a tree.
+
 Not ported: the on-disk slice cache of pipelined jobs (a ``prefetch``
-window; ROADMAP.md, Queue 1: input_pipeline), ``shard_route`` (sharded
-parameter service; sharded PS/FT/rejoin), HuggingFace
-Hub downloads (HF checkpoints) and the data-plane byte counters
-(telemetry). Each raises ``NotImplementedError`` naming its label.
+window; ROADMAP.md, Queue 1: input_pipeline), HuggingFace Hub downloads
+(HF checkpoints) and the data-plane byte counters (telemetry). Each raises
+``NotImplementedError`` naming its label.
 
 Received file names are SHA-256-hashed before hitting the filesystem
 (``_safe_name``), matching the reference's path-injection defense.
@@ -78,13 +81,25 @@ def push_timeout(path: Path, base: float = 60.0) -> float:
     return base + size / (10 * 1024 * 1024)
 
 
-def shard_route(shard_map, part: int, reduce_via: "str | None" = None):
-    """The reference's Send route of one placement part's delta push (a
-    sharded parameter service), which the port does not run."""
-    raise NotImplementedError(
-        "routing delta parts to parameter-server shards is not ported to PyTorch yet "
-        "(ROADMAP.md, Queue 1: sharded PS/FT/rejoin)"
-    )
+def shard_route(shard_map, part: int, reduce_via: "str | None" = None) -> tuple:
+    """``(send, owner shard, tag)`` of one placement part's delta push: part
+    ``p`` lands on shard ``shard_of(p, N)`` under that shard's updates tag.
+    With a tree reduce the group's reducer is tried first, with ANY
+    failover, so a dead reducer degrades the member to direct pushes (the
+    shard reconciles the overlap by cover sets)."""
+    from ..stream.partition import shard_of
+
+    if not shard_map.shards:
+        raise ValueError("shard_route needs a populated ShardMap")
+    owner = shard_of(part, len(shard_map.shards))
+    owner_peer = shard_map.shards[owner]
+    tag = shard_map.tags[owner] if shard_map.tags else "updates"
+    peers = [owner_peer]
+    strategy = TransferStrategy.ALL
+    if reduce_via and reduce_via != owner_peer:
+        peers = [reduce_via, owner_peer]
+        strategy = TransferStrategy.ANY
+    return Send(Reference.from_peers(peers, tag, strategy)), owner, tag
 
 
 class ReceivedFile:

@@ -18,9 +18,13 @@ child's ``PYTHONPATH`` starts with the directory holding
 ``hypha_tpu_torch``, so ``-m hypha_tpu_torch.executor.training`` resolves
 from the job's work dir.
 
-Not ported: the slice cache and the tree-reduce group reducer the
-reference starts beside the process (ROADMAP.md, Queue 1: input_pipeline;
-sharded PS/FT/rejoin).
+When the job names this worker its group's reducer (``reduce_members``),
+a :class:`~hypha_tpu_torch.stream.reduce.GroupReducer` runs beside the
+process, in the node's event loop and on its device (it consumes the
+node's pushes), and stops when the process ends.
+
+Not ported: the slice cache the reference starts beside the process
+(ROADMAP.md, Queue 1: input_pipeline).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from pathlib import Path
 from .. import aio, messages
 from ..messages import JobSpec
 from ..node_config import TRAINER_ARGS
+from ..stream.reduce import maybe_start_reducer
 from .bridge import Bridge
 from .connectors import Connector
 from .job_manager import Execution, JobExecutor
@@ -96,7 +101,9 @@ class ProcessExecutor(JobExecutor):
             env={**os.environ, "PYTHONPATH": _pythonpath(), **subst}, cwd=str(work_dir),
         )
         log.info("job %s: spawned pid %s: %s", job_id, proc.pid, argv[:3])
-        execution = _ProcessExecution(job_id, proc, bridge, work_dir)
+        execution = _ProcessExecution(job_id, proc, bridge, work_dir,
+                                      reducer=maybe_start_reducer(self.node, spec, self.device,
+                                                                  work_dir / "reduce"))
         probe_target.append(execution)
         execution.start_supervision()
         return execution
@@ -116,11 +123,12 @@ def _substitute(arg: str, subst: dict) -> str:
 
 class _ProcessExecution(Execution):
     def __init__(self, job_id: str, proc: asyncio.subprocess.Process, bridge: Bridge,
-                 work_dir: Path) -> None:
+                 work_dir: Path, reducer=None) -> None:
         super().__init__(job_id)
         self.proc = proc
         self.bridge = bridge
         self.work_dir = work_dir
+        self.reducer = reducer
         self._cancelled = False
         self._tasks: list = []
 
@@ -139,6 +147,8 @@ class _ProcessExecution(Execution):
 
     async def _supervise(self) -> None:
         rc = await self.proc.wait()
+        if self.reducer is not None:
+            await self.reducer.stop()
         await self.bridge.stop()
         await asyncio.to_thread(shutil.rmtree, self.work_dir, ignore_errors=True)
         if self._cancelled:

@@ -1,5 +1,5 @@
-"""The parameter server: the DiLoCo outer optimizer (counterpart of the
-single-shard path of ``hypha_tpu/worker/ps_executor.py``).
+"""The parameter server: the DiLoCo outer optimizer (counterpart of
+``hypha_tpu/worker/ps_executor.py``).
 
 :class:`ParameterServerExecutor` is the in-runtime executor a worker node
 runs for an ``aggregate`` job. Each round it takes one pseudo-gradient
@@ -26,6 +26,26 @@ momentum file and a broadcast residual per fragment; and the fan-out runs
 in the background, chained per fragment so that a worker never gets a
 fragment's rounds out of order.
 
+The sharded parameter service (the reference's ``:325-341``, ``:523-540``,
+``:1626-1710``, ``:893-907``): with ``num_ps_shards = N`` this executor is
+shard ``shard_index`` of N and owns the placement parts ``p`` with
+``shard_of(p, N) == shard_index``. Sharded jobs run the pipelined loop in
+every sync mode: in stream mode the shard closes only the rounds whose due
+fragment it owns (a push for another shard's round is dropped as
+misrouted); in blocking mode it closes its own fixed part every round.
+Every broadcast and every ``UPDATED`` carries the shard's index
+(``SHARD_KEY``, ``Progress.shard``).
+
+Tree-reduce partials (the reference's ``:980-1100``): a push stamped
+``prefold`` is a group reducer's Σ samples·Δθ; it folds verbatim and counts
+toward the round's close by the workers it ``covers``. The cover sets
+reconcile the ANY failover's at-least-once overlaps: a direct delta already
+inside an accepted partial is dropped; a partial arriving after its
+members' direct deltas un-folds and retires them (sorted order); of two
+overlapping partials from different senders the bigger cover wins, a tie
+keeping the accepted one; a reducer's cumulative re-flush replaces its
+previous partial through the duplicate path.
+
 Fault tolerance of blocking jobs (the reference's ``:210-260``,
 ``:346-389``, ``:754-940``, ``:1171-1600``, ``:2331-2380``):
 
@@ -50,11 +70,11 @@ Fault tolerance of blocking jobs (the reference's ``:210-260``,
 
 What raises ``NotImplementedError`` at dispatch, with its ROADMAP.md
 label: elastic quorums or a ``checkpoint_dir`` with ``sync_mode`` overlap
-or stream, several parameter-server shards, the adaptive options, the
-broadcast tree and the adoption grace (sharded PS/FT/rejoin);
-``report_metrics_s`` (telemetry); ``serve_peers`` (live weight swap). A
-tree-reduce partial arriving at a round fails the job under the same
-label as the tree.
+or stream or with several shards, the adaptive options, the broadcast tree
+and the adoption grace (sharded PS/FT/rejoin); ``report_metrics_s``
+(telemetry); ``serve_peers`` (live weight swap). A tree-reduce partial
+arriving at an elastic or durable round fails the job under the same label
+(per-shard durability and a prefold record in the journal are not ported).
 
 The outer step (counterpart of ``ParameterServerExecutor._outer_step``,
 ``hypha_tpu/worker/ps_executor.py:2382-2440``, with
@@ -98,7 +118,10 @@ from ..ft.membership import PROTOCOL_FT, MembershipUpdate, RoundMembership, quor
 from ..ft.rejoin import CATCHUP_KEY, CatchupBuffer
 from ..hw import default_device
 from ..messages import (
+    COVERS_KEY,
+    PREFOLD_KEY,
     PROTOCOL_PROGRESS,
+    SHARD_KEY,
     Ack,
     FragmentTag,
     JobSpec,
@@ -109,7 +132,8 @@ from ..messages import (
     TransferStrategy,
 )
 from ..network.node import RequestError
-from ..stream import RoundAccum, effective_fragments, fragment_due
+from ..stream import RoundAccum, fragment_due
+from ..stream.sync import next_owned_round, placement_parts, shard_owns_round
 from .connectors import push_timeout
 from .job_manager import Execution, JobExecutor
 
@@ -130,9 +154,9 @@ _BROADCAST_CONCURRENCY = 8
 # (pushes are queued at their header, so the deadline must bound the bytes).
 _DRAIN_SLACK_S = 0.25
 
-# The push-header key of a tree-reduce partial (the reference's
-# messages.PREFOLD_KEY).
-_PREFOLD_KEY = "prefold"
+# A tree-reduce partial's key in a round's table: apart from the same
+# reducer's own direct delta.
+_PREFOLD_PREFIX = "prefold:"
 
 _FT = "sharded PS/FT/rejoin"
 
@@ -209,10 +233,10 @@ def outer_step(
 def _unported(cfg) -> None:
     """Raise on every aggregate option this path does not run."""
     streaming = (cfg.sync_mode or "blocking") != "blocking"
+    sharded = int(cfg.num_ps_shards or 1) > 1
     checks = [
-        (streaming and bool(cfg.checkpoint_dir), "checkpoint_dir", _FT),
-        (streaming and cfg.quorum_fraction > 0, "quorum_fraction", _FT),
-        (int(cfg.num_ps_shards or 1) > 1, "num_ps_shards", _FT),
+        ((streaming or sharded) and bool(cfg.checkpoint_dir), "checkpoint_dir", _FT),
+        ((streaming or sharded) and cfg.quorum_fraction > 0, "quorum_fraction", _FT),
         (bool(cfg.adaptive_steps), "adaptive_steps", _FT),
         (bool(cfg.adaptive_codec), "adaptive_codec", _FT),
         (cfg.broadcast_tree is not None, "broadcast_tree", _FT),
@@ -222,8 +246,10 @@ def _unported(cfg) -> None:
     ]
     for bad, option, item in checks:
         if bad:
-            mode = f" with sync_mode={cfg.sync_mode!r}" if option in (
-                "checkpoint_dir", "quorum_fraction") else ""
+            mode = ""
+            if option in ("checkpoint_dir", "quorum_fraction"):
+                mode = (f" with num_ps_shards={cfg.num_ps_shards}" if sharded
+                        else f" with sync_mode={cfg.sync_mode!r}")
             raise NotImplementedError(
                 f"{option}={getattr(cfg, option)!r}{mode} is not ported to the PyTorch "
                 f"parameter server (ROADMAP.md, Queue 1: {item})"
@@ -279,7 +305,7 @@ def _unlink(paths: list) -> None:
 
 
 class ParameterServerExecutor(JobExecutor):
-    """The single-shard parameter server on ``device`` (CUDA
+    """The parameter server, or one shard of it, on ``device`` (CUDA
     unless the caller asks for the CPU; without CUDA and without that
     request the constructor raises)."""
 
@@ -374,11 +400,17 @@ class ParameterServerExecutor(JobExecutor):
         # feeds its error back into the next update.
         codec = compress.effective_codec(cfg.delta_codec or "none")
         sync_mode = cfg.sync_mode or "blocking"
+        # One shard of N owns a disjoint set of the placement parts (stream
+        # fragments, or N blocking sub-deltas); N == 1 is the whole tree.
+        num_shards = max(int(cfg.num_ps_shards or 1), 1)
+        shard = int(cfg.shard_index or 0)
         try:
-            if sync_mode != "blocking":
+            if sync_mode != "blocking" or num_shards > 1:
                 await self._stream_rounds(
                     execution, job_id, cfg, scheduler_peer, work_dir, consumer, allowed,
-                    num_workers, lr, mu, codec, effective_fragments(sync_mode, cfg.fragments))
+                    num_workers, lr, mu, codec,
+                    placement_parts(sync_mode, cfg.fragments, num_shards),
+                    shard=shard, num_shards=num_shards, sync_mode=sync_mode)
                 return
             bcast_ef = compress.ErrorFeedback() if codec in compress.QUANT_CODECS else None
             round_num = 0
@@ -624,17 +656,88 @@ class ParameterServerExecutor(JobExecutor):
         return delta_round
 
     @staticmethod
-    def _refuse_prefold(push) -> None:
-        if isinstance(push.resource, dict) and push.resource.get(_PREFOLD_KEY):
+    async def _refuse_prefold(push, what: str) -> None:
+        """A partial at an elastic or durable round fails the job: neither
+        reconciles covers nor journals a partial in the port."""
+        if isinstance(push.resource, dict) and push.resource.get(PREFOLD_KEY):
+            await push.read_all()
             raise NotImplementedError(
-                f"a tree-reduce partial from {push.peer} reached the parameter server; the "
-                f"tree reduce is not ported to PyTorch yet (ROADMAP.md, Queue 1: {_FT})"
+                f"a tree-reduce partial from {push.peer} reached {what}; partials are not "
+                f"folded there in PyTorch yet (ROADMAP.md, Queue 1: {_FT})"
             )
 
     @staticmethod
-    async def _fold(accum: RoundAccum, entry: tuple, sign: float = 1.0) -> None:
-        """Fold one saved delta into the round's sum, off the event loop."""
-        await asyncio.to_thread(accum.fold, entry[0], entry[1], sign)
+    async def _fold(accum: RoundAccum, entry: tuple, sign: float = 1.0,
+                    prefolded: bool = False) -> None:
+        """Fold one saved delta (or a partial, verbatim) into the round's
+        sum, off the event loop."""
+        await asyncio.to_thread(accum.fold, entry[0], entry[1], sign, prefolded)
+
+    # ------------------------------------------------ tree-reduce covers
+
+    @staticmethod
+    def _push_cover(meta, peer: str) -> tuple:
+        """``(prefolded, covered workers)`` of one push: a partial covers
+        the workers its ``covers`` header lists, a direct delta its sender."""
+        if isinstance(meta, dict) and meta.get(PREFOLD_KEY):
+            return True, frozenset(str(p) for p in (meta.get(COVERS_KEY) or []))
+        return False, frozenset((peer,))
+
+    @staticmethod
+    def _covered(received, covers: dict) -> set:
+        """The worker peers the round's accepted entries represent."""
+        out: set = set()
+        for key in received:
+            out |= covers.get(key, (False, frozenset((key,))))[1]
+        return out
+
+    @staticmethod
+    def _entry_key(prefolded: bool, peer: str) -> str:
+        """A reducer's partial must not collide with its own direct delta."""
+        return f"{_PREFOLD_PREFIX}{peer}" if prefolded else peer
+
+    @staticmethod
+    def _prefold_superseded(covers: dict, cov: frozenset, key: str) -> bool:
+        """Drop a new partial that intersects an accepted partial from
+        another sender at least as big: overlaps cannot be decomposed, so
+        the bigger cover wins and a tie keeps the accepted entry. A
+        sender's own re-flush takes the duplicate path instead."""
+        return any(p and (cov & c) and len(c) >= len(cov)
+                   for k, (p, c) in covers.items() if k != key)
+
+    @staticmethod
+    def _direct_covered(covers: dict, peer: str) -> bool:
+        """Is a direct delta from ``peer`` already inside an accepted
+        partial (the ANY failover delivers at least once)?"""
+        return any(p and peer in c for p, c in covers.values())
+
+    async def _retire_covered(self, job_id: str, accum, bucket: dict, covers: dict,
+                              cov: frozenset) -> None:
+        """A partial supersedes what it contains: first every accepted
+        partial of another sender that it intersects (each strictly
+        smaller, or ``_prefold_superseded`` had dropped the new one), then
+        its members' direct deltas, each un-folded and retired in sorted
+        order."""
+        for okey in sorted(k for k in list(bucket) if k in covers):
+            info = covers.get(okey)
+            if info is None or not info[0] or not (info[1] & cov):
+                continue
+            log.warning("ps %s: partial %s overlapped by a newer ancestor partial; un-folding",
+                        job_id, okey)
+            old = bucket.pop(okey)
+            covers.pop(okey, None)
+            await self._fold(accum, old, sign=-1.0, prefolded=True)
+            await asyncio.to_thread(_unlink, [old[0]])
+        for member in sorted(cov):
+            info = covers.get(member)
+            if member not in bucket or (info is not None and info[0]):
+                continue
+            log.warning("ps %s: delta from %s superseded by a tree-reduce partial covering it; "
+                        "un-folding", job_id, member)
+            old = bucket.pop(member)
+            covers.pop(member, None)
+            await self._fold(accum, old, sign=-1.0, prefolded=False)
+            await asyncio.to_thread(_unlink, [old[0]])
 
     async def _collect_round(
         self, consumer, job_id: str, allowed: set, num_workers: int, work_dir: Path,
@@ -652,31 +755,45 @@ class ParameterServerExecutor(JobExecutor):
             for entry in received.values():
                 await self._fold(accum, entry)
         dest_dir = dur.deltas_dir if dur is not None else work_dir
-        while len(received) < num_workers:
+        # Entry key -> (prefolded, covered workers): a tree-reduce partial
+        # covers its group, everything else its sender.
+        covers: dict = {}
+        while len(self._covered(received, covers)) < num_workers:
             push = await consumer.next()
             peer = push.peer
             if allowed and peer not in allowed:
                 log.warning("ps %s: push from disallowed peer %s", job_id, peer)
                 await push.read_all()
                 continue
-            if dur is not None and await self._classify_push(push, job_id, None,
-                                                             round_num) is None:
-                continue
-            if isinstance(push.resource, dict) and push.resource.get(_PREFOLD_KEY):
+            if dur is not None:
+                if await self._classify_push(push, job_id, None, round_num) is None:
+                    continue
+                await self._refuse_prefold(push, "a durable parameter server")
+            prefolded, cov = self._push_cover(push.resource, peer)
+            key = self._entry_key(prefolded, peer)
+            if prefolded and self._prefold_superseded(covers, cov, key):
+                log.info("ps %s: partial from %s contained in an accepted ancestor partial; "
+                         "dropped", job_id, peer)
                 await push.read_all()
-                self._refuse_prefold(push)
-            if dur is None and peer in received:
+                continue
+            if not prefolded and self._direct_covered(covers, peer):
+                log.info("ps %s: delta from %s already covered by a tree-reduce partial; "
+                         "dropped", job_id, peer)
+                await push.read_all()
+                continue
+            if dur is None and key in received:
                 # A re-send replaces the previous delta instead of
                 # mis-counting the round. It lands on the same path, so the
                 # old one is un-folded (from its bytes) before the save.
                 log.warning("ps %s: duplicate delta from %s; replacing", job_id, peer)
-                old = received.pop(peer)
-                await self._fold(accum, old, sign=-1.0)
+                old = received.pop(key)
+                await self._fold(accum, old, sign=-1.0, prefolded=prefolded)
                 await asyncio.to_thread(_unlink, [old[0]])
             hasher = hashlib.sha256() if dur is not None else None
             entry = await self._save_delta(
                 push, dest_dir, round_num,
-                suffix=f"-{uuid.uuid4().hex[:8]}" if dur is not None else "", hasher=hasher)
+                suffix=f"-{uuid.uuid4().hex[:8]}" if dur is not None else "", hasher=hasher,
+                key=key)
             if not await self._ingest(dur, round_num, peer, entry,
                                       hasher.hexdigest() if hasher is not None else None):
                 log.info("ps %s: duplicate re-send from %s (journaled); dropped", job_id, peer)
@@ -686,8 +803,11 @@ class ParameterServerExecutor(JobExecutor):
                 # file stays for a replay until a checkpoint covers it.
                 log.warning("ps %s: duplicate delta from %s; replacing", job_id, peer)
                 await self._fold(accum, received.pop(peer), sign=-1.0)
-            received[peer] = entry
-            await self._fold(accum, entry)
+            if prefolded and cov:
+                await self._retire_covered(job_id, accum, received, covers, cov)
+            received[key] = entry
+            covers[key] = (prefolded, cov)
+            await self._fold(accum, entry, prefolded=prefolded)
             log.info("ps %s: round %d delta %d/%d (from %s)",
                      job_id, round_num, len(received), num_workers, peer)
         return received
@@ -741,9 +861,7 @@ class ParameterServerExecutor(JobExecutor):
             delta_round = await self._classify_push(push, job_id, st.membership.active, round_num)
             if delta_round is None:
                 continue
-            if isinstance(push.resource, dict) and push.resource.get(_PREFOLD_KEY):
-                await push.read_all()
-                self._refuse_prefold(push)
+            await self._refuse_prefold(push, "an elastic parameter server")
             hasher = hashlib.sha256() if dur is not None else None
             # The drain bound applies only once the round is quorate: a
             # quorum-required delta drains however slow its link.
@@ -793,11 +911,12 @@ class ParameterServerExecutor(JobExecutor):
 
     async def _save_delta_bounded(self, push, dest_dir: Path, delta_round: int, *, suffix: str,
                                   hasher, deadline: "float | None",
-                                  job_id: str = "") -> "tuple | None":
+                                  job_id: str = "", key: "str | None" = None) -> "tuple | None":
         """:meth:`_save_delta` with the drain bounded by the round deadline
         (plus ``_DRAIN_SLACK_S``); None when abandoned (the sender's retry
         re-ships it, and the stale guard disposes of the copy)."""
-        save = self._save_delta(push, dest_dir, delta_round, suffix=suffix, hasher=hasher)
+        save = self._save_delta(push, dest_dir, delta_round, suffix=suffix, hasher=hasher,
+                                key=key)
         if deadline is None:
             return await save
         budget = max(deadline - asyncio.get_running_loop().time(), 0.0) + _DRAIN_SLACK_S
@@ -807,18 +926,20 @@ class ParameterServerExecutor(JobExecutor):
             log.warning("ps %s: delta drain from %s for round %d abandoned after %.1fs "
                         "(deadline passed mid-transfer)", job_id, push.peer, delta_round, budget)
             push.finish()
-            name = hashlib.sha256(push.peer.encode()).hexdigest()[:24]
+            name = hashlib.sha256((key or push.peer).encode()).hexdigest()[:24]
             await asyncio.to_thread(
                 _unlink, [dest_dir / f"delta-{delta_round}-{name}{suffix}.safetensors"])
             return None
 
     @staticmethod
     async def _save_delta(push, work_dir: Path, round_num: int, suffix: str = "",
-                          hasher=None) -> tuple:
+                          hasher=None, key: "str | None" = None) -> tuple:
         """Save one pseudo-gradient push; returns (path, sample weight).
         ``hasher`` takes the payload's bytes as they stream to disk (the
-        durable journal's sha, without a second read)."""
-        name = hashlib.sha256(push.peer.encode()).hexdigest()[:24]
+        durable journal's sha, without a second read). ``key`` names the
+        file when it is not the sender (a reducer's partial beside its own
+        delta)."""
+        name = hashlib.sha256((key or push.peer).encode()).hexdigest()[:24]
         dest = work_dir / f"delta-{round_num}-{name}{suffix}.safetensors"
         await push.save_to(dest, hasher=hasher)
         samples = 1.0
@@ -913,32 +1034,54 @@ class ParameterServerExecutor(JobExecutor):
 
     async def _stream_rounds(self, execution, job_id: str, cfg, scheduler_peer: str,
                              work_dir: Path, consumer, allowed: set, num_workers: int,
-                             lr: float, mu: float, codec: str, fragments: int) -> None:
-        """The pipelined round loop of ``sync_mode`` overlap and stream
-        (counterpart of the reference's ``_stream_rounds``, single shard,
-        not elastic, not durable: ``_unported`` refuses those with a
-        streaming sync mode). Round ``r`` closes fragment ``r mod F``
-        when every worker's delta for it is in; its update is encoded with
-        that fragment's broadcast residual, the scheduler hears ``UPDATED``,
-        and the fan-out starts in the background while the next round
-        collects. Fan-outs of one fragment are chained (round r+F waits
-        for round r); at most F + 1 are out at once."""
+                             lr: float, mu: float, codec: str, fragments: int, *,
+                             shard: int = 0, num_shards: int = 1,
+                             sync_mode: str = "stream") -> None:
+        """The pipelined round loop of ``sync_mode`` overlap and stream, and
+        of every sharded job (counterpart of the reference's
+        ``_stream_rounds``, not elastic, not durable: ``_unported`` refuses
+        those here). Round ``r`` closes its due part when every worker is
+        covered; its update is encoded with that part's broadcast residual,
+        the scheduler hears ``UPDATED``, and the fan-out starts in the
+        background while the next round collects. Fan-outs of one part are
+        chained (round r+F waits for round r); at most F + 1 are out at once.
+
+        ``fragments`` is the placement's part count. A stream shard takes
+        only the rounds whose due fragment it owns; a blocking shard closes
+        its own part (``shard``) every round."""
         accums: dict = {}   # round -> RoundAccum, the open rounds only
-        pending: dict = {}  # round -> {peer: entry} of rounds not open yet
+        pending: dict = {}  # round -> {key: entry} of rounds not open yet
+        pending_covers: dict = {}  # round -> {key: (prefolded, covers)}
         bcast_efs: dict = {}
         bcast_tasks: set = set()
-        last_bcast: dict = {}  # fragment -> its newest fan-out
-        round_num = 0
+        last_bcast: dict = {}  # part -> its newest fan-out
+        sharded = num_shards > 1
+
+        def due_fn(r: int) -> int:
+            return shard if sharded and sync_mode != "stream" else fragment_due(r, fragments)
+
+        def next_owned(r: int) -> int:
+            if not sharded or sync_mode != "stream":
+                return r
+            return next_owned_round(sync_mode, r, fragments, num_shards, shard)
+
+        owned_fn = None
+        if sharded and sync_mode == "stream":
+            def owned_fn(r: int) -> bool:
+                return shard_owns_round(sync_mode, r, fragments, num_shards, shard)
+
+        round_num = next_owned(0)
         try:
             while True:
                 execution.round = round_num
                 received = await self._collect_round_stream(
                     consumer, job_id, allowed, num_workers, work_dir, round_num, fragments,
-                    accums, pending)
-                frag = fragment_due(round_num, fragments)
+                    accums, pending, due_fn=due_fn, owned_fn=owned_fn,
+                    pending_covers=pending_covers, sharded=sharded)
+                frag = due_fn(round_num)
                 tag = FragmentTag(round=round_num, fragment_id=frag, fragments=fragments)
                 accum = accums.pop(round_num, None)
-                # One momentum file per fragment: the fragments' tensors are
+                # One momentum file per part: the parts' tensors are
                 # disjoint, so each round reads and writes only its own.
                 update_path = await asyncio.to_thread(
                     outer_step, received, work_dir / f"momentum-f{frag}.safetensors", lr, mu,
@@ -951,14 +1094,17 @@ class ParameterServerExecutor(JobExecutor):
                     self._encode_broadcast, update_path, codec, bcast_efs[frag], work_dir,
                     round_num, tag.header())
                 del _sent
+                header = dict(tag.header())
+                if sharded:
+                    header[SHARD_KEY] = shard
                 # Notify before the fan-out (the blocking loop's race note).
                 response = await self._notify_updated(
-                    scheduler_peer, job_id, round_num, execution)
+                    scheduler_peer, job_id, round_num, execution, shard=shard)
                 last_bcast[frag] = aio.spawn(
                     self._broadcast_and_cleanup(cfg, update_path, wire_path, received, tag,
-                                                after=last_bcast.get(frag)),
+                                                header, after=last_bcast.get(frag)),
                     tasks=bcast_tasks, what=f"stream broadcast r{round_num}", logger=log)
-                round_num += 1
+                round_num = next_owned(round_num + 1)
                 live = [t for t in bcast_tasks if not t.done()]
                 if len(live) >= fragments + 1:
                     await asyncio.wait(live, return_when=asyncio.FIRST_COMPLETED)
@@ -973,15 +1119,25 @@ class ParameterServerExecutor(JobExecutor):
 
     async def _collect_round_stream(self, consumer, job_id: str, allowed: set, num_workers: int,
                                     work_dir: Path, round_num: int, fragments: int,
-                                    accums: dict, pending: dict) -> dict:
-        """Gather round ``round_num``'s fragment deltas, peer -> (path,
-        samples). Every delta folds, as it lands, into the accumulator of
-        the round its header names: this one or a later one. A delta for a
-        closed round, one whose tag names another fragment or count, and an
-        HQD1 frame whose own tag contradicts its header are dropped; a
-        re-send replaces (un-folds) the sender's earlier delta."""
+                                    accums: dict, pending: dict, *, due_fn=None, owned_fn=None,
+                                    pending_covers: "dict | None" = None,
+                                    sharded: bool = False) -> dict:
+        """Gather round ``round_num``'s part deltas, key -> (path, samples),
+        until every worker is covered. Every delta folds, as it lands, into
+        the accumulator of the round its header names: this one or a later
+        one. A delta for a closed round, one for a round another shard owns
+        (``owned_fn``), one whose tag names another part or count
+        (``due_fn`` gives a round's part), and an HQD1 frame whose own tag
+        contradicts its header are dropped; a re-send replaces (un-folds)
+        the sender's earlier delta; partials reconcile by cover sets."""
+        if due_fn is None:
+            def due_fn(r: int) -> int:
+                return fragment_due(r, fragments)
+        if pending_covers is None:
+            pending_covers = {}
         received = pending.pop(round_num, {})
-        while len(received) < num_workers:
+        covers: dict = pending_covers.pop(round_num, {})
+        while len(self._covered(received, covers)) < num_workers:
             push = await consumer.next()
             peer = push.peer
             meta = push.resource if isinstance(push.resource, dict) else {}
@@ -989,12 +1145,6 @@ class ParameterServerExecutor(JobExecutor):
                 log.warning("ps %s: push from disallowed peer %s", job_id, peer)
                 await push.read_all()
                 continue
-            if meta.get(_PREFOLD_KEY):
-                await push.read_all()
-                raise NotImplementedError(
-                    f"a tree-reduce partial from {peer} reached the parameter server; the "
-                    f"tree reduce is not ported to PyTorch yet (ROADMAP.md, Queue 1: {_FT})"
-                )
             try:
                 delta_round = int(meta.get("round", round_num))
             except (TypeError, ValueError):
@@ -1004,7 +1154,15 @@ class ParameterServerExecutor(JobExecutor):
                             job_id, delta_round, peer, round_num)
                 await push.read_all()
                 continue
-            due = fragment_due(delta_round, fragments)
+            if owned_fn is not None and not owned_fn(delta_round):
+                # Another shard's round: this shard never opens it.
+                log.warning("ps %s: push for round %d from %s is another shard's; dropped",
+                            job_id, delta_round, peer)
+                await push.read_all()
+                continue
+            prefolded, cov = self._push_cover(meta, peer)
+            key = self._entry_key(prefolded, peer)
+            due = due_fn(delta_round)
             tag = FragmentTag.from_header(meta)
             if tag is not None and (tag.fragments != fragments or tag.fragment_id != due):
                 log.warning("ps %s: fragment tag mismatch from %s (round %d fragment %d/%d, "
@@ -1012,8 +1170,21 @@ class ParameterServerExecutor(JobExecutor):
                             tag.fragment_id, tag.fragments, due, fragments)
                 await push.read_all()
                 continue
+            bucket = received if delta_round == round_num else pending.setdefault(delta_round, {})
+            cov_table = (covers if delta_round == round_num
+                         else pending_covers.setdefault(delta_round, {}))
+            if prefolded and self._prefold_superseded(cov_table, cov, key):
+                log.info("ps %s: partial from %s contained in an accepted ancestor partial; "
+                         "dropped", job_id, peer)
+                await push.read_all()
+                continue
+            if not prefolded and self._direct_covered(cov_table, peer):
+                log.info("ps %s: delta from %s already covered by a tree-reduce partial; "
+                         "dropped", job_id, peer)
+                await push.read_all()
+                continue
             entry = await self._save_delta(push, work_dir, delta_round,
-                                           suffix=f"-{uuid.uuid4().hex[:8]}")
+                                           suffix=f"-{uuid.uuid4().hex[:8]}", key=key)
             if tag is not None and not await asyncio.to_thread(
                     self._frame_tag_matches, entry[0], tag):
                 # The push header and the frame disagree: trust neither.
@@ -1022,30 +1193,34 @@ class ParameterServerExecutor(JobExecutor):
                 await asyncio.to_thread(_unlink, [entry[0]])
                 continue
             accum = accums.setdefault(delta_round, RoundAccum(device=self.device))
-            bucket = received if delta_round == round_num else pending.setdefault(delta_round, {})
-            old = bucket.pop(peer, None)
+            old = bucket.pop(key, None)
             if old is not None:
-                log.warning("ps %s: duplicate delta from %s; replacing", job_id, peer)
-                await self._fold(accum, old, sign=-1.0)
+                log.warning("ps %s: duplicate %s from %s; replacing", job_id,
+                            "partial" if prefolded else "delta", peer)
+                await self._fold(accum, old, sign=-1.0, prefolded=prefolded)
                 await asyncio.to_thread(_unlink, [old[0]])
-            bucket[peer] = entry
-            await self._fold(accum, entry)
-            log.info("ps %s: round %d fragment %d delta %d/%d (from %s%s)", job_id, round_num,
-                     fragment_due(round_num, fragments), len(received), num_workers, peer,
+            if prefolded and cov:
+                await self._retire_covered(job_id, accum, bucket, cov_table, cov)
+            bucket[key] = entry
+            cov_table[key] = (prefolded, cov)
+            await self._fold(accum, entry, prefolded=prefolded)
+            log.info("ps %s: round %d part %d %s %d (from %s%s%s)", job_id, round_num,
+                     due_fn(round_num), "partial" if prefolded else "delta", len(received),
+                     peer, f", covers {sorted(cov)}" if prefolded else "",
                      "" if delta_round == round_num else f", parked r{delta_round}")
         return received
 
     async def _broadcast_and_cleanup(self, cfg, update_path: Path, wire_path: Path,
-                                     received: dict, tag: FragmentTag,
+                                     received: dict, tag: FragmentTag, header: dict,
                                      after: "asyncio.Task | None" = None) -> None:
         """One round's background fan-out, then its files go. ``after`` is
-        the same fragment's previous fan-out: without the chain a slow link
+        the same part's previous fan-out: without the chain a slow link
         could deliver round r+F's update before round r's, and the worker
         would drop the older one as stale."""
         if after is not None:
             await aio.wait_quiet(after)
         try:
-            await self._broadcast(cfg, wire_path, tag.round, None, extra_header=tag.header())
+            await self._broadcast(cfg, wire_path, tag.round, None, extra_header=header)
         finally:
             await asyncio.to_thread(
                 _unlink, [path for path, _ in received.values()] + [update_path, wire_path])
@@ -1099,10 +1274,10 @@ class ParameterServerExecutor(JobExecutor):
             await aio.reap(*(t for t in tasks if not t.done()))
 
     async def _notify_updated(self, scheduler_peer: str, job_id: str, round_num: int,
-                              execution=None) -> ProgressResponse:
+                              execution=None, shard: int = 0) -> ProgressResponse:
         gen = getattr(execution, "scheduler_generation", None)
         progress = Progress(
-            kind=ProgressKind.UPDATED, job_id=job_id, round=round_num, shard=0,
+            kind=ProgressKind.UPDATED, job_id=job_id, round=round_num, shard=shard,
             # Stamped only once a scheduler restart happened (generation
             # >= 2), so an unrestarted job's UPDATED is the reference's bytes.
             scheduler_generation=gen if gen is not None and gen >= 2 else None,
@@ -1110,7 +1285,8 @@ class ParameterServerExecutor(JobExecutor):
         resp = await self.node.request(scheduler_peer, PROTOCOL_PROGRESS, progress, timeout=30)
         if not isinstance(resp, ProgressResponse):
             raise RequestError(f"unexpected progress response {resp!r}")
-        log.info("ps %s: round %d UPDATED (answered %s)", job_id, round_num, resp.kind.value)
+        log.info("ps %s: round %d UPDATED%s (answered %s)", job_id, round_num,
+                 f" shard {shard}" if shard else "", resp.kind.value)
         if execution is not None:
             new_gen = getattr(resp, "generation", None)
             if new_gen is not None:

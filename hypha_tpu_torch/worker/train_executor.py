@@ -9,10 +9,13 @@ node was built for the CPU) — the whole fetch/send/receive/status
 contract, without the subprocess. It is the worker runtime's default
 train runtime, as in the reference.
 
-Not ported: the tree-reduce group reducer and the metrics reporter the
-reference starts beside the loop (ROADMAP.md, Queue 1:
-sharded PS/FT/rejoin; telemetry), and the slice cache
-(input_pipeline); a job asking for them raises inside ``run_training``.
+A worker its job names its group's reducer (``reduce_members``) runs a
+:class:`~hypha_tpu_torch.stream.reduce.GroupReducer` beside the loop, in
+the node's event loop and on its device, stopped with the job.
+
+Not ported: the metrics reporter the reference starts beside the loop
+(ROADMAP.md, Queue 1: telemetry) and the slice cache (input_pipeline); a
+job asking for them raises inside ``run_training``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from pathlib import Path
 from .. import aio
 from ..hw import default_device
 from ..messages import JobSpec
+from ..stream.reduce import maybe_start_reducer
 from .bridge import Bridge
 from .connectors import Connector
 from .job_manager import Execution, JobExecutor
@@ -64,8 +68,9 @@ class InProcessTrainExecutor(JobExecutor):
             await asyncio.to_thread(shutil.rmtree, work_dir, ignore_errors=True)
             raise
         stop_flag = threading.Event()
+        reducer = maybe_start_reducer(self.node, spec, self.device, work_dir / "reduce")
         runner = asyncio.create_task(
-            self._run(execution, spec, socket_path, work_dir, bridge, stop_flag))
+            self._run(execution, spec, socket_path, work_dir, bridge, stop_flag, reducer))
 
         async def cancel() -> None:
             # Cooperative: the training thread polls the flag between
@@ -96,7 +101,8 @@ class InProcessTrainExecutor(JobExecutor):
         return execution
 
     async def _run(self, execution: Execution, spec: JobSpec, socket_path: Path,
-                   work_dir: Path, bridge: Bridge, stop_flag: threading.Event) -> None:
+                   work_dir: Path, bridge: Bridge, stop_flag: threading.Event,
+                   reducer=None) -> None:
         from ..executor.bridge_client import Session
         from ..executor.training import run_training
 
@@ -120,5 +126,7 @@ class InProcessTrainExecutor(JobExecutor):
                 log.exception("in-process training job %s failed", spec.job_id)
                 execution.finish("failed", str(e))
         finally:
+            if reducer is not None:
+                await reducer.stop()
             await bridge.stop()
             await asyncio.to_thread(shutil.rmtree, work_dir, ignore_errors=True)

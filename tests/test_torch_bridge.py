@@ -327,8 +327,10 @@ def test_port_connector_routes(tmp_path):
         with pytest.raises(NotImplementedError, match="input_pipeline"):
             await TConnector(object(), "s").fetch(
                 tmsg.Fetch(tmsg.Reference.from_scheduler("s", "d", prefetch=2)), tmp_path)
-        with pytest.raises(NotImplementedError, match="sharded PS/FT/rejoin"):
-            shard_route(tmsg.ShardMap(shards=["a"]), 0)
+        # shard_route runs now (tests/test_torch_shard.py holds it to the
+        # reference's); an empty placement is refused as there.
+        with pytest.raises(ValueError, match="populated ShardMap"):
+            shard_route(tmsg.ShardMap(shards=[]), 0)
 
     run(main())
     with pytest.raises(ValueError, match="scheme"):

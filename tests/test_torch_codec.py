@@ -40,7 +40,7 @@ def _draws(seed: int) -> SimpleNamespace:
     )
 
 
-def _train(p, v):
+def _train(p, v, **extra):
     m = p.m
     return m.JobSpec(job_id=v.s[2], executor=m.Executor(
         kind="train", name=m.TRAIN_EXECUTOR_NAME, train=m.TrainExecutorConfig(
@@ -51,17 +51,23 @@ def _train(p, v):
             results=m.Receive(m.Reference.from_peers([v.s[0], v.s[3]], "results")),
             optimizer=m.Adam(lr=v.f[0], weight_decay=v.f[1]), batch_size=v.i[1],
             scheduler=m.LRScheduler(kind=m.LRSchedulerKind.COSINE_WITH_WARMUP, warmup_steps=v.i[2]),
-            loss=m.Loss.CROSS_ENTROPY)))
+            loss=m.Loss.CROSS_ENTROPY, **extra)))
 
 
-def _aggregate(p, v):
+def _shard_map(p, v, **extra):
+    """A placement over two shards with one reduce group."""
+    return p.m.ShardMap(round=0, shards=[v.s[3], v.s[4]], tags=[f"{v.s[5]}.s0", f"{v.s[5]}.s1"],
+                        fragments=v.i[0] % 7 + 2, groups=[[v.s[0], v.s[1], v.s[2]]], **extra)
+
+
+def _aggregate(p, v, **extra):
     m = p.m
     return m.JobSpec(job_id=v.s[2], executor=m.Executor(
         kind="aggregate", name=m.AGGREGATE_EXECUTOR_NAME, aggregate=m.AggregateExecutorConfig(
             updates=m.Receive(m.Reference.from_peers([v.s[0], v.s[3]], v.s[5])),
             results=m.Send(m.Reference.from_peers([v.s[0], v.s[3]], "results",
                                                   m.TransferStrategy.ANY)),
-            optimizer=m.Nesterov(lr=v.f[2], momentum=v.f[3]), num_workers=v.i[3])))
+            optimizer=m.Nesterov(lr=v.f[2], momentum=v.f[3]), num_workers=v.i[3], **extra)))
 
 
 def _infer(p, v, **additive):
@@ -94,6 +100,17 @@ MESSAGES = {
     "RenewLeaseResponse": lambda p, v: p.m.RenewLeaseResponse(lease_id=v.s[1], timeout=v.f[0]),
     "DispatchJob/train": lambda p, v: p.m.DispatchJob(lease_id=v.s[1], spec=_train(p, v)),
     "DispatchJob/aggregate": lambda p, v: p.m.DispatchJob(lease_id=v.s[1], spec=_aggregate(p, v)),
+    # The sharded service and the tree reduce: the placement, a member's
+    # and a reducer's train spec, a shard's aggregate spec, UPDATED with
+    # its shard.
+    "ShardMap": lambda p, v: _shard_map(p, v),
+    "ShardMap/tree": lambda p, v: _shard_map(p, v, tree_depth=2),
+    "DispatchJob/train/member": lambda p, v: p.m.DispatchJob(lease_id=v.s[1], spec=_train(
+        p, v, ps_shards=_shard_map(p, v), reduce_via=v.s[0], sync_mode="stream", fragments=4)),
+    "DispatchJob/train/reducer": lambda p, v: p.m.DispatchJob(lease_id=v.s[1], spec=_train(
+        p, v, ps_shards=_shard_map(p, v), reduce_members=[v.s[1], v.s[2]], delta_codec="int8")),
+    "DispatchJob/aggregate/shard": lambda p, v: p.m.DispatchJob(lease_id=v.s[1], spec=_aggregate(
+        p, v, shard_index=1, num_ps_shards=2, sync_mode="stream", fragments=4)),
     "DispatchJob/infer": lambda p, v: p.m.DispatchJob(lease_id=v.s[1], spec=p.m.JobSpec(
         job_id=v.s[2], executor=p.m.Executor(kind="infer", name=p.m.INFER_EXECUTOR_NAME,
                                              infer=_infer(p, v)))),
@@ -130,6 +147,8 @@ MESSAGES = {
         metrics={"loss": v.f[0], "samples": v.f[1]}),
     "Progress/updated": lambda p, v: p.m.Progress(kind=p.m.ProgressKind.UPDATED, job_id=v.s[2],
                                                   round=v.i[1]),
+    "Progress/updated/shard": lambda p, v: p.m.Progress(
+        kind=p.m.ProgressKind.UPDATED, job_id=v.s[2], round=v.i[1], shard=v.i[2] % 4 + 1),
     "ProgressResponse": lambda p, v: p.m.ProgressResponse(
         kind=p.m.ProgressResponseKind.SCHEDULE_UPDATE, counter=v.i[2]),
     # The router's heartbeat as a port backend sends it (weight_* and

@@ -1237,3 +1237,157 @@ def test_outer_step_replayed_from_the_journal_gives_the_stored_wire(cuda, tmp_pa
     assert status.state == "completed", status
     round0 = [(g, h) for g, r, h in stored if r == 0]
     assert [g for g, _ in round0] == [1, 2] and round0[0][1] == round0[1][1], stored
+
+
+async def _memory_mesh(peer_ids):
+    from hypha_tpu_torch.network import MemoryTransport, Node
+
+    hub = MemoryTransport()
+    nodes = {p: Node(hub.shared(), peer_id=p) for p in peer_ids}
+    for n in nodes.values():
+        await n.start()
+    for x in nodes.values():
+        for y in nodes.values():
+            if x is not y:
+                x.add_peer_addr(y.peer_id, y.listen_addrs[0])
+    return nodes
+
+
+@pytest.mark.parametrize("codec", ["none", "int8"])
+def test_group_reducer_partial_on_the_card_equals_the_cpu(cuda, tmp_path, codec):
+    """A GroupReducer folding three members' deltas (f32 and bf16 files, or
+    int8 frames; one member re-sends, so its first delta is un-folded) on
+    the card and on the CPU: every partial the shard receives is the same
+    file, the int8 frames with their error-feedback residual included."""
+    import asyncio
+    import types
+
+    from hypha_tpu_torch import compress
+    from hypha_tpu_torch import messages as m
+    from hypha_tpu_torch.executor.serialization import load_file
+    from hypha_tpu_torch.stream.reduce import GroupReducer
+
+    members, samples = ("w1", "w2", "w3"), (300.0, 101.0, 7.0)
+    files = {r: _delta_files(tmp_path, 10 + r) for r in range(2)}
+    if codec == "int8":
+        for r, paths in files.items():
+            for i, path in enumerate(paths):
+                frame = path.with_suffix(".hqd1")
+                compress.write_delta(frame, {k: v.float() for k, v in load_file(path).items()},
+                                     "int8", tag={"round": r, "fragment_id": 0, "fragments": 2})
+                paths[i] = frame
+
+    async def reduce(device, name):
+        nodes = await _memory_mesh(["red", "ps0", "ps1", *members])
+        smap = m.ShardMap(round=0, shards=["ps0", "ps1"], tags=["u.s0", "u.s1"], fragments=2,
+                          groups=[["red", *members]])
+        cfg = types.SimpleNamespace(ps_shards=smap, reduce_members=list(members), reduce_via=None,
+                                    delta_codec=codec, delta_dtype="float32", sync_mode="blocking")
+        red = GroupReducer(nodes["red"], cfg, work_dir=tmp_path / name, device=device)
+        red.start()
+        got = []
+        for r in range(2):
+            sends = list(zip(members, files[r], samples))
+            if r == 0:  # w1 first sends w3's file, then its own
+                sends.insert(0, ("w1", files[0][2], 55.0))
+            for w, path, n in sends:
+                await nodes[w].push("red", {"resource": "u.s0", "name": path.name, "round": r,
+                                            "num_samples": n, "shard": 0, "fragment_id": 0,
+                                            "fragments": 2}, path)
+                await asyncio.sleep(0.3)  # arrivals in this order
+            for _ in range(600):  # the round's partial: every member in
+                if red.partials > r:
+                    break
+                await asyncio.sleep(0.1)
+            while len(got) < red.partials:
+                push = await nodes["ps0"].next_push(timeout=60)
+                dest = tmp_path / f"{name}-{len(got)}"
+                await push.save_to(dest)
+                got.append((dict(push.resource), dest.read_bytes()))
+        await red.stop()
+        for n in nodes.values():
+            await n.stop()
+        return got, (red.folds, red.unfolds)
+
+    host, card = asyncio.run(reduce("cpu", "host")), asyncio.run(reduce(cuda, "card"))
+    assert host[1] == card[1] and host[1][1] == 1
+    assert len(host[0]) == len(card[0]) >= 2
+    for (hh, hb), (ch, cb) in zip(host[0], card[0]):
+        assert hh == ch and hh["prefold"] is True
+        assert hb == cb, hh
+
+
+def test_two_shards_on_the_card_equal_one_server(cuda, tmp_path):
+    """Two parameter-server shards (blocking, each its own part of the
+    tree) and one server over the whole tree, all on the card, fed the
+    same deltas for two rounds: every tensor of every update is equal bit
+    for bit."""
+    import asyncio
+
+    from hypha_tpu_torch import messages as m
+    from hypha_tpu_torch.executor.serialization import load_file, save_file
+    from hypha_tpu_torch.stream import partition_names
+    from hypha_tpu_torch.worker.ps_executor import ParameterServerExecutor
+
+    workers, samples = ("w0", "w1", "w2"), (300.0, 101.0, 7.0)
+    files = {r: _delta_files(tmp_path, 20 + r) for r in range(2)}
+    first = load_file(files[0][0])
+    parts = partition_names({k: v.numel() for k, v in first.items()}, 2)
+    split = {}
+    for r, paths in files.items():
+        for i, path in enumerate(paths):
+            tree = load_file(path)
+            for p, names in enumerate(parts):
+                split[(r, i, p)] = save_file({n: tree[n] for n in names},
+                                             tmp_path / f"part-{r}-{i}-{p}.safetensors")
+
+    async def serve(shards):
+        names = [f"ps{k}" for k in range(shards)]
+        nodes = await _memory_mesh([*names, "sched", *workers])
+
+        async def on_progress(peer, p):
+            return m.ProgressResponse(kind=m.ProgressResponseKind.DONE if p.round
+                                      else m.ProgressResponseKind.OK)
+
+        nodes["sched"].on(m.PROTOCOL_PROGRESS, m.Progress).respond_with(on_progress)
+        executions = []
+        for k, name in enumerate(names):
+            extra = {"shard_index": k, "num_ps_shards": shards} if shards > 1 else {}
+            spec = m.JobSpec(job_id=f"agg-{name}", executor=m.Executor(
+                kind="aggregate", name="parameter-server", aggregate=m.AggregateExecutorConfig(
+                    updates=m.Receive(m.Reference.from_peers(list(workers), f"u{k}")),
+                    results=m.Send(m.Reference.from_peers(["w0"], "results")),
+                    optimizer=m.Nesterov(lr=0.7, momentum=0.9), **extra)))
+            executions.append(await ParameterServerExecutor(
+                nodes[name], tmp_path / f"s{shards}-{name}", device=cuda).execute(
+                    f"agg-{name}", spec, "sched"))
+        results = nodes["w0"].consume_pushes(lambda push: push.resource["resource"] == "results")
+        got = []
+        for r in range(2):
+            for i, (w, n) in enumerate(zip(workers, samples)):
+                if shards == 1:
+                    await nodes[w].push("ps0", {"resource": "u0", "name": "d", "round": r,
+                                                "num_samples": n}, files[r][i])
+                    continue
+                for p in range(2):
+                    await nodes[w].push(f"ps{p}", {
+                        "resource": f"u{p}", "name": "d", "round": r, "num_samples": n,
+                        "shard": p, "fragment_id": p, "fragments": 2}, split[(r, i, p)])
+            update = {}
+            for _ in range(shards):
+                push = await results.next(timeout=60)
+                dest = tmp_path / f"got-{shards}-{r}-{len(update)}.safetensors"
+                await push.save_to(dest)
+                update.update(load_file(dest))
+            got.append(update)
+        states = [(await asyncio.wait_for(e.wait(), 60)).state for e in executions]
+        for n in nodes.values():
+            await n.stop()
+        assert states == ["completed"] * shards
+        return got
+
+    one, two = asyncio.run(serve(1)), asyncio.run(serve(2))
+    for r in range(2):
+        assert set(one[r]) == set(two[r]) == set(first)
+        for k in first:
+            assert torch.equal(one[r][k].view(torch.int32), two[r][k].view(torch.int32)), (r, k)

@@ -411,6 +411,8 @@ def test_batch_scheduler_caps_are_the_reference_constants():
     assert (tbs.TIME_CAP_MS, tbs.UPDATES_CAP) == (jbs.TIME_CAP_MS, jbs.UPDATES_CAP) == (10_000.0, 3)
 
 
+# shards_due runs (tests/test_torch_shard.py); beside adaptive steps the
+# scheduler still refuses (the case name is kept).
 @pytest.mark.parametrize("option,label", [
     ("shards_due", "sharded PS/FT/rejoin"),
     ("adaptive", "sharded PS/FT/rejoin"),
@@ -419,8 +421,12 @@ def test_batch_scheduler_caps_are_the_reference_constants():
 def test_batch_scheduler_unported_options_raise(option, label):
     tracker = ttr.ProgressTracker("ps", 8, 2, clock=lambda: 0.0)
     value = {"shards_due": lambda r: (0,), "adaptive": object(), "generation": 2}[option]
+    kw = {option: value}
+    if option == "shards_due":
+        tbs.BatchScheduler(tracker, **kw)
+        kw["adaptive"] = object()
     with pytest.raises(NotImplementedError, match=label):
-        tbs.BatchScheduler(tracker, **{option: value})
+        tbs.BatchScheduler(tracker, **kw)
 
 
 # -- allocation: Candidates, the offer window, batch sizing --------------------
@@ -633,9 +639,11 @@ UNPORTED = {
     # ft and checkpoint_dir run on blocking jobs, not with stream.
     "ft": (_FT_ON, "sharded PS/FT/rejoin", {"sync_mode": "stream"}),
     "checkpoint_dir": ("/ckpt", "sharded PS/FT/rejoin", {"sync_mode": "stream"}),
-    "num_ps_shards": (2, "sharded PS/FT/rejoin"),
-    "reduce_group_size": (2, "sharded PS/FT/rejoin"),
-    "reduce_tree_depth": (2, "sharded PS/FT/rejoin", {"reduce_group_size": 2}),
+    # Shards and reduce groups run, but not with ft or a checkpoint_dir.
+    "num_ps_shards": (2, "sharded PS/FT/rejoin", {"checkpoint_dir": "/ckpt"}),
+    "reduce_group_size": (2, "sharded PS/FT/rejoin", {"ft": _FT_ON}),
+    "reduce_tree_depth": (2, "sharded PS/FT/rejoin", {"reduce_group_size": 2,
+                                                      "checkpoint_dir": "/ckpt"}),
     "broadcast_tree": (True, "sharded PS/FT/rejoin", {"reduce_group_size": 2}),
     "adaptive_steps": (True, "sharded PS/FT/rejoin"),
     "adaptive_codec": (True, "sharded PS/FT/rejoin"),
@@ -660,8 +668,13 @@ def test_unported_job_option_raises_with_its_label(option):
         tjob.DiLoCoJob(model={}, dataset="d", **kw)
 
 
+PLACED = ("num_ps_shards", "reduce_group_size", "reduce_tree_depth")
+
+
 def test_every_unported_option_has_a_case_and_its_off_value_runs():
-    assert sorted(UNPORTED) == sorted(name for name, _, _ in tjob._NOT_PORTED)
+    assert sorted(set(UNPORTED) - set(PLACED)) == sorted(name for name, _, _ in tjob._NOT_PORTED)
+    for name in PLACED:  # they run: refused only beside ft or a checkpoint_dir
+        assert name not in {n for n, _, _ in tjob._NOT_PORTED}
     job = tjob.DiLoCoJob(model={}, dataset="d", reduce_tree_depth=1, sharding=None)
     assert job.sync_mode == "blocking" and job.num_ps_shards == 1
 

@@ -69,8 +69,10 @@ def test_partition_and_schedule_equal_jax():
             assert tstream.placement_parts(mode, f) == jstream.placement_parts(mode, f)
     with pytest.raises(ValueError):
         tstream.effective_fragments("async")
-    with pytest.raises(NotImplementedError, match="sharded PS/FT/rejoin"):
-        tstream.placement_parts("stream", 4, num_shards=2)
+    for mode in ("blocking", "overlap", "stream"):
+        for n in (2, 3):
+            assert tstream.placement_parts(mode, 4, num_shards=n) == \
+                jstream.placement_parts(mode, 4, num_shards=n)
 
 
 def test_merge_corrected_is_bit_equal():
