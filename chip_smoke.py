@@ -103,7 +103,7 @@ Phases, each printing one JSON line:
    and exact merges; step time, tokens/s, peak memory and the kernels'
    device time per step from the profiler, where one step must show each
    bf16 tensor-core flash kernel with its launches (16 / 8 / 8);
-11. train_node — the ``train`` phase's job cut to 4 layers
+11. train_node — the ``train`` phase's job cut to 2 layers
    (``NODE_LAYERS``: its gates are the network's and the scheduler's; the
    8-layer step is ``train``'s), run by
    the port alone (``run_node_job``) on ``TcpTransport`` at 127.0.0.1: a
@@ -117,7 +117,7 @@ Phases, each printing one JSON line:
    (``NODE_STATUS_TIMEOUT_S`` says why); gates on both jobs running then
    completed, ``JobResult.rounds``, 8 samples (4 batches of 2) a round,
    the dispatched batch 2, the jobs' placement, the server's ``UPDATED``,
-   falling round losses, 64 / 32 / 32 flash launches and no plain call
+   falling round losses, 32 / 16 / 16 flash launches and no plain call
    (the trainer's log), each received Δθ's flat f32 names and shapes, no
    failed renewal and no file left behind; from stamps inside the
    scheduler: step ms, tokens/s, the round boundary, the largest gap
@@ -125,7 +125,7 @@ Phases, each printing one JSON line:
    the batch scheduler's ms per message; each Δθ push and broadcast with
    its bytes, the fold and ``outer_step`` seconds, auction to dispatch,
    dispatch to first heartbeat and the trainer's peak memory;
-12. train_stream — ``train_node``'s job and fabric (4 layers)
+12. train_stream — ``train_node``'s job and fabric (2 layers)
    with the compressed streaming outer sync: ``delta_codec`` int8,
    ``sync_mode`` stream, 4 fragments, 4 rounds of 8 batches of 2 (every
    fragment syncs once), the trainer quantizing each due fragment's Δθ on
@@ -163,11 +163,11 @@ Phases, each printing one JSON line:
    pure-Python verify ms, the largest progress gap against the watchdog,
    the trainer's peak, ``ssl.OPENSSL_VERSION`` and the phase's seconds;
 12c. train_ft — fault-tolerant blocking DiLoCo (``run_ft_job``): 7B widths
-   cut to 2 layers (``FT_LAYERS`` says why), int8 deltas, 5 rounds of 4
+   cut to 1 layer (``FT_LAYERS`` says why), int8 deltas, 5 rounds of 4
    steps, two trainer processes on the card under the port's scheduler
    with ``FTConfig`` (quorum 0.5, one parameter-server restart),
-   ``checkpoint_dir`` (trainer checkpoints and the durable server, every 2
-   rounds) and a ``ChaosController`` (``FT_CHAOS``): ``w1`` killed after
+   ``checkpoint_dir`` (trainer checkpoints every 4 rounds, the durable
+   server every 2) and a ``ChaosController`` (``FT_CHAOS``): ``w1`` killed after
    its round-0 delta, round 1 closed on ``w0`` alone, a spare ``w2``
    auctioned and caught up through the server's Σ; the parameter server
    killed at round 3's first journaled delta and restarted under its peer
@@ -192,9 +192,9 @@ Phases, each printing one JSON line:
    hosts ``psw0`` and ``psw1`` (the distinct-peer auction puts one shard
    on each). Job S: 1 layer (``SHARD_S_MODEL``), three trainer processes,
    ``SHARD_S_OPTIONS`` (stream, 4 fragments, int8, 2 shards, one reduce
-   group of 3 with ``w0`` its reducer), ``STREAM_ROUNDS`` x
+   group of 3 with ``w0`` its reducer), ``SHARD_S_ROUNDS`` x
    ``STREAM_STEPS``; Job B: 2 layers, two trainers, blocking over 2
-   shards, 2 rounds of 4. Each job first checks the card's free memory
+   shards, 2 rounds of 2. Each job first checks the card's free memory
    against ``shard_bytes_needed`` and fails with the numbers. Gates
    (``shard_stream_problems``, ``shard_blocking_problems``): each stream
    round's update from the shard owning its fragment, which took ``w0``'s
@@ -214,6 +214,30 @@ Phases, each printing one JSON line:
    bytes, covers) and re-flushes a round; step ms with three trainers,
    the round boundary, flights, each trainer's peak, the servers' and
    reducer's peak and the card's, and the phase's seconds;
+12e. train_shard_ft — fault tolerance of Job S (``run_shard_ft_job``):
+   ``SHARD_S_OPTIONS`` with ``FTConfig`` (quorum 0.5, deadline 70 s, one
+   shard restart), durable shards under ``<checkpoint_dir>/ps<k>``
+   checkpointed every 2 of their own commits, trainer checkpoints at the
+   last of 6 rounds of ``STREAM_STEPS``, the reducer's flush timer at 2 s
+   (``SHARD_FT_FLUSH_S``); ``SHARD_FT_CHAOS``: group member
+   ``w2`` killed once shard 1 journaled the round-1 partial covering it,
+   a spare ``w3`` caught up through one catch-up per shard; shard 1's
+   host killed after the rejoin, idle between its committed round 1 and
+   its round 3, and restarted under its peer id once shard 0 closed round
+   2. Gates (``shard_ft_problems``): ``attempt`` 0 and every round
+   ``UPDATED`` once from its due shard, every job completed, ``w3`` for
+   ``w2``, a round of shard 0 closed during shard 1's outage, shard 1 at
+   generation 2 with each replayed round's wire byte-equal to the stored
+   one and a replayed round holding a prefold partial with its covers,
+   re-sends only of shard 1's rounds and none at shard 0, ``w3``'s θ
+   after its catch-ups equal to θ₀ + Σ of the broadcast updates unioned
+   over both shards bit for bit, each trainer's checkpoint versions, the
+   flash launches of every batch, clean stops, no leftover file, and
+   enough free disk (``shard_ft_bytes_needed``). It reports kill to
+   departure, departure to ``w3``'s heartbeat, each shard's catch-up
+   bytes and seconds, shard kill to generation 2's broadcast, the replay,
+   each shard's checkpoints and journal, the other shard's rounds during
+   the outage, step ms, peaks and the phase's seconds;
 13. train_reference — a tiny Llama (head_dim 64), and the same with a
    sliding window below its sequence (Mistral's local attention), each
    trained 4 steps through the kernels and through the plain flash version
@@ -283,7 +307,15 @@ STEP_LAUNCHES = dict(zip(FLASH_NAMES, (2 * TRAIN_LAYERS, TRAIN_LAYERS, TRAIN_LAY
 TRAIN_PERIOD = 1024  # the data counts modulo this; the model's vocabulary stays 32000
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line also says when it ended (``at_s``,
+    seconds since the script started), so the phases' shares of the time
+    limit can be read from the log."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1727,7 +1759,7 @@ def profile_phase(model) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from hypha_tpu_torch.ops.kvcache import KVCache
-    from hypha_tpu_torch.ops.paged_attention import _decode_splits, _sm_count
+    from hypha_tpu_torch.ops.paged_attention import _decode_splits, _sm_count, ragged_paged_attention
 
     B, per_lane, n = 8, 32, 10
     layers = model.config.num_layers
@@ -1758,14 +1790,27 @@ def profile_phase(model) -> dict:
                 forward()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) / n * 1e3
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(n):
-                    forward()
-                torch.cuda.synchronize()
-        # Device-side events only: CPU ops report their kernels' time too.
-        rows = [(e.key, e.self_device_time_total / n / 1e3, e.count // n)
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+            # The wrapper counts its launches over the same window; when the
+            # profiler's records hold fewer ragged kernels (CUPTI can lose an
+            # activity record), the window is profiled once more.
+            for _ in range(2):
+                launched = ragged_paged_attention.launches
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(n):
+                        forward()
+                    torch.cuda.synchronize()
+                launched = ragged_paged_attention.launches - launched
+                # Device-side events only: CPU ops report their kernels' time too.
+                events = [e for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and e.self_device_time_total > 0]
+                recorded = sum(e.count for e in events
+                               if any(r in e.key for r in RAGGED_NAMES if "merge" not in r))
+                if recorded == launched:
+                    break
+                out.setdefault("incomplete", []).append(
+                    {"label": label, "recorded": recorded, "launched": launched})
+        rows = [(e.key, e.self_device_time_total / n / 1e3, e.count // n) for e in events]
         rows.sort(key=lambda r: -r[1])
         busy = sum(r[1] for r in rows)
         by_name = {name: {"ms": sum(ms for k, ms, _ in rows if name in k),
@@ -2034,7 +2079,11 @@ class TrainSession(Scheduler):
     client's four methods. The server runs each round through
     ``ps_round`` on the card (lr 0.7, μ 0.9), checks after every merge that
     the trainer's parameters equal θ_t + update, records step times, and
-    profiles one steady inner step."""
+    profiles one steady inner step of round 1. The wrappers count the
+    flash launches of the same window; when the profiler's records hold
+    fewer (CUPTI can lose an activity record), the window is kept in
+    ``self.incomplete`` and the next steady step of the round is profiled
+    instead."""
 
     def __init__(self, work_dir, slices, *, rounds, steps, outer):
         super().__init__(rounds=rounds, steps=steps)
@@ -2049,34 +2098,54 @@ class TrainSession(Scheduler):
         self.times: list = []  # ps_round's seconds, a dict a round
         self.prof = None
         self.prof_t0 = 0.0
+        self.prof_counts: dict = {}
         self.profile = None
+        self.incomplete: list = []  # profiled steps whose records missed a launch
 
     def fetch(self, ref):
         path = self.slices[self.fetches % len(self.slices)]
         self.fetches += 1
         return [path.name]
 
+    @staticmethod
+    def flash_counts() -> dict:
+        from hypha_tpu_torch.ops.flash_attention import flash_attention
+
+        return dict(zip(FLASH_NAMES, (flash_attention.fwd_launches, flash_attention.dq_launches,
+                                      flash_attention.dkv_launches)))
+
     def on_status(self, now):
         from torch.profiler import ProfilerActivity, profile
 
-        if self.done == 1 and self.batches == 1 and self.prof is None:
-            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            self.prof.__enter__()
-            self.prof_t0 = time.perf_counter()
-        elif self.prof is not None and self.profile is None:
+        if self.prof is not None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - self.prof_t0
             self.prof.__exit__(None, None, None)
+            counts = self.flash_counts()
             rows = [(e.key, e.self_device_time_total / 1e3, e.count)
                     for e in self.prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
             rows.sort(key=lambda r: -r[1])
-            self.profile = dict(
+            self.prof = None
+            step = dict(
                 wall_ms=wall * 1e3, device_busy_ms=sum(r[1] for r in rows),
                 kernels={name: sum(ms for k, ms, _ in rows if name in k) for name in FLASH_NAMES},
                 launches={name: sum(c for k, _, c in rows if name in k) for name in FLASH_NAMES},
+                wrapper_launches={n: counts[n] - self.prof_counts[n] for n in FLASH_NAMES},
                 top=[{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:8]],
             )
+            if step["launches"] == step["wrapper_launches"] or self.batches >= self.steps - 1:
+                self.profile = step
+            else:
+                self.incomplete.append(step)
+        # Round 1's steps from its second on: the last status of the round
+        # schedules the update, so the windows end before it.
+        if (self.done == 1 and 1 <= self.batches < self.steps - 1 and self.prof is None
+                and self.profile is None):
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.prof_counts = self.flash_counts()
+            self.prof_t0 = time.perf_counter()
 
     def on_round_end(self):
         self.check_merge()
@@ -2234,7 +2303,7 @@ def train_phase() -> dict:
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, wall_s=wall,
         update_phase_s=session.update_s, server_s=session.times,
         kernel_launches=launches, **plain, merge_rel_err=session.merge_rel_err,
-        profiled_step=prof,
+        profiled_step=prof, profiled_incomplete=session.incomplete,
         device_idle_share=(1 - prof["device_busy_ms"] / step_ms) if prof else None,
     )
     want = {"fwd": 2 * TRAIN_LAYERS * steps_total, "dq": TRAIN_LAYERS * steps_total,
@@ -2250,9 +2319,11 @@ def train_phase() -> dict:
         problems.append(f"plain attention ran on the path: {plain}")
     if len(session.merge_rel_err) != TRAIN_ROUNDS or max(session.merge_rel_err) > 2.0**-23:
         problems.append(f"merge errors {session.merge_rel_err}")
-    if prof.get("launches") != STEP_LAUNCHES or not all(prof["kernels"][n] for n in FLASH_NAMES):
-        problems.append(f"profiled step: flash launches {prof.get('launches')} (wanted "
-                        f"{STEP_LAUNCHES}), device ms {prof.get('kernels')}")
+    if (prof.get("launches") != STEP_LAUNCHES or prof.get("wrapper_launches") != STEP_LAUNCHES
+            or not all(prof["kernels"][n] for n in FLASH_NAMES)):
+        problems.append(f"profiled step: flash launches {prof.get('launches')}, by the wrappers "
+                        f"{prof.get('wrapper_launches')} (wanted {STEP_LAUNCHES}), device ms "
+                        f"{prof.get('kernels')}, incomplete windows {session.incomplete}")
     if problems:
         emit({"phase": "train", **res, "problems": problems})
         raise SystemExit("training phase failed: " + "; ".join(problems))
@@ -2437,12 +2508,14 @@ def node_probes(device):
                     rec[ident[0]].append({**ident[1](args), "s": rec[key][-1]})
         return call
 
-    async def timed_broadcast(self, cfg, update_path, round_num, elastic=None, extra_header=None):
+    async def timed_broadcast(self, cfg, update_path, round_num, elastic=None, extra_header=None,
+                              peers_override=None):
         size, t0 = update_path.stat().st_size, time.perf_counter()
-        await broadcast(self, cfg, update_path, round_num, elastic, extra_header)
+        await broadcast(self, cfg, update_path, round_num, elastic, extra_header, peers_override)
+        to = list(elastic.membership.active) if elastic else None
         rec["broadcast"].append({"round": round_num, "s": time.perf_counter() - t0, "bytes": size,
                                  "header": extra_header, "t0": t0,
-                                 "to": list(elastic.membership.active) if elastic else None})
+                                 "to": peers_override if peers_override is not None else to})
 
     async def timed_send(self, send_, path, resource, meta=None):
         size, t0 = Path(path).stat().st_size, time.perf_counter()
@@ -2799,8 +2872,9 @@ def node_problems(run: dict, *, rounds: int, expect: dict) -> list:
 
 
 # train_node runs the train job at NODE_LAYERS: its gates are the network's
-# and the scheduler's, and ``train`` measures the 8-layer step.
-NODE_LAYERS = 4
+# and the scheduler's, and ``train`` measures the 8-layer step. 2 layers
+# since train_shard_ft joined the smoke (4 before), for its time limit.
+NODE_LAYERS = 2
 NODE_MODEL = {**TRAIN_MODEL, "config": {**TRAIN_MODEL["config"], "num_layers": NODE_LAYERS}}
 
 
@@ -2882,8 +2956,8 @@ def train_node_phase(train: dict) -> dict:
 STREAM_OPTIONS = {"delta_codec": "int8", "sync_mode": "stream", "num_fragments": 4}
 STREAM_ROUNDS, STREAM_STEPS = 4, 8  # every fragment syncs once
 # train_stream and train_secure (which compares its TLS transfers with
-# train_stream's in the same run) run NODE_MODEL's 4 layers for the
-# smoke's time limit; the 8-layer step is train's.
+# train_stream's in the same run) run NODE_MODEL's layers for the smoke's
+# time limit; the 8-layer step is train's.
 
 
 def trainer_log(log: str) -> dict:
@@ -3444,12 +3518,15 @@ def train_secure_phase(stream: dict) -> dict:
 # trainers on one card at 8 layers (41-44 GiB each) do not fit in 80 GiB,
 # and at 4 layers (1.07 B parameters) the phase's checkpoints peak near
 # 90 GB (``ft_bytes_needed``) where the H100's machine has 80.2 GB free.
-FT_LAYERS = 2
+# 1 layer (2 until train_shard_ft joined the smoke) for the time limit:
+# the phase's boundaries are set by its fsync'd state.
+FT_LAYERS = 1
 FT_MODEL = {"model_type": "causal-lm", "family": "llama", "preset": "llama2-7b",
             "seed": 0, "config": {"num_layers": FT_LAYERS, "remat": True}}
 FT_ROUNDS, FT_STEPS = 5, 4
 FT_CHAOS = "kill-worker:1,kill-ps:3"
-FT_EVERY = 2  # checkpoint_every and ps_checkpoint_every_rounds
+FT_EVERY = 2  # ps_checkpoint_every_rounds: round 2's commit is replayed
+FT_CKPT_EVERY = 4  # checkpoint_every: each trainer saves its last round (2 before train_shard_ft)
 # The elastic round deadline: about 3x the healthy collection of round 0
 # (the parameter server's open to its close, the trainers' start-up
 # inside: 23.19 s on an H100 80GB HBM3 at 700 W; PERF.md §4). No round
@@ -3462,7 +3539,8 @@ FT_WAIT_S = 900.0  # the phase's scheduler deadline
 def ft_job(model: dict, *, rounds, steps, batch, lr, deadline_s, checkpoint_dir):
     """``node_job`` for two workers with int8 deltas, elastic rounds
     (quorum 0.5), one parameter-server restart, trainer checkpoints and
-    the durable server under ``checkpoint_dir``, both every ``FT_EVERY``
+    the durable server under ``checkpoint_dir``, every ``FT_CKPT_EVERY``
+    and ``FT_EVERY``
     rounds. The rejoin attempts outlast the wait for the spare worker."""
     from hypha_tpu_torch.ft import FTConfig
 
@@ -3471,7 +3549,7 @@ def ft_job(model: dict, *, rounds, steps, batch, lr, deadline_s, checkpoint_dir)
                     ft=FTConfig(quorum_fraction=0.5, round_deadline_s=deadline_s,
                                 rejoin_attempts=60, rejoin_backoff_s=1.0,
                                 ps_restart_attempts=1, ps_restart_backoff_s=1.0),
-                    checkpoint_dir=str(checkpoint_dir), checkpoint_every=FT_EVERY,
+                    checkpoint_dir=str(checkpoint_dir), checkpoint_every=FT_CKPT_EVERY,
                     ps_checkpoint_every_rounds=FT_EVERY)
 
 
@@ -3510,27 +3588,32 @@ class ThetaTrack:
             else:
                 self.sum[name] = t.clone()
 
-    def catchup(self, rounds: int, cum: dict) -> None:
-        """One served catch-up: ``cum`` is the server's Σ over ``rounds``."""
-        equal = set(cum) == set(self.sum) and all(
+    def catchup(self, rounds: int, cum: dict, shards: int = 1) -> None:
+        """One served catch-up: ``cum`` is the server's Σ over ``rounds``.
+        With ``shards`` > 1 a shard's Σ covers its own tensors: it must
+        equal this Σ on those, and θ₀ + Σ over every tensor is what the
+        rejoiner holds once it merged the union of the shards' catch-ups."""
+        same_keys = set(cum) <= set(self.sum) if shards > 1 else set(cum) == set(self.sum)
+        equal = same_keys and all(
             cum[k].tobytes() == self.sum[k].cpu().numpy().tobytes() for k in cum)
         theta = {k: p + self.sum[k].reshape(p.shape) if k in self.sum else p
                  for k, p in self.theta0.items()}
-        self.catchups.append({"rounds": rounds, "sum_equal": equal,
+        self.catchups.append({"rounds": rounds, "sum_equal": equal, "keys": sorted(cum),
                               "broadcast_rounds": list(self.rounds),
                               "checksum": self.checksum(theta)})
 
 
 @contextmanager
-def ft_probes(rec: dict, theta: "ThetaTrack | None", on_fold, on_dedup):
+def ft_probes(rec: dict, theta: "ThetaTrack | None", on_fold, on_dedup, shards: int = 1):
     """The durable server and the elastic scheduler from inside: each
-    journal record and its bytes (both generations), each fold journaled
-    (generation, round, peer) with ``on_fold(round, peer)`` called on the
-    loop, each dedup hit (``on_dedup()``), each round wire the server
-    stores with its sha-256, each elastic collect (round, open, close,
-    peers), each departure and rejoin the scheduler makes; and, with a
-    ``theta``, each broadcast update accumulated into it and each catch-up
-    Σ checked against it."""
+    journal record and its bytes (both generations; by durable root too),
+    each fold journaled (generation, round, key, root, partial and covers)
+    with ``on_fold(round, key, covers)`` called on the loop, each dedup hit
+    (``on_dedup()``), each round wire the server stores with its sha-256,
+    each elastic or pipelined collect (round, open, close, keys), each
+    departure and rejoin the scheduler makes; and, with a ``theta``, each
+    broadcast update accumulated into it and each catch-up Σ checked
+    against it (a shard's against its own tensors when ``shards`` > 1)."""
     import hashlib
 
     from hypha_tpu_torch.ft.durable import DurablePS, RoundJournal
@@ -3539,33 +3622,39 @@ def ft_probes(rec: dict, theta: "ThetaTrack | None", on_fold, on_dedup):
     from hypha_tpu_torch.worker.ps_executor import ParameterServerExecutor as PS
 
     saved = (RoundJournal.append, DurablePS.note_fold, DurablePS.already_folded,
-             DurablePS.store_wire, PS._collect_round_elastic, PS._encode_broadcast,
-             CatchupBuffer.write, Orchestrator._depart, Orchestrator._rejoin_worker)
-    append, note_fold, folded, store_wire, collect, encode, write, depart, rejoin = saved
+             DurablePS.store_wire, PS._collect_round_elastic, PS._collect_round_stream,
+             PS._encode_broadcast, CatchupBuffer.write, Orchestrator._depart,
+             Orchestrator._rejoin_worker)
+    (append, note_fold, folded, store_wire, collect, collect_stream, encode, write, depart,
+     rejoin) = saved
     loop = asyncio.get_running_loop()
 
     def counted_append(self, record, *, sync=False):
         before = self.bytes_written
         append(self, record, sync=sync)
         rec["journal"].append((record.get("t"), self.bytes_written - before))
+        rec["journal_by_root"].append((self.path.parent.name, record.get("t"),
+                                       self.bytes_written - before))
 
     def noted_fold(self, fold, *, sync=False):
         note_fold(self, fold, sync=sync)
         rec["folds"].append({"generation": self.generation, "round": fold.round,
-                             "peer": fold.peer})
-        loop.call_soon_threadsafe(on_fold, fold.round, fold.peer)
+                             "peer": fold.peer, "root": self.root.name,
+                             "prefold": fold.prefold, "covers": list(fold.covers)})
+        loop.call_soon_threadsafe(on_fold, fold.round, fold.peer, list(fold.covers))
 
     def noted_dedup(self, round_num, fragment, peer, sha):
         hit = folded(self, round_num, fragment, peer, sha)
         if hit:
             rec["dedup_hits"].append({"generation": self.generation, "round": round_num,
-                                      "peer": peer})
+                                      "peer": peer, "root": self.root.name})
             on_dedup()
         return hit
 
     def hashed_store(self, round_num, wire_src):
         h = hashlib.sha256(Path(wire_src).read_bytes()).hexdigest()
-        rec["wires"].append({"generation": self.generation, "round": round_num, "sha256": h})
+        rec["wires"].append({"generation": self.generation, "round": round_num, "sha256": h,
+                             "root": self.root.name})
         return store_wire(self, round_num, wire_src)
 
     async def timed_collect(self, consumer, job_id, st, cfg, work_dir, round_num, accum, dur=None):
@@ -3575,6 +3664,17 @@ def ft_probes(rec: dict, theta: "ThetaTrack | None", on_fold, on_dedup):
                                 "peers": sorted(received),
                                 "generation": dur.generation if dur else None,
                                 "active": list(st.membership.active)})
+        return received
+
+    async def timed_collect_stream(self, consumer, job_id, *args, **kw):
+        t0 = time.perf_counter()
+        received = await collect_stream(self, consumer, job_id, *args, **kw)
+        st, dur = kw.get("st"), kw.get("dur")
+        rec["collects"].append({"round": args[3], "t0": t0, "t1": time.perf_counter(),
+                                "peers": sorted(received),
+                                "generation": dur.generation if dur else None,
+                                "root": dur.root.name if dur else None,
+                                "active": list(st.membership.active) if st else None})
         return received
 
     def merged_encode(self, update_path, codec, ef, work_dir, round_num, tag=None):
@@ -3588,7 +3688,7 @@ def ft_probes(rec: dict, theta: "ThetaTrack | None", on_fold, on_dedup):
 
     def checked_write(self, path):
         if theta is not None:
-            theta.catchup(self.rounds, self._cum)
+            theta.catchup(self.rounds, self._cum, shards)
         return write(self, path)
 
     async def noted_depart(self, ctx, peer, reason, add):
@@ -3603,19 +3703,21 @@ def ft_probes(rec: dict, theta: "ThetaTrack | None", on_fold, on_dedup):
                                    "t": time.perf_counter()})
         return joined
 
-    for key in ("journal", "folds", "dedup_hits", "wires", "collects", "departures", "rejoins"):
+    for key in ("journal", "journal_by_root", "folds", "dedup_hits", "wires", "collects",
+                "departures", "rejoins"):
         rec.setdefault(key, [])
     RoundJournal.append, DurablePS.note_fold = counted_append, noted_fold
     DurablePS.already_folded, DurablePS.store_wire = noted_dedup, hashed_store
     PS._collect_round_elastic, PS._encode_broadcast = timed_collect, merged_encode
+    PS._collect_round_stream = timed_collect_stream
     CatchupBuffer.write = checked_write
     Orchestrator._depart, Orchestrator._rejoin_worker = noted_depart, noted_rejoin
     try:
         yield rec
     finally:
         (RoundJournal.append, DurablePS.note_fold, DurablePS.already_folded, DurablePS.store_wire,
-         PS._collect_round_elastic, PS._encode_broadcast, CatchupBuffer.write,
-         Orchestrator._depart, Orchestrator._rejoin_worker) = saved
+         PS._collect_round_elastic, PS._collect_round_stream, PS._encode_broadcast,
+         CatchupBuffer.write, Orchestrator._depart, Orchestrator._rejoin_worker) = saved
 
 
 def _gated_push(node, gates: dict) -> None:
@@ -3720,7 +3822,7 @@ async def run_ft_job(root: Path, model: dict, *, device, rounds, steps, batch, s
 
     gates = {2: after_join, 3: second_after_dedup}
 
-    def on_fold(round_num: int, peer: str) -> None:
+    def on_fold(round_num: int, peer: str, _covers=None) -> None:
         # The kills' round triggers: w1's once its round-0 delta is
         # journaled (round 1 is then what it misses), the server's at round
         # 3's first journaled delta.
@@ -3992,7 +4094,8 @@ def ft_problems(run: dict, rep: dict, *, rounds: int, steps: int, layers: int,
         problems.append(f"round 3 journaled folds {dict(r3)}, dedup hits {rep['dedup_hits']}: "
                         "wanted each worker once and a re-send deduplicated")
     for peer, start in (("w0", 0), ("w2", rep["catchup"][0]["round"] if rep["catchup"] else 1)):
-        want = [f"v{r:08d}" for r in range(start + 1, rounds + 1) if r % FT_EVERY == 0][-2:]
+        want = [f"v{r:08d}" for r in range(start + 1, rounds + 1)
+                if r % FT_CKPT_EVERY == 0][-2:]
         got = sorted(p.name.split("-")[0] for p in (run["ckpt"] / peer).glob("v*"))
         manifest = latest_manifest(run["ckpt"] / peer)
         if got != want or manifest is None or f"v{manifest['round']:08d}" != want[-1]:
@@ -4082,11 +4185,12 @@ SHARD_S_LAYERS, SHARD_S_WORKERS = 1, 3
 SHARD_S_MODEL = {**TRAIN_MODEL, "config": {**TRAIN_MODEL["config"], "num_layers": SHARD_S_LAYERS}}
 SHARD_S_OPTIONS = {"sync_mode": "stream", "num_fragments": 4, "delta_codec": "int8",
                    "num_ps_shards": 2, "reduce_group_size": 3}
+SHARD_S_ROUNDS = 2  # a round on each shard (4 until train_shard_ft joined the smoke)
 # Job B: blocking sync over 2 shards, no group, 2 layers as train_ft.
 SHARD_B_LAYERS, SHARD_B_WORKERS = 2, 2
 SHARD_B_MODEL = {**TRAIN_MODEL, "config": {**TRAIN_MODEL["config"], "num_layers": SHARD_B_LAYERS}}
 SHARD_B_OPTIONS = {"num_ps_shards": 2, "delta_codec": "int8"}
-SHARD_B_ROUNDS, SHARD_B_STEPS = 2, 4
+SHARD_B_ROUNDS, SHARD_B_STEPS = 2, 2  # 4 steps until train_shard_ft joined the smoke
 
 
 @contextmanager
@@ -4372,7 +4476,7 @@ def _shard_job_summary(run: dict, rep: dict, seconds: float, server_peak: float)
 def train_shard_phase() -> dict:
     """The sharded parameter service and the tree reduce on the card.
     Job S: ``SHARD_S_OPTIONS`` (stream, int8, 2 shards, one group of 3)
-    on three trainer processes, ``STREAM_ROUNDS`` x ``STREAM_STEPS``; Job
+    on three trainer processes, ``SHARD_S_ROUNDS`` x ``STREAM_STEPS``; Job
     B: ``SHARD_B_OPTIONS`` (blocking, int8, 2 shards) on two, held to
     ``shard_stream_problems`` and ``shard_blocking_problems``."""
     from hypha_tpu_torch.executor.serialization import load_file
@@ -4390,7 +4494,7 @@ def train_shard_phase() -> dict:
         return encode(self, update_path, codec, ef, work_dir, round_num, tag)
 
     for job, model, workers, rounds, steps, options in (
-            ("S", SHARD_S_MODEL, SHARD_S_WORKERS, STREAM_ROUNDS, STREAM_STEPS, SHARD_S_OPTIONS),
+            ("S", SHARD_S_MODEL, SHARD_S_WORKERS, SHARD_S_ROUNDS, STREAM_STEPS, SHARD_S_OPTIONS),
             ("B", SHARD_B_MODEL, SHARD_B_WORKERS, SHARD_B_ROUNDS, SHARD_B_STEPS,
              SHARD_B_OPTIONS)):
         gc.collect()
@@ -4455,6 +4559,513 @@ def train_shard_phase() -> dict:
     res = {**out, "seconds": time.perf_counter() - t0}
     if problems:
         raise SystemExit("train_shard phase failed: " + "; ".join(problems))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# train_shard_ft: fault tolerance of a streaming, sharded, tree-reduced job
+# ---------------------------------------------------------------------------
+
+# Job S of train_shard (stream F=4, int8, two shards, one group of 3 with
+# w0 its reducer) made fault tolerant: elastic rounds, durable shards
+# checkpointed every SHARD_FT_PS_EVERY of their own commits, a shard
+# restart, and trainer checkpoints every SHARD_FT_EVERY rounds (the last:
+# three trainers' 5.6 GB versions cost the disk's write-back time).
+SHARD_FT_ROUNDS = 6
+SHARD_FT_EVERY = 6
+SHARD_FT_PS_EVERY = 2
+SHARD_FT_DEADLINE_S = 70.0
+SHARD_FT_CHAOS = "kill-worker:1,kill-ps:3"
+SHARD_FT_FLUSH_S = 2.0  # the group reducer's flush timer (5 s by default)
+
+
+def shard_ft_job(model: dict, *, rounds, steps, batch, lr, deadline_s, checkpoint_dir):
+    """``node_job`` for Job S of ``train_shard`` with ``ft`` (quorum 0.5,
+    one shard restart; its auction window, 20 backoffs, outlasts the
+    shard's outage) and durable shards and trainer checkpoints under
+    ``checkpoint_dir``."""
+    from hypha_tpu_torch.ft import FTConfig
+
+    return node_job(model, rounds=rounds, steps=steps, batch=batch, lr=lr,
+                    workers=SHARD_S_WORKERS, **SHARD_S_OPTIONS,
+                    ft=FTConfig(quorum_fraction=0.5, round_deadline_s=deadline_s,
+                                rejoin_attempts=60, rejoin_backoff_s=1.0,
+                                ps_restart_attempts=1, ps_restart_backoff_s=5.0),
+                    checkpoint_dir=str(checkpoint_dir), checkpoint_every=SHARD_FT_EVERY,
+                    ps_checkpoint_every_rounds=SHARD_FT_PS_EVERY)
+
+
+async def run_shard_ft_job(root: Path, model: dict, *, device, rounds, steps, batch, seq,
+                           period, lr=3e-4, deadline_s=SHARD_FT_DEADLINE_S, limit_s=CLI_LIMIT_S,
+                           train_runtime="process", auction_timeout=2.0, status_timeout=None,
+                           sample_card=False) -> dict:
+    """``shard_ft_job`` on the port's nodes at 127.0.0.1: gateway, data
+    node, train workers ``w0``-``w2`` (``w0`` reduces the group), the two
+    shards on ``psw0`` and ``psw1`` (the auction places them; shard 0 closes
+    the even rounds, shard 1 the odd ones), the port's ``Orchestrator``,
+    and a ``ChaosController`` on ``SHARD_FT_CHAOS``:
+
+      * ``kill-worker:1`` — ``w2``, a group member, is killed once shard 1
+        journaled round 1's partial covering it; a spare ``w3`` starts once
+        the kill finished and round 1 closed, and the scheduler's rejoin
+        has each shard serve it a catch-up (shard 0 at round 2, shard 1 at
+        round 3): it enters round 2 with θ₀ + Σ of rounds 0 and 1;
+      * ``kill-ps:3`` — shard 1's host is killed once both catch-ups were
+        served, after it committed round 1 (not yet checkpointed: the
+        restart replays it, the reducer's partial included) and while it
+        waits for round 3, its next. Shard 0 closes round 2 during the
+        outage; a new node under the killed host's peer id starts only
+        after that round's ``UPDATED``, and the scheduler re-dispatches
+        shard 1's job to it alone.
+
+    A shard killed in the middle of its own round would stall every round
+    after it (a worker ships round r+1 only after merging round r), so the
+    other shard could close none during the outage. Round 2's pushes wait
+    (``_gated_push``) until the rejoin is dispatched, so the catch-ups come
+    at round 2 on every run. Returns what ``node_probes`` and
+    ``ft_probes`` saw, the logs, the chaos and restart times, the disk use
+    before and after, the checkpoint tree and the files left outside it."""
+    import logging
+
+    from hypha_tpu_torch import aio
+    from hypha_tpu_torch.data_node import DataNode
+    from hypha_tpu_torch.ft import ChaosController, parse_chaos_specs
+    from hypha_tpu_torch.gateway import Gateway
+    from hypha_tpu_torch.network import Node, TcpTransport
+    from hypha_tpu_torch.resources import Resources
+    from hypha_tpu_torch.scheduler.orchestrator import Orchestrator
+    from hypha_tpu_torch.stream.reduce import REDUCE_FLUSH_ENV
+    from hypha_tpu_torch.worker.arbiter import OfferConfig
+    from hypha_tpu_torch.worker.runtime import WorkerNode
+
+    disk_before = shutil.disk_usage(root)
+    data_dir, ckpt = root / "data", root / "ckpt"
+    data_dir.mkdir(parents=True)
+    write_slices(data_dir, n_slices=4, per_slice=rounds * steps * batch, seq=seq, period=period,
+                 seed=5)
+    job = shard_ft_job(model, rounds=rounds, steps=steps, batch=batch, lr=lr,
+                       deadline_s=deadline_s, checkpoint_dir=ckpt)
+    theta = ThetaTrack(model, device)
+    listen = ["127.0.0.1:0"]
+
+    def worker(name: str) -> "WorkerNode":
+        return WorkerNode(TcpTransport(), resources=Resources(gpu=1, cpu=8, memory=65536),
+                          device=device, peer_id=name, train_runtime=train_runtime,
+                          offer=OfferConfig(strategy="whole"), bootstrap=boot,
+                          work_root=root / name)
+
+    def server(name: str, work: str) -> "WorkerNode":
+        return WorkerNode(TcpTransport(), resources=Resources(cpu=8, memory=65536), device=device,
+                          peer_id=name, bootstrap=boot, work_root=root / work)
+
+    gw = Gateway(TcpTransport(), peer_id="gw")
+    await gw.start(listen)
+    boot = [gw.node.listen_addrs[0]]
+    data = DataNode(TcpTransport(), {NODE_DATASET: data_dir}, peer_id="data", bootstrap=boot)
+    workers = [worker(f"w{i}") for i in range(SHARD_S_WORKERS)]
+    shards = [server("psw0", "ps0"), server("psw1", "ps1")]
+    node = Node(TcpTransport(), peer_id="sched", bootstrap=boot)
+    # The auction places the shards: kill-ps's target, the host of shard 1,
+    # is known at its dispatch.
+    actions = parse_chaos_specs(SHARD_FT_CHAOS, "w2")
+    chaos = ChaosController(actions, {"w2": workers[2], **{s.peer_id: s for s in shards}},
+                            clock=time.perf_counter)
+    joined = asyncio.Event()
+
+    async def after_join(_peer: str) -> None:
+        await joined.wait()
+
+    gates = {2: after_join}
+
+    def on_fold(round_num: int, key: str, covers=None) -> None:
+        # w2's kill: round 1's delta from it is in shard 1's journal, inside
+        # the reducer's partial or (failed over) on its own.
+        if round_num == 1 and (key == "w2" or "w2" in (covers or [])):
+            chaos.on_round_metrics(0)
+
+    logs: dict = {"ps": [], "sched": []}
+
+    class Lines(logging.Handler):
+        def __init__(self, key):
+            super().__init__()
+            self.key = key
+
+        def emit(self, record):
+            logs[self.key].append(f"{time.perf_counter():.3f} {record.getMessage()}")
+
+    handlers = [(logging.getLogger(n), Lines(k)) for n, k in (
+        ("hypha.torch.worker.ps", "ps"), ("hypha.torch.ft.durable", "ps"),
+        ("hypha.torch.scheduler.orchestrator", "sched"))]
+    levels = [lg.level for lg, _ in handlers]
+    for lg, h in handlers:
+        lg.addHandler(h)
+        lg.setLevel(logging.INFO)
+    started: list = []
+    stop_errors: list = []
+    extra: dict = {}
+    stalls: list = []
+    peak = [0.0]
+    sampling = asyncio.Event()
+    tasks = [asyncio.create_task(watch_loop(stalls))]
+    if sample_card:
+        tasks.append(asyncio.create_task(_device_mem_sampler(peak, sampling)))
+
+    def updated(rec, round_num: int) -> bool:
+        return any(p["kind"] == "updated" and p["round"] == round_num for p in rec["progress"])
+
+    hosts: dict = {}  # shard -> the peer its job was dispatched to
+
+    async def restarter(rec) -> None:
+        """The spare worker after w2's kill and round 1's close; shard 1's
+        kill once both shards served the rejoiner; its new node after
+        round 2."""
+        while chaos.fired_at("w2") is None:
+            await asyncio.sleep(0.05)
+        await chaos.drain()
+        extra["w2_dead_t"] = time.perf_counter()
+        while not updated(rec, 1):
+            await asyncio.sleep(0.05)
+        w3 = worker("w3")
+        await w3.start(listen)
+        started.append(w3)
+        extra["w3_up_t"] = time.perf_counter()
+        while not rec["rejoins"]:
+            await asyncio.sleep(0.05)
+        joined.set()
+        while sum("served catch-up" in line and "rejoiner w3" in line
+                  for line in logs["ps"]) < 2:
+            await asyncio.sleep(0.05)
+        for d in rec["dispatch"]:
+            if d["kind"] == "aggregate":
+                hosts[int(d["job_id"].rsplit("-ps", 1)[1])] = d["peer"]
+        for a in actions:
+            a.target = hosts[1] if a.kind == "kill-ps" else "w2"
+        chaos.on_round_metrics(2)  # kill-ps:3: shard 1 waits for round 3
+        await chaos.drain()
+        extra["psw1_dead_t"] = time.perf_counter()
+        while not updated(rec, 2):
+            await asyncio.sleep(0.05)
+        extra["round2_updated_t"] = time.perf_counter()
+        # The gateway drops a closed peer's registrations by peer id: a
+        # node started under the same id before it noticed would lose its
+        # own.
+        await asyncio.sleep(1.0)
+        revived = server(hosts[1], f"{hosts[1]}b")
+        await revived.start(listen)
+        started.append(revived)
+        extra["psw1b_up_t"] = time.perf_counter()
+
+    # After w2's death its reducer flushes each round on the timer alone:
+    # 2 s (the trainers reach their sync point within it) keeps the four
+    # rounds after it inside the smoke's time limit.
+    flush_env = os.environ.get(REDUCE_FLUSH_ENV)
+    os.environ[REDUCE_FLUSH_ENV] = str(SHARD_FT_FLUSH_S)
+    with node_probes(device) as rec, ft_probes(rec, theta, on_fold, lambda: None, shards=2):
+        restart = None
+        try:
+            for part in (data, *workers, *shards, node):
+                await part.start(listen)
+                started.append(part)
+            for w in workers:
+                _gated_push(w.node, gates)
+            await node.wait_for_bootstrap()
+            restart = asyncio.create_task(restarter(rec))
+            t_job = time.perf_counter()
+            result = await Orchestrator(node).run(
+                job, auction_timeout=auction_timeout, status_timeout=status_timeout)
+            extra["job_s"] = time.perf_counter() - t_job
+            final = {"completed", "failed", "cancelled"}
+            loop = asyncio.get_running_loop()
+            deadline = loop.time() + limit_s
+            while True:
+                live = {d["job_id"] for d in rec["dispatch"] if d["peer"] != "w2"}
+                ended = {s["job_id"] for s in rec["statuses"] if s["state"] in final}
+                finished = live <= ended
+                if finished or loop.time() > deadline:
+                    break
+                await asyncio.sleep(0.1)
+        finally:
+            if restart is not None:
+                await aio.reap(restart)
+            sampling.set()
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+            for part in reversed(started):
+                try:
+                    await part.stop()
+                except Exception as e:  # noted; shard_ft_problems fails on it
+                    stop_errors.append(f"{getattr(part, 'peer_id', part)}: {e!r}")
+            await gw.stop()
+            for (lg, h), level in zip(handlers, levels):
+                lg.removeHandler(h)
+                lg.setLevel(level)
+            if flush_env is None:
+                os.environ.pop(REDUCE_FLUSH_ENV, None)
+            else:
+                os.environ[REDUCE_FLUSH_ENV] = flush_env
+    leftover: list = []
+    for _ in range(300):
+        leftover = sorted(str(p.relative_to(root)) for p in root.rglob("*")
+                          if p.is_file() and not p.is_relative_to(data_dir)
+                          and not p.is_relative_to(ckpt))
+        if not leftover:
+            break
+        await asyncio.sleep(0.1)
+    tree = sorted((str(p.relative_to(ckpt)), p.stat().st_size) for p in ckpt.rglob("*")
+                  if p.is_file())
+    jobs: dict = {}
+    for d in rec["dispatch"]:
+        key = d["peer"] if d["kind"] == "train" else f"aggregate{d['job_id'].rsplit('-', 1)[1]}"
+        jobs.setdefault(key, []).extend(
+            s["state"] for s in rec["statuses"] if s["job_id"] == d["job_id"])
+    return dict(job=job, result=result, rec=rec, finished=finished, logs=logs, theta=theta,
+                chaos={a.kind: a.fired_at for a in chaos.fired}, jobs=jobs, extra=extra,
+                workers=["w0", "w1", "w3"], shard_hosts=hosts, stop_errors=stop_errors,
+                leftover=leftover,
+                checkpoints=tree, ckpt=ckpt, disk_before=disk_before,
+                disk_after=shutil.disk_usage(root),
+                card_peak_mib=peak[0] if sample_card else None,
+                loop_stall_max_s=max(stalls, default=0.0))
+
+
+_RESEND = re.compile(r"stream sync: parameter server restarted; re-sending round (\d+) fragment "
+                     r"(\d+)")
+_SHARD_CATCHUP = re.compile(r"served catch-up \((\d+) rounds, next (\d+)\) to rejoiner (\S+): "
+                            r"(\d+) bytes in ([\d.]+) s \(shard (\d+)\)")
+_SHARD_CKPT = re.compile(r"durable ps checkpoint: next_round \d+ -> (\d+) \(\d+ tensors, (\d+) "
+                         r"bytes in ([\d.]+) s, journal window \d+ records\) under (\S+)")
+
+
+def shard_ft_report(run: dict) -> dict:
+    """What ``run_shard_ft_job`` measured, per shard, from its stamps and
+    the logs."""
+    from hypha_tpu_torch.stream import shard_of
+
+    rec, logs = run["rec"], trainer_logs(run)
+    ps_log = "\n".join(run["logs"]["ps"])
+    fired, extra = run["chaos"], run["extra"]
+    per: dict = {}
+    for peer, lines in logs.items():
+        text = "\n".join(lines)
+        t = trainer_log(text)
+        rejoin = re.search(r"rejoin: caught up to round (\d+) .*?: (\d+) bytes, waited ([\d.]+) s, "
+                           r"merged in ([\d.]+) s", text)
+        per[peer] = {
+            "launches": t["launches"], "peak_gib": t["peak_gib"], "batches": t["batches"],
+            "checksums": [(int(r), c) for r, c in _CHECKSUM.findall(text)],
+            "rejoin": rejoin and {"round": int(rejoin.group(1)), "bytes": int(rejoin.group(2)),
+                                  "wait_s": float(rejoin.group(3)),
+                                  "merge_s": float(rejoin.group(4))},
+            "shard_catchups": [(int(k), int(r), int(b)) for k, r, b in re.findall(
+                r"rejoin: shard (\d+) catch-up to round (\d+): (\d+) bytes", text)],
+            "checkpoints": [{"round": int(r), "version": v, "s": float(s), "bytes": int(b)}
+                            for r, v, s, b in _CKPT_SAVE.findall(text)],
+            "resends": [(int(r), int(f)) for r, f in _RESEND.findall(text)],
+            "stream_merges": [int(r) for r in re.findall(
+                r"round (\d+) fragment \d+: update merged", text)],
+        }
+    deps = {d["peer"]: d["t"] for d in rec["departures"]}
+    first_beat: dict = {}
+    for p in rec["progress"]:
+        if p["kind"] == "status":
+            first_beat.setdefault(p["peer"], p["t"])
+    upd = [(p["round"], p["shard"], p["t"]) for p in rec["progress"] if p["kind"] == "updated"]
+    down, gen2 = fired.get("kill-ps"), [
+        b for b in rec["broadcast"] if (b["header"] or {}).get("ps_generation") == 2]
+    back = min((b["t0"] for b in gen2), default=None)
+    replay = _REPLAY.search(ps_log)
+    by_root: dict = {}
+    for root, _kind, n in rec["journal_by_root"]:
+        acc = by_root.setdefault(root, {"records": 0, "bytes": 0})
+        acc["records"] += 1
+        acc["bytes"] += n
+    pushes: dict = {}
+    for d in rec["deltas"]:
+        k = int(d["header"].get("shard", 0))
+        key = (k, d["round"], d["from"], bool(d["header"].get("prefold")))
+        pushes[key] = pushes.get(key, 0) + 1
+    return dict(
+        trainers=per,
+        updated=[(r, k) for r, k, _ in upd],
+        updated_t={f"{r}/{k}": t for r, k, t in upd},
+        kill_to_departure_s=(deps["w2"] - fired["kill"]) if "w2" in deps and "kill" in fired
+        else None,
+        departure_to_w3_beat_s=(first_beat["w3"] - deps["w2"]) if "w3" in first_beat
+        and "w2" in deps else None,
+        catchups=[{"rounds": int(a), "round": int(b), "peer": c, "bytes": int(d), "s": float(e),
+                   "shard": int(f)} for a, b, c, d, e, f in _SHARD_CATCHUP.findall(ps_log)],
+        shard_kill_t=down, shard_back_t=back,
+        shard_kill_to_gen2_broadcast_s=(back - down) if back and down else None,
+        other_shard_rounds_in_outage=[(r, k, t - down) for r, k, t in upd
+                                      if down and k == 0 and down < t < (back or t + 1)],
+        replay=replay and {"generation": int(replay.group(1)), "resumes": int(replay.group(2)),
+                           "replayed": int(replay.group(3)), "s": float(replay.group(4))},
+        ps_checkpoints=[{"next_round": int(a), "bytes": int(b), "s": float(c), "root": d}
+                        for a, b, c, d in _SHARD_CKPT.findall(ps_log)],
+        journal_by_root=by_root,
+        generations=sorted({int(g) for g in re.findall(r"durable state at \S+, generation (\d+)",
+                                                       ps_log)}),
+        wires=rec["wires"], folds=rec["folds"], dedup_hits=rec["dedup_hits"],
+        pushes_by_shard={f"{k}/{r}/{f}/{'partial' if p else 'direct'}": n
+                         for (k, r, f, p), n in sorted(pushes.items())},
+        departures=[(d["peer"], d["reason"]) for d in rec["departures"]],
+        rejoins=[(r["peer"], r["for"]) for r in rec["rejoins"]],
+        ps_restarts=re.findall(r"parameter server shard (\d+) restarted on (\S+)",
+                               "\n".join(run["logs"]["sched"])),
+        theta={"catchups": run["theta"].catchups},
+        owner={r: shard_of(r % SHARD_S_OPTIONS["num_fragments"], 2)
+               for r in range(SHARD_FT_ROUNDS)},
+        disk_free_gb=(run["disk_before"].free / 1e9, run["disk_after"].free / 1e9),
+        checkpoint_bytes=sum(n for _, n in run["checkpoints"]),
+        outage={k: extra.get(k) for k in ("w2_dead_t", "w3_up_t", "psw1_dead_t",
+                                          "round2_updated_t", "psw1b_up_t")},
+    )
+
+
+def shard_ft_problems(run: dict, rep: dict, *, rounds: int, layers: int, device: str) -> list:
+    """The gates of the fault-tolerant sharded job, on the CPU as on the
+    card."""
+    from hypha_tpu_torch.executor.checkpoint import latest_manifest
+
+    result, problems = run["result"], []
+    owner = {r: r % 2 for r in range(rounds)}
+    if not run["finished"] or result.rounds != rounds or result.attempt != 0:
+        problems.append(f"job: finished {run['finished']}, rounds {result.rounds} of {rounds}, "
+                        f"attempt {result.attempt} (wanted 0: no full restart)")
+    if rep["updated"] != [(r, owner[r]) for r in range(rounds)]:
+        problems.append(f"UPDATED (round, shard) {rep['updated']}, wanted each round once from "
+                        "its due shard")
+    for key in ("w0", "w1", "w3", "aggregateps0", "aggregateps1"):
+        states = run["jobs"].get(key) or []
+        if not states or states[-1] != "completed":
+            problems.append(f"{key}: job states {states}, wanted completed last")
+    if [p for p, _ in rep["departures"]] != ["w2"] or rep["rejoins"] != [("w3", "w2")]:
+        problems.append(f"departures {rep['departures']}, rejoins {rep['rejoins']}: wanted w3 "
+                        "for w2")
+    outage = rep["other_shard_rounds_in_outage"]
+    if not outage:
+        problems.append(f"shard 0 closed no round while shard 1 was down (killed at "
+                        f"{rep['shard_kill_t']}, generation 2 at {rep['shard_back_t']}; "
+                        f"UPDATED {rep['updated_t']})")
+    host = run["shard_hosts"].get(1)
+    if rep["generations"] != [1, 2] or rep["ps_restarts"] != [("1", host)]:
+        problems.append(f"shard generations {rep['generations']}, restarts {rep['ps_restarts']}: "
+                        f"wanted shard 1 restarted once on {host}")
+    if not rep["replay"] or rep["replay"]["generation"] != 2 or rep["replay"]["replayed"] < 1:
+        problems.append(f"recovery {rep['replay']}: wanted shard 1's committed rounds replayed")
+    w1 = [w for w in rep["wires"] if w["root"] == "ps1"]
+    replayed = sorted({w["round"] for w in w1 if w["generation"] == 2
+                       and w["round"] < (rep["replay"] or {}).get("resumes", 0)})
+    for r in replayed:
+        pair = [w for w in w1 if w["round"] == r]
+        if [w["generation"] for w in pair] != [1, 2] or pair[0]["sha256"] != pair[1]["sha256"]:
+            problems.append(f"shard 1 round {r}'s wire before and after the replay: {pair}")
+    partial_rounds = {f["round"] for f in rep["folds"] if f["root"] == "ps1" and f["prefold"]
+                      and f["covers"] and f["generation"] == 1}
+    if not replayed or not partial_rounds & set(replayed):
+        problems.append(f"replayed rounds {replayed}, rounds with a journaled partial "
+                        f"{sorted(partial_rounds)}: wanted a byte-equal replay of a round with a "
+                        "prefold partial")
+    resends = {p: t["resends"] for p, t in rep["trainers"].items()}
+    if any(r % 2 != 1 for rs in resends.values() for r, _f in rs) or not any(resends.values()):
+        problems.append(f"re-sends {resends}: wanted some, each of a round shard 1 owns")
+    dup0 = {k: n for k, n in rep["pushes_by_shard"].items() if k.startswith("0/") and n > 1}
+    if dup0 or any(h["root"] == "ps0" for h in rep["dedup_hits"]):
+        problems.append(f"shard 0 got re-sends: {dup0}, dedup hits {rep['dedup_hits']}")
+    cats = rep["theta"]["catchups"]
+    w3 = rep["trainers"].get("w3", {})
+    rejoin = w3.get("rejoin")
+    sums = dict(w3.get("checksums") or [])
+    served = sorted((c["shard"], c["peer"]) for c in rep["catchups"])
+    if served != [(0, "w3"), (1, "w3")] or len(cats) != 2 \
+            or not all(c["sum_equal"] for c in cats) \
+            or cats[0]["broadcast_rounds"] != cats[1]["broadcast_rounds"] \
+            or set(cats[0]["keys"]) & set(cats[1]["keys"]) \
+            or rejoin is None or cats[0]["broadcast_rounds"] != list(range(rejoin["round"])) \
+            or sums.get(rejoin["round"]) != cats[0]["checksum"]:
+        problems.append(f"w3's θ after its catch-ups {sums} (rejoin {rejoin}, served {served}) is "
+                        f"not θ₀ + Σ of the broadcast updates, unioned over both shards: {cats}")
+    for peer, start in (("w0", 0), ("w1", 0), ("w3", rejoin["round"] if rejoin else 2)):
+        want = [f"v{r:08d}" for r in range(start + 1, rounds + 1)
+                if r % SHARD_FT_EVERY == 0][-2:]
+        got = sorted(p.name.split("-")[0] for p in (run["ckpt"] / peer).glob("v*"))
+        manifest = latest_manifest(run["ckpt"] / peer)
+        if got != want or manifest is None or f"v{manifest['round']:08d}" != want[-1]:
+            problems.append(f"{peer}: checkpoint versions {got}, latest {manifest}; wanted {want}")
+    for peer in ("w0", "w1", "w3"):
+        t = rep["trainers"].get(peer, {})
+        n = t.get("batches") or 0
+        want = {"fwd": 2 * layers * n, "dq": layers * n, "dkv": layers * n,
+                "flash_plain": 0, "dense": 0}
+        if device != "cuda":
+            want = {"fwd": 0, "dq": 0, "dkv": 0, "flash_plain": 0, "dense": layers * n}
+        if not n or t.get("launches") != want:
+            problems.append(f"{peer}: attention launches {t.get('launches')}, wanted {want} for "
+                            f"{n} batches")
+    if run["leftover"] or run["stop_errors"]:
+        problems.append(f"files left {run['leftover']}, stop errors {run['stop_errors']}")
+    return problems
+
+
+def shard_ft_bytes_needed(model: dict) -> int:
+    """The disk ``train_shard_ft`` holds at its peak: three trainers'
+    checkpoints (params, m, v in f32: 12 bytes a parameter), each shard's
+    state file twice over (momentum, Σ and residuals in f32 over half the
+    parameters) and its momentum copies, and some int8 deltas and wires."""
+    from hypha_tpu_torch.models.registry import build_model
+
+    shapes, _ = build_model(model, device="meta")
+    n = sum(p.numel() for p in shapes.parameters())
+    return 3 * 12 * n + 2 * (2 * 6 * n + 2 * n) + 8 * n
+
+
+def train_shard_ft_phase() -> dict:
+    """Fault tolerance of a streaming, sharded, tree-reduced job on the card
+    (``run_shard_ft_job``): a killed group member replaced through one
+    catch-up per shard, a killed shard restarted alone under its peer id
+    from its own journal while the other closes its round, stream-mode
+    trainer checkpoints; held to ``shard_ft_problems``."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="hsf"))
+    try:
+        need = shard_ft_bytes_needed(SHARD_S_MODEL)
+        free = shutil.disk_usage(root).free
+        if free < need:
+            raise SystemExit(f"train_shard_ft phase failed: {root} has {free / 1e9:.1f} GB free, "
+                             f"the phase needs about {need / 1e9:.1f} GB for its checkpoints")
+        run = asyncio.run(run_shard_ft_job(
+            root, SHARD_S_MODEL, device="cuda", rounds=SHARD_FT_ROUNDS, steps=STREAM_STEPS,
+            batch=TRAIN_BATCH, seq=TRAIN_SEQ, period=TRAIN_PERIOD,
+            status_timeout=NODE_STATUS_TIMEOUT_S, sample_card=True))
+        rep = shard_ft_report(run)
+        problems = shard_ft_problems(run, rep, rounds=SHARD_FT_ROUNDS, layers=SHARD_S_LAYERS,
+                                     device="cuda")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    timing = progress_timing(run)
+    res = dict(
+        model="llama2-7b", layers=SHARD_S_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+        rounds=SHARD_FT_ROUNDS, steps=STREAM_STEPS, options=SHARD_S_OPTIONS,
+        chaos=SHARD_FT_CHAOS, deadline_s=SHARD_FT_DEADLINE_S, every=SHARD_FT_EVERY,
+        ps_every=SHARD_FT_PS_EVERY,
+        attempt=run["result"].attempt, membership=run["result"].ft, jobs=run["jobs"],
+        step_ms=timing["step_ms"], progress_gap_max_s=timing["progress_gap_max_s"],
+        disk_needed_gb=need / 1e9, card_peak_gib=(run["card_peak_mib"] or 0) / 1024,
+        job_s=run["extra"].get("job_s"), seconds=time.perf_counter() - t0,
+        **{k: v for k, v in rep.items() if k not in ("folds", "trainers")},
+        trainers={peer: {k: t[k] for k in ("rejoin", "shard_catchups", "checkpoints",
+                                           "launches", "peak_gib", "batches", "resends")}
+                  for peer, t in rep["trainers"].items()},
+        partial_folds=[f for f in rep["folds"] if f["prefold"]],
+    )
+    if problems:
+        emit({"phase": "train_shard_ft", **res, "problems": problems,
+              "logs": {k: v[-80:] for k, v in run["logs"].items()},
+              "trainer_logs": {k: v[-40:] for k, v in trainer_logs(run).items()}})
+        raise SystemExit("train_shard_ft phase failed: " + "; ".join(problems))
     return res
 
 
@@ -4583,6 +5194,8 @@ def main() -> int:
     emit({"phase": "train_ft", **ft})
     shard = train_shard_phase()
     emit({"phase": "train_shard", **shard})
+    shard_ft = train_shard_ft_phase()
+    emit({"phase": "train_shard_ft", **shard_ft})
     emit({"phase": "train_reference", **train_reference_phase()})
 
     dec, pre = kern["timing"]["decode_bf16"], kern["timing"]["prefill64_bf16"]
@@ -4623,6 +5236,9 @@ def main() -> int:
                 job: {peer: (launches or {}).get(key)
                       for peer, launches in shard[job]["attention_launches"].items()}
                 for job in ("job_S", "job_B")},
+            # The fault-tolerant sharded job's trainers, the rejoiner included.
+            "train_shard_ft_launches": {peer: (t_["launches"] or {}).get(key)
+                                        for peer, t_ in shard_ft["trainers"].items()},
         })
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

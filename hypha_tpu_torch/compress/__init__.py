@@ -14,7 +14,7 @@ the uncompressed one.
   * :mod:`feedback` -- :class:`ErrorFeedback`.
 
 The per-link codec ladder (``codec_for_bandwidth``, ``adaptive_codec``)
-is not ported (ROADMAP.md, Queue 1: sharded PS/FT/rejoin).
+is not ported (ROADMAP.md, Queue 1: adaptive rounds and chaos kinds).
 """
 
 from __future__ import annotations

@@ -50,13 +50,16 @@ fragment to its owner. Parameter-server generations are tracked per shard
 (``SHARD_KEY`` of the broadcast), so a restart re-sends only that shard's
 parts.
 
-Fault tolerance of blocking jobs (the reference's ``:804-826``,
-``:1123-1205``, ``:1327-1350``, ``:1411-1431``): a ``checkpoint`` dict
-(``{"dir", "every_rounds"}``) restores params and optimizer state from the
+Fault tolerance in every sync mode and placement (the reference's
+``:804-826``, ``:1123-1205``, ``:1327-1350``, ``:1411-1431``,
+``:1612-1620``, ``:1676-1683``): a ``checkpoint`` dict (``{"dir",
+"every_rounds"}``) restores params and optimizer state from the
 directory's latest checkpoint and saves one every ``every_rounds``
-completed rounds (``executor/checkpoint.py``; the manifest counts rounds
-across resumes); ``rejoin`` waits for the parameter server's catch-up Σ
-(``ft/rejoin.py``) and enters the loop at its round; a broadcast whose
+completed rounds, after the merge of a blocking, sharded or stream round
+(``executor/checkpoint.py``; the manifest counts rounds across resumes);
+``rejoin`` waits for the parameter server's catch-up Σ (``ft/rejoin.py``;
+one per shard under a placement, their disjoint Σ applied as one union)
+and enters the loop at its round; a broadcast whose
 ``ps_generation`` moved on (or a resync) makes the trainer re-send its
 un-acknowledged delta. Each merged round logs a checksum of the new anchor
 θ (per-tensor sums of the bit patterns), and a rejoin logs the one it
@@ -125,7 +128,7 @@ log = logging.getLogger("hypha.torch.executor.training")
 # zero-flight limit in which overlap equals blocking bit for bit.
 _STREAM_POLL_WAIT_ENV = "HYPHA_STREAM_POLL_WAIT"
 
-_FT = "sharded PS/FT/rejoin"
+_ADAPTIVE = "adaptive rounds and chaos kinds"
 
 
 class TrainResult:
@@ -164,28 +167,20 @@ def _stale_response(resp: Any, last_gen: "int | None") -> tuple:
 def _unsupported(cfg: TrainExecutorConfig) -> None:
     """Raise on every option this path does not run."""
     sharding = cfg.sharding or {}
-    streaming = (cfg.sync_mode or "blocking") != "blocking"
-    # A placement (several shards or a reduce group) is not durable yet.
     placed = bool(cfg.ps_shards and cfg.ps_shards.shards)
     mesh = math.prod(int(sharding.get(a, 1)) for a in ("dp", "fsdp", "tp", "sp", "ep"))
     checks = [
         (mesh > 1, "sharding", "intra-replica sharding"),
         (bool(cfg.lora), "lora", "LoRA"),
-        ((streaming or placed) and bool(cfg.checkpoint and cfg.checkpoint.get("dir")),
-         "checkpoint", _FT),
-        ((streaming or placed) and bool(cfg.rejoin), "rejoin", _FT),
-        (bool(cfg.relay_results), "relay_results", _FT),
+        (bool(cfg.relay_results), "relay_results", "broadcast tree"),
         (bool(cfg.input_pipeline), "input_pipeline", "input_pipeline"),
         (bool(cfg.preprocessor), "preprocessor", "preprocessor"),
         (bool(cfg.report_metrics_s), "report_metrics_s", "telemetry"),
     ]
     for bad, option, item in checks:
         if bad:
-            mode = ""
-            if option in ("checkpoint", "rejoin"):
-                mode = " with ps_shards" if placed else f" with sync_mode={cfg.sync_mode!r}"
             raise NotImplementedError(
-                f"{option}={getattr(cfg, option)!r}{mode} is not ported to the PyTorch trainer "
+                f"{option}={getattr(cfg, option)!r} is not ported to the PyTorch trainer "
                 f"(ROADMAP.md, Queue 1: {item})"
             )
     if placed and cfg.sync_mode == "overlap":
@@ -234,7 +229,7 @@ def _refuse_codec_hint(meta: dict) -> None:
     if CODEC_KEY in meta:
         raise NotImplementedError(
             f"the broadcast carries a per-link codec hint ({meta[CODEC_KEY]!r}); adaptive "
-            f"codecs are not ported to PyTorch yet (ROADMAP.md, Queue 1: {_FT})"
+            f"codecs are not ported to PyTorch yet (ROADMAP.md, Queue 1: {_ADAPTIVE})"
         )
 
 
@@ -491,6 +486,80 @@ def _init_model(cfg: TrainExecutorConfig, session, work_dir: Path, device: torch
     return model
 
 
+def _rejoin(session, cfg: TrainExecutorConfig, work_dir: Path, model, params: dict,
+            anchor: dict, dev) -> int:
+    """Dispatched mid-job: θ₀ (already built) is every worker's start, and
+    each parameter server owes one catch-up push, Σ of its updates so far
+    and its next round. With several shards the rejoiner waits for one
+    catch-up per shard; their Σ cover disjoint tensors and are applied as
+    one union (see below for the round it enters). Round broadcasts
+    racing in first are dropped: their content is inside Σ. Merges
+    θ ← θ₀ + Σ and the anchor in place; returns the round."""
+    shard_map = cfg.ps_shards if cfg.ps_shards and cfg.ps_shards.shards else None
+    want = len(shard_map.shards) if shard_map is not None else 1
+    log.info("rejoin: waiting for the parameter server's catch-up%s",
+             f" ({want} shards)" if want > 1 else "")
+
+    def drop(event: dict) -> None:
+        (work_dir / event["path"]).unlink(missing_ok=True)
+
+    t_wait = time.perf_counter()
+    got: dict = {}
+    with session.receive(cfg.results) as events:
+        while len(got) < want:
+            catchup = await_catchup(events, on_skip=drop)
+            meta = catchup.get("meta") or {}
+            try:
+                sid = int(meta.get(SHARD_KEY, 0)) if want > 1 else 0
+            except (TypeError, ValueError):
+                sid = 0
+            if sid in got:
+                drop(catchup)
+                continue
+            got[sid] = catchup
+    t_merge = time.perf_counter()
+    update: dict = {}
+    rounds, epoch, size = [], "?", 0
+    for sid, catchup in sorted(got.items()):
+        meta = catchup.get("meta") or {}
+        catchup_file = work_dir / catchup["path"]
+        nbytes = catchup_file.stat().st_size
+        size += nbytes
+        update.update(flat_to_state(compress.read_delta(catchup_file, dev)))
+        catchup_file.unlink(missing_ok=True)
+        rounds.append(int(meta.get("round", 0)))
+        epoch = meta.get("epoch", epoch)
+        if want > 1:
+            log.info("rejoin: shard %d catch-up to round %s: %d bytes", sid,
+                     meta.get("round", "?"), nbytes)
+    unknown = set(update) - set(params)
+    if unknown:
+        raise KeyError(f"catchup tensors not in params: {sorted(unknown)}")
+    with torch.no_grad():
+        for name, p in params.items():
+            if name in update:
+                u = _fit(update.pop(name), p, name)
+                p.copy_(apply_updates({name: p}, [{name: u}])[name])
+            anchor[name].copy_(p)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    # Each shard's catch-up names its own next round. In stream mode the
+    # union of their Σ covers exactly the rounds below the least of them
+    # (rounds close in order, one shard each), so the rejoiner enters
+    # there and takes part in the round the fleet is in; the reference
+    # takes the greatest, which skips that round's update and leaves its
+    # shard waiting for the rejoiner until the deadline. Blocking shards
+    # close every round together and name the same round.
+    streaming = (cfg.sync_mode or "blocking") == "stream"
+    round_num = min(rounds) if streaming else max(rounds)
+    log.info("rejoin: caught up to round %d (membership epoch %s): %d bytes, waited %.3f s, "
+             "merged in %.3f s", round_num, epoch, size, t_merge - t_wait,
+             time.perf_counter() - t_merge)
+    log.info("round %d: anchor checksum %s", round_num,
+             theta_checksum(state_to_flat(model, params)))
+    return round_num
+
+
 def run_training(
     session,
     work_dir: "Path | str",
@@ -556,35 +625,7 @@ def run_training(
     countdown: "int | None" = None
     round_num = 0
     if cfg.rejoin:
-        # Dispatched mid-job: θ₀ above is every worker's start, and the
-        # parameter server owes one catch-up push, Σ of its updates so far
-        # and the next round. Round broadcasts racing in first are dropped:
-        # their content is inside Σ.
-        log.info("rejoin: waiting for the parameter server's catch-up")
-        t_wait = time.perf_counter()
-        with session.receive(cfg.results) as events:
-            catchup = await_catchup(
-                events, on_skip=lambda e: (work_dir / e["path"]).unlink(missing_ok=True))
-        meta = catchup.get("meta") or {}
-        catchup_file = work_dir / catchup["path"]
-        size = catchup_file.stat().st_size
-        t_merge = time.perf_counter()
-        update = flat_to_state(compress.read_delta(catchup_file, dev))
-        with torch.no_grad():
-            for name, p in params.items():
-                if name in update:
-                    u = _fit(update.pop(name), p, name)
-                    p.copy_(apply_updates({name: p}, [{name: u}])[name])
-                anchor[name].copy_(p)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        catchup_file.unlink(missing_ok=True)
-        round_num = int(meta.get("round", 0))
-        log.info("rejoin: caught up to round %d (membership epoch %s): %d bytes, waited %.3f s, "
-                 "merged in %.3f s", round_num, meta.get("epoch", "?"), size,
-                 t_merge - t_wait, time.perf_counter() - t_merge)
-        log.info("round %d: anchor checksum %s", round_num,
-                 theta_checksum(state_to_flat(model, params)))
+        round_num = _rejoin(session, cfg, work_dir, model, params, anchor, dev)
     round_samples = 0
     round_losses: list[float] = []
     gens: dict = {"ps": None, "sched": None}
@@ -602,6 +643,23 @@ def run_training(
                         progress.kind.value)
             time.sleep(0.2)
         raise RuntimeError("scheduler kept answering from a stale generation")
+
+    def maybe_checkpoint() -> None:
+        """After round ``round_num`` merged, every ``every_rounds`` rounds:
+        the manifest counts completed rounds across resumes (blocking,
+        sharded and stream). It runs before the round's UPDATE_RECEIVED:
+        the reference saves after it, and on the job's last round the
+        scheduler's DONE then releases the worker, which cancels the
+        trainer mid-save, so the final checkpoint is lost."""
+        done = round_num + 1
+        if ckpt_dir is None or done % ckpt_every != 0:
+            return
+        t_save = time.perf_counter()
+        saved = save_train_checkpoint(ckpt_dir, *train_state(model, optimizer),
+                                      optimizer.count, round_offset + done)
+        log.info("round %d: checkpoint %s saved in %.3f s (%d bytes)", round_num,
+                 saved.name, time.perf_counter() - t_save,
+                 sum(f.stat().st_size for f in saved.iterdir()))
 
     def push_delta(delta_path: Path) -> None:
         session.send_resource(
@@ -660,19 +718,12 @@ def run_training(
                  theta_checksum(state_to_flat(model, params)))
         delta_path.unlink(missing_ok=True)
         update_file.unlink(missing_ok=True)
+        maybe_checkpoint()
         resp = send_status(Progress(kind=ProgressKind.UPDATE_RECEIVED, job_id=spec.job_id))
         round_num += 1
         result.rounds = round_num
         round_samples = 0
         round_losses.clear()
-        if ckpt_dir is not None and round_num % ckpt_every == 0:
-            # The manifest counts completed rounds across resumes.
-            t_save = time.perf_counter()
-            saved = save_train_checkpoint(ckpt_dir, *train_state(model, optimizer),
-                                          optimizer.count, round_offset + round_num)
-            log.info("round %d: checkpoint %s saved in %.3f s (%d bytes)", round_num - 1,
-                     saved.name, time.perf_counter() - t_save,
-                     sum(f.stat().st_size for f in saved.iterdir()))
         return resp.kind == ProgressResponseKind.CONTINUE
 
     shard_map = cfg.ps_shards if cfg.ps_shards and cfg.ps_shards.shards else None
@@ -787,6 +838,7 @@ def run_training(
                  theta_checksum(state_to_flat(model, params)))
         for path in paths.values():
             path.unlink(missing_ok=True)
+        maybe_checkpoint()
         resp = send_status(Progress(kind=ProgressKind.UPDATE_RECEIVED, job_id=spec.job_id))
         round_num += 1
         result.rounds = round_num
@@ -811,6 +863,7 @@ def run_training(
         """The broadcast landed: merge with the correction. True = go on."""
         nonlocal round_num
         stream_state.finish()
+        maybe_checkpoint()
         resp = send_status(Progress(kind=ProgressKind.UPDATE_RECEIVED, job_id=spec.job_id))
         round_num += 1
         result.rounds = round_num

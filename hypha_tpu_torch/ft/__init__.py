@@ -10,10 +10,11 @@
   adaptive.py   — the measured-link table the serving plane reads
   chaos.py      — deterministic kills of a worker or the parameter server
 
-Blocking jobs with one parameter server run all of it. The straggler
-controller, per-link codecs, the scheduler's own journal and the chaos
-kinds beyond the two kills are not ported (ROADMAP.md, Queue 1: sharded
-PS/FT/rejoin; scheduler recovery)."""
+Every sync mode and placement runs all of it: each shard of a sharded
+job has its own journal and generation. The straggler controller,
+per-link codecs, the scheduler's own journal and the chaos kinds beyond
+the two kills are not ported (ROADMAP.md, Queue 1: adaptive rounds and
+chaos kinds; scheduler recovery)."""
 
 from .adaptive import Ewma, LinkTable
 from .chaos import ChaosAction, ChaosController, parse_chaos_spec, parse_chaos_specs

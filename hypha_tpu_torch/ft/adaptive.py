@@ -58,5 +58,5 @@ class LinkTable:
     def codec_for(self, peer: str) -> str:
         raise NotImplementedError(
             "per-link delta codecs (adaptive_codec) are not ported to PyTorch yet "
-            "(ROADMAP.md, Queue 1: sharded PS/FT/rejoin)"
+            "(ROADMAP.md, Queue 1: adaptive rounds and chaos kinds)"
         )

@@ -22,7 +22,7 @@ observed, i.e. while round ``r`` runs; ``at_round=0`` fires on attach.
 ``partition``, ``partition-ps``, ``kill-scheduler``,
 ``partition-scheduler``, ``slow-worker``, ``bw-cap``, ``jitter`` too), and
 the controller refuses those at construction: they are not ported
-(ROADMAP.md, Queue 1: sharded PS/FT/rejoin).
+(ROADMAP.md, Queue 1: adaptive rounds and chaos kinds).
 """
 
 from __future__ import annotations
@@ -148,7 +148,7 @@ class ChaosController:
             if action.kind not in _PORTED:
                 raise NotImplementedError(
                     f"chaos action {action.kind!r} is not ported to PyTorch yet (ROADMAP.md, "
-                    "Queue 1: sharded PS/FT/rejoin)")
+                    "Queue 1: adaptive rounds and chaos kinds)")
         self.actions = list(actions)
         self.workers = dict(workers)
         self._clock = clock

@@ -174,9 +174,10 @@ class RoundJournal:
 
 @dataclass(slots=True)
 class FoldRecord:
-    """One accepted delta, as the journal remembers it. ``prefold`` and
-    ``covers`` (a tree-reduce partial) parse for the wire; the port folds no
-    partial (**sharded PS/FT/rejoin**)."""
+    """One accepted delta, as the journal remembers it. ``peer`` is the
+    round table's key (``prefold:<sender>`` for a tree-reduce partial);
+    ``prefold`` and ``covers`` mark a partial and the workers it covers, so
+    a replay re-derives the un-folds the live collector made for it."""
 
     round: int
     fragment: int
@@ -218,10 +219,14 @@ class DurablePS:
     (a full job restart runs under a new id)."""
 
     def __init__(self, root: Path, job_id: str, ckpt_every: int = 1,
-                 fsync_every: "int | None" = None) -> None:
+                 fsync_every: "int | None" = None, owned=None) -> None:
         self.root = Path(root)
         self.job_id = job_id
         self.ckpt_every = max(int(ckpt_every), 1)
+        # A stream shard closes only the rounds whose due fragment it owns:
+        # ``owned(round)`` tells the contiguity check and the checkpoint
+        # cadence which rounds are its own (None: every round).
+        self._owned = owned
         self.deltas_dir = self.root / "deltas"
         self.wires_dir = self.root / "wires"
         self.generation = 1
@@ -239,8 +244,8 @@ class DurablePS:
 
     @classmethod
     def open(cls, root: "Path | str", job_id: str, ckpt_every: int = 1,
-             fsync_every: "int | None" = None) -> "DurablePS":
-        dur = cls(Path(root), job_id, ckpt_every, fsync_every)
+             fsync_every: "int | None" = None, owned=None) -> "DurablePS":
+        dur = cls(Path(root), job_id, ckpt_every, fsync_every, owned=owned)
         dur.root.mkdir(parents=True, exist_ok=True)
         dur.deltas_dir.mkdir(exist_ok=True)
         dur.wires_dir.mkdir(exist_ok=True)
@@ -347,9 +352,14 @@ class DurablePS:
                     self._window.append(rec)
         resume.committed = [committed[r] for r in sorted(committed)]
         # Committed rounds must run on from the checkpoint: a gap is journal
-        # loss, and skipping an outer step silently is refused.
+        # loss, and skipping an outer step silently is refused. A stream
+        # shard's journal skips the rounds it does not own.
         expect = resume.next_round
         for rec in resume.committed:
+            if self._owned is not None:
+                guard = expect + 4096  # a malformed owned() must not spin
+                while expect < guard and not self._owned(expect):
+                    expect += 1
             if int(rec["round"]) != expect:
                 raise ValueError(f"durable ps journal gap: commit for round {rec['round']} but "
                                  f"checkpoint resumes at {expect}")
@@ -396,10 +406,14 @@ class DurablePS:
     def replay_ops(self, round_num: int) -> list:
         """The exact (record, sign) fold sequence that built the round's
         accumulator: +1 per record in arrival order, preceded by a -1
-        un-fold of the record it replaced. Float addition is order
-        sensitive: re-applying THIS sequence makes a recovered outer step
-        bit-equal to the crashed process's. A superseded file that is gone
-        drops its +/- pair instead (last-wins, ulp-level drift)."""
+        un-fold of the record it replaced, and, before a tree-reduce
+        partial, the un-folds the collector's ``_retire_covered`` made for
+        it (first every other sender's partial its covers intersect, then
+        its members' direct deltas, each loop in sorted order). Float
+        addition is order sensitive: re-applying THIS sequence makes a
+        recovered outer step bit-equal to the crashed process's. A
+        superseded file that is gone drops its +/- pair instead (last-wins,
+        ulp-level drift)."""
         ops: list = []
         last: dict = {}
 
@@ -413,6 +427,20 @@ class DurablePS:
             prev = last.get(fold.peer)
             if prev is not None:
                 unfold(prev)
+            if fold.prefold and fold.covers:
+                covset = frozenset(fold.covers)
+                for okey in sorted(last):
+                    oprev = last[okey]
+                    if okey == fold.peer or not oprev.prefold:
+                        continue
+                    if frozenset(oprev.covers or ()) & covset:
+                        unfold(oprev)
+                        del last[okey]
+                for member in sorted(fold.covers):
+                    mprev = last.get(member)
+                    if mprev is not None and not mprev.prefold:
+                        unfold(mprev)
+                        del last[member]
             ops.append((fold, 1.0))
             last[fold.peer] = fold
         return ops
@@ -454,15 +482,20 @@ class DurablePS:
         return sorted(out)
 
     def commit_round(self, round_num: int, fragment: int, wire_name: str, *, epoch: int,
-                     momentum_file: Path, catchup=None, efs: "dict | None" = None,
+                     momentum_file, catchup=None, efs: "dict | None" = None,
                      active: "list | None" = None) -> None:
         """Durably commit one outer step (blocking: run it off the loop).
         The checkpoint, when due, lands BEFORE the commit record, so every
-        journaled commit has a snapshot at or before it."""
+        journaled commit has a snapshot at or before it. ``momentum_file``
+        is one file or a list whose later files override earlier names."""
         prev = self._last_wire.get(fragment)
         self._last_wire[fragment] = (round_num, wire_name)
+        # One server keeps the round-parity rule; a shard owning only some
+        # rounds counts its own commits (parity might never fire for it).
         self._commits_since_ckpt += 1
-        if (round_num + 1) % self.ckpt_every == 0:
+        due = ((round_num + 1) % self.ckpt_every == 0 if self._owned is None
+               else self._commits_since_ckpt >= self.ckpt_every)
+        if due:
             self._checkpoint(next_round=round_num + 1, epoch=epoch, momentum_file=momentum_file,
                              catchup=catchup, efs=efs or {}, active=active or [])
         rec = {"t": "commit", "round": round_num, "fragment": fragment, "wire": wire_name,
@@ -472,13 +505,16 @@ class DurablePS:
         if prev is not None and prev[1] != wire_name:
             (self.wires_dir / prev[1]).unlink(missing_ok=True)
 
-    def _checkpoint(self, *, next_round: int, epoch: int, momentum_file: Path, catchup,
+    def _checkpoint(self, *, next_round: int, epoch: int, momentum_file, catchup,
                     efs: dict, active: list) -> None:
         t0 = time.perf_counter()
         tensors: dict = {}
-        if momentum_file.is_file():
-            for key, value in load_file(momentum_file).items():
-                tensors[f"momentum/{key}"] = value
+        # One file, or the pipelined loop's base and its parts over it.
+        files = momentum_file if isinstance(momentum_file, (list, tuple)) else [momentum_file]
+        for path in files:
+            if Path(path).is_file():
+                for key, value in load_file(path).items():
+                    tensors[f"momentum/{key}"] = value
         catchup_rounds = 0
         fragment_rounds: dict = {}
         if catchup is not None:
@@ -527,9 +563,9 @@ class DurablePS:
         self.journal.replace_with(
             [{"t": "gen", "generation": self.generation, "job_id": self.job_id}] + self._window)
         log.info("durable ps checkpoint: next_round %d -> %d (%d tensors, %d bytes in %.3f s, "
-                 "journal window %d records)", old_next, next_round, len(tensors),
+                 "journal window %d records) under %s", old_next, next_round, len(tensors),
                  (self.root / state_file).stat().st_size, time.perf_counter() - t0,
-                 len(self._window))
+                 len(self._window), self.root.name)
 
     # ------------------------------------------------------------- recovery
 

@@ -1,12 +1,13 @@
 """Scheduler: DiLoCo orchestration — allocation, data/batch scheduling,
-tracking (a copy of ``hypha_tpu/scheduler/`` for the
-single-parameter-server path: every codec and sync mode, and elastic,
-checkpointed blocking jobs).
+tracking and the serving supervisor (a copy of ``hypha_tpu/scheduler/``:
+every codec and sync mode, the sharded parameter service and the tree
+reduce, elastic and checkpointed jobs with per-shard restarts, and
+``serving.py``).
 
 Mirrors the reference's ``hypha-scheduler`` crate (SURVEY.md §2.4). The
 entry point is ``orchestrator.Orchestrator(node).run(job)`` with a
-``job_config.DiLoCoJob``. Not ported: the serving supervisor
-(``serving.py``; ROADMAP.md, Queue 1: the network infer executor)."""
+``job_config.DiLoCoJob``. Not ported: a restarted scheduler's adoption
+path (ROADMAP.md, Queue 1: scheduler recovery)."""
 
 from .statistics import RunningMean, RuntimeStatistic
 from .simulation import Projection, WorkerSim, project

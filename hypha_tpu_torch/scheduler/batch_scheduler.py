@@ -23,8 +23,8 @@ many more batches to run before shipping its pseudo-gradient. The job is
 complete when every worker is DONE.
 
 Not ported, each raising ``NotImplementedError`` with its ROADMAP.md label
-when set: ``adaptive`` (straggler-adaptive inner steps), **sharded
-PS/FT/rejoin**;
+when set: ``adaptive`` (straggler-adaptive inner steps), **adaptive
+rounds and chaos kinds**;
 ``generation`` and ``adopt_round`` (a restarted scheduler's stamped
 responses), **scheduler recovery**. The reference's control-loop timing
 reservoir, FT counters and per-round trace spans (**telemetry**) are off
@@ -58,7 +58,7 @@ _CONTINUE = ProgressResponse(kind=ProgressResponseKind.CONTINUE)
 _OK = ProgressResponse(kind=ProgressResponseKind.OK)
 _DONE = ProgressResponse(kind=ProgressResponseKind.DONE)
 
-_STREAMING = "sharded PS/FT/rejoin"
+_ADAPTIVE = "adaptive rounds and chaos kinds"
 _RECOVERY = "scheduler recovery"
 
 
@@ -81,7 +81,7 @@ class BatchScheduler:
         generation: int | None = None,
     ) -> None:
         if adaptive is not None:
-            raise _not_ported("adaptive (straggler-adaptive inner steps)", _STREAMING)
+            raise _not_ported("adaptive (straggler-adaptive inner steps)", _ADAPTIVE)
         if generation is not None:
             raise _not_ported("generation (a restarted scheduler)", _RECOVERY)
         self.tracker = tracker
@@ -91,7 +91,9 @@ class BatchScheduler:
         self.updates_cap = updates_cap
         self.completed = False
         # Which shards must report UPDATED before round r advances; None
-        # is the single parameter server (shard 0, every round).
+        # is one unsharded server (shard 0, every round). While a shard
+        # restarts, a round waits only on its due shards: the others'
+        # UPDATED are kept and the frontier catches up once it reports.
         self.shards_due = shards_due
         # round -> shards that have reported UPDATED for it.
         self._updated: dict[int, set[int]] = {}

@@ -13,15 +13,13 @@ Every field keeps the JAX package's name, order and default, and the three
 classes are registered with the port's codec, so ``messages.encode(job)``
 gives the JAX package's bytes. The port schedules every wire codec
 (``delta_codec``, ``delta_dtype``), every sync mode (``sync_mode``,
-``num_fragments``), the sharded parameter service (``num_ps_shards``) and
-the tree reduce (``reduce_group_size``, ``reduce_tree_depth``), and, on
-blocking jobs with one parameter server and no reduce group, fault
-tolerance (``ft``, an ``FTConfig``) and checkpoints (``checkpoint_dir``,
-``checkpoint_every``, ``ps_checkpoint_every_rounds``). Each option outside
-it is accepted only at its off value (``_NOT_PORTED``; ``ft`` and
-``checkpoint_dir`` only with ``sync_mode`` overlap or stream, or with
-shards or a reduce group), and any other value raises
-``NotImplementedError`` naming its ROADMAP.md label. Malformed values raise the reference's ``ValueError`` first, with
+``num_fragments``), the sharded parameter service (``num_ps_shards``), the
+tree reduce (``reduce_group_size``, ``reduce_tree_depth``), and, with any
+of them, fault tolerance (``ft``, an ``FTConfig``) and checkpoints
+(``checkpoint_dir``, ``checkpoint_every``, ``ps_checkpoint_every_rounds``).
+Each option outside it is accepted only at its off value (``_NOT_PORTED``),
+and any other value raises ``NotImplementedError`` naming its ROADMAP.md
+label. Malformed values raise the reference's ``ValueError`` first, with
 its texts: every cross-field check of the reference runs before the
 ``_NOT_PORTED`` loop. A non-empty ``slo_rules`` raises under telemetry,
 whose rule parser is not ported.
@@ -39,21 +37,17 @@ from ..stream import SYNC_MODES, effective_fragments
 
 __all__ = ["DiLoCoRounds", "JobResources", "DiLoCoJob", "CODECS", "SYNC_MODES"]
 
-_STREAMING = "sharded PS/FT/rejoin"
+_ADAPTIVE = "adaptive rounds and chaos kinds"
 
-# (field, the values the port runs, ROADMAP.md label of the rest); the
-# fields of _BLOCKING_ONLY run at any value on blocking jobs with one
-# parameter server and no reduce group. An option that the reference
-# accepts only beside another (scheduler_recovery needs ft and
-# checkpoint_dir) comes before it, so the refusal names the option the job
-# asked for.
+# (field, the values the port runs, ROADMAP.md label of the rest). An
+# option that the reference accepts only beside another (scheduler_recovery
+# needs ft and checkpoint_dir) comes before it, so the refusal names the
+# option the job asked for.
 _NOT_PORTED = (
     ("scheduler_recovery", (False,), "scheduler recovery"),
-    ("ft", (None,), _STREAMING),
-    ("checkpoint_dir", (None,), _STREAMING),
-    ("broadcast_tree", (False,), _STREAMING),
-    ("adaptive_steps", (False,), _STREAMING),
-    ("adaptive_codec", (False,), _STREAMING),
+    ("broadcast_tree", (False,), "broadcast tree"),
+    ("adaptive_steps", (False,), _ADAPTIVE),
+    ("adaptive_codec", (False,), _ADAPTIVE),
     ("metrics_plane", (False,), "telemetry"),
     ("slo_rules", ([],), "telemetry"),
     ("input_pipeline", (False,), "input_pipeline"),
@@ -61,7 +55,6 @@ _NOT_PORTED = (
     ("sharding", (None,), "intra-replica sharding"),
     ("serve_peers", ([],), "live weight swap"),
 )
-_BLOCKING_ONLY = ("ft", "checkpoint_dir")
 
 
 @_register
@@ -227,23 +220,10 @@ class DiLoCoJob:
             raise ValueError("avg_samples_between_updates must be positive")
         if self.resources.num_workers <= 0:
             raise ValueError("num_workers must be positive")
-        # Per-shard durability is not ported: shards and groups run without.
-        placed = ""
-        if self.num_ps_shards > 1:
-            placed = f" with num_ps_shards={self.num_ps_shards}"
-        elif self.reduce_group_size >= 2:
-            placed = f" with reduce_group_size={self.reduce_group_size}"
-            if self.reduce_tree_depth >= 2:
-                placed += f", reduce_tree_depth={self.reduce_tree_depth}"
         for name, runs, label in _NOT_PORTED:
             value = getattr(self, name)
-            if name in _BLOCKING_ONLY and self.sync_mode == "blocking" and not placed:
-                continue
             if value not in runs:
-                mode = ""
-                if name in _BLOCKING_ONLY:
-                    mode = placed or f" with sync_mode={self.sync_mode!r}"
                 raise NotImplementedError(
-                    f"DiLoCoJob {name}={value!r}{mode} is not ported to PyTorch yet "
+                    f"DiLoCoJob {name}={value!r} is not ported to PyTorch yet "
                     f"(ROADMAP.md, Queue 1: {label})"
                 )

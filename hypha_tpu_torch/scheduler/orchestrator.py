@@ -1,8 +1,7 @@
 """The scheduler orchestrator: allocate → wire → dispatch → supervise (a copy
 of ``hypha_tpu/scheduler/orchestrator.py``, with every wire codec and sync
 mode, the sharded parameter service and the tree reduce, and with elastic
-membership, rejoin and the parameter server's restart on blocking jobs
-with one parameter server).
+membership, rejoin and each parameter-server shard's own restart).
 
 Reference call stack being reproduced (SURVEY.md §3.1,
 crates/scheduler/src/bin/hypha-scheduler.rs:54-432):
@@ -24,7 +23,7 @@ crates/scheduler/src/bin/hypha-scheduler.rs:54-432):
      ``reduce_members``; ``stream.tree.build_reduce_groups``);
   7. supervise: job completes when the batch scheduler reports every
      worker DONE; a sharded round advances on ``UPDATED`` from every due
-     shard. A failed shard fails the attempt (no per-shard restart).
+     shard. With ``job.ft`` a failed shard is restarted alone (below).
 
 Without ``job.ft``, any failure — a failed or cancelled job status, a
 lease renewal failure, no progress message within the watchdog's deadline
@@ -35,23 +34,28 @@ no-progress watchdog is per-round: without ``status_timeout`` the deadline
 derives from the synchronization simulation's projected round time once
 every worker has timing statistics.
 
-With ``job.ft`` (blocking jobs, one parameter server; the reference's
+With ``job.ft`` (every sync mode and placement; the reference's
 ``:1542-2086``) a train worker's failure degrades the round set instead:
-``_depart`` drops it from the ``MembershipView`` (the parameter server
-hears each new epoch over ``/hypha-ft/0.0.1``), and ``_rejoin_worker``
-auctions a replacement, joins it, has the server queue its catch-up and
-dispatches it with ``rejoin=True``. φ-accrual suspicion (``ft/detector.py``,
-fed by every progress message and lease renewal) marks silent workers, so
-the server stops waiting for them past quorum. With a ``checkpoint_dir``
-and ``ps_restart_attempts`` left, a failed parameter server is re-auctioned
-under the SAME peer id and its aggregate job re-dispatched unchanged; the
-durable journal under ``<checkpoint_dir>/ps`` resumes the round.
+``_depart`` drops it from the ``MembershipView`` (every parameter-server
+shard hears each new epoch over ``/hypha-ft/0.0.1``), and
+``_rejoin_worker`` auctions a replacement, joins it, has every shard
+queue its catch-up (a JOINED update fails while any shard restarts, so the
+rejoin retries) and dispatches it with ``rejoin=True``. The replacement
+gets the tree role its peer id has in the plan: none, as in the reference,
+so a rejoiner pushes to the shards directly while its dead predecessor's
+reducer flushes the rest of the group. φ-accrual suspicion
+(``ft/detector.py``, fed by every progress message and lease renewal) marks
+silent workers, so the servers stop waiting for them past quorum. With a
+``checkpoint_dir`` and ``ps_restart_attempts`` left, a failed shard is
+re-auctioned alone under the SAME peer id and its own aggregate job
+re-dispatched unchanged, while the other shards keep closing their rounds;
+its durable journal under ``<checkpoint_dir>/ps`` (``/ps<k>`` with several
+shards) resumes its rounds.
 
 Not ported (the job refuses their options, ``job_config.py``): the
 adoption and resume path of a restarted scheduler (**scheduler
-recovery**); fault tolerance with overlap or stream sync or with shards or
-a reduce group, the broadcast tree and adaptive steps (**sharded
-PS/FT/rejoin**).
+recovery**), the broadcast tree (**broadcast tree**) and adaptive steps
+(**adaptive rounds and chaos kinds**).
 """
 
 from __future__ import annotations

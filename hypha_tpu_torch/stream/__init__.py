@@ -15,7 +15,7 @@
 
 Selection is per job through ``sync_mode: blocking | overlap | stream``,
 ``num_ps_shards`` and ``reduce_group_size``. The broadcast tree is not
-ported (ROADMAP.md, Queue 1: sharded PS/FT/rejoin).
+ported (ROADMAP.md, Queue 1: broadcast tree).
 """
 
 from .accum import RoundAccum

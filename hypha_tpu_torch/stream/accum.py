@@ -84,6 +84,10 @@ class RoundAccum:
         return torch.tensor(max(self.total_samples, 1e-20), dtype=torch.float32,
                             device=self.device)
 
+    def keys(self) -> list:
+        """The names folded so far, in fold order."""
+        return list(self._acc)
+
     def mean_items(self) -> Iterator[tuple]:
         """``(name, ḡ)`` one tensor at a time: :meth:`mean` without holding
         a second param-sized tree on the device."""

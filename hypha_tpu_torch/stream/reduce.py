@@ -27,8 +27,8 @@ peers it ``covers``:
 
 Quantized jobs re-encode the partial in the job's codec with a per-part
 error-feedback residual. The broadcast tree (``BroadcastRelay``,
-``tree_broadcast``) is not ported (ROADMAP.md, Queue 1: sharded
-PS/FT/rejoin); the trainer refuses ``relay_results``.
+``tree_broadcast``) is not ported (ROADMAP.md, Queue 1: broadcast
+tree); the trainer refuses ``relay_results``.
 """
 
 from __future__ import annotations

@@ -26,7 +26,7 @@ may be any object with its ``fetch``/``send``/``receive``.
 (the worker runtime keeps an execution's live round with it). The
 reference's retry of status sends across a scheduler outage
 (``status_retry_s > 0``) is not ported (ROADMAP.md, Queue 1:
-sharded PS/FT/rejoin).
+scheduler recovery).
 """
 
 from __future__ import annotations
@@ -91,7 +91,7 @@ class Bridge:
         if status_retry_s and status_retry_s > 0:
             raise NotImplementedError(
                 "retrying status sends across a scheduler outage (status_retry_s) is not "
-                "ported yet (ROADMAP.md, Queue 1: sharded PS/FT/rejoin)"
+                "ported yet (ROADMAP.md, Queue 1: scheduler recovery)"
             )
         self.node = node
         self.work_dir = Path(work_dir)

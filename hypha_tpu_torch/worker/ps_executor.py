@@ -46,35 +46,41 @@ overlapping partials from different senders the bigger cover wins, a tie
 keeping the accepted one; a reducer's cumulative re-flush replaces its
 previous partial through the duplicate path.
 
-Fault tolerance of blocking jobs (the reference's ``:210-260``,
-``:346-389``, ``:754-940``, ``:1171-1600``, ``:2331-2380``):
+Fault tolerance in every sync mode and placement (the reference's
+``:210-260``, ``:346-389``, ``:754-940``, ``:1057-1102``, ``:1171-2140``,
+``:2331-2380``):
 
   * ``quorum_fraction > 0`` makes the rounds elastic
     (:class:`_ElasticState`): the scheduler's ``MembershipUpdate``
-    messages arrive over ``/hypha-ft/0.0.1``; a round closes when every live active
-    worker reported, or after ``round_deadline_s`` at quorum; a delta of
-    a closed round is dropped as stale, one of a later round is parked for
-    it; a joined peer gets the catch-up Σ of every broadcast update
-    (``ft/rejoin.py``), and broadcasts go to the active set with the
-    membership epoch in their header;
+    messages arrive over ``/hypha-ft/0.0.1``; a round (a stream round's
+    due part too) closes when every live active worker is covered, or
+    after ``round_deadline_s`` at quorum; a delta of a closed round is
+    dropped as stale, one of a later round is parked for it; a joined peer
+    gets the catch-up Σ of every broadcast update (``ft/rejoin.py``; a
+    shard's Σ covers its own parts and its header names the shard), and
+    broadcasts go to the active set (frozen at the close in the pipelined
+    loop) with the membership epoch in their header;
   * ``checkpoint_dir`` makes the server durable (``ft/durable.py``): every
-    accepted delta is journaled (saved under the checkpoint root with its
-    sha-256), every round's wire kept and committed, the outer state
-    checkpointed every ``ps_checkpoint_every_rounds``; a server restarted
-    under the same job id replays the committed rounds after the snapshot
-    (bit for bit), re-sends its newest broadcast and an empty resync, both
-    stamped with its new generation, and resumes the interrupted round
-    with its journaled folds, deduplicating the workers' re-sends. A
-    checkpoint root of another job id starts fresh, taking only the
-    momentum copy the previous attempt left (``_checkpoint_momentum``).
+    accepted delta and partial is journaled (saved under the checkpoint
+    root with its sha-256, a partial with the workers it covers), every
+    round's wire kept and committed, the outer state (momentum of every
+    part, Σ, each part's broadcast residual) checkpointed every
+    ``ps_checkpoint_every_rounds`` commits; a server restarted under the
+    same job id replays the committed rounds after the snapshot (bit for
+    bit, the cover un-folds included), re-sends each part's newest
+    broadcast and an empty resync, stamped with its new generation and,
+    sharded, its shard (workers re-send only this shard's parts), and
+    resumes the interrupted rounds with their journaled folds,
+    deduplicating the workers' re-sends. Each shard of a sharded job has
+    its own root, journal and generation (``<checkpoint_dir>/ps<k>``); a
+    stream shard's journal skips the rounds it does not own. A checkpoint
+    root of another job id starts fresh, taking only the momentum copies
+    the previous attempt left (``_checkpoint_momentum``).
 
 What raises ``NotImplementedError`` at dispatch, with its ROADMAP.md
-label: elastic quorums or a ``checkpoint_dir`` with ``sync_mode`` overlap
-or stream or with several shards, the adaptive options, the broadcast tree
-and the adoption grace (sharded PS/FT/rejoin); ``report_metrics_s``
-(telemetry); ``serve_peers`` (live weight swap). A tree-reduce partial
-arriving at an elastic or durable round fails the job under the same label
-(per-shard durability and a prefold record in the journal are not ported).
+label: the adaptive options (adaptive rounds and chaos kinds), the
+broadcast tree (broadcast tree), the adoption grace (scheduler recovery),
+``report_metrics_s`` (telemetry) and ``serve_peers`` (live weight swap).
 
 The outer step (counterpart of ``ParameterServerExecutor._outer_step``,
 ``hypha_tpu/worker/ps_executor.py:2382-2440``, with
@@ -112,7 +118,7 @@ import numpy as np
 import torch
 
 from .. import aio, compress
-from ..executor.serialization import load_file, save_file
+from ..executor.serialization import load_file, read_header, save_file
 from ..ft.durable import GENERATION_KEY, RESYNC_KEY, DurablePS, FoldRecord
 from ..ft.membership import PROTOCOL_FT, MembershipUpdate, RoundMembership, quorum_size
 from ..ft.rejoin import CATCHUP_KEY, CatchupBuffer
@@ -158,7 +164,7 @@ _DRAIN_SLACK_S = 0.25
 # reducer's own direct delta.
 _PREFOLD_PREFIX = "prefold:"
 
-_FT = "sharded PS/FT/rejoin"
+_ADAPTIVE = "adaptive rounds and chaos kinds"
 
 
 def _copy(t: torch.Tensor, device) -> torch.Tensor:
@@ -182,6 +188,7 @@ def outer_step(
     accum: "RoundAccum | None" = None,
     stats: "dict | None" = None,
     device=None,
+    base: "Path | None" = None,
 ) -> Path:
     """Nesterov over the round's sample-weighted mean pseudo-gradient.
 
@@ -190,7 +197,10 @@ def outer_step(
     is; without one (or with an empty one) the received files are folded
     now, on ``device`` (CUDA unless the caller asks for the CPU).
     ``stats``, when given, is filled with the L2 norms of ḡ and of the
-    update and the accepted-delta count. Returns the update file's path.
+    update and the accepted-delta count. ``base`` is a momentum file over
+    more tensors than this round's (a recovered or warm-started server's
+    whole momentum): while ``momentum_file`` does not exist, the round's
+    tensors start from it. Returns the update file's path.
     """
     if accum is None or accum.folds == 0:
         accum = RoundAccum(device=device) if accum is None else accum
@@ -200,7 +210,12 @@ def outer_step(
     out = work_dir / f"update-{round_num}.safetensors"
     momentum_tmp = work_dir / "momentum.next.safetensors"
     # Host copies: the device holds only the sum and one tensor's step.
-    momentum: dict = dict(load_file(momentum_file)) if momentum_file.is_file() else {}
+    momentum: dict = {}
+    if momentum_file.is_file():
+        momentum = dict(load_file(momentum_file))
+    elif base is not None and Path(base).is_file():
+        have = read_header(base)[0]
+        momentum = dict(load_file(base, [k for k in accum.keys() if k in have]))
     update: dict = {}
     g_sq = u_sq = 0.0
     for key, g in accum.mean_items():
@@ -232,26 +247,18 @@ def outer_step(
 
 def _unported(cfg) -> None:
     """Raise on every aggregate option this path does not run."""
-    streaming = (cfg.sync_mode or "blocking") != "blocking"
-    sharded = int(cfg.num_ps_shards or 1) > 1
     checks = [
-        ((streaming or sharded) and bool(cfg.checkpoint_dir), "checkpoint_dir", _FT),
-        ((streaming or sharded) and cfg.quorum_fraction > 0, "quorum_fraction", _FT),
-        (bool(cfg.adaptive_steps), "adaptive_steps", _FT),
-        (bool(cfg.adaptive_codec), "adaptive_codec", _FT),
-        (cfg.broadcast_tree is not None, "broadcast_tree", _FT),
-        (bool(cfg.adopt_grace_s), "adopt_grace_s", _FT),
+        (bool(cfg.adaptive_steps), "adaptive_steps", _ADAPTIVE),
+        (bool(cfg.adaptive_codec), "adaptive_codec", _ADAPTIVE),
+        (cfg.broadcast_tree is not None, "broadcast_tree", "broadcast tree"),
+        (bool(cfg.adopt_grace_s), "adopt_grace_s", "scheduler recovery"),
         (bool(cfg.report_metrics_s), "report_metrics_s", "telemetry"),
         (bool(cfg.serve_peers), "serve_peers", "live weight swap"),
     ]
     for bad, option, item in checks:
         if bad:
-            mode = ""
-            if option in ("checkpoint_dir", "quorum_fraction"):
-                mode = (f" with num_ps_shards={cfg.num_ps_shards}" if sharded
-                        else f" with sync_mode={cfg.sync_mode!r}")
             raise NotImplementedError(
-                f"{option}={getattr(cfg, option)!r}{mode} is not ported to the PyTorch "
+                f"{option}={getattr(cfg, option)!r} is not ported to the PyTorch "
                 f"parameter server (ROADMAP.md, Queue 1: {item})"
             )
 
@@ -281,8 +288,13 @@ class _ElasticState:
         self.membership = RoundMembership(epoch=0, active=sorted(cfg.updates.ref.peers or []))
         self.catchup = CatchupBuffer()
         self.pending_joins: dict = {}  # peer -> catch-up attempts left
-        self.early: dict = {}  # round -> {peer: (path, samples)} parked for it
+        self.early: dict = {}  # round -> {key: (path, samples)} parked for it
+        self.early_covers: dict = {}  # round -> {key: (prefolded, covered workers)}
         self.dur: "DurablePS | None" = None
+        # Stamped into catch-up headers: a sharded job's rejoiner waits for
+        # one catch-up per shard.
+        self.shard = 0
+        self.num_shards = 1
 
     def quorum(self) -> int:
         return quorum_size(self.quorum_fraction, len(self.membership.active))
@@ -340,8 +352,23 @@ class ParameterServerExecutor(JobExecutor):
             return
         elastic = _ElasticState(cfg, scheduler_peer) if cfg.quorum_fraction > 0 else None
         lr, mu = cfg.optimizer.lr, cfg.optimizer.momentum
-        # Momentum lives as a SafeTensors file between rounds, as in the
-        # reference: the device holds only the round's sum.
+        sync_mode = cfg.sync_mode or "blocking"
+        # One shard of N owns a disjoint set of the placement parts (stream
+        # fragments, or N blocking sub-deltas); N == 1 is the whole tree.
+        num_shards = max(int(cfg.num_ps_shards or 1), 1)
+        shard = int(cfg.shard_index or 0)
+        parts = placement_parts(sync_mode, cfg.fragments, num_shards)
+        pipelined = sync_mode != "blocking" or num_shards > 1
+        # A stream shard closes only the rounds whose due fragment it owns:
+        # its journal skips the others.
+        owned = None
+        if num_shards > 1 and sync_mode == "stream":
+            def owned(r: int) -> bool:
+                return shard_owns_round(sync_mode, r, parts, num_shards, shard)
+        # Momentum lives as SafeTensors files between rounds, as in the
+        # reference: the device holds only the round's sum. The pipelined
+        # loop keeps one file per part beside this one (a recovered or
+        # warm-started server's whole momentum).
         momentum_file = work_dir / "momentum.safetensors"
         ckpt_dir = Path(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
         membership_reg = None
@@ -364,15 +391,15 @@ class ParameterServerExecutor(JobExecutor):
         try:
             if ckpt_dir is not None:
                 every = max(int(cfg.ps_checkpoint_every_rounds or 1), 1)
-                dur = await asyncio.to_thread(DurablePS.open, ckpt_dir, job_id, every)
+                dur = await asyncio.to_thread(DurablePS.open, ckpt_dir, job_id, every,
+                                              owned=owned)
                 log.info("ps %s: durable state at %s, generation %d", job_id, ckpt_dir,
                          dur.generation)
                 if dur.resume is None:
                     # A full job restart runs under a new job id: momentum
                     # is the only outer state that carries over.
-                    saved = ckpt_dir / "momentum.safetensors"
-                    if saved.is_file():
-                        await asyncio.to_thread(shutil.copyfile, saved, momentum_file)
+                    for saved in sorted(ckpt_dir.glob("momentum*.safetensors")):
+                        await asyncio.to_thread(shutil.copyfile, saved, work_dir / saved.name)
                         log.info("ps %s: momentum restored from %s", job_id, saved)
         except Exception as e:
             # A corrupt durable root or a full disk fails the job visibly.
@@ -396,35 +423,34 @@ class ParameterServerExecutor(JobExecutor):
         consumer = self.node.consume_pushes(wants)
         if elastic is not None:
             elastic.dur = dur
+            elastic.shard, elastic.num_shards = shard, num_shards
         # The broadcast's wire codec mirrors the upload's; a quantized one
         # feeds its error back into the next update.
         codec = compress.effective_codec(cfg.delta_codec or "none")
-        sync_mode = cfg.sync_mode or "blocking"
-        # One shard of N owns a disjoint set of the placement parts (stream
-        # fragments, or N blocking sub-deltas); N == 1 is the whole tree.
-        num_shards = max(int(cfg.num_ps_shards or 1), 1)
-        shard = int(cfg.shard_index or 0)
         try:
-            if sync_mode != "blocking" or num_shards > 1:
-                await self._stream_rounds(
-                    execution, job_id, cfg, scheduler_peer, work_dir, consumer, allowed,
-                    num_workers, lr, mu, codec,
-                    placement_parts(sync_mode, cfg.fragments, num_shards),
-                    shard=shard, num_shards=num_shards, sync_mode=sync_mode)
-                return
             bcast_ef = compress.ErrorFeedback() if codec in compress.QUANT_CODECS else None
             round_num = 0
             preload: dict = {}
             recovered: dict = {}
+            rec_efs: dict = {}
             if dur is not None and dur.resume is not None:
                 round_num, rec_efs, preload, recovered, done = await self._recover(
                     dur, job_id, cfg, scheduler_peer, work_dir, momentum_file, elastic, lr, mu,
-                    codec, execution)
+                    codec, execution, stream=pipelined, fragments=parts, shard=shard,
+                    num_shards=num_shards)
                 if bcast_ef is not None and 0 in rec_efs:
                     bcast_ef = rec_efs[0]
                 if done:
                     execution.finish("completed")
                     return
+            if pipelined:
+                await self._stream_rounds(
+                    execution, job_id, cfg, scheduler_peer, work_dir, consumer, allowed,
+                    num_workers, lr, mu, codec, parts, shard=shard, num_shards=num_shards,
+                    sync_mode=sync_mode, elastic=elastic, dur=dur, momentum_file=momentum_file,
+                    ckpt_dir=ckpt_dir, round_start=round_num, init_accums=recovered,
+                    init_pending=preload, init_efs=rec_efs)
+                return
             while True:
                 execution.round = round_num  # the live round, for AdoptAck
                 # A recovered round resumes its replayed accumulator.
@@ -493,10 +519,7 @@ class ParameterServerExecutor(JobExecutor):
                 if elastic is not None:
                     await self._serve_joins(elastic, cfg, round_num, work_dir)
                 if response.kind == ProgressResponseKind.DONE:
-                    if dur is not None:
-                        log.info("ps %s: journal %d records, %d bytes; %d dedup hits", job_id,
-                                 dur.journal.records_written, dur.journal.bytes_written,
-                                 dur.dedup_hits)
+                    self._log_journal(job_id, dur)
                     execution.finish("completed")
                     return
         except asyncio.CancelledError:
@@ -512,22 +535,32 @@ class ParameterServerExecutor(JobExecutor):
                 await asyncio.to_thread(dur.close)
             await asyncio.to_thread(shutil.rmtree, work_dir, ignore_errors=True)
 
+    @staticmethod
+    def _log_journal(job_id: str, dur: "DurablePS | None") -> None:
+        if dur is not None:
+            log.info("ps %s: journal %d records, %d bytes; %d dedup hits", job_id,
+                     dur.journal.records_written, dur.journal.bytes_written, dur.dedup_hits)
+
     # ------------------------------------------------------ crash recovery
 
     async def _recover(self, dur: DurablePS, job_id: str, cfg, scheduler_peer: str,
                        work_dir: Path, momentum_file: Path, elastic, lr: float, mu: float,
-                       codec: str, execution) -> tuple:
+                       codec: str, execution, *, stream: bool = False, fragments: int = 1,
+                       shard: int = 0, num_shards: int = 1) -> tuple:
         """Resume the job from its durable state after a restart (the
-        reference's ``_recover``, blocking rounds). Returns ``(round,
-        {fragment: broadcast residual}, preload, accums, done)``: momentum,
-        Σ, the residual, round and epoch come from the checkpoint; each
-        round committed after it re-runs its outer step from the journaled
-        folds; the scheduler is re-notified of the last committed round if
-        the journal lacks its answer; an empty resync and the newest
-        committed broadcast go out stamped with the new generation (every
-        worker re-sends its un-acknowledged delta; the journal deduplicates
-        the copies that landed); the interrupted round's folds come back
-        for the collect loop."""
+        reference's ``_recover``). Returns ``(round, {fragment: broadcast
+        residual}, preload, accums, done)``: momentum, Σ, the residuals,
+        round and epoch come from the checkpoint; each round committed
+        after it re-runs its outer step from the journaled folds (partials
+        and their covers included); the scheduler is re-notified of the
+        last committed round if the journal lacks its answer; an empty
+        resync and each fragment's newest committed broadcast go out
+        stamped with the new generation (and the shard, so workers re-send
+        only this shard's parts; the journal deduplicates the copies that
+        landed); the interrupted rounds' folds come back for the collect
+        loops. ``stream`` is the pipelined loop (any streaming or sharded
+        job): its rounds carry fragment tags and momentum per part, and
+        its interrupted accumulators are rebuilt even when elastic."""
         resume = dur.resume
         assert resume is not None
         t0 = time.perf_counter()
@@ -548,25 +581,31 @@ class ParameterServerExecutor(JobExecutor):
         round_num = resume.next_round
         for rec in resume.committed:
             rnd = int(rec["round"])
+            frag = int(rec.get("fragment", 0))
             accum = RoundAccum(device=self.device)
             for fold, sign in dur.replay_ops(rnd):
                 await asyncio.to_thread(accum.fold, dur.deltas_dir / fold.file, fold.samples,
-                                        sign)
+                                        sign, fold.prefold)
+            part_momentum = self._part_momentum(work_dir, frag) if stream else momentum_file
             update_path = await asyncio.to_thread(
-                outer_step, {}, momentum_file, lr, mu, work_dir, rnd, accum=accum,
-                device=self.device)
+                outer_step, {}, part_momentum, lr, mu, work_dir, rnd, accum=accum,
+                device=self.device, base=momentum_file if stream else None)
             del accum
-            if codec in compress.QUANT_CODECS and 0 not in bcast_efs:
-                bcast_efs[0] = compress.ErrorFeedback()
+            if codec in compress.QUANT_CODECS and frag not in bcast_efs:
+                bcast_efs[frag] = compress.ErrorFeedback()
+            tag = (FragmentTag(round=rnd, fragment_id=frag, fragments=fragments).header()
+                   if stream else None)
             wire_path, sent = await asyncio.to_thread(
-                self._encode_broadcast, update_path, codec, bcast_efs.get(0), work_dir, rnd)
-            if rnd == dur.newest_commit(0):
+                self._encode_broadcast, update_path, codec, bcast_efs.get(frag), work_dir, rnd,
+                tag)
+            if rnd == dur.newest_commit(frag):
                 await asyncio.to_thread(dur.store_wire, rnd, wire_path)
             if elastic is not None:
+                frag_id = frag if stream else None
                 if sent is None:
-                    await asyncio.to_thread(elastic.catchup.accumulate, wire_path)
+                    await asyncio.to_thread(elastic.catchup.accumulate, wire_path, frag_id)
                 else:
-                    await asyncio.to_thread(elastic.catchup.accumulate_tree, sent)
+                    await asyncio.to_thread(elastic.catchup.accumulate_tree, sent, frag_id)
             del sent
             await asyncio.to_thread(
                 _unlink, [update_path] + ([wire_path] if wire_path != update_path else []))
@@ -581,34 +620,43 @@ class ParameterServerExecutor(JobExecutor):
             notified = resume.notified.get(last_round)
             if notified is None:
                 response = await self._notify_updated(scheduler_peer, job_id, last_round,
-                                                      execution)
+                                                      execution, shard=shard)
                 done = response.kind == ProgressResponseKind.DONE
                 await asyncio.to_thread(dur.note_notified, last_round, done)
             else:
                 done = bool(notified)
+        resync_extra: dict = {GENERATION_KEY: dur.generation, RESYNC_KEY: True}
+        if num_shards > 1:
+            # Workers track one generation per shard: the announcement says
+            # which shard restarted.
+            resync_extra[SHARD_KEY] = shard
         resync = work_dir / "resync.bin"
         await asyncio.to_thread(resync.write_bytes, b"")
-        await self._broadcast(cfg, resync, round_num, elastic,
-                              extra_header={GENERATION_KEY: dur.generation, RESYNC_KEY: True})
-        for rnd, _frag, path in dur.last_wires():
-            await self._broadcast(cfg, path, rnd, elastic,
-                                  extra_header={GENERATION_KEY: dur.generation})
+        await self._broadcast(cfg, resync, round_num, elastic, extra_header=resync_extra)
+        for rnd, frag, path in dur.last_wires():
+            extra: dict = {GENERATION_KEY: dur.generation}
+            if num_shards > 1:
+                extra[SHARD_KEY] = shard
+            if stream:
+                extra.update(FragmentTag(round=rnd, fragment_id=frag,
+                                         fragments=fragments).header())
+            await self._broadcast(cfg, path, rnd, elastic, extra_header=extra)
         preload: dict = {}
         accums: dict = {}
         for rnd in dur.pending_rounds(round_num):
             bucket = preload.setdefault(rnd, {})
             for fold in dur.folds_for(rnd):
                 bucket[fold.peer] = (dur.deltas_dir / fold.file, fold.samples)
-            if elastic is None:
+            if elastic is None or stream:
                 # The in-flight accumulator, rebuilt by the exact fold and
                 # un-fold sequence: bit-equal to the crashed process's.
                 accum = accums.setdefault(rnd, RoundAccum(device=self.device))
                 for fold, sign in dur.replay_ops(rnd):
                     await asyncio.to_thread(accum.fold, dur.deltas_dir / fold.file,
-                                            fold.samples, sign)
-        if elastic is not None:
+                                            fold.samples, sign, fold.prefold)
+        if elastic is not None and not stream:
             # The elastic collector folds parked entries when their round
-            # opens (last-wins per peer).
+            # opens (last-wins per key).
             for rnd, bucket in preload.items():
                 elastic.early.setdefault(rnd, {}).update(bucket)
                 log.info("ps %s: round %d resumes with journaled deltas from %s", job_id, rnd,
@@ -617,20 +665,29 @@ class ParameterServerExecutor(JobExecutor):
         return round_num, bcast_efs, preload, accums, done
 
     @staticmethod
-    async def _ingest(dur: "DurablePS | None", round_num: int, peer: str, entry: tuple,
-                      sha: "str | None" = None) -> bool:
-        """Journal one accepted delta; False = an exact re-send, already
-        journaled: the file goes and nothing folds."""
+    def _part_momentum(work_dir: Path, part: int) -> Path:
+        """One part's momentum file: the parts' tensors are disjoint, so a
+        pipelined round reads and writes only its own."""
+        return work_dir / f"momentum-f{part}.safetensors"
+
+    @staticmethod
+    async def _ingest(dur: "DurablePS | None", round_num: int, fragment: int, key: str,
+                      entry: tuple, sha: "str | None" = None, prefold: bool = False,
+                      covers=()) -> bool:
+        """Journal one accepted delta or partial under its table key; False
+        = an exact re-send, already journaled: the file goes and nothing
+        folds."""
         if dur is None:
             return True
         path, samples = entry
         if sha is None:
             sha = await asyncio.to_thread(_file_sha, path)
-        if dur.already_folded(round_num, 0, peer, sha):
+        if dur.already_folded(round_num, fragment, key, sha):
             await asyncio.to_thread(_unlink, [path])
             return False
         await asyncio.to_thread(dur.note_fold, FoldRecord(
-            round=round_num, fragment=0, peer=peer, samples=samples, sha=sha, file=path.name))
+            round=round_num, fragment=fragment, peer=key, samples=samples, sha=sha,
+            file=path.name, prefold=prefold, covers=sorted(covers) if prefold else []))
         return True
 
     @staticmethod
@@ -656,22 +713,12 @@ class ParameterServerExecutor(JobExecutor):
         return delta_round
 
     @staticmethod
-    async def _refuse_prefold(push, what: str) -> None:
-        """A partial at an elastic or durable round fails the job: neither
-        reconciles covers nor journals a partial in the port."""
-        if isinstance(push.resource, dict) and push.resource.get(PREFOLD_KEY):
-            await push.read_all()
-            raise NotImplementedError(
-                f"a tree-reduce partial from {push.peer} reached {what}; partials are not "
-                f"folded there in PyTorch yet (ROADMAP.md, Queue 1: {_FT})"
-            )
-
-    @staticmethod
-    async def _fold(accum: RoundAccum, entry: tuple, sign: float = 1.0,
+    async def _fold(accum: "RoundAccum | None", entry: tuple, sign: float = 1.0,
                     prefolded: bool = False) -> None:
         """Fold one saved delta (or a partial, verbatim) into the round's
-        sum, off the event loop."""
-        await asyncio.to_thread(accum.fold, entry[0], entry[1], sign, prefolded)
+        sum, off the event loop (None: a parked bucket, nothing folded)."""
+        if accum is not None:
+            await asyncio.to_thread(accum.fold, entry[0], entry[1], sign, prefolded)
 
     # ------------------------------------------------ tree-reduce covers
 
@@ -712,12 +759,15 @@ class ParameterServerExecutor(JobExecutor):
         return any(p and peer in c for p, c in covers.values())
 
     async def _retire_covered(self, job_id: str, accum, bucket: dict, covers: dict,
-                              cov: frozenset) -> None:
+                              cov: frozenset, durable: bool = False) -> None:
         """A partial supersedes what it contains: first every accepted
         partial of another sender that it intersects (each strictly
         smaller, or ``_prefold_superseded`` had dropped the new one), then
         its members' direct deltas, each un-folded and retired in sorted
-        order."""
+        order (``DurablePS.replay_ops`` re-derives both loops from the
+        partial's journaled covers). ``accum`` None: a parked bucket, not
+        folded yet. A ``durable`` server keeps the retired files for that
+        replay until a checkpoint covers their round."""
         for okey in sorted(k for k in list(bucket) if k in covers):
             info = covers.get(okey)
             if info is None or not info[0] or not (info[1] & cov):
@@ -727,7 +777,8 @@ class ParameterServerExecutor(JobExecutor):
             old = bucket.pop(okey)
             covers.pop(okey, None)
             await self._fold(accum, old, sign=-1.0, prefolded=True)
-            await asyncio.to_thread(_unlink, [old[0]])
+            if not durable:
+                await asyncio.to_thread(_unlink, [old[0]])
         for member in sorted(cov):
             info = covers.get(member)
             if member not in bucket or (info is not None and info[0]):
@@ -737,27 +788,34 @@ class ParameterServerExecutor(JobExecutor):
             old = bucket.pop(member)
             covers.pop(member, None)
             await self._fold(accum, old, sign=-1.0, prefolded=False)
-            await asyncio.to_thread(_unlink, [old[0]])
+            if not durable:
+                await asyncio.to_thread(_unlink, [old[0]])
 
     async def _collect_round(
         self, consumer, job_id: str, allowed: set, num_workers: int, work_dir: Path,
         round_num: int, accum: RoundAccum, dur: "DurablePS | None" = None,
         preloaded: "dict | None" = None, preloaded_folded: bool = False,
     ) -> dict:
-        """Gather one pseudo-gradient per worker: peer -> (path, samples),
+        """Gather one pseudo-gradient per worker: key -> (path, samples),
         each folded into ``accum`` as it lands. ``preloaded`` seeds the
         round with a recovered server's journaled folds (already in
         ``accum`` when ``preloaded_folded``). A durable round journals each
-        delta (saved under the checkpoint root, uniquely named), drops an
-        exact re-send, and drops a delta of a round already committed."""
+        delta and partial (saved under the checkpoint root, uniquely
+        named), drops an exact re-send, and drops a delta of a round
+        already committed."""
         received: dict = dict(preloaded or {})
-        if not preloaded_folded:
-            for entry in received.values():
-                await self._fold(accum, entry)
-        dest_dir = dur.deltas_dir if dur is not None else work_dir
         # Entry key -> (prefolded, covered workers): a tree-reduce partial
-        # covers its group, everything else its sender.
+        # covers its group, everything else its sender. Journaled entries
+        # rebuild theirs from the fold records.
         covers: dict = {}
+        if dur is not None:
+            for f in dur.folds_for(round_num):
+                covers[f.peer] = (f.prefold, frozenset(f.covers or (f.peer,)))
+        if not preloaded_folded:
+            for key, entry in received.items():
+                await self._fold(accum, entry,
+                                 prefolded=covers.get(key, (False, frozenset()))[0])
+        dest_dir = dur.deltas_dir if dur is not None else work_dir
         while len(self._covered(received, covers)) < num_workers:
             push = await consumer.next()
             peer = push.peer
@@ -766,9 +824,10 @@ class ParameterServerExecutor(JobExecutor):
                 await push.read_all()
                 continue
             if dur is not None:
+                # A recovered server's resync makes every worker re-send;
+                # one for a committed round must not fold into this one.
                 if await self._classify_push(push, job_id, None, round_num) is None:
                     continue
-                await self._refuse_prefold(push, "a durable parameter server")
             prefolded, cov = self._push_cover(push.resource, peer)
             key = self._entry_key(prefolded, peer)
             if prefolded and self._prefold_superseded(covers, cov, key):
@@ -794,17 +853,19 @@ class ParameterServerExecutor(JobExecutor):
                 push, dest_dir, round_num,
                 suffix=f"-{uuid.uuid4().hex[:8]}" if dur is not None else "", hasher=hasher,
                 key=key)
-            if not await self._ingest(dur, round_num, peer, entry,
-                                      hasher.hexdigest() if hasher is not None else None):
+            if not await self._ingest(dur, round_num, 0, key, entry,
+                                      hasher.hexdigest() if hasher is not None else None,
+                                      prefold=prefolded, covers=cov):
                 log.info("ps %s: duplicate re-send from %s (journaled); dropped", job_id, peer)
                 continue
-            if peer in received:
+            if key in received:
                 # Durable: un-fold the superseded entry after the save; its
                 # file stays for a replay until a checkpoint covers it.
                 log.warning("ps %s: duplicate delta from %s; replacing", job_id, peer)
-                await self._fold(accum, received.pop(peer), sign=-1.0)
+                await self._fold(accum, received.pop(key), sign=-1.0, prefolded=prefolded)
             if prefolded and cov:
-                await self._retire_covered(job_id, accum, received, covers, cov)
+                await self._retire_covered(job_id, accum, received, covers, cov,
+                                           durable=dur is not None)
             received[key] = entry
             covers[key] = (prefolded, cov)
             await self._fold(accum, entry, prefolded=prefolded)
@@ -815,16 +876,32 @@ class ParameterServerExecutor(JobExecutor):
     async def _collect_round_elastic(self, consumer, job_id: str, st: _ElasticState, cfg,
                                      work_dir: Path, round_num: int, accum: RoundAccum,
                                      dur: "DurablePS | None" = None) -> dict:
-        """Quorum + deadline gather: peer -> (path, samples). The round
-        closes, with at least a quorum, once every live active worker
-        reported or ``round_deadline_s`` passed since it opened. A stale
-        delta is dropped, a later round's is parked for it, a joined peer's
-        catch-up is served from the wait; a delta still draining when the
-        quorate round's deadline passes is abandoned."""
+        """Quorum + deadline gather: key -> (path, samples). The round
+        closes, with at least a quorum of covered workers, once every live
+        active worker is covered or ``round_deadline_s`` passed since it
+        opened. A stale delta is dropped, a later round's is parked for it,
+        a joined peer's catch-up is served from the wait; a delta still
+        draining when the quorate round's deadline passes is abandoned.
+        Tree-reduce partials reconcile by cover sets as in the plain
+        collector."""
         received: dict = dict(st.early.pop(round_num, {}))
-        for entry in received.values():
+        covers: dict = dict(st.early_covers.pop(round_num, {}))
+        if dur is not None:
+            for f in dur.folds_for(round_num):
+                covers.setdefault(f.peer, (f.prefold, frozenset(f.covers or (f.peer,))))
+        for key, (p, c) in list(covers.items()):
+            # A recovery-seeded bucket is a last-wins table: it can hold a
+            # partial beside a direct entry the live collector had retired
+            # as covered; the directs go before folding.
+            if p and c:
+                for member in sorted(c):
+                    info = covers.get(member)
+                    if member in received and not (info and info[0]):
+                        received.pop(member)
+                        covers.pop(member, None)
+        for key, entry in received.items():
             # Parked arrivals were never folded: their round had not opened.
-            await self._fold(accum, entry)
+            await self._fold(accum, entry, prefolded=covers.get(key, (False, frozenset()))[0])
         dest_dir = dur.deltas_dir if dur is not None else work_dir
         loop = asyncio.get_running_loop()
         t_open = loop.time()
@@ -837,7 +914,7 @@ class ParameterServerExecutor(JobExecutor):
             # A rejoiner announced mid-round contributes to THIS round.
             await self._serve_joins(st, cfg, round_num, work_dir)
             deadline = deadline_at()
-            covered = set(received)
+            covered = self._covered(received, covers)
             expected = st.membership.expected() | covered
             quorate = len(covered) >= st.quorum()
             if received and quorate and covered >= expected:
@@ -861,53 +938,85 @@ class ParameterServerExecutor(JobExecutor):
             delta_round = await self._classify_push(push, job_id, st.membership.active, round_num)
             if delta_round is None:
                 continue
-            await self._refuse_prefold(push, "an elastic parameter server")
+            prefolded, cov = self._push_cover(push.resource, peer)
+            key = self._entry_key(prefolded, peer)
+            cov_table = (covers if delta_round == round_num
+                         else st.early_covers.get(delta_round, {}))
+            if prefolded and self._prefold_superseded(cov_table, cov, key):
+                log.info("ps %s: partial from %s contained in an accepted ancestor partial; "
+                         "dropped", job_id, peer)
+                await push.read_all()
+                continue
+            if not prefolded and self._direct_covered(cov_table, peer):
+                log.info("ps %s: delta from %s already covered by a tree-reduce partial; "
+                         "dropped", job_id, peer)
+                await push.read_all()
+                continue
             hasher = hashlib.sha256() if dur is not None else None
             # The drain bound applies only once the round is quorate: a
             # quorum-required delta drains however slow its link.
-            drain_deadline = deadline_at() if len(received) >= st.quorum() else None
+            drain_deadline = (deadline_at() if len(self._covered(received, covers)) >= st.quorum()
+                              else None)
             entry = await self._save_delta_bounded(
                 push, dest_dir, delta_round, suffix=f"-{uuid.uuid4().hex[:8]}", hasher=hasher,
-                deadline=drain_deadline, job_id=job_id)
+                deadline=drain_deadline, job_id=job_id, key=key)
             if entry is None:
                 continue
-            if not await self._ingest(dur, delta_round, peer, entry,
-                                      hasher.hexdigest() if hasher is not None else None):
+            if not await self._ingest(dur, delta_round, 0, key, entry,
+                                      hasher.hexdigest() if hasher is not None else None,
+                                      prefold=prefolded, covers=cov):
                 log.info("ps %s: duplicate re-send from %s (journaled); dropped", job_id, peer)
                 continue
             if delta_round > round_num:
                 # Early: a fast worker already merged this round's broadcast
                 # and shipped the next delta; credit it forward.
                 bucket = st.early.setdefault(delta_round, {})
-                old = bucket.pop(peer, None)
+                old = bucket.pop(key, None)
                 if old is not None and dur is None:
                     await asyncio.to_thread(_unlink, [old[0]])
-                bucket[peer] = entry
+                early_cov = st.early_covers.setdefault(delta_round, {})
+                if prefolded and cov:
+                    # Nothing in a parked bucket folded yet: the covered
+                    # entries just leave the table.
+                    await self._retire_covered(job_id, None, bucket, early_cov, cov,
+                                               durable=dur is not None)
+                bucket[key] = entry
+                early_cov[key] = (prefolded, cov)
                 log.info("ps %s: round %d delta from %s parked (now %d)", job_id, delta_round,
                          peer, round_num)
                 continue
-            old = received.pop(peer, None)
+            old = received.pop(key, None)
             if old is not None:
                 # Retired only after its replacement fully landed; a durable
                 # file stays for a replay until a checkpoint covers it.
                 log.warning("ps %s: duplicate delta from %s; replacing", job_id, peer)
-                await self._fold(accum, old, sign=-1.0)
+                await self._fold(accum, old, sign=-1.0, prefolded=prefolded)
                 if dur is None:
                     await asyncio.to_thread(_unlink, [old[0]])
-            received[peer] = entry
-            await self._fold(accum, entry)
+            if prefolded and cov:
+                await self._retire_covered(job_id, accum, received, covers, cov,
+                                           durable=dur is not None)
+            received[key] = entry
+            covers[key] = (prefolded, cov)
+            await self._fold(accum, entry, prefolded=prefolded)
             log.info("ps %s: round %d delta %d (quorum %d, active %d) from %s", job_id, round_num,
                      len(received), st.quorum(), len(st.membership.active), peer)
-        covered = set(received)
+        self._log_degraded(job_id, st, cfg, round_num, received, covers)
+        return received
+
+    def _log_degraded(self, job_id: str, st: _ElasticState, cfg, round_num: int,
+                      received: dict, covers: dict) -> None:
+        """A round closed with fewer covered workers than the job bought
+        (a departed worker never replaced keeps every round degraded), and
+        the live active workers whose delta missed the close."""
+        covered = self._covered(received, covers)
         full = max(cfg.num_workers, len(st.membership.active))
         if len(covered) < full:
             log.warning("ps %s: round %d DEGRADED — aggregating %d of %d (departed %s)", job_id,
                         round_num, len(received), full, sorted(st.membership.departed))
-        # Quorum drops: live active workers whose delta missed the close.
         dropped = st.membership.expected() - covered
         if dropped:
             log.warning("ps %s: round %d quorum drop: %s", job_id, round_num, sorted(dropped))
-        return received
 
     async def _save_delta_bounded(self, push, dest_dir: Path, delta_round: int, *, suffix: str,
                                   hasher, deadline: "float | None",
@@ -955,7 +1064,8 @@ class ParameterServerExecutor(JobExecutor):
     async def _serve_joins(self, st: _ElasticState, cfg, round_num: int, work_dir: Path) -> None:
         """Push the cumulative-update catch-up to newly joined peers: Σ,
         the next round and the membership epoch (and the generation of a
-        durable server)."""
+        durable server, and the shard of a sharded job: its rejoiner waits
+        for one catch-up per shard, each Σ over that shard's tensors)."""
         pending = [p for p, n in st.pending_joins.items() if n > 0]
         if not pending:
             return
@@ -968,6 +1078,8 @@ class ParameterServerExecutor(JobExecutor):
                 "epoch": st.membership.epoch,
                 CATCHUP_KEY: True,
             }
+            if st.num_shards > 1:
+                header[SHARD_KEY] = st.shard
             if st.dur is not None:
                 header[GENERATION_KEY] = st.dur.generation
             t0 = time.perf_counter()
@@ -986,9 +1098,9 @@ class ParameterServerExecutor(JobExecutor):
                     del st.pending_joins[peer]
                 continue
             del st.pending_joins[peer]
-            log.info("ps: served catch-up (%d rounds, next %d) to rejoiner %s: %d bytes in %.3f s",
-                     st.catchup.rounds, round_num, peer, path.stat().st_size,
-                     time.perf_counter() - t0)
+            log.info("ps: served catch-up (%d rounds, next %d) to rejoiner %s: %d bytes in %.3f s"
+                     " (shard %d)", st.catchup.rounds, round_num, peer, path.stat().st_size,
+                     time.perf_counter() - t0, st.shard)
 
     def _encode_broadcast(self, update_path: Path, codec: str, ef, work_dir: Path,
                           round_num: int, tag: "dict | None" = None) -> tuple:
@@ -1010,14 +1122,15 @@ class ParameterServerExecutor(JobExecutor):
 
     @staticmethod
     def _checkpoint_momentum(momentum_file: Path, ckpt_dir: Path) -> None:
-        """Copy the momentum file into the checkpoint dir (beside, then
-        renamed): the outer state a full job restart warm-starts from."""
+        """Copy a momentum file into the checkpoint dir under its own name
+        (beside, then renamed): the outer state a full job restart
+        warm-starts from (a pipelined server keeps one file per part)."""
         if not momentum_file.is_file():
             return
         ckpt_dir.mkdir(parents=True, exist_ok=True)
         tmp = ckpt_dir / ".momentum.tmp"
         shutil.copyfile(momentum_file, tmp)
-        os.replace(tmp, ckpt_dir / "momentum.safetensors")
+        os.replace(tmp, ckpt_dir / momentum_file.name)
 
     @staticmethod
     def _frame_tag_matches(path: Path, tag: FragmentTag) -> bool:
@@ -1035,24 +1148,29 @@ class ParameterServerExecutor(JobExecutor):
     async def _stream_rounds(self, execution, job_id: str, cfg, scheduler_peer: str,
                              work_dir: Path, consumer, allowed: set, num_workers: int,
                              lr: float, mu: float, codec: str, fragments: int, *,
-                             shard: int = 0, num_shards: int = 1,
-                             sync_mode: str = "stream") -> None:
+                             shard: int, num_shards: int, sync_mode: str,
+                             elastic: "_ElasticState | None", dur: "DurablePS | None",
+                             momentum_file: Path, ckpt_dir: "Path | None", round_start: int,
+                             init_accums: dict, init_pending: dict, init_efs: dict) -> None:
         """The pipelined round loop of ``sync_mode`` overlap and stream, and
         of every sharded job (counterpart of the reference's
-        ``_stream_rounds``, not elastic, not durable: ``_unported`` refuses
-        those here). Round ``r`` closes its due part when every worker is
-        covered; its update is encoded with that part's broadcast residual,
-        the scheduler hears ``UPDATED``, and the fan-out starts in the
+        ``_stream_rounds``). Round ``r`` closes its due part when every
+        worker is covered (``elastic``: at quorum, by the deadline); its
+        update is encoded with that part's broadcast residual, Σ takes it
+        (``elastic``), a durable server stores its wire and commits it, the
+        scheduler hears ``UPDATED``, and the fan-out starts in the
         background while the next round collects. Fan-outs of one part are
         chained (round r+F waits for round r); at most F + 1 are out at once.
 
         ``fragments`` is the placement's part count. A stream shard takes
         only the rounds whose due fragment it owns; a blocking shard closes
-        its own part (``shard``) every round."""
-        accums: dict = {}   # round -> RoundAccum, the open rounds only
-        pending: dict = {}  # round -> {key: entry} of rounds not open yet
+        its own part (``shard``) every round. A recovered server starts at
+        ``round_start`` with the replayed accumulators, the journaled
+        buckets of the rounds it had not closed and its residuals."""
+        accums: dict = dict(init_accums)  # round -> RoundAccum, the open rounds
+        pending: dict = dict(init_pending)  # round -> {key: entry} not open yet
         pending_covers: dict = {}  # round -> {key: (prefolded, covers)}
-        bcast_efs: dict = {}
+        bcast_efs: dict = dict(init_efs)
         bcast_tasks: set = set()
         last_bcast: dict = {}  # part -> its newest fan-out
         sharded = num_shards > 1
@@ -1070,41 +1188,79 @@ class ParameterServerExecutor(JobExecutor):
             def owned_fn(r: int) -> bool:
                 return shard_owns_round(sync_mode, r, fragments, num_shards, shard)
 
-        round_num = next_owned(0)
+        def momentum_files() -> list:
+            """The whole momentum: the base file, then the parts over it."""
+            return [momentum_file] + sorted(work_dir.glob("momentum-f*.safetensors"))
+
+        round_num = next_owned(round_start)
         try:
             while True:
                 execution.round = round_num
+                if dur is not None:
+                    await asyncio.to_thread(dur.note_open, round_num)
                 received = await self._collect_round_stream(
                     consumer, job_id, allowed, num_workers, work_dir, round_num, fragments,
                     accums, pending, due_fn=due_fn, owned_fn=owned_fn,
-                    pending_covers=pending_covers, sharded=sharded)
+                    pending_covers=pending_covers, sharded=sharded, cfg=cfg, st=elastic,
+                    dur=dur)
+                if dur is not None:
+                    await asyncio.to_thread(dur.note_close, round_num, list(received))
                 frag = due_fn(round_num)
                 tag = FragmentTag(round=round_num, fragment_id=frag, fragments=fragments)
                 accum = accums.pop(round_num, None)
-                # One momentum file per part: the parts' tensors are
-                # disjoint, so each round reads and writes only its own.
+                part_momentum = self._part_momentum(work_dir, frag)
                 update_path = await asyncio.to_thread(
-                    outer_step, received, work_dir / f"momentum-f{frag}.safetensors", lr, mu,
-                    work_dir, round_num, accum=accum, device=self.device)
+                    outer_step, received, part_momentum, lr, mu, work_dir, round_num,
+                    accum=accum, device=self.device, base=momentum_file)
                 del accum
                 if frag not in bcast_efs:
                     bcast_efs[frag] = (compress.ErrorFeedback()
                                        if codec in compress.QUANT_CODECS else None)
-                wire_path, _sent = await asyncio.to_thread(
+                wire_path, sent = await asyncio.to_thread(
                     self._encode_broadcast, update_path, codec, bcast_efs[frag], work_dir,
                     round_num, tag.header())
-                del _sent
+                if elastic is not None:
+                    # Σ at close time, in close order (never from the
+                    # background fan-out), before the durable commit.
+                    if sent is None:
+                        await asyncio.to_thread(elastic.catchup.accumulate, wire_path, frag)
+                    else:
+                        await asyncio.to_thread(elastic.catchup.accumulate_tree, sent, frag)
+                del sent
+                if dur is not None:
+                    wire_name = await asyncio.to_thread(dur.store_wire, round_num, wire_path)
+                    await asyncio.to_thread(
+                        dur.commit_round, round_num, frag, wire_name,
+                        epoch=elastic.membership.epoch if elastic is not None else 0,
+                        momentum_file=momentum_files(),
+                        catchup=elastic.catchup if elastic is not None else None,
+                        efs=bcast_efs,
+                        active=list(elastic.membership.active) if elastic is not None else [])
+                if ckpt_dir is not None:
+                    await asyncio.to_thread(self._checkpoint_momentum, part_momentum, ckpt_dir)
                 header = dict(tag.header())
+                if dur is not None:
+                    header[GENERATION_KEY] = dur.generation
                 if sharded:
                     header[SHARD_KEY] = shard
+                # The fan-out's peers are frozen at close: a rejoiner joining
+                # while it is pending gets this round inside its catch-up.
+                peers = list(elastic.membership.active) if elastic is not None else None
                 # Notify before the fan-out (the blocking loop's race note).
                 response = await self._notify_updated(
                     scheduler_peer, job_id, round_num, execution, shard=shard)
+                if dur is not None:
+                    await asyncio.to_thread(dur.note_notified, round_num,
+                                            response.kind == ProgressResponseKind.DONE)
                 last_bcast[frag] = aio.spawn(
-                    self._broadcast_and_cleanup(cfg, update_path, wire_path, received, tag,
-                                                header, after=last_bcast.get(frag)),
+                    self._broadcast_and_cleanup(
+                        cfg, update_path, wire_path, received, tag, header,
+                        after=last_bcast.get(frag), elastic=elastic, peers=peers,
+                        keep_received=dur is not None),
                     tasks=bcast_tasks, what=f"stream broadcast r{round_num}", logger=log)
                 round_num = next_owned(round_num + 1)
+                if elastic is not None:
+                    await self._serve_joins(elastic, cfg, round_num, work_dir)
                 live = [t for t in bcast_tasks if not t.done()]
                 if len(live) >= fragments + 1:
                     await asyncio.wait(live, return_when=asyncio.FIRST_COMPLETED)
@@ -1112,6 +1268,7 @@ class ParameterServerExecutor(JobExecutor):
                     # The last update must still reach the workers: their
                     # DONE comes with the UPDATE_RECEIVED it triggers.
                     await aio.wait_quiet(*bcast_tasks, timeout=60.0)
+                    self._log_journal(job_id, dur)
                     execution.finish("completed")
                     return
         finally:
@@ -1121,15 +1278,21 @@ class ParameterServerExecutor(JobExecutor):
                                     work_dir: Path, round_num: int, fragments: int,
                                     accums: dict, pending: dict, *, due_fn=None, owned_fn=None,
                                     pending_covers: "dict | None" = None,
-                                    sharded: bool = False) -> dict:
+                                    sharded: bool = False, cfg=None,
+                                    st: "_ElasticState | None" = None,
+                                    dur: "DurablePS | None" = None) -> dict:
         """Gather round ``round_num``'s part deltas, key -> (path, samples),
-        until every worker is covered. Every delta folds, as it lands, into
-        the accumulator of the round its header names: this one or a later
-        one. A delta for a closed round, one for a round another shard owns
-        (``owned_fn``), one whose tag names another part or count
-        (``due_fn`` gives a round's part), and an HQD1 frame whose own tag
-        contradicts its header are dropped; a re-send replaces (un-folds)
-        the sender's earlier delta; partials reconcile by cover sets."""
+        until every worker is covered, or, with ``st`` (elastic), until the
+        live active workers are covered at quorum or the round deadline
+        passed at quorum. Every delta folds, as it lands, into the
+        accumulator of the round its header names: this one or a later
+        one. A delta for a closed round, one from a non-member, one for a
+        round another shard owns (``owned_fn``), one whose tag names
+        another part or count (``due_fn`` gives a round's part), and an
+        HQD1 frame whose own tag contradicts its header are dropped; a
+        re-send replaces (un-folds) the sender's earlier delta; partials
+        reconcile by cover sets; a durable server (``dur``) journals each
+        accepted push under the round's part and drops an exact re-send."""
         if due_fn is None:
             def due_fn(r: int) -> int:
                 return fragment_due(r, fragments)
@@ -1137,22 +1300,47 @@ class ParameterServerExecutor(JobExecutor):
             pending_covers = {}
         received = pending.pop(round_num, {})
         covers: dict = pending_covers.pop(round_num, {})
-        while len(self._covered(received, covers)) < num_workers:
-            push = await consumer.next()
+        if dur is not None:
+            for f in dur.folds_for(round_num):
+                covers.setdefault(f.peer, (f.prefold, frozenset(f.covers or (f.peer,))))
+        dest_dir = dur.deltas_dir if dur is not None else work_dir
+        loop = asyncio.get_running_loop()
+        deadline = None
+        if st is not None and st.round_deadline_s > 0:
+            deadline = loop.time() + st.round_deadline_s
+        deadline_logged = False
+        while True:
+            timeout = None
+            if st is not None:
+                await self._serve_joins(st, cfg, round_num, work_dir)
+                covered = self._covered(received, covers)
+                expected = st.membership.expected() | covered
+                quorate = len(covered) >= st.quorum()
+                if received and quorate and covered >= expected:
+                    break
+                now = loop.time()
+                if deadline is not None and now >= deadline:
+                    if quorate:
+                        break
+                    if not deadline_logged:
+                        deadline_logged = True
+                        log.warning("ps %s: round %d (fragment %d) deadline passed with %d/%d "
+                                    "deltas; waiting for quorum", job_id, round_num,
+                                    due_fn(round_num), len(received), st.quorum())
+                timeout = _ELASTIC_TICK_S
+                if deadline is not None and now < deadline:
+                    timeout = min(timeout, max(deadline - now, 0.05))
+            elif len(self._covered(received, covers)) >= num_workers:
+                break
+            try:
+                push = await consumer.next(timeout=timeout)
+            except asyncio.TimeoutError:
+                continue
             peer = push.peer
             meta = push.resource if isinstance(push.resource, dict) else {}
-            if allowed and peer not in allowed:
-                log.warning("ps %s: push from disallowed peer %s", job_id, peer)
-                await push.read_all()
-                continue
-            try:
-                delta_round = int(meta.get("round", round_num))
-            except (TypeError, ValueError):
-                delta_round = round_num
-            if delta_round < round_num:
-                log.warning("ps %s: stale delta for round %d from %s dropped (now %d)",
-                            job_id, delta_round, peer, round_num)
-                await push.read_all()
+            members = st.membership.active if st is not None else (allowed or None)
+            delta_round = await self._classify_push(push, job_id, members, round_num)
+            if delta_round is None:
                 continue
             if owned_fn is not None and not owned_fn(delta_round):
                 # Another shard's round: this shard never opens it.
@@ -1183,8 +1371,18 @@ class ParameterServerExecutor(JobExecutor):
                          "dropped", job_id, peer)
                 await push.read_all()
                 continue
-            entry = await self._save_delta(push, work_dir, delta_round,
-                                           suffix=f"-{uuid.uuid4().hex[:8]}", key=key)
+            # Saved under a unique name, validated, then any duplicate is
+            # retired: a corrupt re-send never destroys the folded original.
+            hasher = hashlib.sha256() if dur is not None else None
+            drain_deadline = None
+            if st is not None and deadline is not None \
+                    and len(self._covered(received, covers)) >= st.quorum():
+                drain_deadline = deadline
+            entry = await self._save_delta_bounded(
+                push, dest_dir, delta_round, suffix=f"-{uuid.uuid4().hex[:8]}", hasher=hasher,
+                deadline=drain_deadline, job_id=job_id, key=key)
+            if entry is None:
+                continue
             if tag is not None and not await asyncio.to_thread(
                     self._frame_tag_matches, entry[0], tag):
                 # The push header and the frame disagree: trust neither.
@@ -1192,15 +1390,22 @@ class ParameterServerExecutor(JobExecutor):
                             job_id, peer, tag)
                 await asyncio.to_thread(_unlink, [entry[0]])
                 continue
+            if not await self._ingest(dur, delta_round, due, key, entry,
+                                      hasher.hexdigest() if hasher is not None else None,
+                                      prefold=prefolded, covers=cov):
+                log.info("ps %s: duplicate re-send from %s (journaled); dropped", job_id, peer)
+                continue
             accum = accums.setdefault(delta_round, RoundAccum(device=self.device))
             old = bucket.pop(key, None)
             if old is not None:
                 log.warning("ps %s: duplicate %s from %s; replacing", job_id,
                             "partial" if prefolded else "delta", peer)
                 await self._fold(accum, old, sign=-1.0, prefolded=prefolded)
-                await asyncio.to_thread(_unlink, [old[0]])
+                if dur is None:
+                    await asyncio.to_thread(_unlink, [old[0]])
             if prefolded and cov:
-                await self._retire_covered(job_id, accum, bucket, cov_table, cov)
+                await self._retire_covered(job_id, accum, bucket, cov_table, cov,
+                                           durable=dur is not None)
             bucket[key] = entry
             cov_table[key] = (prefolded, cov)
             await self._fold(accum, entry, prefolded=prefolded)
@@ -1208,32 +1413,43 @@ class ParameterServerExecutor(JobExecutor):
                      due_fn(round_num), "partial" if prefolded else "delta", len(received),
                      peer, f", covers {sorted(cov)}" if prefolded else "",
                      "" if delta_round == round_num else f", parked r{delta_round}")
+        if st is not None:
+            self._log_degraded(job_id, st, cfg, round_num, received, covers)
         return received
 
     async def _broadcast_and_cleanup(self, cfg, update_path: Path, wire_path: Path,
                                      received: dict, tag: FragmentTag, header: dict,
-                                     after: "asyncio.Task | None" = None) -> None:
-        """One round's background fan-out, then its files go. ``after`` is
-        the same part's previous fan-out: without the chain a slow link
-        could deliver round r+F's update before round r's, and the worker
-        would drop the older one as stale."""
+                                     after: "asyncio.Task | None" = None, elastic=None,
+                                     peers: "list | None" = None,
+                                     keep_received: bool = False) -> None:
+        """One round's background fan-out, then its files go (a durable
+        server keeps the received files for its journal's replay).
+        ``after`` is the same part's previous fan-out: without the chain a
+        slow link could deliver round r+F's update before round r's, and
+        the worker would drop the older one as stale. ``peers`` is the
+        elastic membership frozen at the round's close."""
         if after is not None:
             await aio.wait_quiet(after)
         try:
-            await self._broadcast(cfg, wire_path, tag.round, None, extra_header=header)
+            await self._broadcast(cfg, wire_path, tag.round, elastic, extra_header=header,
+                                  peers_override=peers)
         finally:
-            await asyncio.to_thread(
-                _unlink, [path for path, _ in received.values()] + [update_path, wire_path])
+            done = [update_path, wire_path]
+            if not keep_received:
+                done += [path for path, _ in received.values()]
+            await asyncio.to_thread(_unlink, done)
 
     async def _broadcast(self, cfg, update_path: Path, round_num: int, elastic=None,
-                         extra_header: "dict | None" = None) -> None:
+                         extra_header: "dict | None" = None,
+                         peers_override: "list | None" = None) -> None:
         """Push the update's wire file to every results peer in parallel, at
         most ``_BROADCAST_CONCURRENCY`` streams at once. A peer's failure is
         tolerated (it catches up next round); ``TransferStrategy.ANY``
         stops at the first push that lands. An elastic round goes to the
-        membership's active set, with its epoch in the header.
+        membership's active set (``peers_override`` when the pipelined
+        loop froze it at the close), with its epoch in the header.
         ``extra_header`` (a stream round's ``FragmentTag``, a durable
-        server's generation) joins the push header."""
+        server's generation, a shard's index) joins the push header."""
         peers = cfg.results.ref.peers or []
         strategy = cfg.results.ref.strategy or TransferStrategy.ALL
         header = {"resource": cfg.results.ref.resource or "results",
@@ -1241,6 +1457,8 @@ class ParameterServerExecutor(JobExecutor):
         if elastic is not None:
             peers = list(elastic.membership.active)
             header["epoch"] = elastic.membership.epoch
+        if peers_override is not None:
+            peers = list(peers_override)
         if not peers:
             return
         sem = asyncio.Semaphore(_BROADCAST_CONCURRENCY)

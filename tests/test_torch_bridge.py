@@ -295,7 +295,7 @@ def test_port_bridge_refuses_what_it_does_not_port(tmp_path):
     default = TBridge(node, tmp_path, "j", "sched").connector
     assert isinstance(default, TConnector)
     assert (default.node, default.scheduler_peer) == (node, "sched")
-    with pytest.raises(NotImplementedError, match="sharded PS/FT/rejoin"):
+    with pytest.raises(NotImplementedError, match="scheduler recovery"):
         TBridge(_FakeNode(tmsg), tmp_path, "j", "sched", _FakeConnector(), status_retry_s=5.0)
     assert safe_rel(tmp_path, "artifacts/m.bin") == tmp_path / "artifacts/m.bin"
     for bad in ("/etc/passwd", "../../secrets"):

@@ -1239,6 +1239,145 @@ def test_outer_step_replayed_from_the_journal_gives_the_stored_wire(cuda, tmp_pa
     assert [g for g, _ in round0] == [1, 2] and round0[0][1] == round0[1][1], stored
 
 
+def test_durable_stream_shard_replay_on_the_card_gives_the_live_wire(cuda, tmp_path, monkeypatch):
+    """Shard 1 of 2 under stream sync (2 fragments, int8, elastic and
+    durable) on the card: round 1 takes a member's failed-over direct delta,
+    then its reducer's partial covering it (the direct one un-folded), then
+    the reducer's own delta; the shard is killed with round 3's first delta
+    journaled and restarted on its journal. The round-1 wire it re-encodes
+    from the journal equals the live one byte for byte, and the job
+    completes."""
+    import asyncio
+    import hashlib
+
+    from hypha_tpu_torch import messages as m
+    from hypha_tpu_torch.ft import durable
+    from hypha_tpu_torch.worker.ps_executor import ParameterServerExecutor
+
+    stored = []
+    real = durable.DurablePS.store_wire
+
+    def hashed(self, round_num, wire_src):
+        stored.append((self.generation, round_num,
+                       hashlib.sha256(wire_src.read_bytes()).hexdigest()))
+        return real(self, round_num, wire_src)
+
+    monkeypatch.setattr(durable.DurablePS, "store_wire", hashed)
+    files = {r: _delta_files(tmp_path, r) for r in (1, 3)}
+    workers = ["red", "w1", "w2"]  # red reduces the group and pushes its own delta
+
+    async def main():
+        nodes = await _memory_mesh(["ps", "sched", "red", "w1"])
+
+        async def on_progress(peer, p):
+            return m.ProgressResponse(kind=m.ProgressResponseKind.DONE if p.round >= 3
+                                      else m.ProgressResponseKind.OK)
+
+        nodes["sched"].on(m.PROTOCOL_PROGRESS, m.Progress).respond_with(on_progress)
+        spec = m.JobSpec(job_id="agg-s1", executor=m.Executor(
+            kind="aggregate", name="parameter-server", aggregate=m.AggregateExecutorConfig(
+                updates=m.Receive(m.Reference.from_peers(workers, "updates.s1")),
+                results=m.Send(m.Reference.from_peers(["w1"], "results")),
+                optimizer=m.Nesterov(lr=0.7, momentum=0.9), delta_codec="int8",
+                num_workers=3, quorum_fraction=0.5, round_deadline_s=60.0,
+                sync_mode="stream", fragments=2, shard_index=1, num_ps_shards=2,
+                checkpoint_dir=str(tmp_path / "ckpt"), ps_checkpoint_every_rounds=2)))
+        results = nodes["w1"].consume_pushes(lambda push: push.resource["resource"] == "results")
+
+        def header(r, name, samples, **extra):
+            return {"resource": "updates.s1", "name": name, "round": r, "num_samples": samples,
+                    "shard": 1, **extra}
+
+        partial = {"prefold": True, "covers": ["w1", "w2"]}
+        execution = await ParameterServerExecutor(nodes["ps"], tmp_path / "a", device=cuda).execute(
+            "agg-s1", spec, "sched")
+        sends = {1: [("w1", header(1, "d", 4.0), files[1][1]),
+                     ("red", header(1, "p", 8.0, **partial), files[1][2]),
+                     ("red", header(1, "r", 4.0), files[1][0])],
+                 3: [("red", header(3, "r", 4.0), files[3][0]),
+                     ("red", header(3, "p", 8.0, **partial), files[3][2])]}
+        for r in (1, 3):
+            for i, (peer, head, path) in enumerate(sends[r]):
+                await nodes[peer].push("ps", head, path)
+                if r == 3 and i == 0:  # kill the shard with round 3's first delta journaled
+                    await asyncio.sleep(0.5)
+                    await execution.cancel()
+                    execution = await ParameterServerExecutor(
+                        nodes["ps"], tmp_path / "b", device=cuda).execute("agg-s1", spec, "sched")
+            while True:  # the round's update, skipping the resync and the re-broadcast
+                push = await results.next(timeout=60)
+                await push.read_all()
+                meta = push.resource
+                if not meta.get("ps_resync") and meta["round"] == r and \
+                        meta.get("ps_generation") == (1 if r == 1 else 2):
+                    break
+        status = await asyncio.wait_for(execution.wait(), 60)
+        for n in nodes.values():
+            await n.stop()
+        return status
+
+    status = asyncio.run(main())
+    assert status.state == "completed", status
+    round1 = [(g, h) for g, r, h in stored if r == 1]
+    assert [g for g, _ in round1] == [1, 2] and round1[0][1] == round1[1][1], stored
+
+
+def test_rejoin_catchup_union_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """A stream rejoiner under two shards merges both catch-ups (each Σ over
+    its own tensors) into θ₀ on the card and on the CPU: the same θ bit for
+    bit, and it enters at the lesser of the shards' rounds."""
+    import contextlib
+
+    from hypha_tpu_torch import messages as m
+    from hypha_tpu_torch.executor.serialization import save_file
+    from hypha_tpu_torch.executor.training import _rejoin
+    from hypha_tpu_torch.models.convert import state_to_flat
+    from hypha_tpu_torch.models.registry import build_model
+
+    spec = {"model_type": "causal-lm", "family": "llama", "preset": "tiny",
+            "config": {"dtype": "float32"}, "seed": 0}
+    cpu_model, _ = build_model(spec, device="cpu")
+    cpu_model.init_weights(0)
+    flat = state_to_flat(cpu_model, cpu_model.state_dict())
+    names = sorted(flat)
+    g = torch.Generator().manual_seed(3)
+    sums = [{n: torch.randn(flat[n].shape, generator=g) * 1e-2 for n in names[k::2]}
+            for k in (0, 1)]
+    cfg = m.TrainExecutorConfig(
+        model=spec, data=m.Fetch(m.Reference.from_uri("file:///unused")),
+        updates=m.Send(m.Reference.from_peers(["a"], "u")),
+        results=m.Receive(m.Reference.from_peers(["a", "b"], "r")),
+        optimizer=m.Adam(lr=1e-3), batch_size=2, sync_mode="stream", fragments=2,
+        ps_shards=m.ShardMap(shards=["a", "b"], tags=["u.s0", "u.s1"], fragments=2))
+
+    class Session:
+        def __init__(self, work):
+            self.events = []
+            for k, (rnd, tree) in enumerate(zip((4, 3), sums)):
+                save_file(tree, work / f"c{k}.safetensors")
+                self.events.append({"path": f"c{k}.safetensors",
+                                    "meta": {"catchup": True, "round": rnd, "shard": k}})
+
+        def receive(self, ref):
+            return contextlib.nullcontext(iter(self.events))
+
+    out = {}
+    for where, dev in (("host", torch.device("cpu")), ("card", cuda)):
+        work = tmp_path / where
+        work.mkdir()
+        model, _ = build_model(spec, device=dev)
+        model.load_state_dict(cpu_model.state_dict())
+        params = model.state_dict()
+        anchor = {k: v.detach().clone() for k, v in params.items()}
+        rnd = _rejoin(Session(work), cfg, work, model, params, anchor, dev)
+        out[where] = (rnd, {k: v.cpu() for k, v in state_to_flat(model, params).items()})
+    (rc, tc), (rg, tg) = out["host"], out["card"]
+    assert rc == rg == 3
+    for n in names:
+        assert torch.equal(tc[n], tg[n]), n
+        assert not torch.equal(tc[n], flat[n]), n
+
+
 async def _memory_mesh(peer_ids):
     from hypha_tpu_torch.network import MemoryTransport, Node
 

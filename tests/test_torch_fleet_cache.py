@@ -488,7 +488,7 @@ def test_transfer_vs_recompute_policy_math(pair):
         assert values[0] == values[1]
         cost = pools["torch"].prefill_cost_s(1000)
         assert est * 8.0 / values[1][0] < cost <= est * 8.0 / values[1][1]
-        with pytest.raises(NotImplementedError, match="sharded PS/FT/rejoin"):
+        with pytest.raises(NotImplementedError, match="adaptive rounds and chaos kinds"):
             LinkTable().codec_for("peer")
     finally:
         for pool in pools.values():

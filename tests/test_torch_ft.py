@@ -366,7 +366,7 @@ def test_chaos_controller_kills_at_the_round_trigger():
 @pytest.mark.parametrize("spec", ["delay-worker:1", "partition-ps:1", "kill-scheduler:1",
                                   "slow-worker:2", "bw-cap:w1:10"])
 def test_chaos_controller_refuses_unported_kinds(spec):
-    with pytest.raises(NotImplementedError, match="Queue 1: sharded PS/FT/rejoin"):
+    with pytest.raises(NotImplementedError, match="Queue 1: adaptive rounds and chaos kinds"):
         tchaos.ChaosController(tchaos.parse_chaos_specs(spec, "w1"), {})
 
 

@@ -30,9 +30,11 @@ import torch
 
 from hypha_tpu import cli as jcli
 from hypha_tpu import config as jcfg
+from hypha_tpu import messages as jmsg
 from hypha_tpu import node_config as jnc
 from hypha_tpu_torch import cli as tcli
 from hypha_tpu_torch import config as tcfg
+from hypha_tpu_torch import messages as tmsg
 from hypha_tpu_torch import node_config as tnc
 from hypha_tpu_torch.resources import Resources
 
@@ -237,11 +239,6 @@ UNPORTED = {
     "spec layers": ("scheduler", {**SERVE, "job.serve_spec_layers": 1}, "speculative decoding"),
     "fixed-slot pool": ("scheduler", {**SERVE, "job.serve_block_size": 0},
                         "fixed-slot pool mode"),
-    # Both run on blocking jobs; with stream sync they raise.
-    "quorum": ("scheduler", {"job.quorum_fraction": 0.5, "job.sync_mode": "stream"},
-               "sharded PS/FT/rejoin"),
-    "checkpoint": ("scheduler", {"job.checkpoint_dir": "/tmp/ck", "job.sync_mode": "stream"},
-                   "sharded PS/FT/rejoin"),
     "input pipeline": ("scheduler", {"job.input_pipeline": True}, "input_pipeline"),
     "sharding": ("scheduler", {"job.sharding": {"tp": 2}}, "intra-replica sharding"),
 }
@@ -260,6 +257,29 @@ def test_unported_option_raises_with_its_label(case, tmp_path):
     tbuilt = tcfg.builder(getattr(tnc, SCHEMA[role])).with_overrides(over).build()
     with pytest.raises(NotImplementedError, match=label):
         tbuilt.validate()
+
+
+# Elastic rounds and a checkpoint_dir with stream sync: both packages
+# validate the section and build the same job (bytes equal but for the
+# accelerator key of the resources: the port sells gpu).
+LIFTED = {
+    "quorum": {"job.quorum_fraction": 0.5, "job.sync_mode": "stream"},
+    "checkpoint": {"job.checkpoint_dir": "/tmp/ck", "job.sync_mode": "stream"},
+}
+
+
+@pytest.mark.parametrize("case", sorted(LIFTED))
+def test_lifted_option_validates_and_builds_the_reference_job(case):
+    over = {**LIFTED[case], "job.worker_tpu": 0.0}
+    jbuilt = jcfg.builder(getattr(jnc, SCHEMA["scheduler"])).with_overrides(over).build()
+    tbuilt = tcfg.builder(getattr(tnc, SCHEMA["scheduler"])).with_overrides(over).build()
+    jbuilt.validate()
+    tbuilt.validate()
+    tjob_, jjob_ = tbuilt.value.job.to_job(), jbuilt.value.job.to_job()
+    for job in (tjob_, jjob_):
+        job.resources = None
+    assert tmsg.encode(tjob_) == jmsg.encode(jjob_)
+    assert tjob_.sync_mode == "stream"
 
 
 @pytest.fixture(scope="module")

@@ -7,10 +7,11 @@ patched to None, as ``tests/test_torch_ps.py`` does) and the port's
 (``device="cpu"``). Over two rounds, the broadcast updates the workers
 receive are bit-equal, and so are the ``UPDATED`` notifications the
 scheduler gets — also when a worker re-sends its delta mid-round (the
-earlier one is un-folded). The options the port does not run raise
-``NotImplementedError`` naming their ROADMAP.md labels, a tree-reduce
-partial fails the job under its label, and the executors refuse to start
-without CUDA unless given ``device="cpu"``.
+earlier one is un-folded), and so they are for a stream, an elastic and a
+sharded durable server, and for an elastic durable round closed by a
+tree-reduce partial. The options the port does not run raise
+``NotImplementedError`` naming their ROADMAP.md labels, and the executors
+refuse to start without CUDA unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -71,7 +72,8 @@ def _aggregate(m, **over):
             optimizer=m.Nesterov(lr=0.7, momentum=0.9), num_workers=len(WORKERS), **over)))
 
 
-async def _serve(pkg: str, root: Path, files: dict, resend: bool, codec: str = "none") -> tuple:
+async def _serve(pkg: str, root: Path, files: dict, resend: bool, codec: str = "none",
+                 **options) -> tuple:
     """One package's parameter server fed by two workers; returns the
     broadcasts each worker saved and the scheduler's UPDATED rounds."""
     m, Node, Tcp, PS = PKG[pkg]
@@ -91,7 +93,7 @@ async def _serve(pkg: str, root: Path, files: dict, resend: bool, codec: str = "
 
     nodes["sched"].on(m.PROTOCOL_PROGRESS, m.Progress).respond_with(on_progress)
     ps = PS(nodes["ps"], root / "ps", **({"device": "cpu"} if pkg == "port" else {}))
-    execution = await ps.execute("agg", _aggregate(m, delta_codec=codec), "sched")
+    execution = await ps.execute("agg", _aggregate(m, delta_codec=codec, **options), "sched")
     consumers = {w: nodes[w].consume_pushes(lambda push: push.resource.get("resource") == "results")
                  for w in WORKERS}
     got: dict = {}
@@ -146,52 +148,95 @@ def test_broadcast_updates_are_bit_equal(tmp_path, monkeypatch, resend, codec):
                               port_got[("w0", 1)]["params/norm/weight"])
 
 
-# checkpoint_dir and quorum_fraction run on blocking jobs; with a streaming
-# sync mode they still raise, and several shards run but not with a
-# checkpoint_dir (the case names are kept).
+# The options the port's server does not run, each with its ROADMAP.md
+# label (checkpoint_dir, quorum_fraction and num_ps_shards run: below).
 @pytest.mark.parametrize("option,value,label", [
-    pytest.param("checkpoint_dir", "/ckpt", "sharded PS/FT/rejoin",
-                 id="checkpoint_dir-/ckpt-checkpoint resume"),
-    ("quorum_fraction", 0.5, "sharded PS/FT/rejoin"),
-    ("num_ps_shards", 2, "sharded PS/FT/rejoin"),
-    ("adaptive_steps", True, "sharded PS/FT/rejoin"),
-    ("adaptive_codec", True, "sharded PS/FT/rejoin"),
-    ("broadcast_tree", tmsg.ShardMap(shards=["ps"]), "sharded PS/FT/rejoin"),
-    ("adopt_grace_s", 5.0, "sharded PS/FT/rejoin"),
+    ("adaptive_steps", True, "adaptive rounds and chaos kinds"),
+    ("adaptive_codec", True, "adaptive rounds and chaos kinds"),
+    ("broadcast_tree", tmsg.ShardMap(shards=["ps"]), "broadcast tree"),
+    ("adopt_grace_s", 5.0, "scheduler recovery"),
     ("report_metrics_s", 1.0, "telemetry"),
     ("serve_peers", ["server"], "live weight swap"),
 ])
 def test_unported_options_raise_with_their_labels(tmp_path, option, value, label):
     ps = TPS(None, tmp_path, device="cpu")
-    over = {option: value}
-    if option in ("checkpoint_dir", "quorum_fraction"):
-        over["sync_mode"] = "stream"
-    if option == "num_ps_shards":
-        over["checkpoint_dir"] = "/ckpt"
     with pytest.raises(NotImplementedError, match=f"{option}.*ROADMAP.md, Queue 1: {label}"):
-        asyncio.run(ps.execute("agg", _aggregate(tmsg, **over), "sched"))
+        asyncio.run(ps.execute("agg", _aggregate(tmsg, **{option: value}), "sched"))
     assert not list(tmp_path.iterdir())  # refused before anything was made
 
 
-def test_a_tree_reduce_partial_fails_the_job(tmp_path):
-    # A plain server folds partials (tests/test_torch_shard.py); an elastic
-    # one does not reconcile covers yet, and fails the job with the label.
-    async def main():
-        nodes = {p: TNode(TTcp(), peer_id=p) for p in ("ps", "w0")}
+# Options that used to be refused with a streaming sync mode or several
+# shards: both packages' servers (a stream job of one fragment, an elastic
+# one, shard 0 of 2, each durable but the elastic) broadcast the same
+# update bytes over two rounds, a mid-round re-send included.
+@pytest.mark.parametrize("option", ["checkpoint_dir", "quorum_fraction", "num_ps_shards"])
+def test_lifted_options_broadcast_bit_equal(tmp_path, monkeypatch, option):
+    monkeypatch.setattr(native, "_load", lambda: None)
+    files = _deltas(tmp_path, "int8")
+    out = {}
+    for pkg in PKG:
+        (tmp_path / pkg).mkdir()
+        over = {"checkpoint_dir": str(tmp_path / pkg / "ckpt")}
+        if option == "checkpoint_dir":
+            over.update(sync_mode="stream", fragments=1)
+        elif option == "quorum_fraction":
+            over = {"sync_mode": "stream", "fragments": 1, "quorum_fraction": 0.5,
+                    "round_deadline_s": 30.0}
+        else:
+            over.update(num_ps_shards=2, shard_index=0)
+        out[pkg] = asyncio.run(asyncio.wait_for(
+            _serve(pkg, tmp_path / pkg, files, True, "int8", **over), 60))
+    (jax_got, jax_updated, jax_status), (port_got, port_updated, port_status) = out["jax"], out["port"]
+    assert jax_status.state == port_status.state == "completed"
+    assert port_updated == jax_updated == [("ps", "updated", r, "agg") for r in range(ROUNDS)]
+    assert set(port_got) == set(jax_got) == {(w, r) for w in WORKERS for r in range(ROUNDS)}
+    for key, (want, want_bytes) in jax_got.items():
+        got, got_bytes = port_got[key]
+        assert got_bytes == want_bytes, key  # the same frame, residual and tag included
+
+
+def test_an_elastic_durable_server_folds_a_tree_reduce_partial(tmp_path, monkeypatch):
+    # A reducer's partial covering w1 beside its own direct delta closes
+    # an elastic, durable round of two workers, and its journal replays
+    # the round: both packages broadcast the same update.
+    monkeypatch.setattr(native, "_load", lambda: None)
+    files = _deltas(tmp_path, "none")
+
+    async def main(pkg):
+        m, Node, Tcp, PS = PKG[pkg]
+        nodes = {p: Node(Tcp(), peer_id=p) for p in ("ps", "sched", "w0")}
         for n in nodes.values():
             await n.start(["127.0.0.1:0"])
-        nodes["w0"].add_peer_addr("ps", nodes["ps"].listen_addrs[0])
-        execution = await TPS(nodes["ps"], tmp_path, device="cpu").execute(
-            "agg", _aggregate(tmsg, quorum_fraction=0.5), "sched")
-        header = {"resource": "updates", "name": "p", "round": 0, "prefold": True, "covers": ["w1"]}
-        await nodes["w0"].push("ps", header, b"partial")
-        status = await asyncio.wait_for(execution.wait(), 10)
+        for x in nodes.values():
+            for y in nodes.values():
+                if x is not y:
+                    x.add_peer_addr(y.peer_id, y.listen_addrs[0])
+
+        async def on_progress(peer, p):
+            return m.ProgressResponse(kind=m.ProgressResponseKind.DONE)
+
+        nodes["sched"].on(m.PROTOCOL_PROGRESS, m.Progress).respond_with(on_progress)
+        ps = PS(nodes["ps"], tmp_path / pkg / "ps", **({"device": "cpu"} if pkg == "port" else {}))
+        execution = await ps.execute("agg", _aggregate(
+            m, quorum_fraction=0.5, checkpoint_dir=str(tmp_path / pkg / "ckpt")), "sched")
+        results = nodes["w0"].consume_pushes(lambda push: push.resource.get("resource") == "results")
+        partial = {"resource": "updates", "name": "p", "round": 0, "num_samples": 10.0,
+                   "prefold": True, "covers": ["w1"]}
+        await nodes["w0"].push("ps", partial, files[("w1", 0)])
+        direct = {"resource": "updates", "name": "d", "round": 0, "num_samples": 6.0}
+        await nodes["w0"].push("ps", direct, files[("w0", 0)])
+        push = await results.next(timeout=30)
+        dest = tmp_path / pkg / "update.bin"
+        await push.save_to(dest)
+        status = await asyncio.wait_for(execution.wait(), 30)
         for n in nodes.values():
             await n.stop()
-        return status
+        return status, dest.read_bytes()
 
-    status = asyncio.run(main())
-    assert status.state == "failed" and "sharded PS/FT/rejoin" in status.message
+    jstatus, jbytes = asyncio.run(main("jax"))
+    tstatus, tbytes = asyncio.run(main("port"))
+    assert jstatus.state == tstatus.state == "completed"
+    assert tbytes == jbytes
 
 
 def test_executors_need_cuda_or_an_explicit_cpu(monkeypatch, tmp_path):

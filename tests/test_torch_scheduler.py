@@ -414,8 +414,8 @@ def test_batch_scheduler_caps_are_the_reference_constants():
 # shards_due runs (tests/test_torch_shard.py); beside adaptive steps the
 # scheduler still refuses (the case name is kept).
 @pytest.mark.parametrize("option,label", [
-    ("shards_due", "sharded PS/FT/rejoin"),
-    ("adaptive", "sharded PS/FT/rejoin"),
+    ("shards_due", "adaptive rounds and chaos kinds"),
+    ("adaptive", "adaptive rounds and chaos kinds"),
     ("generation", "scheduler recovery"),
 ])
 def test_batch_scheduler_unported_options_raise(option, label):
@@ -636,17 +636,9 @@ def test_stream_and_codec_options_dispatch_as_the_jax_wire(option):
 # accepts, with the other fields the reference needs beside it.
 _FT_ON = SimpleNamespace(enabled=True)
 UNPORTED = {
-    # ft and checkpoint_dir run on blocking jobs, not with stream.
-    "ft": (_FT_ON, "sharded PS/FT/rejoin", {"sync_mode": "stream"}),
-    "checkpoint_dir": ("/ckpt", "sharded PS/FT/rejoin", {"sync_mode": "stream"}),
-    # Shards and reduce groups run, but not with ft or a checkpoint_dir.
-    "num_ps_shards": (2, "sharded PS/FT/rejoin", {"checkpoint_dir": "/ckpt"}),
-    "reduce_group_size": (2, "sharded PS/FT/rejoin", {"ft": _FT_ON}),
-    "reduce_tree_depth": (2, "sharded PS/FT/rejoin", {"reduce_group_size": 2,
-                                                      "checkpoint_dir": "/ckpt"}),
-    "broadcast_tree": (True, "sharded PS/FT/rejoin", {"reduce_group_size": 2}),
-    "adaptive_steps": (True, "sharded PS/FT/rejoin"),
-    "adaptive_codec": (True, "sharded PS/FT/rejoin"),
+    "broadcast_tree": (True, "broadcast tree", {"reduce_group_size": 2}),
+    "adaptive_steps": (True, "adaptive rounds and chaos kinds"),
+    "adaptive_codec": (True, "adaptive rounds and chaos kinds"),
     "scheduler_recovery": (True, "scheduler recovery",
                            {"checkpoint_dir": "/ckpt", "ft": _FT_ON}),
     "metrics_plane": (True, "telemetry"),
@@ -668,13 +660,34 @@ def test_unported_job_option_raises_with_its_label(option):
         tjob.DiLoCoJob(model={}, dataset="d", **kw)
 
 
-PLACED = ("num_ps_shards", "reduce_group_size", "reduce_tree_depth")
+# Fault tolerance with a streaming sync mode, several shards or a reduce
+# group (each refused until fault tolerance reached them): both packages
+# build the job, and it encodes to the same bytes.
+LIFTED = {
+    "ft": {"ft": "on", "sync_mode": "stream"},
+    "checkpoint_dir": {"checkpoint_dir": "/ckpt", "sync_mode": "stream"},
+    "num_ps_shards": {"num_ps_shards": 2, "checkpoint_dir": "/ckpt"},
+    "reduce_group_size": {"reduce_group_size": 2, "ft": "on"},
+    "reduce_tree_depth": {"reduce_tree_depth": 2, "reduce_group_size": 2,
+                          "checkpoint_dir": "/ckpt"},
+}
+
+
+@pytest.mark.parametrize("option", sorted(LIFTED))
+def test_lifted_job_option_encodes_as_the_reference(option):
+    from hypha_tpu.ft.membership import FTConfig as JFT
+    from hypha_tpu_torch.ft.membership import FTConfig as TFT
+
+    out = {}
+    for name, job, m, ft in (("jax", jjob, jmsg, JFT), ("port", tjob, tmsg, TFT)):
+        kw = {k: (ft(quorum_fraction=0.5) if v == "on" else v) for k, v in LIFTED[option].items()}
+        out[name] = m.encode(job.DiLoCoJob(model={}, dataset="d", **kw))
+    assert out["port"] == out["jax"]
 
 
 def test_every_unported_option_has_a_case_and_its_off_value_runs():
-    assert sorted(set(UNPORTED) - set(PLACED)) == sorted(name for name, _, _ in tjob._NOT_PORTED)
-    for name in PLACED:  # they run: refused only beside ft or a checkpoint_dir
-        assert name not in {n for n, _, _ in tjob._NOT_PORTED}
+    assert sorted(UNPORTED) == sorted(name for name, _, _ in tjob._NOT_PORTED)
+    assert not set(LIFTED) & {n for n, _, _ in tjob._NOT_PORTED}
     job = tjob.DiLoCoJob(model={}, dataset="d", reduce_tree_depth=1, sharding=None)
     assert job.sync_mode == "blocking" and job.num_ps_shards == 1
 

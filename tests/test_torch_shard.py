@@ -701,17 +701,52 @@ def test_cover_reconciliation_equals_the_reference(tmp_path, case, stream):
     np.testing.assert_array_equal(tmean["w"], jmean["w"])
 
 
-def test_a_durable_server_refuses_a_partial_with_its_label(tmp_path):
-    from hypha_tpu_torch.ft.durable import DurablePS
+@pytest.mark.parametrize("stream", [False, True], ids=["blocking", "stream"])
+def test_a_durable_server_journals_a_partial_and_replays_it(tmp_path, stream):
+    # Both packages' durable collectors journal the same cover case (the
+    # partial under its ``prefold:`` key, with its covers), and each
+    # package's replay of its own journal gives the same ops and a sum
+    # bit-equal to the live one.
+    from hypha_tpu.ft.durable import DurablePS as JDurable
+    from hypha_tpu_torch.ft.durable import DurablePS as TDurable
 
-    ps = TPS(None, tmp_path / "w", device="cpu")
-    (tmp_path / "w").mkdir()
-    dur = DurablePS.open(tmp_path / "dur", "job")
-    pushes = _cover_pushes("partial after direct", False)
-    with pytest.raises(NotImplementedError, match="Queue 1: sharded PS/FT/rejoin"):
-        _run(ps._collect_round(_FakeConsumer(pushes), "job", set(), 2, tmp_path / "w", 0,
-                               accum=TAccum(device="cpu"), dur=dur))
-    dur.close()
+    out = {}
+    for name, pkg in PKG.items():
+        root = tmp_path / name
+        (root / "w").mkdir(parents=True)
+        dur = (TDurable if name == "port" else JDurable).open(root / "dur", "job")
+        pushes = _cover_pushes("partial after direct", stream)
+        ps = _ps(pkg, None, root / "w")
+        accum = TAccum(device="cpu") if name == "port" else JAccum()
+        if not stream:
+            received = _run(ps._collect_round(_FakeConsumer(pushes), "job", set(), 2, root / "w",
+                                              0, accum=accum, dur=dur))
+        else:
+            accums = {0: accum}
+            if name == "port":
+                received = _run(ps._collect_round_stream(
+                    _FakeConsumer(pushes), "job", set(), 2, root / "w", 0, 1, accums, {},
+                    dur=dur))
+            else:
+                received = _run(ps._collect_round_stream(
+                    _FakeConsumer(pushes), "job", None, None, set(), 2, root / "w", 0, 1, accums,
+                    {}, dur=dur))
+        dur.close()
+        reopened = (TDurable if name == "port" else JDurable).open(root / "dur", "job")
+        ops = [(f.peer, f.prefold, sorted(f.covers), s) for f, s in reopened.replay_ops(0)]
+        replayed = TAccum(device="cpu") if name == "port" else JAccum()
+        for fold, sign in reopened.replay_ops(0):
+            replayed.fold(reopened.deltas_dir / fold.file, fold.samples, sign, fold.prefold)
+        reopened.close()
+        live = {k: np.asarray(v) for k, v in accum.mean().items()}
+        again = {k: np.asarray(v) for k, v in replayed.mean().items()}
+        out[name] = (sorted(received), ops, live, again)
+    (jkeys, jops, jlive, _), (tkeys, tops, tlive, tagain) = out["jax"], out["port"]
+    assert tkeys == jkeys == ["prefold:red"]
+    assert tops == jops == [("w1", False, [], 1.0), ("w1", False, [], -1.0),
+                            ("prefold:red", True, ["w1", "w2"], 1.0)]
+    np.testing.assert_array_equal(tlive["w"], jlive["w"])
+    np.testing.assert_array_equal(tagain["w"], tlive["w"])
 
 
 # -------------------------------------------------------------- scheduler
@@ -831,14 +866,36 @@ def test_train_spec_routes_results_by_placement_not_live_handles():
     assert list(spec.executor.train.results.ref.peers) == ["psA", "psB"]
 
 
-def test_shard_options_with_ft_still_raise_with_their_label():
-    for over in ({"num_ps_shards": 2, "checkpoint_dir": "/c"},
-                 {"reduce_group_size": 2, "checkpoint_dir": "/c"},
-                 {"reduce_group_size": 2, "broadcast_tree": True},
-                 {"num_ps_shards": 2, "ft": types.SimpleNamespace(enabled=True)}):
-        with pytest.raises(NotImplementedError, match="Queue 1: sharded PS/FT/rejoin"):
-            _job(PKG["port"], **over)
-    _job(PKG["port"], num_ps_shards=2, reduce_group_size=3, reduce_tree_depth=2)
+# The fault-tolerant shapes of a sharded or grouped job run; the broadcast
+# tree stays refused under its own label.
+SHARD_FT_OPTIONS = {
+    "shards, checkpoint_dir": {"num_ps_shards": 2, "checkpoint_dir": "/c"},
+    "group, checkpoint_dir": {"reduce_group_size": 2, "checkpoint_dir": "/c"},
+    "shards, ft": {"num_ps_shards": 2, "ft": "on"},
+    "broadcast tree": {"reduce_group_size": 2, "broadcast_tree": True},
+}
+
+
+@pytest.mark.parametrize("case", sorted(SHARD_FT_OPTIONS))
+def test_shard_options_with_ft(case):
+    over = dict(SHARD_FT_OPTIONS[case])
+    jobs = {}
+    for name, pkg in PKG.items():
+        if "ft" in SHARD_FT_OPTIONS[case]:
+            over["ft"] = _ft_config(name)
+        if case == "broadcast tree" and name == "port":
+            with pytest.raises(NotImplementedError, match="Queue 1: broadcast tree"):
+                _job(pkg, **over)
+            return
+        jobs[name] = pkg.m.encode(_job(pkg, **over))
+    assert jobs["port"] == jobs["jax"]
+
+
+def _ft_config(name):
+    from hypha_tpu.ft.membership import FTConfig as JFT
+    from hypha_tpu_torch.ft.membership import FTConfig as TFT
+
+    return (TFT if name == "port" else JFT)(quorum_fraction=0.5)
 
 
 # ------------------------------------------------------ the trainer's parts

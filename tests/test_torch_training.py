@@ -152,12 +152,8 @@ def test_run_training_matches_jax(tmp_path, weights):
 @pytest.mark.parametrize("option", [
     {"sharding": {"dp": 2}},
     {"lora": {"rank": 4}},
-    {"checkpoint": {"dir": "ckpt"}, "sync_mode": "stream"},  # blocking runs both
-    {"rejoin": True, "sync_mode": "overlap"},
-    # A placement and a tree role run; not with a rejoin or a checkpoint.
-    {"reduce_via": "reducer", "ps_shards": "shards", "rejoin": True},
-    {"ps_shards": "shards", "checkpoint": {"dir": "ckpt"}},
-    {"reduce_members": ["w1"], "ps_shards": "shards", "rejoin": True},
+    # checkpoint and rejoin run in every sync mode and placement
+    # (tests/test_torch_shard_ft.py::test_lifted_trainer_option_runs).
     {"relay_results": True},
     {"input_pipeline": True},
     {"preprocessor": {"kind": "tokenizer"}},
@@ -167,8 +163,6 @@ def test_run_training_matches_jax(tmp_path, weights):
 def test_unported_options_raise(tmp_path, weights, option):
     from hypha_tpu_torch.executor.training import run_training
 
-    if option.get("ps_shards"):
-        option = {**option, "ps_shards": jmsg.ShardMap(shards=["ps0", "ps1"], tags=["u0", "u1"])}
     if option.get("model"):
         option = {"model": {"model_type": "causal-lm", "family": "gpt2"}}
     spec = _port_spec(_spec(**option))
