@@ -26,10 +26,13 @@ Phases, each printing one JSON line:
    requests through asyncio; prefill chunks must have launched the mma
    route and decode steps the decode route, each once per layer per
    forward, and the plain attention path never;
-5. serve_int8 — the same pool with int8 KV blocks;
+5. serve_int8 — the same pool with int8 KV blocks, at ``CLI_LAYERS`` (run
+   after ``reference``, on the 8-layer model);
 5b. serve_prefix — ``prefix_requests`` (4 families of 4 prompts sharing a
    320-token prefix, one an aligned repeat that copies a shared block)
-   through the same pool with the prefix cache on and off, bf16 and int8:
+   through the same pool at ``CLI_LAYERS`` (run after ``reference``, on
+   the 8-layer model of the network's phases, whose references it gives)
+   with the prefix cache on and off, bf16 and int8:
    the answers equal, hits and copy-on-writes above 0, fewer prefill
    forwards with the cache, the kernel only (``serve_prefix_phase``);
 6. profile — one decode step and one prefill chunk at the serving shape
@@ -44,10 +47,11 @@ Phases, each printing one JSON line:
    and a scheduler, each ``python -m hypha_tpu_torch <role> run`` from a
    TOML its ``init`` wrote (``run_serve_node``); the scheduler's serve job
    (``SERVE_JOB``, the pool of ``serve``) auctions the worker, which loads
-   the 7B model and serves it through the ragged kernel; this process is
-   the client (``generate_remote``). Gates (``serve_node_problems``): the
-   answers equal ``serve``'s token for token and the repeats equal, the
-   worker's launch line shows mma and decode launches in multiples of 32
+   the 7B widths at ``CLI_LAYERS`` (8) and serves them through the ragged
+   kernel; this process is the client (``generate_remote``). Gates
+   (``serve_node_problems``): the answers equal ``serve``'s at that depth
+   (``serve_cli_reference``) token for token and the repeats equal, the
+   worker's launch line shows mma and decode launches in multiples of 8
    layers and no plain call, no fallback, no kernel built anew, and each
    process exits 0 within 30 s of SIGTERM, leaving no work dir; it
    reports bring-up, dispatch to the first answer, each request's latency
@@ -103,7 +107,7 @@ Phases, each printing one JSON line:
    and exact merges; step time, tokens/s, peak memory and the kernels'
    device time per step from the profiler, where one step must show each
    bf16 tensor-core flash kernel with its launches (16 / 8 / 8);
-11. train_node — the ``train`` phase's job cut to 2 layers
+11. train_node — the ``train`` phase's job cut to 1 layer
    (``NODE_LAYERS``: its gates are the network's and the scheduler's; the
    8-layer step is ``train``'s), run by
    the port alone (``run_node_job``) on ``TcpTransport`` at 127.0.0.1: a
@@ -125,7 +129,7 @@ Phases, each printing one JSON line:
    the batch scheduler's ms per message; each Δθ push and broadcast with
    its bytes, the fold and ``outer_step`` seconds, auction to dispatch,
    dispatch to first heartbeat and the trainer's peak memory;
-12. train_stream — ``train_node``'s job and fabric (2 layers)
+12. train_stream — ``train_node``'s job and fabric (1 layer)
    with the compressed streaming outer sync: ``delta_codec`` int8,
    ``sync_mode`` stream, 4 fragments, 4 rounds of 8 batches of 2 (every
    fragment syncs once), the trainer quantizing each due fragment's Δθ on
@@ -193,7 +197,7 @@ Phases, each printing one JSON line:
    on each). Job S: 1 layer (``SHARD_S_MODEL``), three trainer processes,
    ``SHARD_S_OPTIONS`` (stream, 4 fragments, int8, 2 shards, one reduce
    group of 3 with ``w0`` its reducer), ``SHARD_S_ROUNDS`` x
-   ``STREAM_STEPS``; Job B: 2 layers, two trainers, blocking over 2
+   ``STREAM_STEPS``; Job B: 1 layer, two trainers, blocking over 2
    shards, 2 rounds of 2. Each job first checks the card's free memory
    against ``shard_bytes_needed`` and fails with the numbers. Gates
    (``shard_stream_problems``, ``shard_blocking_problems``): each stream
@@ -238,6 +242,28 @@ Phases, each printing one JSON line:
    bytes and seconds, shard kill to generation 2's broadcast, the replay,
    each shard's checkpoints and journal, the other shard's rounds during
    the outage, step ms, peaks and the phase's seconds;
+12f. train_swap — the broadcast tree and live weight swap (``run_swap_job``):
+   ``swap_job`` (7B widths at 1 layer, blocking, int8, 5 rounds of 4
+   steps, one reduce group of ``w0``-``w2`` with ``w0`` its reducer and
+   relay, ``broadcast_tree``, ``serve_peers`` ``[sv0]``, quorum 0.5,
+   deadline 70 s); ``sv0`` serves the same seeded θ₀ in bf16 (paged,
+   ragged, prefix cache) and follows the job from θ₀ (``follow_for``,
+   ``keep_previous``) while two closed-loop clients ask it for 32 tokens
+   after prompts of 17-200 tokens, and a probe goes out after each round
+   it applies; ``w0`` is killed once its relay handed round 2 on. Gates
+   (``swap_problems``): every relayed wire byte-equal (sha-256) to the
+   server's with its header; one push a round, to the relay, while it
+   lives, then the leaves directly; every round ``UPDATED``, the
+   survivors' deltas straight to the shard, every live leaf every round,
+   no round held; each flip's served leaves (the digest sv0 logs) equal to
+   θ₀ + Σu folded on the card as the pool folds (``swap_check``); each
+   probe's tokens a fresh pool's on those weights; no request failed or
+   short, stamps among the applied rounds and never falling, no admission
+   mapping an older generation's chain, the allocator's generation one a
+   swap; the trainers' flash launches and ``sv0``'s ragged launches
+   exact. It reports relay hop seconds, stage-to-flip ms, decode-chunk
+   gaps at each flip, ``sv0``'s tokens/s before and after the first swap,
+   kill to departure, the card's peak and the phase's seconds;
 13. train_reference — a tiny Llama (head_dim 64), and the same with a
    sliding window below its sequence (Mistral's local attention), each
    trained 4 steps through the kernels and through the plain flash version
@@ -766,9 +792,17 @@ def serve_phase(model, *, kv_quant: str, lengths: list, n_new: list) -> dict:
 # 16 (512 of them, derived), the ragged kernel, 64 new tokens at most; the
 # executor derives max_len 1024 and a decode chunk of 8.
 SERVE_NAME = "llama7b"
+# The serving phases over the network (serve_node, serve_router,
+# serve_fleet) load 8 of the 32 layers, at full width: their gates are the
+# network's, and their host-bound decode costs ~80 launches a layer per
+# forward. Their in-process references run at the same depth (main).
+CLI_LAYERS = 8
+CLI_MODEL = {"family": "llama", "preset": "llama2-7b", "seed": 0,
+             "config": {"num_layers": CLI_LAYERS}}
 SERVE_JOB = {"job.kind": "serve", "job.serve_name": SERVE_NAME, "job.model_family": "llama",
              "job.model_preset": "llama2-7b", "job.model_type": "causal-lm",
-             "job.model_seed": 0, "job.serve_max_batch": 8, "job.serve_block_size": 16,
+             "job.model_seed": 0, "job.model_config": {"num_layers": CLI_LAYERS},
+             "job.serve_max_batch": 8, "job.serve_block_size": 16,
              "job.serve_blocks": 0, "job.serve_ragged": True, "job.serve_max_new_tokens": 64}
 NODE_WAIT_S = 300.0  # every wait of the phase: bring-up, each request
 STOP_WAIT_S = 30.0  # each process must exit within this after SIGTERM
@@ -795,6 +829,18 @@ async def _wait_for_text(path: Path, text: str, proc, deadline: float) -> None:
         if loop.time() > deadline:
             raise SystemExit(f"{path.name}: no {text!r} within {NODE_WAIT_S} s")
         await asyncio.sleep(0.1)
+
+
+def run_inits(cli: list, outputs: dict, *, env: dict, cwd: str) -> None:
+    """``<cli> <role> init -o <path>`` for each role, the processes at once
+    (each spends its seconds importing torch); raises on any failure."""
+    procs = {role: subprocess.Popen([*cli, role, "init", "-o", str(path)], env=env, cwd=cwd,
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for role, path in outputs.items()}
+    for role, proc in procs.items():
+        out, _ = proc.communicate(timeout=60)
+        if proc.returncode:
+            raise subprocess.CalledProcessError(proc.returncode, proc.args, out)
 
 
 def _toml_value(value) -> str:
@@ -828,10 +874,9 @@ class ServeNet:
 
     def init(self) -> None:
         """Write each role's TOML with ``init`` (not timed as bring-up)."""
-        for role in ("gateway", "worker", "scheduler"):
-            subprocess.run([*self.cli, role, "init", "-o", str(self.root / f"{role}.toml")],
-                           check=True, env=self.env, cwd=self.repo, capture_output=True,
-                           timeout=60)
+        run_inits(self.cli, {role: self.root / f"{role}.toml"
+                             for role in ("gateway", "worker", "scheduler")},
+                  env=self.env, cwd=self.repo)
 
     async def start(self) -> None:
         """Start every process and the client (after :meth:`init`)."""
@@ -1732,7 +1777,8 @@ def serve_fleet_phase(fleet_ref: dict, prefix: dict) -> dict:
     try:
         run = asyncio.run(run_serve_fleet(root, FLEET_JOB, fleet_ref["traffic"],
                                           prefix["prompts"], prefix["n_new"]))
-        summary = fleet_summary(run, 32 * 2 * 16 * 32 * 128 * 2)
+        # One block's bytes: layers x (K, V) x 16 positions x 32 heads x 128 x bf16.
+        summary = fleet_summary(run, prefix["layers"] * 2 * 16 * 32 * 128 * 2)
         problems = serve_fleet_problems(run, summary, want=fleet_ref, want_prefix=prefix["answers"],
                                         layers=prefix["layers"], device="cuda")
         if problems:
@@ -1761,7 +1807,9 @@ def profile_phase(model) -> dict:
     from hypha_tpu_torch.ops.kvcache import KVCache
     from hypha_tpu_torch.ops.paged_attention import _decode_splits, _sm_count, ragged_paged_attention
 
-    B, per_lane, n = 8, 32, 10
+    # n forwards timed on the host clock, n_prof of them under the profiler
+    # (its records cost host seconds per launch: 2604 a forward at 32 layers).
+    B, per_lane, n, n_prof = 8, 32, 10, 4
     layers = model.config.num_layers
     splits = _decode_splits(B, model.config.num_kv_heads, 1024 // 16, 16,
                             _sm_count(torch.cuda.current_device()))
@@ -1796,7 +1844,7 @@ def profile_phase(model) -> dict:
             for _ in range(2):
                 launched = ragged_paged_attention.launches
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    for _ in range(n):
+                    for _ in range(n_prof):
                         forward()
                     torch.cuda.synchronize()
                 launched = ragged_paged_attention.launches - launched
@@ -1810,7 +1858,8 @@ def profile_phase(model) -> dict:
                     break
                 out.setdefault("incomplete", []).append(
                     {"label": label, "recorded": recorded, "launched": launched})
-        rows = [(e.key, e.self_device_time_total / n / 1e3, e.count // n) for e in events]
+        rows = [(e.key, e.self_device_time_total / n_prof / 1e3, e.count // n_prof)
+                for e in events]
         rows.sort(key=lambda r: -r[1])
         busy = sum(r[1] for r in rows)
         by_name = {name: {"ms": sum(ms for k, ms, _ in rows if name in k),
@@ -2079,11 +2128,11 @@ class TrainSession(Scheduler):
     client's four methods. The server runs each round through
     ``ps_round`` on the card (lr 0.7, μ 0.9), checks after every merge that
     the trainer's parameters equal θ_t + update, records step times, and
-    profiles one steady inner step of round 1. The wrappers count the
-    flash launches of the same window; when the profiler's records hold
-    fewer (CUPTI can lose an activity record), the window is kept in
-    ``self.incomplete`` and the next steady step of the round is profiled
-    instead."""
+    profiles one steady inner step (neither a round's first nor its last).
+    The wrappers count the flash launches of the same window; when the
+    profiler's records hold fewer (CUPTI can lose an activity record), the
+    window is kept in ``self.incomplete`` and the next steady step, of this
+    round or the next, is profiled instead."""
 
     def __init__(self, work_dir, slices, *, rounds, steps, outer):
         super().__init__(rounds=rounds, steps=steps)
@@ -2134,13 +2183,16 @@ class TrainSession(Scheduler):
                 wrapper_launches={n: counts[n] - self.prof_counts[n] for n in FLASH_NAMES},
                 top=[{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:8]],
             )
-            if step["launches"] == step["wrapper_launches"] or self.batches >= self.steps - 1:
+            last = self.done >= 1 and self.batches >= self.steps - 1
+            if step["launches"] == step["wrapper_launches"] or last:
                 self.profile = step
             else:
                 self.incomplete.append(step)
-        # Round 1's steps from its second on: the last status of the round
-        # schedules the update, so the windows end before it.
-        if (self.done == 1 and 1 <= self.batches < self.steps - 1 and self.prof is None
+        # A round's steps from its second on (round 0's first warms up; the
+        # last status of a round schedules the update, so the windows end
+        # before it): up to 2 (steps - 2) windows to find one whose records
+        # hold every launch.
+        if (self.done < 2 and 1 <= self.batches < self.steps - 1 and self.prof is None
                 and self.profile is None):
             self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             self.prof.__enter__()
@@ -2872,9 +2924,10 @@ def node_problems(run: dict, *, rounds: int, expect: dict) -> list:
 
 
 # train_node runs the train job at NODE_LAYERS: its gates are the network's
-# and the scheduler's, and ``train`` measures the 8-layer step. 2 layers
-# since train_shard_ft joined the smoke (4 before), for its time limit.
-NODE_LAYERS = 2
+# and the scheduler's, and ``train`` measures the 8-layer step. 1 layer
+# since train_swap joined the smoke (2 before it, 4 before train_shard_ft),
+# for the smoke's time limit.
+NODE_LAYERS = 1
 NODE_MODEL = {**TRAIN_MODEL, "config": {**TRAIN_MODEL["config"], "num_layers": NODE_LAYERS}}
 
 
@@ -3248,9 +3301,8 @@ async def run_secure_job(root: Path, model: dict, *, device: "str | None", round
     data_dir.mkdir()
     write_slices(data_dir, n_slices=2, per_slice=rounds * steps * batch // 2, seq=seq,
                  period=period, seed=5)
-    for kind in ("gateway", "data", "worker", "scheduler"):
-        subprocess.run([*cli, kind, "init", "-o", str(root / f"{kind}.toml")], check=True,
-                       env=env, cwd=repo, capture_output=True, timeout=60)
+    run_inits(cli, {kind: root / f"{kind}.toml" for kind in ("gateway", "data", "worker",
+                                                              "scheduler")}, env=env, cwd=repo)
     gateway = f"127.0.0.1:{_free_port()}"
     worker = {"resources.gpu": 1, "resources.cpu": 8, "resources.memory": 65536,
               "offer.strategy": "whole"}
@@ -4186,8 +4238,8 @@ SHARD_S_MODEL = {**TRAIN_MODEL, "config": {**TRAIN_MODEL["config"], "num_layers"
 SHARD_S_OPTIONS = {"sync_mode": "stream", "num_fragments": 4, "delta_codec": "int8",
                    "num_ps_shards": 2, "reduce_group_size": 3}
 SHARD_S_ROUNDS = 2  # a round on each shard (4 until train_shard_ft joined the smoke)
-# Job B: blocking sync over 2 shards, no group, 2 layers as train_ft.
-SHARD_B_LAYERS, SHARD_B_WORKERS = 2, 2
+# Job B: blocking sync over 2 shards, no group, 1 layer as train_ft.
+SHARD_B_LAYERS, SHARD_B_WORKERS = 1, 2  # 2 layers before train_swap joined the smoke
 SHARD_B_MODEL = {**TRAIN_MODEL, "config": {**TRAIN_MODEL["config"], "num_layers": SHARD_B_LAYERS}}
 SHARD_B_OPTIONS = {"num_ps_shards": 2, "delta_codec": "int8"}
 SHARD_B_ROUNDS, SHARD_B_STEPS = 2, 2  # 4 steps until train_shard_ft joined the smoke
@@ -5069,6 +5121,759 @@ def train_shard_ft_phase() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# train_swap: the broadcast tree and live weight swap
+# ---------------------------------------------------------------------------
+
+# A blocking int8 job of three trainers in one reduce group (w0 reduces and
+# relays), the broadcast tree on, and a serving worker sv0 following every
+# round. One layer: a whole-model update is then one 0.47 GB wire a round.
+SWAP_LAYERS, SWAP_WORKERS = 1, 3
+SWAP_MODEL = {**FT_MODEL, "config": {"num_layers": SWAP_LAYERS, "remat": True}}
+# sv0 builds the same θ₀ (seed, widths) and serves it in bf16.
+SWAP_SERVE_MODEL = {"family": "llama", "preset": "llama2-7b", "seed": 0,
+                    "config": {"num_layers": SWAP_LAYERS}}
+SWAP_ROUNDS, SWAP_STEPS = 5, 4
+SWAP_DEADLINE_S = 70.0  # FT_DEADLINE_S's reasoning: no round reaches it
+# The watchdog: a healthy run's longest progress gap is a round boundary
+# (seconds); a stalled one fails the phase in 4 minutes, not 10.
+SWAP_STATUS_TIMEOUT_S = 240.0
+SWAP_KILL_AFTER = 2  # w0 is killed once its relay handed round 2 on
+SWAP_SERVE = "swap"
+# sv0's pool: the serving phases' geometry, prefix cache on.
+SWAP_POOL = dict(slots=8, max_len=1024, steps_per_call=8, block_size=16, ragged=True,
+                 prefix_cache=True)
+SWAP_NEW = 32  # new tokens of every request
+SWAP_CLIENTS = (41, 43)  # each closed-loop client's prompt seed
+SWAP_PROMPT_LENGTHS = (17, 60, 113, 150, 200)  # each client cycles over these
+SWAP_PROBE = 64  # the probe prompt's length
+
+
+def swap_job(model: dict, *, rounds, steps, batch, lr, deadline_s, workers=SWAP_WORKERS):
+    """``node_job`` with int8 deltas, one reduce group of all the workers
+    (its first peer id reduces and relays), the broadcast tree, ``sv0`` as
+    a serving follower, and elastic rounds (quorum 0.5) with no spare to
+    rejoin."""
+    from hypha_tpu_torch.ft import FTConfig
+
+    return node_job(model, rounds=rounds, steps=steps, batch=batch, lr=lr, workers=workers,
+                    delta_codec="int8", reduce_group_size=workers, broadcast_tree=True,
+                    serve_peers=["sv0"],
+                    ft=FTConfig(quorum_fraction=0.5, round_deadline_s=deadline_s,
+                                rejoin_attempts=0))
+
+
+@contextmanager
+def swap_probes(rec: dict, on_relayed):
+    """The tree and the follower from inside: each relay (``rec["relays"]``)
+    with ``on_relayed(peer, round)`` once a relay handed a wire on and
+    injected its copy; each results-stream file any node saves, with its
+    sender, header, sha-256 and bytes (``rec["saved"]``); each departure
+    the scheduler makes; each weight subscriber started."""
+    import hashlib
+
+    from hypha_tpu_torch.network.node import PushStream
+    from hypha_tpu_torch.scheduler.orchestrator import Orchestrator
+    from hypha_tpu_torch.serving.weight_stream import WeightSubscriber
+    from hypha_tpu_torch.stream.reduce import BroadcastRelay
+
+    saved = (BroadcastRelay.start, BroadcastRelay._relay, PushStream.save_to,
+             Orchestrator._depart, WeightSubscriber.start)
+    start, relay, save_to, depart, sub_start = saved
+
+    def noted_start(self):
+        rec["relays"].append(self)
+        return start(self)
+
+    async def noted_relay(self, push):
+        await relay(self, push)
+        r = push.resource if isinstance(push.resource, dict) else {}
+        on_relayed(self.node.peer_id, r.get("round"))
+
+    async def hashed_save(self, path, chunk=1 << 22, hasher=None):
+        r = self.resource if isinstance(self.resource, dict) else {}
+        if not str(r.get("resource", "")).startswith("results"):
+            return await save_to(self, path, chunk, hasher)
+        h = hasher or hashlib.sha256()
+        n = await save_to(self, path, chunk, h)
+        rec["saved"].append({"path": str(path), "from": self.peer, "header": dict(r),
+                             "sha256": h.hexdigest(), "bytes": n, "t": time.perf_counter()})
+        return n
+
+    async def noted_depart(self, ctx, peer, reason, add):
+        if ctx.membership is not None and peer in ctx.membership.active:
+            rec["departures"].append({"peer": peer, "t": time.perf_counter(), "reason": reason})
+        return await depart(self, ctx, peer, reason, add)
+
+    def noted_sub(self):
+        rec["subscribers"].append(self)
+        return sub_start(self)
+
+    for key in ("relays", "saved", "departures", "subscribers"):
+        rec.setdefault(key, [])
+    BroadcastRelay.start, BroadcastRelay._relay = noted_start, noted_relay
+    PushStream.save_to, Orchestrator._depart = hashed_save, noted_depart
+    WeightSubscriber.start = noted_sub
+    try:
+        yield rec
+    finally:
+        (BroadcastRelay.start, BroadcastRelay._relay, PushStream.save_to, Orchestrator._depart,
+         WeightSubscriber.start) = saved
+
+
+def _noted_ps_push(node, rec: dict, wires: Path, hold=None) -> None:
+    """Record each results push the parameter server makes (target, tag,
+    round, outcome, seconds) and keep each round's wire (a hard link, its
+    sha-256 beside it). With ``hold``, a round's pushes first await
+    ``hold(round)``."""
+    import hashlib
+
+    push = node.push
+
+    def sha(path) -> str:
+        h = hashlib.sha256()
+        with open(path, "rb") as f:
+            while chunk := f.read(1 << 22):
+                h.update(chunk)
+        return h.hexdigest()
+
+    lock = asyncio.Lock()
+
+    async def noted(peer_id, resource, source):
+        r = resource if isinstance(resource, dict) else {}
+        if not str(r.get("resource", "")).startswith("results"):
+            return await push(peer_id, resource, source)
+        rnd = r.get("round")
+        if hold is not None:
+            await hold(rnd)
+        async with lock:  # a tree wave pushes one round to several peers at once
+            if rnd not in rec["ps_wires"]:
+                keep = wires / f"round-{rnd}"
+                await asyncio.to_thread(os.link, source, keep)
+                rec["ps_wires"][rnd] = {"path": str(keep),
+                                        "sha256": await asyncio.to_thread(sha, keep),
+                                        "header": dict(r), "bytes": keep.stat().st_size}
+        entry = {"round": rnd, "to": peer_id, "tag": r.get("resource"), "t0": time.perf_counter(),
+                 "ok": False}
+        rec["ps_pushes"].append(entry)
+        out = await push(peer_id, resource, source)
+        entry.update(ok=True, s=time.perf_counter() - entry["t0"])
+        return out
+
+    node.push = noted
+
+
+async def run_swap_job(root: Path, model: dict, serve_model: dict, *, device, rounds, steps,
+                       batch, seq, period, lr=3e-4, deadline_s=SWAP_DEADLINE_S,
+                       limit_s=CLI_LIMIT_S, train_runtime="process", new_tokens=SWAP_NEW,
+                       prompt_lengths=SWAP_PROMPT_LENGTHS, probe_len=SWAP_PROBE,
+                       pool=SWAP_POOL, vocab=32_000, status_timeout=None,
+                       sample_card=False, progress_every=0.0) -> dict:
+    """``swap_job`` on the port's nodes at 127.0.0.1: gateway, data node,
+    trainers ``w0``-``w2`` (``w0`` reduces and relays), ``psw`` hosting the
+    parameter server, ``sv0`` (a node whose infer executor serves
+    ``serve_model`` and follows the job's broadcast from θ₀, started when
+    the scheduler has planned the job's streams: ``follow_for`` over its
+    results tag, shard and relay heads, ``keep_previous``), a ``client``
+    node and the port's ``Orchestrator``. Two closed-loop clients ask sv0
+    for ``new_tokens`` after prompts of ``prompt_lengths`` for the whole
+    job; after each round sv0 applies, a probe prompt goes out, and the
+    server's pushes of the next round wait for its answer (so no flip
+    lands inside a probe; it changes no computation). ``w0`` is killed
+    (``ChaosController``) once its relay handed round ``SWAP_KILL_AFTER``
+    on, before the server's next broadcast.
+
+    Returns what ``node_probes`` and ``swap_probes`` saw, the server's
+    pushes and wires, the clients' and probes' responses (stamps, tokens,
+    times), sv0's swap log, decode chunk times, prefix lookups, launch
+    counts and subscriber stats, the logs, the chaos time and the peak. A
+    failed job is returned with its error (``extra["error"]``); every
+    ``progress_every`` seconds (0: never) a line on stderr says where the
+    run is."""
+    import logging
+
+    from hypha_tpu_torch import aio
+    from hypha_tpu_torch.data_node import DataNode
+    from hypha_tpu_torch.ft import ChaosController, parse_chaos_specs
+    from hypha_tpu_torch.gateway import Gateway
+    from hypha_tpu_torch.messages import (
+        PROTOCOL_GENERATE, Executor, GenerateRequest, InferExecutorConfig, JobSpec)
+    from hypha_tpu_torch.network import Node, TcpTransport
+    from hypha_tpu_torch.ops.paged_attention import paged_attention, ragged_paged_attention
+    from hypha_tpu_torch.resources import Resources
+    from hypha_tpu_torch.scheduler.orchestrator import Orchestrator
+    from hypha_tpu_torch.serving import follow_for
+    from hypha_tpu_torch.worker.arbiter import OfferConfig
+    from hypha_tpu_torch.worker.infer_executor import InProcessInferExecutor
+    from hypha_tpu_torch.worker.runtime import WorkerNode
+
+    data_dir, wires = root / "data", root / "wires"
+    data_dir.mkdir(parents=True)
+    wires.mkdir()
+    write_slices(data_dir, n_slices=4, per_slice=rounds * steps * batch, seq=seq, period=period,
+                 seed=5)
+    job = swap_job(model, rounds=rounds, steps=steps, batch=batch, lr=lr, deadline_s=deadline_s)
+    listen = ["127.0.0.1:0"]
+    gw = Gateway(TcpTransport(), peer_id="gw")
+    await gw.start(listen)
+    boot = [gw.node.listen_addrs[0]]
+    data = DataNode(TcpTransport(), {NODE_DATASET: data_dir}, peer_id="data", bootstrap=boot)
+    trainers = {f"w{i}": WorkerNode(
+        TcpTransport(), resources=Resources(gpu=1, cpu=8, memory=65536), device=device,
+        peer_id=f"w{i}", train_runtime=train_runtime, offer=OfferConfig(strategy="whole"),
+        bootstrap=boot, work_root=root / f"w{i}") for i in range(SWAP_WORKERS)}
+    psw = WorkerNode(TcpTransport(), resources=Resources(cpu=8, memory=65536), device=device,
+                     peer_id="psw", bootstrap=boot, work_root=root / "psw")
+    sv0 = Node(TcpTransport(), peer_id="sv0", bootstrap=boot)
+    client = Node(TcpTransport(), peer_id="client", bootstrap=boot)
+    node = Node(TcpTransport(), peer_id="sched", bootstrap=boot)
+    actions = parse_chaos_specs(f"kill-worker:{SWAP_KILL_AFTER + 1}", "w0")
+    chaos = ChaosController(actions, dict(trainers), clock=time.perf_counter)
+
+    def on_relayed(peer: str, round_num) -> None:
+        if peer == "w0" and round_num == SWAP_KILL_AFTER:
+            chaos.on_round_metrics(SWAP_KILL_AFTER)
+
+    logs: dict = {"ps": [], "sched": [], "relay": [], "sv0": []}
+
+    class Lines(logging.Handler):
+        def __init__(self, key):
+            super().__init__()
+            self.key = key
+
+        def emit(self, record):
+            logs[self.key].append(f"{time.perf_counter():.3f} {record.getMessage()}")
+
+    handlers = [(logging.getLogger(n), Lines(k)) for n, k in (
+        ("hypha.torch.worker.ps", "ps"), ("hypha.torch.scheduler.orchestrator", "sched"),
+        ("hypha.torch.stream.reduce", "relay"), ("hypha.torch.executor.pool", "sv0"),
+        ("hypha.torch.serving.weight_stream", "sv0"),
+        ("hypha.torch.worker.infer_executor", "sv0"))]
+    levels = [lg.level for lg, _ in handlers]
+    for lg, h in handlers:
+        lg.addHandler(h)
+        lg.setLevel(logging.INFO)
+    ex = InProcessInferExecutor(sv0, torch.device(device), root / "sv0")
+    prompts = {seed: make_prompts(seed, list(prompt_lengths), vocab=vocab)
+               for seed in SWAP_CLIENTS}
+    probe = make_prompts(31, [probe_len], vocab=vocab)[0]
+    out: dict = {"clients": {seed: [] for seed in SWAP_CLIENTS}, "probes": [], "chunks": [],
+                 "lookups": [], "plan": None, "follow": None}
+    ready, stop = asyncio.Event(), asyncio.Event()
+    rec_ps: dict = {"ps_pushes": [], "ps_wires": {}}
+    probed = collections.defaultdict(asyncio.Event)  # round -> its probe answered
+
+    async def after_probe(round_num) -> None:
+        """Round r leaves the server once round r - 1's probe is answered
+        (at most a minute later), so no flip lands inside a probe. A hold
+        like ``train_ft``'s: it changes no computation."""
+        if isinstance(round_num, int) and round_num >= 1:
+            try:
+                await asyncio.wait_for(probed[round_num - 1].wait(), 60.0)
+            except asyncio.TimeoutError:
+                pass
+
+    _noted_ps_push(psw.node, rec_ps, wires, hold=after_probe)
+
+    async def ask(prompt: list) -> tuple:
+        t0 = time.perf_counter()
+        resp = await client.request("sv0", PROTOCOL_GENERATE, GenerateRequest(
+            serve_name=SWAP_SERVE, prompts=[prompt], max_new_tokens=new_tokens),
+            timeout=NODE_WAIT_S)
+        return resp, t0, time.perf_counter()
+
+    async def serve_follower():
+        """sv0's job, dispatched once the scheduler planned the streams."""
+        while out["plan"] is None:
+            await asyncio.sleep(0.01)
+        tag, shards, groups = out["plan"]
+        out["follow"] = follow = follow_for(tag, shards, groups=groups, start_round=-1,
+                                            keep_previous=True)
+        spec = JobSpec(job_id="sv0-follow", executor=Executor(
+            kind="infer", name="generate", infer=InferExecutorConfig(
+                model=dict(serve_model), serve_name=SWAP_SERVE, max_batch=pool["slots"],
+                max_new_tokens=new_tokens, pool_slots=pool["slots"],
+                pool_max_len=pool["max_len"], pool_chunk=pool["steps_per_call"],
+                pool_block_size=pool["block_size"], pool_ragged=pool["ragged"],
+                pool_prefix_cache=pool["prefix_cache"], load_report_s=0.0,
+                serve_follow_rounds=follow)))
+        out["execution"] = await ex.execute("sv0-follow", spec, "sched")
+        ended = asyncio.ensure_future(out["execution"].wait())
+        while "sv0-follow" not in ex.batchers:
+            if ended.done():
+                raise SystemExit(f"sv0's job ended before serving: {ended.result()}")
+            await asyncio.sleep(0.05)
+        ended.cancel()
+        dp = ex.batchers["sv0-follow"].pool
+        out["pool"] = dp
+        # Each decode chunk's start and end, and each prefix lookup's blocks
+        # with the generation they were registered under.
+        run_chunk, lookup = dp._run_decode_chunk, dp._alloc.lookup
+
+        def timed_chunk(dec):
+            t0 = time.perf_counter()
+            run_chunk(dec)
+            out["chunks"].append((t0, time.perf_counter(), dp.weight_round))
+
+        def checked_lookup(hashes):
+            ids = lookup(hashes)
+            out["lookups"].append((dp._alloc.generation,
+                                   [dp._alloc._gen_of.get(b) for b in ids]))
+            return ids
+
+        dp._run_decode_chunk, dp._alloc.lookup = timed_chunk, checked_lookup
+        ragged_paged_attention.launches = paged_attention.plain_calls = 0
+        for name in ROUTES:
+            setattr(ragged_paged_attention, f"{name}_launches", 0)
+        out["chunks0"], out["prefill0"] = dp.chunks, dp.prefill_chunks
+        ready.set()
+
+    async def traffic(seed: int):
+        await ready.wait()
+        i = 0
+        while not stop.is_set():
+            p = prompts[seed][i % len(prompts[seed])]
+            resp, t0, t1 = await ask(p)
+            out["clients"][seed].append({"t0": t0, "t1": t1, "ok": resp.ok, "len": len(p),
+                                         "tokens": len(resp.tokens[0]) if resp.tokens else 0,
+                                         "stamp": (resp.weight_round, resp.weight_generation)})
+            i += 1
+
+    async def prober():
+        await ready.wait()
+        dp, seen = out["pool"], None
+        while True:
+            state = dp.weight_state()
+            if state[0] is not None and state != seen:
+                resp, t0, t1 = await ask(probe)
+                stamp = (resp.weight_round, resp.weight_generation)
+                out["probes"].append({"state": state, "stamp": stamp, "tokens": resp.tokens[0],
+                                      "clean": stamp == state == dp.weight_state(), "t0": t0,
+                                      "t1": t1})
+                probed[state[0]].set()
+                seen = state
+            if stop.is_set() and seen == dp.weight_state():
+                return
+            await asyncio.sleep(0.02)
+
+    def status() -> dict:
+        """Where the run is, for the lines a long phase prints as it goes."""
+        dp = out.get("pool")
+        prog = collections.Counter(f"{p['peer']}:{p['kind']}" for p in rec["progress"])
+        return {"t": round(time.perf_counter() - t_start, 1), "progress": dict(prog),
+                "statuses": [(s["job_id"][-3:], s["state"]) for s in rec["statuses"]],
+                "ps_pushes": [(p["round"], p["to"], p["ok"]) for p in rec_ps["ps_pushes"]],
+                "relayed": [len(r.hops) for r in rec["relays"]],
+                "swaps": dp and dp.weight_state(), "requests": {
+                    seed: len(cl) for seed, cl in out["clients"].items()},
+                "stall_max_s": round(max(stalls, default=0.0), 3),
+                "departures": [d["peer"] for d in rec["departures"]],
+                "logs": {k: v[-3:] for k, v in logs.items()},
+                "trainers": {k: v[-3:] for k, v in trainer_logs({"rec": rec}).items()}}
+
+    async def progress_lines(every: float):
+        while True:
+            await asyncio.sleep(every)
+            print(json.dumps({"train_swap_progress": status()}, default=str), file=sys.stderr,
+                  flush=True)
+
+    real_plan = Orchestrator._plan_streams
+
+    def noted_plan(self, ctx, *a, **kw):
+        real_plan(self, ctx, *a, **kw)
+        out["plan"] = (ctx.results_tag, list(ctx.shard_map.shards),
+                       [list(g) for g in ctx.shard_map.groups])
+
+    started: list = []
+    tasks: list = []
+    stalls: list = []
+    peak, sampling = [0.0], asyncio.Event()
+    extra: dict = {}
+    Orchestrator._plan_streams = noted_plan
+    t_start = time.perf_counter()
+    with node_probes(device) as rec, swap_probes(rec, on_relayed):
+        try:
+            for part in (data, *trainers.values(), psw, sv0, client, node):
+                await part.start(listen)
+                started.append(part)
+            await node.wait_for_bootstrap()
+            await client.wait_for_bootstrap()
+            tasks = [asyncio.create_task(watch_loop(stalls)),
+                     asyncio.create_task(serve_follower()),
+                     *(asyncio.create_task(traffic(s)) for s in SWAP_CLIENTS),
+                     asyncio.create_task(prober())]
+            if sample_card:
+                tasks.append(asyncio.create_task(_device_mem_sampler(peak, sampling)))
+            if progress_every:
+                tasks.append(asyncio.create_task(progress_lines(progress_every)))
+            t_job = time.perf_counter()
+            try:
+                result = await Orchestrator(node).run(job, auction_timeout=2.0,
+                                                      status_timeout=status_timeout)
+            except Exception as e:  # reported by swap_problems with the logs
+                result, extra["error"] = None, repr(e)
+            extra["job_s"] = time.perf_counter() - t_job
+            final = {"completed", "failed", "cancelled"}
+            loop = asyncio.get_running_loop()
+            deadline = loop.time() + (limit_s if result is not None else 30.0)
+            while True:
+                live = {d["job_id"] for d in rec["dispatch"] if d["peer"] != "w0"}
+                ended = {s["job_id"] for s in rec["statuses"] if s["state"] in final}
+                finished = live <= ended
+                if finished or loop.time() > deadline:
+                    break
+                await asyncio.sleep(0.1)
+            # The last round's flip, then its probe.
+            dp = out.get("pool")
+            while (result is not None and dp is not None and dp.weight_round != rounds - 1
+                   and loop.time() < deadline):
+                await asyncio.sleep(0.05)
+            stop.set()
+            await asyncio.wait_for(asyncio.gather(*tasks[2:5]), NODE_WAIT_S)
+            if dp is not None:
+                out["launches"] = {"decode": ragged_paged_attention.decode_launches,
+                                   "mma": ragged_paged_attention.mma_launches,
+                                   "simt": ragged_paged_attention.simt_launches,
+                                   "plain": paged_attention.plain_calls,
+                                   "decode_chunks": dp.chunks - out["chunks0"],
+                                   "prefill_chunks": dp.prefill_chunks - out["prefill0"]}
+                out["swap_log"] = list(dp.swap_log)
+                out["alloc"] = {"generation": dp._alloc.generation,
+                                "stale_drops": dp._alloc.stale_drops, "hit_blocks": dp.hit_blocks,
+                                "swaps": (dp.swaps_applied, dp.swaps_deferred,
+                                          dp.swaps_rolled_back)}
+                out["served_peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                                          if device == "cuda" else None)
+            out["subscriber"] = rec["subscribers"][0].stats() if rec["subscribers"] else None
+        finally:
+            Orchestrator._plan_streams = real_plan
+            stop.set()
+            sampling.set()
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+            if out.get("execution") is not None:
+                await out["execution"].cancel()
+            for part in reversed(started):
+                await part.stop()
+            await gw.stop()
+            for (lg, h), level in zip(handlers, levels):
+                lg.removeHandler(h)
+                lg.setLevel(level)
+    leftover: list = []
+    for _ in range(300):
+        leftover = sorted(str(p.relative_to(root)) for p in root.rglob("*")
+                          if p.is_file() and not p.is_relative_to(data_dir)
+                          and not p.is_relative_to(wires))
+        if not leftover:
+            break
+        await asyncio.sleep(0.1)
+    jobs = {}
+    for d in rec["dispatch"]:
+        jobs[d["peer"] if d["kind"] == "train" else "aggregate"] = [
+            s["state"] for s in rec["statuses"] if s["job_id"] == d["job_id"]]
+    return dict(job=job, result=result, rec=rec, finished=finished, logs=logs, jobs=jobs,
+                chaos={a.kind: a.fired_at for a in chaos.fired}, extra=extra,
+                ps=rec_ps, serve=out, probe=probe, root=root, leftover=leftover,
+                card_peak_mib=peak[0] if sample_card else None, status=status(),
+                loop_stall_max_s=max(stalls, default=0.0))
+
+
+def swap_check(run: dict, serve_model: dict, device: str, pool=SWAP_POOL) -> dict:
+    """Gates 4 and 5 from the host's side: θ₀ built as sv0 built it, each
+    flip of sv0's swap log replayed on ``device`` from the server's kept
+    wires (the rounds a flip covers summed in f32 first, as the pool folds
+    them; each leaf then ``(leaf.float() + u.float()).to(leaf.dtype)``),
+    its digest against the one sv0 logged, and the probe of that round
+    through a fresh pool of sv0's geometry on the folded weights (the same
+    kernels) against the probe sv0 answered."""
+    from hypha_tpu_torch.compress import read_delta
+    from hypha_tpu_torch.executor.pool import DecodePool
+    from hypha_tpu_torch.executor.training import theta_checksum
+    from hypha_tpu_torch.models.convert import flat_names
+    from hypha_tpu_torch.worker.infer_executor import load_model
+
+    wires = run["ps"]["ps_wires"]
+    model = load_model(dict(serve_model), device=device)
+    names = flat_names(model)
+    params = dict(model.named_parameters())
+    probes = {p["state"][0]: p for p in run["serve"]["probes"] if p["clean"]}
+    checks, applied = [], -1
+    for entry in run["serve"].get("swap_log", []):
+        if entry["what"] != "applied":
+            checks.append({"round": entry["round"], "what": entry["what"], "ok": False})
+            continue
+        pend: dict = {}
+        for r in range(applied + 1, entry["round"] + 1):
+            u = read_delta(wires[r]["path"], device=device)
+            for k, v in u.items():
+                k = k.removeprefix("params/")
+                pend[k] = pend[k] + v.float() if k in pend else v.float()
+        with torch.no_grad():
+            for k, u in pend.items():
+                pname, transposed = names[k]
+                leaf = params[pname]
+                u = u.T if transposed else u
+                leaf.data = (leaf.float() + u.float()).to(leaf.dtype).contiguous()
+        del pend
+        first, applied = applied + 1, entry["round"]
+        digest = theta_checksum({n: params[p] for n, (p, _) in names.items()})
+        got = probes.get(applied)
+        want = None
+        if got is not None:
+            ref = DecodePool(model, **pool)
+            try:
+                want = ref.submit([run["probe"]], len(got["tokens"])).result(timeout=NODE_WAIT_S)[0]
+            finally:
+                ref.close()
+        checks.append({"round": applied, "rounds_folded": applied + 1 - first, "digest": digest,
+            "logged": entry["digest"], "digest_equal": digest == entry["digest"],
+            "probe": got is not None, "tokens_equal": got is not None and got["tokens"] == want,
+            "tokens": got["tokens"] if got else None})
+    del model
+    return {"checks": checks}
+
+
+def swap_report(run: dict) -> dict:
+    """What ``run_swap_job`` measured: per round, the server's pushes
+    (target, tag, outcome) and how its tree broadcast went (top targets or
+    expansion, from its log); every results file each node saved against
+    the server's wire of that round (sha-256, header); the trainers'
+    launches and batches; sv0's swaps, launches, decode-chunk gaps around
+    each flip, tokens/s before and after the first swap, the clients'
+    stamps; the relay hops; kill to departure."""
+    rec, serve, ps = run["rec"], run["serve"], run["ps"]
+    root = str(run["root"])
+    rounds = sorted(ps["ps_wires"])
+
+    def who(path: str) -> str:
+        rel = Path(path).relative_to(root).parts[0] if path.startswith(root) else "?"
+        return rel
+
+    received = []
+    for s in rec["saved"]:
+        r = s["header"].get("round")
+        want = ps["ps_wires"].get(r)
+        hdr = {k: v for k, v in s["header"].items() if k != "resource"}
+        want_hdr = want and {k: v for k, v in want["header"].items() if k != "resource"}
+        received.append({"at": who(s["path"]), "from": s["from"], "round": r,
+                         "tag": s["header"].get("resource"), "bytes": s["bytes"],
+                         "sha_equal": bool(want) and s["sha256"] == want["sha256"],
+                         "header_equal": hdr == want_hdr})
+    pushes = {r: [(p["to"], p["tag"], p["ok"]) for p in ps["ps_pushes"] if p["round"] == r]
+              for r in rounds}
+    ps_log = "\n".join(run["logs"]["ps"])
+    modes = {}
+    for r in rounds:
+        m = re.search(rf"tree broadcast round {r} to (\[.*?\]) of", ps_log)
+        modes[r] = {"targets": m and m.group(1)}
+    expansions = re.findall(r"relay (\S+) unreachable; expanding to \d+ children (\[.*?\])",
+                            ps_log)
+    trainers: dict = {}
+    for peer, lines in trainer_logs(run).items():
+        t = trainer_log("\n".join(lines))
+        trainers[peer] = {"launches": t["launches"], "peak_gib": t["peak_gib"],
+                          "batches": sum(p["kind"] == "status" and p["peer"] == peer
+                                         for p in rec["progress"])}
+    swaps = serve.get("swap_log", [])
+    flips = [s["t"] for s in swaps]
+    chunks = serve["chunks"]
+    gaps = [b[1] - a[1] for a, b in zip(chunks, chunks[1:])]
+    around = []
+    for t in flips:
+        near = [b[1] - a[1] for a, b in zip(chunks, chunks[1:]) if a[1] <= t <= b[1] + 1e-3]
+        around.append(max(near) if near else None)
+    first = flips[0] if flips else None
+    done = [c for cl in serve["clients"].values() for c in cl if c["ok"]]
+
+    def rate(lo, hi):
+        got = [c for c in done if lo <= c["t1"] < hi]
+        return (sum(c["tokens"] for c in got) / (hi - lo)) if got and hi > lo else None
+
+    t_lo = min((c["t0"] for c in done), default=None)
+    t_hi = max((c["t1"] for c in done), default=None)
+    relays = [{"peer": r.node.peer_id, "children": r.children,
+               "hops": [{"round": h["header"].get("round"), "bytes": h["bytes"],
+                         "save_s": h["save_s"], "push_s": h["push_s"],
+                         "delivered": h["delivered"], "lost": h["lost"]}
+                        for h in r.hops]} for r in rec["relays"]]
+    deps = {d["peer"]: d["t"] for d in rec["departures"]}
+    fired = run["chaos"].get("kill")
+    return dict(
+        rounds=rounds, pushes=pushes, broadcast=modes, expansions=expansions,
+        received=received, trainers=trainers, relays=relays,
+        updated=sorted(p["round"] for p in rec["progress"] if p["kind"] == "updated"),
+        deltas=[(d["round"], d["from"], bool(d["header"].get("prefold")),
+                 d["header"].get("covers")) for d in rec["deltas"]],
+        departures=[(d["peer"], d["reason"]) for d in rec["departures"]],
+        kill_to_departure_s=(deps["w0"] - fired) if "w0" in deps and fired else None,
+        swaps=[{k: s[k] for k in ("what", "round", "generation", "staged_to_flip_ms", "flip_ms",
+                                  "alloc_generation", "live_rows")} for s in swaps],
+        decode_gap_median_s=statistics.median(gaps) if gaps else None,
+        decode_gap_at_flip_s=around,
+        tokens_per_s_before_first_swap=rate(t_lo, first) if first and t_lo else None,
+        tokens_per_s_after_first_swap=rate(first, t_hi) if first and t_hi else None,
+        requests=len(done), launches=serve.get("launches"), alloc=serve.get("alloc"),
+        subscriber=serve.get("subscriber"),
+        stamps={seed: [c["stamp"] for c in cl] for seed, cl in serve["clients"].items()},
+        probes=[{"round": p["state"][0], "clean": p["clean"], "latency_s": p["t1"] - p["t0"]}
+                for p in serve["probes"]],
+    )
+
+
+def swap_problems(run: dict, rep: dict, check: dict, *, rounds: int, layers: int,
+                  device: str) -> list:
+    """The seven gates of ``train_swap``."""
+    problems = []
+    if run["extra"].get("error") or run["result"] is None:
+        return [f"the job failed: {run['extra'].get('error')}; at {run['status']}"]
+    kill = SWAP_KILL_AFTER + 1
+    # 1. Every wire a leaf got through the relay is the server's, byte for
+    # byte, with its header.
+    relayed = [x for x in rep["received"] if x["from"] == "w0" and x["at"] in ("w1", "w2", "sv0")]
+    if not relayed or any(not (x["sha_equal"] and x["header_equal"]) for x in rep["received"]):
+        problems.append(f"gate 1: relayed or received wires differ from the server's: "
+                        f"{[x for x in rep['received'] if not (x['sha_equal'] and x['header_equal'])]}")
+    if {(x["at"], x["round"]) for x in relayed} != {
+            (p, r) for p in ("w1", "w2", "sv0") for r in range(kill)}:
+        problems.append(f"gate 1: relayed receipts {sorted((x['at'], x['round']) for x in relayed)}")
+    # 2. One push a round to the relay while it lives; then the leaves
+    # directly, by expansion or top_targets.
+    for r in range(rounds):
+        ok = sorted((to, tag) for to, tag, good in rep["pushes"].get(r, []) if good)
+        if r < kill:
+            want = [("w0", f"{run['serve']['follow'].results.ref.resource}.relay")]
+        else:
+            tag = run["serve"]["follow"].results.ref.resource
+            want = sorted((p, tag) for p in ("sv0", "w1", "w2"))
+        if ok != want:
+            problems.append(f"gate 2: round {r} pushes {rep['pushes'].get(r)}, wanted {want}")
+    # 3. The job survives: every round UPDATED once, the survivors' deltas
+    # straight to the shard after the kill, every live leaf every round.
+    if rep["updated"] != list(range(rounds)):
+        problems.append(f"gate 3: UPDATED rounds {rep['updated']}")
+    late = sorted((r, frm) for r, frm, prefold, _ in rep["deltas"] if r >= kill)
+    if late != sorted((r, p) for r in range(kill, rounds) for p in ("w1", "w2")):
+        problems.append(f"gate 3: deltas after the kill {late}")
+    got = {(x["at"], x["round"]) for x in rep["received"]
+           if x["tag"] == run["serve"]["follow"].results.ref.resource}
+    want = {(p, r) for p in ("w1", "w2", "sv0") for r in range(rounds)}
+    if not want <= got:
+        problems.append(f"gate 3: leaves missed rounds {sorted(want - got)}")
+    sub = rep["subscriber"] or {}
+    if sub.get("held_rounds") != [] or sub.get("applied_round") != rounds - 1:
+        problems.append(f"gate 3: the follower's stats {sub}")
+    if [d for d in rep["departures"] if d[0] != "w0"] or "w0" not in [d[0] for d in
+                                                                       rep["departures"]]:
+        problems.append(f"gate 3: departures {rep['departures']}")
+    jobs = run["jobs"]
+    if any(jobs.get(p, [None])[-1] != "completed" for p in ("w1", "w2", "aggregate")):
+        problems.append(f"gate 3: jobs {jobs}")
+    # 4. and 5. Each flip bit-equal to the host's fold; each probe's tokens
+    # the fresh pool's on it.
+    checks = check["checks"]
+    if [c["round"] for c in checks] != list(range(rounds)):
+        problems.append(f"gate 4: flips {[(c['round'], c.get('what')) for c in checks]}")
+    for c in checks:
+        if not c.get("digest_equal"):
+            problems.append(f"gate 4: round {c['round']} served digest {c.get('logged')} != host "
+                            f"fold {c.get('digest')}")
+        if not c.get("probe") or not c.get("tokens_equal"):
+            problems.append(f"gate 5: round {c['round']} probe {c.get('probe')}, tokens equal "
+                            f"{c.get('tokens_equal')}")
+    # 6. Traffic unhurt: every answer whole, stamps among the applied rounds
+    # and never falling per client, no pre-swap chain mapped after a swap,
+    # the allocator's generation one a swap.
+    applied = {(s["round"], s["generation"]) for s in rep["swaps"]}
+    for seed, cl in run["serve"]["clients"].items():
+        bad = [c for c in cl if not c["ok"] or c["tokens"] != SWAP_NEW]
+        if bad or not cl:
+            problems.append(f"gate 6: client {seed}: {len(bad)} of {len(cl)} requests failed or "
+                            "came back short")
+        stamps = [c["stamp"] for c in cl]
+        keys = [-1 if s[0] is None else s[0] for s in stamps]
+        if keys != sorted(keys) or any(s[0] is not None and s not in applied for s in stamps):
+            problems.append(f"gate 6: client {seed} stamps {stamps}")
+    stale = [lk for lk in run["serve"]["lookups"] if any(g != lk[0] for g in lk[1])]
+    if stale:
+        problems.append(f"gate 6: {len(stale)} admissions mapped a chain of an older generation")
+    alloc = rep["alloc"] or {}
+    if alloc.get("generation") != len(rep["swaps"]) or alloc.get("swaps") != (rounds, 0, 0):
+        problems.append(f"gate 6: allocator {alloc}, swaps {len(rep['swaps'])}")
+    # 7. Launch counts exact: every trainer batch through the flash kernels,
+    # every sv0 forward through the ragged kernel.
+    if device == "cuda":
+        for peer, t in rep["trainers"].items():
+            n = t["batches"]
+            want = {"fwd": 2 * layers * n, "dq": layers * n, "dkv": layers * n,
+                    "flash_plain": 0, "dense": 0}
+            if peer != "w0" and (not n or t["launches"] != want):
+                problems.append(f"gate 7: {peer} launches {t['launches']}, wanted {want}")
+        lc = rep["launches"] or {}
+        want = {"decode": lc.get("decode_chunks", -1) * SWAP_POOL["steps_per_call"] * layers,
+                "mma": lc.get("prefill_chunks", -1) * layers, "simt": 0, "plain": 0}
+        if {k: lc.get(k) for k in want} != want or not want["decode"] or not want["mma"]:
+            problems.append(f"gate 7: sv0 launches {lc}, wanted {want}")
+    if run["leftover"]:
+        problems.append(f"left in the work root: {run['leftover']}")
+    return problems
+
+
+def swap_summary(run: dict, rep: dict, check: dict) -> dict:
+    """The phase's line: ``swap_report`` with the checks, the wires' bytes,
+    whether the probe's tokens moved between rounds, the peaks."""
+    tokens = [c.get("tokens") for c in check["checks"]]
+    return dict(
+        attempt=getattr(run["result"], "attempt", None), jobs=run["jobs"],
+        job_s=run["extra"].get("job_s"),
+        wire_bytes={r: w["bytes"] for r, w in run["ps"]["ps_wires"].items()},
+        probe_tokens_differ_between_rounds=len({tuple(t or ()) for t in tokens}) > 1,
+        card_peak_gib=(run["card_peak_mib"] or 0) / 1024,
+        sv0_peak_gib=run["serve"].get("served_peak_gib"),
+        loop_stall_max_s=run["loop_stall_max_s"],
+        checks=[{k: c.get(k) for k in ("round", "rounds_folded", "digest", "digest_equal",
+                                       "tokens_equal")} for c in check["checks"]],
+        **{k: v for k, v in rep.items() if k not in ("received", "stamps")},
+        received=dict(collections.Counter(f"{x['at']}<-{x['from']}" for x in rep["received"])),
+    )
+
+
+def train_swap_phase() -> dict:
+    """The broadcast tree and live weight swap on the card
+    (``run_swap_job``): a 7B-width blocking job relayed through ``w0``,
+    ``sv0`` following it round by round under traffic, ``w0`` killed after
+    relaying round ``SWAP_KILL_AFTER``; held to ``swap_problems``."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    root = Path(tempfile.mkdtemp(prefix="hsw"))
+    try:
+        run = asyncio.run(run_swap_job(
+            root, SWAP_MODEL, SWAP_SERVE_MODEL, device="cuda", rounds=SWAP_ROUNDS,
+            steps=SWAP_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, period=TRAIN_PERIOD,
+            status_timeout=SWAP_STATUS_TIMEOUT_S, sample_card=True, progress_every=30.0))
+        t_check = time.perf_counter()
+        rep = swap_report(run)
+        check = (swap_check(run, SWAP_SERVE_MODEL, "cuda") if run["result"] is not None
+                 else {"checks": []})
+        check_s = time.perf_counter() - t_check
+        problems = swap_problems(run, rep, check, rounds=SWAP_ROUNDS, layers=SWAP_LAYERS,
+                                 device="cuda")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res = dict(model="llama2-7b", layers=SWAP_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+               steps=SWAP_STEPS, workers=SWAP_WORKERS, kill_after=SWAP_KILL_AFTER,
+               check_s=check_s, **swap_summary(run, rep, check),
+               seconds=time.perf_counter() - t0)
+    if problems:
+        emit({"phase": "train_swap", **res, "problems": problems, "status": run["status"],
+              "logs": {k: v[-60:] for k, v in run["logs"].items()},
+              "trainer_logs": {k: v[-40:] for k, v in trainer_logs(run).items()}})
+        raise SystemExit("train_swap phase failed: " + "; ".join(problems))
+    return res
+
+
 class _PlainFlash(torch.autograd.Function):
     """The plain flash versions under autograd: the kernels' reference."""
 
@@ -5161,23 +5966,36 @@ def main() -> int:
     model = load_model({"family": "llama", "preset": "llama2-7b", "seed": 0})
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    serve = serve_phase(model, kv_quant="", lengths=[17, 64, 130, 222, 333, 450, 599, 700],
-                        n_new=[32, 40, 48, 56, 64, 36, 44, 60])
+    lengths, n_new = [17, 64, 130, 222, 333, 450, 599, 700], [32, 40, 48, 56, 64, 36, 44, 60]
+    serve = serve_phase(model, kv_quant="", lengths=lengths, n_new=n_new)
     hidden = ("prompts", "answers", "layers")
     emit({"phase": "serve", "model": "llama2-7b", "load_s": load_s,
           **{k: v for k, v in serve.items() if k not in hidden}})
-    serve8 = serve_phase(model, kv_quant="int8", lengths=[25, 180, 410, 650], n_new=[32, 48, 40, 64])
-    emit({"phase": "serve_int8", **{k: v for k, v in serve8.items() if k not in hidden}})
-    prefix = serve_prefix_phase(model)
-    emit({"phase": "serve_prefix", **{k: v for k, v in prefix.items() if k not in hidden}})
-    traffic = fleet_traffic()
-    fleet_ref = {**fleet_reference(model, traffic), "traffic": traffic}
     emit({"phase": "profile", **profile_phase(model)})
     emit({"phase": "reference", **reference_phase(model)})
     del model  # free the serving model: the worker of serve_node and training take the card
     gc.collect()
     torch.cuda.empty_cache()
-    serve_node = serve_node_phase(serve)
+    # The network's serving phases and their in-process references run at
+    # CLI_LAYERS; serve_prefix too, whose cached bf16 answers serve_router
+    # and serve_fleet are held to.
+    t0 = time.perf_counter()
+    cli = load_model(CLI_MODEL)
+    serve_cli = serve_phase(cli, kv_quant="", lengths=lengths, n_new=n_new)
+    emit({"phase": "serve_cli_reference", "layers": CLI_LAYERS,
+          "seconds": time.perf_counter() - t0,
+          **{k: v for k, v in serve_cli.items() if k not in hidden}})
+    serve8 = serve_phase(cli, kv_quant="int8", lengths=[25, 180, 410, 650], n_new=[32, 48, 40, 64])
+    emit({"phase": "serve_int8", "layers": CLI_LAYERS,
+          **{k: v for k, v in serve8.items() if k not in hidden}})
+    prefix = serve_prefix_phase(cli)
+    emit({"phase": "serve_prefix", **{k: v for k, v in prefix.items() if k not in hidden}})
+    traffic = fleet_traffic()
+    fleet_ref = {**fleet_reference(cli, traffic), "traffic": traffic}
+    del cli
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_node = serve_node_phase(serve_cli)
     emit({"phase": "serve_node", **serve_node})
     serve_router = serve_router_phase(prefix)
     emit({"phase": "serve_router", **serve_router})
@@ -5196,6 +6014,8 @@ def main() -> int:
     emit({"phase": "train_shard", **shard})
     shard_ft = train_shard_ft_phase()
     emit({"phase": "train_shard_ft", **shard_ft})
+    swap = train_swap_phase()
+    emit({"phase": "train_swap", **swap})
     emit({"phase": "train_reference", **train_reference_phase()})
 
     dec, pre = kern["timing"]["decode_bf16"], kern["timing"]["prefill64_bf16"]
@@ -5217,6 +6037,8 @@ def main() -> int:
         "serve_router_launches": {role: w["launches"]
                                   for role, w in serve_router["workers"].items()},
         "serve_fleet_launches": serve_fleet["launches"],
+        # The follower of train_swap, counted in process over the job.
+        "train_swap_launches": swap["launches"],
         "prefill64_ms": pre["ms"], "prefill64_simt_ms": pre["simt_ms"],
         "prefill64_plain_ms": pre["plain_ms"], "prefill64_bound_ms": pre["bound_ms"],
         "prefill64_bound_by": pre["bound_by"], "prefill64_library_ms": pre["library_ms"],
@@ -5239,6 +6061,9 @@ def main() -> int:
             # The fault-tolerant sharded job's trainers, the rejoiner included.
             "train_shard_ft_launches": {peer: (t_["launches"] or {}).get(key)
                                         for peer, t_ in shard_ft["trainers"].items()},
+            # The broadcast-tree job's surviving trainers (w0 is killed).
+            "train_swap_launches": {peer: (t_["launches"] or {}).get(key)
+                                    for peer, t_ in swap["trainers"].items() if peer != "w0"},
         })
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -50,6 +50,25 @@ budget); the worker's sender resolves it from the target's continuation
 (``complete_migrated``) or hands it back for recompute-resume
 (``requeue_migrated``).
 
+**Live weight swap** (``request_swap``, reference ``:676-880``): a
+follower (``serving/weight_stream.py``) stages each whole round's update,
+keyed by the wire's flat names (``models/convert.py`` maps them onto the
+module's parameters); a round staged before the last one applied folds
+into it in f32. The serve thread applies the staged sum at the top of its
+next iteration, between dispatched forwards: each named leaf becomes
+``(leaf.float() + u.float()).to(leaf.dtype)``, a new tensor, so no forward
+ever reads mixed rounds. ``keep_previous`` keeps the replaced leaves;
+``pin_round`` holds serving at a round (later rounds stage, fold and count
+as deferred) and, pinned at the previous round, restores the snapshot and
+folds the undone update back into the pending sum, so lifting the pin
+rolls forward through the rolled-back round. Each flip bumps the block
+allocator's generation: no admission after it maps a chain written before
+it. ``weight_state`` is the serving ``(round, generation)``, ``(None,
+None)`` before the first swap. Each flip is logged (``weight swap:``) with
+the staged-to-flip and flip milliseconds, the counts applied, deferred and
+rolled back, the allocator's generation and a digest of the served leaves
+(``swap_log`` keeps them).
+
 Greedy only: sampled requests take ``PoolServer``'s one-shot fallback.
 Where the JAX pool bumps its serving metrics the port keeps plain
 counters: ``hit_blocks``, ``miss_blocks``, ``cow_copies``, ``migrated_out``,
@@ -63,6 +82,7 @@ Options of the JAX pool that this port does not have yet raise
 
 from __future__ import annotations
 
+import json
 import logging
 import queue
 import threading
@@ -259,6 +279,20 @@ class DecodePool:
         self.stats = {"prefill_s": 0.0, "prefill_tokens": 0,
                       "decode_s": 0.0, "decode_tokens": 0, **dict.fromkeys(FLEET_STATS, 0)}
         self._stats_lock = threading.Lock()
+        # Live weight swap: staged by request_swap from any thread, applied
+        # by the serve thread at the top of an iteration.
+        self._swap_lock = threading.Lock()
+        self._pending_swap: "dict | None" = None
+        self._pending_rollback: "int | None" = None
+        self._prev_leaves: "tuple | None" = None  # (round, {flat name: old leaf})
+        self._param_index: "dict | None" = None  # flat name -> (param name, transposed)
+        self.weight_round: "int | None" = None
+        self.weight_generation: "int | None" = None
+        self.pinned_round: "int | None" = None
+        self.swaps_applied = 0
+        self.swaps_deferred = 0
+        self.swaps_rolled_back = 0
+        self.swap_log: list = []
         self._thread = threading.Thread(target=self._serve_loop, name="decode-pool", daemon=True)
         self._thread.start()
 
@@ -389,10 +423,172 @@ class DecodePool:
             self._alloc.release(b)  # unreferenced and registered: parks in the LRU
         return len(taken)
 
+    # ----------------------------------------------------- weight swapping
+
     def weight_state(self) -> tuple:
-        """The serving (round, generation): ``(None, None)`` until live
-        weight swap is ported, as the JAX pool's before its first swap."""
-        return None, None
+        """The serving (round, generation); ``(None, None)`` until the first
+        swap (requests decode on the dispatched weights)."""
+        with self._swap_lock:
+            return self.weight_round, self.weight_generation
+
+    def _params(self) -> dict:
+        if self._param_index is None:
+            from ..models.convert import flat_names
+
+            self._param_index = flat_names(self._model)
+        return self._param_index
+
+    def _norm_swap_key(self, name: str) -> str:
+        """A wire name in the pool's spelling (the flat name without the
+        ``params/`` head), normalized once at staging so fold, undo and
+        apply share one key; an unknown name passes through and fails at
+        apply."""
+        names = self._params()
+        if name in names:
+            return name
+        if name.startswith("params/") and name[7:] in names:
+            return name[7:]
+        return name
+
+    def _as_f32(self, v) -> torch.Tensor:
+        if isinstance(v, torch.Tensor):
+            return v.to(device=self._device, dtype=torch.float32)
+        return torch.as_tensor(np.asarray(v, np.float32), device=self._device)
+
+    def request_swap(self, updates: dict, *, round_num: int, generation: int = 0,
+                     keep_previous: bool = False) -> None:
+        """Stage round ``round_num``'s update (flat name -> delta, in the
+        wire's layout) for a flip at the next serve iteration. Thread-safe;
+        rounds come contiguously (the stager sees to it). A round staged
+        before the previous one applied folds into it (f32 adds): updates
+        are deltas, so replacing would skip a round. While ``pin_round``
+        holds serving back, later rounds fold and count as deferred."""
+        if self._closed:
+            return
+        staged = {self._norm_swap_key(k): self._as_f32(v) for k, v in updates.items()}
+        with self._swap_lock:
+            pend = self._pending_swap
+            if pend is None:
+                self._pending_swap = {"updates": staged, "round": int(round_num),
+                                      "generation": int(generation),
+                                      "keep_previous": bool(keep_previous),
+                                      "staged_at": time.perf_counter()}
+            else:
+                acc = pend["updates"]
+                for k, v in staged.items():
+                    acc[k] = acc[k] + v if k in acc else v
+                pend.update(round=int(round_num), generation=int(generation),
+                            keep_previous=bool(keep_previous))
+            if self.pinned_round is not None and int(round_num) > self.pinned_round:
+                self.swaps_deferred += 1
+        self._queue.put(_WAKE)  # an idle loop flips without waiting for traffic
+
+    def pin_round(self, round_num: "int | None") -> None:
+        """Hold serving at ``round_num`` (None lifts the pin): later staged
+        rounds defer and keep folding. Pinning the previous applied round
+        restores it from the ``keep_previous`` snapshot at the next
+        iteration."""
+        with self._swap_lock:
+            self.pinned_round = int(round_num) if round_num is not None else None
+            if (round_num is not None and self._prev_leaves is not None
+                    and self._prev_leaves[0] == int(round_num)
+                    and self.weight_round is not None and self.weight_round > int(round_num)):
+                self._pending_rollback = int(round_num)
+        self._queue.put(_WAKE)
+
+    def _leaf(self, name: str) -> tuple:
+        """(module, attribute, transposed?) of a flat name; KeyError on a
+        name the model does not have (a wire/model mismatch fails loud)."""
+        pname, transposed = self._params()[name]
+        mod_name, _, attr = pname.rpartition(".")
+        return self._model.get_submodule(mod_name) if mod_name else self._model, attr, transposed
+
+    def served_digest(self) -> str:
+        """A digest of the served leaves' exact bits (``theta_checksum``
+        over the flat names), as the swap log records it."""
+        from .training import theta_checksum
+
+        return theta_checksum({name: getattr(*self._leaf(name)[:2]) for name in self._params()})
+
+    def _apply_swap(self) -> None:
+        """Serve thread only: flip to the staged round, or roll back to the
+        pinned snapshot, between two iterations' forwards. Only the named
+        leaves change; each becomes a new tensor."""
+        with self._swap_lock:
+            pend = self._pending_swap
+            rollback, self._pending_rollback = self._pending_rollback, None
+            pinned = self.pinned_round
+            if pend is not None and pinned is not None and pend["round"] > pinned:
+                pend = None  # stays staged; folds until unpinned
+            elif pend is not None:
+                self._pending_swap = None
+        if rollback is not None and self._prev_leaves is not None:
+            prev_round, leaves = self._prev_leaves
+            if prev_round == rollback:
+                # Fold the undone update (current - snapshot) back into the
+                # pending sum before restoring, so the flip after the pin
+                # rolls forward through the rolled-back round.
+                rolled_from = self.weight_round
+                undo = {}
+                for name, old in leaves.items():
+                    mod, attr, transposed = self._leaf(name)
+                    d = getattr(mod, attr).float() - old.float()
+                    undo[name] = d.T if transposed else d
+                with self._swap_lock:
+                    pend2 = self._pending_swap
+                    if pend2 is None:
+                        self._pending_swap = {"updates": undo, "round": rolled_from,
+                                              "generation": self.weight_generation or 0,
+                                              "keep_previous": False,
+                                              "staged_at": time.perf_counter()}
+                    else:
+                        acc = pend2["updates"]
+                        for k, v in undo.items():
+                            acc[k] = acc[k] + v if k in acc else v
+                for name, old in leaves.items():
+                    mod, attr, _ = self._leaf(name)
+                    getattr(mod, attr).data = old
+                self._prev_leaves = None
+                with self._swap_lock:
+                    self.weight_round = prev_round
+                    self.swaps_rolled_back += 1
+                self._alloc.bump_generation()
+                self._log_swap("rolled back to", prev_round, self.weight_generation or 0, None,
+                               0.0)
+        if pend is None:
+            return
+        t0 = time.perf_counter()
+        prev = {} if pend["keep_previous"] else None
+        for name, u in pend["updates"].items():
+            mod, attr, transposed = self._leaf(name)
+            leaf = getattr(mod, attr)
+            if prev is not None:
+                prev[name] = leaf.data
+            u = u.T if transposed else u
+            leaf.data = (leaf.float() + u.float()).to(leaf.dtype).contiguous()
+        if prev is not None:
+            self._prev_leaves = (self.weight_round, prev)
+        with self._swap_lock:
+            self.weight_round = pend["round"]
+            self.weight_generation = pend["generation"]
+            self.swaps_applied += 1
+        # Cached prefix blocks hold K/V of the old weights: no admission
+        # from now on maps them (live lanes keep theirs until release).
+        self._alloc.bump_generation()
+        self._log_swap("applied", pend["round"], pend["generation"], pend["staged_at"], t0)
+
+    def _log_swap(self, what: str, round_num: int, generation: int, staged_at, t0: float) -> None:
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        now = time.perf_counter()
+        rec = {"what": what, "round": round_num, "generation": generation,
+               "staged_to_flip_ms": None if staged_at is None else (now - staged_at) * 1e3,
+               "flip_ms": (now - t0) * 1e3 if t0 else 0.0, "applied": self.swaps_applied,
+               "deferred": self.swaps_deferred, "rolled_back": self.swaps_rolled_back,
+               "alloc_generation": self._alloc.generation, "digest": self.served_digest(),
+               "live_rows": len(self._lane_rows), "t": now}
+        self.swap_log.append(rec)
+        log.info("weight swap: %s", json.dumps(rec))
 
     # ------------------------------------------------------------ public
 
@@ -515,6 +711,10 @@ class DecodePool:
         if stop:
             self._fail_all(RuntimeError("pool is closed"))
             return False
+        # Between dispatched forwards: a staged swap flips here, before the
+        # ops, so a stamp check inside one sees the weights the next
+        # forward uses.
+        self._apply_swap()
         self._drain_ops()
         self._step_paged()
         return True

@@ -172,7 +172,6 @@ def _unsupported(cfg: TrainExecutorConfig) -> None:
     checks = [
         (mesh > 1, "sharding", "intra-replica sharding"),
         (bool(cfg.lora), "lora", "LoRA"),
-        (bool(cfg.relay_results), "relay_results", "broadcast tree"),
         (bool(cfg.input_pipeline), "input_pipeline", "input_pipeline"),
         (bool(cfg.preprocessor), "preprocessor", "preprocessor"),
         (bool(cfg.report_metrics_s), "report_metrics_s", "telemetry"),

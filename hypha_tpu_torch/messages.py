@@ -33,7 +33,7 @@ __all__ = [
     "PriceRange", "Progress", "ProgressKind", "ProgressResponse", "ProgressResponseKind",
     "Receive", "Reference", "RenewLease", "RenewLeaseResponse", "RequestWorker",
     "SchedulerHello", "Send", "ServeLoad", "ServeLoadAck", "ShardMap", "TrainExecutorConfig",
-    "TransferStrategy",
+    "TransferStrategy", "WeightFollow",
     "WorkerOffer", "WorkerSpec", "decode", "encode", "from_json_dict", "to_json_dict",
     "PROTOCOL_API", "PROTOCOL_GENERATE", "PROTOCOL_HEALTH", "PROTOCOL_PROGRESS",
     "PROTOCOL_BLOCKS", "PROTOCOL_SERVE", "PROTOCOL_SHARD", "TOPIC_WORKER",
@@ -324,7 +324,8 @@ class ShardMap:
     ``stream.shard_of(f, len(shards))``. ``groups`` is the tree-reduce plan
     (``stream.tree.build_reduce_groups``: ``[reducer, *members]`` each),
     ``tree_depth`` the depth it was built with (None at depth 1).
-    ``serve_leaves`` belongs to live weight swap, which the port refuses."""
+    ``serve_leaves`` are the serving followers hung off the relay heads
+    under a broadcast tree (``stream.tree.with_serve_leaves``)."""
 
     round: int = 0  # the round the placement takes effect
     shards: list = field(default_factory=list)
@@ -474,12 +475,34 @@ class AggregateExecutorConfig:
 
 @_register
 @dataclass(slots=True)
+class WeightFollow:
+    """Live weight swap: attach a serving worker to a training job's update
+    broadcast (``serving.weight_stream.WeightSubscriber``; reference
+    ``hypha_tpu/messages.py:1052-1084``). ``results`` is the broadcast's
+    Receive reference: the shard peers plus, under a broadcast tree, the
+    relay heads (``follow_for``). The broadcast carries per-round updates,
+    not weights, so rounds apply in order from ``round + 1`` (the round
+    the dispatched weights embody), each only once whole; ``ps_generation``
+    travels beside it. ``fragments`` is the wires a round needs (0: from
+    each wire's fragment tag). ``pin_round`` holds serving at that round
+    (later rounds stage, fold and defer; the previous round is restored
+    from the ``keep_previous`` snapshot)."""
+
+    results: Any = None  # Receive
+    round: int = 0
+    ps_generation: int = 0
+    fragments: int = 0
+    pin_round: int | None = None
+    keep_previous: bool = False
+
+
+@_register
+@dataclass(slots=True)
 class InferExecutorConfig:
     """Serving job: load a model, answer GenerateRequest RPCs. Fields,
     order and defaults are the JAX package's (documented there); the
     additive ones default to None and are omitted from the wire when
-    unset. ``serve_follow_rounds`` carries the JAX ``WeightFollow``, which
-    the port does not decode (**live weight swap**)."""
+    unset. ``serve_follow_rounds`` is a :class:`WeightFollow`."""
 
     model: dict
     serve_name: str
@@ -506,7 +529,7 @@ class InferExecutorConfig:
     load_report_s: float = 1.0
     report_metrics_s: float | None = None
     metrics_peer: str | None = None
-    serve_follow_rounds: Any = None
+    serve_follow_rounds: WeightFollow | None = None
     pool_fleet_cache: bool | None = None
     pool_kv_migration: bool | None = None
     fleet_digest_k: int | None = None
@@ -547,8 +570,8 @@ class ServeLoad:
     pool's admission headroom on the router's liveness signal. The first
     one tells the router the backend is ready. ``cache_digest`` is the
     fleet cache's top-K ``[chain_hash, hits]`` list (``None`` with it off);
-    the weight stamps belong to live weight swap, which the port does not
-    run, so a port backend leaves them unset and off the wire."""
+    the weight stamps are the (round, generation) a following backend
+    serves, unset and off the wire until its first swap."""
 
     job_id: str = ""
     serve_name: str = ""

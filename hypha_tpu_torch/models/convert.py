@@ -19,7 +19,8 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["llama_params_from_flat", "llama_params_to_flat", "flat_to_state", "state_to_flat"]
+__all__ = ["llama_params_from_flat", "llama_params_to_flat", "flat_to_state", "state_to_flat",
+           "flat_names"]
 
 
 def _torch_name(flat_name: str) -> tuple:
@@ -109,3 +110,12 @@ def flat_to_state(flat) -> dict:
         tname, transpose = _torch_name(name)
         out[tname] = t.T if transpose else t
     return out
+
+
+def flat_names(model) -> dict:
+    """``{flat JAX name without the params/ head: (parameter name,
+    transposed?)}`` for every parameter of ``model``: where a wire tensor
+    of that name lands, and whether its layout is the transpose."""
+    linear = _linear_weights(model)
+    return {_flat_name(t, t in linear).removeprefix("params/"): (t, t in linear)
+            for t, _ in model.named_parameters()}

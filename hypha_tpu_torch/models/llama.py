@@ -282,7 +282,11 @@ class Llama(nn.Module):
         norms 1, or 0 for Gemma's offset form). The draws come from a
         ``torch.Generator`` and differ from JAX's."""
         g = torch.Generator(device=self.device).manual_seed(int(seed))
-        for name, p in self.named_parameters():
+        for name, leaf in self.named_parameters():
+            # Drawn in f32 whatever the parameter's dtype, then rounded into
+            # it: a bf16 model gets the bits of an f32 init cast to bf16.
+            p = leaf if leaf.dtype == torch.float32 else torch.empty(
+                leaf.shape, dtype=torch.float32, device=leaf.device)
             if name in ("embed_tokens", "lm_head"):
                 p.normal_(0.0, 0.02, generator=g)
             elif name.endswith("proj.weight"):
@@ -295,6 +299,8 @@ class Llama(nn.Module):
                 p.fill_(0.0 if self.config.rms_offset else 1.0)
             else:  # Qwen3 q_norm / k_norm
                 p.fill_(1.0)
+            if p is not leaf:
+                leaf.copy_(p)
         return self
 
     def _rope_table(self, length: int, device) -> tuple:

@@ -1832,7 +1832,7 @@ class Node:
     ) -> None:
         """Deliver a LOCAL push into this node's own consumer routing.
 
-        A broadcast-tree relay (hypha_tpu.stream.reduce.BroadcastRelay)
+        A broadcast-tree relay (``stream.reduce.BroadcastRelay``)
         receives a wire addressed to its subtree and must also hand it to
         the training loop on the SAME node — dialing oneself would burn a
         socket and an accept slot for a file already on local disk.

@@ -14,8 +14,9 @@ classes are registered with the port's codec, so ``messages.encode(job)``
 gives the JAX package's bytes. The port schedules every wire codec
 (``delta_codec``, ``delta_dtype``), every sync mode (``sync_mode``,
 ``num_fragments``), the sharded parameter service (``num_ps_shards``), the
-tree reduce (``reduce_group_size``, ``reduce_tree_depth``), and, with any
-of them, fault tolerance (``ft``, an ``FTConfig``) and checkpoints
+tree reduce (``reduce_group_size``, ``reduce_tree_depth``) and its
+broadcast tree (``broadcast_tree``), serving followers (``serve_peers``),
+and, with any of them, fault tolerance (``ft``, an ``FTConfig``) and checkpoints
 (``checkpoint_dir``, ``checkpoint_every``, ``ps_checkpoint_every_rounds``).
 Each option outside it is accepted only at its off value (``_NOT_PORTED``),
 and any other value raises ``NotImplementedError`` naming its ROADMAP.md
@@ -45,7 +46,6 @@ _ADAPTIVE = "adaptive rounds and chaos kinds"
 # option the job asked for.
 _NOT_PORTED = (
     ("scheduler_recovery", (False,), "scheduler recovery"),
-    ("broadcast_tree", (False,), "broadcast tree"),
     ("adaptive_steps", (False,), _ADAPTIVE),
     ("adaptive_codec", (False,), _ADAPTIVE),
     ("metrics_plane", (False,), "telemetry"),
@@ -53,7 +53,6 @@ _NOT_PORTED = (
     ("input_pipeline", (False,), "input_pipeline"),
     ("lora", (None,), "LoRA"),
     ("sharding", (None,), "intra-replica sharding"),
-    ("serve_peers", ([],), "live weight swap"),
 )
 
 

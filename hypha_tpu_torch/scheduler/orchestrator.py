@@ -52,10 +52,17 @@ re-dispatched unchanged, while the other shards keep closing their rounds;
 its durable journal under ``<checkpoint_dir>/ps`` (``/ps<k>`` with several
 shards) resumes its rounds.
 
+With ``broadcast_tree`` the reducers also relay the update broadcasts down
+their groups (``relay_results``; ``stream/reduce.py`` ``BroadcastRelay``),
+every worker's results allowlist admits its ancestor relays beside the
+shards, and each shard's aggregate spec carries the placement
+(``broadcast_tree``). ``serve_peers`` are serving followers: the shards
+push them every round after the membership overrides, and under a tree
+the placement's ``serve_leaves`` hangs them off the relays.
+
 Not ported (the job refuses their options, ``job_config.py``): the
 adoption and resume path of a restarted scheduler (**scheduler
-recovery**), the broadcast tree (**broadcast tree**) and adaptive steps
-(**adaptive rounds and chaos kinds**).
+recovery**) and adaptive steps (**adaptive rounds and chaos kinds**).
 """
 
 from __future__ import annotations
@@ -87,7 +94,7 @@ from ..messages import (
     WorkerSpec,
 )
 from ..network.node import Node, RequestError
-from ..stream import build_reduce_groups, placement_parts, shards_due_at
+from ..stream import ancestors_of, build_reduce_groups, placement_parts, shards_due_at
 from .allocator import GreedyWorkerAllocator
 from .batch_scheduler import BatchScheduler
 from .data_scheduler import DataScheduler
@@ -330,6 +337,14 @@ class Orchestrator:
                 reduce_members = list(group[1:])
             elif handle.peer_id in group:
                 reduce_via = group[0]
+        # Broadcast tree: reducers relay the results down their subtree, and
+        # any ancestor can be the hop that delivers (around a dead relay
+        # too), so every worker's allowlist admits its whole chain.
+        tree_on = bool(job.broadcast_tree) and bool(ctx.reduce_groups)
+        results_peers = list(ps_peers)
+        if tree_on:
+            results_peers += [a for a in ancestors_of(ctx.reduce_groups, handle.peer_id)
+                              if a not in results_peers]
         return JobSpec(
             job_id=f"{ctx.base_id}-{suffix}",
             executor=Executor(
@@ -339,10 +354,11 @@ class Orchestrator:
                     model=job.model,
                     data=Fetch(Reference.from_scheduler(self.node.peer_id, job.dataset)),
                     updates=Send(Reference.from_peers([ps_peers[0]], ctx.updates_tag)),
-                    results=Receive(Reference.from_peers(ps_peers, ctx.results_tag)),
+                    results=Receive(Reference.from_peers(results_peers, ctx.results_tag)),
                     ps_shards=ctx.shard_map,
                     reduce_via=reduce_via,
                     reduce_members=reduce_members,
+                    relay_results=True if tree_on and reduce_members else None,
                     optimizer=job.inner_optimizer,
                     batch_size=handle.batch_size,
                     preprocessor=job.preprocessor,
@@ -407,6 +423,14 @@ class Orchestrator:
                 groups=[list(g) for g in ctx.reduce_groups],
                 tree_depth=depth if depth >= 2 else None,
             )
+        # Serving followers ride the broadcast as extra leaves, never the
+        # reduce groups: under a tree they hang off the relay heads
+        # (stream.tree.with_serve_leaves over the placement's
+        # serve_leaves); otherwise each shard pushes them (serve_peers).
+        serve_peers = [str(p) for p in (job.serve_peers or [])]
+        if ctx.shard_map is not None and serve_peers and job.broadcast_tree:
+            ctx.shard_map.serve_leaves = list(serve_peers)
+        tree = ctx.shard_map if job.broadcast_tree and ctx.reduce_groups else None
         ctx.ps_specs = [
             JobSpec(
                 job_id=ctx.ps_job_ids[k],
@@ -429,6 +453,8 @@ class Orchestrator:
                         fragments=job.num_fragments,
                         shard_index=k,
                         num_ps_shards=num_shards,
+                        broadcast_tree=tree,
+                        serve_peers=serve_peers or None,
                     ),
                 ),
             )

@@ -45,8 +45,11 @@ The reference's timing and affinity knobs are constants here, at the
 reference's defaults, which its CLI always uses. ``num_workers=1``
 without ``route`` dispatches the single-deployment wire
 (``load_report_s = 0``, the public name); the backend announces itself and
-clients reach it directly. The metrics plane and live weight swap raise
-naming their labels. Where the reference bumps its serving metrics, this
+clients reach it directly. ``serve_follow_rounds`` (a ``WeightFollow``)
+goes out with every deployment, so each backend follows a training job's
+update broadcast (live weight swap); ``weight_rounds()`` is each backend's
+serving (round, generation) from its last heartbeat. The metrics plane
+raises naming its label. Where the reference bumps its serving metrics, this
 class keeps plain counters (``routed``, ``rejected``, ``affinity_routed``,
 ``redeployments``, ``ejections``, and the directory's ``directory_entries``)
 and logs them when it stops.
@@ -164,8 +167,6 @@ class ServingSupervisor:
     ) -> None:
         if report_metrics_s or metrics is not None:
             _refuse("report_metrics_s / metrics", "telemetry")
-        if serve_follow_rounds is not None:
-            _refuse("serve_follow_rounds", "live weight swap")
         self.node = node
         self.serve_name = serve_name
         self.num_workers = max(int(num_workers), 1)
@@ -193,7 +194,11 @@ class ServingSupervisor:
             queue_limit=queue_limit,
             eos_token_id=eos_token_id,
             load_report_s=LOAD_REPORT_S if self.route else 0.0,
+            # None (the default) keeps the dispatched config byte-identical.
+            serve_follow_rounds=serve_follow_rounds,
         )
+        # Each backend's serving (round, generation) from its heartbeats.
+        self._weight_rounds: dict = {}
         self.prefix_affinity = bool(prefix_affinity)
         # The fleet cache's directory: backend name -> {chain hash: hits},
         # replaced whole by each heartbeat's digest.
@@ -447,12 +452,20 @@ class ServingSupervisor:
             f"all {len(backends)} backends of {self.serve_name!r} failed: {last}"
         )
 
+    def weight_rounds(self) -> dict:
+        """Each backend's serving (round, generation) from its last
+        heartbeat; empty until a following backend applied a swap."""
+        return dict(self._weight_rounds)
+
     async def _on_load(self, peer: str, load: ServeLoad) -> ServeLoadAck:
         for dep in self._live_backends():
             if dep.job_id == load.job_id and dep.handle.peer_id == peer:
                 dep.load = load
                 dep.load_at = time.monotonic()
                 self._detector.heartbeat(peer)
+                if load.weight_round is not None:
+                    self._weight_rounds[load.serve_name or peer] = (
+                        load.weight_round, load.weight_generation)
                 if load.cache_digest is not None:
                     # Replaced whole: a chain evicted there leaves the
                     # directory at the next heartbeat.

@@ -11,11 +11,11 @@
   * :mod:`tree`      -- the tree-reduce plan (sorted peer ids in groups of
     G, ``depth`` levels deep);
   * :mod:`reduce`    -- the group reducer that pre-folds its members'
-    deltas before the shards.
+    deltas before the shards, and the broadcast relay that carries the
+    update wires back down the same tree.
 
 Selection is per job through ``sync_mode: blocking | overlap | stream``,
-``num_ps_shards`` and ``reduce_group_size``. The broadcast tree is not
-ported (ROADMAP.md, Queue 1: broadcast tree).
+``num_ps_shards``, ``reduce_group_size`` and ``broadcast_tree``.
 """
 
 from .accum import RoundAccum
@@ -30,6 +30,15 @@ from .sync import (
     placement_parts,
     shard_owns_round,
     shards_due_at,
+)
+from .reduce import (
+    BroadcastRelay,
+    GroupReducer,
+    TreeRuntime,
+    maybe_start_reducer,
+    maybe_start_relay,
+    relay_tag,
+    tree_broadcast,
 )
 from .tree import (
     ancestors_of,
@@ -46,4 +55,6 @@ __all__ = ["RoundAccum", "partition_names", "fragment_of", "shard_of", "shard_na
            "SYNC_MODES", "DEFAULT_FRAGMENTS", "fragment_due", "effective_fragments",
            "placement_parts", "shard_owns_round", "shards_due_at", "next_owned_round",
            "merge_corrected", "build_reduce_groups", "children_of", "parent_of",
-           "ancestors_of", "subtree_of", "top_targets", "tree_levels", "with_serve_leaves"]
+           "ancestors_of", "subtree_of", "top_targets", "tree_levels", "with_serve_leaves",
+           "GroupReducer", "BroadcastRelay", "TreeRuntime", "maybe_start_reducer",
+           "maybe_start_relay", "relay_tag", "tree_broadcast"]

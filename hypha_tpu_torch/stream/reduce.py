@@ -26,14 +26,27 @@ peers it ``covers``:
     failover.
 
 Quantized jobs re-encode the partial in the job's codec with a per-part
-error-feedback residual. The broadcast tree (``BroadcastRelay``,
-``tree_broadcast``) is not ported (ROADMAP.md, Queue 1: broadcast
-tree); the trainer refuses ``relay_results``.
+error-feedback residual.
+
+:class:`BroadcastRelay` runs the same tree downward for the update
+broadcasts (the reference's ``:508-757``): with the job's broadcast tree
+on, the parameter server pushes each round's wire to the top-level
+reducers (and ungrouped workers and unattached serve leaves) only, under
+``<results>.relay`` (:func:`relay_tag`). Each relay saves the wire once,
+re-pushes it to its direct children with :func:`tree_broadcast` (the relay
+tag for a child reducer, the plain results tag for a leaf, serving
+followers included), then injects a plain-tagged copy into its own node
+(``Node.inject_push``) for its training loop, with the sender and header
+unchanged. A child whose push fails is expanded to its own children, so a
+dead relay costs fan-out, not its subtree's round. A relay hop is
+at-most-once: a relay that accepted a wire and died before re-pushing it
+leaves its subtree without that round.
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import logging
 import os
 import shutil
@@ -47,9 +60,10 @@ from ..executor.serialization import save_file
 from ..messages import COVERS_KEY, PREFOLD_KEY, SHARD_KEY, FragmentTag
 from .accum import RoundAccum
 from .partition import shard_of
-from .tree import subtree_of, tree_levels
+from .tree import children_of, subtree_of, tree_levels, with_serve_leaves
 
-__all__ = ["GroupReducer", "TreeRuntime", "maybe_start_reducer", "REDUCE_FLUSH_ENV"]
+__all__ = ["GroupReducer", "BroadcastRelay", "TreeRuntime", "maybe_start_reducer",
+           "maybe_start_relay", "relay_tag", "tree_broadcast", "REDUCE_FLUSH_ENV"]
 
 log = logging.getLogger("hypha.torch.stream.reduce")
 
@@ -69,25 +83,31 @@ def _flush_after() -> float:
 
 class TreeRuntime:
     """The tree roles one dispatched train job gave this worker: its
-    :class:`GroupReducer`. The worker runtimes ``await stop()`` it when the
-    job ends."""
+    :class:`GroupReducer` (upward folding) and, with the job's broadcast
+    tree on, its :class:`BroadcastRelay` (downward fan-out). The worker
+    runtimes ``await stop()`` it when the job ends."""
 
-    def __init__(self, reducer=None) -> None:
+    def __init__(self, reducer=None, relay=None) -> None:
         self.reducer = reducer
+        self.relay = relay
 
     async def stop(self) -> None:
+        if self.relay is not None:
+            await self.relay.stop()
         if self.reducer is not None:
             await self.reducer.stop()
 
 
 def maybe_start_reducer(node, spec, device=None,
                         work_dir: "Path | str | None" = None) -> "TreeRuntime | None":
-    """Start this worker's :class:`GroupReducer` when the dispatched train
-    spec names it its group's reducer (``reduce_members`` and a placement
-    map); None for every other job. The reducer lives in the worker
-    runtime, beside the training executor, because it consumes the
-    node's pushes. ``work_dir`` (the job's, which the executor removes)
-    holds its files; without one it makes and removes its own."""
+    """Start this worker's tree roles when the dispatched train spec names
+    it its group's reducer (``reduce_members`` and a placement map): the
+    :class:`GroupReducer`, and the :class:`BroadcastRelay` when the spec
+    asks for it (``relay_results``); None for every other job. Both live
+    in the worker runtime, beside the training executor, because they
+    consume the node's pushes. ``work_dir`` (the job's, which the executor
+    removes) holds their files; without one each makes and removes its
+    own."""
     cfg = getattr(getattr(spec, "executor", None), "train", None)
     if cfg is None:
         return None
@@ -98,7 +118,8 @@ def maybe_start_reducer(node, spec, device=None,
     reducer.start()
     log.info("group reducer started: %d members, %d shard(s)", len(cfg.reduce_members),
              len(shard_map.shards))
-    return TreeRuntime(reducer=reducer)
+    relay_dir = None if work_dir is None else Path(work_dir) / "relay"
+    return TreeRuntime(reducer=reducer, relay=maybe_start_relay(node, spec, relay_dir))
 
 
 class _Entry:
@@ -398,3 +419,198 @@ class GroupReducer:
         for key in [k for k in self._buckets if k[1] == part and k[0] < round_num]:
             paths = [e.path for e in self._buckets.pop(key).entries.values()]
             await asyncio.to_thread(lambda ps=paths: [p.unlink(missing_ok=True) for p in ps])
+
+
+# ---------------------------------------------------------------- broadcast
+
+
+def relay_tag(results_tag: str) -> str:
+    """The tag broadcast-tree wires travel under between tree nodes: apart
+    from the plain results tag, so a relay's consumer and its own training
+    loop's receive never race for one push."""
+    return f"{results_tag}.relay"
+
+
+async def tree_broadcast(node, header: dict, results_tag: str, groups, targets, wire_path: Path,
+                         *, allowed=None, concurrency: int = 8, attempts: int = 2,
+                         what: str = "tree broadcast", logger=log) -> tuple:
+    """Push one wire down a broadcast-tree hop, expanding failures.
+
+    ``targets`` get the push concurrently, at most ``concurrency`` at once:
+    a target with children in ``groups`` under the relay tag, a leaf under
+    ``results_tag``. A target whose push fails after ``attempts`` tries is
+    replaced by its direct children (those in ``allowed``, the live
+    broadcast set, when given), so a dead relay costs this hop fan-out
+    instead of severing its subtree. Returns ``(delivered, lost)``:
+    ``lost`` counts the peers no path reached (they catch up next round,
+    as after a failed direct push)."""
+    from ..network.node import RequestError
+    from ..worker.connectors import push_timeout
+
+    kids = children_of(groups)
+
+    async def push_one(peer: str) -> bool:
+        hdr = {**header, "resource": relay_tag(results_tag) if kids.get(peer) else results_tag}
+        try:
+            await aio.retry(
+                lambda: node.push(peer, hdr, wire_path), attempts=attempts, base_delay=0.25,
+                attempt_timeout=push_timeout(wire_path), retry_on=(RequestError, OSError),
+                what=f"{what} to {peer}", logger=logger,
+            )
+            return True
+        except (RequestError, OSError, asyncio.TimeoutError) as e:
+            logger.warning("%s to %s failed: %s", what, peer, e)
+            return False
+
+    delivered = lost = 0
+    frontier = [str(p) for p in targets]
+    while frontier:
+        # push_one never raises, so each wave is one bounded fan-out.
+        outcomes = await aio.gather_bounded([(lambda p=p: push_one(p)) for p in frontier],
+                                            limit=concurrency)
+        nxt: list = []
+        for peer, ok in zip(frontier, outcomes):
+            if ok:
+                delivered += 1
+                continue
+            children = [c for c in kids.get(peer, ()) if allowed is None or c in allowed]
+            if children:
+                # Around the dead relay: its children take the push from
+                # this hop.
+                logger.warning("%s: relay %s unreachable; expanding to %d children %s", what,
+                               peer, len(children), children)
+                nxt.extend(children)
+            else:
+                lost += 1
+        frontier = nxt
+    return delivered, lost
+
+
+class BroadcastRelay:
+    """Re-push the results-stream wires down this worker's subtree.
+
+    Saves each wire pushed under the relay tag once, re-pushes it to its
+    direct children (:func:`tree_broadcast`, the serve leaves that
+    ``ShardMap.serve_leaves`` attaches here among them), then injects a
+    plain-tagged copy into its own node for the local training loop,
+    keeping the sender (the parent hop) and the header verbatim (round,
+    epoch, generation, shard, fragment tag), so every gate downstream
+    behaves as under the star. ``hops`` records each wire: its header,
+    sender, bytes, and the seconds saving and re-pushing it."""
+
+    def __init__(self, node, cfg, work_dir: "Path | str | None" = None) -> None:
+        shard_map = cfg.ps_shards
+        if shard_map is None:
+            raise ValueError("BroadcastRelay needs cfg.ps_shards placement")
+        self.node = node
+        self.groups = list(shard_map.groups or [])
+        # Serve leaves ride the same downward plan as the PS derives it
+        # (with_serve_leaves is pure over the placement), never the reduce
+        # groups: a reducer must not wait on them.
+        serve = list(shard_map.serve_leaves or [])
+        self.bcast_groups = with_serve_leaves(self.groups, serve) if serve else self.groups
+        self.results_tag = cfg.results.ref.resource or "results"
+        self.children = children_of(self.bcast_groups).get(node.peer_id, [])
+        self._own_dir = work_dir is None
+        self.work_dir = Path(work_dir if work_dir is not None
+                             else tempfile.mkdtemp(prefix="hypha-relay-"))
+        self._task: "asyncio.Task | None" = None
+        self._consumer = None
+        self.relayed = 0
+        self.hops: list = []
+
+    def start(self) -> None:
+        tag = relay_tag(self.results_tag)
+
+        def wants(push) -> bool:
+            r = push.resource
+            return isinstance(r, dict) and r.get("resource") == tag
+
+        self.work_dir.mkdir(parents=True, exist_ok=True)
+        self._consumer = self.node.consume_pushes(wants)
+        self._task = aio.spawn(self._run(), what="broadcast relay", logger=log)
+
+    async def stop(self) -> None:
+        task, self._task = self._task, None
+        if task is not None:
+            # Cancel until it sticks: a cancel racing the local drain's
+            # event can be swallowed by wait_for (bpo-37658).
+            while not task.done():
+                task.cancel()
+                await asyncio.wait({task}, timeout=0.5)
+        if self._consumer is not None:
+            self._consumer.close()
+            self._consumer = None
+        if self._own_dir:
+            await asyncio.to_thread(shutil.rmtree, self.work_dir, ignore_errors=True)
+
+    async def _run(self) -> None:
+        assert self._consumer is not None
+        # One wire at a time: the server chains a fragment's fan-outs, so
+        # the broadcast order is part of the protocol.
+        while True:
+            push = await self._consumer.next()
+            try:
+                await self._relay(push)
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                log.exception("broadcast relay failed for one wire")
+
+    async def _relay(self, push) -> None:
+        meta = push.resource if isinstance(push.resource, dict) else {}
+        dest = self.work_dir / f"relay-{uuid.uuid4().hex[:12]}"
+        t0 = time.perf_counter()
+        nbytes = await push.save_to(dest)
+        save_s = time.perf_counter() - t0
+        self.relayed += 1
+        # Subtree first, own copy second: once the subtree's root merged
+        # round r, the subtree was served round r. The injected copy keeps
+        # the parent hop as its sender, which the trainer's allowlist (its
+        # ancestors beside the shards) admits.
+        local_done = asyncio.Event()
+        injected = False
+        try:
+            t1 = time.perf_counter()
+            delivered, lost = await tree_broadcast(
+                self.node, meta, self.results_tag, self.bcast_groups, self.children, dest,
+                what="relay", logger=log)
+            push_s = time.perf_counter() - t1
+            self.hops.append({"header": dict(meta), "from": push.peer, "bytes": nbytes,
+                              "save_s": save_s, "push_s": push_s, "delivered": delivered,
+                              "lost": lost})
+            log.info("relay: round %s from %s: %d bytes saved in %.3f s, pushed to %s in %.3f s "
+                     "(%d delivered, %d lost); header %s", meta.get("round"), push.peer, nbytes,
+                     save_s, self.children, push_s, delivered, lost, json.dumps(meta, default=str))
+            await self.node.inject_push(push.peer, {**meta, "resource": self.results_tag}, dest,
+                                        on_done=local_done.set)
+            injected = True
+        finally:
+            if injected:
+                # The local consumer owns the bytes until it finishes; one
+                # that never drains (a job mid-teardown) must not pin the
+                # file. asyncio.wait, not wait_for (bpo-37658).
+                waiter = asyncio.create_task(local_done.wait())
+                try:
+                    done, _ = await asyncio.wait({waiter}, timeout=120)
+                    if not done:
+                        log.warning("relay: local consumer never drained the wire")
+                finally:
+                    waiter.cancel()
+            await asyncio.to_thread(dest.unlink, missing_ok=True)
+
+
+def maybe_start_relay(node, spec, work_dir: "Path | str | None" = None) -> "BroadcastRelay | None":
+    """Start a :class:`BroadcastRelay` beside a dispatched train job whose
+    spec turns the broadcast tree on (``relay_results``) and names this
+    worker a reducer (``reduce_members``); None otherwise."""
+    cfg = getattr(getattr(spec, "executor", None), "train", None)
+    if cfg is None or not cfg.relay_results:
+        return None
+    if not cfg.reduce_members or cfg.ps_shards is None:
+        return None
+    relay = BroadcastRelay(node, cfg, work_dir=work_dir)
+    relay.start()
+    log.info("broadcast relay started: %d direct children %s", len(relay.children),
+             relay.children)
+    return relay

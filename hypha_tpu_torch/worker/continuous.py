@@ -1,9 +1,9 @@
 """Serving adapter for the decode pool (counterpart of
 ``hypha_tpu/worker/continuous.py``): greedy requests that fit go into the
 :class:`~hypha_tpu_torch.executor.pool.DecodePool`; sampled and oversized
-requests take the bounded one-shot fallback. The weight-swap passthroughs
-of the JAX ``PoolServer`` wait for the live-weight slice; until then the
-pool's ``weight_state`` is ``(None, None)``."""
+requests take the bounded one-shot fallback. ``weight_state``,
+``request_swap`` and ``pin_round`` pass through to the pool's live weight
+swap (reference ``:106-135``)."""
 
 from __future__ import annotations
 
@@ -48,8 +48,9 @@ class PoolServer:
 
     def load(self) -> dict:
         """Admission headroom, as the JAX server reports it on ``ServeLoad``
-        heartbeats. The weight stamps stay ``None`` (live weight swap is
-        not ported), so they stay off the wire. With the fleet cache on,
+        heartbeats, with the serving (round, generation): ``None`` until
+        the first swap, so a server that follows nothing keeps them off
+        the wire. With the fleet cache on,
         ``cache_digest`` is the pool's top-K hot chains (``None`` while it
         is empty); off, the key is absent and the heartbeat unchanged."""
         weight_round, weight_generation = self.pool.weight_state()
@@ -65,6 +66,19 @@ class PoolServer:
         if self.fleet_cache:
             out["cache_digest"] = self.pool.fleet_digest or None
         return out
+
+    def weight_state(self) -> tuple:
+        """The (round, generation) being served; ``(None, None)`` before the
+        first swap."""
+        return self.pool.weight_state()
+
+    def request_swap(self, updates: dict, **kw: Any) -> None:
+        """Stage an update for the pool's next flip (``DecodePool.request_swap``)."""
+        self.pool.request_swap(updates, **kw)
+
+    def pin_round(self, round_num: "int | None") -> None:
+        """Pin serving to a round, or lift the pin (``DecodePool.pin_round``)."""
+        self.pool.pin_round(round_num)
 
     async def submit(
         self, prompts: list, n_new: int, temperature: float, top_k: "int | None", seed: int,

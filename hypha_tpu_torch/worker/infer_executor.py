@@ -31,6 +31,17 @@ whole chain, so a chain past the fabric's ``MAX_FRAME`` fails to send and
 ends as such a miss or requeue, as in the reference. Each pull and
 migration, and each failure with its seconds, is logged.
 
+**Live weight swap** (``serve_follow_rounds``, a ``WeightFollow``): a
+continuous-mode job starts a ``serving.WeightSubscriber`` on the training
+job's update broadcast, its files under ``<work root>/<job id>`` (removed
+with the job); it stages each whole round and the pool flips at a serve
+iteration's start. Any other mode fails the job with the reference's
+``ValueError``. A following backend stamps every ``GenerateResponse``
+with the ``(weight_round, weight_generation)`` it serves when the tokens
+come back, and its heartbeats and block-plane messages carry the same
+stamps, so fleet pulls and migrations between backends on different
+rounds are refused and recomputed.
+
 Each time the backend goes idle, and when the job ends, the executor
 logs ``serve launches: {...}``: the ragged kernel's launches by route
 since the job started, the plain attention calls, the pool's one-shot
@@ -57,6 +68,8 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import shutil
+import tempfile
 import time
 from pathlib import Path
 
@@ -93,16 +106,19 @@ def serve_key(name: str) -> str:
 
 
 def load_model(model_spec: dict, device=None):
-    """Build the spec's model on ``device`` (CUDA by default), fill it with
-    a seeded init (``seed``, default 0) or a flat SafeTensors file
-    (``weights``, names as the JAX package's ``flatten_tree`` gives them),
-    and cast f32 parameters to the serving dtype: ``serve_dtype`` is
-    ``"bfloat16"`` by default, ``"float32"`` opts out."""
+    """Build the spec's model on ``device`` (CUDA by default) in the serving
+    dtype (``serve_dtype``: ``"bfloat16"`` by default, ``"float32"`` opts
+    out) and fill it with a seeded init (``seed``, default 0; each
+    parameter drawn in f32 and rounded, so the bits are an f32 init's cast)
+    or a flat SafeTensors file (``weights``, names as the JAX package's
+    ``flatten_tree`` gives them). Built on the meta device and allocated in
+    the serving dtype, a bf16 model never holds an f32 copy."""
     dev = default_device(device)
     serve_dtype = model_spec.get("serve_dtype", "bfloat16")
     if serve_dtype not in ("bfloat16", "float32"):
         raise ValueError(f"serve_dtype must be 'bfloat16' or 'float32', got {serve_dtype!r}")
-    model, _cfg = build_model(model_spec, device=dev)
+    model, _cfg = build_model(model_spec, device="meta")
+    model = _empty_in(model, dev, getattr(torch, serve_dtype))
     path = model_spec.get("weights")
     if path:
         if Path(path).is_dir():
@@ -113,11 +129,18 @@ def load_model(model_spec: dict, device=None):
         llama_params_from_flat(load_file(path), model)
     else:
         model.init_weights(int(model_spec.get("seed", 0)))
-    if serve_dtype == "bfloat16":
-        log.info("serving params cast f32->bf16 (serve_dtype=float32 keeps f32)")
-        model.to(torch.bfloat16)
     model.requires_grad_(False)
     return model.eval()
+
+
+def _empty_in(model, device, dtype):
+    """``model`` (on the meta device) with every parameter allocated, empty,
+    on ``device`` in ``dtype``."""
+    for mod in model.modules():
+        for name, p in list(mod.named_parameters(recurse=False)):
+            setattr(mod, name, torch.nn.Parameter(
+                torch.empty(p.shape, dtype=dtype, device=device), requires_grad=False))
+    return model
 
 
 def generate_grouped(model, prompts, n_new, temperature, top_k, seed) -> list:
@@ -147,8 +170,6 @@ def _refuse(option: str, label: str) -> None:
 
 def _refuse_unported(cfg) -> None:
     """The JAX executor's subsystems this one does not run."""
-    if cfg.serve_follow_rounds is not None:
-        _refuse("serve_follow_rounds", "live weight swap")
     if cfg.report_metrics_s:
         _refuse("report_metrics_s", "telemetry")
 
@@ -163,8 +184,10 @@ class InProcessInferExecutor(JobExecutor):
     """Serves infer jobs on ``device``. ``batchers`` holds the live
     request server of each job (tests read it)."""
 
-    def __init__(self, node: Node, device: torch.device) -> None:
+    def __init__(self, node: Node, device: torch.device,
+                 work_root: "Path | str | None" = None) -> None:
         self.node = node
+        self.work_root = Path(work_root or tempfile.gettempdir())
         if device.type == "cuda" and device.index is None:
             # The serving threads set their device explicitly: name it.
             device = torch.device("cuda", torch.cuda.current_device())
@@ -248,7 +271,12 @@ class InProcessInferExecutor(JobExecutor):
                 # retries after the hint.
                 return GenerateResponse(tokens=[], ok=False,
                                         retry_after_ms=busy.retry_after_s * 1e3)
-            return GenerateResponse(tokens=tokens)
+            # A follower stamps the (round, generation) it serves; one that
+            # follows nothing leaves both off the wire.
+            wr = wg = None
+            if cfg.serve_follow_rounds is not None and hasattr(batcher, "weight_state"):
+                wr, wg = batcher.weight_state()
+            return GenerateResponse(tokens=tokens, weight_round=wr, weight_generation=wg)
 
         async def bring_up() -> None:
             t0 = time.perf_counter()
@@ -332,6 +360,20 @@ class InProcessInferExecutor(JobExecutor):
                 loaded["batcher"] = self.batchers[job_id] = RequestBatcher(
                     fallback, max_batch=cfg.max_batch, window_s=cfg.batch_window_ms / 1e3,
                 )
+            if cfg.serve_follow_rounds is not None:
+                # Only the continuous pool can swap its weights.
+                if mode != "continuous":
+                    raise ValueError("serve_follow_rounds requires continuous scheduling "
+                                     f"(resolved mode is {mode!r})")
+                from ..serving.weight_stream import WeightSubscriber
+
+                loaded["weights"] = sub = WeightSubscriber(
+                    self.node, cfg.serve_follow_rounds, loaded["batcher"].pool,
+                    work_dir=self.work_root / job_id / "weight-stream", device=self.device)
+                sub.start()
+                log.info("job %s follows %s from round %d", job_id,
+                         cfg.serve_follow_rounds.results.ref.resource,
+                         cfg.serve_follow_rounds.round)
             pool = getattr(loaded.get("batcher"), "pool", None)
             if pool is not None and (pool.fleet_cache or pool.kv_migration):
                 self._serve_blocks(cfg, pool, loaded, logged)
@@ -359,6 +401,10 @@ class InProcessInferExecutor(JobExecutor):
                 if loaded.get(reg) is not None:
                     loaded[reg].close()
             await aio.reap(loaded.get("reporter"))
+            if loaded.get("weights") is not None:
+                await loaded["weights"].stop()
+                log.info("job %s weight stream: %s", job_id,
+                         json.dumps(loaded["weights"].stats()))
             batcher = self.batchers.pop(job_id, None)
             if batcher is not None:
                 batcher.close()
@@ -374,6 +420,7 @@ class InProcessInferExecutor(JobExecutor):
             await self.node.unprovide(serve_key(cfg.serve_name))
             if not loader.done():
                 loader.cancel()
+            await asyncio.to_thread(shutil.rmtree, self.work_root / job_id, ignore_errors=True)
             execution.finish("cancelled")
 
         execution.cancel = cancel  # type: ignore[method-assign]
@@ -592,8 +639,8 @@ class InProcessInferExecutor(JobExecutor):
                         live_requests=int(stats["live_requests"]),
                         requests=int(stats["requests"]),
                         rejections=int(stats["rejections"]),
-                        # None (live weight swap is not ported; the fleet
-                        # cache off or empty): left off the wire.
+                        # None before a first swap, and with the fleet
+                        # cache off or empty: left off the wire.
                         weight_round=stats.get("weight_round"),
                         weight_generation=stats.get("weight_generation"),
                         cache_digest=stats.get("cache_digest"),
@@ -621,6 +668,11 @@ class InProcessInferExecutor(JobExecutor):
             if pool.fleet_cache or pool.kv_migration:
                 cache.update({k: pool.stats[k] for k in FLEET_STATS},
                              migrated_out=pool.migrated_out, requeued=pool.requeued)
+            if pool.swap_log:
+                cache.update(swaps_applied=pool.swaps_applied,
+                             swaps_deferred=pool.swaps_deferred,
+                             swaps_rolled_back=pool.swaps_rolled_back,
+                             weight_round=pool.weight_round)
             log.info("job %s serve cache: %s", job_id, json.dumps(cache))
         if self.device.type == "cuda":
             log.info("job %s peak device memory: %.3f GiB", job_id,

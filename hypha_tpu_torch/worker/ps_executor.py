@@ -77,10 +77,19 @@ Fault tolerance in every sync mode and placement (the reference's
     root of another job id starts fresh, taking only the momentum copies
     the previous attempt left (``_checkpoint_momentum``).
 
+Broadcasts (``_broadcast``, reference ``:2575-2700``) go to every results
+peer, or the round's membership, plus the serving followers
+(``serve_peers``), appended after those overrides: a follower is no round
+member. With ``broadcast_tree`` (the job's placement) a fan-out of more
+than one peer, unless ANY-strategy, pushes only to the tree's top targets
+(``stream.tree.top_targets`` over the live set, the followers hung off the
+relays by ``with_serve_leaves``), and the relays carry it down
+(``stream.reduce.tree_broadcast``, a dead relay expanded to its children).
+
 What raises ``NotImplementedError`` at dispatch, with its ROADMAP.md
 label: the adaptive options (adaptive rounds and chaos kinds), the
-broadcast tree (broadcast tree), the adoption grace (scheduler recovery),
-``report_metrics_s`` (telemetry) and ``serve_peers`` (live weight swap).
+adoption grace (scheduler recovery) and ``report_metrics_s``
+(telemetry).
 
 The outer step (counterpart of ``ParameterServerExecutor._outer_step``,
 ``hypha_tpu/worker/ps_executor.py:2382-2440``, with
@@ -138,7 +147,8 @@ from ..messages import (
     TransferStrategy,
 )
 from ..network.node import RequestError
-from ..stream import RoundAccum, fragment_due
+from ..stream import RoundAccum, fragment_due, top_targets, with_serve_leaves
+from ..stream.reduce import tree_broadcast
 from ..stream.sync import next_owned_round, placement_parts, shard_owns_round
 from .connectors import push_timeout
 from .job_manager import Execution, JobExecutor
@@ -250,10 +260,8 @@ def _unported(cfg) -> None:
     checks = [
         (bool(cfg.adaptive_steps), "adaptive_steps", _ADAPTIVE),
         (bool(cfg.adaptive_codec), "adaptive_codec", _ADAPTIVE),
-        (cfg.broadcast_tree is not None, "broadcast_tree", "broadcast tree"),
         (bool(cfg.adopt_grace_s), "adopt_grace_s", "scheduler recovery"),
         (bool(cfg.report_metrics_s), "report_metrics_s", "telemetry"),
-        (bool(cfg.serve_peers), "serve_peers", "live weight swap"),
     ]
     for bad, option, item in checks:
         if bad:
@@ -1459,7 +1467,31 @@ class ParameterServerExecutor(JobExecutor):
             header["epoch"] = elastic.membership.epoch
         if peers_override is not None:
             peers = list(peers_override)
+        # Serving followers join after both overrides (which rewrite the
+        # set to the round's members): they are no round members.
+        serve_peers = [str(p) for p in (cfg.serve_peers or [])]
+        peers = list(peers) + [p for p in serve_peers if p not in peers]
         if not peers:
+            return
+        tree_map = cfg.broadcast_tree
+        tree_groups = list(tree_map.groups or []) if tree_map is not None else []
+        if tree_groups and strategy != TransferStrategy.ANY and len(peers) > 1:
+            # The top-level relays (and ungrouped or orphaned peers) only;
+            # the relays re-push down their subtrees. A follower whose relay
+            # is live rides the relay hop.
+            bcast_groups = with_serve_leaves(tree_groups,
+                                             serve_peers + list(tree_map.serve_leaves or []))
+            targets = top_targets(bcast_groups, peers)
+            t0 = time.perf_counter()
+            delivered, lost = await tree_broadcast(
+                self.node, header, str(header["resource"]), bcast_groups, targets, update_path,
+                allowed=set(peers), concurrency=_BROADCAST_CONCURRENCY,
+                what="ps tree broadcast", logger=log)
+            log.info("ps: tree broadcast round %d to %s of %s in %.3f s (%d delivered, %d lost)",
+                     round_num, targets, peers, time.perf_counter() - t0, delivered, lost)
+            if lost:
+                log.warning("ps: tree broadcast left %d peer(s) unreached; they catch up next "
+                            "round", lost)
             return
         sem = asyncio.Semaphore(_BROADCAST_CONCURRENCY)
 

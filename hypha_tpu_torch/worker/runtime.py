@@ -98,7 +98,8 @@ class WorkerNode:
             ("train", TRAIN_EXECUTOR_NAME): train,
             ("aggregate", AGGREGATE_EXECUTOR_NAME): ParameterServerExecutor(
                 self.node, work_root, self.device),
-            ("infer", INFER_EXECUTOR_NAME): InProcessInferExecutor(self.node, self.device),
+            ("infer", INFER_EXECUTOR_NAME): InProcessInferExecutor(
+                self.node, self.device, work_root),
         }
         self.job_manager = JobManager(self.node, executors)
         self.arbiter = Arbiter(

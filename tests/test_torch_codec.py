@@ -309,11 +309,12 @@ def test_oversized_frames_are_refused_alike():
 
 
 def test_unported_wire_tags_do_not_decode():
-    """A live-weight follow does not decode; the router's heartbeat does,
+    """A live-weight follow decodes (ported since; its bytes are held in
+    ``tests/test_torch_weight_stream.py``); the router's heartbeat does,
     with its unset fields off the wire, and so does the fleet block plane
     (ported since; its messages are held byte for byte in
-    ``tests/test_torch_fleet_cache.py``); an infer executor needs its
-    config, as in the JAX package."""
+    ``tests/test_torch_fleet_cache.py``); an unknown tag does not; an
+    infer executor needs its config, as in the JAX package."""
     serve = jmsg.encode(jmsg.ServeLoad(job_id="j", queue_depth=3))
     assert tmsg.decode(serve) == tmsg.ServeLoad(job_id="j", queue_depth=3)
     assert b"weight_round" not in serve and b"cache_digest" not in serve
@@ -323,8 +324,10 @@ def test_unported_wire_tags_do_not_decode():
     assert tmsg.encode(tmsg.decode(jmsg.encode(pull))) == jmsg.encode(pull)
     follow = jmsg.encode(jmsg.InferExecutorConfig(
         model={}, serve_name="s", serve_follow_rounds=jmsg.WeightFollow()))
-    with pytest.raises(ValueError, match="WeightFollow"):
-        tmsg.decode(follow)
+    assert tmsg.encode(tmsg.decode(follow)) == follow
+    assert isinstance(tmsg.decode(follow).serve_follow_rounds, tmsg.WeightFollow)
+    with pytest.raises(ValueError, match="NoSuchMessag"):
+        tmsg.decode(follow.replace(b"WeightFollow", b"NoSuchMessag"))
     for m in (jmsg, tmsg):
         with pytest.raises(ValueError, match="infer config"):
             m.Executor(kind="infer", name="generate")

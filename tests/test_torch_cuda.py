@@ -1530,3 +1530,128 @@ def test_two_shards_on_the_card_equal_one_server(cuda, tmp_path):
         assert set(one[r]) == set(two[r]) == set(first)
         for k in first:
             assert torch.equal(one[r][k].view(torch.int32), two[r][k].view(torch.int32)), (r, k)
+
+
+
+def _swap_deltas(model, seed: int, scale: float) -> dict:
+    """One seeded f32 update per parameter, in the wire's names and layout
+    (kernels ``[in, out]``), on the host."""
+    from hypha_tpu_torch.models.convert import flat_names
+
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, (pname, transposed) in flat_names(model).items():
+        shape = tuple(model.get_parameter(pname).shape)
+        out[f"params/{name}"] = torch.randn(shape[::-1] if transposed else shape,
+                                            generator=gen) * scale
+    return out
+
+
+def _host_fold(names: dict, leaves: dict, *deltas) -> dict:
+    """``leaves`` (parameter name -> CPU tensor) with each update applied as
+    the pool applies it: ``(leaf.float() + u.float()).to(leaf.dtype)``."""
+    leaves = dict(leaves)
+    for d in deltas:
+        for k, u in d.items():
+            pname, transposed = names[k.removeprefix("params/")]
+            leaf = leaves[pname]
+            leaves[pname] = (leaf.float() + (u.T if transposed else u).float()).to(leaf.dtype)
+    return leaves
+
+
+def _wait_round(pool, round_num, timeout=120.0):
+    deadline = time.monotonic() + timeout
+    while pool.weight_state()[0] != round_num:
+        assert time.monotonic() < deadline, pool.weight_state()
+        time.sleep(0.01)
+
+
+def _cpu_leaves(model) -> dict:
+    return {p: t.detach().cpu().clone() for p, t in model.named_parameters()}
+
+
+def test_weight_swap_on_the_card_is_bit_equal_to_the_cpu_fold(cuda):
+    """Live weight swap on the card (bf16 leaves; two rounds, a rollback to
+    the first, two deferred rounds folded with the undo, the roll-forward):
+    the served leaves equal the same updates folded on the CPU, bit for
+    bit, and the digest the pool logs is the CPU fold's."""
+    from hypha_tpu_torch.executor.pool import DecodePool
+    from hypha_tpu_torch.executor.training import theta_checksum
+    from hypha_tpu_torch.models.convert import flat_names
+    from hypha_tpu_torch.worker.infer_executor import load_model
+
+    model = load_model({"family": "llama", "preset": "tiny", "config": TINY_CONFIG, "seed": 4},
+                       device="cuda")
+    assert model.embed_tokens.dtype == torch.bfloat16
+    names = flat_names(model)
+    us = [_swap_deltas(model, 30 + i, 0.01) for i in range(4)]
+    theta0 = _cpu_leaves(model)
+    pool = DecodePool(model, slots=2, max_len=64, block_size=16, ragged=True)
+    try:
+        pool.request_swap(us[0], round_num=1, keep_previous=True)
+        _wait_round(pool, 1)
+        pool.request_swap(us[1], round_num=2, keep_previous=True)
+        _wait_round(pool, 2)
+        pool.pin_round(1)
+        _wait_round(pool, 1)
+        back = _cpu_leaves(model)
+        pool.request_swap(us[2], round_num=3)
+        pool.request_swap(us[3], round_num=4)
+        pool.pin_round(None)
+        _wait_round(pool, 4)
+        got = _cpu_leaves(model)
+        digest = pool.swap_log[-1]["digest"]
+    finally:
+        pool.close()
+    at1 = _host_fold(names, theta0, us[0])
+    at2 = _host_fold(names, at1, us[1])
+    # The pool's pending sum: the undone round 2 (θ₂ - θ₁ in f32, wire
+    # layout), then rounds 3 and 4, each added in f32.
+    pend = {}
+    for k in us[2]:
+        pname, transposed = names[k.removeprefix("params/")]
+        undo = at2[pname].float() - at1[pname].float()
+        pend[k] = ((undo.T if transposed else undo) + us[2][k]) + us[3][k]
+    want = _host_fold(names, at1, pend)
+    assert set(back) == set(got) == set(want)
+    for p in want:
+        assert torch.equal(back[p].view(torch.int16), at1[p].view(torch.int16)), p
+        assert torch.equal(got[p].view(torch.int16), want[p].view(torch.int16)), p
+    assert digest == theta_checksum({n: want[pname] for n, (pname, _) in names.items()})
+
+
+def test_weight_swap_under_decode_traffic_serves_the_folded_model(cuda):
+    """Requests decode through the ragged kernel while a round flips: none
+    fails or comes back short, and after the flip the pool's greedy tokens
+    (the ragged kernel's decode and mma routes) equal ``generate`` on the
+    CPU-folded weights."""
+    from hypha_tpu_torch.executor.generate import generate
+    from hypha_tpu_torch.executor.pool import DecodePool
+    from hypha_tpu_torch.models.convert import flat_names
+    from hypha_tpu_torch.ops.paged_attention import ragged_paged_attention
+    from hypha_tpu_torch.worker.infer_executor import load_model
+
+    spec = {"family": "llama", "preset": "tiny", "config": TINY_CONFIG, "seed": 4}
+    model = load_model(spec, device="cuda")
+    u1 = _swap_deltas(model, 77, 0.05)
+    folded = load_model(spec, device="cuda")
+    folded.load_state_dict(_host_fold(flat_names(folded), _cpu_leaves(folded), u1))
+    probe = [(i * 7 + 3) % 200 + 1 for i in range(40)]
+    pool = DecodePool(model, slots=4, max_len=512, steps_per_call=8, block_size=16, ragged=True)
+    try:
+        busy = [pool.submit([[3 + i, 1, 4, 1, 5] * (i + 1)], 48) for i in range(3)]
+        time.sleep(0.05)
+        ragged_paged_attention.decode_launches = ragged_paged_attention.mma_launches = 0
+        pool.request_swap(u1, round_num=1)
+        _wait_round(pool, 1)
+        got = pool.submit([probe], 24).result(timeout=300)
+        outs = [f.result(timeout=300) for f in busy]
+        launches = (ragged_paged_attention.decode_launches, ragged_paged_attention.mma_launches)
+    finally:
+        pool.close()
+    assert all(len(o[0]) == 48 for o in outs)
+    assert launches[0] > 0 and launches[1] > 0, launches
+    with torch.inference_mode():
+        want = generate(folded, [probe], 24).tolist()
+    assert got == want
+    assert pool._alloc.generation == 1 and pool.swaps_applied == 1

@@ -76,13 +76,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 def test_refusals_name_the_current_roadmap_label():
     """Codecs and streaming, the serving router, the prefix cache, the
     fleet cache with KV migration, mTLS, mux, the process executor's
-    command, checkpoint resume and the fault tolerance of sharded and
-    streaming jobs are ported: no module refuses an option under a label
-    that named them."""
+    command, checkpoint resume, the fault tolerance of sharded and
+    streaming jobs, the broadcast tree and live weight swap are ported: no
+    module refuses an option under a label that named them."""
     retired = ("codecs/streaming", "serving router", "prefix cache with copy_blocks",
                "fleet cache and kv migration", "queue 1: mtls", "queue 1: network/mux.py",
                "queue 1: process executor command", "queue 1: checkpoint resume",
-               "sharded ps/ft/rejoin")
+               "sharded ps/ft/rejoin", "queue 1: broadcast tree", "queue 1: live weight swap")
     stale = [f"{p.relative_to(ROOT)}:{i}" for p in _port_files()
              for i, line in enumerate(p.read_text().splitlines(), 1)
              if any(label in line.lower() for label in retired)]

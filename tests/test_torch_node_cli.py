@@ -431,7 +431,6 @@ def _infer_spec(**cfg) -> JobSpec:
 
 
 @pytest.mark.parametrize("option,label", [
-    (dict(serve_follow_rounds={"round": 1}), "live weight swap"),
     (dict(report_metrics_s=1.0), "telemetry"),
 ])
 def test_infer_executor_refuses_unported_options(option, label):
@@ -442,6 +441,57 @@ def test_infer_executor_refuses_unported_options(option, label):
             await ex.execute("j", _infer_spec(**option), "sched")
 
     asyncio.run(main())
+
+
+@pytest.mark.parametrize("scheduling", ["continuous", "window"])
+def test_infer_executor_follows_in_continuous_mode(tmp_path, scheduling):
+    """``serve_follow_rounds`` (refused until live weight swap was ported)
+    starts a weight subscriber on the continuous pool, its work dir under
+    the job's and removed with it; any other mode fails the job with the
+    reference's ``ValueError``."""
+    from hypha_tpu_torch.serving import follow_for
+
+    async def main():
+        node = Node(TcpTransport(), peer_id="w")
+        ex = InProcessInferExecutor(node, torch.device("cpu"), tmp_path)
+        follow = follow_for("results:job", ["ps"], start_round=2)
+        execution = await ex.execute("j", _infer_spec(serve_follow_rounds=follow,
+                                                      scheduling=scheduling), "sched")
+        if scheduling == "window":
+            status = await asyncio.wait_for(execution.wait(), 60)
+            return status, None, None
+        for _ in range(600):
+            if "j" in ex.batchers:
+                break
+            await asyncio.sleep(0.1)
+        await asyncio.sleep(0.2)
+        subscribed = (tmp_path / "j" / "weight-stream").is_dir()
+        state = ex.batchers["j"].weight_state()
+        await execution.cancel()
+        return (await execution.wait()), subscribed, state
+
+    status, subscribed, state = asyncio.run(main())
+    if scheduling == "window":
+        assert status.state == "failed" and "requires continuous scheduling" in status.message
+    else:
+        assert status.state == "cancelled" and subscribed and state == (None, None)
+        assert not (tmp_path / "j").exists()
+
+
+def test_serving_supervisor_dispatches_the_follow():
+    """A supervisor given ``serve_follow_rounds`` (refused until live weight
+    swap was ported) ships it in its deployments' config."""
+    from hypha_tpu_torch.serving import follow_for
+
+    follow = follow_for("results:job", ["ps"], groups=[["w0", "w1"]])
+
+    async def main():
+        return ServingSupervisor(Node(TcpTransport(), peer_id="s"), {}, "t",
+                                 serve_follow_rounds=follow)
+
+    sup = asyncio.run(main())
+    assert sup._config.serve_follow_rounds is follow
+    assert sorted(follow.results.ref.peers) == ["ps", "w0"]
 
 
 def test_infer_executor_heartbeats_serve_load():
@@ -514,7 +564,6 @@ def test_serving_supervisor_takes_the_router_options(option):
 
 @pytest.mark.parametrize("option,label", [
     (dict(report_metrics_s=1.0), "telemetry"), (dict(metrics=object()), "telemetry"),
-    (dict(serve_follow_rounds=object()), "live weight swap"),
 ])
 def test_serving_supervisor_refuses_unported_options(option, label):
     async def main():

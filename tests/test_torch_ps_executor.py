@@ -149,14 +149,13 @@ def test_broadcast_updates_are_bit_equal(tmp_path, monkeypatch, resend, codec):
 
 
 # The options the port's server does not run, each with its ROADMAP.md
-# label (checkpoint_dir, quorum_fraction and num_ps_shards run: below).
+# label (checkpoint_dir, quorum_fraction, num_ps_shards, broadcast_tree and
+# serve_peers run: below).
 @pytest.mark.parametrize("option,value,label", [
     ("adaptive_steps", True, "adaptive rounds and chaos kinds"),
     ("adaptive_codec", True, "adaptive rounds and chaos kinds"),
-    ("broadcast_tree", tmsg.ShardMap(shards=["ps"]), "broadcast tree"),
     ("adopt_grace_s", 5.0, "scheduler recovery"),
     ("report_metrics_s", 1.0, "telemetry"),
-    ("serve_peers", ["server"], "live weight swap"),
 ])
 def test_unported_options_raise_with_their_labels(tmp_path, option, value, label):
     ps = TPS(None, tmp_path, device="cpu")
@@ -193,6 +192,68 @@ def test_lifted_options_broadcast_bit_equal(tmp_path, monkeypatch, option):
     for key, (want, want_bytes) in jax_got.items():
         got, got_bytes = port_got[key]
         assert got_bytes == want_bytes, key  # the same frame, residual and tag included
+
+
+async def _fan_out(pkg: str, root: Path, files: dict, **options) -> list:
+    """One package's server for one round, every push it makes recorded
+    by its receiver: ``(receiver, tag, round, bytes)`` in receiver order."""
+    m, Node, Tcp, PS = PKG[pkg]
+    names = ("ps", "sched", *WORKERS, "sv")
+    nodes = {p: Node(Tcp(), peer_id=p) for p in names}
+    for n in nodes.values():
+        await n.start(["127.0.0.1:0"])
+    for x in nodes.values():
+        for y in nodes.values():
+            if x is not y:
+                x.add_peer_addr(y.peer_id, y.listen_addrs[0])
+
+    async def on_progress(peer, p):
+        return m.ProgressResponse(kind=m.ProgressResponseKind.DONE)
+
+    nodes["sched"].on(m.PROTOCOL_PROGRESS, m.Progress).respond_with(on_progress)
+    ps = PS(nodes["ps"], root / "ps", **({"device": "cpu"} if pkg == "port" else {}))
+    execution = await ps.execute("agg", _aggregate(m, **options), "sched")
+    consumers = {w: nodes[w].consume_pushes(lambda push: push.resource.get("resource") != "updates")
+                 for w in (*WORKERS, "sv")}
+    for w in WORKERS:
+        path = files[(w, 0)]
+        await nodes[w].push("ps", {"num_samples": SAMPLES[w], "round": 0, "resource": "updates",
+                                   "name": path.name}, path)
+    await asyncio.wait_for(execution.wait(), 30)
+    got = []
+    for w, consumer in consumers.items():
+        while True:
+            try:
+                push = await consumer.next(timeout=1.0)
+            except (asyncio.TimeoutError, TimeoutError):
+                break
+            dest = root / f"{pkg}-{w}-{len(got)}.bin"
+            await push.save_to(dest)
+            got.append((w, push.resource["resource"], push.resource["round"], dest.read_bytes()))
+    for n in nodes.values():
+        await n.stop()
+    return got
+
+
+# Options refused until the broadcast tree and live weight swap were
+# ported (the cases of the refusal test above they replace): with a tree
+# both packages' servers push the round once, to the group's relay under
+# the relay tag; with a serving follower, to every worker and the
+# follower. Same receivers, tags and bytes.
+@pytest.mark.parametrize("option", ["broadcast_tree", "serve_peers"])
+def test_lifted_broadcast_options_push_as_the_reference(tmp_path, monkeypatch, option):
+    monkeypatch.setattr(native, "_load", lambda: None)
+    files = _deltas(tmp_path)
+    out = {}
+    for pkg, m in (("jax", jmsg), ("port", tmsg)):
+        (tmp_path / pkg).mkdir()
+        over = ({"broadcast_tree": m.ShardMap(shards=["ps"], groups=[list(WORKERS)])}
+                if option == "broadcast_tree" else {"serve_peers": ["sv"]})
+        out[pkg] = asyncio.run(asyncio.wait_for(_fan_out(pkg, tmp_path / pkg, files, **over), 60))
+    want = ([("w0", "results.relay", 0)] if option == "broadcast_tree"
+            else [("w0", "results", 0), ("w1", "results", 0), ("sv", "results", 0)])
+    assert [g[:3] for g in out["port"]] == [g[:3] for g in out["jax"]] == want
+    assert [g[3] for g in out["port"]] == [g[3] for g in out["jax"]]
 
 
 def test_an_elastic_durable_server_folds_a_tree_reduce_partial(tmp_path, monkeypatch):

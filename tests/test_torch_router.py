@@ -327,7 +327,6 @@ def test_dispatched_config_bytes_equal_the_reference(options, monkeypatch):
 
 @pytest.mark.parametrize("option,label", [
     (dict(report_metrics_s=1.0), "telemetry"), (dict(metrics=object()), "telemetry"),
-    (dict(serve_follow_rounds=object()), "live weight swap"),
 ])
 def test_unported_router_options_raise(option, label):
     async def main():
@@ -335,6 +334,30 @@ def test_unported_router_options_raise(option, label):
             tserving.ServingSupervisor(PKG["port"].node(), MODEL, NAME, num_workers=2, **option)
 
     run(main())
+
+
+def test_follow_config_dispatches_as_the_reference():
+    """``serve_follow_rounds`` (refused until live weight swap was ported)
+    goes out in every deployment's config, byte-equal to the reference's,
+    and a following backend's heartbeat stamps land in ``weight_rounds``."""
+    from hypha_tpu.serving import follow_for as jfollow
+    from hypha_tpu_torch.serving import follow_for as tfollow
+
+    async def main():
+        sups = {k: p.serving.ServingSupervisor(
+            p.node(), MODEL, NAME, num_workers=2,
+            serve_follow_rounds=f("results:job", ["ps0"], groups=[["w0", "w1"]], start_round=3))
+            for (k, p), f in zip(PKG.items(), (jfollow, tfollow))}
+        assert tmsg.encode(sups["port"]._config) == jmsg.encode(sups["jax"]._config)
+        sup = sups["port"]
+        dep = tserving._Deployment(slot=0, handle=types.SimpleNamespace(peer_id="b0"), task=None,
+                                   job_id="j0", backend_name=f"{NAME}@0")
+        sup._deployments = [dep]
+        await sup._on_load("b0", tmsg.ServeLoad(job_id="j0", serve_name=f"{NAME}@0",
+                                                weight_round=4, weight_generation=1))
+        return sup.weight_rounds()
+
+    assert run(main()) == {f"{NAME}@0": (4, 1)}
 
 
 def test_heartbeats_of_another_deployment_are_not_taken():

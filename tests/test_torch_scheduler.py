@@ -636,7 +636,6 @@ def test_stream_and_codec_options_dispatch_as_the_jax_wire(option):
 # accepts, with the other fields the reference needs beside it.
 _FT_ON = SimpleNamespace(enabled=True)
 UNPORTED = {
-    "broadcast_tree": (True, "broadcast tree", {"reduce_group_size": 2}),
     "adaptive_steps": (True, "adaptive rounds and chaos kinds"),
     "adaptive_codec": (True, "adaptive rounds and chaos kinds"),
     "scheduler_recovery": (True, "scheduler recovery",
@@ -646,7 +645,6 @@ UNPORTED = {
     "input_pipeline": (True, "input_pipeline"),
     "lora": ({"rank": 4}, "LoRA"),
     "sharding": ({"dp": 1}, "intra-replica sharding"),
-    "serve_peers": (["s0"], "live weight swap"),
 }
 
 
@@ -661,9 +659,12 @@ def test_unported_job_option_raises_with_its_label(option):
 
 
 # Fault tolerance with a streaming sync mode, several shards or a reduce
-# group (each refused until fault tolerance reached them): both packages
-# build the job, and it encodes to the same bytes.
+# group (each refused until fault tolerance reached them), the broadcast
+# tree and serving followers (refused until they were ported): both
+# packages build the job, and it encodes to the same bytes.
 LIFTED = {
+    "broadcast_tree": {"broadcast_tree": True, "reduce_group_size": 2},
+    "serve_peers": {"serve_peers": ["s0"], "broadcast_tree": True, "reduce_group_size": 2},
     "ft": {"ft": "on", "sync_mode": "stream"},
     "checkpoint_dir": {"checkpoint_dir": "/ckpt", "sync_mode": "stream"},
     "num_ps_shards": {"num_ps_shards": 2, "checkpoint_dir": "/ckpt"},

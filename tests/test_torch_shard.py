@@ -866,8 +866,8 @@ def test_train_spec_routes_results_by_placement_not_live_handles():
     assert list(spec.executor.train.results.ref.peers) == ["psA", "psB"]
 
 
-# The fault-tolerant shapes of a sharded or grouped job run; the broadcast
-# tree stays refused under its own label.
+# The fault-tolerant shapes of a sharded or grouped job run, and so does
+# the broadcast tree (refused under its own label until it was ported).
 SHARD_FT_OPTIONS = {
     "shards, checkpoint_dir": {"num_ps_shards": 2, "checkpoint_dir": "/c"},
     "group, checkpoint_dir": {"reduce_group_size": 2, "checkpoint_dir": "/c"},
@@ -883,10 +883,6 @@ def test_shard_options_with_ft(case):
     for name, pkg in PKG.items():
         if "ft" in SHARD_FT_OPTIONS[case]:
             over["ft"] = _ft_config(name)
-        if case == "broadcast tree" and name == "port":
-            with pytest.raises(NotImplementedError, match="Queue 1: broadcast tree"):
-                _job(pkg, **over)
-            return
         jobs[name] = pkg.m.encode(_job(pkg, **over))
     assert jobs["port"] == jobs["jax"]
 

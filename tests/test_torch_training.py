@@ -149,12 +149,31 @@ def test_run_training_matches_jax(tmp_path, weights):
     assert not list((tmp_path / "incoming").glob("*.safetensors"))
 
 
+def test_relay_results_trains_as_the_reference(tmp_path, weights):
+    """``relay_results`` (refused until the broadcast tree was ported) asks
+    the worker runtime for a relay beside the trainer; the trainer itself
+    runs as without it, as the reference's does: the same rounds, losses
+    within the parity bound and the same Δθ names."""
+    from hypha_tpu.executor.training import run_training as jax_run
+    from hypha_tpu_torch.executor.training import run_training as port_run
+
+    spec = _spec(relay_results=True)
+    js = _Session(tmp_path, jmsg, weights)
+    jres = jax_run(js, tmp_path, spec)
+    ps = _Session(tmp_path, tmsg, weights)
+    pres = port_run(ps, tmp_path, _port_spec(spec), device="cpu")
+    assert _port_spec(spec).executor.train.relay_results is True
+    assert (pres.rounds, pres.batches) == (jres.rounds, jres.batches) == (2, 6)
+    np.testing.assert_allclose(pres.losses, jres.losses, atol=1e-4, rtol=0)
+    assert [sorted(d) for d in ps.deltas] == [sorted(d) for d in js.deltas]
+
+
 @pytest.mark.parametrize("option", [
     {"sharding": {"dp": 2}},
     {"lora": {"rank": 4}},
     # checkpoint and rejoin run in every sync mode and placement
-    # (tests/test_torch_shard_ft.py::test_lifted_trainer_option_runs).
-    {"relay_results": True},
+    # (tests/test_torch_shard_ft.py::test_lifted_trainer_option_runs);
+    # relay_results runs (test_relay_results_trains_as_the_reference).
     {"input_pipeline": True},
     {"preprocessor": {"kind": "tokenizer"}},
     {"report_metrics_s": 1.0},
