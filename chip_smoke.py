@@ -99,17 +99,18 @@ Phases, each printing one JSON line:
    dK/dV bit-identical on a second launch, then each kernel's time at the
    training shape beside its plain version, SDPA and the card's bound;
 10. train — the serving model freed, ``run_training`` at Llama-2-7B widths
-   cut to 8 layers (S 2048, batch 2, remat) behind an in-process scheduler
+   cut to 2 layers (``TRAIN_LAYERS``; S 2048, batch 2, remat) behind an
+   in-process scheduler
    and parameter server (the port's ``RoundAccum`` and ``outer_step`` on
    the card, ``ps_round``):
    2 rounds of 4 inner steps through the three flash kernels, checking
    launch counts, zero plain-attention calls, finite and falling losses
    and exact merges; step time, tokens/s, peak memory and the kernels'
    device time per step from the profiler, where one step must show each
-   bf16 tensor-core flash kernel with its launches (16 / 8 / 8);
+   bf16 tensor-core flash kernel with its launches (4 / 2 / 2);
 11. train_node — the ``train`` phase's job cut to 1 layer
-   (``NODE_LAYERS``: its gates are the network's and the scheduler's; the
-   8-layer step is ``train``'s), run by
+   (``NODE_LAYERS``: its gates are the network's and the scheduler's), run
+   by
    the port alone (``run_node_job``) on ``TcpTransport`` at 127.0.0.1: a
    ``Gateway``, a ``DataNode`` serving the slices, a ``WorkerNode`` ``w0``
    whose process executor runs the trainer CLI on the card, a
@@ -242,15 +243,33 @@ Phases, each printing one JSON line:
    bytes and seconds, shard kill to generation 2's broadcast, the replay,
    each shard's checkpoints and journal, the other shard's rounds during
    the outage, step ms, peaks and the phase's seconds;
-12f. train_swap — the broadcast tree and live weight swap (``run_swap_job``):
-   ``swap_job`` (7B widths at 1 layer, blocking, int8, 5 rounds of 4
+12f. train_het — WAN-adaptive rounds under the degrade chaos kinds
+   (``run_het_job``): ``het_job`` (7B widths at 1 layer, blocking, int8,
+   four trainer processes, ``adaptive_steps`` and ``adaptive_codec`` at
+   ``HET_HI_MBPS`` / ``HET_LO_MBPS``, quorum 0.5, ``HET_DEADLINE_S``, 4
+   rounds of a base of ``HET_STEPS``) under ``HET_CHAOS``: ``w1``'s link
+   capped both ways, ``w2``'s batches slowed, ``w3``'s pushes jittered.
+   Gates (``het_problems``): (a) ``w1``'s round-0 int8 delta lands inside
+   the first-round grace and no delta is dropped or abandoned; (b) from
+   round 0's broadcast ``w1``'s link is int4 both ways (its frame headers,
+   one logged switch) and every other link int8; (c) ``w2`` runs fewer
+   than the base steps from round 2; (d) each round's published
+   assignment equals the batches each trainer ran and the sample weight
+   the server folded; (e) each per-peer wire decodes to update + residual
+   before - residual after on the card, no residual shared; (f) the flash
+   launches of every batch; (g) every round closed, clean exits, no file
+   left. It reports per round the assignments, arrival lags, link
+   estimates, codecs, wire bytes, encode seconds and wall seconds, step
+   ms per trainer, the server process's and the card's peaks;
+12g. train_swap — the broadcast tree and live weight swap (``run_swap_job``):
+   ``swap_job`` (7B widths at 1 layer, blocking, int8, 3 rounds of 4
    steps, one reduce group of ``w0``-``w2`` with ``w0`` its reducer and
    relay, ``broadcast_tree``, ``serve_peers`` ``[sv0]``, quorum 0.5,
    deadline 70 s); ``sv0`` serves the same seeded θ₀ in bf16 (paged,
    ragged, prefix cache) and follows the job from θ₀ (``follow_for``,
    ``keep_previous``) while two closed-loop clients ask it for 32 tokens
    after prompts of 17-200 tokens, and a probe goes out after each round
-   it applies; ``w0`` is killed once its relay handed round 2 on. Gates
+   it applies; ``w0`` is killed once its relay handed round 1 on. Gates
    (``swap_problems``): every relayed wire byte-equal (sha-256) to the
    server's with its header; one push a round, to the relay, while it
    lives, then the leaves directly; every round ``UPDATED``, the
@@ -279,6 +298,7 @@ from __future__ import annotations
 import asyncio
 import collections
 import gc
+import hashlib
 import json
 import math
 import os
@@ -327,7 +347,9 @@ RAGGED_NAMES = ("ragged_kernel", "ragged_mma_kernel", "ragged_decode_kernel",
 COLD_BYTES = 200e6  # bytes one L2-cold rotation reads: four times the H100's 50 MB L2
 ROUTES = ("decode", "mma", "simt")  # the ragged kernel's routes, as the wrapper counts them
 SPLIT_SWEEP = (1, 2, 3, 4, 6, 8)  # decode key splits timed beside _decode_splits' choice
-TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ROUNDS, TRAIN_STEPS = 8, 2048, 2, 2, 4
+# 8 layers until train_het joined the smoke: the in-process round boundary
+# (7.5 GB of f32 Δθ through host files each way) was ~90 s of its ~105.
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ROUNDS, TRAIN_STEPS = 2, 2048, 2, 2, 4
 # Launches of each in one inner step: the forward twice per layer (remat).
 STEP_LAUNCHES = dict(zip(FLASH_NAMES, (2 * TRAIN_LAYERS, TRAIN_LAYERS, TRAIN_LAYERS)))
 TRAIN_PERIOD = 1024  # the data counts modulo this; the model's vocabulary stays 32000
@@ -2289,7 +2311,7 @@ TRAIN_MODEL = {"model_type": "causal-lm", "family": "llama", "preset": "llama2-7
 
 
 def train_phase() -> dict:
-    """run_training at Llama-2-7B widths, cut to 8 layers."""
+    """run_training at Llama-2-7B widths, cut to ``TRAIN_LAYERS`` layers."""
     import hypha_tpu_torch.executor.training as training
     from hypha_tpu_torch.messages import Nesterov
     from hypha_tpu_torch.ops.attention import dot_product_attention
@@ -3709,9 +3731,11 @@ def ft_probes(rec: dict, theta: "ThetaTrack | None", on_fold, on_dedup, shards: 
                              "root": self.root.name})
         return store_wire(self, round_num, wire_src)
 
-    async def timed_collect(self, consumer, job_id, st, cfg, work_dir, round_num, accum, dur=None):
+    async def timed_collect(self, consumer, job_id, st, cfg, work_dir, round_num, accum, dur=None,
+                            **kw):
         t0 = time.perf_counter()
-        received = await collect(self, consumer, job_id, st, cfg, work_dir, round_num, accum, dur)
+        received = await collect(self, consumer, job_id, st, cfg, work_dir, round_num, accum, dur,
+                                 **kw)
         rec["collects"].append({"round": round_num, "t0": t0, "t1": time.perf_counter(),
                                 "peers": sorted(received),
                                 "generation": dur.generation if dur else None,
@@ -5122,6 +5146,468 @@ def train_shard_ft_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# train_het: WAN-adaptive rounds under the degrade chaos kinds
+# ---------------------------------------------------------------------------
+
+# A blocking int8 job of four trainers with straggler-adaptive inner steps
+# and per-link codecs, under the reference hetbench's chaos kinds: w1's link
+# capped, w2's batches slowed, w3's pushes jittered. One layer: each
+# trainer's int8 wire is then 0.47 GB and its int4 wire 0.23 GB.
+HET_LAYERS, HET_WORKERS = 1, 4
+HET_MODEL = {**FT_MODEL, "config": {"num_layers": HET_LAYERS, "remat": True}}
+HET_ROUNDS, HET_STEPS = 4, 8
+# The cap on w1's link (Mbit/s, both directions), and the codec ladder's
+# thresholds: 1.6x the cap, and below the 2.2-5 Gbit/s the other links
+# measured on the card (PERF.md §6), so w1 falls to int4 and every other
+# link keeps int8 (hi == lo: no link is ever put on int8 from a faster base).
+# A tighter cap lengthens w1's upload, and the controller's median (over
+# all four peers) then sits too high for w2 to stand out of its deadband.
+HET_RATE_MBPS = 1000.0
+HET_HI_MBPS = HET_LO_MBPS = 1600.0
+# The reference hetbench slows w2 4x. On one card w2's own steps run ~3x
+# faster whenever the others wait (for w1's broadcast), and the healthy
+# peers' arrival lags carry the server's sequential drains (~1 s each), so
+# 4x (and 8x) read as a peer inside the controller's deadband from round 2
+# on (PERF.md §6); 10x keeps its per-step cost over 1.5x the median's.
+HET_SLOW = 10
+HET_CHAOS = f"bw-cap:w1:{HET_RATE_MBPS:g},slow-worker:w2:{HET_SLOW},jitter:w3:0.2"
+# The elastic deadline: past w1's int4 round and w2's slowed one (from the
+# collect's start: the merge, the steps, the upload; ~6-8 s on the card);
+# round 0 (every link unmeasured, the trainer processes starting) has the
+# 6x first-round grace.
+HET_DEADLINE_S = 14.0
+# The throttle's chunk during the phase. The reference's 16 KiB sleeps once
+# a chunk, and the event loop's timers resolve to about a millisecond, so it
+# cannot pass more than ~16 MB/s; a 1 MiB chunk holds the cap at these rates.
+HET_THROTTLE_CHUNK = 1 << 20
+HET_STATUS_TIMEOUT_S = 240.0
+
+
+def het_job(model: dict, *, rounds, steps, batch, lr, deadline_s, hi_mbps=HET_HI_MBPS,
+            lo_mbps=HET_LO_MBPS):
+    """``node_job`` for four workers with int8 deltas, ``adaptive_steps``
+    and ``adaptive_codec`` at the given thresholds, and elastic rounds
+    (quorum 0.5) with no spare to rejoin."""
+    from hypha_tpu_torch.ft import FTConfig
+
+    return node_job(model, rounds=rounds, steps=steps, batch=batch, lr=lr, workers=HET_WORKERS,
+                    delta_codec="int8", adaptive_steps=True, adaptive_codec=True,
+                    codec_bw_hi_mbps=hi_mbps, codec_bw_lo_mbps=lo_mbps,
+                    ft=FTConfig(quorum_fraction=0.5, round_deadline_s=deadline_s,
+                                rejoin_attempts=0))
+
+
+@contextmanager
+def het_probes(rec: dict, device):
+    """The adaptive parts from inside: each round's frozen assignments
+    (``StragglerController.start_round``), and each per-peer broadcast
+    encode (``compress.write_delta`` called with a residual from the
+    server's ``_broadcast_adaptive``): its peer (the wire's name carries a
+    hash of it), codec, bytes and seconds, and the wire read back and held
+    to ``update + residual_before - residual_after`` tensor by tensor on
+    ``device`` (``rec["encodes_adaptive"]``, the largest error over the
+    f32 rounding bound of the two operations), and whether its new
+    residual shares a tensor or an ``ErrorFeedback`` with another peer's
+    live one (``rec["residuals_shared"]``)."""
+    from hypha_tpu_torch import compress
+    from hypha_tpu_torch.compress import frame as frame_mod
+    from hypha_tpu_torch.ft.adaptive import StragglerController
+
+    rec.update(assignments=[], encodes_adaptive=[], residuals_shared=[], residual_tags=set())
+    efs: dict = {}  # peer hash -> its ErrorFeedback, while the probe lasts
+    start_round, write_delta = StragglerController.start_round, compress.write_delta
+
+    def noted_start(self, round_num, peers=None):
+        start_round(self, round_num, peers)
+        rec["assignments"].append({"round": round_num, "steps": dict(self.assignments())})
+
+    def checked_write(path, flat, codec, *a, ef=None, **kw):
+        path = Path(path)
+        if ef is None or len(path.name.split(".")) != 4:  # update-R.<peer hash>.wire.safetensors
+            return write_delta(path, flat, codec, *a, ef=ef, **kw)
+        before = dict(ef.state())
+        _sync(device)
+        t0 = time.perf_counter()
+        sent = write_delta(path, flat, codec, *a, ef=ef, **kw)
+        _sync(device)
+        seconds = time.perf_counter() - t0
+        del sent
+        after = ef.state()
+        # The wire decoded tensor by tensor (one at a time on the card).
+        t1 = time.perf_counter()
+        data = bytearray(path.read_bytes())
+        header, payload = frame_mod._parse(data, path)
+        worst = 0.0
+        for entry in header["tensors"]:
+            name = entry["name"]
+            qoff, qlen, soff, slen = (int(entry[k]) for k in ("qoff", "qlen", "soff", "slen"))
+            u = flat[name].to(torch.float32)
+            q = torch.frombuffer(payload[qoff:qoff + qlen], dtype=torch.uint8).to(device)
+            sc = torch.frombuffer(bytearray(payload[soff:soff + slen]), dtype=torch.float32)
+            got = compress.dequantize(q, sc.to(device), u.numel(), header["codec"],
+                                      header["chunk"]).reshape(-1)
+            comp = (u + before[name] if name in before else u).reshape(-1)
+            want = comp - after[name].reshape(-1)
+            bound = 4 * torch.finfo(torch.float32).eps * float(comp.abs().max()) + 1e-30
+            worst = max(worst, float((got - want).abs().max()) / bound)
+            del q, got, comp, want
+        del data, payload, before
+        tag = path.name.split(".")[1]
+        rec["encodes_adaptive"].append({
+            "round": int(path.name.split("-")[1].split(".")[0]), "tag": tag, "codec": codec,
+            "bytes": path.stat().st_size, "s": seconds, "err_over_bound": worst,
+            "check_s": time.perf_counter() - t1})
+        efs[tag] = ef
+        rec["residual_tags"].add(tag)
+        mine = {t.data_ptr() for t in after.values()}
+        for other, oef in efs.items():
+            if other != tag and (oef is ef or mine & {t.data_ptr() for t in oef.state().values()}):
+                rec["residuals_shared"].append((tag, other))
+        return None  # the server drops what write_delta returns here
+
+    StragglerController.start_round = noted_start
+    compress.write_delta = checked_write
+    try:
+        yield rec
+    finally:
+        StragglerController.start_round = start_round
+        compress.write_delta = write_delta
+        efs.clear()
+
+
+async def run_het_job(root: Path, model: dict, *, device, rounds, steps, batch, seq, period,
+                      lr=3e-4, deadline_s=HET_DEADLINE_S, chaos=HET_CHAOS, hi_mbps=HET_HI_MBPS,
+                      lo_mbps=HET_LO_MBPS, throttle_chunk=HET_THROTTLE_CHUNK,
+                      limit_s=CLI_LIMIT_S, train_runtime="process", auction_timeout=2.0,
+                      status_timeout=None, sample_card=False) -> dict:
+    """``het_job`` on the port's nodes at 127.0.0.1 (``run_ft_job``'s
+    fabric): gateway, data node, train workers ``w0``-``w3``, ``psw``
+    hosting the parameter server and the port's ``Orchestrator``, with a
+    ``ChaosController`` on ``chaos`` attached before anything starts (the
+    degrade kinds fire on attach): ``bw-cap`` throttles every push from
+    and to ``w1``, ``slow-worker`` stretches ``w2``'s Status answers,
+    ``jitter`` delays every push touching ``w3``.
+
+    Returns what ``node_probes``, ``ft_probes`` (each collect) and
+    ``het_probes`` saw, the logs of the server, the adaptive tables and the
+    scheduler, the job states, the files left over and (with
+    ``sample_card``) the card's peak memory."""
+    import logging
+
+    from hypha_tpu_torch.data_node import DataNode
+    from hypha_tpu_torch.ft import ChaosController, chaos as chaos_mod, parse_chaos_specs
+    from hypha_tpu_torch.gateway import Gateway
+    from hypha_tpu_torch.network import Node, TcpTransport
+    from hypha_tpu_torch.resources import Resources
+    from hypha_tpu_torch.scheduler.orchestrator import Orchestrator
+    from hypha_tpu_torch.worker.arbiter import OfferConfig
+    from hypha_tpu_torch.worker.runtime import WorkerNode
+
+    data_dir = root / "data"
+    data_dir.mkdir(parents=True)
+    write_slices(data_dir, n_slices=4, per_slice=rounds * steps * batch, seq=seq, period=period,
+                 seed=9)
+    job = het_job(model, rounds=rounds, steps=steps, batch=batch, lr=lr, deadline_s=deadline_s,
+                  hi_mbps=hi_mbps, lo_mbps=lo_mbps)
+    listen = ["127.0.0.1:0"]
+    gw = Gateway(TcpTransport(), peer_id="gw")
+    await gw.start(listen)
+    boot = [gw.node.listen_addrs[0]]
+    data = DataNode(TcpTransport(), {NODE_DATASET: data_dir}, peer_id="data", bootstrap=boot)
+    workers = {f"w{i}": WorkerNode(
+        TcpTransport(), resources=Resources(gpu=1, cpu=8, memory=65536), device=device,
+        peer_id=f"w{i}", train_runtime=train_runtime, offer=OfferConfig(strategy="whole"),
+        bootstrap=boot, work_root=root / f"w{i}") for i in range(HET_WORKERS)}
+    psw = WorkerNode(TcpTransport(), resources=Resources(cpu=8, memory=65536), device=device,
+                     peer_id="psw", bootstrap=boot, work_root=root / "ps")
+    node = Node(TcpTransport(), peer_id="sched", bootstrap=boot)
+    chunk = chaos_mod._THROTTLE_CHUNK
+    chaos_mod._THROTTLE_CHUNK = throttle_chunk
+    ctl = ChaosController(parse_chaos_specs(chaos, "w0"), {**workers, "psw": psw},
+                          clock=time.perf_counter)
+    logs: dict = {"ps": [], "sched": [], "link": []}
+
+    class Lines(logging.Handler):
+        def __init__(self, key):
+            super().__init__()
+            self.key = key
+
+        def emit(self, record):
+            logs[self.key].append(f"{time.perf_counter():.3f} {record.getMessage()}")
+
+    handlers = [(logging.getLogger(n), Lines(k)) for n, k in (
+        ("hypha.torch.worker.ps", "ps"), ("hypha.torch.ft.adaptive", "link"),
+        ("hypha.torch.scheduler.orchestrator", "sched"))]
+    levels = [lg.level for lg, _ in handlers]
+    for lg, h in handlers:
+        lg.addHandler(h)
+        lg.setLevel(logging.INFO)
+    started: list = []
+    stop_errors: list = []
+    stalls: list = []
+    peak = [0.0]
+    sampling = asyncio.Event()
+    tasks = [asyncio.create_task(watch_loop(stalls))]
+    if sample_card:
+        tasks.append(asyncio.create_task(_device_mem_sampler(peak, sampling)))
+    t_job = time.perf_counter()
+    with node_probes(device) as rec, ft_probes(rec, None, lambda *a: None, lambda *a: None), \
+            het_probes(rec, device):
+        try:
+            for part in (data, *workers.values(), psw, node):
+                await part.start(listen)
+                started.append(part)
+            await node.wait_for_bootstrap()
+            t_job = time.perf_counter()
+            result = await Orchestrator(node).run(
+                job, auction_timeout=auction_timeout, status_timeout=status_timeout)
+            job_s = time.perf_counter() - t_job
+            final = {"completed", "failed", "cancelled"}
+            loop = asyncio.get_running_loop()
+            deadline = loop.time() + limit_s
+            while True:
+                live = {d["job_id"] for d in rec["dispatch"]}
+                ended = {s["job_id"] for s in rec["statuses"] if s["state"] in final}
+                finished = live <= ended
+                if finished or loop.time() > deadline:
+                    break
+                await asyncio.sleep(0.1)
+        finally:
+            chaos_mod._THROTTLE_CHUNK = chunk
+            sampling.set()
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+            for part in reversed(started):
+                try:
+                    await part.stop()
+                except Exception as e:  # noted; het_problems fails on it
+                    stop_errors.append(f"{getattr(part, 'peer_id', part)}: {e!r}")
+            await gw.stop()
+            for (lg, h), level in zip(handlers, levels):
+                lg.removeHandler(h)
+                lg.setLevel(level)
+    leftover: list = []
+    for _ in range(300):
+        leftover = sorted(str(p.relative_to(root)) for p in root.rglob("*")
+                          if p.is_file() and not p.is_relative_to(data_dir))
+        if not leftover:
+            break
+        await asyncio.sleep(0.1)
+    jobs = {}
+    for d in rec["dispatch"]:
+        key = d["peer"] if d["kind"] == "train" else "aggregate"
+        jobs[key] = [s["state"] for s in rec["statuses"] if s["job_id"] == d["job_id"]]
+    return dict(job=job, result=result, rec=rec, finished=finished, logs=logs, jobs=jobs,
+                chaos=[(a.kind, a.target, a.fired_at) for a in ctl.fired], job_s=job_s,
+                t_job=t_job, stop_errors=stop_errors, leftover=leftover, batch=batch,
+                card_peak_mib=peak[0] if sample_card else None,
+                loop_stall_max_s=max(stalls, default=0.0),
+                workers=list(workers))
+
+
+_ARRIVALS = re.compile(r"round (\d+) UPDATED \(answered \w+\); arrival_s (\{.*\})")
+_INNER = re.compile(r"inner steps (\{.*\}) \(epoch (\d+)\)")
+_LINK = re.compile(r"link estimate: peer (\S+) (\d+) bytes in ([\d.]+) s, estimate ([\d.]+) bit/s")
+_SWITCH = re.compile(r"per-link codec hint: switching upload codec (\S+) -> (\S+)")
+
+
+def het_report(run: dict) -> dict:
+    """What ``run_het_job`` measured, per round and per peer."""
+    import ast
+
+    rec, logs = run["rec"], trainer_logs(run)
+    ps_log = "\n".join(run["logs"]["ps"])
+    peers = run["workers"]
+    tags = {hashlib.sha256(p.encode()).hexdigest()[:12]: p for p in peers}
+    batches: dict = collections.Counter()
+    for p in rec["progress"]:
+        if p["kind"] == "status" and p["peer"] in peers:
+            batches[(p["peer"], p["round"])] += 1
+    updated_t = {p["round"]: p["t"] for p in rec["progress"] if p["kind"] == "updated"}
+    arrivals = {int(r): ast.literal_eval(a) for r, a in _ARRIVALS.findall(ps_log)}
+    link = [(float(line.split()[0]), m.groups()) for line in run["logs"]["link"]
+            for m in [_LINK.search(line)] if m]
+    rounds = sorted(updated_t)
+    per_round = []
+    for r in rounds:
+        t_end, t_start = updated_t[r], updated_t.get(r - 1, run["t_job"])
+        deltas = {d["from"]: d for d in rec["deltas"] if d["round"] == r}
+        bcast = [b for b in rec["broadcast"] if b["round"] == r]
+        assigned = next((a["steps"] for a in rec["assignments"] if a["round"] == r), None)
+        per_round.append({
+            "round": r,
+            "wall_s": t_end - t_start,
+            "assigned": assigned,
+            "batches": {p: batches[(p, r)] for p in peers},
+            "weighted_steps": {p: (d["header"].get("num_samples") or 0) / run["batch"]
+                               for p, d in deltas.items()},
+            "upload_codec": {p: (d["frame"] or {}).get("codec", "none") for p, d in deltas.items()},
+            "upload_bytes": {p: d["bytes"] for p, d in deltas.items()},
+            "upload_s": {p: d["s"] for p, d in deltas.items()},
+            "arrival_s": arrivals.get(r),
+            "bandwidth_bps": {p: float(est) for t, (p, n, s, est) in link if t <= t_end},
+            "broadcast": sorted(((b["to"] or [None])[0], (b["header"] or {}).get("codec"),
+                                 b["bytes"], round(b["s"], 3)) for b in bcast),
+            "encodes": sorted((tags.get(e["tag"], e["tag"]), e["codec"], e["bytes"],
+                               round(e["s"], 3), e["err_over_bound"])
+                              for e in rec["encodes_adaptive"] if e["round"] == r),
+        })
+    per: dict = {}
+    for peer, lines in logs.items():
+        text = "\n".join(lines)
+        found = re.search(r"attention launches: (\{.*\})", text)
+        peak = re.search(r"peak device memory: ([\d.]+) GiB", text)
+        per[peer] = {"launches": json.loads(found.group(1)) if found else None,
+                     "peak_gib": float(peak.group(1)) if peak else None,
+                     "batches": sum(n for (p, _), n in batches.items() if p == peer),
+                     "switches": _SWITCH.findall(text)}
+    shared = sorted({(tags.get(a, a), tags.get(b, b)) for a, b in rec["residuals_shared"]})
+    return dict(
+        per_round=per_round, trainers=per,
+        updated=sorted(updated_t),
+        published=[(int(e), ast.literal_eval(s)) for s, e in _INNER.findall(ps_log)],
+        collects=[{"round": c["round"], "s": c["t1"] - c["t0"], "peers": c["peers"]}
+                  for c in rec["collects"]],
+        quorum_drops=re.findall(r"round (\d+) quorum drop: (.*)", ps_log),
+        abandoned=re.findall(r"delta drain from (\S+) for round (\d+) abandoned", ps_log),
+        residuals_shared=shared,
+        residual_peers=sorted(tags.get(t, t) for t in rec["residual_tags"]),
+    )
+
+
+def het_problems(run: dict, rep: dict, *, rounds: int, steps: int, layers: int, device: str,
+                 capped: str = "w1", slow: str = "w2") -> list:
+    """The gates of ``train_het`` (a)-(g), on the CPU as on the card."""
+    result, problems = run["result"], []
+    peers = run["workers"]
+    by_round = {r["round"]: r for r in rep["per_round"]}
+    # (a) The capped peer's round-0 int8 delta lands (inside the grace);
+    # no delta is dropped or abandoned in any round.
+    r0 = by_round.get(0) or {}
+    if (r0.get("upload_codec") or {}).get(capped) != "int8":
+        problems.append(f"(a) {capped}'s round-0 delta: {r0.get('upload_codec')}, wanted int8")
+    for c in rep["collects"]:
+        if c["peers"] != sorted(peers):
+            problems.append(f"(a) round {c['round']} collected {c['peers']}, wanted all of {peers}")
+    if rep["quorum_drops"] or rep["abandoned"]:
+        problems.append(f"(a) quorum drops {rep['quorum_drops']}, abandoned {rep['abandoned']}")
+    # (b) From round 1 the capped link is int4 both ways; the others int8.
+    for r in range(rounds):
+        row = by_round.get(r) or {}
+        bcodec = {to: codec for to, codec, _, _ in row.get("broadcast") or []}
+        want_b = {p: ("int4" if p == capped else "int8") for p in peers}
+        if bcodec != want_b:
+            problems.append(f"(b) round {r} broadcast codecs {bcodec}, wanted {want_b}")
+        if r >= 1:
+            want_u = {p: ("int4" if p == capped else "int8") for p in peers}
+            if row.get("upload_codec") != want_u:
+                problems.append(f"(b) round {r} upload codecs {row.get('upload_codec')}, "
+                                f"wanted {want_u}")
+    for peer, t in rep["trainers"].items():
+        want = [("int8", "int4")] if peer == capped else []
+        if t["switches"] != want:
+            problems.append(f"(b) {peer}'s codec switches {t['switches']}, wanted {want}")
+    # (c) The slow peer runs fewer than the base steps after the warmup.
+    for r in range(2, rounds):
+        a = (by_round.get(r) or {}).get("assigned") or {}
+        if not a.get(slow, steps) < steps:
+            problems.append(f"(c) round {r}: {slow} assigned {a.get(slow)}, wanted < {steps}")
+    # (d) Assignments = batches run = the weight the server folded.
+    published = [s for _, s in rep["published"]]
+    for r in range(rounds):
+        row = by_round.get(r) or {}
+        ran, weighted = row.get("batches") or {}, row.get("weighted_steps") or {}
+        want = row.get("assigned") if r >= 1 else {p: steps for p in peers}
+        if not want or ran != want or {p: round(v) for p, v in weighted.items()} != want \
+                or any(v != round(v) for v in weighted.values()):
+            problems.append(f"(d) round {r}: assigned {want}, batches {ran}, weighted {weighted}")
+        if r >= 1 and want not in published:
+            problems.append(f"(d) round {r}'s assignment {want} not among the server's "
+                            f"membership updates {published}")
+    # (e) Each per-peer wire decodes to update + residual_before - residual_after.
+    for r in range(rounds):
+        enc = (by_round.get(r) or {}).get("encodes") or []
+        if sorted(p for p, *_ in enc) != sorted(peers) or any(e[4] > 1.0 for e in enc):
+            problems.append(f"(e) round {r} encodes {enc}: wanted one per peer within the bound")
+    if rep["residuals_shared"] or rep["residual_peers"] != sorted(peers):
+        problems.append(f"(e) residuals of {rep['residual_peers']}, shared "
+                        f"{rep['residuals_shared']}")
+    # (f) Flash launches per trainer: exact.
+    for peer in peers:
+        t = rep["trainers"].get(peer, {})
+        n = t.get("batches") or 0
+        want = {"fwd": 2 * layers * n, "dq": layers * n, "dkv": layers * n, "flash_plain": 0,
+                "dense": 0}
+        if device != "cuda":
+            want = {"fwd": 0, "dq": 0, "dkv": 0, "flash_plain": 0, "dense": layers * n}
+        if not n or t.get("launches") != want:
+            problems.append(f"(f) {peer}: attention launches {t.get('launches')}, wanted {want}")
+    # (g) Every round closed, clean exits, no file left.
+    if not run["finished"] or result.rounds != rounds or result.attempt != 0 \
+            or rep["updated"] != list(range(rounds)):
+        problems.append(f"(g) job: finished {run['finished']}, rounds {result.rounds}, attempt "
+                        f"{result.attempt}, UPDATED {rep['updated']}")
+    for key in (*peers, "aggregate"):
+        states = run["jobs"].get(key) or []
+        if not states or states[-1] != "completed":
+            problems.append(f"(g) {key}: job states {states}, wanted completed last")
+    if run["leftover"] or run["stop_errors"]:
+        problems.append(f"(g) files left {run['leftover']}, stop errors {run['stop_errors']}")
+    return problems
+
+
+def train_het_phase() -> dict:
+    """WAN-adaptive rounds on the card (``run_het_job``): a capped link on
+    int4, a 4x slow worker on fewer steps, a jittered one, no drop; held
+    to ``het_problems``."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_reserved() / 2**30
+    root = Path(tempfile.mkdtemp(prefix="hhet"))
+    try:
+        run = asyncio.run(run_het_job(
+            root, HET_MODEL, device="cuda", rounds=HET_ROUNDS, steps=HET_STEPS,
+            batch=TRAIN_BATCH, seq=TRAIN_SEQ, period=TRAIN_PERIOD,
+            status_timeout=HET_STATUS_TIMEOUT_S, sample_card=True))
+        rep = het_report(run)
+        problems = het_problems(run, rep, rounds=HET_ROUNDS, steps=HET_STEPS, layers=HET_LAYERS,
+                                device="cuda")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    timing = progress_timing(run)
+    step_ms = {}
+    for peer in run["workers"]:
+        one = progress_timing({**run, "workers": [peer]})
+        step_ms[peer] = one["step_ms"]
+    res = dict(
+        model="llama2-7b", layers=HET_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+        rounds=HET_ROUNDS, base_steps=HET_STEPS, chaos=HET_CHAOS, deadline_s=HET_DEADLINE_S,
+        codec_bw_mbps=[HET_HI_MBPS, HET_LO_MBPS], throttle_chunk=HET_THROTTLE_CHUNK,
+        attempt=run["result"].attempt, jobs=run["jobs"], step_ms=step_ms,
+        progress_gap_max_s=timing["progress_gap_max_s"],
+        card_peak_gib=(run["card_peak_mib"] or 0) / 1024, job_s=run["job_s"],
+        server_process_gib={"reserved_at_start": held_gib,
+                            "peak_allocated": torch.cuda.max_memory_allocated() / 2**30,
+                            "peak_reserved": torch.cuda.max_memory_reserved() / 2**30},
+        outer_step_s=run["rec"]["outer_step_s"], fold_s_max=max(run["rec"]["fold_s"], default=None),
+        check_s=[e["check_s"] for e in run["rec"]["encodes_adaptive"]],
+        loop_stall_max_s=run["loop_stall_max_s"], seconds=time.perf_counter() - t0,
+        **{k: v for k, v in rep.items() if k != "trainers"},
+        trainers={peer: {k: t[k] for k in ("launches", "peak_gib", "batches", "switches")}
+                  for peer, t in rep["trainers"].items()},
+    )
+    if problems:
+        emit({"phase": "train_het", **res, "problems": problems,
+              "logs": {k: v[-60:] for k, v in run["logs"].items()},
+              "trainer_logs": {k: v[-40:] for k, v in trainer_logs(run).items()}})
+        raise SystemExit("train_het phase failed: " + "; ".join(problems))
+    return res
+
+
+# ---------------------------------------------------------------------------
 # train_swap: the broadcast tree and live weight swap
 # ---------------------------------------------------------------------------
 
@@ -5133,12 +5619,12 @@ SWAP_MODEL = {**FT_MODEL, "config": {"num_layers": SWAP_LAYERS, "remat": True}}
 # sv0 builds the same θ₀ (seed, widths) and serves it in bf16.
 SWAP_SERVE_MODEL = {"family": "llama", "preset": "llama2-7b", "seed": 0,
                     "config": {"num_layers": SWAP_LAYERS}}
-SWAP_ROUNDS, SWAP_STEPS = 5, 4
+SWAP_ROUNDS, SWAP_STEPS = 3, 4  # 2 relayed rounds, then 1 direct (5 rounds, then 4, before)
 SWAP_DEADLINE_S = 70.0  # FT_DEADLINE_S's reasoning: no round reaches it
 # The watchdog: a healthy run's longest progress gap is a round boundary
 # (seconds); a stalled one fails the phase in 4 minutes, not 10.
 SWAP_STATUS_TIMEOUT_S = 240.0
-SWAP_KILL_AFTER = 2  # w0 is killed once its relay handed round 2 on
+SWAP_KILL_AFTER = 1  # w0 is killed once its relay handed round 1 on (2 until train_het)
 SWAP_SERVE = "swap"
 # sv0's pool: the serving phases' geometry, prefix cache on.
 SWAP_POOL = dict(slots=8, max_len=1024, steps_per_call=8, block_size=16, ragged=True,
@@ -5940,6 +6426,20 @@ def train_reference_phase() -> dict:
     return res
 
 
+def bytecode_cache() -> str:
+    """One bytecode cache for this process and every process it starts
+    (nodes, trainers), in the checkout's build directory. The card's
+    machine runs Python with PYTHONDONTWRITEBYTECODE and its packages ship
+    no bytecode, so every process compiled torch anew (7-8.5 s of each
+    start; 4.2-5.1 s with the cache)."""
+    prefix = str(Path(__file__).resolve().parent / "hypha_tpu_torch" / "ops" / "_build" / "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = prefix
+    return prefix
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5947,11 +6447,13 @@ def main() -> int:
     from hypha_tpu_torch.ops._build import build
     from hypha_tpu_torch.worker.infer_executor import load_model
 
+    pycache = bytecode_cache()
+
     smi = nvidia_smi()
     t_start = time.perf_counter()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "capability": list(torch.cuda.get_device_capability(0)), "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda, "pycache": pycache})
 
     t0 = time.perf_counter()
     built = build()
@@ -6014,6 +6516,8 @@ def main() -> int:
     emit({"phase": "train_shard", **shard})
     shard_ft = train_shard_ft_phase()
     emit({"phase": "train_shard_ft", **shard_ft})
+    het = train_het_phase()
+    emit({"phase": "train_het", **het})
     swap = train_swap_phase()
     emit({"phase": "train_swap", **swap})
     emit({"phase": "train_reference", **train_reference_phase()})
@@ -6061,6 +6565,9 @@ def main() -> int:
             # The fault-tolerant sharded job's trainers, the rejoiner included.
             "train_shard_ft_launches": {peer: (t_["launches"] or {}).get(key)
                                         for peer, t_ in shard_ft["trainers"].items()},
+            # The adaptive job's trainers, each counted by its process.
+            "train_het_launches": {peer: (t_["launches"] or {}).get(key)
+                                   for peer, t_ in het["trainers"].items()},
             # The broadcast-tree job's surviving trainers (w0 is killed).
             "train_swap_launches": {peer: (t_["launches"] or {}).get(key)
                                     for peer, t_ in swap["trainers"].items() if peer != "w0"},

@@ -13,22 +13,27 @@ the uncompressed one.
   * :mod:`frame`    -- the HQD1 container, ``write_delta`` / ``read_delta``;
   * :mod:`feedback` -- :class:`ErrorFeedback`.
 
-The per-link codec ladder (``codec_for_bandwidth``, ``adaptive_codec``)
-is not ported (ROADMAP.md, Queue 1: adaptive rounds and chaos kinds).
+``codec_for_bandwidth`` is the per-link codec ladder of ``adaptive_codec``
+(``ft/adaptive.py``'s ``LinkTable``).
 """
 
 from __future__ import annotations
 
-from .feedback import ErrorFeedback
-from .frame import (MAGIC, frame_header, frame_tag, is_frame, read_delta, read_frame, write_delta,
-                    write_frame)
-from .quant import DEFAULT_CHUNK, dequantize, quantize
+from ..lazy import exports
 
-__all__ = [
-    "CODECS", "QUANT_CODECS", "DEFAULT_CHUNK", "MAGIC", "ErrorFeedback", "effective_codec",
-    "quantize", "dequantize", "write_frame", "read_frame", "read_delta", "write_delta",
-    "is_frame", "frame_header", "frame_tag",
-]
+# Each name's submodule, imported on first use (``lazy.exports``): they
+# import torch, and the job's options (``CODECS``, ``codec_for_bandwidth``)
+# are read by processes that hold no tensor (the node CLI, a training job's
+# scheduler).
+_SUBMODULE = {
+    "ErrorFeedback": "feedback",
+    **dict.fromkeys(("MAGIC", "frame_header", "frame_tag", "is_frame", "read_delta", "read_frame",
+                     "write_delta", "write_frame"), "frame"),
+    **dict.fromkeys(("DEFAULT_CHUNK", "dequantize", "quantize"), "quant"),
+}
+
+__getattr__ = exports(__name__, _SUBMODULE)
+__all__ = ["CODECS", "QUANT_CODECS", "effective_codec", "codec_for_bandwidth", *_SUBMODULE]
 
 # Every per-job wire codec.
 CODECS = ("none", "bf16", "int8", "int4")
@@ -45,3 +50,22 @@ def effective_codec(delta_codec: str, delta_dtype: str = "float32") -> str:
     if delta_codec == "none" and delta_dtype == "bfloat16":
         return "bf16"
     return delta_codec
+
+
+# Bits each codec ships per f32 parameter: the order ``codec_for_bandwidth``
+# degrades along (it never ships more bits than the job's base codec).
+_CODEC_BITS = {"none": 32, "bf16": 16, "int8": 8, "int4": 4}
+
+
+def codec_for_bandwidth(bps: float, base: str, hi_bps: float, lo_bps: float) -> str:
+    """Per-link codec for a measured bandwidth: ``bps >= hi_bps`` keeps the
+    base codec, below it int8, below ``lo_bps`` int4, never more bits than
+    the base asks for."""
+    if base not in CODECS:
+        raise ValueError(f"base codec must be one of {'|'.join(CODECS)}, got {base!r}")
+    if bps >= hi_bps:
+        return base
+    pick = "int8" if bps >= lo_bps else "int4"
+    if _CODEC_BITS[pick] >= _CODEC_BITS[base]:
+        return base
+    return pick

@@ -30,7 +30,11 @@ Bridge through :class:`~hypha_tpu_torch.executor.bridge_client.Session`::
 The wire codec is the job's (``delta_codec``, or the legacy
 ``delta_dtype = "bfloat16"``): f32 or bf16 SafeTensors, or int8/int4 HQD1
 frames quantized on the device with an error-feedback residual
-(``hypha_tpu_torch/compress``). ``sync_mode`` overlap and stream replace
+(``hypha_tpu_torch/compress``); in blocking rounds an adaptive parameter
+server's per-link codec hint in a broadcast header (``CODEC_KEY``,
+``codec_hint``) switches the next upload to that codec (``adaptive_codec``
+runs blocking and unsharded only, and the other paths ignore the key, as
+the reference's do). ``sync_mode`` overlap and stream replace
 the blocking update with :class:`_WorkerStream` (the reference's
 ``hypha_tpu/executor/training.py:213-584``): the due fragment's Δθ is
 encoded and shipped by a flight thread while the inner steps go on, and
@@ -128,9 +132,6 @@ log = logging.getLogger("hypha.torch.executor.training")
 # zero-flight limit in which overlap equals blocking bit for bit.
 _STREAM_POLL_WAIT_ENV = "HYPHA_STREAM_POLL_WAIT"
 
-_ADAPTIVE = "adaptive rounds and chaos kinds"
-
-
 class TrainResult:
     """What the loop did: rounds merged, batches trained, every loss."""
 
@@ -224,12 +225,18 @@ def theta_checksum(params: dict) -> str:
     return hashlib.sha256(repr(list(zip(sorted(params), values))).encode()).hexdigest()[:16]
 
 
-def _refuse_codec_hint(meta: dict) -> None:
-    if CODEC_KEY in meta:
-        raise NotImplementedError(
-            f"the broadcast carries a per-link codec hint ({meta[CODEC_KEY]!r}); adaptive "
-            f"codecs are not ported to PyTorch yet (ROADMAP.md, Queue 1: {_ADAPTIVE})"
-        )
+def codec_hint(meta: dict, current: str) -> "str | None":
+    """The upload codec an adaptive parameter server picked for this
+    worker's link (``CODEC_KEY`` in the broadcast header; the reference's
+    ``apply_codec_hint``), or None to keep ``current``: no hint, an unknown
+    codec, or the same one. The caller keeps its error-feedback residual
+    across the switch (plain f32 error, codec-independent) and starts one
+    only when a quantized codec finds none."""
+    hint = meta.get(CODEC_KEY) if isinstance(meta, dict) else None
+    if not isinstance(hint, str) or hint not in compress.CODECS or hint == current:
+        return None
+    log.info("per-link codec hint: switching upload codec %s -> %s", current, hint)
+    return hint
 
 
 class _WorkerStream:
@@ -352,7 +359,6 @@ class _WorkerStream:
                 if meta.get(RESYNC_KEY) or meta.get(CATCHUP_KEY):
                     self._drop(event)
                     continue
-                _refuse_codec_hint(meta)
                 etag = FragmentTag.from_header(meta)
                 try:
                     eround = int(meta.get("round", flight["round"]))
@@ -668,13 +674,17 @@ def run_training(
 
     def do_update() -> bool:
         """Ship Δθ, wait for the broadcast, merge. True = next round."""
-        nonlocal round_num, round_samples
+        nonlocal round_num, round_samples, wire_codec, delta_ef
         send_status(Progress(kind=ProgressKind.UPDATE, job_id=spec.job_id))
         delta_path = work_dir / f"delta-{round_num}.safetensors"
         t_write = time.perf_counter()
         with torch.no_grad():
             compress.write_delta(delta_path, state_to_flat(model, extract_delta(params, anchor)),
                                  wire_codec, ef=delta_ef)
+        if dev.type == "cuda":
+            # The delta's transients go back to the card while the round's
+            # broadcast is awaited: a parameter server may share it.
+            torch.cuda.empty_cache()
         log.info("round %d: delta written in %.3f s", round_num, time.perf_counter() - t_write)
         push_delta(delta_path)
         mean_loss = sum(round_losses) / len(round_losses) if round_losses else math.nan
@@ -698,7 +708,11 @@ def run_training(
                     # No payload, a rejoiner's catch-up, or a round already merged.
                     (work_dir / event["path"]).unlink(missing_ok=True)
                     continue
-                _refuse_codec_hint(meta)
+                hint = codec_hint(meta, wire_codec)
+                if hint is not None:
+                    wire_codec = hint
+                    if hint in compress.QUANT_CODECS and delta_ef is None:
+                        delta_ef = compress.ErrorFeedback()
                 break
         update_file = work_dir / event["path"]
         t_merge = time.perf_counter()
@@ -802,7 +816,6 @@ def run_training(
                 if meta.get(RESYNC_KEY) or meta.get(CATCHUP_KEY) or eround < round_num:
                     (work_dir / event["path"]).unlink(missing_ok=True)
                     continue
-                _refuse_codec_hint(meta)
                 etag = FragmentTag.from_header(meta)
                 p = int(etag.fragment_id) if etag is not None else sid
                 if p in got or p not in paths:

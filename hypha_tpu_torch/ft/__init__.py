@@ -7,33 +7,34 @@
   durable.py    — the parameter server's round journal + outer-state
                   checkpoint: a restarted server resumes the interrupted
                   round (generation ids + worker re-sends, deduplicated)
-  adaptive.py   — the measured-link table the serving plane reads
-  chaos.py      — deterministic kills of a worker or the parameter server
+  adaptive.py   — WAN-adaptive rounds: the straggler controller (per-worker
+                  inner steps) and the measured-link table (per-link codecs;
+                  the serving plane's link estimate)
+  chaos.py      — deterministic faults: kills of a worker or the parameter
+                  server, delays, partitions and the degrade kinds (slow
+                  worker, bandwidth cap, jitter)
 
 Every sync mode and placement runs all of it: each shard of a sharded
-job has its own journal and generation. The straggler controller,
-per-link codecs, the scheduler's own journal and the chaos kinds beyond
-the two kills are not ported (ROADMAP.md, Queue 1: adaptive rounds and
-chaos kinds; scheduler recovery)."""
+job has its own journal and generation. The scheduler's own journal and
+the two chaos kinds aimed at the scheduler are not ported (ROADMAP.md,
+Queue 1: scheduler recovery)."""
 
-from .adaptive import Ewma, LinkTable
-from .chaos import ChaosAction, ChaosController, parse_chaos_spec, parse_chaos_specs
-from .detector import PHI_THRESHOLD_DEFAULT, PhiAccrualDetector
-from .durable import GENERATION_KEY, RESYNC_KEY, DurablePS, FoldRecord, RoundJournal, restart_signal
-from .membership import (
-    PROTOCOL_FT,
-    FTConfig,
-    MembershipUpdate,
-    MembershipView,
-    RoundMembership,
-    quorum_size,
-)
-from .rejoin import CATCHUP_KEY, CatchupBuffer, await_catchup
+from ..lazy import exports
 
-__all__ = [
-    "Ewma", "LinkTable", "PhiAccrualDetector", "PHI_THRESHOLD_DEFAULT",
-    "PROTOCOL_FT", "FTConfig", "MembershipUpdate", "MembershipView", "RoundMembership",
-    "quorum_size", "CATCHUP_KEY", "CatchupBuffer", "await_catchup",
-    "GENERATION_KEY", "RESYNC_KEY", "DurablePS", "FoldRecord", "RoundJournal", "restart_signal",
-    "ChaosAction", "ChaosController", "parse_chaos_spec", "parse_chaos_specs",
-]
+# Each name's submodule, imported on first use (``lazy.exports``): the
+# node CLI and a training job's scheduler hold no tensor, and ``rejoin`` and
+# ``durable`` import torch.
+_SUBMODULE = {
+    **dict.fromkeys(("Ewma", "LinkTable", "StragglerController"), "adaptive"),
+    **dict.fromkeys(("ChaosAction", "ChaosController", "parse_chaos_spec", "parse_chaos_specs"),
+                    "chaos"),
+    **dict.fromkeys(("PHI_THRESHOLD_DEFAULT", "PhiAccrualDetector"), "detector"),
+    **dict.fromkeys(("GENERATION_KEY", "RESYNC_KEY", "DurablePS", "FoldRecord", "RoundJournal",
+                     "restart_signal"), "durable"),
+    **dict.fromkeys(("PROTOCOL_FT", "FTConfig", "MembershipUpdate", "MembershipView",
+                     "RoundMembership", "quorum_size"), "membership"),
+    **dict.fromkeys(("CATCHUP_KEY", "CatchupBuffer", "await_catchup"), "rejoin"),
+}
+
+__getattr__ = exports(__name__, _SUBMODULE)
+__all__ = list(_SUBMODULE)

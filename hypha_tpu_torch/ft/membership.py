@@ -85,9 +85,9 @@ class FTConfig:
 @_register
 @dataclass(slots=True)
 class RoundMembership:
-    """One agreed view of the round's participants. ``inner_steps`` (the
-    straggler controller's assignment) is None on every job the port runs
-    and is then omitted from the wire."""
+    """One agreed view of the round's participants. ``inner_steps`` is the
+    straggler controller's per-worker assignment (``adaptive_steps``); None
+    on every other job, and then omitted from the wire."""
 
     epoch: int = 0
     active: list = field(default_factory=list)  # list[str] peer ids

@@ -376,8 +376,8 @@ class FragmentTag:
 
 
 # The broadcast-header key of the per-link codec hint an adaptive parameter
-# server stamps (ft.adaptive); the port's trainer refuses a broadcast that
-# carries one (ROADMAP.md, Queue 1: adaptive rounds and chaos kinds).
+# server stamps (ft.adaptive, ``adaptive_codec`` jobs only): the trainer
+# switches its next upload to that codec.
 CODEC_KEY = "codec"
 
 # Push-header keys of the sharded service and the tree reduce: the sending

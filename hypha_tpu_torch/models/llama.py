@@ -16,9 +16,9 @@ head einsum in f32.
 ``forward(input_ids)`` is the training forward: causal attention, with
 the sliding window when one is set, through the model's ``attn_impl``
 (the plain ``dot_product_attention`` when None; the trainer installs
-``flash_attention`` on CUDA, whose kernels take the window), each block under
-``torch.utils.checkpoint`` when ``config.remat`` is set and gradients are
-on. ``forward(input_ids, cache)`` is the decode forward: the explicit
+``flash_attention`` on CUDA, whose kernels take the window), each block
+rematerialized in the backward (``_Remat``) when ``config.remat`` is set
+and gradients are on. ``forward(input_ids, cache)`` is the decode forward: the explicit
 :class:`~hypha_tpu_torch.ops.kvcache.KVCache` selects scalar, per-row,
 paged or paged+ragged mode and is updated in place.
 """
@@ -31,7 +31,6 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..hw import default_device
 from ..ops.attention import dot_product_attention
@@ -227,6 +226,33 @@ class _MLP(nn.Module):
         return self.down_proj(act * self.up_proj(x))
 
 
+class _Remat(torch.autograd.Function):
+    """One block rematerialized (``remat``): the forward keeps only the
+    block's inputs, the backward runs the block again and differentiates
+    it, the same bits as ``torch.utils.checkpoint`` (whose first call
+    imports torch._dynamo: seconds of a trainer's first step). The block's
+    parameters are inputs, so ``torch.autograd.grad`` over them works."""
+
+    @staticmethod
+    def forward(ctx, block, x, cos, sin, layer, *params):
+        ctx.block, ctx.layer = block, layer
+        ctx.save_for_backward(x, cos, sin)
+        return block(x, cos, sin, None, layer, None)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, cos, sin = ctx.saved_tensors
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_(x.requires_grad)
+            out = ctx.block(xg, cos, sin, None, ctx.layer, None)
+        inputs = (xg, *ctx.block.parameters())
+        need = [t.requires_grad for t in inputs]
+        got = iter(torch.autograd.grad(out, [t for t, n in zip(inputs, need) if n], grad,
+                                       allow_unused=True))
+        grads = [next(got) if n else None for n in need]
+        return (None, grads[0], None, None, None, *grads[1:])
+
+
 class _Block(nn.Module):
     def __init__(self, cfg: LlamaConfig, device, attn_impl=None) -> None:
         super().__init__()
@@ -332,7 +358,7 @@ class Llama(nn.Module):
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             if remat:  # the block's forward runs again in the backward
-                x = checkpoint(layer, x, cos, sin, None, i, None, use_reentrant=False)
+                x = _Remat.apply(layer, x, cos, sin, i, *layer.parameters())
             else:
                 x = layer(x, cos, sin, cache, i, offset)
         if cache is not None:

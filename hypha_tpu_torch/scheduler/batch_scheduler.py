@@ -22,10 +22,15 @@ target uncapped it replies ``ScheduleUpdate{counter}`` telling that worker how
 many more batches to run before shipping its pseudo-gradient. The job is
 complete when every worker is DONE.
 
-Not ported, each raising ``NotImplementedError`` with its ROADMAP.md label
-when set: ``adaptive`` (straggler-adaptive inner steps), **adaptive
-rounds and chaos kinds**;
-``generation`` and ``adopt_round`` (a restarted scheduler's stamped
+With ``adaptive`` (an ``ft.adaptive.StragglerController``) each worker's
+sync point is the controller's assignment instead of the projection: every
+Status feeds its batch cadence, the server's ``arrival_s`` in an
+``Updated`` feeds its per-step cost, each advance freezes the next round's
+assignments, and a worker's first Status of a round is answered
+``ScheduleUpdate{counter_for(peer)}`` at once.
+
+Not ported, raising ``NotImplementedError`` with its ROADMAP.md label when
+set: ``generation`` and ``adopt_round`` (a restarted scheduler's stamped
 responses), **scheduler recovery**. The reference's control-loop timing
 reservoir, FT counters and per-round trace spans (**telemetry**) are off
 by default there and change no wire byte; here they are absent. Every
@@ -58,7 +63,6 @@ _CONTINUE = ProgressResponse(kind=ProgressResponseKind.CONTINUE)
 _OK = ProgressResponse(kind=ProgressResponseKind.OK)
 _DONE = ProgressResponse(kind=ProgressResponseKind.DONE)
 
-_ADAPTIVE = "adaptive rounds and chaos kinds"
 _RECOVERY = "scheduler recovery"
 
 
@@ -80,8 +84,6 @@ class BatchScheduler:
         adaptive=None,
         generation: int | None = None,
     ) -> None:
-        if adaptive is not None:
-            raise _not_ported("adaptive (straggler-adaptive inner steps)", _ADAPTIVE)
         if generation is not None:
             raise _not_ported("generation (a restarted scheduler)", _RECOVERY)
         self.tracker = tracker
@@ -115,6 +117,9 @@ class BatchScheduler:
         # >10% re-measures; the no-stats cap is never memoized (capacity is
         # unknown there, not zero).
         self._sim_skip: "tuple[int, int, int, int, int] | None" = None
+        # Straggler-adaptive inner steps: the controller's assignments
+        # replace the projection; None keeps the projection path.
+        self.adaptive = adaptive
 
     # ------------------------------------------------------------------
     def on_progress(self, peer: str, progress: Progress) -> ProgressResponse:
@@ -184,14 +189,27 @@ class BatchScheduler:
             # Idempotent by (shard, round): a re-sent notify must not
             # advance again and eat a round.
             return _DONE if self._shard_done(shard, rnd) else _OK
+        if self.adaptive is not None:
+            # The server's per-peer arrival lags (collect start to the
+            # delta's acceptance). A notify without them (a recovered
+            # server re-announcing a round) is no evidence of a drop.
+            arrival_s = dict(progress.metrics).get("arrival_s")
+            if arrival_s is not None:
+                self.adaptive.note_round_closed(rnd, arrival_s)
         self._updated.setdefault(rnd, set()).add(shard)
         # Advance while the frontier round has every due shard reported.
+        advanced = False
         while (
             self.tracker.round < self.tracker.update_epochs
             and self._updated.get(self.tracker.round, set()) >= self._due(self.tracker.round)
         ):
             self._updated.pop(self.tracker.round, None)
             self.tracker.advance_round()
+            advanced = True
+        if advanced and self.adaptive is not None:
+            # Freeze the next round's assignments before any worker's
+            # first Status of it asks for its counter.
+            self.adaptive.start_round(self.tracker.round, list(self.tracker.peers))
         # DONE terminates this shard's aggregation loop; the workers' own
         # DONE comes with their UpdateReceived once the global round
         # reaches update_epochs.
@@ -207,9 +225,17 @@ class BatchScheduler:
         if state == WorkerState.DONE:
             return _DONE
         self.tracker.update(peer, progress.batch_size)
+        if self.adaptive is not None:
+            self.adaptive.note_batch(peer)
         if state != WorkerState.TRAINING:
             # Already counting down / mid-update: keep going.
             return _CONTINUE
+        if self.adaptive is not None:
+            # The worker's sync point is its frozen assignment; the
+            # sample-weighted fold keeps the mean unbiased.
+            counter = self.adaptive.counter_for(peer)
+            self.tracker.set_state(peer, WorkerState.UPDATE_SCHEDULED)
+            return ProgressResponse(kind=ProgressResponseKind.SCHEDULE_UPDATE, counter=counter)
         # O(1) reachability lower bound: the projection can assign at most
         # ``updates_cap`` batches per producing worker before a cap fires,
         # so while the round's remaining counter exceeds

@@ -16,7 +16,8 @@ gives the JAX package's bytes. The port schedules every wire codec
 ``num_fragments``), the sharded parameter service (``num_ps_shards``), the
 tree reduce (``reduce_group_size``, ``reduce_tree_depth``) and its
 broadcast tree (``broadcast_tree``), serving followers (``serve_peers``),
-and, with any of them, fault tolerance (``ft``, an ``FTConfig``) and checkpoints
+WAN-adaptive rounds (``adaptive_steps``, ``adaptive_codec`` and its
+``codec_bw_hi_mbps`` / ``codec_bw_lo_mbps``), and, with any of them, fault tolerance (``ft``, an ``FTConfig``) and checkpoints
 (``checkpoint_dir``, ``checkpoint_every``, ``ps_checkpoint_every_rounds``).
 Each option outside it is accepted only at its off value (``_NOT_PORTED``),
 and any other value raises ``NotImplementedError`` naming its ROADMAP.md
@@ -38,16 +39,12 @@ from ..stream import SYNC_MODES, effective_fragments
 
 __all__ = ["DiLoCoRounds", "JobResources", "DiLoCoJob", "CODECS", "SYNC_MODES"]
 
-_ADAPTIVE = "adaptive rounds and chaos kinds"
-
 # (field, the values the port runs, ROADMAP.md label of the rest). An
 # option that the reference accepts only beside another (scheduler_recovery
 # needs ft and checkpoint_dir) comes before it, so the refusal names the
 # option the job asked for.
 _NOT_PORTED = (
     ("scheduler_recovery", (False,), "scheduler recovery"),
-    ("adaptive_steps", (False,), _ADAPTIVE),
-    ("adaptive_codec", (False,), _ADAPTIVE),
     ("metrics_plane", (False,), "telemetry"),
     ("slo_rules", ([],), "telemetry"),
     ("input_pipeline", (False,), "input_pipeline"),

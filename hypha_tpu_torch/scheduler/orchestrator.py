@@ -60,9 +60,15 @@ shards, and each shard's aggregate spec carries the placement
 push them every round after the membership overrides, and under a tree
 the placement's ``serve_leaves`` hangs them off the relays.
 
-Not ported (the job refuses their options, ``job_config.py``): the
-adoption and resume path of a restarted scheduler (**scheduler
-recovery**) and adaptive steps (**adaptive rounds and chaos kinds**).
+With ``adaptive_steps`` a ``StragglerController`` (base steps: the round's
+samples over the fleet's summed batch) drives the batch scheduler, and each
+round's assignments ride the membership the servers receive
+(``RoundMembership.inner_steps``); the aggregate spec carries
+``adaptive_steps``, ``adaptive_codec`` and the codec thresholds, each None
+when off so a static job's spec keeps its bytes.
+
+Not ported (the job refuses its options, ``job_config.py``): the adoption
+and resume path of a restarted scheduler (**scheduler recovery**).
 """
 
 from __future__ import annotations
@@ -73,6 +79,7 @@ import uuid
 from typing import Any
 
 from .. import aio, messages
+from ..ft.adaptive import StragglerController
 from ..ft.detector import PhiAccrualDetector
 from ..ft.membership import PROTOCOL_FT, MembershipUpdate, MembershipView, quorum_size
 from ..messages import (
@@ -167,6 +174,10 @@ class _RunContext:
         self.auction_timeout = 2.0
         self.detector: PhiAccrualDetector | None = None
         self.membership: MembershipView | None = None
+        # Straggler-adaptive inner steps (job.adaptive_steps), and the last
+        # round whose assignments were published.
+        self.adaptive: "StragglerController | None" = None
+        self.assign_published = -1
         self.rejoin_count = 0
         self.notify_tasks: set = set()
         self.ps_restarts = 0
@@ -453,6 +464,12 @@ class Orchestrator:
                         fragments=job.num_fragments,
                         shard_index=k,
                         num_ps_shards=num_shards,
+                        # The adaptive knobs are None, not False, when off:
+                        # a static job's spec carries no new field.
+                        adaptive_steps=True if job.adaptive_steps else None,
+                        adaptive_codec=True if job.adaptive_codec else None,
+                        codec_bw_hi_mbps=job.codec_bw_hi_mbps if job.adaptive_codec else None,
+                        codec_bw_lo_mbps=job.codec_bw_lo_mbps if job.adaptive_codec else None,
                         broadcast_tree=tree,
                         serve_peers=serve_peers or None,
                     ),
@@ -477,6 +494,17 @@ class Orchestrator:
         )
         ctx.data_scheduler.start()
 
+    @staticmethod
+    def _make_adaptive(ctx: _RunContext, job: DiLoCoJob) -> None:
+        """The straggler controller of an ``adaptive_steps`` job; its base is
+        what a uniform pool runs a round: the round's samples over one sweep
+        of the fleet's batch sizes."""
+        if not job.adaptive_steps:
+            return
+        total_batch = sum(h.batch_size for h in ctx.handles.values())
+        ctx.adaptive = StragglerController(base_steps=max(
+            1, round(job.rounds.avg_samples_between_updates / max(total_batch, 1))))
+
     def _start_control(self, ctx: _RunContext, num_shards: int = 1, parts: int = 1):
         """Stand up the DiLoCo control plane: BatchScheduler + the
         /hypha-progress handler; a sharded round advances on UPDATED from
@@ -494,6 +522,7 @@ class Orchestrator:
             ctx.tracker, on_metrics=on_metrics, on_complete=ctx.complete.set,
             shards_due=((lambda r: shards_due_at(sync_mode, r, parts, num_shards))
                         if num_shards > 1 else None),
+            adaptive=ctx.adaptive,
         )
 
         async def on_progress(peer: str, progress: Progress):
@@ -504,7 +533,14 @@ class Orchestrator:
             if ctx.detector is not None:
                 # Every progress message is a liveness signal.
                 ctx.detector.heartbeat(peer)
-            return batch_scheduler.on_progress(peer, progress)
+            response = batch_scheduler.on_progress(peer, progress)
+            if (ctx.adaptive is not None and ctx.membership is not None
+                    and ctx.tracker.round > ctx.assign_published):
+                # A round advanced: publish its assignments with the
+                # membership (a lost snapshot is repaired by the next).
+                ctx.assign_published = ctx.tracker.round
+                self._notify_membership_soon(ctx)
+            return response
 
         progress_reg = self.node.on(PROTOCOL_PROGRESS, Progress).respond_with(on_progress)
         return collected, progress_reg
@@ -588,6 +624,7 @@ class Orchestrator:
                     handle.on_renew = ctx.detector.heartbeat
 
             parts = placement_parts(job.sync_mode, job.num_fragments, num_shards)
+            self._make_adaptive(ctx, job)
             collected, progress_reg = self._start_control(ctx, num_shards, parts)
 
             ctx.router = StatusRouter(self.node)
@@ -898,6 +935,11 @@ class Orchestrator:
         assert ctx.membership is not None and ctx.ps_handles
         ok = True
         snapshot = ctx.membership.snapshot()
+        adaptive = getattr(ctx, "adaptive", None)
+        if adaptive is not None:
+            # None while empty, so the wire keeps its bytes until the
+            # first assignment exists.
+            snapshot.inner_steps = adaptive.assignments() or None
         for k, handle in enumerate(ctx.ps_handles):
             if handle is None:
                 # Restarting: a plain snapshot is repaired after the

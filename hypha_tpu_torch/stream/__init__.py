@@ -18,43 +18,23 @@ Selection is per job through ``sync_mode: blocking | overlap | stream``,
 ``num_ps_shards``, ``reduce_group_size`` and ``broadcast_tree``.
 """
 
-from .accum import RoundAccum
-from .partition import fragment_of, partition_names, shard_names, shard_of
-from .sync import (
-    DEFAULT_FRAGMENTS,
-    SYNC_MODES,
-    effective_fragments,
-    fragment_due,
-    merge_corrected,
-    next_owned_round,
-    placement_parts,
-    shard_owns_round,
-    shards_due_at,
-)
-from .reduce import (
-    BroadcastRelay,
-    GroupReducer,
-    TreeRuntime,
-    maybe_start_reducer,
-    maybe_start_relay,
-    relay_tag,
-    tree_broadcast,
-)
-from .tree import (
-    ancestors_of,
-    build_reduce_groups,
-    children_of,
-    parent_of,
-    subtree_of,
-    top_targets,
-    tree_levels,
-    with_serve_leaves,
-)
+from ..lazy import exports
 
-__all__ = ["RoundAccum", "partition_names", "fragment_of", "shard_of", "shard_names",
-           "SYNC_MODES", "DEFAULT_FRAGMENTS", "fragment_due", "effective_fragments",
-           "placement_parts", "shard_owns_round", "shards_due_at", "next_owned_round",
-           "merge_corrected", "build_reduce_groups", "children_of", "parent_of",
-           "ancestors_of", "subtree_of", "top_targets", "tree_levels", "with_serve_leaves",
-           "GroupReducer", "BroadcastRelay", "TreeRuntime", "maybe_start_reducer",
-           "maybe_start_relay", "relay_tag", "tree_broadcast"]
+# Each name's submodule, imported on first use (``lazy.exports``):
+# ``accum``, ``sync``'s merge and ``reduce`` import torch, and a job's
+# options (``SYNC_MODES``, ``effective_fragments``) are read by processes
+# that hold no tensor (the node CLI, a training job's scheduler).
+_SUBMODULE = {
+    "RoundAccum": "accum",
+    **dict.fromkeys(("fragment_of", "partition_names", "shard_names", "shard_of"), "partition"),
+    **dict.fromkeys(("DEFAULT_FRAGMENTS", "SYNC_MODES", "effective_fragments", "fragment_due",
+                     "merge_corrected", "next_owned_round", "placement_parts", "shard_owns_round",
+                     "shards_due_at"), "sync"),
+    **dict.fromkeys(("BroadcastRelay", "GroupReducer", "TreeRuntime", "maybe_start_reducer",
+                     "maybe_start_relay", "relay_tag", "tree_broadcast"), "reduce"),
+    **dict.fromkeys(("ancestors_of", "build_reduce_groups", "children_of", "parent_of",
+                     "subtree_of", "top_targets", "tree_levels", "with_serve_leaves"), "tree"),
+}
+
+__getattr__ = exports(__name__, _SUBMODULE)
+__all__ = list(_SUBMODULE)

@@ -19,7 +19,6 @@ from __future__ import annotations
 
 from typing import Mapping
 
-from ..executor.diloco import merge_update
 from .partition import shard_of
 
 __all__ = ["SYNC_MODES", "DEFAULT_FRAGMENTS", "fragment_due", "effective_fragments",
@@ -114,4 +113,6 @@ def merge_corrected(live: Mapping, snapshot: Mapping, update: Mapping) -> tuple:
         )
     live_d = {k: live[k] for k in update}
     snap_d = {k: snapshot[k] for k in update}
+    from ..executor.diloco import merge_update  # torch: job options import this module
+
     return merge_update(live_d, update), merge_update(snap_d, update)

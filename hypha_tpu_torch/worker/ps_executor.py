@@ -86,9 +86,22 @@ than one peer, unless ANY-strategy, pushes only to the tree's top targets
 relays by ``with_serve_leaves``), and the relays carry it down
 (``stream.reduce.tree_broadcast``, a dead relay expanded to its children).
 
+WAN-adaptive rounds (``ft/adaptive.py``, reference ``:440-470``): with
+``adaptive_steps`` every collector records each peer's arrival lag (collect
+start to its delta's acceptance; a tree-reduce partial credits its
+members) and the ``UPDATED`` notify carries them as ``arrival_s`` (absent
+otherwise, so a static job's wire keeps its bytes). With ``adaptive_codec``
+(blocking, unsharded, not durable) a ``LinkTable`` times each delta drain
+(an abandoned drain counts as a lower-bound sample), the elastic deadline
+is stretched by the table's first-round grace while an expected peer is
+unmeasured, and the round's update goes out per link
+(``_broadcast_adaptive``): each peer's codec from its measured bandwidth,
+a quantized link encoded with its own error-feedback residual on the
+server's device, every wire stamped with the codec (``CODEC_KEY``), which
+the trainer switches its next upload to.
+
 What raises ``NotImplementedError`` at dispatch, with its ROADMAP.md
-label: the adaptive options (adaptive rounds and chaos kinds), the
-adoption grace (scheduler recovery) and ``report_metrics_s``
+label: the adoption grace (scheduler recovery) and ``report_metrics_s``
 (telemetry).
 
 The outer step (counterpart of ``ParameterServerExecutor._outer_step``,
@@ -128,11 +141,13 @@ import torch
 
 from .. import aio, compress
 from ..executor.serialization import load_file, read_header, save_file
+from ..ft.adaptive import LinkTable
 from ..ft.durable import GENERATION_KEY, RESYNC_KEY, DurablePS, FoldRecord
 from ..ft.membership import PROTOCOL_FT, MembershipUpdate, RoundMembership, quorum_size
 from ..ft.rejoin import CATCHUP_KEY, CatchupBuffer
 from ..hw import default_device
 from ..messages import (
+    CODEC_KEY,
     COVERS_KEY,
     PREFOLD_KEY,
     PROTOCOL_PROGRESS,
@@ -173,8 +188,6 @@ _DRAIN_SLACK_S = 0.25
 # A tree-reduce partial's key in a round's table: apart from the same
 # reducer's own direct delta.
 _PREFOLD_PREFIX = "prefold:"
-
-_ADAPTIVE = "adaptive rounds and chaos kinds"
 
 
 def _copy(t: torch.Tensor, device) -> torch.Tensor:
@@ -258,8 +271,6 @@ def outer_step(
 def _unported(cfg) -> None:
     """Raise on every aggregate option this path does not run."""
     checks = [
-        (bool(cfg.adaptive_steps), "adaptive_steps", _ADAPTIVE),
-        (bool(cfg.adaptive_codec), "adaptive_codec", _ADAPTIVE),
         (bool(cfg.adopt_grace_s), "adopt_grace_s", "scheduler recovery"),
         (bool(cfg.report_metrics_s), "report_metrics_s", "telemetry"),
     ]
@@ -390,6 +401,10 @@ class ParameterServerExecutor(JobExecutor):
                          msg.membership.epoch, len(msg.membership.active),
                          len(msg.membership.suspected), msg.joined)
                 elastic.adopt(msg)
+                if msg.membership.inner_steps:
+                    log.info("ps %s: inner steps %s (epoch %d)", job_id,
+                             dict(sorted(msg.membership.inner_steps.items())),
+                             msg.membership.epoch)
                 return Ack(ok=True)
 
             membership_reg = (self.node.on(PROTOCOL_FT, MembershipUpdate)
@@ -435,6 +450,18 @@ class ParameterServerExecutor(JobExecutor):
         # The broadcast's wire codec mirrors the upload's; a quantized one
         # feeds its error back into the next update.
         codec = compress.effective_codec(cfg.delta_codec or "none")
+        # WAN-adaptive rounds: per-peer arrival lags reported with UPDATED,
+        # and per-link codecs with per-peer residuals (blocking, unsharded,
+        # not durable; the job validates the combinations).
+        adaptive_steps = bool(cfg.adaptive_steps)
+        link: "LinkTable | None" = None
+        peer_efs: dict = {}
+        if cfg.adaptive_codec and dur is None and num_shards == 1:
+            # `is not None`, not `or`: an explicit 0.0 is a threshold.
+            link = LinkTable(
+                base_codec=codec,
+                hi_mbps=float(cfg.codec_bw_hi_mbps) if cfg.codec_bw_hi_mbps is not None else 100.0,
+                lo_mbps=float(cfg.codec_bw_lo_mbps) if cfg.codec_bw_lo_mbps is not None else 10.0)
         try:
             bcast_ef = compress.ErrorFeedback() if codec in compress.QUANT_CODECS else None
             round_num = 0
@@ -457,7 +484,7 @@ class ParameterServerExecutor(JobExecutor):
                     num_workers, lr, mu, codec, parts, shard=shard, num_shards=num_shards,
                     sync_mode=sync_mode, elastic=elastic, dur=dur, momentum_file=momentum_file,
                     ckpt_dir=ckpt_dir, round_start=round_num, init_accums=recovered,
-                    init_pending=preload, init_efs=rec_efs)
+                    init_pending=preload, init_efs=rec_efs, adaptive_steps=adaptive_steps)
                 return
             while True:
                 execution.round = round_num  # the live round, for AdoptAck
@@ -468,20 +495,43 @@ class ParameterServerExecutor(JobExecutor):
                     accum = RoundAccum(device=self.device)
                 if dur is not None:
                     await asyncio.to_thread(dur.note_open, round_num)
+                # peer -> collect start to its delta's acceptance (only an
+                # adaptive_steps job fills it).
+                arrivals: "dict | None" = {} if adaptive_steps else None
                 if elastic is not None:
                     received = await self._collect_round_elastic(
-                        consumer, job_id, elastic, cfg, work_dir, round_num, accum, dur)
+                        consumer, job_id, elastic, cfg, work_dir, round_num, accum, dur,
+                        link=link, arrivals=arrivals)
                 else:
                     received = await self._collect_round(
                         consumer, job_id, allowed, num_workers, work_dir, round_num, accum,
                         dur=dur, preloaded=preload.pop(round_num, None),
-                        preloaded_folded=preloaded_folded)
+                        preloaded_folded=preloaded_folded, link=link, arrivals=arrivals)
                 if dur is not None:
                     await asyncio.to_thread(dur.note_close, round_num, list(received))
                 update_path = await asyncio.to_thread(
                     outer_step, received, momentum_file, lr, mu, work_dir, round_num,
                     accum=accum, device=self.device)
                 del accum
+                if link is not None:
+                    # Per-link broadcast (the static close below, less the
+                    # durable commit it cannot have). Σ takes the raw f32
+                    # update: each link tracks it within its own residual.
+                    if elastic is not None:
+                        await asyncio.to_thread(elastic.catchup.accumulate, update_path)
+                    response = await self._notify_updated(
+                        scheduler_peer, job_id, round_num, execution, arrivals=arrivals)
+                    await self._broadcast_adaptive(cfg, update_path, round_num, elastic, link,
+                                                   peer_efs, work_dir)
+                    await asyncio.to_thread(
+                        _unlink, [update_path] + [path for path, _ in received.values()])
+                    round_num += 1
+                    if elastic is not None:
+                        await self._serve_joins(elastic, cfg, round_num, work_dir)
+                    if response.kind == ProgressResponseKind.DONE:
+                        execution.finish("completed")
+                        return
+                    continue
                 wire_path, sent = await asyncio.to_thread(
                     self._encode_broadcast, update_path, codec, bcast_ef, work_dir, round_num)
                 if elastic is not None:
@@ -509,7 +559,7 @@ class ParameterServerExecutor(JobExecutor):
                 # it answers Continue instead of Done and the worker starts
                 # a phantom extra round.
                 response = await self._notify_updated(
-                    scheduler_peer, job_id, round_num, execution)
+                    scheduler_peer, job_id, round_num, execution, arrivals=arrivals)
                 if dur is not None:
                     await asyncio.to_thread(
                         dur.note_notified, round_num,
@@ -803,6 +853,7 @@ class ParameterServerExecutor(JobExecutor):
         self, consumer, job_id: str, allowed: set, num_workers: int, work_dir: Path,
         round_num: int, accum: RoundAccum, dur: "DurablePS | None" = None,
         preloaded: "dict | None" = None, preloaded_folded: bool = False,
+        link: "LinkTable | None" = None, arrivals: "dict | None" = None,
     ) -> dict:
         """Gather one pseudo-gradient per worker: key -> (path, samples),
         each folded into ``accum`` as it lands. ``preloaded`` seeds the
@@ -810,7 +861,9 @@ class ParameterServerExecutor(JobExecutor):
         ``accum`` when ``preloaded_folded``). A durable round journals each
         delta and partial (saved under the checkpoint root, uniquely
         named), drops an exact re-send, and drops a delta of a round
-        already committed."""
+        already committed. ``link`` times each drain; ``arrivals`` takes
+        each covered peer's lag from the collect's start."""
+        t_open = asyncio.get_running_loop().time()
         received: dict = dict(preloaded or {})
         # Entry key -> (prefolded, covered workers): a tree-reduce partial
         # covers its group, everything else its sender. Journaled entries
@@ -823,6 +876,10 @@ class ParameterServerExecutor(JobExecutor):
             for key, entry in received.items():
                 await self._fold(accum, entry,
                                  prefolded=covers.get(key, (False, frozenset()))[0])
+        if arrivals is not None:
+            # Journal-seeded folds landed before this collect: zero lag.
+            for covered_peer in self._covered(received, covers):
+                arrivals.setdefault(str(covered_peer), 0.0)
         dest_dir = dur.deltas_dir if dur is not None else work_dir
         while len(self._covered(received, covers)) < num_workers:
             push = await consumer.next()
@@ -860,7 +917,8 @@ class ParameterServerExecutor(JobExecutor):
             entry = await self._save_delta(
                 push, dest_dir, round_num,
                 suffix=f"-{uuid.uuid4().hex[:8]}" if dur is not None else "", hasher=hasher,
-                key=key)
+                key=key, link=link)
+            self._note_arrival(arrivals, t_open, peer, prefolded, cov)
             if not await self._ingest(dur, round_num, 0, key, entry,
                                       hasher.hexdigest() if hasher is not None else None,
                                       prefold=prefolded, covers=cov):
@@ -883,7 +941,9 @@ class ParameterServerExecutor(JobExecutor):
 
     async def _collect_round_elastic(self, consumer, job_id: str, st: _ElasticState, cfg,
                                      work_dir: Path, round_num: int, accum: RoundAccum,
-                                     dur: "DurablePS | None" = None) -> dict:
+                                     dur: "DurablePS | None" = None,
+                                     link: "LinkTable | None" = None,
+                                     arrivals: "dict | None" = None) -> dict:
         """Quorum + deadline gather: key -> (path, samples). The round
         closes, with at least a quorum of covered workers, once every live
         active worker is covered or ``round_deadline_s`` passed since it
@@ -891,7 +951,10 @@ class ParameterServerExecutor(JobExecutor):
         a joined peer's catch-up is served from the wait; a delta still
         draining when the quorate round's deadline passes is abandoned.
         Tree-reduce partials reconcile by cover sets as in the plain
-        collector."""
+        collector. ``link`` times each drain and stretches the deadline by
+        its first-round grace while an expected peer is unmeasured (no peer
+        is dropped before one upload of it was seen); ``arrivals`` takes
+        each covered peer's lag, a parked one's as zero."""
         received: dict = dict(st.early.pop(round_num, {}))
         covers: dict = dict(st.early_covers.pop(round_num, {}))
         if dur is not None:
@@ -913,9 +976,16 @@ class ParameterServerExecutor(JobExecutor):
         dest_dir = dur.deltas_dir if dur is not None else work_dir
         loop = asyncio.get_running_loop()
         t_open = loop.time()
+        if arrivals is not None:
+            for covered_peer in self._covered(received, covers):
+                arrivals.setdefault(str(covered_peer), 0.0)
 
         def deadline_at() -> "float | None":
-            return t_open + st.round_deadline_s if st.round_deadline_s > 0 else None
+            if st.round_deadline_s <= 0:
+                return None
+            if link is not None and any(not link.measured(p) for p in st.membership.expected()):
+                return t_open + st.round_deadline_s * link.first_round_grace
+            return t_open + st.round_deadline_s
 
         deadline_logged = False
         while True:
@@ -967,9 +1037,11 @@ class ParameterServerExecutor(JobExecutor):
                               else None)
             entry = await self._save_delta_bounded(
                 push, dest_dir, delta_round, suffix=f"-{uuid.uuid4().hex[:8]}", hasher=hasher,
-                deadline=drain_deadline, job_id=job_id, key=key)
+                deadline=drain_deadline, job_id=job_id, key=key, link=link)
             if entry is None:
                 continue
+            if delta_round == round_num:
+                self._note_arrival(arrivals, t_open, peer, prefolded, cov)
             if not await self._ingest(dur, delta_round, 0, key, entry,
                                       hasher.hexdigest() if hasher is not None else None,
                                       prefold=prefolded, covers=cov):
@@ -1026,14 +1098,33 @@ class ParameterServerExecutor(JobExecutor):
         if dropped:
             log.warning("ps %s: round %d quorum drop: %s", job_id, round_num, sorted(dropped))
 
+    @staticmethod
+    def _note_arrival(arrivals: "dict | None", t_open: float, peer: str, prefolded: bool,
+                      cov) -> None:
+        """Record an accepted delta's lag; a tree-reduce partial credits
+        every member it covers (else the straggler controller would
+        penalize healthy reduced workers as dropped)."""
+        if arrivals is None:
+            return
+        lag = asyncio.get_running_loop().time() - t_open
+        if prefolded:
+            for member in cov:
+                arrivals.setdefault(str(member), lag)
+        else:
+            arrivals[peer] = lag
+
     async def _save_delta_bounded(self, push, dest_dir: Path, delta_round: int, *, suffix: str,
                                   hasher, deadline: "float | None",
-                                  job_id: str = "", key: "str | None" = None) -> "tuple | None":
+                                  job_id: str = "", key: "str | None" = None,
+                                  link: "LinkTable | None" = None) -> "tuple | None":
         """:meth:`_save_delta` with the drain bounded by the round deadline
         (plus ``_DRAIN_SLACK_S``); None when abandoned (the sender's retry
-        re-ships it, and the stale guard disposes of the copy)."""
+        re-ships it, and the stale guard disposes of the copy). An
+        abandoned drain is a measurement too: its bytes over its budget
+        bound the link from above, so a link too slow ever to finish still
+        engages the codec ladder."""
         save = self._save_delta(push, dest_dir, delta_round, suffix=suffix, hasher=hasher,
-                                key=key)
+                                key=key, link=link)
         if deadline is None:
             return await save
         budget = max(deadline - asyncio.get_running_loop().time(), 0.0) + _DRAIN_SLACK_S
@@ -1044,21 +1135,37 @@ class ParameterServerExecutor(JobExecutor):
                         "(deadline passed mid-transfer)", job_id, push.peer, delta_round, budget)
             push.finish()
             name = hashlib.sha256((key or push.peer).encode()).hexdigest()[:24]
-            await asyncio.to_thread(
-                _unlink, [dest_dir / f"delta-{delta_round}-{name}{suffix}.safetensors"])
+            partial = dest_dir / f"delta-{delta_round}-{name}{suffix}.safetensors"
+            if link is not None:
+                try:
+                    drained = partial.stat().st_size
+                except OSError:
+                    drained = 0
+                link.observe(push.peer, max(drained, 1), budget)
+            await asyncio.to_thread(_unlink, [partial])
             return None
 
     @staticmethod
     async def _save_delta(push, work_dir: Path, round_num: int, suffix: str = "",
-                          hasher=None, key: "str | None" = None) -> tuple:
+                          hasher=None, key: "str | None" = None,
+                          link: "LinkTable | None" = None) -> tuple:
         """Save one pseudo-gradient push; returns (path, sample weight).
         ``hasher`` takes the payload's bytes as they stream to disk (the
         durable journal's sha, without a second read). ``key`` names the
         file when it is not the sender (a reducer's partial beside its own
-        delta)."""
+        delta). ``link`` times the save: the push streams the payload, so
+        draining it to disk is the sender's link."""
         name = hashlib.sha256((key or push.peer).encode()).hexdigest()[:24]
         dest = work_dir / f"delta-{round_num}-{name}{suffix}.safetensors"
-        await push.save_to(dest, hasher=hasher)
+        t0 = time.monotonic()
+        nbytes = await push.save_to(dest, hasher=hasher)
+        if link is not None:
+            try:
+                size = int(nbytes) if nbytes else dest.stat().st_size
+            except (TypeError, ValueError, OSError):
+                size = 0
+            if size > 0:
+                link.observe(push.peer, size, time.monotonic() - t0)
         samples = 1.0
         if isinstance(push.resource, dict):
             try:
@@ -1159,7 +1266,8 @@ class ParameterServerExecutor(JobExecutor):
                              shard: int, num_shards: int, sync_mode: str,
                              elastic: "_ElasticState | None", dur: "DurablePS | None",
                              momentum_file: Path, ckpt_dir: "Path | None", round_start: int,
-                             init_accums: dict, init_pending: dict, init_efs: dict) -> None:
+                             init_accums: dict, init_pending: dict, init_efs: dict,
+                             adaptive_steps: bool = False) -> None:
         """The pipelined round loop of ``sync_mode`` overlap and stream, and
         of every sharded job (counterpart of the reference's
         ``_stream_rounds``). Round ``r`` closes its due part when every
@@ -1206,11 +1314,12 @@ class ParameterServerExecutor(JobExecutor):
                 execution.round = round_num
                 if dur is not None:
                     await asyncio.to_thread(dur.note_open, round_num)
+                arrivals: "dict | None" = {} if adaptive_steps else None
                 received = await self._collect_round_stream(
                     consumer, job_id, allowed, num_workers, work_dir, round_num, fragments,
                     accums, pending, due_fn=due_fn, owned_fn=owned_fn,
                     pending_covers=pending_covers, sharded=sharded, cfg=cfg, st=elastic,
-                    dur=dur)
+                    dur=dur, arrivals=arrivals)
                 if dur is not None:
                     await asyncio.to_thread(dur.note_close, round_num, list(received))
                 frag = due_fn(round_num)
@@ -1256,7 +1365,8 @@ class ParameterServerExecutor(JobExecutor):
                 peers = list(elastic.membership.active) if elastic is not None else None
                 # Notify before the fan-out (the blocking loop's race note).
                 response = await self._notify_updated(
-                    scheduler_peer, job_id, round_num, execution, shard=shard)
+                    scheduler_peer, job_id, round_num, execution, shard=shard,
+                    arrivals=arrivals)
                 if dur is not None:
                     await asyncio.to_thread(dur.note_notified, round_num,
                                             response.kind == ProgressResponseKind.DONE)
@@ -1288,7 +1398,8 @@ class ParameterServerExecutor(JobExecutor):
                                     pending_covers: "dict | None" = None,
                                     sharded: bool = False, cfg=None,
                                     st: "_ElasticState | None" = None,
-                                    dur: "DurablePS | None" = None) -> dict:
+                                    dur: "DurablePS | None" = None,
+                                    arrivals: "dict | None" = None) -> dict:
         """Gather round ``round_num``'s part deltas, key -> (path, samples),
         until every worker is covered, or, with ``st`` (elastic), until the
         live active workers are covered at quorum or the round deadline
@@ -1300,7 +1411,9 @@ class ParameterServerExecutor(JobExecutor):
         HQD1 frame whose own tag contradicts its header are dropped; a
         re-send replaces (un-folds) the sender's earlier delta; partials
         reconcile by cover sets; a durable server (``dur``) journals each
-        accepted push under the round's part and drops an exact re-send."""
+        accepted push under the round's part and drops an exact re-send.
+        ``arrivals`` takes each peer covered for this round with its lag
+        (a delta parked before the collect opened: zero)."""
         if due_fn is None:
             def due_fn(r: int) -> int:
                 return fragment_due(r, fragments)
@@ -1313,6 +1426,10 @@ class ParameterServerExecutor(JobExecutor):
                 covers.setdefault(f.peer, (f.prefold, frozenset(f.covers or (f.peer,))))
         dest_dir = dur.deltas_dir if dur is not None else work_dir
         loop = asyncio.get_running_loop()
+        t_open = loop.time()
+        if arrivals is not None:
+            for covered_peer in self._covered(received, covers):
+                arrivals.setdefault(str(covered_peer), 0.0)
         deadline = None
         if st is not None and st.round_deadline_s > 0:
             deadline = loop.time() + st.round_deadline_s
@@ -1416,6 +1533,8 @@ class ParameterServerExecutor(JobExecutor):
                                            durable=dur is not None)
             bucket[key] = entry
             cov_table[key] = (prefolded, cov)
+            if delta_round == round_num:
+                self._note_arrival(arrivals, t_open, peer, prefolded, cov)
             await self._fold(accum, entry, prefolded=prefolded)
             log.info("ps %s: round %d part %d %s %d (from %s%s%s)", job_id, round_num,
                      due_fn(round_num), "partial" if prefolded else "delta", len(received),
@@ -1446,6 +1565,77 @@ class ParameterServerExecutor(JobExecutor):
             if not keep_received:
                 done += [path for path, _ in received.values()]
             await asyncio.to_thread(_unlink, done)
+
+    async def _broadcast_adaptive(self, cfg, update_path: Path, round_num: int, elastic,
+                                  link: LinkTable, peer_efs: dict, work_dir: Path) -> None:
+        """Per-link broadcast (the reference's ``:2478-2573``): peers grouped
+        by the codec their measured link maps to. "none" ships the f32
+        update file itself; another unquantized codec is encoded once for
+        its group; each quantized peer gets its own encode with its own
+        ``ErrorFeedback`` on the server's device (a shared residual would
+        absorb another link's error), kept across codec changes. Every
+        wire carries its codec (``CODEC_KEY``) and fans out through
+        :meth:`_broadcast`."""
+        peers = (list(elastic.membership.active) if elastic is not None
+                 else list(cfg.results.ref.peers or []))
+        if not peers:
+            return
+        by_codec: dict = {}
+        for peer in peers:
+            by_codec.setdefault(link.codec_for(peer), []).append(peer)
+        tree_box: dict = {}
+
+        def update_tree() -> dict:
+            # Loaded once, only if a link needs an encode; in name order,
+            # as the reference's safetensors read gives it.
+            if "tree" not in tree_box:
+                tree_box["tree"] = {k: v.to(self.device)
+                                    for k, v in sorted(load_file(update_path).items())}
+            return tree_box["tree"]
+
+        def encode(wire: Path, codec: str, ef) -> None:
+            t0 = time.perf_counter()
+            compress.write_delta(wire, update_tree(), codec, ef=ef)
+            log.info("ps: round %d %s wire %s encoded in %.3f s (%d bytes)", round_num, codec,
+                     wire.name, time.perf_counter() - t0, wire.stat().st_size)
+
+        sends: list = []
+        scratch: list = []
+        try:
+            for codec, group in sorted(by_codec.items()):
+                if codec in compress.QUANT_CODECS:
+                    for peer in group:
+                        ef = peer_efs.get(peer)
+                        if ef is None:
+                            ef = peer_efs[peer] = compress.ErrorFeedback()
+                        tag = hashlib.sha256(peer.encode()).hexdigest()[:12]
+                        wire = work_dir / f"update-{round_num}.{tag}.wire.safetensors"
+                        await asyncio.to_thread(encode, wire, codec, ef)
+                        scratch.append(wire)
+                        sends.append((wire, codec, [peer]))
+                elif codec == "none":
+                    sends.append((update_path, codec, list(group)))
+                else:
+                    wire = work_dir / f"update-{round_num}.{codec}.wire.safetensors"
+                    await asyncio.to_thread(encode, wire, codec, None)
+                    scratch.append(wire)
+                    sends.append((wire, codec, list(group)))
+            tree_box.clear()
+            tasks = [asyncio.create_task(
+                self._broadcast(cfg, wire, round_num, elastic, extra_header={CODEC_KEY: codec},
+                                peers_override=group), name=f"ps-abcast-{codec}")
+                for wire, codec, group in sends]
+            try:
+                await asyncio.gather(*tasks)
+            finally:
+                await aio.reap(*(t for t in tasks if not t.done()))
+        finally:
+            await asyncio.to_thread(_unlink, scratch)
+            if self.device.type == "cuda":
+                # The encodes' transients (the update tree, each frame's
+                # decoded tensors) go back to the card, which the job's
+                # trainers may share; the residuals stay.
+                torch.cuda.empty_cache()
 
     async def _broadcast(self, cfg, update_path: Path, round_num: int, elastic=None,
                          extra_header: "dict | None" = None,
@@ -1524,7 +1714,8 @@ class ParameterServerExecutor(JobExecutor):
             await aio.reap(*(t for t in tasks if not t.done()))
 
     async def _notify_updated(self, scheduler_peer: str, job_id: str, round_num: int,
-                              execution=None, shard: int = 0) -> ProgressResponse:
+                              execution=None, shard: int = 0,
+                              arrivals: "dict | None" = None) -> ProgressResponse:
         gen = getattr(execution, "scheduler_generation", None)
         progress = Progress(
             kind=ProgressKind.UPDATED, job_id=job_id, round=round_num, shard=shard,
@@ -1532,11 +1723,16 @@ class ParameterServerExecutor(JobExecutor):
             # >= 2), so an unrestarted job's UPDATED is the reference's bytes.
             scheduler_generation=gen if gen is not None and gen >= 2 else None,
         )
+        if arrivals is not None:
+            # Only adaptive_steps jobs attach the key: a static UPDATED
+            # keeps its bytes.
+            progress.metrics = {"arrival_s": {p: round(t, 6) for p, t in arrivals.items()}}
         resp = await self.node.request(scheduler_peer, PROTOCOL_PROGRESS, progress, timeout=30)
         if not isinstance(resp, ProgressResponse):
             raise RequestError(f"unexpected progress response {resp!r}")
-        log.info("ps %s: round %d UPDATED%s (answered %s)", job_id, round_num,
-                 f" shard {shard}" if shard else "", resp.kind.value)
+        log.info("ps %s: round %d UPDATED%s (answered %s)%s", job_id, round_num,
+                 f" shard {shard}" if shard else "", resp.kind.value,
+                 f"; arrival_s {progress.metrics['arrival_s']}" if arrivals is not None else "")
         if execution is not None:
             new_gen = getattr(resp, "generation", None)
             if new_gen is not None:

@@ -1655,3 +1655,94 @@ def test_weight_swap_under_decode_traffic_serves_the_folded_model(cuda):
         want = generate(folded, [probe], 24).tolist()
     assert got == want
     assert pool._alloc.generation == 1 and pool.swaps_applied == 1
+
+
+def test_adaptive_broadcast_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """The server's per-link broadcast (``_broadcast_adaptive``) over three
+    peers on a base codec of "none": a fast link ships the f32 update
+    itself, a mid one int8 then int4 (a switch in round 1), a slow one
+    int4, each quantized link on its own residual. On the card and on the
+    CPU every wire is byte-equal with the same header, and every residual
+    is equal bit for bit."""
+    import asyncio
+    from pathlib import Path
+
+    from hypha_tpu_torch import messages as m
+    from hypha_tpu_torch.executor.serialization import save_file
+    from hypha_tpu_torch.ft.adaptive import LinkTable
+    from hypha_tpu_torch.worker.ps_executor import ParameterServerExecutor
+
+    class Spy:
+        def __init__(self):
+            self.pushes = []
+
+        async def push(self, peer, header, source):
+            data = Path(source).read_bytes()
+            self.pushes.append((peer, dict(header), data))
+            return len(data)
+
+    rates = {"fast": (8e8, 8e8), "mid": (5e7, 8e5), "slow": (8e5, 8e5)}
+    cfg = m.AggregateExecutorConfig(
+        updates=m.Receive(m.Reference.from_peers(list(rates), "u")),
+        results=m.Send(m.Reference.from_peers(list(rates), "r")),
+        optimizer=m.Nesterov(lr=0.7, momentum=0.9), num_workers=3)
+    rng = np.random.default_rng(17)
+    updates = [{"b/w": (rng.standard_normal((257, 33)) * 1e-2).astype(np.float32),
+                "a/v": rng.standard_normal(4099).astype(np.float32)} for _ in range(2)]
+
+    def broadcast(device, root):
+        root.mkdir()
+        node = Spy()
+        ps = ParameterServerExecutor(node, root, device=device)
+        table = LinkTable(base_codec="none", hi_mbps=100.0, lo_mbps=10.0, alpha=1.0)
+        efs, out = {}, []
+        for r, update in enumerate(updates):
+            for peer, rate in rates.items():
+                table.observe(peer, 10 ** 6, 8e6 / rate[r])
+            path = root / f"update-{r}.safetensors"
+            save_file({k: torch.from_numpy(v) for k, v in update.items()}, path)
+            node.pushes.clear()
+            asyncio.run(ps._broadcast_adaptive(cfg, path, r, None, table, efs, root))
+            out.append(sorted(node.pushes, key=lambda x: x[0]))
+        return out, {p: {k: v.cpu() for k, v in ef.state().items()} for p, ef in efs.items()}
+
+    host, host_res = broadcast("cpu", tmp_path / "host")
+    card, card_res = broadcast(cuda, tmp_path / "card")
+    assert card == host
+    codecs = [{p: h["codec"] for p, h, _ in pushes} for pushes in card]
+    assert codecs == [{"fast": "none", "mid": "int8", "slow": "int4"},
+                      {"fast": "none", "mid": "int4", "slow": "int4"}]
+    assert set(card_res) == set(host_res) == {"mid", "slow"}
+    for p in card_res:
+        for k in host_res[p]:
+            assert torch.equal(card_res[p][k].view(torch.int32), host_res[p][k].view(torch.int32))
+
+
+def test_trainer_codec_switch_on_the_card_uploads_the_cpus_bytes(cuda, tmp_path):
+    """The trainer's upload across per-link hints (int8, then int4 with
+    the residual carried, an equal hint ignored, then none): the same
+    seeded Δθ written on the card and on the CPU gives byte-equal files."""
+    from hypha_tpu_torch import compress
+    from hypha_tpu_torch.executor.training import codec_hint
+
+    rng = np.random.default_rng(23)
+    deltas = [{"w": (rng.standard_normal((129, 65)) * 1e-3).astype(np.float32),
+               "v": (rng.standard_normal(1001) * 1e-4).astype(np.float32)} for _ in range(4)]
+    hints = ["int4", "int4", "none", "none"]
+
+    def uploads(device, root):
+        root.mkdir()
+        codec, ef, out = "int8", compress.ErrorFeedback(), []
+        for r, delta in enumerate(deltas):
+            path = root / f"delta-{r}.safetensors"
+            compress.write_delta(path, {k: torch.from_numpy(v).to(device) for k, v in delta.items()},
+                                 codec, ef=ef if codec in compress.QUANT_CODECS else None)
+            out.append((codec, path.read_bytes()))
+            hint = codec_hint({"codec": hints[r]}, codec)
+            if hint is not None:
+                codec = hint
+        return out
+
+    host, card = uploads("cpu", tmp_path / "host"), uploads(cuda, tmp_path / "card")
+    assert [c for c, _ in card] == ["int8", "int4", "int4", "none"]
+    assert card == host

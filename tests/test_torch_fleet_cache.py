@@ -488,8 +488,9 @@ def test_transfer_vs_recompute_policy_math(pair):
         assert values[0] == values[1]
         cost = pools["torch"].prefill_cost_s(1000)
         assert est * 8.0 / values[1][0] < cost <= est * 8.0 / values[1][1]
-        with pytest.raises(NotImplementedError, match="adaptive rounds and chaos kinds"):
-            LinkTable().codec_for("peer")
+        # The codec ladder of the server's table: an unmeasured peer keeps
+        # the base codec, in both packages.
+        assert LinkTable().codec_for("peer") == JLinkTable().codec_for("peer") == "none"
     finally:
         for pool in pools.values():
             pool.close()

@@ -363,11 +363,97 @@ def test_chaos_controller_kills_at_the_round_trigger():
     run(scenario())
 
 
-@pytest.mark.parametrize("spec", ["delay-worker:1", "partition-ps:1", "kill-scheduler:1",
-                                  "slow-worker:2", "bw-cap:w1:10"])
+# The two kinds aimed at the scheduler need its own recovery.
+@pytest.mark.parametrize("spec", ["kill-scheduler:1", "partition-scheduler:1"])
 def test_chaos_controller_refuses_unported_kinds(spec):
-    with pytest.raises(NotImplementedError, match="Queue 1: adaptive rounds and chaos kinds"):
+    with pytest.raises(NotImplementedError, match="Queue 1: scheduler recovery"):
         tchaos.ChaosController(tchaos.parse_chaos_specs(spec, "w1"), {})
+
+
+class _ChaosNode:
+    """A node stand-in whose push drains its source (bytes or an async
+    iterator of chunks) and whose request answers at once; every call is
+    logged as ``(kind, node, peer, what)``."""
+
+    def __init__(self, name: str, log: list) -> None:
+        self.name, self.log, self._pull_handler = name, log, None
+
+    async def push(self, peer_id, resource, source):
+        if isinstance(source, (bytes, bytearray)):
+            chunks = [bytes(source)]
+        else:
+            chunks = [c async for c in source]
+        self.log.append(("push", self.name, peer_id, [len(c) for c in chunks]))
+        return sum(len(c) for c in chunks)
+
+    async def request(self, peer_id, protocol, msg, **kw):
+        self.log.append(("request", self.name, peer_id, getattr(msg, "kind", None).value))
+        return "ok"
+
+    def on_pull(self, handler):
+        self._pull_handler = handler
+
+
+async def _chaos_transcript(pkg, chaos, m, spec: str, monkeypatch) -> list:
+    """One package's controller fires ``spec`` against three stand-in
+    workers; every node then pushes 40 KiB to each other and sends the
+    scheduler two Status and one Update message (a partition-ps heals and
+    the script runs again). Sleeps are recorded, not slept; the slow
+    kind's clock ticks 0.1 s a read."""
+    log: list = []
+    real_sleep = asyncio.sleep
+
+    async def sleep(seconds, *a, **k):
+        log.append(("sleep", round(float(seconds), 9)))
+        await real_sleep(0)
+
+    monkeypatch.setattr(asyncio, "sleep", sleep)
+    ticks = iter(np.arange(1000) * 0.1)
+    monkeypatch.setattr(chaos, "time", type("T", (), {"monotonic": staticmethod(lambda: float(next(ticks)))}))
+    workers = {}
+    for name in ("w0", "w1", "psw"):
+        w = FakeWorker()
+        w.node = _ChaosNode(name, log)
+        workers[name] = w
+    actions = chaos.parse_chaos_specs(spec, "w1")
+    if "partition-ps" in spec:
+        actions[0].target = "psw"
+    ctl = chaos.ChaosController(actions, workers)
+    if actions[0].at_round:
+        ctl.on_round_metrics(actions[0].at_round - 1)
+
+    async def script():
+        for name, w in workers.items():
+            for peer in workers:
+                if peer != name:
+                    try:
+                        await w.node.push(peer, {"resource": "r"}, bytes(40 * 1024))
+                    except Exception as e:  # a partition's refusal, by type name
+                        log.append(("raised", name, peer, type(e).__name__, str(e)))
+            for kind in ("STATUS", "STATUS", "UPDATE"):
+                msg = m.Progress(kind=m.ProgressKind[kind], job_id="j")
+                try:
+                    await w.node.request("sched", m.PROTOCOL_PROGRESS, msg)
+                except Exception as e:
+                    log.append(("raised", name, "sched", type(e).__name__, str(e)))
+
+    await script()
+    await ctl.drain()
+    await script()
+    return [[a.kind, a.target, a.at_round] for a in ctl.fired] + log
+
+
+# The data-plane kinds: each fires against the same nodes, at the same
+# round, with the same sleeps, drops and chunking as the reference's.
+@pytest.mark.parametrize("spec", ["delay-worker:1", "partition-ps:1", "slow-worker:2",
+                                  "bw-cap:w1:10", "partition-worker:1", "jitter:w1:0.2"])
+def test_chaos_kinds_fire_as_the_reference(spec, monkeypatch):
+    got = {}
+    for pkg, chaos, m in (("jax", jchaos, jmsg), ("port", tchaos, tmsg)):
+        with monkeypatch.context() as mp:
+            got[pkg] = run(_chaos_transcript(pkg, chaos, m, spec, mp))
+    assert got["port"] == got["jax"]
+    assert any(e[0] in ("sleep", "raised") for e in got["port"]), "the action took effect"
 
 
 # --------------------------------------------------- the orchestrated job

@@ -1,11 +1,16 @@
 """Port hygiene: hypha_tpu_torch and chip_smoke.py import no JAX, nothing
 of the JAX package, and no package the card's machine lacks (safetensors,
-httpx, cryptography); entry points never drop quietly to the CPU; the kernel
-dispatchers never fall back to the plain versions."""
+httpx, cryptography); the node roles that hold no tensor import no torch;
+entry points never drop quietly to the CPU; the kernel dispatchers never
+fall back to the plain versions."""
 
 from __future__ import annotations
 
 import ast
+import importlib
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -77,16 +82,49 @@ def test_refusals_name_the_current_roadmap_label():
     """Codecs and streaming, the serving router, the prefix cache, the
     fleet cache with KV migration, mTLS, mux, the process executor's
     command, checkpoint resume, the fault tolerance of sharded and
-    streaming jobs, the broadcast tree and live weight swap are ported: no
-    module refuses an option under a label that named them."""
+    streaming jobs, the broadcast tree, live weight swap, and adaptive
+    rounds with the data-plane chaos kinds are ported: no module refuses
+    an option under a label that named them."""
     retired = ("codecs/streaming", "serving router", "prefix cache with copy_blocks",
                "fleet cache and kv migration", "queue 1: mtls", "queue 1: network/mux.py",
                "queue 1: process executor command", "queue 1: checkpoint resume",
-               "sharded ps/ft/rejoin", "queue 1: broadcast tree", "queue 1: live weight swap")
+               "sharded ps/ft/rejoin", "queue 1: broadcast tree", "queue 1: live weight swap",
+               "adaptive rounds and chaos kinds")
     stale = [f"{p.relative_to(ROOT)}:{i}" for p in _port_files()
              for i, line in enumerate(p.read_text().splitlines(), 1)
              if any(label in line.lower() for label in retired)]
     assert not stale, stale
+
+
+@pytest.mark.parametrize("module", ["hypha_tpu_torch.cli", "hypha_tpu_torch.gateway",
+                                    "hypha_tpu_torch.data_node", "hypha_tpu_torch.node_config",
+                                    "hypha_tpu_torch.scheduler.orchestrator"])
+def test_node_roles_without_tensors_import_no_torch(module):
+    """The CLI, the gateway, the data node and the training scheduler load
+    without torch (its import is seconds of every such process's start); the
+    packages they reach (``ft``, ``compress``, ``stream``) import their torch
+    modules lazily."""
+    code = (f"import sys, {module}; "
+            "sys.exit('torch imported' if 'torch' in sys.modules else 0)")
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:] or proc.stdout[-2000:]
+
+
+@pytest.mark.parametrize("package", ["hypha_tpu_torch.ft", "hypha_tpu_torch.compress",
+                                     "hypha_tpu_torch.stream"])
+def test_lazy_package_exports_resolve(package):
+    """Every name a lazy package exports resolves: to its submodule's object,
+    or to the package's own definition."""
+    mod = importlib.import_module(package)
+    for name in mod.__all__:
+        value = getattr(mod, name)
+        sub = mod._SUBMODULE.get(name)
+        home = importlib.import_module(f"{package}.{sub}") if sub else mod
+        assert value is getattr(home, name), name
+    with pytest.raises(AttributeError):
+        getattr(mod, "no_such_name")
 
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):

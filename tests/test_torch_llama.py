@@ -93,3 +93,57 @@ def test_registry_builds_the_llama_lineage():
         build_model({"family": "gpt2"}, device="cpu")
     with pytest.raises(NotImplementedError):
         build_model({"family": "llama", "preset": "tiny", "config": {"lora_rank": 4}}, device="cpu")
+
+
+def _grads(remat, dtype, *, checkpoint=None):
+    model, _ = build_model({"family": "llama", "preset": "tiny", "seed": 0,
+                            "config": {"num_layers": 3, "remat": remat, "dtype": dtype}},
+                           device="cpu")
+    model.init_weights(0)
+    if checkpoint is not None:  # every block under the given rematerialization instead
+        for block in model.layers:
+            block.forward = (lambda b: lambda x, cos, sin, cache, i, off, _f=b.forward: checkpoint(
+                _f, x, cos, sin, cache, i, off, use_reentrant=False))(block)
+    ids = torch.from_numpy(_ids(3, (2, 48))).long()
+    logits = model(ids)
+    loss = torch.nn.functional.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]).float(),
+                                             ids[:, 1:].reshape(-1))
+    return [loss.detach(), *torch.autograd.grad(loss, list(model.parameters()))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("other", ["plain backward", "torch.utils.checkpoint"])
+def test_remat_gradients_are_the_same_bits(dtype, other):
+    """``remat`` (the model's ``_Remat``: the block's inputs kept, the block
+    run again in the backward) gives the loss and every parameter's
+    gradient of the plain backward and of ``torch.utils.checkpoint``, bit
+    for bit."""
+    from torch.utils.checkpoint import checkpoint
+
+    got = _grads(True, dtype)
+    want = (_grads(False, dtype) if other == "plain backward"
+            else _grads(False, dtype, checkpoint=checkpoint))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_remat_step_imports_no_dynamo():
+    """A remat training step loads no torch._dynamo (torch.utils.checkpoint
+    imports it at its first call: seconds of a trainer's start)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import sys, torch\n"
+        "from hypha_tpu_torch.models import build_model\n"
+        "m, _ = build_model({'family': 'llama', 'preset': 'tiny', 'seed': 0,\n"
+        "                    'config': {'num_layers': 2, 'remat': True}}, device='cpu')\n"
+        "m.init_weights(0)\n"
+        "loss = m(torch.randint(0, 200, (2, 16))).float().logsumexp(-1).mean()\n"
+        "torch.autograd.grad(loss, list(m.parameters()))\n"
+        "sys.exit('torch._dynamo imported' if 'torch._dynamo' in sys.modules else 0)\n")
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": str(root)}, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:] or proc.stdout[-2000:]

@@ -9,7 +9,8 @@ receive are bit-equal, and so are the ``UPDATED`` notifications the
 scheduler gets — also when a worker re-sends its delta mid-round (the
 earlier one is un-folded), and so they are for a stream, an elastic and a
 sharded durable server, and for an elastic durable round closed by a
-tree-reduce partial. The options the port does not run raise
+tree-reduce partial; and with the adaptive options (arrival lags in
+``UPDATED``, per-link codecs and residuals). The options the port does not run raise
 ``NotImplementedError`` naming their ROADMAP.md labels, and the executors
 refuse to start without CUDA unless given ``device="cpu"``.
 """
@@ -32,6 +33,7 @@ from hypha_tpu.network import Node as JNode
 from hypha_tpu.network import TcpTransport as JTcp
 from hypha_tpu.worker.ps_executor import ParameterServerExecutor as JPS
 from hypha_tpu_torch import messages as tmsg
+from hypha_tpu_torch.compress import frame_header
 from hypha_tpu_torch.network import Node as TNode
 from hypha_tpu_torch.network import TcpTransport as TTcp
 from hypha_tpu_torch.worker.ps_executor import ParameterServerExecutor as TPS
@@ -73,9 +75,11 @@ def _aggregate(m, **over):
 
 
 async def _serve(pkg: str, root: Path, files: dict, resend: bool, codec: str = "none",
-                 **options) -> tuple:
+                 seen: "dict | None" = None, **options) -> tuple:
     """One package's parameter server fed by two workers; returns the
-    broadcasts each worker saved and the scheduler's UPDATED rounds."""
+    broadcasts each worker saved and the scheduler's UPDATED rounds.
+    ``seen`` (when given) takes each broadcast's push header under its
+    (worker, round) and each UPDATED's metrics under its round."""
     m, Node, Tcp, PS = PKG[pkg]
     nodes = {p: Node(Tcp(), peer_id=p) for p in ("ps", "sched", *WORKERS)}
     for n in nodes.values():
@@ -88,6 +92,8 @@ async def _serve(pkg: str, root: Path, files: dict, resend: bool, codec: str = "
 
     async def on_progress(peer, p):
         updated.append((peer, p.kind.value, p.round, p.job_id))
+        if seen is not None:
+            seen[p.round] = dict(p.metrics)
         last = p.round >= ROUNDS - 1
         return m.ProgressResponse(kind=m.ProgressResponseKind.DONE if last else m.ProgressResponseKind.OK)
 
@@ -109,6 +115,8 @@ async def _serve(pkg: str, root: Path, files: dict, resend: bool, codec: str = "
             assert push.peer == "ps" and push.resource["round"] == r
             dest = root / f"{pkg}-{w}-{r}.safetensors"
             await push.save_to(dest)
+            if seen is not None:
+                seen[(w, r)] = dict(push.resource)
             got[(w, r)] = (jcompress.read_delta(dest), dest.read_bytes())
     status = await asyncio.wait_for(execution.wait(), 30)
     for n in nodes.values():
@@ -152,8 +160,6 @@ def test_broadcast_updates_are_bit_equal(tmp_path, monkeypatch, resend, codec):
 # label (checkpoint_dir, quorum_fraction, num_ps_shards, broadcast_tree and
 # serve_peers run: below).
 @pytest.mark.parametrize("option,value,label", [
-    ("adaptive_steps", True, "adaptive rounds and chaos kinds"),
-    ("adaptive_codec", True, "adaptive rounds and chaos kinds"),
     ("adopt_grace_s", 5.0, "scheduler recovery"),
     ("report_metrics_s", 1.0, "telemetry"),
 ])
@@ -162,6 +168,43 @@ def test_unported_options_raise_with_their_labels(tmp_path, option, value, label
     with pytest.raises(NotImplementedError, match=f"{option}.*ROADMAP.md, Queue 1: {label}"):
         asyncio.run(ps.execute("agg", _aggregate(tmsg, **{option: value}), "sched"))
     assert not list(tmp_path.iterdir())  # refused before anything was made
+
+
+# The adaptive options (formerly refused): both packages' servers report
+# the same peers' arrival lags with UPDATED (adaptive_steps), and with
+# per-link codecs (thresholds above any link, so every measured link
+# ships int4 on its own residual) send each worker the same frame bytes
+# under the same codec header, over two rounds.
+@pytest.mark.parametrize("option", ["adaptive_steps", "adaptive_codec"])
+def test_adaptive_options_broadcast_as_the_reference(tmp_path, monkeypatch, option):
+    monkeypatch.setattr(native, "_load", lambda: None)
+    files = _deltas(tmp_path, "int8")
+    over = ({"adaptive_steps": True} if option == "adaptive_steps" else
+            {"adaptive_codec": True, "codec_bw_hi_mbps": 1e9, "codec_bw_lo_mbps": 1e9})
+    out, seen = {}, {}
+    for pkg in PKG:
+        (tmp_path / pkg).mkdir()
+        seen[pkg] = {}
+        out[pkg] = asyncio.run(asyncio.wait_for(
+            _serve(pkg, tmp_path / pkg, files, False, "int8", seen=seen[pkg], **over), 60))
+    (jax_got, jax_updated, _), (port_got, port_updated, port_status) = out["jax"], out["port"]
+    assert port_status.state == "completed" and port_updated == jax_updated
+    for r in range(ROUNDS):
+        metrics = {pkg: seen[pkg][r] for pkg in PKG}
+        if option == "adaptive_steps":
+            assert set(metrics["port"]) == set(metrics["jax"]) == {"arrival_s"}
+            assert set(metrics["port"]["arrival_s"]) == set(metrics["jax"]["arrival_s"]) \
+                == set(WORKERS)
+        else:
+            assert metrics["port"] == metrics["jax"] == {}
+    for key, (want, want_bytes) in jax_got.items():
+        got, got_bytes = port_got[key]
+        assert got_bytes == want_bytes, key
+        header = {pkg: seen[pkg][key] for pkg in PKG}
+        assert header["port"] == header["jax"], key
+        codec = frame_header(tmp_path / "jax" / f"jax-{key[0]}-{key[1]}.safetensors")
+        assert header["port"].get("codec") == ("int4" if option == "adaptive_codec" else None)
+        assert codec["codec"] == ("int4" if option == "adaptive_codec" else "int8")
 
 
 # Options that used to be refused with a streaming sync mode or several

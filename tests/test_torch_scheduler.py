@@ -18,6 +18,8 @@ The same seeded inputs and the same injected clock go through
 * ``DiLoCoJob`` and the dispatched train and aggregate specs
   (``_train_spec``, ``_plan_streams`` for fixed peers and a fixed base id)
   encoded by both codecs, byte for byte;
+* ``BatchScheduler`` with a ``StragglerController`` (``adaptive``) over a
+  transcript of whole rounds, answers and assignments equal;
 * every job option the port does not run raising ``NotImplementedError``
   with its ROADMAP.md label, one case per option.
 """
@@ -411,22 +413,87 @@ def test_batch_scheduler_caps_are_the_reference_constants():
     assert (tbs.TIME_CAP_MS, tbs.UPDATES_CAP) == (jbs.TIME_CAP_MS, jbs.UPDATES_CAP) == (10_000.0, 3)
 
 
-# shards_due runs (tests/test_torch_shard.py); beside adaptive steps the
-# scheduler still refuses (the case name is kept).
-@pytest.mark.parametrize("option,label", [
-    ("shards_due", "adaptive rounds and chaos kinds"),
-    ("adaptive", "adaptive rounds and chaos kinds"),
-    ("generation", "scheduler recovery"),
-])
+@pytest.mark.parametrize("option,label", [("generation", "scheduler recovery")])
 def test_batch_scheduler_unported_options_raise(option, label):
     tracker = ttr.ProgressTracker("ps", 8, 2, clock=lambda: 0.0)
-    value = {"shards_due": lambda r: (0,), "adaptive": object(), "generation": 2}[option]
-    kw = {option: value}
-    if option == "shards_due":
-        tbs.BatchScheduler(tracker, **kw)
-        kw["adaptive"] = object()
     with pytest.raises(NotImplementedError, match=label):
-        tbs.BatchScheduler(tracker, **kw)
+        tbs.BatchScheduler(tracker, **{option: 2})
+
+
+def adaptive_transcript(pkg: str, shards: int = 1, speeds=(1.0, 1.0, 4.0, 1.0), rounds=4,
+                        drop: "set | None" = None) -> list:
+    """One package's ``BatchScheduler`` with its ``StragglerController`` on
+    an injected clock, driven through ``rounds`` rounds by workers of batch
+    2 whose batches take ``speeds`` seconds each: each runs until its
+    ``SCHEDULE_UPDATE`` countdown ends, then sends UPDATE; once all have,
+    every shard sends UPDATED with the arrival lags (a peer in ``drop``
+    is left out of them, as a quorum-dropped one), and each worker
+    UPDATE_RECEIVED. Every message is built in the JAX package, encoded
+    and decoded by the package under test. Returns every answer as
+    ``(peer, kind, counter, message)`` and each round's assignments."""
+    from hypha_tpu.ft.adaptive import StragglerController as JSC
+    from hypha_tpu_torch.ft.adaptive import StragglerController as TSC
+
+    P = PKG[pkg]
+    now = [0.0]
+    clock = lambda: now[0]  # noqa: E731
+    ps = [f"ps{k}" for k in range(shards)]
+    tracker = P.tr.ProgressTracker(ps, 1000, rounds, clock=clock)
+    peers = [f"w{i}" for i in range(len(speeds))]
+    for p in peers:
+        tracker.add_worker(p, 2)
+    ctrl = (JSC if pkg == "jax" else TSC)(base_steps=8, clock=clock)
+    sched = P.bs.BatchScheduler(tracker, adaptive=ctrl,
+                                shards_due=(lambda r: tuple(range(shards))) if shards > 1 else None)
+    out: list = []
+
+    def send(peer, **kw):
+        msg = P.m.decode(jmsg.encode(jmsg.Progress(job_id="j", **kw)))
+        resp = sched.on_progress(peer, msg)
+        out.append((peer, resp.kind.value, resp.counter, resp.message))
+        return resp
+
+    for r in range(rounds):
+        t0 = now[0]
+        done_at = {}
+        for i, p in enumerate(peers):
+            t, left = t0, None
+            while left is None or left > 0:
+                t += speeds[i]
+                now[0] = t
+                resp = send(p, kind=jmsg.ProgressKind.STATUS, batch_size=2)
+                if resp.kind.value == "schedule-update":
+                    left = resp.counter
+                elif left is not None:
+                    left -= 1
+            done_at[p] = t
+        # The scheduler's clock moves on every Status in wall order: replay
+        # is per worker, so the controller sees each worker's own cadence.
+        now[0] = max(done_at.values()) + 0.5
+        for p in peers:
+            send(p, kind=jmsg.ProgressKind.UPDATE)
+        arrivals = {p: round(done_at[p] - t0 + 0.25, 6) for p in peers
+                    if p not in (drop or set())}
+        for k in range(shards):
+            send(ps[k], kind=jmsg.ProgressKind.UPDATED, round=r, shard=k,
+                 metrics={"arrival_s": arrivals})
+        out.append(("assignments", dict(sorted(ctrl.assignments().items()))))
+        for p in peers:
+            send(p, kind=jmsg.ProgressKind.UPDATE_RECEIVED)
+    out.append(("snapshot", ctrl.snapshot()))
+    return out
+
+
+# The batch scheduler with a straggler controller (formerly refused, with
+# shards_due beside it too): every answer and assignment as the reference's.
+@pytest.mark.parametrize("option", ["adaptive", "shards_due"])
+def test_batch_scheduler_adaptive_answers_as_the_reference(option):
+    shards = 2 if option == "shards_due" else 1
+    want = adaptive_transcript("jax", shards)
+    got = adaptive_transcript("port", shards)
+    assert got == want
+    counters = [c for _, kind, c, _ in (e for e in got if len(e) == 4) if kind == "schedule-update"]
+    assert counters and min(counters) < 7, "the slow worker was given fewer steps"
 
 
 # -- allocation: Candidates, the offer window, batch sizing --------------------
@@ -636,8 +703,6 @@ def test_stream_and_codec_options_dispatch_as_the_jax_wire(option):
 # accepts, with the other fields the reference needs beside it.
 _FT_ON = SimpleNamespace(enabled=True)
 UNPORTED = {
-    "adaptive_steps": (True, "adaptive rounds and chaos kinds"),
-    "adaptive_codec": (True, "adaptive rounds and chaos kinds"),
     "scheduler_recovery": (True, "scheduler recovery",
                            {"checkpoint_dir": "/ckpt", "ft": _FT_ON}),
     "metrics_plane": (True, "telemetry"),
@@ -663,6 +728,9 @@ def test_unported_job_option_raises_with_its_label(option):
 # tree and serving followers (refused until they were ported): both
 # packages build the job, and it encodes to the same bytes.
 LIFTED = {
+    "adaptive_steps": {"adaptive_steps": True, "ft": "on"},
+    "adaptive_codec": {"adaptive_codec": True, "codec_bw_hi_mbps": 400.0,
+                       "codec_bw_lo_mbps": 250.0},
     "broadcast_tree": {"broadcast_tree": True, "reduce_group_size": 2},
     "serve_peers": {"serve_peers": ["s0"], "broadcast_tree": True, "reduce_group_size": 2},
     "ft": {"ft": "on", "sync_mode": "stream"},

@@ -557,7 +557,7 @@ def test_train_swap_phase_on_the_cpu(monkeypatch):
     """The smoke's ``train_swap`` (``chip_smoke.run_swap_job``) at a tiny
     size on the CPU, held to its gates but the card's launch counts: the
     server pushes through the relay ``w0`` until it is killed after round
-    2, then to the leaves; every wire byte-equal; every flip's digest and
+    ``SWAP_KILL_AFTER`` (1), then to the leaves; every wire byte-equal; every flip's digest and
     probe the host fold's; the traffic whole and monotonically stamped."""
     import chip_smoke as cs
 
