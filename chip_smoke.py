@@ -168,15 +168,25 @@ Phases, each printing one JSON line:
    pure-Python verify ms, the largest progress gap against the watchdog,
    the trainer's peak, ``ssl.OPENSSL_VERSION`` and the phase's seconds;
 12c. train_ft — fault-tolerant blocking DiLoCo (``run_ft_job``): 7B widths
-   cut to 1 layer (``FT_LAYERS`` says why), int8 deltas, 5 rounds of 4
+   cut to 1 layer (``FT_LAYERS`` says why), int8 deltas, 6 rounds of 4
    steps, two trainer processes on the card under the port's scheduler
    with ``FTConfig`` (quorum 0.5, one parameter-server restart),
    ``checkpoint_dir`` (trainer checkpoints every 4 rounds, the durable
-   server every 2) and a ``ChaosController`` (``FT_CHAOS``): ``w1`` killed after
+   server every 2), ``scheduler_recovery`` and a ``ChaosController``
+   (``FT_CHAOS``): ``w1`` killed after
    its round-0 delta, round 1 closed on ``w0`` alone, a spare ``w2``
    auctioned and caught up through the server's Σ; the parameter server
    killed at round 3's first journaled delta and restarted under its peer
-   id on a new port, replaying round 2 from its journal. Gates
+   id on a new port, replaying round 2 from its journal; the scheduler
+   killed at round 4's first journaled delta (``run_ft_job`` says when it
+   restarts) and restarted under its peer id, adopting ``w0``, ``w2`` and
+   the server from its journal (``scheduler_problems``: one recovery at
+   generation 2, three AdoptAcks inside the deadline, no auction or
+   dispatch after the kill, round 4 broadcast during the outage with two
+   folds and no dedup hit, the frontier fast-forwarded to round 5, every
+   answer to a trainer after the restart stamped with generation 2 and
+   its round, the parked sends answered by generation 2, no stale drop,
+   the θ track over all six rounds, the journal gone after DONE). Gates
    (``ft_problems``): every round ``UPDATED`` once and ``attempt`` 0,
    round 1 collected ``w0``'s delta alone with ``w1``'s absence logged,
    ``w2``'s θ after the catch-up equal to θ₀ + Σ of the broadcast updates
@@ -191,7 +201,10 @@ Phases, each printing one JSON line:
    the catch-up's bytes and seconds, kill to generation 2's first
    broadcast, the replay, each checkpoint's seconds and bytes, the
    journal's records and bytes, each trainer's and the card's peak
-   memory and the free disk before and after;
+   memory, the free disk before and after, and the scheduler's kill to
+   restart, restart to the last AdoptAck, each round's wall, the outage's
+   added wall against one round plus ``FT_RESTART_BUDGET_S``, its
+   journal's records and bytes and the parked attempts;
 12d. train_shard — the sharded parameter service and the tree reduce
    (``train_shard_phase``): ``run_node_job`` with two parameter-server
    hosts ``psw0`` and ``psw1`` (the distinct-peer auction puts one shard
@@ -2664,7 +2677,8 @@ def node_probes(device):
                                 "round": progress.round if own else worker_round.get(peer, 0),
                                 "batch_size": progress.batch_size, "ms": ms,
                                 "answer": resp.kind.value, "counter": resp.counter,
-                                "shard": progress.shard, "sched_round": self.tracker.round})
+                                "shard": progress.shard, "sched_round": self.tracker.round,
+                                "generation": resp.generation, "resp_round": resp.round})
         if kind == ProgressKind.UPDATE_RECEIVED:
             worker_round[peer] = worker_round.get(peer, 0) + 1
         return resp
@@ -3597,8 +3611,8 @@ def train_secure_phase(stream: dict) -> dict:
 FT_LAYERS = 1
 FT_MODEL = {"model_type": "causal-lm", "family": "llama", "preset": "llama2-7b",
             "seed": 0, "config": {"num_layers": FT_LAYERS, "remat": True}}
-FT_ROUNDS, FT_STEPS = 5, 4
-FT_CHAOS = "kill-worker:1,kill-ps:3"
+FT_ROUNDS, FT_STEPS = 6, 4  # 5 until kill-scheduler: round 5 runs under generation 2
+FT_CHAOS = "kill-worker:1,kill-ps:3,kill-scheduler:4"
 FT_EVERY = 2  # ps_checkpoint_every_rounds: round 2's commit is replayed
 FT_CKPT_EVERY = 4  # checkpoint_every: each trainer saves its last round (2 before train_shard_ft)
 # The elastic round deadline: about 3x the healthy collection of round 0
@@ -3608,14 +3622,22 @@ FT_CKPT_EVERY = 4  # checkpoint_every: each trainer saves its last round (2 befo
 # rejoiner's catch-up blocks the server's collect in (25 s) stays inside.
 FT_DEADLINE_S = 70.0
 FT_WAIT_S = 900.0  # the phase's scheduler deadline
+# The scheduler outage's cap: each log line the restart waits for (the
+# server's broadcast-first, each trainer's parked UPDATE_RECEIVED) must come
+# within it, or the phase fails (and the scheduler restarts anyway).
+FT_OUTAGE_CAP_S = 60.0
+# The reference's fixed restart budget beside one round (its
+# ``benchmarks/ft_chaos.py``): the bound the outage's added wall is held to.
+FT_RESTART_BUDGET_S = 10.0
 
 
 def ft_job(model: dict, *, rounds, steps, batch, lr, deadline_s, checkpoint_dir):
     """``node_job`` for two workers with int8 deltas, elastic rounds
     (quorum 0.5), one parameter-server restart, trainer checkpoints and
     the durable server under ``checkpoint_dir``, every ``FT_CKPT_EVERY``
-    and ``FT_EVERY``
-    rounds. The rejoin attempts outlast the wait for the spare worker."""
+    and ``FT_EVERY`` rounds, and scheduler recovery (its journal under
+    ``checkpoint_dir``, the default adoption grace and deadline). The
+    rejoin attempts outlast the wait for the spare worker."""
     from hypha_tpu_torch.ft import FTConfig
 
     return node_job(model, rounds=rounds, steps=steps, batch=batch, lr=lr, workers=2,
@@ -3624,7 +3646,7 @@ def ft_job(model: dict, *, rounds, steps, batch, lr, deadline_s, checkpoint_dir)
                                 rejoin_attempts=60, rejoin_backoff_s=1.0,
                                 ps_restart_attempts=1, ps_restart_backoff_s=1.0),
                     checkpoint_dir=str(checkpoint_dir), checkpoint_every=FT_CKPT_EVERY,
-                    ps_checkpoint_every_rounds=FT_EVERY)
+                    ps_checkpoint_every_rounds=FT_EVERY, scheduler_recovery=True)
 
 
 class ThetaTrack:
@@ -3829,14 +3851,25 @@ async def run_ft_job(root: Path, model: dict, *, device, rounds, steps, batch, s
       * ``kill-ps:3`` — ``psw`` is killed when round 3's first delta is
         journaled. A new ``psw`` node (same peer id, a new port) starts a
         second later; the scheduler's restart re-dispatches the aggregate
-        job to it, which recovers from ``<root>/ckpt/ps``.
+        job to it, which recovers from ``<root>/ckpt/ps``;
+      * ``kill-scheduler:4`` — the scheduler's node is stopped and its
+        ``run`` cancelled once round 4's first delta is journaled and
+        both trainers' round-4 METRICS were answered (after it a trainer
+        waits for the broadcast). The second delta folds, the server's
+        notify fails twice and it broadcasts round 4 without the
+        scheduler, both trainers merge it and their UPDATE_RECEIVED parks
+        in the bridge's retry; only after those log lines (each within
+        ``FT_OUTAGE_CAP_S``) a new ``Orchestrator`` on a new ``Node``
+        (same peer id, a new port) runs the same job, finds the journal
+        under ``<root>/ckpt/scheduler`` and adopts the executions.
 
-    Two holds make the schedule deterministic (``_gated_push``): round-2
+    Three holds make the schedule deterministic (``_gated_push``): round-2
     deltas wait until the rejoin is done, so the catch-up comes at round
     2 (Σ of rounds 0 and 1); the second worker's round-3 delta waits until
     the first worker's re-send to the restarted server was deduplicated,
     so exactly one was journaled before the kill and one re-send is a
-    dedup hit. Neither changes what a worker computes.
+    dedup hit; the second worker's round-4 delta waits until the
+    scheduler is dead. None changes what a worker computes.
 
     Returns what ``node_probes`` and ``ft_probes`` saw, the logs of the
     trainers, the server and the scheduler, the chaos times, the disk use
@@ -3880,12 +3913,29 @@ async def run_ft_job(root: Path, model: dict, *, device, rounds, steps, batch, s
     data = DataNode(TcpTransport(), {NODE_DATASET: data_dir}, peer_id="data", bootstrap=boot)
     w0, w1, psw = worker("w0"), worker("w1"), server("ps")
     node = Node(TcpTransport(), peer_id="sched", bootstrap=boot)
+
+    class SchedulerProcess:
+        """The chaos target of ``kill-scheduler``: its node stops first,
+        then ``stop`` cancels the orchestrator's ``run`` (the process dies)."""
+
+        def __init__(self) -> None:
+            self.node, self.run = node, None
+
+        async def stop(self) -> None:
+            if self.run is not None:
+                self.run.cancel()
+                await asyncio.gather(self.run, return_exceptions=True)
+
+    sched_proc = SchedulerProcess()
     actions = parse_chaos_specs(FT_CHAOS, "w1")
     for a in actions:
-        a.target = "psw" if a.kind == "kill-ps" else "w1"
-    chaos = ChaosController(actions, {"w0": w0, "w1": w1, "psw": psw}, clock=time.perf_counter)
+        a.target = {"kill-ps": "psw", "kill-scheduler": "sched"}.get(a.kind, "w1")
+    chaos = ChaosController(actions, {"w0": w0, "w1": w1, "psw": psw, "sched": sched_proc},
+                            clock=time.perf_counter)
     ps_fired, joined, deduped = asyncio.Event(), asyncio.Event(), asyncio.Event()
+    r4_folded, sched_dead = asyncio.Event(), asyncio.Event()
     first_r3: list = []
+    first_r4: list = []
 
     async def after_join(_peer: str) -> None:
         await joined.wait()
@@ -3896,7 +3946,13 @@ async def run_ft_job(root: Path, model: dict, *, device, rounds, steps, batch, s
         elif not first_r3:
             first_r3.append(peer)
 
-    gates = {2: after_join, 3: second_after_dedup}
+    async def second_after_kill(peer: str) -> None:
+        if first_r4 and first_r4[0] != peer:
+            await sched_dead.wait()
+        elif not first_r4:
+            first_r4.append(peer)
+
+    gates = {2: after_join, 3: second_after_dedup, 4: second_after_kill}
 
     def on_fold(round_num: int, peer: str, _covers=None) -> None:
         # The kills' round triggers: w1's once its round-0 delta is
@@ -3907,8 +3963,10 @@ async def run_ft_job(root: Path, model: dict, *, device, rounds, steps, batch, s
         elif round_num == 3 and not ps_fired.is_set():
             chaos.on_round_metrics(2)  # kill-ps:3: round 3 is running
             ps_fired.set()
+        elif round_num == 4:
+            r4_folded.set()
 
-    logs: dict = {"ps": [], "sched": []}
+    logs: dict = {"ps": [], "sched": [], "bridge": []}
 
     class Lines(logging.Handler):
         def __init__(self, key):
@@ -3920,7 +3978,7 @@ async def run_ft_job(root: Path, model: dict, *, device, rounds, steps, batch, s
 
     handlers = [(logging.getLogger(n), Lines(k)) for n, k in (
         ("hypha.torch.worker.ps", "ps"), ("hypha.torch.ft.durable", "ps"),
-        ("hypha.torch.scheduler.orchestrator", "sched"))]
+        ("hypha.torch.scheduler.orchestrator", "sched"), ("hypha.torch.worker.bridge", "bridge"))]
     levels = [lg.level for lg, _ in handlers]
     for lg, h in handlers:
         lg.addHandler(h)
@@ -3963,6 +4021,40 @@ async def run_ft_job(root: Path, model: dict, *, device, rounds, steps, batch, s
         started.append(psw2)
         extra["psw2_up_t"] = time.perf_counter()
 
+    async def scheduler_killer(rec) -> None:
+        """kill-scheduler:4 once round 4's first delta is journaled and both
+        trainers' round-4 METRICS were answered."""
+        await r4_folded.wait()
+        while {p["peer"] for p in rec["progress"]
+               if p["kind"] == "metrics" and p["round"] == 4} < {"w0", "w2"}:
+            await asyncio.sleep(0.05)
+        chaos.on_round_metrics(3)  # kill-scheduler:4: round 4 is running
+
+    async def outage_lines(rec) -> list:
+        """Wait, each within FT_OUTAGE_CAP_S, for the server's broadcast of
+        round 4 and both trainers' parked UPDATE_RECEIVED; returns what
+        did not come."""
+        job_peer = {d["job_id"]: d["peer"] for d in rec["dispatch"] if d["kind"] == "train"}
+
+        def parked() -> set:
+            return {peer for job, peer in job_peer.items() if any(
+                f"status update-received of {job} -> scheduler': attempt" in line
+                for line in logs["bridge"])}
+
+        waits = (("the server's broadcast-first of round 4", lambda: any(
+                     "round 4 UPDATED failed twice; broadcasting" in line
+                     for line in logs["ps"]) and any(b["round"] == 4 for b in rec["broadcast"])),
+                 ("both trainers' parked UPDATE_RECEIVED", lambda: parked() >= {"w0", "w2"}))
+        missing = []
+        loop = asyncio.get_running_loop()
+        for what, ready in waits:
+            deadline = loop.time() + FT_OUTAGE_CAP_S
+            while not ready() and loop.time() < deadline:
+                await asyncio.sleep(0.05)
+            if not ready():
+                missing.append(f"{what} not seen within {FT_OUTAGE_CAP_S:.0f} s")
+        return missing
+
     with node_probes(device) as rec, ft_probes(rec, theta, on_fold, deduped.set):
         restart = None
         try:
@@ -3973,9 +4065,29 @@ async def run_ft_job(root: Path, model: dict, *, device, rounds, steps, batch, s
                 _gated_push(w.node, gates)
             await node.wait_for_bootstrap()
             restart = asyncio.create_task(restarter(rec))
+            killer = asyncio.create_task(scheduler_killer(rec))
             t_job = time.perf_counter()
-            result = await Orchestrator(node).run(
-                job, auction_timeout=auction_timeout, status_timeout=status_timeout)
+            sched_proc.run = asyncio.create_task(Orchestrator(node).run(
+                job, auction_timeout=auction_timeout, status_timeout=status_timeout))
+            await asyncio.wait([sched_proc.run])
+            if sched_proc.run.cancelled():
+                # The kill: the journal outlives the process; a new node
+                # under the same peer id restarts the scheduler.
+                await chaos.drain()
+                extra["sched_kill_t"] = chaos.fired_at("sched")
+                sched_dead.set()
+                extra["outage_missing"] = await outage_lines(rec)
+                node2 = Node(TcpTransport(), peer_id="sched", bootstrap=boot)
+                await node2.start(listen)
+                started.append(node2)
+                extra["sched_restart_t"] = time.perf_counter()
+                await node2.wait_for_bootstrap()
+                orch = Orchestrator(node2)
+                result = await orch.run(job, auction_timeout=auction_timeout,
+                                        status_timeout=status_timeout)
+                extra["sched_counts"] = dict(orch.counts)
+            else:
+                result = sched_proc.run.result()
             extra["job_s"] = time.perf_counter() - t_job
             final = {"completed", "failed", "cancelled"}
             loop = asyncio.get_running_loop()
@@ -3989,7 +4101,7 @@ async def run_ft_job(root: Path, model: dict, *, device, rounds, steps, batch, s
                 await asyncio.sleep(0.1)
         finally:
             if restart is not None:
-                await aio.reap(restart)
+                await aio.reap(restart, killer)
             sampling.set()
             for t in tasks:
                 t.cancel()
@@ -4017,6 +4129,7 @@ async def run_ft_job(root: Path, model: dict, *, device, rounds, steps, batch, s
     for d in rec["dispatch"]:
         key = d["peer"] if d["kind"] == "train" else "aggregate"
         jobs[key] = [s["state"] for s in rec["statuses"] if s["job_id"] == d["job_id"]]
+    extra["sched_journal_left"] = (ckpt / "scheduler" / "sched-journal.cbor").exists()
     return dict(job=job, result=result, rec=rec, finished=finished, logs=logs, theta=theta,
                 chaos={a.kind: a.fired_at for a in chaos.fired}, jobs=jobs, extra=extra,
                 stop_errors=stop_errors, leftover=leftover, checkpoints=tree, ckpt=ckpt,
@@ -4109,10 +4222,151 @@ def ft_report(run: dict) -> dict:
         departures=[(d["peer"], d["reason"]) for d in rec["departures"]],
         rejoins=[(r["peer"], r["for"]) for r in rec["rejoins"]],
         ps_restarts=re.findall(r"parameter server shard \d+ restarted on (\S+)", sched_log),
-        theta=run["theta"] and {"catchups": run["theta"].catchups},
+        theta=run["theta"] and {"catchups": run["theta"].catchups,
+                                 "broadcast_rounds": list(run["theta"].rounds)},
+        scheduler=scheduler_report(run),
         disk_free_gb=(run["disk_before"].free / 1e9, run["disk_after"].free / 1e9),
         checkpoint_bytes=sum(n for _, n in run["checkpoints"]),
     )
+
+
+_SCHED_ADOPT = re.compile(r"^([\d.]+) adoption: (\S+) on (\S+) answered (\w+) \(round (\d+), "
+                          r"epoch (\d+)\)")
+_SCHED_RECOVERY = re.compile(r"^([\d.]+) scheduler recovery: generation (\d+) adopting")
+_SCHED_FORWARD = re.compile(r"adopted (\d+)/(\d+) executions, fast-forwarded round (\d+) -> "
+                            r"(\d+)")
+_SCHED_JOURNAL = re.compile(r"scheduler journal generation (\d+), (\d+) records, (\d+) bytes; "
+                            r"recovery counts (\{.*\})")
+_PARKED = re.compile(r"job (\S+): status (\S+) answered after (\d+) parked attempt\(s\) in "
+                     r"([\d.]+) s \(scheduler generation (\S+), round (\S+)\)")
+_PS_PARKED = re.compile(r"round (\d+) UPDATED answered after (\d+) parked attempt\(s\) in "
+                        r"([\d.]+) s \(scheduler generation (\S+), round (\S+)\)")
+
+
+def scheduler_report(run: dict) -> "dict | None":
+    """The scheduler's kill and restart (``run_ft_job``'s kill-scheduler),
+    from the stamps and the logs; None when the scheduler was not killed."""
+    extra, rec = run["extra"], run["rec"]
+    kill_t, restart_t = extra.get("sched_kill_t"), extra.get("sched_restart_t")
+    if kill_t is None or restart_t is None:
+        return None
+    sched_log, ps_log = run["logs"]["sched"], "\n".join(run["logs"]["ps"])
+    job_peer = {d["job_id"]: d["peer"] for d in rec["dispatch"]}
+    acks = [{"t": float(m.group(1)), "job": m.group(2), "peer": m.group(3),
+             "state": m.group(4), "round": int(m.group(5)), "epoch": int(m.group(6))}
+            for m in map(_SCHED_ADOPT.match, sched_log) if m]
+    recoveries = [int(m.group(2)) for m in map(_SCHED_RECOVERY.match, sched_log) if m]
+    forward = _SCHED_FORWARD.search("\n".join(sched_log))
+    journal = [(r, n) for root, r, n in rec["journal_by_root"] if root == "scheduler"]
+    updated = {}
+    for p in rec["progress"]:
+        if p["kind"] == "updated":
+            updated.setdefault(p["round"], p["t"])
+    walls = {r: updated[r] - updated[r - 1] for r in updated if r - 1 in updated}
+    base = [walls[r] for r in (1, 2, 3) if r in walls]
+    parked = [{"peer": job_peer.get(m.group(1), m.group(1)), "kind": m.group(2),
+               "attempts": int(m.group(3)), "s": float(m.group(4)),
+               "generation": m.group(5), "round": m.group(6)}
+              for m in (_PARKED.search(line) for line in run["logs"]["bridge"]) if m]
+    ps_parked = [{"round": int(a), "attempts": int(b), "s": float(c), "generation": d,
+                  "resp_round": e} for a, b, c, d, e in _PS_PARKED.findall(ps_log)]
+    trainers = {"w0", "w2"}
+    after = [p for p in rec["progress"] if p["t"] > restart_t and p["peer"] in trainers]
+    bcast4 = [b for b in rec["broadcast"] if b["round"] == 4]
+    return dict(
+        kill_to_restart_s=restart_t - kill_t,
+        restart_to_last_ack_s=(max(a["t"] for a in acks) - restart_t) if acks else None,
+        acks=acks, recoveries=recoveries,
+        adopted=forward and {"acked": int(forward.group(1)), "asked": int(forward.group(2)),
+                             "journal_round": int(forward.group(3)),
+                             "round": int(forward.group(4))},
+        journal_records=len(journal), journal_bytes=sum(n for _, n in journal),
+        journal_left=extra.get("sched_journal_left"), counts=extra.get("sched_counts"),
+        outage_missing=extra.get("outage_missing") or [],
+        auctions_after_kill=[a for a in rec["auctions"] if a["t0"] > kill_t],
+        dispatches_after_kill=[d for d in rec["dispatch"] if d["t"] > kill_t],
+        round4_broadcast=[{"t0": b["t0"], "t1": b["t0"] + b["s"], "to": b["to"]} for b in bcast4],
+        round_walls_s={r: walls[r] for r in sorted(walls)},
+        added_wall_s=(walls[4] - min(base)) if 4 in walls and base else None,
+        added_wall_bound_s=(max(base) + FT_RESTART_BUDGET_S) if base else None,
+        parked=parked, ps_parked=ps_parked,
+        responses_after_restart=[(p["peer"], p["kind"], p["answer"], p["generation"],
+                                  p["resp_round"], p["sched_round"]) for p in after],
+        stale_dropped_trainers=sum("stale scheduler generation" in line
+                                   for lines in trainer_logs(run).values() for line in lines),
+        stale_dropped_ps=ps_log.count("answered by stale scheduler generation"),
+    )
+
+
+def scheduler_figures(s: "dict | None") -> "dict | None":
+    """The phase line's figures of the scheduler's kill and restart."""
+    if s is None:
+        return None
+    return {k: s[k] for k in ("kill_to_restart_s", "restart_to_last_ack_s", "adopted",
+                              "round_walls_s", "added_wall_s", "added_wall_bound_s",
+                              "journal_records", "journal_bytes", "ps_parked", "counts")} | {
+        "acks": [(a["peer"], a["state"], a["round"]) for a in s["acks"]],
+        "parked": {p["peer"]: p["attempts"] for p in s["parked"]},
+        "parked_s": {p["peer"]: p["s"] for p in s["parked"]},
+        "responses_after_restart": len(s["responses_after_restart"]),
+    }
+
+
+def scheduler_problems(run: dict, rep: dict, *, rounds: int) -> list:
+    """The gates of the scheduler's kill and restart (``scheduler_report``)."""
+    s = rep["scheduler"]
+    if s is None:
+        return ["the scheduler was never killed and restarted"]
+    problems = list(s["outage_missing"])
+    if s["recoveries"] != [2] or (s["counts"] or {}).get("scheduler_recoveries") != 1:
+        problems.append(f"recoveries {s['recoveries']} (counts {s['counts']}): wanted exactly one, "
+                        "at generation 2")
+    acked = {a["peer"] for a in s["acks"] if a["state"] == "running"}
+    deadline = (run["job"].ft.scheduler_adopt_deadline_s or 20.0)
+    if acked != {"w0", "w2", "psw"} or len(s["acks"]) != 3 or s["restart_to_last_ack_s"] is None \
+            or s["restart_to_last_ack_s"] > deadline:
+        problems.append(f"AdoptAcks {s['acks']} ({s['restart_to_last_ack_s']} s after the "
+                        f"restart): wanted w0, w2 and psw running within {deadline} s")
+    if s["auctions_after_kill"] or s["dispatches_after_kill"]:
+        problems.append(f"auctions {s['auctions_after_kill']} and dispatches "
+                        f"{s['dispatches_after_kill']} after the kill: wanted none")
+    kill_t, restart_t = run["extra"]["sched_kill_t"], run["extra"]["sched_restart_t"]
+    b4 = s["round4_broadcast"]
+    if len(b4) != 1 or not (kill_t < b4[0]["t0"] and b4[0]["t1"] < restart_t):
+        problems.append(f"round 4's broadcast {b4}: wanted one, between the kill ({kill_t}) and "
+                        f"the restart ({restart_t})")
+    want_round = min(5, rounds)
+    if not s["adopted"] or s["adopted"]["round"] != want_round \
+            or s["adopted"]["journal_round"] != 4:
+        problems.append(f"adoption {s['adopted']}: wanted the journal's round 4 fast-forwarded "
+                        f"to {want_round}")
+    r4 = collections.Counter(f["peer"] for f in rep["folds"] if f["round"] == 4)
+    if sorted(r4.items()) != [("w0", 1), ("w2", 1)] or any(
+            h["round"] == 4 for h in rep["dedup_hits"]):
+        problems.append(f"round 4 folds {dict(r4)}, dedup hits {rep['dedup_hits']}: wanted two "
+                        "folds and no dedup hit")
+    bad = [r for r in s["responses_after_restart"] if r[3] != 2 or r[4] != r[5]]
+    if not s["responses_after_restart"] or bad:
+        problems.append(f"responses to the trainers after the restart {bad or 'none'}: wanted "
+                        "each stamped with generation 2 and its round")
+    if s["stale_dropped_trainers"] or s["stale_dropped_ps"] or \
+            (s["counts"] or {}).get("stale_generation_dropped"):
+        problems.append(f"stale-generation drops: trainers {s['stale_dropped_trainers']}, server "
+                        f"{s['stale_dropped_ps']}, scheduler {s['counts']}")
+    answered = {p["peer"] for p in s["parked"]
+                if p["kind"] == "update-received" and p["generation"] == "2"}
+    if answered != {"w0", "w2"} or not s["ps_parked"] or s["ps_parked"][0]["generation"] != "2":
+        problems.append(f"parked sends {s['parked']}, the server's {s['ps_parked']}: wanted both "
+                        "trainers' UPDATE_RECEIVED and the server's UPDATED answered by "
+                        "generation 2")
+    theta = rep["theta"]
+    if theta is not None and theta["broadcast_rounds"] != list(range(rounds)):
+        problems.append(f"θ track over broadcast rounds {theta['broadcast_rounds']}: wanted each "
+                        f"of {rounds} once")
+    if s["journal_left"] or not s["journal_records"]:
+        problems.append(f"scheduler journal: {s['journal_records']} records, left after DONE "
+                        f"{s['journal_left']}")
+    return problems
 
 
 def ft_problems(run: dict, rep: dict, *, rounds: int, steps: int, layers: int,
@@ -4188,7 +4442,7 @@ def ft_problems(run: dict, rep: dict, *, rounds: int, steps: int, layers: int,
                             f"{n} batches")
     if run["leftover"] or run["stop_errors"]:
         problems.append(f"files left {run['leftover']}, stop errors {run['stop_errors']}")
-    return problems
+    return problems + scheduler_problems(run, rep, rounds=rounds)
 
 
 def ft_bytes_needed(model: dict) -> int:
@@ -4236,10 +4490,11 @@ def train_ft_phase() -> dict:
         progress_gap_max_s=timing["progress_gap_max_s"],
         disk_needed_gb=need / 1e9, card_peak_gib=(run["card_peak_mib"] or 0) / 1024,
         job_s=run["extra"].get("job_s"), seconds=time.perf_counter() - t0,
-        **{k: v for k, v in rep.items() if k not in ("folds", "wires", "trainers")},
+        **{k: v for k, v in rep.items() if k not in ("folds", "wires", "trainers", "scheduler")},
         trainers={peer: {k: t[k] for k in ("rejoin", "checkpoints", "launches", "peak_gib",
                                            "batches")} for peer, t in rep["trainers"].items()},
         wires=rep["wires"], folds_round3=[f for f in rep["folds"] if f["round"] == 3],
+        scheduler=scheduler_figures(rep["scheduler"]),
     )
     if problems:
         emit({"phase": "train_ft", **res, "problems": problems,

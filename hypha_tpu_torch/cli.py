@@ -256,7 +256,10 @@ async def _run_worker(conf: WorkerConfig, *, device=None,
 
 async def _run_scheduler(conf: SchedulerConfig, *, stop: "asyncio.Event | None" = None):
     """Serve kind: until SIGINT/SIGTERM (or ``stop``). Train kind: until the
-    job ends; returns its ``JobResult``."""
+    job ends; returns its ``JobResult``. A ``stop`` set mid-job ends the
+    scheduler as a killed process would (returning None): the job runs on
+    without it, and with ``scheduler_recovery`` the next start with the
+    same config adopts it from its journal."""
     from .scheduler.metrics_bridge import AimConnector, NoOpConnector
     from .scheduler.orchestrator import Orchestrator
 
@@ -272,7 +275,19 @@ async def _run_scheduler(conf: SchedulerConfig, *, stop: "asyncio.Event | None" 
             AimConnector(conf.status_bridge) if conf.status_bridge else NoOpConnector()
         )
         orch = Orchestrator(node, metrics_connector=connector)
-        result = await orch.run(conf.job.to_job(), max_attempts=conf.job.max_attempts)
+        run = asyncio.create_task(orch.run(conf.job.to_job(),
+                                           max_attempts=conf.job.max_attempts))
+        stopped = asyncio.create_task((stop or asyncio.Event()).wait())
+        try:
+            await asyncio.wait([run, stopped], return_when=asyncio.FIRST_COMPLETED)
+        finally:
+            await aio.reap(stopped)
+            if not run.done():
+                await aio.reap(run)
+                print("scheduler stopped mid-job", flush=True)
+        if run.cancelled():
+            return None
+        result = run.result()
         print(f"job {result.job_id} completed: {result.rounds} rounds", flush=True)
         if result.ft is not None:
             print(f"job {result.job_id} membership: {json.dumps(result.ft)}", flush=True)

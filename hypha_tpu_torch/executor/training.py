@@ -89,7 +89,7 @@ from typing import Any, Callable, Iterator
 import torch
 
 from .. import compress, messages
-from ..ft.durable import GENERATION_KEY, RESYNC_KEY, restart_signal
+from ..ft.durable import GENERATION_KEY, RESYNC_KEY, restart_signal, stale_scheduler_response
 from ..ft.rejoin import CATCHUP_KEY, await_catchup
 from ..hw import default_device
 from ..messages import (
@@ -152,17 +152,6 @@ def adopt_schedule(resp: ProgressResponse, countdown: "int | None") -> "int | No
     if resp.kind != ProgressResponseKind.SCHEDULE_UPDATE:
         return countdown
     return resp.counter if countdown is None else countdown
-
-
-def _stale_response(resp: Any, last_gen: "int | None") -> tuple:
-    """``(generation to remember, stale?)``: a response stamped with an
-    older scheduler generation than one adopted is dropped."""
-    gen = getattr(resp, "generation", None)
-    if gen is None:
-        return last_gen, False
-    if last_gen is not None and gen < last_gen:
-        return last_gen, True
-    return gen, False
 
 
 def _unsupported(cfg: TrainExecutorConfig) -> None:
@@ -641,7 +630,7 @@ def run_training(
             if gens["sched"] is not None and int(gens["sched"]) >= 2:
                 progress.scheduler_generation = int(gens["sched"])
             resp = session.send_status(progress)
-            gens["sched"], stale = _stale_response(resp, gens["sched"])
+            gens["sched"], stale = stale_scheduler_response(resp, gens["sched"])
             if not stale:
                 return resp
             log.warning("dropping a %s response from a stale scheduler generation",

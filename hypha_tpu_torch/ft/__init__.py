@@ -6,18 +6,18 @@
   rejoin.py     — catch-up protocol (θ_r = θ₀ + Σ updates) for replacements
   durable.py    — the parameter server's round journal + outer-state
                   checkpoint: a restarted server resumes the interrupted
-                  round (generation ids + worker re-sends, deduplicated)
+                  round (generation ids + worker re-sends, deduplicated);
+                  the scheduler's journal, from which a restarted
+                  scheduler adopts the live executions
   adaptive.py   — WAN-adaptive rounds: the straggler controller (per-worker
                   inner steps) and the measured-link table (per-link codecs;
                   the serving plane's link estimate)
-  chaos.py      — deterministic faults: kills of a worker or the parameter
-                  server, delays, partitions and the degrade kinds (slow
-                  worker, bandwidth cap, jitter)
+  chaos.py      — deterministic faults: kills of a worker, the parameter
+                  server or the scheduler, delays, partitions and the
+                  degrade kinds (slow worker, bandwidth cap, jitter)
 
 Every sync mode and placement runs all of it: each shard of a sharded
-job has its own journal and generation. The scheduler's own journal and
-the two chaos kinds aimed at the scheduler are not ported (ROADMAP.md,
-Queue 1: scheduler recovery)."""
+job has its own journal and generation."""
 
 from ..lazy import exports
 
@@ -29,8 +29,9 @@ _SUBMODULE = {
     **dict.fromkeys(("ChaosAction", "ChaosController", "parse_chaos_spec", "parse_chaos_specs"),
                     "chaos"),
     **dict.fromkeys(("PHI_THRESHOLD_DEFAULT", "PhiAccrualDetector"), "detector"),
-    **dict.fromkeys(("GENERATION_KEY", "RESYNC_KEY", "DurablePS", "FoldRecord", "RoundJournal",
-                     "restart_signal"), "durable"),
+    **dict.fromkeys(("GENERATION_KEY", "RESYNC_KEY", "DurablePS", "DurableScheduler",
+                     "FoldRecord", "RoundJournal", "restart_signal", "stale_scheduler_response",
+                     "DEFAULT_ADOPT_GRACE_S", "DEFAULT_ADOPT_DEADLINE_S"), "durable"),
     **dict.fromkeys(("PROTOCOL_FT", "FTConfig", "MembershipUpdate", "MembershipView",
                      "RoundMembership", "quorum_size"), "membership"),
     **dict.fromkeys(("CATCHUP_KEY", "CatchupBuffer", "await_catchup"), "rejoin"),

@@ -19,7 +19,14 @@ scripted actions at round boundaries against in-process
   * ``partition`` — every outbound push and request of the worker fails;
   * ``partition-ps`` — for ``delay_s`` seconds every push between the
     parameter server and the other workers fails (both directions), then
-    heals: the connectors' retries and the journal's dedup keep the round.
+    heals: the connectors' retries and the journal's dedup keep the round;
+  * ``kill-scheduler`` (spec ``kill-scheduler:<round>``) — the same against
+    the scheduler's node (its entry is anything with ``.node`` and
+    ``.stop()``); the harness restarts a scheduler under the same peer id,
+    which finds its journal and adopts the live executions;
+  * ``partition-scheduler`` — for ``delay_s`` seconds every request and
+    push from the other nodes toward the scheduler fails, then heals: the
+    parked status sends and the server's parked notify keep the job.
 
 Degrade kinds model a steady condition and fire on attach (``at_round=0``)
 unless the spec pins a round:
@@ -35,9 +42,6 @@ unless the spec pins a round:
 
 Action ``at_round=r`` fires the first time metrics for round ``r-1`` are
 observed, i.e. while round ``r`` runs; ``at_round=0`` fires on attach.
-``kill-scheduler`` and ``partition-scheduler`` need the scheduler's own
-recovery and are refused at construction (ROADMAP.md, Queue 1: scheduler
-recovery).
 """
 
 from __future__ import annotations
@@ -61,9 +65,6 @@ _KINDS = (
     "kill-scheduler", "partition-scheduler",
     "slow", "bw-cap", "jitter",
 )
-
-# The kinds the port refuses: both need the scheduler's own recovery.
-_UNPORTED = ("kill-scheduler", "partition-scheduler")
 
 # Kinds that model a steady condition: they attach at once unless the spec
 # pins a round.
@@ -165,11 +166,6 @@ class ChaosController:
 
     def __init__(self, actions: list, workers: dict,
                  clock: Callable[[], float] = time.monotonic) -> None:
-        for action in actions:
-            if action.kind in _UNPORTED:
-                raise NotImplementedError(
-                    f"chaos action {action.kind!r} is not ported to PyTorch yet (ROADMAP.md, "
-                    "Queue 1: scheduler recovery)")
         self.actions = list(actions)
         self.workers = dict(workers)
         self._clock = clock
@@ -204,7 +200,7 @@ class ChaosController:
             log.warning("chaos: no worker %r to %s", action.target, action.kind)
             return
         log.info("chaos: %s %s (round trigger %d)", action.kind, action.target, action.at_round)
-        if action.kind in ("kill", "kill-ps"):
+        if action.kind in ("kill", "kill-ps", "kill-scheduler"):
             aio.spawn(self._kill(worker), tasks=self._tasks, what="chaos kill", logger=log)
         elif action.kind == "delay":
             self._wrap_push_delay(worker.node, action.delay_s)
@@ -212,6 +208,8 @@ class ChaosController:
             self._partition(worker.node)
         elif action.kind == "partition-ps":
             self._partition_ps(action.target, action.delay_s)
+        elif action.kind == "partition-scheduler":
+            self._partition_scheduler(action.target, action.delay_s)
         elif action.kind == "slow":
             self._wrap_slow_cpu(worker.node, action.factor)
         elif action.kind == "bw-cap":
@@ -439,6 +437,46 @@ class ChaosController:
             for node, orig_push in undo:
                 node.push = orig_push
             log.info("chaos: partition-ps around %s healed", ps_peer)
+
+        aio.spawn(heal(), tasks=self._tasks, what="chaos heal", logger=log)
+
+    def _partition_scheduler(self, sched_peer: str, duration_s: float) -> None:
+        """Sever every other node's uplink to the scheduler for
+        ``duration_s`` seconds, then heal: requests (Status,
+        UpdateReceived, Updated, JobStatus) and pushes toward it fail with
+        RequestError, the shape a dead or restarting scheduler presents.
+        The scheduler's own lease renewals go through: this is uplink
+        loss, not the crash (``kill-scheduler``)."""
+        from ..network.node import RequestError
+
+        undo: list = []
+        for name, worker in self.workers.items():
+            node = getattr(worker, "node", None)
+            if name == sched_peer or node is None:
+                continue
+            orig_push, orig_request = node.push, node.request
+
+            async def cut_push(peer_id: str, resource: Any, source, _orig=orig_push) -> int:
+                if peer_id == sched_peer:
+                    raise RequestError(
+                        f"chaos partition-scheduler: push to {sched_peer} dropped")
+                return await _orig(peer_id, resource, source)
+
+            async def cut_request(peer_id: str, protocol: str, msg: Any, _orig=orig_request,
+                                  **kw) -> Any:
+                if peer_id == sched_peer:
+                    raise RequestError(
+                        f"chaos partition-scheduler: request to {sched_peer} dropped")
+                return await _orig(peer_id, protocol, msg, **kw)
+
+            node.push, node.request = cut_push, cut_request
+            undo.append((node, orig_push, orig_request))
+
+        async def heal() -> None:
+            await asyncio.sleep(duration_s)
+            for node, orig_push, orig_request in undo:
+                node.push, node.request = orig_push, orig_request
+            log.info("chaos: partition-scheduler around %s healed", sched_peer)
 
         aio.spawn(heal(), tasks=self._tasks, what="chaos heal", logger=log)
 

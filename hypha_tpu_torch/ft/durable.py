@@ -1,6 +1,5 @@
-"""The durable parameter server: round journal, outer-state checkpoint,
-recovery (counterpart of the parameter-server half of
-``hypha_tpu/ft/durable.py``).
+"""The durable parameter server and the scheduler's journal: round journal,
+outer-state checkpoint, recovery (counterpart of ``hypha_tpu/ft/durable.py``).
 
 Everything lives under the job's ``checkpoint_dir``:
 
@@ -31,8 +30,20 @@ Everything lives under the job's ``checkpoint_dir``:
 The reference's ``FT_METRICS`` counters are telemetry, not ported
 (ROADMAP.md, Queue 1: telemetry): the journal counts its records and bytes
 and the server counts its dedup hits on the objects, and the executor logs
-them. The scheduler's journal (``DurableScheduler``) belongs to
-**scheduler recovery** and is not ported.
+them.
+
+:class:`DurableScheduler` is the scheduler's own journal
+(``<checkpoint_dir>/scheduler/sched-journal.cbor``, on the same
+:class:`RoundJournal`): ``gen`` per scheduler start, the job's ``plan``,
+one ``dispatch`` per live execution (a rejoin or a shard's re-dispatch
+supersedes), ``round`` as the frontier advances (``ctrl``: the straggler
+controller's snapshot when adaptive), ``member`` per membership epoch and
+``ps_restart`` per spent shard restart; compacted every 8 round records to
+the records that still matter. A restarted scheduler reads it back into a
+:class:`_SchedResume` and adopts the live executions
+(``scheduler/orchestrator.py``). The module imports no torch: the
+SafeTensors helpers load inside the server's checkpoint methods, so the
+scheduler starts without it.
 """
 
 from __future__ import annotations
@@ -42,13 +53,13 @@ import logging
 import os
 import shutil
 import struct
+import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Iterable
 
 from .. import codec
-from ..executor.serialization import load_file, read_header, save_file
 
 __all__ = [
     "GENERATION_KEY",
@@ -56,8 +67,12 @@ __all__ = [
     "JOURNAL_FSYNC_ENV",
     "RoundJournal",
     "DurablePS",
+    "DurableScheduler",
     "FoldRecord",
     "restart_signal",
+    "stale_scheduler_response",
+    "DEFAULT_ADOPT_GRACE_S",
+    "DEFAULT_ADOPT_DEADLINE_S",
 ]
 
 log = logging.getLogger("hypha.torch.ft.durable")
@@ -79,6 +94,16 @@ _MAX_RECORD = 1 << 20
 
 _JOURNAL_NAME = "journal.cbor"
 _STATE_POINTER = "ps-state.json"
+_SCHED_JOURNAL_NAME = "sched-journal.cbor"
+
+# Worker-side adoption grace (s): how long a scheduler-recoverable job's
+# executions outlive a dead scheduler (leases outlive expiry by it; Status,
+# UpdateReceived and Updated sends park in aio.retry for it).
+DEFAULT_ADOPT_GRACE_S = 120.0
+
+# Scheduler-side adoption deadline (s): how long recovery waits for an
+# execution's AdoptAck before the depart/rejoin or shard-restart path.
+DEFAULT_ADOPT_DEADLINE_S = 20.0
 
 
 def _fsync_every() -> int:
@@ -86,6 +111,13 @@ def _fsync_every() -> int:
         return int(os.environ.get(JOURNAL_FSYNC_ENV, "1") or 1)
     except ValueError:
         return 1
+
+
+def _st():
+    """The SafeTensors helpers (they import torch: loaded on first use)."""
+    from ..executor import serialization
+
+    return serialization
 
 
 def restart_signal(meta: dict, last_gen: Any) -> tuple:
@@ -97,6 +129,18 @@ def restart_signal(meta: dict, last_gen: Any) -> tuple:
     if gen is None:
         return last_gen, resync
     return gen, resync or (last_gen is not None and gen != last_gen)
+
+
+def stale_scheduler_response(resp: Any, last_gen: "int | None") -> tuple:
+    """``(generation to remember, stale?)`` for one scheduler response: one
+    stamped with an older generation than one already adopted is a zombie
+    predecessor's decision and is dropped; an unstamped one passes."""
+    gen = getattr(resp, "generation", None)
+    if gen is None:
+        return last_gen, False
+    if last_gen is not None and gen < last_gen:
+        return last_gen, True
+    return gen, False
 
 
 class RoundJournal:
@@ -513,7 +557,7 @@ class DurablePS:
         files = momentum_file if isinstance(momentum_file, (list, tuple)) else [momentum_file]
         for path in files:
             if Path(path).is_file():
-                for key, value in load_file(path).items():
+                for key, value in _st().load_file(path).items():
                     tensors[f"momentum/{key}"] = value
         catchup_rounds = 0
         fragment_rounds: dict = {}
@@ -528,7 +572,7 @@ class DurablePS:
                 tensors[f"ef/{frag}/{key}"] = value
         state_file = f"state-{next_round}.safetensors"
         tmp = self.root / (state_file + ".tmp")
-        save_file(dict(sorted(tensors.items())), tmp)
+        _st().save_file(dict(sorted(tensors.items())), tmp)
         with open(tmp, "rb+") as f:
             os.fsync(f.fileno())
         os.replace(tmp, self.root / state_file)
@@ -573,7 +617,7 @@ class DurablePS:
         tensors = self._state_tensors("momentum/")
         if tensors:
             tmp = momentum_file.with_suffix(".tmp")
-            save_file(tensors, tmp)
+            _st().save_file(tensors, tmp)
             os.replace(tmp, momentum_file)
         else:
             momentum_file.unlink(missing_ok=True)
@@ -599,8 +643,201 @@ class DurablePS:
         path = self.root / self.resume.state_file
         if not path.is_file():
             return {}
-        names = [k for k in read_header(path)[0] if k.startswith(prefix)]
-        return {k[len(prefix):]: v for k, v in load_file(path, names).items()}
+        st = _st()
+        names = [k for k in st.read_header(path)[0] if k.startswith(prefix)]
+        return {k[len(prefix):]: v for k, v in st.load_file(path, names).items()}
 
     def close(self) -> None:
         self.journal.close()
+
+
+# ---------------------------------------------------------------- scheduler
+
+# Round records between two compactions of the scheduler journal.
+_SCHED_COMPACT_EVERY = 8
+
+
+@dataclass(slots=True)
+class _SchedResume:
+    """What a restarted scheduler adopts from its predecessor's journal."""
+
+    base_id: str
+    plan: dict
+    round: int = 0
+    member: "dict | None" = None
+    ctrl: "dict | None" = None
+    rejoins: int = 0
+    ps_restarts: int = 0
+    # job id -> its newest dispatch record {job_id, peer, lease_id, kind,
+    # shard, batch_size}; a re-dispatch supersedes.
+    dispatches: dict = field(default_factory=dict)
+
+
+class DurableScheduler:
+    """The scheduler's durable state root (``scheduler/`` under the job's
+    checkpoint dir): the server's write-ahead discipline on the same
+    :class:`RoundJournal`. ``open`` bumps the generation and parses the
+    journal into ``resume`` (None without an adoptable plan: no journal,
+    or one whose torn-tail rule read as empty)."""
+
+    def __init__(self, root: "Path | str", fsync_every: "int | None" = None) -> None:
+        self.root = Path(root)
+        self.generation = 1
+        self.resume: "_SchedResume | None" = None
+        self.journal: RoundJournal
+        # Appends come from worker threads (asyncio.to_thread).
+        self._lock = threading.Lock()
+        self._plan: dict = {}
+        self._dispatches: dict = {}
+        self._member: "dict | None" = None
+        self._last_round_rec: "dict | None" = None
+        self._ps_restarts = 0
+        self._rounds_since_compact = 0
+        self._closed = False
+
+    @staticmethod
+    def has_state(root: "Path | str") -> bool:
+        """True when a previous scheduler left a journal worth reading."""
+        try:
+            return (Path(root) / _SCHED_JOURNAL_NAME).stat().st_size > 0
+        except OSError:
+            return False
+
+    @classmethod
+    def open(cls, root: "Path | str", *, fresh: bool = False,
+             fsync_every: "int | None" = None) -> "DurableScheduler":
+        """Open (blocking). ``fresh`` wipes a prior journal first: a new
+        attempt must not leave one that a later restart would adopt
+        against the wrong executions."""
+        dur = cls(root, fsync_every)
+        dur.root.mkdir(parents=True, exist_ok=True)
+        path = dur.root / _SCHED_JOURNAL_NAME
+        if fresh:
+            path.unlink(missing_ok=True)
+        records = RoundJournal.read_all(path)
+        dur.generation = 1 + max((int(r.get("generation", 0)) for r in records
+                                  if r.get("t") == "gen"), default=0)
+        dur.journal = RoundJournal(path, fsync_every)
+        if records:
+            dur.resume = dur._build_resume(records)
+        if dur.resume is not None:
+            # The live tables start from the adopted state, so the first
+            # compaction after the restart keeps it.
+            dur._plan = dict(dur.resume.plan)
+            dur._dispatches = dict(dur.resume.dispatches)
+            dur._member = dur.resume.member
+            dur._ps_restarts = dur.resume.ps_restarts
+            dur._last_round_rec = {"t": "round", "round": dur.resume.round,
+                                   "ctrl": dur.resume.ctrl}
+        dur.journal.append({"t": "gen", "generation": dur.generation}, sync=True)
+        return dur
+
+    @staticmethod
+    def _build_resume(records: list) -> "_SchedResume | None":
+        resume: "_SchedResume | None" = None
+        for rec in records:
+            t = rec.get("t")
+            if t == "plan":
+                plan = {k: v for k, v in rec.items() if k != "t"}
+                resume = _SchedResume(base_id=str(plan.get("base_id", "")), plan=plan)
+            elif resume is None:
+                continue  # records before the plan (gen) carry nothing to adopt
+            elif t == "dispatch":
+                resume.dispatches[str(rec.get("job_id", ""))] = {
+                    k: v for k, v in rec.items() if k != "t"}
+            elif t == "round":
+                resume.round = max(resume.round, int(rec.get("round", 0)))
+                if rec.get("ctrl") is not None:
+                    resume.ctrl = rec.get("ctrl")
+            elif t == "member":
+                resume.member = {k: v for k, v in rec.items() if k != "t"}
+                resume.rejoins = int(rec.get("rejoins", 0))
+            elif t == "ps_restart":
+                resume.ps_restarts = int(rec.get("count", 0))
+        if resume is None or not resume.base_id:
+            return None
+        return resume
+
+    # ------------------------------------------------------------ recording
+
+    def note_plan(self, plan: dict) -> None:
+        with self._lock:
+            if self._closed:
+                return
+            self._plan = dict(plan)
+            self.journal.append({"t": "plan", **self._plan}, sync=True)
+
+    def note_dispatch(self, job_id: str, peer: str, lease_id: str, kind: str,
+                      shard: "int | None" = None, batch_size: "int | None" = None) -> None:
+        rec: dict = {"t": "dispatch", "job_id": job_id, "peer": peer, "lease_id": lease_id,
+                     "kind": kind}
+        if shard is not None:
+            rec["shard"] = int(shard)
+        if batch_size is not None:
+            rec["batch_size"] = int(batch_size)
+        with self._lock:
+            if self._closed:
+                return
+            self._dispatches[job_id] = {k: v for k, v in rec.items() if k != "t"}
+            self.journal.append(rec, sync=True)
+
+    def note_round(self, round_num: int, ctrl: "dict | None" = None) -> None:
+        """The frontier advanced (fsync-batched: a torn round record costs
+        re-deriving one round from the AdoptAcks)."""
+        rec: dict = {"t": "round", "round": int(round_num)}
+        if ctrl is not None:
+            rec["ctrl"] = ctrl
+        with self._lock:
+            if self._closed:
+                return
+            self._last_round_rec = rec
+            self.journal.append(rec)
+            self._rounds_since_compact += 1
+            if self._rounds_since_compact >= _SCHED_COMPACT_EVERY:
+                self._compact_locked()
+
+    def note_member(self, member: dict, rejoins: int = 0) -> None:
+        rec = {"t": "member", **member, "rejoins": int(rejoins)}
+        with self._lock:
+            if self._closed:
+                return
+            self._member = {k: v for k, v in rec.items() if k != "t"}
+            self.journal.append(rec)
+
+    def note_ps_restarts(self, count: int) -> None:
+        """The spent shard-restart attempts: a recovered scheduler resumes
+        the budget instead of granting a fresh one after every crash."""
+        with self._lock:
+            if self._closed:
+                return
+            self._ps_restarts = int(count)
+            self.journal.append({"t": "ps_restart", "count": int(count)})
+
+    def _compact_locked(self) -> None:
+        window = [{"t": "gen", "generation": self.generation}, {"t": "plan", **self._plan}]
+        window += [{"t": "dispatch", **rec} for rec in self._dispatches.values()]
+        if self._member is not None:
+            window.append({"t": "member", **self._member})
+        if self._ps_restarts:
+            window.append({"t": "ps_restart", "count": self._ps_restarts})
+        if self._last_round_rec is not None:
+            window.append(self._last_round_rec)
+        self.journal.replace_with(window)
+        self._rounds_since_compact = 0
+
+    # ------------------------------------------------------------ lifecycle
+
+    def complete(self) -> None:
+        """The job finished: drop the journal, so the next run with this
+        checkpoint dir starts fresh instead of adopting a finished job."""
+        with self._lock:
+            if not self._closed:
+                self.journal.close()
+                self._closed = True
+            (self.root / _SCHED_JOURNAL_NAME).unlink(missing_ok=True)
+
+    def close(self) -> None:
+        with self._lock:
+            if not self._closed:
+                self.journal.close()
+                self._closed = True

@@ -56,8 +56,11 @@ class FTConfig:
 
     ``quorum_fraction > 0`` is the subsystem's master switch: 0 keeps the
     seed's exact semantics (wait for every worker forever, any failure
-    aborts the attempt). The scheduler-recovery pair is carried for the
-    wire only (**scheduler recovery** is not ported)."""
+    aborts the attempt). With ``DiLoCoJob.scheduler_recovery`` the
+    scheduler reads ``scheduler_adopt_grace_s`` (None: 120 s, how long the
+    executions outlive a dead scheduler) and ``scheduler_adopt_deadline_s``
+    (None: 20 s, how long a restarted one waits for an ``AdoptAck``); both
+    stay None on the wire unless set."""
 
     quorum_fraction: float = 0.75
     round_deadline_s: float = 30.0

@@ -29,12 +29,22 @@ Status feeds its batch cadence, the server's ``arrival_s`` in an
 assignments, and a worker's first Status of a round is answered
 ``ScheduleUpdate{counter_for(peer)}`` at once.
 
-Not ported, raising ``NotImplementedError`` with its ROADMAP.md label when
-set: ``generation`` and ``adopt_round`` (a restarted scheduler's stamped
-responses), **scheduler recovery**. The reference's control-loop timing
-reservoir, FT counters and per-round trace spans (**telemetry**) are off
-by default there and change no wire byte; here they are absent. Every
-response is the reference's off-path frozen singleton.
+A restarted scheduler (``generation`` >= 2, ``ft.durable.DurableScheduler``)
+stamps its generation and the round into every response, refuses traffic
+stamped with a newer generation than its own (it is then the zombie), and
+fast-forwards to the fleet's round with ``adopt_round``. A never-restarted
+scheduler (``generation`` None) answers with the reference's frozen
+singletons, byte for byte, and refuses any stamped traffic: senders stamp
+only after adopting generation 2. Refusals are counted in
+``stale_generation_dropped`` (the reference's ``FT_METRICS`` counter). A
+shard reports a committed round as closed in its AdoptAck
+(``worker/ps_executor.py``), so ``adopt_round`` can credit a shard's last
+owned round while its UPDATED for it is still parked: the job then
+completes only once that notify is answered, or the shard would be left
+retrying against a scheduler that is gone. The
+reference's control-loop timing reservoir and per-round trace spans
+(**telemetry**) are off by default there and change no wire byte; here
+they are absent.
 
 This module is pure logic: the network layer feeds it decoded Progress
 messages and returns its ProgressResponse to the peer.
@@ -42,6 +52,7 @@ messages and returns its ProgressResponse to the peer.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 from ..messages import (
@@ -63,15 +74,6 @@ _CONTINUE = ProgressResponse(kind=ProgressResponseKind.CONTINUE)
 _OK = ProgressResponse(kind=ProgressResponseKind.OK)
 _DONE = ProgressResponse(kind=ProgressResponseKind.DONE)
 
-_RECOVERY = "scheduler recovery"
-
-
-def _not_ported(what: str, label: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md, Queue 1: {label})"
-    )
-
-
 class BatchScheduler:
     def __init__(
         self,
@@ -84,8 +86,6 @@ class BatchScheduler:
         adaptive=None,
         generation: int | None = None,
     ) -> None:
-        if generation is not None:
-            raise _not_ported("generation (a restarted scheduler)", _RECOVERY)
         self.tracker = tracker
         self._on_metrics = on_metrics
         self._on_complete = on_complete
@@ -120,19 +120,65 @@ class BatchScheduler:
         # Straggler-adaptive inner steps: the controller's assignments
         # replace the projection; None keeps the projection path.
         self.adaptive = adaptive
+        # A restarted scheduler's generation (>= 2), stamped with the round
+        # into every response; None keeps the frozen singletons.
+        self.generation = generation
+        self.stale_generation_dropped = 0
+        # Shards whose last owned round adopt_round credited from their
+        # AdoptAck: their UPDATED for it is still parked, so the job
+        # completes only once it is answered (DONE ends their loop).
+        self._owed: set = set()
 
     # ------------------------------------------------------------------
     def on_progress(self, peer: str, progress: Progress) -> ProgressResponse:
         sender_gen = progress.scheduler_generation
-        if sender_gen is not None:
-            # Split-brain guard: this message was addressed to a restarted
-            # scheduler generation, so this (never-restarted) scheduler is
-            # the zombie predecessor and must not act on it.
+        if sender_gen is not None and (self.generation is None or sender_gen > self.generation):
+            # Split-brain guard: this message was addressed to a newer
+            # scheduler generation, so this one is the zombie predecessor
+            # and must not act on it (an unstamped scheduler is generation
+            # 1, and senders stamp only from generation 2).
+            self.stale_generation_dropped += 1
             return ProgressResponse(
                 kind=ProgressResponseKind.ERROR,
-                message=f"stale scheduler generation 1 (sender adopted {sender_gen})",
+                message=(f"stale scheduler generation {self.generation or 1} "
+                         f"(sender adopted {sender_gen})"),
             )
-        return self._on_progress(peer, progress)
+        return self._stamp(self._on_progress(peer, progress))
+
+    def _stamp(self, resp: ProgressResponse) -> ProgressResponse:
+        """Stamp the generation and round (a no-op before any restart)."""
+        if self.generation is None:
+            return resp
+        return dataclasses.replace(resp, generation=self.generation, round=self.tracker.round)
+
+    def adopt_round(self, base_round: int, shard_rounds: "dict | None" = None,
+                    ctrl: "dict | None" = None) -> int:
+        """Fast-forward to the fleet's round after a scheduler restart.
+
+        ``base_round`` is the journal's last frontier; ``shard_rounds`` maps
+        each adopted shard to the next round it will close (its AdoptAck):
+        every owned round below it is an UPDATED the predecessor processed
+        or that died with it, so it is credited and the frontier re-advances
+        as the live notifies would have moved it. Never rewinds. ``ctrl``
+        is the journaled straggler-controller snapshot: the rebuilt
+        controller resumes its history in warmup. Returns the round."""
+        epochs = self.tracker.update_epochs
+        while self.tracker.round < min(base_round, epochs):
+            self.tracker.advance_round()
+        horizon = max([self.tracker.round] + [int(r) for r in (shard_rounds or {}).values()])
+        for shard, reported in (shard_rounds or {}).items():
+            for rnd in range(self.tracker.round, min(int(reported), epochs)):
+                if shard in self._due(rnd):
+                    self._updated.setdefault(rnd, set()).add(shard)
+            if 0 < int(reported) and self._shard_done(int(shard), int(reported) - 1):
+                self._owed.add(int(shard))
+        while (self.tracker.round < min(horizon, epochs)
+               and self._updated.get(self.tracker.round, set()) >= self._due(self.tracker.round)):
+            self._updated.pop(self.tracker.round, None)
+            self.tracker.advance_round()
+        if self.adaptive is not None:
+            self.adaptive.resume_warmup(self.tracker.round, ctrl)
+        return self.tracker.round
 
     def _on_progress(self, peer: str, progress: Progress) -> ProgressResponse:
         kind = progress.kind
@@ -185,6 +231,9 @@ class BatchScheduler:
     def _on_updated(self, progress: Progress) -> ProgressResponse:
         shard = int(progress.shard or 0)
         rnd = progress.round
+        if shard in self._owed:
+            self._owed.discard(shard)
+            self._maybe_complete()
         if rnd < self.tracker.round:
             # Idempotent by (shard, round): a re-sent notify must not
             # advance again and eat a round.
@@ -313,6 +362,12 @@ class BatchScheduler:
             kind=ProgressResponseKind.SCHEDULE_UPDATE, counter=counter
         )
 
+    def _maybe_complete(self) -> None:
+        if self.tracker.all_in(WorkerState.DONE) and not self.completed and not self._owed:
+            self.completed = True
+            if self._on_complete is not None:
+                self._on_complete()
+
     # ------------------------------------------------------------------
     def _on_update_received(self, peer: str) -> ProgressResponse:
         if not self.tracker.tracked(peer):
@@ -321,10 +376,7 @@ class BatchScheduler:
             )
         if self.tracker.round >= self.tracker.update_epochs:
             self.tracker.set_state(peer, WorkerState.DONE)
-            if self.tracker.all_in(WorkerState.DONE) and not self.completed:
-                self.completed = True
-                if self._on_complete is not None:
-                    self._on_complete()
+            self._maybe_complete()
             return _DONE
         # Next round: back to training with a fresh timing baseline.
         self.tracker.set_state(peer, WorkerState.TRAINING)

@@ -17,8 +17,10 @@ gives the JAX package's bytes. The port schedules every wire codec
 tree reduce (``reduce_group_size``, ``reduce_tree_depth``) and its
 broadcast tree (``broadcast_tree``), serving followers (``serve_peers``),
 WAN-adaptive rounds (``adaptive_steps``, ``adaptive_codec`` and its
-``codec_bw_hi_mbps`` / ``codec_bw_lo_mbps``), and, with any of them, fault tolerance (``ft``, an ``FTConfig``) and checkpoints
-(``checkpoint_dir``, ``checkpoint_every``, ``ps_checkpoint_every_rounds``).
+``codec_bw_hi_mbps`` / ``codec_bw_lo_mbps``), and, with any of them, fault
+tolerance (``ft``, an ``FTConfig``), checkpoints (``checkpoint_dir``,
+``checkpoint_every``, ``ps_checkpoint_every_rounds``) and the scheduler's
+own crash recovery (``scheduler_recovery``, which needs both).
 Each option outside it is accepted only at its off value (``_NOT_PORTED``),
 and any other value raises ``NotImplementedError`` naming its ROADMAP.md
 label. Malformed values raise the reference's ``ValueError`` first, with
@@ -39,12 +41,8 @@ from ..stream import SYNC_MODES, effective_fragments
 
 __all__ = ["DiLoCoRounds", "JobResources", "DiLoCoJob", "CODECS", "SYNC_MODES"]
 
-# (field, the values the port runs, ROADMAP.md label of the rest). An
-# option that the reference accepts only beside another (scheduler_recovery
-# needs ft and checkpoint_dir) comes before it, so the refusal names the
-# option the job asked for.
+# (field, the values the port runs, ROADMAP.md label of the rest).
 _NOT_PORTED = (
-    ("scheduler_recovery", (False,), "scheduler recovery"),
     ("metrics_plane", (False,), "telemetry"),
     ("slo_rules", ([],), "telemetry"),
     ("input_pipeline", (False,), "input_pipeline"),

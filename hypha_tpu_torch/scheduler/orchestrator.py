@@ -67,8 +67,23 @@ round's assignments ride the membership the servers receive
 ``adaptive_steps``, ``adaptive_codec`` and the codec thresholds, each None
 when off so a static job's spec keeps its bytes.
 
-Not ported (the job refuses its options, ``job_config.py``): the adoption
-and resume path of a restarted scheduler (**scheduler recovery**).
+With ``scheduler_recovery`` (which needs ``ft`` and ``checkpoint_dir``) the
+scheduler is restartable (the reference's ``:321-396``, ``:1126-1505``): a
+``DurableScheduler`` journal under ``<checkpoint_dir>/scheduler`` records the
+plan, every dispatch, the round frontier, each membership epoch and the
+spent shard restarts, and the dispatched specs carry the adoption grace
+(``adopt_grace_s``: workers hold their leases and park their control sends
+that long). A scheduler started under the same peer id finds the journal,
+bumps the generation, re-arms the journaled leases, sends ``SchedulerHello``
+to every recorded execution and fast-forwards to the rounds the
+``AdoptAck``s report (``BatchScheduler.adopt_round``): nothing is
+re-dispatched or re-auctioned. An execution that does not answer within
+``scheduler_adopt_deadline_s`` departs (a train worker, then the rejoin
+auction) or is restarted (a shard); no adoptable journal, or nothing alive,
+falls back to a fresh run. A finished job wipes its journal. The
+reference's ``FT_METRICS`` counts (``scheduler_recoveries``,
+``adopted_executions``, ``stale_generation_dropped``) are logged when the
+job ends and kept in ``Orchestrator.counts``.
 """
 
 from __future__ import annotations
@@ -76,17 +91,22 @@ from __future__ import annotations
 import asyncio
 import logging
 import uuid
+from pathlib import Path
 from typing import Any
 
 from .. import aio, messages
 from ..ft.adaptive import StragglerController
 from ..ft.detector import PhiAccrualDetector
+from ..ft.durable import DEFAULT_ADOPT_DEADLINE_S, DEFAULT_ADOPT_GRACE_S, DurableScheduler
 from ..ft.membership import PROTOCOL_FT, MembershipUpdate, MembershipView, quorum_size
 from ..messages import (
     AGGREGATE_EXECUTOR_NAME,
+    PROTOCOL_API,
     PROTOCOL_PROGRESS,
     TRAIN_EXECUTOR_NAME,
+    AdoptAck,
     AggregateExecutorConfig,
+    SchedulerHello,
     ShardMap,
     DataRecord,
     Executor,
@@ -112,7 +132,7 @@ from .task import DispatchError, StatusRouter, Task
 from .trackers import ProgressTracker, WorkerState
 from .worker_handle import WorkerHandle
 
-__all__ = ["Orchestrator", "JobResult", "JobFailed", "AllocationError"]
+__all__ = ["Orchestrator", "JobResult", "JobFailed", "AllocationError", "AdoptionFailed"]
 
 log = logging.getLogger("hypha.torch.scheduler.orchestrator")
 
@@ -131,6 +151,12 @@ class AllocationError(RuntimeError):
 
 class JobFailed(RuntimeError):
     pass
+
+
+class AdoptionFailed(RuntimeError):
+    """A restarted scheduler could not adopt its predecessor's executions
+    (no adoptable journal, or nothing alive): ``run`` falls back to a
+    fresh attempt."""
 
 
 class JobResult:
@@ -186,6 +212,13 @@ class _RunContext:
         # least deadline the watchdog held: logged when the job completes.
         self.progress_gap_max_s = 0.0
         self.watchdog_min_s = float("inf")
+        # Scheduler recovery: the journal (None when off), the adoption
+        # grace stamped into the dispatched specs, the batch scheduler and
+        # the last round journaled.
+        self.dur: "DurableScheduler | None" = None
+        self.adopt_grace: "float | None" = None
+        self.batch_scheduler: "BatchScheduler | None" = None
+        self.round_journaled = -1
 
 
 class Orchestrator:
@@ -197,6 +230,9 @@ class Orchestrator:
         self.node = node
         self.allocator = GreedyWorkerAllocator(node)
         self.metrics_bridge = MetricsBridge(metrics_connector)
+        # The reference's FT_METRICS counts of scheduler recovery.
+        self.counts = {"scheduler_recoveries": 0, "adopted_executions": 0,
+                       "stale_generation_dropped": 0}
 
     # ------------------------------------------------------------ allocation
 
@@ -305,6 +341,7 @@ class Orchestrator:
         if max_attempts < 1:
             raise ValueError("max_attempts must be >= 1")
         last: JobFailed | AllocationError | None = None
+        sched_root = self._scheduler_root(job)
         for attempt in range(max_attempts):
             if attempt:
                 log.warning(
@@ -312,6 +349,21 @@ class Orchestrator:
                     attempt, max_attempts, last, retry_backoff,
                 )
                 await asyncio.sleep(retry_backoff)
+            # A journal left by a dead predecessor: its executions may still
+            # be training, so adopt them in place. An adoption failure falls
+            # back to the fresh run below, which wipes the stale journal.
+            if attempt == 0 and sched_root is not None and DurableScheduler.has_state(sched_root):
+                try:
+                    result = await self._resume_once(
+                        job, auction_timeout=auction_timeout, status_timeout=status_timeout)
+                    result.attempt = attempt
+                    return result
+                except AdoptionFailed as e:
+                    log.warning("scheduler recovery could not adopt the previous attempt (%s); "
+                                "falling back to a fresh run", e)
+                except (JobFailed, AllocationError) as e:
+                    last = e
+                    continue
             try:
                 result = await self._run_once(
                     job,
@@ -325,6 +377,18 @@ class Orchestrator:
                 last = e
         assert last is not None
         raise last
+
+    @staticmethod
+    def _scheduler_root(job: DiLoCoJob) -> "Path | None":
+        if job.scheduler_recovery and job.checkpoint_dir and job.ft is not None \
+                and job.ft.enabled:
+            return Path(job.checkpoint_dir) / "scheduler"
+        return None
+
+    @staticmethod
+    def _adopt_grace(ft) -> float:
+        return (ft.scheduler_adopt_grace_s if ft.scheduler_adopt_grace_s is not None
+                else DEFAULT_ADOPT_GRACE_S)
 
     # ------------------------------------------------------------- job specs
 
@@ -382,6 +446,10 @@ class Orchestrator:
                     sync_mode=job.sync_mode,
                     fragments=job.num_fragments,
                     rejoin=rejoin,
+                    # Workers hold their leases and park their control sends
+                    # this long across a scheduler outage (None: recovery
+                    # off, no new wire field).
+                    adopt_grace_s=ctx.adopt_grace,
                     checkpoint=({"dir": f"{job.checkpoint_dir}/{handle.peer_id}",
                                  "every_rounds": job.checkpoint_every}
                                 if job.checkpoint_dir else None),
@@ -472,11 +540,45 @@ class Orchestrator:
                         codec_bw_lo_mbps=job.codec_bw_lo_mbps if job.adaptive_codec else None,
                         broadcast_tree=tree,
                         serve_peers=serve_peers or None,
+                        # The server parks its UPDATED notify, broadcast
+                        # first, across a scheduler outage.
+                        adopt_grace_s=ctx.adopt_grace,
                     ),
                 ),
             )
             for k in range(num_shards)
         ]
+
+    @staticmethod
+    def _plan_record(ctx: _RunContext, ps_peers: list) -> dict:
+        """The journaled plan: what ``_plan_streams`` cannot re-derive (the
+        base id, the peers) and the lease and batch bindings adoption needs."""
+        return {
+            "base_id": ctx.base_id,
+            "workers": {peer: {"lease_id": h.lease_id, "batch_size": h.batch_size}
+                        for peer, h in ctx.handles.items()},
+            "ps_peers": list(ps_peers),
+        }
+
+    @staticmethod
+    async def _journal_dispatch(ctx: _RunContext, job_id: str, handle: WorkerHandle, kind: str,
+                                shard: "int | None" = None) -> None:
+        if ctx.dur is None:
+            return
+        # Off the loop: the record is fsync'd.
+        await asyncio.to_thread(ctx.dur.note_dispatch, job_id, handle.peer_id, handle.lease_id,
+                                kind, shard, handle.batch_size or None)
+
+    @staticmethod
+    def _journal_round_soon(ctx: _RunContext) -> None:
+        """Journal a frontier advance off the loop, fire and forget (a lost
+        round record costs re-deriving one round from the AdoptAcks)."""
+        if ctx.dur is None or ctx.tracker is None or ctx.tracker.round <= ctx.round_journaled:
+            return
+        ctx.round_journaled = ctx.tracker.round
+        ctrl = ctx.adaptive.snapshot() if ctx.adaptive is not None else None
+        aio.spawn(asyncio.to_thread(ctx.dur.note_round, ctx.tracker.round, ctrl),
+                  tasks=ctx.notify_tasks, what="scheduler journal round", logger=log)
 
     async def _start_data(self, ctx: _RunContext, job: DiLoCoJob) -> None:
         """Dataset discovery + slice scheduler (hypha-scheduler.rs:269,435-457)."""
@@ -505,10 +607,13 @@ class Orchestrator:
         ctx.adaptive = StragglerController(base_steps=max(
             1, round(job.rounds.avg_samples_between_updates / max(total_batch, 1))))
 
-    def _start_control(self, ctx: _RunContext, num_shards: int = 1, parts: int = 1):
+    def _start_control(self, ctx: _RunContext, num_shards: int = 1, parts: int = 1,
+                       generation: "int | None" = None):
         """Stand up the DiLoCo control plane: BatchScheduler + the
         /hypha-progress handler; a sharded round advances on UPDATED from
-        every due shard. Returns (collected_metrics, registration)."""
+        every due shard. ``generation`` is None on a fresh run (unstamped
+        responses) and the bumped generation on recovery. Returns
+        (collected_metrics, registration)."""
         ctx.complete = asyncio.Event()
         collected: list = []
         ctx.activity = [asyncio.get_running_loop().time()]  # watchdog feed
@@ -523,7 +628,9 @@ class Orchestrator:
             shards_due=((lambda r: shards_due_at(sync_mode, r, parts, num_shards))
                         if num_shards > 1 else None),
             adaptive=ctx.adaptive,
+            generation=generation,
         )
+        ctx.batch_scheduler = batch_scheduler
 
         async def on_progress(peer: str, progress: Progress):
             # Every progress message, from any peer, resets the watchdog.
@@ -534,6 +641,7 @@ class Orchestrator:
                 # Every progress message is a liveness signal.
                 ctx.detector.heartbeat(peer)
             response = batch_scheduler.on_progress(peer, progress)
+            self._journal_round_soon(ctx)
             if (ctx.adaptive is not None and ctx.membership is not None
                     and ctx.tracker.round > ctx.assign_published):
                 # A round advanced: publish its assignments with the
@@ -563,6 +671,9 @@ class Orchestrator:
         ctx.ft = ft
         ctx.status_timeout = status_timeout
         ctx.auction_timeout = auction_timeout
+        sched_root = self._scheduler_root(job)
+        if sched_root is not None:
+            ctx.adopt_grace = self._adopt_grace(ft)
         progress_reg = None
         tasks: list[Task] = []
         try:
@@ -633,50 +744,303 @@ class Orchestrator:
                 ctx, job, list(ctx.handles), [h.peer_id for h in ctx.ps_handles],
                 num_shards, parts,
             )
-            for spec, ps_handle in zip(ctx.ps_specs, ctx.ps_handles):
+            if sched_root is not None:
+                # Opened fresh (an earlier attempt's journal must not be
+                # adopted against this attempt's executions), and the plan
+                # persisted before anything runs.
+                ctx.dur = await asyncio.to_thread(DurableScheduler.open, sched_root, fresh=True)
+                await asyncio.to_thread(
+                    ctx.dur.note_plan,
+                    self._plan_record(ctx, [h.peer_id for h in ctx.ps_handles]))
+            for k, (spec, ps_handle) in enumerate(zip(ctx.ps_specs, ctx.ps_handles)):
                 tasks.append(await Task.dispatch(self.node, ctx.router, spec, [ps_handle]))
+                await self._journal_dispatch(ctx, spec.job_id, ps_handle, "aggregate", shard=k)
             # Train dispatches fan out with bounded concurrency (each is
-            # an independent request to a distinct peer).
-            tasks += await aio.gather_bounded(
-                [
-                    (
-                        lambda s=self._train_spec(ctx, f"w{i}", handle), h=handle:
-                        Task.dispatch(self.node, ctx.router, s, [h])
-                    )
-                    for i, handle in enumerate(ctx.handles.values())
-                ],
+            # an independent request to a distinct peer); the journal takes
+            # them in worker order afterwards.
+            pairs = [(self._train_spec(ctx, f"w{i}", handle), handle)
+                     for i, handle in enumerate(ctx.handles.values())]
+            dispatched = await aio.gather_bounded(
+                [(lambda s=spec, h=handle: Task.dispatch(self.node, ctx.router, s, [h]))
+                 for spec, handle in pairs],
                 limit=8,
             )
+            for (spec, handle), task in zip(pairs, dispatched):
+                tasks.append(task)
+                await self._journal_dispatch(ctx, spec.job_id, handle, "train")
             log.info("job %s dispatched: parameter server on %s, train on %s", ctx.base_id,
                      [h.peer_id for h in ctx.ps_handles], list(ctx.handles))
 
             await self._supervise(ctx, tasks)
-            log.info("job %s: largest progress gap %.3f s; the watchdog's least deadline "
-                     "%.3f s", ctx.base_id, ctx.progress_gap_max_s, ctx.watchdog_min_s)
-            ft_summary = None
-            if ctx.membership is not None:
-                snap = ctx.membership.snapshot()
-                ft_summary = {"epoch": snap.epoch, "active": snap.active,
-                              "suspected": snap.suspected, "departed": snap.departed,
-                              "rejoins": ctx.rejoin_count, "ps_restarts": ctx.ps_restarts}
-            return JobResult(ctx.base_id, ctx.tracker.round, collected, ft=ft_summary)
+            return await self._finish(ctx, collected)
         finally:
-            for task in ctx.notify_tasks:
-                task.cancel()
-            if ctx.notify_tasks:
-                await asyncio.gather(*list(ctx.notify_tasks), return_exceptions=True)
-            if progress_reg is not None:
-                progress_reg.close()
-            if ctx.data_scheduler is not None:
-                ctx.data_scheduler.stop()
-            if ctx.router is not None:
-                ctx.router.close()
+            await self._teardown(ctx, progress_reg)
+
+    async def _finish(self, ctx: _RunContext, collected: list) -> JobResult:
+        """The job completed: log, wipe the scheduler journal (a finished
+        job must not be adopted by the next run), and report."""
+        log.info("job %s: largest progress gap %.3f s; the watchdog's least deadline "
+                 "%.3f s", ctx.base_id, ctx.progress_gap_max_s, ctx.watchdog_min_s)
+        ft_summary = None
+        if ctx.membership is not None:
+            snap = ctx.membership.snapshot()
+            ft_summary = {"epoch": snap.epoch, "active": snap.active,
+                          "suspected": snap.suspected, "departed": snap.departed,
+                          "rejoins": ctx.rejoin_count, "ps_restarts": ctx.ps_restarts}
+        if ctx.dur is not None:
+            journal = ctx.dur.journal
+            dropped = ctx.batch_scheduler.stale_generation_dropped if ctx.batch_scheduler else 0
+            log.info("job %s: scheduler journal generation %d, %d records, %d bytes; "
+                     "recovery counts %s", ctx.base_id, ctx.dur.generation,
+                     journal.records_written, journal.bytes_written,
+                     {**self.counts, "stale_generation_dropped":
+                      self.counts["stale_generation_dropped"] + dropped})
+            await asyncio.to_thread(ctx.dur.complete)
+        return JobResult(ctx.base_id, ctx.tracker.round, collected, ft=ft_summary)
+
+    async def _teardown(self, ctx: _RunContext, progress_reg) -> None:
+        """Release what one attempt held (also when it was cancelled: a
+        killed scheduler leaves its journal for its successor)."""
+        for task in ctx.notify_tasks:
+            task.cancel()
+        if ctx.notify_tasks:
+            await asyncio.gather(*list(ctx.notify_tasks), return_exceptions=True)
+        if ctx.batch_scheduler is not None:
+            self.counts["stale_generation_dropped"] += \
+                ctx.batch_scheduler.stale_generation_dropped
+        if ctx.dur is not None:
+            await asyncio.to_thread(ctx.dur.close)
+        if progress_reg is not None:
+            progress_reg.close()
+        if ctx.data_scheduler is not None:
+            ctx.data_scheduler.stop()
+        if ctx.router is not None:
+            ctx.router.close()
+        for handle in ctx.handles.values():
+            await handle.release()
+        for ps_handle in ctx.ps_handles:
+            if ps_handle is not None:
+                await ps_handle.release()
+        await self.metrics_bridge.close()
+
+    # --------------------------------------------------- scheduler recovery
+
+    async def _adopt_executions(self, ctx: _RunContext, records: dict, round_hint: int,
+                                deadline_s: float, clock=None) -> dict:
+        """The SchedulerHello/AdoptAck handshake over the API protocol.
+        ``records`` maps job id -> {"peer": ...}. Unanswered peers are asked
+        again, every sweep at once and each request bounded by what is left
+        of ``deadline_s`` (``clock`` injects the time), until they answer
+        (``running``, ``gone`` or ``stale``) or the deadline passes; the
+        caller sends the rest down the depart or shard-restart path.
+        Returns job id -> AdoptAck."""
+        assert ctx.dur is not None
+        now = clock or asyncio.get_running_loop().time
+        stop_at = now() + max(deadline_s, 0.0)
+        acks: dict = {}
+        pending = dict(records)
+
+        async def ask(job_id: str, rec: dict, timeout: float) -> tuple:
+            hello = SchedulerHello(generation=ctx.dur.generation, job_id=job_id,
+                                   round=round_hint)
+            try:
+                resp = await self.node.request(str(rec.get("peer", "")), PROTOCOL_API, hello,
+                                               timeout=timeout)
+            except (RequestError, OSError, asyncio.TimeoutError) as e:
+                log.info("adoption hello for %s failed: %s", job_id, e)
+                return job_id, None
+            return job_id, resp if isinstance(resp, AdoptAck) else None
+
+        first_pass = True
+        while pending and (first_pass or now() < stop_at):
+            first_pass = False
+            timeout = min(5.0, max(stop_at - now(), 0.5))
+            for job_id, resp in await asyncio.gather(
+                    *(ask(job_id, rec, timeout) for job_id, rec in pending.items())):
+                if resp is None:
+                    continue
+                acks[job_id] = resp
+                rec = pending.pop(job_id, None) or {}
+                if resp.state == "running":
+                    self.counts["adopted_executions"] += 1
+                log.info("adoption: %s on %s answered %s (round %d, epoch %d)", job_id,
+                         rec.get("peer", ""), resp.state, resp.round, resp.epoch)
+            if pending and now() < stop_at:
+                await asyncio.sleep(0.3)
+        return acks
+
+    async def _resume_once(self, job: DiLoCoJob, *, auction_timeout: float = 2.0,
+                           status_timeout: float | None = None) -> JobResult:
+        """Adopt a dead predecessor's executions instead of re-auctioning.
+
+        The journal gives the plan (every stream identity re-derives from
+        the base id), the live dispatches and the last frontier; the fleet
+        gives the truth: each AdoptAck reports its execution's round, so
+        the scheduler fast-forwards to where training is (a round that
+        closed during the outage is never run again). An execution whose
+        lease re-arm fails or whose ack does not come by the deadline goes
+        down the depart/rejoin (train) or shard-restart path once
+        supervision starts."""
+        ft = job.ft if (job.ft is not None and job.ft.enabled) else None
+        sched_root = self._scheduler_root(job)
+        assert ft is not None and sched_root is not None
+        try:
+            dur = await asyncio.to_thread(DurableScheduler.open, sched_root)
+        except Exception as e:
+            raise AdoptionFailed(f"scheduler journal unreadable: {e}") from e
+        if dur.resume is None:
+            await asyncio.to_thread(dur.close)
+            raise AdoptionFailed("journal holds no adoptable plan")
+        res = dur.resume
+        ctx = _RunContext()
+        ctx.job, ctx.ft, ctx.dur = job, ft, dur
+        ctx.status_timeout = status_timeout
+        ctx.auction_timeout = auction_timeout
+        ctx.adopt_grace = self._adopt_grace(ft)
+        ctx.base_id = res.base_id
+        ctx.rejoin_count = res.rejoins
+        ctx.ps_restarts = res.ps_restarts
+        num_shards = max(int(job.num_ps_shards or 1), 1)
+        parts = placement_parts(job.sync_mode, job.num_fragments, num_shards)
+        plan_workers: dict = dict(res.plan.get("workers") or {})
+        ps_peers = [str(p) for p in (res.plan.get("ps_peers") or [])]
+        if not plan_workers or len(ps_peers) != num_shards:
+            await asyncio.to_thread(dur.close)
+            raise AdoptionFailed("journaled plan is incomplete")
+        log.warning("scheduler recovery: generation %d adopting job %s at round %d (%d "
+                    "journaled executions)", dur.generation, ctx.base_id, res.round,
+                    len(res.dispatches))
+        progress_reg = None
+        tasks: list[Task] = []
+        try:
+            # The original worker set re-derives the tags, groups and specs
+            # the live executions were dispatched with.
+            self._plan_streams(ctx, job, sorted(plan_workers), ps_peers, num_shards, parts)
+            # The newest dispatch of each execution; a train record of a
+            # departed peer (a rejoin superseded it) is skipped through the
+            # journaled membership's active list.
+            member = res.member or {}
+            active = [str(p) for p in (member.get("active") or sorted(plan_workers))]
+            lease_ids = {peer: str(rec.get("lease_id", "")) for peer, rec in plan_workers.items()}
+            batch_sizes = {peer: int(rec.get("batch_size", 1) or 1)
+                           for peer, rec in plan_workers.items()}
+            train_jobs: dict = {}  # peer -> job id
+            for job_id, rec in res.dispatches.items():
+                if rec.get("kind") != "train":
+                    continue
+                peer = str(rec.get("peer", ""))
+                train_jobs[peer] = job_id
+                lease_ids[peer] = str(rec.get("lease_id", ""))
+                if rec.get("batch_size"):
+                    batch_sizes[peer] = int(rec["batch_size"])
+            # Re-arm the journaled leases: the workers held them through the
+            # outage (the adoption grace), so the first renewal resumes
+            # liveness where the dead loop stopped.
+            dead_workers: list = []
+            for peer in active:
+                if peer not in lease_ids or peer not in train_jobs:
+                    dead_workers.append(peer)
+                    continue
+                try:
+                    handle = await WorkerHandle.adopt(self.node, peer, lease_ids[peer])
+                except (RequestError, OSError, asyncio.TimeoutError) as e:
+                    log.warning("adoption: lease re-arm for %s failed: %s", peer, e)
+                    dead_workers.append(peer)
+                    continue
+                handle.batch_size = batch_sizes.get(peer, 1)
+                ctx.handles[peer] = handle
+            ctx.ps_handles = [None] * num_shards
+            for k, ps_job_id in enumerate(ctx.ps_job_ids):
+                rec = res.dispatches.get(ps_job_id)
+                if rec is None:
+                    continue
+                try:
+                    ctx.ps_handles[k] = await WorkerHandle.adopt(
+                        self.node, str(rec.get("peer", "")), str(rec.get("lease_id", "")))
+                except (RequestError, OSError, asyncio.TimeoutError) as e:
+                    log.warning("adoption: lease re-arm for ps shard %d failed: %s", k, e)
+            if not ctx.handles and all(h is None for h in ctx.ps_handles):
+                raise AdoptionFailed("nothing alive to adopt")
+
+            hello_records = {train_jobs[peer]: {"peer": peer} for peer in ctx.handles}
+            for k, ps_job_id in enumerate(ctx.ps_job_ids):
+                if ctx.ps_handles[k] is not None:
+                    hello_records[ps_job_id] = {
+                        "peer": (res.dispatches.get(ps_job_id) or {}).get("peer", "")}
+            deadline_s = (ft.scheduler_adopt_deadline_s
+                          if ft.scheduler_adopt_deadline_s is not None
+                          else DEFAULT_ADOPT_DEADLINE_S)
+            acks = await self._adopt_executions(ctx, hello_records, res.round, deadline_s)
+            running = {job_id: ack for job_id, ack in acks.items()
+                       if ack.ok and ack.state == "running"}
+            # A finished job adopted post mortem: every execution is gone and
+            # the journal's frontier covers the plan.
+            if not running and res.round >= job.rounds.update_rounds:
+                await asyncio.to_thread(dur.complete)
+                return JobResult(ctx.base_id, res.round, [])
+            if not running:
+                raise AdoptionFailed("no execution answered the hello")
+
+            await self._start_data(ctx, job)
+            ctx.tracker = ProgressTracker(
+                parameter_server=ps_peers,
+                update_target=job.rounds.avg_samples_between_updates,
+                update_epochs=job.rounds.update_rounds,
+            )
+            ctx.detector = PhiAccrualDetector(threshold=ft.phi_threshold)
+            # The dead peers are tracked and members too: the prelude sends
+            # them down _depart once supervision starts.
+            members: list = []
+            for peer in active:
+                if peer in ctx.handles or peer in dead_workers:
+                    ctx.tracker.add_worker(peer, batch_sizes.get(peer, 1))
+                    members.append(peer)
+            ctx.membership = MembershipView(members)
+            # Past the journaled epoch: the first push after the restart
+            # supersedes what the servers adopted (they gate on the epoch).
+            ctx.membership.epoch = int(member.get("epoch", 0)) + 1
+            ctx.membership.departed = {str(p) for p in (member.get("departed") or [])}
             for handle in ctx.handles.values():
-                await handle.release()
-            for ps_handle in ctx.ps_handles:
-                if ps_handle is not None:
-                    await ps_handle.release()
-            await self.metrics_bridge.close()
+                handle.on_renew = ctx.detector.heartbeat
+            self._make_adaptive(ctx, job)
+            collected, progress_reg = self._start_control(ctx, num_shards, parts,
+                                                          generation=dur.generation)
+            ctx.router = StatusRouter(self.node)
+            # Fast-forward, never rewind: an adopted shard's round is an
+            # UPDATED the predecessor processed or that died with it.
+            shard_rounds = {k: running[ps_job_id].round
+                            for k, ps_job_id in enumerate(ctx.ps_job_ids)
+                            if ps_job_id in running}
+            assert ctx.batch_scheduler is not None
+            adopted_round = ctx.batch_scheduler.adopt_round(res.round, shard_rounds,
+                                                            ctrl=res.ctrl)
+            ctx.round_journaled = adopted_round
+            await asyncio.to_thread(ctx.dur.note_round, adopted_round,
+                                    ctx.adaptive.snapshot() if ctx.adaptive is not None
+                                    else None)
+            self.counts["scheduler_recoveries"] += 1
+            log.warning("scheduler recovery: adopted %d/%d executions, fast-forwarded round "
+                        "%d -> %d", len(running), len(hello_records), res.round, adopted_round)
+            # The adopted jobs' statuses on the existing channels: no
+            # re-dispatch, the jobs are running.
+            for job_id in running:
+                tasks.append(Task.attach(ctx.router, job_id))
+            # The fleet's membership under the new epoch.
+            self._notify_membership_soon(ctx)
+
+            async def prelude(add) -> None:
+                for peer in list(ctx.membership.active):
+                    job_id = train_jobs.get(peer)
+                    if job_id is None or job_id not in running:
+                        await self._depart(ctx, peer, "no adoption ack", add)
+                for k, ps_job_id in enumerate(ctx.ps_job_ids):
+                    if ps_job_id not in running:
+                        self._request_ps_restart(ctx, k, "no adoption ack", add)
+
+            await self._supervise(ctx, tasks, prelude=prelude)
+            return await self._finish(ctx, collected)
+        finally:
+            await self._teardown(ctx, progress_reg)
 
     # ------------------------------------------------------------ supervision
 
@@ -714,7 +1078,7 @@ class Orchestrator:
             if status.state == "cancelled":
                 return peer, status.job_id, "cancelled"
 
-    async def _supervise(self, ctx: _RunContext, tasks: list[Task]) -> None:
+    async def _supervise(self, ctx: _RunContext, tasks: list[Task], prelude=None) -> None:
         """Wait for completion; tolerate a train worker's loss when elastic.
 
         Failure signals: per-task failed/cancelled job statuses, per-handle
@@ -740,6 +1104,10 @@ class Orchestrator:
                 add("ps-worker", ps_handle, _await_failure(ps_handle))
         loop = asyncio.get_running_loop()
         try:
+            if prelude is not None:
+                # After an adoption: the executions whose AdoptAck never
+                # came enter the failure paths, watched by the same `add`.
+                await prelude(add)
             while True:
                 timeout_s = self._effective_timeout(ctx)
                 ctx.watchdog_min_s = min(ctx.watchdog_min_s, timeout_s)
@@ -838,6 +1206,10 @@ class Orchestrator:
             raise JobFailed(f"parameter server shard {shard} failed: {reason}")
         ctx.ps_restarts += 1
         ctx.ps_restarting.add(shard)
+        if ctx.dur is not None:
+            # A recovered scheduler resumes the budget, not a fresh one.
+            aio.spawn(asyncio.to_thread(ctx.dur.note_ps_restarts, ctx.ps_restarts),
+                      tasks=ctx.notify_tasks, what="scheduler journal ps-restart", logger=log)
         log.warning("parameter server shard %d failed (%s); restart attempt %d/%d", shard,
                     reason, ctx.ps_restarts, ctx.ft.ps_restart_attempts)
         add("ps-restart", shard, self._restart_ps(ctx, shard))
@@ -889,6 +1261,8 @@ class Orchestrator:
                     await handle.release()
                 continue
             ctx.ps_handles[shard] = handle
+            await self._journal_dispatch(ctx, ctx.ps_specs[shard].job_id, handle, "aggregate",
+                                         shard=shard)
             if ctx.membership is not None:
                 # Bring the recovered server's checkpointed view up to date.
                 self._notify_membership_soon(ctx)
@@ -935,6 +1309,15 @@ class Orchestrator:
         assert ctx.membership is not None and ctx.ps_handles
         ok = True
         snapshot = ctx.membership.snapshot()
+        dur = getattr(ctx, "dur", None)  # tests drive this with bare namespaces
+        if dur is not None:
+            # Journaled before the push: a restarted scheduler must never
+            # adopt an older epoch than one a server saw.
+            await asyncio.to_thread(
+                dur.note_member,
+                {"epoch": snapshot.epoch, "active": list(snapshot.active),
+                 "departed": list(snapshot.departed)},
+                ctx.rejoin_count)
         adaptive = getattr(ctx, "adaptive", None)
         if adaptive is not None:
             # None while empty, so the wire keeps its bytes until the
@@ -1037,6 +1420,7 @@ class Orchestrator:
                 continue
             ctx.handles[peer] = handle
             ctx.rejoin_count += 1
+            await self._journal_dispatch(ctx, spec.job_id, handle, "train")
             log.info("worker %s rejoined for %s at epoch %d (%.0f ms after departure)", peer,
                      departed_peer, ctx.membership.epoch, (loop_time() - departed_at) * 1000.0)
             return handle, task

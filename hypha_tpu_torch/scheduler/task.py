@@ -1,6 +1,6 @@
 """Task handle: dispatch a job to leased workers and stream its status (a
-copy of ``hypha_tpu/scheduler/task.py``; ``Task.attach``, which re-watches
-an adopted job, belongs to **scheduler recovery** and is not ported).
+copy of ``hypha_tpu/scheduler/task.py``; ``Task.attach`` re-watches a job
+that a restarted scheduler adopted).
 
 Reference: crates/scheduler/src/task.rs:20-128 — a ``Task`` dispatches a
 ``DispatchJob`` to a set of workers and exposes the stream of ``JobStatus``
@@ -114,6 +114,18 @@ class Task:
                     )
             task.close()
             raise
+        return task
+
+    @classmethod
+    def attach(cls, router: StatusRouter, job_id: str) -> "Task":
+        """Watch an already-running job's statuses without dispatching: an
+        execution adopted by a restarted scheduler is still running, and a
+        second ``DispatchJob`` would be refused."""
+        task = cls.__new__(cls)
+        task.spec = None
+        task.job_id = job_id
+        task._router = router
+        task._statuses = router.watch(job_id)
         return task
 
     async def next_status(self, timeout: float | None = None) -> tuple[str, JobStatus]:

@@ -5,9 +5,8 @@ Reference: crates/scheduler/src/worker.rs:59-177 — the ``Worker`` handle
 owns a background renewal loop that re-renews at 2/3 of the granted
 timeout; the *first* renewal converts the worker's temporary offer lease
 into a live one (acceptance), and a renewal failure is the scheduler's
-worker-failure detector, surfacing through ``failed``. ``adopt``, which
-re-arms a journaled lease after a scheduler restart, raises naming
-**scheduler recovery** (ROADMAP.md, Queue 1).
+worker-failure detector, surfacing through ``failed``. ``adopt`` re-arms a
+journaled lease after a scheduler restart.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ from typing import Callable
 from .. import aio
 from ..messages import PROTOCOL_API, RenewLease, RenewLeaseResponse, WorkerOffer
 from ..network.node import Node, RequestError
+from ..resources import Resources
 
 __all__ = ["WorkerHandle", "WorkerFailure"]
 
@@ -63,11 +63,22 @@ class WorkerHandle:
     async def adopt(
         cls, node: Node, peer_id: str, lease_id: str
     ) -> "WorkerHandle":
-        """Re-arm a JOURNALED lease after a scheduler restart: not ported."""
-        raise NotImplementedError(
-            "re-adopting a journaled lease is not ported to PyTorch yet "
-            "(ROADMAP.md, Queue 1: scheduler recovery)"
+        """Re-arm a JOURNALED lease after a scheduler restart
+        (``ft.durable.DurableScheduler``). The worker held the lease through
+        the outage (the adoption grace keeps it past expiry), so the
+        restarted scheduler's first renewal, owner-checked against the same
+        scheduler peer id, resumes liveness where the dead loop stopped. A
+        renewal failure here is the adoption-time death signal: the caller
+        falls back to the depart/rejoin or the shard-restart path."""
+        offer = WorkerOffer(
+            request_id="adopt",
+            lease_id=lease_id,
+            peer_id=peer_id,
+            resources=Resources(),
+            price=0.0,
+            expires_in=0.0,
         )
+        return await cls.create(node, offer)
 
     async def _renew(self) -> float:
         resp = await self.node.request(

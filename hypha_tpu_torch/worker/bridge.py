@@ -23,10 +23,12 @@ protocol, msg, timeout)``; ``connector`` defaults to a
 :class:`~hypha_tpu_torch.worker.connectors.Connector` on that node, and
 may be any object with its ``fetch``/``send``/``receive``.
 ``progress_probe``, when given, sees every Progress the executor sends
-(the worker runtime keeps an execution's live round with it). The
-reference's retry of status sends across a scheduler outage
-(``status_retry_s > 0``) is not ported (ROADMAP.md, Queue 1:
-scheduler recovery).
+(the worker runtime keeps an execution's live round with it).
+``status_retry_s > 0`` (a scheduler-recoverable job's adoption grace) parks
+a status send that fails in ``aio.retry`` for that many seconds, so a
+scheduler outage costs backed-off re-attempts instead of a failed training
+loop: the restarted scheduler answers the re-attempt. ``parked`` counts the
+failed attempts, and a send answered after any is logged.
 """
 
 from __future__ import annotations
@@ -35,10 +37,12 @@ import asyncio
 import json
 import logging
 import socket
+import time
 from pathlib import Path
 
 from .. import aio, messages
 from ..messages import PROTOCOL_PROGRESS, Fetch, Progress, Receive, Send
+from ..network.node import RequestError
 from .connectors import Connector
 
 __all__ = ["Bridge", "BridgeError", "MAX_BODY", "safe_rel"]
@@ -88,17 +92,14 @@ class Bridge:
         status_retry_s: float = 0.0,
         progress_probe=None,
     ) -> None:
-        if status_retry_s and status_retry_s > 0:
-            raise NotImplementedError(
-                "retrying status sends across a scheduler outage (status_retry_s) is not "
-                "ported yet (ROADMAP.md, Queue 1: scheduler recovery)"
-            )
         self.node = node
         self.work_dir = Path(work_dir)
         self.job_id = job_id
         self.scheduler_peer = scheduler_peer
         self.connector = connector or Connector(node, scheduler_peer)
         self.progress_probe = progress_probe
+        self.status_retry_s = float(status_retry_s or 0.0)
+        self.parked = 0  # failed status attempts parked across an outage
         self.socket_path = self.work_dir / "bridge.sock"
         self._server: "asyncio.base_events.Server | None" = None
         self._send_tasks: set = set()
@@ -308,6 +309,36 @@ class Bridge:
                 # either way.
                 pass
 
+    async def _status_parked(self, progress: Progress):
+        """Send one status, re-trying a failure until ``status_retry_s``
+        runs out (the scheduler's answer is idempotent by round)."""
+        failed = 0
+        t0 = time.perf_counter()
+
+        async def once():
+            nonlocal failed
+            try:
+                return await self.node.request(
+                    self.scheduler_peer, PROTOCOL_PROGRESS, progress, timeout=30
+                )
+            except (RequestError, OSError, asyncio.TimeoutError):
+                failed += 1
+                self.parked += 1
+                raise
+
+        response = await aio.retry(
+            once, base_delay=0.5, max_delay=5.0, deadline=self.status_retry_s,
+            retry_on=(RequestError, OSError),
+            what=f"status {progress.kind.value} of {self.job_id} -> scheduler", logger=log,
+        )
+        if failed:
+            log.warning("job %s: status %s answered after %d parked attempt(s) in %.3f s "
+                        "(scheduler generation %s, round %s)", self.job_id,
+                        progress.kind.value, failed, time.perf_counter() - t0,
+                        getattr(response, "generation", None),
+                        getattr(response, "round", None))
+        return response
+
     async def _status(self, body: dict, writer: asyncio.StreamWriter) -> None:
         progress = messages.from_json_dict(body.get("progress"))
         if not isinstance(progress, Progress):
@@ -316,7 +347,10 @@ class Bridge:
         progress.job_id = progress.job_id or self.job_id
         if self.progress_probe is not None:
             self.progress_probe(progress)
-        response = await self.node.request(
-            self.scheduler_peer, PROTOCOL_PROGRESS, progress, timeout=30
-        )
+        if self.status_retry_s <= 0:
+            response = await self.node.request(
+                self.scheduler_peer, PROTOCOL_PROGRESS, progress, timeout=30
+            )
+        else:
+            response = await self._status_parked(progress)
         await self._respond(writer, 200, {"response": messages.to_json_dict(response)})

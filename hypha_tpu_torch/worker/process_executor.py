@@ -104,6 +104,7 @@ class ProcessExecutor(JobExecutor):
         execution = _ProcessExecution(job_id, proc, bridge, work_dir,
                                       reducer=maybe_start_reducer(self.node, spec, self.device,
                                                                   work_dir / "reduce"))
+        execution.adopt_grace_s = grace or None  # the lease outlives a dead scheduler
         probe_target.append(execution)
         execution.start_supervision()
         return execution

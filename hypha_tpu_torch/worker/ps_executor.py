@@ -100,9 +100,17 @@ a quantized link encoded with its own error-feedback residual on the
 server's device, every wire stamped with the codec (``CODEC_KEY``), which
 the trainer switches its next upload to.
 
+Scheduler recovery (reference ``:301``, ``:2804-2862``): with the job's
+adoption grace (``adopt_grace_s``) the execution outlives a dead scheduler
+by it, and the ``UPDATED`` notify parks (``_notify_updated_resilient``): on
+the second failed attempt in a row the round's broadcast goes out first, so
+a quorate round closes and the workers merge without the scheduler, then
+the notify retries until the grace ends. Once a round is committed the
+execution reports the next round as its own (the ``AdoptAck`` round): a
+restarted scheduler credits the committed round and never runs it again.
+
 What raises ``NotImplementedError`` at dispatch, with its ROADMAP.md
-label: the adoption grace (scheduler recovery) and ``report_metrics_s``
-(telemetry).
+label: ``report_metrics_s`` (telemetry).
 
 The outer step (counterpart of ``ParameterServerExecutor._outer_step``,
 ``hypha_tpu/worker/ps_executor.py:2382-2440``, with
@@ -142,7 +150,8 @@ import torch
 from .. import aio, compress
 from ..executor.serialization import load_file, read_header, save_file
 from ..ft.adaptive import LinkTable
-from ..ft.durable import GENERATION_KEY, RESYNC_KEY, DurablePS, FoldRecord
+from ..ft.durable import (GENERATION_KEY, RESYNC_KEY, DurablePS, FoldRecord,
+                          stale_scheduler_response)
 from ..ft.membership import PROTOCOL_FT, MembershipUpdate, RoundMembership, quorum_size
 from ..ft.rejoin import CATCHUP_KEY, CatchupBuffer
 from ..hw import default_device
@@ -271,7 +280,6 @@ def outer_step(
 def _unported(cfg) -> None:
     """Raise on every aggregate option this path does not run."""
     checks = [
-        (bool(cfg.adopt_grace_s), "adopt_grace_s", "scheduler recovery"),
         (bool(cfg.report_metrics_s), "report_metrics_s", "telemetry"),
     ]
     for bad, option, item in checks:
@@ -280,6 +288,20 @@ def _unported(cfg) -> None:
                 f"{option}={getattr(cfg, option)!r} is not ported to the PyTorch "
                 f"parameter server (ROADMAP.md, Queue 1: {item})"
             )
+
+
+def _fire_once(fn):
+    """Wrap an async thunk so that only its first call runs it: a round's
+    broadcast goes out once, from the parked notify's outage path or after
+    the notify, never both and never neither."""
+    done = [False]
+
+    async def run() -> None:
+        if not done[0]:
+            done[0] = True
+            await fn()
+
+    return run
 
 
 def _file_sha(path: Path) -> str:
@@ -353,6 +375,9 @@ class ParameterServerExecutor(JobExecutor):
         work_dir = self.work_root / f"hypha-ps-{uuid.uuid4().hex[:12]}"
         work_dir.mkdir(parents=True)
         execution = Execution(job_id)
+        # A scheduler-recoverable job outlives a dead scheduler by the grace
+        # (the arbiter defers the lease, the notify parks).
+        execution.adopt_grace_s = float(cfg.adopt_grace_s or 0) or None
         task = asyncio.create_task(self._run(execution, job_id, cfg, scheduler_peer, work_dir))
 
         async def cancel() -> None:
@@ -486,8 +511,11 @@ class ParameterServerExecutor(JobExecutor):
                     ckpt_dir=ckpt_dir, round_start=round_num, init_accums=recovered,
                     init_pending=preload, init_efs=rec_efs, adaptive_steps=adaptive_steps)
                 return
+            park_s = float(cfg.adopt_grace_s or 0)
             while True:
                 execution.round = round_num  # the live round, for AdoptAck
+                if elastic is not None:
+                    execution.epoch = elastic.membership.epoch
                 # A recovered round resumes its replayed accumulator.
                 accum = recovered.pop(round_num, None)
                 preloaded_folded = accum is not None
@@ -519,10 +547,13 @@ class ParameterServerExecutor(JobExecutor):
                     # update: each link tracks it within its own residual.
                     if elastic is not None:
                         await asyncio.to_thread(elastic.catchup.accumulate, update_path)
-                    response = await self._notify_updated(
-                        scheduler_peer, job_id, round_num, execution, arrivals=arrivals)
-                    await self._broadcast_adaptive(cfg, update_path, round_num, elastic, link,
-                                                   peer_efs, work_dir)
+                    bcast_adaptive = _fire_once(
+                        lambda _u=update_path, _r=round_num: self._broadcast_adaptive(
+                            cfg, _u, _r, elastic, link, peer_efs, work_dir))
+                    response = await self._notify_updated_resilient(
+                        scheduler_peer, job_id, round_num, execution=execution,
+                        arrivals=arrivals, park_s=park_s, on_first_failure=bcast_adaptive)
+                    await bcast_adaptive()
                     await asyncio.to_thread(
                         _unlink, [update_path] + [path for path, _ in received.values()])
                     round_num += 1
@@ -551,22 +582,32 @@ class ParameterServerExecutor(JobExecutor):
                         catchup=elastic.catchup if elastic is not None else None,
                         efs={0: bcast_ef},
                         active=list(elastic.membership.active) if elastic is not None else [])
+                    # Committed: the next round this server closes is the
+                    # one it reports to a restarted scheduler's hello.
+                    execution.round = round_num + 1
                 if ckpt_dir is not None:
                     await asyncio.to_thread(self._checkpoint_momentum, momentum_file, ckpt_dir)
                 # Notify BEFORE broadcasting: a worker can merge the update
                 # and send UPDATE_RECEIVED the moment the broadcast lands,
                 # and the scheduler must have advanced the round by then, or
                 # it answers Continue instead of Done and the worker starts
-                # a phantom extra round.
-                response = await self._notify_updated(
-                    scheduler_peer, job_id, round_num, execution, arrivals=arrivals)
+                # a phantom extra round. Across a scheduler outage (the
+                # notify failed twice) the broadcast goes first: the
+                # workers' UPDATE_RECEIVED parks too, so the race cannot
+                # bite while the scheduler is down.
+                bcast_static = _fire_once(
+                    lambda _w=wire_path, _r=round_num: self._broadcast(
+                        cfg, _w, _r, elastic,
+                        extra_header={GENERATION_KEY: dur.generation} if dur is not None
+                        else None))
+                response = await self._notify_updated_resilient(
+                    scheduler_peer, job_id, round_num, execution=execution, arrivals=arrivals,
+                    park_s=park_s, on_first_failure=bcast_static)
                 if dur is not None:
                     await asyncio.to_thread(
                         dur.note_notified, round_num,
                         response.kind == ProgressResponseKind.DONE)
-                await self._broadcast(
-                    cfg, wire_path, round_num, elastic,
-                    extra_header={GENERATION_KEY: dur.generation} if dur is not None else None)
+                await bcast_static()
                 # Durable runs keep the delta files: the journal names them
                 # until a checkpoint covers their round.
                 done_files = [update_path] + ([wire_path] if wire_path != update_path else [])
@@ -677,8 +718,12 @@ class ParameterServerExecutor(JobExecutor):
         if last_round >= 0:
             notified = resume.notified.get(last_round)
             if notified is None:
-                response = await self._notify_updated(scheduler_peer, job_id, last_round,
-                                                      execution, shard=shard)
+                # A server and a scheduler that died together recover in
+                # either order: the re-notify parks across the scheduler's
+                # restart (idempotent by round on its side).
+                response = await self._notify_updated_resilient(
+                    scheduler_peer, job_id, last_round, execution=execution, shard=shard,
+                    park_s=float(cfg.adopt_grace_s or 0))
                 done = response.kind == ProgressResponseKind.DONE
                 await asyncio.to_thread(dur.note_notified, last_round, done)
             else:
@@ -1309,9 +1354,12 @@ class ParameterServerExecutor(JobExecutor):
             return [momentum_file] + sorted(work_dir.glob("momentum-f*.safetensors"))
 
         round_num = next_owned(round_start)
+        park_s = float(cfg.adopt_grace_s or 0)
         try:
             while True:
                 execution.round = round_num
+                if elastic is not None:
+                    execution.epoch = elastic.membership.epoch
                 if dur is not None:
                     await asyncio.to_thread(dur.note_open, round_num)
                 arrivals: "dict | None" = {} if adaptive_steps else None
@@ -1353,6 +1401,7 @@ class ParameterServerExecutor(JobExecutor):
                         catchup=elastic.catchup if elastic is not None else None,
                         efs=bcast_efs,
                         active=list(elastic.membership.active) if elastic is not None else [])
+                    execution.round = next_owned(round_num + 1)  # committed
                 if ckpt_dir is not None:
                     await asyncio.to_thread(self._checkpoint_momentum, part_momentum, ckpt_dir)
                 header = dict(tag.header())
@@ -1363,19 +1412,25 @@ class ParameterServerExecutor(JobExecutor):
                 # The fan-out's peers are frozen at close: a rejoiner joining
                 # while it is pending gets this round inside its catch-up.
                 peers = list(elastic.membership.active) if elastic is not None else None
-                # Notify before the fan-out (the blocking loop's race note).
-                response = await self._notify_updated(
-                    scheduler_peer, job_id, round_num, execution, shard=shard,
-                    arrivals=arrivals)
+
+                async def spawn_bcast(_u=update_path, _w=wire_path, _rcv=received, _tag=tag,
+                                      _hdr=header, _frag=frag, _peers=peers) -> None:
+                    last_bcast[_frag] = aio.spawn(
+                        self._broadcast_and_cleanup(
+                            cfg, _u, _w, _rcv, _tag, _hdr, after=last_bcast.get(_frag),
+                            elastic=elastic, peers=_peers, keep_received=dur is not None),
+                        tasks=bcast_tasks, what=f"stream broadcast r{_tag.round}", logger=log)
+
+                launch_bcast = _fire_once(spawn_bcast)
+                # Notify before the fan-out (the blocking loop's race note,
+                # and its exception across a scheduler outage).
+                response = await self._notify_updated_resilient(
+                    scheduler_peer, job_id, round_num, execution=execution, shard=shard,
+                    arrivals=arrivals, park_s=park_s, on_first_failure=launch_bcast)
                 if dur is not None:
                     await asyncio.to_thread(dur.note_notified, round_num,
                                             response.kind == ProgressResponseKind.DONE)
-                last_bcast[frag] = aio.spawn(
-                    self._broadcast_and_cleanup(
-                        cfg, update_path, wire_path, received, tag, header,
-                        after=last_bcast.get(frag), elastic=elastic, peers=peers,
-                        keep_received=dur is not None),
-                    tasks=bcast_tasks, what=f"stream broadcast r{round_num}", logger=log)
+                await launch_bcast()
                 round_num = next_owned(round_num + 1)
                 if elastic is not None:
                     await self._serve_joins(elastic, cfg, round_num, work_dir)
@@ -1716,6 +1771,8 @@ class ParameterServerExecutor(JobExecutor):
     async def _notify_updated(self, scheduler_peer: str, job_id: str, round_num: int,
                               execution=None, shard: int = 0,
                               arrivals: "dict | None" = None) -> ProgressResponse:
+        """One UPDATED notify; a reply from an older scheduler generation
+        than the one adopted (a zombie's) raises, so it is retried."""
         gen = getattr(execution, "scheduler_generation", None)
         progress = Progress(
             kind=ProgressKind.UPDATED, job_id=job_id, round=round_num, shard=shard,
@@ -1734,11 +1791,51 @@ class ParameterServerExecutor(JobExecutor):
                  f" shard {shard}" if shard else "", resp.kind.value,
                  f"; arrival_s {progress.metrics['arrival_s']}" if arrivals is not None else "")
         if execution is not None:
-            new_gen = getattr(resp, "generation", None)
-            if new_gen is not None:
-                if gen is not None and new_gen < gen:
-                    # A zombie predecessor answered: its decision must not
-                    # drive the round machinery.
-                    raise RequestError("stale scheduler generation on UPDATED reply")
-                execution.scheduler_generation = new_gen
+            new_gen, stale = stale_scheduler_response(resp, gen)
+            if stale:
+                # A zombie predecessor answered: its decision must not
+                # drive the round machinery.
+                log.warning("ps %s: round %d UPDATED answered by stale scheduler generation %s "
+                            "(adopted %s); dropped", job_id, round_num, resp.generation, gen)
+                raise RequestError("stale scheduler generation on UPDATED reply")
+            execution.scheduler_generation = new_gen
+        return resp
+
+    async def _notify_updated_resilient(self, scheduler_peer: str, job_id: str, round_num: int,
+                                        *, shard: int = 0, arrivals: "dict | None" = None,
+                                        execution=None, park_s: float = 0.0,
+                                        on_first_failure=None) -> ProgressResponse:
+        """An UPDATED notify that survives a scheduler outage. Without
+        ``park_s`` (recovery off) it is one attempt. With it, the second
+        failed attempt in a row runs ``on_first_failure`` (the round's
+        broadcast: a quorate round closes without the scheduler), then the
+        notify retries in ``aio.retry`` until the restarted scheduler
+        answers or ``park_s`` runs out. Two failures, not one: one blip
+        against a live scheduler must not reorder notify and broadcast,
+        since the workers' UPDATE_RECEIVED is not parked then."""
+        if park_s <= 0:
+            return await self._notify_updated(scheduler_peer, job_id, round_num, execution,
+                                              shard=shard, arrivals=arrivals)
+        failures = [0]
+        t0 = time.perf_counter()
+
+        async def once() -> ProgressResponse:
+            try:
+                return await self._notify_updated(scheduler_peer, job_id, round_num, execution,
+                                                  shard=shard, arrivals=arrivals)
+            except (RequestError, OSError, asyncio.TimeoutError):
+                failures[0] += 1
+                if failures[0] == 2 and on_first_failure is not None:
+                    log.warning("ps %s: round %d UPDATED failed twice; broadcasting before the "
+                                "scheduler answers", job_id, round_num)
+                    await on_first_failure()
+                raise
+
+        resp = await aio.retry(once, base_delay=0.5, max_delay=5.0, deadline=park_s,
+                               retry_on=(RequestError, OSError),
+                               what=f"updated r{round_num} -> scheduler", logger=log)
+        if failures[0]:
+            log.warning("ps %s: round %d UPDATED answered after %d parked attempt(s) in %.3f s "
+                        "(scheduler generation %s, round %s)", job_id, round_num, failures[0],
+                        time.perf_counter() - t0, resp.generation, resp.round)
         return resp

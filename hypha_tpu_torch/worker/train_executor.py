@@ -54,6 +54,7 @@ class InProcessTrainExecutor(JobExecutor):
         work_dir.mkdir(parents=True, mode=0o700)
         execution = Execution(job_id)
         grace = float(getattr(spec.executor.train, "adopt_grace_s", 0) or 0)
+        execution.adopt_grace_s = grace or None  # the lease outlives a dead scheduler
 
         def probe(progress) -> None:
             if progress.round > execution.round:

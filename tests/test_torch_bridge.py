@@ -34,6 +34,7 @@ from hypha_tpu.worker.connectors import Connector as JConnector
 from hypha_tpu_torch import messages as tmsg
 from hypha_tpu_torch.executor.bridge_client import BridgeHTTPError
 from hypha_tpu_torch.executor.bridge_client import Session as TSession
+from hypha_tpu_torch.network.node import RequestError as TRequestError
 from hypha_tpu_torch.worker.bridge import Bridge as TBridge
 from hypha_tpu_torch.worker.bridge import BridgeError, safe_rel
 from hypha_tpu_torch.worker.connectors import Connector as TConnector
@@ -290,13 +291,28 @@ def test_bridges_answer_raw_requests_alike(tmp_path):
 
 def test_port_bridge_refuses_what_it_does_not_port(tmp_path):
     # Without a connector the bridge builds the port's on its node, as the
-    # reference does; only the status retry across an outage is refused.
+    # reference does. With status_retry_s (a scheduler-recoverable job) a
+    # status send that fails parks and is re-sent until the scheduler
+    # answers; only unsafe paths are refused.
     node = _FakeNode(tmsg)
     default = TBridge(node, tmp_path, "j", "sched").connector
     assert isinstance(default, TConnector)
     assert (default.node, default.scheduler_peer) == (node, "sched")
-    with pytest.raises(NotImplementedError, match="scheduler recovery"):
-        TBridge(_FakeNode(tmsg), tmp_path, "j", "sched", _FakeConnector(), status_retry_s=5.0)
+
+    class _Outage(_FakeNode):
+        async def request(self, peer, protocol, msg, timeout=30.0):
+            if len(self.calls) < 2:
+                self.calls.append("down")
+                raise TRequestError("scheduler down")
+            return await super().request(peer, protocol, msg, timeout)
+
+    flaky = _Outage(tmsg)
+    parked = TBridge(flaky, tmp_path, "j", "sched", _FakeConnector(), status_retry_s=5.0)
+    resp = asyncio.run(parked._status_parked(
+        tmsg.Progress(kind=tmsg.ProgressKind.UPDATE_RECEIVED, job_id="j")))
+    assert resp.kind == tmsg.ProgressResponseKind.CONTINUE and parked.parked == 2
+    assert flaky.calls[:2] == ["down", "down"]
+    assert flaky.calls[2] == ("sched", tmsg.PROTOCOL_PROGRESS, "update-received", "j", 30)
     assert safe_rel(tmp_path, "artifacts/m.bin") == tmp_path / "artifacts/m.bin"
     for bad in ("/etc/passwd", "../../secrets"):
         with pytest.raises(BridgeError):

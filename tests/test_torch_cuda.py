@@ -748,6 +748,90 @@ def test_parameter_server_on_the_card_equals_the_cpu(cuda, tmp_path):
             assert torch.equal(a[k].view(torch.int32), b[k].view(torch.int32)), (r, k)
 
 
+def test_parked_notify_broadcasts_first_on_the_card(cuda, tmp_path):
+    """A durable parameter server of a scheduler-recoverable job (the
+    adoption grace set) whose round-1 UPDATED fails twice, as across a
+    scheduler outage: on the card as on the CPU the round's broadcast goes
+    out before the notify is answered, and the three rounds' updates are
+    equal bit for bit."""
+    import asyncio
+
+    from hypha_tpu_torch import messages as m
+    from hypha_tpu_torch.executor.serialization import load_file
+    from hypha_tpu_torch.network import MemoryTransport, Node
+    from hypha_tpu_torch.network.node import RequestError
+    from hypha_tpu_torch.worker.ps_executor import ParameterServerExecutor
+
+    workers, samples = ("w0", "w1", "w2"), (300.0, 101.0, 7.0)
+    files = {r: _delta_files(tmp_path, 10 + r) for r in range(3)}
+
+    async def serve(device, name):
+        hub = MemoryTransport()
+        nodes = {p: Node(hub.shared(), peer_id=p) for p in ("ps", "sched", *workers)}
+        for n in nodes.values():
+            await n.start()
+        for x in nodes.values():
+            for y in nodes.values():
+                if x is not y:
+                    x.add_peer_addr(y.peer_id, y.listen_addrs[0])
+        events, fails = [], [2]
+
+        async def on_progress(peer, p):
+            events.append(("notified", p.round))
+            return m.ProgressResponse(kind=m.ProgressResponseKind.DONE if p.round >= 2
+                                      else m.ProgressResponseKind.OK)
+
+        nodes["sched"].on(m.PROTOCOL_PROGRESS, m.Progress).respond_with(on_progress)
+        request = nodes["ps"].request
+
+        async def outage(peer, protocol, msg, **kw):
+            if protocol == m.PROTOCOL_PROGRESS and msg.round == 1 and fails[0]:
+                fails[0] -= 1
+                raise RequestError("scheduler down")
+            return await request(peer, protocol, msg, **kw)
+
+        nodes["ps"].request = outage
+        out = tmp_path / name
+        spec = m.JobSpec(job_id="agg", executor=m.Executor(
+            kind="aggregate", name="parameter-server", aggregate=m.AggregateExecutorConfig(
+                updates=m.Receive(m.Reference.from_peers(list(workers), "updates")),
+                results=m.Send(m.Reference.from_peers(["w0"], "results")),
+                optimizer=m.Nesterov(lr=0.7, momentum=0.9), num_workers=3,
+                checkpoint_dir=str(out / "ckpt"), adopt_grace_s=30.0)))
+        ps = ParameterServerExecutor(nodes["ps"], out, device=device)
+        broadcast = ps._broadcast
+
+        async def noted(cfg, path, round_num, *a, **kw):
+            events.append(("broadcast", round_num))
+            return await broadcast(cfg, path, round_num, *a, **kw)
+
+        ps._broadcast = noted
+        execution = await ps.execute("agg", spec, "sched")
+        results = nodes["w0"].consume_pushes(lambda push: push.resource["resource"] == "results")
+        got = []
+        for r in range(3):
+            for w, path, n in zip(workers, files[r], samples):
+                await nodes[w].push("ps", {"resource": "updates", "name": path.name, "round": r,
+                                           "num_samples": n}, path)
+            push = await results.next(timeout=60)
+            await push.save_to(out / f"got-{r}.safetensors")
+            got.append(load_file(out / f"got-{r}.safetensors"))
+        status = await asyncio.wait_for(execution.wait(), 60)
+        for n in nodes.values():
+            await n.stop()
+        assert status.state == "completed", status
+        return got, events
+
+    (host, host_events), (card, card_events) = (asyncio.run(serve("cpu", "host")),
+                                                asyncio.run(serve(cuda, "card")))
+    assert card_events == host_events == [("notified", 0), ("broadcast", 0), ("broadcast", 1),
+                                          ("notified", 1), ("notified", 2), ("broadcast", 2)]
+    for r, (a, b) in enumerate(zip(host, card)):
+        assert set(a) == set(b) and a
+        for k in a:
+            assert torch.equal(a[k].view(torch.int32), b[k].view(torch.int32)), (r, k)
+
+
 @pytest.mark.parametrize("codec,chunk", [("int8", 4096), ("int8", 7), ("int4", 4096), ("int4", 6)])
 def test_quantize_on_the_card_equals_the_cpu(cuda, codec, chunk):
     """compress.quantize / dequantize on the card: the CPU's bytes over odd

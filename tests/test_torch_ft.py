@@ -17,7 +17,8 @@ fault-tolerant job on the CPU.
    reads the other's catch-up file; ``await_catchup``,
    ``merge_catchup_arrays`` and ``sum_updates`` agree.
 4. The chaos spec grammar parses alike; the port's controller fires its
-   kills at the round trigger and refuses the kinds it does not run.
+   kills at the round trigger, and every kind (the scheduler's too) acts
+   on the same nodes as the reference's.
 5. ``chip_smoke.run_ft_job`` on the CPU (a tiny Llama, int8 deltas, trainer
    processes), held to ``chip_smoke.ft_problems``: ``w1`` killed after
    round 0 and replaced by ``w2`` through the catch-up, the parameter
@@ -363,13 +364,6 @@ def test_chaos_controller_kills_at_the_round_trigger():
     run(scenario())
 
 
-# The two kinds aimed at the scheduler need its own recovery.
-@pytest.mark.parametrize("spec", ["kill-scheduler:1", "partition-scheduler:1"])
-def test_chaos_controller_refuses_unported_kinds(spec):
-    with pytest.raises(NotImplementedError, match="Queue 1: scheduler recovery"):
-        tchaos.ChaosController(tchaos.parse_chaos_specs(spec, "w1"), {})
-
-
 class _ChaosNode:
     """A node stand-in whose push drains its source (bytes or an async
     iterator of chunks) and whose request answers at once; every call is
@@ -389,6 +383,9 @@ class _ChaosNode:
     async def request(self, peer_id, protocol, msg, **kw):
         self.log.append(("request", self.name, peer_id, getattr(msg, "kind", None).value))
         return "ok"
+
+    async def stop(self):
+        self.log.append(("stop", self.name))
 
     def on_pull(self, handler):
         self._pull_handler = handler
@@ -411,13 +408,16 @@ async def _chaos_transcript(pkg, chaos, m, spec: str, monkeypatch) -> list:
     ticks = iter(np.arange(1000) * 0.1)
     monkeypatch.setattr(chaos, "time", type("T", (), {"monotonic": staticmethod(lambda: float(next(ticks)))}))
     workers = {}
-    for name in ("w0", "w1", "psw"):
+    # The scheduler kinds' victim is a scheduler entry (a node and stop()).
+    for name in ("w0", "w1", "psw") + (("sched",) if "scheduler" in spec else ()):
         w = FakeWorker()
         w.node = _ChaosNode(name, log)
         workers[name] = w
     actions = chaos.parse_chaos_specs(spec, "w1")
     if "partition-ps" in spec:
         actions[0].target = "psw"
+    elif "scheduler" in spec:
+        actions[0].target = "sched"
     ctl = chaos.ChaosController(actions, workers)
     if actions[0].at_round:
         ctl.on_round_metrics(actions[0].at_round - 1)
@@ -443,17 +443,20 @@ async def _chaos_transcript(pkg, chaos, m, spec: str, monkeypatch) -> list:
     return [[a.kind, a.target, a.at_round] for a in ctl.fired] + log
 
 
-# The data-plane kinds: each fires against the same nodes, at the same
-# round, with the same sleeps, drops and chunking as the reference's.
+# The data-plane kinds and the two aimed at the scheduler: each fires
+# against the same nodes, at the same round, with the same sleeps, drops,
+# chunking and stops as the reference's.
 @pytest.mark.parametrize("spec", ["delay-worker:1", "partition-ps:1", "slow-worker:2",
-                                  "bw-cap:w1:10", "partition-worker:1", "jitter:w1:0.2"])
+                                  "bw-cap:w1:10", "partition-worker:1", "jitter:w1:0.2",
+                                  "kill-scheduler:1", "partition-scheduler:1"])
 def test_chaos_kinds_fire_as_the_reference(spec, monkeypatch):
     got = {}
     for pkg, chaos, m in (("jax", jchaos, jmsg), ("port", tchaos, tmsg)):
         with monkeypatch.context() as mp:
             got[pkg] = run(_chaos_transcript(pkg, chaos, m, spec, mp))
     assert got["port"] == got["jax"]
-    assert any(e[0] in ("sleep", "raised") for e in got["port"]), "the action took effect"
+    assert any(e[0] in ("sleep", "raised", "stop") for e in got["port"]), \
+        "the action took effect"
 
 
 # --------------------------------------------------- the orchestrated job
@@ -465,15 +468,16 @@ TINY = {"model_type": "causal-lm", "family": "llama", "preset": "tiny",
 def test_orchestrated_kill_worker_and_kill_ps_on_the_cpu(monkeypatch):
     """``chip_smoke.py``'s ``train_ft`` phase rehearsed on the CPU (a killed
     node's job reports ``cancelled`` at once, so the 10 s leases do not
-    slow the departure or the restart)."""
+    slow the departure or the restart), with its third fault: the
+    scheduler killed in round 4 and restarted under its peer id."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     root = Path(tempfile.mkdtemp(prefix="tft"))
     try:
         run_ = asyncio.run(asyncio.wait_for(chip_smoke.run_ft_job(
-            root, TINY, device="cpu", rounds=5, steps=3, batch=2, seq=16, period=64, lr=3e-3,
-            deadline_s=30.0, limit_s=60, auction_timeout=1.0, status_timeout=60.0), 150))
+            root, TINY, device="cpu", rounds=6, steps=3, batch=2, seq=16, period=64, lr=3e-3,
+            deadline_s=30.0, limit_s=60, auction_timeout=1.0, status_timeout=60.0), 180))
         rep = chip_smoke.ft_report(run_)
-        problems = chip_smoke.ft_problems(run_, rep, rounds=5, steps=3, layers=2, device="cpu")
+        problems = chip_smoke.ft_problems(run_, rep, rounds=6, steps=3, layers=2, device="cpu")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     assert problems == [], (problems, run_["logs"]["ps"][-30:])
@@ -483,7 +487,10 @@ def test_orchestrated_kill_worker_and_kill_ps_on_the_cpu(monkeypatch):
     assert rep["kill_to_departure_s"] >= 0 and rep["ps_kill_to_gen2_broadcast_s"] > 0
     # w2's stale round-... none: w2 joined at round 2 and delivered every round after.
     w2_rounds = sorted({d["round"] for d in run_["rec"]["deltas"] if d["from"] == "w2"})
-    assert w2_rounds == [2, 3, 4]
+    assert w2_rounds == [2, 3, 4, 5]
+    sched = rep["scheduler"]
+    assert sched["adopted"]["round"] == 5 and sched["kill_to_restart_s"] > 0
+    assert {a["peer"] for a in sched["acks"]} == {"w0", "w2", "psw"}
 
 
 # ------------------------------------------- a mixed JAX/torch elastic job

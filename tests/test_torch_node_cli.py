@@ -207,6 +207,125 @@ def test_runners_run_a_tiny_llama_diloco_job(tmp_path, root):
     assert not [p for p in root.rglob("*") if p.is_file()]
 
 
+def test_scheduler_runner_stopped_mid_job_is_adopted_on_restart(tmp_path, root, monkeypatch):
+    """``_run_scheduler`` of an elastic, checkpointed job with scheduler
+    recovery, stopped by its ``stop`` event mid-job (as a killed process)
+    and started again with the same config: the new scheduler finds the
+    journal and adopts the live torch worker and the server, nothing is
+    auctioned or dispatched again, and the job completes."""
+    import dataclasses
+    import logging
+
+    from hypha_tpu_torch.ft.durable import RoundJournal
+    from hypha_tpu_torch.health import probe
+    from hypha_tpu_torch.node_config import JobSection
+    from hypha_tpu_torch.scheduler.task import Task
+
+    data = tmp_path / "data"
+    data.mkdir()
+    rng = np.random.default_rng(3)
+    for i in range(4):
+        ids = ((rng.integers(0, 256, (8, 1)) + np.arange(16)) % 256).astype(np.int32)
+        save_file({"input_ids": ids}, str(data / f"slice_{i:04d}.safetensors"))
+    gw = f"127.0.0.1:{_free_port()}"
+    ports = {"w0": _free_port(), "psw": _free_port()}
+    net = {"network.gateways": [gw]}
+    ckpt = tmp_path / "ckpt"
+    confs = {
+        "gateway": _conf(GatewayConfig, **{"network.listen": [gw]}),
+        "data": _conf(DataNodeConfig, datasets={"counting": str(data)}, **net),
+        "w0": _conf(WorkerConfig, name="w0", work_root=str(root / "w0"),
+                    **{"resources.gpu": 1, "resources.cpu": 8, "resources.memory": 1000,
+                       "offer.strategy": "whole", "network.listen": [f"127.0.0.1:{ports['w0']}"]},
+                    **net),
+        "psw": _conf(WorkerConfig, name="psw", work_root=str(root / "ps"),
+                     **{"resources.cpu": 2, "resources.memory": 200,
+                        "network.listen": [f"127.0.0.1:{ports['psw']}"]}, **net),
+        "scheduler": _conf(SchedulerConfig, **net, **{
+            "job.model_family": "llama", "job.model_preset": "tiny",
+            "job.model_type": "causal-lm", "job.model_config": {"dtype": "float32"},
+            "job.dataset": "counting", "job.update_rounds": 4,
+            "job.avg_samples_between_updates": 4, "job.max_batch_size": 2,
+            "job.num_workers": 1, "job.worker_gpu": 0.5, "job.inner_lr": 3e-3,
+            "job.worker_memory": 10, "job.ps_memory": 10, "job.quorum_fraction": 0.5,
+            "job.checkpoint_dir": str(ckpt)}),
+    }
+    # The TOML schema has no key for it (nor has the reference's): the job
+    # the config builds turns recovery on.
+    to_job = JobSection.to_job
+    monkeypatch.setattr(JobSection, "to_job", lambda self: dataclasses.replace(
+        to_job(self), scheduler_recovery=True))
+    dispatched: list = []
+    dispatch = Task.dispatch.__func__
+
+    async def counted(cls, node, router, spec, workers):
+        dispatched.append(spec.job_id)
+        return await dispatch(cls, node, router, spec, workers)
+
+    monkeypatch.setattr(Task, "dispatch", classmethod(counted))
+    lines: list = []
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    handler = Lines()
+    logger = logging.getLogger("hypha.torch.scheduler.orchestrator")
+    logger.addHandler(handler)
+    journal = ckpt / "scheduler" / "sched-journal.cbor"
+
+    async def main():
+        stops = {k: asyncio.Event() for k in ("gateway", "data", "w0", "psw", "scheduler")}
+        tasks = {"gateway": asyncio.create_task(cli._run_gateway(confs["gateway"],
+                                                                 stop=stops["gateway"]))}
+        client = None
+        try:
+            await asyncio.sleep(0.2)
+            tasks["data"] = asyncio.create_task(cli._run_data(confs["data"], stop=stops["data"]))
+            for w in ("w0", "psw"):
+                tasks[w] = asyncio.create_task(
+                    cli._run_worker(confs[w], device="cpu", stop=stops[w]))
+            client = await _client([gw])
+            for w, port in ports.items():
+                for _ in range(300):
+                    try:
+                        if await probe(client, f"127.0.0.1:{port}", timeout=2):
+                            break
+                    except Exception:
+                        pass
+                    await asyncio.sleep(0.1)
+            first = asyncio.create_task(cli._run_scheduler(confs["scheduler"],
+                                                           stop=stops["scheduler"]))
+            for _ in range(1200):  # stop once round 1 is journaled
+                if journal.exists() and any(r.get("t") == "round" and r["round"] >= 1
+                                            for r in RoundJournal.read_all(journal)):
+                    break
+                await asyncio.sleep(0.05)
+            stops["scheduler"].set()
+            stopped = await asyncio.wait_for(first, 30)
+            before = len(dispatched)
+            await asyncio.sleep(1.0)  # the gateway drops the dead node's registrations
+            result = await asyncio.wait_for(cli._run_scheduler(confs["scheduler"]), 240)
+            return stopped, before, result
+        finally:
+            if client is not None:
+                await client.stop()
+            for name in ("psw", "w0", "data", "gateway"):
+                if name in tasks:
+                    stops[name].set()
+                    await asyncio.wait_for(tasks[name], 30)
+
+    try:
+        stopped, before, result = asyncio.run(main())
+    finally:
+        logger.removeHandler(handler)
+    assert stopped is None and before == 2 and len(dispatched) == before
+    assert result.rounds == 4 and result.attempt == 0
+    assert any("scheduler recovery: adopted 2/2 executions" in line for line in lines), lines
+    assert not journal.exists()
+    assert not [p for p in root.rglob("*") if p.is_file()]
+
+
 def test_serving_supervisor_answers_equal_the_jax_pool(weights, root):
     spec, want = weights
 

@@ -160,7 +160,6 @@ def test_broadcast_updates_are_bit_equal(tmp_path, monkeypatch, resend, codec):
 # label (checkpoint_dir, quorum_fraction, num_ps_shards, broadcast_tree and
 # serve_peers run: below).
 @pytest.mark.parametrize("option,value,label", [
-    ("adopt_grace_s", 5.0, "scheduler recovery"),
     ("report_metrics_s", 1.0, "telemetry"),
 ])
 def test_unported_options_raise_with_their_labels(tmp_path, option, value, label):
@@ -168,6 +167,27 @@ def test_unported_options_raise_with_their_labels(tmp_path, option, value, label
     with pytest.raises(NotImplementedError, match=f"{option}.*ROADMAP.md, Queue 1: {label}"):
         asyncio.run(ps.execute("agg", _aggregate(tmsg, **{option: value}), "sched"))
     assert not list(tmp_path.iterdir())  # refused before anything was made
+
+
+def test_adopt_grace_is_carried_as_the_reference(tmp_path):
+    """``adopt_grace_s`` (refused until scheduler recovery was ported): both
+    servers take the job and their executions outlive a dead scheduler by
+    the grace (the arbiter reads it when it prunes the lease)."""
+    got = {}
+    for pkg in PKG:
+        (tmp_path / pkg).mkdir()
+
+        async def main(pkg=pkg):
+            m, PS = (jmsg, JPS) if pkg == "jax" else (tmsg, TPS)
+            ps = PS(None, tmp_path / pkg) if pkg == "jax" else \
+                PS(None, tmp_path / pkg, device="cpu")
+            execution = await ps.execute("agg", _aggregate(m, adopt_grace_s=5.0), "sched")
+            grace = execution.adopt_grace_s
+            await execution.cancel()
+            return grace, (await execution.wait()).state
+
+        got[pkg] = asyncio.run(asyncio.wait_for(main(), 20))
+    assert got["port"] == got["jax"] == (5.0, "cancelled")
 
 
 # The adaptive options (formerly refused): both packages' servers report

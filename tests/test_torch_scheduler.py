@@ -301,8 +301,9 @@ class _Pair:
     message is built in the JAX package, encoded by its codec and decoded
     by the port's: the two answers must agree."""
 
-    def __init__(self, batches, target, rounds, now):
+    def __init__(self, batches, target, rounds, now, generation=None):
         self.now = now
+        self.last: dict = {}
         self.done = {"jax": [], "port": []}
         self.metrics = {"jax": [], "port": []}
         self.bs = {}
@@ -313,13 +314,15 @@ class _Pair:
                 tracker.add_worker(f"w{i}", int(b))
             self.bs[pkg] = PKG[pkg].bs.BatchScheduler(
                 tracker, on_metrics=lambda p, r, m, pkg=pkg: self.metrics[pkg].append((p, r, m)),
-                on_complete=lambda pkg=pkg: self.done[pkg].append(True))
+                on_complete=lambda pkg=pkg: self.done[pkg].append(True),
+                generation=generation)
         self.answers: list = []
 
     def send(self, peer, **fields):
         msg = jmsg.Progress(**fields)
         j = self.bs["jax"].on_progress(peer, msg)
         t = self.bs["port"].on_progress(peer, tmsg.decode(jmsg.encode(msg)))
+        self.last = {"jax": j, "port": t}
         assert _answer(t) == _answer(j), (peer, fields)
         self.answers.append(_answer(j))
         return j
@@ -413,11 +416,31 @@ def test_batch_scheduler_caps_are_the_reference_constants():
     assert (tbs.TIME_CAP_MS, tbs.UPDATES_CAP) == (jbs.TIME_CAP_MS, jbs.UPDATES_CAP) == (10_000.0, 3)
 
 
-@pytest.mark.parametrize("option,label", [("generation", "scheduler recovery")])
-def test_batch_scheduler_unported_options_raise(option, label):
-    tracker = ttr.ProgressTracker("ps", 8, 2, clock=lambda: 0.0)
-    with pytest.raises(NotImplementedError, match=label):
-        tbs.BatchScheduler(tracker, **{option: 2})
+@pytest.mark.parametrize("generation", [2, 3])
+def test_batch_scheduler_generation_stamps_alike(generation):
+    """A restarted scheduler's ``generation`` (refused until scheduler
+    recovery was ported): whole rounds through both packages' schedulers,
+    every answer stamped with the generation and the round, byte for byte;
+    newer-generation traffic refused, older processed."""
+    now = [0.0]
+    pair = _Pair([2, 1], 6, 2, now, generation=generation)
+    K = jmsg.ProgressKind
+    script = [("w0", {"kind": K.STATUS, "batch_size": 2}), ("w1", {"kind": K.STATUS, "batch_size": 1}),
+              ("w0", {"kind": K.STATUS, "batch_size": 2}), ("w1", {"kind": K.UPDATE}),
+              ("w0", {"kind": K.UPDATE}),
+              ("ps", {"kind": K.UPDATED, "round": 0, "scheduler_generation": generation + 1}),
+              ("ps", {"kind": K.UPDATED, "round": 0, "scheduler_generation": generation - 1}),
+              ("w0", {"kind": K.UPDATE_RECEIVED}), ("w1", {"kind": K.UPDATE_RECEIVED}),
+              ("w1", {"kind": K.STATUS, "batch_size": 1, "scheduler_generation": generation})]
+    wires = []
+    for peer, fields in script:
+        now[0] += 1.0
+        j = pair.send(peer, **fields)
+        t = pair.last["port"]
+        assert tmsg.encode(t) == jmsg.encode(j), (peer, fields)
+        wires.append((j.kind.value, j.generation, j.round))
+    assert wires[5][0] == "error" and wires[6] == ("ok", generation, 1)
+    assert all(g == generation for k, g, _ in wires if k != "error")
 
 
 def adaptive_transcript(pkg: str, shards: int = 1, speeds=(1.0, 1.0, 4.0, 1.0), rounds=4,
@@ -701,10 +724,7 @@ def test_stream_and_codec_options_dispatch_as_the_jax_wire(option):
 
 # Each option outside the port's path, set to a value the reference
 # accepts, with the other fields the reference needs beside it.
-_FT_ON = SimpleNamespace(enabled=True)
 UNPORTED = {
-    "scheduler_recovery": (True, "scheduler recovery",
-                           {"checkpoint_dir": "/ckpt", "ft": _FT_ON}),
     "metrics_plane": (True, "telemetry"),
     "slo_rules": (["round_wall_s <= 30"], "telemetry"),
     "input_pipeline": (True, "input_pipeline"),
@@ -728,6 +748,7 @@ def test_unported_job_option_raises_with_its_label(option):
 # tree and serving followers (refused until they were ported): both
 # packages build the job, and it encodes to the same bytes.
 LIFTED = {
+    "scheduler_recovery": {"scheduler_recovery": True, "checkpoint_dir": "/ckpt", "ft": "on"},
     "adaptive_steps": {"adaptive_steps": True, "ft": "on"},
     "adaptive_codec": {"adaptive_codec": True, "codec_bw_hi_mbps": 400.0,
                        "codec_bw_lo_mbps": 250.0},
@@ -866,6 +887,33 @@ def test_gather_bounded_cancels_siblings_on_failure():
     assert cancelled == [True, True]
 
 
-def test_worker_handle_adopt_raises_with_its_label():
-    with pytest.raises(NotImplementedError, match="scheduler recovery"):
-        asyncio.run(twh.WorkerHandle.adopt(SimpleNamespace(), "w0", "lease"))
+def test_worker_handle_adopt_rearms_the_journaled_lease():
+    """``WorkerHandle.adopt`` (refused until scheduler recovery was ported):
+    both packages' handles renew the journaled lease of the named peer with
+    the same bytes, keep renewing it, and report a failed re-arm."""
+    from hypha_tpu.scheduler import worker_handle as jwh
+
+    got = {}
+    for pkg, m, mod in (("jax", jmsg, jwh), ("port", tmsg, twh)):
+        class _Node:
+            def __init__(self, ok):
+                self.ok, self.sent = ok, []
+
+            async def request(self, peer, protocol, msg, timeout=None):
+                self.sent.append((peer, protocol, m.encode(msg), timeout))
+                if not self.ok:
+                    raise mod.RequestError("no route")
+                return m.RenewLeaseResponse(lease_id=msg.lease_id, timeout=10.0)
+
+        async def main():
+            node = _Node(True)
+            handle = await mod.WorkerHandle.adopt(node, "w0", "lease-7")
+            out = (handle.peer_id, handle.lease_id, handle.batch_size, node.sent)
+            await handle.release()
+            with pytest.raises(mod.RequestError):
+                await mod.WorkerHandle.adopt(_Node(False), "w0", "lease-7")
+            return out
+
+        got[pkg] = asyncio.run(main())
+    assert got["port"] == got["jax"]
+    assert got["port"][:2] == ("w0", "lease-7") and len(got["port"][3]) == 1
