@@ -259,9 +259,10 @@ Phases, each printing one JSON line:
 12f. train_het — WAN-adaptive rounds under the degrade chaos kinds
    (``run_het_job``): ``het_job`` (7B widths at 1 layer, blocking, int8,
    four trainer processes, ``adaptive_steps`` and ``adaptive_codec`` at
-   ``HET_HI_MBPS`` / ``HET_LO_MBPS``, quorum 0.5, ``HET_DEADLINE_S``, 4
-   rounds of a base of ``HET_STEPS``) under ``HET_CHAOS``: ``w1``'s link
-   capped both ways, ``w2``'s batches slowed, ``w3``'s pushes jittered.
+   ``HET_HI_MBPS`` / ``HET_LO_MBPS``, quorum 0.5, ``HET_DEADLINE_S``,
+   ``HET_ROUNDS`` (3) of a base of ``HET_STEPS``) under ``HET_CHAOS``:
+   ``w1``'s link capped both ways, ``w2``'s batches slowed, ``w3``'s
+   pushes jittered.
    Gates (``het_problems``): (a) ``w1``'s round-0 int8 delta lands inside
    the first-round grace and no delta is dropped or abandoned; (b) from
    round 0's broadcast ``w1``'s link is int4 both ways (its frame headers,
@@ -296,6 +297,35 @@ Phases, each printing one JSON line:
    exact. It reports relay hop seconds, stage-to-flip ms, decode-chunk
    gaps at each flip, ``sv0``'s tokens/s before and after the first swap,
    kill to departure, the card's peak and the phase's seconds;
+12h. train_lora — LoRA DiLoCo from an HF-format checkpoint
+   (``run_lora_job``): the smoke writes the seeded base of 7B widths at
+   ``LORA_LAYERS`` (4) as one bf16 SafeTensors file in HF names, and a
+   ``DiLoCoJob`` with ``lora`` (``LORA``: rank 16, α 32, q/k/v/o) names it
+   as its ``source``: the port's gateway, data node, server host and two
+   ``WorkerNode``s whose trainers run in process (``lora_probes`` sees
+   inside them), ``LORA_ROUNDS`` of ``LORA_STEPS`` at [2, 2048], remat.
+   Gates: (a) every Δθ and update exactly the 32 adapters under the JAX
+   package's flat names, f32, 8,388,608 bytes plus a header; (b) each
+   trainer's base bit-equal to the checkpoint after conversion at the end;
+   (c) every merge θ_t + u bit for bit over the adapters; (d) the flash
+   launches of every batch (each trainer's attention calls counted) and
+   the parameters on ``cuda``; (e) finite round losses (printed, no fall
+   gated); (f) ``fold_lora`` of ``w0``'s adapters, written as an HF
+   checkpoint directory and streamed by ``load_model`` into a
+   ``lora_rank=0`` bf16 model: its logits on a [2, 256] probe within
+   ``LORA_FOLD_TOL`` of the adapters', and greedy tokens through the pool
+   on the ragged kernel. It reports the checkpoint's write, fetch and load
+   seconds, push and broadcast bytes and seconds a round, step ms and
+   tokens/s per trainer, the process's and the card's peaks;
+12i. lora_7b — the whole Llama-2-7B (32 layers, f32 base, seeded) trained
+   with ``LORA`` through ``run_training`` behind ``LoraSession``: one round
+   of ``LORA_7B_STEPS``; gates: base checksum unchanged, every adapter
+   changed, finite losses, 2 x 32 / 32 / 32 flash launches a step, the
+   peak under the card's memory; then ``chunked_causal_ce`` against
+   ``compute_loss`` CE on the 7B head ([2, 2047] hidden states; value and
+   hidden gradient within ``CHUNKED_CE_TOL``, each one's peak), and four
+   AdamW steps with a bf16 ``mu`` against f32 on the adapters (moment bytes,
+   parameter gap). It reports step ms, tokens/s and the peak;
 13. train_reference — a tiny Llama (head_dim 64), and the same with a
    sliding window below its sequence (Mistral's local attention), each
    trained 4 steps through the kernels and through the plain flash version
@@ -325,6 +355,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from contextlib import contextmanager, nullcontext
 from datetime import datetime
@@ -366,6 +397,16 @@ TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ROUNDS, TRAIN_STEPS = 2, 2048, 2, 2,
 # Launches of each in one inner step: the forward twice per layer (remat).
 STEP_LAUNCHES = dict(zip(FLASH_NAMES, (2 * TRAIN_LAYERS, TRAIN_LAYERS, TRAIN_LAYERS)))
 TRAIN_PERIOD = 1024  # the data counts modulo this; the model's vocabulary stays 32000
+# A LoRA fold served in bf16 (train_lora's gate (f)): max |Δ logits| over
+# max |logits| between the folded model and the adapters'. The JAX
+# package's own fold of a tiny bf16 model reaches 0.019
+# (tests/test_torch_lora.py::test_split_merge_fold_match_jax).
+LORA_FOLD_TOL = 0.05
+# chunked_causal_ce against compute_loss CE (lora_7b's probe): the loss
+# relative to itself, the hidden gradient relative to its largest entry
+# (tests/test_torch_train.py::test_chunked_causal_ce_matches_jax holds the
+# JAX package's to it too).
+CHUNKED_CE_TOL = 1e-5
 
 
 _T0 = time.perf_counter()
@@ -2241,10 +2282,13 @@ class TrainSession(Scheduler):
         return self.answer(progress)
 
     def send_resource(self, send, path, resource="updates", meta=None):
-        from hypha_tpu_torch.executor.serialization import load_file
+        from hypha_tpu_torch.executor.serialization import load_file, read_header
 
-        # θ_t on the host, to check the merge against.
-        self.before = {k: v.detach().to("cpu", copy=True) for k, v in self.model.state_dict().items()}
+        # θ_t on the host, to check the merge against: the tensors the
+        # delta carries (every parameter, or a LoRA job's adapters).
+        names = [_torch_name(n) for n in read_header(self.dir / path)[0]]
+        state = self.model.state_dict()
+        self.before = {k: state[k].detach().to("cpu", copy=True) for k in names}
         out, _, _, times = ps_round(self.dir / path, float(meta["num_samples"]), int(meta["round"]),
                                     self.dir / "momentum.safetensors", self.dir, self.outer, "cuda")
         self.times.append(times)
@@ -2266,9 +2310,11 @@ class TrainSession(Scheduler):
         from hypha_tpu_torch.models.convert import flat_to_state
 
         update = flat_to_state(self.update)
+        state = self.model.state_dict()
         worst = 0.0
         with torch.no_grad():
-            for name, p in self.model.state_dict().items():
+            for name in self.before:
+                p = state[name]
                 want = self.before[name].to(p.device).float() + update[name].to(p.device).float()
                 err = (p.float() - want).abs().max().item()
                 worst = max(worst, err / max(want.abs().max().item(), 1e-30))
@@ -2294,9 +2340,10 @@ def write_slices(work_dir, *, n_slices, per_slice, seq, period, seed) -> list:
     return paths
 
 
-def train_spec(job_id: str, model: dict, *, batch: int, lr: float):
+def train_spec(job_id: str, model: dict, *, batch: int, lr: float, **options):
     """A DiLoCo train job: slices from ``file:///slices`` (which the
-    stand-ins serve in turn), deltas to and updates from peer ``ps``."""
+    stand-ins serve in turn), deltas to and updates from peer ``ps``;
+    ``options`` are further ``TrainExecutorConfig`` fields."""
     from hypha_tpu_torch.messages import (
         Adam,
         Executor,
@@ -2314,7 +2361,7 @@ def train_spec(job_id: str, model: dict, *, batch: int, lr: float):
             data=Fetch(Reference.from_uri("file:///slices")),
             updates=Send(Reference.from_peers(["ps"], "updates")),
             results=Receive(Reference.from_peers(["ps"], "results")),
-            optimizer=Adam(lr=lr), batch_size=batch,
+            optimizer=Adam(lr=lr), batch_size=batch, **options,
         )))
 
 
@@ -5410,7 +5457,9 @@ def train_shard_ft_phase() -> dict:
 # trainer's int8 wire is then 0.47 GB and its int4 wire 0.23 GB.
 HET_LAYERS, HET_WORKERS = 1, 4
 HET_MODEL = {**FT_MODEL, "config": {"num_layers": HET_LAYERS, "remat": True}}
-HET_ROUNDS, HET_STEPS = 4, 8
+# 3 rounds since train_lora and lora_7b joined the smoke (4 before, ~24 s
+# a round): gate (c) reads round 2, the first after the warmup.
+HET_ROUNDS, HET_STEPS = 3, 8
 # The cap on w1's link (Mbit/s, both directions), and the codec ladder's
 # thresholds: 1.6x the cap, and below the 2.2-5 Gbit/s the other links
 # measured on the card (PERF.md §6), so w1 falls to int4 and every other
@@ -6615,6 +6664,531 @@ def train_swap_phase() -> dict:
     return res
 
 
+# ---------------------------------------------------------- train_lora phase
+
+# LoRA DiLoCo from an HF-format checkpoint: 7B widths at LORA_LAYERS, every
+# supported target at rank 16, two trainers.
+LORA_LAYERS, LORA_ROUNDS, LORA_STEPS, LORA_WORKERS = 4, 3, 4, 2
+LORA = {"rank": 16, "alpha": 32.0, "targets": ["q_proj", "k_proj", "v_proj", "o_proj"]}
+LORA_MODEL = {**TRAIN_MODEL, "config": {**TRAIN_MODEL["config"], "num_layers": LORA_LAYERS}}
+LORA_PROBE = (2, 256)  # gate (f)'s fixed probe
+LORA_PROMPTS, LORA_NEW = [17, 130], [8, 8]  # greedy tokens through the pool
+# lora_7b: the whole Llama-2-7B shape, one round of LORA_7B_STEPS.
+LORA_7B_STEPS = 6
+LORA_7B_MODEL = {**TRAIN_MODEL, "config": {"remat": True}}
+
+
+def lora_wire_spec(model: dict, lora: dict) -> dict:
+    """``{flat name: ("F32", shape)}`` of a LoRA job's Δθ: the adapters of
+    ``model`` with ``lora``'s (the trainer's injection into its config)."""
+    from hypha_tpu_torch.executor.lora import split_lora
+    from hypha_tpu_torch.models.convert import state_to_flat
+    from hypha_tpu_torch.models.registry import build_model
+
+    config = {**(model.get("config") or {}), "lora_rank": int(lora["rank"]),
+              "lora_alpha": float(lora["alpha"]), "lora_targets": tuple(lora["targets"])}
+    built, _ = build_model({**model, "config": config}, device="meta")
+    adapters = split_lora(built.state_dict())[0]
+    return {k: ("F32", tuple(v.shape)) for k, v in state_to_flat(built, adapters).items()}
+
+
+def write_hf_checkpoint(path: Path, state: dict) -> dict:
+    """``state`` (a model's ``state_dict``) in HF names and bf16, one
+    SafeTensors file by the port's writer; its seconds and bytes."""
+    from hypha_tpu_torch.executor.serialization import save_file
+    from hypha_tpu_torch.models.convert import hf_state_dict
+
+    t0 = time.perf_counter()
+    save_file({k: v.to(torch.bfloat16) for k, v in hf_state_dict(state).items()}, path)
+    return {"s": time.perf_counter() - t0, "bytes": path.stat().st_size}
+
+
+def seeded_hf_source(path: Path, model: dict, device) -> dict:
+    """The base of ``model``'s seeded init, drawn on ``device`` as a trainer
+    draws it, written by ``write_hf_checkpoint``."""
+    from hypha_tpu_torch.models.registry import build_model
+
+    built, _ = build_model(model, device=device)
+    built.init_weights(int(model.get("seed", 0)))
+    out = write_hf_checkpoint(path, built.state_dict())
+    del built
+    return out
+
+
+@contextmanager
+def lora_probes(root: Path):
+    """Inside each in-process trainer, known by its work dir under ``root``
+    (``w0``, ``w1``): its model; its attention calls (each layer's
+    ``attn_impl`` counted per trainer, the flash wrapper's counts staying
+    the process's); the lines it logs; the names in each SafeTensors file
+    a port connector pushes; and every merge: when the broadcast
+    update is read, the names it carries and a copy of the tensors it
+    updates (θ_t), and right after the merge (at the anchor checksum) each
+    one must equal θ_t + u bit for bit."""
+    import logging
+
+    import hypha_tpu_torch.executor.training as training
+    from hypha_tpu_torch.ops.flash_attention import flash_attention
+
+    from hypha_tpu_torch.executor.serialization import read_header
+    from hypha_tpu_torch.worker.connectors import Connector
+
+    rec = {"models": {}, "attn_calls": collections.Counter(), "merges": [], "log": [],
+           "pushed": []}
+    local = threading.local()
+    init, read, checksum = training._init_model, training._read_update, training.theta_checksum
+    send = Connector.send
+
+    async def noted_send(self, send_, path, resource, meta=None):
+        if str(path).endswith(".safetensors"):
+            rec["pushed"].append({"from": getattr(self.node, "peer_id", None),
+                                  "names": sorted(read_header(path)[0])})
+        return await send(self, send_, path, resource, meta)
+
+    def peer_of(path) -> str:
+        return Path(path).resolve().relative_to(root.resolve()).parts[0]
+
+    def init_model(cfg, session, work_dir, device):
+        model = init(cfg, session, work_dir, device)
+        peer = peer_of(work_dir)
+        rec["models"][peer] = model
+        if device.type == "cuda":
+            def counted(q, k, v, **kw):
+                rec["attn_calls"][peer] += 1
+                return flash_attention(q, k, v, **kw)
+
+            for layer in model.layers:
+                layer.self_attn.attn_impl = counted
+        return model
+
+    def read_update(path, device):
+        update = read(path, device)
+        peer = peer_of(path)
+        state = rec["models"][peer].state_dict()
+        local.pending = (peer, {n: state[n].clone() for n in update if n in state},
+                         {n: u.clone() for n, u in update.items()})
+        return update
+
+    def merged_checksum(params):
+        pending, local.pending = getattr(local, "pending", None), None
+        if pending is not None:
+            peer, before, update = pending
+            state = rec["models"][peer].state_dict()
+            bad = [n for n in before if not torch.equal(
+                state[n], before[n] + update[n].to(state[n].device, state[n].dtype))]
+            rec["merges"].append({"peer": peer, "names": sorted(update), "bad": bad})
+        return checksum(params)
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            rec["log"].append(record.getMessage())
+
+    logger = logging.getLogger("hypha.torch.executor.training")
+    handler, level = Lines(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    training._init_model, training._read_update = init_model, read_update
+    training.theta_checksum, Connector.send = merged_checksum, noted_send
+    try:
+        yield rec
+    finally:
+        training._init_model, training._read_update, training.theta_checksum = init, read, checksum
+        Connector.send = send
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+async def run_lora_job(root: Path, model: dict, source: Path, *, device, rounds, steps, batch,
+                       seq, period, lr=3e-4, workers=LORA_WORKERS, lora=None,
+                       status_timeout=None, sample_card=False, job_options=None) -> dict:
+    """``run_node_job`` with a LoRA job (``lora``; ``job_options`` are
+    further ``DiLoCoJob`` fields) whose ``source`` is the HF-format file
+    ``source``, the trainers in process under ``lora_probes``. Returns
+    ``run_node_job``'s result with the probes' record under ``lora``."""
+    from hypha_tpu_torch.messages import Fetch, Reference, to_json_dict
+
+    spec = {**model, "source": to_json_dict(Fetch(Reference.from_uri(source.as_uri())))}
+    with lora_probes(root) as lrec:
+        run = await run_node_job(root, spec, device=device, rounds=rounds, steps=steps,
+                                 batch=batch, seq=seq, period=period, lr=lr, workers=workers,
+                                 train_runtime="in-process", status_timeout=status_timeout,
+                                 job_options={"lora": lora or LORA, **(job_options or {})},
+                                 sample_card=sample_card)
+    return {**run, "lora": lrec}
+
+
+def base_matches_checkpoint(models: dict, source: Path, family: str = "llama") -> list:
+    """The peers whose base is not the checkpoint's tensors after
+    conversion (f32), bit for bit: ``convert_checkpoint`` streams the
+    file, each tensor held against every trainer's."""
+    from hypha_tpu_torch.models.convert import convert_checkpoint
+
+    template = next(iter(models.values()))
+    states = {peer: m.state_dict() for peer, m in models.items()}
+    bad: set = set()
+
+    def compare(name, t):
+        for peer, state in states.items():
+            if not torch.equal(state[name], t.to(state[name].device)):
+                bad.add(f"{peer}:{name}")
+        return t
+
+    convert_checkpoint(family, source, template, dtype=torch.float32, put=compare)
+    return sorted(bad)
+
+
+def lora_problems(run: dict, *, rounds: int, steps: int, layers: int, lora: dict,
+                  expect: dict, device: str) -> list:
+    """Gates (a)-(e) of ``train_lora`` (``lora_phase`` adds (b) and (f)):
+    ``node_problems`` on the job (its Δθ held to ``expect``, the adapters'
+    wire spec); (a) every Δθ the server received and every update a
+    trainer read exactly the adapters, ``expect``'s bytes (f32) plus a
+    header; (c) every merge ``θ_t + u`` bit for bit, ``rounds`` a
+    trainer; (d) the attention calls of every batch and every trainer's
+    parameters on ``device``; (e) finite round losses."""
+    rec, lrec = run["rec"], run["lora"]
+    problems = node_problems(run, rounds=rounds, expect=expect)
+    problems = [p for p in problems if "last not below" not in p]  # (e) gates no fall
+    adapters = {_torch_name(n) for n in expect}
+    payload = sum(4 * math.prod(shape) for _, shape in expect.values())
+    for d in rec["deltas"]:
+        if d["tensors"] != expect or not payload < d["bytes"] < payload + 65536:
+            problems.append(f"(a) Δθ from {d['from']} round {d['round']}: {d['bytes']} bytes, "
+                            f"{len(d['tensors'] or {})} tensors, wanted the {len(expect)} "
+                            f"adapters in {payload} bytes plus a header")
+    for b in rec["broadcast"]:
+        if not payload < b["bytes"] < payload + 65536:
+            problems.append(f"(a) broadcast round {b['round']}: {b['bytes']} bytes")
+    merges = lrec["merges"]
+    for peer in run["workers"]:
+        mine = [m for m in merges if m["peer"] == peer]
+        if len(mine) != rounds:
+            problems.append(f"(c) {peer} merged {len(mine)} updates, wanted {rounds}")
+        for m in mine:
+            if set(m["names"]) != adapters:
+                problems.append(f"(a) {peer} read an update of {len(m['names'])} tensors, "
+                                f"wanted the {len(adapters)} adapters")
+            if m["bad"]:
+                problems.append(f"(c) {peer}: {len(m['bad'])} adapters not θ_t + u after the "
+                                f"merge, e.g. {m['bad'][:3]}")
+        model = lrec["models"].get(peer)
+        if model is None or any(p.device.type != torch.device(device).type
+                                for p in model.parameters()):
+            problems.append(f"(d) {peer}'s parameters are not on {device}")
+        batches = sum(p["kind"] == "status" and p["peer"] == peer for p in rec["progress"])
+        if device != "cpu" and lrec["attn_calls"][peer] != 2 * layers * batches:
+            problems.append(f"(d) {peer}: {lrec['attn_calls'][peer]} attention calls, wanted "
+                            f"2 x {layers} x {batches} batches")
+    for peer, r, m in run["result"].metrics:
+        if not math.isfinite(m.get("loss", math.nan)):
+            problems.append(f"(e) {peer} round {r}: loss {m.get('loss')}")
+    return problems
+
+
+def _torch_name(flat: str) -> str:
+    from hypha_tpu_torch.models.convert import _torch_name as name
+
+    return name(flat)[0]
+
+
+def lora_fold_check(model, model_spec: dict, work: Path, device) -> dict:
+    """Gate (f): ``fold_lora`` of ``model``'s adapters written as an HF
+    checkpoint directory, loaded by ``load_model`` into a ``lora_rank=0``
+    model in bf16 (streamed by ``convert_checkpoint``); its logits on a
+    fixed probe against the adapters' (max |Δ| over max |logits|), then a
+    few greedy tokens of two prompts through the paged, ragged pool."""
+    from hypha_tpu_torch.executor.lora import fold_lora
+    from hypha_tpu_torch.worker.infer_executor import load_model
+
+    cfg = model.config
+    folded_dir = work / "folded"
+    folded_dir.mkdir()
+    with torch.no_grad():
+        folded = fold_lora(model.state_dict(), cfg.lora_alpha, cfg.lora_rank)
+        wrote = write_hf_checkpoint(folded_dir / "model.safetensors", folded)
+        del folded
+    spec = {**{k: v for k, v in model_spec.items() if k != "source"},
+            "weights": str(folded_dir)}
+    t0 = time.perf_counter()
+    served = load_model(spec, device=device)
+    load_s = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(21)
+    probe = (LORA_PROBE[0], min(LORA_PROBE[1], cfg.max_seq_len))
+    ids = torch.randint(0, cfg.vocab_size, probe, generator=g).to(device)
+    with torch.no_grad():
+        want = model(ids).float()
+        got = served(ids).float()
+    gap = float((got - want).abs().max() / want.abs().max())
+    pool = _pool_run(served, make_prompts(23, LORA_PROMPTS, cfg.vocab_size), LORA_NEW)
+    del served
+    return {"fold_gap": gap, "tol": LORA_FOLD_TOL, "write_s": wrote["s"], "bytes": wrote["bytes"],
+            "load_s": load_s, "tokens": pool["answers"], "launches_by_route": pool["launches_by_route"],
+            "plain_attention_calls": pool["plain_attention_calls"]}
+
+
+def train_lora_phase() -> dict:
+    """LoRA DiLoCo on the port's nodes from an HF-format bf16 checkpoint
+    (``run_lora_job``): 7B widths at ``LORA_LAYERS``, ``LORA`` on every
+    supported target, two in-process trainers, ``LORA_ROUNDS`` of
+    ``LORA_STEPS``; gates (a)-(f) (``lora_problems``,
+    ``base_matches_checkpoint``, ``lora_fold_check``)."""
+    from hypha_tpu_torch.ops.flash_attention import flash_attention
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="hlo"))
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-lora-"))
+    try:
+        source = work / "model.safetensors"
+        wrote = seeded_hf_source(source, LORA_MODEL, "cuda")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.fwd_launches = flash_attention.dq_launches = 0
+        flash_attention.dkv_launches = flash_attention.plain_calls = 0
+        run = asyncio.run(run_lora_job(root, LORA_MODEL, source, device="cuda",
+                                       rounds=LORA_ROUNDS, steps=LORA_STEPS, batch=TRAIN_BATCH,
+                                       seq=TRAIN_SEQ, period=TRAIN_PERIOD,
+                                       status_timeout=NODE_STATUS_TIMEOUT_S, sample_card=True))
+        launches = {"fwd": flash_attention.fwd_launches, "dq": flash_attention.dq_launches,
+                    "dkv": flash_attention.dkv_launches, "flash_plain": flash_attention.plain_calls}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        lrec = run["lora"]
+        attn_calls = dict(lrec["attn_calls"])  # before the fold check's probe adds its own
+        problems = lora_problems(run, rounds=LORA_ROUNDS, steps=LORA_STEPS, layers=LORA_LAYERS,
+                                 lora=LORA, expect=lora_wire_spec(LORA_MODEL, LORA),
+                                 device="cuda")
+        batches = sum(p["kind"] == "status" for p in run["rec"]["progress"])
+        want = {"fwd": 2 * LORA_LAYERS * batches, "dq": LORA_LAYERS * batches,
+                "dkv": LORA_LAYERS * batches, "flash_plain": 0}
+        if launches != want:
+            problems.append(f"(d) flash launches {launches}, wanted {want}")
+        t_check = time.perf_counter()
+        bad_base = base_matches_checkpoint(lrec["models"], source) if lrec["models"] else ["-"]
+        if bad_base:
+            problems.append(f"(b) base tensors differ from the checkpoint's: {bad_base[:4]}")
+        base_check_s = time.perf_counter() - t_check
+        fold = lora_fold_check(lrec["models"]["w0"], LORA_MODEL, work, "cuda") \
+            if "w0" in lrec["models"] else {"fold_gap": math.inf}
+        if not fold["fold_gap"] <= LORA_FOLD_TOL:
+            problems.append(f"(f) folded logits {fold['fold_gap']} of max |logits| from the "
+                            f"adapters', over {LORA_FOLD_TOL}")
+        if fold.get("plain_attention_calls") or not (fold.get("launches_by_route") or {}).get(
+                "decode"):
+            problems.append(f"(f) the folded model's serving launches {fold.get('launches_by_route')}")
+        lrec["models"].clear()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec, result = run["rec"], run["result"]
+    log = "\n".join(lrec["log"])
+    loaded = [tuple(map(float, m)) for m in
+              re.findall(r"fetched in ([\d.]+) s, loaded in ([\d.]+) s", log)]
+    prog = rec["progress"]
+    step_ms = {}
+    for peer in run["workers"]:
+        beats = [p for p in prog if p["kind"] == "status" and p["peer"] == peer]
+        step_ms[peer] = statistics.median(
+            [(b["t"] - a["t"]) * 1e3 for a, b in zip(beats, beats[1:]) if a["round"] == b["round"]]
+            or [math.nan])
+    rounds = {}
+    for r in range(LORA_ROUNDS):
+        rounds[r] = dict(
+            push_bytes=[p["bytes"] for p in rec["push"] if p["round"] == r],
+            push_s=[p["s"] for p in rec["push"] if p["round"] == r],
+            broadcast_bytes=[b["bytes"] for b in rec["broadcast"] if b["round"] == r],
+            broadcast_s=[b["s"] for b in rec["broadcast"] if b["round"] == r],
+            loss_mean={w: m.get("loss") for w, rr, m in result.metrics if rr == r})
+    timing = progress_timing(run)
+    res = dict(
+        model="llama2-7b", layers=LORA_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH, lora=LORA,
+        rounds=LORA_ROUNDS, steps=LORA_STEPS, workers=run["workers"], jobs=run["jobs"],
+        source={"write_s": wrote["s"], "bytes": wrote["bytes"],
+                "fetch_s_load_s": loaded},
+        per_round=rounds, fold_s=rec["fold_s"], outer_step_s=rec["outer_step_s"],
+        round_boundary_s=timing["round_boundary_s"], step_ms=step_ms,
+        tokens_per_s={p: TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3) for p, ms in step_ms.items()},
+        launches=launches, attn_calls=attn_calls, merges=len(lrec["merges"]),
+        base_check_s=base_check_s, fold=fold,
+        peak_gib_process=peak, card_peak_mib=run["card_peak_mib"],
+        seconds=time.perf_counter() - t0)
+    if problems:
+        emit({"phase": "train_lora", **res, "problems": problems, "log_tail": lrec["log"][-40:]})
+        raise SystemExit("train_lora phase failed: " + "; ".join(problems))
+    return res
+
+
+# ------------------------------------------------------------ lora_7b phase
+
+class LoraSession(TrainSession):
+    """``TrainSession`` without the profiled step."""
+
+    def on_status(self, now):
+        pass
+
+
+def chunked_ce_probe(hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor) -> dict:
+    """``chunked_causal_ce`` against ``compute_loss`` CE on the same hidden
+    states: value and hidden gradient (relative to the loss and to the
+    largest gradient; ``CHUNKED_CE_TOL``), and each one's peak memory
+    above its inputs."""
+    from hypha_tpu_torch.executor.train import chunked_causal_ce, compute_loss
+    from hypha_tpu_torch.messages import Loss
+
+    out = {}
+    for name in ("full", "chunked"):
+        h = hidden.detach().float().requires_grad_(True)  # f32 gradients: no bf16 rounding
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if name == "full":
+            logits = torch.einsum("bse,ve->bsv", h.float(), head.float())
+            loss = compute_loss(Loss.CROSS_ENTROPY, logits, labels)
+            del logits
+        else:
+            loss = chunked_causal_ce(h, head, labels)
+        (grad,) = torch.autograd.grad(loss, [h])
+        torch.cuda.synchronize()
+        out[name] = {"loss": float(loss.detach()), "grad": grad, "ms": (time.perf_counter() - t0) * 1e3,
+                     "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+    ref, got = out["full"], out["chunked"]
+    return {"loss": ref["loss"], "loss_rel_err": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "grad_rel_err": float((got["grad"] - ref["grad"]).abs().max()
+                                  / ref["grad"].abs().max()),
+            "tol": CHUNKED_CE_TOL,
+            **{f"{k}_{f}": out[k][f] for k in out for f in ("ms", "peak_gib")}}
+
+
+def mu_dtype_probe(adapters: list, steps: int = 4) -> dict:
+    """Four AdamW steps on copies of the adapters with the same seeded
+    gradients, ``mu`` bf16 against f32: the moments' bytes and the largest
+    parameter gap (over lr)."""
+    from hypha_tpu_torch.executor.train import build_optimizer
+    from hypha_tpu_torch.messages import Adam
+
+    lr = 3e-4
+    runs = {}
+    for name, mu_dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        params = [p.detach().clone() for p in adapters]
+        opt = build_optimizer(params, Adam(lr=lr, weight_decay=0.01), mu_dtype=mu_dtype)
+        g = torch.Generator(device=params[0].device).manual_seed(31)
+        for _ in range(steps):
+            opt.step([torch.randn(p.shape, generator=g, device=p.device) * 1e-3 for p in params])
+        runs[name] = (params, sum(m.numel() * m.element_size() for m in opt.mu),
+                      sum(v.numel() * v.element_size() for v in opt.nu))
+    gap = max(float((a - b).abs().max()) for a, b in zip(runs["f32"][0], runs["bf16"][0]))
+    return {"steps": steps, "mu_bytes": {k: runs[k][1] for k in runs},
+            "nu_bytes": {k: runs[k][2] for k in runs}, "param_gap_over_lr": gap / lr}
+
+
+def lora_7b_phase() -> dict:
+    """The whole Llama-2-7B (32 layers, f32 base) trained with LoRA through
+    ``run_training`` behind ``LoraSession``: one round of ``LORA_7B_STEPS``;
+    gates: base unchanged (its checksum), adapters changed, finite losses,
+    the flash launches of every step, peak under the card; then the
+    chunked-CE and bf16-moment probes on the 7B head and adapters."""
+    import hypha_tpu_torch.executor.training as training
+    from hypha_tpu_torch.executor.lora import split_lora
+    from hypha_tpu_torch.messages import Nesterov
+    from hypha_tpu_torch.models.convert import state_to_flat
+    from hypha_tpu_torch.ops.attention import dot_product_attention
+    from hypha_tpu_torch.ops.flash_attention import flash_attention
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    work_dir = Path(tempfile.mkdtemp(prefix="chip-smoke-lora7b-"))
+    sums: dict = {}
+    init = training._init_model
+
+    def init_model(cfg, session_, work_dir_, device):
+        model = init(cfg, session_, work_dir_, device)
+        session.model = model
+        adapters, base = split_lora(model.state_dict())
+        sums["base0"] = training.theta_checksum(state_to_flat(model, base))
+        sums["adapters0"] = {k: v.clone() for k, v in adapters.items()}
+        return model
+
+    try:
+        slices = write_slices(work_dir, n_slices=2, per_slice=LORA_7B_STEPS * TRAIN_BATCH // 2,
+                              seq=TRAIN_SEQ, period=TRAIN_PERIOD, seed=6)
+        session = LoraSession(work_dir, slices, rounds=1, steps=LORA_7B_STEPS, outer=Nesterov())
+        spec = train_spec("chip-smoke-lora7b", LORA_7B_MODEL, batch=TRAIN_BATCH, lr=3e-4,
+                          lora=dict(LORA))
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.fwd_launches = flash_attention.dq_launches = 0
+        flash_attention.dkv_launches = flash_attention.plain_calls = 0
+        dot_product_attention.calls = 0
+        training._init_model = init_model
+        t_run = time.perf_counter()
+        try:
+            result = training.run_training(session, work_dir, spec)
+        finally:
+            training._init_model = init
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        launches = {"fwd": flash_attention.fwd_launches, "dq": flash_attention.dq_launches,
+                    "dkv": flash_attention.dkv_launches, "flash_plain": flash_attention.plain_calls,
+                    "dense": dot_product_attention.calls}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        model = session.model
+        cfg = model.config
+        adapters, base = split_lora(model.state_dict())
+        base_same = training.theta_checksum(state_to_flat(model, base)) == sums["base0"]
+        changed = sum(not torch.equal(v, sums["adapters0"][k]) for k, v in adapters.items())
+        n_params = sum(p.numel() for p in model.parameters())
+        n_adapters = sum(p.numel() for p in adapters.values())
+        # The probes: the 7B head on [2, 2048] final hidden states of this
+        # model, and the adapters.
+        g = torch.Generator().manual_seed(41)
+        ids = torch.randint(0, TRAIN_PERIOD, (TRAIN_BATCH, TRAIN_SEQ), generator=g).cuda()
+        with torch.no_grad():
+            hidden = model(ids, with_head=False)
+        ce = chunked_ce_probe(hidden[:, :-1], model.lm_head, ids[:, 1:])
+        del hidden
+        mu = mu_dtype_probe([p for n, p in model.named_parameters() if "_lora_" in n])
+        session.model = model = None
+        sums.clear()
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    steps = session.step_ms()
+    step_ms = statistics.median(steps) if steps else math.nan
+    card = torch.cuda.get_device_properties(0).total_memory / 2**30
+    res = dict(
+        model="llama2-7b", layers=cfg.num_layers, params=n_params, adapter_params=n_adapters,
+        lora=LORA, seq=TRAIN_SEQ, batch=TRAIN_BATCH, steps=result.batches, losses=result.losses,
+        step_ms=step_ms, step_ms_all=steps, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+        peak_gib=peak, card_gib=card, wall_s=wall, update_phase_s=session.update_s,
+        server_s=session.times, launches=launches, base_unchanged=base_same,
+        adapters_changed=changed, adapters=len(adapters), chunked_ce=ce, mu_dtype=mu,
+        seconds=time.perf_counter() - t0)
+    want = {"fwd": 2 * cfg.num_layers * LORA_7B_STEPS, "dq": cfg.num_layers * LORA_7B_STEPS,
+            "dkv": cfg.num_layers * LORA_7B_STEPS, "flash_plain": 0, "dense": 0}
+    problems = []
+    if result.batches != LORA_7B_STEPS or result.rounds != 1 \
+            or not all(math.isfinite(x) for x in result.losses):
+        problems.append(f"{result.rounds} rounds of {result.batches} steps, losses {result.losses}")
+    if not base_same:
+        problems.append("the frozen base changed")
+    if changed != len(adapters):
+        problems.append(f"{changed} of {len(adapters)} adapters changed")
+    if launches != want:
+        problems.append(f"launches {launches}, wanted {want}")
+    if not peak < card:
+        problems.append(f"peak {peak} GiB of the card's {card}")
+    if not (ce["loss_rel_err"] <= CHUNKED_CE_TOL and ce["grad_rel_err"] <= CHUNKED_CE_TOL):
+        problems.append(f"chunked CE against compute_loss: {ce}")
+    if problems:
+        emit({"phase": "lora_7b", **res, "problems": problems})
+        raise SystemExit("lora_7b phase failed: " + "; ".join(problems))
+    return res
+
+
 class _PlainFlash(torch.autograd.Function):
     """The plain flash versions under autograd: the kernels' reference."""
 
@@ -6775,6 +7349,10 @@ def main() -> int:
     emit({"phase": "train_het", **het})
     swap = train_swap_phase()
     emit({"phase": "train_swap", **swap})
+    lora = train_lora_phase()
+    emit({"phase": "train_lora", **lora})
+    lora7 = lora_7b_phase()
+    emit({"phase": "lora_7b", **lora7})
     emit({"phase": "train_reference", **train_reference_phase()})
 
     dec, pre = kern["timing"]["decode_bf16"], kern["timing"]["prefill64_bf16"]
@@ -6798,6 +7376,8 @@ def main() -> int:
         "serve_fleet_launches": serve_fleet["launches"],
         # The follower of train_swap, counted in process over the job.
         "train_swap_launches": swap["launches"],
+        # train_lora's folded model serving its greedy tokens.
+        "train_lora_fold_launches": lora["fold"]["launches_by_route"],
         "prefill64_ms": pre["ms"], "prefill64_simt_ms": pre["simt_ms"],
         "prefill64_plain_ms": pre["plain_ms"], "prefill64_bound_ms": pre["bound_ms"],
         "prefill64_bound_by": pre["bound_by"], "prefill64_library_ms": pre["library_ms"],
@@ -6826,6 +7406,9 @@ def main() -> int:
             # The broadcast-tree job's surviving trainers (w0 is killed).
             "train_swap_launches": {peer: (t_["launches"] or {}).get(key)
                                     for peer, t_ in swap["trainers"].items() if peer != "w0"},
+            # The LoRA jobs: both in-process trainers together, and the 7B.
+            "train_lora_launches": lora["launches"][key],
+            "lora_7b_launches": lora7["launches"][key],
         })
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

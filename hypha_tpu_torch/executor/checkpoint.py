@@ -17,8 +17,10 @@ previous complete checkpoint or the new one, never a mix.
 (``models/convert.py``: ``params/layers_0/self_attn/q_proj/kernel``, ...),
 so the reference's ``load_flat`` reads it. ``opt_state.safetensors`` holds
 the port's own names: ``count`` (I64, the optimizer's update count),
-``mu/<flat name>`` and ``nu/<flat name>`` (the f32 moments, in the flat
-layout of their parameter). The reference names optax's state tree
+``mu/<flat name>`` and ``nu/<flat name>`` (the moments, in the flat
+layout of their parameter). A LoRA trainer saves and resumes its adapters
+and their moments only, as the reference does: its base is the job's
+``source`` and never changes. The reference names optax's state tree
 instead, so resuming a checkpoint written by the other package is not
 supported. Files go through the port's own SafeTensors writer
 (``executor/serialization.py``), one tensor at a time to the host.
@@ -35,7 +37,7 @@ from pathlib import Path
 
 import torch
 
-from ..models.convert import flat_to_state, llama_params_from_flat, state_to_flat
+from ..models.convert import flat_to_state, state_to_flat
 from .serialization import load_file, save_file
 
 __all__ = ["save_train_checkpoint", "load_train_checkpoint", "latest_manifest", "train_state",
@@ -154,13 +156,23 @@ def latest_manifest(directory: "str | Path") -> "dict | None":
     return json.loads(manifest.read_text())
 
 
+def _trained_names(model, optimizer) -> list:
+    """The ``state_dict`` names of the parameters ``optimizer`` updates, in
+    its order: every parameter, or a LoRA trainer's adapters."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return [names[id(p)] for p in optimizer.params]
+
+
 @torch.no_grad()
 def train_state(model, optimizer) -> tuple:
     """``(params, opt_state)`` of a trainer, in the checkpoint's names:
-    the parameters' flat wire names, and ``count``, ``mu/<flat>``,
-    ``nu/<flat>`` (kernels as transposed views; the writer copies them)."""
-    names = [n for n, _ in model.named_parameters()]
-    params = state_to_flat(model, model.state_dict())
+    the flat wire names of the parameters ``optimizer`` updates (a LoRA
+    trainer's adapters alone: its base is the job's source), and
+    ``count``, ``mu/<flat>``, ``nu/<flat>`` (kernels as transposed views;
+    the writer copies them)."""
+    names = _trained_names(model, optimizer)
+    state = model.state_dict()
+    params = state_to_flat(model, {n: state[n] for n in names})
     opt = {"count": torch.tensor(int(optimizer.count), dtype=torch.int64)}
     for key, moments in (("mu", optimizer.mu), ("nu", optimizer.nu)):
         for flat, t in state_to_flat(model, dict(zip(names, moments))).items():
@@ -172,8 +184,10 @@ def train_state(model, optimizer) -> tuple:
 def restore_train_state(model, optimizer, params: dict, opt_state: dict) -> None:
     """Load what :func:`train_state` saved back into ``model`` and
     ``optimizer``, in place, on their device."""
-    llama_params_from_flat(params, model)
-    index = {n: i for i, (n, _) in enumerate(model.named_parameters())}
+    state = model.state_dict()
+    for name, t in flat_to_state(params).items():
+        state[name].copy_(t)
+    index = {n: i for i, n in enumerate(_trained_names(model, optimizer))}
     for key, moments in (("mu", optimizer.mu), ("nu", optimizer.nu)):
         prefix = key + "/"
         flat = {k[len(prefix):]: v for k, v in opt_state.items() if k.startswith(prefix)}

@@ -7,8 +7,13 @@ max_norm/‖g‖, with no epsilon — unlike ``torch.nn.utils.clip_grad_norm_``)
 followed by ``adamw`` (bias-corrected moments, eps outside the square
 root, decoupled decay of every parameter, all scaled by the scheduled
 learning rate). The update with count n (0 for the first) uses
-``schedule(n)``. Moments are f32 like the parameters; the optimizer
-updates the parameters in place.
+``schedule(n)``. Moments are f32 like the parameters, or the first
+moment in ``mu_dtype`` (bf16 halves it) with optax's rounding; the
+optimizer updates the parameters in place.
+
+``chunked_causal_ce`` is the streaming cross entropy of the reference: the
+head's logits exist one sequence chunk at a time, and the backward
+recomputes them.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ __all__ = [
     "AdamW",
     "build_optimizer",
     "compute_loss",
+    "chunked_causal_ce",
     "make_loss_fn",
     "make_train_step",
 ]
@@ -92,20 +98,30 @@ class AdamW:
     """optax ``chain(clip_by_global_norm(max_norm), adamw(...))`` over a
     list of parameters, updating them in place. Each update runs as
     ``torch._foreach_*`` operations over groups of parameters of at most
-    ``_GROUP`` elements, which bounds the temporaries."""
+    ``_GROUP`` elements, which bounds the temporaries.
+
+    With ``mu_dtype`` (optax's ``mu_dtype``) the first moment is stored in
+    that dtype. optax then forms ``b1 · mu`` in it (``b1`` and the product
+    rounded), adds ``(1 - b1) · g`` in f32, takes the update from that
+    unrounded f32 moment and only then rounds the moment it stores: the
+    same bits here."""
 
     _GROUP = 1 << 27  # elements: 512 MiB of f32 per temporary list
 
     def __init__(self, params, *, lr_schedule: Callable[[int], float], b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
-                 max_grad_norm: "float | None" = 1.0) -> None:
+                 max_grad_norm: "float | None" = 1.0,
+                 mu_dtype: "torch.dtype | None" = None) -> None:
         self.params = [p for p in params]
         self.schedule = lr_schedule
         self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
         self.weight_decay = float(weight_decay)
         self.max_grad_norm = max_grad_norm
         self.count = 0
-        self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.mu_dtype = mu_dtype or torch.float32
+        # b1 as the stored moment's dtype rounds it (a weak scalar in JAX).
+        self._b1_mu = float(torch.tensor(self.b1, dtype=self.mu_dtype))
+        self.mu = [torch.zeros_like(p, dtype=self.mu_dtype) for p in self.params]
         self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
         self.groups: list = [[]]
         size = 0
@@ -141,8 +157,14 @@ class AdamW:
             if clip is not None:
                 g = torch._foreach_div(g, clip[0])
                 torch._foreach_mul_(g, clip[1])
-            torch._foreach_mul_(mu, self.b1)
-            torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
+            if self.mu_dtype == torch.float32:
+                torch._foreach_mul_(mu, self.b1)
+                torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
+                m = mu
+            else:
+                m = torch._foreach_mul([x.float() for x in mu], self._b1_mu)
+                m = [x.to(self.mu_dtype).float() for x in m]
+                torch._foreach_add_(m, torch._foreach_mul(g, 1.0 - self.b1))
             g2 = torch._foreach_mul(g, g)
             del g
             torch._foreach_mul_(nu, self.b2)
@@ -151,7 +173,11 @@ class AdamW:
             del g2
             torch._foreach_sqrt_(den)
             torch._foreach_add_(den, self.eps)
-            u = torch._foreach_div(mu, bc1)
+            u = torch._foreach_div(m, bc1)
+            if m is not mu:
+                for dst, src in zip(mu, m):
+                    dst.copy_(src)
+                del m
             torch._foreach_div_(u, den)
             del den
             if self.weight_decay:
@@ -164,14 +190,13 @@ class AdamW:
 
 def build_optimizer(model_params, adam: Adam, schedule_spec: "LRScheduler | None" = None,
                     max_grad_norm: "float | None" = 1.0, *, mu_dtype=None) -> AdamW:
-    """AdamW with the reference's defaults (betas (0.9, 0.999), eps 1e-8)."""
-    if mu_dtype is not None:
-        raise NotImplementedError("mu_dtype is not ported (ROADMAP.md, Queue 1: mu_dtype)")
+    """AdamW with the reference's defaults (betas (0.9, 0.999), eps 1e-8);
+    ``mu_dtype=torch.bfloat16`` halves the first moment."""
     b1, b2 = adam.betas or (0.9, 0.999)
     return AdamW(
         model_params, lr_schedule=make_lr_schedule(schedule_spec, adam.lr), b1=b1, b2=b2,
         eps=adam.epsilon if adam.epsilon is not None else 1e-8,
-        weight_decay=adam.weight_decay, max_grad_norm=max_grad_norm,
+        weight_decay=adam.weight_decay, max_grad_norm=max_grad_norm, mu_dtype=mu_dtype,
     )
 
 
@@ -192,6 +217,65 @@ def compute_loss(kind: Loss, logits: torch.Tensor, labels: torch.Tensor) -> torc
     if kind is Loss.BCE_WITH_LOGITS:
         return torch.mean(torch.clamp(x, min=0) - x * labels + torch.log1p(torch.exp(-x.abs())))
     raise ValueError(f"unknown loss {kind}")
+
+
+def _chunk_ce(h: torch.Tensor, labels: torch.Tensor, head_w: torch.Tensor):
+    """One chunk's summed CE and its count of valid labels."""
+    logits = torch.matmul(h.to(head_w.dtype), head_w.t()).float()
+    valid = labels != -100
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return ((lse - picked) * valid).sum(), valid.sum()
+
+
+class _RecomputedChunk(torch.autograd.Function):
+    """One chunk's CE whose backward recomputes its logits (what
+    ``torch.utils.checkpoint`` does, without its first call's import of
+    torch._dynamo: 5.9 s of the first chunk on an H100 80GB HBM3)."""
+
+    @staticmethod
+    def forward(ctx, h, labels, head_w):
+        ctx.save_for_backward(h, labels, head_w)
+        total, count = _chunk_ce(h, labels, head_w)
+        ctx.mark_non_differentiable(count)
+        return total, count
+
+    @staticmethod
+    def backward(ctx, grad, _count):
+        h, labels, head_w = ctx.saved_tensors
+        need_h, _, need_w = ctx.needs_input_grad
+        with torch.enable_grad():
+            hg = h.detach().requires_grad_(need_h)
+            wg = head_w.detach().requires_grad_(need_w)
+            total, _ = _chunk_ce(hg, labels, wg)
+            wanted = [t for t, need in ((hg, need_h), (wg, need_w)) if need]
+            got = iter(torch.autograd.grad(total, wanted, grad))
+        return (next(got) if need_h else None), None, (next(got) if need_w else None)
+
+
+def chunked_causal_ce(hidden: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor, *,
+                      chunk: int = 128) -> torch.Tensor:
+    """Cross entropy over sequence chunks: full-width logits never exist.
+
+    ``hidden`` [B, S, D] are final hidden states, already shifted by the
+    caller against ``labels`` [B, S]; ``head_w`` [V, D] is the head. Each
+    chunk is projected to the vocabulary, reduced to logsumexp − picked and
+    dropped, and the backward recomputes its logits (``jax.checkpoint`` in
+    the reference). A ragged tail is padded with ignored (-100) positions,
+    and -100 labels are ignored as ``compute_loss`` does."""
+    B, S, D = hidden.shape
+    pad = (-S) % chunk
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-100)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for c in range(0, S + pad, chunk):
+        s, n = _RecomputedChunk.apply(hidden[:, c:c + chunk], labels[:, c:c + chunk], head_w)
+        total = total + s
+        count = count + n
+    return total / torch.clamp(count, min=1)
 
 
 def make_loss_fn(model: Callable, loss_kind: Loss = Loss.CROSS_ENTROPY, *,

@@ -69,6 +69,11 @@ un-acknowledged delta. Each merged round logs a checksum of the new anchor
 θ (per-tensor sums of the bit patterns), and a rejoin logs the one it
 caught up to, so two trainers' θ can be compared from their logs.
 
+LoRA (``lora``: rank, alpha, targets; the reference's ``:627-636``,
+``:789-799``, ``:888-894``): the model gains adapters, the base from the
+``source`` (native flat or HF names) is frozen, and the optimizer, Δθ,
+merges, checkpoints and the anchor checksum cover the adapters alone.
+
 Every other option of ``TrainExecutorConfig`` is not ported; each raises
 NotImplementedError naming its ROADMAP.md item rather than being ignored.
 """
@@ -106,7 +111,9 @@ from ..messages import (
     TrainExecutorConfig,
     from_json_dict,
 )
-from ..models.convert import flat_to_state, llama_params_from_flat, state_to_flat
+from ..models.convert import (base_names, convert_state_dict, flat_to_state,
+                              llama_params_from_flat, load_checkpoint_files, load_state,
+                              state_to_flat)
 from ..models.registry import build_model
 from ..ops.attention import dot_product_attention
 from ..ops.flash_attention import flash_attention
@@ -118,7 +125,7 @@ from .checkpoint import (load_train_checkpoint, restore_train_state, save_train_
                          train_state)
 from .dataset import stream_batches
 from .diloco import apply_updates, extract_delta, merge_update
-from .serialization import load_file
+from .lora import make_lora_train_step, split_lora
 from .train import build_optimizer, make_train_step
 
 __all__ = ["TrainResult", "adopt_schedule", "build_parser", "main", "run_training",
@@ -161,7 +168,6 @@ def _unsupported(cfg: TrainExecutorConfig) -> None:
     mesh = math.prod(int(sharding.get(a, 1)) for a in ("dp", "fsdp", "tp", "sp", "ep"))
     checks = [
         (mesh > 1, "sharding", "intra-replica sharding"),
-        (bool(cfg.lora), "lora", "LoRA"),
         (bool(cfg.input_pipeline), "input_pipeline", "input_pipeline"),
         (bool(cfg.preprocessor), "preprocessor", "preprocessor"),
         (bool(cfg.report_metrics_s), "report_metrics_s", "telemetry"),
@@ -439,8 +445,13 @@ class _WorkerStream:
 
 
 def _init_model(cfg: TrainExecutorConfig, session, work_dir: Path, device: torch.device):
-    """The model with its initial weights: a ``source`` file in native flat
-    names, or the port's seeded init. Flash attention on CUDA."""
+    """The model with its initial weights: the port's seeded init, then a
+    ``source``'s weights in native flat names or, failing those, in the
+    family's HF names (``models/convert.py``). A LoRA job (``cfg.lora``)
+    adds adapters to the model's config with the reference's defaults
+    (rank 8, α 16, q_proj and v_proj); a checkpoint carries the base only,
+    and the adapters keep their seeded init (``B`` = 0: the base's exact
+    outputs at step 0). Flash attention on CUDA."""
     spec = dict(cfg.model)
     model_type = spec.get("model_type", ModelType.CAUSAL_LM)
     if not isinstance(model_type, ModelType):
@@ -448,6 +459,13 @@ def _init_model(cfg: TrainExecutorConfig, session, work_dir: Path, device: torch
     if model_type is not ModelType.CAUSAL_LM:
         raise NotImplementedError(
             f"model_type {model_type.value!r} is not ported (ROADMAP.md, Queue 1: model families)"
+        )
+    if cfg.lora:
+        spec["config"] = dict(
+            spec.get("config") or {},
+            lora_rank=int(cfg.lora.get("rank", 8)),
+            lora_alpha=float(cfg.lora.get("alpha", 16.0)),
+            lora_targets=tuple(cfg.lora.get("targets", ("q_proj", "v_proj"))),
         )
     attn_impl = flash_attention if device.type == "cuda" else None
     log.info("attention path: %s", "flash kernels" if attn_impl else "plain (host)")
@@ -457,26 +475,26 @@ def _init_model(cfg: TrainExecutorConfig, session, work_dir: Path, device: torch
     if source is None:
         return model
     fetch = from_json_dict(source) if isinstance(source, dict) else source
+    t_fetch = time.perf_counter()
     rels = session.fetch(fetch)
-    files = [r for r in rels if r.endswith((".safetensors", ".bin", ".pt", ".pth"))]
-    if any(not r.endswith(".safetensors") for r in files):
-        raise NotImplementedError(
-            f"initial weights {files}: only SafeTensors files in native flat names are "
-            "ported (ROADMAP.md, Queue 1: HF checkpoints)"
-        )
+    files = [work_dir / r for r in rels if r.endswith((".safetensors", ".bin", ".pt", ".pth"))]
     if not files:  # a source without weights keeps the seeded init, as in the JAX trainer
         return model
-    state: dict = {}
-    for r in files:
-        state.update(load_file(work_dir / r))
+    t_load = time.perf_counter()
+    state = load_checkpoint_files(files)
     try:
-        llama_params_from_flat(state, model)
-    except KeyError as e:
-        raise NotImplementedError(
-            f"initial weights are not in native flat names ({e}); HF-format state dicts "
-            "are not ported (ROADMAP.md, Queue 1: HF checkpoints)"
-        ) from e
-    log.info("loaded %d initial tensors from %s", len(state), files)
+        llama_params_from_flat(state, model, base_only=bool(cfg.lora))
+        names = "native flat"
+    except KeyError:
+        family = spec.get("family", "llama")
+        load_state(model, convert_state_dict(family, state, model))
+        names = f"HF ({family})"
+    del state
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    log.info("loaded %d initial tensors from %s (%s names): fetched in %.3f s, loaded in %.3f s",
+             len(base_names(model)), [f.name for f in files], names, t_load - t_fetch,
+             time.perf_counter() - t_load)
     return model
 
 
@@ -580,9 +598,22 @@ def run_training(
     stream = stream_batches(fetch_slice, cfg.batch_size, dict(cfg.model).get("input_names"))
     first_batch = next(stream)
     model = _init_model(cfg, session, work_dir, dev)
-    optimizer = build_optimizer(list(model.parameters()), cfg.optimizer, cfg.scheduler)
-    step = make_train_step(model, optimizer, cfg.loss or Loss.CROSS_ENTROPY)
-    params = model.state_dict()  # aliases of the parameters, updated in place
+    # The tensors a round trains, ships and merges (aliases of the
+    # parameters, updated in place): all of them, or a LoRA job's adapters,
+    # the frozen base riding along in the model.
+    params = model.state_dict()
+    if cfg.lora:
+        params, frozen = split_lora(params)
+        if not params:
+            raise ValueError(f"job {spec.job_id}: lora={cfg.lora!r} produced no adapters "
+                             f"(family {dict(cfg.model).get('family')!r})")
+        log.info("LoRA: %d adapter tensors (%d values) over a frozen base of %d tensors; "
+                 "base checksum %s", len(params), sum(p.numel() for p in params.values()),
+                 len(frozen), theta_checksum(state_to_flat(model, frozen)))
+    trained = dict(model.named_parameters())
+    optimizer = build_optimizer([trained[n] for n in params], cfg.optimizer, cfg.scheduler)
+    make_step = make_lora_train_step if cfg.lora else make_train_step
+    step = make_step(model, optimizer, cfg.loss or Loss.CROSS_ENTROPY)
 
     # Resume: a re-dispatched executor picks up the last completed round's
     # params and optimizer state instead of θ₀.

@@ -63,9 +63,23 @@ class LlamaConfig:
     rms_offset: bool = False  # Gemma RMSNorm: x * (1 + weight)
     embed_scale: bool = False  # Gemma: embeddings scaled by sqrt(hidden)
     qk_norm: bool = False  # Qwen3: per-head RMSNorm on q/k before RoPE
-    lora_rank: int = 0  # LoRA adapters: the training slice
+    # LoRA adapters (executor/lora.py): rank 0 = off. Each target computes
+    # y = xW + ((xA)B)·(α/r), A [in, r] and B [r, out] f32 parameters.
+    lora_rank: int = 0
     lora_alpha: float = 16.0
     lora_targets: tuple = ("q_proj", "v_proj")
+
+    _LORA_SUPPORTED = frozenset({"q_proj", "k_proj", "v_proj", "o_proj"})
+
+    def __post_init__(self):
+        if self.lora_rank > 0:
+            bad = set(self.lora_targets) - self._LORA_SUPPORTED
+            if bad or not self.lora_targets:
+                # A misspelt target would train no adapter at all.
+                raise ValueError(
+                    f"lora_targets {sorted(bad) or '(empty)'} unsupported; "
+                    f"choose from {sorted(self._LORA_SUPPORTED)}"
+                )
 
     @classmethod
     def llama2_7b(cls) -> "LlamaConfig":
@@ -159,15 +173,36 @@ class _Attention(nn.Module):
         if cfg.qk_norm:
             self.q_norm = nn.Parameter(torch.ones(hd, device=device))
             self.k_norm = nn.Parameter(torch.ones(hd, device=device))
+        if cfg.lora_rank > 0:
+            # The JAX layout, no transpose: A [in, r], B [r, out].
+            for name in cfg.lora_targets:
+                proj = getattr(self, name)
+                self.register_parameter(f"{name}_lora_a", nn.Parameter(
+                    torch.empty(proj.in_features, cfg.lora_rank, device=device)))
+                self.register_parameter(f"{name}_lora_b", nn.Parameter(
+                    torch.empty(cfg.lora_rank, proj.out_features, device=device)))
+
+    def _proj(self, name: str, x):
+        """The projection ``name``, plus its low-rank adapter when it has
+        one: ``((x A) B)·(α/r)`` in the compute dtype, added to ``x W``
+        (the two products in the reference's order; ``A B`` is never formed)."""
+        y = getattr(self, name)(x)
+        a = getattr(self, f"{name}_lora_a", None)
+        if a is None:
+            return y
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        b = getattr(self, f"{name}_lora_b")
+        return y + ((x.to(dt) @ a.to(dt)) @ b.to(dt)) * (cfg.lora_alpha / cfg.lora_rank)
 
     def forward(self, x, cos, sin, cache: "KVCache | None", layer: int, offset):
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         B, S, _ = x.shape
         H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        q = self.q_proj(x).reshape(B, S, H, hd)
-        k = self.k_proj(x).reshape(B, S, Hkv, hd)
-        v = self.v_proj(x).reshape(B, S, Hkv, hd)
+        q = self._proj("q_proj", x).reshape(B, S, H, hd)
+        k = self._proj("k_proj", x).reshape(B, S, Hkv, hd)
+        v = self._proj("v_proj", x).reshape(B, S, Hkv, hd)
         if cfg.qk_norm:  # before RoPE, in every mode
             q = rms_norm(q, self.q_norm, cfg.rms_eps).to(dt)
             k = rms_norm(k, self.k_norm, cfg.rms_eps).to(dt)
@@ -202,7 +237,7 @@ class _Attention(nn.Module):
             attn = dot_product_attention(
                 q, full_k, full_v, causal=True, q_offset=offset, window=window,
             )
-        return self.o_proj(attn.reshape(B, S, H * hd))
+        return self._proj("o_proj", attn.reshape(B, S, H * hd))
 
 
 class _MLP(nn.Module):
@@ -280,10 +315,6 @@ class Llama(nn.Module):
     def __init__(self, config: LlamaConfig = LlamaConfig(), *, device=None,
                  attn_impl: "Callable | None" = None) -> None:
         super().__init__()
-        if config.lora_rank > 0:
-            raise NotImplementedError(
-                "LoRA adapters are not ported (ROADMAP.md, Queue 1: LoRA)"
-            )
         dev = default_device(device)
         self.config = config
         V, E = config.vocab_size, config.hidden_size
@@ -302,19 +333,21 @@ class Llama(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "Llama":
-        """Seeded init with the reference's distributions (embeddings and
-        head normal(0.02); projections flax's lecun_normal, a normal of
-        variance 1/fan_in truncated at two standard deviations; biases 0;
-        norms 1, or 0 for Gemma's offset form). The draws come from a
-        ``torch.Generator`` and differ from JAX's."""
+        """Seeded init with the reference's distributions (embeddings, head
+        and LoRA ``A`` normal(0.02); projections flax's lecun_normal, a
+        normal of variance 1/fan_in truncated at two standard deviations;
+        biases and LoRA ``B`` 0; norms 1, or 0 for Gemma's offset form).
+        The draws come from a ``torch.Generator`` and differ from JAX's."""
         g = torch.Generator(device=self.device).manual_seed(int(seed))
         for name, leaf in self.named_parameters():
             # Drawn in f32 whatever the parameter's dtype, then rounded into
             # it: a bf16 model gets the bits of an f32 init cast to bf16.
             p = leaf if leaf.dtype == torch.float32 else torch.empty(
                 leaf.shape, dtype=torch.float32, device=leaf.device)
-            if name in ("embed_tokens", "lm_head"):
+            if name in ("embed_tokens", "lm_head") or name.endswith("_lora_a"):
                 p.normal_(0.0, 0.02, generator=g)
+            elif name.endswith("_lora_b"):
+                p.zero_()
             elif name.endswith("proj.weight"):
                 # lecun_normal: std of the truncated draw is sqrt(1/fan_in).
                 std = (1.0 / p.shape[1]) ** 0.5 / 0.8796256610342398

@@ -17,7 +17,8 @@ gives the JAX package's bytes. The port schedules every wire codec
 tree reduce (``reduce_group_size``, ``reduce_tree_depth``) and its
 broadcast tree (``broadcast_tree``), serving followers (``serve_peers``),
 WAN-adaptive rounds (``adaptive_steps``, ``adaptive_codec`` and its
-``codec_bw_hi_mbps`` / ``codec_bw_lo_mbps``), and, with any of them, fault
+``codec_bw_hi_mbps`` / ``codec_bw_lo_mbps``), LoRA fine-tuning (``lora``,
+which the trainer reads), and, with any of them, fault
 tolerance (``ft``, an ``FTConfig``), checkpoints (``checkpoint_dir``,
 ``checkpoint_every``, ``ps_checkpoint_every_rounds``) and the scheduler's
 own crash recovery (``scheduler_recovery``, which needs both).
@@ -46,7 +47,6 @@ _NOT_PORTED = (
     ("metrics_plane", (False,), "telemetry"),
     ("slo_rules", ([],), "telemetry"),
     ("input_pipeline", (False,), "input_pipeline"),
-    ("lora", (None,), "LoRA"),
     ("sharding", (None,), "intra-replica sharding"),
 )
 

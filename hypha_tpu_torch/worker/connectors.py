@@ -21,7 +21,7 @@ the group's reducer with ANY failover when the job reduces in a tree.
 
 Not ported: the on-disk slice cache of pipelined jobs (a ``prefetch``
 window; ROADMAP.md, Queue 1: input_pipeline), HuggingFace Hub downloads
-(HF checkpoints) and the data-plane byte counters (telemetry). Each raises
+(HF Hub) and the data-plane byte counters (telemetry). Each raises
 ``NotImplementedError`` naming its label.
 
 Received file names are SHA-256-hashed before hitting the filesystem
@@ -171,7 +171,7 @@ class Connector:
         if variant == "huggingface":
             raise NotImplementedError(
                 "HuggingFace Hub downloads are not ported to PyTorch yet "
-                "(ROADMAP.md, Queue 1: HF checkpoints)"
+                "(ROADMAP.md, Queue 1: HF Hub)"
             )
         if variant == "scheduler":
             return [await self._fetch_slice(ref, dest_dir)]

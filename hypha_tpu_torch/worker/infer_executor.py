@@ -86,7 +86,8 @@ from ..messages import (
     PROTOCOL_BLOCKS, PROTOCOL_GENERATE, PROTOCOL_SERVE, BlockChain, BlockPull, GenerateRequest,
     GenerateResponse, JobSpec, MigrateAck, MigrateRequest, ServeLoad,
 )
-from ..models.convert import llama_params_from_flat
+from ..models.convert import (convert_checkpoint, convert_state_dict, llama_params_from_flat,
+                              load_checkpoint_files, load_state)
 from ..models.registry import build_model
 from ..network.node import Node, RequestError
 from ..ops.kvcache import leaves_from_wire, leaves_nbytes, leaves_to_wire
@@ -110,9 +111,12 @@ def load_model(model_spec: dict, device=None):
     dtype (``serve_dtype``: ``"bfloat16"`` by default, ``"float32"`` opts
     out) and fill it with a seeded init (``seed``, default 0; each
     parameter drawn in f32 and rounded, so the bits are an f32 init's cast)
-    or a flat SafeTensors file (``weights``, names as the JAX package's
-    ``flatten_tree`` gives them). Built on the meta device and allocated in
-    the serving dtype, a bf16 model never holds an f32 copy."""
+    or the checkpoint at ``weights``: an HF repo directory or
+    ``.index.json`` streams tensor by tensor into the parameters in the
+    serving dtype (``convert_checkpoint``); a single file loads in native
+    flat names (as the JAX package's ``flatten_tree`` gives them) or, failing
+    those, in the family's HF names. Built on the meta device and allocated
+    in the serving dtype, a bf16 model never holds an f32 copy."""
     dev = default_device(device)
     serve_dtype = model_spec.get("serve_dtype", "bfloat16")
     if serve_dtype not in ("bfloat16", "float32"):
@@ -120,13 +124,16 @@ def load_model(model_spec: dict, device=None):
     model, _cfg = build_model(model_spec, device="meta")
     model = _empty_in(model, dev, getattr(torch, serve_dtype))
     path = model_spec.get("weights")
-    if path:
-        if Path(path).is_dir():
-            raise NotImplementedError(
-                "HF checkpoint directories are not ported yet; pass a flat "
-                "SafeTensors file (ROADMAP.md, Queue 1)"
-            )
-        llama_params_from_flat(load_file(path), model)
+    family = model_spec.get("family", "llama")
+    if path and (Path(path).is_dir() or str(path).endswith(".index.json")):
+        convert_checkpoint(family, path, model)
+    elif path:
+        torch_file = str(path).endswith((".bin", ".pt", ".pth"))
+        state = load_checkpoint_files([path]) if torch_file else load_file(path)
+        try:
+            llama_params_from_flat(state, model)
+        except KeyError:
+            load_state(model, convert_state_dict(family, state, model, dtype=model.embed_tokens.dtype))
     else:
         model.init_weights(int(model_spec.get("seed", 0)))
     model.requires_grad_(False)

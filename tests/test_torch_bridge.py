@@ -328,7 +328,7 @@ def test_port_connector_routes(tmp_path):
         got = await conn.fetch(tmsg.Fetch(tmsg.Reference.from_uri(src.as_uri())), tmp_path / "a")
         assert got == [tmp_path / "a" / "slice.safetensors"] and got[0].read_bytes() == b"s" * 64
         hf = tmsg.Fetch(tmsg.Reference(repo="org/model", filenames=["w.safetensors"]))
-        with pytest.raises(NotImplementedError, match="HF checkpoints"):
+        with pytest.raises(NotImplementedError, match="HF Hub"):
             await conn.fetch(hf, tmp_path)
         with pytest.raises(ValueError, match="fabric's Node"):
             await conn.fetch(tmsg.Fetch(tmsg.Reference(scheduler_peer="s", dataset="d")), tmp_path)

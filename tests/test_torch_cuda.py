@@ -1830,3 +1830,123 @@ def test_trainer_codec_switch_on_the_card_uploads_the_cpus_bytes(cuda, tmp_path)
     host, card = uploads("cpu", tmp_path / "host"), uploads(cuda, tmp_path / "card")
     assert [c for c, _ in card] == ["int8", "int4", "int4", "none"]
     assert card == host
+
+
+def _lora_pair(cuda, targets=("q_proj", "k_proj", "v_proj", "o_proj")):
+    """The same tiny LoRA Llama (hidden 256, heads of 64, bf16 compute) on
+    the CPU (plain attention) and on the card (flash kernels), ``B`` given
+    noise so every adapter gets a gradient."""
+    from hypha_tpu_torch.models.registry import build_model
+    from hypha_tpu_torch.ops.flash_attention import flash_attention
+
+    spec = {"family": "llama", "preset": "tiny",
+            "config": {**TINY_CONFIG, "lora_rank": 8, "lora_alpha": 16.0,
+                       "lora_targets": targets, "remat": True}}
+    cpu, _ = build_model(spec, device="cpu")
+    cpu.init_weights(3)
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if name.endswith("_lora_b"):
+                p.copy_(0.02 * torch.randn(p.shape, generator=g))
+    card, _ = build_model(spec, device=cuda, attn_impl=flash_attention)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def test_lora_step_on_the_card_matches_the_cpu(cuda):
+    """4 LoRA steps (remat, all four targets) through the flash kernels
+    against the same steps on the CPU through the plain attention: losses
+    within 2e-2 (bf16 attention rounds at other points); the adapters'
+    median gap within 0.1 lr (measured 0.024 lr) and every gap within
+    2 x 4 lr (Adam moves an element about lr a step, so a tiny gradient
+    whose sign the two roundings disagree on parts it by up to 2 lr a
+    step; measured 3.7 lr); both bases bit-unchanged; the flash forward
+    (twice a layer: remat), dQ and dK/dV launched a step."""
+    from hypha_tpu_torch import messages as m
+    from hypha_tpu_torch.executor.lora import make_lora_train_step, split_lora
+    from hypha_tpu_torch.executor.train import build_optimizer
+    from hypha_tpu_torch.ops.flash_attention import flash_attention
+
+    cpu, card = _lora_pair(cuda)
+    base0 = {k: v.clone() for k, v in split_lora(cpu.state_dict())[1].items()}
+    g = torch.Generator().manual_seed(5)
+    batches = [torch.randint(0, 256, (2, 128), generator=g) for _ in range(4)]
+    steps, losses = {}, {}
+    lr = 3e-3
+    for name, model in (("cpu", cpu), ("card", card)):
+        adapters = split_lora(dict(model.named_parameters()))[0]
+        opt = build_optimizer(list(adapters.values()), m.Adam(lr=lr, weight_decay=0.01))
+        steps[name] = make_lora_train_step(model, opt)
+    before = (flash_attention.fwd_launches, flash_attention.dq_launches,
+              flash_attention.dkv_launches, flash_attention.plain_calls)
+    for b in batches:
+        losses.setdefault("cpu", []).append(float(steps["cpu"]({"input_ids": b})[0]))
+        losses.setdefault("card", []).append(float(steps["card"]({"input_ids": b.to(cuda)})[0]))
+    after = (flash_attention.fwd_launches, flash_attention.dq_launches,
+             flash_attention.dkv_launches, flash_attention.plain_calls)
+    layers = card.config.num_layers
+    assert [a - b for a, b in zip(after, before)] == [2 * layers * 4, layers * 4, layers * 4, 0]
+    assert max(abs(a - b) for a, b in zip(losses["cpu"], losses["card"])) <= 2e-2, losses
+    cstate, gstate = cpu.state_dict(), card.state_dict()
+    gaps = []
+    for name, t in cstate.items():
+        if "_lora_" in name:
+            gaps.append(((gstate[name].cpu() - t).abs() / lr).flatten())
+        else:
+            assert torch.equal(t, base0[name]) and torch.equal(gstate[name].cpu(), base0[name])
+    gaps = torch.cat(gaps)
+    assert float(gaps.median()) <= 0.1 and float(gaps.max()) <= 2 * 4, (gaps.median(), gaps.max())
+
+
+def test_bf16_first_moment_on_the_card_equals_the_cpu(cuda):
+    """``mu_dtype=bf16`` AdamW on the card against the CPU over 4 steps of
+    the same gradients: the stored bf16 moment bit-equal (one rounding per
+    product and sum on both), the parameters within 1e-4 of lr, the CPU
+    test's bound against optax (measured 2.4e-5: one ulp of a parameter
+    near 2, the card's fused multiply-adds)."""
+    from hypha_tpu_torch import messages as m
+    from hypha_tpu_torch.executor.train import build_optimizer
+
+    g = torch.Generator().manual_seed(6)
+    shapes = [(256, 8), (8, 512), (37,)]
+    params = {"cpu": [torch.randn(s, generator=g) for s in shapes]}
+    params["card"] = [p.to(cuda) for p in params["cpu"]]
+    grads = [[torch.randn(s, generator=g) * 10.0 ** (i % 3 - 1) for s in shapes]
+             for i in range(4)]
+    opts = {k: build_optimizer(v, m.Adam(lr=1e-2, weight_decay=0.01), mu_dtype=torch.bfloat16)
+            for k, v in params.items()}
+    for gs in grads:
+        opts["cpu"].step(gs)
+        opts["card"].step([x.to(cuda) for x in gs])
+        for a, b in zip(opts["cpu"].mu, opts["card"].mu):
+            assert a.dtype == torch.bfloat16 and torch.equal(a, b.cpu())
+    for a, b in zip(params["cpu"], params["card"]):
+        assert (a - b.cpu()).abs().max() / 1e-2 <= 1e-4
+
+
+def test_chunked_ce_on_the_card_matches_the_full_ce(cuda):
+    """``chunked_causal_ce`` on the card (a ragged tail, -100 labels)
+    against ``compute_loss`` CE on the full logits there: the loss and the
+    hidden gradient within ``chip_smoke.CHUNKED_CE_TOL``'s 1e-5 (relative
+    to the loss and to the largest gradient)."""
+    from hypha_tpu_torch import messages as m
+    from hypha_tpu_torch.executor.train import chunked_causal_ce, compute_loss
+
+    g = torch.Generator().manual_seed(7)
+    hidden = torch.randn(2, 301, 512, generator=g).to(cuda)
+    head = (0.05 * torch.randn(4000, 512, generator=g)).to(cuda)
+    labels = torch.randint(0, 4000, (2, 301), generator=g).to(cuda)
+    labels[0, :7] = -100
+    out = {}
+    for name in ("full", "chunked"):
+        h = hidden.detach().requires_grad_(True)
+        if name == "full":
+            loss = compute_loss(m.Loss.CROSS_ENTROPY, torch.einsum(
+                "bse,ve->bsv", h.float(), head), labels)
+        else:
+            loss = chunked_causal_ce(h, head, labels, chunk=64)
+        out[name] = (loss.detach(), torch.autograd.grad(loss, [h])[0].float())
+    (lf, gf), (lc, gc) = out["full"], out["chunked"]
+    assert float((lc - lf).abs() / lf.abs()) <= 1e-5
+    assert float((gc - gf).abs().max() / gf.abs().max()) <= 1e-5

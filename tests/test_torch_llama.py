@@ -91,8 +91,13 @@ def test_registry_builds_the_llama_lineage():
         build_model({}, device="cpu")
     with pytest.raises(NotImplementedError):
         build_model({"family": "gpt2"}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_model({"family": "llama", "preset": "tiny", "config": {"lora_rank": 4}}, device="cpu")
+    model, cfg = build_model({"family": "llama", "preset": "tiny", "config": {"lora_rank": 4}},
+                             device="cpu")
+    assert cfg.lora_targets == ("q_proj", "v_proj")
+    assert model.layers[1].self_attn.v_proj_lora_b.shape == (4, 32)
+    with pytest.raises(ValueError, match="lora_targets"):
+        build_model({"family": "llama", "preset": "tiny",
+                     "config": {"lora_rank": 4, "lora_targets": ("mlp",)}}, device="cpu")
 
 
 def _grads(remat, dtype, *, checkpoint=None):

@@ -728,7 +728,6 @@ UNPORTED = {
     "metrics_plane": (True, "telemetry"),
     "slo_rules": (["round_wall_s <= 30"], "telemetry"),
     "input_pipeline": (True, "input_pipeline"),
-    "lora": ({"rank": 4}, "LoRA"),
     "sharding": ({"dp": 1}, "intra-replica sharding"),
 }
 
@@ -760,6 +759,7 @@ LIFTED = {
     "reduce_group_size": {"reduce_group_size": 2, "ft": "on"},
     "reduce_tree_depth": {"reduce_tree_depth": 2, "reduce_group_size": 2,
                           "checkpoint_dir": "/ckpt"},
+    "lora": {"lora": {"rank": 16, "alpha": 32.0, "targets": ["q_proj", "v_proj"]}},
 }
 
 

@@ -13,6 +13,7 @@ import optax
 import pytest
 import torch
 
+import chip_smoke
 from _torch_parity import tiny_pair
 from hypha_tpu import messages as jmsg
 from hypha_tpu.executor import train as J
@@ -77,8 +78,75 @@ def test_optimizer_matches_optax_including_clipped_steps():
             diff = np.abs(t.numpy() - np.asarray(jp[k])).max() / 0.1
             assert diff <= 1e-4, (step, k, diff)
     assert opt.count == 8
-    with pytest.raises(NotImplementedError, match="mu_dtype"):
-        T.build_optimizer(tp, tmsg.Adam(), mu_dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("max_grad_norm", [None, 1e3])
+def test_bf16_first_moment_matches_optax(max_grad_norm):
+    """``mu_dtype=bf16`` against ``optax.adamw(mu_dtype=bf16)`` over 6 steps
+    of the same gradients (spanning four decades): the stored first moment
+    bit-equal every step (optax rounds ``b1 · mu`` in bf16, adds
+    ``(1 - b1) · g`` in f32 and stores the rounded sum), the second moment
+    f32, the parameters within 1e-4 of lr (the update comes from the
+    unrounded f32 moment in both; bias corrections round differently)."""
+    rng = np.random.default_rng(7)
+    params = _leaves(rng)
+    adam = dict(lr=0.1, weight_decay=0.1)
+    tx = J.build_optimizer(jmsg.Adam(**adam), None, max_grad_norm=max_grad_norm,
+                           mu_dtype=jnp.bfloat16)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    state = tx.init(jp)
+    tp = [torch.from_numpy(params[k].copy()) for k in ("a", "b")]
+    opt = T.build_optimizer(tp, tmsg.Adam(**adam), max_grad_norm=max_grad_norm,
+                            mu_dtype=torch.bfloat16)
+    assert all(m.dtype == torch.bfloat16 for m in opt.mu)
+    assert all(v.dtype == torch.float32 for v in opt.nu)
+    for step in range(6):
+        g = {k: v * 10.0 ** (step % 4 - 2) for k, v in _leaves(rng).items()}
+        updates, state = tx.update({k: jnp.asarray(v) for k, v in g.items()}, state, jp)
+        jp = optax.apply_updates(jp, updates)
+        opt.step([torch.from_numpy(g["a"]), torch.from_numpy(g["b"])])
+        adam_state = next(x for x in jax.tree_util.tree_leaves(
+            state, is_leaf=lambda x: hasattr(x, "mu")) if hasattr(x, "mu"))
+        for i, k in enumerate(("a", "b")):
+            want = np.asarray(adam_state.mu[k].astype(jnp.float32))
+            np.testing.assert_array_equal(opt.mu[i].float().numpy(), want, err_msg=f"{step} {k}")
+            assert np.abs(tp[i].numpy() - np.asarray(jp[k])).max() / 0.1 <= 1e-4, (step, k)
+
+
+@pytest.mark.parametrize("chunk", [4, 16])
+def test_chunked_causal_ce_matches_jax(chunk):
+    """``chunked_causal_ce`` at an odd S (a ragged tail padded with ignored
+    positions) with -100 labels, value and gradients (hidden and head)
+    against the JAX package's: within 1e-6 (and so within
+    ``chip_smoke.CHUNKED_CE_TOL``, 1e-5 of the loss, the card's probe's
+    bound) and 1e-6 relative to the largest gradient (f32 sums in another
+    order); equal to ``compute_loss`` CE on the full logits within 1e-6."""
+    rng = np.random.default_rng(8)
+    B, S, D, V = 2, 23, 16, 40
+    hidden = rng.standard_normal((B, S, D)).astype(np.float32)
+    head = (0.3 * rng.standard_normal((V, D))).astype(np.float32)
+    labels = rng.integers(0, V, (B, S)).astype(np.int32)
+    labels[0, 3] = labels[1, 0] = labels[1, S - 1] = -100
+
+    def jloss(h, w):
+        return J.chunked_causal_ce(h, w, jnp.asarray(labels), chunk=chunk)
+
+    jval, (jgh, jgw) = jax.value_and_grad(jloss, argnums=(0, 1))(jnp.asarray(hidden),
+                                                                jnp.asarray(head))
+    th = torch.from_numpy(hidden).requires_grad_(True)
+    tw = torch.from_numpy(head).requires_grad_(True)
+    val = T.chunked_causal_ce(th, tw, torch.from_numpy(labels).long(), chunk=chunk)
+    gh, gw = torch.autograd.grad(val, [th, tw])
+    np.testing.assert_allclose(float(val.detach()), float(jval), atol=1e-6, rtol=0)
+    assert abs(float(val.detach()) - float(jval)) <= chip_smoke.CHUNKED_CE_TOL * abs(float(jval))
+    for got, want in ((gh, jgh), (gw, jgw)):
+        want = np.asarray(want)
+        assert np.abs(got.numpy() - want).max() <= 1e-6 * np.abs(want).max()
+    full = T.compute_loss(tmsg.Loss.CROSS_ENTROPY, th @ tw.T, torch.from_numpy(labels))
+    np.testing.assert_allclose(float(val.detach()), float(full.detach()), atol=1e-6, rtol=0)
+    with torch.no_grad():  # no autograd: the chunks run without recompute
+        assert abs(float(T.chunked_causal_ce(th, tw, torch.from_numpy(labels), chunk=chunk))
+                   - float(val.detach())) <= 1e-6
 
 
 @pytest.mark.parametrize("kind", ["cross-entropy", "nll", "mse", "mae", "bce-with-logits"])
