@@ -99,7 +99,7 @@ Phases, each printing one JSON line:
    dK/dV bit-identical on a second launch, then each kernel's time at the
    training shape beside its plain version, SDPA and the card's bound;
 10. train — the serving model freed, ``run_training`` at Llama-2-7B widths
-   cut to 2 layers (``TRAIN_LAYERS``; S 2048, batch 2, remat) behind an
+   cut to 1 layer (``TRAIN_LAYERS``; S 2048, batch 2, remat) behind an
    in-process scheduler
    and parameter server (the port's ``RoundAccum`` and ``outer_step`` on
    the card, ``ps_round``):
@@ -107,7 +107,7 @@ Phases, each printing one JSON line:
    launch counts, zero plain-attention calls, finite and falling losses
    and exact merges; step time, tokens/s, peak memory and the kernels'
    device time per step from the profiler, where one step must show each
-   bf16 tensor-core flash kernel with its launches (4 / 2 / 2);
+   bf16 tensor-core flash kernel with its launches (2 / 1 / 1);
 11. train_node — the ``train`` phase's job cut to 1 layer
    (``NODE_LAYERS``: its gates are the network's and the scheduler's), run
    by
@@ -130,6 +130,28 @@ Phases, each printing one JSON line:
    the batch scheduler's ms per message; each Δθ push and broadcast with
    its bytes, the fold and ``outer_step`` seconds, auction to dispatch,
    dispatch to first heartbeat and the trainer's peak memory;
+11b. train_data — the input pipeline (``train_data_phase``) on
+   ``NODE_MODEL`` (7B widths at 1 layer, [2, 2048], remat) in slices of
+   ``DATA_SAMPLES`` (4: 2 batches), int8 deltas: (a) one job through
+   ``run_training`` twice over one set of slices behind a local session
+   (``DataSession``), the pipeline off and then on with ``prefetch_slices``
+   2, ``DATA_A_ROUNDS`` of ``DATA_A_STEPS``: the loss sequences equal float
+   for float and the flash launches equal; (b) the port's nodes
+   (``run_data_job``) with two trainer processes, ``input_pipeline`` and
+   ``prefetch_slices`` 2, the workers' slice caches on, ``DATA_B_ROUNDS``
+   of ``DATA_B_STEPS``, the data node killed as the first network pull
+   after round 1's first delta starts and restarted ``DATA_RESTART_S``
+   later under its peer id and port (``data_chaos``). Gates
+   (``data_problems``): ``node_problems``, ``attempt`` 0, a trainer's
+   ``prefetch_errors`` >= 1, no held window over 2, every epoch that
+   wrapped served every slice first, at most 4 slice files in a job
+   directory at once (``slice_files_watch``), each cache within its bound,
+   each trainer's flash launches its batches', clean exits. It reports each
+   trainer's ``data metrics`` line (input-wait seconds and fraction,
+   boundary waits and their mean, the queue's peak, slices fetched,
+   prefetch errors), the nodes' pulled bytes and cache hits and misses,
+   step ms, kill to restart, and part (a)'s snapshots: the sync run's is the
+   stall the pipeline hides;
 12. train_stream — ``train_node``'s job and fabric (1 layer)
    with the compressed streaming outer sync: ``delta_codec`` int8,
    ``sync_mode`` stream, 4 fragments, 4 rounds of 8 batches of 2 (every
@@ -299,13 +321,14 @@ Phases, each printing one JSON line:
    kill to departure, the card's peak and the phase's seconds;
 12h. train_lora — LoRA DiLoCo from an HF-format checkpoint
    (``run_lora_job``): the smoke writes the seeded base of 7B widths at
-   ``LORA_LAYERS`` (4) as one bf16 SafeTensors file in HF names, and a
+   ``LORA_LAYERS`` (2) as one bf16 SafeTensors file in HF names, and a
    ``DiLoCoJob`` with ``lora`` (``LORA``: rank 16, α 32, q/k/v/o) names it
    as its ``source``: the port's gateway, data node, server host and two
    ``WorkerNode``s whose trainers run in process (``lora_probes`` sees
    inside them), ``LORA_ROUNDS`` of ``LORA_STEPS`` at [2, 2048], remat.
-   Gates: (a) every Δθ and update exactly the 32 adapters under the JAX
-   package's flat names, f32, 8,388,608 bytes plus a header; (b) each
+   Gates: (a) every Δθ and update exactly the adapters (16 at 2 layers)
+   under the JAX package's flat names, f32, 4,194,304 bytes plus a header
+   at 2 layers (``lora_wire_spec``); (b) each
    trainer's base bit-equal to the checkpoint after conversion at the end;
    (c) every merge θ_t + u bit for bit over the adapters; (d) the flash
    launches of every batch (each trainer's attention calls counted) and
@@ -393,7 +416,8 @@ ROUTES = ("decode", "mma", "simt")  # the ragged kernel's routes, as the wrapper
 SPLIT_SWEEP = (1, 2, 3, 4, 6, 8)  # decode key splits timed beside _decode_splits' choice
 # 8 layers until train_het joined the smoke: the in-process round boundary
 # (7.5 GB of f32 Δθ through host files each way) was ~90 s of its ~105.
-TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ROUNDS, TRAIN_STEPS = 2, 2048, 2, 2, 4
+# 1 layer since train_data joined the smoke (2 since train_het, 8 before).
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ROUNDS, TRAIN_STEPS = 1, 2048, 2, 2, 4
 # Launches of each in one inner step: the forward twice per layer (remat).
 STEP_LAUNCHES = dict(zip(FLASH_NAMES, (2 * TRAIN_LAYERS, TRAIN_LAYERS, TRAIN_LAYERS)))
 TRAIN_PERIOD = 1024  # the data counts modulo this; the model's vocabulary stays 32000
@@ -2572,7 +2596,8 @@ def node_probes(device):
     each dispatch (``Task.dispatch``), each job status the scheduler hears
     (``StatusRouter``; after the router closes, a recorder takes its place
     so the statuses that follow the job's completion are heard too), each
-    slice assigned (``DataScheduler.assign``), each failed lease renewal
+    slice assigned (``DataScheduler.assign``; its epoch and the peer's
+    held window in ``rec["assigned"]``), each failed lease renewal
     (``WorkerHandle._renew``), each deadline the watchdog computes
     (``Orchestrator._effective_timeout``: the one in force and the
     adaptive one), and each progress message with
@@ -2596,7 +2621,7 @@ def node_probes(device):
     rec = {"deltas": [], "fold_s": [], "outer_step_s": [], "encode_s": [], "broadcast": [],
            "push": [], "log": [], "fold_files": [], "outer_steps": [], "encodes": [],
            "auctions": [], "dispatch": [], "statuses": [], "slices": [], "renew_failures": [],
-           "timeouts": [], "progress": []}
+           "timeouts": [], "progress": [], "assigned": []}
     PS = ps_executor.ParameterServerExecutor
     saved = (PS._save_delta, ps_executor.outer_step, RoundAccum.fold, PS._broadcast, Connector.send,
              PS._encode_broadcast)
@@ -2694,6 +2719,9 @@ def node_probes(device):
     def counted_assign(self, peer, prefetch=None):
         index = assign(self, peer, prefetch)
         rec["slices"].append((peer, index))
+        rec["assigned"].append({"peer": peer, "epoch": self.tracker.epoch, "index": index,
+                                "held": len(self.held_of(peer)),
+                                "num_slices": self.tracker.num_slices})
         return index
 
     async def noted_renew(self):
@@ -2794,7 +2822,8 @@ def node_job(model: dict, *, rounds, steps, batch, lr, workers, **options):
 async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch, seq, period,
                        lr=3e-4, limit_s=CLI_LIMIT_S, workers=1, train_runtime="process",
                        status_timeout=None, job_options=None, ps_hosts=1,
-                       check_reducer=False, sample_card=False) -> dict:
+                       check_reducer=False, sample_card=False, per_slice=None,
+                       n_slices=None, alongside=()) -> dict:
     """The whole port on ``TcpTransport`` at 127.0.0.1 with ephemeral
     ports: a ``Gateway``, a ``DataNode`` serving counting-sequence slices as
     dataset ``counting``, ``workers`` ``WorkerNode``s ``w0``, ``w1``, ...
@@ -2810,7 +2839,17 @@ async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch,
     job's final status. Returns the ``JobResult`` and what ``node_probes``
     saw (and ``reducer_probes``, with ``check_reducer``; the card's peak
     memory, all processes, with ``sample_card``). ``root`` must be short:
-    a trainer's bridge socket lives three levels below it."""
+    a trainer's bridge socket lives three levels below it.
+
+    ``per_slice`` cuts the job's samples into slices of that many (two
+    slices by default), ``n_slices`` of them (as many as the job's samples
+    fill, by default). Each coroutine function of ``alongside`` runs as a
+    task beside the job from bring-up, with a dict holding ``rec``,
+    ``data`` (the data node), ``started`` (the parts that the end stops),
+    ``boot``, ``root`` and ``data_dir``; when the job's statuses are in,
+    the dict's ``done`` is set and each task has 30 s to end before it is
+    cancelled and the nodes stop. The dict comes back as ``side``. The workers' slice caches (``w*/slice-cache``) are
+    not leftovers."""
     from hypha_tpu_torch.data_node import DataNode
     from hypha_tpu_torch.gateway import Gateway
     from hypha_tpu_torch.network import Node, TcpTransport
@@ -2821,8 +2860,10 @@ async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch,
 
     data_dir = root / "data"
     data_dir.mkdir(parents=True)
-    write_slices(data_dir, n_slices=2, per_slice=rounds * steps * batch // 2, seq=seq,
-                 period=period, seed=5)
+    samples = rounds * steps * batch * (workers if per_slice else 1)
+    per_slice = per_slice or samples // 2
+    write_slices(data_dir, n_slices=n_slices or samples // per_slice, per_slice=per_slice,
+                 seq=seq, period=period, seed=5)
     job = node_job(model, rounds=rounds, steps=steps, batch=batch, lr=lr, workers=workers,
                    **(job_options or {}))
     listen = ["127.0.0.1:0"]
@@ -2840,6 +2881,8 @@ async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch,
     node = Node(TcpTransport(), peer_id="sched", bootstrap=boot)
     started: list = []
     stalls: list = []
+    side: dict = {}
+    side_tasks: list = []
     peak, stop_sampler = [0.0], asyncio.Event()
     sampler = asyncio.create_task(_device_mem_sampler(peak, stop_sampler)) if sample_card else None
     watch = asyncio.create_task(watch_loop(stalls))
@@ -2850,6 +2893,9 @@ async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch,
                 await part.start(listen)
                 started.append(part)
             await node.wait_for_bootstrap()
+            side.update(rec=rec, data=data, started=started, boot=boot, root=root,
+                        data_dir=data_dir)
+            side_tasks += [asyncio.create_task(fn(side)) for fn in alongside]
             result = await Orchestrator(node).run(job, status_timeout=status_timeout)
             # The jobs end after the scheduler's last answer: wait for each
             # job's final status (the recorder that replaced the router).
@@ -2864,10 +2910,20 @@ async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch,
                     break
                 await asyncio.sleep(0.1)
         finally:
+            # The side tasks end on ``done`` (a restart under way finishes);
+            # whatever still runs after 30 s is cancelled.
+            side["done"] = True
+            if side_tasks:
+                await asyncio.wait(side_tasks, timeout=30)
             watch.cancel()
             stop_sampler.set()
             if sampler is not None:
                 await sampler
+            for task in side_tasks:
+                task.cancel()
+            side_errors = [repr(e) for e in await asyncio.gather(*side_tasks,
+                                                                   return_exceptions=True)
+                           if isinstance(e, Exception) and not isinstance(e, asyncio.CancelledError)]
             for part in reversed(started):
                 await part.stop()
             await gw.stop()
@@ -2875,7 +2931,8 @@ async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch,
     leftover: list = []
     for _ in range(300):
         leftover = sorted(str(p.relative_to(root)) for p in root.rglob("*")
-                          if p.is_file() and not p.is_relative_to(data_dir))
+                          if p.is_file() and not p.is_relative_to(data_dir)
+                          and "slice-cache" not in p.relative_to(root).parts)
         if not leftover:
             break
         await asyncio.sleep(0.1)
@@ -2893,7 +2950,8 @@ async def run_node_job(root: Path, model: dict, *, device, rounds, steps, batch,
                 auction_to_dispatch_s=max(d["t"] for d in rec["dispatch"]) - rec["auctions"][0]["t0"],
                 first_beat_s=(min(beats) - max(d["t"] for d in train)) if beats else None,
                 loop_stall_max_s=max(stalls, default=0.0),
-                loop_stalls_over_1s=sum(s > 1.0 for s in stalls), leftover=leftover)
+                loop_stalls_over_1s=sum(s > 1.0 for s in stalls), leftover=leftover,
+                side={**side, "errors": side_errors})
 
 
 async def watch_loop(stalls: list, tick: float = 0.05) -> None:
@@ -2957,7 +3015,8 @@ def node_problems(run: dict, *, rounds: int, expect: dict) -> list:
     ``psw``, the parameter server's UPDATED for each round, each worker's
     finite round losses (``JobResult.metrics``) with the last below the
     first, each Δθ the server received in the config's flat f32 names and
-    shapes, no failed lease renewal and no file left behind."""
+    shapes (an HQD1 frame: the names and shapes, in the job's codec), no
+    failed lease renewal and no file left behind."""
     rec, job, result = run["rec"], run["job"], run["result"]
     problems = []
     if not run["finished"] or any(s != ["running", "completed"] for s in run["jobs"].values()):
@@ -2995,10 +3054,13 @@ def node_problems(run: dict, *, rounds: int, expect: dict) -> list:
                 or not losses[-1] < losses[0]):
             problems.append(f"{peer}: round losses {losses}: not finite, or the last not below "
                             "the first")
-    bad = [i for i, d in enumerate(rec["deltas"]) if d["tensors"] != expect]
+    shapes = {k: shape for k, (_, shape) in expect.items()}
+    bad = [i for i, d in enumerate(rec["deltas"])
+           if (d["tensors"] != expect if d["frame"] is None else
+               (d["frame"]["codec"], d["frame"]["tensors"]) != (job.delta_codec, shapes))]
     if len(rec["deltas"]) != rounds * len(run["workers"]) or bad:
         problems.append(f"Δθ files {bad} of {len(rec['deltas'])} differ from the config's flat "
-                        "f32 names and shapes")
+                        f"names and shapes (f32, or the job's {job.delta_codec} frames)")
     if rec["renew_failures"]:
         problems.append(f"lease renewals failed: {rec['renew_failures']}")
     if run["leftover"]:
@@ -3086,6 +3148,383 @@ def train_node_phase(train: dict) -> dict:
     if problems:
         emit({"phase": "train_node", **res, "problems": problems, "worker_log_tail": log[-4000:]})
         raise SystemExit("train_node phase failed: " + "; ".join(problems))
+    return res
+
+
+# ---------------------------------------------------------- train_data phase
+
+# The input pipeline's phase (``train_data_phase``): NODE_MODEL at [2, 2048]
+# in slices of DATA_SAMPLES samples (2 batches each), prefetched
+# DATA_PREFETCH deep, int8 deltas (a quarter of the f32 round boundary).
+DATA_SAMPLES = 4
+DATA_PREFETCH = 2
+DATA_A_ROUNDS, DATA_A_STEPS = 2, 3  # part (a): the local session
+DATA_B_ROUNDS, DATA_B_STEPS = 3, 4  # part (b): the network, two trainers
+DATA_RESTART_S = 1.0  # the data node's outage
+# Part (b)'s dataset: 18 slices, 72 samples for the job's 48. By round 1's
+# first delta each trainer has taken at most 4 slices and holds 3 more, so
+# at least 4 of the first epoch are still to be pulled from the data node
+# (the kill needs a network pull), and the job's ~24 assignments wrap the
+# epoch, whose slices the caches then serve.
+DATA_B_SLICES = 18
+DATA_OPTIONS = {"delta_codec": "int8", "input_pipeline": True, "prefetch_slices": DATA_PREFETCH}
+_TRAINING_DONE = re.compile(r"training done: (\d+) rounds, (\d+) batches, ([\d.]+)s")
+_DATA_METRICS = re.compile(r"data metrics: (\{.*\})")
+_LAUNCHES = re.compile(r"attention launches: (\{.*\})")
+
+
+class DataSession(Scheduler):
+    """A local session for ``run_training``: the ``Scheduler``'s rounds,
+    each fetch a copy of the next of ``slices`` under the job's
+    ``artifacts`` (as the connector writes a pulled slice; the pipeline
+    deletes what it read), and each round's update the trainer's own Δθ
+    file handed back (θ ← θ_t + Δθ: no server work, the same in every run)."""
+
+    def __init__(self, work_dir: Path, slices: list, *, rounds: int, steps: int):
+        super().__init__(rounds=rounds, steps=steps)
+        self.dir, self.slices = Path(work_dir), slices
+        self.fetches = 0
+        self.lock = threading.Lock()
+        self.events: "queue.Queue[dict]" = queue.Queue()
+        (self.dir / "artifacts").mkdir(parents=True, exist_ok=True)
+
+    def fetch(self, ref):
+        with self.lock:
+            i = self.fetches
+            self.fetches += 1
+        dest = self.dir / "artifacts" / f"slice-{i:06d}"
+        shutil.copyfile(self.slices[i % len(self.slices)], dest)
+        return [f"artifacts/{dest.name}"]
+
+    def send_status(self, progress):
+        with self.lock:
+            return self.answer(progress)
+
+    def send_resource(self, send, path, resource="updates", meta=None):
+        self.events.put({"path": path, "meta": {"round": meta["round"]}})
+
+    @contextmanager
+    def receive(self, ref):
+        def gen():
+            while True:
+                try:
+                    yield self.events.get(timeout=600)
+                except queue.Empty:
+                    return
+
+        yield gen()
+
+
+def steady_step_ms(session: Scheduler) -> "float | None":
+    """The median STATUS interval inside a round but the round's first.
+    With the loss read deferred, a STATUS follows its step's dispatch, so
+    each interval holds the previous step's device time: the first of a
+    round holds the round's first step, which regrows the allocator after
+    the boundary's ``empty_cache``; synchronously it holds the second."""
+    out = []
+    for r in sorted({r for r, _ in session.marks}):
+        ts = [t for rr, t in session.marks if rr == r]
+        out += [(b - a) * 1e3 for a, b in zip(ts[1:], ts[2:])]
+    return statistics.median(out) if out else None
+
+
+def data_local_runs(model: dict, *, device, rounds, steps, batch, seq, period) -> dict:
+    """Part (a): one job through ``run_training`` twice over one set of
+    slices (``DATA_SAMPLES`` each, enough for the job), with the input
+    pipeline off and then on (``DATA_OPTIONS``), each behind its own
+    ``DataSession``: each run's losses, flash launches (counted from 0
+    before it), ``DATA_METRICS`` snapshot, step ms and seconds."""
+    import hypha_tpu_torch.executor.training as training
+    from hypha_tpu_torch.ops.attention import dot_product_attention
+    from hypha_tpu_torch.ops.flash_attention import flash_attention
+    from hypha_tpu_torch.telemetry.ft_metrics import DATA_METRICS
+
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-data-"))
+    runs = {}
+    try:
+        src = work / "slices"
+        src.mkdir()
+        slices = write_slices(src, n_slices=rounds * steps * batch // DATA_SAMPLES,
+                              per_slice=DATA_SAMPLES, seq=seq, period=period, seed=7)
+        for name, options in (("sync", {"delta_codec": "int8"}), ("pipelined", DATA_OPTIONS)):
+            session = DataSession(work / name, slices, rounds=rounds, steps=steps)
+            spec = train_spec(f"chip-smoke-data-{name}", model, batch=batch, lr=3e-4, **options)
+            DATA_METRICS.reset()
+            flash_attention.fwd_launches = flash_attention.dq_launches = 0
+            flash_attention.dkv_launches = flash_attention.plain_calls = 0
+            dot_product_attention.calls = 0
+            t0 = time.perf_counter()
+            result = training.run_training(session, work / name, spec, device=device)
+            _sync(torch.device(device))
+            runs[name] = dict(
+                losses=result.losses, rounds=result.rounds, batches=result.batches,
+                launches={"fwd": flash_attention.fwd_launches, "dq": flash_attention.dq_launches,
+                          "dkv": flash_attention.dkv_launches,
+                          "flash_plain": flash_attention.plain_calls,
+                          "dense": dot_product_attention.calls},
+                data_metrics=DATA_METRICS.snapshot(), step_ms=session.step_ms(),
+                steady_step_ms=steady_step_ms(session),
+                fetches=session.fetches,
+                slice_files_left=len(list((work / name / "artifacts").iterdir())),
+                seconds=time.perf_counter() - t0)
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return runs
+
+
+def data_local_problems(runs: dict, *, rounds: int, steps: int, layers: int,
+                        device: str) -> list:
+    """Part (a)'s gates: the two runs' losses equal float for float (finite,
+    ``rounds`` x ``steps`` of them) and their flash launches equal, the
+    path's (on the card: 2 x ``layers`` / ``layers`` / ``layers`` a step,
+    remat, and no plain attention; on the CPU the plain attention)."""
+    sync, piped = runs["sync"], runs["pipelined"]
+    problems = []
+    n = rounds * steps
+    if piped["losses"] != sync["losses"] or len(sync["losses"]) != n \
+            or not all(math.isfinite(x) for x in sync["losses"]):
+        problems.append(f"(a) losses: sync {sync['losses']}, pipelined {piped['losses']} "
+                        f"(wanted {n} equal float for float)")
+    if not (piped["rounds"], piped["batches"]) == (sync["rounds"], sync["batches"]) == (rounds, n):
+        problems.append(f"(a) rounds and batches {sync['rounds'], sync['batches']} / "
+                        f"{piped['rounds'], piped['batches']}")
+    want = ({"fwd": 2 * layers * n, "dq": layers * n, "dkv": layers * n, "flash_plain": 0,
+             "dense": 0} if device == "cuda" else None)
+    if piped["launches"] != sync["launches"] or (want and sync["launches"] != want):
+        problems.append(f"(a) flash launches: sync {sync['launches']}, pipelined "
+                        f"{piped['launches']} (wanted equal{f', {want}' if want else ''})")
+    return problems
+
+
+def data_chaos(restart_s: float = DATA_RESTART_S):
+    """A ``run_node_job`` side task: once round 1's first delta landed, the
+    data node dies as the next network pull of a slice starts (its
+    listener closes before the pull dials it, then the node stops; a pull
+    the slice cache serves moves no bytes and does not count), and a new
+    data node starts under the same peer id and port ``restart_s`` later,
+    also when the job ended meanwhile."""
+    async def chaos(side: dict) -> None:
+        from hypha_tpu_torch.data_node import DataNode
+        from hypha_tpu_torch.network import Node, TcpTransport
+
+        rec, old = side["rec"], side["data"]
+        fired = asyncio.Event()
+        pull = Node.pull
+
+        async def killing_pull(self, peer_id, resource):
+            if peer_id == old.peer_id and not fired.is_set() and side.get("armed"):
+                for server in old.node.transport._servers:
+                    server.close()
+                side["kill"] = {"t": time.perf_counter(), "puller": self.peer_id,
+                                "index": getattr(resource, "index", None),
+                                "addr": old.node.listen_addrs[0]}
+                fired.set()
+            return await pull(self, peer_id, resource)
+
+        Node.pull = killing_pull
+        try:
+            while not any(d["round"] == 1 for d in rec["deltas"]):
+                if side.get("done"):
+                    return
+                await asyncio.sleep(0.02)
+            side["armed"] = time.perf_counter()
+            while not fired.is_set():
+                if side.get("done"):
+                    return
+                await asyncio.sleep(0.02)
+        finally:
+            Node.pull = pull
+        await old.stop()
+        side["started"].remove(old)
+        await asyncio.sleep(restart_s)
+        new = DataNode(TcpTransport(), {NODE_DATASET: side["data_dir"]}, peer_id="data",
+                       bootstrap=side["boot"])
+        await new.start([old.node.listen_addrs[0]])
+        side["started"].append(new)
+        side["restart_t"] = time.perf_counter()
+        side["restart_addr"] = new.node.listen_addrs[0]
+    return chaos
+
+
+async def slice_files_watch(side: dict) -> None:
+    """A ``run_node_job`` side task: the most slice files each trainer's
+    job directory held at once (sampled every 50 ms until ``done``)."""
+    peak = side.setdefault("slice_files_peak", {})
+    while not side.get("done"):
+        for d in side["root"].glob("w*/hypha-*/artifacts"):
+            try:
+                n = sum(1 for p in d.iterdir() if p.is_file())
+            except OSError:
+                continue
+            key = str(d.parent.relative_to(side["root"]))
+            peak[key] = max(peak.get(key, 0), n)
+        await asyncio.sleep(0.05)
+
+
+async def run_data_job(root: Path, model: dict, *, device, rounds, steps, batch, seq, period,
+                       workers=2, n_slices=DATA_B_SLICES, restart_s=DATA_RESTART_S,
+                       status_timeout=None) -> dict:
+    """Part (b): ``run_node_job`` with ``DATA_OPTIONS``, ``workers``
+    trainer processes, ``n_slices`` slices of ``DATA_SAMPLES``, the slice caches on (the
+    worker nodes', under ``w*/slice-cache``), ``data_chaos`` and
+    ``slice_files_watch`` beside it. Each trainer is a process of its own,
+    so its ``data metrics`` line is its own; the connectors run in this
+    process, whose ``DATA_METRICS`` (reset here) counts both nodes' pulled
+    bytes and cache outcomes. Returns the run with ``node_data_metrics``
+    and each cache's entries, bytes and bound under ``caches``."""
+    from hypha_tpu_torch.telemetry.ft_metrics import DATA_METRICS
+    from hypha_tpu_torch.worker.slice_cache import SliceCache
+
+    DATA_METRICS.reset()
+    run = await run_node_job(root, model, device=device, rounds=rounds, steps=steps, batch=batch,
+                             seq=seq, period=period, workers=workers, per_slice=DATA_SAMPLES,
+                             n_slices=n_slices, status_timeout=status_timeout,
+                             job_options=DATA_OPTIONS,
+                             alongside=(data_chaos(restart_s), slice_files_watch))
+    caches = {}
+    for i in range(workers):
+        cache = SliceCache(root / f"w{i}" / "slice-cache")
+        caches[f"w{i}"] = {"entries": cache.entries() if cache.root.exists() else 0,
+                           "bytes": cache.bytes_used() if cache.root.exists() else 0,
+                           "max_bytes": cache.max_bytes}
+    return {**run, "node_data_metrics": DATA_METRICS.snapshot(), "caches": caches}
+
+
+def data_report(run: dict) -> dict:
+    """Part (b)'s figures: each trainer's ``data metrics`` line with its
+    input-wait fraction of the loop's seconds, step ms (the scheduler's
+    stamps), flash launches; the nodes' pulled bytes and cache outcomes;
+    kill to restart; the held windows and epochs of every assignment."""
+    logs = trainer_logs(run)
+    prog = run["rec"]["progress"]
+    per = {}
+    for peer, lines in logs.items():
+        text = "\n".join(lines)
+        metrics = _DATA_METRICS.search(text)
+        done = _TRAINING_DONE.search(text)
+        launches = _LAUNCHES.search(text)
+        snap = json.loads(metrics.group(1)) if metrics else None
+        loop_s = float(done.group(3)) if done else None
+        beats = [p for p in prog if p["kind"] == "status" and p["peer"] == peer]
+        steps = [(b["t"] - a["t"]) * 1e3 for a, b in zip(beats, beats[1:])
+                 if a["round"] == b["round"]]
+        per[peer] = dict(
+            data_metrics=snap, loop_s=loop_s,
+            input_wait_fraction=(snap["input_wait_seconds"] / loop_s
+                                 if snap and loop_s else None),
+            batches=len(beats), step_ms=statistics.median(steps) if steps else None,
+            launches=json.loads(launches.group(1)) if launches else None)
+    side = run["side"]
+    kill = side.get("kill")
+    assigned = run["rec"]["assigned"]
+    return dict(
+        trainers=per, node_data_metrics=run["node_data_metrics"], caches=run["caches"],
+        kill=kill, kill_to_restart_s=(side["restart_t"] - kill["t"])
+        if kill and "restart_t" in side else None,
+        slice_files_peak=side.get("slice_files_peak", {}), side_errors=side.get("errors"),
+        assignments=len(assigned), held_max=max((a["held"] for a in assigned), default=0),
+        epochs=sorted({a["epoch"] for a in assigned}), attempt=run["result"].attempt)
+
+
+def data_problems(run: dict, rep: dict, *, rounds: int, layers: int, device: str) -> list:
+    """Part (b)'s gates: ``node_problems`` (both jobs completed, every
+    round ``UPDATED``, falling losses, int8 frames of the config's names,
+    no failed renewal, no file left but the caches), ``attempt`` 0, the
+    kill fired and the node restarted under its port, a trainer's
+    ``prefetch_errors`` >= 1, no held window over ``DATA_PREFETCH``, every
+    epoch that wrapped served every slice first, at most ``DATA_PREFETCH``
+    + 2 slice files in a job directory at once, each cache within its
+    bound, and each trainer's flash launches its batches' (on the card; on
+    the CPU the plain attention)."""
+    problems = node_problems(run, rounds=rounds, expect=flat_f32_spec(run["job"].model))
+    if rep["attempt"] != 0:
+        problems.append(f"(b) attempt {rep['attempt']}: wanted 0 (no full restart)")
+    if rep["kill"] is None or rep["kill_to_restart_s"] is None:
+        problems.append(f"(b) the data node was not killed and restarted: {rep['kill']}")
+    elif run["side"].get("restart_addr") != rep["kill"]["addr"]:
+        problems.append(f"(b) restarted on {run['side'].get('restart_addr')}, killed on "
+                        f"{rep['kill']['addr']}")
+    if rep["side_errors"]:
+        problems.append(f"(b) side tasks failed: {rep['side_errors']}")
+    errors = {p: (t["data_metrics"] or {}).get("prefetch_errors") for p, t in rep["trainers"].items()}
+    if not any((e or 0) >= 1 for e in errors.values()):
+        problems.append(f"(b) no trainer's prefetch failed across the kill: {errors}")
+    if rep["held_max"] > DATA_PREFETCH:
+        problems.append(f"(b) a worker held {rep['held_max']} slices (window {DATA_PREFETCH})")
+    assigned = run["rec"]["assigned"]
+    n = assigned[0]["num_slices"] if assigned else 0
+    for epoch in rep["epochs"][:-1]:
+        served = {a["index"] for a in assigned if a["epoch"] == epoch}
+        if served != set(range(n)):
+            problems.append(f"(b) epoch {epoch} wrapped after serving {sorted(served)} of {n}")
+    over = {d: k for d, k in rep["slice_files_peak"].items() if k > DATA_PREFETCH + 2}
+    if over or not rep["slice_files_peak"]:
+        problems.append(f"(b) slice files in a job directory at once: {rep['slice_files_peak']}")
+    for peer, c in rep["caches"].items():
+        if c["bytes"] > c["max_bytes"]:
+            problems.append(f"(b) {peer}'s slice cache holds {c['bytes']} of {c['max_bytes']}")
+    for peer, t in rep["trainers"].items():
+        n_b = t["batches"]
+        want = ({"fwd": 2 * layers * n_b, "dq": layers * n_b, "dkv": layers * n_b,
+                 "flash_plain": 0, "dense": 0} if device == "cuda" else
+                {"fwd": 0, "dq": 0, "dkv": 0, "flash_plain": 0})
+        got = t["launches"] if device == "cuda" else \
+            {k: v for k, v in (t["launches"] or {}).items() if k != "dense"}
+        if got != want or t["data_metrics"] is None:
+            problems.append(f"(b) {peer}: attention launches {t['launches']} for {n_b} batches "
+                            f"(wanted {want}); data metrics {t['data_metrics']}")
+    return problems
+
+
+def train_data_phase() -> dict:
+    """The input pipeline on the card (``NODE_MODEL``: 7B widths at 1
+    layer, [2, 2048], remat, through the flash kernels): (a) the same job
+    through ``run_training`` with the pipeline off and on (``DATA_A_ROUNDS``
+    of ``DATA_A_STEPS``), the losses and flash launches equal; (b) the
+    port's nodes with two trainer processes, the pipeline and the slice
+    caches on, ``DATA_B_ROUNDS`` of ``DATA_B_STEPS``, the data node killed
+    mid-prefetch and restarted (``data_chaos``). Reports each trainer's
+    input waits, the boundary stall, the queue's peak, the slices and bytes
+    fetched, the caches' hits and misses, step ms and kill to restart, and
+    part (a)'s sync snapshot: the stall the pipeline hides."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    local = data_local_runs(NODE_MODEL, device="cuda", rounds=DATA_A_ROUNDS, steps=DATA_A_STEPS,
+                            batch=TRAIN_BATCH, seq=TRAIN_SEQ, period=TRAIN_PERIOD)
+    problems = data_local_problems(local, rounds=DATA_A_ROUNDS, steps=DATA_A_STEPS,
+                                   layers=NODE_LAYERS, device="cuda")
+    t_b = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="hda"))
+    try:
+        run = asyncio.run(run_data_job(root, NODE_MODEL, device="cuda", rounds=DATA_B_ROUNDS,
+                                       steps=DATA_B_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                       period=TRAIN_PERIOD, status_timeout=NODE_STATUS_TIMEOUT_S))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rep = data_report(run)
+    problems += data_problems(run, rep, rounds=DATA_B_ROUNDS, layers=NODE_LAYERS, device="cuda")
+    timing = progress_timing(run)
+    res = dict(
+        model="llama2-7b", layers=NODE_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+        slice_samples=DATA_SAMPLES, prefetch_slices=DATA_PREFETCH,
+        local={name: {k: r[k] for k in ("losses", "launches", "data_metrics", "step_ms",
+                                        "steady_step_ms", "fetches", "slice_files_left",
+                                        "seconds")}
+               for name, r in local.items()},
+        stall_the_pipeline_hides=local["sync"]["data_metrics"],
+        network={**rep, "jobs": run["jobs"],
+                 "losses": [(w, r, m.get("loss")) for w, r, m in run["result"].metrics],
+                 "round_boundary_s": timing["round_boundary_s"], "step_ms": timing["step_ms"],
+                 "seconds": time.perf_counter() - t_b},
+        seconds=time.perf_counter() - t0)
+    if problems:
+        emit({"phase": "train_data", **res, "problems": problems,
+              "worker_log_tail": "\n".join(run["rec"]["log"])[-4000:]})
+        raise SystemExit("train_data phase failed: " + "; ".join(problems))
     return res
 
 
@@ -6668,7 +7107,8 @@ def train_swap_phase() -> dict:
 
 # LoRA DiLoCo from an HF-format checkpoint: 7B widths at LORA_LAYERS, every
 # supported target at rank 16, two trainers.
-LORA_LAYERS, LORA_ROUNDS, LORA_STEPS, LORA_WORKERS = 4, 3, 4, 2
+# 2 layers since train_data joined the smoke (4 before).
+LORA_LAYERS, LORA_ROUNDS, LORA_STEPS, LORA_WORKERS = 2, 3, 4, 2
 LORA = {"rank": 16, "alpha": 32.0, "targets": ["q_proj", "k_proj", "v_proj", "o_proj"]}
 LORA_MODEL = {**TRAIN_MODEL, "config": {**TRAIN_MODEL["config"], "num_layers": LORA_LAYERS}}
 LORA_PROBE = (2, 256)  # gate (f)'s fixed probe
@@ -7336,6 +7776,8 @@ def main() -> int:
     train = train_phase()
     emit({"phase": "train", **train})
     emit({"phase": "train_node", **train_node_phase(train)})
+    data = train_data_phase()
+    emit({"phase": "train_data", **data})
     stream = train_stream_phase()
     emit({"phase": "train_stream", **stream})
     emit({"phase": "train_secure", **train_secure_phase(stream)})
@@ -7406,6 +7848,12 @@ def main() -> int:
             # The broadcast-tree job's surviving trainers (w0 is killed).
             "train_swap_launches": {peer: (t_["launches"] or {}).get(key)
                                     for peer, t_ in swap["trainers"].items() if peer != "w0"},
+            # The input pipeline's runs: part (a)'s pipelined run in process,
+            # part (b)'s trainers, each counted by its process.
+            "train_data_launches": {
+                "local_pipelined": data["local"]["pipelined"]["launches"][key],
+                **{peer: (t_["launches"] or {}).get(key)
+                   for peer, t_ in data["network"]["trainers"].items()}},
             # The LoRA jobs: both in-process trainers together, and the 7B.
             "train_lora_launches": lora["launches"][key],
             "lora_7b_launches": lora7["launches"][key],

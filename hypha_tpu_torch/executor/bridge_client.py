@@ -7,14 +7,17 @@ manager yielding JSON file pointers as tensors land. The reference is
 built on ``httpx``; this one uses ``http.client`` over an ``AF_UNIX``
 socket, so the port needs nothing outside the standard library here.
 
-The per-batch heartbeats and the other short requests share one
-keep-alive connection. Before reusing it, the client checks that the
-bridge has not closed it while it sat idle (as ``httpx``'s pool does),
-so a request is never sent into a dead connection and never sent twice.
-Each ``receive`` opens a connection of its own and holds it for the
-stream's life; leaving the context closes it, which ends the bridge's
-side of the stream. A lock serializes the short requests, so a streaming
-sync's flight thread can push while the training loop sends heartbeats.
+Each thread's short requests (the per-batch heartbeats, fetches, pushes)
+share one keep-alive connection of that thread's own, as ``httpx``'s pool
+gives each concurrent request its own: the input pipeline's prefetch
+thread holds a ``fetch`` open until the bridge has pulled and written the
+slice, and the training loop's heartbeats must not wait behind it (the
+bridge serves each connection on its own). Before reusing a connection,
+the client checks that the bridge has not closed it while it sat idle, so
+a request is never sent into a dead connection and never sent twice. Each
+``receive`` opens a connection of its own and holds it for the stream's
+life; leaving the context closes it, which ends the bridge's side of the
+stream.
 """
 
 from __future__ import annotations
@@ -69,11 +72,27 @@ class Session:
     def __init__(self, socket_path: str, timeout: float = 300.0) -> None:
         self._path = str(socket_path)
         self._timeout = timeout
-        self._conn = _UnixConnection(self._path, timeout)
+        self._local = threading.local()  # .conn: this thread's connection
+        self._conns: dict = {}  # thread -> its connection, for close()
         self._lock = threading.Lock()
 
+    def _thread_conn(self) -> _UnixConnection:
+        conn = getattr(self._local, "conn", None)
+        if conn is None:
+            conn = self._local.conn = _UnixConnection(self._path, self._timeout)
+            with self._lock:
+                # A streaming sync starts a thread per flight: close the
+                # connections of threads that have ended.
+                for thread in [t for t in self._conns if not t.is_alive()]:
+                    self._conns.pop(thread).close()
+                self._conns[threading.current_thread()] = conn
+        return conn
+
     def close(self) -> None:
-        self._conn.close()
+        with self._lock:
+            conns, self._conns = list(self._conns.values()), {}
+        for conn in conns:
+            conn.close()
 
     def __enter__(self) -> "Session":
         return self
@@ -84,11 +103,7 @@ class Session:
     # ------------------------------------------------------------------
 
     def _post(self, path: str, payload: dict) -> Any:
-        with self._lock:
-            return self._post_locked(path, payload)
-
-    def _post_locked(self, path: str, payload: dict) -> Any:
-        conn = self._conn
+        conn = self._thread_conn()
         if conn.sock is not None and select.select([conn.sock], [], [], 0)[0]:
             # Readable while idle: the bridge closed this keep-alive
             # connection (EOF) after its last answer. Start a new one.

@@ -74,6 +74,19 @@ LoRA (``lora``: rank, alpha, targets; the reference's ``:627-636``,
 ``source`` (native flat or HF names) is frozen, and the optimizer, Δθ,
 merges, checkpoints and the anchor checksum cover the adapters alone.
 
+The input side (the reference's ``:749-781``, ``:1205-1216`` and
+``:1705-1803``): a ``preprocessor`` spec builds an HF processor hook
+(``executor/preprocess.py``) that runs over every slice; with
+``input_pipeline`` the stream prefetches ``prefetch_slices`` slices in a
+background thread, batches whole slices and deletes each slice file once
+read (``executor/dataset.py``), each batch goes to the card from pinned
+host memory without blocking, and each step's loss is read only after the
+next step was dispatched (never while a stream flight is up, whose step
+accounting needs the synchronous read): the same losses in the same order,
+read one step later. The loop times each wait for a batch and each slice
+fetch into ``telemetry.ft_metrics.DATA_METRICS`` and logs ``data metrics:
+{...}`` when it ends.
+
 Every other option of ``TrainExecutorConfig`` is not ported; each raises
 NotImplementedError naming its ROADMAP.md item rather than being ignored.
 """
@@ -119,6 +132,7 @@ from ..ops.attention import dot_product_attention
 from ..ops.flash_attention import flash_attention
 from ..stream import effective_fragments, fragment_due, merge_corrected, partition_names
 from ..stream.partition import shard_of
+from ..telemetry.ft_metrics import DATA_METRICS
 from ..worker.connectors import shard_route
 from .bridge_client import Session
 from .checkpoint import (load_train_checkpoint, restore_train_state, save_train_checkpoint,
@@ -168,8 +182,6 @@ def _unsupported(cfg: TrainExecutorConfig) -> None:
     mesh = math.prod(int(sharding.get(a, 1)) for a in ("dp", "fsdp", "tp", "sp", "ep"))
     checks = [
         (mesh > 1, "sharding", "intra-replica sharding"),
-        (bool(cfg.input_pipeline), "input_pipeline", "input_pipeline"),
-        (bool(cfg.preprocessor), "preprocessor", "preprocessor"),
         (bool(cfg.report_metrics_s), "report_metrics_s", "telemetry"),
     ]
     for bad, option, item in checks:
@@ -593,9 +605,20 @@ def run_training(
     dev = default_device(device)
 
     def fetch_slice() -> str:
-        return str(work_dir / session.fetch(cfg.data)[0])
+        t_fetch = time.monotonic()
+        path = str(work_dir / session.fetch(cfg.data)[0])
+        DATA_METRICS.note_fetch(time.monotonic() - t_fetch)
+        return path
 
-    stream = stream_batches(fetch_slice, cfg.batch_size, dict(cfg.model).get("input_names"))
+    preprocessor = None
+    if cfg.preprocessor:
+        from .preprocess import build_preprocessor
+
+        preprocessor = build_preprocessor(cfg.preprocessor, session, work_dir)
+    pipeline_on = bool(cfg.input_pipeline)
+    stream = stream_batches(fetch_slice, cfg.batch_size, dict(cfg.model).get("input_names"),
+                            preprocessor, pipeline=pipeline_on, prefetch=cfg.prefetch_slices,
+                            unlink_consumed=pipeline_on)
     first_batch = next(stream)
     model = _init_model(cfg, session, work_dir, dev)
     # The tensors a round trains, ships and merges (aliases of the
@@ -904,10 +927,37 @@ def run_training(
     def batches() -> Iterator[dict]:
         yield first_batch
         while True:
+            t_wait = time.monotonic()
             batch = next(stream, None)
+            # The whole wait: host assembly and any slice fetch run inline.
+            DATA_METRICS.note_input_wait(time.monotonic() - t_wait)
             if batch is None:
                 return
             yield batch
+
+    pin = pipeline_on and dev.type == "cuda"
+
+    def place(batch: dict) -> tuple:
+        """(the host tensors the copies read, the batch on the device). With
+        the pipeline each batch is pinned afresh and copied without
+        blocking, so the host goes on to the next batch; the pinned tensors
+        stay referenced until the step's loss is read, after which no copy
+        reads them."""
+        if not pin:
+            return None, {k: v.to(dev) for k, v in batch.items()}
+        pinned = {k: v.pin_memory() for k, v in batch.items()}
+        return pinned, {k: v.to(dev, non_blocking=True) for k, v in pinned.items()}
+
+    # Deferred loss reads (the pipeline only): (loss, pinned batch) of the
+    # steps dispatched but not yet read, flushed before every round-boundary
+    # action that reports or resets ``round_losses`` and after the loop.
+    pending: list = []
+
+    def flush_pending_loss() -> None:
+        while pending:
+            value = float(pending.pop(0)[0])
+            round_losses.append(value)
+            result.losses.append(value)
 
     step_s: dict = {"flight": [], "no_flight": []}
     t0 = time.monotonic()
@@ -923,14 +973,24 @@ def run_training(
                 if not finish_stream_sync():
                     break
             overlapping = stream_state is not None and stream_state.in_flight
-            t_step = time.perf_counter()
-            loss, _total, _aux, _norm = step({k: v.to(dev) for k, v in batch.items()})
-            value = float(loss)
-            step_s["flight" if overlapping else "no_flight"].append(time.perf_counter() - t_step)
-            if overlapping:
-                stream_state.note_step()
-            round_losses.append(value)
-            result.losses.append(value)
+            if pipeline_on and not overlapping:
+                # Dispatch step n, then read step n-1's loss (done on the
+                # card by now), never this step's.
+                pinned, placed = place(batch)
+                loss, _total, _aux, _norm = step(placed)
+                flush_pending_loss()
+                pending.append((loss, pinned))
+            else:
+                t_step = time.perf_counter()
+                loss, _total, _aux, _norm = step(place(batch)[1])
+                value = float(loss)
+                step_s["flight" if overlapping else "no_flight"].append(
+                    time.perf_counter() - t_step)
+                if overlapping:
+                    stream_state.note_step()
+                flush_pending_loss()  # older deferred losses first
+                round_losses.append(value)
+                result.losses.append(value)
             result.batches += 1
             round_samples += cfg.batch_size
             resp = send_status(Progress(kind=ProgressKind.STATUS, job_id=spec.job_id,
@@ -941,6 +1001,9 @@ def run_training(
             if countdown is not None:
                 if countdown <= 0:
                     countdown = None
+                    # The round's last loss may still be deferred: it goes
+                    # into round_losses before the sync reports them.
+                    flush_pending_loss()
                     if stream_state is not None:
                         begin_stream_sync()
                     elif not (do_update_sharded() if shard_map is not None else do_update()):
@@ -950,12 +1013,15 @@ def run_training(
             if max_batches is not None and result.batches >= max_batches:
                 log.warning("max_batches=%d reached; stopping", max_batches)
                 break
+        flush_pending_loss()
     finally:
+        # Stops the prefetch thread now, before the bridge goes away.
         stream.close()
         if stream_state is not None:
             stream_state.abort()
     log.info("training done: %d rounds, %d batches, %.1fs, last loss %.4f",
              result.rounds, result.batches, time.monotonic() - t0, result.last_loss)
+    log.info("data metrics: %s", json.dumps(DATA_METRICS.snapshot()))
     if stream_state is not None:
         # Inner-step seconds (the loss read included) with a sync in
         # flight and without: what the overlap costs the steps.

@@ -30,7 +30,8 @@ __all__ = [
     "HealthRequest", "HealthResponse", "InferExecutorConfig", "JobSpec",
     "JobStatus", "Loss", "LRScheduler", "LRSchedulerKind", "ModelType", "Nesterov",
     "BlockChain", "BlockPull", "MigrateAck", "MigrateRequest",
-    "PriceRange", "Progress", "ProgressKind", "ProgressResponse", "ProgressResponseKind",
+    "Preprocessor", "PriceRange", "Progress", "ProgressKind", "ProgressResponse",
+    "ProgressResponseKind",
     "Receive", "Reference", "RenewLease", "RenewLeaseResponse", "RequestWorker",
     "SchedulerHello", "Send", "ServeLoad", "ServeLoadAck", "ShardMap", "TrainExecutorConfig",
     "TransferStrategy", "WeightFollow",
@@ -181,6 +182,18 @@ class ModelType(enum.Enum):
     MASK_GENERATION = "mask-generation"
     TIME_SERIES_PREDICTION = "time-series-prediction"
     PRETRAINING = "pretraining"
+
+
+@_enum
+class Preprocessor(enum.Enum):
+    """HF Auto preprocessor selector (``TrainExecutorConfig.preprocessor``'s
+    ``kind``; ``executor/preprocess.py``)."""
+
+    TOKENIZER = "tokenizer"
+    IMAGE_PROCESSOR = "image-processor"
+    FEATURE_EXTRACTOR = "feature-extractor"
+    PROCESSOR = "processor"
+    VIDEO_PROCESSOR = "video-processor"
 
 
 @_enum

@@ -18,7 +18,8 @@ tree reduce (``reduce_group_size``, ``reduce_tree_depth``) and its
 broadcast tree (``broadcast_tree``), serving followers (``serve_peers``),
 WAN-adaptive rounds (``adaptive_steps``, ``adaptive_codec`` and its
 ``codec_bw_hi_mbps`` / ``codec_bw_lo_mbps``), LoRA fine-tuning (``lora``,
-which the trainer reads), and, with any of them, fault
+which the trainer reads), slice preprocessors (``preprocessor``), the input
+pipeline (``input_pipeline``, ``prefetch_slices``), and, with any of them, fault
 tolerance (``ft``, an ``FTConfig``), checkpoints (``checkpoint_dir``,
 ``checkpoint_every``, ``ps_checkpoint_every_rounds``) and the scheduler's
 own crash recovery (``scheduler_recovery``, which needs both).
@@ -46,7 +47,6 @@ __all__ = ["DiLoCoRounds", "JobResources", "DiLoCoJob", "CODECS", "SYNC_MODES"]
 _NOT_PORTED = (
     ("metrics_plane", (False,), "telemetry"),
     ("slo_rules", ([],), "telemetry"),
-    ("input_pipeline", (False,), "input_pipeline"),
     ("sharding", (None,), "intra-replica sharding"),
 )
 

@@ -95,6 +95,7 @@ from pathlib import Path
 from typing import Any
 
 from .. import aio, messages
+from ..executor import DEFAULT_PREFETCH_SLICES
 from ..ft.adaptive import StragglerController
 from ..ft.detector import PhiAccrualDetector
 from ..ft.durable import DEFAULT_ADOPT_DEADLINE_S, DEFAULT_ADOPT_GRACE_S, DurableScheduler
@@ -420,6 +421,11 @@ class Orchestrator:
         if tree_on:
             results_peers += [a for a in ancestors_of(ctx.reduce_groups, handle.peer_id)
                               if a not in results_peers]
+        # The input pipeline's window, resolved here so the trainer's
+        # prefetcher, the fetch reference and the data scheduler's slice
+        # retirement see one number. None (the pipeline off) stamps no field.
+        prefetch_depth = ((job.prefetch_slices or DEFAULT_PREFETCH_SLICES)
+                          if job.input_pipeline else None)
         return JobSpec(
             job_id=f"{ctx.base_id}-{suffix}",
             executor=Executor(
@@ -427,7 +433,8 @@ class Orchestrator:
                 name=TRAIN_EXECUTOR_NAME,
                 train=TrainExecutorConfig(
                     model=job.model,
-                    data=Fetch(Reference.from_scheduler(self.node.peer_id, job.dataset)),
+                    data=Fetch(Reference.from_scheduler(self.node.peer_id, job.dataset,
+                                                        prefetch=prefetch_depth)),
                     updates=Send(Reference.from_peers([ps_peers[0]], ctx.updates_tag)),
                     results=Receive(Reference.from_peers(results_peers, ctx.results_tag)),
                     ps_shards=ctx.shard_map,
@@ -450,6 +457,8 @@ class Orchestrator:
                     # this long across a scheduler outage (None: recovery
                     # off, no new wire field).
                     adopt_grace_s=ctx.adopt_grace,
+                    input_pipeline=True if prefetch_depth is not None else None,
+                    prefetch_slices=prefetch_depth,
                     checkpoint=({"dir": f"{job.checkpoint_dir}/{handle.peer_id}",
                                  "every_rounds": job.checkpoint_every}
                                 if job.checkpoint_dir else None),

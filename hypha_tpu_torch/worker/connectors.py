@@ -7,7 +7,11 @@
     copied);
   * ``scheduler`` — the scheduler-mediated slice pull: a ``DataRequest``
     to the scheduler names a data node and an index, then the slice is
-    pulled from that node over a pull stream;
+    pulled from that node over a pull stream. A pipelined job's reference
+    carries its ``prefetch`` window, which the request forwards (the
+    scheduler then holds that many slices for the worker and stamps the
+    epoch on its answer); such a fetch lands under an epoch-unique name and
+    is served from, and fills, the worker's on-disk ``SliceCache``;
   * ``peers`` — ``send`` pushes a file to the reference's peers (ALL:
     every peer must get it; ANY: the first success wins), with the
     caller's ``meta`` on the push header and a jittered re-push across a
@@ -19,10 +23,9 @@
 sharded parameter service: the owning shard under its updates tag, behind
 the group's reducer with ANY failover when the job reduces in a tree.
 
-Not ported: the on-disk slice cache of pipelined jobs (a ``prefetch``
-window; ROADMAP.md, Queue 1: input_pipeline), HuggingFace Hub downloads
-(HF Hub) and the data-plane byte counters (telemetry). Each raises
-``NotImplementedError`` naming its label.
+The bytes each slice pull moves count into ``DATA_METRICS.bytes_pulled``.
+Not ported: HuggingFace Hub downloads, which raise ``NotImplementedError``
+naming **HF Hub** (ROADMAP.md, Queue 1).
 
 Received file names are SHA-256-hashed before hitting the filesystem
 (``_safe_name``), matching the reference's path-injection defense.
@@ -52,6 +55,7 @@ from ..messages import (
     TransferStrategy,
 )
 from ..network.node import PushStream, RequestError
+from ..telemetry.ft_metrics import DATA_METRICS
 
 __all__ = ["Connector", "ReceivedFile", "fetch_uri", "push_timeout", "shard_route"]
 
@@ -145,16 +149,14 @@ def fetch_uri(uri: str, dest_dir: Path) -> Path:
 class Connector:
     """Routes Reference variants to transports. ``node`` is the fabric's
     :class:`~hypha_tpu_torch.network.node.Node`; without one only the
-    ``uri`` fetch works."""
+    ``uri`` fetch works. ``slice_cache`` (a
+    :class:`~hypha_tpu_torch.worker.slice_cache.SliceCache`, optional) backs
+    the slice fetches of pipelined jobs."""
 
     def __init__(self, node=None, scheduler_peer: str = "", slice_cache=None) -> None:
-        if slice_cache is not None:
-            raise NotImplementedError(
-                "the on-disk slice cache of pipelined jobs is not ported to PyTorch yet "
-                "(ROADMAP.md, Queue 1: input_pipeline)"
-            )
         self.node = node
         self.scheduler_peer = scheduler_peer
+        self.slice_cache = slice_cache
 
     def _fabric(self, what: str):
         if self.node is None:
@@ -180,18 +182,20 @@ class Connector:
         raise ValueError(f"unknown fetch variant {variant}")
 
     async def _fetch_slice(self, ref: Reference, dest_dir: Path) -> Path:
-        """Scheduler-mediated slice fetch: ask for an assignment, pull it."""
+        """Scheduler-mediated slice fetch: ask for an assignment, pull it.
+
+        A pipelined job's fetch (``ref.prefetch`` set) forwards its window,
+        names the file by the answer's epoch (the trainer may still be
+        reading this index's file of the previous epoch), and is served
+        from the slice cache, or fills it, around the network pull."""
         node = self._fabric("a scheduler-assigned slice fetch")
-        if ref.prefetch is not None:
-            raise NotImplementedError(
-                f"a slice prefetch window (prefetch={ref.prefetch}) is not ported to "
-                "PyTorch yet (ROADMAP.md, Queue 1: input_pipeline)"
-            )
         scheduler = ref.scheduler_peer or self.scheduler_peer
         if not scheduler:
             raise ValueError("no scheduler peer for slice fetch")
+        dataset = ref.dataset or ""
         resp = await node.request(
-            scheduler, PROTOCOL_API, DataRequest(dataset=ref.dataset or "", peer_id=node.peer_id),
+            scheduler, PROTOCOL_API,
+            DataRequest(dataset=dataset, peer_id=node.peer_id, prefetch=ref.prefetch),
         )
         if not isinstance(resp, DataResponse):
             raise RequestError(f"unexpected data response {resp!r}")
@@ -199,9 +203,13 @@ class Connector:
         stem = _safe_name(ref.dataset or "slice")
         dest = (dest_dir / f"{stem}-e{resp.epoch}-{resp.index:06d}" if resp.epoch is not None
                 else dest_dir / f"{stem}-{resp.index:06d}")
-        stream = await node.pull(resp.data_provider,
-                                 DataSlice(dataset=ref.dataset or "", index=resp.index))
+        cache = self.slice_cache if ref.prefetch is not None and resp.epoch is not None else None
+        if cache is not None and await asyncio.to_thread(cache.get, dataset, resp.epoch,
+                                                         resp.index, dest):
+            return dest
+        stream = await node.pull(resp.data_provider, DataSlice(dataset=dataset, index=resp.index))
         loop = asyncio.get_running_loop()
+        pulled = 0
         try:
             f = await asyncio.to_thread(open, dest, "wb")
             try:
@@ -209,11 +217,19 @@ class Connector:
                     chunk = await stream.read(1 << 20)
                     if not chunk:
                         break
+                    pulled += len(chunk)
                     await loop.run_in_executor(None, f.write, chunk)
             finally:
                 await asyncio.to_thread(f.close)
+        except BaseException:
+            # A pull cut short (the data node died) leaves no partial slice.
+            dest.unlink(missing_ok=True)
+            raise
         finally:
             await stream.close()
+        DATA_METRICS.bytes_pulled.add(pulled)
+        if cache is not None:
+            await asyncio.to_thread(cache.put, dataset, resp.epoch, resp.index, dest)
         return dest
 
     # --------------------------------------------------------------- send

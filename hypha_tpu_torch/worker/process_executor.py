@@ -23,8 +23,9 @@ a :class:`~hypha_tpu_torch.stream.reduce.GroupReducer` runs beside the
 process, in the node's event loop and on its device (it consumes the
 node's pushes), and stops when the process ends.
 
-Not ported: the slice cache the reference starts beside the process
-(ROADMAP.md, Queue 1: input_pipeline).
+The bridge's connector serves the slice fetches of pipelined jobs from an
+on-disk :class:`~hypha_tpu_torch.worker.slice_cache.SliceCache` under
+``work_root / "slice-cache"``, which outlives each job's work dir.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from ..stream.reduce import maybe_start_reducer
 from .bridge import Bridge
 from .connectors import Connector
 from .job_manager import Execution, JobExecutor
+from .slice_cache import SliceCache
 
 __all__ = ["ProcessExecutor", "GRACE_S"]
 
@@ -83,7 +85,8 @@ class ProcessExecutor(JobExecutor):
 
         try:
             bridge = Bridge(self.node, work_dir, job_id, scheduler_peer,
-                            Connector(self.node, scheduler_peer),
+                            Connector(self.node, scheduler_peer,
+                                      slice_cache=SliceCache(Path(self.work_root) / "slice-cache")),
                             status_retry_s=grace, progress_probe=probe)
             socket_path = await bridge.start()
         except BaseException:

@@ -13,9 +13,13 @@ A worker its job names its group's reducer (``reduce_members``) runs a
 :class:`~hypha_tpu_torch.stream.reduce.GroupReducer` beside the loop, in
 the node's event loop and on its device, stopped with the job.
 
+The bridge's connector serves the slice fetches of pipelined jobs from an
+on-disk :class:`~hypha_tpu_torch.worker.slice_cache.SliceCache` under
+``work_root / "slice-cache"``, which outlives each job's work dir.
+
 Not ported: the metrics reporter the reference starts beside the loop
-(ROADMAP.md, Queue 1: telemetry) and the slice cache (input_pipeline); a
-job asking for them raises inside ``run_training``.
+(ROADMAP.md, Queue 1: telemetry); a job asking for it raises inside
+``run_training``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from ..stream.reduce import maybe_start_reducer
 from .bridge import Bridge
 from .connectors import Connector
 from .job_manager import Execution, JobExecutor
+from .slice_cache import SliceCache
 
 __all__ = ["InProcessTrainExecutor"]
 
@@ -62,7 +67,8 @@ class InProcessTrainExecutor(JobExecutor):
 
         try:
             bridge = Bridge(self.node, work_dir, job_id, scheduler_peer,
-                            Connector(self.node, scheduler_peer),
+                            Connector(self.node, scheduler_peer,
+                                      slice_cache=SliceCache(self.work_root / "slice-cache")),
                             status_retry_s=grace, progress_probe=probe)
             socket_path = await bridge.start()
         except BaseException:

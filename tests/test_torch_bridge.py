@@ -337,11 +337,13 @@ def test_port_connector_routes(tmp_path):
             await conn.send(tmsg.Send(peers), src, "updates")
         with pytest.raises(ValueError, match="fabric's Node"):
             conn.receive(tmsg.Receive(peers), tmp_path)
-        # The unported pieces name their ROADMAP.md labels.
-        with pytest.raises(NotImplementedError, match="input_pipeline"):
-            TConnector(None, "s", slice_cache=object())
-        with pytest.raises(NotImplementedError, match="input_pipeline"):
-            await TConnector(object(), "s").fetch(
+        # A slice cache is accepted, and a pipelined fetch (a prefetch
+        # window) takes the scheduler path as any other
+        # (tests/test_torch_data_pipeline.py pulls through it).
+        cache = object()
+        assert TConnector(None, "s", slice_cache=cache).slice_cache is cache
+        with pytest.raises(ValueError, match="fabric's Node"):
+            await TConnector(None, "s", slice_cache=cache).fetch(
                 tmsg.Fetch(tmsg.Reference.from_scheduler("s", "d", prefetch=2)), tmp_path)
         # shard_route runs now (tests/test_torch_shard.py holds it to the
         # reference's); an empty placement is refused as there.

@@ -1950,3 +1950,117 @@ def test_chunked_ce_on_the_card_matches_the_full_ce(cuda):
     (lf, gf), (lc, gc) = out["full"], out["chunked"]
     assert float((lc - lf).abs() / lf.abs()) <= 1e-5
     assert float((gc - gf).abs().max() / gf.abs().max()) <= 1e-5
+
+
+# ------------------------------------------------- the input pipeline on the card
+
+
+def test_pipelined_trainer_on_the_card_equals_the_sync_trainer(cuda, tmp_path):
+    """``run_training`` at 1 layer (the tiny Llama at hidden 256, bf16
+    through the flash kernels) with the input pipeline off and on: the same
+    losses float for float, the same flash launches, and every batch the
+    step saw on the card equal to the host batch it was copied from (pinned,
+    without blocking)."""
+    import queue
+    import shutil
+    from contextlib import contextmanager
+
+    import hypha_tpu_torch.executor.training as training
+    from hypha_tpu_torch import messages as m
+    from hypha_tpu_torch.executor.dataset import batches, slice_samples
+    from hypha_tpu_torch.executor.serialization import load_file, save_file
+    from hypha_tpu_torch.ops.flash_attention import flash_attention
+
+    seq, sizes = 128, (4, 3, 5, 4)
+    g = torch.Generator().manual_seed(3)
+    src = []
+    for i, n in enumerate(sizes):
+        path = tmp_path / f"src{i}.safetensors"
+        start = torch.randint(0, 256, (n, 1), generator=g)  # the tiny vocabulary
+        save_file({"input_ids": ((start + torch.arange(seq)) % 256).to(torch.int32)}, path)
+        src.append(path)
+
+    class Session:
+        """Scheduler and server stand-ins: 2 rounds of 3 steps; each fetch
+        copies the next slice in (the pipeline deletes what it read); the
+        update is 0.5 x Δθ."""
+
+        def __init__(self, work):
+            self.work, self.fetches, self.done, self.batches = work, 0, 0, 0
+            self.scheduled, self.events = False, queue.Queue()
+            (work / "artifacts").mkdir(parents=True)
+
+        def fetch(self, ref):
+            dest = self.work / "artifacts" / f"slice{self.fetches}.safetensors"
+            shutil.copyfile(src[self.fetches % len(src)], dest)
+            self.fetches += 1
+            return [f"artifacts/{dest.name}"]
+
+        def send_status(self, progress):
+            K, R, RK = m.ProgressKind, m.ProgressResponse, m.ProgressResponseKind
+            if progress.kind == K.STATUS:
+                if self.done >= 2:
+                    return R(kind=RK.DONE)
+                self.batches += 1
+                if not self.scheduled and self.batches >= 3:
+                    self.scheduled = True
+                    return R(kind=RK.SCHEDULE_UPDATE, counter=0)
+                return R(kind=RK.CONTINUE)
+            if progress.kind == K.UPDATE_RECEIVED:
+                self.done, self.batches, self.scheduled = self.done + 1, 0, False
+                return R(kind=RK.DONE if self.done >= 2 else RK.CONTINUE)
+            return R(kind=RK.OK)
+
+        def send_resource(self, send, path, resource="updates", meta=None):
+            out = self.work / f"update-{meta['round']}.safetensors"
+            save_file({k: 0.5 * v for k, v in load_file(self.work / path).items()}, out)
+            self.events.put({"path": out.name, "meta": {"round": meta["round"]}})
+
+        @contextmanager
+        def receive(self, ref):
+            yield iter(lambda: self.events.get(timeout=60), None)
+
+    seen: list = []
+    make = training.make_train_step
+
+    def recording(model, optimizer, loss):
+        step = make(model, optimizer, loss)
+
+        def wrapped(batch):
+            assert batch["input_ids"].is_cuda
+            seen.append(batch["input_ids"].to("cpu", copy=True))
+            return step(batch)
+        return wrapped
+
+    def run(name, **over):
+        seen.clear()
+        flash_attention.fwd_launches = flash_attention.dq_launches = 0
+        flash_attention.dkv_launches = flash_attention.plain_calls = 0
+        spec = m.JobSpec(job_id=name, executor=m.Executor("train", "diloco-transformer",
+            train=m.TrainExecutorConfig(
+                model={"model_type": "causal-lm", "family": "llama", "preset": "tiny",
+                       "config": {"hidden_size": 256, "num_layers": 1}, "seed": 0},
+                data=m.Fetch(m.Reference.from_uri("file:///slices")),
+                updates=m.Send(m.Reference.from_peers(["ps"], "updates")),
+                results=m.Receive(m.Reference.from_peers(["ps"], "results")),
+                optimizer=m.Adam(lr=1e-3), batch_size=2, **over)))
+        work = tmp_path / name
+        result = training.run_training(Session(work), work, spec)
+        launches = (flash_attention.fwd_launches, flash_attention.dq_launches,
+                    flash_attention.dkv_launches, flash_attention.plain_calls)
+        return result, launches, list(seen)
+
+    training.make_train_step = recording
+    try:
+        sync, sync_launches, sync_seen = run("sync")
+        piped, piped_launches, piped_seen = run("piped", input_pipeline=True, prefetch_slices=2)
+    finally:
+        training.make_train_step = make
+    want = list(batches((s for p in src * 2 for s in slice_samples(p)), 2))[:6]
+    assert sync.batches == piped.batches == 6 and piped.rounds == 2
+    assert piped.losses == sync.losses and all(np.isfinite(piped.losses))
+    assert piped_launches == sync_launches == (6, 6, 6, 0)  # 1 layer, 6 steps
+    for got in (sync_seen, piped_seen):
+        assert len(got) == 6
+        for a, b in zip(got, want):
+            assert torch.equal(a, b["input_ids"])

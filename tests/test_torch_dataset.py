@@ -57,7 +57,23 @@ def test_slice_batches_match(tmp_path):
 
 
 def test_unported_stream_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="input_pipeline"):
-        T.stream_batches(lambda: "", 2, pipeline=True)
-    with pytest.raises(NotImplementedError, match="preprocessor"):
-        T.stream_batches(lambda: "", 2, preprocessor=lambda t: t)
+    """The pipeline and the preprocessor hook, refused until they were
+    ported, run: a pipelined stream with a preprocessor gives the JAX
+    package's batches (tests/test_torch_data_pipeline.py and
+    tests/test_torch_preprocess.py hold the rest)."""
+    paths = _slices(tmp_path)
+
+    def fetcher():
+        it = iter(paths * 2)
+        return lambda: next(it)
+
+    def double(tensors):  # both packages: every tensor times two
+        return {k: v * 2 for k, v in tensors.items()}
+
+    js = J.stream_batches(fetcher(), 4, ["input_ids"], double)
+    ts = T.stream_batches(fetcher(), 4, ["input_ids"], double, pipeline=True, prefetch=2)
+    try:
+        for _ in range(sum((5, 3, 7, 2)) * 2 // 4):
+            _same(next(js), next(ts))
+    finally:
+        ts.close()

@@ -53,7 +53,10 @@ def _port_files():
                  "hypha_tpu_torch/network/secure.py", "hypha_tpu_torch/network/mux.py",
                  "hypha_tpu_torch/ft/membership.py", "hypha_tpu_torch/ft/rejoin.py",
                  "hypha_tpu_torch/ft/durable.py", "hypha_tpu_torch/ft/chaos.py",
-                 "hypha_tpu_torch/executor/checkpoint.py"):
+                 "hypha_tpu_torch/executor/checkpoint.py",
+                 "hypha_tpu_torch/executor/preprocess.py",
+                 "hypha_tpu_torch/worker/slice_cache.py",
+                 "hypha_tpu_torch/telemetry/ft_metrics.py"):
         assert must in rel, must
     return files
 
@@ -78,21 +81,40 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert not bad, bad
 
 
+def test_transformers_is_imported_only_inside_the_processor_loader():
+    """``transformers`` (HF processors: host-side text and image transforms)
+    is the one package a job may need beyond torch: only a job with a
+    ``preprocessor`` imports it, inside ``preprocess.load_processor``."""
+    sites = []
+    for p in _port_files():
+        tree = ast.parse(p.read_text(), filename=str(p))
+        inside = {id(n) for f in ast.walk(tree)
+                  if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+                  for n in ast.walk(f)}
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            if any(n.split(".")[0] == "transformers" for n in names):
+                sites.append((str(p.relative_to(ROOT)), id(node) in inside))
+    assert sites == [("hypha_tpu_torch/executor/preprocess.py", True)], sites
+
+
 def test_refusals_name_the_current_roadmap_label():
     """Codecs and streaming, the serving router, the prefix cache, the
     fleet cache with KV migration, mTLS, mux, the process executor's
     command, checkpoint resume, the fault tolerance of sharded and
     streaming jobs, the broadcast tree, live weight swap, adaptive rounds
     with the data-plane chaos kinds, scheduler recovery, LoRA, the bf16
-    first moment and HF checkpoints as initial weights are ported: no
-    module refuses an option under a label that named them (Hub downloads
-    stay refused as HF Hub)."""
+    first moment, HF checkpoints as initial weights, the input pipeline
+    and slice preprocessors are ported: no module refuses an option under
+    a label that named them (Hub downloads stay refused as HF Hub)."""
     retired = ("codecs/streaming", "serving router", "prefix cache with copy_blocks",
                "fleet cache and kv migration", "queue 1: mtls", "queue 1: network/mux.py",
                "queue 1: process executor command", "queue 1: checkpoint resume",
                "sharded ps/ft/rejoin", "queue 1: broadcast tree", "queue 1: live weight swap",
                "adaptive rounds and chaos kinds", "queue 1: scheduler recovery",
-               "queue 1: lora", "queue 1: mu_dtype", "queue 1: hf checkpoints")
+               "queue 1: lora", "queue 1: mu_dtype", "queue 1: hf checkpoints",
+               "queue 1: input_pipeline", "queue 1: preprocessor")
     stale = [f"{p.relative_to(ROOT)}:{i}" for p in _port_files()
              for i, line in enumerate(p.read_text().splitlines(), 1)
              if any(label in line.lower() for label in retired)]

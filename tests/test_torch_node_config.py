@@ -239,7 +239,6 @@ UNPORTED = {
     "spec layers": ("scheduler", {**SERVE, "job.serve_spec_layers": 1}, "speculative decoding"),
     "fixed-slot pool": ("scheduler", {**SERVE, "job.serve_block_size": 0},
                         "fixed-slot pool mode"),
-    "input pipeline": ("scheduler", {"job.input_pipeline": True}, "input_pipeline"),
     "sharding": ("scheduler", {"job.sharding": {"tp": 2}}, "intra-replica sharding"),
 }
 
@@ -259,12 +258,14 @@ def test_unported_option_raises_with_its_label(case, tmp_path):
         tbuilt.validate()
 
 
-# Elastic rounds and a checkpoint_dir with stream sync: both packages
+# Elastic rounds, a checkpoint_dir and the input pipeline with stream sync: both packages
 # validate the section and build the same job (bytes equal but for the
 # accelerator key of the resources: the port sells gpu).
 LIFTED = {
     "quorum": {"job.quorum_fraction": 0.5, "job.sync_mode": "stream"},
     "checkpoint": {"job.checkpoint_dir": "/tmp/ck", "job.sync_mode": "stream"},
+    "input pipeline": {"job.input_pipeline": True, "job.prefetch_slices": 3,
+                       "job.sync_mode": "stream"},
 }
 
 

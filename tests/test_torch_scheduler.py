@@ -223,8 +223,12 @@ def test_data_scheduler_assigns_the_same_slices(seed):
             continue
         assert t.assign(peer) == j.assign(peer)
         assert t.held_of(peer) == j.held_of(peer)
-    with pytest.raises(NotImplementedError, match="input_pipeline"):
-        t.assign("w0", prefetch=2)
+    # A prefetch window (the input pipeline) holds that many slices alike.
+    for _ in range(30):
+        peer, window = f"w{int(rng.integers(0, 3))}", int(rng.integers(1, 4))
+        assert t.assign(peer, prefetch=window) == j.assign(peer, prefetch=window)
+        assert t.held_of(peer) == j.held_of(peer)
+        assert t.tracker.epoch == j.tracker.epoch
 
 
 # -- progress tracker ---------------------------------------------------------
@@ -704,6 +708,9 @@ STREAM_OPTIONS = {
     "delta_codec": {"delta_codec": "int8"},
     "delta_dtype": {"delta_dtype": "bfloat16"},
     "stream": {"sync_mode": "stream", "num_fragments": 2, "delta_codec": "int4"},
+    "input_pipeline": {"input_pipeline": True, "prefetch_slices": 3},
+    "input_pipeline_default_depth": {"input_pipeline": True},
+    "preprocessor": {"preprocessor": {"kind": "tokenizer", "inputs": ["text"]}},
 }
 
 
@@ -720,6 +727,12 @@ def test_stream_and_codec_options_dispatch_as_the_jax_wire(option):
     assert train.fragments == agg.fragments == over.get("num_fragments", 0)
     assert train.delta_codec == agg.delta_codec == over.get("delta_codec", "none")
     assert train.delta_dtype == over.get("delta_dtype", "float32")
+    # The input pipeline's window: the job's depth, or the default for 0,
+    # on the trainer's config and its fetch reference alike; None when off.
+    depth = (over.get("prefetch_slices") or 2) if over.get("input_pipeline") else None
+    assert (train.prefetch_slices, train.data.ref.prefetch) == (depth, depth)
+    assert train.input_pipeline is (True if depth else None)
+    assert train.preprocessor == over.get("preprocessor")
 
 
 # Each option outside the port's path, set to a value the reference
@@ -727,7 +740,6 @@ def test_stream_and_codec_options_dispatch_as_the_jax_wire(option):
 UNPORTED = {
     "metrics_plane": (True, "telemetry"),
     "slo_rules": (["round_wall_s <= 30"], "telemetry"),
-    "input_pipeline": (True, "input_pipeline"),
     "sharding": ({"dp": 1}, "intra-replica sharding"),
 }
 
@@ -744,8 +756,9 @@ def test_unported_job_option_raises_with_its_label(option):
 
 # Fault tolerance with a streaming sync mode, several shards or a reduce
 # group (each refused until fault tolerance reached them), the broadcast
-# tree and serving followers (refused until they were ported): both
-# packages build the job, and it encodes to the same bytes.
+# tree, serving followers, the input pipeline and preprocessors (refused
+# until they were ported): both packages build the job, and it encodes to
+# the same bytes.
 LIFTED = {
     "scheduler_recovery": {"scheduler_recovery": True, "checkpoint_dir": "/ckpt", "ft": "on"},
     "adaptive_steps": {"adaptive_steps": True, "ft": "on"},
@@ -760,6 +773,8 @@ LIFTED = {
     "reduce_tree_depth": {"reduce_tree_depth": 2, "reduce_group_size": 2,
                           "checkpoint_dir": "/ckpt"},
     "lora": {"lora": {"rank": 16, "alpha": 32.0, "targets": ["q_proj", "v_proj"]}},
+    "input_pipeline": {"input_pipeline": True, "prefetch_slices": 3},
+    "preprocessor": {"preprocessor": {"kind": "tokenizer", "inputs": ["text"]}},
 }
 
 

@@ -176,9 +176,11 @@ def test_relay_results_trains_as_the_reference(tmp_path, weights):
     {"sharding": {"fsdp": 2}},
     # checkpoint and rejoin run in every sync mode and placement
     # (tests/test_torch_shard_ft.py::test_lifted_trainer_option_runs);
-    # relay_results runs (test_relay_results_trains_as_the_reference).
-    {"input_pipeline": True},
-    {"preprocessor": {"kind": "tokenizer"}},
+    # relay_results runs (test_relay_results_trains_as_the_reference);
+    # input_pipeline and preprocessor run (tests/test_torch_data_pipeline.py,
+    # tests/test_torch_preprocess.py).
+    {"sharding": {"tp": 2}},
+    {"sharding": {"sp": 2}},
     {"report_metrics_s": 1.0},
     {"model": "gpt2"},
 ])
