@@ -258,7 +258,7 @@ Phases, each printing one JSON line:
    ``SHARD_S_OPTIONS`` with ``FTConfig`` (quorum 0.5, deadline 70 s, one
    shard restart), durable shards under ``<checkpoint_dir>/ps<k>``
    checkpointed every 2 of their own commits, trainer checkpoints at the
-   last of 6 rounds of ``STREAM_STEPS``, the reducer's flush timer at 2 s
+   last of 4 rounds of ``STREAM_STEPS``, the reducer's flush timer at 2 s
    (``SHARD_FT_FLUSH_S``); ``SHARD_FT_CHAOS``: group member
    ``w2`` killed once shard 1 journaled the round-1 partial covering it,
    a spare ``w3`` caught up through one catch-up per shard; shard 1's
@@ -957,10 +957,15 @@ class ServeNet:
     port of 127.0.0.1; each worker offering its whole GPU from a work root
     of its own under ``root/work``, with ``--device`` when given; the
     scheduler running ``job``), each logging to ``root/<role>.log``, and a
-    client ``Node`` bootstrapped at the gateway."""
+    client ``Node`` bootstrapped at the gateway. With ``trace_dir`` each
+    process traces there under its role's name (``HYPHA_TRACE_DIR``,
+    ``HYPHA_TRACE_NODE``); with ``otlp`` each exports to that endpoint
+    (``telemetry.endpoint``)."""
 
-    def __init__(self, root: Path, job: dict, workers: dict, device: "str | None") -> None:
+    def __init__(self, root: Path, job: dict, workers: dict, device: "str | None",
+                 trace_dir: "Path | None" = None, otlp: "str | None" = None) -> None:
         self.root, self.job, self.device = root, job, device
+        self.trace_dir, self.otlp = trace_dir, otlp
         self.workers = workers  # role -> worker name
         self.roles = ("gateway", *workers, "scheduler")
         self.repo = os.path.dirname(os.path.abspath(__file__))
@@ -994,13 +999,19 @@ class ServeNet:
                         "network.gateways": [gateway]}
                 flags = ["--name", self.workers[role]] + (
                     ["--device", self.device] if self.device else [])
+            env = self.env
+            if self.trace_dir is not None:
+                env = {**env, "HYPHA_TRACE_DIR": str(self.trace_dir),
+                       "HYPHA_TRACE_NODE": self.workers.get(role, role)}
+            if self.otlp is not None:
+                sets = {**sets, "telemetry.endpoint": self.otlp}
             args = [*self.cli, kind, "run", "-c", str(self.root / f"{kind}.toml"), *flags]
             for key, value in sets.items():
                 args += ["--set", f"{key}={_toml_value(value)}"]
             self.logs[role] = self.root / f"{role}.log"
             self.files.append(open(self.logs[role], "wb"))
             self.procs[role] = await asyncio.create_subprocess_exec(
-                *args, stdout=self.files[-1], stderr=subprocess.STDOUT, env=self.env,
+                *args, stdout=self.files[-1], stderr=subprocess.STDOUT, env=env,
                 cwd=self.repo)
             if role == "gateway":
                 await _wait_for_text(self.logs[role], "gateway gateway on", self.procs[role],
@@ -1332,6 +1343,344 @@ def serve_prefix_phase(model) -> dict:
     return res
 
 
+# ------------------------------------------------ tracing three phases
+
+# serve_router, train_data (b) and train_het run traced (``traced_phase``):
+# the smoke process's spans (its in-process scheduler and servers) through
+# ``trace.enable``, the trainer processes' through the trace directory their
+# executor hands them, the CLI processes' through ``HYPHA_TRACE_DIR`` and
+# ``HYPHA_TRACE_NODE``; the flight ring spills into the same directory. Each
+# phase prints its merged timeline (``render_text``) and holds the spans to
+# its own gates; no later phase runs traced.
+SPAN_COST_N = 10_000  # spans timed for the cost of one begin + finish
+SPAN_COST_BUDGET = 0.03  # the reference's tracing budget, a share of the round
+
+
+@contextmanager
+def traced_phase(name: str):
+    """Tracing on for one phase, under a fresh directory (yielded); off
+    again, the flight ring spilled there and disarmed, when it ends."""
+    from hypha_tpu_torch.telemetry import trace
+    from hypha_tpu_torch.telemetry.flight import FLIGHT
+
+    d = Path(tempfile.mkdtemp(prefix=f"htr-{name}-"))
+    FLIGHT.clear()
+    trace.enable(d, node="smoke")
+    FLIGHT.configure(node="smoke", spill_dir=d)
+    try:
+        yield d
+    finally:
+        FLIGHT.spill()
+        FLIGHT.disarm()
+        trace.disable()
+
+
+def span_cost_us(n: int = SPAN_COST_N) -> float:
+    """Microseconds per traced ``begin`` + ``finish`` (one file line each,
+    flushed), over ``n`` spans into a scratch directory."""
+    from hypha_tpu_torch.telemetry import trace
+
+    d = Path(tempfile.mkdtemp(prefix="htr-cost-"))
+    try:
+        trace.enable(d, node="cost")
+        parent = "ab" * 16 + "-" + "cd" * 8
+        t0 = time.perf_counter()
+        for i in range(n):
+            trace.finish(trace.begin("upload", parent=parent,
+                                     attrs={"round": i, "peer": "w1", "bytes": 1 << 28}))
+        seconds = time.perf_counter() - t0
+    finally:
+        trace.disable()
+        shutil.rmtree(d, ignore_errors=True)
+    return seconds / n * 1e6
+
+
+def trace_summary(d: Path, phase: str) -> dict:
+    """The merged timeline of a traced phase's directory, printed as text
+    (each line prefixed with the phase), and its counts: spans, events,
+    the files' bytes, the clock offsets."""
+    from hypha_tpu_torch.telemetry import timeline
+
+    tl = timeline.build_timeline(d)
+    for line in timeline.render_text(tl).splitlines():
+        print(f"[{phase} timeline] {line}", flush=True)
+    files = sorted(p for p in d.iterdir() if p.suffix == ".jsonl")
+    return dict(spans=tl["num_spans"], events=tl["num_events"],
+                files={p.name: p.stat().st_size for p in files},
+                bytes=sum(p.stat().st_size for p in files),
+                clock_offsets_s=tl["clock_offsets_s"], timeline=tl)
+
+
+def _dur_s(span: dict) -> float:
+    return (span["mono_end_ns"] - span["mono_start_ns"]) / 1e9
+
+
+def het_trace_problems(d: Path, run: dict, *, rounds: int, rate_mbps: float,
+                       capped: str = "w1") -> tuple:
+    """train_het's trace gates, on the CPU as on the card: (i) one ``round``
+    root a round; every trainer that sent the round a delta has its
+    ``inner_steps``, ``encode`` and ``upload`` in the round's trace, and
+    the server its ``quorum_wait``, ``outer_step``, ``broadcast`` and one
+    ``fold`` and one receiver ``upload`` (naming the sender) per delta;
+    (ii) each round's ``outer_step`` span within 10% or 50 ms of the
+    probe's ``outer_step_s``; (iii) ``capped``'s receiver uploads last at
+    least 0.9 x their bytes over ``rate_mbps``; (iv) the events hold the
+    chaos actions; (v) every process's wall clock within 1 s of the
+    scheduler's (``wall_skew_s``: a span's wall stamp less its monotonic
+    one, the same system-wide monotonic clock on one host), so the true
+    offsets are 0, and the merger's ``clock_offsets_s`` are what
+    ``round_lags_s`` says they must be: each node's offset is minus the
+    least, over rounds, of the time from the round's opening to the node's
+    first span of it (within 1 ms), and every round of a node begins within
+    1 s of the end of its spans of the round before. So the offset the
+    merger applies on one host is the previous round's close on that node
+    (the server's broadcast, a trainer's broadcast and merge), in both
+    packages, and nothing else. Returns (problems, figures)."""
+    from hypha_tpu_torch.telemetry import timeline
+
+    spans, events = timeline.load_dir(d)
+    tl = timeline.build_timeline(d)
+    problems = []
+    roots = [s for s in spans if s["name"] == "round"]
+    by_round = {s["attrs"].get("round"): s for s in roots}
+    if sorted(by_round) != list(range(rounds)) or len(roots) != rounds:
+        problems.append(f"(i) round roots {sorted(s['attrs'].get('round') for s in roots)}")
+    rec = run["rec"]
+    outer_probe = list(rec["outer_step_s"])
+    capped_uploads = []
+    for r in range(rounds):
+        root = by_round.get(r)
+        tid = root["trace_id"] if root else None
+        mine = [s for s in spans if (s.get("attrs") or {}).get("round") == r
+                and s["name"] != "round"]
+        senders = sorted({dl["from"] for dl in rec["deltas"] if dl["round"] == r})
+        for w in senders:
+            for name in ("inner_steps", "encode", "upload"):
+                got = [s for s in mine if s["node"] == w and s["name"] == name]
+                if len(got) != 1 or got[0]["trace_id"] != tid:
+                    problems.append(f"(i) round {r}: {w}'s {name} spans "
+                                    f"{[(s['trace_id'] == tid) for s in got]}")
+        server = [s for s in mine if s["node"] == "psw"]
+        for name in ("quorum_wait", "outer_step"):
+            got = [s for s in server if s["name"] == name]
+            if len(got) != 1 or got[0]["trace_id"] != tid:
+                problems.append(f"(i) round {r}: the server's {name} spans {len(got)}")
+        bcast = [s for s in server if s["name"] == "broadcast"]
+        if not bcast or any(s["trace_id"] != tid for s in bcast):
+            problems.append(f"(i) round {r}: {len(bcast)} broadcast spans, not all in the trace")
+        for name in ("fold", "upload"):
+            got = [s for s in server if s["name"] == name]
+            peers = sorted(s["attrs"].get("peer") for s in got)
+            if peers != senders or any(s["trace_id"] != tid for s in got):
+                problems.append(f"(i) round {r}: the server's {name} spans name {peers}, "
+                                f"deltas came from {senders}")
+        outer = [_dur_s(s) for s in server if s["name"] == "outer_step"]
+        if outer and r < len(outer_probe):
+            if abs(outer[0] - outer_probe[r]) > max(0.1 * outer_probe[r], 0.05):
+                problems.append(f"(ii) round {r}: outer_step span {outer[0]:.3f} s, probe "
+                                f"{outer_probe[r]:.3f} s")
+        for s in server:
+            if s["name"] == "upload" and s["attrs"].get("peer") == capped:
+                floor = 0.9 * s["attrs"].get("bytes", 0) * 8 / (rate_mbps * 1e6)
+                capped_uploads.append({"round": r, "s": _dur_s(s), "bytes": s["attrs"].get("bytes"),
+                                       "floor_s": floor})
+                if _dur_s(s) < floor:
+                    problems.append(f"(iii) round {r}: {capped}'s upload took {_dur_s(s):.3f} s "
+                                    f"for {s['attrs'].get('bytes')} bytes (floor {floor:.3f} s)")
+    if len(outer_probe) != rounds:
+        problems.append(f"(ii) {len(outer_probe)} probed outer steps for {rounds} rounds")
+    if not capped_uploads:
+        problems.append(f"(iii) no receiver upload span names {capped}")
+    fired = sorted((e["event"], e["node"]) for e in events if e["event"].startswith("chaos."))
+    want = sorted((f"chaos.{kind}", target) for kind, target, _ in run["chaos"])
+    if fired != want:
+        problems.append(f"(iv) chaos events {fired}, wanted {want}")
+    skew = wall_skew_s(spans)
+    far = {n: o for n, o in skew.items() if abs(o) >= 1.0}
+    if far or "scheduler" not in skew:
+        problems.append(f"(v) wall clocks off the scheduler's: {skew}")
+    lags = round_lags_s(spans)
+    offsets = tl["clock_offsets_s"]
+    if set(offsets) != set(lags) | {"scheduler"}:
+        problems.append(f"(v) the merger's offsets name {sorted(offsets)}, the spans "
+                        f"{sorted(lags)}")
+    for node, row in sorted(lags.items()):
+        if abs(offsets.get(node, 0.0) + row["lag_s"]) >= 1e-3:
+            problems.append(f"(v) {node}: the merger's offset {offsets.get(node)} s, its least "
+                            f"round-open lag {row['lag_s']:.6f} s")
+        late = {r: g for r, g in row["gaps_s"].items() if g >= 1.0}
+        if late:
+            problems.append(f"(v) {node}: rounds begin {late} s after its spans of the round "
+                            f"before end")
+    steady = [{k: row[k] for k in ("round", "wall_s", "straggler", "stall_span", "stall_peer",
+                                   "stall_s", "dominant", "dominant_peer", "upload_s_max",
+                                   "upload_s_second")}
+              for row in tl["rounds"] if row["round"] >= 1]
+    return problems, dict(capped_uploads=capped_uploads, chaos_events=fired, steady=steady,
+                          wall_skew_s=skew, clock_offsets_s=tl["clock_offsets_s"],
+                          round_lags_s=lags,
+                          spans_per_round=len([s for s in spans if "round" in (s.get("attrs") or {})])
+                          / max(rounds, 1))
+
+
+def round_lags_s(spans: list, ref: str = "scheduler") -> dict:
+    """For each node but ``ref``: ``lag_s``, the least over rounds of its
+    first span of a round less the start of ``ref``'s root span of that
+    round (what the merger anchors on), ``round``, the round that gives
+    it, and ``gaps_s``, for each round after the first, the node's first
+    span of it less the end of its last span of the round before, all on
+    the wall clock."""
+    opened = {s["attrs"]["round"]: s["start_ns"] for s in spans
+              if s["node"] == ref and s["name"] == "round"}
+    per: dict = {}
+    for s in spans:
+        r = (s.get("attrs") or {}).get("round")
+        if s["node"] != ref and r in opened:
+            first, last = per.setdefault(s["node"], {}).get(r, (None, None))
+            end = s["end_ns"] if isinstance(s.get("end_ns"), int) else s["start_ns"]
+            per[s["node"]][r] = (s["start_ns"] if first is None else min(first, s["start_ns"]),
+                                 end if last is None else max(last, end))
+    out = {}
+    for node, rounds in per.items():
+        r0 = min(rounds, key=lambda r: rounds[r][0] - opened[r])
+        out[node] = dict(lag_s=(rounds[r0][0] - opened[r0]) / 1e9, round=r0,
+                         gaps_s={r: (rounds[r][0] - rounds[r - 1][1]) / 1e9
+                                 for r in sorted(rounds) if r - 1 in rounds})
+    return out
+
+
+def wall_skew_s(spans: list, ref: str = "scheduler") -> dict:
+    """Each node's wall clock less ``ref``'s, in seconds: the median of its
+    spans' wall stamp less their monotonic one (one host's monotonic clock
+    is the same in every process), relative to ``ref``'s."""
+    per: dict = {}
+    for s in spans:
+        per.setdefault(s["node"], []).append(s["start_ns"] - s["mono_start_ns"])
+    base = statistics.median(per[ref]) if ref in per else None
+    return {n: (statistics.median(v) - base) / 1e9 for n, v in sorted(per.items())
+            if base is not None}
+
+
+def data_trace_problems(d: Path, rep: dict) -> tuple:
+    """train_data (b)'s trace gates: each trainer's ``input_wait`` spans as
+    many as the boundary waits of its ``data metrics`` line (the span wraps
+    exactly that wait), each in a round's trace but those that began before
+    the trainer's first ``encode`` (the job's first slices, fetched before
+    the scheduler handed down a round); and the longest wait."""
+    from hypha_tpu_torch.telemetry import timeline
+
+    spans, _ = timeline.load_dir(d)
+    rounds = {s["trace_id"] for s in spans if s["name"] == "round"}
+    problems, longest = [], {}
+    for peer, t in rep["trainers"].items():
+        waits = [s for s in spans if s["name"] == "input_wait" and s["node"] == peer]
+        want = (t["data_metrics"] or {}).get("boundary_waits")
+        if len(waits) != want:
+            problems.append(f"{peer}: {len(waits)} input_wait spans, {want} boundary waits")
+        encodes = [s["start_ns"] for s in spans if s["name"] == "encode" and s["node"] == peer]
+        first = min(encodes, default=None)
+        stray = [s for s in waits if s["trace_id"] not in rounds
+                 and (first is None or s["start_ns"] >= first)]
+        if stray or first is None:
+            problems.append(f"{peer}: {len(stray)} input_wait spans outside a round's trace "
+                            f"after its first encode")
+        if waits:
+            w = max(waits, key=_dur_s)
+            longest[peer] = {"s": _dur_s(w), "in_round_trace": w["trace_id"] in rounds,
+                             "before_first_encode": first is not None and w["start_ns"] < first}
+        longest[peer] = {**longest.get(peer, {}), "count": len(waits),
+                         "outside_round_trace": sum(s["trace_id"] not in rounds for s in waits)}
+    return problems, longest
+
+
+class OtlpCollector:
+    """A loopback OTLP/HTTP collector (``http.server`` on 127.0.0.1 in a
+    thread of this process): stores each POST's path and JSON."""
+
+    def __init__(self) -> None:
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        posts = self.posts = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers.get("content-length", 0)))
+                posts.append((self.path, json.loads(body)))
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.endpoint = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+
+    def services(self, path: str) -> dict:
+        """service.name -> the payloads posted to ``path`` by it."""
+        out: dict = {}
+        for p, payload in self.posts:
+            if p != path:
+                continue
+            for res in next(iter(payload.values())):
+                attrs = {a["key"]: next(iter(a["value"].values()))
+                         for a in res["resource"]["attributes"]}
+                out.setdefault(attrs.get("service.name"), []).append(res)
+        return out
+
+
+def router_trace_problems(d: Path, collector: OtlpCollector, *, answered: int,
+                          alive: tuple) -> tuple:
+    """serve_router's trace gates: (i) each answered request has a
+    ``route`` span on the scheduler whose trace holds a ``prefill`` span on
+    the worker that answered (the route's ``backend``); (ii) the killed
+    ``w1``'s spans read through its kill (a torn tail ends the file as a
+    clean EOF); (iii) the collector got the scheduler's ``serve_job`` span
+    on ``/v1/traces`` and ``hypha.bandwidth.inbound.bytes`` on
+    ``/v1/metrics`` from every node in ``alive``."""
+    from hypha_tpu_torch.telemetry import timeline
+
+    spans, _ = timeline.load_dir(d)
+    problems = []
+    routes = [s for s in spans if s["name"] == "route" and s["node"] == "scheduler"]
+    by_trace: dict = {}
+    for s in spans:
+        by_trace.setdefault(s["trace_id"], []).append(s)
+    served = [r for r in routes
+              if any(s["name"] == "prefill" and s["node"] == r["attrs"].get("backend")
+                     for s in by_trace[r["trace_id"]])]
+    if len(served) != answered:
+        problems.append(f"(i) {len(served)} route spans with the answering worker's prefill in "
+                        f"their trace ({len(routes)} routes), {answered} answers")
+    w1_path = d / "spans-w1.jsonl"
+    w1_lines = w1_path.read_text().splitlines() if w1_path.exists() else []
+    w1 = timeline.load_jsonl(w1_path)
+    if not w1:
+        problems.append("(ii) no span of w1 read")
+    torn = bool(w1_lines) and len(w1) < len([x for x in w1_lines if x.strip()])
+    traces = collector.services("/v1/traces")
+    sched_spans = [s["name"] for res in traces.get("hypha-scheduler", [])
+                   for ss in res["scopeSpans"] for s in ss["spans"]]
+    if "serve_job" not in sched_spans:
+        problems.append(f"(iii) the scheduler exported {sched_spans}, no serve_job")
+    metrics = collector.services("/v1/metrics")
+    gauges = {svc: {m["name"] for res in payloads for sm in res["scopeMetrics"]
+                    for m in sm["metrics"]} for svc, payloads in metrics.items()}
+    for node in alive:
+        if "hypha.bandwidth.inbound.bytes" not in gauges.get(f"hypha-{node}", set()):
+            problems.append(f"(iii) no hypha.bandwidth.inbound.bytes from {node}: {gauges}")
+    return problems, dict(routes=len(routes), answered_routes=len(served), w1_spans=len(w1),
+                          w1_torn_tail=torn, posts=collections.Counter(p for p, _ in
+                                                                       collector.posts),
+                          services=sorted(gauges))
+
+
 # ------------------------------------------------ serve_router phase
 
 # ``SERVE_JOB`` spread over two workers behind the scheduler's router.
@@ -1360,18 +1709,20 @@ async def _device_mem_sampler(peak: list, stop: asyncio.Event) -> None:
 
 
 async def run_serve_router(root: Path, job: dict, prompts: list, n_new: list, *,
-                           device: "str | None" = None, repeat: int = 4) -> dict:
+                           device: "str | None" = None, repeat: int = 4,
+                           trace_dir: "Path | None" = None, otlp: "str | None" = None) -> dict:
     """``ServeNet`` with two workers, ``w0`` and ``w1``, behind the
     scheduler's router (``job`` routes). Once both backends serve, the
     client sends every prompt at once through ``generate_remote``, then the
     first ``repeat`` again; then it SIGKILLs ``w1``, sends the last
     ``repeat`` prompts again, which ``w0`` must answer, and waits for the
     scheduler to fail ``w1``'s slot (by φ ejection or by a failed lease
-    renewal); then every process left stops. Every wait has a deadline."""
+    renewal); then every process left stops. Every wait has a deadline.
+    ``trace_dir`` and ``otlp`` go to ``ServeNet``."""
     from hypha_tpu_torch.messages import PROTOCOL_GENERATE
 
     name = job["job.serve_name"]
-    net = ServeNet(root, job, ROUTER_WORKERS, device)
+    net = ServeNet(root, job, ROUTER_WORKERS, device, trace_dir=trace_dir, otlp=otlp)
     net.init()
     loop = asyncio.get_running_loop()
     mem_peak, sampling = [0.0], asyncio.Event()
@@ -1502,25 +1853,39 @@ def serve_router_problems(run: dict, *, want: list, n_new: list, layers: int,
 def serve_router_phase(prefix: dict) -> dict:
     """``serve_prefix``'s requests through the scheduler's router over two
     workers, each a process of its own started from TOML by the port's
-    CLI, then ``w1`` killed."""
+    CLI, then ``w1`` killed; traced, every process exporting to a loopback
+    OTLP collector (``router_trace_problems``)."""
     root = Path(tempfile.mkdtemp(prefix="hsr"))
+    collector = OtlpCollector()
+    tdir = None
     try:
-        run = asyncio.run(run_serve_router(root, ROUTER_JOB, prefix["prompts"],
-                                           prefix["n_new"]))
+        with traced_phase("serve_router") as tdir:
+            run = asyncio.run(run_serve_router(root, ROUTER_JOB, prefix["prompts"],
+                                               prefix["n_new"], trace_dir=tdir,
+                                               otlp=collector.endpoint))
         problems = serve_router_problems(run, want=prefix["answers"], n_new=prefix["n_new"],
                                          layers=prefix["layers"], device="cuda")
+        answered = len(run["answers"]) + len(run["again"]) + len(run["after_kill"])
+        tproblems, tfig = router_trace_problems(tdir, collector, answered=answered,
+                                                alive=ROUTER_ROLES)
+        problems += tproblems
+        tsum = trace_summary(tdir, "serve_router")
         if problems:
             logs = {r: Path(p).read_text(errors="replace")[-3000:] for r, p in run["logs"].items()}
             raise SystemExit(f"serve_router: {problems}\n{json.dumps(logs, indent=1)}")
     finally:
+        collector.close()
         shutil.rmtree(root, ignore_errors=True)
+        if tdir is not None:
+            shutil.rmtree(tdir, ignore_errors=True)
     keep = ("bring_up_s", "dispatch_to_first_answer_s", "latency_s", "latency_median_s",
             "latency_max_s", "wall_s", "after_kill_latency_s", "busy_answers", "busy_wait_s",
             "router",
             "slot_failed_s", "slot_failed_by", "slot_failed_line", "w0_requests_after_kill",
             "workers", "timeline", "bring_up_device_mem_mib", "stop_s", "exits")
     return dict(requests=len(prefix["prompts"]), answers_equal_serve_prefix=True,
-                **{k: run[k] for k in keep})
+                **{k: run[k] for k in keep},
+                trace={**tfig, **{k: v for k, v in tsum.items() if k != "timeline"}})
 
 
 # ------------------------------------------------ serve_fleet phase
@@ -2668,9 +3033,10 @@ def node_probes(device):
         return call
 
     async def timed_broadcast(self, cfg, update_path, round_num, elastic=None, extra_header=None,
-                              peers_override=None):
+                              peers_override=None, **kw):
         size, t0 = update_path.stat().st_size, time.perf_counter()
-        await broadcast(self, cfg, update_path, round_num, elastic, extra_header, peers_override)
+        await broadcast(self, cfg, update_path, round_num, elastic, extra_header, peers_override,
+                        **kw)
         to = list(elastic.membership.active) if elastic else None
         rec["broadcast"].append({"round": round_num, "s": time.perf_counter() - t0, "bytes": size,
                                  "header": extra_header, "t0": t0,
@@ -3499,14 +3865,23 @@ def train_data_phase() -> dict:
                                    layers=NODE_LAYERS, device="cuda")
     t_b = time.perf_counter()
     root = Path(tempfile.mkdtemp(prefix="hda"))
+    tdir = None
     try:
-        run = asyncio.run(run_data_job(root, NODE_MODEL, device="cuda", rounds=DATA_B_ROUNDS,
-                                       steps=DATA_B_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                                       period=TRAIN_PERIOD, status_timeout=NODE_STATUS_TIMEOUT_S))
+        with traced_phase("train_data") as tdir:
+            run = asyncio.run(run_data_job(root, NODE_MODEL, device="cuda", rounds=DATA_B_ROUNDS,
+                                           steps=DATA_B_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                           period=TRAIN_PERIOD,
+                                           status_timeout=NODE_STATUS_TIMEOUT_S))
+        rep = data_report(run)
+        problems += data_problems(run, rep, rounds=DATA_B_ROUNDS, layers=NODE_LAYERS,
+                                  device="cuda")
+        tproblems, waits = data_trace_problems(tdir, rep)
+        problems += [f"(b) trace: {x}" for x in tproblems]
+        tsum = trace_summary(tdir, "train_data")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    rep = data_report(run)
-    problems += data_problems(run, rep, rounds=DATA_B_ROUNDS, layers=NODE_LAYERS, device="cuda")
+        if tdir is not None:
+            shutil.rmtree(tdir, ignore_errors=True)
     timing = progress_timing(run)
     res = dict(
         model="llama2-7b", layers=NODE_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
@@ -3519,7 +3894,12 @@ def train_data_phase() -> dict:
         network={**rep, "jobs": run["jobs"],
                  "losses": [(w, r, m.get("loss")) for w, r, m in run["result"].metrics],
                  "round_boundary_s": timing["round_boundary_s"], "step_ms": timing["step_ms"],
-                 "seconds": time.perf_counter() - t_b},
+                 "seconds": time.perf_counter() - t_b,
+                 "trace": {"input_waits": waits,
+                           **{k: v for k, v in tsum.items() if k != "timeline"},
+                           "rounds": [{k: row[k] for k in ("round", "wall_s", "phases_s",
+                                                           "stall_span", "stall_peer")}
+                                      for row in tsum["timeline"]["rounds"]]}},
         seconds=time.perf_counter() - t0)
     if problems:
         emit({"phase": "train_data", **res, "problems": problems,
@@ -5387,9 +5767,10 @@ def train_shard_phase() -> dict:
 # w0 its reducer) made fault tolerant: elastic rounds, durable shards
 # checkpointed every SHARD_FT_PS_EVERY of their own commits, a shard
 # restart, and trainer checkpoints every SHARD_FT_EVERY rounds (the last:
-# three trainers' 5.6 GB versions cost the disk's write-back time).
-SHARD_FT_ROUNDS = 6
-SHARD_FT_EVERY = 6
+# three trainers' 5.6 GB versions cost the disk's write-back time). 4
+# rounds (6 before tracing joined the smoke): the faults fall in rounds 1-3.
+SHARD_FT_ROUNDS = 4
+SHARD_FT_EVERY = 4
 SHARD_FT_PS_EVERY = 2
 SHARD_FT_DEADLINE_S = 70.0
 SHARD_FT_CHAOS = "kill-worker:1,kill-ps:3"
@@ -6309,17 +6690,33 @@ def train_het_phase() -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held_gib = torch.cuda.memory_reserved() / 2**30
+    cost_us = span_cost_us()
     root = Path(tempfile.mkdtemp(prefix="hhet"))
+    tdir = None
     try:
-        run = asyncio.run(run_het_job(
-            root, HET_MODEL, device="cuda", rounds=HET_ROUNDS, steps=HET_STEPS,
-            batch=TRAIN_BATCH, seq=TRAIN_SEQ, period=TRAIN_PERIOD,
-            status_timeout=HET_STATUS_TIMEOUT_S, sample_card=True))
+        with traced_phase("train_het") as tdir:
+            run = asyncio.run(run_het_job(
+                root, HET_MODEL, device="cuda", rounds=HET_ROUNDS, steps=HET_STEPS,
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ, period=TRAIN_PERIOD,
+                status_timeout=HET_STATUS_TIMEOUT_S, sample_card=True))
         rep = het_report(run)
         problems = het_problems(run, rep, rounds=HET_ROUNDS, steps=HET_STEPS, layers=HET_LAYERS,
                                 device="cuda")
+        tproblems, tfig = het_trace_problems(tdir, run, rounds=HET_ROUNDS,
+                                             rate_mbps=HET_RATE_MBPS)
+        problems += [f"trace {x}" for x in tproblems]
+        tsum = trace_summary(tdir, "train_het")
+        # The cost of tracing a round: its spans at the measured cost of one,
+        # against the median steady round's wall.
+        walls = [row["wall_s"] for row in tfig["steady"]]
+        round_wall = statistics.median(walls) if walls else None
+        share = (cost_us * 1e-6 * tfig["spans_per_round"] / round_wall) if round_wall else None
+        if share is None or share > SPAN_COST_BUDGET:
+            problems.append(f"trace cost {share} of a round (budget {SPAN_COST_BUDGET})")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        if tdir is not None:
+            shutil.rmtree(tdir, ignore_errors=True)
     timing = progress_timing(run)
     step_ms = {}
     for peer in run["workers"]:
@@ -6338,6 +6735,9 @@ def train_het_phase() -> dict:
         outer_step_s=run["rec"]["outer_step_s"], fold_s_max=max(run["rec"]["fold_s"], default=None),
         check_s=[e["check_s"] for e in run["rec"]["encodes_adaptive"]],
         loop_stall_max_s=run["loop_stall_max_s"], seconds=time.perf_counter() - t0,
+        trace={**tfig, **{k: v for k, v in tsum.items() if k != "timeline"},
+               "span_us": cost_us, "span_cost_n": SPAN_COST_N, "round_wall_s": round_wall,
+               "share_of_round": share},
         **{k: v for k, v in rep.items() if k != "trainers"},
         trainers={peer: {k: t[k] for k in ("launches", "peak_gib", "batches", "switches")}
                   for peer, t in rep["trainers"].items()},

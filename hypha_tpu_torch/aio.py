@@ -1,11 +1,11 @@
 """Asyncio task lifecycle helpers (a copy of the subset of
 ``hypha_tpu/aio.py`` that the fabric, the worker runtime, the Job Bridge
 and the scheduler use: ``spawn``, ``reap``, ``wait_quiet``,
-``gather_bounded`` and ``retry``). The
-reference's task-failure and retry counters and its flight-recorder
-breadcrumbs belong to its telemetry, which is not ported (ROADMAP.md,
-Queue 1: telemetry); a failed background task or a retried attempt is
-logged here and nothing more.
+``gather_bounded`` and ``retry``). A retried attempt leaves a
+flight-recorder breadcrumb (``telemetry.flight``) beside its log line. The
+reference's task-failure and retry counters belong to the metrics plane,
+which is not ported (ROADMAP.md, Queue 1: telemetry); a failed background
+task is logged here and nothing more.
 
 ``asyncio.gather(..., return_exceptions=True)`` is the primitive that makes
 the cancellation semantics right: child outcomes become return values, but
@@ -176,5 +176,10 @@ async def retry(
             if out_of_attempts or out_of_time:
                 lg.warning("retry %r: giving up after %d attempt(s): %s", label, attempt, e)
                 raise
+            # Flight-recorder breadcrumb: a late round's post-mortem needs
+            # the retry storm beside the chaos and drop events.
+            from .telemetry.flight import FLIGHT  # lazy: no import cycle
+
+            FLIGHT.record("retry", what=label, attempt=attempt, error=str(e)[:200])
             lg.info("retry %r: attempt %d failed (%s); next in %.2fs", label, attempt, e, delay)
             await asyncio.sleep(delay)

@@ -15,8 +15,12 @@ Reference: every binary exposes the same three subcommands
 A node is mTLS-secured when its ``[tls]`` section names cert, key and
 trust (its peer id is then its certificate's key hash, and it signs its
 gossip), and multiplexes its streams over one connection a peer when
-``network.mux`` is set; the telemetry exporter is refused when set
-(``node_config.py``). Each runner logs its fabric's counts when it stops
+``network.mux`` is set. Every runner wires its node's telemetry from the
+``[telemetry]`` section (``OTEL_*`` environment variables win): with an
+``endpoint`` it exports spans, the node's bandwidth gauges and its logs
+over OTLP/HTTP+JSON every second, and shuts the exporter down at stop; the
+scheduler files its job under a ``run_job`` or ``serve_job`` span. Each
+runner logs its fabric's counts when it stops
 (``fabric counts: {...}``: connections dialed and accepted, mux streams,
 gossip frames signed, verified and dropped, the median verify ms).
 ``worker run`` runs on CUDA unless given ``--device cpu``; without CUDA
@@ -121,6 +125,23 @@ def _make_node(conf, *, registry_server: bool = False, peer_id: "str | None" = N
     return node
 
 
+def _telemetry_for(conf, node=None):
+    """The provider bundle from the config's telemetry section, ``OTEL_*``
+    environment variables winning (the reference's ``_telemetry_for``);
+    with a node, its bandwidth gauges."""
+    from .telemetry import init_telemetry, instrument_node
+
+    telemetry = init_telemetry(
+        service_name=conf.telemetry.service_name or f"hypha-{conf.name}",
+        endpoint=conf.telemetry.endpoint,
+        sample_ratio=conf.telemetry.sample_ratio,
+        attributes=conf.telemetry.attributes,
+    )
+    if node is not None:
+        instrument_node(telemetry.meter("hypha.node"), node)
+    return telemetry
+
+
 def _log_fabric_counts(node) -> None:
     """Log what the node's fabric did (read by operators and the smoke)."""
     counts, transport = {}, node.transport
@@ -194,12 +215,14 @@ async def _run_gateway(conf: GatewayConfig, *, stop: "asyncio.Event | None" = No
 
     gw = Gateway(None, node=_make_node(conf, registry_server=True))
     await gw.start(list(conf.network.listen))
+    telemetry = _telemetry_for(conf, gw.node)
     try:
         print(f"gateway {gw.peer_id} on {gw.node.listen_addrs}", flush=True)
         await _serve_until_signal(stop)
     finally:
         _log_fabric_counts(gw.node)
         await gw.stop()
+        telemetry.shutdown()
 
 
 async def _run_data(conf: DataNodeConfig, *, stop: "asyncio.Event | None" = None) -> None:
@@ -208,12 +231,14 @@ async def _run_data(conf: DataNodeConfig, *, stop: "asyncio.Event | None" = None
     dn = DataNode(None, {name: Path(p) for name, p in conf.datasets.items()},
                   node=_make_node(conf))
     await dn.start(list(conf.network.listen))
+    telemetry = _telemetry_for(conf, dn.node)
     try:
         print(f"data node {dn.peer_id} on {dn.node.listen_addrs}", flush=True)
         await _serve_until_signal(stop)
     finally:
         _log_fabric_counts(dn.node)
         await dn.stop()
+        telemetry.shutdown()
 
 
 async def _run_worker(conf: WorkerConfig, *, device=None,
@@ -235,6 +260,7 @@ async def _run_worker(conf: WorkerConfig, *, device=None,
         node=_make_node(conf),
     )
     stop = _signal_event(stop)
+    telemetry = _telemetry_for(conf, worker.node)
     starting = asyncio.create_task(worker.start(list(conf.network.listen)))
     stopping = asyncio.create_task(stop.wait())
     try:
@@ -252,6 +278,7 @@ async def _run_worker(conf: WorkerConfig, *, device=None,
         await aio.reap(starting, stopping)
         _log_fabric_counts(worker.node)
         await worker.stop()
+        telemetry.shutdown()
 
 
 async def _run_scheduler(conf: SchedulerConfig, *, stop: "asyncio.Event | None" = None):
@@ -265,11 +292,14 @@ async def _run_scheduler(conf: SchedulerConfig, *, stop: "asyncio.Event | None" 
 
     node = _make_node(conf)
     await node.start(list(conf.network.listen))
+    telemetry = _telemetry_for(conf, node)
+    tracer = telemetry.tracer("hypha.scheduler")
     print(f"scheduler {node.peer_id} on {node.listen_addrs}", flush=True)
     try:
         await node.wait_for_bootstrap()
         if conf.job.kind == "serve":
-            await _serve_job(node, conf, stop)
+            with tracer.span("serve_job", {"serve_name": conf.job.serve_name}):
+                await _serve_job(node, conf, stop)
             return None
         connector = (
             AimConnector(conf.status_bridge) if conf.status_bridge else NoOpConnector()
@@ -279,7 +309,8 @@ async def _run_scheduler(conf: SchedulerConfig, *, stop: "asyncio.Event | None" 
                                            max_attempts=conf.job.max_attempts))
         stopped = asyncio.create_task((stop or asyncio.Event()).wait())
         try:
-            await asyncio.wait([run, stopped], return_when=asyncio.FIRST_COMPLETED)
+            with tracer.span("run_job", {"dataset": conf.job.dataset}):
+                await asyncio.wait([run, stopped], return_when=asyncio.FIRST_COMPLETED)
         finally:
             await aio.reap(stopped)
             if not run.done():
@@ -295,6 +326,7 @@ async def _run_scheduler(conf: SchedulerConfig, *, stop: "asyncio.Event | None" 
     finally:
         _log_fabric_counts(node)
         await node.stop()
+        telemetry.shutdown()
 
 
 async def _serve_job(node, conf: SchedulerConfig, stop: "asyncio.Event | None") -> None:

@@ -29,6 +29,10 @@ from dataclasses import MISSING, dataclass, field, fields, is_dataclass
 from pathlib import Path
 from typing import Any, TypeVar
 
+# HYPHA_* variables that configure the process, not a node: the env layer
+# passes over them.
+_PROCESS_ENV = frozenset({"HYPHA_TRACE_DIR", "HYPHA_TRACE_NODE"})
+
 __all__ = [
     "ConfigError",
     "Provenance",
@@ -271,10 +275,14 @@ class LayeredConfigBuilder(typing.Generic[T]):
 
     def with_env(self, prefix: str = "HYPHA_") -> "LayeredConfigBuilder[T]":
         """``HYPHA_OFFER__PRICE=2.5`` sets ``offer.price`` (double underscore
-        separates nesting; single underscores stay inside key names)."""
+        separates nesting; single underscores stay inside key names). The
+        trace switch (``HYPHA_TRACE_DIR``, ``HYPHA_TRACE_NODE``, read by
+        ``telemetry.trace``) is no config key and is passed over, so a node
+        started by the CLI can trace through its environment (the
+        reference's builder refuses it as an unknown key)."""
         data: dict = {}
         for var, raw in os.environ.items():
-            if not var.startswith(prefix) or var == prefix:
+            if not var.startswith(prefix) or var == prefix or var in _PROCESS_ENV:
                 continue
             path = [p.lower() for p in var[len(prefix):].split("__")]
             node = data

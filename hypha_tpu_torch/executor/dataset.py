@@ -34,6 +34,7 @@ from typing import Any, Callable, Iterator
 
 import torch
 
+from ..telemetry import trace
 from ..telemetry.ft_metrics import DATA_METRICS
 from . import DEFAULT_PREFETCH_SLICES
 from .serialization import load_file, read_header
@@ -199,13 +200,19 @@ class SlicePrefetcher:
         self._thread.join(timeout=5.0)
 
 
-def _boundary_wait(acquire: Callable[[], str]) -> str:
-    """Time the training thread's slice acquisition: the slice-boundary
-    stall the prefetcher exists to hide."""
+def _boundary_wait(acquire: Callable[[], str], span_ctx=None) -> str:
+    """Time and trace the training thread's slice acquisition: the
+    slice-boundary stall the prefetcher exists to hide. ``span_ctx`` is a
+    zero-argument callable returning ``(traceparent, node)``, so the
+    ``input_wait`` span joins the current round's trace (a no-op when
+    tracing is off)."""
+    parent, node = span_ctx() if span_ctx is not None else (None, None)
+    span = trace.begin("input_wait", parent=parent, node=node)
     t0 = time.monotonic()
     try:
         return acquire()
     finally:
+        trace.finish(span)
         DATA_METRICS.note_boundary_wait(time.monotonic() - t0)
 
 
@@ -218,6 +225,7 @@ def stream_batches(
     pipeline: bool = False,
     prefetch: "int | None" = None,
     unlink_consumed: bool = False,
+    span_ctx: "Callable[[], tuple[Any, Any]] | None" = None,
 ) -> Iterator[dict]:
     """The infinite batch stream: ``fetch_slice()`` blocks until the
     scheduler assigns the next slice and returns its local path.
@@ -227,17 +235,18 @@ def stream_batches(
     unset) and batches whole slices: the same values in the same order.
     ``unlink_consumed`` deletes each pipelined slice file once its tensors
     are in memory (pipelined fetches land under epoch-unique names, so a
-    long job would otherwise keep one file per slice and epoch)."""
+    long job would otherwise keep one file per slice and epoch).
+    ``span_ctx`` parents each slice wait's ``input_wait`` span."""
     if not pipeline:
         def samples() -> Iterator[dict]:
             while True:
-                yield from slice_samples(_boundary_wait(fetch_slice), input_names, preprocessor)
+                yield from slice_samples(_boundary_wait(fetch_slice, span_ctx), input_names, preprocessor)
 
         return batches(samples(), batch_size)
 
     def slices(prefetcher: SlicePrefetcher) -> Iterator[dict]:
         while True:
-            path = _boundary_wait(prefetcher.take)
+            path = _boundary_wait(prefetcher.take, span_ctx)
             tensors = load_slice(path, input_names, preprocessor)
             if unlink_consumed:
                 Path(path).unlink(missing_ok=True)

@@ -95,6 +95,8 @@ import numpy as np
 import torch
 
 from ..ops.kvcache import KVCache, copy_blocks, extract_blocks, insert_blocks, pool_leaves
+from ..telemetry import trace
+from ..telemetry.flight import FLIGHT
 from .block_cache import PrefixBlockCache, chain_hashes
 
 __all__ = ["DecodePool", "PoolBusy", "StaleBlockGeneration"]
@@ -136,6 +138,12 @@ class _Group:
     fut: Future
     rows: dict = field(default_factory=dict)  # lane -> _PRow
     order: int = -1  # admission sequence; preemption picks the youngest
+    # Serve-path tracing: the request's ``decode`` span, opened at its first
+    # admission and finished when it resolves (it spans preempt and
+    # re-admit cycles: the decode latency the caller saw), and the
+    # submitting request's context. Both None while tracing is off.
+    trace_span: Any = None
+    traceparent: "str | None" = None
 
 
 @dataclass
@@ -575,6 +583,8 @@ class DecodePool:
         # Cached prefix blocks hold K/V of the old weights: no admission
         # from now on maps them (live lanes keep theirs until release).
         self._alloc.bump_generation()
+        FLIGHT.record("serve.weight_swap", round=pend["round"], generation=pend["generation"],
+                      live_rows=len(self._lane_rows))
         self._log_swap("applied", pend["round"], pend["generation"], pend["staged_at"], t0)
 
     def _log_swap(self, what: str, round_num: int, generation: int, staged_at, t0: float) -> None:
@@ -618,8 +628,10 @@ class DecodePool:
             return False
         return self._paged_reject(prompts, n_new) is None
 
-    def submit(self, prompts: list, n_new: int) -> Future:
-        """Queue ``prompts`` for greedy continuation, ``n_new`` tokens each."""
+    def submit(self, prompts: list, n_new: int, traceparent: "str | None" = None) -> Future:
+        """Queue ``prompts`` for greedy continuation, ``n_new`` tokens each.
+        ``traceparent`` parents the group's prefill and decode spans under
+        the submitting request's trace."""
         fut: Future = Future()
         if not prompts or any(not p for p in prompts):
             fut.set_exception(ValueError("prompts must be non-empty"))
@@ -640,7 +652,8 @@ class DecodePool:
                 return fut
             self.requests += 1
             self._backlog += 1
-            self._queue.put(_Group([list(p) for p in prompts], int(n_new), fut))
+            self._queue.put(_Group([list(p) for p in prompts], int(n_new), fut,
+                                   traceparent=traceparent))
         return fut
 
     def close(self, wait: bool = True) -> None:
@@ -769,6 +782,9 @@ class DecodePool:
                 self._backlog -= 1
             self._admit_seq += 1
             group.order = self._admit_seq
+            if group.trace_span is None:
+                group.trace_span = trace.begin("decode", parent=group.traceparent,
+                                               attrs={"rows": len(live)})
             for r, full, hashes, lane_blocks in plans:
                 r.slot = self._free_lanes.pop()
                 hit = self._alloc.lookup(hashes)
@@ -813,11 +829,24 @@ class DecodePool:
         for r in pre:
             toks[r.slot] = r.win_tokens[r.pos : r.pos + P]
             self._h_idx[r.slot] = r.pos
+        # One ``prefill`` span per group the chunk serves, each in its
+        # request's trace (the reference files one per chunk, under its
+        # oldest group, so a request that shares a chunk has none).
+        spans = []
+        if trace.active() is not None:
+            by_group: dict = {}
+            for r in pre:
+                by_group.setdefault(id(r.group), [r.group, 0])[1] += 1
+            spans = [trace.begin("prefill", parent=g.traceparent,
+                                 attrs={"rows": n, "chunk": P, "chunk_rows": len(pre)})
+                     for g, n in by_group.values()]
         t0 = time.perf_counter()
         self._push_rowvars()
         logits = self._model(torch.from_numpy(toks).to(self._device), self._cache)
         nxt_host = logits.argmax(dim=-1).cpu().numpy()  # [slots, P] per-column greedy
         dt = time.perf_counter() - t0  # ends in the host sync: device time included
+        for span in spans:
+            trace.finish(span)
         self.stats["prefill_s"] += dt
         if dt > 0:
             # The recompute side of the transfer-vs-recompute policy.
@@ -944,6 +973,8 @@ class DecodePool:
         with self._submit_lock:
             self._backlog += 1
         self.preemptions += 1
+        FLIGHT.record("serve.preempt", rows=len(group.rows), order=group.order,
+                      emitted=sum(len(r.emitted) for r in group.rows.values()))
 
     def _try_migrate(self, group: _Group) -> bool:
         """Ship a preemption victim instead of requeueing it. Single-prompt
@@ -978,6 +1009,8 @@ class DecodePool:
         self._release_lane(r, register=True)
         self.preemptions += 1
         self.migrated_out += 1
+        FLIGHT.record("serve.migrate_out", order=group.order, blocks=nfull,
+                      emitted=len(ticket["emitted"]))
         try:
             self._migrate_send(ticket)
         except Exception:  # noqa: BLE001 — the sender is the worker's hook
@@ -1003,6 +1036,8 @@ class DecodePool:
         r = group.rows[0]
         r.emitted = list(r.emitted) + [int(t) for t in tokens]
         r.done = True
+        trace.finish(group.trace_span)
+        group.trace_span = None
         if not group.fut.done():
             group.fut.set_result([r.emitted])
 
@@ -1077,4 +1112,6 @@ class DecodePool:
             self._release_lane(r, register=False)
             group = r.group
             if all(pr.done for pr in group.rows.values()) and not group.fut.done():
+                trace.finish(group.trace_span)
+                group.trace_span = None
                 group.fut.set_result([group.rows[i].emitted for i in range(len(group.prompts))])

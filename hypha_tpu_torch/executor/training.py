@@ -113,6 +113,7 @@ from ..hw import default_device
 from ..messages import (
     CODEC_KEY,
     SHARD_KEY,
+    TRACEPARENT_KEY,
     FragmentTag,
     JobSpec,
     Loss,
@@ -132,6 +133,7 @@ from ..ops.attention import dot_product_attention
 from ..ops.flash_attention import flash_attention
 from ..stream import effective_fragments, fragment_due, merge_corrected, partition_names
 from ..stream.partition import shard_of
+from ..telemetry import trace
 from ..telemetry.ft_metrics import DATA_METRICS
 from ..worker.connectors import shard_route
 from .bridge_client import Session
@@ -152,6 +154,60 @@ log = logging.getLogger("hypha.torch.executor.training")
 # A large value merges every landed update before the next step, the
 # zero-flight limit in which overlap equals blocking bit for bit.
 _STREAM_POLL_WAIT_ENV = "HYPHA_STREAM_POLL_WAIT"
+
+
+class _RoundTrace:
+    """The trainer's round-trace bookkeeping (``hypha_tpu/executor/
+    training.py`` ``_RoundTrace``); every method is a no-op when tracing is
+    off, so call sites never branch on config.
+
+    The scheduler's round context arrives on SCHEDULE_UPDATE and Continue
+    answers (``ProgressResponse.traceparent``). The trainer parents its
+    ``inner_steps`` / ``encode`` / ``upload`` / ``merge`` spans under it,
+    stamps it into its delta push headers so the server's spans join the
+    same trace, and attaches it to its round-tagged Progress messages."""
+
+    def __init__(self, node: "str | None") -> None:
+        self.node = node
+        self.tp: "str | None" = None  # the round context last handed down
+        self.tp_round = -1
+        self.inner: "trace.TraceSpan | None" = None
+        self.inner_round = -1
+
+    def adopt(self, resp, round_num: int) -> None:
+        """Record the context a scheduler answer handed down. The round's
+        ``inner_steps`` span, open and parentless since the round's first
+        batch (round 0 has no context before its SCHEDULE_UPDATE), joins
+        it; the reference leaves that span in a trace of its own."""
+        tp = getattr(resp, "traceparent", None)
+        if tp:
+            self.tp, self.tp_round = tp, round_num
+            if self.inner_round == round_num:
+                trace.reparent(self.inner, tp)
+
+    def ctx(self, round_num: int) -> "str | None":
+        """The context of ``round_num`` (None when off or not yet seen)."""
+        return self.tp if self.tp_round == round_num else None
+
+    def stamp(self, meta: dict, round_num: int) -> dict:
+        """Inject the round context into a push header (a no-op when off)."""
+        return trace.inject(meta, self.ctx(round_num))
+
+    def batch(self, round_num: int) -> None:
+        """A round's first batch opens its ``inner_steps`` span."""
+        if trace.active() is None:
+            return
+        if self.inner is None or self.inner_round != round_num:
+            self.close_inner()
+            self.inner = trace.begin("inner_steps", parent=self.ctx(round_num),
+                                     attrs={"round": round_num}, node=self.node)
+            self.inner_round = round_num
+
+    def close_inner(self) -> None:
+        if self.inner is not None:
+            trace.finish(self.inner)
+            self.inner = None
+
 
 class TrainResult:
     """What the loop did: rounds merged, batches trained, every loss."""
@@ -263,8 +319,10 @@ class _WorkerStream:
     trains and re-anchors in place."""
 
     def __init__(self, session, cfg, work_dir: Path, sync_mode: str, wire_codec: str,
-                 model, params: dict, anchor: dict, device) -> None:
+                 model, params: dict, anchor: dict, device,
+                 rtrace: "_RoundTrace | None" = None) -> None:
         self.session, self.cfg, self.work_dir = session, cfg, Path(work_dir)
+        self.rtrace = rtrace
         self.codec, self.device = wire_codec, device
         self.model, self.params, self.anchor = model, params, anchor
         self.F = effective_fragments(sync_mode, int(cfg.fragments or 0))
@@ -303,6 +361,9 @@ class _WorkerStream:
             "path": self.work_dir / f"delta-{round_num}-f{frag}.safetensors",
             "box": {"absorbed": []}, "t0": time.perf_counter(), "steps": 0,
             "samples": float(num_samples),
+            # The round context at launch, for the flight thread's spans
+            # and push headers.
+            "tp": self.rtrace.ctx(round_num) if self.rtrace is not None else None,
         }
         tag = FragmentTag(round=round_num, fragment_id=frag, fragments=self.F)
         thread = threading.Thread(target=self._flight_main, args=(flight, wire, tag),
@@ -313,15 +374,22 @@ class _WorkerStream:
 
     def _flight_main(self, flight: dict, wire: dict, tag: FragmentTag) -> None:
         box = flight["box"]
+        tnode = self.rtrace.node if self.rtrace is not None else None
         try:
             t0 = time.perf_counter()
-            compress.write_delta(flight["path"], wire, self.codec, ef=self.efs[flight["frag"]],
-                                 tag=tag.header())
+            with trace.span("encode", parent=flight["tp"], node=tnode,
+                            attrs={"round": flight["round"], "fragment": flight["frag"],
+                                   "codec": self.codec}):
+                compress.write_delta(flight["path"], wire, self.codec,
+                                     ef=self.efs[flight["frag"]], tag=tag.header())
             del wire
+            nbytes = flight["path"].stat().st_size
             log.info("round %d fragment %d: delta encoded in %.3f s (%d bytes)",
-                     flight["round"], flight["frag"], time.perf_counter() - t0,
-                     flight["path"].stat().st_size)
-            self._send(flight, tag)
+                     flight["round"], flight["frag"], time.perf_counter() - t0, nbytes)
+            with trace.span("upload", parent=flight["tp"], node=tnode,
+                            attrs={"round": flight["round"], "fragment": flight["frag"],
+                                   "bytes": nbytes}):
+                self._send(flight, tag)
             box["completion"] = self._await_broadcast(flight)
             log.info("round %d fragment %d: broadcast landed %.3f s after the snapshot",
                      flight["round"], flight["frag"], time.perf_counter() - flight["t0"])
@@ -332,6 +400,7 @@ class _WorkerStream:
         """Ship the flight's file: to the one server, or to the fragment's
         owning shard (behind the group's reducer, with ANY failover)."""
         meta = {"num_samples": flight["samples"], **tag.header()}
+        trace.inject(meta, flight.get("tp"))
         if self.shard_map is None:
             self.session.send_resource(
                 self.cfg.updates, flight["path"].name,
@@ -410,7 +479,12 @@ class _WorkerStream:
         t0 = time.perf_counter()
         for event in box["absorbed"]:
             self._absorb(event)
-        update_file = self.work_dir / box["completion"]["path"]
+        event = box["completion"]
+        merge_span = trace.begin(
+            "merge", parent=(event.get("meta") or {}).get(TRACEPARENT_KEY) or flight.get("tp"),
+            attrs={"round": flight["round"], "fragment": flight["frag"]},
+            node=self.rtrace.node if self.rtrace is not None else None)
+        update_file = self.work_dir / event["path"]
         update = _read_update(update_file, self.device)
         names = flight["names"]
         if set(update) != set(names):
@@ -424,6 +498,7 @@ class _WorkerStream:
             self.anchor[t].copy_(anchor[t])
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        trace.finish(merge_span)
         log.info("round %d fragment %d: update merged in %.3f s; waited %.3f s for the flight; "
                  "%d steps in flight", flight["round"], flight["frag"], time.perf_counter() - t0,
                  waited, flight["steps"])
@@ -592,11 +667,14 @@ def run_training(
     max_batches: "int | None" = None,
     should_stop: "Callable[[], bool] | None" = None,
     device=None,
+    trace_node: "str | None" = None,
 ) -> TrainResult:
     """Run the DiLoCo inner loop to completion over ``session``, on
     ``device`` (CUDA unless the caller asks for the CPU). ``max_batches``
     is a safety valve for tests; ``should_stop`` is polled between
-    batches."""
+    batches. ``trace_node`` labels this worker's round-trace spans (the
+    in-process executor passes its peer id; a trainer process labels its
+    spans through ``HYPHA_TRACE_NODE``); ignored while tracing is off."""
     work_dir = Path(work_dir)
     cfg = spec.executor.train
     if cfg is None:
@@ -615,10 +693,15 @@ def run_training(
         from .preprocess import build_preprocessor
 
         preprocessor = build_preprocessor(cfg.preprocessor, session, work_dir)
+    # Round tracing (telemetry.trace), all no-ops when off. Made before
+    # the stream so input_wait spans join the round's trace: the context
+    # last handed down attributes a mid-round input stall to its round.
+    rtrace = _RoundTrace(trace_node)
     pipeline_on = bool(cfg.input_pipeline)
     stream = stream_batches(fetch_slice, cfg.batch_size, dict(cfg.model).get("input_names"),
                             preprocessor, pipeline=pipeline_on, prefetch=cfg.prefetch_slices,
-                            unlink_consumed=pipeline_on)
+                            unlink_consumed=pipeline_on,
+                            span_ctx=lambda: (rtrace.tp, rtrace.node))
     first_batch = next(stream)
     model = _init_model(cfg, session, work_dir, dev)
     # The tensors a round trains, ships and merges (aliases of the
@@ -665,7 +748,7 @@ def run_training(
     stream_state: "_WorkerStream | None" = None
     if sync_mode != "blocking":
         stream_state = _WorkerStream(session, cfg, work_dir, sync_mode, wire_codec, model,
-                                     params, anchor, dev)
+                                     params, anchor, dev, rtrace)
         log.info("streaming outer sync: mode=%s fragments=%d codec=%s", sync_mode,
                  stream_state.F, wire_codec)
 
@@ -710,15 +793,22 @@ def run_training(
                  sum(f.stat().st_size for f in saved.iterdir()))
 
     def push_delta(delta_path: Path) -> None:
+        # Traced jobs stamp the round's context: the server's spans join
+        # the round's trace.
         session.send_resource(
             cfg.updates, delta_path.name, resource=cfg.updates.ref.resource or "updates",
-            meta={"num_samples": float(round_samples), "round": round_num},
+            meta=rtrace.stamp({"num_samples": float(round_samples), "round": round_num},
+                              round_num),
         )
 
     def do_update() -> bool:
         """Ship Δθ, wait for the broadcast, merge. True = next round."""
         nonlocal round_num, round_samples, wire_codec, delta_ef
-        send_status(Progress(kind=ProgressKind.UPDATE, job_id=spec.job_id))
+        rtrace.close_inner()
+        round_tp = rtrace.ctx(round_num)
+        send_status(Progress(kind=ProgressKind.UPDATE, job_id=spec.job_id, traceparent=round_tp))
+        enc_span = trace.begin("encode", parent=round_tp, node=rtrace.node,
+                               attrs={"round": round_num, "codec": wire_codec})
         delta_path = work_dir / f"delta-{round_num}.safetensors"
         t_write = time.perf_counter()
         with torch.no_grad():
@@ -728,11 +818,16 @@ def run_training(
             # The delta's transients go back to the card while the round's
             # broadcast is awaited: a parameter server may share it.
             torch.cuda.empty_cache()
+        trace.finish(enc_span)
         log.info("round %d: delta written in %.3f s", round_num, time.perf_counter() - t_write)
-        push_delta(delta_path)
+        with trace.span("upload", parent=round_tp, node=rtrace.node,
+                        attrs={"round": round_num, "codec": wire_codec,
+                               "bytes": delta_path.stat().st_size}):
+            push_delta(delta_path)
         mean_loss = sum(round_losses) / len(round_losses) if round_losses else math.nan
         send_status(Progress(kind=ProgressKind.METRICS, job_id=spec.job_id, round=round_num,
-                             metrics={"loss": mean_loss, "samples": float(round_samples)}))
+                             metrics={"loss": mean_loss, "samples": float(round_samples)},
+                             traceparent=round_tp))
         with session.receive(cfg.results) as events:
             while True:
                 event = next(events, None)
@@ -757,6 +852,10 @@ def run_training(
                     if hint in compress.QUANT_CODECS and delta_ef is None:
                         delta_ef = compress.ErrorFeedback()
                 break
+        # Under the broadcast's context when the server stamped one (the
+        # same round trace), else the scheduler's round.
+        merge_span = trace.begin("merge", parent=meta.get(TRACEPARENT_KEY) or round_tp,
+                                 attrs={"round": round_num}, node=rtrace.node)
         update_file = work_dir / event["path"]
         t_merge = time.perf_counter()
         update = _read_update(update_file, dev)
@@ -768,6 +867,7 @@ def run_training(
                 anchor[name].copy_(p)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        trace.finish(merge_span)
         log.info("round %d: update merged in %.3f s (membership epoch %s)", round_num,
                  time.perf_counter() - t_merge, meta.get("epoch", "-"))
         log.info("round %d: anchor checksum %s", round_num + 1,
@@ -775,8 +875,10 @@ def run_training(
         delta_path.unlink(missing_ok=True)
         update_file.unlink(missing_ok=True)
         maybe_checkpoint()
-        resp = send_status(Progress(kind=ProgressKind.UPDATE_RECEIVED, job_id=spec.job_id))
+        resp = send_status(Progress(kind=ProgressKind.UPDATE_RECEIVED, job_id=spec.job_id,
+                                    traceparent=round_tp))
         round_num += 1
+        rtrace.adopt(resp, round_num)
         result.rounds = round_num
         round_samples = 0
         round_losses.clear()
@@ -794,7 +896,8 @@ def run_training(
         meta = {"num_samples": samples, "round": round_num, **tag.header()}
         if len(shard_map.shards) > 1:
             meta[SHARD_KEY] = owner
-        session.send_resource(send, path.name, resource=res_tag, meta=meta)
+        session.send_resource(send, path.name, resource=res_tag,
+                              meta=rtrace.stamp(meta, round_num))
 
     def do_update_sharded() -> bool:
         """Blocking sync against a placement: split Δθ into its parts, push
@@ -802,7 +905,11 @@ def run_training(
         reduces in a tree), wait for every part's update, merge them all,
         re-anchor. True = next round."""
         nonlocal round_num, round_samples
-        send_status(Progress(kind=ProgressKind.UPDATE, job_id=spec.job_id))
+        rtrace.close_inner()
+        round_tp = rtrace.ctx(round_num)
+        send_status(Progress(kind=ProgressKind.UPDATE, job_id=spec.job_id, traceparent=round_tp))
+        enc_span = trace.begin("encode", parent=round_tp, node=rtrace.node,
+                               attrs={"round": round_num, "codec": wire_codec})
         t_write = time.perf_counter()
         with torch.no_grad():
             wire_flat = state_to_flat(model, extract_delta(params, anchor))
@@ -822,13 +929,17 @@ def run_training(
                                      ef=shard_ctx["efs"][p], tag=tag.header())
             paths[p] = path
         del wire_flat
+        trace.finish(enc_span)
         log.info("round %d: delta written in %.3f s (%d parts: %s bytes)", round_num,
                  time.perf_counter() - t_write, P, [paths[p].stat().st_size for p in paths])
-        for p, path in paths.items():
-            push_part(p, path, samples)
+        with trace.span("upload", parent=round_tp, node=rtrace.node,
+                        attrs={"round": round_num, "codec": wire_codec, "parts": len(parts)}):
+            for p, path in paths.items():
+                push_part(p, path, samples)
         mean_loss = sum(round_losses) / len(round_losses) if round_losses else math.nan
         send_status(Progress(kind=ProgressKind.METRICS, job_id=spec.job_id, round=round_num,
-                             metrics={"loss": mean_loss, "samples": samples}))
+                             metrics={"loss": mean_loss, "samples": samples},
+                             traceparent=round_tp))
         gens = shard_ctx["gens"]
         got: dict = {}
         with session.receive(cfg.results) as events:
@@ -868,6 +979,8 @@ def run_training(
                 log.info("round %d: part %d update landed (shard %d)", round_num, p, sid)
         # Every part lands before any merges: disjoint tensors, one pass,
         # then one re-anchor (blocking: no drift correction).
+        merge_span = trace.begin("merge", parent=round_tp, attrs={"round": round_num},
+                                 node=rtrace.node)
         t_merge = time.perf_counter()
         merged = 0
         with torch.no_grad():
@@ -887,6 +1000,7 @@ def run_training(
             raise KeyError(f"the parts' updates carry {merged} of {len(params)} tensors")
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        trace.finish(merge_span)
         log.info("round %d: update merged in %.3f s (%d parts)", round_num,
                  time.perf_counter() - t_merge, P)
         log.info("round %d: anchor checksum %s", round_num + 1,
@@ -894,8 +1008,10 @@ def run_training(
         for path in paths.values():
             path.unlink(missing_ok=True)
         maybe_checkpoint()
-        resp = send_status(Progress(kind=ProgressKind.UPDATE_RECEIVED, job_id=spec.job_id))
+        resp = send_status(Progress(kind=ProgressKind.UPDATE_RECEIVED, job_id=spec.job_id,
+                                    traceparent=round_tp))
         round_num += 1
+        rtrace.adopt(resp, round_num)
         result.rounds = round_num
         round_samples = 0
         round_losses.clear()
@@ -906,11 +1022,14 @@ def run_training(
         The round's samples and losses reset here: the steps taken while
         the sync is in flight belong to the next delta."""
         nonlocal round_samples
-        send_status(Progress(kind=ProgressKind.UPDATE, job_id=spec.job_id))
+        rtrace.close_inner()
+        round_tp = rtrace.ctx(round_num)
+        send_status(Progress(kind=ProgressKind.UPDATE, job_id=spec.job_id, traceparent=round_tp))
         stream_state.begin(round_num, round_samples)
         mean_loss = sum(round_losses) / len(round_losses) if round_losses else math.nan
         send_status(Progress(kind=ProgressKind.METRICS, job_id=spec.job_id, round=round_num,
-                             metrics={"loss": mean_loss, "samples": float(round_samples)}))
+                             metrics={"loss": mean_loss, "samples": float(round_samples)},
+                             traceparent=round_tp))
         round_samples = 0
         round_losses.clear()
 
@@ -919,8 +1038,10 @@ def run_training(
         nonlocal round_num
         stream_state.finish()
         maybe_checkpoint()
-        resp = send_status(Progress(kind=ProgressKind.UPDATE_RECEIVED, job_id=spec.job_id))
+        resp = send_status(Progress(kind=ProgressKind.UPDATE_RECEIVED, job_id=spec.job_id,
+                                    traceparent=rtrace.ctx(round_num)))
         round_num += 1
+        rtrace.adopt(resp, round_num)
         result.rounds = round_num
         return resp.kind == ProgressResponseKind.CONTINUE
 
@@ -972,6 +1093,7 @@ def run_training(
             if stream_state is not None and stream_state.poll():
                 if not finish_stream_sync():
                     break
+            rtrace.batch(round_num)
             overlapping = stream_state is not None and stream_state.in_flight
             if pipeline_on and not overlapping:
                 # Dispatch step n, then read step n-1's loss (done on the
@@ -997,7 +1119,10 @@ def run_training(
                                         batch_size=cfg.batch_size))
             if resp.kind == ProgressResponseKind.DONE:
                 break
-            countdown = adopt_schedule(resp, countdown)
+            adopted = adopt_schedule(resp, countdown)
+            if adopted is not countdown:
+                countdown = adopted
+                rtrace.adopt(resp, round_num)
             if countdown is not None:
                 if countdown <= 0:
                     countdown = None
@@ -1015,6 +1140,7 @@ def run_training(
                 break
         flush_pending_loss()
     finally:
+        rtrace.close_inner()
         # Stops the prefetch thread now, before the bridge goes away.
         stream.close()
         if stream_state is not None:

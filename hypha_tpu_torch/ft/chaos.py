@@ -195,6 +195,13 @@ class ChaosController:
     def _fire(self, action: ChaosAction) -> None:
         action.fired_at = self._clock()
         self.fired.append(action)
+        # Flight-recorder breadcrumb: a stalled round's forensics show when
+        # the injected fault fired, beside the retries and drops it caused.
+        from ..telemetry.flight import FLIGHT
+
+        FLIGHT.record(f"chaos.{action.kind}", node=action.target, target=action.target,
+                      at_round=action.at_round, delay_s=action.delay_s, factor=action.factor,
+                      rate_bps=action.rate_bps)
         worker = self.workers.get(action.target)
         if worker is None:
             log.warning("chaos: no worker %r to %s", action.target, action.kind)

@@ -27,7 +27,9 @@ Everything lives under the job's ``checkpoint_dir``:
     bit) and the interrupted round's folds. The journal's (round,
     fragment, peer, sha) index makes a worker's re-send idempotent.
 
-The reference's ``FT_METRICS`` counters are telemetry, not ported
+A generation bump (a server or scheduler that restarted) is a
+flight-recorder event (``telemetry.flight``). The reference's
+``FT_METRICS`` counters belong to the metrics plane, not ported
 (ROADMAP.md, Queue 1: telemetry): the journal counts its records and bytes
 and the server counts its dedup hits on the objects, and the executor logs
 them.
@@ -313,6 +315,13 @@ class DurablePS:
         if meta is not None:
             prev_gen = max(prev_gen, int(meta.get("generation", 0)))
         dur.generation = prev_gen + 1
+        if dur.generation > 1:
+            # A server process died and restarted: the event every re-send
+            # and journal dedup after it traces back to (generation 1 is a
+            # fresh job, no incident).
+            from ..telemetry.flight import FLIGHT
+
+            FLIGHT.record("ps.generation_bump", job=job_id, generation=dur.generation)
         dur.journal.append({"t": "gen", "generation": dur.generation, "job_id": job_id},
                            sync=True)
         if meta is not None or records:
@@ -729,6 +738,11 @@ class DurableScheduler:
             dur._ps_restarts = dur.resume.ps_restarts
             dur._last_round_rec = {"t": "round", "round": dur.resume.round,
                                    "ctrl": dur.resume.ctrl}
+            from ..telemetry.flight import FLIGHT
+
+            FLIGHT.record("scheduler.generation_bump", node="scheduler",
+                          generation=dur.generation, round=dur.resume.round,
+                          executions=len(dur.resume.dispatches))
         dur.journal.append({"t": "gen", "generation": dur.generation}, sync=True)
         return dur
 

@@ -38,7 +38,7 @@ __all__ = [
     "WorkerOffer", "WorkerSpec", "decode", "encode", "from_json_dict", "to_json_dict",
     "PROTOCOL_API", "PROTOCOL_GENERATE", "PROTOCOL_HEALTH", "PROTOCOL_PROGRESS",
     "PROTOCOL_BLOCKS", "PROTOCOL_SERVE", "PROTOCOL_SHARD", "TOPIC_WORKER",
-    "CODEC_KEY", "COVERS_KEY", "PREFOLD_KEY", "SHARD_KEY", "TRAIN_EXECUTOR_NAME", "AGGREGATE_EXECUTOR_NAME", "INFER_EXECUTOR_NAME",
+    "CODEC_KEY", "COVERS_KEY", "PREFOLD_KEY", "SHARD_KEY", "TRACEPARENT_KEY", "TRAIN_EXECUTOR_NAME", "AGGREGATE_EXECUTOR_NAME", "INFER_EXECUTOR_NAME",
 ]
 
 PROTOCOL_API = "/hypha-api/0.0.1"
@@ -400,6 +400,13 @@ CODEC_KEY = "codec"
 SHARD_KEY = "shard"
 PREFOLD_KEY = "prefold"
 COVERS_KEY = "covers"
+
+# Cross-peer trace propagation (telemetry.trace): the push / broadcast header
+# key carrying a ``<trace_id>-<parent_span_id>`` context (32 + 16 lowercase
+# hex chars). Only traced jobs stamp it: with tracing off no header carries
+# the key and every message omits its ``traceparent`` field, so the wire is
+# byte-identical to the untraced build.
+TRACEPARENT_KEY = "traceparent"
 
 
 @_register

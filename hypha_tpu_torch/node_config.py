@@ -211,14 +211,11 @@ class GatewayConfig:
 def _check_node_sections(conf) -> None:
     """The sections every node carries, past the reference's checks: a
     ``[tls]`` section sets cert, key and trust together (the reference
-    starts a plain-TCP node from a partial one), and the telemetry
-    exporter is not ported."""
+    starts a plain-TCP node from a partial one)."""
     tls = conf.tls
     if (tls.cert or tls.key or tls.trust or tls.crls) and not tls.enabled():
         raise ConfigError("tls: cert, key and trust go together; a partial [tls] "
                           "section would start an unsecured node")
-    if conf.telemetry.endpoint:
-        _refuse("telemetry.endpoint", "telemetry")
 
 
 @dataclass

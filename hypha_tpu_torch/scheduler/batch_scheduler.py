@@ -61,6 +61,7 @@ from ..messages import (
     ProgressResponse,
     ProgressResponseKind,
 )
+from ..telemetry import trace
 from .simulation import project
 from .trackers import ProgressTracker, WorkerState
 
@@ -128,6 +129,18 @@ class BatchScheduler:
         # AdoptAck: their UPDATED for it is still parked, so the job
         # completes only once it is answered (DONE ends their loop).
         self._owed: set = set()
+        # Round tracing (telemetry.trace): the scheduler owns each round's
+        # root span, opened when the round starts and closed when it
+        # advances; its context rides SCHEDULE_UPDATE to the workers and
+        # the UPDATED answer to the server. Off, every response keeps its
+        # traceparent at None: the untraced wire.
+        self._round_span: "trace.TraceSpan | None" = None
+        self._round_span_num = -1
+        if trace.active() is not None:
+            # Round 0 opens eagerly: construction precedes dispatch, so the
+            # root's start bounds every peer's round-0 spans from below,
+            # the anchor the timeline aligns clocks on.
+            self._round_tp()
 
     # ------------------------------------------------------------------
     def on_progress(self, peer: str, progress: Progress) -> ProgressResponse:
@@ -150,6 +163,27 @@ class BatchScheduler:
         if self.generation is None:
             return resp
         return dataclasses.replace(resp, generation=self.generation, round=self.tracker.round)
+
+    def _round_tp(self) -> str | None:
+        """The current round's root-span context (opens it on first use)."""
+        tracing = trace.active()
+        if tracing is None:
+            return None
+        r = self.tracker.round
+        if self._round_span is None or self._round_span_num != r:
+            if self._round_span is not None:
+                tracing.finish(self._round_span)
+                self._round_span = None
+            if r < self.tracker.update_epochs:
+                self._round_span = tracing.begin("round", attrs={"round": r}, node="scheduler")
+            self._round_span_num = r
+        return self._round_span.traceparent if self._round_span is not None else None
+
+    def _close_round_span(self) -> None:
+        tracing = trace.active()
+        if tracing is not None and self._round_span is not None:
+            tracing.finish(self._round_span)
+        self._round_span = None
 
     def adopt_round(self, base_round: int, shard_rounds: "dict | None" = None,
                     ctrl: "dict | None" = None) -> int:
@@ -178,6 +212,7 @@ class BatchScheduler:
             self.tracker.advance_round()
         if self.adaptive is not None:
             self.adaptive.resume_warmup(self.tracker.round, ctrl)
+        self._round_tp()  # rotate the root span onto the adopted round
         return self.tracker.round
 
     def _on_progress(self, peer: str, progress: Progress) -> ProgressResponse:
@@ -259,10 +294,18 @@ class BatchScheduler:
             # Freeze the next round's assignments before any worker's
             # first Status of it asks for its counter.
             self.adaptive.start_round(self.tracker.round, list(self.tracker.peers))
+        # Rotate the root span at the boundary and hand the new round's
+        # context to the server, whose next collect opens before any
+        # worker reports.
+        tp = self._round_tp()
         # DONE terminates this shard's aggregation loop; the workers' own
         # DONE comes with their UpdateReceived once the global round
         # reaches update_epochs.
-        return _DONE if self._shard_done(shard, rnd) else _OK
+        done = self._shard_done(shard, rnd)
+        if tp is None:
+            return _DONE if done else _OK
+        return ProgressResponse(
+            kind=ProgressResponseKind.DONE if done else ProgressResponseKind.OK, traceparent=tp)
 
     # ------------------------------------------------------------------
     def _on_status(self, peer: str, progress: Progress) -> ProgressResponse:
@@ -284,7 +327,8 @@ class BatchScheduler:
             # sample-weighted fold keeps the mean unbiased.
             counter = self.adaptive.counter_for(peer)
             self.tracker.set_state(peer, WorkerState.UPDATE_SCHEDULED)
-            return ProgressResponse(kind=ProgressResponseKind.SCHEDULE_UPDATE, counter=counter)
+            return ProgressResponse(kind=ProgressResponseKind.SCHEDULE_UPDATE, counter=counter,
+                                    traceparent=self._round_tp())
         # O(1) reachability lower bound: the projection can assign at most
         # ``updates_cap`` batches per producing worker before a cap fires,
         # so while the round's remaining counter exceeds
@@ -312,6 +356,7 @@ class BatchScheduler:
                 return ProgressResponse(
                     kind=ProgressResponseKind.SCHEDULE_UPDATE,
                     counter=max(planned - 1, 0),
+                    traceparent=self._round_tp(),
                 )
             # Joined after the plan was fixed: fall through to a fresh sim.
 
@@ -359,12 +404,14 @@ class BatchScheduler:
         )
         self.tracker.set_state(peer, WorkerState.UPDATE_SCHEDULED)
         return ProgressResponse(
-            kind=ProgressResponseKind.SCHEDULE_UPDATE, counter=counter
+            kind=ProgressResponseKind.SCHEDULE_UPDATE, counter=counter,
+            traceparent=self._round_tp(),
         )
 
     def _maybe_complete(self) -> None:
         if self.tracker.all_in(WorkerState.DONE) and not self.completed and not self._owed:
             self.completed = True
+            self._close_round_span()
             if self._on_complete is not None:
                 self._on_complete()
 
@@ -382,4 +429,9 @@ class BatchScheduler:
         self.tracker.set_state(peer, WorkerState.TRAINING)
         i = self.tracker.index_of(peer)
         self.tracker.last_update[i] = self.tracker._clock()
-        return _CONTINUE
+        tp = self._round_tp()
+        if tp is None:
+            return _CONTINUE
+        # Traced jobs hand the worker the new round's context with the
+        # Continue that starts it, so its inner_steps span parents right.
+        return ProgressResponse(kind=ProgressResponseKind.CONTINUE, traceparent=tp)

@@ -123,6 +123,8 @@ from ..messages import (
 )
 from ..network.node import Node, RequestError
 from ..stream import ancestors_of, build_reduce_groups, placement_parts, shards_due_at
+from ..telemetry import trace
+from ..telemetry.flight import FLIGHT
 from .allocator import GreedyWorkerAllocator
 from .batch_scheduler import BatchScheduler
 from .data_scheduler import DataScheduler
@@ -852,13 +854,20 @@ class Orchestrator:
         async def ask(job_id: str, rec: dict, timeout: float) -> tuple:
             hello = SchedulerHello(generation=ctx.dur.generation, job_id=job_id,
                                    round=round_hint)
+            span = trace.begin("adopt", attrs={"job": job_id, "round": round_hint},
+                               node="scheduler")
             try:
                 resp = await self.node.request(str(rec.get("peer", "")), PROTOCOL_API, hello,
                                                timeout=timeout)
             except (RequestError, OSError, asyncio.TimeoutError) as e:
+                trace.finish(span, ok=False)
                 log.info("adoption hello for %s failed: %s", job_id, e)
                 return job_id, None
-            return job_id, resp if isinstance(resp, AdoptAck) else None
+            if not isinstance(resp, AdoptAck):
+                trace.finish(span, ok=False)
+                return job_id, None
+            trace.finish(span, ok=resp.state == "running")
+            return job_id, resp
 
         first_pass = True
         while pending and (first_pass or now() < stop_at):
@@ -872,6 +881,9 @@ class Orchestrator:
                 rec = pending.pop(job_id, None) or {}
                 if resp.state == "running":
                     self.counts["adopted_executions"] += 1
+                FLIGHT.record("scheduler.adopt_ack", node="scheduler", job=job_id,
+                              peer=str(rec.get("peer", "")), state=resp.state, round=resp.round,
+                              epoch=resp.epoch)
                 log.info("adoption: %s on %s answered %s (round %d, epoch %d)", job_id,
                          rec.get("peer", ""), resp.state, resp.round, resp.epoch)
             if pending and now() < stop_at:
@@ -919,6 +931,8 @@ class Orchestrator:
         log.warning("scheduler recovery: generation %d adopting job %s at round %d (%d "
                     "journaled executions)", dur.generation, ctx.base_id, res.round,
                     len(res.dispatches))
+        recovery_span = trace.begin("scheduler_recovery", node="scheduler",
+                                    attrs={"generation": dur.generation, "round": res.round})
         progress_reg = None
         tasks: list[Task] = []
         try:
@@ -1028,6 +1042,8 @@ class Orchestrator:
                                     ctx.adaptive.snapshot() if ctx.adaptive is not None
                                     else None)
             self.counts["scheduler_recoveries"] += 1
+            FLIGHT.record("scheduler.recovered", node="scheduler", generation=dur.generation,
+                          round=adopted_round, adopted=len(running), journal_round=res.round)
             log.warning("scheduler recovery: adopted %d/%d executions, fast-forwarded round "
                         "%d -> %d", len(running), len(hello_records), res.round, adopted_round)
             # The adopted jobs' statuses on the existing channels: no
@@ -1049,6 +1065,7 @@ class Orchestrator:
             await self._supervise(ctx, tasks, prelude=prelude)
             return await self._finish(ctx, collected)
         finally:
+            trace.finish(recovery_span)
             await self._teardown(ctx, progress_reg)
 
     # ------------------------------------------------------------ supervision

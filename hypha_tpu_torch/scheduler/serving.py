@@ -87,6 +87,7 @@ from ..messages import (
 )
 from ..network.node import Node, RequestError
 from ..resources import Resources
+from ..telemetry import trace
 from ..worker.infer_executor import serve_key
 from .allocator import GreedyWorkerAllocator
 from .task import StatusRouter, Task
@@ -424,28 +425,39 @@ class ServingSupervisor:
                 )
         busy_hint = 0.0
         last: "Exception | None" = None
+        # Serve-path tracing (a no-op when off): the router opens the
+        # request's ``route`` span and hands its context to the worker, so
+        # the prefill and decode spans join the request's trace.
+        route_span = trace.begin("route", parent=req.traceparent,
+                                 attrs={"serve_name": req.serve_name, "prompts": len(req.prompts)})
         req_hashes = self._req_hashes(req)
-        for dep in backends:
-            # Not the deepest holder: name the holder to pull from (None,
-            # off the wire, with no holder or the fleet cache off).
-            pull = self._pull_source(dep, req_hashes)
-            fwd = dataclasses.replace(
-                req, serve_name=dep.backend_name,
-                pull_peer=pull[0] if pull else None, pull_serve=pull[1] if pull else None)
-            dep.inflight += 1
-            try:
-                resp = await self.node.request(
-                    dep.handle.peer_id, PROTOCOL_GENERATE, fwd, timeout=REQUEST_TIMEOUT_S
-                )
-            except RequestError as e:
-                last = e
-                continue
-            finally:
-                dep.inflight -= 1
-            if getattr(resp, "ok", True):
-                self.routed += 1
-                return resp
-            busy_hint = max(busy_hint, resp.retry_after_ms)
+        try:
+            for dep in backends:
+                # Not the deepest holder: name the holder to pull from (None,
+                # off the wire, with no holder or the fleet cache off).
+                pull = self._pull_source(dep, req_hashes)
+                fwd = dataclasses.replace(
+                    req, serve_name=dep.backend_name,
+                    pull_peer=pull[0] if pull else None, pull_serve=pull[1] if pull else None,
+                    traceparent=trace.traceparent_of(route_span) or req.traceparent)
+                if route_span is not None:
+                    route_span.set_attribute("backend", dep.handle.peer_id)
+                dep.inflight += 1
+                try:
+                    resp = await self.node.request(
+                        dep.handle.peer_id, PROTOCOL_GENERATE, fwd, timeout=REQUEST_TIMEOUT_S
+                    )
+                except RequestError as e:
+                    last = e
+                    continue
+                finally:
+                    dep.inflight -= 1
+                if getattr(resp, "ok", True):
+                    self.routed += 1
+                    return resp
+                busy_hint = max(busy_hint, resp.retry_after_ms)
+        finally:
+            trace.finish(route_span)
         if busy_hint > 0.0:
             return GenerateResponse(tokens=[], ok=False, retry_after_ms=busy_hint)
         raise RequestError(

@@ -10,10 +10,11 @@ rfc/2025-08-04 "Lease Renewal"); a prune loop cancels jobs of expired
 leases every 250 ms; ``DispatchJob`` is only honored under an active lease
 owned by the dispatching peer.
 
-Timing constants are the reference's (arbiter.rs:25-29). The copy drops
-the reference's flight-recorder record and stale-generation counter of the
-re-adoption handshake (ROADMAP.md, Queue 1: telemetry); the handshake
-itself (``_on_hello``) is kept.
+Timing constants are the reference's (arbiter.rs:25-29). The re-adoption
+handshake (``_on_hello``) leaves a flight-recorder record
+(``scheduler.adopted``); the copy drops the reference's stale-generation
+counter, which belongs to the metrics plane (ROADMAP.md, Queue 1:
+telemetry).
 """
 
 from __future__ import annotations
@@ -222,6 +223,13 @@ class Arbiter:
                 log.info("lease %s expired", lease.id)
                 await self.job_manager.cancel_for_lease(lease.id)
 
+    def _lease_lapsed(self, lease_id: str) -> bool:
+        """The lease expired unrenewed, or is gone."""
+        try:
+            return self.lease_manager.get(lease_id).is_expired()
+        except LeaseNotFound:
+            return True
+
     async def _on_hello(self, peer: str, msg: SchedulerHello) -> AdoptAck:
         """Execution re-adoption (ft.durable DurableScheduler).
 
@@ -230,7 +238,9 @@ class Arbiter:
         generation (the training/PS loops drop any response stamped with
         an older one), and re-arm the backing lease — renewals resume and
         the adoption grace ends. A hello from an OLDER generation than one
-        already adopted is a zombie predecessor and is refused.
+        already adopted is a zombie predecessor and is refused. The
+        execution's ``adopter_released`` then reads whether that lease has
+        lapsed since (the adopter stopped renewing it: its job ended).
         """
         execution = self.job_manager.get(msg.job_id)
         if execution is None:
@@ -250,6 +260,7 @@ class Arbiter:
         for active_job_id, lease_id in self.job_manager.lease_bindings():
             if active_job_id != msg.job_id:
                 continue
+            execution.adopter_released = lambda _id=lease_id: self._lease_lapsed(_id)
             try:
                 self.lease_manager.renew(lease_id, peer, LEASE_TIMEOUT_S)
             except (LeaseNotFound, PermissionError) as e:
@@ -258,6 +269,10 @@ class Arbiter:
                     msg.job_id, lease_id, e,
                 )
             break
+        from ..telemetry.flight import FLIGHT
+
+        FLIGHT.record("scheduler.adopted", node=getattr(self.node, "peer_id", None) or "worker",
+                      job=msg.job_id, generation=msg.generation, round=execution.round)
         log.info(
             "execution %s adopted by scheduler generation %d (round %d)",
             msg.job_id, msg.generation, execution.round,

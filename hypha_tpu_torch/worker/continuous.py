@@ -84,17 +84,15 @@ class PoolServer:
         self, prompts: list, n_new: int, temperature: float, top_k: "int | None", seed: int,
         traceparent: "str | None" = None,
     ) -> list:
-        if traceparent is not None:
-            raise NotImplementedError(
-                "trace spans (traceparent) are not ported yet: ROADMAP.md, Queue 1, 'telemetry'"
-            )
         if self._closed:
             raise RuntimeError("server is closed")
         self.requests += 1
         if temperature == 0.0 and self.pool.fits(prompts, n_new):
             try:
+                # ``traceparent`` parents the pool's prefill and decode
+                # spans under the request's trace.
                 return await asyncio.wrap_future(
-                    self.pool.submit([list(p) for p in prompts], n_new)
+                    self.pool.submit([list(p) for p in prompts], n_new, traceparent=traceparent)
                 )
             except PoolBusy:
                 # Backpressure surfaces to the caller; the fallback is for

@@ -54,6 +54,10 @@ the peak device memory while serving (the load's peak and seconds are
 logged when the model is ready). The last of each line holds the job's
 totals. ``chip_smoke.py`` reads them from the worker's output.
 
+A traced request (``GenerateRequest.traceparent``, the router's ``route``
+span) gets a ``serve`` span on this worker, under which the pool files its
+``prefill`` and ``decode`` spans.
+
 Clients: :func:`generate_remote` — find providers of ``serve:<name>``
 through the gateway registry, RPC the first reachable one.
 
@@ -92,6 +96,7 @@ from ..models.registry import build_model
 from ..network.node import Node, RequestError
 from ..ops.kvcache import leaves_from_wire, leaves_nbytes, leaves_to_wire
 from ..ops.paged_attention import paged_attention, ragged_paged_attention
+from ..telemetry import trace
 from .batcher import RequestBatcher
 from .job_manager import Execution, JobExecutor
 
@@ -252,11 +257,18 @@ class InProcessInferExecutor(JobExecutor):
                 raise ValueError(f"{len(req.prompts)} prompts exceed max_batch {cfg.max_batch}")
             if not req.prompts or any(not p for p in req.prompts):
                 raise ValueError("prompts must be non-empty token id lists")
-            if req.traceparent is not None:
-                _refuse("traceparent (serve trace spans)", "telemetry")
             n_new = min(int(req.max_new_tokens), cfg.max_new_tokens)
             temperature = cfg.temperature if req.temperature is None else req.temperature
             top_k = cfg.top_k if req.top_k is None else req.top_k
+            # Serve-path tracing: a child of the router's ``route`` span (a
+            # no-op when the request carries no context or tracing is off).
+            with trace.span("serve", parent=req.traceparent, node=self.node.peer_id,
+                            attrs={"serve_name": req.serve_name,
+                                   "prompts": len(req.prompts)}) as serve_span:
+                return await serve_request(req, n_new, temperature, top_k, serve_span)
+
+        async def serve_request(req: GenerateRequest, n_new: int, temperature, top_k,
+                                serve_span) -> GenerateResponse:
             batcher = loaded.get("batcher")
             if batcher is None:  # batch_window_ms < 0: independent decodes
                 tokens = await asyncio.to_thread(
@@ -272,7 +284,8 @@ class InProcessInferExecutor(JobExecutor):
                 # prefix hit skips its prefill. A failure is a miss.
                 await self._fleet_pull(req, pool, loaded["link"])
             try:
-                tokens = await batcher.submit(req.prompts, n_new, temperature, top_k, req.seed)
+                tokens = await batcher.submit(req.prompts, n_new, temperature, top_k, req.seed,
+                                              traceparent=trace.traceparent_of(serve_span))
             except PoolBusy as busy:
                 # Backpressure is a response, not an error: the client
                 # retries after the hint.

@@ -13,7 +13,7 @@ from __future__ import annotations
 import asyncio
 import logging
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Callable
 
 from .. import aio
 from ..messages import PROTOCOL_API, JobSpec, JobStatus
@@ -38,6 +38,9 @@ class Execution:
         self.epoch = 0
         self.adopt_grace_s: float | None = None
         self.scheduler_generation: int | None = None
+        # Set by the adoption hello: True once the lease that the adopting
+        # scheduler re-armed has lapsed unrenewed (it released the job).
+        self.adopter_released: "Callable[[], bool] | None" = None
         self._result: asyncio.Future[JobStatus] = (
             asyncio.get_event_loop().create_future()
         )

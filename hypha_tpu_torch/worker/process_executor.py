@@ -26,6 +26,12 @@ node's pushes), and stops when the process ends.
 The bridge's connector serves the slice fetches of pipelined jobs from an
 on-disk :class:`~hypha_tpu_torch.worker.slice_cache.SliceCache` under
 ``work_root / "slice-cache"``, which outlives each job's work dir.
+
+A node that traces (``telemetry.trace``) hands its trace directory to the
+child as ``HYPHA_TRACE_DIR`` and, unless the environment names one, its
+peer id as ``HYPHA_TRACE_NODE``: the trainer's spans carry the worker's
+name, as an in-process trainer's do (the reference's child inherits only
+the environment, and labels itself ``pid<N>``).
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from .. import aio, messages
 from ..messages import JobSpec
 from ..node_config import TRAINER_ARGS
 from ..stream.reduce import maybe_start_reducer
+from ..telemetry import trace
 from .bridge import Bridge
 from .connectors import Connector
 from .job_manager import Execution, JobExecutor
@@ -99,9 +106,14 @@ class ProcessExecutor(JobExecutor):
             "DEVICE": str(self.device),
         }
         argv = [self.cmd] + [_substitute(a, subst) for a in self.args]
+        env = {**os.environ, "PYTHONPATH": _pythonpath(), **subst}
+        tracing = trace.active()
+        if tracing is not None:
+            env["HYPHA_TRACE_DIR"] = str(tracing.trace_dir)
+            env.setdefault("HYPHA_TRACE_NODE", str(self.node.peer_id))
         proc = await asyncio.create_subprocess_exec(
             *argv, stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.STDOUT,
-            env={**os.environ, "PYTHONPATH": _pythonpath(), **subst}, cwd=str(work_dir),
+            env=env, cwd=str(work_dir),
         )
         log.info("job %s: spawned pid %s: %s", job_id, proc.pid, argv[:3])
         execution = _ProcessExecution(job_id, proc, bridge, work_dir,

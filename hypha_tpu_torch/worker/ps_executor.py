@@ -108,6 +108,8 @@ a quorate round closes and the workers merge without the scheduler, then
 the notify retries until the grace ends. Once a round is committed the
 execution reports the next round as its own (the ``AdoptAck`` round): a
 restarted scheduler credits the committed round and never runs it again.
+A notify still parked when the scheduler that adopted the execution
+releases its lease (its job ended without the notify) ends with DONE.
 
 What raises ``NotImplementedError`` at dispatch, with its ROADMAP.md
 label: ``report_metrics_s`` (telemetry).
@@ -161,6 +163,7 @@ from ..messages import (
     PREFOLD_KEY,
     PROTOCOL_PROGRESS,
     SHARD_KEY,
+    TRACEPARENT_KEY,
     Ack,
     FragmentTag,
     JobSpec,
@@ -174,6 +177,8 @@ from ..network.node import RequestError
 from ..stream import RoundAccum, fragment_due, top_targets, with_serve_leaves
 from ..stream.reduce import tree_broadcast
 from ..stream.sync import next_owned_round, placement_parts, shard_owns_round
+from ..telemetry import trace
+from ..telemetry.flight import FLIGHT
 from .connectors import push_timeout
 from .job_manager import Execution, JobExecutor
 
@@ -290,6 +295,11 @@ def _unported(cfg) -> None:
             )
 
 
+class _JobEnded(Exception):
+    """The scheduler that adopted a parked notify's execution released its
+    lease: its job ended (``_notify_updated_resilient``)."""
+
+
 def _fire_once(fn):
     """Wrap an async thunk so that only its first call runs it: a round's
     broadcast goes out once, from the parked notify's outage path or after
@@ -357,6 +367,54 @@ def _unlink(paths: list) -> None:
         path.unlink(missing_ok=True)
 
 
+class _PsTrace:
+    """The server's round-trace contexts (the reference's ``_PsTrace``); a
+    no-op when tracing is off.
+
+    The scheduler hands the next round's root context back on every
+    UPDATED answer, so quorum_wait / outer_step / broadcast spans parent
+    under the round's root from round 1 on; round 0's comes with its first
+    delta's header. Per-delta upload and fold spans parent on the context
+    in their own push header. A blocking round ends in ``cleanup`` spans
+    (the round's files unlinked, the encodes' card memory returned): the
+    port's own, since the reference leaves that stretch untraced and a
+    merged timeline then shows a gap between the server's rounds."""
+
+    def __init__(self, node: str) -> None:
+        self.node = node
+        # Bounded per-round contexts: round r's broadcast still needs its
+        # context after the UPDATED answer handed over round r+1's, and
+        # the pipelined loop keeps several rounds open.
+        self._by_round: dict = {}
+
+    def ctx(self, round_num: int) -> "str | None":
+        return self._by_round.get(round_num)
+
+    def adopt(self, response, round_num: int) -> None:
+        tp = getattr(response, "traceparent", None)
+        # A context already filed under an earlier round is skipped: a
+        # sharded job's scheduler advances only once every due shard
+        # reported, so a non-final shard's answer carries the current
+        # round's root, which must not parent the next round's spans.
+        if tp and tp not in self._by_round.values():
+            self._by_round[round_num] = tp
+            while len(self._by_round) > 16:
+                self._by_round.pop(min(self._by_round))
+
+    @staticmethod
+    def push_ctx(push) -> "str | None":
+        """The context a delta push's header carries (None untraced)."""
+        r = push.resource
+        return r.get(TRACEPARENT_KEY) if isinstance(r, dict) else None
+
+    def adopt_push(self, push, round_num: int) -> None:
+        """A round's first delta carries its context too: the server's
+        only source for round 0 (no UPDATED answer exists yet)."""
+        tp = self.push_ctx(push)
+        if tp and round_num not in self._by_round:
+            self._by_round[round_num] = tp
+
+
 class ParameterServerExecutor(JobExecutor):
     """The parameter server, or one shard of it, on ``device`` (CUDA
     unless the caller asks for the CPU; without CUDA and without that
@@ -366,6 +424,11 @@ class ParameterServerExecutor(JobExecutor):
         self.node = node
         self.work_root = Path(work_root)
         self.device = default_device(device)
+
+    def _trace_node(self) -> str:
+        """The label of this server's spans and events (tests build
+        executors without a node)."""
+        return getattr(self.node, "peer_id", None) or "ps"
 
     async def execute(self, job_id: str, spec: JobSpec, scheduler_peer: str) -> Execution:
         cfg = spec.executor.aggregate
@@ -512,6 +575,7 @@ class ParameterServerExecutor(JobExecutor):
                     init_pending=preload, init_efs=rec_efs, adaptive_steps=adaptive_steps)
                 return
             park_s = float(cfg.adopt_grace_s or 0)
+            ptrace = _PsTrace(self._trace_node())
             while True:
                 execution.round = round_num  # the live round, for AdoptAck
                 if elastic is not None:
@@ -526,20 +590,30 @@ class ParameterServerExecutor(JobExecutor):
                 # peer -> collect start to its delta's acceptance (only an
                 # adaptive_steps job fills it).
                 arrivals: "dict | None" = {} if adaptive_steps else None
+                qw_span = trace.begin("quorum_wait", parent=ptrace.ctx(round_num),
+                                      attrs={"round": round_num}, node=ptrace.node)
                 if elastic is not None:
                     received = await self._collect_round_elastic(
                         consumer, job_id, elastic, cfg, work_dir, round_num, accum, dur,
-                        link=link, arrivals=arrivals)
+                        link=link, arrivals=arrivals, ptrace=ptrace)
                 else:
                     received = await self._collect_round(
                         consumer, job_id, allowed, num_workers, work_dir, round_num, accum,
                         dur=dur, preloaded=preload.pop(round_num, None),
-                        preloaded_folded=preloaded_folded, link=link, arrivals=arrivals)
+                        preloaded_folded=preloaded_folded, link=link, arrivals=arrivals,
+                        ptrace=ptrace)
+                # Round 0's root context arrives only in the first delta's
+                # header: the wait span joins it late.
+                trace.reparent(qw_span, ptrace.ctx(round_num))
+                trace.finish(qw_span)
                 if dur is not None:
                     await asyncio.to_thread(dur.note_close, round_num, list(received))
+                outer_span = trace.begin("outer_step", parent=ptrace.ctx(round_num),
+                                         attrs={"round": round_num}, node=ptrace.node)
                 update_path = await asyncio.to_thread(
                     outer_step, received, momentum_file, lr, mu, work_dir, round_num,
                     accum=accum, device=self.device)
+                trace.finish(outer_span)
                 del accum
                 if link is not None:
                     # Per-link broadcast (the static close below, less the
@@ -549,13 +623,18 @@ class ParameterServerExecutor(JobExecutor):
                         await asyncio.to_thread(elastic.catchup.accumulate, update_path)
                     bcast_adaptive = _fire_once(
                         lambda _u=update_path, _r=round_num: self._broadcast_adaptive(
-                            cfg, _u, _r, elastic, link, peer_efs, work_dir))
+                            cfg, _u, _r, elastic, link, peer_efs, work_dir,
+                            traceparent=ptrace.ctx(_r)))
                     response = await self._notify_updated_resilient(
                         scheduler_peer, job_id, round_num, execution=execution,
-                        arrivals=arrivals, park_s=park_s, on_first_failure=bcast_adaptive)
+                        arrivals=arrivals, park_s=park_s, on_first_failure=bcast_adaptive,
+                        traceparent=ptrace.ctx(round_num))
+                    ptrace.adopt(response, round_num + 1)
                     await bcast_adaptive()
-                    await asyncio.to_thread(
-                        _unlink, [update_path] + [path for path, _ in received.values()])
+                    with trace.span("cleanup", parent=ptrace.ctx(round_num),
+                                    attrs={"round": round_num}, node=ptrace.node):
+                        await asyncio.to_thread(
+                            _unlink, [update_path] + [path for path, _ in received.values()])
                     round_num += 1
                     if elastic is not None:
                         await self._serve_joins(elastic, cfg, round_num, work_dir)
@@ -599,10 +678,12 @@ class ParameterServerExecutor(JobExecutor):
                     lambda _w=wire_path, _r=round_num: self._broadcast(
                         cfg, _w, _r, elastic,
                         extra_header={GENERATION_KEY: dur.generation} if dur is not None
-                        else None))
+                        else None, traceparent=ptrace.ctx(_r), span_round=_r))
                 response = await self._notify_updated_resilient(
                     scheduler_peer, job_id, round_num, execution=execution, arrivals=arrivals,
-                    park_s=park_s, on_first_failure=bcast_static)
+                    park_s=park_s, on_first_failure=bcast_static,
+                    traceparent=ptrace.ctx(round_num))
+                ptrace.adopt(response, round_num + 1)
                 if dur is not None:
                     await asyncio.to_thread(
                         dur.note_notified, round_num,
@@ -613,7 +694,9 @@ class ParameterServerExecutor(JobExecutor):
                 done_files = [update_path] + ([wire_path] if wire_path != update_path else [])
                 if dur is None:
                     done_files += [path for path, _ in received.values()]
-                await asyncio.to_thread(_unlink, done_files)
+                with trace.span("cleanup", parent=ptrace.ctx(round_num),
+                                attrs={"round": round_num}, node=ptrace.node):
+                    await asyncio.to_thread(_unlink, done_files)
                 round_num += 1
                 if elastic is not None:
                     await self._serve_joins(elastic, cfg, round_num, work_dir)
@@ -710,6 +793,8 @@ class ParameterServerExecutor(JobExecutor):
                 _unlink, [update_path] + ([wire_path] if wire_path != update_path else []))
             round_num = rnd + 1
         replay_s = time.perf_counter() - t0
+        FLIGHT.record("ps.recovered", node=self._trace_node(), job=job_id,
+                      generation=dur.generation, round=round_num, replayed=len(resume.committed))
         log.warning("ps %s: recovered durable state (generation %d): resuming round %d (%d "
                     "committed rounds replayed in %.3f s)", job_id, dur.generation, round_num,
                     len(resume.committed), replay_s)
@@ -817,11 +902,18 @@ class ParameterServerExecutor(JobExecutor):
 
     @staticmethod
     async def _fold(accum: "RoundAccum | None", entry: tuple, sign: float = 1.0,
-                    prefolded: bool = False) -> None:
+                    prefolded: bool = False, span_attrs: "dict | None" = None,
+                    parent: "str | None" = None, trace_node: "str | None" = None) -> None:
         """Fold one saved delta (or a partial, verbatim) into the round's
-        sum, off the event loop (None: a parked bucket, nothing folded)."""
-        if accum is not None:
-            await asyncio.to_thread(accum.fold, entry[0], entry[1], sign, prefolded)
+        sum, off the event loop (None: a parked bucket, nothing folded).
+        ``span_attrs`` wraps the work in a round-trace ``fold`` span (the
+        accepting folds only; un-folds and replays stay spanless)."""
+        if accum is None:
+            return
+        fold_span = (trace.begin("fold", parent=parent, attrs=span_attrs, node=trace_node)
+                     if span_attrs is not None and sign > 0 else None)
+        await asyncio.to_thread(accum.fold, entry[0], entry[1], sign, prefolded)
+        trace.finish(fold_span)
 
     # ------------------------------------------------ tree-reduce covers
 
@@ -899,6 +991,7 @@ class ParameterServerExecutor(JobExecutor):
         round_num: int, accum: RoundAccum, dur: "DurablePS | None" = None,
         preloaded: "dict | None" = None, preloaded_folded: bool = False,
         link: "LinkTable | None" = None, arrivals: "dict | None" = None,
+        ptrace: "_PsTrace | None" = None,
     ) -> dict:
         """Gather one pseudo-gradient per worker: key -> (path, samples),
         each folded into ``accum`` as it lands. ``preloaded`` seeds the
@@ -907,8 +1000,10 @@ class ParameterServerExecutor(JobExecutor):
         delta and partial (saved under the checkpoint root, uniquely
         named), drops an exact re-send, and drops a delta of a round
         already committed. ``link`` times each drain; ``arrivals`` takes
-        each covered peer's lag from the collect's start."""
+        each covered peer's lag from the collect's start. ``ptrace`` takes
+        the round's context from the first traced push."""
         t_open = asyncio.get_running_loop().time()
+        tnode = ptrace.node if ptrace is not None else None
         received: dict = dict(preloaded or {})
         # Entry key -> (prefolded, covered workers): a tree-reduce partial
         # covers its group, everything else its sender. Journaled entries
@@ -959,10 +1054,12 @@ class ParameterServerExecutor(JobExecutor):
                 await self._fold(accum, old, sign=-1.0, prefolded=prefolded)
                 await asyncio.to_thread(_unlink, [old[0]])
             hasher = hashlib.sha256() if dur is not None else None
+            if ptrace is not None:
+                ptrace.adopt_push(push, round_num)
             entry = await self._save_delta(
                 push, dest_dir, round_num,
                 suffix=f"-{uuid.uuid4().hex[:8]}" if dur is not None else "", hasher=hasher,
-                key=key, link=link)
+                key=key, link=link, trace_node=tnode)
             self._note_arrival(arrivals, t_open, peer, prefolded, cov)
             if not await self._ingest(dur, round_num, 0, key, entry,
                                       hasher.hexdigest() if hasher is not None else None,
@@ -979,7 +1076,9 @@ class ParameterServerExecutor(JobExecutor):
                                            durable=dur is not None)
             received[key] = entry
             covers[key] = (prefolded, cov)
-            await self._fold(accum, entry, prefolded=prefolded)
+            await self._fold(accum, entry, prefolded=prefolded,
+                             span_attrs={"round": round_num, "peer": peer},
+                             parent=_PsTrace.push_ctx(push), trace_node=tnode)
             log.info("ps %s: round %d delta %d/%d (from %s)",
                      job_id, round_num, len(received), num_workers, peer)
         return received
@@ -988,7 +1087,8 @@ class ParameterServerExecutor(JobExecutor):
                                      work_dir: Path, round_num: int, accum: RoundAccum,
                                      dur: "DurablePS | None" = None,
                                      link: "LinkTable | None" = None,
-                                     arrivals: "dict | None" = None) -> dict:
+                                     arrivals: "dict | None" = None,
+                                     ptrace: "_PsTrace | None" = None) -> dict:
         """Quorum + deadline gather: key -> (path, samples). The round
         closes, with at least a quorum of covered workers, once every live
         active worker is covered or ``round_deadline_s`` passed since it
@@ -1000,6 +1100,7 @@ class ParameterServerExecutor(JobExecutor):
         its first-round grace while an expected peer is unmeasured (no peer
         is dropped before one upload of it was seen); ``arrivals`` takes
         each covered peer's lag, a parked one's as zero."""
+        tnode = ptrace.node if ptrace is not None else None
         received: dict = dict(st.early.pop(round_num, {}))
         covers: dict = dict(st.early_covers.pop(round_num, {}))
         if dur is not None:
@@ -1061,6 +1162,8 @@ class ParameterServerExecutor(JobExecutor):
             delta_round = await self._classify_push(push, job_id, st.membership.active, round_num)
             if delta_round is None:
                 continue
+            if ptrace is not None:
+                ptrace.adopt_push(push, delta_round)
             prefolded, cov = self._push_cover(push.resource, peer)
             key = self._entry_key(prefolded, peer)
             cov_table = (covers if delta_round == round_num
@@ -1082,7 +1185,7 @@ class ParameterServerExecutor(JobExecutor):
                               else None)
             entry = await self._save_delta_bounded(
                 push, dest_dir, delta_round, suffix=f"-{uuid.uuid4().hex[:8]}", hasher=hasher,
-                deadline=drain_deadline, job_id=job_id, key=key, link=link)
+                deadline=drain_deadline, job_id=job_id, key=key, link=link, trace_node=tnode)
             if entry is None:
                 continue
             if delta_round == round_num:
@@ -1123,7 +1226,9 @@ class ParameterServerExecutor(JobExecutor):
                                            durable=dur is not None)
             received[key] = entry
             covers[key] = (prefolded, cov)
-            await self._fold(accum, entry, prefolded=prefolded)
+            await self._fold(accum, entry, prefolded=prefolded,
+                             span_attrs={"round": round_num, "peer": peer},
+                             parent=_PsTrace.push_ctx(push), trace_node=tnode)
             log.info("ps %s: round %d delta %d (quorum %d, active %d) from %s", job_id, round_num,
                      len(received), st.quorum(), len(st.membership.active), peer)
         self._log_degraded(job_id, st, cfg, round_num, received, covers)
@@ -1161,7 +1266,8 @@ class ParameterServerExecutor(JobExecutor):
     async def _save_delta_bounded(self, push, dest_dir: Path, delta_round: int, *, suffix: str,
                                   hasher, deadline: "float | None",
                                   job_id: str = "", key: "str | None" = None,
-                                  link: "LinkTable | None" = None) -> "tuple | None":
+                                  link: "LinkTable | None" = None,
+                                  trace_node: "str | None" = None) -> "tuple | None":
         """:meth:`_save_delta` with the drain bounded by the round deadline
         (plus ``_DRAIN_SLACK_S``); None when abandoned (the sender's retry
         re-ships it, and the stale guard disposes of the copy). An
@@ -1169,7 +1275,7 @@ class ParameterServerExecutor(JobExecutor):
         bound the link from above, so a link too slow ever to finish still
         engages the codec ladder."""
         save = self._save_delta(push, dest_dir, delta_round, suffix=suffix, hasher=hasher,
-                                key=key, link=link)
+                                key=key, link=link, trace_node=trace_node)
         if deadline is None:
             return await save
         budget = max(deadline - asyncio.get_running_loop().time(), 0.0) + _DRAIN_SLACK_S
@@ -1178,6 +1284,8 @@ class ParameterServerExecutor(JobExecutor):
         except asyncio.TimeoutError:
             log.warning("ps %s: delta drain from %s for round %d abandoned after %.1fs "
                         "(deadline passed mid-transfer)", job_id, push.peer, delta_round, budget)
+            FLIGHT.record("ps.drain_abandoned", node=trace_node, peer=push.peer,
+                          round=delta_round, budget_s=round(budget, 3), job=job_id)
             push.finish()
             name = hashlib.sha256((key or push.peer).encode()).hexdigest()[:24]
             partial = dest_dir / f"delta-{delta_round}-{name}{suffix}.safetensors"
@@ -1193,7 +1301,8 @@ class ParameterServerExecutor(JobExecutor):
     @staticmethod
     async def _save_delta(push, work_dir: Path, round_num: int, suffix: str = "",
                           hasher=None, key: "str | None" = None,
-                          link: "LinkTable | None" = None) -> tuple:
+                          link: "LinkTable | None" = None,
+                          trace_node: "str | None" = None) -> tuple:
         """Save one pseudo-gradient push; returns (path, sample weight).
         ``hasher`` takes the payload's bytes as they stream to disk (the
         durable journal's sha, without a second read). ``key`` names the
@@ -1202,8 +1311,20 @@ class ParameterServerExecutor(JobExecutor):
         draining it to disk is the sender's link."""
         name = hashlib.sha256((key or push.peer).encode()).hexdigest()[:24]
         dest = work_dir / f"delta-{round_num}-{name}{suffix}.safetensors"
+        # The receiver-side ``upload`` span, header arrival to payload
+        # drained: the sender's link, which the timeline's straggler keys
+        # on (``peer`` names the sender; its header carries the round's
+        # context).
+        up_span = trace.begin("upload", parent=_PsTrace.push_ctx(push),
+                              attrs={"round": round_num, "peer": push.peer}, node=trace_node)
         t0 = time.monotonic()
         nbytes = await push.save_to(dest, hasher=hasher)
+        if up_span is not None:
+            try:
+                up_span.set_attribute("bytes", int(nbytes) if nbytes else dest.stat().st_size)
+            except (TypeError, ValueError, OSError):
+                pass
+        trace.finish(up_span)
         if link is not None:
             try:
                 size = int(nbytes) if nbytes else dest.stat().st_size
@@ -1258,6 +1379,8 @@ class ParameterServerExecutor(JobExecutor):
                     del st.pending_joins[peer]
                 continue
             del st.pending_joins[peer]
+            FLIGHT.record("ft.catchup_served", node=self._trace_node(), peer=peer,
+                          round=round_num, rounds=st.catchup.rounds)
             log.info("ps: served catch-up (%d rounds, next %d) to rejoiner %s: %d bytes in %.3f s"
                      " (shard %d)", st.catchup.rounds, round_num, peer, path.stat().st_size,
                      time.perf_counter() - t0, st.shard)
@@ -1354,6 +1477,7 @@ class ParameterServerExecutor(JobExecutor):
             return [momentum_file] + sorted(work_dir.glob("momentum-f*.safetensors"))
 
         round_num = next_owned(round_start)
+        ptrace = _PsTrace(self._trace_node())
         park_s = float(cfg.adopt_grace_s or 0)
         try:
             while True:
@@ -1363,20 +1487,29 @@ class ParameterServerExecutor(JobExecutor):
                 if dur is not None:
                     await asyncio.to_thread(dur.note_open, round_num)
                 arrivals: "dict | None" = {} if adaptive_steps else None
+                qw_span = trace.begin("quorum_wait", parent=ptrace.ctx(round_num),
+                                      attrs={"round": round_num, "fragment": due_fn(round_num)},
+                                      node=ptrace.node)
                 received = await self._collect_round_stream(
                     consumer, job_id, allowed, num_workers, work_dir, round_num, fragments,
                     accums, pending, due_fn=due_fn, owned_fn=owned_fn,
                     pending_covers=pending_covers, sharded=sharded, cfg=cfg, st=elastic,
-                    dur=dur, arrivals=arrivals)
+                    dur=dur, arrivals=arrivals, ptrace=ptrace)
+                trace.reparent(qw_span, ptrace.ctx(round_num))
+                trace.finish(qw_span)
                 if dur is not None:
                     await asyncio.to_thread(dur.note_close, round_num, list(received))
                 frag = due_fn(round_num)
                 tag = FragmentTag(round=round_num, fragment_id=frag, fragments=fragments)
                 accum = accums.pop(round_num, None)
                 part_momentum = self._part_momentum(work_dir, frag)
+                outer_span = trace.begin("outer_step", parent=ptrace.ctx(round_num),
+                                         attrs={"round": round_num, "fragment": frag},
+                                         node=ptrace.node)
                 update_path = await asyncio.to_thread(
                     outer_step, received, part_momentum, lr, mu, work_dir, round_num,
                     accum=accum, device=self.device, base=momentum_file)
+                trace.finish(outer_span)
                 del accum
                 if frag not in bcast_efs:
                     bcast_efs[frag] = (compress.ErrorFeedback()
@@ -1418,7 +1551,8 @@ class ParameterServerExecutor(JobExecutor):
                     last_bcast[_frag] = aio.spawn(
                         self._broadcast_and_cleanup(
                             cfg, _u, _w, _rcv, _tag, _hdr, after=last_bcast.get(_frag),
-                            elastic=elastic, peers=_peers, keep_received=dur is not None),
+                            elastic=elastic, peers=_peers, keep_received=dur is not None,
+                            traceparent=ptrace.ctx(_tag.round)),
                         tasks=bcast_tasks, what=f"stream broadcast r{_tag.round}", logger=log)
 
                 launch_bcast = _fire_once(spawn_bcast)
@@ -1426,7 +1560,9 @@ class ParameterServerExecutor(JobExecutor):
                 # and its exception across a scheduler outage).
                 response = await self._notify_updated_resilient(
                     scheduler_peer, job_id, round_num, execution=execution, shard=shard,
-                    arrivals=arrivals, park_s=park_s, on_first_failure=launch_bcast)
+                    arrivals=arrivals, park_s=park_s, on_first_failure=launch_bcast,
+                    traceparent=ptrace.ctx(round_num))
+                ptrace.adopt(response, next_owned(round_num + 1))
                 if dur is not None:
                     await asyncio.to_thread(dur.note_notified, round_num,
                                             response.kind == ProgressResponseKind.DONE)
@@ -1454,7 +1590,8 @@ class ParameterServerExecutor(JobExecutor):
                                     sharded: bool = False, cfg=None,
                                     st: "_ElasticState | None" = None,
                                     dur: "DurablePS | None" = None,
-                                    arrivals: "dict | None" = None) -> dict:
+                                    arrivals: "dict | None" = None,
+                                    ptrace: "_PsTrace | None" = None) -> dict:
         """Gather round ``round_num``'s part deltas, key -> (path, samples),
         until every worker is covered, or, with ``st`` (elastic), until the
         live active workers are covered at quorum or the round deadline
@@ -1472,6 +1609,7 @@ class ParameterServerExecutor(JobExecutor):
         if due_fn is None:
             def due_fn(r: int) -> int:
                 return fragment_due(r, fragments)
+        tnode = ptrace.node if ptrace is not None else None
         if pending_covers is None:
             pending_covers = {}
         received = pending.pop(round_num, {})
@@ -1522,6 +1660,8 @@ class ParameterServerExecutor(JobExecutor):
             delta_round = await self._classify_push(push, job_id, members, round_num)
             if delta_round is None:
                 continue
+            if ptrace is not None:
+                ptrace.adopt_push(push, delta_round)
             if owned_fn is not None and not owned_fn(delta_round):
                 # Another shard's round: this shard never opens it.
                 log.warning("ps %s: push for round %d from %s is another shard's; dropped",
@@ -1560,7 +1700,7 @@ class ParameterServerExecutor(JobExecutor):
                 drain_deadline = deadline
             entry = await self._save_delta_bounded(
                 push, dest_dir, delta_round, suffix=f"-{uuid.uuid4().hex[:8]}", hasher=hasher,
-                deadline=drain_deadline, job_id=job_id, key=key)
+                deadline=drain_deadline, job_id=job_id, key=key, trace_node=tnode)
             if entry is None:
                 continue
             if tag is not None and not await asyncio.to_thread(
@@ -1590,7 +1730,9 @@ class ParameterServerExecutor(JobExecutor):
             cov_table[key] = (prefolded, cov)
             if delta_round == round_num:
                 self._note_arrival(arrivals, t_open, peer, prefolded, cov)
-            await self._fold(accum, entry, prefolded=prefolded)
+            await self._fold(accum, entry, prefolded=prefolded,
+                             span_attrs={"round": delta_round, "peer": peer, "fragment": due},
+                             parent=_PsTrace.push_ctx(push), trace_node=tnode)
             log.info("ps %s: round %d part %d %s %d (from %s%s%s)", job_id, round_num,
                      due_fn(round_num), "partial" if prefolded else "delta", len(received),
                      peer, f", covers {sorted(cov)}" if prefolded else "",
@@ -1603,7 +1745,8 @@ class ParameterServerExecutor(JobExecutor):
                                      received: dict, tag: FragmentTag, header: dict,
                                      after: "asyncio.Task | None" = None, elastic=None,
                                      peers: "list | None" = None,
-                                     keep_received: bool = False) -> None:
+                                     keep_received: bool = False,
+                                     traceparent: "str | None" = None) -> None:
         """One round's background fan-out, then its files go (a durable
         server keeps the received files for its journal's replay).
         ``after`` is the same part's previous fan-out: without the chain a
@@ -1614,7 +1757,8 @@ class ParameterServerExecutor(JobExecutor):
             await aio.wait_quiet(after)
         try:
             await self._broadcast(cfg, wire_path, tag.round, elastic, extra_header=header,
-                                  peers_override=peers)
+                                  peers_override=peers, traceparent=traceparent,
+                                  span_round=tag.round)
         finally:
             done = [update_path, wire_path]
             if not keep_received:
@@ -1622,7 +1766,8 @@ class ParameterServerExecutor(JobExecutor):
             await asyncio.to_thread(_unlink, done)
 
     async def _broadcast_adaptive(self, cfg, update_path: Path, round_num: int, elastic,
-                                  link: LinkTable, peer_efs: dict, work_dir: Path) -> None:
+                                  link: LinkTable, peer_efs: dict, work_dir: Path,
+                                  traceparent: "str | None" = None) -> None:
         """Per-link broadcast (the reference's ``:2478-2573``): peers grouped
         by the codec their measured link maps to. "none" ships the f32
         update file itself; another unquantized codec is encoded once for
@@ -1678,23 +1823,28 @@ class ParameterServerExecutor(JobExecutor):
             tree_box.clear()
             tasks = [asyncio.create_task(
                 self._broadcast(cfg, wire, round_num, elastic, extra_header={CODEC_KEY: codec},
-                                peers_override=group), name=f"ps-abcast-{codec}")
+                                peers_override=group, traceparent=traceparent,
+                                span_round=round_num), name=f"ps-abcast-{codec}")
                 for wire, codec, group in sends]
             try:
                 await asyncio.gather(*tasks)
             finally:
                 await aio.reap(*(t for t in tasks if not t.done()))
         finally:
-            await asyncio.to_thread(_unlink, scratch)
-            if self.device.type == "cuda":
-                # The encodes' transients (the update tree, each frame's
-                # decoded tensors) go back to the card, which the job's
-                # trainers may share; the residuals stay.
-                torch.cuda.empty_cache()
+            with trace.span("cleanup", parent=traceparent, attrs={"round": round_num},
+                            node=self._trace_node()):
+                await asyncio.to_thread(_unlink, scratch)
+                if self.device.type == "cuda":
+                    # The encodes' transients (the update tree, each frame's
+                    # decoded tensors) go back to the card, which the job's
+                    # trainers may share; the residuals stay.
+                    torch.cuda.empty_cache()
 
     async def _broadcast(self, cfg, update_path: Path, round_num: int, elastic=None,
                          extra_header: "dict | None" = None,
-                         peers_override: "list | None" = None) -> None:
+                         peers_override: "list | None" = None,
+                         traceparent: "str | None" = None,
+                         span_round: "int | None" = None) -> None:
         """Push the update's wire file to every results peer in parallel, at
         most ``_BROADCAST_CONCURRENCY`` streams at once. A peer's failure is
         tolerated (it catches up next round); ``TransferStrategy.ANY``
@@ -1702,11 +1852,16 @@ class ParameterServerExecutor(JobExecutor):
         membership's active set (``peers_override`` when the pipelined
         loop froze it at the close), with its epoch in the header.
         ``extra_header`` (a stream round's ``FragmentTag``, a durable
-        server's generation, a shard's index) joins the push header."""
+        server's generation, a shard's index) joins the push header.
+        ``traceparent`` (a traced job's round broadcasts only) stamps the
+        round's context into the header and, with ``span_round``, wraps
+        the fan-out in a ``broadcast`` span; resync, catch-up and
+        re-broadcast callers pass neither and keep their header bytes."""
         peers = cfg.results.ref.peers or []
         strategy = cfg.results.ref.strategy or TransferStrategy.ALL
         header = {"resource": cfg.results.ref.resource or "results",
                   "name": update_path.name, "round": round_num, **(extra_header or {})}
+        trace.inject(header, traceparent)
         if elastic is not None:
             peers = list(elastic.membership.active)
             header["epoch"] = elastic.membership.epoch
@@ -1728,10 +1883,17 @@ class ParameterServerExecutor(JobExecutor):
                                              serve_peers + list(tree_map.serve_leaves or []))
             targets = top_targets(bcast_groups, peers)
             t0 = time.perf_counter()
-            delivered, lost = await tree_broadcast(
-                self.node, header, str(header["resource"]), bcast_groups, targets, update_path,
-                allowed=set(peers), concurrency=_BROADCAST_CONCURRENCY,
-                what="ps tree broadcast", logger=log)
+            bcast_span = (trace.begin("broadcast", parent=traceparent, node=self._trace_node(),
+                                      attrs={"round": span_round, "peers": len(peers),
+                                             "tree": True})
+                          if span_round is not None else None)
+            try:
+                delivered, lost = await tree_broadcast(
+                    self.node, header, str(header["resource"]), bcast_groups, targets,
+                    update_path, allowed=set(peers), concurrency=_BROADCAST_CONCURRENCY,
+                    what="ps tree broadcast", logger=log)
+            finally:
+                trace.finish(bcast_span)
             log.info("ps: tree broadcast round %d to %s of %s in %.3f s (%d delivered, %d lost)",
                      round_num, targets, peers, time.perf_counter() - t0, delivered, lost)
             if lost:
@@ -1754,6 +1916,9 @@ class ParameterServerExecutor(JobExecutor):
                     log.warning("ps: broadcast to %s failed (%s); retry next round", peer, e)
                     return False
 
+        bcast_span = (trace.begin("broadcast", parent=traceparent, node=self._trace_node(),
+                                  attrs={"round": span_round, "peers": len(peers)})
+                      if span_round is not None else None)
         tasks = [asyncio.create_task(push_one(p), name=f"ps-bcast-{p}") for p in peers]
         try:
             if strategy == TransferStrategy.ANY:
@@ -1767,10 +1932,12 @@ class ParameterServerExecutor(JobExecutor):
             # raised, are cancelled and awaited, never left streaming a file
             # the job teardown is about to remove.
             await aio.reap(*(t for t in tasks if not t.done()))
+            trace.finish(bcast_span)
 
     async def _notify_updated(self, scheduler_peer: str, job_id: str, round_num: int,
                               execution=None, shard: int = 0,
-                              arrivals: "dict | None" = None) -> ProgressResponse:
+                              arrivals: "dict | None" = None,
+                              traceparent: "str | None" = None) -> ProgressResponse:
         """One UPDATED notify; a reply from an older scheduler generation
         than the one adopted (a zombie's) raises, so it is retried."""
         gen = getattr(execution, "scheduler_generation", None)
@@ -1779,6 +1946,7 @@ class ParameterServerExecutor(JobExecutor):
             # Stamped only once a scheduler restart happened (generation
             # >= 2), so an unrestarted job's UPDATED is the reference's bytes.
             scheduler_generation=gen if gen is not None and gen >= 2 else None,
+            traceparent=traceparent,
         )
         if arrivals is not None:
             # Only adaptive_steps jobs attach the key: a static UPDATED
@@ -1804,7 +1972,8 @@ class ParameterServerExecutor(JobExecutor):
     async def _notify_updated_resilient(self, scheduler_peer: str, job_id: str, round_num: int,
                                         *, shard: int = 0, arrivals: "dict | None" = None,
                                         execution=None, park_s: float = 0.0,
-                                        on_first_failure=None) -> ProgressResponse:
+                                        on_first_failure=None,
+                                        traceparent: "str | None" = None) -> ProgressResponse:
         """An UPDATED notify that survives a scheduler outage. Without
         ``park_s`` (recovery off) it is one attempt. With it, the second
         failed attempt in a row runs ``on_first_failure`` (the round's
@@ -1812,28 +1981,56 @@ class ParameterServerExecutor(JobExecutor):
         notify retries in ``aio.retry`` until the restarted scheduler
         answers or ``park_s`` runs out. Two failures, not one: one blip
         against a live scheduler must not reorder notify and broadcast,
-        since the workers' UPDATE_RECEIVED is not parked then."""
+        since the workers' UPDATE_RECEIVED is not parked then.
+
+        A scheduler that adopted the execution during the park and then
+        let the lease it re-armed lapse has released the job: the park
+        stops with DONE and the execution completes, where it would fail
+        at ``park_s``. This server reports the round after a committed one
+        in its AdoptAck, so a scheduler without the port's ``_owed`` (the
+        reference's) can complete the job from the adoption alone and never
+        answer the notify. A live adopter renews the lease and answers the
+        notify once its progress handler is up, however long its adoption
+        takes."""
         if park_s <= 0:
             return await self._notify_updated(scheduler_peer, job_id, round_num, execution,
-                                              shard=shard, arrivals=arrivals)
+                                              shard=shard, arrivals=arrivals,
+                                              traceparent=traceparent)
         failures = [0]
         t0 = time.perf_counter()
+        gen0 = getattr(execution, "scheduler_generation", None)
 
         async def once() -> ProgressResponse:
             try:
                 return await self._notify_updated(scheduler_peer, job_id, round_num, execution,
-                                                  shard=shard, arrivals=arrivals)
-            except (RequestError, OSError, asyncio.TimeoutError):
+                                                  shard=shard, arrivals=arrivals,
+                                                  traceparent=traceparent)
+            except (RequestError, OSError, asyncio.TimeoutError) as e:
+                released = getattr(execution, "adopter_released", None)
+                if (getattr(execution, "scheduler_generation", None) != gen0
+                        and released is not None and released()):
+                    raise _JobEnded() from e
                 failures[0] += 1
                 if failures[0] == 2 and on_first_failure is not None:
+                    FLIGHT.record("ps.notify_parked", node=self._trace_node(), job=job_id,
+                                  round=round_num, shard=shard)
                     log.warning("ps %s: round %d UPDATED failed twice; broadcasting before the "
                                 "scheduler answers", job_id, round_num)
                     await on_first_failure()
                 raise
 
-        resp = await aio.retry(once, base_delay=0.5, max_delay=5.0, deadline=park_s,
-                               retry_on=(RequestError, OSError),
-                               what=f"updated r{round_num} -> scheduler", logger=log)
+        try:
+            resp = await aio.retry(once, base_delay=0.5, max_delay=5.0, deadline=park_s,
+                                   retry_on=(RequestError, OSError),
+                                   what=f"updated r{round_num} -> scheduler", logger=log)
+        except _JobEnded:
+            FLIGHT.record("ps.notify_ended", node=self._trace_node(), job=job_id,
+                          round=round_num, shard=shard)
+            log.warning("ps %s: round %d UPDATED: scheduler generation %s adopted this execution "
+                        "and released its lease; its job ended, so the server completes (%d "
+                        "parked attempt(s) in %.3f s)", job_id, round_num,
+                        execution.scheduler_generation, failures[0], time.perf_counter() - t0)
+            return ProgressResponse(kind=ProgressResponseKind.DONE)
         if failures[0]:
             log.warning("ps %s: round %d UPDATED answered after %d parked attempt(s) in %.3f s "
                         "(scheduler generation %s, round %s)", job_id, round_num, failures[0],

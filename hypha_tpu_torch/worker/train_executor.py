@@ -115,8 +115,11 @@ class InProcessTrainExecutor(JobExecutor):
 
         def blocking() -> None:
             with Session(str(socket_path)) as session:
+                # Round-trace spans carry this worker's peer id, so a
+                # merged timeline tells w0's upload from w1's (a no-op
+                # untraced).
                 run_training(session, work_dir, spec, should_stop=stop_flag.is_set,
-                             device=self.device)
+                             device=self.device, trace_node=self.node.peer_id)
 
         try:
             # The training loop is synchronous (device work and bridge

@@ -56,7 +56,13 @@ def _port_files():
                  "hypha_tpu_torch/executor/checkpoint.py",
                  "hypha_tpu_torch/executor/preprocess.py",
                  "hypha_tpu_torch/worker/slice_cache.py",
-                 "hypha_tpu_torch/telemetry/ft_metrics.py"):
+                 "hypha_tpu_torch/telemetry/ft_metrics.py",
+                 "hypha_tpu_torch/telemetry/__init__.py",
+                 "hypha_tpu_torch/telemetry/attributes.py",
+                 "hypha_tpu_torch/telemetry/flight.py",
+                 "hypha_tpu_torch/telemetry/trace.py",
+                 "hypha_tpu_torch/telemetry/timeline.py",
+                 "hypha_tpu_torch/telemetry/otlp.py"):
         assert must in rel, must
     return files
 
@@ -123,12 +129,15 @@ def test_refusals_name_the_current_roadmap_label():
 
 @pytest.mark.parametrize("module", ["hypha_tpu_torch.cli", "hypha_tpu_torch.gateway",
                                     "hypha_tpu_torch.data_node", "hypha_tpu_torch.node_config",
-                                    "hypha_tpu_torch.scheduler.orchestrator"])
+                                    "hypha_tpu_torch.scheduler.orchestrator",
+                                    "hypha_tpu_torch.telemetry.trace",
+                                    "hypha_tpu_torch.telemetry.timeline"])
 def test_node_roles_without_tensors_import_no_torch(module):
     """The CLI, the gateway, the data node and the training scheduler load
     without torch (its import is seconds of every such process's start); the
     packages they reach (``ft``, ``compress``, ``stream``) import their torch
-    modules lazily."""
+    modules lazily. The span recorder and the timeline merger need only the
+    standard library."""
     code = (f"import sys, {module}; "
             "sys.exit('torch imported' if 'torch' in sys.modules else 0)")
     env = {**os.environ, "PYTHONPATH": str(ROOT)}

@@ -227,8 +227,6 @@ def test_tpu_axis_is_refused_with_the_gpu_key(key):
 SERVE = {"job.kind": "serve", "job.serve_name": "s", "job.serve_block_size": 16}
 # (role, overrides, ROADMAP.md label); "<file>" stands for an existing file.
 UNPORTED = {
-    "telemetry endpoint": ("data", {"datasets": {"d": "/tmp"},
-                                    "telemetry.endpoint": "http://127.0.0.1:4318"}, "telemetry"),
     "metrics plane": ("scheduler", {"job.metrics_plane": True}, "telemetry"),
     "serve metrics plane": ("scheduler", {**SERVE, "job.metrics_plane": True}, "telemetry"),
     "slo rules": ("scheduler", {**SERVE, "job.slo_rules": ["round_wall_s <= 30"]}, "telemetry"),
@@ -256,6 +254,26 @@ def test_unported_option_raises_with_its_label(case, tmp_path):
     tbuilt = tcfg.builder(getattr(tnc, SCHEMA[role])).with_overrides(over).build()
     with pytest.raises(NotImplementedError, match=label):
         tbuilt.validate()
+
+
+@pytest.mark.parametrize("role", ["gateway", "data", "worker", "scheduler"])
+def test_telemetry_endpoint_is_accepted_as_the_reference_accepts_it(role):
+    """``telemetry.endpoint`` (refused until tracing was ported) builds the
+    same validated section in both packages for every role; the export it
+    turns on is tested in ``tests/test_torch_telemetry.py``."""
+    over = {"telemetry.endpoint": "http://127.0.0.1:4318", "telemetry.sample_ratio": 0.5,
+            "telemetry.attributes": {"deployment": "dev"}}
+    if role == "data":
+        over["datasets"] = {"d": "/tmp"}
+    if role == "scheduler":
+        over["job.worker_tpu"] = 0.0
+    jbuilt = jcfg.builder(getattr(jnc, SCHEMA[role])).with_overrides(over).build()
+    tbuilt = tcfg.builder(getattr(tnc, SCHEMA[role])).with_overrides(over).build()
+    jbuilt.validate()
+    tbuilt.validate()
+    jt, tt = jbuilt.value.telemetry, tbuilt.value.telemetry
+    assert (tt.endpoint, tt.protocol, tt.sample_ratio, tt.attributes) == \
+        (jt.endpoint, jt.protocol, jt.sample_ratio, jt.attributes)
 
 
 # Elastic rounds, a checkpoint_dir and the input pipeline with stream sync: both packages
@@ -505,9 +523,27 @@ def test_stream_and_codec_keys_reach_the_job(over):
 def test_defaults_are_accepted_and_the_cli_exits_2_on_an_unported_option(capsys):
     for role in ("gateway", "worker", "scheduler"):
         tcfg.builder(getattr(tnc, SCHEMA[role])).build().validate()
-    code = tcli.main(["worker", "run", "--device", "cpu", "--set",
-                      'telemetry.endpoint="http://127.0.0.1:4318"'])
+    code = tcli.main(["scheduler", "run", "--set", "job.metrics_plane=true"])
     assert code == 2
     assert "Queue 1: telemetry" in capsys.readouterr().err
     assert tcli.main(["gateway", "run", "--set", "offer.price=1"]) == 2
     assert "unknown config key" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("role", ["gateway", "worker", "scheduler"])
+def test_the_trace_switch_in_the_environment_is_no_config_key(role, monkeypatch, tmp_path):
+    """``HYPHA_TRACE_DIR`` / ``HYPHA_TRACE_NODE`` turn a process's tracing
+    on: the port's env layer passes over them, so a CLI node can trace
+    through its environment, and builds the section the JAX package builds
+    without them (the reference's builder refuses them as unknown keys)."""
+    over = {"job.worker_tpu": 0.0} if role == "scheduler" else {}
+    want = tcfg.builder(getattr(tnc, SCHEMA[role])).with_env("HYPHA_").with_overrides(
+        over).build().validate().value
+    monkeypatch.setenv("HYPHA_TRACE_DIR", str(tmp_path))
+    monkeypatch.setenv("HYPHA_TRACE_NODE", "w0")
+    got = tcfg.builder(getattr(tnc, SCHEMA[role])).with_env("HYPHA_").with_overrides(
+        over).build().validate().value
+    assert got == want
+    with pytest.raises(jcfg.ConfigError, match="trace_dir"):
+        jcfg.builder(getattr(jnc, SCHEMA[role])).with_env("HYPHA_").with_overrides(
+            over).build().validate()

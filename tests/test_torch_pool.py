@@ -2,12 +2,14 @@
 ``DecodePool`` of hypha_tpu_torch against the JAX package's on a tiny f32
 Llama with identical weights: greedy token streams must be equal, through
 mid-decode admission, EOS release and preemption under a small pool, and
-with int8 KV blocks. Plus backpressure, the unported options, and the
-``PoolServer`` async path."""
+with int8 KV blocks. Plus backpressure, the unported options, the
+``PoolServer`` async path, and traced requests (their prefill and decode
+spans, the preemption events)."""
 
 from __future__ import annotations
 
 import asyncio
+import json
 import time
 
 import numpy as np
@@ -119,25 +121,75 @@ def test_pool_rejects_what_it_cannot_serve(pair):
 
 @pytest.mark.parametrize("option", [dict(block_size=0),
                                     dict(spec_ngram=3), dict(spec_layers=1),
-                                    dict(spec_draft=4), dict(draft_params={"w": 0}),
-                                    dict(traceparent="00-" + "1" * 32 + "-" + "2" * 16 + "-01")])
+                                    dict(spec_draft=4), dict(draft_params={"w": 0})])
 def test_unported_options_raise(pair, option):
     _, _, tm = pair
     label = {"spec_draft": "speculative decoding", "draft_params": "speculative decoding",
-             "traceparent": "telemetry"}.get(next(iter(option)), "ROADMAP.md")
-    if "traceparent" in option:
-        async def run():
-            server = PoolServer(tm, None, **POOL)
-            try:
-                return await server.submit([PROMPTS[0]], 4, 0.0, None, 0, **option)
-            finally:
-                server.close()
-
-        with pytest.raises(NotImplementedError, match=label):
-            asyncio.run(run())
-        return
+             }.get(next(iter(option)), "ROADMAP.md")
     with pytest.raises(NotImplementedError, match=label):
         DecodePool(tm, **{**POOL, **option})
+
+
+def test_traced_requests_file_prefill_and_decode_spans(pair, tmp_path):
+    """A request's context (``traceparent``, refused until tracing was
+    ported) parents its group's spans: one ``decode`` span from admission
+    to the answer, and a ``prefill`` span for every chunk that served it
+    (the reference files one per chunk, under its oldest group). The
+    burst's preemptions are flight events in both packages, and tracing
+    changes no token."""
+    from hypha_tpu.telemetry import trace as jtrace
+    from hypha_tpu.telemetry.flight import FLIGHT as JFLIGHT
+    from hypha_tpu_torch.telemetry import trace as ttrace
+    from hypha_tpu_torch.telemetry.flight import FLIGHT
+
+    jm, variables, tm = pair
+    tps = [f"{i + 1:032x}-{i + 17:016x}" for i in range(len(PROMPTS))]
+
+    def burst(pool):
+        first = pool.submit([PROMPTS[0]], N_NEW[0], traceparent=tps[0])
+        deadline = time.time() + 120
+        while pool.chunks < 1 and not first.done():
+            assert time.time() < deadline
+            time.sleep(0.002)
+        futs = [first] + [pool.submit([p], n, traceparent=tp)
+                          for p, n, tp in zip(PROMPTS[1:], N_NEW[1:], tps[1:])]
+        return [f.result(timeout=300)[0] for f in futs]
+
+    untraced = DecodePool(tm, **POOL)
+    try:
+        want = _burst(untraced)
+    finally:
+        untraced.close()
+    FLIGHT.clear()
+    JFLIGHT.clear()
+    jtrace.enable(tmp_path / "jax", node="jax")
+    ttrace.enable(tmp_path / "port", node="port")
+    try:
+        jpool, pool = JPool(jm, variables, **POOL), DecodePool(tm, **POOL)
+        try:
+            assert burst(jpool) == burst(pool) == want
+        finally:
+            jpool.close()
+            pool.close()
+    finally:
+        jtrace._reset_for_tests()
+        ttrace._reset_for_tests()
+    spans = [json.loads(x) for x in (tmp_path / "port" / "spans-port.jsonl").read_text()
+             .splitlines()]
+    for tp in tps:
+        trace_id, parent = tp.split("-")
+        mine = [s for s in spans if s["trace_id"] == trace_id]
+        assert all(s["parent_id"] == parent for s in mine)
+        assert [s["name"] for s in mine].count("decode") == 1
+        assert [s["name"] for s in mine].count("prefill") >= 1
+    preempts = [e for e in FLIGHT.snapshot() if e["event"] == "serve.preempt"]
+    jpreempts = [e for e in JFLIGHT.snapshot() if e["event"] == "serve.preempt"]
+    # When a burst preempts depends on when it arrives against the chunks:
+    # each package records one event for each of its own preemptions.
+    assert len(preempts) == pool.preemptions >= 1 and len(jpreempts) == jpool.preemptions
+    assert {tuple(e["attrs"]) for e in preempts + jpreempts} == {("rows", "order", "emitted")}
+    FLIGHT.clear()
+    JFLIGHT.clear()
 
 
 def test_prefix_cache_option_runs(pair):

@@ -816,7 +816,7 @@ def _ps_final_state(ckpt: Path) -> dict:
     return out
 
 
-def _sched_job(pkg: str, weights: Path, ckpt: Path):
+def _sched_job(pkg: str, weights: Path, ckpt: Path, adopt_deadline_s: float = 15.0):
     from hypha_tpu.resources import Resources as JRes
     from hypha_tpu.scheduler import job_config as jjob
     from hypha_tpu_torch.resources import Resources as TRes
@@ -839,12 +839,14 @@ def _sched_job(pkg: str, weights: Path, ckpt: Path):
             worker_price=m.PriceRange(bid=1.0, max=10.0),
             parameter_server_price=m.PriceRange(bid=1.0, max=10.0)),
         ft=mem.FTConfig(quorum_fraction=0.75, round_deadline_s=60.0,
-                        scheduler_adopt_grace_s=60.0, scheduler_adopt_deadline_s=15.0),
+                        scheduler_adopt_grace_s=60.0,
+                        scheduler_adopt_deadline_s=adopt_deadline_s),
         checkpoint_dir=str(ckpt), scheduler_recovery=True)
 
 
 async def _kill_scheduler_run(scheduler: str, ps: str, kill_round: int, close: bool, tmp: Path,
-                              weights: Path, data_dir: Path, kill: bool) -> dict:
+                              weights: Path, data_dir: Path, kill: bool,
+                              silent_s: float = 0.0) -> dict:
     """One run of the job under ``scheduler``'s orchestrator, gateway and
     data node, a JAX and a torch worker, the parameter server ``ps``'s.
     With ``kill`` the scheduler's node is stopped and its ``run`` cancelled
@@ -853,7 +855,10 @@ async def _kill_scheduler_run(scheduler: str, ps: str, kill_round: int, close: b
     kill waits for both workers' METRICS and their deltas of the round wait
     for the kill, so the round closes during the outage: the server's
     notify fails twice, the round goes out without the scheduler, and the
-    restart waits for that."""
+    restart waits for that. With ``silent_s`` the torch worker answers no
+    adoption hello until ``silent_s`` after the first one reached it, so
+    the restarted scheduler adopts the server long before it serves
+    progress (the adoption deadline is raised to cover the silence)."""
     import logging
 
     from hypha_tpu.data_node import DataNode as JDataNode
@@ -872,6 +877,7 @@ async def _kill_scheduler_run(scheduler: str, ps: str, kill_round: int, close: b
     from hypha_tpu_torch.resources import Resources as TResources
     from hypha_tpu_torch.scheduler.metrics_bridge import CallbackConnector as TCallback
     from hypha_tpu_torch.scheduler.task import Task as TTask
+    from hypha_tpu_torch.worker.arbiter import Arbiter as TArbiter
     from hypha_tpu_torch.worker.arbiter import OfferConfig as TOffer
     from hypha_tpu_torch.worker.runtime import WorkerNode as TWorkerNode
 
@@ -880,7 +886,8 @@ async def _kill_scheduler_run(scheduler: str, ps: str, kill_round: int, close: b
         (JGateway, JDataNode, JNode, JTcp, JCallback, JTask) if jax_sched
         else (TGateway, TDataNode, TNode, TTcp, TCallback, TTask))
     ckpt = tmp / "ckpt"
-    job = _sched_job(scheduler, weights, ckpt)
+    job = _sched_job(scheduler, weights, ckpt,
+                     adopt_deadline_s=silent_s + 15.0 if silent_s else 15.0)
     listen = ["127.0.0.1:0"]
     short = Path(tempfile.mkdtemp(prefix="tsr"))  # a bridge socket path under 108 bytes
     dispatches: list = []
@@ -940,7 +947,8 @@ async def _kill_scheduler_run(scheduler: str, ps: str, kill_round: int, close: b
             lines.append(record.getMessage())
 
     loggers = [logging.getLogger(n) for n in ("hypha.torch.worker.ps",
-                                              "hypha.torch.scheduler.orchestrator")]
+                                              "hypha.torch.scheduler.orchestrator",
+                                              "hypha.scheduler.orchestrator")]
     handler, levels = Lines(), [lg.level for lg in loggers]
     for lg in loggers:
         lg.addHandler(handler)
@@ -948,6 +956,27 @@ async def _kill_scheduler_run(scheduler: str, ps: str, kill_round: int, close: b
 
     hold(wj.node)
     hold(wt.node)
+    on_hello, first_hello = TArbiter._on_hello, []
+
+    async def silent_hello(self, peer, msg):
+        if self is wt.arbiter:
+            first_hello.append(time.monotonic())
+            await asyncio.sleep(max(first_hello[0] + silent_s - time.monotonic(), 0.0))
+        return await on_hello(self, peer, msg)
+
+    if silent_s:
+        TArbiter._on_hello = silent_hello
+    # The torch server's executions, to read how each one ended.
+    ps_execs: list = []
+    if ps == "port":
+        execute = psw.job_manager.execute
+
+        async def recorded(spec, lease_id, scheduler_peer):
+            execution = await execute(spec, lease_id, scheduler_peer)
+            ps_execs.append(execution)
+            return execution
+
+        psw.job_manager.execute = recorded
     out: dict = {}
     try:
         for part in parts:
@@ -991,8 +1020,12 @@ async def _kill_scheduler_run(scheduler: str, ps: str, kill_round: int, close: b
             out["lines_at_done"] = list(lines)
             out["dispatched_after"] = len(dispatches) - out["dispatched_before"]
         out["counts"] = None if jax_sched else dict(orch.counts)
+        # How the torch server's execution ended: completed, or failed when
+        # a parked notify outlived the job (bounded past the 60 s grace).
+        out["ps_states"] = [(await asyncio.wait_for(e.wait(), 90)).state for e in ps_execs]
     finally:
         Task.dispatch = classmethod(dispatch)
+        TArbiter._on_hello = on_hello
         for lg, level in zip(loggers, levels):
             lg.removeHandler(handler)
             lg.setLevel(level)
@@ -1006,10 +1039,13 @@ async def _kill_scheduler_run(scheduler: str, ps: str, kill_round: int, close: b
     return out
 
 
-@pytest.mark.parametrize("scheduler,ps,kill_round,close", [
-    ("port", "jax", 1, False), ("jax", "port", 1, False), ("port", "port", 2, True)],
-    ids=["port-scheduler", "jax-scheduler", "port-last-round"])
-def test_kill_scheduler_e2e_bit_equal(tmp_path, scheduler, ps, kill_round, close, monkeypatch):
+@pytest.mark.parametrize("scheduler,ps,kill_round,close,silent_s", [
+    ("port", "jax", 1, False, 0.0), ("jax", "port", 1, False, 0.0), ("port", "port", 2, True, 0.0),
+    ("jax", "port", 2, True, 0.0), ("port", "port", 2, True, 25.0), ("jax", "port", 2, True, 25.0)],
+    ids=["port-scheduler", "jax-scheduler", "port-last-round", "jax-scheduler-last-round",
+         "port-last-round-silent-worker", "jax-scheduler-last-round-silent-worker"])
+def test_kill_scheduler_e2e_bit_equal(tmp_path, scheduler, ps, kill_round, close, silent_s,
+                                      monkeypatch):
     """The scheduler killed mid-job and restarted under its peer id adopts
     every live execution (the JAX and the torch worker and the server)
     with nothing re-dispatched, every round completes in the first
@@ -1018,7 +1054,13 @@ def test_kill_scheduler_e2e_bit_equal(tmp_path, scheduler, ps, kill_round, close
     JAX scheduler with a torch server, and killed in the last round with a
     torch server, which commits and broadcasts that round during the
     outage: the adoption credits it, and the job completes once the
-    server's parked notify is answered."""
+    server's parked notify is answered. The same under the JAX scheduler,
+    which has no account of the parked notify: the torch server's
+    execution still ends ``completed`` (its notify answered, or ended when
+    the scheduler released its lease). A torch server's execution ends
+    ``completed`` in every run. With a worker silent for 25 s at the
+    adoption, the server's notify stays parked past it and the job still
+    completes under either scheduler."""
     from _torch_parity import tiny_pair
 
     from hypha_tpu.executor.serialization import flatten_tree
@@ -1038,7 +1080,8 @@ def test_kill_scheduler_e2e_bit_equal(tmp_path, scheduler, ps, kill_round, close
         d = tmp_path / f"run-{kill}"
         d.mkdir()
         runs[kill] = asyncio.run(asyncio.wait_for(
-            _kill_scheduler_run(scheduler, ps, kill_round, close, d, weights, data_dir, kill),
+            _kill_scheduler_run(scheduler, ps, kill_round, close, d, weights, data_dir, kill,
+                                silent_s=silent_s),
             150))
     base, chaos = runs[False], runs[True]
     for r in (base, chaos):
@@ -1048,9 +1091,26 @@ def test_kill_scheduler_e2e_bit_equal(tmp_path, scheduler, ps, kill_round, close
     if close:  # the last round went out during the outage and was credited
         assert chaos["broadcast_first"]
         assert any("fast-forwarded round 2 -> 3" in line for line in chaos["lines"])
-        # The server's parked UPDATED was answered DONE before the job ended.
-        assert any("round 2 UPDATED answered after" in line for line in chaos["lines_at_done"])
+        if scheduler == "port":
+            # The server's parked UPDATED was answered DONE before the job ended.
+            assert any("round 2 UPDATED answered after" in line
+                       for line in chaos["lines_at_done"])
+        else:
+            # The reference's scheduler completes from the adoption alone:
+            # the server's parked UPDATED was answered before the job ended,
+            # or ended when the scheduler released the server's lease.
+            assert any("round 2 UPDATED answered after" in line
+                       or "round 2 UPDATED: scheduler generation 2 adopted this execution and "
+                          "released its lease" in line for line in chaos["lines"])
+        if silent_s:
+            # The notify stayed parked through the silent adoption.
+            (parked,) = [float(line.rsplit(" in ", 1)[1].split(" s")[0])
+                         for line in chaos["lines"] if "round 2 UPDATED answered after" in line
+                         or "released its lease" in line]
+            assert parked > silent_s, parked
     assert chaos["dispatched_before"] == 3 and chaos["dispatched_after"] == 0
+    if ps == "port":
+        assert base["ps_states"] == chaos["ps_states"] == ["completed"]
     if scheduler == "port":
         assert chaos["counts"]["scheduler_recoveries"] == 1
         assert chaos["counts"]["adopted_executions"] == 3
