@@ -68,7 +68,11 @@ Phases, each printing one JSON line:
    the kill, exits 0 and no leftovers; it reports bring-up, dispatch to
    the first answer, latencies, wall, retry-after answers, the card's
    memory during bring-up, each worker's peaks and the kill-to-failure
-   time;
+   time. It runs the live metrics plane (``router_slo_rules``): gates
+   (``router_metrics_problems``) ``silent_s <= 3`` breached for ``w1``
+   alone after its kill, the p99 rule held, each worker's latency count in
+   the journal equal to the requests it answered, ``telemetry.top --once``
+   listing both workers live and every reporter from the journal;
 8c. serve_fleet — the fleet prefix cache and KV migration (``FLEET_JOB``: two
    workers, prefix cache, fleet cache, migration, digest 32, prefill
    chunks of 32, 40 blocks a pool), gateway, ``w0``, ``w1`` and scheduler
@@ -296,7 +300,12 @@ Phases, each printing one JSON line:
    launches of every batch; (g) every round closed, clean exits, no file
    left. It reports per round the assignments, arrival lags, link
    estimates, codecs, wire bytes, encode seconds and wall seconds, step
-   ms per trainer, the server process's and the card's peaks;
+   ms per trainer, the server process's and the card's peaks. It runs the
+   live metrics plane (``het_slo_rules``): gates (``het_metrics_problems``)
+   reports from the server and every trainer's node, each round's
+   assignment in the server's ``hypha.het.assigned_steps`` gauges, the
+   journal's quality points equal to the trainers' METRICS,
+   ``round_wall_s <= 10`` breached once and the quorum-drop rule never;
 12g. train_swap — the broadcast tree and live weight swap (``run_swap_job``):
    ``swap_job`` (7B widths at 1 layer, blocking, int8, 3 rounds of 4
    steps, one reduce group of ``w0``-``w2`` with ``w0`` its reducer and
@@ -434,6 +443,35 @@ CHUNKED_CE_TOL = 1e-5
 
 
 _T0 = time.perf_counter()
+
+
+# The fault phases' roots (their trainers' and shards' checkpoints, ~20 GB
+# a phase) are removed by a thread while the next phases run: on a slow disk
+# the removal took a minute of the smoke's wall. A phase that needs the disk
+# waits for them (``await_removals``), and main waits before its last lines.
+_REMOVALS: list = []
+
+
+def remove_later(path: Path) -> None:
+    """Remove ``path`` in a thread of its own; its seconds land in
+    ``_REMOVALS``."""
+    rec: dict = {"path": str(path)}
+
+    def work() -> None:
+        t0 = time.perf_counter()
+        shutil.rmtree(path, ignore_errors=True)
+        rec["s"] = time.perf_counter() - t0
+
+    rec["thread"] = threading.Thread(target=work, name=f"remove {path.name}", daemon=True)
+    _REMOVALS.append(rec)
+    rec["thread"].start()
+
+
+def await_removals() -> list:
+    """Wait for every removal started; each one's path and seconds."""
+    for rec in _REMOVALS:
+        rec["thread"].join()
+    return [{"path": r["path"], "s": r.get("s")} for r in _REMOVALS]
 
 
 def emit(obj: dict) -> None:
@@ -1404,7 +1442,8 @@ def trace_summary(d: Path, phase: str) -> dict:
     tl = timeline.build_timeline(d)
     for line in timeline.render_text(tl).splitlines():
         print(f"[{phase} timeline] {line}", flush=True)
-    files = sorted(p for p in d.iterdir() if p.suffix == ".jsonl")
+    files = sorted(p for p in d.iterdir() if p.suffix == ".jsonl"
+                   and p.name.startswith(("spans-", "events-")))
     return dict(spans=tl["num_spans"], events=tl["num_events"],
                 files={p.name: p.stat().st_size for p in files},
                 bytes=sum(p.stat().st_size for p in files),
@@ -1413,6 +1452,200 @@ def trace_summary(d: Path, phase: str) -> dict:
 
 def _dur_s(span: dict) -> float:
     return (span["mono_end_ns"] - span["mono_start_ns"]) / 1e9
+
+
+# ------------------------------------------------ the metrics plane in two phases
+
+# train_het and serve_router run with the live metrics plane on
+# (``telemetry/metrics_plane.py``): every node reports its registry deltas to
+# the scheduler's collector each METRICS_INTERVAL_S, the collector journals
+# them (train_het: in the phase's trace directory; serve_router: in
+# ``job.metrics_dir``) with the round quality and its SLO rules' breaches,
+# and each phase holds the journal to its gates (``het_metrics_problems``,
+# ``router_metrics_problems``). No phase is added for it.
+METRICS_INTERVAL_S = 1.0
+SAMPLE_COST_N = 2_000  # samples timed for the cost of one
+# train_het's round wall rule: its steady rounds (over 20 s at 7B widths)
+# breach 10 s once, edge-triggered, and never recover.
+HET_ROUND_WALL_S = 10.0
+# serve_router: a node silent this long breaches (w1, killed); p99 holds.
+ROUTER_SILENT_S = 3.0
+ROUTER_P99_MS = 120_000
+
+
+def het_slo_rules(round_wall_s: float = HET_ROUND_WALL_S) -> list:
+    return ["hypha.het.quorum_drops == 0", f"round_wall_s <= {round_wall_s:g}"]
+
+
+def router_slo_rules(silent_s: float = ROUTER_SILENT_S) -> list:
+    return [f"silent_s <= {silent_s:g}",
+            f"hypha.serve.request_latency_ms.p99 <= {ROUTER_P99_MS:g}"]
+
+
+def sample_cost_us(n: int = SAMPLE_COST_N) -> float:
+    """Microseconds per ``RegistrySampler.sample()`` over this process's
+    bundles as they stand (a node's byte counters moving each time), as a
+    reporter takes one a report."""
+    import types
+
+    from hypha_tpu_torch.telemetry.metrics_plane import RegistrySampler
+
+    node = types.SimpleNamespace(bytes_in=0, bytes_out=0)
+    sampler = RegistrySampler(node)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        node.bytes_out += 1500
+        sampler.sample()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def metrics_journal(d: Path) -> tuple:
+    """The records of the ``metrics-*.jsonl`` journals in ``d``, and their
+    bytes."""
+    from hypha_tpu_torch.telemetry.timeline import load_jsonl
+
+    files = sorted(Path(d).glob("metrics-*.jsonl"))
+    return [r for f in files for r in load_jsonl(f)], sum(f.stat().st_size for f in files)
+
+
+def plane_figures(recs: list, nbytes: int) -> dict:
+    """A journal's counts: reports per node, each node's reports' wire
+    bytes (``MetricsReport`` re-encoded) a report and a second, the
+    quality points, and the SLO breaches and recoveries by rule and peer."""
+    from hypha_tpu_torch import messages
+    from hypha_tpu_torch.telemetry.metrics_plane import MetricsReport
+
+    reports: dict = {}
+    for r in recs:
+        if r["type"] == "report":
+            wire = len(messages.encode(MetricsReport(
+                job_id="", peer=r["peer"], round=r["round"], seq=r["seq"],
+                interval_s=r["interval_s"], counters=r["counters"], gauges=r["gauges"],
+                summaries=r["summaries"])))
+            reports.setdefault(r["peer"], []).append((r["t"], wire))
+    per_node = {}
+    for peer, rows in sorted(reports.items()):
+        span = rows[-1][0] - rows[0][0]
+        per_node[peer] = {"reports": len(rows),
+                          "wire_bytes_mean": statistics.mean(b for _, b in rows),
+                          "wire_bytes_per_s": sum(b for _, b in rows) / span if span > 0 else None}
+
+    def edges(breached: bool) -> dict:
+        return dict(collections.Counter(f"{r['rule']} [{r['peer'] or 'fleet'}]" for r in recs
+                                        if r["type"] == "slo" and r["breached"] is breached))
+
+    return dict(per_node=per_node, journal_bytes=nbytes,
+                quality_points=sum(r["type"] == "quality" for r in recs),
+                breaches=edges(True), recoveries=edges(False))
+
+
+def het_metrics_problems(run: dict, rep: dict, recs: list, *, round_wall_s: float,
+                         server: str = "psw") -> list:
+    """train_het's metrics-plane gates, on the CPU as on the card: (i) the
+    journal holds reports from the server and from every trainer's node;
+    (ii) each round's assignment that ``het_report`` reads (rounds 1 on,
+    every peer) stands whole in some report's
+    ``hypha.het.assigned_steps.<peer>`` gauges from the server; (iii) each
+    trainer's quality point in the journal equals the round METRICS it sent
+    on ``Progress``; (iv) ``round_wall_s`` breaches exactly once and
+    ``hypha.het.quorum_drops == 0`` never."""
+    problems = []
+    peers = run["workers"]
+    reported = {r["peer"] for r in recs if r["type"] == "report"}
+    if not {server, *peers} <= reported:
+        problems.append(f"(i) reports from {sorted(reported)}, wanted {server} and {peers}")
+    prefix = "hypha.het.assigned_steps."
+    seen = [{k[len(prefix):]: int(v) for k, v in r["gauges"].items() if k.startswith(prefix)}
+            for r in recs if r["type"] == "report" and r["peer"] == server]
+    for row in rep["per_round"]:
+        want = row["assigned"]
+        if row["round"] >= 1 and (not want or want not in seen):
+            problems.append(f"(ii) round {row['round']}'s assignment {want} in none of "
+                            f"{server}'s {len(seen)} reports' gauges")
+    quality = {(r["peer"], r["round"]): r for r in recs if r["type"] == "quality"}
+    for peer, rnd, metrics in run["result"].metrics:
+        got = quality.get((peer, rnd))
+        want = {k: float(v) for k, v in metrics.items()}
+        if got is None or {k: got.get(k) for k in want} != want:
+            problems.append(f"(iii) {peer} round {rnd}: journal {got}, METRICS {want}")
+    slo = [r for r in recs if r["type"] == "slo"]
+    wall = f"round_wall_s <= {round_wall_s:g}"
+    wall_edges = [r["breached"] for r in slo if r["rule"] == wall]
+    drops = [r for r in slo if r["rule"] == "hypha.het.quorum_drops == 0"]
+    if wall_edges != [True] or drops:
+        problems.append(f"(iv) {wall} edges {wall_edges} (wanted one breach), quorum-drop "
+                        f"records {drops}")
+    return problems
+
+
+def _backend_worker(recs: list) -> dict:
+    """Backend name -> worker, from the reporters' ``<peer>:<backend>``
+    labels."""
+    return {label.split(":", 1)[1]: label.split(":", 1)[0]
+            for label in {r["peer"] for r in recs if r["type"] == "report"} if ":" in label}
+
+
+def router_metrics_problems(run: dict, recs: list, *, silent_s: float) -> list:
+    """serve_router's metrics-plane gates, on the CPU as on the card: (i)
+    ``silent_s`` breaches for ``w1`` (its reporter and its heartbeats'
+    backend) and for no other peer, after the kill and before the phase
+    ends; (ii) the p99 rule holds; (iii) each worker's last
+    ``hypha.serve.request_latency_ms`` count in the journal equals the
+    requests it answered (``w0``: all, from its last launches line; ``w1``:
+    up to its last report, from its launches line before the kill, its last
+    report sent after its last answer); (iv) ``telemetry.top --once`` lists
+    both workers from the live scheduler's address, and every reporting peer
+    from the journal directory."""
+    problems = []
+    m = run["metrics"]
+    owner = _backend_worker(recs)
+    silent = f"silent_s <= {silent_s:g} @peer"
+    breaches = [r for r in recs if r["type"] == "slo" and r["rule"] == silent and r["breached"]]
+    who = {r["peer"].split(":", 1)[0] if ":" in r["peer"] else owner.get(r["peer"], r["peer"])
+           for r in breaches}
+    if who != {"w1"} or not all(m["killed_at"] < r["t"] < m["ended_at"] for r in breaches):
+        problems.append(f"(i) {silent} breached for {sorted(who)} at "
+                        f"{[(r['peer'], r['t'] - m['killed_at']) for r in breaches]} s after the "
+                        "kill; wanted w1 alone, after its kill")
+    p99 = [r for r in recs if r["type"] == "slo" and r["rule"].startswith(
+        "hypha.serve.request_latency_ms.p99")]
+    if p99:
+        problems.append(f"(ii) the p99 rule breached: {p99}")
+    counts = {}
+    for r in recs:
+        s = (r.get("summaries") or {}).get("hypha.serve.request_latency_ms")
+        if r["type"] == "report" and s and ":" in r["peer"]:
+            counts[r["peer"].split(":", 1)[0]] = int(s["count"])
+    answered = {}
+    for role, report in (("w0", run["workers"]["w0"]), ("w1", run["w1_before_kill"])):
+        lc, cache = report["launches"] or {}, report["cache"] or {}
+        answered[role] = lc.get("requests", 0) - cache.get("rejections", 0) - lc.get("fallbacks", 0)
+    if counts != answered:
+        problems.append(f"(iii) request latency counts {counts}, answered {answered}")
+    live = set(m["top_live"].get("last_seen") or {})
+    if not {"w0", "w1"} <= {owner.get(p, p.split(":", 1)[0]) for p in live}:
+        problems.append(f"(iv) top at the live address listed {sorted(live)}")
+    reporting = {r["peer"] for r in recs if r["type"] == "report"}
+    if not reporting or not reporting <= set(m["top_dir"].get("last_seen") or {}):
+        problems.append(f"(iv) top on the journal listed {sorted(m['top_dir'].get('last_seen') or {})}"
+                        f", the journal's reporters {sorted(reporting)}")
+    return problems
+
+
+async def top_once(target: str) -> dict:
+    """``python -m hypha_tpu_torch.telemetry.top <target> --once --json`` as
+    a process of its own; its snapshot."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH", "")) if p)}
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", "hypha_tpu_torch.telemetry.top", target, "--once", "--json",
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, cwd=repo)
+    out, err = await asyncio.wait_for(proc.communicate(), 60)
+    if proc.returncode != 0:
+        raise SystemExit(f"telemetry.top {target} exited {proc.returncode}: "
+                         f"{err.decode(errors='replace')[-2000:]}")
+    return json.loads(out)
 
 
 def het_trace_problems(d: Path, run: dict, *, rounds: int, rate_mbps: float,
@@ -1710,7 +1943,9 @@ async def _device_mem_sampler(peak: list, stop: asyncio.Event) -> None:
 
 async def run_serve_router(root: Path, job: dict, prompts: list, n_new: list, *,
                            device: "str | None" = None, repeat: int = 4,
-                           trace_dir: "Path | None" = None, otlp: "str | None" = None) -> dict:
+                           trace_dir: "Path | None" = None, otlp: "str | None" = None,
+                           slo_rules: "list | None" = None,
+                           metrics_interval_s: float = METRICS_INTERVAL_S) -> dict:
     """``ServeNet`` with two workers, ``w0`` and ``w1``, behind the
     scheduler's router (``job`` routes). Once both backends serve, the
     client sends every prompt at once through ``generate_remote``, then the
@@ -1718,10 +1953,19 @@ async def run_serve_router(root: Path, job: dict, prompts: list, n_new: list, *,
     ``repeat`` prompts again, which ``w0`` must answer, and waits for the
     scheduler to fail ``w1``'s slot (by φ ejection or by a failed lease
     renewal); then every process left stops. Every wait has a deadline.
-    ``trace_dir`` and ``otlp`` go to ``ServeNet``."""
+    ``trace_dir`` and ``otlp`` go to ``ServeNet``. With ``slo_rules`` (a
+    list) the deployment runs the live metrics plane, journaling under
+    ``root/metrics``: two report periods after the repeats (so ``w1``'s last
+    report covers its answers) ``telemetry.top --once`` reads the live
+    scheduler, and after the processes stop, the journal directory."""
     from hypha_tpu_torch.messages import PROTOCOL_GENERATE
 
     name = job["job.serve_name"]
+    metrics_dir = root / "metrics" if slo_rules is not None else None
+    if metrics_dir is not None:
+        job = {**job, "job.metrics_plane": True, "job.metrics_interval_s": metrics_interval_s,
+               "job.metrics_dir": str(metrics_dir), "job.slo_rules": list(slo_rules)}
+    plane: dict = {}
     net = ServeNet(root, job, ROUTER_WORKERS, device, trace_dir=trace_dir, otlp=otlp)
     net.init()
     loop = asyncio.get_running_loop()
@@ -1760,6 +2004,12 @@ async def run_serve_router(root: Path, job: dict, prompts: list, n_new: list, *,
         again = await asyncio.wait_for(asyncio.gather(*(
             _timed_ask(net.client, name, p, n)
             for p, n in zip(prompts[:repeat], n_new[:repeat]))), NODE_WAIT_S)
+        if metrics_dir is not None:
+            await asyncio.sleep(2 * metrics_interval_s)
+            found = re.search(r"scheduler \S+ on \['([^']+)'", net.text("scheduler"))
+            if found is None:
+                raise SystemExit("the scheduler logged no listen address")
+            plane["top_live"] = await top_once(found.group(1))
         before = {role: net.worker_report(role) for role in ROUTER_WORKERS}
         killed_at = time.time()
         await net.kill("w1")
@@ -1768,11 +2018,26 @@ async def run_serve_router(root: Path, job: dict, prompts: list, n_new: list, *,
             for p, n in zip(prompts[-repeat:], n_new[-repeat:]))), NODE_WAIT_S)
         await _wait_for_text(net.logs["scheduler"], "serving worker w1 failed",
                              net.procs["scheduler"], loop.time() + NODE_WAIT_S)
+        if metrics_dir is not None:
+            # w1 silent past the silence rule's threshold, the collector's
+            # sweep (each second) and a report period: its breach is
+            # journaled before the scheduler stops.
+            from hypha_tpu_torch.telemetry.slo import parse_slo_rules
+
+            silent = max((r.threshold for r in parse_slo_rules(slo_rules)
+                          if r.metric == "silent_s"), default=0.0)
+            await asyncio.sleep(max(killed_at + silent + metrics_interval_s + 2.0 - time.time(),
+                                    0.0))
+        ended_at = time.time()
     finally:
         sampling.set()
         if sampler is not None:
             await sampler
         await net.stop()
+    if metrics_dir is not None:
+        plane.update(top_dir=await top_once(str(metrics_dir)), killed_at=killed_at,
+                     ended_at=ended_at)
+        plane["records"], plane["journal_bytes"] = metrics_journal(metrics_dir)
     sched = net.text("scheduler").splitlines()
     dispatched = [_log_time(line) for line in sched if f"serving {name} slot " in line
                   and " deployed on " in line]
@@ -1810,6 +2075,7 @@ async def run_serve_router(root: Path, job: dict, prompts: list, n_new: list, *,
                                 if reports["w0"]["launches"] and before["w0"]["launches"]
                                 else None),
         workers=reports, timeline=timeline, bring_up_device_mem_mib=mem_peak[0] if sampler else None,
+        w1_before_kill=before["w1"], metrics=plane,
         exits=net.exits, stop_s=net.stop_s, leftover=net.leftover(skip=("w1",)),
         logs={role: str(path) for role, path in net.logs.items()},
     )
@@ -1854,17 +2120,27 @@ def serve_router_phase(prefix: dict) -> dict:
     """``serve_prefix``'s requests through the scheduler's router over two
     workers, each a process of its own started from TOML by the port's
     CLI, then ``w1`` killed; traced, every process exporting to a loopback
-    OTLP collector (``router_trace_problems``)."""
+    OTLP collector (``router_trace_problems``), and with the live metrics
+    plane on (``router_metrics_problems``)."""
     root = Path(tempfile.mkdtemp(prefix="hsr"))
     collector = OtlpCollector()
     tdir = None
+    rules = router_slo_rules()
     try:
         with traced_phase("serve_router") as tdir:
             run = asyncio.run(run_serve_router(root, ROUTER_JOB, prefix["prompts"],
                                                prefix["n_new"], trace_dir=tdir,
-                                               otlp=collector.endpoint))
+                                               otlp=collector.endpoint, slo_rules=rules))
         problems = serve_router_problems(run, want=prefix["answers"], n_new=prefix["n_new"],
                                          layers=prefix["layers"], device="cuda")
+        m = run["metrics"]
+        problems += [f"metrics {x}" for x in router_metrics_problems(
+            run, m["records"], silent_s=ROUTER_SILENT_S)]
+        plane = {**plane_figures(m["records"], m["journal_bytes"]), "rules": rules,
+                 "interval_s": METRICS_INTERVAL_S,
+                 "top_live_peers": sorted(m["top_live"].get("last_seen") or {}),
+                 "top_dir_peers": sorted(m["top_dir"].get("last_seen") or {})}
+        print(f"[serve_router metrics] {json.dumps(plane)}", flush=True)
         answered = len(run["answers"]) + len(run["again"]) + len(run["after_kill"])
         tproblems, tfig = router_trace_problems(tdir, collector, answered=answered,
                                                 alive=ROUTER_ROLES)
@@ -1885,7 +2161,8 @@ def serve_router_phase(prefix: dict) -> dict:
             "workers", "timeline", "bring_up_device_mem_mib", "stop_s", "exits")
     return dict(requests=len(prefix["prompts"]), answers_equal_serve_prefix=True,
                 **{k: run[k] for k in keep},
-                trace={**tfig, **{k: v for k, v in tsum.items() if k != "timeline"}})
+                trace={**tfig, **{k: v for k, v in tsum.items() if k != "timeline"}},
+                metrics_plane=plane)
 
 
 # ------------------------------------------------ serve_fleet phase
@@ -5333,6 +5610,7 @@ def train_ft_phase() -> dict:
     torch.cuda.empty_cache()
     root = Path(tempfile.mkdtemp(prefix="hft"))
     try:
+        await_removals()
         need = ft_bytes_needed(FT_MODEL)
         free = shutil.disk_usage(root).free
         if free < need:
@@ -5346,7 +5624,7 @@ def train_ft_phase() -> dict:
         problems = ft_problems(run, rep, rounds=FT_ROUNDS, steps=FT_STEPS, layers=FT_LAYERS,
                                device="cuda")
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        remove_later(root)
     timing = progress_timing(run | {"workers": ["w0", "w2"]})
     res = dict(
         model="llama2-7b", layers=FT_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
@@ -6079,10 +6357,14 @@ def shard_ft_report(run: dict) -> dict:
         acc["records"] += 1
         acc["bytes"] += n
     pushes: dict = {}
+    covers: dict = {}  # each reducer's partials at a shard and round: their covers, in order
     for d in rec["deltas"]:
         k = int(d["header"].get("shard", 0))
         key = (k, d["round"], d["from"], bool(d["header"].get("prefold")))
         pushes[key] = pushes.get(key, 0) + 1
+        if key[3]:
+            covers.setdefault(f"{k}/{d['round']}/{d['from']}", []).append(
+                sorted(d["header"].get("covers") or []))
     return dict(
         trainers=per,
         updated=[(r, k) for r, k, _ in upd],
@@ -6107,6 +6389,7 @@ def shard_ft_report(run: dict) -> dict:
         wires=rec["wires"], folds=rec["folds"], dedup_hits=rec["dedup_hits"],
         pushes_by_shard={f"{k}/{r}/{f}/{'partial' if p else 'direct'}": n
                          for (k, r, f, p), n in sorted(pushes.items())},
+        partial_covers=covers,
         departures=[(d["peer"], d["reason"]) for d in rec["departures"]],
         rejoins=[(r["peer"], r["for"]) for r in rec["rejoins"]],
         ps_restarts=re.findall(r"parameter server shard (\d+) restarted on (\S+)",
@@ -6168,7 +6451,7 @@ def shard_ft_problems(run: dict, rep: dict, *, rounds: int, layers: int, device:
     resends = {p: t["resends"] for p, t in rep["trainers"].items()}
     if any(r % 2 != 1 for rs in resends.values() for r, _f in rs) or not any(resends.values()):
         problems.append(f"re-sends {resends}: wanted some, each of a round shard 1 owns")
-    dup0 = {k: n for k, n in rep["pushes_by_shard"].items() if k.startswith("0/") and n > 1}
+    dup0 = shard0_resends(rep)
     if dup0 or any(h["root"] == "ps0" for h in rep["dedup_hits"]):
         problems.append(f"shard 0 got re-sends: {dup0}, dedup hits {rep['dedup_hits']}")
     cats = rep["theta"]["catchups"]
@@ -6206,6 +6489,26 @@ def shard_ft_problems(run: dict, rep: dict, *, rounds: int, layers: int, device:
     return problems
 
 
+def shard0_resends(rep: dict) -> dict:
+    """Shard 0's re-sends in ``shard_ft_report``'s counts, by
+    ``shard/round/sender/kind``: a sender's direct delta that came more than
+    once, or a reducer's partial whose cover does not strictly contain the
+    cover of that reducer's partial before it at the same shard and round (a
+    cover repeated, one already folded). A reducer's flush timer can ship a
+    partial before every member landed and then its replacement, which
+    covers strictly more: that is the reducer's design, not a re-send."""
+    bad = {}
+    for key, n in rep["pushes_by_shard"].items():
+        if not key.startswith("0/") or n <= 1:
+            continue
+        if key.endswith("/partial"):
+            seq = [set(c) for c in rep["partial_covers"].get(key.rsplit("/", 1)[0], [])]
+            if len(seq) == n and all(a < b for a, b in zip(seq, seq[1:])):
+                continue
+        bad[key] = n
+    return bad
+
+
 def shard_ft_bytes_needed(model: dict) -> int:
     """The disk ``train_shard_ft`` holds at its peak: three trainers'
     checkpoints (params, m, v in f32: 12 bytes a parameter), each shard's
@@ -6229,6 +6532,7 @@ def train_shard_ft_phase() -> dict:
     torch.cuda.empty_cache()
     root = Path(tempfile.mkdtemp(prefix="hsf"))
     try:
+        await_removals()
         need = shard_ft_bytes_needed(SHARD_S_MODEL)
         free = shutil.disk_usage(root).free
         if free < need:
@@ -6242,7 +6546,7 @@ def train_shard_ft_phase() -> dict:
         problems = shard_ft_problems(run, rep, rounds=SHARD_FT_ROUNDS, layers=SHARD_S_LAYERS,
                                      device="cuda")
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        remove_later(root)
     timing = progress_timing(run)
     res = dict(
         model="llama2-7b", layers=SHARD_S_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
@@ -6403,7 +6707,8 @@ async def run_het_job(root: Path, model: dict, *, device, rounds, steps, batch, 
                       lr=3e-4, deadline_s=HET_DEADLINE_S, chaos=HET_CHAOS, hi_mbps=HET_HI_MBPS,
                       lo_mbps=HET_LO_MBPS, throttle_chunk=HET_THROTTLE_CHUNK,
                       limit_s=CLI_LIMIT_S, train_runtime="process", auction_timeout=2.0,
-                      status_timeout=None, sample_card=False) -> dict:
+                      status_timeout=None, sample_card=False, slo_rules=None,
+                      metrics_interval_s=METRICS_INTERVAL_S) -> dict:
     """``het_job`` on the port's nodes at 127.0.0.1 (``run_ft_job``'s
     fabric): gateway, data node, train workers ``w0``-``w3``, ``psw``
     hosting the parameter server and the port's ``Orchestrator``, with a
@@ -6412,10 +6717,17 @@ async def run_het_job(root: Path, model: dict, *, device, rounds, steps, batch, 
     and to ``w1``, ``slow-worker`` stretches ``w2``'s Status answers,
     ``jitter`` delays every push touching ``w3``.
 
+    With ``slo_rules`` (a list, empty or not) the job runs the live
+    metrics plane: every node reports each ``metrics_interval_s``, the
+    scheduler's collector evaluates the rules and journals into the trace
+    directory (the phase runs traced).
+
     Returns what ``node_probes``, ``ft_probes`` (each collect) and
     ``het_probes`` saw, the logs of the server, the adaptive tables and the
-    scheduler, the job states, the files left over and (with
-    ``sample_card``) the card's peak memory."""
+    scheduler, the job states, the files left over, (with ``sample_card``)
+    the card's peak memory, and (with the plane) the collector's reports
+    and SLO state."""
+    import dataclasses
     import logging
 
     from hypha_tpu_torch.data_node import DataNode
@@ -6433,6 +6745,9 @@ async def run_het_job(root: Path, model: dict, *, device, rounds, steps, batch, 
                  seed=9)
     job = het_job(model, rounds=rounds, steps=steps, batch=batch, lr=lr, deadline_s=deadline_s,
                   hi_mbps=hi_mbps, lo_mbps=lo_mbps)
+    if slo_rules is not None:
+        job = dataclasses.replace(job, metrics_plane=True, metrics_interval_s=metrics_interval_s,
+                                  slo_rules=list(slo_rules))
     listen = ["127.0.0.1:0"]
     gw = Gateway(TcpTransport(), peer_id="gw")
     await gw.start(listen)
@@ -6483,7 +6798,8 @@ async def run_het_job(root: Path, model: dict, *, device, rounds, steps, batch, 
                 started.append(part)
             await node.wait_for_bootstrap()
             t_job = time.perf_counter()
-            result = await Orchestrator(node).run(
+            orch = Orchestrator(node)
+            result = await orch.run(
                 job, auction_timeout=auction_timeout, status_timeout=status_timeout)
             job_s = time.perf_counter() - t_job
             final = {"completed", "failed", "cancelled"}
@@ -6522,12 +6838,15 @@ async def run_het_job(root: Path, model: dict, *, device, rounds, steps, batch, 
     for d in rec["dispatch"]:
         key = d["peer"] if d["kind"] == "train" else "aggregate"
         jobs[key] = [s["state"] for s in rec["statuses"] if s["job_id"] == d["job_id"]]
+    plane = orch.metrics
     return dict(job=job, result=result, rec=rec, finished=finished, logs=logs, jobs=jobs,
                 chaos=[(a.kind, a.target, a.fired_at) for a in ctl.fired], job_s=job_s,
                 t_job=t_job, stop_errors=stop_errors, leftover=leftover, batch=batch,
                 card_peak_mib=peak[0] if sample_card else None,
                 loop_stall_max_s=max(stalls, default=0.0),
-                workers=list(workers))
+                workers=list(workers),
+                plane=plane and {"reports": plane.reports, "slo": plane.watchdog.state(),
+                                 "journal": str(plane.journal_path)})
 
 
 _ARRIVALS = re.compile(r"round (\d+) UPDATED \(answered \w+\); arrival_s (\{.*\})")
@@ -6684,13 +7003,15 @@ def het_problems(run: dict, rep: dict, *, rounds: int, steps: int, layers: int, 
 def train_het_phase() -> dict:
     """WAN-adaptive rounds on the card (``run_het_job``): a capped link on
     int4, a 4x slow worker on fewer steps, a jittered one, no drop; held
-    to ``het_problems``."""
+    to ``het_problems``; traced (``het_trace_problems``) and with the live
+    metrics plane on (``het_metrics_problems``)."""
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held_gib = torch.cuda.memory_reserved() / 2**30
     cost_us = span_cost_us()
+    rules = het_slo_rules()
     root = Path(tempfile.mkdtemp(prefix="hhet"))
     tdir = None
     try:
@@ -6698,10 +7019,17 @@ def train_het_phase() -> dict:
             run = asyncio.run(run_het_job(
                 root, HET_MODEL, device="cuda", rounds=HET_ROUNDS, steps=HET_STEPS,
                 batch=TRAIN_BATCH, seq=TRAIN_SEQ, period=TRAIN_PERIOD,
-                status_timeout=HET_STATUS_TIMEOUT_S, sample_card=True))
+                status_timeout=HET_STATUS_TIMEOUT_S, sample_card=True, slo_rules=rules))
         rep = het_report(run)
         problems = het_problems(run, rep, rounds=HET_ROUNDS, steps=HET_STEPS, layers=HET_LAYERS,
                                 device="cuda")
+        recs, journal_bytes = metrics_journal(tdir)
+        problems += [f"metrics {x}" for x in het_metrics_problems(
+            run, rep, recs, round_wall_s=HET_ROUND_WALL_S)]
+        plane = {**plane_figures(recs, journal_bytes), "sample_us": sample_cost_us(),
+                 "sample_cost_n": SAMPLE_COST_N, "interval_s": METRICS_INTERVAL_S,
+                 "rules": rules, "collector": run["plane"]}
+        print(f"[train_het metrics] {json.dumps(plane)}", flush=True)
         tproblems, tfig = het_trace_problems(tdir, run, rounds=HET_ROUNDS,
                                              rate_mbps=HET_RATE_MBPS)
         problems += [f"trace {x}" for x in tproblems]
@@ -6738,6 +7066,7 @@ def train_het_phase() -> dict:
         trace={**tfig, **{k: v for k, v in tsum.items() if k != "timeline"},
                "span_us": cost_us, "span_cost_n": SPAN_COST_N, "round_wall_s": round_wall,
                "share_of_round": share},
+        metrics_plane=plane,
         **{k: v for k, v in rep.items() if k != "trainers"},
         trainers={peer: {k: t[k] for k in ("launches", "peak_gib", "batches", "switches")}
                   for peer, t in rep["trainers"].items()},
@@ -8196,6 +8525,8 @@ def main() -> int:
     lora7 = lora_7b_phase()
     emit({"phase": "lora_7b", **lora7})
     emit({"phase": "train_reference", **train_reference_phase()})
+    # The fault phases' roots, removed while later phases ran.
+    emit({"phase": "removals", "removals": await_removals()})
 
     dec, pre = kern["timing"]["decode_bf16"], kern["timing"]["prefill64_bf16"]
     kernels = [{

@@ -1,11 +1,10 @@
 """Asyncio task lifecycle helpers (a copy of the subset of
 ``hypha_tpu/aio.py`` that the fabric, the worker runtime, the Job Bridge
 and the scheduler use: ``spawn``, ``reap``, ``wait_quiet``,
-``gather_bounded`` and ``retry``). A retried attempt leaves a
-flight-recorder breadcrumb (``telemetry.flight``) beside its log line. The
-reference's task-failure and retry counters belong to the metrics plane,
-which is not ported (ROADMAP.md, Queue 1: telemetry); a failed background
-task is logged here and nothing more.
+``gather_bounded`` and ``retry``). A failed background task is logged and
+counted in :data:`TASK_FAILURES`; a retried attempt bumps
+``hypha.ft.retry_attempts`` and leaves a flight-recorder breadcrumb
+(``telemetry.flight``) beside its log line.
 
 ``asyncio.gather(..., return_exceptions=True)`` is the primitive that makes
 the cancellation semantics right: child outcomes become return values, but
@@ -19,9 +18,15 @@ import logging
 import random
 from typing import Any, Awaitable, Callable, Coroutine, MutableSet, TypeVar
 
-__all__ = ["spawn", "reap", "wait_quiet", "gather_bounded", "retry"]
+from .telemetry import Counter
+
+__all__ = ["TASK_FAILURES", "spawn", "reap", "wait_quiet", "gather_bounded", "retry"]
 
 log = logging.getLogger("hypha.torch.aio")
+
+# Background tasks that died with an exception (a dead heartbeat pump or
+# membership push shows up as a counter, not only as a log line).
+TASK_FAILURES = Counter("hypha.aio.task_failures")
 
 
 def spawn(
@@ -36,7 +41,7 @@ def spawn(
 
     ``tasks`` (usually the owner's ``self._tasks`` set) keeps a strong
     reference until completion; the done-callback logs non-cancellation
-    failures.
+    failures and counts them in :data:`TASK_FAILURES`.
     """
     task = asyncio.create_task(coro, name=name or what or None)
     if tasks is not None:
@@ -50,6 +55,7 @@ def spawn(
             return
         exc = t.exception()
         if exc is not None:
+            TASK_FAILURES.add(1)
             lg.error("background task %r failed: %r", label, exc)
 
     task.add_done_callback(_surface)
@@ -178,7 +184,10 @@ async def retry(
                 raise
             # Flight-recorder breadcrumb: a late round's post-mortem needs
             # the retry storm beside the chaos and drop events.
-            from .telemetry.flight import FLIGHT  # lazy: no import cycle
+            from .telemetry.ft_metrics import FT_METRICS
+            from .telemetry.flight import FLIGHT
+
+            FT_METRICS.retry_attempts.add(1)
 
             FLIGHT.record("retry", what=label, attempt=attempt, error=str(e)[:200])
             lg.info("retry %r: attempt %d failed (%s); next in %.2fs", label, attempt, e, delay)

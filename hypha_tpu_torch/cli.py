@@ -336,6 +336,19 @@ async def _serve_job(node, conf: SchedulerConfig, stop: "asyncio.Event | None") 
     from .scheduler.serving import ServingSupervisor
 
     job = conf.job
+    # The live metrics plane of a serve deployment: a collector on this
+    # node takes the serving workers' reports and the heartbeats' loads,
+    # journals metrics-<name>.jsonl under metrics_dir and answers
+    # ``telemetry.top <addr>``. Off by default.
+    collector = None
+    if job.metrics_plane:
+        from .telemetry.metrics_plane import MetricsCollector
+
+        collector = MetricsCollector(
+            # Prefix of the dispatched job ids (serve-<name>-<slot>-<uuid>).
+            node, f"serve-{job.serve_name}", slo_rules=list(job.slo_rules),
+            journal_dir=job.metrics_dir or None,
+        ).start()
     sup = ServingSupervisor(
         node,
         job.to_model_spec(),
@@ -360,6 +373,8 @@ async def _serve_job(node, conf: SchedulerConfig, stop: "asyncio.Event | None") 
         fleet_digest_k=job.serve_digest_k,
         prefix_affinity=job.serve_prefix_affinity,
         eos_token_id=None if job.serve_eos_token_id < 0 else job.serve_eos_token_id,
+        report_metrics_s=job.metrics_interval_s if job.metrics_plane else None,
+        metrics=collector,
     )
     print(f"serving {job.serve_name!r} x{job.serve_workers}; ctrl-c to stop", flush=True)
     runner = asyncio.create_task(sup.run())
@@ -372,6 +387,8 @@ async def _serve_job(node, conf: SchedulerConfig, stop: "asyncio.Event | None") 
         signal_task.cancel()
         await sup.stop()
         await runner
+        if collector is not None:
+            await collector.close()
 
 
 def _cmd_run(role: str, args) -> int:

@@ -50,6 +50,8 @@ from __future__ import annotations
 
 from collections import OrderedDict
 
+from ..telemetry.ft_metrics import SERVE_METRICS
+
 __all__ = ["PrefixBlockCache", "chain_hashes"]
 
 
@@ -247,6 +249,7 @@ class PrefixBlockCache:
             del self._by_hash[self._hash_of.pop(b)]
             self._gen_of.pop(b, None)
             self.evictions += 1
+            SERVE_METRICS.cache_evictions.add(1)
         else:
             return None
         self._ref[b] = 1

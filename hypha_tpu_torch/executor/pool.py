@@ -70,12 +70,17 @@ rolled back, the allocator's generation and a digest of the served leaves
 (``swap_log`` keeps them).
 
 Greedy only: sampled requests take ``PoolServer``'s one-shot fallback.
-Where the JAX pool bumps its serving metrics the port keeps plain
-counters: ``hit_blocks``, ``miss_blocks``, ``cow_copies``, ``migrated_out``,
-``requeued``, and in ``stats`` the fleet counts under the reference's names
+The pool records into ``SERVE_METRICS`` where the reference's does
+(admissions, preemptions, rejections, prefix hits and misses, copy-on-write
+copies, swaps, each request's submit-to-answer milliseconds, and after each
+step its free blocks, queue depth, cached blocks and the last decode's
+attended blocks), and keeps plain counters beside them: ``hit_blocks``,
+``miss_blocks``, ``cow_copies``, ``migrated_out``, ``requeued``, and in
+``stats`` the fleet counts under the reference's names
 (``remote_prefix_hits``, ``remote_prefix_misses``, ``blocks_shipped``,
 ``block_bytes_shipped``, ``migrations``, ``transfer_chosen``,
-``recompute_chosen``; ``count`` adds to them from any thread).
+``recompute_chosen``; ``count`` adds to them, and to ``SERVE_METRICS``,
+from any thread).
 Options of the JAX pool that this port does not have yet raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
@@ -97,6 +102,7 @@ import torch
 from ..ops.kvcache import KVCache, copy_blocks, extract_blocks, insert_blocks, pool_leaves
 from ..telemetry import trace
 from ..telemetry.flight import FLIGHT
+from ..telemetry.ft_metrics import SERVE_METRICS
 from .block_cache import PrefixBlockCache, chain_hashes
 
 __all__ = ["DecodePool", "PoolBusy", "StaleBlockGeneration"]
@@ -144,6 +150,7 @@ class _Group:
     # submitting request's context. Both None while tracing is off.
     trace_span: Any = None
     traceparent: "str | None" = None
+    t_submit: float = 0.0  # the request's latency starts here
 
 
 @dataclass
@@ -325,9 +332,12 @@ class DecodePool:
         return self._alloc.shared_count()
 
     def count(self, name: str, n: int = 1) -> None:
-        """Add ``n`` to ``stats[name]`` (thread-safe)."""
+        """Add ``n`` to ``stats[name]`` (thread-safe), and to its
+        ``SERVE_METRICS`` counter for a fleet count."""
         with self._stats_lock:
             self.stats[name] += n
+        if name in FLEET_STATS:
+            getattr(SERVE_METRICS, name).add(n)
 
     # ------------------------------------- fleet cache / migration plumbing
 
@@ -489,6 +499,7 @@ class DecodePool:
                             keep_previous=bool(keep_previous))
             if self.pinned_round is not None and int(round_num) > self.pinned_round:
                 self.swaps_deferred += 1
+                SERVE_METRICS.swap_deferred.add(1)
         self._queue.put(_WAKE)  # an idle loop flips without waiting for traffic
 
     def pin_round(self, round_num: "int | None") -> None:
@@ -561,6 +572,8 @@ class DecodePool:
                     self.weight_round = prev_round
                     self.swaps_rolled_back += 1
                 self._alloc.bump_generation()
+                SERVE_METRICS.swap_rolled_back.add(1)
+                SERVE_METRICS.weight_state(prev_round, self.weight_generation or 0)
                 self._log_swap("rolled back to", prev_round, self.weight_generation or 0, None,
                                0.0)
         if pend is None:
@@ -583,6 +596,9 @@ class DecodePool:
         # Cached prefix blocks hold K/V of the old weights: no admission
         # from now on maps them (live lanes keep theirs until release).
         self._alloc.bump_generation()
+        SERVE_METRICS.swap_applied.add(1)
+        SERVE_METRICS.swap_finished((time.perf_counter() - pend["staged_at"]) * 1000.0)
+        SERVE_METRICS.weight_state(pend["round"], pend["generation"])
         FLIGHT.record("serve.weight_swap", round=pend["round"], generation=pend["generation"],
                       live_rows=len(self._lane_rows))
         self._log_swap("applied", pend["round"], pend["generation"], pend["staged_at"], t0)
@@ -648,12 +664,15 @@ class DecodePool:
                 fut.set_exception(RuntimeError("pool is closed"))
                 return fut
             if self.max_queue and self._backlog >= self.max_queue:
+                # Reject with a retry-after hint instead of queueing without
+                # bound.
+                SERVE_METRICS.rejections.add(1)
                 fut.set_exception(PoolBusy(0.05 * (self._backlog - self.max_queue + 1)))
                 return fut
             self.requests += 1
             self._backlog += 1
             self._queue.put(_Group([list(p) for p in prompts], int(n_new), fut,
-                                   traceparent=traceparent))
+                                   traceparent=traceparent, t_submit=time.monotonic()))
         return fut
 
     def close(self, wait: bool = True) -> None:
@@ -744,6 +763,9 @@ class DecodePool:
         if dec:
             self._run_decode_chunk(dec)
             self._finish_paged()
+        SERVE_METRICS.pool_state(self.free_blocks(), self.queue_depth())
+        if self.prefix_cache:
+            SERVE_METRICS.cache_state(self._alloc.cached_count(), self._alloc.shared_count())
         if self.fleet_cache:
             self.fleet_digest = self._alloc.hot_chains(self.digest_k)
 
@@ -798,12 +820,16 @@ class DecodePool:
                 r.chain_h = hashes[len(hit) - 1] if hit else 0
                 self.hit_blocks += len(hit)
                 self.miss_blocks += len(hashes) - len(hit)
+                if self.prefix_cache:
+                    SERVE_METRICS.prefix_hit_blocks.add(len(hit))
+                    SERVE_METRICS.prefix_miss_blocks.add(len(hashes) - len(hit))
                 r.win_tokens = np.zeros((len(full) + self.prefill_chunk,), np.int32)
                 r.win_tokens[: len(full)] = full
                 self._lane_rows[r.slot] = r
                 self._h_start[r.slot] = 0
                 self._h_table[r.slot, :] = self.num_blocks
                 self._h_table[r.slot, : len(r.blocks)] = r.blocks
+            SERVE_METRICS.admissions.add(1)
 
     def _push_rowvars(self) -> None:
         """Write the host row variables into the cache tensors in place."""
@@ -932,6 +958,7 @@ class DecodePool:
                 r.blocks[bi] = nb
                 self._h_table[r.slot, bi] = nb
                 self.cow_copies += 1
+                SERVE_METRICS.cow_copies.add(1)
             elif self._alloc.is_registered(b):
                 # The lane's own cached block. Recomputing the final prompt
                 # token of a capped hit rewrites the same K/V (the chain
@@ -973,6 +1000,7 @@ class DecodePool:
         with self._submit_lock:
             self._backlog += 1
         self.preemptions += 1
+        SERVE_METRICS.preemptions.add(1)
         FLIGHT.record("serve.preempt", rows=len(group.rows), order=group.order,
                       emitted=sum(len(r.emitted) for r in group.rows.values()))
 
@@ -1009,6 +1037,7 @@ class DecodePool:
         self._release_lane(r, register=True)
         self.preemptions += 1
         self.migrated_out += 1
+        SERVE_METRICS.preemptions.add(1)
         FLIGHT.record("serve.migrate_out", order=group.order, blocks=nfull,
                       emitted=len(ticket["emitted"]))
         try:
@@ -1039,6 +1068,8 @@ class DecodePool:
         trace.finish(group.trace_span)
         group.trace_span = None
         if not group.fut.done():
+            if group.t_submit:
+                SERVE_METRICS.request_finished((time.monotonic() - group.t_submit) * 1e3)
             group.fut.set_result([r.emitted])
 
     def _run_decode_chunk(self, dec: list) -> None:
@@ -1074,6 +1105,12 @@ class DecodePool:
         toks_host = torch.stack(steps).cpu().numpy()  # [K, slots]: the one sync
         self.stats["decode_s"] += time.perf_counter() - t0
         self.chunks += 1
+        # The decode's occupancy: the ragged kernel visits exactly the
+        # allocated blocks; a dense gather would pay every lane's window.
+        allocated = sum(len(r.blocks) for r in live)
+        capacity = len(live) * (self.max_len // self.block_size)
+        SERVE_METRICS.attention_state(allocated if self.ragged else capacity, allocated,
+                                      capacity)
         for r in live:
             for t in toks_host[:, r.slot]:
                 if len(r.emitted) >= r.budget:
@@ -1114,4 +1151,6 @@ class DecodePool:
             if all(pr.done for pr in group.rows.values()) and not group.fut.done():
                 trace.finish(group.trace_span)
                 group.trace_span = None
+                if group.t_submit:
+                    SERVE_METRICS.request_finished((time.monotonic() - group.t_submit) * 1e3)
                 group.fut.set_result([group.rows[i].emitted for i in range(len(group.prompts))])

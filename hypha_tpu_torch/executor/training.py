@@ -87,6 +87,14 @@ read one step later. The loop times each wait for a batch and each slice
 fetch into ``telemetry.ft_metrics.DATA_METRICS`` and logs ``data metrics:
 {...}`` when it ends.
 
+With ``report_metrics_s`` (the live metrics plane) each round's METRICS
+progress also carries the reference's training-quality keys (its
+``quality_metrics``): ``loss_ewma``, ``tokens_per_s``, ``inner_steps`` and,
+on the blocking paths, ``delta_norm`` (the L2 norm of the round's Δθ, before
+its codec). Off, the METRICS dict keeps its bytes. A stream flight records
+into ``STREAM_METRICS``, a codec switch into ``HET_METRICS``, a dropped
+stale-generation answer into ``FT_METRICS``.
+
 Every other option of ``TrainExecutorConfig`` is not ported; each raises
 NotImplementedError naming its ROADMAP.md item rather than being ignored.
 """
@@ -134,7 +142,7 @@ from ..ops.flash_attention import flash_attention
 from ..stream import effective_fragments, fragment_due, merge_corrected, partition_names
 from ..stream.partition import shard_of
 from ..telemetry import trace
-from ..telemetry.ft_metrics import DATA_METRICS
+from ..telemetry.ft_metrics import DATA_METRICS, FT_METRICS, HET_METRICS, STREAM_METRICS
 from ..worker.connectors import shard_route
 from .bridge_client import Session
 from .checkpoint import (load_train_checkpoint, restore_train_state, save_train_checkpoint,
@@ -222,6 +230,16 @@ class TrainResult:
         return self.losses[-1] if self.losses else math.nan
 
 
+# The quality loss EWMA's weight on the previous value (the reference's).
+_EWMA_BETA = 0.7
+
+
+def delta_norm_of(flat: dict) -> float:
+    """L2 norm of a round's Δθ (squares summed in f64), the quality report's
+    ``delta_norm`` on every path that ships a whole delta."""
+    return math.sqrt(sum(float(torch.sum(torch.square(v.double()))) for v in flat.values()))
+
+
 def adopt_schedule(resp: ProgressResponse, countdown: "int | None") -> "int | None":
     """Take a SCHEDULE_UPDATE's counter only when no countdown runs (a
     re-adopting scheduler's repeated schedule must not re-run or skip inner
@@ -238,7 +256,6 @@ def _unsupported(cfg: TrainExecutorConfig) -> None:
     mesh = math.prod(int(sharding.get(a, 1)) for a in ("dp", "fsdp", "tp", "sp", "ep"))
     checks = [
         (mesh > 1, "sharding", "intra-replica sharding"),
-        (bool(cfg.report_metrics_s), "report_metrics_s", "telemetry"),
     ]
     for bad, option, item in checks:
         if bad:
@@ -299,6 +316,7 @@ def codec_hint(meta: dict, current: str) -> "str | None":
     if not isinstance(hint, str) or hint not in compress.CODECS or hint == current:
         return None
     log.info("per-link codec hint: switching upload codec %s -> %s", current, hint)
+    HET_METRICS.codec_switches.add(1)
     return hint
 
 
@@ -359,7 +377,8 @@ class _WorkerStream:
         flight = {
             "round": round_num, "frag": frag, "owner": owner, "names": names, "snap": snap,
             "path": self.work_dir / f"delta-{round_num}-f{frag}.safetensors",
-            "box": {"absorbed": []}, "t0": time.perf_counter(), "steps": 0,
+            "box": {"absorbed": []}, "t0": time.perf_counter(), "steps": 0, "compute_s": 0.0,
+            "bytes": 0,
             "samples": float(num_samples),
             # The round context at launch, for the flight thread's spans
             # and push headers.
@@ -384,6 +403,8 @@ class _WorkerStream:
                                      ef=self.efs[flight["frag"]], tag=tag.header())
             del wire
             nbytes = flight["path"].stat().st_size
+            flight["bytes"] = nbytes
+            STREAM_METRICS.flight_started(nbytes)
             log.info("round %d fragment %d: delta encoded in %.3f s (%d bytes)",
                      flight["round"], flight["frag"], time.perf_counter() - t0, nbytes)
             with trace.span("upload", parent=flight["tp"], node=tnode,
@@ -395,6 +416,10 @@ class _WorkerStream:
                      flight["round"], flight["frag"], time.perf_counter() - flight["t0"])
         except BaseException as e:  # hypha-lint: disable=swallowed-cancel
             box["error"] = e  # thread-bridge: re-raised at finish()
+        finally:
+            # Done with the wire, landed or failed: a dead flight must not
+            # read as mid-upload for the rest of the process.
+            STREAM_METRICS.flight_landed(flight["bytes"])
 
     def _send(self, flight: dict, tag: FragmentTag) -> None:
         """Ship the flight's file: to the one server, or to the fragment's
@@ -461,9 +486,12 @@ class _WorkerStream:
             flight["thread"].join(self.poll_wait_s)
         return not flight["thread"].is_alive()
 
-    def note_step(self) -> None:
+    def note_step(self, seconds: float = 0.0) -> None:
+        """One inner step taken with the flight up (its compute seconds:
+        the overlap ``STREAM_METRICS`` reports)."""
         if self.flight is not None:
             self.flight["steps"] += 1
+            self.flight["compute_s"] += seconds
 
     @torch.no_grad()
     def finish(self) -> None:
@@ -504,6 +532,7 @@ class _WorkerStream:
                  waited, flight["steps"])
         update_file.unlink(missing_ok=True)
         flight["path"].unlink(missing_ok=True)
+        STREAM_METRICS.flight_finished(time.perf_counter() - flight["t0"], flight["compute_s"])
 
     def _absorb(self, event: dict) -> None:
         """θ ← θ + u and anchor ← anchor + u for a fragment not in flight."""
@@ -760,6 +789,45 @@ def run_training(
     round_samples = 0
     round_losses: list[float] = []
     gens: dict = {"ps": None, "sched": None}
+    # The live metrics plane: a reporting job's round METRICS carry the
+    # training-quality keys (loss EWMA, tokens/s, inner steps, delta norm);
+    # off, the METRICS dict, and the wire, stay as they are.
+    report_quality = bool(cfg.report_metrics_s)
+    qstate: dict = {"ewma": None, "t0": time.monotonic(), "tokens": 0.0, "batches": 0}
+
+    def quality_metrics(mean_loss: float) -> dict:
+        """One round's quality keys; resets the per-round accumulators."""
+        now = time.monotonic()
+        dur = max(now - qstate["t0"], 1e-9)
+        ewma = qstate["ewma"]
+        if not math.isnan(mean_loss):
+            ewma = mean_loss if ewma is None else \
+                _EWMA_BETA * ewma + (1.0 - _EWMA_BETA) * mean_loss
+            qstate["ewma"] = ewma
+        out = {
+            "loss_ewma": float(ewma) if ewma is not None else mean_loss,
+            "tokens_per_s": float(qstate["tokens"]) / dur,
+            "inner_steps": float(qstate["batches"]),
+        }
+        qstate.update(t0=now, tokens=0.0, batches=0)
+        return out
+
+    def note_quality_batch(batch: dict) -> None:
+        qstate["batches"] += 1
+        ids = batch.get("input_ids") if isinstance(batch, dict) else None
+        qstate["tokens"] += float(ids.numel()) if ids is not None else float(cfg.batch_size)
+
+    def round_metrics(samples: float, delta_norm: "float | None" = None) -> dict:
+        """The round's METRICS: mean loss and samples, and the quality keys
+        on a reporting job (``delta_norm``: the round's Δθ's, where the path
+        ships a whole one)."""
+        mean_loss = sum(round_losses) / len(round_losses) if round_losses else math.nan
+        metrics = {"loss": mean_loss, "samples": samples}
+        if report_quality:
+            metrics.update(quality_metrics(mean_loss))
+            if delta_norm is not None:
+                metrics["delta_norm"] = delta_norm
+        return metrics
 
     def send_status(progress: Progress) -> ProgressResponse:
         """session.send_status, dropping a stale scheduler generation's answers."""
@@ -770,6 +838,7 @@ def run_training(
             gens["sched"], stale = stale_scheduler_response(resp, gens["sched"])
             if not stale:
                 return resp
+            FT_METRICS.stale_generation_dropped.add(1)
             log.warning("dropping a %s response from a stale scheduler generation",
                         progress.kind.value)
             time.sleep(0.2)
@@ -812,8 +881,10 @@ def run_training(
         delta_path = work_dir / f"delta-{round_num}.safetensors"
         t_write = time.perf_counter()
         with torch.no_grad():
-            compress.write_delta(delta_path, state_to_flat(model, extract_delta(params, anchor)),
-                                 wire_codec, ef=delta_ef)
+            flat = state_to_flat(model, extract_delta(params, anchor))
+            compress.write_delta(delta_path, flat, wire_codec, ef=delta_ef)
+            delta_norm = delta_norm_of(flat) if report_quality else None
+            del flat
         if dev.type == "cuda":
             # The delta's transients go back to the card while the round's
             # broadcast is awaited: a parameter server may share it.
@@ -824,9 +895,8 @@ def run_training(
                         attrs={"round": round_num, "codec": wire_codec,
                                "bytes": delta_path.stat().st_size}):
             push_delta(delta_path)
-        mean_loss = sum(round_losses) / len(round_losses) if round_losses else math.nan
         send_status(Progress(kind=ProgressKind.METRICS, job_id=spec.job_id, round=round_num,
-                             metrics={"loss": mean_loss, "samples": float(round_samples)},
+                             metrics=round_metrics(float(round_samples), delta_norm),
                              traceparent=round_tp))
         with session.receive(cfg.results) as events:
             while True:
@@ -928,6 +998,7 @@ def run_training(
                 compress.write_delta(path, {n: wire_flat[n] for n in names}, wire_codec,
                                      ef=shard_ctx["efs"][p], tag=tag.header())
             paths[p] = path
+        delta_norm = delta_norm_of(wire_flat) if report_quality else None
         del wire_flat
         trace.finish(enc_span)
         log.info("round %d: delta written in %.3f s (%d parts: %s bytes)", round_num,
@@ -936,10 +1007,8 @@ def run_training(
                         attrs={"round": round_num, "codec": wire_codec, "parts": len(parts)}):
             for p, path in paths.items():
                 push_part(p, path, samples)
-        mean_loss = sum(round_losses) / len(round_losses) if round_losses else math.nan
         send_status(Progress(kind=ProgressKind.METRICS, job_id=spec.job_id, round=round_num,
-                             metrics={"loss": mean_loss, "samples": samples},
-                             traceparent=round_tp))
+                             metrics=round_metrics(samples, delta_norm), traceparent=round_tp))
         gens = shard_ctx["gens"]
         got: dict = {}
         with session.receive(cfg.results) as events:
@@ -1026,10 +1095,9 @@ def run_training(
         round_tp = rtrace.ctx(round_num)
         send_status(Progress(kind=ProgressKind.UPDATE, job_id=spec.job_id, traceparent=round_tp))
         stream_state.begin(round_num, round_samples)
-        mean_loss = sum(round_losses) / len(round_losses) if round_losses else math.nan
+        # No delta norm: the due fragment's delta belongs to the flight.
         send_status(Progress(kind=ProgressKind.METRICS, job_id=spec.job_id, round=round_num,
-                             metrics={"loss": mean_loss, "samples": float(round_samples)},
-                             traceparent=round_tp))
+                             metrics=round_metrics(float(round_samples)), traceparent=round_tp))
         round_samples = 0
         round_losses.clear()
 
@@ -1109,12 +1177,14 @@ def run_training(
                 step_s["flight" if overlapping else "no_flight"].append(
                     time.perf_counter() - t_step)
                 if overlapping:
-                    stream_state.note_step()
+                    stream_state.note_step(step_s["flight"][-1])
                 flush_pending_loss()  # older deferred losses first
                 round_losses.append(value)
                 result.losses.append(value)
             result.batches += 1
             round_samples += cfg.batch_size
+            if report_quality:
+                note_quality_batch(batch)
             resp = send_status(Progress(kind=ProgressKind.STATUS, job_id=spec.job_id,
                                         batch_size=cfg.batch_size))
             if resp.kind == ProgressResponseKind.DONE:

@@ -18,8 +18,8 @@ measured conditions:
     (:func:`hypha_tpu_torch.compress.codec_for_bandwidth`); the serving
     plane's fleet pulls read the same table for their link estimate.
 
-Both are pure logic with injectable clocks. The reference's ``HET_METRICS``
-(telemetry) is not ported: each of its ``note_*`` calls is a log line here
+Both are pure logic with injectable clocks, and record into
+``HET_METRICS`` (``telemetry.ft_metrics``); each record is also a log line
 (``assigned steps``, ``link estimate``, ``link codec``), which the smoke
 reads.
 """
@@ -33,6 +33,7 @@ import time
 from typing import Callable
 
 from ..compress import codec_for_bandwidth
+from ..telemetry.ft_metrics import HET_METRICS
 
 __all__ = ["Ewma", "StragglerController", "LinkTable"]
 
@@ -215,6 +216,7 @@ class StragglerController:
                 steps = round(self.base_steps / (2.0 ** level))
             steps = max(self.min_steps, min(steps, max(round(self.base_steps * self.max_boost), 1)))
         self._assigned[peer] = steps
+        HET_METRICS.note_assigned(peer, steps)
         log.info("assigned steps: round %d peer %s steps %d", self.round, peer, steps)
         return steps
 
@@ -284,6 +286,7 @@ class LinkTable:
         """Record one measured transfer; returns the updated bits/s EWMA."""
         bps = (max(int(nbytes), 1) * 8.0) / max(float(seconds), 1e-6)
         value = self._bw.setdefault(peer, Ewma(self._alpha)).update(bps)
+        HET_METRICS.note_bandwidth(peer, value)
         log.info("link estimate: peer %s %d bytes in %.6f s, estimate %.1f bit/s",
                  peer, int(nbytes), float(seconds), value)
         return value
@@ -302,6 +305,7 @@ class LinkTable:
         if bw is None:
             return self.base_codec
         codec = codec_for_bandwidth(bw, self.base_codec, self.hi_bps, self.lo_bps)
+        HET_METRICS.note_codec(peer, codec)
         log.info("link codec: peer %s %s at %.1f bit/s", peer, codec, bw)
         return codec
 

@@ -28,11 +28,10 @@ Everything lives under the job's ``checkpoint_dir``:
     fragment, peer, sha) index makes a worker's re-send idempotent.
 
 A generation bump (a server or scheduler that restarted) is a
-flight-recorder event (``telemetry.flight``). The reference's
-``FT_METRICS`` counters belong to the metrics plane, not ported
-(ROADMAP.md, Queue 1: telemetry): the journal counts its records and bytes
-and the server counts its dedup hits on the objects, and the executor logs
-them.
+flight-recorder event (``telemetry.flight``). Every journal append counts
+its bytes into ``FT_METRICS.ps_journal_bytes`` (``hypha.ps.journal_bytes``);
+the journal also counts its records and bytes on the object, and the
+server its dedup hits, which the executor logs.
 
 :class:`DurableScheduler` is the scheduler's own journal
 (``<checkpoint_dir>/scheduler/sched-journal.cbor``, on the same
@@ -62,6 +61,7 @@ from pathlib import Path
 from typing import Any, Iterable
 
 from .. import codec
+from ..telemetry.ft_metrics import FT_METRICS
 
 __all__ = [
     "GENERATION_KEY",
@@ -161,6 +161,7 @@ class RoundJournal:
         frame = struct.pack("<I", len(body)) + body
         self._f.write(frame)
         self.bytes_written += len(frame)
+        FT_METRICS.ps_journal_bytes.add(len(frame))
         self.records_written += 1
         self._since_sync += 1
         self._f.flush()

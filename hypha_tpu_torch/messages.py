@@ -78,6 +78,23 @@ def _enum(cls):
     return cls
 
 
+# The reference's manifest of which top-level types each stream protocol
+# carries, and which types travel only nested inside others.
+PROTOCOL_MESSAGES: dict[str, tuple[str, ...]] = {}
+VALUE_VOCABULARY: set[str] = set()
+
+
+def declare_protocol(protocol_id: str, *message_names: str) -> None:
+    """Claim top-level message types for a stream protocol."""
+    existing = PROTOCOL_MESSAGES.get(protocol_id, ())
+    PROTOCOL_MESSAGES[protocol_id] = tuple(dict.fromkeys(existing + message_names))
+
+
+def declare_values(*message_names: str) -> None:
+    """Claim message types as nested value vocabulary (no stream of their own)."""
+    VALUE_VOCABULARY.update(message_names)
+
+
 def _to_plain(obj: Any) -> Any:
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         d: dict[str, Any] = {"_t": type(obj).__name__}

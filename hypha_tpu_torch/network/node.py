@@ -25,8 +25,9 @@ verifies ``from`` equals the certificate-derived peer id.
 Gossip signing runs on the port's pure-Python Ed25519 (``ed25519.py``);
 ``Node.gossip_counts`` holds the frames this node signed, verified and
 dropped for a bad or missing signature, and ``gossip_verify_s`` the
-seconds of the latest verifications. What the copy leaves out: the per-protocol
-control-byte counters (``SCALE_METRICS``; ROADMAP.md, Queue 1: telemetry).
+seconds of the latest verifications. Every RPC's request and response
+frame counts into the per-protocol control-byte counters
+(``SCALE_METRICS.note_control``).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from dataclasses import dataclass, field
 from typing import Any, AsyncIterator, Awaitable, Callable
 
 from .. import aio, messages
+from ..telemetry.ft_metrics import SCALE_METRICS
 from .fabric import MAX_FRAME, FrameError, Stream, Transport, copy_stream
 
 __all__ = [
@@ -857,7 +859,8 @@ class Node:
                 log.debug("handler error on %s: %s", proto, e)
                 await stream.write_frame({"ok": False, "error": str(e)})
                 return
-        await stream.write_frame({"ok": True, "body": messages.encode(response)})
+        sent = await stream.write_frame({"ok": True, "body": messages.encode(response)})
+        SCALE_METRICS.note_control(proto, sent)
 
     async def request(
         self, peer_id: str, protocol: str, msg: Any, timeout: float = 30.0
@@ -880,7 +883,8 @@ class Node:
             # shards encodes it once (the reference's messages.PreEncoded)
             # and every send ships the same bytes.
             pre = getattr(msg, "__pre_encoded__", None)
-            await stream.write_frame(pre if pre is not None else messages.encode(msg))
+            sent = await stream.write_frame(pre if pre is not None else messages.encode(msg))
+            SCALE_METRICS.note_control(protocol, sent)
             reply = await stream.read_frame()
         except (FrameError, ConnectionError, OSError) as e:
             raise RequestError(f"rpc to {peer_id} failed: {e}") from e

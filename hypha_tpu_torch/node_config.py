@@ -601,8 +601,6 @@ class JobSection:
         if self.worker_tpu > 0:
             raise ConfigError("job.worker_tpu: " + _GPU_ONLY.format(gpu_key="job.worker_gpu"))
         for name, value, label in (
-            ("metrics_plane", self.metrics_plane, "telemetry"),
-            ("slo_rules", self.slo_rules, "telemetry"),
             ("serve_spec_ngram", self.serve_spec_ngram, "speculative decoding"),
             ("serve_spec_draft", self.serve_spec_draft, "speculative decoding"),
             ("serve_spec_layers", self.serve_spec_layers, "speculative decoding"),
@@ -724,8 +722,14 @@ class JobSection:
             )
         if self.metrics_interval_s <= 0:
             raise ConfigError("job.metrics_interval_s must be positive")
-        # slo_rules: the rule parser is part of the telemetry the port has
-        # not got; DiLoCoJob refuses any rule naming that label.
+        if self.slo_rules:
+            from .telemetry.slo import parse_slo_rule
+
+            for rule in self.slo_rules:
+                try:
+                    parse_slo_rule(str(rule))
+                except ValueError as e:
+                    raise ConfigError(f"job.slo_rules: {e}") from None
         if self.round_deadline_s < 0:
             raise ConfigError("job.round_deadline_s must be >= 0")
         if self.phi_threshold <= 0:

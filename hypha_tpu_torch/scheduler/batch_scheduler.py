@@ -36,15 +36,14 @@ fast-forwards to the fleet's round with ``adopt_round``. A never-restarted
 scheduler (``generation`` None) answers with the reference's frozen
 singletons, byte for byte, and refuses any stamped traffic: senders stamp
 only after adopting generation 2. Refusals are counted in
-``stale_generation_dropped`` (the reference's ``FT_METRICS`` counter). A
+``stale_generation_dropped`` and in ``FT_METRICS``. A
 shard reports a committed round as closed in its AdoptAck
 (``worker/ps_executor.py``), so ``adopt_round`` can credit a shard's last
 owned round while its UPDATED for it is still parked: the job then
 completes only once that notify is answered, or the shard would be left
-retrying against a scheduler that is gone. The
-reference's control-loop timing reservoir and per-round trace spans
-(**telemetry**) are off by default there and change no wire byte; here
-they are absent.
+retrying against a scheduler that is gone. Every message's handling
+time goes into the control-loop timing reservoir
+(``SCALE_METRICS.note_sched_progress``).
 
 This module is pure logic: the network layer feeds it decoded Progress
 messages and returns its ProgressResponse to the peer.
@@ -53,6 +52,7 @@ messages and returns its ProgressResponse to the peer.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable
 
 from ..messages import (
@@ -62,6 +62,7 @@ from ..messages import (
     ProgressResponseKind,
 )
 from ..telemetry import trace
+from ..telemetry.ft_metrics import FT_METRICS, SCALE_METRICS
 from .simulation import project
 from .trackers import ProgressTracker, WorkerState
 
@@ -144,6 +145,14 @@ class BatchScheduler:
 
     # ------------------------------------------------------------------
     def on_progress(self, peer: str, progress: Progress) -> ProgressResponse:
+        # Control-loop timing reservoir: one perf_counter pair a message.
+        t0 = time.perf_counter()
+        try:
+            return self._on_progress_gated(peer, progress)
+        finally:
+            SCALE_METRICS.note_sched_progress((time.perf_counter() - t0) * 1000.0)
+
+    def _on_progress_gated(self, peer: str, progress: Progress) -> ProgressResponse:
         sender_gen = progress.scheduler_generation
         if sender_gen is not None and (self.generation is None or sender_gen > self.generation):
             # Split-brain guard: this message was addressed to a newer
@@ -151,6 +160,7 @@ class BatchScheduler:
             # and must not act on it (an unstamped scheduler is generation
             # 1, and senders stamp only from generation 2).
             self.stale_generation_dropped += 1
+            FT_METRICS.stale_generation_dropped.add(1)
             return ProgressResponse(
                 kind=ProgressResponseKind.ERROR,
                 message=(f"stale scheduler generation {self.generation or 1} "

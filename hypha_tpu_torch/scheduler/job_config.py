@@ -19,16 +19,17 @@ broadcast tree (``broadcast_tree``), serving followers (``serve_peers``),
 WAN-adaptive rounds (``adaptive_steps``, ``adaptive_codec`` and its
 ``codec_bw_hi_mbps`` / ``codec_bw_lo_mbps``), LoRA fine-tuning (``lora``,
 which the trainer reads), slice preprocessors (``preprocessor``), the input
-pipeline (``input_pipeline``, ``prefetch_slices``), and, with any of them, fault
-tolerance (``ft``, an ``FTConfig``), checkpoints (``checkpoint_dir``,
-``checkpoint_every``, ``ps_checkpoint_every_rounds``) and the scheduler's
-own crash recovery (``scheduler_recovery``, which needs both).
-Each option outside it is accepted only at its off value (``_NOT_PORTED``),
-and any other value raises ``NotImplementedError`` naming its ROADMAP.md
-label. Malformed values raise the reference's ``ValueError`` first, with
-its texts: every cross-field check of the reference runs before the
-``_NOT_PORTED`` loop. A non-empty ``slo_rules`` raises under telemetry,
-whose rule parser is not ported.
+pipeline (``input_pipeline``, ``prefetch_slices``), the live metrics plane
+(``metrics_plane``, ``metrics_interval_s``, ``metrics_dir``, ``slo_rules``),
+and, with any of them, fault tolerance (``ft``, an ``FTConfig``),
+checkpoints (``checkpoint_dir``, ``checkpoint_every``,
+``ps_checkpoint_every_rounds``) and the scheduler's own crash recovery
+(``scheduler_recovery``, which needs both). Each option outside it is
+accepted only at its off value (``_NOT_PORTED``), and any other value raises
+``NotImplementedError`` naming its ROADMAP.md label. Malformed values raise
+the reference's ``ValueError`` first, with its texts (a bad SLO rule
+included): every cross-field check of the reference runs before the
+``_NOT_PORTED`` loop.
 """
 
 from __future__ import annotations
@@ -45,8 +46,6 @@ __all__ = ["DiLoCoRounds", "JobResources", "DiLoCoJob", "CODECS", "SYNC_MODES"]
 
 # (field, the values the port runs, ROADMAP.md label of the rest).
 _NOT_PORTED = (
-    ("metrics_plane", (False,), "telemetry"),
-    ("slo_rules", ([],), "telemetry"),
     ("sharding", (None,), "intra-replica sharding"),
 )
 
@@ -208,6 +207,10 @@ class DiLoCoJob:
                 "prefetch_slices needs input_pipeline (the prefetcher IS "
                 "the pipeline's fetch stage)"
             )
+        if self.slo_rules:
+            from ..telemetry.slo import parse_slo_rules
+
+            parse_slo_rules(self.slo_rules)  # raises on a bad rule
         if self.rounds.update_rounds <= 0:
             raise ValueError("update_rounds must be positive")
         if self.rounds.avg_samples_between_updates <= 0:

@@ -80,10 +80,20 @@ to every recorded execution and fast-forwards to the rounds the
 re-dispatched or re-auctioned. An execution that does not answer within
 ``scheduler_adopt_deadline_s`` departs (a train worker, then the rejoin
 auction) or is restarted (a shard); no adoptable journal, or nothing alive,
-falls back to a fresh run. A finished job wipes its journal. The
-reference's ``FT_METRICS`` counts (``scheduler_recoveries``,
-``adopted_executions``, ``stale_generation_dropped``) are logged when the
-job ends and kept in ``Orchestrator.counts``.
+falls back to a fresh run. A finished job wipes its journal. Recoveries,
+adopted executions and stale-generation drops count into ``FT_METRICS``, as
+suspicions and rejoins do; the recovery counts are also kept in
+``Orchestrator.counts`` and logged when the job ends.
+
+With ``metrics_plane`` (the reference's ``_start_metrics``, ``:810-842``)
+the scheduler runs a :class:`~hypha_tpu_torch.telemetry.metrics_plane.
+MetricsCollector` for the attempt: every dispatched spec carries
+``report_metrics_s`` (``metrics_interval_s``) and ``metrics_peer`` (this
+node), the workers' round METRICS and the servers' UPDATED ``quality`` feed
+its quality series, its SLO advisories are logged, and its journal goes to
+``metrics_dir``, or to the trace directory when tracing is on. The last
+attempt's collector stays on ``Orchestrator.metrics``. Off, no spec gains a
+field and no node speaks ``/hypha-metrics``.
 """
 
 from __future__ import annotations
@@ -115,6 +125,7 @@ from ..messages import (
     Fetch,
     JobSpec,
     Progress,
+    ProgressKind,
     Receive,
     Reference,
     Send,
@@ -125,6 +136,7 @@ from ..network.node import Node, RequestError
 from ..stream import ancestors_of, build_reduce_groups, placement_parts, shards_due_at
 from ..telemetry import trace
 from ..telemetry.flight import FLIGHT
+from ..telemetry.ft_metrics import FT_METRICS
 from .allocator import GreedyWorkerAllocator
 from .batch_scheduler import BatchScheduler
 from .data_scheduler import DataScheduler
@@ -222,6 +234,8 @@ class _RunContext:
         self.adopt_grace: "float | None" = None
         self.batch_scheduler: "BatchScheduler | None" = None
         self.round_journaled = -1
+        # The live metrics plane's collector (None with metrics_plane off).
+        self.metrics = None
 
 
 class Orchestrator:
@@ -233,7 +247,11 @@ class Orchestrator:
         self.node = node
         self.allocator = GreedyWorkerAllocator(node)
         self.metrics_bridge = MetricsBridge(metrics_connector)
-        # The reference's FT_METRICS counts of scheduler recovery.
+        # The last run's live-metrics collector, kept so callers can read
+        # the store's rollups and loss curves after run() returns.
+        self.metrics = None
+        # This scheduler's recovery counts (also in FT_METRICS), logged
+        # when a recovered job ends.
         self.counts = {"scheduler_recoveries": 0, "adopted_executions": 0,
                        "stale_generation_dropped": 0}
 
@@ -459,6 +477,10 @@ class Orchestrator:
                     # this long across a scheduler outage (None: recovery
                     # off, no new wire field).
                     adopt_grace_s=ctx.adopt_grace,
+                    # The live metrics plane: the report cadence and the
+                    # collector (this scheduler); None when off.
+                    report_metrics_s=self._report_s(job),
+                    metrics_peer=self.node.peer_id if job.metrics_plane else None,
                     input_pipeline=True if prefetch_depth is not None else None,
                     prefetch_slices=prefetch_depth,
                     checkpoint=({"dir": f"{job.checkpoint_dir}/{handle.peer_id}",
@@ -554,6 +576,8 @@ class Orchestrator:
                         # The server parks its UPDATED notify, broadcast
                         # first, across a scheduler outage.
                         adopt_grace_s=ctx.adopt_grace,
+                        report_metrics_s=self._report_s(job),
+                        metrics_peer=self.node.peer_id if job.metrics_plane else None,
                     ),
                 ),
             )
@@ -618,6 +642,36 @@ class Orchestrator:
         ctx.adaptive = StragglerController(base_steps=max(
             1, round(job.rounds.avg_samples_between_updates / max(total_batch, 1))))
 
+    @staticmethod
+    def _report_s(job: DiLoCoJob) -> "float | None":
+        """The dispatched report cadence: None (no new wire) when off."""
+        return float(job.metrics_interval_s) if job.metrics_plane else None
+
+    def _start_metrics(self, ctx: _RunContext, job: DiLoCoJob) -> None:
+        """Stand up the metrics plane's scheduler half (the collector: store,
+        SLO watchdog, journal and the ``/hypha-metrics`` handler); nothing
+        unless ``job.metrics_plane`` is on."""
+        if not job.metrics_plane:
+            return
+        from ..telemetry.metrics_plane import MetricsCollector
+
+        journal_dir = job.metrics_dir
+        if journal_dir is None:
+            tracing = trace.active()
+            journal_dir = tracing.trace_dir if tracing is not None else None
+
+        def on_advisory(adv) -> None:
+            # Advisory, not actuator: the breach is logged.
+            log.warning("SLO advisory for job %s: %s (peer=%s value=%.6g) — logged only",
+                        adv.job_id or ctx.base_id, adv.rule, adv.peer or "fleet", adv.value)
+
+        ctx.metrics = MetricsCollector(
+            self.node, ctx.base_id, slo_rules=list(job.slo_rules or []),
+            journal_dir=journal_dir, on_advisory=on_advisory,
+            round_fn=lambda: ctx.tracker.round if ctx.tracker else 0,
+        ).start()
+        self.metrics = ctx.metrics
+
     def _start_control(self, ctx: _RunContext, num_shards: int = 1, parts: int = 1,
                        generation: "int | None" = None):
         """Stand up the DiLoCo control plane: BatchScheduler + the
@@ -632,6 +686,10 @@ class Orchestrator:
         def on_metrics(peer: str, round_num: int, metrics: dict) -> None:
             collected.append((peer, round_num, metrics))
             self.metrics_bridge.on_metrics(peer, round_num, metrics)
+            if ctx.metrics is not None:
+                # Round-tagged quality points (loss, loss EWMA, delta norm,
+                # tokens/s) join the live store: the loss-curve feed.
+                ctx.metrics.ingest_quality(peer, round_num, metrics)
 
         sync_mode = ctx.job.sync_mode if ctx.job is not None else "blocking"
         batch_scheduler = BatchScheduler(
@@ -651,6 +709,13 @@ class Orchestrator:
             if ctx.detector is not None:
                 # Every progress message is a liveness signal.
                 ctx.detector.heartbeat(peer)
+            if ctx.metrics is not None and progress.kind == ProgressKind.UPDATED:
+                # A server's round quality (pseudo-gradient and update
+                # norms, accepted deltas) rides its UPDATED; only reporting
+                # jobs attach the key.
+                quality = dict(progress.metrics).get("quality")
+                if isinstance(quality, dict):
+                    ctx.metrics.ingest_quality(peer, progress.round, quality)
             response = batch_scheduler.on_progress(peer, progress)
             self._journal_round_soon(ctx)
             if (ctx.adaptive is not None and ctx.membership is not None
@@ -755,6 +820,7 @@ class Orchestrator:
                 ctx, job, list(ctx.handles), [h.peer_id for h in ctx.ps_handles],
                 num_shards, parts,
             )
+            self._start_metrics(ctx, job)
             if sched_root is not None:
                 # Opened fresh (an earlier attempt's journal must not be
                 # adopted against this attempt's executions), and the plan
@@ -816,6 +882,8 @@ class Orchestrator:
             task.cancel()
         if ctx.notify_tasks:
             await asyncio.gather(*list(ctx.notify_tasks), return_exceptions=True)
+        if ctx.metrics is not None:
+            await ctx.metrics.close()
         if ctx.batch_scheduler is not None:
             self.counts["stale_generation_dropped"] += \
                 ctx.batch_scheduler.stale_generation_dropped
@@ -881,6 +949,7 @@ class Orchestrator:
                 rec = pending.pop(job_id, None) or {}
                 if resp.state == "running":
                     self.counts["adopted_executions"] += 1
+                    FT_METRICS.adopted_executions.add(1)
                 FLIGHT.record("scheduler.adopt_ack", node="scheduler", job=job_id,
                               peer=str(rec.get("peer", "")), state=resp.state, round=resp.round,
                               epoch=resp.epoch)
@@ -939,6 +1008,7 @@ class Orchestrator:
             # The original worker set re-derives the tags, groups and specs
             # the live executions were dispatched with.
             self._plan_streams(ctx, job, sorted(plan_workers), ps_peers, num_shards, parts)
+            self._start_metrics(ctx, job)
             # The newest dispatch of each execution; a train record of a
             # departed peer (a rejoin superseded it) is skipped through the
             # journaled membership's active list.
@@ -1042,6 +1112,7 @@ class Orchestrator:
                                     ctx.adaptive.snapshot() if ctx.adaptive is not None
                                     else None)
             self.counts["scheduler_recoveries"] += 1
+            FT_METRICS.scheduler_recoveries.add(1)
             FLIGHT.record("scheduler.recovered", node="scheduler", generation=dur.generation,
                           round=adopted_round, adopted=len(running), journal_round=res.round)
             log.warning("scheduler recovery: adopted %d/%d executions, fast-forwarded round "
@@ -1313,6 +1384,7 @@ class Orchestrator:
                 continue
             if ctx.detector.suspected(peer):
                 if ctx.membership.suspect(peer):
+                    FT_METRICS.suspected_peers.add(1)
                     log.warning("worker %s suspected (phi=%.1f >= %.1f)", peer,
                                 ctx.detector.phi(peer), ctx.detector.threshold)
                     changed = True
@@ -1447,8 +1519,11 @@ class Orchestrator:
             ctx.handles[peer] = handle
             ctx.rejoin_count += 1
             await self._journal_dispatch(ctx, spec.job_id, handle, "train")
+            latency_ms = (loop_time() - departed_at) * 1000.0
+            FT_METRICS.rejoins.add(1)
+            FT_METRICS.rejoin_latency_ms.record(latency_ms)
             log.info("worker %s rejoined for %s at epoch %d (%.0f ms after departure)", peer,
-                     departed_peer, ctx.membership.epoch, (loop_time() - departed_at) * 1000.0)
+                     departed_peer, ctx.membership.epoch, latency_ms)
             return handle, task
         return None
 

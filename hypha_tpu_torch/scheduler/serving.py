@@ -48,11 +48,15 @@ without ``route`` dispatches the single-deployment wire
 clients reach it directly. ``serve_follow_rounds`` (a ``WeightFollow``)
 goes out with every deployment, so each backend follows a training job's
 update broadcast (live weight swap); ``weight_rounds()`` is each backend's
-serving (round, generation) from its last heartbeat. The metrics plane
-raises naming its label. Where the reference bumps its serving metrics, this
-class keeps plain counters (``routed``, ``rejected``, ``affinity_routed``,
-``redeployments``, ``ejections``, and the directory's ``directory_entries``)
-and logs them when it stops.
+serving (round, generation) from its last heartbeat. The router records
+into ``SERVE_METRICS`` where the reference does (routed requests,
+rejections, affinity routes, ejections, the directory's size), and keeps
+plain counters too (``routed``, ``rejected``, ``affinity_routed``,
+``redeployments``, ``ejections``, ``directory_entries``), which it logs when
+it stops. With ``report_metrics_s`` every deployment reports into the
+scheduler's metrics collector (``metrics_peer``: this node), and a
+``metrics`` collector sharing this node gets each heartbeat's queue depth
+and free blocks (``ingest_serve_load``).
 """
 
 from __future__ import annotations
@@ -88,6 +92,7 @@ from ..messages import (
 from ..network.node import Node, RequestError
 from ..resources import Resources
 from ..telemetry import trace
+from ..telemetry.ft_metrics import SERVE_METRICS
 from ..worker.infer_executor import serve_key
 from .allocator import GreedyWorkerAllocator
 from .task import StatusRouter, Task
@@ -109,13 +114,6 @@ EJECT_GRACE_S = max(10.0 * LOAD_REPORT_S, 5.0)
 AFFINITY_TOKENS = 64  # the prompt ids whose owner affinity looks up
 AFFINITY_SKEW = 4  # how much deeper than the best the owner may be
 REQUEST_TIMEOUT_S = 120.0  # one forwarded request
-
-
-def _refuse(option: str, label: str) -> None:
-    raise NotImplementedError(
-        f"ServingSupervisor {option} is not ported to PyTorch yet "
-        f"(ROADMAP.md, Queue 1: {label})"
-    )
 
 
 @dataclass
@@ -166,9 +164,11 @@ class ServingSupervisor:
         metrics=None,
         serve_follow_rounds=None,
     ) -> None:
-        if report_metrics_s or metrics is not None:
-            _refuse("report_metrics_s / metrics", "telemetry")
         self.node = node
+        # The live metrics plane: an optional MetricsCollector on this node
+        # takes the heartbeats' loads, and the deployments report to this
+        # node. None (the default): no new wire.
+        self.metrics = metrics
         self.serve_name = serve_name
         self.num_workers = max(int(num_workers), 1)
         # Routing is on exactly when there is something to balance;
@@ -195,6 +195,8 @@ class ServingSupervisor:
             queue_limit=queue_limit,
             eos_token_id=eos_token_id,
             load_report_s=LOAD_REPORT_S if self.route else 0.0,
+            report_metrics_s=float(report_metrics_s) if report_metrics_s else None,
+            metrics_peer=node.peer_id if report_metrics_s else None,
             # None (the default) keeps the dispatched config byte-identical.
             serve_follow_rounds=serve_follow_rounds,
         )
@@ -399,6 +401,7 @@ class ServingSupervisor:
         if owner is not best:
             backends = [owner] + [d for d in backends if d is not owner]
         self.affinity_routed += 1
+        SERVE_METRICS.affinity_routed.add(1)
         return backends
 
     async def _route_request(self, peer: str, req: GenerateRequest) -> GenerateResponse:
@@ -419,6 +422,7 @@ class ServingSupervisor:
                 # Every backend is at the line: the hint grows with how
                 # deep the best one is.
                 self.rejected += 1
+                SERVE_METRICS.rejections.add(1)
                 return GenerateResponse(
                     tokens=[], ok=False,
                     retry_after_ms=50.0 * (min(depths) - self.queue_limit + 1),
@@ -454,6 +458,7 @@ class ServingSupervisor:
                     dep.inflight -= 1
                 if getattr(resp, "ok", True):
                     self.routed += 1
+                    SERVE_METRICS.routed_requests.add(1)
                     return resp
                 busy_hint = max(busy_hint, resp.retry_after_ms)
         finally:
@@ -478,11 +483,18 @@ class ServingSupervisor:
                 if load.weight_round is not None:
                     self._weight_rounds[load.serve_name or peer] = (
                         load.weight_round, load.weight_generation)
+                if self.metrics is not None:
+                    # Each backend's queue depth and KV headroom join the
+                    # fleet store, for telemetry.top and serve SLO rules.
+                    self.metrics.ingest_serve_load(
+                        load.serve_name or f"{peer}:{load.job_id}",
+                        float(load.queue_depth), float(load.free_blocks))
                 if load.cache_digest is not None:
                     # Replaced whole: a chain evicted there leaves the
                     # directory at the next heartbeat.
                     self._digests[dep.backend_name] = {
                         int(h): int(c) for h, c in load.cache_digest}
+                    SERVE_METRICS.directory_state(sum(len(d) for d in self._digests.values()))
                 return self._ack(dep)
         return ServeLoadAck(ok=False)  # a job already torn down
 
@@ -520,6 +532,7 @@ class ServingSupervisor:
             if not self._detector.suspected(peer):
                 continue
             self.ejections += 1
+            SERVE_METRICS.ejections.add(1)
             self._detector.remove(peer)
             log.warning("ejecting serving worker %s (phi over threshold %.1f)",
                         peer, self._detector.threshold)

@@ -58,6 +58,7 @@ from pathlib import Path
 from .. import aio, compress
 from ..executor.serialization import save_file
 from ..messages import COVERS_KEY, PREFOLD_KEY, SHARD_KEY, FragmentTag
+from ..telemetry.ft_metrics import SCALE_METRICS, SHARD_METRICS
 from .accum import RoundAccum
 from .partition import shard_of
 from .tree import children_of, subtree_of, tree_levels, with_serve_leaves
@@ -293,6 +294,8 @@ class GroupReducer:
             await asyncio.to_thread(old.path.unlink, missing_ok=True)
         await self._fold(bucket, dest, samples, 1.0, prefolded)
         self.folds += 1
+        SHARD_METRICS.reduced_deltas.add(1)
+        SCALE_METRICS.note_tree_fold(self.level)
         bucket.entries[key] = _Entry(dest, samples, prefolded, covers)
         bucket.dirty = True
 
@@ -405,6 +408,7 @@ class GroupReducer:
         bucket.flushed += 1
         bucket.dirty = False
         self.partials += 1
+        SCALE_METRICS.note_tree_forward(self.level)
         await asyncio.to_thread(wire.unlink, missing_ok=True)
         log.info("reducer: shipped partial r%d part %d flush %d -> %s (%d entries, covers %s, "
                  "weight %.1f): %d bytes, folded %.3f s, encoded %.3f s, pushed %.3f s",
@@ -472,11 +476,13 @@ async def tree_broadcast(node, header: dict, results_tag: str, groups, targets, 
         for peer, ok in zip(frontier, outcomes):
             if ok:
                 delivered += 1
+                SCALE_METRICS.relay_pushes.add(1)
                 continue
             children = [c for c in kids.get(peer, ()) if allowed is None or c in allowed]
             if children:
                 # Around the dead relay: its children take the push from
                 # this hop.
+                SCALE_METRICS.relay_failovers.add(1)
                 logger.warning("%s: relay %s unreachable; expanding to %d children %s", what,
                                peer, len(children), children)
                 nxt.extend(children)

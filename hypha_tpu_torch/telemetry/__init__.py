@@ -13,9 +13,10 @@ Spans and instruments record in-process and export over OTLP/HTTP+JSON
 (``/v1/traces``, ``/v1/metrics``, ``/v1/logs``) when an endpoint is
 configured; otherwise recording still works and export is a no-op. The
 round-trace plane is :mod:`.trace`, the flight recorder :mod:`.flight`, the
-offline merger :mod:`.timeline`. The metrics plane, SLO rules and the
-bundles other than ``DATA_METRICS`` are not ported (ROADMAP.md, Queue 1:
-telemetry).
+offline merger :mod:`.timeline`; the shared metric bundles are
+:mod:`.ft_metrics`, and :func:`metrics_snapshot` reads them all at once. The
+live metrics plane (:mod:`.metrics_plane`, :mod:`.series`, :mod:`.slo`,
+``python -m hypha_tpu_torch.telemetry.top``) ships them to the scheduler.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ __all__ = [
     "init_telemetry",
     "instrument_node",
     "global_telemetry",
+    "metrics_snapshot",
     "parse_attributes",
     "OtlpJsonExporter",
 ]
@@ -483,3 +485,56 @@ def global_telemetry() -> Telemetry:
         if _GLOBAL is None:
             _GLOBAL = Telemetry(service_name="hypha", exporter=None)
         return _GLOBAL
+
+
+def metrics_snapshot() -> dict:
+    """One JSON-safe snapshot of every process metrics surface: the FT /
+    stream / shard / serve / heterogeneity / scale / data bundles plus the
+    global registry's observable gauges (per-node bandwidth among them)."""
+    gauges: dict[str, float] = {}
+    telemetry = global_telemetry()
+    for (scope, name), (cb, _unit) in sorted(telemetry._gauges.items()):
+        try:
+            gauges[f"{scope}/{name}"] = float(cb())
+        except Exception:  # a torn-down node's gauge must not kill the dump
+            continue
+    return {
+        "ft": FT_METRICS.snapshot(),
+        "stream": STREAM_METRICS.snapshot(),
+        "shard": SHARD_METRICS.snapshot(),
+        "serve": SERVE_METRICS.snapshot(),
+        "het": HET_METRICS.snapshot(),
+        "scale": SCALE_METRICS.snapshot(),
+        "data": DATA_METRICS.snapshot(),
+        "gauges": gauges,
+        "aio_task_failures": _aio_task_failures(),
+    }
+
+
+def _aio_task_failures() -> float:
+    from ..aio import TASK_FAILURES  # lazy: aio imports this package
+
+    return TASK_FAILURES.value()
+
+
+# The shared bundles (imported at the bottom: ft_metrics uses the
+# Counter/Histogram classes defined above).
+from .ft_metrics import (  # noqa: E402
+    DATA_METRICS,
+    FT_METRICS,
+    HET_METRICS,
+    SCALE_METRICS,
+    SERVE_METRICS,
+    SHARD_METRICS,
+    STREAM_METRICS,
+    FTMetrics,
+    ServeMetrics,
+)
+
+__all__ += [
+    "FT_METRICS",
+    "FTMetrics",
+    "SCALE_METRICS",
+    "SERVE_METRICS",
+    "ServeMetrics",
+]

@@ -12,9 +12,8 @@ owned by the dispatching peer.
 
 Timing constants are the reference's (arbiter.rs:25-29). The re-adoption
 handshake (``_on_hello``) leaves a flight-recorder record
-(``scheduler.adopted``); the copy drops the reference's stale-generation
-counter, which belongs to the metrics plane (ROADMAP.md, Queue 1:
-telemetry).
+(``scheduler.adopted``); a hello from an older scheduler generation
+counts into ``FT_METRICS.stale_generation_dropped``.
 """
 
 from __future__ import annotations
@@ -44,6 +43,7 @@ from ..resources import ResourceEvaluator, WeightedResourceEvaluator
 from ..leases import LeaseNotFound
 from ..network.node import Node, RequestError
 from ..network.utils import batched
+from ..telemetry.ft_metrics import FT_METRICS
 from .job_manager import JobManager
 from .lease_manager import LeaseManager
 
@@ -250,6 +250,7 @@ class Arbiter:
             )
         last = execution.scheduler_generation
         if last is not None and msg.generation < last:
+            FT_METRICS.stale_generation_dropped.add(1)
             return AdoptAck(
                 job_id=msg.job_id, round=execution.round,
                 epoch=execution.epoch, state="stale",

@@ -61,9 +61,11 @@ span) gets a ``serve`` span on this worker, under which the pool files its
 Clients: :func:`generate_remote` — find providers of ``serve:<name>``
 through the gateway registry, RPC the first reachable one.
 
-Options of the JAX executor outside this slice raise
-``NotImplementedError`` naming their ROADMAP.md label when the job is
-dispatched (``_refuse_unported``); pool options the port lacks raise in
+With ``report_metrics_s`` (the live metrics plane) the backend runs a
+:class:`~hypha_tpu_torch.telemetry.metrics_plane.MetricsReporter` under
+``<peer>:<serve_name>``: the pool's gauges, request-latency summaries,
+fleet counts and fabric bytes go to the scheduler's collector
+(``metrics_peer``) until the job ends. Pool options the port lacks raise in
 ``DecodePool`` and fail the job.
 """
 
@@ -97,6 +99,7 @@ from ..network.node import Node, RequestError
 from ..ops.kvcache import leaves_from_wire, leaves_nbytes, leaves_to_wire
 from ..ops.paged_attention import paged_attention, ragged_paged_attention
 from ..telemetry import trace
+from ..telemetry.metrics_plane import MetricsReporter
 from .batcher import RequestBatcher
 from .job_manager import Execution, JobExecutor
 
@@ -174,18 +177,6 @@ def generate_grouped(model, prompts, n_new, temperature, top_k, seed) -> list:
     return out
 
 
-def _refuse(option: str, label: str) -> None:
-    raise NotImplementedError(
-        f"{option} is not ported to PyTorch yet (ROADMAP.md, Queue 1: {label})"
-    )
-
-
-def _refuse_unported(cfg) -> None:
-    """The JAX executor's subsystems this one does not run."""
-    if cfg.report_metrics_s:
-        _refuse("report_metrics_s", "telemetry")
-
-
 def _attention_counts() -> dict:
     r = ragged_paged_attention
     return {"mma": r.mma_launches, "decode": r.decode_launches, "simt": r.simt_launches,
@@ -221,7 +212,6 @@ class InProcessInferExecutor(JobExecutor):
             raise ValueError(
                 f"scheduling must be auto|continuous|window, got {cfg.scheduling!r}"
             )
-        _refuse_unported(cfg)
 
         # Return the Execution at once: a 7B load takes seconds to minutes,
         # and the dispatch RPC (and lease-expiry cancellation) must not
@@ -411,6 +401,13 @@ class InProcessInferExecutor(JobExecutor):
                                       loaded.get("hints")),
                     what="serve load reporter", logger=log,
                 )
+            if cfg.report_metrics_s:
+                # The live metrics plane: the pool's gauges, latency
+                # summaries and fabric bytes to the scheduler's collector.
+                loaded["metrics"] = MetricsReporter(
+                    self.node, cfg.metrics_peer or scheduler_peer, job_id,
+                    peer=f"{self.node.peer_id}:{cfg.serve_name}",
+                    interval_s=float(cfg.report_metrics_s)).start()
 
         loader = asyncio.create_task(bring_up())
 
@@ -421,6 +418,8 @@ class InProcessInferExecutor(JobExecutor):
                 if loaded.get(reg) is not None:
                     loaded[reg].close()
             await aio.reap(loaded.get("reporter"))
+            if loaded.get("metrics") is not None:
+                await loaded["metrics"].stop()
             if loaded.get("weights") is not None:
                 await loaded["weights"].stop()
                 log.info("job %s weight stream: %s", job_id,

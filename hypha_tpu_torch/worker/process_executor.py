@@ -32,6 +32,14 @@ child as ``HYPHA_TRACE_DIR`` and, unless the environment names one, its
 peer id as ``HYPHA_TRACE_NODE``: the trainer's spans carry the worker's
 name, as an in-process trainer's do (the reference's child inherits only
 the environment, and labels itself ``pid<N>``).
+
+A job with ``report_metrics_s`` (the live metrics plane) starts a
+:class:`~hypha_tpu_torch.telemetry.metrics_plane.MetricsReporter` beside
+the process, as the in-process executor does (the reference's process
+executor starts none): the node's registry and byte deltas go to the
+scheduler's collector under the node's peer id, stamped with the round the
+child last reported, until the process ends. The trainer's own quality
+keys reach the collector on its round METRICS.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from ..messages import JobSpec
 from ..node_config import TRAINER_ARGS
 from ..stream.reduce import maybe_start_reducer
 from ..telemetry import trace
+from ..telemetry.metrics_plane import MetricsReporter
 from .bridge import Bridge
 from .connectors import Connector
 from .job_manager import Execution, JobExecutor
@@ -116,9 +125,17 @@ class ProcessExecutor(JobExecutor):
             env=env, cwd=str(work_dir),
         )
         log.info("job %s: spawned pid %s: %s", job_id, proc.pid, argv[:3])
+        train_cfg = spec.executor.train
+        reporter = None
+        if train_cfg is not None and train_cfg.report_metrics_s:
+            reporter = MetricsReporter(
+                self.node, train_cfg.metrics_peer or scheduler_peer, job_id,
+                interval_s=float(train_cfg.report_metrics_s),
+                round_fn=lambda: probe_target[0].round if probe_target else 0).start()
         execution = _ProcessExecution(job_id, proc, bridge, work_dir,
                                       reducer=maybe_start_reducer(self.node, spec, self.device,
-                                                                  work_dir / "reduce"))
+                                                                  work_dir / "reduce"),
+                                      reporter=reporter)
         execution.adopt_grace_s = grace or None  # the lease outlives a dead scheduler
         probe_target.append(execution)
         execution.start_supervision()
@@ -139,12 +156,13 @@ def _substitute(arg: str, subst: dict) -> str:
 
 class _ProcessExecution(Execution):
     def __init__(self, job_id: str, proc: asyncio.subprocess.Process, bridge: Bridge,
-                 work_dir: Path, reducer=None) -> None:
+                 work_dir: Path, reducer=None, reporter=None) -> None:
         super().__init__(job_id)
         self.proc = proc
         self.bridge = bridge
         self.work_dir = work_dir
         self.reducer = reducer
+        self.reporter = reporter
         self._cancelled = False
         self._tasks: list = []
 
@@ -163,6 +181,8 @@ class _ProcessExecution(Execution):
 
     async def _supervise(self) -> None:
         rc = await self.proc.wait()
+        if self.reporter is not None:
+            await self.reporter.stop()
         if self.reducer is not None:
             await self.reducer.stop()
         await self.bridge.stop()

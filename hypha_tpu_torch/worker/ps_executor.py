@@ -111,8 +111,10 @@ restarted scheduler credits the committed round and never runs it again.
 A notify still parked when the scheduler that adopted the execution
 releases its lease (its job ended without the notify) ends with DONE.
 
-What raises ``NotImplementedError`` at dispatch, with its ROADMAP.md
-label: ``report_metrics_s`` (telemetry).
+With ``report_metrics_s`` the server reports into the scheduler's metrics
+collector (``telemetry.metrics_plane``) and attaches the round's quality
+numbers (the norms of ḡ and of the update, the accepted deltas) to each
+``UPDATED`` under ``metrics["quality"]``.
 
 The outer step (counterpart of ``ParameterServerExecutor._outer_step``,
 ``hypha_tpu/worker/ps_executor.py:2382-2440``, with
@@ -179,6 +181,7 @@ from ..stream.reduce import tree_broadcast
 from ..stream.sync import next_owned_round, placement_parts, shard_owns_round
 from ..telemetry import trace
 from ..telemetry.flight import FLIGHT
+from ..telemetry.ft_metrics import FT_METRICS, HET_METRICS, SHARD_METRICS, STREAM_METRICS
 from .connectors import push_timeout
 from .job_manager import Execution, JobExecutor
 
@@ -280,19 +283,6 @@ def outer_step(
     save_file(momentum, momentum_tmp)
     os.replace(momentum_tmp, momentum_file)
     return out
-
-
-def _unported(cfg) -> None:
-    """Raise on every aggregate option this path does not run."""
-    checks = [
-        (bool(cfg.report_metrics_s), "report_metrics_s", "telemetry"),
-    ]
-    for bad, option, item in checks:
-        if bad:
-            raise NotImplementedError(
-                f"{option}={getattr(cfg, option)!r} is not ported to the PyTorch "
-                f"parameter server (ROADMAP.md, Queue 1: {item})"
-            )
 
 
 class _JobEnded(Exception):
@@ -434,7 +424,6 @@ class ParameterServerExecutor(JobExecutor):
         cfg = spec.executor.aggregate
         if cfg is None:
             raise ValueError(f"job {job_id} is not an aggregate job")
-        _unported(cfg)
         work_dir = self.work_root / f"hypha-ps-{uuid.uuid4().hex[:12]}"
         work_dir.mkdir(parents=True)
         execution = Execution(job_id)
@@ -490,6 +479,13 @@ class ParameterServerExecutor(JobExecutor):
                          len(msg.membership.suspected), msg.joined)
                 elastic.adopt(msg)
                 if msg.membership.inner_steps:
+                    # The adaptive assignment published with the membership:
+                    # the per-peer inner-step gauges on the server's side.
+                    for p, steps in msg.membership.inner_steps.items():
+                        try:
+                            HET_METRICS.note_assigned(str(p), int(steps))
+                        except (TypeError, ValueError):
+                            continue
                     log.info("ps %s: inner steps %s (epoch %d)", job_id,
                              dict(sorted(msg.membership.inner_steps.items())),
                              msg.membership.epoch)
@@ -498,6 +494,22 @@ class ParameterServerExecutor(JobExecutor):
             membership_reg = (self.node.on(PROTOCOL_FT, MembershipUpdate)
                               .match(lambda m: m.job_id == job_id)
                               .respond_with(on_membership))
+        # The live metrics plane: registry deltas to the scheduler's
+        # collector, and the round's quality (the pseudo-gradient and update
+        # norms outer_step computes) on each UPDATED. None (the default):
+        # no reporter and no new wire.
+        reporter = None
+        if cfg.report_metrics_s and self.node is not None:
+            from ..telemetry.metrics_plane import MetricsReporter
+
+            def _gen() -> "int | None":
+                g = getattr(execution, "scheduler_generation", None)
+                return int(g) if g is not None else None
+
+            reporter = MetricsReporter(
+                self.node, cfg.metrics_peer or scheduler_peer, job_id,
+                interval_s=float(cfg.report_metrics_s), round_fn=lambda: execution.round,
+                generation_fn=_gen).start()
         dur: "DurablePS | None" = None
         try:
             if ckpt_dir is not None:
@@ -610,9 +622,10 @@ class ParameterServerExecutor(JobExecutor):
                     await asyncio.to_thread(dur.note_close, round_num, list(received))
                 outer_span = trace.begin("outer_step", parent=ptrace.ctx(round_num),
                                          attrs={"round": round_num}, node=ptrace.node)
+                quality = {} if cfg.report_metrics_s else None
                 update_path = await asyncio.to_thread(
                     outer_step, received, momentum_file, lr, mu, work_dir, round_num,
-                    accum=accum, device=self.device)
+                    accum=accum, stats=quality, device=self.device)
                 trace.finish(outer_span)
                 del accum
                 if link is not None:
@@ -628,7 +641,7 @@ class ParameterServerExecutor(JobExecutor):
                     response = await self._notify_updated_resilient(
                         scheduler_peer, job_id, round_num, execution=execution,
                         arrivals=arrivals, park_s=park_s, on_first_failure=bcast_adaptive,
-                        traceparent=ptrace.ctx(round_num))
+                        traceparent=ptrace.ctx(round_num), quality=quality)
                     ptrace.adopt(response, round_num + 1)
                     await bcast_adaptive()
                     with trace.span("cleanup", parent=ptrace.ctx(round_num),
@@ -682,7 +695,7 @@ class ParameterServerExecutor(JobExecutor):
                 response = await self._notify_updated_resilient(
                     scheduler_peer, job_id, round_num, execution=execution, arrivals=arrivals,
                     park_s=park_s, on_first_failure=bcast_static,
-                    traceparent=ptrace.ctx(round_num))
+                    traceparent=ptrace.ctx(round_num), quality=quality)
                 ptrace.adopt(response, round_num + 1)
                 if dur is not None:
                     await asyncio.to_thread(
@@ -710,6 +723,8 @@ class ParameterServerExecutor(JobExecutor):
             log.exception("parameter server job %s failed", job_id)
             execution.finish("failed", str(e))
         finally:
+            if reporter is not None:
+                await reporter.stop()
             if membership_reg is not None:
                 membership_reg.close()
             consumer.close()
@@ -793,6 +808,7 @@ class ParameterServerExecutor(JobExecutor):
                 _unlink, [update_path] + ([wire_path] if wire_path != update_path else []))
             round_num = rnd + 1
         replay_s = time.perf_counter() - t0
+        FT_METRICS.ps_recoveries.add(1)
         FLIGHT.record("ps.recovered", node=self._trace_node(), job=job_id,
                       generation=dur.generation, round=round_num, replayed=len(resume.committed))
         log.warning("ps %s: recovered durable state (generation %d): resuming round %d (%d "
@@ -896,6 +912,7 @@ class ParameterServerExecutor(JobExecutor):
         if delta_round < round_num:
             log.warning("ps %s: stale delta for round %d from %s dropped (now %d)", job_id,
                         delta_round, peer, round_num)
+            FT_METRICS.stale_deltas_dropped.add(1)
             await push.read_all()
             return None
         return delta_round
@@ -1035,6 +1052,8 @@ class ParameterServerExecutor(JobExecutor):
                     continue
             prefolded, cov = self._push_cover(push.resource, peer)
             key = self._entry_key(prefolded, peer)
+            if prefolded:
+                SHARD_METRICS.prefold_partials.add(1)
             if prefolded and self._prefold_superseded(covers, cov, key):
                 log.info("ps %s: partial from %s contained in an accepted ancestor partial; "
                          "dropped", job_id, peer)
@@ -1168,6 +1187,8 @@ class ParameterServerExecutor(JobExecutor):
             key = self._entry_key(prefolded, peer)
             cov_table = (covers if delta_round == round_num
                          else st.early_covers.get(delta_round, {}))
+            if prefolded:
+                SHARD_METRICS.prefold_partials.add(1)
             if prefolded and self._prefold_superseded(cov_table, cov, key):
                 log.info("ps %s: partial from %s contained in an accepted ancestor partial; "
                          "dropped", job_id, peer)
@@ -1242,10 +1263,12 @@ class ParameterServerExecutor(JobExecutor):
         covered = self._covered(received, covers)
         full = max(cfg.num_workers, len(st.membership.active))
         if len(covered) < full:
+            FT_METRICS.degraded_rounds.add(1)
             log.warning("ps %s: round %d DEGRADED — aggregating %d of %d (departed %s)", job_id,
                         round_num, len(received), full, sorted(st.membership.departed))
         dropped = st.membership.expected() - covered
         if dropped:
+            HET_METRICS.note_quorum_drop(round_num, sorted(dropped))
             log.warning("ps %s: round %d quorum drop: %s", job_id, round_num, sorted(dropped))
 
     @staticmethod
@@ -1506,9 +1529,10 @@ class ParameterServerExecutor(JobExecutor):
                 outer_span = trace.begin("outer_step", parent=ptrace.ctx(round_num),
                                          attrs={"round": round_num, "fragment": frag},
                                          node=ptrace.node)
+                quality = {"fragment": float(frag)} if cfg.report_metrics_s else None
                 update_path = await asyncio.to_thread(
                     outer_step, received, part_momentum, lr, mu, work_dir, round_num,
-                    accum=accum, device=self.device, base=momentum_file)
+                    accum=accum, stats=quality, device=self.device, base=momentum_file)
                 trace.finish(outer_span)
                 del accum
                 if frag not in bcast_efs:
@@ -1561,12 +1585,15 @@ class ParameterServerExecutor(JobExecutor):
                 response = await self._notify_updated_resilient(
                     scheduler_peer, job_id, round_num, execution=execution, shard=shard,
                     arrivals=arrivals, park_s=park_s, on_first_failure=launch_bcast,
-                    traceparent=ptrace.ctx(round_num))
+                    traceparent=ptrace.ctx(round_num), quality=quality)
                 ptrace.adopt(response, next_owned(round_num + 1))
                 if dur is not None:
                     await asyncio.to_thread(dur.note_notified, round_num,
                                             response.kind == ProgressResponseKind.DONE)
                 await launch_bcast()
+                STREAM_METRICS.fragment_closed(frag)
+                if sharded:
+                    SHARD_METRICS.shard_rounds_closed.add(1)
                 round_num = next_owned(round_num + 1)
                 if elastic is not None:
                     await self._serve_joins(elastic, cfg, round_num, work_dir)
@@ -1664,15 +1691,22 @@ class ParameterServerExecutor(JobExecutor):
                 ptrace.adopt_push(push, delta_round)
             if owned_fn is not None and not owned_fn(delta_round):
                 # Another shard's round: this shard never opens it.
+                SHARD_METRICS.misrouted_pushes.add(1)
                 log.warning("ps %s: push for round %d from %s is another shard's; dropped",
                             job_id, delta_round, peer)
                 await push.read_all()
                 continue
             prefolded, cov = self._push_cover(meta, peer)
             key = self._entry_key(prefolded, peer)
+            if prefolded:
+                SHARD_METRICS.prefold_partials.add(1)
             due = due_fn(delta_round)
             tag = FragmentTag.from_header(meta)
             if tag is not None and (tag.fragments != fragments or tag.fragment_id != due):
+                # On a sharded run a mismatched tag is the stale-placement
+                # signal.
+                if sharded:
+                    SHARD_METRICS.misrouted_pushes.add(1)
                 log.warning("ps %s: fragment tag mismatch from %s (round %d fragment %d/%d, "
                             "expected %d/%d); dropped", job_id, peer, delta_round,
                             tag.fragment_id, tag.fragments, due, fragments)
@@ -1937,7 +1971,8 @@ class ParameterServerExecutor(JobExecutor):
     async def _notify_updated(self, scheduler_peer: str, job_id: str, round_num: int,
                               execution=None, shard: int = 0,
                               arrivals: "dict | None" = None,
-                              traceparent: "str | None" = None) -> ProgressResponse:
+                              traceparent: "str | None" = None,
+                              quality: "dict | None" = None) -> ProgressResponse:
         """One UPDATED notify; a reply from an older scheduler generation
         than the one adopted (a zombie's) raises, so it is retried."""
         gen = getattr(execution, "scheduler_generation", None)
@@ -1952,6 +1987,11 @@ class ParameterServerExecutor(JobExecutor):
             # Only adaptive_steps jobs attach the key: a static UPDATED
             # keeps its bytes.
             progress.metrics = {"arrival_s": {p: round(t, 6) for p, t in arrivals.items()}}
+        if quality:
+            # The metrics plane: the round's quality numbers (pseudo-gradient
+            # and update norms, accepted deltas). Only a reporting job
+            # attaches the key: the static wire is untouched.
+            progress.metrics = {**progress.metrics, "quality": dict(quality)}
         resp = await self.node.request(scheduler_peer, PROTOCOL_PROGRESS, progress, timeout=30)
         if not isinstance(resp, ProgressResponse):
             raise RequestError(f"unexpected progress response {resp!r}")
@@ -1963,6 +2003,7 @@ class ParameterServerExecutor(JobExecutor):
             if stale:
                 # A zombie predecessor answered: its decision must not
                 # drive the round machinery.
+                FT_METRICS.stale_generation_dropped.add(1)
                 log.warning("ps %s: round %d UPDATED answered by stale scheduler generation %s "
                             "(adopted %s); dropped", job_id, round_num, resp.generation, gen)
                 raise RequestError("stale scheduler generation on UPDATED reply")
@@ -1973,7 +2014,8 @@ class ParameterServerExecutor(JobExecutor):
                                         *, shard: int = 0, arrivals: "dict | None" = None,
                                         execution=None, park_s: float = 0.0,
                                         on_first_failure=None,
-                                        traceparent: "str | None" = None) -> ProgressResponse:
+                                        traceparent: "str | None" = None,
+                                        quality: "dict | None" = None) -> ProgressResponse:
         """An UPDATED notify that survives a scheduler outage. Without
         ``park_s`` (recovery off) it is one attempt. With it, the second
         failed attempt in a row runs ``on_first_failure`` (the round's
@@ -1995,7 +2037,7 @@ class ParameterServerExecutor(JobExecutor):
         if park_s <= 0:
             return await self._notify_updated(scheduler_peer, job_id, round_num, execution,
                                               shard=shard, arrivals=arrivals,
-                                              traceparent=traceparent)
+                                              traceparent=traceparent, quality=quality)
         failures = [0]
         t0 = time.perf_counter()
         gen0 = getattr(execution, "scheduler_generation", None)
@@ -2004,7 +2046,7 @@ class ParameterServerExecutor(JobExecutor):
             try:
                 return await self._notify_updated(scheduler_peer, job_id, round_num, execution,
                                                   shard=shard, arrivals=arrivals,
-                                                  traceparent=traceparent)
+                                                  traceparent=traceparent, quality=quality)
             except (RequestError, OSError, asyncio.TimeoutError) as e:
                 released = getattr(execution, "adopter_released", None)
                 if (getattr(execution, "scheduler_generation", None) != gen0

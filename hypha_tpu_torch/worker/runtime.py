@@ -52,6 +52,7 @@ from ..hw import default_device
 from ..messages import AGGREGATE_EXECUTOR_NAME, INFER_EXECUTOR_NAME, TRAIN_EXECUTOR_NAME
 from ..network.node import Node
 from ..resources import Resources
+from ..telemetry import global_telemetry, instrument_node
 from .arbiter import Arbiter, OfferConfig
 from .infer_executor import InProcessInferExecutor
 from .job_manager import JobManager
@@ -117,6 +118,10 @@ class WorkerNode:
 
     async def start(self, listen: "list[str] | None" = None) -> None:
         await self.node.start(listen)
+        # The fabric's byte gauges on the process-global registry, which
+        # ``telemetry.metrics_snapshot`` reads: a worker started without
+        # the CLI (a harness, a test) is counted too.
+        instrument_node(global_telemetry().meter(f"hypha.node.{self.peer_id}"), self.node)
         self._health = serve_health(self.node, lambda: self._ready)
         await self.node.wait_for_bootstrap()
         await self.arbiter.start()
@@ -126,6 +131,9 @@ class WorkerNode:
 
     async def stop(self) -> None:
         self._ready = False
+        # start()'s gauges go with the node: a leaked closure would pin the
+        # dead node and report its frozen counters as a live fabric.
+        global_telemetry().meter(f"hypha.node.{self.peer_id}").remove_gauges()
         if self._health is not None:
             self._health.close()
         await self.arbiter.stop()

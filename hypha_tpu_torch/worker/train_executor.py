@@ -17,9 +17,11 @@ The bridge's connector serves the slice fetches of pipelined jobs from an
 on-disk :class:`~hypha_tpu_torch.worker.slice_cache.SliceCache` under
 ``work_root / "slice-cache"``, which outlives each job's work dir.
 
-Not ported: the metrics reporter the reference starts beside the loop
-(ROADMAP.md, Queue 1: telemetry); a job asking for it raises inside
-``run_training``.
+A job with ``report_metrics_s`` (the live metrics plane) starts a
+:class:`~hypha_tpu_torch.telemetry.metrics_plane.MetricsReporter` beside
+the loop: the node's registry deltas go to the scheduler's collector every
+``report_metrics_s`` seconds, stamped with the execution's round, and a
+last report goes when the job ends.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from .. import aio
 from ..hw import default_device
 from ..messages import JobSpec
 from ..stream.reduce import maybe_start_reducer
+from ..telemetry.metrics_plane import MetricsReporter
 from .bridge import Bridge
 from .connectors import Connector
 from .job_manager import Execution, JobExecutor
@@ -76,8 +79,18 @@ class InProcessTrainExecutor(JobExecutor):
             raise
         stop_flag = threading.Event()
         reducer = maybe_start_reducer(self.node, spec, self.device, work_dir / "reduce")
+        # The live metrics plane: periodic registry deltas to the
+        # scheduler's collector. Off (the default) starts nothing.
+        reporter = None
+        train_cfg = spec.executor.train
+        if train_cfg is not None and train_cfg.report_metrics_s:
+            reporter = MetricsReporter(
+                self.node, train_cfg.metrics_peer or scheduler_peer, job_id,
+                interval_s=float(train_cfg.report_metrics_s),
+                round_fn=lambda: execution.round).start()
         runner = asyncio.create_task(
-            self._run(execution, spec, socket_path, work_dir, bridge, stop_flag, reducer))
+            self._run(execution, spec, socket_path, work_dir, bridge, stop_flag, reducer,
+                      reporter))
 
         async def cancel() -> None:
             # Cooperative: the training thread polls the flag between
@@ -109,7 +122,7 @@ class InProcessTrainExecutor(JobExecutor):
 
     async def _run(self, execution: Execution, spec: JobSpec, socket_path: Path,
                    work_dir: Path, bridge: Bridge, stop_flag: threading.Event,
-                   reducer=None) -> None:
+                   reducer=None, reporter=None) -> None:
         from ..executor.bridge_client import Session
         from ..executor.training import run_training
 
@@ -136,6 +149,8 @@ class InProcessTrainExecutor(JobExecutor):
                 log.exception("in-process training job %s failed", spec.job_id)
                 execution.finish("failed", str(e))
         finally:
+            if reporter is not None:
+                await reporter.stop()
             if reducer is not None:
                 await reducer.stop()
             await bridge.stop()

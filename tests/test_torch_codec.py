@@ -20,6 +20,9 @@ import pytest
 
 from hypha_tpu import codec as jcodec
 from hypha_tpu import messages as jmsg
+# Registers the metrics plane's messages in the reference's codec, as the
+# port's worker modules register them in the port's on import.
+from hypha_tpu.telemetry import metrics_plane as _jmetrics_plane  # noqa: F401
 from hypha_tpu.network import fabric as jfabric
 from hypha_tpu.resources import Resources as JResources
 from hypha_tpu_torch import codec as tcodec

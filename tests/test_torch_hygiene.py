@@ -62,7 +62,12 @@ def _port_files():
                  "hypha_tpu_torch/telemetry/flight.py",
                  "hypha_tpu_torch/telemetry/trace.py",
                  "hypha_tpu_torch/telemetry/timeline.py",
-                 "hypha_tpu_torch/telemetry/otlp.py"):
+                 "hypha_tpu_torch/telemetry/otlp.py",
+                 "hypha_tpu_torch/telemetry/series.py",
+                 "hypha_tpu_torch/telemetry/slo.py",
+                 "hypha_tpu_torch/telemetry/metrics_plane.py",
+                 "hypha_tpu_torch/telemetry/top.py",
+                 "hypha_tpu_torch/aim_driver.py"):
         assert must in rel, must
     return files
 
@@ -111,16 +116,17 @@ def test_refusals_name_the_current_roadmap_label():
     command, checkpoint resume, the fault tolerance of sharded and
     streaming jobs, the broadcast tree, live weight swap, adaptive rounds
     with the data-plane chaos kinds, scheduler recovery, LoRA, the bf16
-    first moment, HF checkpoints as initial weights, the input pipeline
-    and slice preprocessors are ported: no module refuses an option under
-    a label that named them (Hub downloads stay refused as HF Hub)."""
+    first moment, HF checkpoints as initial weights, the input pipeline,
+    slice preprocessors and the live metrics plane (telemetry) are ported:
+    no module refuses an option under a label that named them (Hub
+    downloads stay refused as HF Hub)."""
     retired = ("codecs/streaming", "serving router", "prefix cache with copy_blocks",
                "fleet cache and kv migration", "queue 1: mtls", "queue 1: network/mux.py",
                "queue 1: process executor command", "queue 1: checkpoint resume",
                "sharded ps/ft/rejoin", "queue 1: broadcast tree", "queue 1: live weight swap",
                "adaptive rounds and chaos kinds", "queue 1: scheduler recovery",
                "queue 1: lora", "queue 1: mu_dtype", "queue 1: hf checkpoints",
-               "queue 1: input_pipeline", "queue 1: preprocessor")
+               "queue 1: input_pipeline", "queue 1: preprocessor", "queue 1: telemetry")
     stale = [f"{p.relative_to(ROOT)}:{i}" for p in _port_files()
              for i, line in enumerate(p.read_text().splitlines(), 1)
              if any(label in line.lower() for label in retired)]
@@ -131,7 +137,10 @@ def test_refusals_name_the_current_roadmap_label():
                                     "hypha_tpu_torch.data_node", "hypha_tpu_torch.node_config",
                                     "hypha_tpu_torch.scheduler.orchestrator",
                                     "hypha_tpu_torch.telemetry.trace",
-                                    "hypha_tpu_torch.telemetry.timeline"])
+                                    "hypha_tpu_torch.telemetry.timeline",
+                                    "hypha_tpu_torch.telemetry.metrics_plane",
+                                    "hypha_tpu_torch.telemetry.top",
+                                    "hypha_tpu_torch.aim_driver"])
 def test_node_roles_without_tensors_import_no_torch(module):
     """The CLI, the gateway, the data node and the training scheduler load
     without torch (its import is seconds of every such process's start); the

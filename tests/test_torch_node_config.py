@@ -227,9 +227,6 @@ def test_tpu_axis_is_refused_with_the_gpu_key(key):
 SERVE = {"job.kind": "serve", "job.serve_name": "s", "job.serve_block_size": 16}
 # (role, overrides, ROADMAP.md label); "<file>" stands for an existing file.
 UNPORTED = {
-    "metrics plane": ("scheduler", {"job.metrics_plane": True}, "telemetry"),
-    "serve metrics plane": ("scheduler", {**SERVE, "job.metrics_plane": True}, "telemetry"),
-    "slo rules": ("scheduler", {**SERVE, "job.slo_rules": ["round_wall_s <= 30"]}, "telemetry"),
     "multihost": ("worker", {"multihost.coordinator_address": "10.0.0.1:1234",
                              "multihost.num_processes": 2}, "Parallel and long context"),
     "spec ngram": ("scheduler", {**SERVE, "job.serve_spec_ngram": 3}, "speculative decoding"),
@@ -276,14 +273,20 @@ def test_telemetry_endpoint_is_accepted_as_the_reference_accepts_it(role):
         (jt.endpoint, jt.protocol, jt.sample_ratio, jt.attributes)
 
 
-# Elastic rounds, a checkpoint_dir and the input pipeline with stream sync: both packages
-# validate the section and build the same job (bytes equal but for the
-# accelerator key of the resources: the port sells gpu).
+# Elastic rounds, a checkpoint_dir, the input pipeline and the metrics plane
+# with its SLO rules, each with stream sync: both packages validate the
+# section and build the same job (bytes equal but for the accelerator key of
+# the resources: the port sells gpu).
 LIFTED = {
     "quorum": {"job.quorum_fraction": 0.5, "job.sync_mode": "stream"},
     "checkpoint": {"job.checkpoint_dir": "/tmp/ck", "job.sync_mode": "stream"},
     "input pipeline": {"job.input_pipeline": True, "job.prefetch_slices": 3,
                        "job.sync_mode": "stream"},
+    "metrics plane": {"job.metrics_plane": True, "job.metrics_interval_s": 0.5,
+                      "job.metrics_dir": "/tmp/m", "job.sync_mode": "stream"},
+    "slo rules": {"job.metrics_plane": True, "job.sync_mode": "stream",
+                  "job.slo_rules": ["round_wall_s <= 30", "silent_s <= 15",
+                                    "hypha.serve.request_latency_ms.p99 <= 250 @peer"]},
 }
 
 
@@ -299,6 +302,35 @@ def test_lifted_option_validates_and_builds_the_reference_job(case):
         job.resources = None
     assert tmsg.encode(tjob_) == jmsg.encode(jjob_)
     assert tjob_.sync_mode == "stream"
+
+
+def test_serve_metrics_plane_validates_as_the_reference():
+    """A serve deployment with the metrics plane and its rules: both
+    packages validate the section and read the same values."""
+    over = {**SERVE, "job.metrics_plane": True, "job.metrics_dir": "/tmp/m",
+            "job.slo_rules": ["silent_s <= 3"], "job.worker_tpu": 0.0}
+    got = []
+    for cfg_mod, nc in ((jcfg, jnc), (tcfg, tnc)):
+        built = cfg_mod.builder(getattr(nc, SCHEMA["scheduler"])).with_overrides(over).build()
+        built.validate()
+        job = built.value.job
+        got.append((job.metrics_plane, job.metrics_interval_s, job.metrics_dir, job.slo_rules))
+    assert got[0] == got[1] == (True, 1.0, "/tmp/m", ["silent_s <= 3"])
+
+
+@pytest.mark.parametrize("rule", ["no operator here", "metric <= notanumber", "<= 3",
+                                  ".p99 <= 3"])
+def test_bad_slo_rule_gives_the_reference_config_error(rule):
+    """A bad rule fails validation with the reference's ``ConfigError``
+    text in both packages."""
+    over = {"job.metrics_plane": True, "job.slo_rules": [rule], "job.worker_tpu": 0.0}
+    texts = []
+    for cfg_mod, nc in ((jcfg, jnc), (tcfg, tnc)):
+        built = cfg_mod.builder(getattr(nc, SCHEMA["scheduler"])).with_overrides(over).build()
+        with pytest.raises(cfg_mod.ConfigError) as info:
+            built.validate()
+        texts.append(str(info.value))
+    assert texts[0] == texts[1] and texts[1].startswith("job.slo_rules: SLO rule")
 
 
 @pytest.fixture(scope="module")
@@ -523,9 +555,9 @@ def test_stream_and_codec_keys_reach_the_job(over):
 def test_defaults_are_accepted_and_the_cli_exits_2_on_an_unported_option(capsys):
     for role in ("gateway", "worker", "scheduler"):
         tcfg.builder(getattr(tnc, SCHEMA[role])).build().validate()
-    code = tcli.main(["scheduler", "run", "--set", "job.metrics_plane=true"])
+    code = tcli.main(["scheduler", "run", "--set", "job.sharding={tp = 2}"])
     assert code == 2
-    assert "Queue 1: telemetry" in capsys.readouterr().err
+    assert "Queue 1: intra-replica sharding" in capsys.readouterr().err
     assert tcli.main(["gateway", "run", "--set", "offer.price=1"]) == 2
     assert "unknown config key" in capsys.readouterr().err
 

@@ -329,9 +329,20 @@ def test_dispatched_config_bytes_equal_the_reference(options, monkeypatch):
     (dict(report_metrics_s=1.0), "telemetry"), (dict(metrics=object()), "telemetry"),
 ])
 def test_unported_router_options_raise(option, label):
+    """The metrics plane's router options (refused under ``label`` until the
+    plane was ported; the label is retired): both packages' supervisors
+    take them, keep the collector and dispatch the same config bytes
+    (``report_metrics_s`` and ``metrics_peer`` only with a cadence)."""
     async def main():
-        with pytest.raises(NotImplementedError, match=label):
-            tserving.ServingSupervisor(PKG["port"].node(), MODEL, NAME, num_workers=2, **option)
+        got = {}
+        for pkg, mod in (("jax", jserving), ("port", tserving)):
+            sup = mod.ServingSupervisor(PKG[pkg].node(), MODEL, NAME, num_workers=2, **option)
+            assert sup.metrics is option.get("metrics")
+            got[pkg] = sup._config
+        assert tmsg.encode(got["port"]) == jmsg.encode(got["jax"])
+        cadence = option.get("report_metrics_s")
+        assert got["port"].report_metrics_s == cadence
+        assert (got["port"].metrics_peer is not None) == bool(cadence)
 
     run(main())
 

@@ -711,6 +711,7 @@ STREAM_OPTIONS = {
     "input_pipeline": {"input_pipeline": True, "prefetch_slices": 3},
     "input_pipeline_default_depth": {"input_pipeline": True},
     "preprocessor": {"preprocessor": {"kind": "tokenizer", "inputs": ["text"]}},
+    "metrics_plane": {"metrics_plane": True, "metrics_interval_s": 0.5},
 }
 
 
@@ -733,13 +734,16 @@ def test_stream_and_codec_options_dispatch_as_the_jax_wire(option):
     assert (train.prefetch_slices, train.data.ref.prefetch) == (depth, depth)
     assert train.input_pipeline is (True if depth else None)
     assert train.preprocessor == over.get("preprocessor")
+    # The metrics plane's cadence and collector (the scheduler) ride both
+    # specs; None, off the wire, when it is off.
+    cadence = over.get("metrics_interval_s") if over.get("metrics_plane") else None
+    assert train.report_metrics_s == agg.report_metrics_s == cadence
+    assert (train.metrics_peer is not None) == (agg.metrics_peer is not None) == bool(cadence)
 
 
 # Each option outside the port's path, set to a value the reference
 # accepts, with the other fields the reference needs beside it.
 UNPORTED = {
-    "metrics_plane": (True, "telemetry"),
-    "slo_rules": (["round_wall_s <= 30"], "telemetry"),
     "sharding": ({"dp": 1}, "intra-replica sharding"),
 }
 
@@ -748,8 +752,7 @@ UNPORTED = {
 def test_unported_job_option_raises_with_its_label(option):
     value, label, *extra = UNPORTED[option]
     kw = {option: value, **(extra[0] if extra else {})}
-    if option != "slo_rules":  # the reference parses rules with its telemetry
-        jjob.DiLoCoJob(model={}, dataset="d", **kw)
+    jjob.DiLoCoJob(model={}, dataset="d", **kw)
     with pytest.raises(NotImplementedError, match=f"{option}=.*ROADMAP.md, Queue 1: {label}"):
         tjob.DiLoCoJob(model={}, dataset="d", **kw)
 
@@ -775,6 +778,9 @@ LIFTED = {
     "lora": {"lora": {"rank": 16, "alpha": 32.0, "targets": ["q_proj", "v_proj"]}},
     "input_pipeline": {"input_pipeline": True, "prefetch_slices": 3},
     "preprocessor": {"preprocessor": {"kind": "tokenizer", "inputs": ["text"]}},
+    "metrics_plane": {"metrics_plane": True, "metrics_interval_s": 0.5, "metrics_dir": "/m"},
+    "slo_rules": {"metrics_plane": True,
+                  "slo_rules": ["round_wall_s <= 30", "hypha.het.quorum_drops == 0"]},
 }
 
 
@@ -801,6 +807,7 @@ def test_every_unported_option_has_a_case_and_its_off_value_runs():
     {"delta_dtype": "float16"}, {"delta_codec": "zstd"}, {"sync_mode": "eager"},
     {"num_ps_shards": 0}, {"num_fragments": -1}, {"prefetch_slices": 2},
     {"codec_bw_lo_mbps": 200.0}, {"metrics_interval_s": 0.0},
+    {"slo_rules": ["no operator"]},
 ])
 def test_malformed_job_raises_value_error_in_both(bad):
     for pkg in PKG:

@@ -181,7 +181,8 @@ def test_relay_results_trains_as_the_reference(tmp_path, weights):
     # tests/test_torch_preprocess.py).
     {"sharding": {"tp": 2}},
     {"sharding": {"sp": 2}},
-    {"report_metrics_s": 1.0},
+    # report_metrics_s runs (tests/test_torch_metrics_plane.py).
+    {"sharding": {"ep": 2}},
     {"model": "gpt2"},
 ])
 def test_unported_options_raise(tmp_path, weights, option):
