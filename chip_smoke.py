@@ -35,6 +35,14 @@ Phases, each printing one JSON line:
    with the prefix cache on and off, bf16 and int8:
    the answers equal, hits and copy-on-writes above 0, fewer prefill
    forwards with the cache, the kernel only (``serve_prefix_phase``);
+5c. serve_spec — speculative decoding and the fixed-slot pool on the same
+   8-layer model (``serve_spec_phase``): echo and settled traffic, bf16
+   spec off, ``spec_ngram``, ``spec_layers`` and a fixed-slot pool, f32
+   spec off, ``spec_ngram`` and fixed-slot; gates (a)-(f): f32 tokens
+   equal across the three, every request's count, drafts accepted and
+   fewer forwards an emitted token where every lane proposes, verifies on
+   ``ragged_mma_kernel`` and the self-draft on ``ragged_decode_kernel``,
+   no plain attention;
 6. profile — one decode step and one prefill chunk at the serving shape
    under the profiler: host and device time, the ragged kernels
    (``RAGGED_NAMES``) by name, the decode kernel (and its merge, when the
@@ -357,7 +365,10 @@ Phases, each printing one JSON line:
    ``compute_loss`` CE on the 7B head ([2, 2047] hidden states; value and
    hidden gradient within ``CHUNKED_CE_TOL``, each one's peak), and four
    AdamW steps with a bf16 ``mu`` against f32 on the adapters (moment bytes,
-   parameter gap). It reports step ms, tokens/s and the peak;
+   parameter gap). The seeded init draws through ``seed_init_draw`` (one
+   launch a drawn leaf), held bit-equal to the CPU's draws at both ends of
+   each distinct leaf and timed beside the ``torch.Generator`` init it
+   replaced. It reports step ms, tokens/s and the peak;
 13. train_reference — a tiny Llama (head_dim 64), and the same with a
    sliding window below its sequence (Mistral's local attention), each
    trained 4 steps through the kernels and through the plain flash version
@@ -1378,6 +1389,297 @@ def serve_prefix_phase(model) -> dict:
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     # For serve_router (main keeps them out of the phase's line).
     res.update(prompts=prompts, answers=runs[("", True)]["answers"], layers=layers)
+    return res
+
+
+# ------------------------------------------------------ serve_spec phase
+
+# Speculative decoding and the fixed-slot pool in process, on the 8-layer
+# model: 8 slots, blocks of 16, prefill chunks of 64 (the verify's width).
+SPEC_POOL = dict(slots=8, max_len=1024, steps_per_call=8, block_size=16, prefill_chunk=64,
+                 ragged=True)
+SPEC_NGRAM = 3
+SPEC_LAYERS = 2
+SPEC_DRAFT = 7  # the self-draft's tokens a verify: its window keeps 57 context tokens
+SPEC_SEED = 31
+SPEC_F32_REQUESTS = 4  # the f32 runs take the first four requests, 32 new tokens each
+SPEC_F32_NEW = 32
+# The settled traffic: contexts cut 8 tokens into a stretch of at least
+# SPEC_SETTLED tokens of a spec-off answer that repeat with a period of at
+# most 4, asking for what remains of the stretch (at most SPEC_SETTLED_NEW).
+SPEC_SETTLED, SPEC_SETTLED_NEW = 16, 24
+
+
+def spec_requests(seed: int = SPEC_SEED) -> tuple:
+    """8 prompts of a repeated segment (6-16 tokens, 3-12 times) that end
+    inside it, so that prompt lookup finds the prompt's last n-gram, and
+    48-62 new tokens each."""
+    g = torch.Generator().manual_seed(seed)
+    prompts, n_new = [], []
+    for i in range(8):
+        n = int(torch.randint(6, 17, (1,), generator=g))
+        seg = torch.randint(3, 32_000, (n,), generator=g).tolist()
+        reps = int(torch.randint(3, 13, (1,), generator=g))
+        prompts.append(seg * reps + seg[: int(torch.randint(3, n, (1,), generator=g))])
+        n_new.append(48 + 2 * i)
+    return prompts, n_new
+
+
+def spec_run(model, prompts: list, n_new: list, *, profiled: bool = False, **pool) -> dict:
+    """The requests through one in-process ``DecodePool``, all at once; the
+    launch counts set to 0 just before and read just after, and with
+    ``profiled`` the ragged kernels' device launches and time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hypha_tpu_torch.executor.pool import DecodePool
+    from hypha_tpu_torch.ops.attention import dot_product_attention
+    from hypha_tpu_torch.ops.paged_attention import paged_attention, ragged_paged_attention
+
+    p = DecodePool(model, **{**SPEC_POOL, **pool})
+    draft_launches = {"decode": 0, "mma": 0, "simt": 0}
+    if p.spec_model:  # count the routes the draft's own forwards take
+        draft = p._draft_forward
+
+        def counted(context, cap):
+            before = {r: getattr(ragged_paged_attention, f"{r}_launches") for r in ROUTES}
+            out = draft(context, cap)
+            for r in ROUTES:
+                draft_launches[r] += getattr(ragged_paged_attention, f"{r}_launches") - before[r]
+            return out
+
+        p._draft_forward = counted
+    try:
+        for name in ROUTES:
+            setattr(ragged_paged_attention, f"{name}_launches", 0)
+        paged_attention.plain_calls = dot_product_attention.calls = 0
+        prof = profile(activities=[ProfilerActivity.CUDA]) if profiled else nullcontext()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with prof:
+            futs = [p.submit([q], n) for q, n in zip(prompts, n_new)]
+            answers = [f.result(timeout=600)[0] for f in futs]
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_route = {name: getattr(ragged_paged_attention, f"{name}_launches") for name in ROUTES}
+        plain, dense = paged_attention.plain_calls, dot_product_attention.calls
+    finally:
+        p.close()
+    kernels = None
+    if profiled:
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = {name: {"launches": sum(e.count for e in events if name in e.key),
+                          "ms": sum(e.self_device_time_total for e in events if name in e.key) / 1e3}
+                   for name in RAGGED_NAMES}
+    st = p.stats
+    emitted = sum(len(a) for a in answers)
+    # The target model's forwards, as the pool dispatches them: each
+    # prefill-shaped chunk once (a verify shares its chunk with the prefill
+    # lanes), and K a decode chunk. Beside them the forwards each lane took
+    # part in after its prefill: a decode step yields one token, a verify
+    # its accepted drafts and a bonus.
+    forwards = p.prefill_chunks + st["spec_only_chunks"] + p.steps_per_call * p.chunks
+    lane_forwards = st["decode_lane_steps"] + st["spec_lanes"]
+    return dict(answers=answers, wall_s=wall, tok_s=emitted / wall, launches_by_route=by_route,
+                draft_launches_by_route=draft_launches if p.spec_model else None,
+                plain_attention_calls=plain, dense_attention_calls=dense, kernels=kernels,
+                prefill_chunks=p.prefill_chunks, decode_chunks=p.chunks,
+                spec_chunks=p.spec_chunks, spec_lanes=st["spec_lanes"], forwards=forwards,
+                # Of the lanes' turns after prefill (a verify, or a decode
+                # chunk of K steps), the share that proposed.
+                lanes_proposing=st["spec_lanes"] / max(
+                    st["spec_lanes"] + st["decode_lane_steps"] / p.steps_per_call, 1),
+                dispatches_per_token=forwards / emitted, emitted=emitted,
+                forwards_per_token=lane_forwards / max(st["decode_tokens"] + st["spec_tokens"], 1),
+                spec_proposed=st["spec_proposed"], spec_accepted=st["spec_accepted"],
+                accept_rate=st["spec_accepted"] / st["spec_proposed"] if st["spec_proposed"]
+                else None,
+                decode_tok_s=(st["decode_tokens"] + st["spec_tokens"])
+                / max(st["decode_s"] + st["spec_s"], 1e-9),
+                # Host-clocked, ending in the chunk's sync: the verifies that
+                # carried no prefill lane.
+                verify_chunk_ms=st["spec_s"] / st["spec_only_chunks"] * 1e3
+                if st["spec_only_chunks"] else None,
+                preemptions=p.preemptions)
+
+
+def spec_echo(prompts: list, answers: list, reps: int = 32) -> list:
+    """Each prompt followed by ``reps`` copies of the token its own greedy
+    answer repeats most. The seeded model loops on such tokens (its answers
+    to ``spec_requests`` repeat a token up to 20 times running on the
+    H100), so its continuation is what prompt lookup drafts."""
+    return [p + [collections.Counter(a).most_common(1)[0][0]] * reps
+            for p, a in zip(prompts, answers)]
+
+
+def settled_requests(contexts: list, answers: list, lanes: int) -> tuple:
+    """Requests on which the seeded model's greedy stream repeats a short
+    cycle, so that prompt lookup drafts it for every lane from the first
+    step: for each spec-off ``answers[i]`` to ``contexts[i]``, its longest
+    stretch that repeats with a period of 1-4 tokens; of those at least
+    ``SPEC_SETTLED`` long, the context through 8 tokens of the stretch and
+    the stretch's remaining tokens (at most ``SPEC_SETTLED_NEW``) as the
+    budget, longest first, cycled to ``lanes`` requests."""
+    found = []
+    for ctx, a in zip(contexts, answers):
+        best = (0, 0)
+        for p in range(1, 5):
+            run = 0
+            for i in range(p, len(a)):
+                run = run + 1 if a[i] == a[i - p] else 0
+                if run + p > best[0]:
+                    best = (run + p, i + 1)  # length, end
+        length, end = best
+        if length >= SPEC_SETTLED:
+            cut = end - length + 8
+            found.append((length, ctx + a[:cut], min(end - cut, SPEC_SETTLED_NEW)))
+    found.sort(key=lambda f: -f[0])
+    picked = [found[i % len(found)] for i in range(lanes)] if found else []
+    return [f[1] for f in picked], [f[2] for f in picked], len(found)
+
+
+def first_divergence(model, prompts: list, got: list, want: list) -> "dict | None":
+    """``divergence`` at the first request whose tokens differ (None when
+    every request's are equal)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            return {"request": i, **divergence(model, prompts[i], g, w)}
+    return None
+
+
+def serve_spec_phase(model) -> dict:
+    """Speculative decoding and the fixed-slot pool on the 8-layer model.
+    The echo traffic: ``spec_requests`` answered once with spec off, then
+    each prompt extended by ``spec_echo``. The settled traffic
+    (``settled_requests``): where the spec-off answers to both settled into
+    a short cycle, so that every lane proposes. bf16: on the echo traffic
+    spec off, ``spec_ngram`` 3, ``spec_layers`` 2 and a fixed-slot pool,
+    timed, and the two spec pools once more under the profiler on two
+    requests; on the settled traffic spec off and ``spec_ngram`` 3. f32
+    (every route the simt kernel): spec off, ``spec_ngram`` 3 and a
+    fixed-slot pool on the first four echo requests. Gates: (a) f32 spec-on
+    tokens equal spec-off; (b) every request completes with its count (bf16
+    agreement with spec off reported); (c) ``spec_ngram`` accepts drafts on
+    both traffics, and on the settled traffic takes fewer target-model
+    forwards an emitted token than spec off (the pool's dispatches: a
+    prefill-shaped chunk once, a decode chunk K times). On the echo
+    traffic, where some lanes find no draft and so a K-step decode chunk
+    runs beside most verifies, speculation dispatches more forwards a
+    token and is slower: reported, not gated, beside each lane's own
+    forwards a token. (d) The verify
+    chunks on ``ragged_mma_kernel``, no ``ragged_kernel`` (simt) in a bf16
+    run, the self-draft's decode steps on ``ragged_decode_kernel``; (e) the
+    f32 fixed-slot tokens equal the paged pool's; (f) no plain paged
+    attention and no dense attention in a paged run (the fixed-slot pool's
+    attention is the dense one, as the reference's is XLA's)."""
+    from hypha_tpu_torch.worker.infer_executor import load_model
+
+    t0 = time.perf_counter()
+    seed_prompts, n_new = spec_requests()
+    seeded = spec_run(model, seed_prompts, n_new)
+    prompts = spec_echo(seed_prompts, seeded["answers"])
+    spec = dict(spec_draft=SPEC_DRAFT)
+    runs = {"bf16_off": spec_run(model, prompts, n_new),
+            "bf16_ngram": spec_run(model, prompts, n_new, spec_ngram=SPEC_NGRAM, **spec),
+            "bf16_layers": spec_run(model, prompts, n_new, spec_layers=SPEC_LAYERS, **spec),
+            "bf16_fixed": spec_run(model, prompts, n_new, block_size=0, ragged=False,
+                                   prefill_chunk=0)}
+    settled, settled_new, n_settled = settled_requests(
+        seed_prompts + prompts, seeded["answers"] + runs["bf16_off"]["answers"], len(prompts))
+    if settled:
+        runs.update(bf16_settled_off=spec_run(model, settled, settled_new),
+                    bf16_settled_ngram=spec_run(model, settled, settled_new,
+                                                spec_ngram=SPEC_NGRAM, **spec))
+    profiled = {name: spec_run(model, prompts[:2], [16, 16], profiled=True, **kw, **spec)
+                for name, kw in (("bf16_ngram", dict(spec_ngram=SPEC_NGRAM)),
+                                 ("bf16_layers", dict(spec_layers=SPEC_LAYERS)))}
+    # f32 weights and f32 compute (the preset computes in bf16).
+    f32 = load_model({**CLI_MODEL, "config": {**CLI_MODEL["config"], "dtype": "float32"},
+                      "serve_dtype": "float32"})
+    fp, fn = prompts[:SPEC_F32_REQUESTS], [SPEC_F32_NEW] * SPEC_F32_REQUESTS
+    runs.update(f32_off=spec_run(f32, fp, fn),
+                f32_ngram=spec_run(f32, fp, fn, spec_ngram=SPEC_NGRAM, **spec),
+                f32_fixed=spec_run(f32, fp, fn, block_size=0, ragged=False, prefill_chunk=0))
+    off32 = runs["f32_off"]["answers"]
+    spec_split = first_divergence(f32, fp, runs["f32_ngram"]["answers"], off32)
+    fixed_split = first_divergence(f32, fp, runs["f32_fixed"]["answers"], off32)
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    problems = [] if settled else ["(c) no spec-off answer settled into a short cycle"]
+    off = runs["bf16_off"]
+    if spec_split is not None:  # (a)
+        problems.append(f"(a) f32: spec_ngram changed the tokens: {spec_split}")
+    agree = {}
+    for name, run in runs.items():
+        want, base = ((settled_new, runs["bf16_settled_off"]) if "settled" in name else
+                      (n_new, off) if name.startswith("bf16") else (fn, None))
+        if [len(a) for a in run["answers"]] != want:  # (b)
+            problems.append(f"(b) {name}: answered {[len(a) for a in run['answers']]} tokens")
+        if base is not None and run is not base:
+            same = sum(a == b for x, y in zip(run["answers"], base["answers"])
+                       for a, b in zip(x, y))
+            agree[name] = same / sum(want)
+    ng = runs["bf16_ngram"]
+    none = dict(spec_accepted=0, spec_proposed=0, dispatches_per_token=0.0, tok_s=0.0)
+    set_off, set_ng = runs.get("bf16_settled_off", none), runs.get("bf16_settled_ngram", none)
+    if (not ng["spec_accepted"] > 0 or not set_ng["spec_accepted"] > 0  # (c)
+            or not set_ng["dispatches_per_token"] < set_off["dispatches_per_token"]):
+        problems.append(f"(c) spec_ngram accepted {ng['spec_accepted']} of "
+                        f"{ng['spec_proposed']} (echo) and {set_ng['spec_accepted']} of "
+                        f"{set_ng['spec_proposed']} (settled); on the settled traffic "
+                        f"{set_ng['dispatches_per_token']:.4f} forwards an emitted token "
+                        f"against {set_off['dispatches_per_token']:.4f} with spec off")
+    if any(runs[name]["launches_by_route"][r] for name in ("f32_off", "f32_ngram")
+           for r in ("decode", "mma")):
+        problems.append("(a) an f32 run left the simt route: "
+                        f"{[runs[n]['launches_by_route'] for n in ('f32_off', 'f32_ngram')]}")
+    for name, run in profiled.items():  # (d)
+        k = run["kernels"]
+        if (run["spec_chunks"] <= 0 or k["ragged_mma_kernel"]["launches"] <= 0
+                or k["ragged_kernel"]["launches"] or run["launches_by_route"]["simt"]
+                or runs[name]["launches_by_route"]["simt"]):
+            problems.append(f"(d) {name}: {run['spec_chunks']} verifies, kernels {k}")
+    layers = profiled["bf16_layers"]
+    if (not layers["draft_launches_by_route"]["decode"]
+            or layers["kernels"]["ragged_decode_kernel"]["launches"] <= 0):
+        problems.append(f"(d) the self-draft's launches {layers['draft_launches_by_route']}")
+    if fixed_split is not None:  # (e)
+        problems.append(f"(e) f32: the fixed-slot pool parts from the paged pool: {fixed_split}")
+    for name, run in [*runs.items(), *(("profiled_" + k, v) for k, v in profiled.items())]:
+        paged = not name.endswith("fixed")  # (f)
+        if run["plain_attention_calls"] or (paged and run["dense_attention_calls"]):
+            problems.append(f"(f) {name}: plain {run['plain_attention_calls']}, dense "
+                            f"{run['dense_attention_calls']}")
+    keep = ("wall_s", "tok_s", "decode_tok_s", "launches_by_route", "draft_launches_by_route",
+            "dense_attention_calls", "prefill_chunks", "decode_chunks", "spec_chunks",
+            "forwards", "dispatches_per_token", "forwards_per_token", "emitted",
+            "spec_proposed", "spec_accepted", "spec_lanes", "lanes_proposing", "accept_rate",
+            "verify_chunk_ms", "preemptions")
+    res = dict(layers=model.config.num_layers, requests=len(prompts),
+               prompt_lengths=[len(q) for q in prompts], n_new=n_new,
+               settled_found=n_settled, settled_prompt_lengths=[len(q) for q in settled],
+               settled_new=settled_new,
+               # spec_ngram over spec off on each traffic (above 1: more).
+               spec_over_off={name: {k: a[k] / b[k] if b[k] else None
+                                     for k in ("tok_s", "dispatches_per_token")}
+                              for name, a, b in (("echo", ng, off),
+                                                 ("settled", set_ng, set_off))},
+               f32_requests=SPEC_F32_REQUESTS, f32_new=SPEC_F32_NEW, pool=dict(SPEC_POOL),
+               spec_ngram=SPEC_NGRAM, spec_layers=SPEC_LAYERS, spec_draft=SPEC_DRAFT,
+               seed_run={k: seeded[k] for k in keep}, agreement_with_off=agree,
+               f32_spec_identical=spec_split is None, f32_fixed_divergence=fixed_split,
+               fixed_vs_paged_tok_s={"bf16": runs["bf16_fixed"]["tok_s"] / off["tok_s"],
+                                     "f32": runs["f32_fixed"]["tok_s"] / runs["f32_off"]["tok_s"]},
+               runs={name: {k: r[k] for k in keep} for name, r in runs.items()},
+               profiled={name: {"kernels": r["kernels"], "spec_chunks": r["spec_chunks"],
+                                "launches_by_route": r["launches_by_route"],
+                                "draft_launches_by_route": r["draft_launches_by_route"]}
+                         for name, r in profiled.items()},
+               seconds=time.perf_counter() - t0)
+    if problems:
+        emit({"phase": "serve_spec", **res, "problems": problems})
+        raise SystemExit("serve_spec: " + "; ".join(problems))
     return res
 
 
@@ -8253,6 +8555,93 @@ def mu_dtype_probe(adapters: list, steps: int = 4) -> dict:
             "nu_bytes": {k: runs[k][2] for k in runs}, "param_gap_over_lr": gap / lr}
 
 
+SEED_SOURCE = "hypha_tpu_torch/ops/csrc/seed_init.cu"
+SEED_REPLACES = "hypha_tpu/executor/training.py:672"  # model.init's XLA draws: no Pallas kernel
+SEED_CHECK = 65_536  # elements at each end of a leaf the CPU recomputes
+SEED_SHAPE = (4096, 4096)  # the timed leaf: a q_proj kernel at 7B widths
+# Operations of one drawn element: threefry's 20 rounds (add, two shifts,
+# or, xor) and 5 key injections (~117 integer ops), the uniform (5), XLA's
+# log (~35) and erf_inv's polynomial (9 fused multiply-adds, 18), the
+# scale and clip (~5): counted at the CUDA cores' f32 rate.
+SEED_OPS_PER_ELEMENT = 180
+
+
+def generator_init(model, seed: int) -> None:
+    """The port's seeded init before draws matched JAX's: a ``torch.Generator``
+    on the card, normal(0.02) for embeddings, head and LoRA ``A``, lecun's
+    truncated normal for projections (kept here to time it beside the
+    JAX-equal init)."""
+    g = torch.Generator(device=model.device).manual_seed(int(seed))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name in ("embed_tokens", "lm_head") or name.endswith("_lora_a"):
+                p.normal_(0.0, 0.02, generator=g)
+            elif name.endswith("proj.weight"):
+                std = (1.0 / p.shape[1]) ** 0.5 / 0.8796256610342398
+                torch.nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=g)
+
+
+def seed_check(model, seed: int) -> dict:
+    """The card's seeded θ₀ against the CPU's draws of the same elements:
+    the first and last ``SEED_CHECK`` flat elements (in the JAX layout) of
+    one leaf of each distinct (shape, draw), and the first 1024 of every
+    drawn leaf. Bit-equal, or the problem names the leaf."""
+    from hypha_tpu_torch.models import seed_init
+
+    params = dict(model.named_parameters())
+    seen, checked, elements, bad = set(), [], 0, []
+    for name, d, transposed in model.init_plan(seed):
+        if d is None:
+            continue
+        k, kind, mul = d
+        leaf = params[name].detach()
+        flat = (leaf.t() if transposed else leaf).reshape(-1)
+        n = flat.numel()
+        span = [(0, min(n, 1024))]
+        if (tuple(leaf.shape), kind) not in seen:
+            seen.add((tuple(leaf.shape), kind))
+            span = [(0, min(n, SEED_CHECK)), (max(n - SEED_CHECK, 0), n)]
+            checked.append({"name": name, "shape": list(leaf.shape), "kind": kind})
+        for a, b in span:
+            want = seed_init.draw_plain(k, kind, a, b, mul=mul)
+            got = flat[a:b].float().cpu()
+            elements += b - a
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                bad.append({"name": name, "range": [a, b],
+                            "max_abs_err": float((got - want).abs().max())})
+    return {"leaves": checked, "elements": elements, "mismatches": bad}
+
+
+def seed_kernel_timing(seed: int = 0) -> dict:
+    """The draw kernel against its plain version (the same torch ops the CPU
+    runs, here on the card) on a ``SEED_SHAPE`` lecun leaf: bit equality,
+    times and the bound."""
+    from hypha_tpu_torch.models import seed_init
+
+    k = seed_init.param_key(seed_init.key(seed), ("layers_0", "self_attn", "q_proj"), 1)
+    mul = seed_init.lecun_scale(SEED_SHAPE[0])
+    n = SEED_SHAPE[0] * SEED_SHAPE[1]
+    out = torch.empty(SEED_SHAPE, device="cuda")
+    before = seed_init.seed_launches["draw"]
+    ms = time_ms(lambda: seed_init.draw(k, "truncated_normal", out, mul=mul))
+    seed_init.seed_launches["draw"] = before  # timing launches are not the path's
+    with torch.inference_mode():
+        plain = seed_init.draw_plain(k, "truncated_normal", 0, n, mul=mul, device="cuda")
+        plain_ms = time_ms(lambda: seed_init.draw_plain(k, "truncated_normal", 0, n, mul=mul,
+                                                         device="cuda"),
+                           reps=3, iters=2, warmup=1)
+    seed_init.draw(k, "truncated_normal", out, mul=mul)
+    seed_init.seed_launches["draw"] = before
+    torch.cuda.synchronize()
+    err = float((out.reshape(-1) - plain).abs().max())
+    equal = torch.equal(out.reshape(-1).view(torch.int32), plain.view(torch.int32))
+    bytes_ms = n * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * SEED_OPS_PER_ELEMENT / PEAK_OPS[torch.float32] * 1e3
+    return dict(shape=list(SEED_SHAPE), ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                bit_equal=equal, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
 def lora_7b_phase() -> dict:
     """The whole Llama-2-7B (32 layers, f32 base) trained with LoRA through
     ``run_training`` behind ``LoraSession``: one round of ``LORA_7B_STEPS``;
@@ -8262,7 +8651,9 @@ def lora_7b_phase() -> dict:
     import hypha_tpu_torch.executor.training as training
     from hypha_tpu_torch.executor.lora import split_lora
     from hypha_tpu_torch.messages import Nesterov
+    from hypha_tpu_torch.models import seed_init
     from hypha_tpu_torch.models.convert import state_to_flat
+    from hypha_tpu_torch.models.llama import Llama
     from hypha_tpu_torch.ops.attention import dot_product_attention
     from hypha_tpu_torch.ops.flash_attention import flash_attention
 
@@ -8272,10 +8663,23 @@ def lora_7b_phase() -> dict:
     work_dir = Path(tempfile.mkdtemp(prefix="chip-smoke-lora7b-"))
     sums: dict = {}
     init = training._init_model
+    init_weights = Llama.init_weights
+
+    def timed_init(self, seed=0):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = init_weights(self, seed)
+        torch.cuda.synchronize()
+        sums["init_s"], sums["seed"] = time.perf_counter() - t, int(seed)
+        return out
 
     def init_model(cfg, session_, work_dir_, device):
         model = init(cfg, session_, work_dir_, device)
         session.model = model
+        # θ₀ on the card against the CPU's draws, before training moves it.
+        t_check = time.perf_counter()
+        sums["seed_check"] = {**seed_check(model, sums["seed"]),
+                              "seconds": time.perf_counter() - t_check}
         adapters, base = split_lora(model.state_dict())
         sums["base0"] = training.theta_checksum(state_to_flat(model, base))
         sums["adapters0"] = {k: v.clone() for k, v in adapters.items()}
@@ -8291,12 +8695,16 @@ def lora_7b_phase() -> dict:
         flash_attention.fwd_launches = flash_attention.dq_launches = 0
         flash_attention.dkv_launches = flash_attention.plain_calls = 0
         dot_product_attention.calls = 0
+        seed_init.seed_launches["draw"] = 0
         training._init_model = init_model
+        Llama.init_weights = timed_init
         t_run = time.perf_counter()
         try:
             result = training.run_training(session, work_dir, spec)
         finally:
             training._init_model = init
+            Llama.init_weights = init_weights
+        seed_launches = seed_init.seed_launches["draw"]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t_run
         launches = {"fwd": flash_attention.fwd_launches, "dq": flash_attention.dq_launches,
@@ -8319,6 +8727,15 @@ def lora_7b_phase() -> dict:
         ce = chunked_ce_probe(hidden[:, :-1], model.lm_head, ids[:, 1:])
         del hidden
         mu = mu_dtype_probe([p for n, p in model.named_parameters() if "_lora_" in n])
+        # The torch.Generator init this port drew before, timed on the same
+        # model (its weights are not needed any more).
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter()
+        generator_init(model, sums["seed"])
+        torch.cuda.synchronize()
+        seeded = {"seconds": sums["init_s"], "generator_seconds": time.perf_counter() - t_gen,
+                  "launches": seed_launches, "check": sums["seed_check"],
+                  "kernel": seed_kernel_timing(sums["seed"])}
         session.model = model = None
         sums.clear()
     finally:
@@ -8335,7 +8752,7 @@ def lora_7b_phase() -> dict:
         peak_gib=peak, card_gib=card, wall_s=wall, update_phase_s=session.update_s,
         server_s=session.times, launches=launches, base_unchanged=base_same,
         adapters_changed=changed, adapters=len(adapters), chunked_ce=ce, mu_dtype=mu,
-        seconds=time.perf_counter() - t0)
+        init=seeded, seconds=time.perf_counter() - t0)
     want = {"fwd": 2 * cfg.num_layers * LORA_7B_STEPS, "dq": cfg.num_layers * LORA_7B_STEPS,
             "dkv": cfg.num_layers * LORA_7B_STEPS, "flash_plain": 0, "dense": 0}
     problems = []
@@ -8352,6 +8769,14 @@ def lora_7b_phase() -> dict:
         problems.append(f"peak {peak} GiB of the card's {card}")
     if not (ce["loss_rel_err"] <= CHUNKED_CE_TOL and ce["grad_rel_err"] <= CHUNKED_CE_TOL):
         problems.append(f"chunked CE against compute_loss: {ce}")
+    drawn = sum(d is not None for _, d, _ in Llama(cfg, device="meta").init_plan(0))
+    if seeded["check"]["mismatches"] or not seeded["check"]["leaves"]:
+        problems.append(f"seeded init on the card differs from the CPU: {seeded['check']}")
+    if seeded["launches"] != drawn:
+        problems.append(f"{seeded['launches']} draw kernel launches, wanted one per drawn leaf "
+                        f"({drawn})")
+    if not seeded["kernel"]["bit_equal"]:
+        problems.append(f"the draw kernel differs from its plain version: {seeded['kernel']}")
     if problems:
         emit({"phase": "lora_7b", **res, "problems": problems})
         raise SystemExit("lora_7b phase failed: " + "; ".join(problems))
@@ -8490,6 +8915,8 @@ def main() -> int:
           **{k: v for k, v in serve8.items() if k not in hidden}})
     prefix = serve_prefix_phase(cli)
     emit({"phase": "serve_prefix", **{k: v for k, v in prefix.items() if k not in hidden}})
+    spec = serve_spec_phase(cli)
+    emit({"phase": "serve_spec", **spec})
     traffic = fleet_traffic()
     fleet_ref = {**fleet_reference(cli, traffic), "traffic": traffic}
     del cli
@@ -8551,6 +8978,11 @@ def main() -> int:
         "train_swap_launches": swap["launches"],
         # train_lora's folded model serving its greedy tokens.
         "train_lora_fold_launches": lora["fold"]["launches_by_route"],
+        # serve_spec's paged runs: the pool's and the self-draft's own.
+        "serve_spec_launches": {name: r["launches_by_route"]
+                                for name, r in spec["runs"].items() if "fixed" not in name},
+        "serve_spec_draft_launches": spec["runs"]["bf16_layers"]["draft_launches_by_route"],
+        "serve_spec_profiled": {name: r["kernels"] for name, r in spec["profiled"].items()},
         "prefill64_ms": pre["ms"], "prefill64_simt_ms": pre["simt_ms"],
         "prefill64_plain_ms": pre["plain_ms"], "prefill64_bound_ms": pre["bound_ms"],
         "prefill64_bound_by": pre["bound_by"], "prefill64_library_ms": pre["library_ms"],
@@ -8589,6 +9021,18 @@ def main() -> int:
             "train_lora_launches": lora["launches"][key],
             "lora_7b_launches": lora7["launches"][key],
         })
+    seed = lora7["init"]["kernel"]
+    kernels.append({
+        "name": "seed_init_draw", "route": "cuda", "source": SEED_SOURCE,
+        "replaces": SEED_REPLACES, "launches": lora7["init"]["launches"],
+        "max_abs_err": seed["max_abs_err"], "ms": seed["ms"], "plain_ms": seed["plain_ms"],
+        "bound_ms": seed["bound_ms"], "bound_by": seed["bound_by"], "library_ms": None,
+        # No Pallas kernel: model.init draws with XLA. The whole 7B's init
+        # beside the torch.Generator init it replaced, and the CPU's check.
+        "shape": seed["shape"], "init_s": lora7["init"]["seconds"],
+        "generator_init_s": lora7["init"]["generator_seconds"],
+        "checked_elements": lora7["init"]["check"]["elements"],
+    })
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -81,12 +81,32 @@ attended blocks), and keeps plain counters beside them: ``hit_blocks``,
 ``block_bytes_shipped``, ``migrations``, ``transfer_chosen``,
 ``recompute_chosen``; ``count`` adds to them, and to ``SERVE_METRICS``,
 from any thread).
-Options of the JAX pool that this port does not have yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
+**Speculative decoding** (``spec_ngram``, ``spec_layers``, ``draft_model``;
+reference ``:1340-1356``, ``:1468-1600``, ``:1700-1800``): before each
+chunk, a decoding lane may propose drafts, by prompt lookup over its own
+context (``spec_ngram``) or from a draft model (the first ``spec_layers``
+layers of the live served model, or an explicit ``draft_model`` loaded
+from ``draft_params``). A proposing lane rides the same ``[slots,
+prefill_chunk]`` forward as the prefilling lanes, with ``[last emitted] +
+draft`` in its first columns; the per-column greedy tokens confirm the
+draft's matching prefix and add one bonus token, so the stream equals
+plain greedy decode. One EWMA and cooldown per lane (``SpeculationState``)
+back a lane off to plain decode when its drafts keep missing. The draft
+model proposes through a one-lane paged KV cache of its own: one forward
+over the context tail, then one decode step per draft token.
+
+**Fixed-slot mode** (``block_size=0``, reference ``:1218-1276``): each
+admitted group is prefilled alone, left-padded into a power-of-two window
+(``_bucket``) over a power-of-two number of rows, and its rows are copied
+into a ``[slots, max_len]`` per-row cache that every decode chunk runs in
+full. Attention there is the plain ``dot_product_attention``, as the
+reference's is XLA's.
 """
 
 from __future__ import annotations
 
+import bisect
+import dataclasses
 import json
 import logging
 import queue
@@ -109,14 +129,6 @@ __all__ = ["DecodePool", "PoolBusy", "StaleBlockGeneration"]
 
 log = logging.getLogger("hypha.torch.executor.pool")
 
-# Pool options of the JAX package that wait for a later slice of the port.
-_NOT_PORTED = {
-    "spec_ngram": "speculative decoding",
-    "spec_draft": "speculative decoding",
-    "spec_layers": "speculative decoding",
-    "draft_model": "speculative decoding",
-    "draft_params": "speculative decoding",
-}
 # The fleet counts the JAX pool's worker keeps in its serving metrics.
 FLEET_STATS = ("remote_prefix_hits", "remote_prefix_misses", "blocks_shipped",
                "block_bytes_shipped", "migrations", "transfer_chosen", "recompute_chosen")
@@ -153,6 +165,41 @@ class _Group:
     t_submit: float = 0.0  # the request's latency starts here
 
 
+def _bucket(n: int, lo: int = 16) -> int:
+    """The fixed-slot prefill window: the power of two (>= ``lo``) that
+    holds ``n`` tokens."""
+    b = lo
+    while b < n:
+        b <<= 1
+    return b
+
+
+@dataclass
+class _Row:
+    """One prompt's row in the fixed-slot pool."""
+
+    group: _Group
+    lane: int  # which prompt of the group this row serves
+    budget: int
+    emitted: list = field(default_factory=list)
+    done: bool = False
+
+
+@dataclass
+class SpeculationState:
+    """One per-lane speculation record shared by both proposers (n-gram
+    and model draft): whichever proposed, the verify's accept count feeds
+    the same EWMA and cooldown, and a weight swap re-arms both
+    (:meth:`DecodePool._reset_spec_state`)."""
+
+    ctx: Any = None  # prompt + emitted, extended lazily
+    index: Any = None  # n-gram tuple -> ascending positions in ctx
+    indexed: int = 0
+    ewma: float = 0.0  # accepted drafts per verify, smoothed
+    cooldown: int = 0  # iterations to sit out after low accepts
+    primed: bool = False  # ewma initialized at the first proposal
+
+
 @dataclass
 class _PRow:
     """One prompt's state. ``prompt`` and ``emitted`` survive preemption;
@@ -173,6 +220,22 @@ class _PRow:
     # hash after them (block_cache.chain_hashes' recurrence).
     hashed: int = 0
     chain_h: int = 0
+    spec: SpeculationState = field(default_factory=SpeculationState)
+
+
+def _self_draft(model, layers: int):
+    """A model over the first ``layers`` blocks of ``model`` that shares its
+    modules: embeddings, those blocks, the final norm and the head are the
+    served model's own parameters, so a weight swap reaches the draft at
+    once."""
+    cfg = dataclasses.replace(model.config, num_layers=layers)
+    draft = type(model)(cfg, device="meta")
+    draft.embed_tokens = model.embed_tokens
+    draft.layers = torch.nn.ModuleList(list(model.layers)[:layers])
+    draft.norm = model.norm
+    if hasattr(model, "lm_head"):
+        draft.lm_head = model.lm_head
+    return draft
 
 
 class DecodePool:
@@ -200,66 +263,111 @@ class DecodePool:
         fleet_cache: bool = False,
         kv_migration: bool = False,
         digest_k: int = 32,
-        **not_ported: Any,
+        spec_ngram: int = 0,
+        spec_draft: int = 0,
+        spec_layers: int = 0,
+        draft_model: Any = None,
+        draft_params: Any = None,
     ) -> None:
-        for name, value in not_ported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"unexpected pool option {name!r}")
-            if (value is not None) if name.startswith("draft_") else value:
-                raise NotImplementedError(
-                    f"{name} is not ported yet: ROADMAP.md, Queue 1, "
-                    f"'{_NOT_PORTED[name]}'"
-                )
-        if block_size <= 0:
-            raise NotImplementedError(
-                "fixed-slot mode (block_size=0) is not ported yet: "
-                "ROADMAP.md, Queue 1, 'fixed-slot pool mode'"
-            )
         if not hasattr(model, "config") or not hasattr(model.config, "num_kv_heads"):
             raise ValueError(f"{type(model).__name__} has no per-row decode path")
+        self._paged = block_size > 0
+        if prefix_cache and not self._paged:
+            raise ValueError("prefix_cache requires paged mode (block_size > 0)")
+        if spec_ngram > 0 and not self._paged:
+            raise ValueError("speculative decoding requires paged mode (block_size > 0)")
+        if (ragged or kv_quant) and not self._paged:
+            raise ValueError("ragged / kv_quant require paged mode (block_size > 0)")
         if kv_quant not in ("", "int8"):
             raise ValueError(f"unknown kv_quant {kv_quant!r}")
-        if (fleet_cache or kv_migration) and not prefix_cache:
+        if (spec_layers > 0 or draft_model is not None) and not self._paged:
+            raise ValueError("model-draft speculation requires paged mode (block_size > 0)")
+        if spec_layers > 0 and draft_model is not None:
+            raise ValueError("spec_layers and draft_model are exclusive")
+        if (fleet_cache or kv_migration) and not (self._paged and prefix_cache):
             # Both trade in content-addressed blocks: without the chain-hash
             # registry there is nothing to ship or land on.
             raise ValueError("fleet_cache / kv_migration require paged mode with prefix_cache=True")
-        if max_len % block_size != 0:
-            raise ValueError(f"max_len {max_len} must be a multiple of block_size {block_size}")
-        if prefill_chunk <= 0:
-            prefill_chunk = min(max_len, 4 * block_size)
-        if max_len % prefill_chunk != 0:
-            raise ValueError(
-                f"max_len {max_len} must be a multiple of prefill_chunk {prefill_chunk}"
-            )
-        if prefill_chunk % block_size != 0:
-            # A non-multiple would map the prompt tail to the garbage block.
-            raise ValueError(
-                f"prefill_chunk {prefill_chunk} must be a multiple of block_size {block_size}"
-            )
-        if num_blocks <= 0:
-            num_blocks = slots * max_len // block_size
+        if draft_model is not None and draft_params is None:
+            raise ValueError("draft_model requires draft_params")
+        if spec_layers > 0:
+            n_layers = model.config.num_layers
+            if not 0 < spec_layers < n_layers:
+                raise ValueError(
+                    f"spec_layers {spec_layers} must be in (0, {n_layers}) for this model")
+        if self._paged:
+            if max_len % block_size != 0:
+                raise ValueError(f"max_len {max_len} must be a multiple of block_size {block_size}")
+            if prefill_chunk <= 0:
+                prefill_chunk = min(max_len, 4 * block_size)
+            if max_len % prefill_chunk != 0:
+                raise ValueError(
+                    f"max_len {max_len} must be a multiple of prefill_chunk {prefill_chunk}"
+                )
+            if prefill_chunk % block_size != 0:
+                # A non-multiple would map the prompt tail to the garbage block.
+                raise ValueError(
+                    f"prefill_chunk {prefill_chunk} must be a multiple of block_size {block_size}"
+                )
+            if num_blocks <= 0:
+                num_blocks = slots * max_len // block_size
         self._model = model
         self._device = model.device
         self.slots, self.max_len = slots, max_len
         self.steps_per_call = steps_per_call
         self.eos_token_id = eos_token_id
-        self.block_size, self.num_blocks = block_size, num_blocks
-        self.prefill_chunk = prefill_chunk
-        self.ragged, self.kv_quant = bool(ragged), kv_quant
+        self.block_size = block_size
+        self.num_blocks = num_blocks if self._paged else 0
+        self.prefill_chunk = prefill_chunk if self._paged else 0
+        self.ragged, self.kv_quant = bool(ragged) and self._paged, kv_quant if self._paged else ""
         self.prefix_cache = bool(prefix_cache)
-        self.reserve_blocks = slots if reserve_blocks < 0 else reserve_blocks
+        self.reserve_blocks = (slots if reserve_blocks < 0 else reserve_blocks) if self._paged else 0
         self.max_queue = max(int(max_queue), 0)
+        # Speculation: n-gram prompt lookup and/or a draft model, both
+        # verified by the prefill-chunk forward, whose width caps the
+        # drafts (the current token + drafts fill a lane's chunk).
+        self.spec_ngram = int(spec_ngram) if self._paged else 0
+        self.spec_layers = int(spec_layers) if self._paged else 0
+        if draft_model is not None:
+            from ..models.convert import llama_params_from_flat
+
+            llama_params_from_flat(draft_params, draft_model)
+            self._draft_model = draft_model.eval().requires_grad_(False)
+        elif self.spec_layers > 0:
+            self._draft_model = _self_draft(model, self.spec_layers)
+        else:
+            self._draft_model = None
+        self.spec_model = self._draft_model is not None
+        if self._paged:
+            cap = max(self.prefill_chunk - 1, 0)
+            self.spec_draft = min(spec_draft, cap) if spec_draft > 0 else cap
+        else:
+            self.spec_draft = 0
+        # The draft sees at most this many tokens: the context tail plus
+        # its own drafts (the reference's static [1, W] draft window).
+        self._draft_window = min(max_len, 64) if self._paged else 0
+        self._draft_cache: "KVCache | None" = None
+        self.spec_chunks = 0  # verify dispatches (the prefill-chunk forward)
         with torch.inference_mode():
-            self._cache = KVCache.for_model(
-                model, slots, max_len, per_row=True, blocks=num_blocks,
-                block_size=block_size, kv_quant=kv_quant, ragged=self.ragged,
-            )
-        self._alloc = PrefixBlockCache(num_blocks, block_size, caching=self.prefix_cache)
+            if self._paged:
+                self._cache = KVCache.for_model(
+                    model, slots, max_len, per_row=True, blocks=num_blocks,
+                    block_size=block_size, kv_quant=kv_quant, ragged=self.ragged,
+                )
+            else:
+                self._cache = KVCache.for_model(model, slots, max_len, per_row=True)
+            self._tok = torch.zeros((slots,), dtype=torch.int64, device=self._device)
+        # Fixed-slot bookkeeping: slot -> row, and the free slots.
+        self._rows: dict = {}
+        self._free = list(range(slots))
+        self._alloc = PrefixBlockCache(self.num_blocks, max(block_size, 1),
+                                       caching=self.prefix_cache)
         self._lane_rows: dict = {}
         self._free_lanes = list(range(slots))
-        self._h_idx = np.full((slots,), max_len, np.int32)
-        self._h_start = np.zeros((slots,), np.int32)
-        self._h_table = np.full((slots, max_len // block_size), num_blocks, np.int32)
+        if self._paged:
+            self._h_idx = np.full((slots,), max_len, np.int32)
+            self._h_start = np.zeros((slots,), np.int32)
+            self._h_table = np.full((slots, max_len // block_size), num_blocks, np.int32)
         # The digest is rebuilt by the serve thread each iteration and read
         # whole by the heartbeat; serve_chain / inject_chain run as ops on
         # the serve thread, which alone touches the allocator and cache.
@@ -291,8 +399,11 @@ class DecodePool:
         self.miss_blocks = 0
         self.cow_copies = 0
         # Host-clock totals of the dispatches, each ending in a host sync.
-        self.stats = {"prefill_s": 0.0, "prefill_tokens": 0,
-                      "decode_s": 0.0, "decode_tokens": 0, **dict.fromkeys(FLEET_STATS, 0)}
+        self.stats = {"prefill_s": 0.0, "prefill_tokens": 0, "decode_s": 0.0,
+                      "decode_tokens": 0, "decode_lane_steps": 0, "spec_s": 0.0,
+                      "spec_only_chunks": 0, "spec_lanes": 0, "spec_tokens": 0,
+                      "spec_proposed": 0, "spec_accepted": 0,
+                      **dict.fromkeys(FLEET_STATS, 0)}
         self._stats_lock = threading.Lock()
         # Live weight swap: staged by request_swap from any thread, applied
         # by the serve thread at the top of an iteration.
@@ -314,14 +425,16 @@ class DecodePool:
     # ---------------------------------------------------------- load stats
 
     def free_blocks(self) -> int:
-        return self._alloc.free_count()
+        """Admission headroom: allocatable KV blocks (paged) or free rows
+        (fixed-slot)."""
+        return self._alloc.free_count() if self._paged else len(self._free)
 
     def queue_depth(self) -> int:
         with self._submit_lock:
             return self._backlog
 
     def live_rows(self) -> int:
-        return len(self._lane_rows)
+        return len(self._rows) + len(self._lane_rows)
 
     def cached_count(self) -> int:
         """Blocks registered in the prefix cache."""
@@ -572,6 +685,7 @@ class DecodePool:
                     self.weight_round = prev_round
                     self.swaps_rolled_back += 1
                 self._alloc.bump_generation()
+                self._reset_spec_state()
                 SERVE_METRICS.swap_rolled_back.add(1)
                 SERVE_METRICS.weight_state(prev_round, self.weight_generation or 0)
                 self._log_swap("rolled back to", prev_round, self.weight_generation or 0, None,
@@ -596,12 +710,22 @@ class DecodePool:
         # Cached prefix blocks hold K/V of the old weights: no admission
         # from now on maps them (live lanes keep theirs until release).
         self._alloc.bump_generation()
+        self._reset_spec_state()
         SERVE_METRICS.swap_applied.add(1)
         SERVE_METRICS.swap_finished((time.perf_counter() - pend["staged_at"]) * 1000.0)
         SERVE_METRICS.weight_state(pend["round"], pend["generation"])
         FLIGHT.record("serve.weight_swap", round=pend["round"], generation=pend["generation"],
                       live_rows=len(self._lane_rows))
         self._log_swap("applied", pend["round"], pend["generation"], pend["staged_at"], t0)
+
+    def _reset_spec_state(self) -> None:
+        """Accept statistics were learned under the old weights: re-arm
+        every lane (both proposers share the record). The context and its
+        index stay: emitted tokens are facts."""
+        for r in self._lane_rows.values():
+            if r.spec.primed:
+                r.spec.ewma = float(self.spec_draft)
+            r.spec.cooldown = 0
 
     def _log_swap(self, what: str, round_num: int, generation: int, staged_at, t0: float) -> None:
         if self._device.type == "cuda":
@@ -623,6 +747,15 @@ class DecodePool:
         P = self.prefill_chunk
         return max(-(-max(n, 1) // P) * P, P)
 
+    def _fixed_reject(self, prompts: list, n_new: int) -> "str | None":
+        """Why the fixed-slot pool can never serve this request (None =
+        fits): the left-padded bucket and the new tokens fill a row."""
+        bucket = _bucket(max(len(p) for p in prompts))
+        if bucket + n_new > self.max_len:
+            return (f"prompt bucket {bucket} + {n_new} new tokens exceed the pool window "
+                    f"{self.max_len}")
+        return None
+
     def _paged_reject(self, prompts: list, n_new: int) -> "str | None":
         """Why the pool can never serve this request (None = fits). The
         window bound keeps ``prefill_chunk`` of slack for a resume prompt."""
@@ -642,7 +775,8 @@ class DecodePool:
     def fits(self, prompts: list, n_new: int) -> bool:
         if not prompts or any(not p for p in prompts) or len(prompts) > self.slots:
             return False
-        return self._paged_reject(prompts, n_new) is None
+        reject = self._paged_reject if self._paged else self._fixed_reject
+        return reject(prompts, n_new) is None
 
     def submit(self, prompts: list, n_new: int, traceparent: "str | None" = None) -> Future:
         """Queue ``prompts`` for greedy continuation, ``n_new`` tokens each.
@@ -655,7 +789,7 @@ class DecodePool:
         if len(prompts) > self.slots:
             fut.set_exception(ValueError(f"{len(prompts)} prompts exceed {self.slots} slots"))
             return fut
-        reason = self._paged_reject(prompts, n_new)
+        reason = (self._paged_reject if self._paged else self._fixed_reject)(prompts, n_new)
         if reason is not None:
             fut.set_exception(ValueError(reason))
             return fut
@@ -702,9 +836,10 @@ class DecodePool:
             if not g.fut.done():
                 g.fut.set_exception(exc)
         self._waiting.clear()
-        for r in self._lane_rows.values():
+        for r in [*self._rows.values(), *self._lane_rows.values()]:
             if not r.group.fut.done():
                 r.group.fut.set_exception(exc)
+        self._rows.clear()
         self._lane_rows.clear()
 
     # --------------------------------------------------------- serve loop
@@ -727,7 +862,7 @@ class DecodePool:
         """One serve-loop iteration; False once the pool stops. Waiting
         groups count as live work, so a preempted group is re-admitted
         without waiting for the next submit."""
-        live = bool(self._lane_rows) or bool(self._waiting)
+        live = bool(self._lane_rows) or bool(self._rows) or bool(self._waiting)
         stop = False
         try:
             item = self._queue.get(block=not live)
@@ -748,18 +883,149 @@ class DecodePool:
         # forward uses.
         self._apply_swap()
         self._drain_ops()
-        self._step_paged()
+        if self._paged:
+            self._step_paged()
+        else:
+            self._admit()
+            if self._rows:
+                self._run_chunk()
         return True
 
+    # ------------------------------------------------------ fixed-slot mode
+
+    def _admit(self) -> None:
+        """Move waiting groups into free rows, FIFO (a large request at the
+        head is not overtaken by later small ones)."""
+        while self._waiting and len(self._free) >= len(self._waiting[0].prompts):
+            group = self._waiting.pop(0)
+            with self._submit_lock:
+                self._backlog -= 1
+            self._admit_group(group)
+
+    def _admit_group(self, group: _Group) -> None:
+        """Prefill the group alone, left-padded into a ``_bucket`` window
+        over a power-of-two number of rows, then copy its rows into free
+        slots of the pool's cache."""
+        k = len(group.prompts)
+        L = _bucket(max(len(p) for p in group.prompts))
+        kb = 1
+        while kb < k:
+            kb <<= 1
+        padded = np.zeros((kb, L), np.int64)
+        start = np.full((kb,), L, np.int32)  # padding rows: an empty window
+        for i, p in enumerate(group.prompts):
+            padded[i, L - len(p):] = p
+            start[i] = L - len(p)
+        with trace.span("prefill", parent=group.traceparent, attrs={"rows": k, "window": L}):
+            new, first = self._prefill_fixed(kb, padded, start)
+        if group.trace_span is None:
+            group.trace_span = trace.begin("decode", parent=group.traceparent, attrs={"rows": k})
+        rows = [self._free.pop() for _ in range(k)]
+        self._admit_seq += 1
+        group.order = self._admit_seq
+        idx = torch.tensor(rows, dtype=torch.int64, device=self._device)
+        c = self._cache
+        for layer in range(len(c.k)):
+            c.k[layer][idx] = new.k[layer][:k]
+            c.v[layer][idx] = new.v[layer][:k]
+        c.idx[idx] = new.idx[:k]
+        c.start[idx] = new.start[:k]
+        self._tok[idx] = first[:k]
+        first_host = first[:k].cpu().numpy()
+        self.prefill_chunks += 1
+        SERVE_METRICS.admissions.add(1)
+        for lane, slot in enumerate(rows):
+            row = _Row(group, lane, group.n_new)
+            row.emitted.append(int(first_host[lane]))
+            self._rows[slot] = row
+            group.rows[lane] = slot
+        self._finish_done_rows()  # n_new == 1 completes at admission
+
+    def _prefill_fixed(self, kb: int, padded: np.ndarray, start: np.ndarray) -> tuple:
+        """One forward of ``padded`` [kb, L] into a fresh per-row cache of
+        the pool's window; returns (cache, first greedy token per row)."""
+        t0 = time.perf_counter()
+        cache = KVCache.for_model(self._model, kb, self.max_len, per_row=True)
+        cache.start.copy_(torch.from_numpy(start))
+        logits = self._model(torch.from_numpy(padded).to(self._device), cache)
+        first = logits[:, -1].argmax(dim=-1)
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        self.stats["prefill_tokens"] += int((padded.shape[1] - start).clip(0).sum())
+        return cache, first
+
+    def _run_chunk(self) -> None:
+        """``steps_per_call`` greedy steps over every slot, one host sync."""
+        t0 = time.perf_counter()
+        cur = self._tok
+        steps = []
+        for _ in range(self.steps_per_call):
+            cur = self._model(cur[:, None], self._cache)[:, -1].argmax(dim=-1)
+            steps.append(cur)
+        self._tok = cur
+        toks_host = torch.stack(steps).cpu().numpy()  # [K, slots]
+        self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["decode_lane_steps"] += self.steps_per_call * len(self._rows)
+        self.chunks += 1
+        for slot, row in list(self._rows.items()):
+            for t in toks_host[:, slot]:
+                if len(row.emitted) >= row.budget:
+                    break
+                row.emitted.append(int(t))
+                self.stats["decode_tokens"] += 1
+        self._finish_done_rows()
+
+    def _finish_done_rows(self) -> None:
+        for slot, row in list(self._rows.items()):
+            if not self._row_finished(row):
+                continue
+            del self._rows[slot]
+            self._free.append(slot)
+            group = row.group
+            group.rows[row.lane] = row
+            if all(isinstance(r, _Row) and r.done for r in group.rows.values()):
+                self._resolve_group(group)
+
+    def _resolve_group(self, group: _Group) -> None:
+        """Every row is done: record the latency and answer the caller (one
+        completion path for both modes)."""
+        trace.finish(group.trace_span)
+        group.trace_span = None
+        if group.fut.done():
+            return
+        if group.t_submit:
+            SERVE_METRICS.request_finished((time.monotonic() - group.t_submit) * 1e3)
+        rows = [group.rows[i] for i in range(len(group.prompts))]
+        group.fut.set_result([r.emitted for r in rows])
+
     def _step_paged(self) -> None:
-        """Admit what fits, advance chunked prefills, then one decode chunk
-        for the decoding lanes: prefill and decode interleave."""
+        """Admit what fits, advance chunked prefills and speculation
+        verifies (one shared forward), then one decode chunk for the other
+        decoding lanes: prefill and decode interleave."""
         self._admit_paged()
+        drafts: dict = {}
+        spec: list = []
+        speculating = self.spec_ngram > 0 or self.spec_model
+        if speculating:
+            for r in self._lane_rows.values():
+                if r.pos < r.window or r.done:
+                    continue
+                d = self._propose(r)
+                # None: no proposal (decode chunk); []: a zero-draft verify
+                # at the budget edge (see _propose).
+                if d is not None:
+                    spec.append(r)
+                    drafts[id(r)] = d
         pre = [r for r in self._lane_rows.values() if r.pos < r.window]
-        if pre:
-            self._run_prefill_chunk(pre)
+        if pre or spec:
+            self._run_prefill_chunk(pre, spec, drafts)
             self._finish_paged()
-        dec = [r for r in self._lane_rows.values() if r.pos >= r.window and not r.done]
+        held = {id(r) for r in spec}
+        if speculating:
+            # A lane that finished prefill in this step has not been offered
+            # a proposal yet: its first generated step may be a verify.
+            held |= {id(r) for r in pre}
+        dec = [r for r in self._lane_rows.values()
+               if r.pos >= r.window and not r.done and id(r) not in held]
         if dec:
             self._run_decode_chunk(dec)
             self._finish_paged()
@@ -831,6 +1097,111 @@ class DecodePool:
                 self._h_table[r.slot, : len(r.blocks)] = r.blocks
             SERVE_METRICS.admissions.add(1)
 
+    # ---------------------------------------------------------- speculation
+
+    def _propose(self, r: _PRow) -> "list | None":
+        """Drafts for one verify, or None for a plain decode chunk. The
+        n-gram proposer runs first, the model draft backs it up; both sit
+        behind one cooldown and EWMA (``r.spec``). A verify emits its
+        drafts and one bonus token, so drafts cap one short of the
+        remaining budget; at one remaining token the last token ships as a
+        zero-draft verify (``[]``), which bypasses the gate and the EWMA."""
+        remaining = r.budget - len(r.emitted)
+        cap = min(self.spec_draft, remaining - 1)
+        if remaining == 1 and self.spec_draft > 0:
+            return []
+        if cap <= 0:
+            return None
+        if r.spec.cooldown > 0:
+            r.spec.cooldown -= 1
+            return None
+        if not r.spec.primed:
+            r.spec.primed = True
+            r.spec.ewma = float(self.spec_draft)  # start optimistic
+        d = self._propose_ngram(r, cap) if self.spec_ngram > 0 else None
+        if d is None and self.spec_model:
+            d = self._propose_model(r, cap)
+        return d
+
+    def _propose_ngram(self, r: _PRow, cap: int) -> "list | None":
+        """Prompt lookup: the tokens that followed an earlier occurrence of
+        the context's last ``spec_ngram`` tokens; the nearest occurrence
+        with a full draft window after it, else the leftmost."""
+        n = self.spec_ngram
+        ctx = self._spec_ctx(r)
+        if len(ctx) <= n:
+            return None
+        # Interior positions only: the tail must not match itself.
+        for i in range(r.spec.indexed, len(ctx) - n):
+            r.spec.index.setdefault(tuple(ctx[i : i + n]), []).append(i)
+        r.spec.indexed = max(r.spec.indexed, len(ctx) - n)
+        positions = r.spec.index.get(tuple(ctx[-n:]))
+        if not positions:
+            return None
+        k = bisect.bisect_right(positions, len(ctx) - n - cap) - 1
+        best = positions[k] if k >= 0 else positions[0]
+        return ctx[best + n : best + n + cap] or None
+
+    def _spec_ctx(self, r: _PRow) -> list:
+        """The lane's context (prompt + emitted), extended incrementally;
+        both proposers read it."""
+        if r.spec.ctx is None:
+            r.spec.ctx = list(r.prompt)
+            r.spec.index = {}
+            r.spec.indexed = 0
+        base = len(r.prompt)
+        if len(r.spec.ctx) - base < len(r.emitted):
+            r.spec.ctx.extend(r.emitted[len(r.spec.ctx) - base :])
+        return r.spec.ctx
+
+    def _draft_kv(self) -> KVCache:
+        """The draft's one-lane paged cache: the draft window plus a
+        prefill pad, in blocks of the pool's size (table = identity)."""
+        if self._draft_cache is None:
+            bs = self.block_size
+            length = -(-(self._draft_window + 16) // bs) * bs
+            blocks = length // bs
+            self._draft_cache = KVCache.for_model(
+                self._draft_model, 1, length, per_row=True, blocks=blocks, block_size=bs,
+                ragged=self.ragged,
+            )
+            self._draft_cache.table.copy_(torch.arange(blocks, dtype=torch.int32)[None])
+        return self._draft_cache
+
+    def _draft_forward(self, context: list, cap: int) -> list:
+        """``cap`` greedy draft tokens after ``context``: one forward over the
+        context (padded to a multiple of 16 columns; causal attention keeps
+        the pad out of every column that is read), then one decode step per
+        further token, all before one host sync. Positions restart at 0,
+        as the reference's cache-less draft window does."""
+        cache = self._draft_kv()
+        L = len(context)
+        S = max(-(-L // 16) * 16, 16)
+        toks = torch.zeros((1, S), dtype=torch.int64)
+        toks[0, :L] = torch.tensor(context, dtype=torch.int64)
+        cache.idx.zero_()
+        logits = self._draft_model(toks.to(self._device), cache)
+        cur = logits[:, L - 1].argmax(dim=-1)
+        out = [cur]
+        cache.idx.fill_(L)
+        for _ in range(cap - 1):
+            cur = self._draft_model(cur[:, None], cache)[:, -1].argmax(dim=-1)
+            out.append(cur)
+        return [int(t) for t in torch.cat(out).cpu()]
+
+    def _propose_model(self, r: _PRow, cap: int) -> "list | None":
+        """Model draft: ``cap`` tokens grown greedily from the context's
+        tail, at most the draft window in all. What the draft saw only
+        moves the accept rate; every emitted token comes from the verify."""
+        W = self._draft_window
+        cap = min(cap, W - 1)
+        if cap <= 0:
+            return None
+        ctx = self._spec_ctx(r)
+        L = max(min(len(ctx), W - cap), 1)
+        with torch.inference_mode():  # the serve thread's mode, for any caller
+            return self._draft_forward(ctx[-L:], cap) or None
+
     def _push_rowvars(self) -> None:
         """Write the host row variables into the cache tensors in place."""
         c = self._cache
@@ -838,22 +1209,40 @@ class DecodePool:
         c.start.copy_(torch.from_numpy(self._h_start))
         c.table.copy_(torch.from_numpy(self._h_table))
 
-    def _run_prefill_chunk(self, pre: list) -> None:
-        """One [slots, prefill_chunk] forward over every prefilling lane."""
+    def _run_prefill_chunk(self, pre: list, spec: list = (), drafts: "dict | None" = None) -> None:
+        """One [slots, prefill_chunk] forward serving chunked prefills and
+        speculation verifies: a prefilling lane takes its next window slice,
+        a speculating lane ``[last emitted] + draft`` in its first columns,
+        and accepts the greedy-matched prefix of its draft plus one bonus
+        token from the per-column argmax."""
         P = self.prefill_chunk
-        # Copy-on-write first: a copy target can preempt a group in ``pre``.
+        # Growth and copy-on-write first: either can preempt a group that
+        # is in these very lists.
+        for r in list(spec):
+            if r.slot < 0 or r.done:
+                continue
+            d = drafts[id(r)]
+            ok = self._grow(r, target=r.pos + 1 + len(d))
+            ok = ok and self._cow_for_write(r, r.pos, 1 + len(d))
+            if not ok:
+                self._fail_group(r.group, RuntimeError("paged pool exhausted"))
         for r in list(pre):
             if r.slot < 0 or r.done:
                 continue
             if not self._cow_for_write(r, r.pos, P):
                 self._fail_group(r.group, RuntimeError("paged pool exhausted"))
         pre = [r for r in pre if r.slot >= 0 and not r.done]
-        if not pre:
+        spec = [r for r in spec if r.slot >= 0 and not r.done]
+        if not pre and not spec:
             return
         toks = np.zeros((self.slots, P), np.int64)
         self._h_idx[:] = self.max_len  # park every lane in the garbage block
         for r in pre:
             toks[r.slot] = r.win_tokens[r.pos : r.pos + P]
+            self._h_idx[r.slot] = r.pos
+        for r in spec:
+            x = [r.emitted[-1]] + drafts[id(r)]
+            toks[r.slot, : len(x)] = x
             self._h_idx[r.slot] = r.pos
         # One ``prefill`` span per group the chunk serves, each in its
         # request's trace (the reference files one per chunk, under its
@@ -861,10 +1250,11 @@ class DecodePool:
         spans = []
         if trace.active() is not None:
             by_group: dict = {}
-            for r in pre:
+            for r in pre + spec:
                 by_group.setdefault(id(r.group), [r.group, 0])[1] += 1
             spans = [trace.begin("prefill", parent=g.traceparent,
-                                 attrs={"rows": n, "chunk": P, "chunk_rows": len(pre)})
+                                 attrs={"rows": n, "chunk": P, "chunk_rows": len(pre) + len(spec),
+                                        "spec_rows": len(spec)})
                      for g, n in by_group.values()]
         t0 = time.perf_counter()
         self._push_rowvars()
@@ -873,13 +1263,21 @@ class DecodePool:
         dt = time.perf_counter() - t0  # ends in the host sync: device time included
         for span in spans:
             trace.finish(span)
-        self.stats["prefill_s"] += dt
-        if dt > 0:
-            # The recompute side of the transfer-vs-recompute policy.
-            rate = P * len(pre) / dt
-            self._prefill_rate = rate if self._prefill_rate == 0 else (
-                0.7 * self._prefill_rate + 0.3 * rate)
-        self.prefill_chunks += 1
+        if pre:
+            self.prefill_chunks += 1
+            self.stats["prefill_s"] += dt
+            if dt > 0:
+                # The recompute side of the transfer-vs-recompute policy;
+                # verifies share the forward but not a resume's shape.
+                rate = P * len(pre) / dt
+                self._prefill_rate = rate if self._prefill_rate == 0 else (
+                    0.7 * self._prefill_rate + 0.3 * rate)
+        if spec:
+            self.spec_chunks += 1
+            self.stats["spec_lanes"] += len(spec)
+            if not pre:  # a verify alone: its own time
+                self.stats["spec_s"] += dt
+                self.stats["spec_only_chunks"] += 1
         for r in pre:
             base = r.pos
             r.pos = min(r.pos + P, r.window)
@@ -889,12 +1287,41 @@ class DecodePool:
                 # generated token, exactly the monolithic prefill's.
                 r.emitted.append(int(nxt_host[r.slot, r.window - 1 - base]))
             self._register_lane(r)
+        for r in spec:
+            d = drafts[id(r)]
+            row = nxt_host[r.slot]
+            a = 0
+            while a < len(d) and int(row[a]) == d[a]:
+                a += 1
+            # d[:a] is confirmed; row[a] is the model's token after it, the
+            # bonus that guarantees progress. Greedy decode's stream.
+            got = d[:a] + [int(row[a])]
+            kept = got[: r.budget - len(r.emitted)]
+            r.emitted.extend(kept)
+            self.stats["spec_tokens"] += len(kept)
+            r.pos += a + 1
+            if d:
+                self.stats["spec_proposed"] += len(d)
+                self.stats["spec_accepted"] += a
+                SERVE_METRICS.spec_proposed.add(len(d))
+                SERVE_METRICS.spec_accepted.add(a)
+                # A verify averaging under one accepted draft loses to a
+                # decode chunk: the lane sits out 8 iterations, then
+                # retries optimistic. A zero-draft verify counts neither way.
+                r.spec.ewma = 0.5 * r.spec.ewma + 0.5 * a
+                if r.spec.ewma < 1.0:
+                    r.spec.cooldown = 8
+                    r.spec.ewma = float(self.spec_draft)
+            self._register_lane(r)
 
-    def _grow(self, r: _PRow) -> bool:
-        """Allocate the blocks the next decode chunk writes for ``r``,
-        preempting the youngest other group when the pool is dry."""
-        remaining = max(r.budget - len(r.emitted), 0)
-        need = -(-(r.pos + min(self.steps_per_call, remaining)) // self.block_size)
+    def _grow(self, r: _PRow, target: "int | None" = None) -> bool:
+        """Allocate the blocks the next decode chunk (or, up to ``target``,
+        a verify) writes for ``r``, preempting the youngest other group
+        when the pool is dry."""
+        if target is None:
+            remaining = max(r.budget - len(r.emitted), 0)
+            target = r.pos + min(self.steps_per_call, remaining)
+        need = -(-target // self.block_size)
         while len(r.blocks) < need:
             b = self._alloc.alloc()
             if b is None:
@@ -1104,6 +1531,7 @@ class DecodePool:
             steps.append(cur)
         toks_host = torch.stack(steps).cpu().numpy()  # [K, slots]: the one sync
         self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["decode_lane_steps"] += K * len(live)
         self.chunks += 1
         # The decode's occupancy: the ragged kernel visits exactly the
         # allocated blocks; a dense gather would pay every lane's window.
@@ -1148,9 +1576,5 @@ class DecodePool:
             # _row_finished's EOS padding rewrote ``emitted``.
             self._release_lane(r, register=False)
             group = r.group
-            if all(pr.done for pr in group.rows.values()) and not group.fut.done():
-                trace.finish(group.trace_span)
-                group.trace_span = None
-                if group.t_submit:
-                    SERVE_METRICS.request_finished((time.monotonic() - group.t_submit) * 1e3)
-                group.fut.set_result([group.rows[i].emitted for i in range(len(group.prompts))])
+            if all(pr.done for pr in group.rows.values()):
+                self._resolve_group(group)

@@ -331,35 +331,79 @@ class Llama(nn.Module):
     def device(self) -> torch.device:
         return self.embed_tokens.device
 
+    def init_plan(self, seed: int) -> list:
+        """How :meth:`init_weights` draws each parameter, in the reference's
+        terms: ``(name, draw, transposed)`` where ``draw`` is None for a
+        constant (norms 1, or 0 in Gemma's offset form; biases and LoRA
+        ``B`` 0) or ``(key, kind, mul)`` for a seeded draw of the flax
+        parameter's flat elements, and ``transposed`` says the torch layout
+        is the transpose of flax's ``[in, out]`` kernel. The key is flax's:
+        the scope path of the parameter and its count in that scope
+        (``hypha_tpu/models/llama.py``: embeddings and head at the root,
+        ``nn.Dense`` kernels in their own scope, LoRA ``A`` in ``self_attn``
+        counted in declaration order)."""
+        from . import seed_init as si
+
+        cfg = self.config
+        plan = []
+        root_count = {"embed_tokens": 1, "lm_head": 2}
+        attn_order = []  # self_attn's own parameters, in the reference's order
+        for proj in ("q_proj", "k_proj", "v_proj"):
+            if cfg.lora_rank > 0 and proj in cfg.lora_targets:
+                attn_order += [f"{proj}_lora_a", f"{proj}_lora_b"]
+        if cfg.qk_norm:
+            attn_order += ["q_norm", "k_norm"]
+        if cfg.lora_rank > 0 and "o_proj" in cfg.lora_targets:
+            attn_order += ["o_proj_lora_a", "o_proj_lora_b"]
+        for name, leaf in self.named_parameters():
+            parts = name.split(".")
+            if name in root_count:
+                plan.append((name, ((), root_count[name], "normal", 0.02), False))
+            elif parts[-1] == "weight" and parts[-2].endswith("proj"):
+                # layers.{i}.{self_attn|mlp}.{x}_proj.weight: an nn.Dense
+                # kernel, lecun_normal over fan_in = the torch weight's columns.
+                scope = (f"layers_{parts[1]}", parts[2], parts[3])
+                mul = si.lecun_scale(leaf.shape[1])
+                plan.append((name, (scope, 1, "truncated_normal", mul), True))
+            elif parts[-1].endswith("_lora_a"):
+                scope = (f"layers_{parts[1]}", parts[2])
+                plan.append((name, (scope, attn_order.index(parts[-1]) + 1, "normal", 0.02),
+                             False))
+            else:  # biases, LoRA B, norms: constants
+                plan.append((name, None, False))
+        root = si.key(seed)
+        return [
+            (name, None if d is None else (si.param_key(root, d[0], d[1]), d[2], d[3]), t)
+            for name, d, t in plan
+        ]
+
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "Llama":
-        """Seeded init with the reference's distributions (embeddings, head
-        and LoRA ``A`` normal(0.02); projections flax's lecun_normal, a
-        normal of variance 1/fan_in truncated at two standard deviations;
-        biases and LoRA ``B`` 0; norms 1, or 0 for Gemma's offset form).
-        The draws come from a ``torch.Generator`` and differ from JAX's."""
-        g = torch.Generator(device=self.device).manual_seed(int(seed))
-        for name, leaf in self.named_parameters():
-            # Drawn in f32 whatever the parameter's dtype, then rounded into
-            # it: a bf16 model gets the bits of an f32 init cast to bf16.
-            p = leaf if leaf.dtype == torch.float32 else torch.empty(
-                leaf.shape, dtype=torch.float32, device=leaf.device)
-            if name in ("embed_tokens", "lm_head") or name.endswith("_lora_a"):
-                p.normal_(0.0, 0.02, generator=g)
-            elif name.endswith("_lora_b"):
-                p.zero_()
-            elif name.endswith("proj.weight"):
-                # lecun_normal: std of the truncated draw is sqrt(1/fan_in).
-                std = (1.0 / p.shape[1]) ** 0.5 / 0.8796256610342398
-                nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=g)
-            elif name.endswith("proj.bias"):
-                p.zero_()
-            elif name.endswith("norm.weight"):
-                p.fill_(0.0 if self.config.rms_offset else 1.0)
-            else:  # Qwen3 q_norm / k_norm
-                p.fill_(1.0)
-            if p is not leaf:
-                leaf.copy_(p)
+        """Seeded init bit-equal to the JAX package's
+        ``model.init(jax.random.key(seed), ...)`` (``models/seed_init.py``):
+        embeddings, head and LoRA ``A`` normal(0.02), projections flax's
+        lecun_normal (a normal truncated at two standard deviations, scaled
+        to variance 1/fan_in), biases and LoRA ``B`` 0, norms 1 (0 in
+        Gemma's offset form). Each draw is made in f32 on the parameter's
+        device and rounded into the parameter's dtype."""
+        from . import seed_init as si
+
+        params = dict(self.named_parameters())
+        for name, d, transposed in self.init_plan(int(seed)):
+            leaf = params[name]
+            if d is None:
+                if name.endswith("norm.weight") and self.config.rms_offset:
+                    leaf.zero_()
+                elif name.endswith("norm.weight") or name.endswith(("q_norm", "k_norm")):
+                    leaf.fill_(1.0)
+                else:
+                    leaf.zero_()
+                continue
+            k, kind, mul = d
+            shape = tuple(reversed(leaf.shape)) if transposed else tuple(leaf.shape)
+            buf = torch.empty(shape, dtype=torch.float32, device=leaf.device)
+            si.draw(k, kind, buf, mul=mul)
+            leaf.copy_(buf.t() if transposed else buf)
         return self
 
     def _rope_table(self, length: int, device) -> tuple:

@@ -600,17 +600,7 @@ class JobSection:
         self._validate_reference()
         if self.worker_tpu > 0:
             raise ConfigError("job.worker_tpu: " + _GPU_ONLY.format(gpu_key="job.worker_gpu"))
-        for name, value, label in (
-            ("serve_spec_ngram", self.serve_spec_ngram, "speculative decoding"),
-            ("serve_spec_draft", self.serve_spec_draft, "speculative decoding"),
-            ("serve_spec_layers", self.serve_spec_layers, "speculative decoding"),
-        ):
-            if value:
-                _refuse(f"job.{name}", label)
-        if self.kind == "serve":
-            if self.serve_block_size == 0:
-                _refuse("job.serve_block_size = 0", "fixed-slot pool mode")
-        else:
+        if self.kind != "serve":
             # DiLoCoJob accepts each option outside the port's
             # single-PS path only at its off value and names
             # its label otherwise: build it now, so a bad file fails here.

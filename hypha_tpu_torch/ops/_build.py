@@ -30,7 +30,7 @@ __all__ = ["build", "load_library", "BUILD_DIR", "SOURCES"]
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("ragged_paged_attention.cu", "flash_attention.cu")
+SOURCES = ("ragged_paged_attention.cu", "flash_attention.cu", "seed_init.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -110,6 +110,11 @@ def _bind(lib: ctypes.CDLL, source: str) -> ctypes.CDLL:
             "flash_attention_backward_dkv": [vp] * 8 + [i] * 6 + tail,
         }
         error = lib.flash_attention_error
+    elif source == "seed_init.cu":
+        # out, start, n, k1, k2, lo, span, clip, clip_lo, clip_hi, mul, stream
+        ll, u = ctypes.c_longlong, ctypes.c_uint
+        entry = {"seed_init_draw": [vp, ll, ll, u, u, f, f, i, f, f, f, vp]}
+        error = lib.seed_init_error
     else:
         raise KeyError(f"no C interface is declared for {source}")
     for name, argtypes in entry.items():

@@ -1684,6 +1684,9 @@ def test_weight_swap_on_the_card_is_bit_equal_to_the_cpu_fold(cuda):
         pool.pin_round(None)
         _wait_round(pool, 4)
         got = _cpu_leaves(model)
+        deadline = time.monotonic() + 60  # the flip is logged after the round is published
+        while len(pool.swap_log) < 4 and time.monotonic() < deadline:
+            time.sleep(0.01)
         digest = pool.swap_log[-1]["digest"]
     finally:
         pool.close()
@@ -1704,11 +1707,22 @@ def test_weight_swap_on_the_card_is_bit_equal_to_the_cpu_fold(cuda):
     assert digest == theta_checksum({n: want[pname] for n, (pname, _) in names.items()})
 
 
+# Where a bf16 greedy stream of the ragged kernel parts from the plain
+# version's: the top two logits lie within this share of the top one, two
+# to four units in the last place of bf16's 8 significant bits.
+BF16_NEAR_TIE = 2.0 ** -6
+
+
 def test_weight_swap_under_decode_traffic_serves_the_folded_model(cuda):
     """Requests decode through the ragged kernel while a round flips: none
     fails or comes back short, and after the flip the pool's greedy tokens
     (the ragged kernel's decode and mma routes) equal ``generate`` on the
-    CPU-folded weights."""
+    CPU-folded weights, which attends through the plain version. The two
+    round bf16 otherwise, so the streams may part at a near-tie only: there
+    the two tokens are the full forward's top two, within
+    ``BF16_NEAR_TIE`` of the top logit. (Seed 4's probe has one at its
+    second token: 221 over 145 by 0.0079 at 1.97 on the CPU, one bf16 unit
+    in the last place.)"""
     from hypha_tpu_torch.executor.generate import generate
     from hypha_tpu_torch.executor.pool import DecodePool
     from hypha_tpu_torch.models.convert import flat_names
@@ -1737,7 +1751,14 @@ def test_weight_swap_under_decode_traffic_serves_the_folded_model(cuda):
     assert launches[0] > 0 and launches[1] > 0, launches
     with torch.inference_mode():
         want = generate(folded, [probe], 24).tolist()
-    assert got == want
+    if got != want:
+        i = next(j for j, (a, b) in enumerate(zip(got[0], want[0])) if a != b)
+        with torch.inference_mode():
+            ids = torch.tensor([probe + want[0][:i]], device="cuda")
+            top = folded(ids)[0, -1].float().topk(2)
+        gap = float(top.values[0] - top.values[1])
+        assert sorted(top.indices.tolist()) == sorted([got[0][i], want[0][i]]), (i, got, want)
+        assert gap <= BF16_NEAR_TIE * abs(float(top.values[0])), (i, gap, got, want)
     assert pool._alloc.generation == 1 and pool.swaps_applied == 1
 
 
@@ -2064,3 +2085,80 @@ def test_pipelined_trainer_on_the_card_equals_the_sync_trainer(cuda, tmp_path):
         assert len(got) == 6
         for a, b in zip(got, want):
             assert torch.equal(a, b["input_ids"])
+
+
+def test_seeded_init_on_the_card_is_bit_equal_to_the_cpu(cuda):
+    """A 2-layer Llama at 7B widths (with LoRA adapters), seeded on the card
+    through the draw kernel: every drawn leaf bit-equal to the CPU's draws
+    of the same flat elements (the JAX layout), over index ranges at both
+    ends and in the middle; one kernel launch per drawn leaf."""
+    from hypha_tpu_torch.models import Llama, LlamaConfig, seed_init
+
+    cfg = LlamaConfig(num_layers=2, lora_rank=16, lora_targets=("q_proj", "v_proj"))
+    model = Llama(cfg, device="cuda")
+    seed_init.seed_launches["draw"] = 0
+    model.init_weights(5)
+    plan = model.init_plan(5)
+    assert seed_init.seed_launches["draw"] == sum(d is not None for _, d, _ in plan)
+    params = dict(model.named_parameters())
+    for name, d, transposed in plan:
+        leaf = params[name].detach()
+        if d is None:
+            assert not leaf.isnan().any(), name
+            continue
+        k, kind, mul = d
+        flat = (leaf.t() if transposed else leaf).reshape(-1)
+        n = flat.numel()
+        for a, b in [(0, 4096), (n // 2 - 777, n // 2 + 1234), (n - 4096, n)]:
+            want = seed_init.draw_plain(k, kind, a, b, mul=mul)
+            assert torch.equal(flat[a:b].cpu().view(torch.int32), want.view(torch.int32)), \
+                (name, a, b)
+
+
+def test_draw_kernel_equals_its_plain_version_on_the_card(cuda):
+    """The kernel and the plain torch ops on CUDA tensors, bit for bit, for
+    both draws and an offset range; the kernel's count moves only on the
+    card."""
+    from hypha_tpu_torch.models import seed_init
+
+    k = seed_init.fold_in(seed_init.key(3), 99)
+    for kind, mul in (("normal", 0.02), ("truncated_normal", float(seed_init.lecun_scale(4096)))):
+        out = torch.empty(1 << 20, device="cuda")
+        before = seed_init.seed_launches["draw"]
+        seed_init.draw(k, kind, out, 12345, mul=mul)
+        assert seed_init.seed_launches["draw"] == before + 1
+        plain = seed_init.draw_plain(k, kind, 12345, 12345 + (1 << 20), mul=mul, device="cuda")
+        assert torch.equal(out.view(torch.int32), plain.view(torch.int32)), kind
+
+
+def test_spec_ngram_pool_verifies_on_the_mma_route(cuda):
+    """A bf16 ``spec_ngram`` pool over a tiny 4-head model (head_dim 64) on
+    prompts of repeated segments: every request completes with its count,
+    drafts are accepted, and the verify chunks ([slots, 64]) launch on the
+    mma route, never on simt; a self-draft's decode steps take the decode
+    route."""
+    from hypha_tpu_torch.executor.pool import DecodePool
+    from hypha_tpu_torch.models import Llama, LlamaConfig
+    from hypha_tpu_torch.ops.paged_attention import ragged_paged_attention
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=512, dtype="bfloat16")
+    model = Llama(cfg, device="cuda").init_weights(0).to(torch.bfloat16).requires_grad_(False)
+    prompts = [[5, 9, 2, 7] * 6 + [3], [11, 12, 13] * 8, [40, 41, 42, 43, 44] * 5]
+    for kw in (dict(spec_ngram=3), dict(spec_layers=1, spec_draft=7)):
+        for r in ("decode", "mma", "simt"):
+            setattr(ragged_paged_attention, f"{r}_launches", 0)
+        pool = DecodePool(model, slots=4, max_len=512, steps_per_call=4, block_size=16,
+                          prefill_chunk=64, ragged=True, **kw)
+        try:
+            got = [f.result(timeout=120)[0] for f in [pool.submit([p], 40) for p in prompts]]
+        finally:
+            pool.close()
+        assert [len(g) for g in got] == [40] * 3
+        assert pool.spec_chunks > 0, kw
+        assert ragged_paged_attention.simt_launches == 0, kw
+        assert ragged_paged_attention.mma_launches >= cfg.num_layers * pool.spec_chunks, kw
+        if "spec_ngram" in kw:
+            assert pool.stats["spec_accepted"] > 0
+        else:
+            assert ragged_paged_attention.decode_launches > 0

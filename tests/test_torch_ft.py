@@ -25,8 +25,9 @@ fault-tolerant job on the CPU.
    server killed in round 3 and restarted under its peer id from its
    journal, the trainers' checkpoints.
 6. A JAX and a torch worker share an elastic, checkpointed blocking job
-   (θ₀ from a ``source`` file) under either package's scheduler, with the
-   other package's parameter server.
+   (θ₀ from a ``source`` file, or drawn by each trainer from the job's
+   seed) under either package's scheduler, with the other package's
+   parameter server.
 7. The bridge client's ``receive`` ends its stream when its block ends (a
    stream left open kept catching the next round's broadcast: the rejoin
    path lost every update after its catch-up).
@@ -496,14 +497,15 @@ def test_orchestrated_kill_worker_and_kill_ps_on_the_cpu(monkeypatch):
 # ------------------------------------------- a mixed JAX/torch elastic job
 
 
-def _mixed_ft_job(pkg: str, weights: Path, ckpt: Path):
+def _mixed_ft_job(pkg: str, weights: "Path | None", ckpt: Path):
     from hypha_tpu.scheduler import job_config as jjob
     from hypha_tpu_torch.scheduler import job_config as tjob
 
     m, job, ft = (jmsg, jjob, jm) if pkg == "jax" else (tmsg, tjob, tm)
     model = {"model_type": "causal-lm", "family": "llama", "preset": "tiny",
-             "config": {"dtype": "float32"},
-             "source": m.to_json_dict(m.Fetch(m.Reference.from_uri(weights.as_uri())))}
+             "config": {"dtype": "float32"}, "seed": 7}
+    if weights is not None:
+        model["source"] = m.to_json_dict(m.Fetch(m.Reference.from_uri(weights.as_uri())))
     res = (jmsg if pkg == "jax" else tmsg)
     from hypha_tpu.resources import Resources as JRes
     from hypha_tpu_torch.resources import Resources as TRes
@@ -522,13 +524,17 @@ def _mixed_ft_job(pkg: str, weights: Path, ckpt: Path):
         checkpoint_dir=str(ckpt))
 
 
-@pytest.mark.parametrize("scheduler", ["jax", "port"])
-def test_mixed_workers_run_an_elastic_job(tmp_path, scheduler):
+@pytest.mark.parametrize("scheduler", ["jax", "port", "port-seeded"])
+def test_mixed_workers_run_an_elastic_job(tmp_path, scheduler, monkeypatch):
     """A JAX and a torch worker under ``scheduler``'s orchestrator, gateway
     and data node, the parameter server the other package's (so the
     membership and the durable journal cross packages): every round
     closes with both workers' deltas, every membership snapshot the server
-    adopted came from the scheduler, and both trainers checkpoint."""
+    adopted came from the scheduler, and both trainers checkpoint.
+    ``port-seeded`` ships no ``source``: each trainer draws θ₀ from the
+    job's seed (``models/seed_init.py`` in the port), and the two draws
+    are bit-equal, so a torch rejoiner's θ₀ + Σ is the job's (before, the
+    port drew another θ₀)."""
     from hypha_tpu.data_node import DataNode as JDataNode
     from hypha_tpu.gateway import Gateway as JGateway
     from hypha_tpu.network import Node as JNode
@@ -558,7 +564,9 @@ def test_mixed_workers_run_an_elastic_job(tmp_path, scheduler):
         save_file({"input_ids": ((starts + np.arange(16)) % 256).astype(np.int32)},
                   str(data_dir / f"slice_{i:04d}.safetensors"))
     ckpt = tmp_path / "ckpt"
-    job = _mixed_ft_job(scheduler, weights, ckpt)
+    seeded = scheduler == "port-seeded"
+    scheduler = "port" if seeded else scheduler
+    job = _mixed_ft_job(scheduler, None if seeded else weights, ckpt)
     listen = ["127.0.0.1:0"]
     short = Path(tempfile.mkdtemp(prefix="tmx"))  # a bridge socket path stays under 108 bytes
 
@@ -599,6 +607,27 @@ def test_mixed_workers_run_an_elastic_job(tmp_path, scheduler):
                 await part.stop()
             await gw.stop()
 
+    theta0 = {"jax": [], "torch": []}  # each trainer's θ₀, as flat f32 arrays
+    if seeded:
+        from hypha_tpu.models import llama as jllama
+        from hypha_tpu_torch.models import llama as tllama
+        from hypha_tpu_torch.models.convert import llama_params_to_flat
+
+        j_init, t_init = jllama.Llama.init, tllama.Llama.init_weights
+
+        def record_jax(self, *a, **kw):
+            out = j_init(self, *a, **kw)
+            theta0["jax"].append({k: np.asarray(v) for k, v in flatten_tree(out).items()})
+            return out
+
+        def record_torch(self, seed=0):
+            out = t_init(self, seed)
+            # A copy: on the CPU the flat arrays alias the trained parameters.
+            theta0["torch"].append({k: v.copy() for k, v in llama_params_to_flat(self).items()})
+            return out
+
+        monkeypatch.setattr(jllama.Llama, "init", record_jax)
+        monkeypatch.setattr(tllama.Llama, "init_weights", record_torch)
     try:
         with chip_smoke.node_probes("cpu") as rec:
             result = asyncio.run(asyncio.wait_for(main(), 120))
@@ -612,6 +641,11 @@ def test_mixed_workers_run_an_elastic_job(tmp_path, scheduler):
         manifest = latest_manifest(ckpt / peer)
         assert manifest is not None and manifest["round"] == 2, (peer, manifest)
     assert (ckpt / "ps" / "journal.cbor").is_file()
+    if seeded:  # one θ₀, drawn by each package from the seed
+        (jtheta,), (ttheta,) = theta0["jax"], theta0["torch"]
+        assert set(jtheta) == set(ttheta)
+        for name in jtheta:
+            assert np.array_equal(jtheta[name].view(np.uint32), ttheta[name].view(np.uint32)), name
     if scheduler == "jax":  # the port's server folded both deltas each round
         assert sorted((d["from"], d["round"]) for d in rec["deltas"]) == sorted(
             (w, r) for w in ("wjax", "wtorch") for r in range(2))

@@ -117,7 +117,8 @@ def test_refusals_name_the_current_roadmap_label():
     streaming jobs, the broadcast tree, live weight swap, adaptive rounds
     with the data-plane chaos kinds, scheduler recovery, LoRA, the bf16
     first moment, HF checkpoints as initial weights, the input pipeline,
-    slice preprocessors and the live metrics plane (telemetry) are ported:
+    slice preprocessors, the live metrics plane (telemetry), speculative
+    decoding and the fixed-slot pool are ported:
     no module refuses an option under a label that named them (Hub
     downloads stay refused as HF Hub)."""
     retired = ("codecs/streaming", "serving router", "prefix cache with copy_blocks",
@@ -126,7 +127,9 @@ def test_refusals_name_the_current_roadmap_label():
                "sharded ps/ft/rejoin", "queue 1: broadcast tree", "queue 1: live weight swap",
                "adaptive rounds and chaos kinds", "queue 1: scheduler recovery",
                "queue 1: lora", "queue 1: mu_dtype", "queue 1: hf checkpoints",
-               "queue 1: input_pipeline", "queue 1: preprocessor", "queue 1: telemetry")
+               "queue 1: input_pipeline", "queue 1: preprocessor", "queue 1: telemetry",
+               "queue 1: speculative decoding", "'speculative decoding'",
+               "queue 1: fixed-slot pool mode", "'fixed-slot pool mode'")
     stale = [f"{p.relative_to(ROOT)}:{i}" for p in _port_files()
              for i, line in enumerate(p.read_text().splitlines(), 1)
              if any(label in line.lower() for label in retired)]

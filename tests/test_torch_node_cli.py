@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import asyncio
 import shutil
+import random
 import socket
 import subprocess
 import sys
@@ -92,9 +93,26 @@ SERVE = dict(max_batch=4, max_new_tokens=32, pool_block_size=8, pool_ragged=True
 
 
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A free loopback port below the kernel's ephemeral range. A port that
+    ``bind(0)`` handed out and this helper gave back can go to another
+    process's outgoing connection before the node binds it (under xdist,
+    other tests open hundreds a second), and a listener cannot take a port
+    that a connection holds; the kernel gives no connection a port below
+    the range."""
+    try:
+        low = int(Path("/proc/sys/net/ipv4/ip_local_port_range").read_text().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    rng = random.SystemRandom()
+    for _ in range(500):
+        port = rng.randrange(max(1024, low - 16384), low)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+    raise RuntimeError("no free loopback port below the ephemeral range")
 
 
 def _conf(cls, **over):

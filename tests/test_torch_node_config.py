@@ -229,11 +229,6 @@ SERVE = {"job.kind": "serve", "job.serve_name": "s", "job.serve_block_size": 16}
 UNPORTED = {
     "multihost": ("worker", {"multihost.coordinator_address": "10.0.0.1:1234",
                              "multihost.num_processes": 2}, "Parallel and long context"),
-    "spec ngram": ("scheduler", {**SERVE, "job.serve_spec_ngram": 3}, "speculative decoding"),
-    "spec draft": ("scheduler", {**SERVE, "job.serve_spec_draft": 2}, "speculative decoding"),
-    "spec layers": ("scheduler", {**SERVE, "job.serve_spec_layers": 1}, "speculative decoding"),
-    "fixed-slot pool": ("scheduler", {**SERVE, "job.serve_block_size": 0},
-                        "fixed-slot pool mode"),
     "sharding": ("scheduler", {"job.sharding": {"tp": 2}}, "intra-replica sharding"),
 }
 
@@ -251,6 +246,29 @@ def test_unported_option_raises_with_its_label(case, tmp_path):
     tbuilt = tcfg.builder(getattr(tnc, SCHEMA[role])).with_overrides(over).build()
     with pytest.raises(NotImplementedError, match=label):
         tbuilt.validate()
+
+
+# Serve options refused until speculative decoding and the fixed-slot pool
+# were ported.
+SERVE_PORTED = {
+    "spec ngram": {**SERVE, "job.serve_spec_ngram": 3},
+    "spec draft": {**SERVE, "job.serve_spec_draft": 2},
+    "spec layers": {**SERVE, "job.serve_spec_layers": 1},
+    "fixed-slot pool": {**SERVE, "job.serve_block_size": 0},
+}
+
+
+@pytest.mark.parametrize("case", sorted(SERVE_PORTED))
+def test_serve_spec_and_fixed_slot_options_are_accepted(case):
+    """Each validates in both packages and builds the same job section."""
+    over = {**SERVE_PORTED[case], "job.worker_tpu": 0.0}
+    jbuilt = jcfg.builder(jnc.SchedulerConfig).with_overrides(over).build()
+    tbuilt = tcfg.builder(tnc.SchedulerConfig).with_overrides(over).build()
+    jbuilt.validate()
+    tbuilt.validate()
+    jj, tj = jbuilt.value.job, tbuilt.value.job
+    keys = ("serve_spec_ngram", "serve_spec_draft", "serve_spec_layers", "serve_block_size")
+    assert {k: getattr(tj, k) for k in keys} == {k: getattr(jj, k) for k in keys}
 
 
 @pytest.mark.parametrize("role", ["gateway", "data", "worker", "scheduler"])

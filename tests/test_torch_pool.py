@@ -123,11 +123,46 @@ def test_pool_rejects_what_it_cannot_serve(pair):
                                     dict(spec_ngram=3), dict(spec_layers=1),
                                     dict(spec_draft=4), dict(draft_params={"w": 0})])
 def test_unported_options_raise(pair, option):
-    _, _, tm = pair
-    label = {"spec_draft": "speculative decoding", "draft_params": "speculative decoding",
-             }.get(next(iter(option)), "ROADMAP.md")
-    with pytest.raises(NotImplementedError, match=label):
-        DecodePool(tm, **{**POOL, **option})
+    """The options refused until speculative decoding and the fixed-slot
+    pool were ported: each is accepted now, as the JAX pool accepts it,
+    and the pool serves with it the tokens of one-shot greedy decoding
+    (``draft_params`` without a ``draft_model`` is inert in both)."""
+    jm, variables, tm = pair
+    kw = {**POOL, **option}
+    if kw["block_size"] == 0:
+        kw["ragged"] = False  # paged-only, as in the reference
+    ref = np.asarray(j_generate(jm, variables, np.asarray([PROMPTS[1]], np.int32), 12))
+    jpool = JPool(jm, variables, **kw)
+    jpool.close()
+    pool = DecodePool(tm, **kw)
+    try:
+        assert pool.submit([PROMPTS[1]], 12).result(timeout=120) == ref.tolist()
+    finally:
+        pool.close()
+
+
+def test_fixed_slot_pool_matches_jax_and_the_paged_pool(pair):
+    """Fixed-slot mode (``block_size=0``): a group of three prompts and two
+    more requests admitted into the running pool give the JAX fixed-slot
+    pool's tokens and the port's paged pool's."""
+    jm, variables, tm = pair
+    geo = dict(slots=4, max_len=64, steps_per_call=2)
+    reqs = [(PROMPTS[:3], 10), ([PROMPTS[3]], 16), ([[5, 6, 7]], 6)]
+
+    def run(pool):
+        try:
+            futs = [pool.submit(p, n) for p, n in reqs]
+            return [f.result(timeout=300) for f in futs], pool
+        finally:
+            pool.close()
+
+    want, _ = run(JPool(jm, variables, **geo))
+    got, fixed = run(DecodePool(tm, **geo))
+    paged, _ = run(DecodePool(tm, **geo, block_size=8, prefill_chunk=16, ragged=True))
+    assert got == want
+    assert got == paged
+    assert fixed.chunks >= 1 and fixed.free_blocks() == geo["slots"]
+    assert fixed.prefill_chunks == len(reqs)  # one prefill per admitted group
 
 
 def test_traced_requests_file_prefill_and_decode_spans(pair, tmp_path):

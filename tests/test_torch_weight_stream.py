@@ -201,6 +201,11 @@ def test_pool_leaves_bit_equal_after_swaps_fold_pin_rollback_and_roll_forward(dt
             assert getattr(tpool, attr) == getattr(jpool, attr), attr
         assert (tpool.swaps_applied, tpool.swaps_deferred, tpool.swaps_rolled_back) == (3, 2, 1)
         assert tpool._alloc.generation == jpool._alloc.generation == 4
+        # The serve thread logs a flip after it publishes the round (the
+        # digest takes a while under load): wait for the fourth entry.
+        deadline = time.monotonic() + 60
+        while len(tpool.swap_log) < 4 and time.monotonic() < deadline:
+            time.sleep(0.01)
         assert [r["what"] for r in tpool.swap_log] == ["applied", "applied", "rolled back to",
                                                        "applied"]
     finally:
