@@ -201,7 +201,11 @@ Phases, each printing one JSON line:
    refused handshakes, mux streams and gossip counts with the median
    pure-Python verify ms, the largest progress gap against the watchdog,
    the trainer's peak, ``ssl.OPENSSL_VERSION`` and the phase's seconds;
-12c. train_ft — fault-tolerant blocking DiLoCo (``run_ft_job``): 7B widths
+12c. train_ft — run by a child process (``python3 chip_smoke.py --phase
+   train_ft``, ``ChildPhase``) beside ``serve_node``, ``serve_router``,
+   ``serve_fleet``, ``train`` and ``train_node``, its line printed when
+   it is joined, after ``train_node`` (with when it started and ended and
+   the join's wait): fault-tolerant blocking DiLoCo (``run_ft_job``): 7B widths
    cut to 1 layer (``FT_LAYERS`` says why), int8 deltas, 6 rounds of 4
    steps, two trainer processes on the card under the port's scheduler
    with ``FTConfig`` (quorum 0.5, one parameter-server restart),
@@ -372,7 +376,37 @@ Phases, each printing one JSON line:
 13. train_reference — a tiny Llama (head_dim 64), and the same with a
    sliding window below its sequence (Mistral's local attention), each
    trained 4 steps through the kernels and through the plain flash version
-   from the same weights, with no call of the dense attention.
+   from the same weights, with no call of the dense attention;
+14. serve_moe — Mixtral-8x7B widths at ``MOE_LAYERS`` (16 of 32; run
+   after ``serve_fleet``), seeded, bf16, ``serve``'s requests through
+   ``serve_phase``'s pool. A bf16 router flips its picks at near-ties
+   between the kernel path and the plain path, and a flip moves the whole
+   residual, so each comparison routes the plain forward as the kernel
+   path routed (``router_tape``, ``pool_routing``): (a) every greedy token
+   of a recorded pool run the plain path's (the same model without a
+   cache, the plain attention, drop-free MoE), teacher-forced on the
+   pool's own tokens, a split only where the plain forward's logit of the
+   pool's token lies within ``MOE_LOGIT_TOL`` of its top logit (the
+   splits at a ``BF16_NEAR_TIE`` counted); (b) a [8, 64] prefill chunk
+   through the paged cache within ``MOE_LOGIT_TOL`` of the largest logit
+   of the plain forward (the unpinned flips and error reported); (c)
+   ragged launches by route exactly forwards x 16 (decode on the decode
+   steps, mma on the chunks), no simt, no plain attention; (d) a clean
+   exit. It reports load and init seconds, the peaks, decode and wall
+   tok/s, and ``profile_phase``'s decode step and prefill chunk beside
+   the decode step's bound (every weight read once);
+15. train_moe — Mixtral-8x7B widths at 1 layer (1.71 B parameters),
+   remat, capacity routing (C = 640), one blocking int8 DiLoCo job on the
+   port's nodes with the trainer in process (``run_moe_job``), 2 rounds
+   of 4 at [2, 2048]: (a) losses fall (``node_problems``, which also holds
+   the job's states, rounds, samples and dispatch); (b) the aux loss
+   finite and within [0, ``router_aux_coef`` x E] every step; (c) flash
+   launches 2 x 1 x batches (fwd, remat) and 1 x batches (dQ, dK/dV), no
+   plain attention; (d) the int8 Δθ frames carry the experts and the
+   router in the JAX package's flat names and shapes; (e) the trainer's θ₀
+   the seed's (``ThetaTrack``) and every merge θ_t + u bit for bit; (f) no
+   file left. It reports step ms, tokens/s, the peaks, drop_frac and aux
+   per step, the round boundary and its parts, and one profiled step.
 
 Then the kernels line, the ``nvidia-smi`` name and power limit line, and
 the result line. Any failure exits non-zero before the result line; with
@@ -382,6 +416,7 @@ no CUDA device it exits 2 at once.
 from __future__ import annotations
 
 import asyncio
+import atexit
 import collections
 import gc
 import hashlib
@@ -898,12 +933,14 @@ def serve_phase(model, *, kv_quant: str, lengths: list, n_new: list) -> dict:
             by_route = {name: getattr(ragged_paged_attention, f"{name}_launches") for name in ROUTES}
             plain = paged_attention.plain_calls
             stats = dict(server.pool.stats)
+            pool = server.pool
+            forwards = {"prefill": pool.prefill_chunks, "decode": pool.chunks * pool.steps_per_call}
             again = await drive(server, prompts[:2], n_new[:2])
-            return server, out, wall, launches, by_route, plain, stats, again
+            return server, out, wall, launches, by_route, plain, stats, forwards, again
         finally:
             server.close()
 
-    server, out, wall, launches, by_route, plain, stats, again = asyncio.run(run())
+    server, out, wall, launches, by_route, plain, stats, forwards, again = asyncio.run(run())
     for toks, n in zip(out, n_new):
         if len(toks) != 1 or len(toks[0]) != n:
             raise SystemExit(f"request answered with {len(toks[0])} tokens, wanted {n}")
@@ -922,7 +959,7 @@ def serve_phase(model, *, kv_quant: str, lengths: list, n_new: list) -> dict:
     res = dict(
         kv_quant=kv_quant or "bf16", requests=len(prompts), prompt_lengths=lengths,
         n_new=n_new, wall_s=wall, kernel_launches=launches,
-        kernel_launches_by_route=by_route, plain_attention_calls=plain,
+        kernel_launches_by_route=by_route, plain_attention_calls=plain, forwards=forwards,
         decode_chunks=server.pool.chunks, prefill_chunks=server.pool.prefill_chunks,
         preemptions=server.pool.preemptions,
         prefill_tok_s=stats["prefill_tokens"] / stats["prefill_s"],
@@ -2848,6 +2885,7 @@ def profile_phase(model) -> dict:
     device time the profiler sees, by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
+    from hypha_tpu_torch.executor.generate import logits_of
     from hypha_tpu_torch.ops.kvcache import KVCache
     from hypha_tpu_torch.ops.paged_attention import _decode_splits, _sm_count, ragged_paged_attention
 
@@ -2872,7 +2910,7 @@ def profile_phase(model) -> dict:
 
             def forward():
                 cache.idx.fill_(per_lane * 16 - S)
-                return model(tok, cache)[:, -1].argmax(dim=-1)
+                return logits_of(model(tok, cache))[:, -1].argmax(dim=-1)
 
             for _ in range(3):
                 forward()
@@ -8849,6 +8887,534 @@ def train_reference_phase() -> dict:
     return res
 
 
+# ---------------------------------------------------------- Mixtral phases
+
+# Mixtral-8x7B widths (hidden 4096, 32 heads of 128 over 8 KV heads, 8
+# experts of 14336, top 2), seeded. Serving loads 16 of the 32 layers: a
+# bf16 layer holds 1.4513 B parameters (2.90 GB), 16 of them with the
+# embeddings and head 46.96 GB; all 32 (93.4 GB) do not fit the 80 GB card.
+MOE_LAYERS = 16
+MOE_SERVE_MODEL = {"family": "mixtral", "preset": "8x7b", "seed": 0,
+                   "config": {"num_layers": MOE_LAYERS}}
+# Training at 1 layer: 1.7135 B parameters, 6.854 GB in f32.
+MOE_TRAIN_LAYERS = 1
+MOE_TRAIN_MODEL = {"model_type": "causal-lm", "family": "mixtral", "preset": "8x7b", "seed": 0,
+                   "config": {"num_layers": MOE_TRAIN_LAYERS, "remat": True}}
+MOE_OPTIONS = {"delta_codec": "int8"}  # 1.71 GB a push, a quarter of f32's
+# A bf16 greedy split at a near-tie: the full forward's top two logits
+# within this share of the top one (two to four units in the last place of
+# bf16), counted beside the split rule below.
+BF16_NEAR_TIE = 2.0 ** -6
+# The kernel path against the plain forward routed alike: of the largest
+# |logit|, as ``reference`` holds the 7B's decode forward. The 16 bf16
+# layers' residual (an expert adds ~2.4 a layer at these widths) parts the
+# two paths by up to 4% of the top logit (H100 80GB HBM3; PERF.md §6), so a greedy
+# split is allowed where the plain forward's logit of the pool's token lies
+# within this share of its top logit.
+MOE_LOGIT_TOL = 0.05
+MOE_PROFILE_STEP = 6  # the trainer's step (from 0) run under the profiler
+
+
+@contextmanager
+def router_tape(model, replay=None):
+    """Forward hooks on every router of ``model``: each forward's router
+    logits, layer by layer, appended to the yielded list (on the host);
+    with ``replay`` (a list of per-layer logits), those replace the
+    router's own, so the forward routes as the recorded one did."""
+    tape: list = []
+
+    def hook(layer, mod, args, out):
+        if replay is not None:
+            return replay[layer].to(out.device, out.dtype).reshape(out.shape)
+        tape.append(out.detach().float().cpu())
+        return None
+
+    handles = [block.moe.gate.register_forward_hook(
+        lambda mod, args, out, i=i: hook(i, mod, args, out)) for i, block in enumerate(model.layers)]
+    try:
+        yield tape
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def routing_flips(plain: list, other: list, k: int) -> list:
+    """Where two forwards of the same tokens route a token to other experts:
+    (layer, row, position, the plain forward's k-th to (k+1)-th router
+    probability gap), from each forward's per-layer router logits."""
+    flips = []
+    for layer, (a, b) in enumerate(zip(plain, other)):
+        pa, pb = torch.softmax(a, -1), torch.softmax(b, -1)
+        top = pa.topk(k + 1, dim=-1).values
+        differ = (pa.topk(k, -1).indices.sort(-1).values != pb.topk(k, -1).indices.sort(-1).values)
+        for row, t in differ.any(-1).nonzero().tolist():
+            flips.append((layer, row, t, float(top[row, t, k - 1] - top[row, t, k])))
+    return flips
+
+
+@contextmanager
+def pool_routing(model, pool):
+    """The router logits of every forward the paged ``pool`` runs, filed
+    under (prompt, position) of each lane the forward serves (a lane parked
+    in the garbage block serves none; a decode chunk's k-th forward sits k
+    positions past the lane's index): ``{(prompt tuple, position): [per-layer
+    logits [E]]}``, the last computation of a position kept (a preempted
+    request's recompute replaces its first)."""
+    routed: dict = {}
+    seen: dict = {}
+    lanes: list = []
+
+    def pre(mod, args):
+        S = args[0].shape[1]
+        lanes.clear()
+        for slot, r in list(pool._lane_rows.items()):
+            if r.slot != slot or pool._h_idx[slot] >= pool.max_len:
+                continue
+            key = (tuple(r.prompt), int(pool._h_idx[slot]))
+            step = seen.get(slot, (None, -1))
+            k = step[1] + 1 if step[0] == key and S == 1 else 0
+            seen[slot] = (key, k)
+            lanes.append((slot, key[0], key[1] + k, S))
+
+    def post(mod, args, out):
+        layers = tape[-len(model.layers):]
+        for slot, prompt, pos, S in lanes:
+            for j in range(S):
+                routed[(prompt, pos + j)] = [t[slot, j] for t in layers]
+        tape.clear()
+
+    with router_tape(model) as tape:
+        handles = [model.register_forward_pre_hook(pre), model.register_forward_hook(post)]
+        try:
+            yield routed
+        finally:
+            for h in handles:
+                h.remove()
+
+
+def pinned_splits(model, prompts: list, answers: list, routed: dict) -> tuple:
+    """Each request's tokens against the plain path (one cache-less
+    drop-free forward over the prompt and the pool's own tokens, routed as
+    the pool routed each position): every token that is not the plain
+    path's greedy one, with the plain forward's top logit there, how far
+    below it the pool's token lies (``near``: within ``MOE_LOGIT_TOL`` of
+    the top logit) and whether the two are its top two within
+    ``BF16_NEAR_TIE``; and the positions the pool's record missed."""
+    splits, missing = [], []
+    for n, (prompt, toks) in enumerate(zip(prompts, answers)):
+        seq = prompt + toks[:-1]
+        keys = [(tuple(prompt), p) for p in range(len(seq))]
+        missing += [(n, p) for (_, p) in keys if (tuple(prompt), p) not in routed]
+        if any((tuple(prompt), p) not in routed for p in range(len(seq))):
+            continue
+        replay = [torch.stack([routed[key][layer] for key in keys])[None]
+                  for layer in range(len(model.layers))]
+        ids = torch.tensor([seq], device=model.device)
+        with torch.inference_mode(), router_tape(model, replay):
+            logits = model(ids, dropless=True)[0][0, len(prompt) - 1:].float()
+        for i in (logits.argmax(-1).cpu() != torch.tensor(toks)).nonzero().flatten().tolist():
+            top = logits[i].topk(2)
+            head = float(top.values[0])
+            lag = head - float(logits[i, toks[i]])
+            tie = (int(top.indices[1]) == toks[i]
+                   and float(top.values[0] - top.values[1]) <= BF16_NEAR_TIE * abs(head))
+            splits.append({"request": n, "token": i, "pool": toks[i],
+                           "plain": int(top.indices[0]), "top": head, "lag": lag,
+                           "rank": int((logits[i] > logits[i, toks[i]]).sum()),
+                           "near": lag <= MOE_LOGIT_TOL * abs(head), "bf16_tie": tie})
+    return splits, missing
+
+
+def serve_moe_phase() -> dict:
+    """Mixtral-8x7B widths at ``MOE_LAYERS``, seeded, bf16, through the
+    paged ragged pool; gates (a)-(d) as the module's docstring says."""
+    from hypha_tpu_torch.executor.pool import DecodePool
+    from hypha_tpu_torch.models import Mixtral
+    from hypha_tpu_torch.ops.kvcache import KVCache
+    from hypha_tpu_torch.worker.infer_executor import load_model
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    init_s: list = []
+    init = Mixtral.init_weights
+
+    def timed_init(self, seed=0):
+        t = time.perf_counter()
+        out = init(self, seed)
+        torch.cuda.synchronize()
+        init_s.append(time.perf_counter() - t)
+        return out
+
+    Mixtral.init_weights = timed_init
+    try:
+        model = load_model(MOE_SERVE_MODEL)
+    finally:
+        Mixtral.init_weights = init
+    torch.cuda.synchronize()
+    load_s, load_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+    problems: list = []
+    lengths, n_new = [17, 64, 130, 222, 333, 450, 599, 700], [32, 40, 48, 56, 64, 36, 44, 60]
+    serve = serve_phase(model, kv_quant="", lengths=lengths, n_new=n_new)
+    # (c) every forward's layers on their route: decode steps on the
+    # decode kernel, prefill chunks on the mma kernel.
+    fw = serve["forwards"]
+    want = {"decode": fw["decode"] * MOE_LAYERS, "mma": fw["prefill"] * MOE_LAYERS, "simt": 0}
+    if serve["kernel_launches_by_route"] != want or serve["plain_attention_calls"]:
+        problems.append(f"(c) ragged launches {serve['kernel_launches_by_route']}, wanted {want}; "
+                        f"plain attention calls {serve['plain_attention_calls']}")
+    # (a) the pool's greedy tokens against the plain path's, each position
+    # routed as the pool routed it: a recorded run of the same requests (the
+    # timed run above keeps no hooks).
+    t_check = time.perf_counter()
+    prompts = serve["prompts"]
+    pool = DecodePool(model, slots=8, max_len=1024, steps_per_call=8, block_size=16, ragged=True)
+    try:
+        with pool_routing(model, pool) as routed:
+            answers = [f.result(timeout=600)[0]
+                       for f in [pool.submit([p], n) for p, n in zip(prompts, n_new)]]
+    finally:
+        pool.close()
+    same = sum(a == b[0] for a, b in zip(answers, serve["answers"]))
+    splits, missing = pinned_splits(model, prompts, answers, routed)
+    far = [x for x in splits if not x["near"]]
+    if far or missing:
+        problems.append(f"(a) {len(far)} pool tokens lie further than {MOE_LOGIT_TOL} of the top "
+                        f"below the plain path's greedy token, e.g. {far[:3]}; positions "
+                        f"unrecorded {missing[:4]}")
+    # (b) a [8, 64] prefill chunk through the paged cache against the plain
+    # forward routed as the chunk routed; unpinned, the routing flips.
+    B, S = 8, 64
+    k = model.config.experts_per_token
+    ids = torch.tensor(make_prompts(97, [S] * B), device="cuda")
+    cache = KVCache.for_model(model, B, 1024, per_row=True, blocks=64, block_size=16, ragged=True)
+    cache.table[:, :4] = torch.arange(B * 4, dtype=torch.int32, device="cuda").reshape(B, 4)
+    with torch.inference_mode():
+        with router_tape(model) as paged_routes:
+            paged = model(ids, cache)[0]
+        with router_tape(model) as plain_routes:
+            free = model(ids, dropless=True)[0]
+        with router_tape(model, paged_routes):
+            plain = model(ids, dropless=True)[0]
+    flips = routing_flips(plain_routes, paged_routes, k)
+    scale = float(plain.abs().max())
+    err, free_err = float((paged - plain).abs().max()), float((paged - free).abs().max())
+    argmax = float((paged.argmax(-1) == plain.argmax(-1)).float().mean())
+    finite = bool(torch.isfinite(paged).all())
+    if not finite or err > MOE_LOGIT_TOL * scale:
+        problems.append(f"(b) prefill chunk logits {err} from the plain forward's routed alike "
+                        f"(scale {scale}, finite {finite})")
+    check_s = time.perf_counter() - t_check
+    del cache, paged, plain, free
+    profile = profile_phase(model)
+    # A decode step reads every weight once (the embeddings' 8 rows aside).
+    weight_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                       if n != "embed_tokens")
+    res = {k: v for k, v in serve.items() if k not in ("prompts", "answers", "layers")}
+    res.update(
+        model="mixtral-8x7b", layers=MOE_LAYERS, load_s=load_s, init_s=init_s[0] if init_s else None,
+        load_peak_gib=load_peak, serve_peak_gib=serve["peak_mem_gib"],
+        wall_tok_s=sum(n_new) / serve["wall_s"], launches_by_route=serve["kernel_launches_by_route"],
+        recorded_equal_timed=same, tokens=sum(n_new), splits=splits,
+        bf16_tie_splits=sum(x["bf16_tie"] for x in splits),
+        prefill_chunk={"max_abs_err": err, "scale": scale, "argmax_agreement": argmax,
+                       "unpinned_flips": len(flips), "unpinned_first_flips": flips[:8],
+                       "unpinned_max_abs_err": free_err},
+        check_s=check_s, profile=profile,
+        decode_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3, weight_bytes=weight_bytes,
+        seconds=time.perf_counter() - t0,
+    )
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        emit({"phase": "serve_moe", **res, "problems": problems})
+        raise SystemExit("serve_moe phase failed: " + "; ".join(problems))
+    return res
+
+
+@contextmanager
+def moe_probes(record_step=None):
+    """Inside the in-process trainer: its model and θ₀'s checksum; each
+    step's aux loss and per-layer ``drop_frac`` (the model's forward given
+    an ``intermediates`` dict); the step numbered ``record_step`` run
+    under ``record_step``'s callable; and every merge: the checksum of
+    θ_t + u (each tensor added as the merge adds it, when the update is
+    read) beside the anchor checksum the trainer logs after it."""
+    import hypha_tpu_torch.executor.training as training
+    from hypha_tpu_torch.models.convert import state_to_flat
+
+    rec = {"model": None, "theta0": None, "aux": [], "drop_frac": [], "merges": [],
+           "profiled": None}
+    init, read, checksum, make = (training._init_model, training._read_update,
+                                  training.theta_checksum, training.make_train_step)
+    local = threading.local()
+
+    def init_model(cfg, session, work_dir, device):
+        model = init(cfg, session, work_dir, device)
+        rec["model"] = model
+        rec["theta0"] = checksum(state_to_flat(model, model.state_dict()))
+        return model
+
+    def read_update(path, device):
+        update = read(path, device)
+        model = rec["model"]
+        state = model.state_dict()
+        # Each tensor's bit sum after the merge, one tensor at a time (the
+        # digest reads only the sums): θ_t + u, as the trainer adds it.
+        with torch.no_grad():
+            merged = {n: (state[n] + u.to(state[n].device, state[n].dtype)).to(state[n].dtype)
+                      for n, u in update.items()}
+            local.expect = checksum(state_to_flat(model, merged))
+        del merged
+        return update
+
+    def merged_checksum(params):
+        got = checksum(params)
+        expect, local.expect = getattr(local, "expect", None), None
+        if expect is not None:
+            rec["merges"].append({"expected": expect, "anchor": got})
+        return got
+
+    def make_step(model, optimizer, loss, **kw):
+        step = make(model, optimizer, loss, **kw)
+        inter: dict = {}
+        forward = model.forward
+
+        def recorded(ids, *args, **kwargs):
+            if not args and kwargs.get("cache") is None:
+                kwargs.setdefault("intermediates", inter)
+            return forward(ids, *args, **kwargs)
+
+        model.forward = recorded
+
+        def counted(batch):
+            if len(rec["aux"]) == MOE_PROFILE_STEP and record_step is not None:
+                out, rec["profiled"] = record_step(lambda: step(batch))
+            else:
+                out = step(batch)
+            rec["aux"].append(float(out[2]))
+            rec["drop_frac"].append({k: float(v) for k, v in inter.items()})
+            return out
+
+        return counted
+
+    training._init_model, training._read_update = init_model, read_update
+    training.theta_checksum, training.make_train_step = merged_checksum, make_step
+    try:
+        yield rec
+    finally:
+        training._init_model, training._read_update = init, read
+        training.theta_checksum, training.make_train_step = checksum, make
+
+
+def profiled_step(fn) -> tuple:
+    """``fn()`` under the profiler: its result, and the host ms, the
+    device's busy ms (kernels' own time), the idle share and the top
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    flash = {name: {"ms": sum(ms for k, ms, _ in rows if name in k),
+                    "launches": sum(c for k, _, c in rows if name in k)} for name in FLASH_NAMES}
+    return out, dict(wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall, flash=flash,
+                     top=[{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:10]])
+
+
+async def run_moe_job(root: Path, model: dict, *, device, rounds, steps, batch, seq, period,
+                      status_timeout=None, sample_card=False, record_step=None) -> dict:
+    """``run_node_job`` of one in-process trainer with ``MOE_OPTIONS``,
+    under ``moe_probes`` (``record_step`` runs one step, as
+    ``profiled_step`` does); the probes' record under ``moe``."""
+    with moe_probes(record_step) as mrec:
+        run = await run_node_job(root, model, device=device, rounds=rounds, steps=steps,
+                                 batch=batch, seq=seq, period=period, workers=1,
+                                 train_runtime="in-process", status_timeout=status_timeout,
+                                 job_options=MOE_OPTIONS, sample_card=sample_card)
+    return {**run, "moe": mrec}
+
+
+def moe_train_problems(run: dict, *, rounds: int, theta0: str, launches: dict,
+                       batches: int, layers: int, device: str) -> list:
+    """Gates (a)-(f) of ``train_moe`` (the module's docstring):
+    ``node_problems`` holds (a), (f) and (d), every Δθ frame carrying each
+    flat name of the config at its shape (the experts' ``[8, 4096, 14336]``
+    / ``[8, 14336, 4096]`` and the router's ``[4096, 8]`` among them)."""
+    mrec = run["moe"]
+    cfg = mrec["model"].config if mrec["model"] is not None else None
+    problems = node_problems(run, rounds=rounds, expect=flat_f32_spec(run["job"].model))
+    bound = cfg.router_aux_coef * cfg.num_experts if cfg is not None else 0.0
+    if len(mrec["aux"]) != batches or not all(math.isfinite(a) and 0.0 <= a <= bound
+                                              for a in mrec["aux"]):
+        problems.append(f"(b) aux losses {mrec['aux']}: wanted {batches}, each finite in "
+                        f"[0, {bound}]")
+    if device != "cpu":
+        want = {"fwd": 2 * layers * batches, "dq": layers * batches, "dkv": layers * batches,
+                "flash_plain": 0}
+        if launches != want:
+            problems.append(f"(c) flash launches {launches}, wanted {want}")
+    if mrec["theta0"] != theta0:
+        problems.append(f"(e) the trainer's θ₀ {mrec['theta0']}, the seed's {theta0}")
+    merges = mrec["merges"]
+    if len(merges) != rounds or any(m["expected"] != m["anchor"] for m in merges):
+        problems.append(f"(e) merges {merges}: wanted {rounds}, each θ_t + u")
+    return problems
+
+
+def train_moe_phase() -> dict:
+    """Mixtral-8x7B widths at ``MOE_TRAIN_LAYERS`` trained as one blocking
+    int8 DiLoCo job; gates (a)-(f) as the module's docstring says."""
+    from hypha_tpu_torch.ops.flash_attention import flash_attention
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    theta = ThetaTrack(MOE_TRAIN_MODEL, "cuda")
+    theta0 = theta.checksum(theta.theta0)
+    n_params = sum(t.numel() for t in theta.theta0.values())
+    del theta
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    root = Path(tempfile.mkdtemp(prefix="hmo"))
+    flash_attention.fwd_launches = flash_attention.dq_launches = 0
+    flash_attention.dkv_launches = flash_attention.plain_calls = 0
+    try:
+        run = asyncio.run(run_moe_job(
+            root, MOE_TRAIN_MODEL, device="cuda", rounds=TRAIN_ROUNDS, steps=TRAIN_STEPS,
+            batch=TRAIN_BATCH, seq=TRAIN_SEQ, period=TRAIN_PERIOD,
+            status_timeout=NODE_STATUS_TIMEOUT_S, sample_card=True, record_step=profiled_step))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {"fwd": flash_attention.fwd_launches, "dq": flash_attention.dq_launches,
+                "dkv": flash_attention.dkv_launches, "flash_plain": flash_attention.plain_calls}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rec, mrec, result = run["rec"], run["moe"], run["result"]
+    batches = sum(p["kind"] == "status" for p in rec["progress"])
+    problems = moe_train_problems(run, rounds=TRAIN_ROUNDS, theta0=theta0, launches=launches,
+                                  batches=batches, layers=MOE_TRAIN_LAYERS, device="cuda")
+    mrec["model"] = None
+    timing = progress_timing(run)
+    step_ms = timing["step_ms"]
+    gb = n_params * 4 / 1e9
+    res = dict(
+        model="mixtral-8x7b", layers=MOE_TRAIN_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+        rounds=TRAIN_ROUNDS, steps=TRAIN_STEPS, codec=MOE_OPTIONS["delta_codec"],
+        parameters=n_params, jobs=run["jobs"],
+        losses=[(w, r, m.get("loss")) for w, r, m in result.metrics],
+        aux=mrec["aux"], drop_frac=mrec["drop_frac"],
+        step_ms=step_ms, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3) if step_ms else None,
+        round_boundary_s=timing["round_boundary_s"],
+        delta_push=rec["push"], broadcast=rec["broadcast"], fold_s=rec["fold_s"],
+        outer_step_s=rec["outer_step_s"], encode_s=rec["encode_s"],
+        delta_bytes=[d["bytes"] for d in rec["deltas"]],
+        launches=launches, merges=mrec["merges"], theta0=theta0,
+        # p, g, m, v, the anchor and the int8 error feedback of the trainer,
+        # the server's f32 sum: 7 f32 copies of the parameters, before
+        # activations and the merge's decoded update.
+        estimated_peak_gb=7 * gb, peak_gib_process=peak, card_peak_mib=run["card_peak_mib"],
+        profiled_step=mrec["profiled"], first_beat_s=run["first_beat_s"],
+        seconds=time.perf_counter() - t0)
+    if problems:
+        emit({"phase": "train_moe", **res, "problems": problems})
+        raise SystemExit("train_moe phase failed: " + "; ".join(problems))
+    return res
+
+
+# ---------------------------------------------------------- a phase beside
+
+# ``train_ft`` spends most of its wall on the disk (5.6 GB server
+# checkpoints, each round's f32 state files) and on its faults' timers
+# (leases, the spare's bring-up, the restarts), with 2-3 trainers on the
+# card. It runs as a child process (``python3 chip_smoke.py --phase
+# train_ft``) beside the serving network phases, ``train`` and
+# ``train_node``, whose processes leave the card's memory to it (each
+# under 20 GiB against its 44 GiB), and is joined before ``serve_moe``.
+CHILD_PHASES = ("train_ft",)
+CHILD_LIMIT_S = 900.0  # the child's wall, its own phase deadline included
+
+
+class ChildPhase:
+    """``name`` run by ``python3 chip_smoke.py --phase name`` beside this
+    process's phases, its output in files of the temporary directory.
+    ``join`` waits for it and returns its line, with when it started,
+    ended and how long this process waited; a child that fails fails the
+    smoke with the tail of its output."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        fd, out = tempfile.mkstemp(prefix=f"chip-smoke-{name}-", suffix=".out")
+        os.close(fd)
+        self.out, self.err = Path(out), Path(out).with_suffix(".err")
+        self.started_at_s = time.perf_counter() - _T0
+        here = Path(__file__).resolve()
+        # A session of its own: a smoke that fails or is sent SIGTERM while
+        # it runs ends the child and every node and trainer process under
+        # it (``atexit``).
+        with open(self.out, "wb") as stdout, open(self.err, "wb") as stderr:
+            self.proc = subprocess.Popen([sys.executable, str(here), "--phase", name],
+                                         stdout=stdout, stderr=stderr, cwd=str(here.parent),
+                                         start_new_session=True)
+        atexit.register(self._kill)
+        signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+
+    def _kill(self) -> None:
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            self.proc.wait()
+
+    def join(self) -> dict:
+        t0 = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=max(1.0, CHILD_LIMIT_S - (t0 - _T0 - self.started_at_s)))
+        except subprocess.TimeoutExpired:
+            self._kill()
+            rc = "killed at its limit"
+        waited = time.perf_counter() - t0
+        text = self.out.read_text(errors="replace")
+        tail = self.err.read_text(errors="replace")[-6000:]
+        self.out.unlink(missing_ok=True)
+        self.err.unlink(missing_ok=True)
+        lines = [json.loads(x) for x in text.splitlines() if x.startswith('{"phase": ')]
+        mine = [x for x in lines if x.get("phase") == self.name]
+        if rc != 0 or not mine:
+            for x in lines:
+                emit(x)
+            raise SystemExit(f"{self.name} (child process) exited {rc}:\n{tail}")
+        res = {k: v for k, v in mine[-1].items() if k not in ("phase", "at_s")}
+        res["child"] = {"started_at_s": self.started_at_s, "ended_at_s": mine[-1]["at_s"]
+                        + self.started_at_s, "join_wait_s": waited}
+        return res
+
+
+def run_child_phase(name: str) -> int:
+    """The child's side: one phase of ``CHILD_PHASES``, its line, and its
+    background removals awaited before it exits."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hypha_tpu_torch.ops._build import build
+
+    bytecode_cache()
+    build()  # the parent built every kernel: this loads them
+    res = {"train_ft": train_ft_phase}[name]()
+    emit({"phase": name, **res, "removals": await_removals()})
+    return 0
+
+
 def bytecode_cache() -> str:
     """One bytecode cache for this process and every process it starts
     (nodes, trainers), in the checkout's build directory. The card's
@@ -8864,6 +9430,8 @@ def bytecode_cache() -> str:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--phase"] and len(sys.argv) == 3 and sys.argv[2] in CHILD_PHASES:
+        return run_child_phase(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -8922,23 +9490,27 @@ def main() -> int:
     del cli
     gc.collect()
     torch.cuda.empty_cache()
+    # train_ft in a child process beside the next five phases.
+    ft_child = ChildPhase("train_ft")
     serve_node = serve_node_phase(serve_cli)
     emit({"phase": "serve_node", **serve_node})
     serve_router = serve_router_phase(prefix)
     emit({"phase": "serve_router", **serve_router})
     serve_fleet = serve_fleet_phase(fleet_ref, prefix)
     emit({"phase": "serve_fleet", **serve_fleet})
-
     train = train_phase()
     emit({"phase": "train", **train})
     emit({"phase": "train_node", **train_node_phase(train)})
+    ft = ft_child.join()
+    emit({"phase": "train_ft", **ft})
+    serve_moe = serve_moe_phase()
+    emit({"phase": "serve_moe", **serve_moe})
+
     data = train_data_phase()
     emit({"phase": "train_data", **data})
     stream = train_stream_phase()
     emit({"phase": "train_stream", **stream})
     emit({"phase": "train_secure", **train_secure_phase(stream)})
-    ft = train_ft_phase()
-    emit({"phase": "train_ft", **ft})
     shard = train_shard_phase()
     emit({"phase": "train_shard", **shard})
     shard_ft = train_shard_ft_phase()
@@ -8951,6 +9523,8 @@ def main() -> int:
     emit({"phase": "train_lora", **lora})
     lora7 = lora_7b_phase()
     emit({"phase": "lora_7b", **lora7})
+    train_moe = train_moe_phase()
+    emit({"phase": "train_moe", **train_moe})
     emit({"phase": "train_reference", **train_reference_phase()})
     # The fault phases' roots, removed while later phases ran.
     emit({"phase": "removals", "removals": await_removals()})
@@ -8983,6 +9557,8 @@ def main() -> int:
                                 for name, r in spec["runs"].items() if "fixed" not in name},
         "serve_spec_draft_launches": spec["runs"]["bf16_layers"]["draft_launches_by_route"],
         "serve_spec_profiled": {name: r["kernels"] for name, r in spec["profiled"].items()},
+        # Mixtral-8x7B widths at 16 layers through the pool, by route.
+        "serve_moe_launches": serve_moe["launches_by_route"],
         "prefill64_ms": pre["ms"], "prefill64_simt_ms": pre["simt_ms"],
         "prefill64_plain_ms": pre["plain_ms"], "prefill64_bound_ms": pre["bound_ms"],
         "prefill64_bound_by": pre["bound_by"], "prefill64_library_ms": pre["library_ms"],
@@ -9020,6 +9596,8 @@ def main() -> int:
             # The LoRA jobs: both in-process trainers together, and the 7B.
             "train_lora_launches": lora["launches"][key],
             "lora_7b_launches": lora7["launches"][key],
+            # Mixtral-8x7B widths at 1 layer, its in-process trainer.
+            "train_moe_launches": train_moe["launches"][key],
         })
     seed = lora7["init"]["kernel"]
     kernels.append({

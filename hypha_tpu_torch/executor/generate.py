@@ -1,6 +1,7 @@
 """One-shot KV-cached generation (counterpart of
 ``hypha_tpu/executor/generate.py``): the prompt prefills the cache in one
-forward, then one token per step against the static-size cache.
+forward, then one token per step against the static-size cache. A Mixtral's cached
+forward routes drop-free, so its tokens equal the full drop-free forward's.
 
 Greedy decoding matches the JAX package token for token. Sampling draws
 from an explicit ``torch.Generator``; its numbers differ from JAX's, so a
@@ -13,7 +14,13 @@ import torch
 
 from ..ops.kvcache import KVCache
 
-__all__ = ["generate"]
+__all__ = ["generate", "logits_of"]
+
+
+def logits_of(out) -> torch.Tensor:
+    """A forward's logits: a Mixtral returns ``(logits, aux)``, a Llama the
+    logits alone."""
+    return out[0] if isinstance(out, tuple) else out
 
 
 def _sample(logits, temperature: float, top_k, generator):
@@ -54,10 +61,11 @@ def generate(
     if generator is None and temperature > 0.0:
         generator = torch.Generator(device=dev).manual_seed(0)
     cache = KVCache.for_model(model, B, total)
-    tok = _sample(model(prompt, cache)[:, -1], temperature, top_k, generator)
+    tok = _sample(logits_of(model(prompt, cache))[:, -1], temperature, top_k, generator)
     out = [tok]
     for _ in range(max_new_tokens - 1):
-        nxt = _sample(model(tok[:, None], cache)[:, -1], temperature, top_k, generator)
+        nxt = _sample(logits_of(model(tok[:, None], cache))[:, -1], temperature, top_k,
+                      generator)
         if eos_token_id is not None:
             nxt = torch.where(tok == eos_token_id, eos_token_id, nxt)
         tok = nxt

@@ -59,7 +59,7 @@ def fold_lora(params: dict, alpha: float, rank: int) -> dict:
 
 def make_lora_train_step(model: torch.nn.Module, optimizer: AdamW,
                          loss_kind: Loss = Loss.CROSS_ENTROPY, *, causal_lm: bool = True,
-                         labels_aligned: bool = False) -> Callable:
+                         has_aux: bool = False, labels_aligned: bool = False) -> Callable:
     """The LoRA step: every parameter of ``model`` outside ``optimizer``
     (built over the adapters) is frozen here (``requires_grad`` off, so the
     backward computes no weight gradient for it), and the optimizer clips,
@@ -70,5 +70,5 @@ def make_lora_train_step(model: torch.nn.Module, optimizer: AdamW,
     for p in model.parameters():
         if id(p) not in trained:
             p.requires_grad_(False)
-    return make_train_step(model, optimizer, loss_kind, causal_lm=causal_lm,
+    return make_train_step(model, optimizer, loss_kind, causal_lm=causal_lm, has_aux=has_aux,
                            labels_aligned=labels_aligned)

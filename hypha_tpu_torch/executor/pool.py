@@ -124,6 +124,7 @@ from ..telemetry import trace
 from ..telemetry.flight import FLIGHT
 from ..telemetry.ft_metrics import SERVE_METRICS
 from .block_cache import PrefixBlockCache, chain_hashes
+from .generate import logits_of
 
 __all__ = ["DecodePool", "PoolBusy", "StaleBlockGeneration"]
 
@@ -239,7 +240,8 @@ def _self_draft(model, layers: int):
 
 
 class DecodePool:
-    """Paged continuous-batching pool over a ``models.llama.Llama``.
+    """Paged continuous-batching pool over a ``models.llama.Llama`` or a
+    ``models.mixtral.Mixtral`` (whose cached forwards route drop-free).
 
     ``submit`` is thread-safe and returns a Future resolving to one token
     list per prompt. ``close()`` fails queued and in-flight requests."""
@@ -947,7 +949,7 @@ class DecodePool:
         t0 = time.perf_counter()
         cache = KVCache.for_model(self._model, kb, self.max_len, per_row=True)
         cache.start.copy_(torch.from_numpy(start))
-        logits = self._model(torch.from_numpy(padded).to(self._device), cache)
+        logits = logits_of(self._model(torch.from_numpy(padded).to(self._device), cache))
         first = logits[:, -1].argmax(dim=-1)
         self.stats["prefill_s"] += time.perf_counter() - t0
         self.stats["prefill_tokens"] += int((padded.shape[1] - start).clip(0).sum())
@@ -959,7 +961,7 @@ class DecodePool:
         cur = self._tok
         steps = []
         for _ in range(self.steps_per_call):
-            cur = self._model(cur[:, None], self._cache)[:, -1].argmax(dim=-1)
+            cur = logits_of(self._model(cur[:, None], self._cache))[:, -1].argmax(dim=-1)
             steps.append(cur)
         self._tok = cur
         toks_host = torch.stack(steps).cpu().numpy()  # [K, slots]
@@ -1180,12 +1182,12 @@ class DecodePool:
         toks = torch.zeros((1, S), dtype=torch.int64)
         toks[0, :L] = torch.tensor(context, dtype=torch.int64)
         cache.idx.zero_()
-        logits = self._draft_model(toks.to(self._device), cache)
+        logits = logits_of(self._draft_model(toks.to(self._device), cache))
         cur = logits[:, L - 1].argmax(dim=-1)
         out = [cur]
         cache.idx.fill_(L)
         for _ in range(cap - 1):
-            cur = self._draft_model(cur[:, None], cache)[:, -1].argmax(dim=-1)
+            cur = logits_of(self._draft_model(cur[:, None], cache))[:, -1].argmax(dim=-1)
             out.append(cur)
         return [int(t) for t in torch.cat(out).cpu()]
 
@@ -1258,7 +1260,7 @@ class DecodePool:
                      for g, n in by_group.values()]
         t0 = time.perf_counter()
         self._push_rowvars()
-        logits = self._model(torch.from_numpy(toks).to(self._device), self._cache)
+        logits = logits_of(self._model(torch.from_numpy(toks).to(self._device), self._cache))
         nxt_host = logits.argmax(dim=-1).cpu().numpy()  # [slots, P] per-column greedy
         dt = time.perf_counter() - t0  # ends in the host sync: device time included
         for span in spans:
@@ -1527,7 +1529,7 @@ class DecodePool:
         cur = torch.from_numpy(tok).to(self._device)
         steps = []
         for _ in range(K):
-            cur = self._model(cur[:, None], self._cache)[:, -1].argmax(dim=-1)
+            cur = logits_of(self._model(cur[:, None], self._cache))[:, -1].argmax(dim=-1)
             steps.append(cur)
         toks_host = torch.stack(steps).cpu().numpy()  # [K, slots]: the one sync
         self.stats["decode_s"] += time.perf_counter() - t0

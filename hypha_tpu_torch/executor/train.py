@@ -279,8 +279,11 @@ def chunked_causal_ce(hidden: torch.Tensor, head_w: torch.Tensor, labels: torch.
 
 
 def make_loss_fn(model: Callable, loss_kind: Loss = Loss.CROSS_ENTROPY, *,
-                 causal_lm: bool = True, labels_aligned: bool = False) -> Callable:
-    """``loss_fn(batch) -> (total, loss, aux)``. Causal LM label layouts:
+                 causal_lm: bool = True, has_aux: bool = False,
+                 labels_aligned: bool = False) -> Callable:
+    """``loss_fn(batch) -> (total, loss, aux)``, ``total = loss + aux``:
+    with ``has_aux`` the model returns ``(out, aux)`` (the MoE router
+    loss), otherwise aux is 0. Causal LM label layouts:
     ``decoder_input_ids`` and ``labels`` (or ``labels_aligned``): out[t]
     predicts labels[t]; a decoder stream alone: next token within it;
     otherwise next token over ``labels`` (== the inputs by default)."""
@@ -288,7 +291,10 @@ def make_loss_fn(model: Callable, loss_kind: Loss = Loss.CROSS_ENTROPY, *,
     def loss_fn(batch: dict):
         inputs = batch["input_ids"] if "input_ids" in batch else batch["inputs"]
         out = model(inputs)
-        aux = torch.zeros((), dtype=torch.float32, device=out.device)
+        if has_aux:
+            out, aux = out
+        else:
+            aux = torch.zeros((), dtype=torch.float32, device=out.device)
         if causal_lm:
             dec = batch.get("decoder_input_ids")
             explicit = batch.get("labels")
@@ -309,12 +315,13 @@ def make_loss_fn(model: Callable, loss_kind: Loss = Loss.CROSS_ENTROPY, *,
 
 def make_train_step(model: torch.nn.Module, optimizer: AdamW,
                     loss_kind: Loss = Loss.CROSS_ENTROPY, *, causal_lm: bool = True,
-                    labels_aligned: bool = False) -> Callable:
+                    has_aux: bool = False, labels_aligned: bool = False) -> Callable:
     """``step(batch) -> (loss, total_loss, aux_loss, grad_norm)``: forward,
     loss, backward and one optimizer update, on ``batch`` (tensors already
     on the model's device). The returned values are device scalars; the
     gradients are freed after the update."""
-    loss_fn = make_loss_fn(model, loss_kind, causal_lm=causal_lm, labels_aligned=labels_aligned)
+    loss_fn = make_loss_fn(model, loss_kind, causal_lm=causal_lm, has_aux=has_aux,
+                           labels_aligned=labels_aligned)
     params = optimizer.params
 
     def step(batch: dict):
@@ -322,6 +329,6 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW,
         grads = list(torch.autograd.grad(total, params))
         norm = optimizer.step(grads)
         del grads
-        return loss.detach(), total.detach(), aux, norm
+        return loss.detach(), total.detach(), aux.detach(), norm
 
     return step

@@ -136,6 +136,7 @@ from ..messages import (
 from ..models.convert import (base_names, convert_state_dict, flat_to_state,
                               llama_params_from_flat, load_checkpoint_files, load_state,
                               state_to_flat)
+from ..models.mixtral import Mixtral
 from ..models.registry import build_model
 from ..ops.attention import dot_product_attention
 from ..ops.flash_attention import flash_attention
@@ -567,7 +568,8 @@ def _init_model(cfg: TrainExecutorConfig, session, work_dir: Path, device: torch
     adds adapters to the model's config with the reference's defaults
     (rank 8, α 16, q_proj and v_proj); a checkpoint carries the base only,
     and the adapters keep their seeded init (``B`` = 0: the base's exact
-    outputs at step 0). Flash attention on CUDA."""
+    outputs at step 0). A Mixtral has no LoRA fields, so its config refuses
+    them (``TypeError``), as the reference's does. Flash attention on CUDA."""
     spec = dict(cfg.model)
     model_type = spec.get("model_type", ModelType.CAUSAL_LM)
     if not isinstance(model_type, ModelType):
@@ -748,7 +750,9 @@ def run_training(
     trained = dict(model.named_parameters())
     optimizer = build_optimizer([trained[n] for n in params], cfg.optimizer, cfg.scheduler)
     make_step = make_lora_train_step if cfg.lora else make_train_step
-    step = make_step(model, optimizer, cfg.loss or Loss.CROSS_ENTROPY)
+    # A Mixtral returns (logits, router aux loss); the aux joins the loss.
+    step = make_step(model, optimizer, cfg.loss or Loss.CROSS_ENTROPY,
+                     has_aux=isinstance(model, Mixtral))
 
     # Resume: a re-dispatched executor picks up the last completed round's
     # params and optimizer state instead of θ₀.

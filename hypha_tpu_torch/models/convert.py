@@ -13,17 +13,24 @@ embeddings, the ``[vocab, hidden]`` head, norms and biases do not.
 LoRA adapters (``q_proj_lora_a`` [in, r], ``q_proj_lora_b`` [r, out]) keep
 the JAX layout in both and map by name alone.
 
-HF-format checkpoints of the Llama lineage (the counterpart of
+Mixtral's stacked experts (``layers.{i}.moe.w_gate`` ``[E, D, F]``,
+``w_up``, ``w_down`` ``[E, F, D]``) are raw parameters in the flax layout
+and map by name alone, with no transpose; its router is an ``nn.Linear``
+(``moe/gate/kernel``) and transposes like every kernel.
+
+HF-format checkpoints of the Llama lineage and Mixtral (the counterpart of
 ``hypha_tpu/models/convert.py``): :func:`convert_state_dict` maps a whole
 state dict in HF names (``model.layers.0.self_attn.q_proj.weight``) onto
 the port's ``state_dict`` names, and :func:`convert_checkpoint` streams a
 checkpoint file, directory or ``.index.json`` tensor by tensor
 (:class:`ShardedCheckpoint`, through the port's own SafeTensors reader).
 HF ``Linear`` weights are ``[out, in]``, as the port's are, so nothing
-transposes. A checkpoint without ``lm_head.weight`` (tied embeddings) into
-an untied model gets its head from the embeddings. Checkpoints carry the
-base only: a LoRA model's adapters are not among the names a conversion
-must cover.
+transposes but Mixtral's experts: HF stores them as separate
+``experts.{e}.w1|w2|w3`` Linears, which :class:`_Stacker` transposes and
+stacks into ``[E, ...]`` once an expert stack is whole. A Llama-lineage
+checkpoint without ``lm_head.weight`` (tied embeddings) into an untied
+model gets its head from the embeddings. Checkpoints carry the base only:
+a LoRA model's adapters are not among the names a conversion must cover.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ import json
 import logging
 import re
 from pathlib import Path
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -196,15 +203,85 @@ def _qwen3_key(key: str) -> "str | None":
     return _llama_key(key)
 
 
+class StackSlot(NamedTuple):
+    """A mapper's answer for one expert's slice of a stacked tensor: the
+    stack's ``state_dict`` name, the expert index, and whether the HF
+    ``[out, in]`` slice transposes into the stack's layout."""
+
+    name: str
+    index: int
+    transpose: bool
+
+
+# HF Mixtral's expert Linears: w1 the gate projection and w3 the up
+# projection ([F, D] -> [D, F]), w2 the down projection ([D, F] -> [F, D]).
+_EXPERT_NAMES = {"w1": "w_gate", "w3": "w_up", "w2": "w_down"}
+
+
+def _mixtral_key(key: str):
+    """HF Mixtral name -> ``state_dict`` name, a :class:`StackSlot`, or
+    None (the reference's ``_mixtral_key``)."""
+    m = re.fullmatch(r"model\.layers\.(\d+)\.block_sparse_moe\.experts\.(\d+)\.(w[123])\.weight",
+                     key)
+    if m is not None:
+        i, e, w = m.group(1), int(m.group(2)), m.group(3)
+        return StackSlot(f"layers.{i}.moe.{_EXPERT_NAMES[w]}", e, True)
+    m = re.fullmatch(r"model\.layers\.(\d+)\.block_sparse_moe\.gate\.weight", key)
+    if m is not None:  # the router Linear, [E, D] in both
+        return f"layers.{m.group(1)}.moe.gate.weight"
+    return _llama_key(key)  # attention, norms, embeddings and head are Llama's
+
+
+class _Stacker:
+    """Expert slices gathered into ``[E, ...]`` stacks. With ``expected``
+    counts (from the model's stacks) a stack is returned as soon as its
+    last slice arrives, so a streaming conversion holds one layer's
+    experts; without them, stacks are finished at the end."""
+
+    def __init__(self, expected: "dict | None" = None) -> None:
+        self._slices: dict = {}
+        self._expected = expected or {}
+
+    def add(self, slot: StackSlot, t: torch.Tensor):
+        got = self._slices.setdefault(slot.name, {})
+        if slot.index in got:
+            raise KeyError(f"duplicate expert slice {slot.index} for {slot.name}")
+        got[slot.index] = t.T if slot.transpose else t
+        if len(got) == self._expected.get(slot.name):
+            del self._slices[slot.name]
+            return slot.name, self._stack(slot.name, got)
+        return None
+
+    @staticmethod
+    def _stack(name: str, got: dict) -> torch.Tensor:
+        if sorted(got) != list(range(len(got))):
+            raise KeyError(f"{name}: expert indices {sorted(got)} are not contiguous")
+        return torch.stack([got[i] for i in range(len(got))])
+
+    def finalize(self):
+        for name, got in self._slices.items():
+            yield name, self._stack(name, got)
+        self._slices.clear()
+
+
 def hf_state_dict(state: dict) -> dict:
-    """The inverse of the Llama lineage's mapping: ``{state_dict name:
-    tensor}`` (a model's base; adapters are skipped) -> ``{HF name:
-    tensor}``, as ``save_pretrained`` names them."""
+    """The inverse of the HF mappings: ``{state_dict name: tensor}`` (a
+    model's base; adapters are skipped) -> ``{HF name: tensor}``, as
+    ``save_pretrained`` names them; Mixtral's stacks come apart into
+    ``experts.{e}.w1|w2|w3``."""
     out = {}
+    experts = {v: k for k, v in _EXPERT_NAMES.items()}
     for name, t in state.items():
         if is_lora(name):
             continue
-        if name == "lm_head":
+        m = re.fullmatch(r"layers\.(\d+)\.moe\.(w_gate|w_up|w_down)", name)
+        if m is not None:
+            for e in range(t.shape[0]):
+                key = f"model.layers.{m.group(1)}.block_sparse_moe.experts.{e}"
+                out[f"{key}.{experts[m.group(2)]}.weight"] = t[e].T.contiguous()
+        elif ".moe.gate." in name:
+            out["model." + name.replace(".moe.", ".block_sparse_moe.")] = t
+        elif name == "lm_head":
             out["lm_head.weight"] = t
         elif name == "embed_tokens" or name.endswith(("q_norm", "k_norm")):
             out[f"model.{name}.weight"] = t
@@ -221,7 +298,12 @@ HF_CONVERTERS: dict = {
     "qwen2": _qwen2_key,
     "qwen3": _qwen3_key,
     "gemma": _llama_key,
+    "mixtral": _mixtral_key,
 }
+
+# Families whose checkpoints may tie the head to the embeddings (no
+# ``lm_head.weight`` on disk); a Mixtral checkpoint without one is refused.
+_TIED_HEAD_FAMILIES = frozenset({"llama", "mistral", "qwen2", "qwen3", "gemma"})
 
 
 def _mapper(family: str) -> Callable:
@@ -253,8 +335,15 @@ def _template(model) -> dict:
     return {n: state[n] for n in base_names(model)}
 
 
-def _tied(out: dict, template: dict) -> bool:
-    return "lm_head" in template and "lm_head" not in out and "embed_tokens" in out
+def _tied(family: str, out: dict, template: dict) -> bool:
+    return (family in _TIED_HEAD_FAMILIES and "lm_head" in template and "lm_head" not in out
+            and "embed_tokens" in out)
+
+
+def _stacks(template: dict) -> dict:
+    """``{stack name: expert count}`` of a model's stacked experts."""
+    return {n: int(t.shape[0]) for n, t in template.items()
+            if n.endswith((".w_gate", ".w_up", ".w_down"))}
 
 
 def convert_state_dict(family: str, state_dict: dict, model, *,
@@ -269,13 +358,18 @@ def convert_state_dict(family: str, state_dict: dict, model, *,
     template = _template(model)
     target = dtype or torch.float32
     out: dict = {}
+    stacker = _Stacker()
     for key, value in state_dict.items():
         name = mapper(key)
+        t = value if isinstance(value, torch.Tensor) else torch.from_numpy(np.asarray(value))
+        if isinstance(name, StackSlot):
+            stacker.add(name, t.to(target))
+            continue
         if name is None or name not in template:
             continue  # a tied checkpoint's stored head, as the reference skips it
-        t = value if isinstance(value, torch.Tensor) else torch.from_numpy(np.asarray(value))
         out[name] = t.to(target)
-    if _tied(out, template):
+    out.update((n, t) for n, t in stacker.finalize() if n in template)
+    if _tied(family, out, template):
         log.info("%s: tied checkpoint; the head is the embeddings", family)
         out["lm_head"] = out["embed_tokens"]
     return _covered(out, template, f"{family} state dict")
@@ -362,8 +456,19 @@ def convert_checkpoint(family: str, path: "str | Path", model, *,
     out: dict = {}
     ckpt = ShardedCheckpoint(path)
     keys: dict = {}
+    stacker = _Stacker(_stacks(template))
+
+    def put_stack(name, t):
+        _check(name, t, template, str(path))
+        out[name] = put(name, t.to(dtype or template[name].dtype))
+
     for key in ckpt.keys():
         name = mapper(key)
+        if isinstance(name, StackSlot):
+            done = stacker.add(name, ckpt.tensor(key))
+            if done is not None:  # the stack's last expert: emitted, its slices freed
+                put_stack(*done)
+            continue
         if name is None:
             continue
         keys[name] = key
@@ -372,7 +477,10 @@ def convert_checkpoint(family: str, path: "str | Path", model, *,
         t = ckpt.tensor(key)
         _check(name, t, template, str(path))
         out[name] = put(name, t.to(dtype or template[name].dtype))
-    if _tied(out, template):
+    for name, t in stacker.finalize():  # stacks the model does not expect
+        if name in template:
+            put_stack(name, t)
+    if _tied(family, out, template):
         log.info("%s: tied checkpoint; the head is the embeddings", family)
         t = ckpt.tensor(keys["embed_tokens"])
         out["lm_head"] = put("lm_head", t.to(dtype or template["lm_head"].dtype))

@@ -265,27 +265,30 @@ class _Remat(torch.autograd.Function):
     """One block rematerialized (``remat``): the forward keeps only the
     block's inputs, the backward runs the block again and differentiates
     it, the same bits as ``torch.utils.checkpoint`` (whose first call
-    imports torch._dynamo: seconds of a trainer's first step). The block's
+    imports torch._dynamo: seconds of a trainer's first step). ``run(x,
+    cos, sin)`` is the block's training forward, returning a tensor or a
+    tuple of them (a Mixtral block's output and aux loss); the block's
     parameters are inputs, so ``torch.autograd.grad`` over them works."""
 
     @staticmethod
-    def forward(ctx, block, x, cos, sin, layer, *params):
-        ctx.block, ctx.layer = block, layer
+    def forward(ctx, run, x, cos, sin, *params):
+        ctx.run, ctx.params = run, params
         ctx.save_for_backward(x, cos, sin)
-        return block(x, cos, sin, None, layer, None)
+        return run(x, cos, sin)
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, *grad):
         x, cos, sin = ctx.saved_tensors
         with torch.enable_grad():
             xg = x.detach().requires_grad_(x.requires_grad)
-            out = ctx.block(xg, cos, sin, None, ctx.layer, None)
-        inputs = (xg, *ctx.block.parameters())
+            out = ctx.run(xg, cos, sin)
+        outs = out if isinstance(out, tuple) else (out,)
+        inputs = (xg, *ctx.params)
         need = [t.requires_grad for t in inputs]
-        got = iter(torch.autograd.grad(out, [t for t, n in zip(inputs, need) if n], grad,
+        got = iter(torch.autograd.grad(outs, [t for t, n in zip(inputs, need) if n], grad,
                                        allow_unused=True))
         grads = [next(got) if n else None for n in need]
-        return (None, grads[0], None, None, None, *grads[1:])
+        return (None, grads[0], None, None, *grads[1:])
 
 
 class _Block(nn.Module):
@@ -392,7 +395,7 @@ class Llama(nn.Module):
         for name, d, transposed in self.init_plan(int(seed)):
             leaf = params[name]
             if d is None:
-                if name.endswith("norm.weight") and self.config.rms_offset:
+                if name.endswith("norm.weight") and getattr(self.config, "rms_offset", False):
                     leaf.zero_()
                 elif name.endswith("norm.weight") or name.endswith(("q_norm", "k_norm")):
                     leaf.fill_(1.0)
@@ -435,7 +438,10 @@ class Llama(nn.Module):
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             if remat:  # the block's forward runs again in the backward
-                x = _Remat.apply(layer, x, cos, sin, i, *layer.parameters())
+                def run(x, cos, sin, layer=layer, i=i):
+                    return layer(x, cos, sin, None, i, None)
+
+                x = _Remat.apply(run, x, cos, sin, *layer.parameters())
             else:
                 x = layer(x, cos, sin, cache, i, offset)
         if cache is not None:

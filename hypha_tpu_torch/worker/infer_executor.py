@@ -336,8 +336,8 @@ class InProcessInferExecutor(JobExecutor):
 
             # "auto": the JAX executor asks its ``supports_pool`` whether
             # the family has a per-row decode path. The port has no such
-            # test because every model its registry builds is of the
-            # Llama lineage, which has one: auto is continuous unless a
+            # test because every model its registry builds (the Llama
+            # lineage and Mixtral) has one: auto is continuous unless a
             # negative window opts into independent decodes.
             mode = cfg.scheduling
             if mode == "auto":

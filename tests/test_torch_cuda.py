@@ -2044,8 +2044,8 @@ def test_pipelined_trainer_on_the_card_equals_the_sync_trainer(cuda, tmp_path):
     seen: list = []
     make = training.make_train_step
 
-    def recording(model, optimizer, loss):
-        step = make(model, optimizer, loss)
+    def recording(model, optimizer, loss, **kw):
+        step = make(model, optimizer, loss, **kw)
 
         def wrapped(batch):
             assert batch["input_ids"].is_cuda
@@ -2162,3 +2162,141 @@ def test_spec_ngram_pool_verifies_on_the_mma_route(cuda):
             assert pool.stats["spec_accepted"] > 0
         else:
             assert ragged_paged_attention.decode_launches > 0
+
+
+# A narrow Mixtral for the card: heads of 64 (the kernels take 64 or 128),
+# GQA 4/2, 4 experts of 512, top 2, bf16 compute, seeded.
+MOE_TINY = {"family": "mixtral", "preset": "tiny", "seed": 6,
+            "config": {"hidden_size": 256, "intermediate_size": 512, "max_seq_len": 512}}
+# bf16 logits of the card (flash or ragged kernels, cuBLAS) against the
+# CPU's (plain attention): both round to bf16 at other points (the Llama
+# pair's bound, tests/test_torch_llama.py's BF16_ATOL).
+MOE_BF16_ATOL = 0.05
+# A router pick may flip where the CPU's k-th and (k+1)-th router
+# probabilities lie within this of each other: the router's f32 input is
+# the bf16 residual, which the two devices round apart.
+ROUTER_NEAR_TIE = 2e-2
+
+
+def _router_picks(model, ids, **kw):
+    """The forward's logits and, per layer, each token's top-k experts and
+    the gap between its k-th and (k+1)-th router probability."""
+    picks: list = []
+
+    def hook(mod, args, out):
+        probs = torch.softmax(out.float(), dim=-1).cpu()
+        top = probs.topk(model.config.experts_per_token + 1, dim=-1).values
+        k = model.config.experts_per_token
+        picks.append((probs.topk(k, dim=-1).indices.sort(-1).values, top[..., k - 1] - top[..., k]))
+
+    handles = [layer.moe.gate.register_forward_hook(hook) for layer in model.layers]
+    try:
+        logits, aux = model(ids, **kw)
+    finally:
+        for h in handles:
+            h.remove()
+    return logits, aux, picks
+
+
+def _agreeing_prefix(cpu_picks, card_picks, S):
+    """Per row, the positions before the first routing flip of any layer
+    (attention carries a flip to later positions, and a flip to later
+    layers); each row's first flip, at its lowest layer, must be a
+    near-tie of the CPU's router. Returns (prefix lengths, flips)."""
+    B = cpu_picks[0][0].shape[0]
+    first = {}
+    flips = 0
+    for (ci, gap), (gi, _) in zip(cpu_picks, card_picks):
+        for b, s in (ci != gi).any(-1).nonzero().tolist():
+            if s < first.get(b, (S, 0.0))[0]:
+                first[b] = (s, float(gap[b, s]))
+            flips += 1
+    for b, (s, gap) in first.items():
+        assert gap <= ROUTER_NEAR_TIE, (b, s, gap)
+    return [first.get(b, (S, 0.0))[0] for b in range(B)], flips
+
+
+def test_mixtral_training_forward_on_the_card_matches_the_cpu(cuda):
+    """A narrow Mixtral (2 layers, remat, capacity routing) trains one step
+    through the flash kernels: logits within ``MOE_BF16_ATOL`` of the CPU's
+    plain attention on the same seeded weights up to each row's first
+    routing flip (a flip counts only at a near-tie of the CPU's router),
+    the aux loss within 1e-3, the gradients finite, and the flash forward
+    (twice a layer: remat), dQ and dK/dV launched once a layer, no plain
+    attention. TF32 stays off, so the f32 router picks what the CPU's
+    picks."""
+    from hypha_tpu_torch.ops.flash_attention import flash_attention
+    from hypha_tpu_torch.worker.infer_executor import load_model
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    spec = {**MOE_TINY, "serve_dtype": "float32",
+            "config": {**MOE_TINY["config"], "remat": True}}
+    cpu = load_model(spec, device="cpu").requires_grad_(True)
+    card = load_model(spec, device="cuda").requires_grad_(True)
+    for layer in card.layers:
+        layer.self_attn.attn_impl = flash_attention
+    ids = torch.randint(0, 256, (2, 256), generator=torch.Generator().manual_seed(7))
+    want, want_aux, cpu_picks = _router_picks(cpu, ids)
+    before = (flash_attention.fwd_launches, flash_attention.dq_launches,
+              flash_attention.dkv_launches, flash_attention.plain_calls)
+    got, aux, card_picks = _router_picks(card, ids.cuda())
+    grads = torch.autograd.grad(got.float().logsumexp(-1).mean() + aux, list(card.parameters()))
+    after = (flash_attention.fwd_launches, flash_attention.dq_launches,
+             flash_attention.dkv_launches, flash_attention.plain_calls)
+    layers = card.config.num_layers
+    assert [a - b for a, b in zip(after, before)] == [2 * layers, layers, layers, 0]
+    assert all(torch.isfinite(g).all() for g in grads)
+    first, flips = _agreeing_prefix(cpu_picks, card_picks, ids.shape[1])
+    for b, n in enumerate(first):
+        err = (got[b, :n].detach().cpu() - want[b, :n].detach()).abs().max()
+        assert float(err) <= MOE_BF16_ATOL, (b, n, float(err), flips)
+    assert abs(float(aux.detach()) - float(want_aux)) <= 1e-3
+    print(f"mixtral training forward: {flips} routing flips, prefixes {first}")
+
+
+def test_mixtral_pool_on_the_card_answers_as_the_cpu(cuda):
+    """The same seeded narrow Mixtral served in bf16: the paged pool on the
+    card (the ragged kernel's decode and mma routes, drop-free MoE) gives
+    the CPU's greedy ``generate`` tokens (plain attention), except where a
+    stream parts at a near-tie of the CPU's full forward (top two within
+    ``BF16_NEAR_TIE``); its first prefill logits lie within
+    ``MOE_BF16_ATOL`` of the CPU's drop-free forward up to the first
+    routing flip."""
+    from hypha_tpu_torch.executor.generate import generate
+    from hypha_tpu_torch.executor.pool import DecodePool
+    from hypha_tpu_torch.ops.paged_attention import ragged_paged_attention as r
+    from hypha_tpu_torch.worker.infer_executor import load_model
+
+    cpu = load_model(MOE_TINY, device="cpu")
+    card = load_model(MOE_TINY, device="cuda")
+    prompts = [[(i * 7 + 3 * j) % 250 + 1 for i in range(n)] for j, n in enumerate((9, 40, 77))]
+    with torch.inference_mode():
+        ids = torch.tensor([prompts[2]])
+        want, _, cpu_picks = _router_picks(cpu, ids, dropless=True)
+        got, _, card_picks = _router_picks(card, ids.cuda(), dropless=True)
+    first, flips = _agreeing_prefix(cpu_picks, card_picks, ids.shape[1])
+    err = (got[0, :first[0]].cpu() - want[0, :first[0]]).abs().max()
+    assert float(err) <= MOE_BF16_ATOL, (float(err), first, flips)
+    r.decode_launches = r.mma_launches = r.simt_launches = 0
+    pool = DecodePool(card, slots=4, max_len=512, steps_per_call=8, block_size=16,
+                      prefill_chunk=64, ragged=True)
+    try:
+        outs = [f.result(timeout=300)[0] for f in [pool.submit([p], 24) for p in prompts]]
+    finally:
+        pool.close()
+    assert r.decode_launches > 0 and r.mma_launches > 0 and r.simt_launches == 0
+    splits = 0
+    for p, out in zip(prompts, outs):
+        with torch.inference_mode():
+            ref = generate(cpu, [p], 24)[0].tolist()
+        if out == ref:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(out, ref)) if a != b)
+        with torch.inference_mode():
+            top = cpu(torch.tensor([p + ref[:i]]))[0][0, -1].float().topk(2)
+        gap = float(top.values[0] - top.values[1])
+        assert sorted(top.indices.tolist()) == sorted([out[i], ref[i]]), (i, out, ref)
+        assert gap <= BF16_NEAR_TIE * abs(float(top.values[0])), (i, gap, out, ref)
+        splits += 1
+    print(f"mixtral pool: {splits} near-tie splits of {len(prompts)} streams, "
+          f"{flips} routing flips in the prefill check")

@@ -497,12 +497,12 @@ def test_orchestrated_kill_worker_and_kill_ps_on_the_cpu(monkeypatch):
 # ------------------------------------------- a mixed JAX/torch elastic job
 
 
-def _mixed_ft_job(pkg: str, weights: "Path | None", ckpt: Path):
+def _mixed_ft_job(pkg: str, weights: "Path | None", ckpt: Path, family: str = "llama"):
     from hypha_tpu.scheduler import job_config as jjob
     from hypha_tpu_torch.scheduler import job_config as tjob
 
     m, job, ft = (jmsg, jjob, jm) if pkg == "jax" else (tmsg, tjob, tm)
-    model = {"model_type": "causal-lm", "family": "llama", "preset": "tiny",
+    model = {"model_type": "causal-lm", "family": family, "preset": "tiny",
              "config": {"dtype": "float32"}, "seed": 7}
     if weights is not None:
         model["source"] = m.to_json_dict(m.Fetch(m.Reference.from_uri(weights.as_uri())))
@@ -524,7 +524,7 @@ def _mixed_ft_job(pkg: str, weights: "Path | None", ckpt: Path):
         checkpoint_dir=str(ckpt))
 
 
-@pytest.mark.parametrize("scheduler", ["jax", "port", "port-seeded"])
+@pytest.mark.parametrize("scheduler", ["jax", "port", "port-seeded", "jax-mixtral-seeded"])
 def test_mixed_workers_run_an_elastic_job(tmp_path, scheduler, monkeypatch):
     """A JAX and a torch worker under ``scheduler``'s orchestrator, gateway
     and data node, the parameter server the other package's (so the
@@ -534,7 +534,11 @@ def test_mixed_workers_run_an_elastic_job(tmp_path, scheduler, monkeypatch):
     ``port-seeded`` ships no ``source``: each trainer draws θ₀ from the
     job's seed (``models/seed_init.py`` in the port), and the two draws
     are bit-equal, so a torch rejoiner's θ₀ + Σ is the job's (before, the
-    port drew another θ₀)."""
+    port drew another θ₀). ``jax-mixtral-seeded`` is that job on a tiny
+    Mixtral under the JAX scheduler: both θ₀ bit-equal, and the two
+    trainers' Δθ files carry the same names, dtypes and shapes each round
+    (the router's ``moe/gate/kernel`` transposed, the expert stacks in the
+    flax layout)."""
     from hypha_tpu.data_node import DataNode as JDataNode
     from hypha_tpu.gateway import Gateway as JGateway
     from hypha_tpu.network import Node as JNode
@@ -564,9 +568,10 @@ def test_mixed_workers_run_an_elastic_job(tmp_path, scheduler, monkeypatch):
         save_file({"input_ids": ((starts + np.arange(16)) % 256).astype(np.int32)},
                   str(data_dir / f"slice_{i:04d}.safetensors"))
     ckpt = tmp_path / "ckpt"
-    seeded = scheduler == "port-seeded"
-    scheduler = "port" if seeded else scheduler
-    job = _mixed_ft_job(scheduler, None if seeded else weights, ckpt)
+    family = "mixtral" if "mixtral" in scheduler else "llama"
+    seeded = scheduler.endswith("seeded")
+    scheduler = scheduler.split("-")[0]
+    job = _mixed_ft_job(scheduler, None if seeded else weights, ckpt, family)
     listen = ["127.0.0.1:0"]
     short = Path(tempfile.mkdtemp(prefix="tmx"))  # a bridge socket path stays under 108 bytes
 
@@ -610,10 +615,12 @@ def test_mixed_workers_run_an_elastic_job(tmp_path, scheduler, monkeypatch):
     theta0 = {"jax": [], "torch": []}  # each trainer's θ₀, as flat f32 arrays
     if seeded:
         from hypha_tpu.models import llama as jllama
+        from hypha_tpu.models import mixtral as jmixtral
         from hypha_tpu_torch.models import llama as tllama
         from hypha_tpu_torch.models.convert import llama_params_to_flat
 
-        j_init, t_init = jllama.Llama.init, tllama.Llama.init_weights
+        jmodel = jmixtral.Mixtral if family == "mixtral" else jllama.Llama
+        j_init, t_init = jmodel.init, tllama.Llama.init_weights  # Mixtral's is Llama's
 
         def record_jax(self, *a, **kw):
             out = j_init(self, *a, **kw)
@@ -626,7 +633,7 @@ def test_mixed_workers_run_an_elastic_job(tmp_path, scheduler, monkeypatch):
             theta0["torch"].append({k: v.copy() for k, v in llama_params_to_flat(self).items()})
             return out
 
-        monkeypatch.setattr(jllama.Llama, "init", record_jax)
+        monkeypatch.setattr(jmodel, "init", record_jax)
         monkeypatch.setattr(tllama.Llama, "init_weights", record_torch)
     try:
         with chip_smoke.node_probes("cpu") as rec:
@@ -649,6 +656,13 @@ def test_mixed_workers_run_an_elastic_job(tmp_path, scheduler, monkeypatch):
     if scheduler == "jax":  # the port's server folded both deltas each round
         assert sorted((d["from"], d["round"]) for d in rec["deltas"]) == sorted(
             (w, r) for w in ("wjax", "wtorch") for r in range(2))
+    if family == "mixtral":  # one Δθ layout on the wire from both packages
+        for r in range(2):
+            wire = {d["from"]: d["tensors"] for d in rec["deltas"] if d["round"] == r}
+            assert wire["wjax"] == wire["wtorch"], r
+        names = wire["wtorch"]
+        assert names["params/layers_1/moe/w_down"] == ("F32", (4, 128, 64))
+        assert names["params/layers_0/moe/gate/kernel"] == ("F32", (64, 4))
 
 
 @pytest.mark.parametrize("over", [

@@ -1,12 +1,17 @@
-"""Port parity: HF-format checkpoints of the Llama lineage as initial
-weights. A random-init ``transformers`` ``LlamaForCausalLM`` and a
-tied-embedding ``Qwen2ForCausalLM`` (2 layers, hidden 64), written by
-``save_pretrained`` as one SafeTensors file, as a sharded directory with
-its ``.index.json`` and as ``pytorch_model.bin``, load into the JAX
-package and the port to the same parameters: through the trainer's
-``source`` (``_init_model``, LoRA adapters left at their init) and through
-the serving loader's ``weights``. The converter's name mapping, tied-head
-materialisation and loud failures are the reference's."""
+"""Port parity: HF-format checkpoints as initial weights. Random-init
+``transformers`` models of the Llama lineage (2 layers, hidden 64:
+``LlamaForCausalLM``, a tied-embedding ``Qwen2ForCausalLM``, a windowed
+``MistralForCausalLM``, ``Qwen3ForCausalLM`` with QK-norm and a tied
+``GemmaForCausalLM``), written by ``save_pretrained`` as one SafeTensors
+file, as a sharded directory with its ``.index.json`` and as
+``pytorch_model.bin``, load into the JAX package and the port to the same
+parameters: through the trainer's ``source`` (``_init_model``, LoRA
+adapters left at their init) and through the serving loader's
+``weights``. The converter's name mapping, tied-head materialisation and
+loud failures are the reference's. A ``MixtralForCausalLM`` (experts
+stacked by the converters) loads through both packages' converters, in
+memory and streamed, to the same parameters and logits, and serves
+through the port's infer executor."""
 
 from __future__ import annotations
 
@@ -41,16 +46,25 @@ def _hf_model(kind: str):
     if kind == "llama":
         cfg = transformers.LlamaConfig(**SMALL, tie_word_embeddings=False)
         model = transformers.LlamaForCausalLM(cfg)
-    else:  # Qwen2 with q/k/v biases and a tied head (no lm_head.weight on disk)
+    elif kind == "qwen2":  # q/k/v biases and a tied head (no lm_head.weight on disk)
         cfg = transformers.Qwen2Config(**SMALL, tie_word_embeddings=True)
         model = transformers.Qwen2ForCausalLM(cfg)
+    elif kind == "mistral":  # a window shorter than the logits check's 12 positions
+        cfg = transformers.MistralConfig(**SMALL, sliding_window=6, tie_word_embeddings=False)
+        model = transformers.MistralForCausalLM(cfg)
+    elif kind == "qwen3":  # QK-norm, head_dim set apart from hidden / heads
+        cfg = transformers.Qwen3Config(**SMALL, head_dim=16, tie_word_embeddings=False)
+        model = transformers.Qwen3ForCausalLM(cfg)
+    else:  # Gemma: offset norms, GeGLU, scaled embeddings, a tied head
+        cfg = transformers.GemmaConfig(**SMALL, head_dim=32)
+        model = transformers.GemmaForCausalLM(cfg)
     with torch.no_grad():  # every tensor non-trivial: norms and biases too
         for p in model.parameters():
             p.add_(0.05 * torch.randn_like(p))
     return model, cfg.to_dict()
 
 
-@pytest.fixture(scope="module", params=["llama", "qwen2"])
+@pytest.fixture(scope="module", params=["llama", "qwen2", "mistral", "qwen3", "gemma"])
 def repo(request, tmp_path_factory):
     """One model written three ways: ``single`` (model.safetensors),
     ``sharded`` (shards + index.json) and ``bin`` (pytorch_model.bin)."""
@@ -109,13 +123,16 @@ def test_trainer_source_loads_the_same_parameters(repo, layout, lora):
     hf_state = repo["model"].state_dict()
     embed = hf_state["model.embed_tokens.weight"].numpy()
     np.testing.assert_array_equal(tflat["params/embed_tokens"], embed)
-    if kind == "llama":
-        kernel = hf_state["model.layers.1.self_attn.k_proj.weight"].numpy().T
-        np.testing.assert_array_equal(tflat["params/layers_1/self_attn/k_proj/kernel"], kernel)
-    else:
+    kernel = hf_state["model.layers.1.self_attn.k_proj.weight"].numpy().T
+    np.testing.assert_array_equal(tflat["params/layers_1/self_attn/k_proj/kernel"], kernel)
+    if repo["hf"]["tie_word_embeddings"]:
         assert "params/lm_head" not in tflat  # tied, as the checkpoint's config says
+    if kind == "qwen2":
         bias = hf_state["model.layers.0.self_attn.v_proj.bias"].numpy()
         np.testing.assert_array_equal(tflat["params/layers_0/self_attn/v_proj/bias"], bias)
+    if kind == "qwen3":
+        norm = hf_state["model.layers.0.self_attn.k_norm.weight"].numpy()
+        np.testing.assert_array_equal(tflat["params/layers_0/self_attn/k_norm"], norm)
     adapters = [n for n in tflat if "_lora_" in n]
     assert len(adapters) == (2 * 2 * 2 if lora else 0)
     for name in adapters:
@@ -190,7 +207,7 @@ def test_tied_checkpoint_materialises_an_untied_head(repo):
     out = TC.convert_state_dict(repo["kind"], state, model)
     assert torch.equal(out["lm_head"], out["embed_tokens"])
     streamed = TC.convert_checkpoint(repo["kind"], repo["root"] / "sharded", model)
-    if repo["kind"] == "qwen2":
+    if repo["hf"]["tie_word_embeddings"]:
         assert torch.equal(model.lm_head, model.embed_tokens)
         assert set(streamed) == set(out)
 
@@ -230,3 +247,170 @@ def test_hf_state_dict_round_trips(family):
         assert torch.equal(back[name], t), name
         flat, _ = JC.HF_CONVERTERS[family](next(k for k in hf if hf[k] is t))
         assert TC._torch_name(flat)[0] == name
+
+
+# ------------------------------------------------------------------- Mixtral
+
+MOE_SMALL = dict(vocab_size=256, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                 num_attention_heads=4, num_key_value_heads=2, num_local_experts=4,
+                 num_experts_per_tok=2, max_position_embeddings=128, tie_word_embeddings=False)
+# The registry builds Mixtral from its default config plus these overrides
+# (the reference's MixtralConfig has no from_hf), matching MOE_SMALL.
+MOE_CONFIG = {"vocab_size": 256, "hidden_size": 64, "intermediate_size": 128, "num_layers": 2,
+              "num_heads": 4, "num_kv_heads": 2, "num_experts": 4, "experts_per_token": 2,
+              "max_seq_len": 128, "rope_theta": 1e6, "dtype": "float32"}
+
+
+@pytest.fixture(scope="module")
+def moe_repo(tmp_path_factory):
+    """A random-init ``MixtralForCausalLM`` (every tensor with noise) as one
+    SafeTensors file and as a sharded directory with its index."""
+    torch.manual_seed(21)
+    cfg = transformers.MixtralConfig(**MOE_SMALL)
+    model = transformers.MixtralForCausalLM(cfg)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+    root = tmp_path_factory.mktemp("mixtral")
+    model.save_pretrained(root / "single", safe_serialization=True)
+    model.save_pretrained(root / "sharded", safe_serialization=True, max_shard_size="100KB")
+    assert (root / "sharded" / "model.safetensors.index.json").is_file()
+    return {"root": root, "model": model.eval()}
+
+
+@pytest.mark.parametrize("how", ["in memory", "streamed"])
+def test_mixtral_checkpoint_converts_alike_in_both_packages(moe_repo, how):
+    """``convert_state_dict`` (the whole state dict) and the streaming
+    ``convert_checkpoint`` (the sharded repo, each expert stack emitted as
+    its last slice arrives) of both packages give equal f32 parameters;
+    the port's logits equal the ``transformers`` model's within 1e-4, as
+    the JAX model's do."""
+    import dataclasses
+
+    import jax
+
+    from hypha_tpu.models.mixtral import Mixtral as JMixtral
+    from hypha_tpu.models.mixtral import MixtralConfig as JMC
+
+    jcfg = dataclasses.replace(JMC(), **MOE_CONFIG)
+    template = JMixtral(jcfg).init(jax.random.key(0), jnp.zeros((1, 8), jnp.int32))
+    tm, _ = build_model({"family": "mixtral", "config": MOE_CONFIG}, device="cpu")
+    root = moe_repo["root"]
+    if how == "in memory":
+        state = TC.load_checkpoint_files([root / "single" / "model.safetensors"])
+        jparams = JC.convert_state_dict("mixtral", {k: v.float().numpy() for k, v in state.items()},
+                                        template)
+        TC.load_state(tm, TC.convert_state_dict("mixtral", state, tm))
+    else:
+        stacks: list = []
+        jparams = JC.convert_checkpoint("mixtral", root / "sharded", template)
+        TC.convert_checkpoint("mixtral", root / "sharded", tm,
+                              put=lambda n, t: stacks.append(n) or tm.state_dict()[n].copy_(t))
+        assert "layers.1.moe.w_down" in stacks
+    jflat, tflat = flatten_tree(jparams), llama_params_to_flat(tm)
+    assert set(tflat) == set(jflat)
+    for name, arr in jflat.items():
+        np.testing.assert_array_equal(tflat[name], arr, err_msg=name)
+    hf = moe_repo["model"].state_dict()
+    w1 = hf["model.layers.1.block_sparse_moe.experts.2.w1.weight"].numpy()
+    np.testing.assert_array_equal(tflat["params/layers_1/moe/w_gate"][2], w1.T)
+    ids = np.random.default_rng(0).integers(0, 256, (2, 12))
+    with torch.no_grad():
+        want = moe_repo["model"](torch.from_numpy(ids)).logits.numpy()
+        got, _aux = tm(torch.from_numpy(ids), dropless=True)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+    jlogits, _ = JMixtral(jcfg, dropless=True).apply(jparams, ids)
+    np.testing.assert_allclose(np.asarray(jlogits), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("layout", ["single", "sharded"])
+def test_mixtral_trainer_source_loads_the_same_parameters(moe_repo, layout):
+    """Each package's ``_init_model`` on the HF Mixtral files as the job's
+    ``source`` (the registry's default config plus the overrides, as the
+    reference's ``MixtralConfig`` has no ``from_hf``): equal f32
+    parameters, the experts stacked; a LoRA job is refused by both
+    (``MixtralConfig`` has no LoRA fields)."""
+    root = moe_repo["root"]
+    cfg = _spec("mixtral", moe_repo["model"].config.to_dict(), config=MOE_CONFIG)
+    session = _Fetch(root, root / layout)
+    first = {"input_ids": np.zeros((1, 8), np.int32)}
+    _jm, jparams, _c, has_aux = jax_init_model(cfg, session, root, first)
+    tm = port_init_model(tmsg.from_json_dict(jmsg.to_json_dict(cfg)), session, root,
+                         torch.device("cpu"))
+    assert has_aux
+    jflat, tflat = flatten_tree(jparams), llama_params_to_flat(tm)
+    assert set(tflat) == set(jflat)
+    for name, arr in jflat.items():
+        np.testing.assert_array_equal(tflat[name], arr, err_msg=name)
+    lora = _spec("mixtral", moe_repo["model"].config.to_dict(), lora={"rank": 4},
+                 config=MOE_CONFIG)
+    with pytest.raises(TypeError):
+        jax_init_model(lora, session, root, first)
+    with pytest.raises(TypeError):
+        port_init_model(tmsg.from_json_dict(jmsg.to_json_dict(lora)), session, root,
+                        torch.device("cpu"))
+
+
+def test_mixtral_checkpoint_refuses_a_missing_expert(moe_repo):
+    """A stack with an expert missing fails loudly, streamed or not, and a
+    Mixtral checkpoint without its head gets none from the embeddings."""
+    tm, _ = build_model({"family": "mixtral", "config": MOE_CONFIG}, device="cpu")
+    state = TC.load_checkpoint_files([moe_repo["root"] / "single" / "model.safetensors"])
+    with pytest.raises(KeyError, match="not contiguous"):
+        TC.convert_state_dict("mixtral", {k: v for k, v in state.items()
+                                          if "experts.1.w3" not in k}, tm)
+    with pytest.raises(KeyError, match="missing"):
+        TC.convert_state_dict("mixtral", {k: v for k, v in state.items()
+                                          if k != "lm_head.weight"}, tm)
+
+
+def test_mixtral_repo_serves_through_the_infer_executor(moe_repo):
+    """The HF repo directory as ``weights`` of a Mixtral infer job on the
+    port's executor over ``MemoryTransport`` (the counterpart of the JAX
+    package's ``test_serving_mixtral_from_hf_repo``): the answers are
+    greedy-deterministic, equal ``generate`` on the same weights, and the
+    continuous pool served them (``auto`` scheduling)."""
+    import asyncio
+
+    from hypha_tpu_torch.executor.generate import generate
+    from hypha_tpu_torch.messages import (INFER_EXECUTOR_NAME, Executor, InferExecutorConfig,
+                                          JobSpec)
+    from hypha_tpu_torch.network import MemoryTransport, Node
+    from hypha_tpu_torch.worker.continuous import PoolServer
+    from hypha_tpu_torch.worker.infer_executor import InProcessInferExecutor, generate_remote
+
+    model = {"family": "mixtral", "config": MOE_CONFIG, "weights": str(moe_repo["root"] / "sharded"),
+             "serve_dtype": "float32"}
+    prompts = [[3, 1, 4], [1, 5, 9, 2, 6]]
+
+    async def main():
+        hub = MemoryTransport()
+        gw = Node(hub.shared(), peer_id="gw", registry_server=True)
+        await gw.start()
+        worker = Node(hub.shared(), peer_id="w", bootstrap=[gw.listen_addrs[0]])
+        client = Node(hub.shared(), peer_id="c", bootstrap=[gw.listen_addrs[0]])
+        await worker.start()
+        await client.start()
+        await worker.wait_for_bootstrap(5)
+        await client.wait_for_bootstrap(5)
+        ex = InProcessInferExecutor(worker, torch.device("cpu"))
+        spec = JobSpec(job_id="job-moe", executor=Executor(
+            kind="infer", name=INFER_EXECUTOR_NAME,
+            infer=InferExecutorConfig(model=model, serve_name="moe", pool_block_size=8)))
+        execution = await ex.execute("job-moe", spec, "s")
+        try:
+            first = [await generate_remote(client, "moe", [p], 6, timeout=120) for p in prompts]
+            again = [await generate_remote(client, "moe", [p], 6, timeout=120) for p in prompts]
+            served_by_pool = isinstance(ex.batchers["job-moe"], PoolServer)
+        finally:
+            await execution.cancel()
+            await client.stop()
+            await worker.stop()
+            await gw.stop()
+        return first, again, served_by_pool
+
+    first, again, served_by_pool = asyncio.run(main())
+    assert first == again and all(len(t[0]) == 6 for t in first)
+    assert served_by_pool
+    tm = load_model(model, device="cpu")
+    assert [generate(tm, [p], 6)[0].tolist() for p in prompts] == [t[0] for t in first]
